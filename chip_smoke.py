@@ -1,0 +1,630 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``hetu_tpu_torch``) on one NVIDIA
+GPU: builds the hand-written kernels, holds each against its plain
+PyTorch version, and serves GPT-2 small through ``ServingEngine``.
+
+Run from the repository root, on a machine with one CUDA card::
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+
+1. device  -- the card's name and power limit (``nvidia-smi``); compute
+   capability 9.0 (Hopper) is required.
+2. build   -- ``nvcc`` builds every kernel from ``hetu_tpu_torch/csrc``.
+3. kernel  -- each kernel against its plain version on the card, at the
+   serving path's shapes (fp32 and bf16) and at edge shapes; max abs
+   error against its bound (1e-4 fp32: summation order; 2e-2 bf16:
+   output rounding), and times: kernel, plain version, one PyTorch
+   library call computing the same function (a yardstick the port never
+   calls), and the bound (bytes over 3.35 TB/s or flops over the peak
+   rate, whichever is larger). Every timed launch finds the L2 cold.
+4. engine  -- GPT-2 small (fp32, random weights from a seed) served by
+   ``ServingEngine(slots=16, max_len=512, prefill_chunk=64,
+   block_size=16)``: 48 greedy requests with 4-448-token prompts and
+   ``max_tokens=64``, then 16 that share a 128-token system prompt. The
+   launch counters are zeroed just before and read just after; each
+   kernel must have launched 12 times (once per layer) per engine
+   iteration of the lanes that run it. Every request's tokens must equal
+   the one-shot ``generate`` oracle (dense cache, plain attention: no
+   kernel), except at a step where the oracle's top-2 logit gap is below
+   1e-4 (a near-tie, printed).
+5. summary -- one ``{"kernels": [...]}`` line, the card's name and power
+   limit, and last ``{"ok": true, "device": {...}}``.
+
+Any failure exits nonzero before the ``ok`` line. Without a CUDA device,
+or without the ``hetu_tpu_torch`` package beside this file, it exits
+nonzero at once.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
+PEAK_FLOPS = {torch.float32: 67e12,       # CUDA cores, no tensor cores
+              torch.bfloat16: 989e12}     # dense tensor-core bf16
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+SEED = 0
+L2_FLUSH_BYTES = 256 << 20
+C = 64                             # the engine's prefill chunk
+#: one packed prefill chunk as the engine builds it: (slot, tokens, chunk
+#: start) per request run -- a third chunk of a long prompt, a new prompt,
+#: a second chunk -- then 5 pad tokens (segment -1)
+PACK = ((3, 20, 128), (7, 9, 0), (0, 30, 64))
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def emit(**obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return out.stdout.strip().splitlines()[0]
+
+
+# -- timing ------------------------------------------------------------------
+
+class Timer:
+    """Device time of one call, averaged over ``iters`` launches, each
+    after a write of ``L2_FLUSH_BYTES`` that evicts the 50 MB L2 (the
+    engine reads a different layer's arena every call)."""
+
+    def __init__(self, device):
+        self.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
+                                 device=device)
+
+    def __call__(self, fn, iters: int = 30, warmup: int = 3) -> float:
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        pairs = []
+        for _ in range(iters):
+            self.flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            pairs.append((start, end))
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) \
+        if got.numel() else 0.0
+
+
+# -- kernel cases ------------------------------------------------------------
+
+def paged_case(gens, device, dtype, *, R, hq, hkv, d, bs, W, n_blocks,
+               offsets, row_slot=None):
+    """q (S, R, hq, d) with S = len(offsets), an arena of ``n_blocks``
+    pages, and per-row tables: row i reads the table of request
+    ``row_slot[i]`` (default: its own), which maps the request's live
+    pages to distinct random blocks and pads the rest with the null
+    block 0."""
+    S = len(offsets)
+    row_slot = list(range(S)) if row_slot is None else list(row_slot)
+    gen = gens.device
+    q = torch.randn(S, R, hq, d, generator=gen, device=device).to(dtype)
+    k = torch.randn(n_blocks, bs, hkv, d, generator=gen,
+                    device=device).to(dtype)
+    v = torch.randn(n_blocks, bs, hkv, d, generator=gen,
+                    device=device).to(dtype)
+    live: dict[int, int] = {}
+    for o, slot in zip(offsets, row_slot):
+        live[slot] = max(live.get(slot, 0), min(W, -(-(int(o) + R) // bs)))
+    perm = (torch.randperm(n_blocks - 1, generator=gens.host) + 1).tolist()
+    check(sum(live.values()) <= n_blocks - 1, "paged case overfills arena")
+    table = {}
+    for slot, n in live.items():
+        table[slot] = perm[:n] + [0] * (W - n)
+        perm = perm[n:]
+    tables = torch.tensor([table[slot] for slot in row_slot],
+                          dtype=torch.int32)
+    off = torch.as_tensor(offsets, dtype=torch.int32)
+    return q, k, v, tables.to(device), off.to(device)
+
+
+def paged_work(q, k, tables, off):
+    """Bytes and flops the paged call needs on these inputs: every arena
+    row some slot attends read once (slots that share pages share the
+    read), q read and out/lse written once; 4 flops per (row, key, head,
+    column) for q.k and p.v."""
+    S, R, hq, d = q.shape
+    bs, hkv = k.shape[1], k.shape[2]
+    item = q.element_size()
+    W = tables.shape[1]
+    tables, off = tables.long().cpu(), off.long().cpu()
+    pos = torch.arange(W * bs)
+    seen = pos[None, :] < (off[:, None] + R)               # (S, W*bs)
+    rows = tables[:, pos // bs] * bs + pos % bs
+    kv_rows = int(torch.unique(rows[seen]).numel())
+    nbytes = (2 * kv_rows * hkv * d * item + 2 * q.numel() * item
+              + S * hq * R * 4 + tables.numel() * 4 + S * 4)
+    keys = (off[:, None] + 1 + torch.arange(R)[None, :]).clamp(0, W * bs)
+    return nbytes, 4.0 * int(keys.sum()) * hq * d
+
+
+def flash_case(gens, device, dtype, *, b, hq, hkv, s, d, seg):
+    gen = gens.device
+    q = torch.randn(b, hq, s, d, generator=gen, device=device).to(dtype)
+    k = torch.randn(b, hkv, s, d, generator=gen, device=device).to(dtype)
+    v = torch.randn(b, hkv, s, d, generator=gen, device=device).to(dtype)
+    seg = None if seg is None else torch.as_tensor(
+        seg, dtype=torch.int32).reshape(b, s).to(device)
+    return q, k, v, seg
+
+
+def flash_mask(seg, sq, sk, causal, q_offset, kv_offset, device):
+    qi = torch.arange(sq, device=device)[:, None] + q_offset
+    ki = torch.arange(sk, device=device)[None, :] + kv_offset
+    mask = (qi >= ki) if causal else torch.ones(sq, sk, dtype=torch.bool,
+                                                device=device)
+    mask = mask[None, None]
+    if seg is not None:
+        mask = mask & (seg[:, None, :, None] == seg[:, None, None, :])
+    return mask                                     # (b|1, 1, sq, sk)
+
+
+def flash_work(q, k, seg, causal, q_offset=0, kv_offset=0):
+    b, hq, sq, d = q.shape
+    item = q.element_size()
+    live = int(flash_mask(seg, sq, k.shape[2], causal, q_offset, kv_offset,
+                          q.device).expand(b, 1, sq, k.shape[2]).sum())
+    nbytes = (2 * q.numel() * item + 2 * k.numel() * item
+              + b * hq * sq * 4 + (0 if seg is None else 2 * seg.numel() * 4))
+    return nbytes, 4.0 * live * hq * d
+
+
+class Generators:
+    """A generator on the card for tensors and one on the host for block
+    permutations, both seeded from one seed."""
+
+    def __init__(self, device, seed):
+        self.device = torch.Generator(device=device).manual_seed(seed)
+        self.host = torch.Generator().manual_seed(seed)
+
+
+def phase_kernels(device, timer, ops):
+    """Both kernels against their plain versions; returns the summary
+    entries (without ``launches``, which the engine phase fills)."""
+    gens = Generators(device, SEED)
+    results = {}
+
+    # ---- paged attention ----
+    rng = np.random.default_rng(SEED)
+    decode_off = rng.integers(3, 511, 16).tolist()   # 16 slots mid-decode
+    # the packed prefill's history rows: one row per pack token, reading
+    # its request's table up to the request's chunk start - 1 (-1: the
+    # chunk starts the prompt); pad rows read slot 0's table at -1
+    hist_off, hist_slot = [], []
+    for slot, n, start in PACK:
+        hist_off += [start - 1] * n
+        hist_slot += [slot] * n
+    hist_off += [-1] * (C - len(hist_off))
+    hist_slot += [0] * (C - len(hist_slot))
+    main = dict(R=1, hq=12, hkv=12, d=64, bs=16, W=32, n_blocks=513)
+    cases = [
+        ("decode", dict(main, offsets=decode_off), False),
+        ("prefill_history", dict(main, offsets=hist_off,
+                                 row_slot=hist_slot), True),
+        ("gqa2_R3_empty_rows", dict(R=3, hq=12, hkv=6, d=64, bs=16,
+                                    W=8, n_blocks=41,
+                                    offsets=[-1, 0, 17, 60, 124]), True),
+    ]
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    timed = None
+    for name, kw, want_lse in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, tbl, off = paged_case(gens, device, dtype, **kw)
+            out, lse = ops.paged_attention(q, k, v, tbl, off,
+                                           return_lse=True)
+            ref_o, ref_l = ops.paged_attention_reference(
+                q, k, v, tbl, off, return_lse=True)
+            torch.cuda.synchronize()
+            err = max(max_err(out, ref_o), max_err(lse, ref_l))
+            dead = (off < 0)
+            if bool(dead.any()):          # rows at position -1: exact
+                check(bool((out[dead][:, 0] == 0).all())
+                      and bool((lse[dead][:, :, 0] == ops.NEG_INF).all()),
+                      f"paged {name}: empty-history rows not 0/-1e30")
+            emit(phase="kernel", kernel="paged_attention", case=name,
+                 dtype=str(dtype).split(".")[1], shape=list(q.shape),
+                 max_abs_err=err, bound=TOL[dtype], ok=err <= TOL[dtype])
+            check(err <= TOL[dtype], f"paged {name} {dtype}: max abs err "
+                                     f"{err} > {TOL[dtype]}")
+            errs[dtype] = max(errs[dtype], err)
+            if name in ("decode", "prefill_history") \
+                    and dtype == torch.float32:
+                t = time_paged(timer, ops, q, k, v, tbl, off, want_lse)
+                emit(phase="kernel_time", kernel="paged_attention",
+                     case=name, dtype="float32", **t)
+                if name == "decode":
+                    timed = t
+    results["paged_attention"] = dict(
+        name="paged_attention", route="cuda",
+        source="hetu_tpu_torch/csrc/paged_attention.cu",
+        replaces="hetu_tpu/ops/paged_pallas.py:86",
+        max_abs_err=errs[torch.float32],
+        max_abs_err_bf16=errs[torch.bfloat16], shape="decode", **timed)
+
+    # ---- flash forward ----
+    pack_seg = np.full(C, -1)
+    at = 0
+    for slot, n, _ in PACK:
+        pack_seg[at:at + n] = slot
+        at += n
+    skip_seg = np.repeat(np.arange(4), 64)
+    skip_seg[-10:] = -1
+    cases = [
+        ("packed_prefill", dict(b=1, hq=12, hkv=12, s=C, d=64, seg=pack_seg),
+         True, 0, 0),
+        ("gqa2_pads", dict(b=1, hq=12, hkv=6, s=C, d=64, seg=pack_seg),
+         True, 0, 0),
+        ("causal_block_skip", dict(b=2, hq=4, hkv=2, s=256, d=64,
+                                   seg=np.stack([skip_seg, skip_seg])),
+         True, 0, 0),
+        ("offsets_masked_rows", dict(b=1, hq=4, hkv=4, s=48, d=64,
+                                     seg=None), True, 0, 5),
+        ("non_causal_seg", dict(b=1, hq=4, hkv=4, s=C, d=64, seg=pack_seg),
+         False, 0, 0),
+    ]
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for name, kw, causal, qo, ko in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, seg = flash_case(gens, device, dtype, **kw)
+            scale = q.shape[-1] ** -0.5
+            args = dict(causal=causal, scale=scale, q_offset=qo,
+                        kv_offset=ko)
+            out, lse = ops.flash_attention_fwd(q, k, v, seg, seg, **args)
+            ref_o, ref_l = ops.flash_attention_fwd_reference(
+                q, k, v, seg, seg, **args)
+            torch.cuda.synchronize()
+            err = max(max_err(out, ref_o), max_err(lse, ref_l))
+            if ko > qo:                   # rows before the first key
+                dead = slice(0, ko - qo)
+                check(bool((out[:, :, dead] == 0).all())
+                      and bool((lse[:, :, dead] == ops.NEG_INF).all()),
+                      f"flash {name}: fully masked rows not 0/-1e30")
+            emit(phase="kernel", kernel="flash_fwd", case=name,
+                 dtype=str(dtype).split(".")[1], shape=list(q.shape),
+                 max_abs_err=err, bound=TOL[dtype], ok=err <= TOL[dtype])
+            check(err <= TOL[dtype], f"flash {name} {dtype}: max abs err "
+                                     f"{err} > {TOL[dtype]}")
+            errs[dtype] = max(errs[dtype], err)
+            if name == "packed_prefill" and dtype == torch.float32:
+                timed = time_flash(timer, ops, q, k, v, seg, scale)
+                emit(phase="kernel_time", kernel="flash_fwd", case=name,
+                     dtype="float32", **timed)
+    results["flash_fwd"] = dict(
+        name="flash_fwd", route="cuda",
+        source="hetu_tpu_torch/csrc/flash_fwd.cu",
+        replaces="hetu_tpu/ops/flash_pallas.py:184",
+        max_abs_err=errs[torch.float32],
+        max_abs_err_bf16=errs[torch.bfloat16], shape="packed_prefill",
+        **timed)
+    return results
+
+
+def time_paged(timer, ops, q, k, v, tbl, off, want_lse):
+    import torch.nn.functional as F
+    S, R, hq, d = q.shape
+    bs, hkv = k.shape[1], k.shape[2]
+    W = tbl.shape[1]
+    ms = timer(lambda: ops.paged_attention(q, k, v, tbl, off,
+                                           return_lse=want_lse))
+    plain_ms = timer(lambda: ops.paged_attention_reference(
+        q, k, v, tbl, off, return_lse=want_lse))
+    kpos = torch.arange(W * bs, device=q.device)
+    qpos = off.long()[:, None] + torch.arange(R, device=q.device)[None, :]
+    mask = (kpos[None, None, :] <= qpos[:, :, None])[:, None]   # (S,1,R,L)
+    g = hq // hkv
+
+    def library():
+        kk = ops.gather_block_rows(k, tbl).transpose(1, 2)
+        vv = ops.gather_block_rows(v, tbl).transpose(1, 2)
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), kk, vv, attn_mask=mask,
+            enable_gqa=g > 1)
+
+    library_ms = timer(library)
+    nbytes, flops = paged_work(q, k, tbl, off)
+    bound_ms, bound_by = bound(nbytes, flops, q.dtype)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                flops=flops)
+
+
+def time_flash(timer, ops, q, k, v, seg, scale):
+    import torch.nn.functional as F
+    ms = timer(lambda: ops.flash_attention_fwd(q, k, v, seg, seg,
+                                               causal=True, scale=scale))
+    plain_ms = timer(lambda: ops.flash_attention_fwd_reference(
+        q, k, v, seg, seg, causal=True, scale=scale))
+    mask = flash_mask(seg, q.shape[2], k.shape[2], True, 0, 0, q.device)
+    library_ms = timer(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=scale,
+        enable_gqa=q.shape[1] != k.shape[1]))
+    nbytes, flops = flash_work(q, k, seg, True)
+    bound_ms, bound_by = bound(nbytes, flops, q.dtype)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                flops=flops)
+
+
+# -- the engine --------------------------------------------------------------
+
+def workload(vocab: int, seed: int = SEED):
+    rng = np.random.default_rng(seed)
+    burst = [rng.integers(0, vocab, int(n)).tolist()
+             for n in rng.integers(4, 449, 48)]
+    system = rng.integers(0, vocab, 128).tolist()
+    shared = [system + rng.integers(0, vocab, int(n)).tolist()
+              for n in rng.integers(4, 65, 16)]
+    return burst, shared
+
+
+def percentile(xs, p):
+    return float(np.percentile(np.asarray(xs, np.float64), p))
+
+
+def phase_engine(device, card):
+    from hetu_tpu_torch.models import GPTConfig, GPTLMHeadModel, generate
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.serving import SamplingParams, ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GPTConfig.small()
+    t0 = time.perf_counter()
+    model = GPTLMHeadModel(cfg, device=device, seed=SEED).eval()
+    eng = ServingEngine(model, slots=16, max_len=512, prefill_chunk=64,
+                        block_size=16, seed=SEED, device=device)
+    emit(phase="engine_setup", config="GPTConfig.small", dtype="float32",
+         layers=cfg.num_layers, hidden=cfg.hidden_size,
+         heads=cfg.num_heads, vocab=cfg.vocab_size, slots=16, max_len=512,
+         prefill_chunk=64, block_size=16, kv_blocks=eng.pool.n_blocks,
+         arena_bytes=eng.pool.nbytes(),
+         seconds=time.perf_counter() - t0)
+    burst, shared = workload(cfg.vocab_size)
+    sp = SamplingParams(max_tokens=64)
+
+    # warm the allocator and cuBLAS on a throwaway engine, so the timed
+    # run measures serving, not first-call set-up
+    warm = ServingEngine(model, slots=2, max_len=512, prefill_chunk=64,
+                         block_size=16, device=device)
+    warm.generate_many([burst[0][:70]], SamplingParams(max_tokens=3))
+    del warm
+    torch.cuda.synchronize()
+
+    # ---- the main path: counters zeroed just before, read just after --
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, sp) for p in burst]
+    steps = eng.run_until_drained()
+    torch.cuda.synchronize()
+    t_burst = time.perf_counter() - t0
+    it_burst = dict(eng.lane_iters)
+    # the shared-prompt batch: its first request caches the system
+    # prompt's blocks, the other 15 then map them from the prefix cache
+    t1 = time.perf_counter()
+    reqs2 = [eng.submit(shared[0], sp)]
+    while reqs2[0].first_token_s is None:
+        eng.step()
+    reqs2 += [eng.submit(p, sp) for p in shared[1:]]
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    t_shared = time.perf_counter() - t1
+    counts = launch_counts()
+    iters = dict(eng.lane_iters)
+    # ------------------------------------------------------------------
+
+    L = cfg.num_layers
+    want = {"paged_attention": L * (iters["decode"] + iters["prefill"]),
+            "flash_fwd": L * iters["prefill"]}
+    emit(phase="engine_launches", counts=counts, lane_iters=iters,
+         expected=want)
+    for name, n in want.items():
+        check(counts.get(name, 0) > 0, f"{name} never launched on the "
+                                       f"main path")
+        check(counts.get(name, 0) == n,
+              f"{name}: {counts.get(name, 0)} launches, expected {n} "
+              f"({L} layers x lane iterations {iters})")
+
+    bad = [r for r in reqs + reqs2 if r.status != "done"]
+    check(not bad, f"{len(bad)} requests did not finish")
+    gen_tokens = sum(len(r.tokens) for r in reqs)
+    timings = [r.timing() for r in reqs]
+    ttft = [t["ttft_ms"] for t in timings]
+    tpot = [t["decode_ms"] / (len(r.tokens) - 1)
+            for t, r in zip(timings, reqs) if len(r.tokens) > 1]
+    hits = sum(r.cached_tokens for r in reqs2)
+    perf = dict(phase="engine", card=card,
+                burst_requests=len(reqs),
+                burst_prompt_tokens=sum(len(p) for p in burst),
+                burst_generated_tokens=gen_tokens,
+                burst_seconds=t_burst,
+                burst_tokens_per_s=gen_tokens / t_burst,
+                burst_steps=steps,
+                burst_ms_per_step=t_burst / steps * 1e3,
+                burst_lane_iterations=it_burst,
+                ttft_samples=len(ttft), tpot_samples=len(tpot),
+                ttft_ms_p50=percentile(ttft, 50),
+                ttft_ms_p99=percentile(ttft, 99),
+                tpot_ms_p50=percentile(tpot, 50),
+                shared_requests=len(reqs2),
+                shared_prefix_hit_tokens=hits,
+                shared_seconds=t_shared,
+                shared_tokens_per_s=sum(len(r.tokens) for r in reqs2)
+                / t_shared,
+                peak_memory_bytes=torch.cuda.max_memory_allocated())
+    emit(**perf)
+    check(hits >= 15 * 128, f"shared-prompt batch hit only {hits} cached "
+                            f"tokens")
+
+    # ---- the oracle: one-shot generate, dense cache, plain attention --
+    t0 = time.perf_counter()
+    near_ties = []
+    for r in reqs + reqs2:
+        prompt = r.prompt.tolist()
+        ids, logits = generate(model, [prompt], max_new_tokens=64,
+                               device=device, return_logits=True)
+        check(bool(torch.isfinite(logits).all()),
+              f"request {r.id}: non-finite oracle logits")
+        want_toks = ids[0, len(prompt):].tolist()
+        got = list(r.tokens)
+        check(len(got) == 64 and all(0 <= t < cfg.vocab_size for t in got),
+              f"request {r.id}: bad token list")
+        if got == want_toks:
+            continue
+        t = next(i for i, (a, b) in enumerate(zip(got, want_toks)) if a != b)
+        top2 = torch.topk(logits[0, t].float(), 2).values
+        gap = float(top2[0] - top2[1])
+        near_ties.append(dict(request=r.id, step=t, gap=gap))
+        check(gap < 1e-4, f"request {r.id} diverges from generate at step "
+                          f"{t} where the oracle's top-2 gap is {gap}")
+    emit(phase="engine_oracle", requests=len(reqs) + len(reqs2),
+         identical=len(reqs) + len(reqs2) - len(near_ties),
+         near_ties=near_ties, seconds=time.perf_counter() - t0)
+    phase_profile(eng, burst[:16], sp)
+    return counts
+
+
+KERNEL_CLASSES = (("paged_attention", "paged_attention"),
+                  ("flash_fwd", "flash_fwd"),
+                  ("gemm", "matmul"), ("xmma", "matmul"),
+                  ("cutlass", "matmul"))
+
+
+def phase_profile(eng, prompts, sp, n_steps: int = 20):
+    """Where an engine iteration's time goes: ``torch.profiler`` over
+    ``n_steps`` steady iterations with 16 requests in flight (decode and
+    packed prefill mixed). Device busy time is the sum of kernel
+    durations (one stream: kernels do not overlap); the rest of the
+    wall time the card waits on the host. The profiler's own host cost
+    inflates the wall time, so ``ms_per_step`` here is an upper bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    reqs = [eng.submit(p, sp) for p in prompts]
+    for _ in range(4):                       # admissions, first chunks
+        eng.step()
+    torch.cuda.synchronize()
+    before = dict(eng.lane_iters)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    lanes = {k: eng.lane_iters[k] - before[k] for k in before}
+    eng.run_until_drained()
+    check(all(r.status == "done" for r in reqs), "profiled requests did "
+                                                "not finish")
+    by_name: dict[str, float] = {}
+    n_kernels = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n_kernels += 1
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    busy_ms = sum(by_name.values())
+    by_class: dict[str, float] = {}
+    for name, ms in by_name.items():
+        cls = next((c for key, c in KERNEL_CLASSES if key in name), "other")
+        by_class[cls] = by_class.get(cls, 0.0) + ms / n_steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    emit(phase="engine_profile", steps=n_steps, lane_iterations=lanes,
+         ms_per_step=wall_ms / n_steps,
+         device_kernels_per_step=n_kernels / n_steps,
+         device_busy_ms_per_step=busy_ms / n_steps if busy_ms else None,
+         device_idle_share=1.0 - busy_ms / wall_ms if busy_ms else None,
+         device_ms_per_step_by_class=by_class,
+         top_kernels_ms_per_step=[[n[:80], ms / n_steps] for n, ms in top])
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "hetu_tpu_torch")):
+        print(f"chip_smoke: no hetu_tpu_torch package beside {__file__}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, here)
+    from hetu_tpu_torch import ops
+    from hetu_tpu_torch.ops import _build
+
+    device = torch.device("cuda", 0)
+    smi = nvidia_smi()
+    cap = torch.cuda.get_device_capability(0)
+    emit(phase="device", nvidia_smi=smi,
+         name=torch.cuda.get_device_name(0), capability=list(cap),
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda)
+    check(tuple(cap) == (9, 0), f"compute capability {cap}: the kernels "
+                                f"are built for sm_90a (Hopper)")
+
+    t0 = time.perf_counter()
+    built = _build.build()
+    emit(phase="build", seconds=time.perf_counter() - t0,
+         kernels={n: {"seconds": b["seconds"], "cached": b["cached"]}
+                  for n, b in built.items()})
+
+    timer = Timer(device)
+    kernels = phase_kernels(device, timer, ops)
+    del timer
+    counts = phase_engine(device, smi)
+    for name, entry in kernels.items():
+        entry["launches"] = counts.get(name, 0)
+    order = ("name", "route", "source", "replaces", "launches",
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")
+    line = [{**{k: e[k] for k in order},
+             **{k: v for k, v in e.items() if k not in order}}
+            for e in kernels.values()]
+    print(smi, flush=True)
+    print(json.dumps({"kernels": line}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
+        sys.exit(1)

@@ -1,0 +1,53 @@
+"""Carry ``hetu_tpu`` parameters into the port.
+
+``hetu_tpu`` keeps (a) every block parameter stacked on a leading layer
+axis (``StackedBlocks``, ``hetu_tpu/nn/parallel.py:851``) and (b) Linear
+weights as ``(in, out)`` (``hetu_tpu/nn/parallel.py:81``). The port keeps
+one module per layer (``blocks.{i}.…``) and ``F.linear``'s ``(out, in)``.
+Keys are the dotted paths of ``hetu_tpu/utils/checkpoint.py:40
+_key_str``, so a flattened ``hetu_tpu`` checkpoint converts as well.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+# the block parameters that are Linear weights (everything else 2-D in a
+# GPT block is none; embeddings and norms are never transposed)
+_LINEAR_WEIGHTS = ("q_proj.weight", "k_proj.weight", "v_proj.weight",
+                   "out_proj.weight", "fc_in.weight", "fc_out.weight")
+
+
+def _flatten(tree, prefix: str = "") -> dict:
+    if isinstance(tree, Mapping):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: np.asarray(tree)}
+
+
+def params_from_jax(tree, cfg) -> dict:
+    """``hetu_tpu`` GPT params (a nested dict of arrays, or its flattened
+    ``{dotted.key: array}`` form) → the port's ``state_dict`` (CPU
+    tensors; ``load_state_dict`` moves them to the model's device)."""
+    flat = _flatten(tree)
+    state = {}
+    for key, arr in flat.items():
+        if not key.startswith("blocks."):
+            state[key] = torch.from_numpy(np.array(arr, order="C"))
+            continue
+        rest = key[len("blocks."):]
+        if arr.shape[0] != cfg.num_layers:
+            raise ValueError(f"{key}: leading layer axis {arr.shape[0]} != "
+                             f"num_layers {cfg.num_layers}")
+        for i in range(cfg.num_layers):
+            a = arr[i]
+            if rest.endswith(_LINEAR_WEIGHTS):
+                a = a.T
+            state[f"blocks.{i}.{rest}"] = torch.from_numpy(
+                np.array(a, order="C"))
+    return state

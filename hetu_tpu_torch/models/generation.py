@@ -1,0 +1,122 @@
+"""Autoregressive generation with KV caches (counterpart of
+``hetu_tpu/models/generation.py``).
+
+Fixed-capacity KV buffers written in place; the prompt is prefilled in
+one pass, then one decode step per new token. The dense cache's
+attention is plain PyTorch (as ``hetu_tpu`` computes it in plain jnp), so
+:func:`generate` is an oracle for the serving engine that runs neither
+hand-written kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from hetu_tpu_torch import resolve_device
+
+
+class PromptTooLongError(ValueError):
+    """A prompt (plus its decode budget) exceeds a hard length limit:
+    ``prompt_len`` + ``max_tokens`` against ``limit``."""
+
+    def __init__(self, *, prompt_len: int, max_tokens: int, limit: int,
+                 source: str = "decode", hint: Optional[str] = None):
+        self.prompt_len = int(prompt_len)
+        self.max_tokens = int(max_tokens)
+        self.limit = int(limit)
+        self.source = source
+        worst = self.prompt_len + self.max_tokens
+        msg = (f"prompt of {self.prompt_len} tokens + {self.max_tokens} "
+               f"decode tokens = {worst} exceeds the {self.limit}-token "
+               f"{source} budget")
+        if hint:
+            msg += f" ({hint})"
+        super().__init__(msg)
+
+
+def init_kv_caches(model, batch: int, max_len: int):
+    """Zeroed ``(k, v)`` buffers stacked over layers,
+    ``(L, batch, max_len, hkv, d)``, in the model's dtype and on its
+    device."""
+    attn = model.blocks.block.attn
+    shape = (model.blocks.num_layers, batch, max_len, attn.num_kv_heads,
+             attn.head_dim)
+    return (torch.zeros(shape, dtype=model.dtype, device=model.device),
+            torch.zeros(shape, dtype=model.dtype, device=model.device))
+
+
+@torch.no_grad()
+def decode(model, input_ids, positions, caches, *, slot_mask=None,
+           block_tables=None):
+    """Run a chunk through the model in decode mode; returns fp32 logits
+    ``(b, s, V)`` and updates ``caches`` in place.
+
+    ``positions`` (b, s) are absolute positions. Without ``block_tables``
+    the caches are dense ``(L, b, max_len, hkv, d)`` and every row shares
+    the write index ``positions[0]``. With ``block_tables`` (b, W) int32
+    and ``slot_mask`` (b,) bool the caches are the paged arena
+    ``(L, n_blocks, block_size, hkv, d)`` and each row decodes at its own
+    ``positions[r, 0]`` (masked-off rows write nothing)."""
+    h = model.embed(input_ids, positions=positions)
+    h = model.blocks.decode(h, caches, positions=positions,
+                            slot_mask=slot_mask, block_tables=block_tables)
+    return model.logits(model.hidden_norm(h))
+
+
+def _sample(logits, *, temperature: float, top_k: int, top_p: float,
+            generator: Optional[torch.Generator]):
+    if temperature == 0.0:
+        return logits.argmax(dim=-1)
+    from hetu_tpu_torch.serving.sampling import adjust_logits
+    probs = torch.softmax(adjust_logits(logits, temperature, top_k, top_p),
+                          dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+@torch.no_grad()
+def generate(model, input_ids, *, max_new_tokens: int,
+             temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
+             generator: Optional[torch.Generator] = None, device=None,
+             return_logits: bool = False):
+    """Generate ``max_new_tokens`` continuations for a ``(b, s)`` prompt.
+
+    Returns ``(b, s + max_new_tokens)`` token ids (int64). Greedy at
+    ``temperature=0``; otherwise each step draws one categorical sample
+    per row from ``generator`` after the serving sampler's
+    temperature/top-k/top-p masking. ``return_logits=True`` also returns
+    the fp32 logits each token was chosen from, ``(b, max_new_tokens,
+    V)``. ``device=None`` means ``cuda``; the model must live there."""
+    dev = resolve_device(device)
+    if model.device.type != dev.type:
+        raise ValueError(f"model is on {model.device}, generate was asked "
+                         f"for {dev}")
+    ids = torch.as_tensor(input_ids, dtype=torch.long, device=model.device)
+    if ids.dim() == 1:
+        ids = ids[None]
+    b, s = ids.shape
+    total = s + max_new_tokens
+    if total > model.cfg.max_positions:
+        raise PromptTooLongError(
+            prompt_len=s, max_tokens=max_new_tokens,
+            limit=model.cfg.max_positions, source="model max_positions",
+            hint="the model cannot address positions past its trained "
+                 "context window")
+    caches = init_kv_caches(model, b, total)
+    knobs = dict(temperature=temperature, top_k=top_k, top_p=top_p,
+                 generator=generator)
+
+    pos = torch.arange(s, device=ids.device)[None, :].expand(b, s)
+    last = decode(model, ids, pos, caches)[:, -1]
+    seen = [last]
+    toks = [_sample(last, **knobs)]
+    for i in range(max_new_tokens - 1):
+        pos = torch.full((b, 1), s + i, dtype=torch.long, device=ids.device)
+        last = decode(model, toks[-1][:, None], pos, caches)[:, -1]
+        seen.append(last)
+        toks.append(_sample(last, **knobs))
+    out = torch.cat([ids, torch.stack(toks, dim=1)], dim=1)
+    if return_logits:
+        return out, torch.stack(seen, dim=1)
+    return out

@@ -1,0 +1,9 @@
+from hetu_tpu_torch.nn.layers import Embedding, LayerNorm
+from hetu_tpu_torch.nn.parallel import (
+    ColumnParallelLinear, ParallelAttention, ParallelMLP, RowParallelLinear,
+    StackedBlocks, VocabParallelEmbedding,
+)
+
+__all__ = ["ColumnParallelLinear", "Embedding", "LayerNorm",
+           "ParallelAttention", "ParallelMLP", "RowParallelLinear",
+           "StackedBlocks", "VocabParallelEmbedding"]

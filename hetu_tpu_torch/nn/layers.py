@@ -1,0 +1,43 @@
+"""Basic layers (counterpart of ``hetu_tpu/nn/layers.py``): ``Embedding``
+and ``LayerNorm`` as ``nn.Module``s.
+
+Parameter names follow ``hetu_tpu``'s flattened keys (``weight``;
+``scale``/``bias`` for norms) so a converted ``hetu_tpu`` tree loads with
+``load_state_dict``. Initial values come from the model constructor.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from hetu_tpu_torch.ops.normalization import layer_norm
+
+
+class Embedding(nn.Module):
+    def __init__(self, num_embeddings: int, features: int, *,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        self.num_embeddings = num_embeddings
+        self.features = features
+        self.weight = nn.Parameter(torch.empty(
+            num_embeddings, features, device=device, dtype=dtype))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.weight)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, features: int, eps: float = 1e-5, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.features = features
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features, device=device,
+                                             dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(features, device=device,
+                                             dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.scale, self.bias, eps=self.eps)

@@ -1,0 +1,227 @@
+"""Transformer layers of the decode path at tp=1 (counterpart of
+``hetu_tpu/nn/parallel.py``).
+
+Linear weights are stored in ``F.linear``'s ``(out, in)`` layout —
+``hetu_tpu`` stores ``(in, out)``; ``models.convert.params_from_jax``
+transposes. ``StackedBlocks`` is a ``ModuleList`` of per-layer blocks
+(``blocks.{i}.…`` keys) in place of ``hetu_tpu``'s scan over a stacked
+leading layer axis.
+
+KV caches are updated IN PLACE (``index_copy_``) where the JAX code
+returned a new, donated buffer. Attention over the paged arena goes
+through :func:`~hetu_tpu_torch.ops.paged.paged_attention` and, in the
+packed-prefill mode, :func:`~hetu_tpu_torch.ops.attention.attention_with_lse`
+— the hand-written kernels on CUDA tensors, their plain versions on CPU
+tensors. The dense cache (one-shot ``generate``) stays plain PyTorch, as
+``hetu_tpu`` computes it in plain jnp, so ``generate`` is an oracle
+independent of both kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from hetu_tpu_torch.nn.layers import Embedding
+from hetu_tpu_torch.ops.activations import gelu
+from hetu_tpu_torch.ops.attention import attention_reference, \
+    attention_with_lse
+from hetu_tpu_torch.ops.paged import combine_attention_lse, paged_attention
+
+
+class ColumnParallelLinear(nn.Module):
+    """Linear ``y = x W^T + b`` (``ColumnParallelLinear`` at tp=1)."""
+
+    def __init__(self, in_features: int, out_features: int, *,
+                 bias: bool = True, device=None, dtype=torch.float32):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        self.weight = nn.Parameter(torch.empty(
+            out_features, in_features, device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(
+            out_features, device=device, dtype=dtype)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
+
+
+class RowParallelLinear(ColumnParallelLinear):
+    """``RowParallelLinear`` at tp=1: the same Linear (no partial sums to
+    reduce on one device)."""
+
+
+class VocabParallelEmbedding(Embedding):
+    """``VocabParallelEmbedding`` at tp=1: a plain lookup."""
+
+
+class ParallelMLP(nn.Module):
+    """GPT-2 MLP: ``fc_out(gelu(fc_in(x)))`` (``gated=False``)."""
+
+    def __init__(self, features: int, hidden: int, *, bias: bool = True,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        self.fc_in = ColumnParallelLinear(features, hidden, bias=bias,
+                                          device=device, dtype=dtype)
+        self.fc_out = RowParallelLinear(hidden, features, bias=bias,
+                                        device=device, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc_out(gelu(self.fc_in(x)))
+
+
+def _scatter_rows(buf: torch.Tensor, rows: torch.Tensor, new: torch.Tensor,
+                  keep: torch.Tensor) -> None:
+    """Write ``new[i]`` at flat arena row ``rows[i]`` where ``keep[i]``,
+    in place. Dropped entries rewrite arena row 0 with its own value (row
+    0 belongs to the null block, which no live slot ever writes), so the
+    scatter needs no host sync to filter them — the counterpart of JAX's
+    out-of-bounds ``mode="drop"``."""
+    flat = buf.view((-1,) + tuple(buf.shape[2:]))
+    rows = torch.where(keep, rows, torch.zeros_like(rows))
+    new = torch.where(keep.view((-1,) + (1,) * (new.dim() - 1)),
+                      new.to(buf.dtype), flat[0])
+    flat.index_copy_(0, rows, new)
+
+
+class ParallelAttention(nn.Module):
+    """Multi-head attention with GQA, decode path only (causal, no
+    RoPE: GPT-2's learned positions are added in the embedding)."""
+
+    def __init__(self, embed_dim: int, num_heads: int, *,
+                 num_kv_heads: Optional[int] = None,
+                 head_dim: Optional[int] = None, bias: bool = True,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        self.num_kv_heads = num_kv_heads or num_heads
+        if num_heads % self.num_kv_heads:
+            raise ValueError("num_heads must be divisible by num_kv_heads")
+        self.head_dim = head_dim or embed_dim // num_heads
+        kw = dict(bias=bias, device=device, dtype=dtype)
+        self.q_proj = ColumnParallelLinear(
+            embed_dim, num_heads * self.head_dim, **kw)
+        self.k_proj = ColumnParallelLinear(
+            embed_dim, self.num_kv_heads * self.head_dim, **kw)
+        self.v_proj = ColumnParallelLinear(
+            embed_dim, self.num_kv_heads * self.head_dim, **kw)
+        self.out_proj = RowParallelLinear(
+            num_heads * self.head_dim, embed_dim, **kw)
+
+    def _qkv(self, x):
+        b, s, _ = x.shape
+        return (self.q_proj(x).view(b, s, self.num_heads, self.head_dim),
+                self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim),
+                self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim))
+
+    def decode(self, x, kv_cache, *, positions, slot_mask=None,
+               block_tables=None, pack=None):
+        """Incremental decoding against a KV cache, updated in place.
+
+        - dense (``block_tables`` None): ``kv_cache`` is ``(k_buf, v_buf)``
+          of shape ``(b, max_len, hkv, d)``; every row writes its ``s``
+          new entries at ``positions[0]`` (one shared index) and attends
+          with the plain oracle;
+        - paged (``block_tables`` (b, W) and ``slot_mask`` (b,) bool):
+          the caches are arenas ``(n_blocks, block_size, hkv, d)``; row
+          ``r`` writes at its own ``positions[r, 0]`` through its table
+          (rows with ``slot_mask`` False write nothing; the caller
+          discards their output) and attends through the paged kernel;
+        - packed prefill (``pack``): see :meth:`_decode_packed`.
+
+        Returns the attention block's output ``(b, s, embed)``."""
+        if pack is not None:
+            return self._decode_packed(x, kv_cache, positions=positions,
+                                       block_tables=block_tables, pack=pack)
+        b, s, _ = x.shape
+        q, k, v = self._qkv(x)
+        k_buf, v_buf = kv_cache
+        if block_tables is None:
+            if slot_mask is not None:
+                raise ValueError("per-row decode needs block_tables (the "
+                                 "port's dense cache takes one shared "
+                                 "write index)")
+            cols = positions[0]                              # (s,)
+            k_buf.index_copy_(1, cols, k.to(k_buf.dtype))
+            v_buf.index_copy_(1, cols, v.to(v_buf.dtype))
+            out = attention_reference(q, k_buf, v_buf, causal=True,
+                                      q_offset=cols[0], kv_offset=0)
+        else:
+            if slot_mask is None:
+                raise ValueError("block_tables requires slot_mask "
+                                 "(per-row paged decode)")
+            blk, W = k_buf.shape[1], block_tables.shape[1]
+            index = positions[:, 0].to(torch.int32)          # (b,)
+            pos_rows = positions[:, :1].long() + torch.arange(
+                s, device=x.device)[None, :]                 # (b, s)
+            blk_ids = torch.gather(block_tables.long(), 1,
+                                   (pos_rows // blk).clamp(0, W - 1))
+            rows = (blk_ids * blk + pos_rows % blk).reshape(-1)
+            keep = slot_mask[:, None].expand(b, s).reshape(-1)
+            _scatter_rows(k_buf, rows, k.reshape(b * s, *k.shape[2:]), keep)
+            _scatter_rows(v_buf, rows, v.reshape(b * s, *v.shape[2:]), keep)
+            out = paged_attention(q, k_buf, v_buf, block_tables, index)
+        return self.out_proj(out.reshape(b, s, -1))
+
+    def _decode_packed(self, x, kv_cache, *, positions, block_tables, pack):
+        """Packed-prefill mode: ``x`` is ONE ``(1, C, embed)`` row of C
+        tokens from many requests, with per-token ``block_tables``
+        (C, W), ``positions`` (1, C) and ``pack`` keys ``segment_ids``
+        (1, C) int32 (-1 on pads), ``hist`` (C,) (each token's chunk-start
+        offset) and ``valid`` (C,) bool.
+
+        Each token's attention splits into two disjoint parts that
+        LSE-combine exactly: the intra-pack part (flash forward with
+        segment isolation and causal masking — within one request's
+        contiguous run, pack order is position order) and the
+        arena-history part (paged attention over the token's own table,
+        positions ``<= hist - 1``: earlier chunks and prefix-cache hits).
+        KV writes are per-token scatters through the tables (pads drop)."""
+        b, C, _ = x.shape
+        q, k, v = self._qkv(x)
+        k_buf, v_buf = kv_cache
+        blk, W = k_buf.shape[1], block_tables.shape[1]
+        pos = positions[0].long()                            # (C,)
+        blk_ids = torch.gather(block_tables.long(), 1,
+                               (pos // blk).clamp(0, W - 1)[:, None])[:, 0]
+        rows = blk_ids * blk + pos % blk
+        _scatter_rows(k_buf, rows, k[0], pack["valid"])
+        _scatter_rows(v_buf, rows, v[0], pack["valid"])
+
+        intra, lse_i = attention_with_lse(
+            q, k, v, causal=True, segment_ids=pack["segment_ids"])
+        hist_off = (pack["hist"] - 1).to(torch.int32)        # kpos <= hist-1
+        hist, lse_h = paged_attention(q[0].unsqueeze(1).contiguous(), k_buf,
+                                      v_buf, block_tables, hist_off,
+                                      return_lse=True)
+        hist = hist[:, 0][None]                              # (1, C, hq, d)
+        lse_h = lse_h[:, :, 0].t()[None]                     # (1, hq, C)
+        out = combine_attention_lse(intra, lse_i, hist, lse_h)
+        return self.out_proj(out.reshape(b, C, -1))
+
+
+class StackedBlocks(nn.ModuleList):
+    """N identical blocks (``blocks.{i}`` in the state dict); decode loops
+    over them, handing layer ``l`` its slice of the stacked caches."""
+
+    def __init__(self, make_block: Callable[[], nn.Module],
+                 num_layers: int):
+        super().__init__([make_block() for _ in range(num_layers)])
+
+    @property
+    def num_layers(self) -> int:
+        return len(self)
+
+    @property
+    def block(self) -> nn.Module:
+        return self[0]
+
+    def decode(self, x, caches, **kwargs):
+        """``caches``: ``(k, v)``, each ``(layers, …)``; updated in place."""
+        k_all, v_all = caches
+        for layer, blk in enumerate(self):
+            x = blk.decode(x, (k_all[layer], v_all[layer]), **kwargs)
+        return x

@@ -1,0 +1,140 @@
+"""Build and load the port's CUDA kernels; count their launches.
+
+Each ``hetu_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` on first
+use into a shared library with a plain C interface, loaded with ctypes:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas -v -o <name>-<hash>.so <name>.cu
+
+The output lives under ``build/hetu_tpu_torch/`` at the checkout root,
+named by a hash of the source and the flags, so an edited source builds
+anew and an unchanged one loads at once. :func:`build` starts one
+``nvcc`` per source, all at the same time. A failed build raises with
+nvcc's stderr. Nothing here runs at import time: this module imports on
+a host without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Iterable, Optional
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hetu_tpu_torch"
+SOURCES = ("paged_attention", "flash_fwd")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOCK = threading.Lock()
+_LIBS: dict[str, tuple] = {}
+_LAUNCHES: dict[str, int] = {}
+
+
+# -- launch counters ---------------------------------------------------------
+def count_launch(name: str) -> None:
+    """Called by a wrapper right after its kernel launched."""
+    _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
+
+
+def launch_counts() -> dict:
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    _LAUNCHES.clear()
+
+
+# -- build -------------------------------------------------------------------
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> dict:
+    """Compile the named kernels (default: all) in parallel. Returns
+    ``{name: {"path", "seconds", "cached", "ptxas"}}`` — ``ptxas`` is the
+    assembler's register/shared-memory/spill report."""
+    names = list(names or SOURCES)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out, procs = {}, {}
+    t0 = time.perf_counter()
+    for name in names:
+        dst = _target(name)
+        log = dst.with_suffix(".log")
+        if dst.exists():
+            out[name] = {"path": str(dst), "seconds": 0.0, "cached": True,
+                         "ptxas": log.read_text() if log.exists() else ""}
+            continue
+        tmp = dst.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True),
+                       tmp, dst, log)
+    errors = []
+    for name, (proc, tmp, dst, log) in procs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu "
+                          f"(exit {proc.returncode}):\n{stderr}{stdout}")
+            continue
+        log.write_text(stderr)
+        os.replace(tmp, dst)
+        out[name] = {"path": str(dst),
+                     "seconds": round(time.perf_counter() - t0, 3),
+                     "cached": False, "ptxas": stderr}
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return out
+
+
+def kernel(name: str, symbol: str, argtypes: list):
+    """``(library, launcher)`` for kernel ``name``: the library is built
+    first if needed and loaded once; the launcher ``symbol`` gets its
+    ``argtypes`` and an int ``restype`` once, at load."""
+    with _LOCK:
+        entry = _LIBS.get(name)
+        if entry is None:
+            path = build([name])[name]["path"]
+            lib = ctypes.CDLL(path)
+            lib.hetu_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.hetu_cuda_error_string.restype = ctypes.c_char_p
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            entry = _LIBS[name] = (lib, fn)
+        return entry
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise on a nonzero ``cudaError_t`` returned by a launcher."""
+    if err:
+        msg = lib.hetu_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

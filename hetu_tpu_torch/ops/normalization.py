@@ -1,0 +1,21 @@
+"""Normalization ops (counterpart of ``hetu_tpu/ops/normalization.py``):
+plain PyTorch with fp32 statistics whatever the input dtype."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def layer_norm(x: torch.Tensor, scale: Optional[torch.Tensor],
+               bias: Optional[torch.Tensor], eps: float = 1e-5):
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    if scale is not None:
+        y = y * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)

@@ -1,0 +1,169 @@
+"""Radix-tree prefix cache over the paged KV pool.
+
+RadixAttention (SGLang) observation: serving traffic is massively
+prefix-shared — system prompts, few-shot preambles, multi-turn
+histories — and KV for position ``p`` depends only on tokens
+``0..p``, so any request whose prompt extends a cached prefix can MAP
+the cached blocks instead of re-prefilling them. This module is the
+host-side index that makes that lookup O(prompt):
+
+- a trie whose nodes each own ONE whole block (``block_size`` token
+  ids as the edge label, the arena block id as the payload);
+- :meth:`match` walks the prompt: every fully-matching block is shared
+  into the new request's table (refcount++ via the
+  :class:`~hetu_tpu_torch.serving.kv_pool.BlockManager`), and a PARTIAL
+  match inside the next block returns a copy-on-write source — the
+  engine copies that block device-side and the request's prefill
+  starts at the first uncached token;
+- :meth:`insert` runs when a request finishes prefilling: its prompt's
+  whole blocks become trie nodes (the trie takes a ref, so the blocks
+  outlive the request);
+- when the free list runs dry, :meth:`evict` LRU-reclaims LEAF nodes
+  whose block nobody else holds (refcount == 1) — interior nodes wait
+  until their subtree drains, so a cached prefix never dangles.
+
+Everything here is pure host bookkeeping: block ids reach the device
+only as entries of the engine's block tables.
+"""
+
+from __future__ import annotations
+
+import heapq
+from typing import Optional, Sequence
+
+from hetu_tpu_torch.serving.kv_pool import NULL_BLOCK, BlockManager
+
+
+class _Node:
+    """One cached whole block: edge label ``tokens`` (block_size ids),
+    payload ``block`` (arena id), LRU stamp ``last_use``."""
+
+    __slots__ = ("tokens", "block", "parent", "children", "last_use")
+
+    def __init__(self, tokens: tuple, block: int,
+                 parent: Optional["_Node"], last_use: int):
+        self.tokens = tokens
+        self.block = block
+        self.parent = parent
+        self.children: list[_Node] = []
+        self.last_use = last_use
+
+
+def _common_prefix_len(a: Sequence[int], b: Sequence[int]) -> int:
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+class PrefixCache:
+    """Token-id trie mapping whole prompt blocks to arena block ids."""
+
+    def __init__(self, block_size: int, blocks: BlockManager):
+        self.block_size = int(block_size)
+        self.blocks = blocks
+        self._root = _Node((), NULL_BLOCK, None, 0)
+        self._clock = 0
+
+    # -- lookup -------------------------------------------------------------
+    def match(self, tokens: Sequence[int]) -> tuple[
+            list[int], Optional[tuple[int, int]]]:
+        """Longest cached prefix of ``tokens``.
+
+        Returns ``(shared, partial)``: ``shared`` is the list of arena
+        block ids whose whole ``block_size``-token runs match (in
+        order), ``partial`` is ``(src_block, n_rows)`` when the match
+        continues ``n_rows`` tokens into one more cached block (the
+        engine copies it — CoW — because the request will write its own
+        rows there). Takes NO refs — the caller shares what it actually
+        maps. Touches LRU stamps along the path."""
+        bs = self.block_size
+        self._clock += 1
+        shared: list[int] = []
+        node = self._root
+        i = 0
+        while len(tokens) - i >= 1:
+            key = tuple(tokens[i:i + bs])
+            child = None
+            if len(key) == bs:
+                child = next(
+                    (c for c in node.children if c.tokens == key), None)
+            if child is not None:
+                child.last_use = self._clock
+                shared.append(child.block)
+                node = child
+                i += bs
+                continue
+            # partial tail: the child sharing the longest token prefix
+            best, best_len = None, 0
+            for c in node.children:
+                n = _common_prefix_len(c.tokens, key)
+                if n > best_len:
+                    best, best_len = c, n
+            if best is not None:
+                best.last_use = self._clock
+                return shared, (best.block, best_len)
+            break
+        return shared, None
+
+    # -- insertion ----------------------------------------------------------
+    def insert(self, tokens: Sequence[int], table: Sequence[int]) -> int:
+        """Cache ``tokens``' whole blocks, backed by the arena blocks in
+        ``table`` (the request's block table, position-ordered). New
+        nodes take a ref on their block so it survives the request's
+        release; blocks already cached (the shared ones) are left
+        alone. Returns the number of new nodes."""
+        bs = self.block_size
+        self._clock += 1
+        node = self._root
+        added = 0
+        for j in range(len(tokens) // bs):
+            key = tuple(tokens[j * bs:(j + 1) * bs])
+            child = next(
+                (c for c in node.children if c.tokens == key), None)
+            if child is None:
+                blk = int(table[j])
+                if blk == NULL_BLOCK:
+                    break
+                child = _Node(key, blk, node, self._clock)
+                node.children.append(child)
+                self.blocks.share(blk)      # the trie now holds it too
+                added += 1
+            child.last_use = self._clock
+            node = child
+        return added
+
+    # -- eviction -----------------------------------------------------------
+    def evict(self, n: int) -> int:
+        """Free up to ``n`` blocks by dropping the LRU leaf nodes nobody
+        else holds (block refcount == 1 — trie-only). Returns how many
+        were actually freed; 0 means every cached block is pinned by a
+        live request."""
+        freed = 0
+        # one DFS seeds a last_use min-heap of the current leaves;
+        # parents are promoted lazily as their last child goes. Pinned
+        # leaves (refcount > 1) are discarded at pop — refcounts can't
+        # drop under us (the engine lock holds and we only release
+        # victims), so a discarded pin never becomes evictable here
+        heap: list[tuple[int, int, _Node]] = []
+        stack = list(self._root.children)
+        while stack:
+            c = stack.pop()
+            if c.children:
+                stack.extend(c.children)
+            else:
+                heapq.heappush(heap, (c.last_use, id(c), c))
+        while freed < n and heap:
+            _, _, victim = heapq.heappop(heap)
+            if victim.children or self.blocks.refs[victim.block] != 1:
+                continue
+            parent = victim.parent
+            parent.children.remove(victim)
+            self.blocks.release(victim.block)
+            freed += 1
+            if parent is not self._root and not parent.children:
+                heapq.heappush(heap, (parent.last_use, id(parent),
+                                      parent))
+        return freed

@@ -1,0 +1,271 @@
+"""Request lifecycle + slot scheduler for the serving engine (counterpart
+of ``hetu_tpu/serving/scheduler.py``, cut to what the port's engine
+runs).
+
+Orca-style continuous batching (iteration-level scheduling, OSDI'22)
+reduces, on the scheduling side, to a small amount of bookkeeping: a
+queue, a free-slot list over the KV pool, and an admission gate that
+answers one question — does this request's worst case
+(``len(prompt) + max_tokens``) fit a slot, in free blocks net of the
+prefix cache? Everything dynamic (admission, completion, release) is a
+host-side list operation; the device only sees tensors of block ids.
+
+The scheduler is pure logic the engine drives. There is no preemption:
+a request admitted to a slot runs to completion.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from collections import deque
+from typing import Optional
+
+import numpy as np
+
+from hetu_tpu_torch.models.generation import PromptTooLongError
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingParams:
+    """Per-request decode knobs.
+
+    ``priority`` is the request's class: LOWER is more urgent (0 =
+    interactive, 1 = standard/default, 2+ = batch). Admission is
+    deficit-weighted across classes (class ``c`` gets a ``2^-c`` share
+    of admissions when everything is backlogged — urgent traffic goes
+    first but batch traffic never starves). A running request is never
+    preempted."""
+
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 0.0
+    eos_id: Optional[int] = None
+    max_tokens: int = 16
+    priority: int = 1
+    #: per-request PRNG seed for sampled decoding (temperature > 0):
+    #: the engine seeds the request's ``torch.Generator`` with it, so a
+    #: sampled run replays exactly — and matches one-shot ``generate``
+    #: with a generator of the same seed. None derives a seed from the
+    #: engine seed + request id (reproducible per engine).
+    seed: Optional[int] = None
+
+
+@dataclasses.dataclass
+class Request:
+    """One request's lifecycle: queued → prefill → decode → done (or
+    rejected at submission). Every phase transition appends
+    ``(phase, ts_s, dur_s)`` to ``events`` (:meth:`mark`), and
+    :meth:`timing` folds them into TTFT and the other phase times."""
+
+    id: int
+    prompt: np.ndarray                 # (P,) int32
+    sampling: SamplingParams
+    submit_s: float
+    status: str = "queued"
+    slot: Optional[int] = None
+    tokens: list = dataclasses.field(default_factory=list)
+    first_token_s: Optional[float] = None
+    finish_s: Optional[float] = None
+    error: Optional[str] = None
+    cached_tokens: int = 0             # prompt tokens served by the
+    #                                    prefix cache (skipped prefill)
+    admit: Optional[dict] = dataclasses.field(
+        default=None, repr=False, compare=False)  # paged admission plan
+    events: list = dataclasses.field(default_factory=list,
+                                     repr=False, compare=False)
+    done: threading.Event = dataclasses.field(
+        default_factory=threading.Event, repr=False, compare=False)
+
+    def mark(self, phase: str, dur_s: float = 0.0,
+             ts_s: Optional[float] = None) -> None:
+        """Append one lifecycle event (``ts_s`` defaults to now; the
+        clock is ``time.monotonic`` — the same one ``submit_s`` uses)."""
+        self.events.append(
+            (phase, time.monotonic() if ts_s is None else ts_s,
+             float(dur_s)))
+
+    def timing(self) -> dict:
+        """Phase breakdown in milliseconds: queued (submit → admit),
+        prefill (admit → first token), TTFT (submit → first token),
+        decode (first token → finish), total, plus the prefill-chunk
+        count and the prefix-cache hit."""
+        out = {}
+        admit_s = next((t for p, t, _ in self.events if p == "admit"),
+                       None)
+        if admit_s is not None:
+            out["queued_ms"] = round((admit_s - self.submit_s) * 1e3, 3)
+        if self.first_token_s is not None and admit_s is not None:
+            out["prefill_ms"] = round(
+                (self.first_token_s - admit_s) * 1e3, 3)
+            out["ttft_ms"] = round(
+                (self.first_token_s - self.submit_s) * 1e3, 3)
+        if self.finish_s is not None and self.first_token_s is not None:
+            out["decode_ms"] = round(
+                (self.finish_s - self.first_token_s) * 1e3, 3)
+        if self.finish_s is not None:
+            out["total_ms"] = round(
+                (self.finish_s - self.submit_s) * 1e3, 3)
+        out["prefill_chunks"] = sum(
+            1 for p, _, _ in self.events if p == "prefill_chunk")
+        out["cached_tokens"] = self.cached_tokens
+        out["priority"] = self.sampling.priority
+        return out
+
+    def result(self) -> dict:
+        return {"id": self.id, "status": self.status,
+                "tokens": list(self.tokens), "error": self.error,
+                "timing": self.timing()}
+
+
+class Scheduler:
+    """Admission over a fixed slot pool and a block-paged arena.
+
+    A request is admitted when a slot is free AND its worst case fits in
+    NEW blocks — net of the prefix cache, so a full-prefix hit costs ~0
+    blocks and admits even into a nearly-full pool. When blocks run short
+    the scheduler first LRU-evicts unpinned cache leaves; if still short,
+    the chosen head WAITS (head-of-line within its class — a later
+    cheaper request never jumps it, which keeps ``generate_many`` outputs
+    in submission order under churn). ``max_len`` is the per-slot budget
+    (one slot's block table addresses ``max_len`` positions).
+
+    Across classes (``SamplingParams.priority``) selection is
+    deficit-weighted: every selection round each backlogged class earns
+    credits proportional to ``2^-priority``, and the richest class admits
+    its OLDEST request and pays one credit. With a single class this is
+    exact FCFS.
+    """
+
+    def __init__(self, slots: int, max_len: int, *, blocks, prefix_cache,
+                 block_size: int):
+        self.slots = int(slots)
+        self.max_len = int(max_len)
+        self.queue: deque[Request] = deque()
+        self.free: list[int] = list(range(self.slots))
+        self.blocks = blocks              # BlockManager
+        self.cache = prefix_cache         # PrefixCache
+        self.block_size = int(block_size)
+        self._credit: dict[int, float] = {}   # deficit counters by class
+
+    # -- admission ----------------------------------------------------------
+    def submit(self, req: Request) -> bool:
+        """Queue ``req``; False = rejected (it can never fit a slot), with
+        a :class:`PromptTooLongError` message in ``req.error``."""
+        worst = len(req.prompt) + req.sampling.max_tokens
+        if len(req.prompt) == 0:
+            req.status, req.error = "rejected", "empty prompt"
+        elif worst > self.max_len:
+            err = PromptTooLongError(
+                prompt_len=len(req.prompt),
+                max_tokens=req.sampling.max_tokens,
+                limit=self.max_len, source="serving slot",
+                hint="trim the prompt or max_tokens, or raise max_len")
+            req.status, req.error = "rejected", str(err)
+        if req.status == "rejected":
+            req.done.set()
+            return False
+        req.mark("queued")
+        self.queue.append(req)
+        return True
+
+    # -- class selection ----------------------------------------------------
+    def _select_class(self) -> tuple[Optional[int], Optional[dict]]:
+        """Deficit-weighted pick among classes present in the queue
+        (pure — commits nothing). Every backlogged class earns its
+        weight per round until one can afford an admission (credit
+        >= 1); richest wins, urgency breaks ties. Returns
+        ``(class, credits-after-accrual)``."""
+        present = {r.sampling.priority for r in self.queue}
+        if not present:
+            return None, None
+        eff = {c: self._credit.get(c, 0.0) for c in present}
+        while max(eff.values()) < 1.0:
+            for c in eff:
+                eff[c] += 2.0 ** (-max(int(c), 0))
+        win = min(present, key=lambda c: (-eff[c], c))
+        return win, eff
+
+    def next_admission(self) -> Optional[tuple[Request, int]]:
+        """Pop the deficit-selected class's oldest request into a free
+        slot, or None (no queue, no slot, or not enough free blocks even
+        after cache eviction: the chosen head waits).
+
+        The admission plan is attached as ``req.admit``:
+        ``{"table": [block ids], "first_uncached": int,
+        "cow": (src, dst) | None}`` — blocks already allocated/shared,
+        so the engine only maps them into its block tables."""
+        if not self.queue or not self.free:
+            return None
+        win, eff = self._select_class()
+        req = next(r for r in self.queue if r.sampling.priority == win)
+        plan = self._page_plan(req)
+        if plan is None:
+            return None
+        # commit the deficit round only on a real admission (a blocked
+        # head must not burn its class's credits while it waits)
+        self._credit = eff
+        self._credit[win] -= 1.0
+        self.queue.remove(req)
+        slot = self.free.pop(0)
+        req.slot = slot
+        req.status = "prefill"
+        req.admit = plan
+        req.mark("admit")
+        return req, slot
+
+    def _page_plan(self, req: Request) -> Optional[dict]:
+        """Price ``req`` in blocks net of the prefix cache, evicting
+        LRU cache leaves if the free list is short; None = cannot fit
+        yet. On success every table block is live (shared or freshly
+        allocated) and charged to this request."""
+        bs = self.block_size
+        P = len(req.prompt)
+        total = -(-(P + req.sampling.max_tokens) // bs)   # worst case
+        shared, partial = self.cache.match(req.prompt.tolist())
+        shared = shared[:total]
+        matched = len(shared) * bs + (partial[1] if partial else 0)
+        # a FULL-prompt hit still recomputes the last token (its logits
+        # seed decoding); the rewrite of position P-1 into a possibly
+        # shared block is benign — same tokens, same values
+        first_uncached = min(matched, P - 1)
+        if partial is not None and first_uncached <= len(shared) * bs:
+            partial = None                 # tail match buys nothing
+            first_uncached = min(len(shared) * bs, P - 1)
+        n_new = total - len(shared)        # incl. the CoW destination
+        # pin the matched path BEFORE evicting: evict() reclaims any
+        # refcount-1 trie leaf, and peeling a cached chain tail-first
+        # can reach the very blocks we just matched — unpinned, they
+        # would be freed (and possibly re-allocated) out from under
+        # this request's table
+        pins = list(shared)
+        if partial is not None:
+            pins.append(partial[0])
+        for b in pins:
+            self.blocks.share(b)
+        if n_new > self.blocks.free_blocks:
+            self.cache.evict(n_new - self.blocks.free_blocks)
+        if n_new > self.blocks.free_blocks:
+            for b in pins:                 # unwind; the trie ref remains
+                self.blocks.release(b)
+            return None
+        fresh = [self.blocks.alloc() for _ in range(n_new)]
+        if partial is not None:
+            # the src pin only guarded eviction: the table never maps
+            # the src (the engine copies it into fresh[0] this step)
+            self.blocks.release(partial[0])
+        table = shared + fresh
+        cow = (partial[0], fresh[0]) if partial is not None else None
+        req.cached_tokens = first_uncached
+        return {"table": table, "first_uncached": first_uncached,
+                "cow": cow}
+
+    def release(self, slot: int, table) -> None:
+        """Return a slot and every block its table maps (shared blocks
+        just drop a holder; blocks the prefix cache adopted at insert
+        stay cached)."""
+        self.free.append(slot)
+        for b in table:
+            if b:
+                self.blocks.release(int(b))

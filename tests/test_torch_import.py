@@ -1,0 +1,77 @@
+"""The port stands alone: ``hetu_tpu_torch`` and ``chip_smoke.py`` import
+neither jax nor ``hetu_tpu``, and no entry point falls back to the CPU
+by itself."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "hetu_tpu_torch"
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_import_leaves_jax_unloaded():
+    mods = list(_modules())
+    assert "hetu_tpu_torch.serving.engine" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m == 'jax' or m.startswith('jax.')\n"
+            "             or m == 'hetu_tpu' or m.startswith('hetu_tpu.'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_no_jax_or_hetu_tpu_imports(path):
+    tree = ast.parse((ROOT / path).read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    bad = [n for n in names
+           if n.split(".")[0] in ("jax", "jaxlib", "hetu_tpu")]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_entry_points_refuse_a_silent_cpu_fallback():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from hetu_tpu_torch import resolve_device
+    from hetu_tpu_torch.models import GPTConfig, GPTLMHeadModel, generate
+    from hetu_tpu_torch.serving import ServingEngine
+    cfg = GPTConfig.tiny()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GPTLMHeadModel(cfg)
+    model = GPTLMHeadModel(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingEngine(model, slots=2, max_len=32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        generate(model, [[1, 2, 3]], max_new_tokens=2)
+    # asked for explicitly, the host path runs
+    eng = ServingEngine(model, slots=2, max_len=32, device="cpu")
+    assert eng.device.type == "cpu"
