@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``hetu_tpu_torch``) on one NVIDIA
 GPU: builds the hand-written kernels, holds each against its plain
-PyTorch version, and serves GPT-2 small through ``ServingEngine``.
+PyTorch version, serves GPT-2 small through ``ServingEngine`` and trains
+it with ``build_train_step``.
 
 Run from the repository root, on a machine with one CUDA card::
 
@@ -11,14 +12,17 @@ Phases, each printing one JSON line:
 
 1. device  -- the card's name and power limit (``nvidia-smi``); compute
    capability 9.0 (Hopper) is required.
-2. build   -- ``nvcc`` builds every kernel from ``hetu_tpu_torch/csrc``.
+2. build   -- ``nvcc`` builds every kernel from ``hetu_tpu_torch/csrc``,
+   one process per source, all at once.
 3. kernel  -- each kernel against its plain version on the card, at the
-   serving path's shapes (fp32 and bf16) and at edge shapes; max abs
-   error against its bound (1e-4 fp32: summation order; 2e-2 bf16:
-   output rounding), and times: kernel, plain version, one PyTorch
-   library call computing the same function (a yardstick the port never
-   calls), and the bound (bytes over 3.35 TB/s or flops over the peak
-   rate, whichever is larger). Every timed launch finds the L2 cold.
+   serving path's shapes (fp32 and bf16) and at edge shapes (GQA, segment
+   pads, offsets that leave rows with no key, dropout 0.1); max abs error
+   against its bound (1e-4 fp32: summation order; 2e-2 bf16: output
+   rounding), and times: kernel, plain version, one PyTorch library call
+   computing the same function (a yardstick the port never calls), and
+   the bound (bytes over 3.35 TB/s or flops over the peak rate of the
+   inputs' type, whichever is larger). Every timed launch finds the L2
+   cold.
 4. engine  -- GPT-2 small (fp32, random weights from a seed) served by
    ``ServingEngine(slots=16, max_len=512, prefill_chunk=64,
    block_size=16)``: 48 greedy requests with 4-448-token prompts and
@@ -29,7 +33,24 @@ Phases, each printing one JSON line:
    the one-shot ``generate`` oracle (dense cache, plain attention: no
    kernel), except at a step where the oracle's top-2 logit gap is below
    1e-4 (a near-tie, printed).
-5. summary -- one ``{"kernels": [...]}`` line, the card's name and power
+5. train   -- GPT-2 small at ``bench.py main()``'s TPU configuration:
+   seq 1024, fp32 params with bf16 compute, ``Strategy(remat=
+   "selective", unroll=True)``, AdamW(1e-4, wd 0.01). First a step
+   oracle: one fp32 step's loss and every grad with the kernels on the
+   card against the same weights and batch on the CPU (plain path), at
+   batch 1. Then the batch ladder 32/16/8 (a CUDA out-of-memory error
+   steps down; any other error fails): 3 warm-up and 10 timed steps on
+   one repeated batch; the loss must fall, and the counters (zeroed just
+   before the timed steps) must read exactly 12 launches per step of
+   ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``. One step under
+   full remat must read 24/12/12. Step ms, tokens/s, MFU against the
+   989 TFLOP/s bf16 dense peak, the batch that ran and peak memory.
+6. train_kernels -- the three flash kernels at the batch that ran (12
+   heads, seq 1024, d 64, causal), fp32 and bf16, against their plain
+   versions, then timed in bf16 as the main path runs them.
+7. train_profile -- ``torch.profiler`` over 3 steps: device ms per step
+   by class and the device's idle share.
+8. summary -- one ``{"kernels": [...]}`` line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 Any failure exits nonzero before the ``ok`` line. Without a CUDA device,
@@ -39,6 +60,7 @@ nonzero at once.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -59,6 +81,9 @@ C = 64                             # the engine's prefill chunk
 #: start) per request run -- a third chunk of a long prompt, a new prompt,
 #: a second chunk -- then 5 pad tokens (segment -1)
 PACK = ((3, 20, 128), (7, 9, 0), (0, 30, 64))
+TRAIN_SEQ = 1024
+LADDER = (32, 16, 8)               # bench.py main()'s batch ladder
+DROP_SEED = 1234
 
 
 class SmokeFailure(RuntimeError):
@@ -109,6 +134,29 @@ class Timer:
             pairs.append((start, end))
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+    def per_kernel(self, fn, keys, iters: int = 10) -> dict:
+        """Mean device ms per call of each kernel whose name contains one
+        of ``keys``, from ``torch.profiler`` over ``iters`` calls (for a
+        function that launches several kernels)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                self.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        ms = {key: 0.0 for key in keys}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                for key in keys:
+                    if key in e.name:
+                        ms[key] += e.time_range.elapsed_us() / 1e3 / iters
+        check(all(v > 0 for v in ms.values()),
+              f"profiler saw no device time for {keys}: {ms}")
+        return ms
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -205,6 +253,50 @@ def flash_work(q, k, seg, causal, q_offset=0, kv_offset=0):
     return nbytes, 4.0 * live * hq * d
 
 
+def bwd_work(q, k, seg, causal, q_offset=0, kv_offset=0):
+    """``((bytes, flops) of dq, (bytes, flops) of dk/dv)`` on these
+    inputs. Both read q, dO, k, v, lse and delta; dq writes dq, dk/dv
+    write dk and dv. Per live (q, k) pair and head, dq does three
+    products of 2d flops (s, dp, ds k) and dk/dv four (s, dp, p dO, ds
+    q)."""
+    b, hq, sq, d = q.shape
+    item = q.element_size()
+    live = int(flash_mask(seg, sq, k.shape[2], causal, q_offset, kv_offset,
+                          q.device).expand(b, 1, sq, k.shape[2]).sum())
+    stats = 2 * b * hq * sq * 4 + (0 if seg is None else 2 * seg.numel() * 4)
+    dq = (3 * q.numel() + 2 * k.numel()) * item + stats
+    dkv = (2 * q.numel() + 4 * k.numel()) * item + stats
+    return (dq, 6.0 * live * hq * d), (dkv, 8.0 * live * hq * d)
+
+
+def bwd_inputs(gens, q, causal, scale, qo, ko, rate, seg, ops, k, v):
+    """dO from the card's generator, out/lse from the plain forward."""
+    do = torch.randn(q.shape, generator=gens.device,
+                     device=q.device).to(q.dtype)
+    args = dict(causal=causal, scale=scale, q_offset=qo, kv_offset=ko,
+                dropout_rate=rate, seed=DROP_SEED if rate else None)
+    out, lse = ops.flash_attention_fwd_reference(q, k, v, seg, seg, **args)
+    return do, out, lse, args
+
+
+def check_bwd(name, case, dtype, shape, got, want, errs, dead_rows=0):
+    """Hold (dq, dk, dv) against the plain version; dq of rows that see
+    no key must be exactly 0."""
+    torch.cuda.synchronize()
+    tag = str(dtype).split(".")[1]
+    for kernel, parts in (("flash_bwd_dq", (0,)), ("flash_bwd_dkv", (1, 2))):
+        err = max(max_err(got[i], want[i]) for i in parts)
+        ok = err <= TOL[dtype]
+        emit(phase="kernel", kernel=kernel, case=case, dtype=tag,
+             shape=shape, max_abs_err=err, bound=TOL[dtype], ok=ok)
+        check(ok, f"{kernel} {case} {tag}: max abs err {err} > "
+                  f"{TOL[dtype]}")
+        errs[kernel][dtype] = max(errs[kernel][dtype], err)
+    if dead_rows:
+        check(bool((got[0][:, :, :dead_rows] == 0).all()),
+              f"{name} {case}: dq of rows with no key not 0")
+
+
 class Generators:
     """A generator on the card for tensors and one on the host for block
     permutations, both seeded from one seed."""
@@ -215,8 +307,9 @@ class Generators:
 
 
 def phase_kernels(device, timer, ops):
-    """Both kernels against their plain versions; returns the summary
-    entries (without ``launches``, which the engine phase fills)."""
+    """The four kernels against their plain versions at the serving
+    shapes and the edge shapes; returns the summary entries (without
+    ``launches``, which the main paths fill)."""
     gens = Generators(device, SEED)
     results = {}
 
@@ -285,26 +378,32 @@ def phase_kernels(device, timer, ops):
         at += n
     skip_seg = np.repeat(np.arange(4), 64)
     skip_seg[-10:] = -1
+    skip2 = np.stack([skip_seg, skip_seg])
+    # (name, shape, causal, q_offset, kv_offset, dropout rate)
     cases = [
         ("packed_prefill", dict(b=1, hq=12, hkv=12, s=C, d=64, seg=pack_seg),
-         True, 0, 0),
+         True, 0, 0, 0.0),
         ("gqa2_pads", dict(b=1, hq=12, hkv=6, s=C, d=64, seg=pack_seg),
-         True, 0, 0),
-        ("causal_block_skip", dict(b=2, hq=4, hkv=2, s=256, d=64,
-                                   seg=np.stack([skip_seg, skip_seg])),
-         True, 0, 0),
+         True, 0, 0, 0.0),
+        ("causal_block_skip", dict(b=2, hq=4, hkv=2, s=256, d=64, seg=skip2),
+         True, 0, 0, 0.0),
         ("offsets_masked_rows", dict(b=1, hq=4, hkv=4, s=48, d=64,
-                                     seg=None), True, 0, 5),
+                                     seg=None), True, 0, 5, 0.0),
         ("non_causal_seg", dict(b=1, hq=4, hkv=4, s=C, d=64, seg=pack_seg),
-         False, 0, 0),
+         False, 0, 0, 0.0),
+        ("dropout_gqa", dict(b=2, hq=4, hkv=2, s=256, d=64, seg=None),
+         True, 0, 0, 0.1),
+        ("dropout_offsets_d128", dict(b=1, hq=4, hkv=4, s=96, d=128,
+                                      seg=None), True, 3, 8, 0.1),
     ]
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for name, kw, causal, qo, ko in cases:
+    for name, kw, causal, qo, ko, rate in cases:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, seg = flash_case(gens, device, dtype, **kw)
             scale = q.shape[-1] ** -0.5
             args = dict(causal=causal, scale=scale, q_offset=qo,
-                        kv_offset=ko)
+                        kv_offset=ko, dropout_rate=rate,
+                        seed=DROP_SEED if rate else None)
             out, lse = ops.flash_attention_fwd(q, k, v, seg, seg, **args)
             ref_o, ref_l = ops.flash_attention_fwd_reference(
                 q, k, v, seg, seg, **args)
@@ -332,6 +431,29 @@ def phase_kernels(device, timer, ops):
         max_abs_err=errs[torch.float32],
         max_abs_err_bf16=errs[torch.bfloat16], shape="packed_prefill",
         **timed)
+
+    # ---- flash backward: dq and dk/dv, on the same cases ----
+    errs = {n: {torch.float32: 0.0, torch.bfloat16: 0.0}
+            for n in ("flash_bwd_dq", "flash_bwd_dkv")}
+    for name, kw, causal, qo, ko, rate in cases[1:]:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, seg = flash_case(gens, device, dtype, **kw)
+            scale = q.shape[-1] ** -0.5
+            do, out, lse, args = bwd_inputs(gens, q, causal, scale, qo, ko,
+                                            rate, seg, ops, k, v)
+            got = ops.flash_attention_bwd(q, k, v, seg, seg, out, lse, do,
+                                          **args)
+            want = ops.flash_attention_bwd_reference(q, k, v, seg, seg, out,
+                                                     lse, do, **args)
+            check_bwd("flash backward", name, dtype, list(q.shape), got,
+                      want, errs, dead_rows=max(0, ko - qo))
+    for kernel, line in (("flash_bwd_dq", 355), ("flash_bwd_dkv", 418)):
+        results[kernel] = dict(
+            name=kernel, route="cuda",
+            source="hetu_tpu_torch/csrc/flash_bwd.cu",
+            replaces=f"hetu_tpu/ops/flash_pallas.py:{line}",
+            max_abs_err=errs[kernel][torch.float32],
+            max_abs_err_bf16=errs[kernel][torch.bfloat16])
     return results
 
 
@@ -573,6 +695,298 @@ def phase_profile(eng, prompts, sp, n_steps: int = 20):
          top_kernels_ms_per_step=[[n[:80], ms / n_steps] for n, ms in top])
 
 
+# -- training ----------------------------------------------------------------
+
+def train_batch(vocab: int, b: int, device, seed: int = SEED) -> dict:
+    ids = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, vocab, (b, TRAIN_SEQ + 1)))
+    return {"input_ids": ids[:, :-1].to(device),
+            "labels": ids[:, 1:].to(device)}
+
+
+def flash_launches(counts) -> dict:
+    return {k: counts.get(k, 0)
+            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+
+
+def train_oracle(cfg, device):
+    """One fp32 step, kernels on the card (selective remat) against the
+    plain path on the CPU (no remat), same weights and batch. Bounds:
+    |loss difference| <= 1e-4; each grad's max abs difference <= 1e-3 of
+    its own max |grad| plus 1e-5 of the largest grad of the model (sums
+    run in other orders; a grad that is zero in exact arithmetic, such
+    as the key bias's, is summation noise on both sides)."""
+    from hetu_tpu_torch.models import GPTLMHeadModel
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    t0 = time.perf_counter()
+    gpu = GPTLMHeadModel(cfg, device=device, seed=SEED + 1)
+    cpu = GPTLMHeadModel(cfg, device="cpu", seed=SEED + 1)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    batch = train_batch(cfg.vocab_size, 1, "cpu", seed=SEED + 1)
+    reset_launch_counts()
+    loss_gpu = gpu.loss(batch["input_ids"].to(device),
+                        batch["labels"].to(device), remat="selective")
+    loss_gpu.backward()
+    torch.cuda.synchronize()
+    counts = flash_launches(launch_counts())
+    loss_cpu = cpu.loss(batch["input_ids"], batch["labels"])
+    loss_cpu.backward()
+    loss_gpu, loss_cpu = float(loss_gpu.detach()), float(loss_cpu.detach())
+    want = dict(cpu.named_parameters())
+    gmax = max(float(p.grad.abs().max()) for p in want.values())
+    worst, worst_name = 0.0, None
+    for name, p in gpu.named_parameters():
+        ref = want[name].grad
+        err = float((p.grad.cpu() - ref).abs().max())
+        bound = 1e-3 * float(ref.abs().max()) + 1e-5 * gmax
+        if err / bound > worst:
+            worst, worst_name = err / bound, name
+    dloss = abs(loss_gpu - loss_cpu)
+    L = cfg.num_layers
+    emit(phase="train_oracle", dtype="float32", batch=1, seq=TRAIN_SEQ,
+         loss_gpu=loss_gpu, loss_cpu=loss_cpu,
+         loss_abs_diff=dloss, worst_grad_err_over_bound=worst,
+         worst_grad=worst_name, largest_grad=gmax, launches=counts,
+         seconds=time.perf_counter() - t0)
+    check(dloss <= 1e-4, f"train oracle: loss differs by {dloss}")
+    check(worst <= 1.0, f"train oracle: grad {worst_name} off by "
+                        f"{worst} x its bound")
+    check(counts == {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L},
+          f"train oracle: launches {counts}, expected {L} each")
+
+
+def train_rung(model, opt, plan, b, device):
+    """3 warm-up and 10 timed steps at batch ``b``; the launch counters
+    are zeroed just before the timed steps and read just after."""
+    from hetu_tpu_torch.engine import build_train_step, init_state
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    model.reset_parameters(SEED)
+    state = init_state(model, opt, plan)
+    step = build_train_step(model, opt, plan)
+    batch = train_batch(model.cfg.vocab_size, b, device)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        state, m = step(state, batch)
+    float(m["loss"])
+    warm_s = time.perf_counter() - t0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = []
+    for _ in range(10):
+        state, m = step(state, batch)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / 10
+    counts = launch_counts()
+    losses = [float(m["loss"]) for m in metrics]
+    return dict(state=state, step=step, batch=batch, dt=dt, warm_s=warm_s,
+                counts=counts, losses=losses,
+                grad_norm=float(metrics[-1]["grad_norm"]),
+                peak=torch.cuda.max_memory_allocated())
+
+
+def phase_train(device, card):
+    from hetu_tpu_torch import optim
+    from hetu_tpu_torch.core import BF16_COMPUTE, autocast
+    from hetu_tpu_torch.engine import build_train_step, make_plan
+    from hetu_tpu_torch.models import GPTConfig, GPTLMHeadModel
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.parallel import Strategy
+
+    cfg = GPTConfig.small()
+    train_oracle(cfg, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = GPTLMHeadModel(cfg, device=device, seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = optim.adamw(1e-4, weight_decay=0.01)
+    with autocast(BF16_COMPUTE):          # the plan keeps the policy
+        plan = make_plan(model, opt, Strategy(remat="selective",
+                                              unroll=True), device=device)
+        plan_full = make_plan(model, opt, Strategy(remat="full"),
+                              device=device)
+    run = None
+    for b in LADDER:
+        try:
+            run = train_rung(model, opt, plan, b, device)
+        except torch.cuda.OutOfMemoryError as e:
+            emit(phase="train_oom", batch=b, error=str(e)[:200])
+        if run is not None:
+            break
+        model.zero_grad(set_to_none=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(run is not None, f"no batch of {LADDER} fit")
+    L = cfg.num_layers
+    want = {"flash_fwd": 10 * L, "flash_bwd_dq": 10 * L,
+            "flash_bwd_dkv": 10 * L}
+    got = flash_launches(run["counts"])
+    tokens_per_s = b * TRAIN_SEQ / run["dt"]
+    # bench.py:133: 6N matmul flops per token + 6 L H s for attention
+    flops_per_token = 6.0 * n_params + 6.0 * L * cfg.hidden_size * TRAIN_SEQ
+    emit(phase="train", card=card, config="GPTConfig.small",
+         params=n_params, seq=TRAIN_SEQ, batch=b, policy="BF16_COMPUTE",
+         remat="selective", step_ms=run["dt"] * 1e3,
+         tokens_per_s=tokens_per_s,
+         mfu=tokens_per_s * flops_per_token / PEAK_FLOPS[torch.bfloat16],
+         flops_per_token=flops_per_token,
+         peak_memory_bytes=run["peak"], warmup_seconds=run["warm_s"],
+         losses=run["losses"], grad_norm_last=run["grad_norm"],
+         launches=got, expected=want)
+    check(all(np.isfinite(run["losses"])), "non-finite training loss")
+    check(run["losses"][-1] < run["losses"][0],
+          f"loss did not fall: {run['losses']}")
+    check(got == want, f"train launches {got}, expected {want} "
+                       f"(12 per kernel per step, 10 steps)")
+
+    # full remat re-runs the flash forward in the backward: 24 per step
+    step_full = build_train_step(model, opt, plan_full)
+    reset_launch_counts()
+    run["state"], _ = step_full(run["state"], run["batch"])
+    torch.cuda.synchronize()
+    full = flash_launches(launch_counts())
+    emit(phase="train_full_remat", launches=full)
+    check(full == {"flash_fwd": 2 * L, "flash_bwd_dq": L,
+                   "flash_bwd_dkv": L},
+          f"full remat launches {full}, expected {2 * L}/{L}/{L}")
+    run.update(batch_size=b, model=model, counts=got)
+    return run
+
+
+TRAIN_CLASSES = (("flash_fwd", "flash_fwd"),
+                 ("flash_bwd_dq", "flash_bwd_dq"),
+                 ("flash_bwd_dkv", "flash_bwd_dkv"),
+                 ("gemm", "matmul"), ("xmma", "matmul"),
+                 ("cutlass", "matmul"), ("nvjet", "matmul"),
+                 ("sm90_", "matmul"))
+
+
+def phase_train_profile(run, n_steps: int = 3):
+    """Where a training step's time goes: ``torch.profiler`` over
+    ``n_steps`` steps at the batch that ran. Device busy is the sum of
+    kernel times (one stream); the rest of the wall time the card waits
+    on the host. The profiler's host cost inflates the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    state, step, batch = run["state"], run["step"], run["batch"]
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict[str, float] = {}
+    n_kernels = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n_kernels += 1
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    busy_ms = sum(by_name.values())
+    check(busy_ms > 0, "the profiler saw no device time")
+    by_class: dict[str, float] = {}
+    for name, ms in by_name.items():
+        cls = next((c for key, c in TRAIN_CLASSES if key in name), "other")
+        by_class[cls] = by_class.get(cls, 0.0) + ms / n_steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    emit(phase="train_profile", steps=n_steps, batch=run["batch_size"],
+         ms_per_step=wall_ms / n_steps,
+         device_kernels_per_step=n_kernels / n_steps,
+         device_busy_ms_per_step=busy_ms / n_steps,
+         device_idle_share=1.0 - busy_ms / wall_ms,
+         device_ms_per_step_by_class=by_class,
+         top_kernels_ms_per_step=[[n[:80], ms / n_steps] for n, ms in top])
+
+
+def phase_train_kernels(device, timer, ops, b, results):
+    """The three flash kernels at the training shape (b, 12 heads, seq
+    1024, d 64, causal): fp32 and bf16 against their plain versions, then
+    timed in bf16, as the main path runs them."""
+    import torch.nn.functional as F
+    gens = Generators(device, SEED + 2)
+    shape = dict(b=b, hq=12, hkv=12, s=TRAIN_SEQ, d=64, seg=None)
+    scale = 64 ** -0.5
+    errs = {n: {torch.float32: 0.0, torch.bfloat16: 0.0}
+            for n in ("flash_bwd_dq", "flash_bwd_dkv")}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, _ = flash_case(gens, device, dtype, **shape)
+        do, out, lse, args = bwd_inputs(gens, q, True, scale, 0, 0, 0.0,
+                                        None, ops, k, v)
+        got_o, got_l = ops.flash_attention_fwd(q, k, v, None, None,
+                                               causal=True, scale=scale)
+        torch.cuda.synchronize()
+        err = max(max_err(got_o, out), max_err(got_l, lse))
+        tag = str(dtype).split(".")[1]
+        emit(phase="kernel", kernel="flash_fwd", case="train", dtype=tag,
+             shape=list(q.shape), max_abs_err=err, bound=TOL[dtype],
+             ok=err <= TOL[dtype])
+        check(err <= TOL[dtype], f"flash_fwd train {tag}: {err}")
+        del got_o, got_l
+        got = ops.flash_attention_bwd(q, k, v, None, None, out, lse, do,
+                                      **args)
+        want = ops.flash_attention_bwd_reference(q, k, v, None, None, out,
+                                                 lse, do, **args)
+        check_bwd("flash backward", "train", dtype, list(q.shape), got, want,
+                  errs)
+        del got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    for kernel in errs:
+        for dtype, key in ((torch.float32, "max_abs_err"),
+                           (torch.bfloat16, "max_abs_err_bf16")):
+            results[kernel][key] = max(results[kernel][key],
+                                       errs[kernel][dtype])
+
+    # times, bf16 (q/k/v/dO/out left from the loop)
+    fwd = lambda: ops.flash_attention_fwd(q, k, v, None, None,  # noqa: E731
+                                          causal=True, scale=scale)
+    bwd = lambda: ops.flash_attention_bwd(  # noqa: E731
+        q, k, v, None, None, out, lse, do, **args)
+    kern = timer.per_kernel(fwd, ["flash_fwd_kernel"])
+    kern.update(timer.per_kernel(bwd, ["flash_bwd_dq_kernel",
+                                       "flash_bwd_dkv_kernel"]))
+    plain_fwd = timer(lambda: ops.flash_attention_fwd_reference(
+        q, k, v, None, None, causal=True, scale=scale), iters=5)
+    plain_bwd = timer(lambda: ops.flash_attention_bwd_reference(
+        q, k, v, None, None, out, lse, do, **args), iters=5)
+    lib_fwd = timer(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=scale))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                             scale=scale)
+    lib_bwd = timer(lambda: torch.autograd.grad(
+        lib_out, (qg, kg, vg), do, retain_graph=True))
+    del lib_out
+    nbytes, flops = flash_work(q, k, None, True)
+    (dq_b, dq_f), (dkv_b, dkv_f) = bwd_work(q, k, None, True)
+    for kernel, key, plain, lib, nb, fl in (
+            ("flash_fwd", "flash_fwd_kernel", plain_fwd, lib_fwd, nbytes,
+             flops),
+            ("flash_bwd_dq", "flash_bwd_dq_kernel", plain_bwd, lib_bwd, dq_b,
+             dq_f),
+            ("flash_bwd_dkv", "flash_bwd_dkv_kernel", plain_bwd, lib_bwd,
+             dkv_b, dkv_f)):
+        bound_ms, bound_by = bound(nb, fl, q.dtype)
+        t = dict(ms=kern[key], plain_ms=plain, library_ms=lib,
+                 bound_ms=bound_ms, bound_by=bound_by, bytes=nb, flops=fl)
+        emit(phase="kernel_time", kernel=kernel, case="train",
+             dtype="bfloat16", shape=list(q.shape), **t)
+        if kernel == "flash_fwd":
+            results[kernel].update({f"train_{k}": v for k, v in t.items()})
+        else:
+            results[kernel].update(t, shape="train_bf16")
+    emit(phase="kernel_note", note="plain_ms and library_ms of flash_bwd_dq "
+         "and flash_bwd_dkv both time one whole backward (dq, dk and dv "
+         "together); library = SDPA(is_causal) backward via "
+         "torch.autograd.grad")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -604,10 +1018,20 @@ def main() -> int:
 
     timer = Timer(device)
     kernels = phase_kernels(device, timer, ops)
+    paths = {"engine": phase_engine(device, smi)}
+    run = phase_train(device, smi)
+    paths["train"] = run["counts"]
+    phase_train_profile(run)
+    batch = run["batch_size"]
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_kernels(device, timer, ops, batch, kernels)
     del timer
-    counts = phase_engine(device, smi)
     for name, entry in kernels.items():
-        entry["launches"] = counts.get(name, 0)
+        entry["launches_by_path"] = {p: c.get(name, 0)
+                                     for p, c in paths.items()}
+        entry["launches"] = sum(entry["launches_by_path"].values())
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

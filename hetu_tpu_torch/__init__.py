@@ -1,8 +1,9 @@
 """hetu_tpu_torch — the PyTorch/CUDA port of ``hetu_tpu`` for NVIDIA Hopper.
 
 The JAX package ``hetu_tpu`` stays the reference; this package mirrors its
-layout (``ops/``, ``nn/``, ``models/``, ``serving/``) so each module's
-counterpart is easy to find. It imports torch and numpy only — never jax,
+layout (``core/``, ``ops/``, ``nn/``, ``models/``, ``optim/``,
+``parallel/``, ``engine/``, ``serving/``) so each module's counterpart is
+easy to find. It imports torch and numpy only — never jax,
 never ``hetu_tpu``.
 
 Device rule: every entry point takes ``device=None``, which means

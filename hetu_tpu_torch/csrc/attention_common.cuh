@@ -7,6 +7,7 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace hetu {
 
@@ -36,6 +37,43 @@ __device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
+// murmur3 fmix32 (hetu_tpu/core/bits.py)
+__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
+// The flash kernels' dropout lane (hetu_tpu/ops/flash_pallas.py:108
+// _dropout_keep): a counter hash of the absolute (q, k) position, the
+// batch row and the q head, so every kernel regenerates the same mask
+// whatever its tiles. `threshold` is min(2^32 - 1, int(rate * 2^32)),
+// computed on the host; a kept probability is scaled by 1 / (1 - rate).
+struct Dropout {
+  int on;
+  uint32_t seed;
+  uint32_t threshold;
+  float inv_keep;
+
+  // the per-(batch row, q head) salt
+  __device__ __forceinline__ uint32_t salt(int ib, int ih) const {
+    return fmix32(seed ^ ((uint32_t)ib * 0x27D4EB2Fu) ^
+                  ((uint32_t)ih * 0x165667B1u));
+  }
+  // the factor a probability at absolute (qpos, kpos) is multiplied by
+  // before it meets v (or dO): 0 if dropped, 1 / (1 - rate) if kept
+  __device__ __forceinline__ float scale(uint32_t salt, int qpos,
+                                         int kpos) const {
+    if (!on) return 1.f;
+    const uint32_t u = fmix32(((uint32_t)qpos * 0x9E3779B1u) ^
+                              ((uint32_t)kpos * 0x85EBCA77u) ^ salt);
+    return u >= threshold ? inv_keep : 0.f;
+  }
+};
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
@@ -52,11 +90,14 @@ __device__ __forceinline__ float warp_sum(float v) {
 // One online-softmax step for one query row against the staged key tile.
 // Called by a whole warp; lane j holds key j. qrow: the row's scaled q in
 // shared memory; ks/vs: the tile (kTile rows of stride ld); live: whether
-// lane's key is visible to this row. m starts at -inf (so exp(m_prev -
-// m_next) never sees -inf - -inf), l and acc at 0.
+// lane's key is visible to this row; drop: the dropout factor of lane's
+// key (1 without dropout), which scales only what meets v, so l and the
+// lse stay undropped. m starts at -inf (so exp(m_prev - m_next) never
+// sees -inf - -inf), l and acc at 0.
 __device__ __forceinline__ void online_softmax_tile(
     const float* qrow, const float* ks, const float* vs, int ld, int d,
-    bool live, float& m, float& l, float (&acc)[kMaxCols]) {
+    bool live, float& m, float& l, float (&acc)[kMaxCols],
+    float drop = 1.f) {
   const int lane = threadIdx.x & 31;
   float s = 0.f;
   for (int c = 0; c < d; ++c) s = fmaf(qrow[c], ks[lane * ld + c], s);
@@ -66,11 +107,12 @@ __device__ __forceinline__ void online_softmax_tile(
   const float alpha = expf(m - m_next);
   l = alpha * l + warp_sum(p);
   m = m_next;
+  const float pv = p * drop;
   const int ncol = d >> 5;
 #pragma unroll
   for (int t = 0; t < kMaxCols; ++t) acc[t] *= alpha;
   for (int j = 0; j < kTile; ++j) {
-    const float pj = __shfl_sync(0xffffffffu, p, j);
+    const float pj = __shfl_sync(0xffffffffu, pv, j);
 #pragma unroll
     for (int t = 0; t < kMaxCols; ++t)
       if (t < ncol) acc[t] = fmaf(pj, vs[j * ld + lane + 32 * t], acc[t]);

@@ -11,9 +11,10 @@
 //     key j at j + kv_offset iff i + q_offset >= j + kv_offset;
 //   - key tiles wholly above the diagonal are never loaded (the TPU kernel's
 //     diagonal block skip);
-//   - a fully masked row gives out = 0 and lse = -1e30.
-// The TPU kernel's in-kernel dropout lane is not ported; the wrapper
-// refuses a dropout rate.
+//   - a fully masked row gives out = 0 and lse = -1e30;
+//   - dropout on the probabilities (the TPU kernel's in-kernel lane): the
+//     position-hashed keep mask of attention_common.cuh `Dropout` scales
+//     only what meets v, so l and the lse stay undropped (:226-234).
 //
 // What bounds it on an H100: bytes from HBM. At the serving path's shape
 // (one packed row of C = 64 tokens, 12 heads, d = 64, fp32) the call must
@@ -43,8 +44,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ q_seg,
                  const int* __restrict__ kv_seg, T* __restrict__ out,
                  float* __restrict__ lse, int hq, int hkv, int sq, int sk,
-                 int d, float scale, int causal, int q_offset,
-                 int kv_offset) {
+                 int d, float scale, int causal, int q_offset, int kv_offset,
+                 Dropout drop) {
   extern __shared__ float smem[];
   const int ld = d + 1;
   float* qs = smem;
@@ -57,6 +58,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const size_t qbase = ((size_t)ib * hq + ih) * sq * d;
   const size_t kbase = ((size_t)ib * hkv + ikv) * sk * d;
+  const uint32_t salt = drop.salt(ib, ih);
 
   for (int e = threadIdx.x; e < kRows * d; e += blockDim.x) {
     const int r = e / d, c = e - r * d, qi = q0 + r;
@@ -110,7 +112,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       bool live = kj < sk;
       if (causal) live = live && (qi + q_offset >= kj + kv_offset);
       if (q_seg != nullptr) live = live && (qseg[i] == kseg[lane]);
-      online_softmax_tile(qs + r * ld, ks, vs, ld, d, live, m[i], l[i], acc[i]);
+      online_softmax_tile(qs + r * ld, ks, vs, ld, d, live, m[i], l[i], acc[i],
+                          drop.scale(salt, qi + q_offset, kj + kv_offset));
     }
   }
 
@@ -127,7 +130,7 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* q_seg,
            const void* kv_seg, void* out, void* lse, int b, int hq, int hkv,
            int sq, int sk, int d, float scale, int causal, int q_offset,
-           int kv_offset, cudaStream_t stream) {
+           int kv_offset, Dropout drop, cudaStream_t stream) {
   const size_t smem = smem_bytes(d);
   cudaError_t err = allow_smem(flash_fwd_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
@@ -137,7 +140,7 @@ int launch(const void* q, const void* k, const void* v, const void* q_seg,
       static_cast<const T*>(v), static_cast<const int*>(q_seg),
       static_cast<const int*>(kv_seg), static_cast<T*>(out),
       static_cast<float*>(lse), hq, hkv, sq, sk, d, scale, causal, q_offset,
-      kv_offset);
+      kv_offset, drop);
   return (int)cudaGetLastError();
 }
 
@@ -145,19 +148,22 @@ int launch(const void* q, const void* k, const void* v, const void* q_seg,
 
 // q (b, hq, sq, d), k/v (b, hkv, sk, d), contiguous, fp32 (bf16 == 0) or
 // bf16 (bf16 == 1); q_seg (b, sq) / kv_seg (b, sk) int32, or both null;
-// out (b, hq, sq, d) in q's dtype; lse (b, hq, sq) fp32. Launches on
-// `stream` and returns cudaGetLastError().
+// out (b, hq, sq, d) in q's dtype; lse (b, hq, sq) fp32; dropout when
+// `drop_on`, with the uint32 seed and threshold and 1 / (1 - rate).
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int hetu_flash_fwd(const void* q, const void* k, const void* v,
                               const void* q_seg, const void* kv_seg,
                               void* out, void* lse, int b, int hq, int hkv,
                               int sq, int sk, int d, float scale, int causal,
                               int q_offset, int kv_offset, int bf16,
-                              void* stream) {
+                              int drop_on, uint32_t seed, uint32_t threshold,
+                              float inv_keep, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Dropout drop{drop_on, seed, threshold, inv_keep};
   if (bf16)
     return launch<__nv_bfloat16>(q, k, v, q_seg, kv_seg, out, lse, b, hq, hkv,
                                  sq, sk, d, scale, causal, q_offset,
-                                 kv_offset, s);
+                                 kv_offset, drop, s);
   return launch<float>(q, k, v, q_seg, kv_seg, out, lse, b, hq, hkv, sq, sk,
-                       d, scale, causal, q_offset, kv_offset, s);
+                       d, scale, causal, q_offset, kv_offset, drop, s);
 }

@@ -1,0 +1,9 @@
+from hetu_tpu_torch.engine.state import TrainState
+from hetu_tpu_torch.engine.train_step import (
+    TrainPlan, build_train_step, default_loss_fn, init_state, make_plan,
+    model_dropout_active, step_dropout_seed,
+)
+
+__all__ = ["TrainPlan", "TrainState", "build_train_step", "default_loss_fn",
+           "init_state", "make_plan", "model_dropout_active",
+           "step_dropout_seed"]

@@ -1,0 +1,143 @@
+"""The single-device training step (counterpart of
+``hetu_tpu/engine/train_step.py``).
+
+``make_plan`` validates a :class:`~hetu_tpu_torch.parallel.Strategy` for
+one device and records its remat policy and the precision policy in
+force (``core.dtypes.autocast``); ``init_state`` builds the optimizer;
+``build_train_step`` returns ``step(state, batch) -> (state, {"loss",
+"grad_norm"})``, which runs forward and backward under that precision
+policy (attention through the flash kernels on CUDA), accumulates fp32
+grads over ``num_microbatches`` and applies one optimizer update — as
+the JAX step keeps the policy it was traced under.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+from torch import nn
+
+from hetu_tpu_torch import resolve_device
+from hetu_tpu_torch.core.dtypes import Policy, autocast, current_policy
+from hetu_tpu_torch.engine.state import TrainState
+from hetu_tpu_torch.nn.parallel import remat_policy
+from hetu_tpu_torch.ops.dropout import derive_seed
+from hetu_tpu_torch.optim.clipping import global_norm
+from hetu_tpu_torch.optim.optimizers import OptimizerSpec
+from hetu_tpu_torch.parallel.strategy import Strategy
+
+#: the base of every per-step dropout seed (``jax.random.key(0x0d0)``)
+DROPOUT_BASE_SEED = 0x0D0
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainPlan:
+    """What the step needs to know of the strategy on this device."""
+
+    strategy: Strategy
+    device: torch.device
+    remat: str                      # the effective remat policy name
+    policy: Policy                  # the precision policy of every step
+
+
+def effective_remat(strategy: Strategy) -> str:
+    return "offload" if strategy.offload else strategy.remat
+
+
+def make_plan(model: nn.Module, opt: OptimizerSpec, strategy: Strategy,
+              device=None) -> TrainPlan:
+    """Validate ``strategy`` for one device (``device=None`` means
+    ``cuda``; the model must live there) and record its remat policy and
+    the current precision policy. ``opt`` is taken for the JAX
+    signature."""
+    del opt
+    dev = resolve_device(device)
+    model_dev = next(model.parameters()).device
+    if model_dev.type != dev.type:
+        raise ValueError(f"the model lives on {model_dev}, the plan on "
+                         f"{dev}")
+    remat = effective_remat(strategy)
+    remat_policy(remat)                  # raises on a name not ported
+    return TrainPlan(strategy, model_dev, remat, current_policy())
+
+
+def init_state(model: nn.Module, opt: OptimizerSpec,
+               plan: TrainPlan) -> TrainState:
+    """Step 0 with a fresh optimizer over the model's params (the model
+    already holds its initial weights, drawn from its seed)."""
+    del plan
+    return TrainState(0, model, opt.build(model))
+
+
+def step_dropout_seed(step: int) -> int:
+    """Per-step dropout seed: the same step gives the same masks, so a
+    resumed run reproduces the mask sequence (``:477``)."""
+    return derive_seed(DROPOUT_BASE_SEED, step)
+
+
+def model_dropout_active(model: nn.Module) -> bool:
+    """True iff the model's config enables any dropout rate."""
+    cfg = getattr(model, "cfg", None)
+    return any(getattr(cfg, f, 0.0) > 0.0 for f in
+               ("embd_pdrop", "resid_pdrop", "attn_pdrop"))
+
+
+def default_loss_fn(model: nn.Module, strategy: Strategy) -> Callable:
+    """``loss(batch, dropout_seed=None)`` for LM models with ``.loss``."""
+
+    def loss_fn(batch, dropout_seed=None):
+        return model.loss(batch["input_ids"], batch["labels"],
+                          positions=batch.get("positions"),
+                          segment_ids=batch.get("segment_ids"),
+                          remat=effective_remat(strategy),
+                          remat_mask=strategy.remat_mask,
+                          unroll=strategy.unroll, dropout_seed=dropout_seed)
+
+    return loss_fn
+
+
+def build_train_step(model: nn.Module, opt: OptimizerSpec,
+                     plan: TrainPlan) -> Callable:
+    """``step(state, batch) -> (state, {"loss", "grad_norm"})`` (``:685``)
+    over :func:`default_loss_fn`.
+
+    ``batch`` maps names to tensors with the batch on dim 0; they move to
+    the plan's device. With ``num_microbatches = n > 1`` the batch splits
+    into n equal microbatches whose grads sum in fp32 and are divided by
+    n (``:830-848``); the loss is their mean. Forward and backward run
+    under the plan's precision policy. Dropout seeds are threaded only
+    when the config enables dropout. The metrics stay on the device."""
+    base_loss = default_loss_fn(model, plan.strategy)
+    thread_dropout = model_dropout_active(model)
+    nm = plan.strategy.num_microbatches
+    trainable = [p for p in model.parameters() if p.requires_grad]
+
+    def step(state: TrainState, batch: dict):
+        batch = {k: v.to(plan.device, non_blocking=True)
+                 for k, v in batch.items() if v is not None}
+        seed = step_dropout_seed(state.step) if thread_dropout else None
+        state.optimizer.zero_grad(set_to_none=True)
+        total = torch.zeros((), dtype=torch.float32, device=plan.device)
+        for i in range(nm):
+            mb = batch if nm == 1 else {
+                k: v.reshape(nm, v.shape[0] // nm, *v.shape[1:])[i]
+                for k, v in batch.items()}
+            mb_seed = seed if seed is None or nm == 1 \
+                else derive_seed(seed, i)
+            with autocast(plan.policy):
+                loss = base_loss(mb, dropout_seed=mb_seed)
+                loss.backward()
+            total = total + loss.detach().float()
+        if nm > 1:
+            for p in trainable:
+                if p.grad is not None:
+                    p.grad.div_(nm)
+        grads = [p.grad for p in trainable if p.grad is not None]
+        gnorm = global_norm(grads)
+        opt.step(state.optimizer, state.step)
+        state.step += 1
+        return state, {"loss": total / nm, "grad_norm": gnorm}
+
+    return step

@@ -1,4 +1,4 @@
-"""Carry ``hetu_tpu`` parameters into the port.
+"""Carry ``hetu_tpu`` parameters (and grads) into the port.
 
 ``hetu_tpu`` keeps (a) every block parameter stacked on a leading layer
 axis (``StackedBlocks``, ``hetu_tpu/nn/parallel.py:851``) and (b) Linear
@@ -51,3 +51,9 @@ def params_from_jax(tree, cfg) -> dict:
             state[f"blocks.{i}.{rest}"] = torch.from_numpy(
                 np.array(a, order="C"))
     return state
+
+
+#: a ``hetu_tpu`` grad tree has the params' structure and layouts, so the
+#: same change carries it into the port's names, to compare key by key
+#: with ``{name: p.grad}`` of the port's model
+grads_from_jax = params_from_jax

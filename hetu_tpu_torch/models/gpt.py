@@ -1,6 +1,6 @@
-"""GPT-2 family, decode path (counterpart of ``hetu_tpu/models/gpt.py``):
-learned position embeddings, pre-LayerNorm blocks, GELU MLP, LM head tied
-to the token embedding."""
+"""GPT-2 family (counterpart of ``hetu_tpu/models/gpt.py``): learned
+position embeddings, pre-LayerNorm blocks, GELU MLP, LM head tied to the
+token embedding. The training forward (``loss``) and the decode path."""
 
 from __future__ import annotations
 
@@ -15,6 +15,8 @@ from hetu_tpu_torch.nn.layers import Embedding, LayerNorm
 from hetu_tpu_torch.nn.parallel import (
     ParallelAttention, ParallelMLP, StackedBlocks, VocabParallelEmbedding,
 )
+from hetu_tpu_torch.ops.dropout import dropout, generator_for, split_seed
+from hetu_tpu_torch.ops.losses import vocab_parallel_lm_loss
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +29,12 @@ class GPTConfig:
     mlp_ratio: int = 4
     layer_norm_eps: float = 1e-5
     init_std: float = 0.02
+    # dropout rates (0: GPT-2's pretraining benches stay deterministic);
+    # they apply only when the train step passes a dropout seed
+    embd_pdrop: float = 0.0
+    resid_pdrop: float = 0.0
+    # on the attention probabilities, inside the flash kernels
+    attn_pdrop: float = 0.0
 
     @classmethod
     def small(cls):
@@ -50,6 +58,23 @@ class GPTBlock(nn.Module):
         self.mlp = ParallelMLP(cfg.hidden_size,
                                cfg.mlp_ratio * cfg.hidden_size, bias=True,
                                **kw)
+        self.resid_pdrop = cfg.resid_pdrop
+        self.attn_pdrop = cfg.attn_pdrop
+
+    def forward(self, x, *, segment_ids=None, dropout_seed=None):
+        """Training forward (``hetu_tpu/models/gpt.py:138-164``); the seed
+        splits as the JAX key does: three ways with attention dropout,
+        else two ways with residual dropout."""
+        sa = s1 = s2 = None
+        if dropout_seed is not None and self.attn_pdrop > 0:
+            sa, s1, s2 = split_seed(dropout_seed, 3)
+        elif dropout_seed is not None and self.resid_pdrop > 0:
+            s1, s2 = split_seed(dropout_seed, 2)
+        a = self.attn(self.ln_1(x), segment_ids=segment_ids,
+                      dropout_rate=self.attn_pdrop, dropout_seed=sa)
+        x = x + dropout(a, self.resid_pdrop, generator_for(s1, x.device))
+        h = self.mlp(self.ln_2(x))
+        return x + dropout(h, self.resid_pdrop, generator_for(s2, x.device))
 
     def decode(self, x, kv_cache, **kwargs):
         x = x + self.attn.decode(self.ln_1(x), kv_cache, **kwargs)
@@ -105,6 +130,37 @@ class GPTLMHeadModel(nn.Module):
             positions = torch.arange(input_ids.shape[-1],
                                      device=input_ids.device)[None, :]
         return self.wte(input_ids) + self.wpe(positions)
+
+    def backbone(self, input_ids, *, positions=None, segment_ids=None,
+                 remat: str = "none", remat_mask=None, unroll: bool = False,
+                 dropout_seed=None):
+        """embed + blocks, without the final norm (``head_loss`` applies
+        it). ``dropout_seed=None`` (eval) disables dropout whatever the
+        config's rates. A dense model has no auxiliary loss, so this
+        returns the hidden states alone."""
+        s_embd = s_blocks = None
+        if dropout_seed is not None:
+            s_embd, s_blocks = split_seed(dropout_seed, 2)
+        h = self.embed(input_ids, positions=positions)
+        h = dropout(h, self.cfg.embd_pdrop, generator_for(s_embd, h.device))
+        return self.blocks(h, remat=remat, remat_mask=remat_mask,
+                           unroll=unroll, segment_ids=segment_ids,
+                           dropout_seed=s_blocks)
+
+    def head_loss(self, h, labels, *, ignore_index: int = -100):
+        """Final norm + LM loss (tied head) on pre-norm backbone output."""
+        return vocab_parallel_lm_loss(self.ln_f(h), self.wte.weight, labels,
+                                      ignore_index=ignore_index)
+
+    def loss(self, input_ids, labels, *, ignore_index: int = -100, **kwargs):
+        """Mean LM loss; ``kwargs`` go to :meth:`backbone`."""
+        return self.head_loss(self.backbone(input_ids, **kwargs), labels,
+                              ignore_index=ignore_index)
+
+    def forward(self, input_ids, **kwargs):
+        """Full fp32 logits (b, s, V)."""
+        return self.logits(self.hidden_norm(self.backbone(input_ids,
+                                                          **kwargs)))
 
     def hidden_norm(self, h):
         return self.ln_f(h)

@@ -4,6 +4,8 @@ and ``LayerNorm`` as ``nn.Module``s.
 Parameter names follow ``hetu_tpu``'s flattened keys (``weight``;
 ``scale``/``bias`` for norms) so a converted ``hetu_tpu`` tree loads with
 ``load_state_dict``. Initial values come from the model constructor.
+Both return the policy's compute dtype (``core/dtypes.py``): the lookup
+and the norm's statistics run in the param dtype and fp32.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from hetu_tpu_torch.core.dtypes import current_policy
 from hetu_tpu_torch.ops.normalization import layer_norm
 
 
@@ -25,7 +28,8 @@ class Embedding(nn.Module):
             num_embeddings, features, device=device, dtype=dtype))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids, self.weight)
+        return F.embedding(ids, self.weight).to(
+            current_policy().compute_dtype)
 
 
 class LayerNorm(nn.Module):
@@ -40,4 +44,5 @@ class LayerNorm(nn.Module):
                                              dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.scale, self.bias, eps=self.eps)
+        return layer_norm(x, self.scale, self.bias, eps=self.eps).to(
+            current_policy().compute_dtype)

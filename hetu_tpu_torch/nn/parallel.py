@@ -1,5 +1,5 @@
-"""Transformer layers of the decode path at tp=1 (counterpart of
-``hetu_tpu/nn/parallel.py``).
+"""Transformer layers at tp=1 (counterpart of ``hetu_tpu/nn/parallel.py``):
+the training forward and the decode path.
 
 Linear weights are stored in ``F.linear``'s ``(out, in)`` layout —
 ``hetu_tpu`` stores ``(in, out)``; ``models.convert.params_from_jax``
@@ -15,25 +15,42 @@ packed-prefill mode, :func:`~hetu_tpu_torch.ops.attention.attention_with_lse`
 tensors. The dense cache (one-shot ``generate``) stays plain PyTorch, as
 ``hetu_tpu`` computes it in plain jnp, so ``generate`` is an oracle
 independent of both kernels.
+
+The training forward runs attention through
+:func:`~hetu_tpu_torch.ops.attention.flash_attention` (the flash forward
+and backward kernels on CUDA), and ``StackedBlocks.forward`` applies
+``remat`` per layer with ``torch.utils.checkpoint`` (:func:`remat_policy`).
+Linear layers cast x, W and b to the policy's compute dtype
+(``core/dtypes.py``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import functools
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
+from hetu_tpu_torch.core.dtypes import Policy, autocast, current_policy
 from hetu_tpu_torch.nn.layers import Embedding
 from hetu_tpu_torch.ops.activations import gelu
 from hetu_tpu_torch.ops.attention import attention_reference, \
-    attention_with_lse
+    attention_with_lse, flash_attention
+from hetu_tpu_torch.ops.dropout import split_seed
 from hetu_tpu_torch.ops.paged import combine_attention_lse, paged_attention
 
 
 class ColumnParallelLinear(nn.Module):
-    """Linear ``y = x W^T + b`` (``ColumnParallelLinear`` at tp=1)."""
+    """Linear ``y = x W^T + b`` (``ColumnParallelLinear`` at tp=1), with
+    x, W and b cast to the policy's compute dtype. In a 16-bit dtype the
+    bias is added after the product is rounded, as ``jnp.matmul(x, w) +
+    b`` does; in fp32 one fused ``addmm`` gives the same value."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  bias: bool = True, device=None, dtype=torch.float32):
@@ -46,7 +63,13 @@ class ColumnParallelLinear(nn.Module):
             out_features, device=device, dtype=dtype)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        dt = current_policy().compute_dtype
+        x, w = x.to(dt), self.weight.to(dt)
+        if self.bias is None:
+            return F.linear(x, w)
+        if dt == torch.float32:
+            return F.linear(x, w, self.bias.to(dt))
+        return F.linear(x, w) + self.bias.to(dt)
 
 
 class RowParallelLinear(ColumnParallelLinear):
@@ -88,8 +111,9 @@ def _scatter_rows(buf: torch.Tensor, rows: torch.Tensor, new: torch.Tensor,
 
 
 class ParallelAttention(nn.Module):
-    """Multi-head attention with GQA, decode path only (causal, no
-    RoPE: GPT-2's learned positions are added in the embedding)."""
+    """Causal multi-head attention with GQA (no RoPE: GPT-2's learned
+    positions are added in the embedding): the training forward and the
+    decode path."""
 
     def __init__(self, embed_dim: int, num_heads: int, *,
                  num_kv_heads: Optional[int] = None,
@@ -116,6 +140,18 @@ class ParallelAttention(nn.Module):
         return (self.q_proj(x).view(b, s, self.num_heads, self.head_dim),
                 self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim),
                 self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim))
+
+    def forward(self, x, *, segment_ids=None, dropout_rate: float = 0.0,
+                dropout_seed: Optional[int] = None):
+        """Training forward (``hetu_tpu/nn/parallel.py:441-510`` at tp=1,
+        no cp): projections, flash attention (dropout on the
+        probabilities when ``dropout_seed`` is given), output
+        projection."""
+        b, s, _ = x.shape
+        q, k, v = self._qkv(x)
+        out = flash_attention(q, k, v, causal=True, segment_ids=segment_ids,
+                              dropout_rate=dropout_rate, seed=dropout_seed)
+        return self.out_proj(out.reshape(b, s, -1))
 
     def decode(self, x, kv_cache, *, positions, slot_mask=None,
                block_tables=None, pack=None):
@@ -203,9 +239,56 @@ class ParallelAttention(nn.Module):
         return self.out_proj(out.reshape(b, C, -1))
 
 
+#: ops whose outputs selective remat keeps: the matmuls of the Linear
+#: layers (no batch dims: ``dots_with_no_batch_dims_saveable``) and the
+#: flash forward kernel, whose ``out``/``lse`` feed its backward
+def _saved_ops():
+    from hetu_tpu_torch.ops import flash  # noqa: F401  (registers the op)
+    return {torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.hetu_tpu_torch.flash_fwd.default}
+
+
+def _selective_policy(saved, ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in saved \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_policy(name: str) -> Optional[Callable]:
+    """Map a Strategy remat name to a ``torch.utils.checkpoint``
+    ``context_fn`` (``hetu_tpu/nn/parallel.py:819``): ``"none"`` → None
+    (no checkpoint), ``"full"`` → keep only the layer input,
+    ``"selective"`` → keep the Linear matmul outputs and the flash
+    forward's ``out``/``lse`` and recompute the rest (norms, GELU,
+    bias adds, casts, layout copies), so the backward runs only the flash
+    backward kernels. ``"offload"`` (host offload of remat'd activations)
+    is not ported."""
+    if name == "none":
+        return None
+    if name == "full":
+        return noop_context_fn
+    if name == "selective":
+        return functools.partial(
+            create_selective_checkpoint_contexts,
+            functools.partial(_selective_policy, _saved_ops()))
+    if name == "offload":
+        raise NotImplementedError(
+            "remat='offload' (host offload of remat'd activations) is not "
+            "ported yet")
+    raise ValueError(f"remat must be none|full|selective|offload, got "
+                     f"{name!r}")
+
+
+def _run_block(block, policy: Policy, x, segment_ids, seed):
+    # the policy captured at forward time: a CUDA backward recomputes on
+    # the autograd engine's own thread, which has none set
+    with autocast(policy):
+        return block(x, segment_ids=segment_ids, dropout_seed=seed)
+
+
 class StackedBlocks(nn.ModuleList):
-    """N identical blocks (``blocks.{i}`` in the state dict); decode loops
-    over them, handing layer ``l`` its slice of the stacked caches."""
+    """N identical blocks (``blocks.{i}`` in the state dict). ``forward``
+    runs them in order with per-layer remat; decode hands layer ``l`` its
+    slice of the stacked caches."""
 
     def __init__(self, make_block: Callable[[], nn.Module],
                  num_layers: int):
@@ -218,6 +301,40 @@ class StackedBlocks(nn.ModuleList):
     @property
     def block(self) -> nn.Module:
         return self[0]
+
+    def forward(self, x, *, remat: str = "none",
+                remat_mask: Optional[Sequence[bool]] = None,
+                unroll: bool = False, segment_ids=None,
+                dropout_seed: Optional[int] = None):
+        """``hetu_tpu/nn/parallel.py:898-990``: every layer in order, each
+        under ``remat`` (see :func:`remat_policy`). ``remat_mask`` gives
+        per-layer flags; its True layers take ``remat``'s policy, or
+        ``"full"`` when ``remat`` is ``"none"``. ``unroll`` is accepted
+        for the JAX signature and changes nothing (there is no scan).
+        ``dropout_seed`` is split into one seed per layer."""
+        del unroll
+        n = len(self)
+        if remat_mask is not None:
+            if len(remat_mask) != n:
+                raise ValueError(f"remat_mask has {len(remat_mask)} entries "
+                                 f"for {n} layers")
+            flags = [bool(f) for f in remat_mask]
+            name = remat if remat != "none" else "full"
+        else:
+            flags = [remat != "none"] * n
+            name = remat
+        context_fn = remat_policy(name) if any(flags) else None
+        seeds = [None] * n if dropout_seed is None \
+            else split_seed(dropout_seed, n)
+        policy = current_policy()
+        for blk, flag, seed in zip(self, flags, seeds):
+            if flag:
+                x = checkpoint(_run_block, blk, policy, x, segment_ids, seed,
+                               use_reentrant=False, preserve_rng_state=False,
+                               context_fn=context_fn)
+            else:
+                x = blk(x, segment_ids=segment_ids, dropout_seed=seed)
+        return x
 
     def decode(self, x, caches, **kwargs):
         """``caches``: ``(k, v)``, each ``(layers, …)``; updated in place."""

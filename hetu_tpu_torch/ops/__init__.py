@@ -1,13 +1,21 @@
-"""Numerics of the port: plain PyTorch ops and the two hand-written CUDA
-kernels of the serving path (``flash`` and ``paged``)."""
+"""Numerics of the port: plain PyTorch ops and the hand-written CUDA
+kernels (``flash`` forward and backward, ``paged``)."""
 
 from hetu_tpu_torch.ops._build import launch_counts, reset_launch_counts
 from hetu_tpu_torch.ops.activations import gelu
 from hetu_tpu_torch.ops.attention import (
-    NEG_INF, attention_reference, attention_with_lse, gather_block_rows,
+    NEG_INF, attention_reference, attention_with_lse, flash_attention,
+    gather_block_rows,
 )
+from hetu_tpu_torch.ops.dropout import dropout
 from hetu_tpu_torch.ops.flash import (
-    flash_attention_fwd, flash_attention_fwd_reference,
+    dropout_keep, dropout_keep_bh, flash_attention_bwd,
+    flash_attention_bwd_reference, flash_attention_fwd,
+    flash_attention_fwd_reference,
+)
+from hetu_tpu_torch.ops.losses import (
+    chunked_lm_loss, cross_entropy_mean, softmax_cross_entropy,
+    vocab_parallel_lm_loss,
 )
 from hetu_tpu_torch.ops.normalization import layer_norm
 from hetu_tpu_torch.ops.paged import (
@@ -16,8 +24,11 @@ from hetu_tpu_torch.ops.paged import (
 
 __all__ = [
     "NEG_INF", "attention_reference", "attention_with_lse",
-    "combine_attention_lse", "flash_attention_fwd",
-    "flash_attention_fwd_reference", "gather_block_rows", "gelu",
-    "launch_counts", "layer_norm", "paged_attention",
-    "paged_attention_reference", "reset_launch_counts",
+    "chunked_lm_loss", "combine_attention_lse", "cross_entropy_mean",
+    "dropout", "dropout_keep", "dropout_keep_bh", "flash_attention",
+    "flash_attention_bwd", "flash_attention_bwd_reference",
+    "flash_attention_fwd", "flash_attention_fwd_reference",
+    "gather_block_rows", "gelu", "launch_counts", "layer_norm",
+    "paged_attention", "paged_attention_reference", "reset_launch_counts",
+    "softmax_cross_entropy", "vocab_parallel_lm_loss",
 ]

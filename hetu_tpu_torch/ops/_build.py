@@ -28,27 +28,34 @@ from typing import Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hetu_tpu_torch"
-SOURCES = ("paged_attention", "flash_fwd")
+SOURCES = ("paged_attention", "flash_fwd", "flash_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
-_LIBS: dict[str, tuple] = {}
+_LIBS: dict[str, ctypes.CDLL] = {}
+_FNS: dict[tuple, object] = {}
 _LAUNCHES: dict[str, int] = {}
+# the autograd engine runs a CUDA backward (and its launches) on a thread
+# of its own
+_COUNT_LOCK = threading.Lock()
 
 
 # -- launch counters ---------------------------------------------------------
 def count_launch(name: str) -> None:
     """Called by a wrapper right after its kernel launched."""
-    _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
+    with _COUNT_LOCK:
+        _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
 
 
 def launch_counts() -> dict:
-    return dict(_LAUNCHES)
+    with _COUNT_LOCK:
+        return dict(_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    _LAUNCHES.clear()
+    with _COUNT_LOCK:
+        _LAUNCHES.clear()
 
 
 # -- build -------------------------------------------------------------------
@@ -107,21 +114,24 @@ def build(names: Optional[Iterable[str]] = None) -> dict:
 
 
 def kernel(name: str, symbol: str, argtypes: list):
-    """``(library, launcher)`` for kernel ``name``: the library is built
-    first if needed and loaded once; the launcher ``symbol`` gets its
-    ``argtypes`` and an int ``restype`` once, at load."""
+    """``(library, launcher)`` for launcher ``symbol`` of source ``name``:
+    the library is built first if needed and loaded once; each launcher
+    gets its ``argtypes`` and an int ``restype`` once, at first use."""
     with _LOCK:
-        entry = _LIBS.get(name)
-        if entry is None:
+        lib = _LIBS.get(name)
+        if lib is None:
             path = build([name])[name]["path"]
             lib = ctypes.CDLL(path)
             lib.hetu_cuda_error_string.argtypes = [ctypes.c_int]
             lib.hetu_cuda_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
+        fn = _FNS.get((name, symbol))
+        if fn is None:
             fn = getattr(lib, symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            entry = _LIBS[name] = (lib, fn)
-        return entry
+            _FNS[(name, symbol)] = fn
+        return lib, fn
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

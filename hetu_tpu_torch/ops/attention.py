@@ -1,5 +1,6 @@
-"""Attention: the plain fp32 oracle and the ``(out, lse)`` entry the
-packed-prefill lane uses (counterpart of ``hetu_tpu/ops/attention.py``).
+"""Attention: the plain fp32 oracle, the differentiable flash attention
+that training runs, and the ``(out, lse)`` entry the packed-prefill lane
+uses (counterpart of ``hetu_tpu/ops/attention.py``).
 
 Layout everywhere: ``(batch, seq, heads, head_dim)``; GQA allowed (kv
 heads divide q heads). Masked logits are the finite ``NEG_INF`` so a
@@ -92,6 +93,34 @@ def attention_reference(q, k, v, *, causal: bool = False,
     if return_lse:
         return out, lse
     return out
+
+
+def flash_attention(q, k, v, *, causal: bool = False,
+                    segment_ids: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None,
+                    dropout_rate: float = 0.0,
+                    seed: Optional[int] = None) -> torch.Tensor:
+    """Differentiable flash attention, (b, s, h, d) layout, GQA allowed —
+    the training attention (``hetu_tpu/ops/attention.py:211``,
+    ``flash_pallas.py:671 flash_attention_pallas``).
+
+    The forward and backward are the ``hetu_tpu_torch::flash_fwd`` /
+    ``flash_bwd`` ops of ``ops/flash.py``: the hand-written kernels on a
+    CUDA tensor (a head dim they refuse raises), the plain versions on a
+    CPU tensor. ``dropout_rate`` applies only with a ``seed`` (an int; the
+    mask is a hash of it and the positions), as a JAX dropout key does."""
+    from hetu_tpu_torch.ops import flash  # noqa: F401  (registers the ops)
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    if segment_ids is not None:
+        segment_ids = segment_ids.to(torch.int32).contiguous()
+    drop = dropout_rate > 0.0 and seed is not None
+    out, _ = torch.ops.hetu_tpu_torch.flash_fwd(
+        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+        v.transpose(1, 2).contiguous(), segment_ids, segment_ids,
+        bool(causal), float(scale), 0, 0,
+        float(dropout_rate) if drop else 0.0, int(seed) if drop else 0)
+    return out.transpose(1, 2)
 
 
 def attention_with_lse(q, k, v, *, causal: bool = False,

@@ -24,7 +24,11 @@ def _modules():
 
 def test_import_leaves_jax_unloaded():
     mods = list(_modules())
-    assert "hetu_tpu_torch.serving.engine" in mods
+    for m in ("hetu_tpu_torch.serving.engine", "hetu_tpu_torch.core.bits",
+              "hetu_tpu_torch.core.dtypes", "hetu_tpu_torch.optim",
+              "hetu_tpu_torch.parallel.strategy",
+              "hetu_tpu_torch.engine.train_step"):
+        assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

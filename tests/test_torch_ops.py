@@ -92,11 +92,30 @@ def test_flash_fwd_offsets_and_fully_masked_rows():
     assert np.all(np.asarray(want_l)[:, :, dead] == NEG)
 
 
-def test_flash_fwd_refuses_dropout():
-    x = torch.zeros(1, 1, 4, 32)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        flash_attention_fwd(x, x, x, None, None, causal=True, scale=1.0,
-                            dropout_rate=0.1)
+def test_flash_fwd_dropout_lane_matches_pallas_interpret():
+    """The forward's dropout lane with GQA and static offsets: the mask
+    hashes absolute positions, so the offsets shift it exactly as in the
+    TPU kernel. Dropout scales only what meets v: the lse is the
+    undropped one. Tolerance 2e-4 (the port multiplies by 1/(1-rate)
+    where JAX divides by (1-rate))."""
+    rng = np.random.default_rng(9)
+    b, hq, hkv, sq, sk, d = 2, 4, 2, 8, 12, 16
+    q = rng.normal(size=(b, hq, sq, d)).astype(np.float32)
+    k = rng.normal(size=(b, hkv, sk, d)).astype(np.float32)
+    v = rng.normal(size=(b, hkv, sk, d)).astype(np.float32)
+    kw = dict(causal=True, scale=0.25, q_offset=6, kv_offset=2)
+    want_o, want_l = _flash_fwd(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), None, None, interpret=True,
+                                dropout_rate=0.2, seed=77, **kw)
+    got_o, got_l = flash_attention_fwd(_t(q), _t(k), _t(v), None, None,
+                                       dropout_rate=0.2, seed=77, **kw)
+    _close(got_o, want_o, atol=2e-4)
+    _close(got_l, want_l, atol=2e-4)
+    _, plain_l = flash_attention_fwd(_t(q), _t(k), _t(v), None, None, **kw)
+    assert torch.equal(plain_l, got_l)
+    with pytest.raises(ValueError, match="seed"):
+        flash_attention_fwd(_t(q), _t(k), _t(v), None, None,
+                            dropout_rate=0.2, **kw)
 
 
 # -- paged attention ----------------------------------------------------------
