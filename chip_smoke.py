@@ -50,7 +50,26 @@ Phases, each printing one JSON line:
    versions, then timed in bf16 as the main path runs them.
 7. train_profile -- ``torch.profiler`` over 3 steps: device ms per step
    by class and the device's idle share.
-8. summary -- one ``{"kernels": [...]}`` line, the card's name and power
+8. fused_ce kernels -- the fused LM-head CE kernels (forward, dH, dW)
+   against their plain versions with h and w each fp32 or bf16, at V =
+   50257 and a ragged V = 1013, N not a multiple of any token tile,
+   labels of -1 and random general (glse, gtgt) cotangents. Bounds: fp32
+   h (and output) lse/tgt 1e-4 and dh/dw 1e-4 of max |reference|; bf16 h
+   or output 2e-2 and 1e-2 of max |reference|.
+9. train_fused -- ``bench.py``'s fused-CE combo (``workloads/
+   mfu_sweep.py --one {48,32}:selective:1:auto --param-dtype bf16 --ce
+   fused``): ``HETU_LM_LOSS_IMPL=fused`` (set for these phases and
+   restored after), bf16 params and compute, the rest as in ``train``.
+   First the fp32 step oracle of ``train`` with the fused loss (launches
+   exactly 1 per fused kernel and 12 per flash kernel), then the batch
+   ladder 48/32/16 with 3 warm-up and 10 timed steps: launches exactly
+   10 per fused kernel and 120 per flash kernel; then its profile.
+10. fused_ce times -- the three kernels at the combo's training shape (N
+   = batch x 1024 tokens, bf16 h and w) against their plain versions,
+   then timed; ``library_ms`` is the port's ``chunked_lm_loss`` (cuBLAS
+   plus torch ops: no single PyTorch call computes these functions),
+   forward only for the forward kernel, forward and backward for dH/dW.
+11. summary -- one ``{"kernels": [...]}`` line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 Any failure exits nonzero before the ``ok`` line. Without a CUDA device,
@@ -60,6 +79,7 @@ nonzero at once.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -83,7 +103,10 @@ C = 64                             # the engine's prefill chunk
 PACK = ((3, 20, 128), (7, 9, 0), (0, 30, 64))
 TRAIN_SEQ = 1024
 LADDER = (32, 16, 8)               # bench.py main()'s batch ladder
+FUSED_LADDER = (48, 32, 16)        # bench.py's fused-CE combo (bench.py:159)
 DROP_SEED = 1234
+FUSED = ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw")
+FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 class SmokeFailure(RuntimeError):
@@ -641,6 +664,23 @@ def phase_engine(device, card):
     return counts
 
 
+def device_kernel_ms(prof) -> tuple[dict, int]:
+    """Device ms by kernel name, and the number of kernels, in a
+    ``torch.profiler`` trace. ``record_function`` ranges mirrored on the
+    device timeline (``Optimizer.step#...``) are skipped: they span
+    kernels that are counted on their own."""
+    from torch.autograd import DeviceType
+    by_name: dict[str, float] = {}
+    n_kernels = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA \
+                and not getattr(e, "is_user_annotation", False):
+            n_kernels += 1
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    return by_name, n_kernels
+
+
 KERNEL_CLASSES = (("paged_attention", "paged_attention"),
                   ("flash_fwd", "flash_fwd"),
                   ("gemm", "matmul"), ("xmma", "matmul"),
@@ -654,7 +694,6 @@ def phase_profile(eng, prompts, sp, n_steps: int = 20):
     durations (one stream: kernels do not overlap); the rest of the
     wall time the card waits on the host. The profiler's own host cost
     inflates the wall time, so ``ms_per_step`` here is an upper bound."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     reqs = [eng.submit(p, sp) for p in prompts]
@@ -673,13 +712,7 @@ def phase_profile(eng, prompts, sp, n_steps: int = 20):
     eng.run_until_drained()
     check(all(r.status == "done" for r in reqs), "profiled requests did "
                                                 "not finish")
-    by_name: dict[str, float] = {}
-    n_kernels = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n_kernels += 1
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.time_range.elapsed_us() / 1e3
+    by_name, n_kernels = device_kernel_ms(prof)
     busy_ms = sum(by_name.values())
     by_class: dict[str, float] = {}
     for name, ms in by_name.items():
@@ -704,14 +737,29 @@ def train_batch(vocab: int, b: int, device, seed: int = SEED) -> dict:
             "labels": ids[:, 1:].to(device)}
 
 
-def flash_launches(counts) -> dict:
-    return {k: counts.get(k, 0)
-            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+def launches_of(counts, names=FLASH) -> dict:
+    return {k: counts.get(k, 0) for k in names}
 
 
-def train_oracle(cfg, device):
+@contextlib.contextmanager
+def fused_loss():
+    """``HETU_LM_LOSS_IMPL=fused`` inside, the caller's value after."""
+    prev = os.environ.get("HETU_LM_LOSS_IMPL")
+    os.environ["HETU_LM_LOSS_IMPL"] = "fused"
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("HETU_LM_LOSS_IMPL", None)
+        else:
+            os.environ["HETU_LM_LOSS_IMPL"] = prev
+
+
+def train_oracle(cfg, device, fused: bool = False):
     """One fp32 step, kernels on the card (selective remat) against the
-    plain path on the CPU (no remat), same weights and batch. Bounds:
+    plain path on the CPU (no remat), same weights and batch; ``fused``:
+    under ``HETU_LM_LOSS_IMPL=fused`` (the caller sets it), with one
+    launch of each fused CE kernel expected. Bounds:
     |loss difference| <= 1e-4; each grad's max abs difference <= 1e-3 of
     its own max |grad| plus 1e-5 of the largest grad of the model (sums
     run in other orders; a grad that is zero in exact arithmetic, such
@@ -728,7 +776,7 @@ def train_oracle(cfg, device):
                         batch["labels"].to(device), remat="selective")
     loss_gpu.backward()
     torch.cuda.synchronize()
-    counts = flash_launches(launch_counts())
+    counts = launches_of(launch_counts(), FLASH + FUSED)
     loss_cpu = cpu.loss(batch["input_ids"], batch["labels"])
     loss_cpu.backward()
     loss_gpu, loss_cpu = float(loss_gpu.detach()), float(loss_cpu.detach())
@@ -743,7 +791,8 @@ def train_oracle(cfg, device):
             worst, worst_name = err / bound, name
     dloss = abs(loss_gpu - loss_cpu)
     L = cfg.num_layers
-    emit(phase="train_oracle", dtype="float32", batch=1, seq=TRAIN_SEQ,
+    emit(phase="train_fused_oracle" if fused else "train_oracle",
+         dtype="float32", batch=1, seq=TRAIN_SEQ,
          loss_gpu=loss_gpu, loss_cpu=loss_cpu,
          loss_abs_diff=dloss, worst_grad_err_over_bound=worst,
          worst_grad=worst_name, largest_grad=gmax, launches=counts,
@@ -751,8 +800,9 @@ def train_oracle(cfg, device):
     check(dloss <= 1e-4, f"train oracle: loss differs by {dloss}")
     check(worst <= 1.0, f"train oracle: grad {worst_name} off by "
                         f"{worst} x its bound")
-    check(counts == {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L},
-          f"train oracle: launches {counts}, expected {L} each")
+    want = {**{k: L for k in FLASH}, **{k: int(fused) for k in FUSED}}
+    check(counts == want, f"train oracle: launches {counts}, expected "
+                          f"{want}")
 
 
 def train_rung(model, opt, plan, b, device):
@@ -822,7 +872,7 @@ def phase_train(device, card):
     L = cfg.num_layers
     want = {"flash_fwd": 10 * L, "flash_bwd_dq": 10 * L,
             "flash_bwd_dkv": 10 * L}
-    got = flash_launches(run["counts"])
+    got = launches_of(run["counts"])
     tokens_per_s = b * TRAIN_SEQ / run["dt"]
     # bench.py:133: 6N matmul flops per token + 6 L H s for attention
     flops_per_token = 6.0 * n_params + 6.0 * L * cfg.hidden_size * TRAIN_SEQ
@@ -846,7 +896,7 @@ def phase_train(device, card):
     reset_launch_counts()
     run["state"], _ = step_full(run["state"], run["batch"])
     torch.cuda.synchronize()
-    full = flash_launches(launch_counts())
+    full = launches_of(launch_counts())
     emit(phase="train_full_remat", launches=full)
     check(full == {"flash_fwd": 2 * L, "flash_bwd_dq": L,
                    "flash_bwd_dkv": L},
@@ -858,17 +908,19 @@ def phase_train(device, card):
 TRAIN_CLASSES = (("flash_fwd", "flash_fwd"),
                  ("flash_bwd_dq", "flash_bwd_dq"),
                  ("flash_bwd_dkv", "flash_bwd_dkv"),
+                 ("fused_ce_fwd", "fused_ce_fwd"),
+                 ("fused_ce_dh", "fused_ce_dh"),
+                 ("fused_ce_dw", "fused_ce_dw"),
                  ("gemm", "matmul"), ("xmma", "matmul"),
                  ("cutlass", "matmul"), ("nvjet", "matmul"),
                  ("sm90_", "matmul"))
 
 
-def phase_train_profile(run, n_steps: int = 3):
+def phase_train_profile(run, n_steps: int = 3, phase: str = "train_profile"):
     """Where a training step's time goes: ``torch.profiler`` over
     ``n_steps`` steps at the batch that ran. Device busy is the sum of
     kernel times (one stream); the rest of the wall time the card waits
     on the host. The profiler's host cost inflates the wall time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     state, step, batch = run["state"], run["step"], run["batch"]
@@ -881,13 +933,7 @@ def phase_train_profile(run, n_steps: int = 3):
             state, _ = step(state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name: dict[str, float] = {}
-    n_kernels = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n_kernels += 1
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.time_range.elapsed_us() / 1e3
+    by_name, n_kernels = device_kernel_ms(prof)
     busy_ms = sum(by_name.values())
     check(busy_ms > 0, "the profiler saw no device time")
     by_class: dict[str, float] = {}
@@ -895,7 +941,7 @@ def phase_train_profile(run, n_steps: int = 3):
         cls = next((c for key, c in TRAIN_CLASSES if key in name), "other")
         by_class[cls] = by_class.get(cls, 0.0) + ms / n_steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    emit(phase="train_profile", steps=n_steps, batch=run["batch_size"],
+    emit(phase=phase, steps=n_steps, batch=run["batch_size"],
          ms_per_step=wall_ms / n_steps,
          device_kernels_per_step=n_kernels / n_steps,
          device_busy_ms_per_step=busy_ms / n_steps,
@@ -987,6 +1033,274 @@ def phase_train_kernels(device, timer, ops, b, results):
          "torch.autograd.grad")
 
 
+# -- the fused LM-head CE ------------------------------------------------------
+
+#: lse/tgt, absolute, in every dtype pairing (fp32 logits and softmax in
+#: both; only the summation order differs)
+FUSED_TOL_LSE = 1e-4
+
+
+def ulp(x: torch.Tensor, dtype) -> torch.Tensor:
+    """The spacing of ``dtype``'s values at |x| (0 where x is 0)."""
+    _, e = torch.frexp(x.float().abs())
+    bits = 8 if dtype == torch.bfloat16 else 24
+    return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(e, dtype=
+                                                               torch.float32),
+                                                e - bits))
+
+
+def fused_grad_bound(want: torch.Tensor, h_dtype) -> torch.Tensor:
+    """Per element of dh or dw: 2 ulps of the output's dtype at |reference|
+    (the fp32 sums round apart) plus a floor of c * max |reference|, c =
+    1e-4 for fp32 h (summation order only) and 2e-4 for bf16 h (a dlogits
+    entry near a bf16 rounding boundary may round the other way)."""
+    c = 2e-4 if h_dtype == torch.bfloat16 else 1e-4
+    return 2 * ulp(want, want.dtype) + c * float(want.float().abs().max())
+
+
+def fused_inputs(gen, device, n, vocab, h_dtype, w_dtype, e=768):
+    """h ~ N(0, 1), w ~ N(0, 0.05^2) (GPT-2's init scale), labels with
+    every 7th -1, and random general cotangents (glse, gtgt)."""
+    h = torch.randn(n, e, generator=gen, device=device).to(h_dtype)
+    w = (torch.randn(vocab, e, generator=gen, device=device) * 0.05
+         ).to(w_dtype)
+    lab = torch.randint(0, vocab, (n,), generator=gen, device=device,
+                        dtype=torch.int32)
+    lab[::7] = -1
+    glse = torch.randn(n, generator=gen, device=device)
+    gtgt = torch.randn(n, generator=gen, device=device)
+    return h, w, lab, glse, gtgt
+
+
+def check_fused(case, h, w, got, want, errs) -> None:
+    """Hold (lse, tgt, dh, dw) against the plain versions' (lse/tgt within
+    ``FUSED_TOL_LSE``, dh/dw element by element within
+    :func:`fused_grad_bound`) and record the kernels' absolute errors."""
+    torch.cuda.synchronize()
+    tags = [str(t.dtype).split(".")[1] for t in (h, w)]
+    for kernel, parts in (("fused_ce_fwd", (0, 1)), ("fused_ce_dh", (2,)),
+                          ("fused_ce_dw", (3,))):
+        out_dtype = got[parts[0]].dtype
+        err = max(max_err(got[i], want[i]) for i in parts)
+        if kernel == "fused_ce_fwd":
+            worst = err / FUSED_TOL_LSE
+            extra = dict(bound=FUSED_TOL_LSE)
+        else:
+            g, r = got[parts[0]], want[parts[0]]
+            bnd = fused_grad_bound(r, h.dtype)
+            worst = float(((g.float() - r.float()).abs() / bnd).max())
+            extra = dict(bound="2 ulp(out) + %g max|ref|" % (
+                2e-4 if h.dtype == torch.bfloat16 else 1e-4),
+                max_abs_ref=float(r.float().abs().max()))
+        ok = worst <= 1.0
+        emit(phase="kernel", kernel=kernel, case=case, h_dtype=tags[0],
+             w_dtype=tags[1], shape=[h.shape[0], w.shape[0], h.shape[1]],
+             max_abs_err=err, worst_err_over_bound=worst, ok=ok, **extra)
+        check(ok, f"{kernel} {case} h {tags[0]} w {tags[1]}: max abs err "
+                  f"{err}, {worst} of its bound")
+        key = "max_abs_err" if h.dtype == out_dtype == torch.float32 \
+            else "max_abs_err_bf16"
+        errs[kernel][key] = max(errs[kernel][key], err)
+
+
+def check_w_cast(ops, case, h, w32, lab, glse, gtgt) -> None:
+    """Each w tile is cast to h's dtype inside the kernels
+    (``fused_ce_pallas.py:64, :121, :144``): with bf16 h, an fp32 w gives
+    bit for bit what ``w.to(bfloat16)`` gives (dw, which comes back in
+    w's dtype, once rounded to bf16)."""
+    w16 = w32.to(torch.bfloat16)
+    a, b = ops.fused_ce_fwd(h, w32, lab), ops.fused_ce_fwd(h, w16, lab)
+    lse = a[0]
+    pairs = (("lse", a[0], b[0]), ("tgt", a[1], b[1]),
+             ("dh", ops.fused_ce_dh(h, w32, lab, lse, glse, gtgt),
+              ops.fused_ce_dh(h, w16, lab, lse, glse, gtgt)),
+             ("dw", ops.fused_ce_dw(h, w32, lab, lse, glse, gtgt).to(
+                 torch.bfloat16),
+              ops.fused_ce_dw(h, w16, lab, lse, glse, gtgt)))
+    same = {name: bool(torch.equal(x, y)) for name, x, y in pairs}
+    emit(phase="kernel_w_cast", case=case, h_dtype="bfloat16",
+         shape=[h.shape[0], w32.shape[0], h.shape[1]], identical=same,
+         ok=all(same.values()))
+    check(all(same.values()), f"fused_ce {case}: bf16 h with fp32 w is not "
+                              f"bit-identical to w cast to bf16: {same}")
+
+
+def run_fused(ops, h, w, lab, glse, gtgt):
+    """(lse, tgt, dh, dw) from the kernels and from the plain versions;
+    the backward of both takes the plain forward's lse."""
+    want_l, want_t = ops.fused_lse_tgt_reference(h, w, lab)
+    got = (*ops.fused_ce_fwd(h, w, lab),
+           ops.fused_ce_dh(h, w, lab, want_l, glse, gtgt),
+           ops.fused_ce_dw(h, w, lab, want_l, glse, gtgt))
+    want = (want_l, want_t,
+            ops.fused_ce_dh_reference(h, w, lab, want_l, glse, gtgt),
+            ops.fused_ce_dw_reference(h, w, lab, want_l, glse, gtgt))
+    return got, want
+
+
+def phase_fused_kernels(device, ops):
+    """Kernels #5-#7 against their plain versions: one draw of h and w,
+    each taken in fp32 and in bf16; the GPT-2 vocab and a ragged one;
+    token counts that are not a multiple of any token tile; then the w
+    cast of the bf16-h lane (:func:`check_w_cast`). Returns the summary
+    entries (without times and launches)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    errs = {k: {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0} for k in FUSED}
+    for case, n, vocab in (("vocab_50257", 333, 50257),
+                           ("ragged_vocab_1013", 1000, 1013)):
+        h32, w32, lab, glse, gtgt = fused_inputs(
+            gen, device, n, vocab, torch.float32, torch.float32)
+        for h_dtype in (torch.float32, torch.bfloat16):
+            h = h32.to(h_dtype)
+            for w_dtype in (torch.float32, torch.bfloat16):
+                w = w32.to(w_dtype)
+                got, want = run_fused(ops, h, w, lab, glse, gtgt)
+                check_fused(case, h, w, got, want, errs)
+                check(bool((got[1][lab == -1] == 0).all()),
+                      f"fused_ce_fwd {case}: tgt of label -1 not 0")
+        check_w_cast(ops, case, h, w32, lab, glse, gtgt)
+    results = {}
+    for kernel, line in zip(FUSED, (53, 112, 134)):
+        results[kernel] = dict(
+            name=kernel, route="cuda",
+            source="hetu_tpu_torch/csrc/fused_ce.cu",
+            replaces=f"hetu_tpu/ops/fused_ce_pallas.py:{line}",
+            **errs[kernel])
+    return results
+
+
+def phase_train_fused(device, card):
+    """The fused-CE combo: the fused fp32 oracle, then the bf16-param
+    ladder 48/32/16, then its profile; ``HETU_LM_LOSS_IMPL=fused``
+    throughout."""
+    from hetu_tpu_torch import optim
+    from hetu_tpu_torch.core import Policy, autocast
+    from hetu_tpu_torch.engine import make_plan
+    from hetu_tpu_torch.models import GPTConfig, GPTLMHeadModel
+    from hetu_tpu_torch.parallel import Strategy
+
+    cfg = GPTConfig.small()
+    policy = Policy(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    with fused_loss():
+        train_oracle(cfg, device, fused=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = GPTLMHeadModel(cfg, device=device, seed=SEED)
+        n_params = sum(p.numel() for p in model.parameters())
+        opt = optim.adamw(1e-4, weight_decay=0.01)
+        with autocast(policy):
+            plan = make_plan(model, opt, Strategy(remat="selective",
+                                                  unroll=True), device=device)
+        run = None
+        for b in FUSED_LADDER:
+            try:
+                run = train_rung(model, opt, plan, b, device)
+            except torch.cuda.OutOfMemoryError as e:
+                emit(phase="train_fused_oom", batch=b, error=str(e)[:200])
+            if run is not None:
+                break
+            gc.collect()
+            torch.cuda.empty_cache()
+        check(run is not None, f"no batch of {FUSED_LADDER} fit")
+        dtypes = sorted({str(p.dtype) for p in model.parameters()})
+        moments = sorted({str(v.dtype)
+                          for st in run["state"].optimizer.state.values()
+                          for k, v in st.items() if k in ("mu", "nu")})
+        L = cfg.num_layers
+        want = {**{k: 10 * L for k in FLASH}, **{k: 10 for k in FUSED}}
+        got = launches_of(run["counts"], FLASH + FUSED)
+        tokens_per_s = b * TRAIN_SEQ / run["dt"]
+        flops_per_token = 6.0 * n_params \
+            + 6.0 * L * cfg.hidden_size * TRAIN_SEQ
+        emit(phase="train_fused", card=card, config="GPTConfig.small",
+             params=n_params, seq=TRAIN_SEQ, batch=b,
+             policy="param bf16, compute bf16", loss="fused",
+             remat="selective", param_dtypes=dtypes, adam_state=moments,
+             step_ms=run["dt"] * 1e3, tokens_per_s=tokens_per_s,
+             mfu=tokens_per_s * flops_per_token / PEAK_FLOPS[torch.bfloat16],
+             flops_per_token=flops_per_token,
+             peak_memory_bytes=run["peak"], warmup_seconds=run["warm_s"],
+             losses=run["losses"], grad_norm_last=run["grad_norm"],
+             launches=got, expected=want)
+        check(dtypes == ["torch.bfloat16"], f"params are {dtypes}")
+        check(moments == ["torch.float32"], f"AdamW moments are {moments}")
+        check(all(np.isfinite(run["losses"])), "non-finite training loss")
+        check(run["losses"][-1] < run["losses"][0],
+              f"loss did not fall: {run['losses']}")
+        check(got == want, f"train_fused launches {got}, expected {want} "
+                           f"(1 per fused kernel and {L} per flash kernel "
+                           f"per step, 10 steps)")
+        run.update(batch_size=b, model=model, counts=got)
+        phase_train_profile(run, phase="train_fused_profile")
+    return run
+
+
+def phase_fused_kernel_times(device, timer, ops, b, results):
+    """Kernels #5-#7 at the combo's training shape (N = b x 1024 tokens,
+    V = 50257, E = 768, bf16 h and w): held against their plain versions,
+    then timed with the plain versions and the port's chunked loss
+    beside them."""
+    from hetu_tpu_torch.ops import chunked_lm_loss
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    n, vocab, e = b * TRAIN_SEQ, 50257, 768
+    h, w, lab, _, _ = fused_inputs(gen, device, n, vocab, torch.bfloat16,
+                                   torch.bfloat16)
+    lab[::7] = torch.randint(0, vocab, lab[::7].shape, generator=gen,
+                             device=device, dtype=torch.int32)
+    g = torch.full((n,), 1.0 / n, device=device)   # the mean loss's (g, -g)
+    got, want = run_fused(ops, h, w, lab, g, -g)
+    errs = {k: {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0} for k in FUSED}
+    check_fused("train", h, w, got, want, errs)
+    for k in FUSED:
+        results[k]["max_abs_err_bf16"] = max(
+            results[k]["max_abs_err_bf16"], errs[k]["max_abs_err_bf16"])
+    lse = want[0]
+    del got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    calls = {"fused_ce_fwd": (lambda: ops.fused_ce_fwd(h, w, lab),
+                              lambda: ops.fused_lse_tgt_reference(h, w, lab)),
+             "fused_ce_dh": (lambda: ops.fused_ce_dh(h, w, lab, lse, g, -g),
+                             lambda: ops.fused_ce_dh_reference(
+                                 h, w, lab, lse, g, -g)),
+             "fused_ce_dw": (lambda: ops.fused_ce_dw(h, w, lab, lse, g, -g),
+                             lambda: ops.fused_ce_dw_reference(
+                                 h, w, lab, lse, g, -g))}
+    hid = h.view(b, TRAIN_SEQ, e)
+    y = lab.long().view(b, TRAIN_SEQ)
+    lib_fwd = timer(lambda: chunked_lm_loss(hid, w, y, mm_dt=torch.bfloat16),
+                    iters=3, warmup=1)
+    hg, wg = hid.detach().requires_grad_(), w.detach().requires_grad_()
+    lib_both = timer(lambda: chunked_lm_loss(
+        hg, wg, y, mm_dt=torch.bfloat16).backward(), iters=3, warmup=1)
+    del hg, wg
+    item = 2
+    base = (n * e + vocab * e) * item + n * 4          # h, w, labels
+    work = {"fused_ce_fwd": (base + 2 * n * 4, 2.0 * n * vocab * e),
+            "fused_ce_dh": (base + 3 * n * 4 + n * e * item,
+                            4.0 * n * vocab * e),
+            "fused_ce_dw": (base + 3 * n * 4 + vocab * e * item,
+                            4.0 * n * vocab * e)}
+    for kernel, (fn, plain) in calls.items():
+        ms = timer(fn, iters=5, warmup=1)
+        plain_ms = timer(plain, iters=3, warmup=1)
+        nbytes, flops = work[kernel]
+        bound_ms, bound_by = bound(nbytes, flops, torch.bfloat16)
+        t = dict(ms=ms, plain_ms=plain_ms,
+                 library_ms=lib_fwd if kernel == "fused_ce_fwd" else lib_both,
+                 bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                 flops=flops)
+        emit(phase="kernel_time", kernel=kernel, case="train",
+             dtype="bfloat16", shape=[n, vocab, e], **t)
+        results[kernel].update(t, shape=f"train_bf16_N{n}")
+    emit(phase="kernel_note", note="library_ms of the fused CE kernels is "
+         "the port's chunked_lm_loss (cuBLAS bf16 head matmuls plus torch "
+         "ops): its forward for fused_ce_fwd, forward and backward for "
+         "fused_ce_dh and fused_ce_dw (no single PyTorch call computes "
+         "these functions)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1027,6 +1341,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_train_kernels(device, timer, ops, batch, kernels)
+    kernels.update(phase_fused_kernels(device, ops))
+    run = phase_train_fused(device, smi)
+    paths["train_fused"] = run["counts"]
+    batch = run["batch_size"]
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_fused_kernel_times(device, timer, ops, batch, kernels)
     del timer
     for name, entry in kernels.items():
         entry["launches_by_path"] = {p: c.get(name, 0)

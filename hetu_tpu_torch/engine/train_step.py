@@ -66,8 +66,11 @@ def make_plan(model: nn.Module, opt: OptimizerSpec, strategy: Strategy,
 def init_state(model: nn.Module, opt: OptimizerSpec,
                plan: TrainPlan) -> TrainState:
     """Step 0 with a fresh optimizer over the model's params (the model
-    already holds its initial weights, drawn from its seed)."""
-    del plan
+    already holds its initial weights, drawn from its seed). The model's
+    floating params are cast in place to the plan policy's
+    ``param_dtype``, as ``hetu_tpu`` inits them in it
+    (``nn/module.py:114``)."""
+    model.to(plan.policy.param_dtype)
     return TrainState(0, model, opt.build(model))
 
 
@@ -104,11 +107,15 @@ def build_train_step(model: nn.Module, opt: OptimizerSpec,
     over :func:`default_loss_fn`.
 
     ``batch`` maps names to tensors with the batch on dim 0; they move to
-    the plan's device. With ``num_microbatches = n > 1`` the batch splits
-    into n equal microbatches whose grads sum in fp32 and are divided by
-    n (``:830-848``); the loss is their mean. Forward and backward run
-    under the plan's precision policy. Dropout seeds are threaded only
-    when the config enables dropout. The metrics stay on the device."""
+    the plan's device. The grads come back in the param dtype (zeros for
+    a param the loss does not reach, as in JAX) and go to the optimizer
+    as they are (``p.grad`` is left unset). With
+    ``num_microbatches = n > 1`` the batch splits into n equal
+    microbatches whose grads sum in fp32 and are divided by n
+    (``:830-848``); the loss is their mean. The global norm is taken in
+    fp32. Forward and backward run under the plan's precision policy.
+    Dropout seeds are threaded only when the config enables dropout. The
+    metrics stay on the device."""
     base_loss = default_loss_fn(model, plan.strategy)
     thread_dropout = model_dropout_active(model)
     nm = plan.strategy.num_microbatches
@@ -118,8 +125,8 @@ def build_train_step(model: nn.Module, opt: OptimizerSpec,
         batch = {k: v.to(plan.device, non_blocking=True)
                  for k, v in batch.items() if v is not None}
         seed = step_dropout_seed(state.step) if thread_dropout else None
-        state.optimizer.zero_grad(set_to_none=True)
         total = torch.zeros((), dtype=torch.float32, device=plan.device)
+        grads = None
         for i in range(nm):
             mb = batch if nm == 1 else {
                 k: v.reshape(nm, v.shape[0] // nm, *v.shape[1:])[i]
@@ -128,15 +135,21 @@ def build_train_step(model: nn.Module, opt: OptimizerSpec,
                 else derive_seed(seed, i)
             with autocast(plan.policy):
                 loss = base_loss(mb, dropout_seed=mb_seed)
-                loss.backward()
+                mb_grads = torch.autograd.grad(loss, trainable,
+                                               materialize_grads=True)
             total = total + loss.detach().float()
+            if nm == 1:
+                grads = list(mb_grads)
+            elif grads is None:
+                grads = [g.float() for g in mb_grads]
+            else:
+                for a, g in zip(grads, mb_grads):
+                    a.add_(g)
         if nm > 1:
-            for p in trainable:
-                if p.grad is not None:
-                    p.grad.div_(nm)
-        grads = [p.grad for p in trainable if p.grad is not None]
+            for g in grads:
+                g.div_(nm)
         gnorm = global_norm(grads)
-        opt.step(state.optimizer, state.step)
+        opt.step(state.optimizer, state.step, dict(zip(trainable, grads)))
         state.step += 1
         return state, {"loss": total / nm, "grad_norm": gnorm}
 

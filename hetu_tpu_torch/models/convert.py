@@ -6,6 +6,9 @@ weights as ``(in, out)`` (``hetu_tpu/nn/parallel.py:81``). The port keeps
 one module per layer (``blocks.{i}.…``) and ``F.linear``'s ``(out, in)``.
 Keys are the dotted paths of ``hetu_tpu/utils/checkpoint.py:40
 _key_str``, so a flattened ``hetu_tpu`` checkpoint converts as well.
+Each leaf keeps its dtype; a bfloat16 leaf (numpy's ``ml_dtypes``
+bfloat16, which torch cannot read) crosses through float32, which holds
+every bfloat16 value exactly.
 """
 
 from __future__ import annotations
@@ -30,6 +33,13 @@ def _flatten(tree, prefix: str = "") -> dict:
     return {prefix[:-1]: np.asarray(tree)}
 
 
+def _tensor(a) -> torch.Tensor:
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(
+            np.array(a, dtype=np.float32, order="C")).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a, order="C"))
+
+
 def params_from_jax(tree, cfg) -> dict:
     """``hetu_tpu`` GPT params (a nested dict of arrays, or its flattened
     ``{dotted.key: array}`` form) → the port's ``state_dict`` (CPU
@@ -38,7 +48,7 @@ def params_from_jax(tree, cfg) -> dict:
     state = {}
     for key, arr in flat.items():
         if not key.startswith("blocks."):
-            state[key] = torch.from_numpy(np.array(arr, order="C"))
+            state[key] = _tensor(arr)
             continue
         rest = key[len("blocks."):]
         if arr.shape[0] != cfg.num_layers:
@@ -48,8 +58,7 @@ def params_from_jax(tree, cfg) -> dict:
             a = arr[i]
             if rest.endswith(_LINEAR_WEIGHTS):
                 a = a.T
-            state[f"blocks.{i}.{rest}"] = torch.from_numpy(
-                np.array(a, order="C"))
+            state[f"blocks.{i}.{rest}"] = _tensor(a)
     return state
 
 

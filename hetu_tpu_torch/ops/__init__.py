@@ -1,5 +1,5 @@
 """Numerics of the port: plain PyTorch ops and the hand-written CUDA
-kernels (``flash`` forward and backward, ``paged``)."""
+kernels (``flash`` forward and backward, ``paged``, ``fused_ce``)."""
 
 from hetu_tpu_torch.ops._build import launch_counts, reset_launch_counts
 from hetu_tpu_torch.ops.activations import gelu
@@ -12,6 +12,10 @@ from hetu_tpu_torch.ops.flash import (
     dropout_keep, dropout_keep_bh, flash_attention_bwd,
     flash_attention_bwd_reference, flash_attention_fwd,
     flash_attention_fwd_reference,
+)
+from hetu_tpu_torch.ops.fused_ce import (
+    fused_ce_dh, fused_ce_dh_reference, fused_ce_dw, fused_ce_dw_reference,
+    fused_ce_fwd, fused_lm_ce, fused_lse_tgt, fused_lse_tgt_reference,
 )
 from hetu_tpu_torch.ops.losses import (
     chunked_lm_loss, cross_entropy_mean, softmax_cross_entropy,
@@ -28,6 +32,9 @@ __all__ = [
     "dropout", "dropout_keep", "dropout_keep_bh", "flash_attention",
     "flash_attention_bwd", "flash_attention_bwd_reference",
     "flash_attention_fwd", "flash_attention_fwd_reference",
+    "fused_ce_dh", "fused_ce_dh_reference", "fused_ce_dw",
+    "fused_ce_dw_reference", "fused_ce_fwd", "fused_lm_ce",
+    "fused_lse_tgt", "fused_lse_tgt_reference",
     "gather_block_rows", "gelu", "launch_counts", "layer_norm",
     "paged_attention", "paged_attention_reference", "reset_launch_counts",
     "softmax_cross_entropy", "vocab_parallel_lm_loss",

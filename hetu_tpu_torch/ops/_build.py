@@ -28,7 +28,7 @@ from typing import Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hetu_tpu_torch"
-SOURCES = ("paged_attention", "flash_fwd", "flash_bwd")
+SOURCES = ("paged_attention", "flash_fwd", "flash_bwd", "fused_ce")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

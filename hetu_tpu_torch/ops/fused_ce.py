@@ -1,0 +1,254 @@
+"""Fused LM-head cross-entropy: the wrappers of ``csrc/fused_ce.cu``, their
+plain PyTorch versions, and the differentiable op the fused loss runs.
+
+Counterpart of ``hetu_tpu/ops/fused_ce_pallas.py``: ``fused_lse_tgt``
+(:166, a ``custom_vjp``) around ``_fwd_kernel`` (:53), ``_dh_kernel``
+(:112) and ``_dw_kernel`` (:134), and ``fused_lm_ce`` (:275). The (N, V)
+logits never reach device memory: the forward streams vocab tiles with an
+online logsumexp and returns per-token ``(lse, tgt)``; the backward
+recomputes each logits tile and feeds the dlogits tile
+``glse * softmax + gtgt * onehot`` into the dH and dW products. On a CUDA
+tensor a wrapper launches its hand-written kernel or raises; on a CPU
+tensor it runs the plain version. There is no fallback from one to the
+other.
+
+Dtypes, as in JAX: h is in the compute dtype; w may be fp32 or bf16 and
+is cast to h's dtype tile by tile; the logits, the softmax and the
+dlogits tile are fp32, and the dlogits tile is rounded to h's dtype
+before both backward products; dh comes back in h's dtype, dw in w's,
+both summed in fp32. Token rows are not padded (the kernels mask the
+ragged edge), so N is free; E must be a multiple of 64, at most 768.
+
+The forward and backward are ``torch.library`` custom ops
+(``hetu_tpu_torch::fused_ce_fwd`` / ``fused_ce_bwd``) with a registered
+autograd formula, as the flash kernels are. The backward takes the
+general cotangents ``(glse, gtgt)`` of ``(lse, tgt)``, not only the
+``(g, -g)`` of the dense loss, so a vocab-parallel combine can sit above
+it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from hetu_tpu_torch.ops import _build
+
+FWD, DH, DW = "fused_ce_fwd", "fused_ce_dh", "fused_ce_dw"
+MAX_E = 768
+#: vocab columns per step of the plain versions
+PLAIN_BLOCK_V = 4096
+_FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
+    + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
+    + [ctypes.c_void_p]
+
+
+# -- plain versions -----------------------------------------------------------
+
+def _logits(h, w_blk):
+    """fp32 logits of h against a block of w cast to h's dtype (a product
+    of two bf16 values is exact in fp32)."""
+    return h.float() @ w_blk.to(h.dtype).float().t()
+
+
+def _onehot(labels, v0, cols, device):
+    return labels.long()[:, None] == (v0 + torch.arange(cols, device=device)
+                                      )[None, :]
+
+
+def fused_lse_tgt_reference(h: torch.Tensor, w: torch.Tensor,
+                            labels: torch.Tensor):
+    """Per-token fp32 ``(lse, tgt)`` of ``h (N, E) @ w (V, E)^T``, vocab
+    block by vocab block; label -1 gives ``tgt = 0``."""
+    n, vocab = h.shape[0], w.shape[0]
+    lse = torch.full((n,), float("-inf"), device=h.device)
+    tgt = torch.zeros(n, device=h.device)
+    for v0 in range(0, vocab, PLAIN_BLOCK_V):
+        s = _logits(h, w[v0:v0 + PLAIN_BLOCK_V])
+        lse = torch.logaddexp(lse, torch.logsumexp(s, dim=1))
+        hit = _onehot(labels, v0, s.shape[1], h.device)
+        tgt = tgt + torch.where(hit, s, 0.0).sum(1)
+    return lse, tgt
+
+
+def _p_block(h, w_blk, v0, labels, lse, glse, gtgt):
+    """The dlogits block ``glse * exp(s - lse) + gtgt * onehot``, fp32,
+    rounded to h's dtype (``_p_tile``, ``fused_ce_pallas.py:96``)."""
+    s = _logits(h, w_blk)
+    hit = _onehot(labels, v0, s.shape[1], h.device)
+    p = glse.float()[:, None] * torch.exp(s - lse[:, None]) \
+        + torch.where(hit, gtgt.float()[:, None], 0.0)
+    return p.to(h.dtype).float()
+
+
+def fused_ce_dh_reference(h, w, labels, lse, glse, gtgt):
+    """dH ``(N, E)`` in h's dtype: the sum over vocab blocks of the
+    rounded dlogits block times w (cast to h's dtype), in fp32."""
+    dh = torch.zeros(h.shape, device=h.device)
+    for v0 in range(0, w.shape[0], PLAIN_BLOCK_V):
+        w_blk = w[v0:v0 + PLAIN_BLOCK_V]
+        dh += _p_block(h, w_blk, v0, labels, lse, glse, gtgt) \
+            @ w_blk.to(h.dtype).float()
+    return dh.to(h.dtype)
+
+
+def fused_ce_dw_reference(h, w, labels, lse, glse, gtgt):
+    """dW ``(V, E)`` in w's dtype: per vocab block, the rounded dlogits
+    block transposed times h, in fp32."""
+    dw = torch.empty(w.shape, dtype=w.dtype, device=w.device)
+    for v0 in range(0, w.shape[0], PLAIN_BLOCK_V):
+        w_blk = w[v0:v0 + PLAIN_BLOCK_V]
+        p = _p_block(h, w_blk, v0, labels, lse, glse, gtgt)
+        dw[v0:v0 + PLAIN_BLOCK_V] = (p.t() @ h.float()).to(w.dtype)
+    return dw
+
+
+# -- the kernel wrappers ------------------------------------------------------
+
+def _check(what, h, w, labels, stats=()):
+    """Validate the operands of a launch; returns (n, vocab, E)."""
+    if h.dim() != 2 or w.dim() != 2 or h.shape[1] != w.shape[1]:
+        raise ValueError(f"{what}: h {tuple(h.shape)} and w "
+                         f"{tuple(w.shape)} must be (N, E) and (V, E)")
+    n, e = h.shape
+    if e % 64 or e > MAX_E:
+        raise ValueError(f"{what}: E = {e}; the kernels take multiples of "
+                         f"64 up to {MAX_E}")
+    if h.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {h.device}")
+    for name, t in (("h", h), ("w", w)):
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{what}: {name} must be fp32 or bf16, got "
+                            f"{t.dtype}")
+    for name, t, dtype, shape in (("h", h, None, None), ("w", w, None, None),
+                                  ("labels", labels, torch.int32, (n,)),
+                                  *((k, s, torch.float32, (n,))
+                                    for k, s in stats)):
+        # h and w are staged with 16-byte vector loads
+        if t.device != h.device or not t.is_contiguous() \
+                or (dtype is None and t.data_ptr() % 16) \
+                or (dtype is not None and t.dtype != dtype) \
+                or (shape is not None and tuple(t.shape) != shape):
+            raise ValueError(f"{what}: {name} must be a contiguous "
+                             f"{dtype or '16-byte aligned'} {shape or ''} "
+                             f"tensor on {h.device}")
+    return n, w.shape[0], e
+
+
+def _flags(h, w):
+    return int(h.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16)
+
+
+def fused_ce_fwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor):
+    """Kernel #5: per-token fp32 ``(lse, tgt)`` of h (N, E) against w
+    (V, E); ``labels`` (N,) int32 in [-1, V)."""
+    if h.device.type == "cpu":
+        return fused_lse_tgt_reference(h, w, labels)
+    n, vocab, e = _check("fused_ce_fwd", h, w, labels)
+    lse = torch.empty(n, dtype=torch.float32, device=h.device)
+    tgt = torch.empty(n, dtype=torch.float32, device=h.device)
+    if n == 0:
+        return lse, tgt
+    lib, fn = _build.kernel("fused_ce", "hetu_fused_ce_fwd", _FWD_ARGTYPES)
+    err = fn(_build.ptr(h), _build.ptr(w), _build.ptr(labels),
+             _build.ptr(lse), _build.ptr(tgt), n, vocab, e, *_flags(h, w),
+             _build.stream_ptr(h.device))
+    _build.check(lib, err, "fused_ce_fwd launch")
+    _build.count_launch(FWD)
+    return lse, tgt
+
+
+def _bwd(which, h, w, labels, lse, glse, gtgt):
+    n, vocab, e = _check(f"fused_ce_{which}", h, w, labels,
+                         (("lse", lse), ("glse", glse), ("gtgt", gtgt)))
+    out = torch.empty_like(h if which == "dh" else w)
+    if n == 0:
+        return out.zero_()
+    lib, fn = _build.kernel("fused_ce", f"hetu_fused_ce_{which}",
+                            _BWD_ARGTYPES)
+    err = fn(_build.ptr(h), _build.ptr(w), _build.ptr(labels),
+             _build.ptr(lse), _build.ptr(glse), _build.ptr(gtgt),
+             _build.ptr(out), n, vocab, e, *_flags(h, w),
+             _build.stream_ptr(h.device))
+    _build.check(lib, err, f"fused_ce_{which} launch")
+    _build.count_launch(DH if which == "dh" else DW)
+    return out
+
+
+def fused_ce_dh(h, w, labels, lse, glse, gtgt):
+    """Kernel #6: dH (N, E) in h's dtype from the forward's lse and the
+    cotangents ``glse``/``gtgt`` (N,) fp32 of ``(lse, tgt)``."""
+    if h.device.type == "cpu":
+        return fused_ce_dh_reference(h, w, labels, lse, glse, gtgt)
+    return _bwd("dh", h, w, labels, lse, glse, gtgt)
+
+
+def fused_ce_dw(h, w, labels, lse, glse, gtgt):
+    """Kernel #7: dW (V, E) in w's dtype, from the same inputs."""
+    if h.device.type == "cpu":
+        return fused_ce_dw_reference(h, w, labels, lse, glse, gtgt)
+    return _bwd("dw", h, w, labels, lse, glse, gtgt)
+
+
+# -- the differentiable op ----------------------------------------------------
+
+@torch.library.custom_op("hetu_tpu_torch::fused_ce_fwd", mutates_args=())
+def fused_ce_fwd_op(h: torch.Tensor, w: torch.Tensor,
+                    labels: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fused_ce_fwd` as a dispatcher op."""
+    return fused_ce_fwd(h, w, labels)
+
+
+@torch.library.custom_op("hetu_tpu_torch::fused_ce_bwd", mutates_args=())
+def fused_ce_bwd_op(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                    lse: torch.Tensor, glse: torch.Tensor,
+                    gtgt: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fused_ce_dh` and :func:`fused_ce_dw` as one dispatcher
+    op."""
+    return (fused_ce_dh(h, w, labels, lse, glse, gtgt),
+            fused_ce_dw(h, w, labels, lse, glse, gtgt))
+
+
+def _setup_context(ctx, inputs, output):
+    h, w, labels = inputs
+    ctx.save_for_backward(h, w, labels, output[0])
+
+
+def _backward(ctx, glse, gtgt):
+    h, w, labels, lse = ctx.saved_tensors
+    zero = torch.zeros_like(lse)
+    glse = zero if glse is None else glse.float().contiguous()
+    gtgt = zero if gtgt is None else gtgt.float().contiguous()
+    dh, dw = fused_ce_bwd_op(h, w, labels, lse, glse, gtgt)
+    return dh, dw, None
+
+
+fused_ce_fwd_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def fused_lse_tgt(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor):
+    """Per-token ``(lse, target logit)`` of ``h (N, E)`` over this weight
+    ``w (V, E)``, differentiable in h and w; ``labels`` (N,) are local
+    vocab ids, -1 for a token outside this weight (``tgt = 0``)."""
+    return fused_ce_fwd_op(h.contiguous(), w.contiguous(),
+                           labels.to(torch.int32).contiguous())
+
+
+def fused_lm_ce(hidden: torch.Tensor, vocab_weight: torch.Tensor,
+                labels: torch.Tensor, *,
+                ignore_index: int = -100) -> torch.Tensor:
+    """Mean LM cross-entropy of ``hidden (B, S, E) @ vocab_weight^T``
+    without the logits (``fused_ce_pallas.py:275``): ignored positions
+    are excluded from the mean and give zero cotangents."""
+    e = hidden.shape[-1]
+    h = hidden.reshape(-1, e)
+    labels = labels.reshape(-1)
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    lse, tgt = fused_lse_tgt(h, vocab_weight, safe)
+    loss = torch.where(valid, lse - tgt, 0.0)
+    return loss.sum() / valid.sum().clamp(min=1)

@@ -4,7 +4,9 @@ The head matmul multiplies operands of the compute dtype into fp32
 logits (``preferred_element_type=float32`` in JAX). ``chunked_lm_loss``
 never holds more than one chunk's (tokens, V) logits: each chunk runs
 under ``torch.utils.checkpoint``, which keeps only the chunk's inputs and
-recomputes its logits in the backward.
+recomputes its logits in the backward. ``HETU_LM_LOSS_IMPL=fused``
+switches a large vocab to the fused kernels of ``ops/fused_ce.py``,
+which never write logits to device memory.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from hetu_tpu_torch.core.dtypes import current_policy
+from hetu_tpu_torch.ops.fused_ce import fused_lm_ce
 
 # Per-chunk fp32 logits budget (``hetu_tpu/ops/losses.py:47``): chunk
 # count, not chunk size, sets the backward's traffic (each chunk re-reads
@@ -124,19 +127,16 @@ def vocab_parallel_lm_loss(hidden: torch.Tensor, vocab_weight: torch.Tensor,
                            labels: torch.Tensor, *,
                            ignore_index: int = -100) -> torch.Tensor:
     """Mean LM loss at tp=1 (``hetu_tpu/ops/losses.py:251``): a vocab of
-    8192 or more goes through :func:`chunked_lm_loss`, a smaller one
-    through dense logits; both multiply in the policy's compute dtype.
-
-    ``HETU_LM_LOSS_IMPL=fused`` asks for the fused LM-head CE kernels
-    (``hetu_tpu/ops/fused_ce_pallas.py``, TPU kernels #5-#7), which are
-    not ported yet: it raises rather than run the chunked path."""
+    8192 or more goes through :func:`chunked_lm_loss`, or, with
+    ``HETU_LM_LOSS_IMPL=fused``, through the fused LM-head kernels
+    (:func:`~hetu_tpu_torch.ops.fused_ce.fused_lm_ce`, TPU kernels
+    #5-#7); a smaller one through dense logits. All multiply in the
+    policy's compute dtype."""
     mm_dt = current_policy().compute_dtype
     if vocab_weight.shape[0] >= 8192:
         if os.environ.get("HETU_LM_LOSS_IMPL") == "fused":
-            raise NotImplementedError(
-                "HETU_LM_LOSS_IMPL=fused: the fused LM-head cross-entropy "
-                "kernels (TPU kernels #5-#7, hetu_tpu/ops/fused_ce_pallas.py "
-                "_fwd_kernel/_dh_kernel/_dw_kernel) are not ported yet")
+            return fused_lm_ce(hidden.to(mm_dt), vocab_weight, labels,
+                               ignore_index=ignore_index)
         return chunked_lm_loss(hidden, vocab_weight, labels, mm_dt=mm_dt,
                                ignore_index=ignore_index)
     return cross_entropy_mean(head_logits(hidden, vocab_weight, mm_dt),

@@ -3,25 +3,37 @@
 
 ``hetu_tpu`` chains pure gradient transforms. The port describes an
 optimizer as an :class:`OptimizerSpec`: ``build(model)`` makes the
-``torch.optim`` optimizer that computes the same update, and
-``step(optimizer, count)`` sets the scheduled learning rate of update
-``count`` (0 for the first) before applying it.
+``torch.optim.Optimizer`` that computes the same update, and
+``step(optimizer, count, grads)`` sets the scheduled learning rate of
+update ``count`` (0 for the first) before applying it.
 
-- ``adamw`` is ``scale_by_adam`` + ``add_decayed_weights`` + ``-lr``:
-  ``p -= lr * (m^ / (sqrt(v^) + eps) + wd * p)``, which is
-  ``torch.optim.AdamW``'s update.
-- JAX decays a param when ``ndim >= 2`` (``optim/base.py:91``), and sees
-  every block param with the stacked layer axis
-  (``nn/parallel.py:877-892``): block biases and LayerNorm scales are
-  decayed, ``ln_f`` is not. The port keeps one module per layer, so
-  :func:`jax_decay_mask` reproduces that rule by name.
+The update is JAX's, in JAX's order and precision, whatever the param
+dtype: the state (Adam's moments, the momentum trace) is fp32 ("state
+lives in fp32 regardless of param dtype", ``optimizers.py:11``), the
+grad is upcast, and the whole update ``u`` is computed in fp32 and added
+once, ``p + u.astype(p.dtype)`` (``base.py:41-44``). For a bf16 param
+that is one rounding per step, where ``torch.optim.AdamW`` would keep
+bf16 moments and round the decay and the step separately.
+
+- ``adamw`` is ``scale_by_adam`` → ``add_decayed_weights`` → ``-lr``:
+  ``u = -lr * (m^ / (sqrt(v^) + eps) + wd * p)``;
+- ``adam`` the same without the decay;
+- ``sgd`` is ``-lr * g``, with momentum JAX's ``trace``
+  (``v = m v + g``, nesterov ``g + m v``).
+
+JAX decays a param when ``ndim >= 2`` (``optim/base.py:91``), and sees
+every block param with the stacked layer axis (``nn/parallel.py:877-892``):
+block biases and LayerNorm scales are decayed, ``ln_f`` is not. The port
+keeps one module per layer, so :func:`jax_decay_mask` reproduces that
+rule by name.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Union
+from typing import Callable, Mapping, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -36,6 +48,102 @@ def jax_decay_mask(name: str, param: torch.Tensor) -> bool:
     return name.startswith("blocks.") or param.dim() >= 2
 
 
+def _with_grads(group: dict, grads: Mapping):
+    """The group's params that ``grads`` holds, and their grads."""
+    ps = [p for p in group["params"] if p in grads]
+    return ps, [grads[p] for p in ps]
+
+
+def _apply(ps: list, us: list) -> None:
+    """``p + u.astype(p.dtype)``: each fp32 update rounded once."""
+    torch._foreach_add_(ps, [u.to(p.dtype) for p, u in zip(ps, us)])
+
+
+class Adam(torch.optim.Optimizer):
+    """``scale_by_adam`` (→ ``add_decayed_weights`` where a group's
+    ``weight_decay`` is nonzero) → ``scale_by_schedule(-lr)`` with fp32
+    moments and a step count per param. Each step is a few multi-tensor
+    (``torch._foreach_*``) kernels over a group, in JAX's order of
+    operations."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, grads: Mapping):
+        for group in self.param_groups:
+            ps, gs = _with_grads(group, grads)
+            if not ps:
+                continue
+            b1, b2 = group["betas"]
+            lr, wd, eps = group["lr"], group["weight_decay"], group["eps"]
+            s1, s2 = [], []
+            for p in ps:
+                st = self.state[p]
+                if not st:
+                    st["count"] = 0
+                    st["mu"] = torch.zeros_like(p, dtype=torch.float32)
+                    st["nu"] = torch.zeros_like(p, dtype=torch.float32)
+                st["count"] += 1
+                # the bias corrections in float32, as JAX computes them
+                # from its int32 count
+                c = np.float32(st["count"])
+                s1.append(float(np.float32(1) / (np.float32(1)
+                                                 - np.float32(b1) ** c)))
+                s2.append(float(np.float32(1) / (np.float32(1)
+                                                 - np.float32(b2) ** c)))
+            mu = [self.state[p]["mu"] for p in ps]
+            nu = [self.state[p]["nu"] for p in ps]
+            g = [x.float() for x in gs]
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, torch._foreach_mul(g, 1 - b1))
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_add_(nu, torch._foreach_mul(
+                torch._foreach_mul(g, g), 1 - b2))
+            den = torch._foreach_mul(nu, s2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, eps)
+            u = torch._foreach_mul(mu, s1)
+            torch._foreach_div_(u, den)
+            if wd:
+                torch._foreach_add_(u, torch._foreach_mul(
+                    [p.float() for p in ps], wd))
+            torch._foreach_mul_(u, -lr)
+            _apply(ps, u)
+
+
+class SGD(torch.optim.Optimizer):
+    """``trace(momentum, nesterov)`` (when ``momentum`` is nonzero) →
+    ``scale_by_schedule(-lr)``, with an fp32 trace."""
+
+    def __init__(self, params, lr: float, momentum: float = 0.0,
+                 nesterov: bool = False):
+        super().__init__(params, dict(lr=lr, momentum=momentum,
+                                      nesterov=nesterov))
+
+    @torch.no_grad()
+    def step(self, grads: Mapping):
+        for group in self.param_groups:
+            ps, gs = _with_grads(group, grads)
+            if not ps:
+                continue
+            m = group["momentum"]
+            u = [x.float() for x in gs]
+            if m:
+                for p in ps:
+                    if not self.state[p]:
+                        self.state[p]["trace"] = torch.zeros_like(
+                            p, dtype=torch.float32)
+                v = [self.state[p]["trace"] for p in ps]
+                torch._foreach_mul_(v, m)
+                torch._foreach_add_(v, u)
+                u = torch._foreach_add(u, torch._foreach_mul(v, m)) \
+                    if group["nesterov"] else v
+            _apply(ps, torch._foreach_mul(u, -group["lr"]))
+
+
 @dataclasses.dataclass(frozen=True)
 class OptimizerSpec:
     cls: type
@@ -47,9 +155,9 @@ class OptimizerSpec:
         return self.lr if callable(self.lr) else constant(self.lr)
 
     def build(self, model: nn.Module) -> torch.optim.Optimizer:
-        """The torch optimizer over ``model``'s params: one group when
-        nothing is decayed, else a decayed and a non-decayed group split
-        by :func:`jax_decay_mask`."""
+        """The optimizer over ``model``'s params: one group when nothing
+        is decayed, else a decayed and a non-decayed group split by
+        :func:`jax_decay_mask`."""
         lr0 = self.schedule()(0)
         if not self.weight_decay:
             return self.cls(model.parameters(), lr=lr0, **self.hyper)
@@ -60,30 +168,28 @@ class OptimizerSpec:
                   {"params": keep, "weight_decay": 0.0}]
         return self.cls(groups, lr=lr0, **self.hyper)
 
-    def step(self, optimizer: torch.optim.Optimizer, count: int) -> None:
-        """Apply update number ``count`` at its scheduled rate."""
+    def step(self, optimizer: torch.optim.Optimizer, count: int,
+             grads: Mapping) -> None:
+        """Apply update number ``count`` at its scheduled rate, from
+        ``grads`` (``{param: grad}``)."""
         lr = self.schedule()(count)
         for group in optimizer.param_groups:
             group["lr"] = lr
-        optimizer.step()
+        optimizer.step(grads)
 
 
 def adamw(lr: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.999,
           eps: float = 1e-8, weight_decay: float = 0.01) -> OptimizerSpec:
-    return OptimizerSpec(torch.optim.AdamW, lr,
-                         {"betas": (b1, b2), "eps": eps},
+    return OptimizerSpec(Adam, lr, {"betas": (b1, b2), "eps": eps},
                          weight_decay=weight_decay)
 
 
 def adam(lr: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.999,
          eps: float = 1e-8) -> OptimizerSpec:
-    return OptimizerSpec(torch.optim.Adam, lr,
-                         {"betas": (b1, b2), "eps": eps})
+    return OptimizerSpec(Adam, lr, {"betas": (b1, b2), "eps": eps})
 
 
 def sgd(lr: ScalarOrSchedule, momentum: float = 0.0,
         nesterov: bool = False) -> OptimizerSpec:
-    """JAX's ``trace`` (``v = m v + g``, nesterov ``g + m v``) is
-    ``torch.optim.SGD`` with dampening 0."""
-    return OptimizerSpec(torch.optim.SGD, lr,
-                         {"momentum": momentum, "nesterov": nesterov})
+    return OptimizerSpec(SGD, lr, {"momentum": momentum,
+                                   "nesterov": nesterov})

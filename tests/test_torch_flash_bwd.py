@@ -24,6 +24,8 @@ from hetu_tpu_torch.ops import (
     flash_attention_bwd, flash_attention_bwd_reference, flash_attention_fwd,
 )
 
+torch.set_num_threads(2)
+
 ATOL = 5e-5
 ATOL_DROP = 2e-4
 

@@ -24,6 +24,8 @@ from hetu_tpu_torch.models import (
     params_from_jax,
 )
 
+torch.set_num_threads(2)
+
 ATOL = 1e-5
 LINEARS = ("q_proj", "k_proj", "v_proj", "out_proj", "fc_in", "fc_out")
 

@@ -11,6 +11,8 @@ import sys
 import pytest
 import torch
 
+torch.set_num_threads(2)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "hetu_tpu_torch"
 

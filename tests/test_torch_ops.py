@@ -29,6 +29,8 @@ from hetu_tpu_torch.ops import (
 )
 from hetu_tpu_torch.serving.sampling import adjust_logits
 
+torch.set_num_threads(2)
+
 ATOL = 1e-5
 NEG = np.float32(NEG_INF)
 

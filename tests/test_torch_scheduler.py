@@ -7,12 +7,15 @@ same order with the same block tables and prefill offsets.
 
 import numpy as np
 import pytest
+import torch
 
 from hetu_tpu.serving import kv_pool as jax_kv_pool
 from hetu_tpu.serving import prefix_cache as jax_prefix_cache
 from hetu_tpu.serving import scheduler as jax_scheduler
 
 from hetu_tpu_torch.serving import kv_pool, prefix_cache, scheduler
+
+torch.set_num_threads(2)
 
 BLOCK, MAX_LEN, NEW = 4, 64, 6
 

@@ -30,6 +30,8 @@ from hetu_tpu_torch.models import (
 )
 from hetu_tpu_torch.serving import SamplingParams, ServingEngine
 
+torch.set_num_threads(2)
+
 SLOTS, MAX_LEN, CHUNK, BLOCK, NEW = 3, 64, 8, 8, 6
 
 

@@ -7,11 +7,19 @@ ids are made with numpy from a seed and handed to both. Tolerances:
 - the same under bf16 compute: loss within 2e-3 and every grad within
   5% of the largest grad (the two frameworks round bf16 at different
   points: bias adds, GELU's intermediates, the kernels' fp32 p);
-- a 10-step AdamW loss curve: 1e-4 per step.
+- a 10-step AdamW loss curve: 1e-4 per step;
+- ``HETU_LM_LOSS_IMPL=fused`` (a ragged vocab of 8269, the fused CE
+  against the Pallas kernels in interpret mode): fp32 loss and every
+  grad as above; a 10-step lockstep with bf16 params and bf16 compute:
+  each loss within 2e-3 (the bf16-compute bound above) and each grad
+  norm within 1% (bf16 params round every update, so last-bit
+  differences carry from step to step);
+- one AdamW update of a bf16 param: within 1 bf16 ulp of JAX's.
 Remat none/full/selective (and a per-layer ``remat_mask``) must give
 bit-identical losses and grads.
 """
 
+import dataclasses
 import re
 
 import numpy as np
@@ -23,18 +31,21 @@ import torch
 
 from hetu_tpu import optim as jax_optim
 from hetu_tpu.core.dtypes import BF16_COMPUTE as JAX_BF16
+from hetu_tpu.core.dtypes import Policy as JaxPolicy
 from hetu_tpu.core.dtypes import autocast as jax_autocast
 from hetu_tpu.engine import build_train_step as jax_build_train_step
 from hetu_tpu.engine import init_state as jax_init_state
 from hetu_tpu.engine import make_plan as jax_make_plan
 from hetu_tpu.models import GPTConfig as JaxGPTConfig
 from hetu_tpu.models import GPTLMHeadModel as JaxGPT
+from hetu_tpu.ops import losses as jax_losses
 from hetu_tpu.ops.losses import chunked_lm_loss as jax_chunked_lm_loss
+from hetu_tpu.optim.base import apply_updates as jax_apply_updates
 from hetu_tpu.parallel.strategy import Strategy as JaxStrategy
 from hetu_tpu.utils.checkpoint import _flatten
 
 from hetu_tpu_torch import optim
-from hetu_tpu_torch.core import BF16_COMPUTE, autocast
+from hetu_tpu_torch.core import BF16_COMPUTE, Policy, autocast
 from hetu_tpu_torch.engine import (
     build_train_step, init_state, make_plan, step_dropout_seed,
 )
@@ -43,9 +54,20 @@ from hetu_tpu_torch.models import (
 )
 from hetu_tpu_torch.ops import chunked_lm_loss, vocab_parallel_lm_loss
 from hetu_tpu_torch.ops import flash as flash_mod
+from hetu_tpu_torch.ops import fused_ce as fused_mod
+from hetu_tpu_torch.ops import losses as losses_mod
 from hetu_tpu_torch.parallel import Strategy
 
+torch.set_num_threads(2)
+
 REMATS = ("none", "full", "selective")
+#: a vocab large enough for the LM loss's chunked/fused branch, and
+#: ragged against every tile
+FUSED_VOCAB = 8269
+BF16_PARAMS = Policy(param_dtype=torch.bfloat16,
+                     compute_dtype=torch.bfloat16)
+JAX_BF16_PARAMS = JaxPolicy(param_dtype=jnp.bfloat16,
+                            compute_dtype=jnp.bfloat16)
 
 
 def _t(a):
@@ -175,17 +197,186 @@ def test_chunked_lm_loss_value_and_grads_match_jax():
                                rtol=1e-5)
 
 
-def test_fused_lm_loss_env_raises(monkeypatch):
-    """``HETU_LM_LOSS_IMPL=fused`` names kernels that are not ported: it
-    raises where ``hetu_tpu`` would run them (vocab >= 8192) instead of
-    running the chunked path quietly."""
-    h, w = torch.zeros(1, 4, 8), torch.zeros(8192, 8)
+def test_fused_lm_loss_env_routes_through_fused_lm_ce(monkeypatch):
+    """``HETU_LM_LOSS_IMPL=fused`` sends a vocab of 8192 or more through
+    the fused CE (on the CPU, the plain versions of kernels #5-#7, each
+    called once by a forward and backward) and never through the chunked
+    loss; without it the chunked loss runs. Both give log V here."""
+    calls = {"fwd": 0, "dh": 0, "dw": 0}
+
+    def count(key, fn):
+        def wrapped(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    for key in calls:
+        name = ("fused_lse_tgt_reference" if key == "fwd"
+                else f"fused_ce_{key}_reference")
+        monkeypatch.setattr(fused_mod, name,
+                            count(key, getattr(fused_mod, name)))
+    h = torch.zeros(1, 4, 8, requires_grad=True)
+    w = torch.zeros(8192, 8, requires_grad=True)
     y = torch.zeros(1, 4, dtype=torch.long)
     base = vocab_parallel_lm_loss(h, w, y)
-    np.testing.assert_allclose(float(base), np.log(8192), rtol=1e-6)
+    np.testing.assert_allclose(float(base.detach()), np.log(8192),
+                               rtol=1e-6)
+    assert calls == {"fwd": 0, "dh": 0, "dw": 0}
+
+    def no_chunks(*a, **kw):
+        raise AssertionError("the fused path ran the chunked loss")
+
+    monkeypatch.setattr(losses_mod, "chunked_lm_loss", no_chunks)
     monkeypatch.setenv("HETU_LM_LOSS_IMPL", "fused")
-    with pytest.raises(NotImplementedError, match="#5-#7"):
-        vocab_parallel_lm_loss(h, w, y)
+    loss = vocab_parallel_lm_loss(h, w, y)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), np.log(8192),
+                               rtol=1e-6)
+    assert calls == {"fwd": 1, "dh": 1, "dw": 1}
+    assert w.grad.shape == w.shape and h.grad.shape == h.shape
+
+
+def _fused_cfgs():
+    return (dataclasses.replace(JaxGPTConfig.tiny(), vocab_size=FUSED_VOCAB),
+            dataclasses.replace(GPTConfig.tiny(), vocab_size=FUSED_VOCAB))
+
+
+@pytest.fixture
+def fused_env(monkeypatch):
+    """The fused LM loss on both sides: the env variable for the port;
+    for ``hetu_tpu`` also its backend gate, which is False on the CPU
+    (a test-only patch)."""
+    monkeypatch.setenv("HETU_LM_LOSS_IMPL", "fused")
+    monkeypatch.setattr(jax_losses, "_use_fused_ce", lambda: True)
+
+
+def test_gpt_fused_lm_loss_and_every_grad_match_jax(fused_env):
+    jcfg, cfg = _fused_cfgs()
+    jmodel = JaxGPT(jcfg)
+    params = jmodel.init(jax.random.key(1), dtype=jnp.float32)
+    model = GPTLMHeadModel(cfg, device="cpu")
+    model.load_state_dict(params_from_jax(_np_tree(params), cfg))
+    x, y = _batch(seed=11, vocab=FUSED_VOCAB)
+    jloss, jgrads = jax.jit(jax.value_and_grad(jmodel.loss))(
+        params, jnp.asarray(x), jnp.asarray(y))
+    want = grads_from_jax(_np_tree(jgrads), cfg)
+    loss, grads = _port_loss_and_grads(model, x, y, remat="selective")
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5,
+                               atol=1e-5)
+    assert set(grads) == set(want)
+    for name, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), want[name].numpy(),
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+def test_bf16_params_fused_ce_lockstep_matches_jax(fused_env):
+    """``bench.py``'s fused-CE combo at test size: bf16 params and
+    compute, selective remat, AdamW(1e-3, wd 0.01), the fused LM loss;
+    10 steps of the port's ``build_train_step`` against ``hetu_tpu``'s on
+    one repeated batch. The port's params stay bf16 and its AdamW state
+    fp32."""
+    jcfg, cfg = _fused_cfgs()
+    jmodel = JaxGPT(jcfg)
+    jopt = jax_optim.adamw(1e-3, weight_decay=0.01)
+    x, y = _batch(seed=12, vocab=FUSED_VOCAB)
+    with jax_autocast(JAX_BF16_PARAMS):
+        jplan = jax_make_plan(jmodel, jopt, JaxStrategy(remat="selective"),
+                              devices=jax.devices()[:1])
+        jstate = jax_init_state(jmodel, jopt, jplan, jax.random.key(2))
+        jstep = jax_build_train_step(jmodel, jopt, jplan)
+        jbatch = jplan.shard_batch({"input_ids": jnp.asarray(x),
+                                    "labels": jnp.asarray(y)})
+        assert jstate.params["wte"]["weight"].dtype == jnp.bfloat16
+        model = GPTLMHeadModel(cfg, device="cpu")
+        model.load_state_dict(params_from_jax(jstate.params, cfg))
+        opt = optim.adamw(1e-3, weight_decay=0.01)
+        with autocast(BF16_PARAMS):
+            plan = make_plan(model, opt, Strategy(remat="selective"),
+                             device="cpu")
+        state = init_state(model, opt, plan)
+        assert {p.dtype for p in model.parameters()} == {torch.bfloat16}
+        step = build_train_step(model, opt, plan)
+        batch = {"input_ids": _t(x), "labels": _t(y)}
+        jl, tl = [], []
+        for _ in range(10):
+            jstate, jm = jstep(jstate, jbatch)
+            state, m = step(state, batch)
+            jl.append(float(jm["loss"]))
+            tl.append(float(m["loss"]))
+            np.testing.assert_allclose(float(m["grad_norm"]),
+                                       float(jm["grad_norm"]), rtol=1e-2)
+    np.testing.assert_allclose(tl, jl, atol=2e-3)
+    assert tl[-1] < tl[0] - 0.5
+    assert {p.dtype for p in model.parameters()} == {torch.bfloat16}
+    moments = [v for st in state.optimizer.state.values()
+               for k, v in st.items() if k in ("mu", "nu")]
+    assert moments and {v.dtype for v in moments} == {torch.float32}
+
+
+def test_adamw_update_of_a_bf16_param_matches_jax():
+    """Two AdamW updates of a bf16 matrix (decayed) and a bf16 vector:
+    the port's params equal ``adamw`` + ``apply_updates``'s to within 1
+    bf16 ulp, its moments are fp32 and equal JAX's to 1e-6."""
+    rng = np.random.default_rng(13)
+    p0 = {"m": rng.normal(size=(6, 5)).astype(np.float32),
+          "v": rng.normal(size=(5,)).astype(np.float32)}
+    grads = [{k: (rng.normal(size=a.shape) * 1e-2).astype(np.float32)
+              for k, a in p0.items()} for _ in range(2)]
+    jopt = jax_optim.adamw(3e-2, weight_decay=0.1)
+    jp = {k: jnp.asarray(a, jnp.bfloat16) for k, a in p0.items()}
+    jst = jopt.init(jp)
+    tp = {k: torch.from_numpy(np.array(jp[k].astype(jnp.float32))).to(
+        torch.bfloat16) for k in p0}
+    mod = torch.nn.Module()
+    mod.m = torch.nn.Parameter(tp["m"])
+    mod.v = torch.nn.Parameter(tp["v"])
+    spec = optim.adamw(3e-2, weight_decay=0.1)
+    opt = spec.build(mod)
+    for count, g in enumerate(grads):
+        jg = {k: jnp.asarray(a, jnp.bfloat16) for k, a in g.items()}
+        upd, jst = jopt.update(jg, jst, jp)
+        jp = jax_apply_updates(jp, upd)
+        spec.step(opt, count, {mod.m: torch.from_numpy(np.array(
+            jg["m"].astype(jnp.float32))).to(torch.bfloat16),
+            mod.v: torch.from_numpy(np.array(
+                jg["v"].astype(jnp.float32))).to(torch.bfloat16)})
+    for k in p0:
+        got = getattr(mod, k).detach()
+        assert got.dtype == torch.bfloat16
+        want = np.array(jp[k].astype(jnp.float32))
+        ulp = np.spacing(np.abs(want).astype(np.float32)) * 2 ** 16
+        assert np.all(np.abs(got.float().numpy() - want) <= ulp), k
+        mu = opt.state[getattr(mod, k)]["mu"]
+        assert mu.dtype == torch.float32
+    jmu = jst[0].mu
+    np.testing.assert_allclose(opt.state[mod.m]["mu"].numpy(),
+                               np.asarray(jmu["m"]), rtol=1e-6, atol=1e-9)
+    np.testing.assert_allclose(opt.state[mod.v]["nu"].numpy(),
+                               np.asarray(jst[0].nu["v"]), rtol=1e-6,
+                               atol=1e-12)
+
+
+def test_params_from_jax_round_trips_bf16_leaves():
+    """A bf16 ``hetu_tpu`` tree converts leaf by leaf to bf16 tensors of
+    the same values (through fp32, which holds every bf16 exactly), and
+    a model loads them."""
+    jmodel = JaxGPT(JaxGPTConfig.tiny())
+    with jax_autocast(JAX_BF16_PARAMS):
+        params = jmodel.init(jax.random.key(3))
+    cfg = GPTConfig.tiny()
+    state = params_from_jax(params, cfg)
+    flat = _flatten(params)
+    assert {t.dtype for t in state.values()} == {torch.bfloat16}
+    np.testing.assert_array_equal(
+        state["wte.weight"].float().numpy(),
+        np.asarray(flat["wte.weight"].astype(jnp.float32)))
+    np.testing.assert_array_equal(
+        state["blocks.1.attn.q_proj.weight"].float().numpy(),
+        np.asarray(flat["blocks.attn.q_proj.weight"][1].astype(
+            jnp.float32)).T)
+    model = GPTLMHeadModel(cfg, device="cpu", dtype=torch.bfloat16)
+    model.load_state_dict(state)
+    assert torch.equal(model.wte.weight.detach(), state["wte.weight"])
 
 
 def test_adamw_decay_mask_matches_jax_stacked_rule(tiny):
