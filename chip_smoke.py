@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``hetu_tpu_torch``) on one NVIDIA
 GPU: builds the hand-written kernels, holds each against its plain
-PyTorch version, serves GPT-2 small through ``ServingEngine`` and trains
-it with ``build_train_step``.
+PyTorch version, serves GPT-2 small through ``ServingEngine``, trains
+it with ``build_train_step``, and serves Llama-7B from the int8 KV arena.
 
 Run from the repository root, on a machine with one CUDA card::
 
@@ -69,7 +69,43 @@ Phases, each printing one JSON line:
    then timed; ``library_ms`` is the port's ``chunked_lm_loss`` (cuBLAS
    plus torch ops: no single PyTorch call computes these functions),
    forward only for the forward kernel, forward and backward for dH/dW.
-11. summary -- one ``{"kernels": [...]}`` line, the card's name and power
+11. llama kernels -- kernel #1's int8 lane against its plain version at
+   the Llama engine's shapes (decode q (16, 1, 32, 128) at 1024 live
+   positions per slot and at ragged depths, prefill history q (256, 1,
+   32, 128), the (2049, 16, 32, 128) int8 arena) and at edge shapes (GQA
+   4, R = 3, offsets of -1, zero-scale rows, a poisoned null block), q
+   fp32 and bf16. Bounds: fp32 out and lse 1e-5; bf16 out 1 bf16 ulp of
+   the reference + 1e-5, lse 1e-5. Then d = 128 cases of #1's fp32/bf16
+   lanes and of #2 at the Llama pack (1, 32, 256, 128), with the usual
+   bounds, and times of the int8 lane (decode, prefill history), the
+   bf16 lane (decode) and #2 (pack), bf16 q; the int8 lane's library
+   yardstick gathers, dequantizes to q's dtype and runs SDPA.
+12. llama_engine -- ``LlamaConfig.llama_7b`` (32 layers, hidden 4096,
+   bf16 params and compute under ``autocast(BF16_FULL)``, random weights
+   from a seed) served by ``ServingEngine(slots=16, max_len=2048,
+   prefill_chunk=256, block_size=16, cache_dtype=int8)``: 48 greedy
+   requests with 16-1536-token prompts and ``max_tokens=64``, then 16
+   that share a 512-token system prompt (three of them also share part
+   of a block: copy-on-write). Launches exactly 32
+   ``paged_attention_int8`` per decode-lane iteration and 32
+   ``paged_attention_int8`` + 32 ``flash_fwd`` per prefill-lane
+   iteration. The oracle (bf16, ``decode`` over a dense int8 cache,
+   teacher-forced on the engine's tokens) reads every step of all 64
+   requests: the first-token logits must agree within ``DLOGIT_BF16``
+   and the engine's token must lie within ``TIE_BF16`` of the oracle's
+   best at every step; printed beside how far bf16 itself moves the
+   logits (bf16 against fp32 compute). Then 16 fresh prompts are served
+   once per fault planted in the int8 lane's inputs (``FAULTS``), and
+   the same bounds must fail each. Then a steady-decode profile and the
+   LM head's per-call fp32 cast against a held fp32 copy.
+13. llama_engine_oracle_fp32 -- the same engine and workload at fp32,
+   full width and 2 layers, all 64 requests against the same oracle:
+   from an fp32 arena under the 1e-4 rule, then from the int8 arena
+   under ``DLOGIT_INT8_FP32``/``TIE_INT8_FP32`` (int8 codes amplify
+   last-bit differences), printed beside the oracle's own int8 noise
+   (its prompt in 256-token chunks against one pass), and the planted
+   faults, which those bounds must fail.
+14. summary -- one ``{"kernels": [...]}`` line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 Any failure exits nonzero before the ``ok`` line. Without a CUDA device,
@@ -225,21 +261,23 @@ def paged_case(gens, device, dtype, *, R, hq, hkv, d, bs, W, n_blocks,
     return q, k, v, tables.to(device), off.to(device)
 
 
-def paged_work(q, k, tables, off):
+def paged_work(q, k, tables, off, int8=False):
     """Bytes and flops the paged call needs on these inputs: every arena
     row some slot attends read once (slots that share pages share the
-    read), q read and out/lse written once; 4 flops per (row, key, head,
-    column) for q.k and p.v."""
+    read; with ``int8`` also its two fp32 scales per kv head), q read and
+    out/lse written once; 4 flops per (row, key, head, column) for q.k
+    and p.v."""
     S, R, hq, d = q.shape
     bs, hkv = k.shape[1], k.shape[2]
     item = q.element_size()
+    row_bytes = hkv * d * k.element_size() + (hkv * 4 if int8 else 0)
     W = tables.shape[1]
     tables, off = tables.long().cpu(), off.long().cpu()
     pos = torch.arange(W * bs)
     seen = pos[None, :] < (off[:, None] + R)               # (S, W*bs)
     rows = tables[:, pos // bs] * bs + pos % bs
     kv_rows = int(torch.unique(rows[seen]).numel())
-    nbytes = (2 * kv_rows * hkv * d * item + 2 * q.numel() * item
+    nbytes = (2 * kv_rows * row_bytes + 2 * q.numel() * item
               + S * hq * R * 4 + tables.numel() * 4 + S * 4)
     keys = (off[:, None] + 1 + torch.arange(R)[None, :]).clamp(0, W * bs)
     return nbytes, 4.0 * int(keys.sum()) * hq * d
@@ -320,6 +358,28 @@ def check_bwd(name, case, dtype, shape, got, want, errs, dead_rows=0):
               f"{name} {case}: dq of rows with no key not 0")
 
 
+def hist_rows(pack, chunk):
+    """Offsets and table owners of the packed prefill's history rows: one
+    row per pack token, reading its request's table up to the request's
+    chunk start - 1 (-1: the chunk starts the prompt); pad rows read slot
+    0's table at -1."""
+    off, slot = [], []
+    for s, n, start in pack:
+        off += [start - 1] * n
+        slot += [s] * n
+    return off + [-1] * (chunk - len(off)), slot + [0] * (chunk - len(slot))
+
+
+def pack_segments(pack, chunk):
+    """The pack's segment ids: each request run's slot, -1 on pads."""
+    seg = np.full(chunk, -1)
+    at = 0
+    for slot, n, _ in pack:
+        seg[at:at + n] = slot
+        at += n
+    return seg
+
+
 class Generators:
     """A generator on the card for tensors and one on the host for block
     permutations, both seeded from one seed."""
@@ -339,15 +399,7 @@ def phase_kernels(device, timer, ops):
     # ---- paged attention ----
     rng = np.random.default_rng(SEED)
     decode_off = rng.integers(3, 511, 16).tolist()   # 16 slots mid-decode
-    # the packed prefill's history rows: one row per pack token, reading
-    # its request's table up to the request's chunk start - 1 (-1: the
-    # chunk starts the prompt); pad rows read slot 0's table at -1
-    hist_off, hist_slot = [], []
-    for slot, n, start in PACK:
-        hist_off += [start - 1] * n
-        hist_slot += [slot] * n
-    hist_off += [-1] * (C - len(hist_off))
-    hist_slot += [0] * (C - len(hist_slot))
+    hist_off, hist_slot = hist_rows(PACK, C)
     main = dict(R=1, hq=12, hkv=12, d=64, bs=16, W=32, n_blocks=513)
     cases = [
         ("decode", dict(main, offsets=decode_off), False),
@@ -394,11 +446,7 @@ def phase_kernels(device, timer, ops):
         max_abs_err_bf16=errs[torch.bfloat16], shape="decode", **timed)
 
     # ---- flash forward ----
-    pack_seg = np.full(C, -1)
-    at = 0
-    for slot, n, _ in PACK:
-        pack_seg[at:at + n] = slot
-        at += n
+    pack_seg = pack_segments(PACK, C)
     skip_seg = np.repeat(np.arange(4), 64)
     skip_seg[-10:] = -1
     skip2 = np.stack([skip_seg, skip_seg])
@@ -480,29 +528,37 @@ def phase_kernels(device, timer, ops):
     return results
 
 
-def time_paged(timer, ops, q, k, v, tbl, off, want_lse):
+def time_paged(timer, ops, q, k, v, tbl, off, want_lse, **scales):
+    """Kernel, plain version, library yardstick (``gather_block_rows`` --
+    and for the int8 lane a dequantize to q's dtype -- then SDPA; never
+    called by the port) and bound."""
     import torch.nn.functional as F
     S, R, hq, d = q.shape
     bs, hkv = k.shape[1], k.shape[2]
     W = tbl.shape[1]
     ms = timer(lambda: ops.paged_attention(q, k, v, tbl, off,
-                                           return_lse=want_lse))
+                                           return_lse=want_lse, **scales))
     plain_ms = timer(lambda: ops.paged_attention_reference(
-        q, k, v, tbl, off, return_lse=want_lse))
+        q, k, v, tbl, off, return_lse=want_lse, **scales))
     kpos = torch.arange(W * bs, device=q.device)
     qpos = off.long()[:, None] + torch.arange(R, device=q.device)[None, :]
     mask = (kpos[None, None, :] <= qpos[:, :, None])[:, None]   # (S,1,R,L)
     g = hq // hkv
 
+    def rows(x, name):
+        x = ops.gather_block_rows(x, tbl)
+        if scales:
+            x = ops.dequantize_int8(x, ops.gather_block_rows(scales[name],
+                                                             tbl), q.dtype)
+        return x.transpose(1, 2)
+
     def library():
-        kk = ops.gather_block_rows(k, tbl).transpose(1, 2)
-        vv = ops.gather_block_rows(v, tbl).transpose(1, 2)
         return F.scaled_dot_product_attention(
-            q.transpose(1, 2), kk, vv, attn_mask=mask,
-            enable_gqa=g > 1)
+            q.transpose(1, 2), rows(k, "k_scale"), rows(v, "v_scale"),
+            attn_mask=mask, enable_gqa=g > 1)
 
     library_ms = timer(library)
-    nbytes, flops = paged_work(q, k, tbl, off)
+    nbytes, flops = paged_work(q, k, tbl, off, int8=bool(scales))
     bound_ms, bound_by = bound(nbytes, flops, q.dtype)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
@@ -542,6 +598,44 @@ def percentile(xs, p):
     return float(np.percentile(np.asarray(xs, np.float64), p))
 
 
+def serve(eng, burst, shared, sp):
+    """The burst, then the shared-prompt batch (its first request caches
+    the system prompt's blocks before the other 15 arrive). Returns the
+    requests and the wall times of each part."""
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, sp) for p in burst]
+    steps = eng.run_until_drained()
+    torch.cuda.synchronize()
+    t_burst = time.perf_counter() - t0
+    it_burst = dict(eng.lane_iters)
+    t1 = time.perf_counter()
+    reqs2 = [eng.submit(shared[0], sp)]
+    while reqs2[0].first_token_s is None:
+        eng.step()
+    reqs2 += [eng.submit(p, sp) for p in shared[1:]]
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    return dict(reqs=reqs, reqs2=reqs2, steps=steps, t_burst=t_burst,
+                it_burst=it_burst, t_shared=time.perf_counter() - t1)
+
+
+def check_launches(phase, counts, iters, layers, paged="paged_attention"):
+    """One launch per layer of ``paged`` (the arena's lane of kernel #1:
+    ``paged_attention`` or ``paged_attention_int8``) per decode- and
+    prefill-lane iteration, of ``flash_fwd`` per prefill-lane iteration,
+    and none of #1's other lane."""
+    other = ({"paged_attention", "paged_attention_int8"} - {paged}).pop()
+    want = {paged: layers * (iters["decode"] + iters["prefill"]),
+            "flash_fwd": layers * iters["prefill"], other: 0}
+    emit(phase=phase, counts=counts, lane_iters=iters, expected=want)
+    for name, n in want.items():
+        check(name == other or counts.get(name, 0) > 0,
+              f"{name} never launched on the main path")
+        check(counts.get(name, 0) == n,
+              f"{phase}: {name}: {counts.get(name, 0)} launches, expected "
+              f"{n} ({layers} layers x lane iterations {iters})")
+
+
 def phase_engine(device, card):
     from hetu_tpu_torch.models import GPTConfig, GPTLMHeadModel, generate
     from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -573,37 +667,14 @@ def phase_engine(device, card):
 
     # ---- the main path: counters zeroed just before, read just after --
     reset_launch_counts()
-    t0 = time.perf_counter()
-    reqs = [eng.submit(p, sp) for p in burst]
-    steps = eng.run_until_drained()
-    torch.cuda.synchronize()
-    t_burst = time.perf_counter() - t0
-    it_burst = dict(eng.lane_iters)
-    # the shared-prompt batch: its first request caches the system
-    # prompt's blocks, the other 15 then map them from the prefix cache
-    t1 = time.perf_counter()
-    reqs2 = [eng.submit(shared[0], sp)]
-    while reqs2[0].first_token_s is None:
-        eng.step()
-    reqs2 += [eng.submit(p, sp) for p in shared[1:]]
-    eng.run_until_drained()
-    torch.cuda.synchronize()
-    t_shared = time.perf_counter() - t1
+    run = serve(eng, burst, shared, sp)
     counts = launch_counts()
     iters = dict(eng.lane_iters)
     # ------------------------------------------------------------------
-
-    L = cfg.num_layers
-    want = {"paged_attention": L * (iters["decode"] + iters["prefill"]),
-            "flash_fwd": L * iters["prefill"]}
-    emit(phase="engine_launches", counts=counts, lane_iters=iters,
-         expected=want)
-    for name, n in want.items():
-        check(counts.get(name, 0) > 0, f"{name} never launched on the "
-                                       f"main path")
-        check(counts.get(name, 0) == n,
-              f"{name}: {counts.get(name, 0)} launches, expected {n} "
-              f"({L} layers x lane iterations {iters})")
+    check_launches("engine_launches", counts, iters, cfg.num_layers)
+    reqs, reqs2 = run["reqs"], run["reqs2"]
+    t_burst, steps, t_shared = run["t_burst"], run["steps"], run["t_shared"]
+    it_burst = run["it_burst"]
 
     bad = [r for r in reqs + reqs2 if r.status != "done"]
     check(not bad, f"{len(bad)} requests did not finish")
@@ -687,18 +758,26 @@ KERNEL_CLASSES = (("paged_attention", "paged_attention"),
                   ("cutlass", "matmul"))
 
 
-def phase_profile(eng, prompts, sp, n_steps: int = 20):
+def phase_profile(eng, prompts, sp, n_steps: int = 20,
+                  phase: str = "engine_profile", classes=KERNEL_CLASSES,
+                  steady_decode: bool = False):
     """Where an engine iteration's time goes: ``torch.profiler`` over
     ``n_steps`` steady iterations with 16 requests in flight (decode and
-    packed prefill mixed). Device busy time is the sum of kernel
-    durations (one stream: kernels do not overlap); the rest of the
-    wall time the card waits on the host. The profiler's own host cost
-    inflates the wall time, so ``ms_per_step`` here is an upper bound."""
+    packed prefill mixed; with ``steady_decode``, after every prompt has
+    been prefilled: the decode lane alone). Device busy time is the sum
+    of kernel durations (one stream: kernels do not overlap); the rest of
+    the wall time the card waits on the host. The profiler's own host
+    cost inflates the wall time, so ``ms_per_step`` here is an upper
+    bound."""
     from torch.profiler import ProfilerActivity, profile
 
     reqs = [eng.submit(p, sp) for p in prompts]
-    for _ in range(4):                       # admissions, first chunks
-        eng.step()
+    if steady_decode:
+        while any(r.first_token_s is None for r in reqs):
+            eng.step()
+    else:
+        for _ in range(4):                   # admissions, first chunks
+            eng.step()
     torch.cuda.synchronize()
     before = dict(eng.lane_iters)
     with profile(activities=[ProfilerActivity.CPU,
@@ -716,10 +795,13 @@ def phase_profile(eng, prompts, sp, n_steps: int = 20):
     busy_ms = sum(by_name.values())
     by_class: dict[str, float] = {}
     for name, ms in by_name.items():
-        cls = next((c for key, c in KERNEL_CLASSES if key in name), "other")
+        cls = next((c for key, c in classes if key in name), "other")
         by_class[cls] = by_class.get(cls, 0.0) + ms / n_steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    emit(phase="engine_profile", steps=n_steps, lane_iterations=lanes,
+    if steady_decode:
+        check(lanes["prefill"] == 0 and lanes["decode"] == n_steps,
+              f"{phase}: the window was not steady decode: {lanes}")
+    emit(phase=phase, steps=n_steps, lane_iterations=lanes,
          ms_per_step=wall_ms / n_steps,
          device_kernels_per_step=n_kernels / n_steps,
          device_busy_ms_per_step=busy_ms / n_steps if busy_ms else None,
@@ -1301,6 +1383,602 @@ def phase_fused_kernel_times(device, timer, ops, b, results):
          "these functions)")
 
 
+# -- Llama-7B served from the int8 KV arena ----------------------------------
+
+#: the Llama engine (ServingEngine(slots=16, max_len=2048,
+#: prefill_chunk=256, block_size=16, cache_dtype=int8))
+LLAMA_SLOTS, LLAMA_MAX_LEN, LLAMA_CHUNK, LLAMA_BLOCK = 16, 2048, 256, 16
+#: one packed prefill chunk of the Llama engine: (slot, tokens, chunk start)
+#: per request run -- a sixth chunk of a long prompt, a new prompt, a
+#: second chunk -- then 16 pad tokens
+LLAMA_PACK = ((3, 100, 1280), (7, 60, 0), (0, 80, 256))
+#: the int8 lane against its plain version: fp32 out and lse (both
+#: dequantize and sum in fp32; only the order differs) and the bf16-q lse
+INT8_TOL = 1e-5
+#: bf16-q out: at most 1 bf16 ulp of the reference value (the final
+#: rounding of two fp32 sums taken in different orders) plus this, for
+#: values near 0
+INT8_BF16_ABS = 1e-5
+#: The Llama oracles hold every greedy token of the engine to the dense
+#: oracle teacher-forced on the engine's own tokens (``oracle``). A
+#: step's SHORTFALL is the oracle's best logit minus its logit of the
+#: engine's token: 0 where they agree, the oracle's top-2 gap where the
+#: engine took the runner-up. A run passes when its largest first-token
+#: |dlogit| is within the DLOGIT bound and its largest shortfall is
+#: below the TIE bound. fp32 from an fp32 arena: the GPT-2 engine's
+#: near-tie rule, 1e-4, at every step.
+TIE_FP32 = 1e-4
+#: fp32 from the int8 arena (2 layers) and bf16 from it at full depth
+#: (where the engine and the oracle run other cuBLAS kernels, dequantize
+#: the history in fp32 and in bf16, and 32 random-weight layers amplify
+#: bf16 rounding): each bound lies between the sound run's reading and the smallest
+#: reading of a planted fault (``FAULTS``). This script read, on an
+#: NVIDIA H100 80GB HBM3 at 700 W: fp32 sound |dlogit| 0.0065 and
+#: shortfall 0.0038, faults 2.60 and 2.33 at the least; bf16 sound 0.432
+#: and 0.438, faults 6.07 and 5.95 at the least
+DLOGIT_INT8_FP32 = 0.01
+TIE_INT8_FP32 = 0.02
+DLOGIT_BF16 = 0.5
+TIE_BF16 = 1.0
+#: faults planted in the int8 lane's inputs on the engine path (the
+#: kernel and the model are untouched) to show that each oracle fails a
+#: wrong lane: the k/v scales of the next kv head, and the last block
+#: of every query's history dropped
+FAULTS = ("scales_of_next_kv_head", "last_history_block_dropped")
+
+
+def int8_arena(k, v, ops, zero_rows: int = 0, poison: bool = False):
+    """Quantize a fp arena into (codes, scales) per (row, kv head), as the
+    engine writes it. ``zero_rows``: every ``zero_rows``-th arena row gets
+    scale 0 (a never-written row: it must dequantize to exactly 0).
+    ``poison``: the null block 0 (only pad lanes map it) gets extreme
+    codes and scales, which must stay masked."""
+    kq, ks = ops.quantize_int8(k)
+    vq, vs = ops.quantize_int8(v)
+    if zero_rows:
+        for s in (ks, vs):
+            s.view(-1, s.shape[2])[::zero_rows] = 0.0
+    if poison:
+        kq[0], vq[0] = 127, -127
+        ks[0], vs[0] = 1e3, 1e3
+    return kq, ks, vq, vs
+
+
+def check_int8(name, q, out, lse, ref_o, ref_l):
+    """Hold the int8 lane to its plain version: fp32 q within INT8_TOL,
+    bf16 q within 1 ulp + INT8_BF16_ABS (out) and INT8_TOL (lse)."""
+    torch.cuda.synchronize()
+    lse_err = max_err(lse, ref_l)
+    if q.dtype == torch.float32:
+        err = max(max_err(out, ref_o), lse_err)
+        ratio = err / INT8_TOL
+        bound_txt = INT8_TOL
+    else:
+        lim = ulp(ref_o, torch.bfloat16) + INT8_BF16_ABS
+        err = max_err(out, ref_o)
+        ratio = max(float(((out.float() - ref_o.float()).abs() / lim).max()),
+                    lse_err / INT8_TOL)
+        bound_txt = "1 bf16 ulp + 1e-5 (out), 1e-5 (lse)"
+    tag = str(q.dtype).split(".")[1]
+    emit(phase="kernel", kernel="paged_attention_int8", case=name, dtype=tag,
+         shape=list(q.shape), max_abs_err=err, lse_err=lse_err,
+         bound=bound_txt, worst_share_of_bound=ratio, ok=ratio <= 1.0)
+    check(ratio <= 1.0, f"paged int8 {name} {tag}: {ratio} of its bound "
+                        f"(max abs err {err}, lse {lse_err})")
+    return err
+
+
+def phase_llama_kernels(device, timer, ops, results):
+    """Kernel #1's int8 lane against its plain version at the Llama
+    engine's shapes (decode q (16, 1, 32, 128), prefill history q (256,
+    1, 32, 128), the (2049, 16, 32, 128) int8 arena) and at edge shapes
+    (GQA, R = 3, offsets of -1, zero-scale rows, a poisoned null block),
+    q fp32 and bf16; then the d = 128 cases of the fp/bf16 lanes of #1
+    and of the flash forward #2 at the packed prefill's shape. Times:
+    the int8 lane at the decode timing case (16 slots x 1024 live
+    positions) and the prefill history, the bf16 lane at the same decode
+    case, the flash forward at the pack in bf16. Adds the int8 entry to
+    ``results`` and the d = 128 times to #1's and #2's."""
+    gens = Generators(device, SEED + 4)
+    rng = np.random.default_rng(SEED + 4)
+    W = LLAMA_MAX_LEN // LLAMA_BLOCK
+    n_blocks = 1 + LLAMA_SLOTS * W
+    main = dict(R=1, hq=32, hkv=32, d=128, bs=LLAMA_BLOCK, W=W,
+                n_blocks=n_blocks)
+    hist_off, hist_slot = hist_rows(LLAMA_PACK, LLAMA_CHUNK)
+    cases = [
+        ("decode_1024", dict(main, offsets=[1023] * LLAMA_SLOTS), False,
+         dict()),
+        ("decode_ragged", dict(main, offsets=rng.integers(
+            3, LLAMA_MAX_LEN - 1, LLAMA_SLOTS).tolist()), False,
+         dict(zero_rows=97, poison=True)),
+        ("prefill_history", dict(main, offsets=hist_off,
+                                 row_slot=hist_slot), True, dict()),
+        ("gqa4_R3_empty_rows", dict(R=3, hq=32, hkv=8, d=128, bs=16, W=8,
+                                    n_blocks=41,
+                                    offsets=[-1, 0, 17, 60, 124]), True,
+         dict(zero_rows=5, poison=True)),
+    ]
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    timed = {}
+    for name, kw, want_lse, arena_kw in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, tbl, off = paged_case(gens, device, torch.float32, **kw)
+            q = q.to(dtype)
+            kq, ks, vq, vs = int8_arena(k, v, ops, **arena_kw)
+            del k, v
+            sc = dict(k_scale=ks, v_scale=vs)
+            out, lse = ops.paged_attention(q, kq, vq, tbl, off,
+                                           return_lse=True, **sc)
+            ref_o, ref_l = ops.paged_attention_reference(
+                q, kq, vq, tbl, off, return_lse=True, **sc)
+            errs[dtype] = max(errs[dtype],
+                              check_int8(name, q, out, lse, ref_o, ref_l))
+            dead = off < 0
+            if bool(dead.any()):
+                check(bool((out[dead][:, 0] == 0).all())
+                      and bool((lse[dead][:, :, 0] == ops.NEG_INF).all()),
+                      f"paged int8 {name}: empty-history rows not 0/-1e30")
+            del out, lse, ref_o, ref_l
+            if dtype == torch.bfloat16 and name in ("decode_1024",
+                                                     "prefill_history"):
+                t = time_paged(timer, ops, q, kq, vq, tbl, off, want_lse,
+                               k_scale=ks, v_scale=vs)
+                emit(phase="kernel_time", kernel="paged_attention_int8",
+                     case=name, dtype="bfloat16", shape=list(q.shape), **t)
+                timed[name] = t
+            del q, kq, vq, ks, vs
+            gc.collect()
+            torch.cuda.empty_cache()
+    results["paged_attention_int8"] = dict(
+        name="paged_attention_int8", route="cuda",
+        source="hetu_tpu_torch/csrc/paged_attention.cu",
+        replaces="hetu_tpu/ops/paged_pallas.py:86", lane="int8 (:123-127)",
+        max_abs_err=errs[torch.float32],
+        max_abs_err_bf16=errs[torch.bfloat16], shape="decode_1024 bf16",
+        **timed["decode_1024"],
+        **{f"prefill_history_{k}": v
+           for k, v in timed["prefill_history"].items()})
+
+    # ---- the fp/bf16 lanes of #1 at d = 128 ----
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, kw in (("decode_1024_d128",
+                          dict(main, offsets=[1023] * LLAMA_SLOTS)),
+                         ("gqa4_R3_d128", cases[3][1])):
+            q, k, v, tbl, off = paged_case(gens, device, dtype, **kw)
+            out, lse = ops.paged_attention(q, k, v, tbl, off,
+                                           return_lse=True)
+            ref_o, ref_l = ops.paged_attention_reference(
+                q, k, v, tbl, off, return_lse=True)
+            torch.cuda.synchronize()
+            err = max(max_err(out, ref_o), max_err(lse, ref_l))
+            tag = str(dtype).split(".")[1]
+            emit(phase="kernel", kernel="paged_attention", case=name,
+                 dtype=tag, shape=list(q.shape), max_abs_err=err,
+                 bound=TOL[dtype], ok=err <= TOL[dtype])
+            check(err <= TOL[dtype], f"paged {name} {tag}: max abs err "
+                                     f"{err} > {TOL[dtype]}")
+            if dtype == torch.bfloat16 and name == "decode_1024_d128":
+                t = time_paged(timer, ops, q, k, v, tbl, off, False)
+                emit(phase="kernel_time", kernel="paged_attention",
+                     case=name, dtype="bfloat16", shape=list(q.shape), **t)
+                results["paged_attention"].update(
+                    {f"d128_decode_bf16_{k}": v for k, v in t.items()})
+            del q, k, v, out, lse, ref_o, ref_l
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the flash forward (#2) at the Llama pack, d = 128 ----
+    pack_seg = pack_segments(LLAMA_PACK, LLAMA_CHUNK)
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, kw in (
+                ("llama_packed_prefill", dict(b=1, hq=32, hkv=32,
+                                              s=LLAMA_CHUNK, d=128,
+                                              seg=pack_seg)),
+                ("gqa4_pads_d128", dict(b=1, hq=32, hkv=8, s=LLAMA_CHUNK,
+                                        d=128, seg=pack_seg))):
+            q, k, v, seg = flash_case(gens, device, dtype, **kw)
+            scale = q.shape[-1] ** -0.5
+            out, lse = ops.flash_attention_fwd(q, k, v, seg, seg,
+                                               causal=True, scale=scale)
+            ref_o, ref_l = ops.flash_attention_fwd_reference(
+                q, k, v, seg, seg, causal=True, scale=scale)
+            torch.cuda.synchronize()
+            err = max(max_err(out, ref_o), max_err(lse, ref_l))
+            tag = str(dtype).split(".")[1]
+            emit(phase="kernel", kernel="flash_fwd", case=name, dtype=tag,
+                 shape=list(q.shape), max_abs_err=err, bound=TOL[dtype],
+                 ok=err <= TOL[dtype])
+            check(err <= TOL[dtype], f"flash {name} {tag}: max abs err "
+                                     f"{err} > {TOL[dtype]}")
+            if dtype == torch.bfloat16 and name == "llama_packed_prefill":
+                t = time_flash(timer, ops, q, k, v, seg, scale)
+                emit(phase="kernel_time", kernel="flash_fwd", case=name,
+                     dtype="bfloat16", shape=list(q.shape), **t)
+                results["flash_fwd"].update(
+                    {f"d128_prefill_bf16_{k}": v for k, v in t.items()})
+
+
+def llama_workload(vocab: int, seed: int = SEED):
+    """48 prompts of 16-1536 tokens, then 16 that share a 512-token
+    system prompt. Three of the 16 (a follow-up turn) also repeat the
+    first 1-15 tokens of one of the first request's later blocks, so
+    their prefix hit ends inside a block: the engine maps it through a
+    copy-on-write of that block."""
+    rng = np.random.default_rng(seed)
+    burst = [rng.integers(0, vocab, int(n)).tolist()
+             for n in rng.integers(16, 1537, 48)]
+    system = rng.integers(0, vocab, 512).tolist()
+    lens = rng.integers(16, 257, 16)
+    lens[0] = max(int(lens[0]), 64)        # 4+ whole blocks past the system
+    shared = [system + rng.integers(0, vocab, int(lens[0])).tolist()]
+    for i in range(1, 16):
+        keep = 512
+        if i in (4, 8, 12):
+            keep += 16 * (i // 4 - 1) + int(rng.integers(1, 16))
+        shared.append(shared[0][:keep]
+                      + rng.integers(0, vocab, int(lens[i])).tolist())
+    return burst, shared
+
+
+@torch.no_grad()
+def forced_logits(model, prompt, tokens, cache_dtype):
+    """The dense oracle teacher-forced on ``tokens``: ``decode`` over a
+    dense cache of ``cache_dtype`` (plain attention, no kernel) with the
+    prompt and every token but the last, ``LLAMA_CHUNK`` tokens at a
+    time. Returns the fp32 logits the oracle chooses each of ``tokens``
+    from, ``(len(tokens), V)``; row 0 follows the prompt alone."""
+    from hetu_tpu_torch.models import decode, init_kv_caches
+    seq = list(prompt) + list(tokens[:-1])
+    ids = torch.tensor([seq], device=model.device)
+    caches = init_kv_caches(model, 1, len(seq), cache_dtype)
+    first, rows = len(prompt) - 1, []
+    for lo in range(0, len(seq), LLAMA_CHUNK):
+        hi = min(len(seq), lo + LLAMA_CHUNK)
+        pos = torch.arange(lo, hi, device=model.device)[None]
+        logits = decode(model, ids[:, lo:hi], pos, caches)
+        if hi > first:
+            rows.append(logits[0, max(first - lo, 0):])
+    return torch.cat(rows)
+
+
+def oracle(model, reqs, new_tokens, vocab, cache_dtype=torch.int8):
+    """Each request's greedy tokens against ``forced_logits`` on them.
+    Returns the largest first-token |dlogit| (the engine's recorded
+    logits against the oracle's row 0), the largest shortfall over every
+    step (see TIE_FP32) and where it fell, the share of steps at which
+    the engine's token is the oracle's best, and how many requests agree
+    at every step."""
+    dlogit, worst, where, agree, identical = 0.0, 0.0, None, 0, 0
+    for r in reqs:
+        got = list(r.tokens)
+        check(len(got) == new_tokens and all(0 <= t < vocab for t in got),
+              f"request {r.id}: bad token list")
+        check(r.first_logits is not None
+              and bool(torch.isfinite(r.first_logits).all()),
+              f"request {r.id}: no finite first-token logits recorded")
+        logits = forced_logits(model, r.prompt.tolist(), got, cache_dtype)
+        check(bool(torch.isfinite(logits).all()),
+              f"request {r.id}: non-finite oracle logits")
+        dlogit = max(dlogit, max_err(r.first_logits, logits[0]))
+        idx = torch.tensor(got, device=logits.device)[:, None]
+        short = logits.max(dim=-1).values - logits.gather(1, idx)[:, 0]
+        step = int(short.argmax())
+        if float(short[step]) > worst:
+            worst, where = float(short[step]), dict(request=r.id, step=step)
+        agree += int((short == 0).sum())
+        identical += bool((short == 0).all())
+    return dict(requests=len(reqs), identical=identical,
+                agree_share=agree / (new_tokens * len(reqs)),
+                first_token_max_abs_dlogit=dlogit, max_shortfall=worst,
+                max_shortfall_at=where)
+
+
+def held(reading, dlogit_bound, tie_bound) -> bool:
+    return (reading["first_token_max_abs_dlogit"] <= dlogit_bound
+            and reading["max_shortfall"] < tie_bound)
+
+
+def check_held(name, reading, dlogit_bound, tie_bound):
+    check(held(reading, dlogit_bound, tie_bound),
+          f"{name}: first-token |dlogit| "
+          f"{reading['first_token_max_abs_dlogit']} (bound {dlogit_bound}),"
+          f" largest shortfall {reading['max_shortfall']} at "
+          f"{reading['max_shortfall_at']} (bound {tie_bound})")
+
+
+@contextlib.contextmanager
+def planted(fault):
+    """Plant ``fault`` (one of FAULTS) in every call of the int8 lane the
+    model makes; the fp lanes pass untouched."""
+    import hetu_tpu_torch.nn.parallel as par
+    real = par.paged_attention
+
+    def faulty(q, k, v, tables, offsets, *, k_scale=None, v_scale=None,
+               **kw):
+        if k_scale is not None and fault == "scales_of_next_kv_head":
+            k_scale, v_scale = k_scale.roll(1, 2), v_scale.roll(1, 2)
+        elif k_scale is not None:
+            offsets = offsets - LLAMA_BLOCK
+        return real(q, k, v, tables, offsets, k_scale=k_scale,
+                    v_scale=v_scale, **kw)
+
+    par.paged_attention = faulty
+    try:
+        yield
+    finally:
+        par.paged_attention = real
+
+
+def fault_readings(model, engine_kw, bounds, phase, cache_dtype):
+    """Serve 16 fresh multi-chunk prompts (257-1536 tokens, 16 new
+    tokens each) once per planted fault and read each run against
+    ``oracle``. Returns, per fault, whether the bounds that the sound
+    run must pass fail it."""
+    from hetu_tpu_torch.serving import SamplingParams, ServingEngine
+    rng = np.random.default_rng(SEED + 5)
+    vocab, new = model.cfg.vocab_size, 16
+    prompts = [rng.integers(0, vocab, int(n)).tolist()
+               for n in rng.integers(LLAMA_CHUNK + 1,
+                                     LLAMA_MAX_LEN * 3 // 4 + 1, 16)]
+    caught = {}
+    for fault in FAULTS:
+        t0 = time.perf_counter()
+        eng = ServingEngine(model, **engine_kw)
+        with planted(fault):
+            reqs = [eng.submit(p, SamplingParams(max_tokens=new))
+                    for p in prompts]
+            eng.run_until_drained()
+        check(all(r.status == "done" for r in reqs),
+              f"{phase} {fault}: requests unfinished")
+        got = oracle(model, reqs, new, vocab, cache_dtype)
+        caught[fault] = not held(got, *bounds)
+        emit(phase=phase, fault=fault, **got, dlogit_bound=bounds[0],
+             tie_bound=bounds[1], caught=caught[fault],
+             seconds=time.perf_counter() - t0)
+        del eng, reqs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return caught
+
+
+def bf16_noise(model, reqs, device):
+    """How far bf16 itself moves this model's first-token logits: batch-1
+    ``generate`` under ``BF16_FULL`` against the same bf16 weights
+    computed in fp32 (``FP32`` casts them exactly), both from a dense
+    int8 cache. Returns the largest |dlogit| and the mean std of the
+    fp32 first-token logits over ``reqs``."""
+    from hetu_tpu_torch.core import BF16_FULL, FP32, autocast
+    from hetu_tpu_torch.models import generate
+    worst, stds = 0.0, []
+    for r in reqs:
+        got = {}
+        for name, policy in (("bf16", BF16_FULL), ("fp32", FP32)):
+            with autocast(policy):
+                _, lg = generate(model, [r.prompt.tolist()],
+                                 max_new_tokens=1, device=device,
+                                 return_logits=True, cache_dtype=torch.int8)
+            got[name] = lg[0, 0]
+        worst = max(worst, max_err(got["bf16"], got["fp32"]))
+        stds.append(float(got["fp32"].std()))
+    return worst, float(np.mean(stds))
+
+
+def phase_llama_engine(device, card, timer):
+    """Llama-7B (bf16 params and compute, random weights from a seed)
+    served from the int8 KV arena; the launch counters are zeroed just
+    before the main path and read just after. Then its oracle, its
+    profile and the LM head's cast."""
+    import torch.nn.functional as F
+    from hetu_tpu_torch.core import BF16_FULL, autocast
+    from hetu_tpu_torch.models import LlamaConfig, LlamaLMHeadModel
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.serving import SamplingParams, ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = LlamaConfig.llama_7b()
+    t0 = time.perf_counter()
+    model = LlamaLMHeadModel(cfg, device=device, dtype=torch.bfloat16,
+                             seed=SEED).eval()
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    engine_kw = dict(slots=LLAMA_SLOTS, max_len=LLAMA_MAX_LEN,
+                     prefill_chunk=LLAMA_CHUNK, block_size=LLAMA_BLOCK,
+                     cache_dtype=torch.int8, seed=SEED, device=device,
+                     record_first_logits=True)
+    eng = ServingEngine(model, **engine_kw)
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    emit(phase="llama_engine_setup", config="LlamaConfig.llama_7b",
+         dtype="bfloat16", cache_dtype="int8", layers=cfg.num_layers,
+         hidden=cfg.hidden_size, heads=cfg.num_heads,
+         kv_heads=cfg.num_kv_heads or cfg.num_heads,
+         intermediate=cfg.intermediate_size, vocab=cfg.vocab_size,
+         slots=LLAMA_SLOTS, max_len=LLAMA_MAX_LEN,
+         prefill_chunk=LLAMA_CHUNK, block_size=LLAMA_BLOCK,
+         kv_blocks=eng.pool.n_blocks, arena_bytes=eng.pool.nbytes(),
+         weight_bytes=weight_bytes, init_seconds=t_init,
+         seconds=time.perf_counter() - t0)
+    check(eng.pool.quantized, "the Llama engine's arena is not int8")
+    burst, shared = llama_workload(cfg.vocab_size)
+    new = 64
+    sp = SamplingParams(max_tokens=new)
+
+    with autocast(BF16_FULL):
+        warm = ServingEngine(model, slots=2, max_len=LLAMA_MAX_LEN,
+                             prefill_chunk=LLAMA_CHUNK,
+                             block_size=LLAMA_BLOCK, cache_dtype=torch.int8,
+                             device=device)
+        warm.generate_many([burst[0][:300]], SamplingParams(max_tokens=3))
+        del warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        # ---- the main path: counters zeroed just before, read after ----
+        reset_launch_counts()
+        run = serve(eng, burst, shared, sp)
+        counts = launch_counts()
+        iters = dict(eng.lane_iters)
+        # ---------------------------------------------------------------
+    check_launches("llama_engine_launches", counts, iters, cfg.num_layers,
+                   paged="paged_attention_int8")
+    reqs, reqs2 = run["reqs"], run["reqs2"]
+    bad = [r for r in reqs + reqs2 if r.status != "done"]
+    check(not bad, f"{len(bad)} requests did not finish")
+    gen_tokens = sum(len(r.tokens) for r in reqs)
+    timings = [r.timing() for r in reqs]
+    ttft = [t["ttft_ms"] for t in timings]
+    tpot = [t["decode_ms"] / (len(r.tokens) - 1)
+            for t, r in zip(timings, reqs) if len(r.tokens) > 1]
+    hits = sum(r.cached_tokens for r in reqs2)
+    emit(phase="llama_engine", card=card,
+         burst_requests=len(reqs),
+         burst_prompt_tokens=sum(len(p) for p in burst),
+         burst_generated_tokens=gen_tokens,
+         burst_seconds=run["t_burst"],
+         burst_tokens_per_s=gen_tokens / run["t_burst"],
+         burst_steps=run["steps"],
+         burst_ms_per_step=run["t_burst"] / run["steps"] * 1e3,
+         burst_lane_iterations=run["it_burst"],
+         ttft_samples=len(ttft), tpot_samples=len(tpot),
+         ttft_ms_p50=percentile(ttft, 50), ttft_ms_p99=percentile(ttft, 99),
+         tpot_ms_p50=percentile(tpot, 50), tpot_ms_p99=percentile(tpot, 99),
+         shared_requests=len(reqs2), shared_prefix_hit_tokens=hits,
+         shared_cow_hits=sum(1 for r in reqs2
+                             if r.cached_tokens % LLAMA_BLOCK),
+         shared_seconds=run["t_shared"],
+         shared_tokens_per_s=sum(len(r.tokens) for r in reqs2)
+         / run["t_shared"],
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    check(hits >= 15 * 512, f"shared-prompt batch hit only {hits} cached "
+                            f"tokens")
+
+    # ---- the oracle: the dense int8 oracle teacher-forced on every
+    # request, bf16; then the same oracle against planted faults ----
+    t0 = time.perf_counter()
+    bounds = (DLOGIT_BF16, TIE_BF16)
+    with autocast(BF16_FULL):
+        sound = oracle(model, reqs + reqs2, new, cfg.vocab_size)
+    longest = sorted(reqs, key=lambda r: len(r.prompt))[-4:]
+    noise, std = bf16_noise(model, longest, device)
+    emit(phase="llama_engine_oracle", dtype="bfloat16", **sound,
+         dlogit_bound=DLOGIT_BF16, tie_bound=TIE_BF16,
+         bf16_vs_fp32_compute_max_abs_dlogit=noise, first_logit_std=std,
+         seconds=time.perf_counter() - t0)
+    with autocast(BF16_FULL):
+        caught = fault_readings(model, engine_kw, bounds,
+                                "llama_engine_oracle_fault", torch.int8)
+    check_held("bf16 engine against the oracle", sound, *bounds)
+    for fault, seen in caught.items():
+        check(seen, f"the bf16 oracle passes a planted fault of the int8 "
+                    f"lane ({fault})")
+
+    with autocast(BF16_FULL):
+        # 96 tokens each, so no request ends inside the window
+        phase_profile(eng, burst[:LLAMA_SLOTS],
+                      SamplingParams(max_tokens=96),
+                      phase="llama_engine_profile", classes=LLAMA_CLASSES,
+                      steady_decode=True)
+
+    # ---- the LM head: fp32 logits from a per-call cast of the bf16
+    # weight (JAX's numerics, what the model runs) against a held fp32
+    # copy, at the decode lane's shape ----
+    h = torch.randn(LLAMA_SLOTS, cfg.hidden_size, device=device,
+                    dtype=torch.bfloat16)
+    w = model.head_weight()
+    w32 = w.float()
+    cast_ms = timer(lambda: F.linear(h.float(), w.float()))
+    held_ms = timer(lambda: F.linear(h.float(), w32))
+    same = torch.equal(F.linear(h.float(), w.float()),
+                       F.linear(h.float(), w32))
+    emit(phase="llama_lm_head", shape=[LLAMA_SLOTS, cfg.hidden_size,
+                                       cfg.vocab_size],
+         per_call_cast_ms=cast_ms, held_fp32_copy_ms=held_ms,
+         held_copy_bytes=w32.numel() * 4, identical=same)
+    check(same, "the held fp32 head copy changes the logits")
+    del w32, h, eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_llama_oracle_fp32(device):
+    """The same engine and workload at fp32 and full width with 2 layers,
+    every request against ``oracle``: first from an fp32 arena under the
+    1e-4 rule, then from the int8 arena under DLOGIT_INT8_FP32 /
+    TIE_INT8_FP32, with the planted faults read against the same bounds.
+    Rounding in the int8 lane's inputs is amplified: fp32 k/v that differ
+    in the last bits (the engine's packs and the oracle run other matmul
+    shapes) flip codes by one step. That noise, measured without the
+    engine, is printed beside: the oracle's first-token logits with the
+    prompt in 256-token chunks against ``generate``'s one pass."""
+    import dataclasses
+    from hetu_tpu_torch.models import LlamaConfig, LlamaLMHeadModel, generate
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.serving import SamplingParams, ServingEngine
+
+    cfg = dataclasses.replace(LlamaConfig.llama_7b(), num_layers=2)
+    model = LlamaLMHeadModel(cfg, device=device, seed=SEED).eval()
+    burst, shared = llama_workload(cfg.vocab_size)
+    new = 64
+    for cache_dtype in (torch.float32, torch.int8):
+        int8 = cache_dtype == torch.int8
+        tag = str(cache_dtype).split(".")[1]
+        t0 = time.perf_counter()
+        engine_kw = dict(slots=LLAMA_SLOTS, max_len=LLAMA_MAX_LEN,
+                         prefill_chunk=LLAMA_CHUNK, block_size=LLAMA_BLOCK,
+                         cache_dtype=cache_dtype, seed=SEED, device=device,
+                         record_first_logits=True)
+        eng = ServingEngine(model, **engine_kw)
+        reset_launch_counts()
+        run = serve(eng, burst, shared, SamplingParams(max_tokens=new))
+        check_launches(f"llama_fp32_{tag}_launches", launch_counts(),
+                       dict(eng.lane_iters), cfg.num_layers,
+                       paged="paged_attention_int8" if int8
+                       else "paged_attention")
+        reqs = run["reqs"] + run["reqs2"]
+        check(all(r.status == "done" for r in reqs),
+              f"fp32 requests unfinished ({tag} arena)")
+        del eng, run
+        sound = oracle(model, reqs, new, cfg.vocab_size, cache_dtype)
+        bounds = (DLOGIT_INT8_FP32, TIE_INT8_FP32) if int8 \
+            else (TIE_FP32, TIE_FP32)
+        line = dict(phase="llama_engine_oracle_fp32", dtype="float32",
+                    cache_dtype=tag, layers=cfg.num_layers, **sound,
+                    dlogit_bound=bounds[0], tie_bound=bounds[1])
+        caught = {}
+        if int8:
+            multi = [r for r in reqs if len(r.prompt) > LLAMA_CHUNK][:8]
+            line["oracle_chunked_vs_one_pass_max_abs_dlogit"] = max(
+                max_err(forced_logits(model, r.prompt.tolist(), [0],
+                                      torch.int8)[0],
+                        generate(model, [r.prompt.tolist()],
+                                 max_new_tokens=1, device=device,
+                                 return_logits=True,
+                                 cache_dtype=torch.int8)[1][0, 0])
+                for r in multi)
+        emit(**line, seconds=time.perf_counter() - t0)
+        if int8:
+            caught = fault_readings(model, engine_kw, bounds,
+                                    "llama_engine_oracle_fp32_fault",
+                                    torch.int8)
+        check_held(f"fp32 engine ({tag} arena) against the oracle", sound,
+                   *bounds)
+        for fault, seen in caught.items():
+            check(seen, f"the fp32 oracle passes a planted fault of the "
+                        f"int8 lane ({fault})")
+        del reqs
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+LLAMA_CLASSES = KERNEL_CLASSES + (("nvjet", "matmul"),)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1349,6 +2027,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_fused_kernel_times(device, timer, ops, batch, kernels)
+    phase_llama_kernels(device, timer, ops, kernels)
+    paths["llama_engine"] = phase_llama_engine(device, smi, timer)
+    phase_llama_oracle_fp32(device)
     del timer
     for name, entry in kernels.items():
         entry["launches_by_path"] = {p: c.get(name, 0)
@@ -1357,7 +2038,7 @@ def main() -> int:
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
-    line = [{**{k: e[k] for k in order},
+    line = [{**{k: e.get(k) for k in order},
              **{k: v for k, v in e.items() if k not in order}}
             for e in kernels.values()]
     print(smi, flush=True)

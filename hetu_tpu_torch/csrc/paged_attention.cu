@@ -10,14 +10,22 @@
 // negative (an empty history: the packed prefill passes hist - 1 = -1)
 // attends nothing and gives out = 0, lse = -1e30, so the LSE-combine gives
 // it weight 0. Table lanes padded with the null block lie past every live
-// position and stay masked. The int8 arena lane of the TPU kernel is not
-// ported.
+// position and stay masked.
+//
+// Arena lanes: fp32 or bf16 like q (hetu_paged_attention), or int8 codes
+// with an fp32 scale per (arena row, kv head) in separate (n_blocks, bs,
+// hkv, 1) arrays (hetu_paged_attention_int8, the TPU kernel's quant lane,
+// :99-103 and :123-127). The int8 lane dequantizes each element as it is
+// staged, float(code) * scale in fp32, exactly as the TPU kernel
+// dequantizes its tile; everything after staging is the same fp32 code
+// for every lane. A row never written has scale 0 and dequantizes to 0.
 //
 // What bounds it on an H100: bytes from HBM. A (slot, kv head) reads its
-// live K and V rows once -- 2 * context * d * itemsize bytes -- and does
-// 4 * (R * g) * context * d flops on them; for GPT-2 decode (R * g = 1)
-// that is 0.5 flop per fp32 byte, far below the ~20 where the fp32 CUDA
-// cores would become the limit.
+// live K and V rows once -- 2 * context * d * itemsize bytes, plus 8 bytes
+// of scales per row in the int8 lane -- and does 4 * (R * g) * context * d
+// flops on them; for decode (R * g = 1) that is at most 2 flops per int8
+// byte, far below the ~20 where the fp32 CUDA cores would become the
+// limit. The int8 lane reads a quarter of the fp32 lane's bytes.
 //
 // Design in response: one block per (slot, kv head, 16-row chunk), so a
 // K/V tile loaded once from HBM serves every q head of the GQA group and
@@ -28,7 +36,8 @@
 // stops at the block's last live position, min(W * bs, q_offset[s] +
 // last row + 1) keys -- the dead-lane skip: cost follows the live context,
 // not the table width -- and a row skips the tiles past its own position.
-// Keys are staged 32 at a time in shared memory, whatever the page size.
+// Keys are staged 32 at a time in shared memory (fp32, whatever the arena
+// type), whatever the page size.
 
 #include "attention_common.cuh"
 
@@ -36,10 +45,29 @@ namespace {
 
 using namespace hetu;
 
-template <typename T>
+// One arena element as fp32: fp lanes convert, the int8 lane multiplies
+// the code by its row's scale (index si = arena row * hkv + kv head).
+__device__ __forceinline__ float load_kv(const float* p, const float*,
+                                         size_t i, size_t) {
+  return p[i];
+}
+__device__ __forceinline__ float load_kv(const __nv_bfloat16* p,
+                                         const float*, size_t i, size_t) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ float load_kv(const int8_t* p,
+                                         const float* __restrict__ scale,
+                                         size_t i, size_t si) {
+  return (float)p[i] * scale[si];
+}
+
+// T: q and out; KV: the arena (T itself, or int8 with k_scale/v_scale)
+template <typename T, typename KV>
 __global__ void __launch_bounds__(kWarps * 32)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v,
+paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+                       const KV* __restrict__ v,
+                       const float* __restrict__ k_scale,
+                       const float* __restrict__ v_scale,
                        const int* __restrict__ tables,
                        const int* __restrict__ q_offset, T* __restrict__ out,
                        float* __restrict__ lse, int R, int hq, int hkv, int d,
@@ -85,10 +113,11 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = e / d, c = e - j * d, kp = k0 + j;
       float kx = 0.f, vx = 0.f;
       if (kp < n_keys) {
-        const size_t src = ((size_t)table[kp / bs] * bs + kp % bs) * key_stride +
-                           (size_t)h * d + c;
-        kx = to_float(k[src]);
-        vx = to_float(v[src]);
+        const size_t row = (size_t)table[kp / bs] * bs + kp % bs;
+        const size_t src = row * key_stride + (size_t)h * d + c;
+        const size_t si = row * hkv + h;
+        kx = load_kv(k, k_scale, src, si);
+        vx = load_kv(v, v_scale, src, si);
       }
       ks[j * ld + c] = kx;
       vs[j * ld + c] = vx;
@@ -117,18 +146,20 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* tables,
-           const void* q_offset, void* out, void* lse, int S, int R, int hq,
-           int hkv, int d, int bs, int W, float scale, cudaStream_t stream) {
+template <typename T, typename KV>
+int launch(const void* q, const void* k, const void* v, const void* k_scale,
+           const void* v_scale, const void* tables, const void* q_offset,
+           void* out, void* lse, int S, int R, int hq, int hkv, int d, int bs,
+           int W, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(d);
-  cudaError_t err = allow_smem(paged_attention_kernel<T>, smem);
+  cudaError_t err = allow_smem(paged_attention_kernel<T, KV>, smem);
   if (err != cudaSuccess) return (int)err;
   const int rows = R * (hq / hkv);
   const dim3 grid(S, hkv, (rows + kRows - 1) / kRows);
-  paged_attention_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(tables),
+  paged_attention_kernel<T, KV><<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(tables),
       static_cast<const int*>(q_offset), static_cast<T*>(out),
       static_cast<float*>(lse), R, hq, hkv, d, bs, W, scale);
   return (int)cudaGetLastError();
@@ -148,8 +179,26 @@ extern "C" int hetu_paged_attention(const void* q, const void* k,
                                     int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch<__nv_bfloat16>(q, k, v, tables, q_offset, out, lse, S, R,
-                                 hq, hkv, d, bs, W, scale, s);
-  return launch<float>(q, k, v, tables, q_offset, out, lse, S, R, hq, hkv, d,
-                       bs, W, scale, s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k, v, nullptr, nullptr, tables, q_offset, out, lse, S, R, hq, hkv,
+        d, bs, W, scale, s);
+  return launch<float, float>(q, k, v, nullptr, nullptr, tables, q_offset,
+                              out, lse, S, R, hq, hkv, d, bs, W, scale, s);
+}
+
+// The int8 lane: k/v int8 codes (n_blocks, bs, hkv, d), k_scale/v_scale
+// fp32 (n_blocks, bs, hkv, 1); q/out fp32 (bf16 == 0) or bf16 (bf16 ==
+// 1); the rest as hetu_paged_attention.
+extern "C" int hetu_paged_attention_int8(
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const void* tables, const void* q_offset, void* out,
+    void* lse, int S, int R, int hq, int hkv, int d, int bs, int W,
+    float scale, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch<__nv_bfloat16, int8_t>(q, k, v, k_scale, v_scale, tables,
+                                         q_offset, out, lse, S, R, hq, hkv, d,
+                                         bs, W, scale, s);
+  return launch<float, int8_t>(q, k, v, k_scale, v_scale, tables, q_offset,
+                               out, lse, S, R, hq, hkv, d, bs, W, scale, s);
 }

@@ -18,10 +18,13 @@ from typing import Mapping
 import numpy as np
 import torch
 
-# the block parameters that are Linear weights (everything else 2-D in a
-# GPT block is none; embeddings and norms are never transposed)
+# the block parameters that are Linear weights (GPT's and Llama's; every
+# other block parameter is a norm scale or bias), and the top-level ones
+# (Llama's untied LM head); embeddings and norms are never transposed
 _LINEAR_WEIGHTS = ("q_proj.weight", "k_proj.weight", "v_proj.weight",
-                   "out_proj.weight", "fc_in.weight", "fc_out.weight")
+                   "out_proj.weight", "fc_in.weight", "fc_out.weight",
+                   "gate_proj.weight", "up_proj.weight")
+_TOP_LINEAR_WEIGHTS = ("lm_head.weight",)
 
 
 def _flatten(tree, prefix: str = "") -> dict:
@@ -41,14 +44,16 @@ def _tensor(a) -> torch.Tensor:
 
 
 def params_from_jax(tree, cfg) -> dict:
-    """``hetu_tpu`` GPT params (a nested dict of arrays, or its flattened
-    ``{dotted.key: array}`` form) → the port's ``state_dict`` (CPU
-    tensors; ``load_state_dict`` moves them to the model's device)."""
+    """``hetu_tpu`` GPT or Llama params (a nested dict of arrays, or its
+    flattened ``{dotted.key: array}`` form) → the port's ``state_dict``
+    (CPU tensors; ``load_state_dict`` moves them to the model's
+    device)."""
     flat = _flatten(tree)
     state = {}
     for key, arr in flat.items():
         if not key.startswith("blocks."):
-            state[key] = _tensor(arr)
+            state[key] = _tensor(arr.T if key in _TOP_LINEAR_WEIGHTS
+                                 else arr)
             continue
         rest = key[len("blocks."):]
         if arr.shape[0] != cfg.num_layers:

@@ -36,15 +36,29 @@ class PromptTooLongError(ValueError):
         super().__init__(msg)
 
 
-def init_kv_caches(model, batch: int, max_len: int):
+def init_kv_caches(model, batch: int, max_len: int,
+                   dtype: Optional[torch.dtype] = None):
     """Zeroed ``(k, v)`` buffers stacked over layers,
-    ``(L, batch, max_len, hkv, d)``, in the model's dtype and on its
-    device."""
+    ``(L, batch, max_len, hkv, d)``, in ``dtype`` (default: the model's)
+    on the model's device.
+
+    ``dtype=torch.int8`` builds the QUANTIZED cache ``(k int8, k scales,
+    v int8, v scales)`` with fp32 scales ``(L, batch, max_len, hkv, 1)``,
+    one per (position, kv head) (``hetu_tpu/models/generation.py:55-69``):
+    zero scales dequantize never-written rows to exact 0."""
     attn = model.blocks.block.attn
     shape = (model.blocks.num_layers, batch, max_len, attn.num_kv_heads,
              attn.head_dim)
-    return (torch.zeros(shape, dtype=model.dtype, device=model.device),
-            torch.zeros(shape, dtype=model.dtype, device=model.device))
+    dtype = dtype or model.dtype
+    dev = model.device
+    if dtype == torch.int8:
+        sshape = shape[:-1] + (1,)
+        return (torch.zeros(shape, dtype=torch.int8, device=dev),
+                torch.zeros(sshape, dtype=torch.float32, device=dev),
+                torch.zeros(shape, dtype=torch.int8, device=dev),
+                torch.zeros(sshape, dtype=torch.float32, device=dev))
+    return (torch.zeros(shape, dtype=dtype, device=dev),
+            torch.zeros(shape, dtype=dtype, device=dev))
 
 
 @torch.no_grad()
@@ -54,8 +68,9 @@ def decode(model, input_ids, positions, caches, *, slot_mask=None,
     ``(b, s, V)`` and updates ``caches`` in place.
 
     ``positions`` (b, s) are absolute positions. Without ``block_tables``
-    the caches are dense ``(L, b, max_len, hkv, d)`` and every row shares
-    the write index ``positions[0]``. With ``block_tables`` (b, W) int32
+    the caches are dense ``(L, b, max_len, hkv, d)`` (or the int8
+    4-tuple of :func:`init_kv_caches`) and every row shares the write
+    index ``positions[0]``. With ``block_tables`` (b, W) int32
     and ``slot_mask`` (b,) bool the caches are the paged arena
     ``(L, n_blocks, block_size, hkv, d)`` and each row decodes at its own
     ``positions[r, 0]`` (masked-off rows write nothing)."""
@@ -79,7 +94,8 @@ def _sample(logits, *, temperature: float, top_k: int, top_p: float,
 def generate(model, input_ids, *, max_new_tokens: int,
              temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
              generator: Optional[torch.Generator] = None, device=None,
-             return_logits: bool = False):
+             return_logits: bool = False,
+             cache_dtype: Optional[torch.dtype] = None):
     """Generate ``max_new_tokens`` continuations for a ``(b, s)`` prompt.
 
     Returns ``(b, s + max_new_tokens)`` token ids (int64). Greedy at
@@ -87,7 +103,10 @@ def generate(model, input_ids, *, max_new_tokens: int,
     per row from ``generator`` after the serving sampler's
     temperature/top-k/top-p masking. ``return_logits=True`` also returns
     the fp32 logits each token was chosen from, ``(b, max_new_tokens,
-    V)``. ``device=None`` means ``cuda``; the model must live there."""
+    V)``. ``device=None`` means ``cuda``; the model must live there.
+    ``cache_dtype`` is the KV cache's dtype (default: the model's);
+    ``torch.int8`` decodes from the quantized cache, as ``hetu_tpu``'s
+    ``generate(cache_dtype=jnp.int8)`` does."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"model is on {model.device}, generate was asked "
@@ -103,7 +122,7 @@ def generate(model, input_ids, *, max_new_tokens: int,
             limit=model.cfg.max_positions, source="model max_positions",
             hint="the model cannot address positions past its trained "
                  "context window")
-    caches = init_kv_caches(model, b, total)
+    caches = init_kv_caches(model, b, total, cache_dtype)
     knobs = dict(temperature=temperature, top_k=top_k, top_p=top_p,
                  generator=generator)
 

@@ -1,0 +1,169 @@
+"""Llama family (counterpart of ``hetu_tpu/models/llama.py``): RMSNorm,
+RoPE, GQA, SwiGLU, an untied LM head by default. The inference forward
+and the decode path the serving engine runs; the loss, dropout and the
+backward come with the Llama training slice, and mixture-of-experts
+with expert parallelism."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from hetu_tpu_torch import resolve_device
+from hetu_tpu_torch.nn.layers import RMSNorm
+from hetu_tpu_torch.nn.parallel import (
+    ColumnParallelLinear, ParallelAttention, ParallelMLP, StackedBlocks,
+    VocabParallelEmbedding,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    """``hetu_tpu/models/llama.py:30-70``; the defaults are Llama-2-7B.
+    Dropout and the MoE settings come with the slices that read them."""
+
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: Optional[int] = None   # None → MHA
+    head_dim: Optional[int] = None
+    max_positions: int = 4096
+    rope_theta: float = 10000.0
+    rms_norm_eps: float = 1e-5
+    init_std: float = 0.02
+    tie_embeddings: bool = False
+    # 0 = dense; experts (and their gate settings) wait for the MoE slice
+    num_experts: int = 0
+
+    @classmethod
+    def llama_7b(cls):
+        return cls()
+
+    @classmethod
+    def llama_13b(cls):
+        return cls(hidden_size=5120, intermediate_size=13824,
+                   num_layers=40, num_heads=40)
+
+    @classmethod
+    def tiny(cls):
+        """Test-size config with GQA exercised."""
+        return cls(vocab_size=256, hidden_size=64, intermediate_size=128,
+                   num_layers=2, num_heads=4, num_kv_heads=2,
+                   max_positions=128)
+
+
+class LlamaBlock(nn.Module):
+    def __init__(self, cfg: LlamaConfig, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        if cfg.num_experts > 0:
+            raise NotImplementedError(
+                "Llama with num_experts > 0 needs the MoE layer and "
+                "expert parallelism: slice 4")
+        kw = dict(device=device, dtype=dtype)
+        self.input_norm = RMSNorm(cfg.hidden_size, eps=cfg.rms_norm_eps, **kw)
+        self.attn = ParallelAttention(
+            cfg.hidden_size, cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads or cfg.num_heads,
+            head_dim=cfg.head_dim, bias=False, use_rope=True,
+            rope_theta=cfg.rope_theta, max_positions=cfg.max_positions, **kw)
+        self.post_attn_norm = RMSNorm(cfg.hidden_size, eps=cfg.rms_norm_eps,
+                                      **kw)
+        self.mlp = ParallelMLP(cfg.hidden_size, cfg.intermediate_size,
+                               bias=False, gated=True, **kw)
+
+    def forward(self, x, *, positions=None, segment_ids=None):
+        """Inference forward (``hetu_tpu/models/llama.py:132-163`` without
+        dropout)."""
+        x = x + self.attn(self.input_norm(x), positions=positions,
+                          segment_ids=segment_ids)
+        return x + self.mlp(self.post_attn_norm(x))
+
+    def decode(self, x, kv_cache, **kwargs):
+        x = x + self.attn.decode(self.input_norm(x), kv_cache, **kwargs)
+        return x + self.mlp(self.post_attn_norm(x))
+
+
+class LlamaLMHeadModel(nn.Module):
+    """Llama with an untied LM head (or the embedding when
+    ``tie_embeddings``).
+
+    ``device=None`` means ``cuda`` (raises without a card unless
+    ``device="cpu"``). Weights are random, drawn on the model's device
+    from a ``torch.Generator`` seeded with ``seed``: every matrix and
+    embedding ~ N(0, ``init_std``), norm scales 1 — ``hetu_tpu``'s init
+    distribution, not its values (load converted ``hetu_tpu`` params with
+    ``models.convert.params_from_jax``)."""
+
+    def __init__(self, cfg: LlamaConfig, *, device=None,
+                 dtype=torch.float32, seed: int = 0):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        kw = dict(device=dev, dtype=dtype)
+        self.wte = VocabParallelEmbedding(cfg.vocab_size, cfg.hidden_size,
+                                          **kw)
+        self.blocks = StackedBlocks(lambda: LlamaBlock(cfg, **kw),
+                                    cfg.num_layers)
+        self.final_norm = RMSNorm(cfg.hidden_size, eps=cfg.rms_norm_eps,
+                                  **kw)
+        if not cfg.tie_embeddings:
+            self.lm_head = ColumnParallelLinear(cfg.hidden_size,
+                                                cfg.vocab_size, bias=False,
+                                                **kw)
+        self.reset_parameters(seed)
+
+    @torch.no_grad()
+    def reset_parameters(self, seed: int = 0) -> None:
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        for name, p in self.named_parameters():
+            if name.endswith(".scale"):
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, self.cfg.init_std, generator=gen)
+
+    @property
+    def device(self) -> torch.device:
+        return self.wte.weight.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.wte.weight.dtype
+
+    def embed(self, input_ids, *, positions=None):
+        """Token embedding; the rotary positions are applied inside the
+        blocks."""
+        del positions
+        return self.wte(input_ids)
+
+    def backbone(self, input_ids, *, positions=None, segment_ids=None):
+        """embed + blocks, without the final norm."""
+        h = self.embed(input_ids)
+        for blk in self.blocks:
+            h = blk(h, positions=positions, segment_ids=segment_ids)
+        return h
+
+    def hidden_norm(self, h):
+        return self.final_norm(h)
+
+    def head_weight(self):
+        """(V, E): the tied embedding or the LM head."""
+        if self.cfg.tie_embeddings:
+            return self.wte.weight
+        return self.lm_head.weight
+
+    def logits(self, h):
+        """fp32 logits of normed hidden states, as ``hetu_tpu`` computes
+        them (``models/llama.py:212-217``, ``generation.py:110-112``)."""
+        return F.linear(h.float(), self.head_weight().float())
+
+    def forward(self, input_ids, *, positions=None, segment_ids=None):
+        """Full fp32 logits (b, s, V)."""
+        return self.logits(self.hidden_norm(self.backbone(
+            input_ids, positions=positions, segment_ids=segment_ids)))

@@ -1,5 +1,5 @@
-"""Basic layers (counterpart of ``hetu_tpu/nn/layers.py``): ``Embedding``
-and ``LayerNorm`` as ``nn.Module``s.
+"""Basic layers (counterpart of ``hetu_tpu/nn/layers.py``): ``Embedding``,
+``LayerNorm`` and ``RMSNorm`` as ``nn.Module``s.
 
 Parameter names follow ``hetu_tpu``'s flattened keys (``weight``;
 ``scale``/``bias`` for norms) so a converted ``hetu_tpu`` tree loads with
@@ -15,7 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from hetu_tpu_torch.core.dtypes import current_policy
-from hetu_tpu_torch.ops.normalization import layer_norm
+from hetu_tpu_torch.ops.normalization import layer_norm, rms_norm
 
 
 class Embedding(nn.Module):
@@ -45,4 +45,21 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layer_norm(x, self.scale, self.bias, eps=self.eps).to(
+            current_policy().compute_dtype)
+
+
+class RMSNorm(nn.Module):
+    """RMSNorm with fp32 statistics (``hetu_tpu/nn/layers.py:86``); the
+    default eps is the class's 1e-6, models pass their config's."""
+
+    def __init__(self, features: int, eps: float = 1e-6, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.features = features
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features, device=device,
+                                             dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rms_norm(x, self.scale, eps=self.eps).to(
             current_policy().compute_dtype)

@@ -8,9 +8,13 @@ transposes. ``StackedBlocks`` is a ``ModuleList`` of per-layer blocks
 leading layer axis.
 
 KV caches are updated IN PLACE (``index_copy_``) where the JAX code
-returned a new, donated buffer. Attention over the paged arena goes
-through :func:`~hetu_tpu_torch.ops.paged.paged_attention` and, in the
-packed-prefill mode, :func:`~hetu_tpu_torch.ops.attention.attention_with_lse`
+returned a new, donated buffer. A cache is ``(k, v)`` or, for the int8
+cache, ``(k codes, k scales, v codes, v scales)`` with one fp32 scale per
+(position, kv head): new rows quantize on write
+(``ops/quantization.py``). Attention over the paged arena goes through
+:func:`~hetu_tpu_torch.ops.paged.paged_attention` (its int8 lane for the
+int8 arena) and, in the packed-prefill mode,
+:func:`~hetu_tpu_torch.ops.attention.attention_with_lse`
 — the hand-written kernels on CUDA tensors, their plain versions on CPU
 tensors. The dense cache (one-shot ``generate``) stays plain PyTorch, as
 ``hetu_tpu`` computes it in plain jnp, so ``generate`` is an oracle
@@ -39,11 +43,13 @@ from torch.utils.checkpoint import (
 
 from hetu_tpu_torch.core.dtypes import Policy, autocast, current_policy
 from hetu_tpu_torch.nn.layers import Embedding
-from hetu_tpu_torch.ops.activations import gelu
+from hetu_tpu_torch.ops.activations import gelu, swiglu
 from hetu_tpu_torch.ops.attention import attention_reference, \
     attention_with_lse, flash_attention
 from hetu_tpu_torch.ops.dropout import split_seed
 from hetu_tpu_torch.ops.paged import combine_attention_lse, paged_attention
+from hetu_tpu_torch.ops.quantization import dequantize_int8, quantize_int8
+from hetu_tpu_torch.ops.rotary import apply_rotary, rope_tables
 
 
 class ColumnParallelLinear(nn.Module):
@@ -82,17 +88,26 @@ class VocabParallelEmbedding(Embedding):
 
 
 class ParallelMLP(nn.Module):
-    """GPT-2 MLP: ``fc_out(gelu(fc_in(x)))`` (``gated=False``)."""
+    """GPT-2 MLP ``fc_out(gelu(fc_in(x)))`` (``gated=False``), or the
+    Llama SwiGLU form ``fc_out(silu(gate_proj(x)) * up_proj(x))``
+    (``gated=True``, ``hetu_tpu/nn/parallel.py:248-268``). The W8A8
+    lane is not ported."""
 
     def __init__(self, features: int, hidden: int, *, bias: bool = True,
-                 device=None, dtype=torch.float32):
+                 gated: bool = False, device=None, dtype=torch.float32):
         super().__init__()
-        self.fc_in = ColumnParallelLinear(features, hidden, bias=bias,
-                                          device=device, dtype=dtype)
-        self.fc_out = RowParallelLinear(hidden, features, bias=bias,
-                                        device=device, dtype=dtype)
+        self.gated = gated
+        kw = dict(bias=bias, device=device, dtype=dtype)
+        if gated:
+            self.gate_proj = ColumnParallelLinear(features, hidden, **kw)
+            self.up_proj = ColumnParallelLinear(features, hidden, **kw)
+        else:
+            self.fc_in = ColumnParallelLinear(features, hidden, **kw)
+        self.fc_out = RowParallelLinear(hidden, features, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.gated:
+            return self.fc_out(swiglu(self.gate_proj(x), self.up_proj(x)))
         return self.fc_out(gelu(self.fc_in(x)))
 
 
@@ -110,15 +125,37 @@ def _scatter_rows(buf: torch.Tensor, rows: torch.Tensor, new: torch.Tensor,
     flat.index_copy_(0, rows, new)
 
 
+def _cache_writes(kv_cache, k, v):
+    """``(buffer, new rows)`` of one cache write: k and v, or for the int8
+    cache their codes and scales, quantized per (position, kv head)."""
+    if len(kv_cache) == 2:
+        return list(zip(kv_cache, (k, v)))
+    return list(zip(kv_cache, (*quantize_int8(k), *quantize_int8(v))))
+
+
+def _arena(kv_cache) -> tuple:
+    """``(k, v, scales)`` for :func:`paged_attention`: the int8 cache
+    passes its codes and ``k_scale``/``v_scale``."""
+    if len(kv_cache) == 2:
+        return kv_cache[0], kv_cache[1], {}
+    kq, ks, vq, vs = kv_cache
+    return kq, vq, {"k_scale": ks, "v_scale": vs}
+
+
 class ParallelAttention(nn.Module):
-    """Causal multi-head attention with GQA (no RoPE: GPT-2's learned
-    positions are added in the embedding): the training forward and the
-    decode path."""
+    """Causal multi-head attention with GQA and optional RoPE: the
+    training forward and the decode path. With ``use_rope`` (Llama), q
+    and k rotate at each token's own position before attention and
+    before the cache write (``hetu_tpu/nn/parallel.py:602-606``,
+    :751-754); without it (GPT-2), positions are learned and added in
+    the embedding."""
 
     def __init__(self, embed_dim: int, num_heads: int, *,
                  num_kv_heads: Optional[int] = None,
                  head_dim: Optional[int] = None, bias: bool = True,
-                 device=None, dtype=torch.float32):
+                 use_rope: bool = False, rope_theta: float = 10000.0,
+                 max_positions: int = 4096, device=None,
+                 dtype=torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.num_kv_heads = num_kv_heads or num_heads
@@ -134,21 +171,33 @@ class ParallelAttention(nn.Module):
             embed_dim, self.num_kv_heads * self.head_dim, **kw)
         self.out_proj = RowParallelLinear(
             num_heads * self.head_dim, embed_dim, **kw)
+        self.use_rope = use_rope
+        self.rope_theta = float(rope_theta)
+        self.max_positions = int(max_positions)
 
-    def _qkv(self, x):
+    def _qkv(self, x, positions=None):
+        """q, k, v ``(b, s, heads, d)``; with RoPE, q and k rotated at
+        ``positions`` (b, s) (default ``arange(s)``)."""
         b, s, _ = x.shape
-        return (self.q_proj(x).view(b, s, self.num_heads, self.head_dim),
-                self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim),
-                self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim))
+        q = self.q_proj(x).view(b, s, self.num_heads, self.head_dim)
+        k = self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
+        v = self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
+        if self.use_rope:
+            cos, sin = rope_tables(self.head_dim, self.max_positions,
+                                   self.rope_theta, x.device)
+            q = apply_rotary(q, cos, sin, positions)
+            k = apply_rotary(k, cos, sin, positions)
+        return q, k, v
 
-    def forward(self, x, *, segment_ids=None, dropout_rate: float = 0.0,
+    def forward(self, x, *, positions=None, segment_ids=None,
+                dropout_rate: float = 0.0,
                 dropout_seed: Optional[int] = None):
         """Training forward (``hetu_tpu/nn/parallel.py:441-510`` at tp=1,
-        no cp): projections, flash attention (dropout on the
-        probabilities when ``dropout_seed`` is given), output
-        projection."""
+        no cp): projections (RoPE at ``positions``), flash attention
+        (dropout on the probabilities when ``dropout_seed`` is given),
+        output projection."""
         b, s, _ = x.shape
-        q, k, v = self._qkv(x)
+        q, k, v = self._qkv(x, positions)
         out = flash_attention(q, k, v, causal=True, segment_ids=segment_ids,
                               dropout_rate=dropout_rate, seed=dropout_seed)
         return self.out_proj(out.reshape(b, s, -1))
@@ -160,36 +209,43 @@ class ParallelAttention(nn.Module):
         - dense (``block_tables`` None): ``kv_cache`` is ``(k_buf, v_buf)``
           of shape ``(b, max_len, hkv, d)``; every row writes its ``s``
           new entries at ``positions[0]`` (one shared index) and attends
-          with the plain oracle;
+          with the plain oracle (an int8 cache dequantizes to q's dtype
+          first, as ``hetu_tpu`` does);
         - paged (``block_tables`` (b, W) and ``slot_mask`` (b,) bool):
           the caches are arenas ``(n_blocks, block_size, hkv, d)``; row
           ``r`` writes at its own ``positions[r, 0]`` through its table
           (rows with ``slot_mask`` False write nothing; the caller
-          discards their output) and attends through the paged kernel;
+          discards their output) and attends through the paged kernel
+          (its int8 lane for the int8 arena);
         - packed prefill (``pack``): see :meth:`_decode_packed`.
 
-        Returns the attention block's output ``(b, s, embed)``."""
+        ``kv_cache`` may be the int8 4-tuple in every mode. Returns the
+        attention block's output ``(b, s, embed)``."""
         if pack is not None:
             return self._decode_packed(x, kv_cache, positions=positions,
                                        block_tables=block_tables, pack=pack)
         b, s, _ = x.shape
-        q, k, v = self._qkv(x)
-        k_buf, v_buf = kv_cache
+        q, k, v = self._qkv(x, positions)
+        writes = _cache_writes(kv_cache, k, v)
         if block_tables is None:
             if slot_mask is not None:
                 raise ValueError("per-row decode needs block_tables (the "
                                  "port's dense cache takes one shared "
                                  "write index)")
             cols = positions[0]                              # (s,)
-            k_buf.index_copy_(1, cols, k.to(k_buf.dtype))
-            v_buf.index_copy_(1, cols, v.to(v_buf.dtype))
+            for buf, new in writes:
+                buf.index_copy_(1, cols, new.to(buf.dtype))
+            k_buf, v_buf, scales = _arena(kv_cache)
+            if scales:
+                k_buf = dequantize_int8(k_buf, scales["k_scale"], q.dtype)
+                v_buf = dequantize_int8(v_buf, scales["v_scale"], q.dtype)
             out = attention_reference(q, k_buf, v_buf, causal=True,
                                       q_offset=cols[0], kv_offset=0)
         else:
             if slot_mask is None:
                 raise ValueError("block_tables requires slot_mask "
                                  "(per-row paged decode)")
-            blk, W = k_buf.shape[1], block_tables.shape[1]
+            blk, W = kv_cache[0].shape[1], block_tables.shape[1]
             index = positions[:, 0].to(torch.int32)          # (b,)
             pos_rows = positions[:, :1].long() + torch.arange(
                 s, device=x.device)[None, :]                 # (b, s)
@@ -197,9 +253,12 @@ class ParallelAttention(nn.Module):
                                    (pos_rows // blk).clamp(0, W - 1))
             rows = (blk_ids * blk + pos_rows % blk).reshape(-1)
             keep = slot_mask[:, None].expand(b, s).reshape(-1)
-            _scatter_rows(k_buf, rows, k.reshape(b * s, *k.shape[2:]), keep)
-            _scatter_rows(v_buf, rows, v.reshape(b * s, *v.shape[2:]), keep)
-            out = paged_attention(q, k_buf, v_buf, block_tables, index)
+            for buf, new in writes:
+                _scatter_rows(buf, rows, new.reshape(b * s, *new.shape[2:]),
+                              keep)
+            k_buf, v_buf, scales = _arena(kv_cache)
+            out = paged_attention(q, k_buf, v_buf, block_tables, index,
+                                  **scales)
         return self.out_proj(out.reshape(b, s, -1))
 
     def _decode_packed(self, x, kv_cache, *, positions, block_tables, pack):
@@ -215,24 +274,33 @@ class ParallelAttention(nn.Module):
         contiguous run, pack order is position order) and the
         arena-history part (paged attention over the token's own table,
         positions ``<= hist - 1``: earlier chunks and prefix-cache hits).
-        KV writes are per-token scatters through the tables (pads drop)."""
+        KV writes are per-token scatters through the tables (pads drop).
+        With the int8 arena the intra-pack part attends the pack's own
+        ROUND-TRIPPED k/v, dequantized to q's dtype, as the per-token
+        lane would read them back (``hetu_tpu/nn/parallel.py:776-779``),
+        and the history part runs the paged kernel's int8 lane."""
         b, C, _ = x.shape
-        q, k, v = self._qkv(x)
-        k_buf, v_buf = kv_cache
-        blk, W = k_buf.shape[1], block_tables.shape[1]
+        q, k, v = self._qkv(x, positions)
+        blk, W = kv_cache[0].shape[1], block_tables.shape[1]
         pos = positions[0].long()                            # (C,)
         blk_ids = torch.gather(block_tables.long(), 1,
                                (pos // blk).clamp(0, W - 1)[:, None])[:, 0]
         rows = blk_ids * blk + pos % blk
-        _scatter_rows(k_buf, rows, k[0], pack["valid"])
-        _scatter_rows(v_buf, rows, v[0], pack["valid"])
+        writes = _cache_writes(kv_cache, k, v)
+        for buf, new in writes:
+            _scatter_rows(buf, rows, new[0], pack["valid"])
+        k_buf, v_buf, scales = _arena(kv_cache)
+        if scales:
+            (_, kq), (_, ks), (_, vq), (_, vs) = writes
+            k = dequantize_int8(kq, ks, q.dtype)
+            v = dequantize_int8(vq, vs, q.dtype)
 
         intra, lse_i = attention_with_lse(
             q, k, v, causal=True, segment_ids=pack["segment_ids"])
         hist_off = (pack["hist"] - 1).to(torch.int32)        # kpos <= hist-1
         hist, lse_h = paged_attention(q[0].unsqueeze(1).contiguous(), k_buf,
                                       v_buf, block_tables, hist_off,
-                                      return_lse=True)
+                                      return_lse=True, **scales)
         hist = hist[:, 0][None]                              # (1, C, hq, d)
         lse_h = lse_h[:, :, 0].t()[None]                     # (1, hq, C)
         out = combine_attention_lse(intra, lse_i, hist, lse_h)
@@ -337,8 +405,8 @@ class StackedBlocks(nn.ModuleList):
         return x
 
     def decode(self, x, caches, **kwargs):
-        """``caches``: ``(k, v)``, each ``(layers, …)``; updated in place."""
-        k_all, v_all = caches
+        """``caches``: ``(k, v)`` or the int8 ``(k, k scales, v, v
+        scales)``, each ``(layers, …)``; updated in place."""
         for layer, blk in enumerate(self):
-            x = blk.decode(x, (k_all[layer], v_all[layer]), **kwargs)
+            x = blk.decode(x, tuple(c[layer] for c in caches), **kwargs)
         return x

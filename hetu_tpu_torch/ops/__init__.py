@@ -1,8 +1,9 @@
 """Numerics of the port: plain PyTorch ops and the hand-written CUDA
-kernels (``flash`` forward and backward, ``paged``, ``fused_ce``)."""
+kernels (``flash`` forward and backward, ``paged`` with its int8 lane,
+``fused_ce``)."""
 
 from hetu_tpu_torch.ops._build import launch_counts, reset_launch_counts
-from hetu_tpu_torch.ops.activations import gelu
+from hetu_tpu_torch.ops.activations import gelu, swiglu
 from hetu_tpu_torch.ops.attention import (
     NEG_INF, attention_reference, attention_with_lse, flash_attention,
     gather_block_rows,
@@ -21,21 +22,25 @@ from hetu_tpu_torch.ops.losses import (
     chunked_lm_loss, cross_entropy_mean, softmax_cross_entropy,
     vocab_parallel_lm_loss,
 )
-from hetu_tpu_torch.ops.normalization import layer_norm
+from hetu_tpu_torch.ops.normalization import layer_norm, rms_norm
 from hetu_tpu_torch.ops.paged import (
     combine_attention_lse, paged_attention, paged_attention_reference,
 )
+from hetu_tpu_torch.ops.quantization import dequantize_int8, quantize_int8
+from hetu_tpu_torch.ops.rotary import apply_rotary, rope_frequencies
 
 __all__ = [
-    "NEG_INF", "attention_reference", "attention_with_lse",
+    "NEG_INF", "apply_rotary", "attention_reference", "attention_with_lse",
     "chunked_lm_loss", "combine_attention_lse", "cross_entropy_mean",
-    "dropout", "dropout_keep", "dropout_keep_bh", "flash_attention",
+    "dequantize_int8", "dropout", "dropout_keep", "dropout_keep_bh",
+    "flash_attention",
     "flash_attention_bwd", "flash_attention_bwd_reference",
     "flash_attention_fwd", "flash_attention_fwd_reference",
     "fused_ce_dh", "fused_ce_dh_reference", "fused_ce_dw",
     "fused_ce_dw_reference", "fused_ce_fwd", "fused_lm_ce",
     "fused_lse_tgt", "fused_lse_tgt_reference",
     "gather_block_rows", "gelu", "launch_counts", "layer_norm",
-    "paged_attention", "paged_attention_reference", "reset_launch_counts",
-    "softmax_cross_entropy", "vocab_parallel_lm_loss",
+    "paged_attention", "paged_attention_reference", "quantize_int8",
+    "reset_launch_counts", "rms_norm", "rope_frequencies",
+    "softmax_cross_entropy", "swiglu", "vocab_parallel_lm_loss",
 ]

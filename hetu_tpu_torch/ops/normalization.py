@@ -8,6 +8,18 @@ from typing import Optional
 import torch
 
 
+def rms_norm(x: torch.Tensor, scale: Optional[torch.Tensor],
+             eps: float = 1e-6):
+    """RMSNorm (``hetu_tpu/ops/normalization.py:17``): fp32 statistics,
+    the result cast back to ``x``'s dtype."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    if scale is not None:
+        y = y * scale.float()
+    return y.to(x.dtype)
+
+
 def layer_norm(x: torch.Tensor, scale: Optional[torch.Tensor],
                bias: Optional[torch.Tensor], eps: float = 1e-5):
     xf = x.float()

@@ -15,6 +15,12 @@ One engine iteration (:meth:`ServingEngine.step`) is, in order:
    arena history (the flash and paged kernels on the card); requests
    whose prompt completes sample their first token.
 
+``cache_dtype=torch.int8`` keeps the arena as int8 codes with fp32
+scales per (position, kv head): rows quantize as they are written and
+both lanes read the arena through the paged kernel's int8 lane.
+Precision follows the thread-local policy (``core.autocast``) in force
+where :meth:`step` runs, as ``hetu_tpu``'s engine follows its own.
+
 This is the ``spec_depth=0`` case of ``hetu_tpu``'s fused step; its
 ``lax.cond``s are Python ``if``s on flags the host already knows, and the
 arena is written in place where JAX donated it. ``lane_iters`` counts the
@@ -23,8 +29,8 @@ TTFT and TPOT come from ``Request.timing``.
 
 Not ported yet, and not accepted as arguments: speculation,
 tenancy/LoRA, the CP long-prompt lane, preemption/spill, replication,
-streaming, ``swap_params``, W8A8, the SLO engine, the watchdog and the
-telemetry registry.
+streaming, ``swap_params``, W8A8 (off, as ``hetu_tpu``'s default), the
+SLO engine, the watchdog and the telemetry registry.
 """
 
 from __future__ import annotations
@@ -53,11 +59,16 @@ class ServingEngine:
     ``device=None`` means ``cuda`` (raises without a card unless
     ``device="cpu"``); the model must live on that device. Offline use:
     :meth:`generate_many`; online: :meth:`submit`, then :meth:`step`
-    until the request is done (or :meth:`run_until_drained`)."""
+    until the request is done (or :meth:`run_until_drained`).
+    ``cache_dtype`` is the arena's (default: the model's dtype).
+    ``record_first_logits`` keeps the fp32 logits each request's first
+    token was sampled from on ``Request.first_logits``; it exists only
+    for oracle checks that hold the engine against a reference."""
 
     def __init__(self, model, *, slots: int, max_len: int = 256,
                  prefill_chunk: int = 16, block_size: Optional[int] = None,
-                 seed: int = 0, device=None):
+                 cache_dtype: Optional[torch.dtype] = None, seed: int = 0,
+                 device=None, record_first_logits: bool = False):
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"model is on {model.device}, the engine was "
@@ -69,7 +80,8 @@ class ServingEngine:
             # step (where the build would land in the first request's TTFT)
             _build.build()
         self.model = model
-        self.pool = KVPool(model, slots, max_len, block_size)
+        self.pool = KVPool(model, slots, max_len, block_size, cache_dtype)
+        self.record_first_logits = bool(record_first_logits)
         self.prefill_chunk = int(prefill_chunk)
         self.blocks = BlockManager(self.pool.n_blocks)
         self.prefix_cache = PrefixCache(self.pool.block_size, self.blocks)
@@ -200,6 +212,7 @@ class ServingEngine:
         caches = self.pool.caches
 
         # copy-on-write tails of partial prefix hits land before any write
+        # (every arena array: k and v, and the int8 arena's scales)
         for src, dst in cows:
             for c in caches:
                 c[:, dst].copy_(c[:, src])
@@ -255,6 +268,8 @@ class ServingEngine:
             req.mark("first_token", ts_s=now)
             # the finished prompt's whole blocks enter the radix cache
             self.prefix_cache.insert(req.prompt.tolist(), self._bt[slot])
+            if self.record_first_logits:
+                req.first_logits = lg[i]
             self._on_token(slot, int(first_toks[i]), now)
             self._prefilling.remove(ent)
         return True

@@ -5,7 +5,10 @@ through block tables (counterpart of ``hetu_tpu/serving/kv_pool.py``).
   K and V, allocated once; a request maps onto a per-slot BLOCK TABLE
   (``max_len/block_size`` wide, padded with the null block 0);
 - blocks are refcounted (:class:`BlockManager`) so the radix prefix cache
-  can map one physical block into many slots' tables.
+  can map one physical block into many slots' tables;
+- the fp32/bf16/int8 layouts are ``generation.init_kv_caches``'s: the
+  int8 arena is four arrays (k codes, k scales, v codes, v scales) and
+  its blocks are shared bit for bit like fp blocks.
 
 The host spill arena and budget-derived sizing (``sized_for``) are not
 ported yet.
@@ -17,6 +20,7 @@ from collections import deque
 from typing import Optional
 
 import numpy as np
+import torch
 
 from hetu_tpu_torch.models.generation import init_kv_caches
 
@@ -74,9 +78,11 @@ class KVPool:
     """The paged arena plus its shape metadata. ``slots`` is the engine's
     concurrency (width of the control vectors and block tables); the
     arena holds ``n_blocks`` = the null block plus ``slots`` worst-case
-    requests, in the model's dtype."""
+    requests, in ``cache_dtype`` (default: the model's dtype;
+    ``torch.int8`` for the quantized arena)."""
 
-    def __init__(self, model, slots: int, max_len: int, block_size: int):
+    def __init__(self, model, slots: int, max_len: int, block_size: int,
+                 cache_dtype: Optional[torch.dtype] = None):
         if max_len > model.cfg.max_positions:
             raise ValueError(
                 f"pool max_len {max_len} exceeds the model's "
@@ -90,9 +96,15 @@ class KVPool:
         self.block_size = int(block_size)
         self.table_width = self.max_len // self.block_size
         self.n_blocks = 1 + self.slots * self.table_width
+        self.cache_dtype = cache_dtype or model.dtype
         # the generation layout with (batch, max_len) := (n_blocks,
         # block_size); layer l's arena caches[i][l] is contiguous
-        self.caches = init_kv_caches(model, self.n_blocks, self.block_size)
+        self.caches = init_kv_caches(model, self.n_blocks, self.block_size,
+                                     self.cache_dtype)
+
+    @property
+    def quantized(self) -> bool:
+        return len(self.caches) == 4
 
     def nbytes(self) -> int:
         return sum(c.numel() * c.element_size() for c in self.caches)

@@ -71,6 +71,8 @@ class Request:
     error: Optional[str] = None
     cached_tokens: int = 0             # prompt tokens served by the
     #                                    prefix cache (skipped prefill)
+    first_logits: Optional[object] = dataclasses.field(
+        default=None, repr=False, compare=False)  # engine-recorded, opt-in
     admit: Optional[dict] = dataclasses.field(
         default=None, repr=False, compare=False)  # paged admission plan
     events: list = dataclasses.field(default_factory=list,

@@ -29,7 +29,9 @@ def test_import_leaves_jax_unloaded():
     for m in ("hetu_tpu_torch.serving.engine", "hetu_tpu_torch.core.bits",
               "hetu_tpu_torch.core.dtypes", "hetu_tpu_torch.optim",
               "hetu_tpu_torch.parallel.strategy",
-              "hetu_tpu_torch.engine.train_step"):
+              "hetu_tpu_torch.engine.train_step",
+              "hetu_tpu_torch.ops.quantization", "hetu_tpu_torch.ops.rotary",
+              "hetu_tpu_torch.models.llama"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
