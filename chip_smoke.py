@@ -16,7 +16,12 @@ Phases, each printing one JSON line:
    one process per source, all at once.
 3. kernel  -- each kernel against its plain version on the card, at the
    serving path's shapes (fp32 and bf16) and at edge shapes (GQA, segment
-   pads, offsets that leave rows with no key, dropout 0.1); max abs error
+   pads, offsets that leave rows with no key, dropout 0.1, a ragged
+   200-token sequence, a 64-token chunk over a 320-token history). bf16
+   at head_dim 64/128 runs the tensor-core lanes of the flash forward and
+   dK/dV, the rest their CUDA-core lanes; a bf16 head_dim-96 case must
+   take the CUDA-core lanes (``lane`` lines, read from a profile). Max
+   abs error
    against its bound (1e-4 fp32: summation order; 2e-2 bf16: output
    rounding), and times: kernel, plain version, one PyTorch library call
    computing the same function (a yardstick the port never calls), and
@@ -49,7 +54,9 @@ Phases, each printing one JSON line:
    heads, seq 1024, d 64, causal), fp32 and bf16, against their plain
    versions, then timed in bf16 as the main path runs them.
 7. train_profile -- ``torch.profiler`` over 3 steps: device ms per step
-   by class and the device's idle share.
+   by class and the device's idle share; the flash forward's and dK/dV's
+   device time must lie under the tensor-core symbols (``lane``), as in
+   the combo's profile and at the Llama pack.
 8. fused_ce kernels -- the fused LM-head CE kernels (forward, dH, dW)
    against their plain versions with h and w each fp32 or bf16, at V =
    50257 and a ragged V = 1013, N not a multiple of any token tile,
@@ -105,8 +112,9 @@ Phases, each printing one JSON line:
    last-bit differences), printed beside the oracle's own int8 noise
    (its prompt in 256-token chunks against one pass), and the planted
    faults, which those bounds must fail.
-14. summary -- one ``{"kernels": [...]}`` line, the card's name and power
-   limit, and last ``{"ok": true, "device": {...}}``.
+14. summary -- one ``{"kernels": [...]}`` line (each kernel with its
+   lanes), the card's name and power limit, and last ``{"ok": true,
+   "device": {...}}``.
 
 Any failure exits nonzero before the ``ok`` line. Without a CUDA device,
 or without the ``hetu_tpu_torch`` package beside this file, it exits
@@ -143,6 +151,7 @@ FUSED_LADDER = (48, 32, 16)        # bench.py's fused-CE combo (bench.py:159)
 DROP_SEED = 1234
 FUSED = ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw")
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+FLASH_LANES = "tensor_core (bf16, d 64/128); cuda_core (fp32; bf16, other d)"
 
 
 class SmokeFailure(RuntimeError):
@@ -194,25 +203,29 @@ class Timer:
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
-    def per_kernel(self, fn, keys, iters: int = 10) -> dict:
-        """Mean device ms per call of each kernel whose name contains one
-        of ``keys``, from ``torch.profiler`` over ``iters`` calls (for a
-        function that launches several kernels)."""
-        from torch.autograd import DeviceType
+    def profile(self, fn, iters: int = 10) -> dict:
+        """Device ms by kernel name over ``iters`` calls of ``fn``, each
+        after the L2 flush, from ``torch.profiler`` (CPU and CUDA
+        activity, as the step profiles, which have read every kernel in
+        every run; a CUDA-only window of a few short launches late in the
+        script once recorded none)."""
         from torch.profiler import ProfilerActivity, profile
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 self.flush.zero_()
                 fn()
             torch.cuda.synchronize()
-        ms = {key: 0.0 for key in keys}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                for key in keys:
-                    if key in e.name:
-                        ms[key] += e.time_range.elapsed_us() / 1e3 / iters
+        return device_kernel_ms(prof)[0]
+
+    def per_kernel(self, fn, keys, iters: int = 10) -> dict:
+        """Mean device ms per call of each kernel whose name contains one
+        of ``keys`` (for a function that launches several kernels)."""
+        by_name = self.profile(fn, iters)
+        ms = {key: sum(t for n, t in by_name.items() if key in n) / iters
+              for key in keys}
         check(all(v > 0 for v in ms.values()),
               f"profiler saw no device time for {keys}: {ms}")
         return ms
@@ -230,6 +243,50 @@ def max_err(got, want) -> float:
 
 
 # -- kernel cases ------------------------------------------------------------
+
+def ptxas_entries(log: str) -> dict:
+    """``{mangled kernel: {"registers", "spill_stores", "spill_loads",
+    "stack"}}`` from an ``nvcc -Xptxas -v`` log."""
+    import re
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def check_ptxas(built) -> dict:
+    """Registers and spills of the tensor-core flash instances; the d 64
+    ones (the training path's) must not spill."""
+    found = {}
+    for src in ("flash_fwd", "flash_bwd"):
+        for name, e in ptxas_entries(built[src]["ptxas"]).items():
+            for sym in ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel"):
+                for d in (64, 128):
+                    if f"{sym}ILi{d}E" in name:
+                        found[f"{sym}<{d}>"] = e
+    emit(phase="ptxas", kernels=found)
+    check(len(found) == 4, f"ptxas report lacks a tensor-core instance: "
+                           f"{sorted(found)}")
+    for key, e in found.items():
+        if key.endswith("<64>"):
+            check(e.get("spill_stores") == 0 and e.get("spill_loads") == 0,
+                  f"{key} spills: {e}")
+    return found
 
 def paged_case(gens, device, dtype, *, R, hq, hkv, d, bs, W, n_blocks,
                offsets, row_slot=None):
@@ -283,11 +340,14 @@ def paged_work(q, k, tables, off, int8=False):
     return nbytes, 4.0 * int(keys.sum()) * hq * d
 
 
-def flash_case(gens, device, dtype, *, b, hq, hkv, s, d, seg):
+def flash_case(gens, device, dtype, *, b, hq, hkv, s, d, seg, sk=None):
+    """q (b, hq, s, d), k/v (b, hkv, sk or s, d), segment ids (b, s) for
+    q and kv alike, or None."""
     gen = gens.device
+    sk = s if sk is None else sk
     q = torch.randn(b, hq, s, d, generator=gen, device=device).to(dtype)
-    k = torch.randn(b, hkv, s, d, generator=gen, device=device).to(dtype)
-    v = torch.randn(b, hkv, s, d, generator=gen, device=device).to(dtype)
+    k = torch.randn(b, hkv, sk, d, generator=gen, device=device).to(dtype)
+    v = torch.randn(b, hkv, sk, d, generator=gen, device=device).to(dtype)
     seg = None if seg is None else torch.as_tensor(
         seg, dtype=torch.int32).reshape(b, s).to(device)
     return q, k, v, seg
@@ -356,6 +416,26 @@ def check_bwd(name, case, dtype, shape, got, want, errs, dead_rows=0):
     if dead_rows:
         check(bool((got[0][:, :, :dead_rows] == 0).all()),
               f"{name} {case}: dq of rows with no key not 0")
+
+
+#: the device symbols of the lanes of #2 and #4 (``ops.flash_lane``)
+LANE_SYMBOLS = {"flash_fwd": {"tensor_core": "flash_fwd_tc_kernel",
+                              "cuda_core": "flash_fwd_kernel"},
+                "flash_bwd_dkv": {"tensor_core": "flash_bwd_dkv_tc_kernel",
+                                  "cuda_core": "flash_bwd_dkv_kernel"}}
+
+
+def check_lane(phase, by_name, lane, kernels=tuple(LANE_SYMBOLS)) -> dict:
+    """The device time of each of ``kernels`` in a profile's ``by_name``
+    must lie under its ``lane``'s symbol and not under the other lane's.
+    Returns the ms per kernel and lane."""
+    ms = {k: {ln: sum(t for n, t in by_name.items() if sym in n)
+              for ln, sym in LANE_SYMBOLS[k].items()} for k in kernels}
+    ok = all(v[lane] > 0 and sum(v.values()) == v[lane] for v in ms.values())
+    emit(phase="lane", of=phase, expected=lane, device_ms=ms,
+         kernel_names_seen=len(by_name), ok=ok)
+    check(ok, f"{phase}: flash device time not all in the {lane} lane: {ms}")
+    return ms
 
 
 def hist_rows(pack, chunk):
@@ -439,7 +519,7 @@ def phase_kernels(device, timer, ops):
                 if name == "decode":
                     timed = t
     results["paged_attention"] = dict(
-        name="paged_attention", route="cuda",
+        name="paged_attention", route="cuda", lane="cuda_core",
         source="hetu_tpu_torch/csrc/paged_attention.cu",
         replaces="hetu_tpu/ops/paged_pallas.py:86",
         max_abs_err=errs[torch.float32],
@@ -450,7 +530,10 @@ def phase_kernels(device, timer, ops):
     skip_seg = np.repeat(np.arange(4), 64)
     skip_seg[-10:] = -1
     skip2 = np.stack([skip_seg, skip_seg])
-    # (name, shape, causal, q_offset, kv_offset, dropout rate)
+    seg200 = np.repeat([0, 1, 2, -1], [70, 90, 25, 15])
+    # (name, shape, causal, q_offset, kv_offset, dropout rate); bf16 at d
+    # 64 and 128 runs the tensor-core lanes of #2 and #4, everything else
+    # the CUDA-core lanes (ops.flash_lane)
     cases = [
         ("packed_prefill", dict(b=1, hq=12, hkv=12, s=C, d=64, seg=pack_seg),
          True, 0, 0, 0.0),
@@ -466,6 +549,15 @@ def phase_kernels(device, timer, ops):
          True, 0, 0, 0.1),
         ("dropout_offsets_d128", dict(b=1, hq=4, hkv=4, s=96, d=128,
                                       seg=None), True, 3, 8, 0.1),
+        # ragged 64-tiles, GQA 4:1, segments with pads
+        ("ragged_gqa4_d128_seg", dict(b=1, hq=8, hkv=2, s=200, d=128,
+                                      seg=seg200[None]), True, 0, 0, 0.0),
+        # a 64-token chunk over a 320-token history
+        ("chunk_over_history", dict(b=1, hq=4, hkv=2, s=64, sk=320, d=64,
+                                    seg=None), True, 256, 0, 0.0),
+        # bf16 at d 96: the CUDA-core lanes (checked from a profile)
+        ("cuda_core_d96", dict(b=1, hq=4, hkv=2, s=130, d=96, seg=None),
+         True, 0, 0, 0.0),
     ]
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for name, kw, causal, qo, ko, rate in cases:
@@ -496,7 +588,7 @@ def phase_kernels(device, timer, ops):
                 emit(phase="kernel_time", kernel="flash_fwd", case=name,
                      dtype="float32", **timed)
     results["flash_fwd"] = dict(
-        name="flash_fwd", route="cuda",
+        name="flash_fwd", route="cuda", lane=FLASH_LANES,
         source="hetu_tpu_torch/csrc/flash_fwd.cu",
         replaces="hetu_tpu/ops/flash_pallas.py:184",
         max_abs_err=errs[torch.float32],
@@ -518,9 +610,15 @@ def phase_kernels(device, timer, ops):
                                                      lse, do, **args)
             check_bwd("flash backward", name, dtype, list(q.shape), got,
                       want, errs, dead_rows=max(0, ko - qo))
+            if name == "cuda_core_d96" and dtype == torch.bfloat16:
+                check_lane(name, timer.profile(lambda: (
+                    ops.flash_attention_fwd(q, k, v, seg, seg, **args),
+                    ops.flash_attention_bwd(q, k, v, seg, seg, out, lse, do,
+                                            **args))), "cuda_core")
     for kernel, line in (("flash_bwd_dq", 355), ("flash_bwd_dkv", 418)):
         results[kernel] = dict(
             name=kernel, route="cuda",
+            lane=FLASH_LANES if kernel == "flash_bwd_dkv" else "cuda_core",
             source="hetu_tpu_torch/csrc/flash_bwd.cu",
             replaces=f"hetu_tpu/ops/flash_pallas.py:{line}",
             max_abs_err=errs[kernel][torch.float32],
@@ -1023,12 +1121,15 @@ def phase_train_profile(run, n_steps: int = 3, phase: str = "train_profile"):
         cls = next((c for key, c in TRAIN_CLASSES if key in name), "other")
         by_class[cls] = by_class.get(cls, 0.0) + ms / n_steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    lanes = check_lane(phase, by_name, "tensor_core")
     emit(phase=phase, steps=n_steps, batch=run["batch_size"],
          ms_per_step=wall_ms / n_steps,
          device_kernels_per_step=n_kernels / n_steps,
          device_busy_ms_per_step=busy_ms / n_steps,
          device_idle_share=1.0 - busy_ms / wall_ms,
          device_ms_per_step_by_class=by_class,
+         flash_lane_ms_per_step={k: {ln: ms / n_steps for ln, ms in v.items()}
+                                 for k, v in lanes.items()},
          top_kernels_ms_per_step=[[n[:80], ms / n_steps] for n, ms in top])
 
 
@@ -1076,9 +1177,9 @@ def phase_train_kernels(device, timer, ops, b, results):
                                           causal=True, scale=scale)
     bwd = lambda: ops.flash_attention_bwd(  # noqa: E731
         q, k, v, None, None, out, lse, do, **args)
-    kern = timer.per_kernel(fwd, ["flash_fwd_kernel"])
+    kern = timer.per_kernel(fwd, ["flash_fwd_tc_kernel"])
     kern.update(timer.per_kernel(bwd, ["flash_bwd_dq_kernel",
-                                       "flash_bwd_dkv_kernel"]))
+                                       "flash_bwd_dkv_tc_kernel"]))
     plain_fwd = timer(lambda: ops.flash_attention_fwd_reference(
         q, k, v, None, None, causal=True, scale=scale), iters=5)
     plain_bwd = timer(lambda: ops.flash_attention_bwd_reference(
@@ -1094,11 +1195,11 @@ def phase_train_kernels(device, timer, ops, b, results):
     nbytes, flops = flash_work(q, k, None, True)
     (dq_b, dq_f), (dkv_b, dkv_f) = bwd_work(q, k, None, True)
     for kernel, key, plain, lib, nb, fl in (
-            ("flash_fwd", "flash_fwd_kernel", plain_fwd, lib_fwd, nbytes,
+            ("flash_fwd", "flash_fwd_tc_kernel", plain_fwd, lib_fwd, nbytes,
              flops),
             ("flash_bwd_dq", "flash_bwd_dq_kernel", plain_bwd, lib_bwd, dq_b,
              dq_f),
-            ("flash_bwd_dkv", "flash_bwd_dkv_kernel", plain_bwd, lib_bwd,
+            ("flash_bwd_dkv", "flash_bwd_dkv_tc_kernel", plain_bwd, lib_bwd,
              dkv_b, dkv_f)):
         bound_ms, bound_by = bound(nb, fl, q.dtype)
         t = dict(ms=kern[key], plain_ms=plain, library_ms=lib,
@@ -1245,6 +1346,7 @@ def phase_fused_kernels(device, ops):
     for kernel, line in zip(FUSED, (53, 112, 134)):
         results[kernel] = dict(
             name=kernel, route="cuda",
+            lane="tensor_core (bf16 h); cuda_core (fp32 h)",
             source="hetu_tpu_torch/csrc/fused_ce.cu",
             replaces=f"hetu_tpu/ops/fused_ce_pallas.py:{line}",
             **errs[kernel])
@@ -1533,7 +1635,8 @@ def phase_llama_kernels(device, timer, ops, results):
     results["paged_attention_int8"] = dict(
         name="paged_attention_int8", route="cuda",
         source="hetu_tpu_torch/csrc/paged_attention.cu",
-        replaces="hetu_tpu/ops/paged_pallas.py:86", lane="int8 (:123-127)",
+        replaces="hetu_tpu/ops/paged_pallas.py:86",
+        lane="int8 (:123-127), cuda_core",
         max_abs_err=errs[torch.float32],
         max_abs_err_bf16=errs[torch.bfloat16], shape="decode_1024 bf16",
         **timed["decode_1024"],
@@ -1592,6 +1695,10 @@ def phase_llama_kernels(device, timer, ops, results):
             check(err <= TOL[dtype], f"flash {name} {tag}: max abs err "
                                      f"{err} > {TOL[dtype]}")
             if dtype == torch.bfloat16 and name == "llama_packed_prefill":
+                check_lane(name, timer.profile(
+                    lambda: ops.flash_attention_fwd(
+                        q, k, v, seg, seg, causal=True, scale=scale)),
+                    "tensor_core", kernels=("flash_fwd",))
                 t = time_flash(timer, ops, q, k, v, seg, scale)
                 emit(phase="kernel_time", kernel="flash_fwd", case=name,
                      dtype="bfloat16", shape=list(q.shape), **t)
@@ -2007,9 +2114,14 @@ def main() -> int:
     emit(phase="build", seconds=time.perf_counter() - t0,
          kernels={n: {"seconds": b["seconds"], "cached": b["cached"]}
                   for n, b in built.items()})
+    ptxas = check_ptxas(built)
 
     timer = Timer(device)
     kernels = phase_kernels(device, timer, ops)
+    for name, sym in (("flash_fwd", "flash_fwd_tc"),
+                      ("flash_bwd_dkv", "flash_bwd_dkv_tc")):
+        kernels[name]["ptxas"] = {k: v for k, v in ptxas.items()
+                                  if k.startswith(sym)}
     paths = {"engine": phase_engine(device, smi)}
     run = phase_train(device, smi)
     paths["train"] = run["counts"]
@@ -2035,7 +2147,7 @@ def main() -> int:
         entry["launches_by_path"] = {p: c.get(name, 0)
                                      for p, c in paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
-    order = ("name", "route", "source", "replaces", "launches",
+    order = ("name", "route", "lane", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
     line = [{**{k: e.get(k) for k in order},

@@ -46,6 +46,40 @@
 #include <type_traits>
 
 #include "attention_common.cuh"
+#include "mma_bf16.cuh"
+
+// Mma<bf16> (the tensor-core product and its fragments) is in mma_bf16.cuh
+namespace hetu {
+
+// fp32: the same fragment product on the CUDA cores, k in order (no
+// TF32); a "fragment" is where its operand lies in shared memory
+template <> struct Mma<float> {
+  struct A { const float* p; int ld; };
+  struct B { const float* p; int sk, sj; };  // B[k][j] = p[k * sk + j * sj]
+  __device__ __forceinline__ static A load_a(const float* a, int lda) {
+    return {a, lda};
+  }
+  template <bool kBT>
+  __device__ __forceinline__ static B load_b(const float* b, int ldb) {
+    return kBT ? B{b, 1, ldb} : B{b, ldb, 1};
+  }
+  __device__ __forceinline__ static void mma(float (&c)[4], const A& a,
+                                             const B& b) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const float x0 = a.p[g * a.ld + k], x1 = a.p[(g + 8) * a.ld + k];
+      const float y0 = b.p[k * b.sk + 2 * t * b.sj];
+      const float y1 = b.p[k * b.sk + (2 * t + 1) * b.sj];
+      c[0] = fmaf(x0, y0, c[0]);
+      c[1] = fmaf(x0, y1, c[1]);
+      c[2] = fmaf(x1, y0, c[2]);
+      c[3] = fmaf(x1, y1, c[3]);
+    }
+  }
+};
+
+}  // namespace hetu
 
 namespace {
 
@@ -95,78 +129,6 @@ __device__ __forceinline__ void stage(T* dst, int ld, const S* src, int n,
     }
   }
 }
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// Operand fragments of one m16n8k16 product c (16 x 8, fp32) += A (16 x
-// 16) B (16 x 8). Lane (g, t) = (lane / 4, lane % 4) holds c's rows g and
-// g + 8, columns 2t and 2t + 1. A is row-major at `a` (stride lda); B[k][j]
-// is at b[j * ldb + k] when kBT (k contiguous) or at b[k * ldb + j]. A
-// caller loads a fragment once and reuses it across the products that
-// share it.
-template <typename T> struct Mma;
-
-// bf16: registers in mma.sync's layout, the product on the tensor cores
-template <> struct Mma<bf16> {
-  struct A { uint32_t r[4]; };
-  struct B { uint32_t r[2]; };
-  __device__ __forceinline__ static A load_a(const bf16* a, int lda) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    return {{ld32(a + g * lda + 2 * t), ld32(a + (g + 8) * lda + 2 * t),
-             ld32(a + g * lda + 2 * t + 8),
-             ld32(a + (g + 8) * lda + 2 * t + 8)}};
-  }
-  template <bool kBT>
-  __device__ __forceinline__ static B load_b(const bf16* b, int ldb) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    if (kBT) return {{ld32(b + g * ldb + 2 * t), ld32(b + g * ldb + 2 * t + 8)}};
-    return {{pack2(b[(2 * t) * ldb + g], b[(2 * t + 1) * ldb + g]),
-             pack2(b[(2 * t + 8) * ldb + g], b[(2 * t + 9) * ldb + g])}};
-  }
-  __device__ __forceinline__ static void mma(float (&c)[4], const A& a,
-                                             const B& b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "r"(b.r[0]),
-          "r"(b.r[1]));
-  }
-};
-
-// fp32: the same fragment product on the CUDA cores, k in order (no
-// TF32); a "fragment" is where its operand lies in shared memory
-template <> struct Mma<float> {
-  struct A { const float* p; int ld; };
-  struct B { const float* p; int sk, sj; };  // B[k][j] = p[k * sk + j * sj]
-  __device__ __forceinline__ static A load_a(const float* a, int lda) {
-    return {a, lda};
-  }
-  template <bool kBT>
-  __device__ __forceinline__ static B load_b(const float* b, int ldb) {
-    return kBT ? B{b, 1, ldb} : B{b, ldb, 1};
-  }
-  __device__ __forceinline__ static void mma(float (&c)[4], const A& a,
-                                             const B& b) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const float x0 = a.p[g * a.ld + k], x1 = a.p[(g + 8) * a.ld + k];
-      const float y0 = b.p[k * b.sk + 2 * t * b.sj];
-      const float y1 = b.p[k * b.sk + (2 * t + 1) * b.sj];
-      c[0] = fmaf(x0, y0, c[0]);
-      c[1] = fmaf(x0, y1, c[1]);
-      c[2] = fmaf(x1, y0, c[2]);
-      c[3] = fmaf(x1, y1, c[3]);
-    }
-  }
-};
 
 // s = X Y^T for X (R x E) and Y (kT x E) in shared memory. The block's
 // (R/16) x (kT/8) fragments are dealt to the 8 warps: warp w owns column

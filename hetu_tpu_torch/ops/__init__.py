@@ -12,7 +12,7 @@ from hetu_tpu_torch.ops.dropout import dropout
 from hetu_tpu_torch.ops.flash import (
     dropout_keep, dropout_keep_bh, flash_attention_bwd,
     flash_attention_bwd_reference, flash_attention_fwd,
-    flash_attention_fwd_reference,
+    flash_attention_fwd_reference, flash_lane,
 )
 from hetu_tpu_torch.ops.fused_ce import (
     fused_ce_dh, fused_ce_dh_reference, fused_ce_dw, fused_ce_dw_reference,
@@ -35,7 +35,7 @@ __all__ = [
     "dequantize_int8", "dropout", "dropout_keep", "dropout_keep_bh",
     "flash_attention",
     "flash_attention_bwd", "flash_attention_bwd_reference",
-    "flash_attention_fwd", "flash_attention_fwd_reference",
+    "flash_attention_fwd", "flash_attention_fwd_reference", "flash_lane",
     "fused_ce_dh", "fused_ce_dh_reference", "fused_ce_dw",
     "fused_ce_dw_reference", "fused_ce_fwd", "fused_lm_ce",
     "fused_lse_tgt", "fused_lse_tgt_reference",

@@ -149,16 +149,24 @@ def flash_attention_fwd_reference(q, k, v, q_seg, kv_seg, *, causal: bool,
     """The plain forward on full matrices in fp32: q (b, hq, sq, d), k/v
     (b, hkv, sk, d), seg ids (b, s) or None. Returns out (b, hq, sq, d)
     in q's dtype and lse (b, hq, sq). Dropout masks only what multiplies
-    v; the lse stays undropped."""
+    v; the lse stays undropped. With bf16 inputs the probabilities are
+    rounded to bf16 before ``p v``, as in the TPU kernel."""
     _drop_args(dropout_rate, seed)
     s, mask, _, _ = _masked_logits(q, k, q_seg, kv_seg, causal, scale,
                                    q_offset, kv_offset)
     lse = torch.logsumexp(s, dim=-1)
-    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
-    p = _dropped(p, _keep_bh(q, k, dropout_rate, seed, q_offset, kv_offset),
-                 dropout_rate)
+    keep = _keep_bh(q, k, dropout_rate, seed, q_offset, kv_offset)
     vf = v.float().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
-    return (p @ vf).to(q.dtype), lse
+    if v.dtype == torch.float32:
+        p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+        return (_dropped(p, keep, dropout_rate) @ vf).to(q.dtype), lse
+    # low precision: the TPU kernel's rounding point (flash_pallas.py:235)
+    # -- p relative to the row max, dropped, rounded to v's dtype before
+    # p v; the sum l stays fp32, undropped and unrounded
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = p.sum(-1, keepdim=True)
+    pv = _dropped(p, keep, dropout_rate).to(v.dtype).float() @ vf
+    return (pv / torch.where(l == 0, 1.0, l)).to(q.dtype), lse
 
 
 def _delta(out, do):
@@ -175,8 +183,9 @@ def flash_attention_bwd_reference(q, k, v, q_seg, kv_seg, out, lse, do, *,
     and ``delta = rowsum(dO * O)`` (computed here unless given):
     ``p = exp(s - lse)`` zeroed under the mask, ``dp = dO v^T`` (dropped
     and rescaled), ``ds = p (dp - delta)``; dq = ds k * scale, dk = ds^T
-    q~, dv = p~^T dO, dk/dv summed over each GQA group. Returns dq in q's
-    dtype and dk/dv in k's."""
+    q~, dv = p~^T dO, dk/dv summed over each GQA group; with bf16 inputs
+    ds and p~ are rounded to bf16 before those products, as in the TPU
+    kernels. Returns dq in q's dtype and dk/dv in k's."""
     _drop_args(dropout_rate, seed)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -190,14 +199,34 @@ def flash_attention_bwd_reference(q, k, v, q_seg, kv_seg, out, lse, do, *,
     vf = v.float().repeat_interleave(g, dim=1)
     dp = _dropped(dof @ vf.transpose(-1, -2), keep, dropout_rate)
     ds = p * (dp - delta[..., None])
-    dq = (ds @ kf) * scale
-    dk = (ds.transpose(-1, -2) @ qs).reshape(b, hkv, g, sk, d).sum(2)
-    dv = (_dropped(p, keep, dropout_rate).transpose(-1, -2) @ dof
+    # the TPU kernels' rounding points (flash_pallas.py:402, :466, :475):
+    # ds to k's dtype before dq and to q's before dk, p~ to dO's before dv
+    # (no-ops at fp32)
+    dq = (ds.to(k.dtype).float() @ kf) * scale
+    dk = (ds.to(q.dtype).float().transpose(-1, -2) @ qs
           ).reshape(b, hkv, g, sk, d).sum(2)
+    dv = (_dropped(p, keep, dropout_rate).to(do.dtype).float()
+          .transpose(-1, -2) @ dof).reshape(b, hkv, g, sk, d).sum(2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # -- the kernel wrappers ------------------------------------------------------
+
+#: head dims at which bf16 calls of #2 and #4 take the tensor-core lane
+TC_HEAD_DIMS = (64, 128)
+
+
+def flash_lane(dtype: torch.dtype, head_dim: int) -> str:
+    """The lane a CUDA call of the flash forward (#2) or dK/dV (#4)
+    kernel takes, from dtype and head_dim alone, decided before the
+    launch (``hetu_flash_fwd``/``hetu_flash_bwd_dkv`` branch on the same
+    rule): ``"tensor_core"`` (bf16 ``mma.sync``, a ``cp.async`` pipeline)
+    for bf16 at head_dim 64 or 128, else ``"cuda_core"`` (fp32 CUDA
+    cores). The dQ kernel (#3) has the CUDA-core lane only."""
+    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+        return "tensor_core"
+    return "cuda_core"
+
 
 def _check_inputs(what, q, k, v, q_seg, kv_seg, extra=()):
     if q.device.type != "cuda":
@@ -225,6 +254,13 @@ def _check_inputs(what, q, k, v, q_seg, kv_seg, extra=()):
             raise ValueError(f"{what}: {name} must be a contiguous "
                              f"{dtype or q.dtype} {shape or ''} tensor on "
                              f"{q.device}")
+    if flash_lane(q.dtype, d) == "tensor_core":
+        # the tensor-core lanes copy rows 16 bytes at a time
+        rows = [("q", q), ("k", k), ("v", v)]
+        rows += [(name, t) for name, t, *_ in extra if name == "do"]
+        for name, t in rows:
+            if t.data_ptr() % 16:
+                raise ValueError(f"{what}: {name} is not 16-byte aligned")
     if (q_seg is None) != (kv_seg is None):
         raise ValueError("pass both q_seg and kv_seg, or neither")
     if q_seg is not None:
