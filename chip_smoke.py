@@ -18,8 +18,8 @@ Phases, each printing one JSON line:
    serving path's shapes (fp32 and bf16) and at edge shapes (GQA, segment
    pads, offsets that leave rows with no key, dropout 0.1, a ragged
    200-token sequence, a 64-token chunk over a 320-token history). bf16
-   at head_dim 64/128 runs the tensor-core lanes of the flash forward and
-   dK/dV, the rest their CUDA-core lanes; a bf16 head_dim-96 case must
+   at head_dim 64/128 runs the tensor-core lanes of the flash forward, dQ
+   and dK/dV, the rest their CUDA-core lanes; a bf16 head_dim-96 case must
    take the CUDA-core lanes (``lane`` lines, read from a profile). Max
    abs error
    against its bound (1e-4 fp32: summation order; 2e-2 bf16: output
@@ -52,11 +52,15 @@ Phases, each printing one JSON line:
    989 TFLOP/s bf16 dense peak, the batch that ran and peak memory.
 6. train_kernels -- the three flash kernels at the batch that ran (12
    heads, seq 1024, d 64, causal), fp32 and bf16, against their plain
-   versions, then timed in bf16 as the main path runs them.
+   versions, then timed in bf16 as the main path runs them: the
+   per-kernel profile three times (``kernel_spread``: min, median, max
+   of the mean over the launches the profiler recorded, which late in
+   this process may be fewer than made), the median reported, and
+   checked against CUDA events around whole calls (``kernel_events``).
 7. train_profile -- ``torch.profiler`` over 3 steps: device ms per step
-   by class and the device's idle share; the flash forward's and dK/dV's
-   device time must lie under the tensor-core symbols (``lane``), as in
-   the combo's profile and at the Llama pack.
+   by class and the device's idle share; the three flash kernels' device
+   time must lie under the tensor-core symbols (``lane``), as in the
+   combo's profile (and the forward's at the Llama pack).
 8. fused_ce kernels -- the fused LM-head CE kernels (forward, dH, dW)
    against their plain versions with h and w each fp32 or bf16, at V =
    50257 and a ragged V = 1013, N not a multiple of any token tile,
@@ -203,12 +207,13 @@ class Timer:
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
-    def profile(self, fn, iters: int = 10) -> dict:
+    def profile(self, fn, iters: int = 10, counts=None) -> dict:
         """Device ms by kernel name over ``iters`` calls of ``fn``, each
         after the L2 flush, from ``torch.profiler`` (CPU and CUDA
         activity, as the step profiles, which have read every kernel in
         every run; a CUDA-only window of a few short launches late in the
-        script once recorded none)."""
+        script once recorded none); ``counts``, if given, receives the
+        launches recorded by name."""
         from torch.profiler import ProfilerActivity, profile
         fn()
         torch.cuda.synchronize()
@@ -218,17 +223,23 @@ class Timer:
                 self.flush.zero_()
                 fn()
             torch.cuda.synchronize()
-        return device_kernel_ms(prof)[0]
+        return device_kernel_ms(prof, counts)[0]
 
-    def per_kernel(self, fn, keys, iters: int = 10) -> dict:
-        """Mean device ms per call of each kernel whose name contains one
-        of ``keys`` (for a function that launches several kernels)."""
-        by_name = self.profile(fn, iters)
-        ms = {key: sum(t for n, t in by_name.items() if key in n) / iters
+    def per_kernel(self, fn, keys, iters: int = 10) -> tuple[dict, dict]:
+        """Mean device ms per launch of each kernel whose name contains
+        one of ``keys`` (for a function that launches several kernels),
+        and the launches of each the profiler recorded. The mean is over
+        the recorded launches: a profile late in a long process has
+        recorded as few as 4 of 10."""
+        counts: dict[str, int] = {}
+        by_name = self.profile(fn, iters, counts)
+        seen = {key: sum(c for n, c in counts.items() if key in n)
+                for key in keys}
+        check(all(seen.values()),
+              f"profiler saw no launch of {keys}: {seen}")
+        ms = {key: sum(t for n, t in by_name.items() if key in n) / seen[key]
               for key in keys}
-        check(all(v > 0 for v in ms.values()),
-              f"profiler saw no device time for {keys}: {ms}")
-        return ms
+        return ms, seen
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -272,16 +283,17 @@ def ptxas_entries(log: str) -> dict:
 def check_ptxas(built) -> dict:
     """Registers and spills of the tensor-core flash instances; the d 64
     ones (the training path's) must not spill."""
+    syms = [lanes["tensor_core"] for lanes in LANE_SYMBOLS.values()]
     found = {}
     for src in ("flash_fwd", "flash_bwd"):
         for name, e in ptxas_entries(built[src]["ptxas"]).items():
-            for sym in ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel"):
+            for sym in syms:
                 for d in (64, 128):
                     if f"{sym}ILi{d}E" in name:
                         found[f"{sym}<{d}>"] = e
     emit(phase="ptxas", kernels=found)
-    check(len(found) == 4, f"ptxas report lacks a tensor-core instance: "
-                           f"{sorted(found)}")
+    check(len(found) == 2 * len(syms),
+          f"ptxas report lacks a tensor-core instance: {sorted(found)}")
     for key, e in found.items():
         if key.endswith("<64>"):
             check(e.get("spill_stores") == 0 and e.get("spill_loads") == 0,
@@ -402,14 +414,17 @@ def bwd_inputs(gens, q, causal, scale, qo, ko, rate, seg, ops, k, v):
 
 def check_bwd(name, case, dtype, shape, got, want, errs, dead_rows=0):
     """Hold (dq, dk, dv) against the plain version; dq of rows that see
-    no key must be exactly 0."""
+    no key must be exactly 0. ``max_abs_ref`` beside each error: the bf16
+    bound is less than one ulp above |x| = 4."""
     torch.cuda.synchronize()
     tag = str(dtype).split(".")[1]
     for kernel, parts in (("flash_bwd_dq", (0,)), ("flash_bwd_dkv", (1, 2))):
         err = max(max_err(got[i], want[i]) for i in parts)
+        ref = max(float(want[i].float().abs().max()) for i in parts)
         ok = err <= TOL[dtype]
         emit(phase="kernel", kernel=kernel, case=case, dtype=tag,
-             shape=shape, max_abs_err=err, bound=TOL[dtype], ok=ok)
+             shape=shape, max_abs_err=err, max_abs_ref=ref,
+             bound=TOL[dtype], ok=ok)
         check(ok, f"{kernel} {case} {tag}: max abs err {err} > "
                   f"{TOL[dtype]}")
         errs[kernel][dtype] = max(errs[kernel][dtype], err)
@@ -418,9 +433,11 @@ def check_bwd(name, case, dtype, shape, got, want, errs, dead_rows=0):
               f"{name} {case}: dq of rows with no key not 0")
 
 
-#: the device symbols of the lanes of #2 and #4 (``ops.flash_lane``)
+#: the device symbols of the lanes of #2, #3 and #4 (``ops.flash_lane``)
 LANE_SYMBOLS = {"flash_fwd": {"tensor_core": "flash_fwd_tc_kernel",
                               "cuda_core": "flash_fwd_kernel"},
+                "flash_bwd_dq": {"tensor_core": "flash_bwd_dq_tc_kernel",
+                                 "cuda_core": "flash_bwd_dq_kernel"},
                 "flash_bwd_dkv": {"tensor_core": "flash_bwd_dkv_tc_kernel",
                                   "cuda_core": "flash_bwd_dkv_kernel"}}
 
@@ -532,8 +549,8 @@ def phase_kernels(device, timer, ops):
     skip2 = np.stack([skip_seg, skip_seg])
     seg200 = np.repeat([0, 1, 2, -1], [70, 90, 25, 15])
     # (name, shape, causal, q_offset, kv_offset, dropout rate); bf16 at d
-    # 64 and 128 runs the tensor-core lanes of #2 and #4, everything else
-    # the CUDA-core lanes (ops.flash_lane)
+    # 64 and 128 runs the tensor-core lanes of #2, #3 and #4, everything
+    # else the CUDA-core lanes (ops.flash_lane)
     cases = [
         ("packed_prefill", dict(b=1, hq=12, hkv=12, s=C, d=64, seg=pack_seg),
          True, 0, 0, 0.0),
@@ -617,8 +634,7 @@ def phase_kernels(device, timer, ops):
                                             **args))), "cuda_core")
     for kernel, line in (("flash_bwd_dq", 355), ("flash_bwd_dkv", 418)):
         results[kernel] = dict(
-            name=kernel, route="cuda",
-            lane=FLASH_LANES if kernel == "flash_bwd_dkv" else "cuda_core",
+            name=kernel, route="cuda", lane=FLASH_LANES,
             source="hetu_tpu_torch/csrc/flash_bwd.cu",
             replaces=f"hetu_tpu/ops/flash_pallas.py:{line}",
             max_abs_err=errs[kernel][torch.float32],
@@ -833,11 +849,12 @@ def phase_engine(device, card):
     return counts
 
 
-def device_kernel_ms(prof) -> tuple[dict, int]:
+def device_kernel_ms(prof, counts=None) -> tuple[dict, int]:
     """Device ms by kernel name, and the number of kernels, in a
-    ``torch.profiler`` trace. ``record_function`` ranges mirrored on the
-    device timeline (``Optimizer.step#...``) are skipped: they span
-    kernels that are counted on their own."""
+    ``torch.profiler`` trace (``counts``, if given, receives the number
+    by name). ``record_function`` ranges mirrored on the device timeline
+    (``Optimizer.step#...``) are skipped: they span kernels that are
+    counted on their own."""
     from torch.autograd import DeviceType
     by_name: dict[str, float] = {}
     n_kernels = 0
@@ -847,6 +864,8 @@ def device_kernel_ms(prof) -> tuple[dict, int]:
             n_kernels += 1
             by_name[e.name] = by_name.get(e.name, 0.0) \
                 + e.time_range.elapsed_us() / 1e3
+            if counts is not None:
+                counts[e.name] = counts.get(e.name, 0) + 1
     return by_name, n_kernels
 
 
@@ -1177,9 +1196,32 @@ def phase_train_kernels(device, timer, ops, b, results):
                                           causal=True, scale=scale)
     bwd = lambda: ops.flash_attention_bwd(  # noqa: E731
         q, k, v, None, None, out, lse, do, **args)
-    kern = timer.per_kernel(fwd, ["flash_fwd_tc_kernel"])
-    kern.update(timer.per_kernel(bwd, ["flash_bwd_dq_kernel",
-                                       "flash_bwd_dkv_tc_kernel"]))
+    # the per-kernel profile three times: its spread, and the median
+    reps, recorded = [], []
+    for _ in range(3):
+        f_ms, f_n = timer.per_kernel(fwd, ["flash_fwd_tc_kernel"])
+        b_ms, b_n = timer.per_kernel(bwd, ["flash_bwd_dq_tc_kernel",
+                                           "flash_bwd_dkv_tc_kernel"])
+        reps.append({**f_ms, **b_ms})
+        recorded.append({**f_n, **b_n})
+    card = nvidia_smi()
+    spread = {key: sorted(r[key] for r in reps) for key in reps[0]}
+    for key, ms in spread.items():
+        emit(phase="kernel_spread", kernel=key, case="train",
+             dtype="bfloat16", card=card, ms_min=ms[0], ms_median=ms[1],
+             ms_max=ms[2], runs=[r[key] for r in reps],
+             launches_recorded=[n[key] for n in recorded], launches=10)
+    # CUDA events around whole calls, which no lost profiler record can
+    # shorten: the forward is one kernel, the backward (delta given) dq
+    # then dk/dv
+    delta = (out.float() * do.float()).sum(-1)
+    emit(phase="kernel_events", case="train", dtype="bfloat16", card=card,
+         fwd_ms=timer(fwd), bwd_ms=timer(lambda: ops.flash_attention_bwd(
+             q, k, v, None, None, out, lse, do, delta=delta, **args)),
+         profile_fwd_ms=spread["flash_fwd_tc_kernel"][1],
+         profile_bwd_ms=spread["flash_bwd_dq_tc_kernel"][1]
+         + spread["flash_bwd_dkv_tc_kernel"][1])
+    del delta
     plain_fwd = timer(lambda: ops.flash_attention_fwd_reference(
         q, k, v, None, None, causal=True, scale=scale), iters=5)
     plain_bwd = timer(lambda: ops.flash_attention_bwd_reference(
@@ -1197,13 +1239,14 @@ def phase_train_kernels(device, timer, ops, b, results):
     for kernel, key, plain, lib, nb, fl in (
             ("flash_fwd", "flash_fwd_tc_kernel", plain_fwd, lib_fwd, nbytes,
              flops),
-            ("flash_bwd_dq", "flash_bwd_dq_kernel", plain_bwd, lib_bwd, dq_b,
-             dq_f),
+            ("flash_bwd_dq", "flash_bwd_dq_tc_kernel", plain_bwd, lib_bwd,
+             dq_b, dq_f),
             ("flash_bwd_dkv", "flash_bwd_dkv_tc_kernel", plain_bwd, lib_bwd,
              dkv_b, dkv_f)):
         bound_ms, bound_by = bound(nb, fl, q.dtype)
-        t = dict(ms=kern[key], plain_ms=plain, library_ms=lib,
-                 bound_ms=bound_ms, bound_by=bound_by, bytes=nb, flops=fl)
+        t = dict(ms=spread[key][1], ms_spread=spread[key], plain_ms=plain,
+                 library_ms=lib, bound_ms=bound_ms, bound_by=bound_by,
+                 bytes=nb, flops=fl)
         emit(phase="kernel_time", kernel=kernel, case="train",
              dtype="bfloat16", shape=list(q.shape), **t)
         if kernel == "flash_fwd":
@@ -2119,6 +2162,7 @@ def main() -> int:
     timer = Timer(device)
     kernels = phase_kernels(device, timer, ops)
     for name, sym in (("flash_fwd", "flash_fwd_tc"),
+                      ("flash_bwd_dq", "flash_bwd_dq_tc"),
                       ("flash_bwd_dkv", "flash_bwd_dkv_tc")):
         kernels[name]["ptxas"] = {k: v for k, v in ptxas.items()
                                   if k.startswith(sym)}

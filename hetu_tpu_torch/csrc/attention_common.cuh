@@ -87,13 +87,25 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Whether an element type is bf16: the lanes whose V was staged from bf16
+// round p before p v.
+template <typename T>
+constexpr bool kIsBf16 = false;
+template <>
+constexpr bool kIsBf16<__nv_bfloat16> = true;
+
 // One online-softmax step for one query row against the staged key tile.
 // Called by a whole warp; lane j holds key j. qrow: the row's scaled q in
 // shared memory; ks/vs: the tile (kTile rows of stride ld); live: whether
 // lane's key is visible to this row; drop: the dropout factor of lane's
 // key (1 without dropout), which scales only what meets v, so l and the
 // lse stay undropped. m starts at -inf (so exp(m_prev - m_next) never
-// sees -inf - -inf), l and acc at 0.
+// sees -inf - -inf), l and acc at 0. kRoundP (V staged from bf16): p,
+// relative to the running max and times the dropout factor, is rounded to
+// bf16 before p v, as the TPU kernels cast p to v's dtype
+// (paged_pallas.py:148, flash_pallas.py:235); l stays fp32, undropped and
+// unrounded.
+template <bool kRoundP>
 __device__ __forceinline__ void online_softmax_tile(
     const float* qrow, const float* ks, const float* vs, int ld, int d,
     bool live, float& m, float& l, float (&acc)[kMaxCols],
@@ -107,7 +119,8 @@ __device__ __forceinline__ void online_softmax_tile(
   const float alpha = expf(m - m_next);
   l = alpha * l + warp_sum(p);
   m = m_next;
-  const float pv = p * drop;
+  float pv = p * drop;
+  if (kRoundP) pv = __bfloat162float(__float2bfloat16_rn(pv));
   const int ncol = d >> 5;
 #pragma unroll
   for (int t = 0; t < kMaxCols; ++t) acc[t] *= alpha;

@@ -23,16 +23,43 @@
 // or 8 (dk/dv) flops per (live q, k, column) against a few hundred bytes
 // per row: dk/dv's 103.2 GFLOP take 0.1043 ms on the 989 TFLOP/s of the
 // bf16 tensor cores (1.54 ms on the 67 TFLOP/s of the fp32 cores), its
-// 305 MB 0.0911 ms at 3.35 TB/s.
+// 305 MB 0.0911 ms at 3.35 TB/s; dq's 77.4 GFLOP take 0.0782 ms, its
+// 255 MB 0.0761 ms.
 //
-// dq (#3), one lane: the forward's CUDA-core layout of 4 warps on fp32
-// cores, shared-memory tiles of stride d + 1 (conflict-free per-lane
-// rows). One block per (16-query chunk, q head, batch row) loops over kv
-// tiles of 32 keys, one key per lane, and accumulates dq in registers
-// (d / 32 columns per lane), as the forward accumulates out.
+// Each kernel has two lanes, picked from dtype and head_dim before the
+// launch (ops/flash.py flash_lane): the tensor cores for bf16 at d = 64
+// and 128, the CUDA cores for fp32 at any d and bf16 at other d.
 //
-// dk/dv (#4), two lanes picked from dtype and head_dim before the launch
-// (ops/flash.py flash_lane). Both sum the g = hq / hkv q heads of a GQA
+// dq (#3):
+//   - Tensor cores: one block of 4 warps per (64-query tile, q head,
+//     batch row); warp w owns queries 16w..16w+15 and keeps their dq in
+//     fp32 registers (d / 2 a thread). q and dO of the tile come in once
+//     by cp.async; each thread rounds the q chunks it copied to q~ = q *
+//     scale in bf16 in place (bit-equal to the forward's q~). They stay
+//     as A fragments in registers at d = 64 and are re-read by ldmatrix
+//     per kv tile at d = 128. lse, delta and the q segment ids of a
+//     thread's two rows stay in registers. K, V and the key segment ids
+//     stream in 64-key tiles through a 2-stage cp.async ring, up to the
+//     block's last visible key (tiles wholly above the diagonal never
+//     load). Per kv tile, all on mma.sync m16n8k16 with fp32
+//     accumulators:
+//       S = q~ K^T;  dP = dO V^T (K and V k-contiguous B operands);
+//       P = exp(S - lse), zeroed under the mask after the exp;
+//       dS = P (dP x the dropout factor - delta);
+//       dQ += round_bf16(dS) K (dS repacked in registers as the A
+//       operand, K an n-contiguous B operand by ldmatrix.trans).
+//     Masks only on tiles that straddle the diagonal, the ragged edge or
+//     (a warp vote) a segment boundary. dq = round_bf16(acc * scale) is
+//     written once, in packed pairs: no atomics, a deterministic result.
+//     Shared memory: q~, dO and two stages of K, V and the key ids, rows
+//     XOR-swizzled: 49,664 B at d = 64, 98,816 B at d = 128.
+//   - CUDA cores: the forward's CUDA-core layout of 4 warps on fp32
+//     cores, shared-memory tiles of stride d + 1 (conflict-free per-lane
+//     rows). One block per (16-query chunk, q head, batch row) loops over
+//     kv tiles of 32 keys, one key per lane, and accumulates dq in
+//     registers (d / 32 columns per lane), as the forward accumulates out.
+//
+// dk/dv (#4). Both lanes sum the g = hq / hkv q heads of a GQA
 // group inside the block: no (b, hq, sk, d) fp32 buffer, no atomics, a
 // deterministic result (the TPU kernel writes per q head and sums after,
 // :614-616).
@@ -337,12 +364,12 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-// ---- the tensor-core lane of dk/dv (bf16, d = 64 or 128) -------------------
+// ---- the tensor-core lanes (bf16, d = 64 or 128) ---------------------------
 
 using bf16 = __nv_bfloat16;
-constexpr int kTcThreads = 128;  // 4 warps x 16 keys
-constexpr int kTcKeys = 64;      // keys per block
-constexpr int kTcRows = 64;      // queries per streamed tile
+constexpr int kTcThreads = 128;  // 4 warps x 16 keys (dk/dv) or queries (dq)
+constexpr int kTcKeys = 64;      // keys per tile
+constexpr int kTcRows = 64;      // queries per tile
 
 // K and V, then 2 stages of q~, dO and the per-query lse, delta, segment id
 template <int D>
@@ -629,10 +656,255 @@ int launch_dkv_tc(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// ---- dq on the tensor cores -------------------------------------------------
+
+// q~ and dO of the block's queries, then 2 stages of K, V and the key
+// segment ids
+template <int D>
+__host__ __device__ constexpr size_t dq_tc_smem_bytes() {
+  return (size_t)(2 * kTcRows + 4 * kTcKeys) * D * sizeof(bf16) +
+         2 * kTcKeys * sizeof(int);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 2)
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       const int* __restrict__ q_seg,
+                       const int* __restrict__ kv_seg, bf16* __restrict__ dq,
+                       int hq, int hkv, int sq, int sk, float scale,
+                       int causal, int q_offset, int kv_offset, Dropout drop) {
+  constexpr int CH = D / 8;  // 16-byte chunks per row
+  // q~ and dO as A fragments in registers at d = 64; at d = 128 they are
+  // read again by ldmatrix for each kv tile, which keeps the registers
+  // under the 2-blocks-per-SM budget
+  constexpr bool kResident = D == 64;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // kTcRows x D: q~
+  bf16* dos = qs + kTcRows * D;                  // kTcRows x D: dO
+  bf16* ks = dos + kTcRows * D;                  // 2 stages x kTcKeys x D
+  bf16* vs = ks + 2 * kTcKeys * D;               // 2 stages x kTcKeys x D
+  int* kseg_s = reinterpret_cast<int*>(vs + 2 * kTcKeys * D);  // 2 x kTcKeys
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * kTcRows, ih = blockIdx.y, ib = blockIdx.z;
+  const int ikv = ih / (hq / hkv);
+  const size_t sbase = ((size_t)ib * hq + ih) * sq;  // row (ib, ih, 0)
+  const bf16* kb = k + ((size_t)ib * hkv + ikv) * sk * D;
+  const bf16* vb = v + ((size_t)ib * hkv + ikv) * sk * D;
+  const bool has_seg = q_seg != nullptr;
+
+  // diagonal skip: tiles past the block's last query position never load
+  int k_end = sk;
+  if (causal)
+    k_end = min(sk, max(0, q0 + kTcRows - 1 + q_offset - kv_offset + 1));
+  const int n_tiles = (k_end + kTcKeys - 1) / kTcKeys;
+
+  for (int c = tid; c < kTcRows * CH; c += kTcThreads) {
+    const int r = c / CH, col = (c % CH) * 8;
+    const bool in = q0 + r < sq;
+    const size_t src = (sbase + (in ? q0 + r : 0)) * D + col;
+    cp_async16(qs + swz<D>(r, col), q + src, in);
+    cp_async16(dos + swz<D>(r, col), dout + src, in);
+  }
+  cp_async_commit();
+
+  auto load_tile = [&](int j) {
+    const int k0 = j * kTcKeys, st = j & 1;
+    bf16* kd = ks + st * kTcKeys * D;
+    bf16* vd = vs + st * kTcKeys * D;
+    for (int c = tid; c < kTcKeys * CH; c += kTcThreads) {
+      const int r = c / CH, col = (c % CH) * 8;
+      const bool in = k0 + r < sk;
+      const size_t src = (size_t)(in ? k0 + r : 0) * D + col;
+      cp_async16(kd + swz<D>(r, col), kb + src, in);
+      cp_async16(vd + swz<D>(r, col), vb + src, in);
+    }
+    if (has_seg && tid < kTcKeys) {
+      const bool in = k0 + tid < sk;
+      cp_async4(kseg_s + st * kTcKeys + tid,
+                kv_seg + (size_t)ib * sk + (in ? k0 + tid : 0), in);
+    }
+    cp_async_commit();
+  };
+  if (n_tiles > 0) {
+    load_tile(0);
+    cp_async_wait<1>();  // q and dO landed; tile 0 may be in flight
+  } else {
+    cp_async_wait<0>();
+  }
+  // q~ = q * scale rounded to bf16, in place, by the thread that copied
+  // each chunk (bit-equal to the forward's q~)
+  for (int c = tid; c < kTcRows * CH; c += kTcThreads) {
+    const int r = c / CH, col = (c % CH) * 8;
+    uint4* p = reinterpret_cast<uint4*>(qs + swz<D>(r, col));
+    uint4 x = *p;
+    bf16* e = reinterpret_cast<bf16*>(&x);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      e[i] = __float2bfloat16(__bfloat162float(e[i]) * scale);
+    *p = x;
+  }
+
+  const int qw = q0 + warp * 16;  // this warp's first query row
+  const int rows[2] = {qw + gr, qw + gr + 8};
+  float row_lse[2], row_delta[2];
+  int qseg[2] = {0, 0};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = rows[r] < sq;
+    row_lse[r] = in ? lse[sbase + rows[r]] : 0.f;
+    row_delta[r] = in ? delta[sbase + rows[r]] : 0.f;
+    if (has_seg && in) qseg[r] = q_seg[(size_t)ib * sq + rows[r]];
+  }
+  __syncthreads();  // q~ and dO complete for every thread
+  MmaBf16::A qa[D / 16], da[D / 16];
+  if (kResident) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      qa[kk] = ldsm_a<D>(qs, warp * 16, kk * 16);
+      da[kk] = ldsm_a<D>(dos, warp * 16, kk * 16);
+    }
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const uint32_t salt = drop.salt(ib, ih);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      load_tile(j + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile j has landed for every thread
+    const int k0 = j * kTcKeys, st = j & 1;
+    const bf16* kt = ks + st * kTcKeys * D;
+    const bf16* vt = vs + st * kTcKeys * D;
+    const int* kseg = kseg_s + st * kTcKeys;
+    // warp-uniform: every key of the tile above this warp's diagonal
+    const bool dead = causal && k0 + kv_offset > qw + 15 + q_offset;
+    if (!dead) {
+      // S = q~ K^T and dP = dO V^T (16 queries x 64 keys each)
+      float s[8][4], dp[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const MmaBf16::A a =
+            kResident ? qa[kk] : ldsm_a<D>(qs, warp * 16, kk * 16);
+        const MmaBf16::A b =
+            kResident ? da[kk] : ldsm_a<D>(dos, warp * 16, kk * 16);
+#pragma unroll
+        for (int n = 0; n < 8; n += 2) {
+          MmaBf16::B b0, b1;
+          ldsm_bt<D>(b0, b1, kt, n * 8, kk * 16);
+          MmaBf16::mma(s[n], a, b0);
+          MmaBf16::mma(s[n + 1], a, b1);
+          ldsm_bt<D>(b0, b1, vt, n * 8, kk * 16);
+          MmaBf16::mma(dp[n], b, b0);
+          MmaBf16::mma(dp[n + 1], b, b1);
+        }
+      }
+
+      // masks, only where the tile is not wholly live for this warp;
+      // element (n, i): query rows[i >> 1], key k0 + n * 8 + 2t + (i & 1)
+      bool masked = k0 + kTcKeys > sk ||
+                    (causal && k0 + kTcKeys - 1 + kv_offset > qw + q_offset);
+      if (has_seg && !masked) {
+        bool same = true;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int id = kseg[n * 8 + 2 * t + e];
+            same = same && id == qseg[0] && id == qseg[1];
+          }
+        masked = !__all_sync(0xffffffffu, same);
+      }
+      // P = exp(S - lse), zeroed under the mask after the exp; dS = P (dP
+      // x the dropout factor - delta), into dp
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kj = k0 + n * 8 + 2 * t + (i & 1), r = i >> 1;
+          bool ok = true;
+          if (masked) {
+            ok = kj < sk;
+            if (causal) ok = ok && rows[r] + q_offset >= kj + kv_offset;
+            if (has_seg) ok = ok && kseg[kj - k0] == qseg[r];
+          }
+          const float p = ok ? __expf(s[n][i] - row_lse[r]) : 0.f;
+          float x = dp[n][i];
+          if (drop.on)
+            x *= drop.scale(salt, rows[r] + q_offset, kj + kv_offset);
+          dp[n][i] = p * (x - row_delta[r]);
+        }
+
+      // dQ += round_bf16(dS) K: keys kk*16..kk*16+15 are the k-step
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const MmaBf16::A a = acc_to_a(dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int n = 0; n < D / 8; n += 2) {
+          MmaBf16::B b0, b1;
+          ldsm_b<D>(b0, b1, kt, kk * 16, n * 8);
+          MmaBf16::mma(acc[n], a, b0);
+          MmaBf16::mma(acc[n + 1], a, b1);
+        }
+      }
+    }
+    __syncthreads();  // stage j & 1 consumed before tile j + 2 refills it
+  }
+
+  // dq = round_bf16(acc * scale), written once; a row that saw no live
+  // key gives exact 0
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= sq) continue;
+    bf16* row = dq + (sbase + rows[r]) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(row + n * 8) =
+          pack_bf16(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+  }
+}
+
+template <int D>
+int launch_dq_tc(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 const void* q_seg, const void* kv_seg, void* dq, int b,
+                 int hq, int hkv, int sq, int sk, float scale, int causal,
+                 int q_offset, int kv_offset, Dropout drop,
+                 cudaStream_t stream) {
+  const size_t smem = dq_tc_smem_bytes<D>();
+  cudaError_t err = allow_smem(flash_bwd_dq_tc_kernel<D>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((sq + kTcRows - 1) / kTcRows, hq, b);
+  flash_bwd_dq_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg),
+      static_cast<bf16*>(dq), hq, hkv, sq, sk, scale, causal, q_offset,
+      kv_offset, drop);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q/dout (b, hq, sq, d), k/v (b, hkv, sk, d), contiguous, fp32 (bf16 == 0)
-// or bf16 (bf16 == 1; 16-byte aligned for dk/dv at d = 64 and 128);
+// or bf16 (bf16 == 1; 16-byte aligned at d = 64 and 128);
 // lse/delta (b, hq, sq) fp32; q_seg (b, sq) / kv_seg
 // (b, sk) int32, or both null; dropout as in hetu_flash_fwd. dq comes out
 // in q's dtype, dk/dv in k's. Each launches on `stream` and returns
@@ -648,6 +920,15 @@ extern "C" int hetu_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout drop{drop_on, seed, threshold, inv_keep};
+  // the lane, from dtype and head_dim alone (ops/flash.py flash_lane)
+  if (bf16 && d == 64)
+    return launch_dq_tc<64>(q, k, v, dout, lse, delta, q_seg, kv_seg, dq, b,
+                            hq, hkv, sq, sk, scale, causal, q_offset,
+                            kv_offset, drop, s);
+  if (bf16 && d == 128)
+    return launch_dq_tc<128>(q, k, v, dout, lse, delta, q_seg, kv_seg, dq, b,
+                             hq, hkv, sq, sk, scale, causal, q_offset,
+                             kv_offset, drop, s);
   if (bf16)
     return launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, q_seg, kv_seg,
                                     dq, b, hq, hkv, sq, sk, d, scale, causal,

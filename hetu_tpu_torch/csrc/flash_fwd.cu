@@ -59,7 +59,8 @@
 // kernel's sequential kv grid axis a loop inside the block carrying m, l
 // and the accumulator in registers (4 rows per warp, d / 32 columns per
 // lane), keys staged 32 at a time in fp32 shared memory, one key per lane
-// for q k^T and one output column per lane for p v. Its p stays fp32.
+// for q k^T and one output column per lane for p v. With bf16 inputs p~
+// is rounded to bf16 before p v (:235), as in the tensor-core lane.
 
 #include "attention_common.cuh"
 #include "mma_bf16.cuh"
@@ -142,8 +143,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       bool live = kj < sk;
       if (causal) live = live && (qi + q_offset >= kj + kv_offset);
       if (q_seg != nullptr) live = live && (qseg[i] == kseg[lane]);
-      online_softmax_tile(qs + r * ld, ks, vs, ld, d, live, m[i], l[i], acc[i],
-                          drop.scale(salt, qi + q_offset, kj + kv_offset));
+      online_softmax_tile<kIsBf16<T>>(
+          qs + r * ld, ks, vs, ld, d, live, m[i], l[i], acc[i],
+          drop.scale(salt, qi + q_offset, kj + kv_offset));
     }
   }
 

@@ -18,7 +18,10 @@
 // :99-103 and :123-127). The int8 lane dequantizes each element as it is
 // staged, float(code) * scale in fp32, exactly as the TPU kernel
 // dequantizes its tile; everything after staging is the same fp32 code
-// for every lane. A row never written has scale 0 and dequantizes to 0.
+// for every lane but one rounding point: the bf16 arena lane rounds p to
+// bf16 before p v (:148 casts p to v's dtype), while the fp32 and int8
+// lanes keep it fp32 (the int8 lane's v is fp32, as in the TPU kernel).
+// A row never written has scale 0 and dequantizes to 0.
 //
 // What bounds it on an H100: bytes from HBM. A (slot, kv head) reads its
 // live K and V rows once -- 2 * context * d * itemsize bytes, plus 8 bytes
@@ -131,7 +134,8 @@ paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
       const int qpos = off + rr / g;
       if (k0 > qpos) continue;   // this row's dead lanes
       const bool live = kp < n_keys && kp <= qpos;
-      online_softmax_tile(qs + r * ld, ks, vs, ld, d, live, m[i], l[i], acc[i]);
+      online_softmax_tile<kIsBf16<KV>>(qs + r * ld, ks, vs, ld, d, live, m[i],
+                                       l[i], acc[i]);
     }
   }
 

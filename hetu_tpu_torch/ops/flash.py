@@ -212,17 +212,17 @@ def flash_attention_bwd_reference(q, k, v, q_seg, kv_seg, out, lse, do, *,
 
 # -- the kernel wrappers ------------------------------------------------------
 
-#: head dims at which bf16 calls of #2 and #4 take the tensor-core lane
+#: head dims at which bf16 calls of #2, #3 and #4 take the tensor-core lane
 TC_HEAD_DIMS = (64, 128)
 
 
 def flash_lane(dtype: torch.dtype, head_dim: int) -> str:
-    """The lane a CUDA call of the flash forward (#2) or dK/dV (#4)
-    kernel takes, from dtype and head_dim alone, decided before the
-    launch (``hetu_flash_fwd``/``hetu_flash_bwd_dkv`` branch on the same
-    rule): ``"tensor_core"`` (bf16 ``mma.sync``, a ``cp.async`` pipeline)
-    for bf16 at head_dim 64 or 128, else ``"cuda_core"`` (fp32 CUDA
-    cores). The dQ kernel (#3) has the CUDA-core lane only."""
+    """The lane a CUDA call of the flash forward (#2), dQ (#3) or dK/dV
+    (#4) kernel takes, from dtype and head_dim alone, decided before the
+    launch (``hetu_flash_fwd``, ``hetu_flash_bwd_dq`` and
+    ``hetu_flash_bwd_dkv`` branch on the same rule): ``"tensor_core"``
+    (bf16 ``mma.sync``, a ``cp.async`` pipeline) for bf16 at head_dim 64
+    or 128, else ``"cuda_core"`` (fp32 CUDA cores)."""
     if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
         return "tensor_core"
     return "cuda_core"
@@ -319,10 +319,11 @@ def flash_attention_bwd(q, k, v, q_seg: Optional[torch.Tensor],
     """Flash backward: (dq, dk, dv) in q's/k's dtype from the forward's
     out and lse and the output grad ``do``. ``delta`` (b, hq, sq) fp32
     defaults to ``rowsum(out * do)``; a caller that combines partial
-    outputs (the ring hop) passes its own. Two launches: the dQ kernel
-    (one block per q tile, streaming kv tiles) and the dK/dV kernel (one
-    block per kv tile and kv head, streaming the q tiles of every q head
-    of its group, so the GQA sum needs no atomics)."""
+    outputs (the ring hop) passes its own. Two launches, each in the lane
+    :func:`flash_lane` names: the dQ kernel (one block per q tile,
+    streaming kv tiles) and the dK/dV kernel (one block per kv tile and
+    kv head, streaming the q tiles of every q head of its group, so the
+    GQA sum needs no atomics)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(
             q, k, v, q_seg, kv_seg, out, lse, do, causal=causal,

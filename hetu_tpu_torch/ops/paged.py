@@ -38,16 +38,27 @@ def paged_attention_reference(q, k, v, block_tables, q_offset, *,
     """The plain version: gather each slot's table view, then the dense
     causal oracle with per-slot offsets.
 
-    The int8 lane follows the TPU kernel (``paged_pallas.py:123-127``),
-    not ``hetu_tpu``'s gather twin: the gathered codes dequantize in
-    fp32, and the scaled q is rounded to q's dtype before the fp32
-    product, as the kernel folds the scale into q."""
-    if k_scale is None:
+    Rounding follows the TPU kernel (``paged_pallas.py``). The scaled q
+    is rounded to q's dtype before the fp32 product, as the kernel folds
+    the scale into q (:215). The int8 lane follows the kernel, not
+    ``hetu_tpu``'s gather twin: the gathered codes dequantize in fp32
+    (:123-127). A bf16 arena's p, zeroed under the mask, is rounded to
+    v's dtype before p v (:148), relative to the running max over the
+    table's pages as the kernel's online softmax has it; the sum l stays
+    fp32 and unrounded. An fp32 call is the dense oracle's formula
+    unchanged."""
+    if k_scale is None and q.dtype == v.dtype == torch.float32:
         return attention_reference(q, k, v, causal=True, q_offset=q_offset,
                                    kv_offset=0, scale=scale,
                                    block_tables=block_tables,
                                    return_lse=return_lse)
     scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    if k_scale is None:
+        return _rounded_p_reference(
+            (q.float() * scale).to(q.dtype),
+            gather_block_rows(k, block_tables),
+            gather_block_rows(v, block_tables), q_offset, k.shape[1],
+            return_lse)
     k = dequantize_int8(gather_block_rows(k, block_tables),
                         gather_block_rows(k_scale, block_tables))
     v = dequantize_int8(gather_block_rows(v, block_tables),
@@ -55,6 +66,33 @@ def paged_attention_reference(q, k, v, block_tables, q_offset, *,
     return attention_reference((q.float() * scale).to(q.dtype), k, v,
                                causal=True, q_offset=q_offset, kv_offset=0,
                                scale=1.0, return_lse=return_lse)
+
+
+def _rounded_p_reference(qs, k, v, q_offset, page, return_lse):
+    """Causal attention of the pre-scaled ``qs`` (S, R, hq, d) over the
+    gathered (S, W * page, hkv, d) ``k``/``v`` (the bf16 arena lane), p
+    rounded to v's dtype before p v as the TPU kernel's online softmax
+    rounds it: relative to the running max over the table's pages
+    (``paged_pallas.py:141-148``), then rescaled to the row max."""
+    S, R, hq, _ = qs.shape
+    L, g = k.shape[1], hq // k.shape[2]
+    dev = qs.device
+    logits = torch.einsum("bqhd,bkhd->bhqk", qs.float(),
+                          k.float().repeat_interleave(g, dim=2))
+    qpos = q_offset.long()[:, None] + torch.arange(R, device=dev)[None, :]
+    mask = (torch.arange(L, device=dev)[None, None, :]
+            <= qpos[:, :, None])[:, None]                  # (S, 1, R, L)
+    logits = torch.where(mask, logits, torch.full((), NEG_INF, device=dev))
+    lse = torch.logsumexp(logits, dim=-1)                   # (S, hq, R)
+    m_run = torch.cummax(logits.unflatten(-1, (-1, page)).amax(-1),
+                         dim=-1).values.repeat_interleave(page, dim=-1)
+    p = torch.where(mask, torch.exp(logits - m_run), 0.0)
+    w = torch.exp(m_run - m_run[..., -1:])       # each page's rescale
+    l = (p * w).sum(-1).movedim(1, 2)[..., None]            # (S, R, hq, 1)
+    pv = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float() * w,
+                      v.float().repeat_interleave(g, dim=2))
+    out = (pv / torch.where(l == 0, 1.0, l)).to(qs.dtype)
+    return (out, lse) if return_lse else out
 
 
 def paged_attention(q, k, v, block_tables, q_offset, *,

@@ -1,0 +1,151 @@
+#!/usr/bin/env python3
+"""Probes of the PyTorch/CUDA port (``hetu_tpu_torch``) on one NVIDIA GPU,
+beside ``chip_smoke.py``, whose phase functions they run:
+
+    python3 port_probe.py kernels           # build, ptxas, kernel phases
+    python3 port_probe.py steps OLD NEW     # step times of two trees
+
+``kernels`` builds every kernel, prints the ``ptxas`` report of the
+tensor-core instances and runs ``phase_kernels``, ``phase_train_kernels``
+(batch 32) and ``phase_llama_kernels``: each kernel against its plain
+version, then timed. A failing phase is printed and the next one still
+runs; the exit code is nonzero if any failed. It is the short first call
+for a kernel that has not run on a card yet.
+
+``steps`` compares the training step of two checkouts (directories that
+hold ``chip_smoke.py`` and ``hetu_tpu_torch``) on one card, in turns OLD,
+NEW, NEW, OLD: each turn is a process of its own (both packages are named
+``hetu_tpu_torch``) that times the pretraining step at batch 32 and the
+fused-CE combo at batch 48 with that tree's ``train_rung`` (3 warm-up and
+10 timed steps) and profiles 3 steps of each with its
+``phase_train_profile``. ``steps-of TREE TAG`` is one such turn.
+
+Each line of output is one JSON object, as ``chip_smoke.py`` prints them.
+Without a CUDA device it exits nonzero at once.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import gc
+import os
+import subprocess
+import sys
+import time
+import traceback
+
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def kernels() -> int:
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    from hetu_tpu_torch import ops
+    from hetu_tpu_torch.ops import _build
+
+    device = torch.device("cuda", 0)
+    cs.emit(phase="device", nvidia_smi=cs.nvidia_smi(),
+            torch=torch.__version__, cuda=torch.version.cuda)
+    t0 = time.perf_counter()
+    built = _build.build()
+    cs.emit(phase="build", seconds=time.perf_counter() - t0)
+    timer = cs.Timer(device)
+    failed = []
+    results = {}
+    for name, fn, args in (
+            ("ptxas", cs.check_ptxas, (built,)),
+            ("kernels", cs.phase_kernels, (device, timer, ops)),
+            ("train_kernels", cs.phase_train_kernels,
+             (device, timer, ops, 32, results)),
+            ("llama_kernels", cs.phase_llama_kernels,
+             (device, timer, ops, results))):
+        try:
+            out = fn(*args)
+        except Exception as e:  # a probe reports every phase
+            failed.append(name)
+            cs.emit(phase="probe_failed", of=name, error=repr(e))
+            traceback.print_exc()
+            if name == "kernels":    # the later phases extend its results
+                break
+            continue
+        if name == "kernels":
+            results.update(out)
+    cs.emit(phase="probe", failed=failed,
+            seconds=time.perf_counter() - t0)
+    return 1 if failed else 0
+
+
+def steps_of(tree: str, tag: str) -> int:
+    sys.path.insert(0, os.path.abspath(tree))
+    import chip_smoke as cs
+    from hetu_tpu_torch import optim
+    from hetu_tpu_torch.core import BF16_COMPUTE, Policy, autocast
+    from hetu_tpu_torch.engine import make_plan
+    from hetu_tpu_torch.models import GPTConfig, GPTLMHeadModel
+    from hetu_tpu_torch.ops import _build
+    from hetu_tpu_torch.parallel import Strategy
+
+    device = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    _build.build()
+    cs.emit(phase="steps_build", tree=tag, seconds=time.perf_counter() - t0)
+    cfg = GPTConfig.small()
+    bf16 = Policy(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    failed = False
+    for path, policy, b, fused in (("pretrain", BF16_COMPUTE, 32, False),
+                                   ("combo", bf16, 48, True)):
+        with cs.fused_loss() if fused else contextlib.nullcontext():
+            model = GPTLMHeadModel(cfg, device=device, seed=cs.SEED)
+            opt = optim.adamw(1e-4, weight_decay=0.01)
+            with autocast(policy):
+                plan = make_plan(model, opt, Strategy(remat="selective",
+                                                      unroll=True),
+                                 device=device)
+            run = cs.train_rung(model, opt, plan, b, device)
+            cs.emit(phase="steps", tree=tag, path=path, batch=b,
+                    card=cs.nvidia_smi(), step_ms=run["dt"] * 1e3,
+                    tokens_per_s=b * cs.TRAIN_SEQ / run["dt"],
+                    losses=run["losses"], launches=cs.launches_of(
+                        run["counts"]))
+            run.update(batch_size=b)
+            try:
+                cs.phase_train_profile(
+                    run, phase=f"steps_profile_{tag}_{path}")
+            except cs.SmokeFailure as e:
+                failed = True
+                cs.emit(phase="probe_failed", of=f"{tag} {path} profile",
+                        error=str(e))
+        del model, opt, plan, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    return 1 if failed else 0
+
+
+def steps(old: str, new: str) -> int:
+    rc = 0
+    for tree, tag in ((old, "old"), (new, "new"), (new, "new2"),
+                      (old, "old2")):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "steps-of", tree, tag])
+        rc = rc or proc.returncode
+    return rc
+
+
+def main(argv) -> int:
+    if not torch.cuda.is_available():
+        print("port_probe: no CUDA device is available", file=sys.stderr)
+        return 2
+    if argv[:1] == ["kernels"] and len(argv) == 1:
+        return kernels()
+    if argv[:1] == ["steps"] and len(argv) == 3:
+        return steps(argv[1], argv[2])
+    if argv[:1] == ["steps-of"] and len(argv) == 3:
+        return steps_of(argv[1], argv[2])
+    print(__doc__, file=sys.stderr)
+    return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,8 +1,10 @@
 """The port's flash forward and backward at bf16 against ``hetu_tpu``'s,
 and the fp32 plain versions held bit for bit to their earlier formulas.
 
-The bf16 plain versions are what the tensor-core lanes of
-``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` are held to on the card.
+The bf16 plain versions are what the lanes of ``csrc/flash_fwd.cu`` and
+``csrc/flash_bwd.cu`` are held to on the card: the tensor-core lanes at
+head_dim 64/128, the CUDA-core lanes at 96. Each C entry point's lane
+rule is read from its source and held to ``flash_lane``.
 They round where the TPU kernels round (p to v's dtype before p v,
 ``flash_pallas.py:235``; p~ to dO's before dV, :466; ds to q's before dK,
 :475, and to k's before dQ, :402) and run here against the Pallas kernels
@@ -17,6 +19,9 @@ round to the neighbouring bf16 value before its product; JAX divides by
 both sides).
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -30,12 +35,13 @@ from hetu_tpu_torch.ops import (
     flash_attention_bwd_reference, flash_attention_fwd,
     flash_attention_fwd_reference,
 )
-from hetu_tpu_torch.ops.flash import flash_lane
+from hetu_tpu_torch.ops.flash import TC_HEAD_DIMS, flash_lane
 
 torch.set_num_threads(2)
 
 ABS = 1e-3
 LSE_TOL = 1e-4
+CSRC = Path(__file__).resolve().parents[1] / "hetu_tpu_torch" / "csrc"
 
 
 def _ulp(x):
@@ -79,6 +85,8 @@ CASES = {
     "dead_rows_d128": (4, 2, 70, 128, None, True, 3, 9, 0.0),
     "dropout_gqa2_d64": (4, 2, 128, 64, None, True, 0, 0, 0.1),
     "dropout_offsets_d128": (4, 4, 90, 128, None, True, 2, 6, 0.1),
+    # the CUDA-core lanes' bf16 shape (chip_smoke.py's cuda_core_d96)
+    "cuda_core_d96": (4, 2, 130, 96, None, True, 0, 0, 0.0),
 }
 
 
@@ -209,3 +217,28 @@ def test_fp32_plain_versions_bit_identical_to_before(name):
 ])
 def test_flash_lane_follows_dtype_and_head_dim(dtype, d, lane):
     assert flash_lane(dtype, d) == lane
+
+
+@pytest.mark.parametrize("source,entry,tc_launch", [
+    ("flash_fwd.cu", "hetu_flash_fwd", "launch_tc"),
+    ("flash_bwd.cu", "hetu_flash_bwd_dq", "launch_dq_tc"),
+    ("flash_bwd.cu", "hetu_flash_bwd_dkv", "launch_dkv_tc"),
+])
+def test_flash_entry_points_branch_on_the_lane_rule(source, entry,
+                                                    tc_launch):
+    """Each C entry point of #2, #3 and #4 picks its lane as
+    ``flash_lane`` does, before the launch: bf16 at each of
+    ``TC_HEAD_DIMS`` launches the tensor-core kernel of that head_dim,
+    and every other call the CUDA-core one."""
+    text = (CSRC / source).read_text()
+    body = text[text.index(f'extern "C" int {entry}('):]
+    body = body[:body.index("\n}\n")]
+    tc = re.findall(r"if \(bf16 && d == (\d+)\)\s*return (\w+)<(\d+)>",
+                    body)
+    assert [(int(d), fn, int(t)) for d, fn, t in tc] \
+        == [(d, tc_launch, d) for d in TC_HEAD_DIMS]
+    assert all(flash_lane(torch.bfloat16, d) == "tensor_core"
+               for d in TC_HEAD_DIMS)
+    rest = body[body.rindex(f"{tc_launch}<"):]
+    assert re.search(r"if \(bf16\)\s*return launch\w*<__nv_bfloat16>", rest)
+    assert re.search(r"return launch\w*<float>", rest)

@@ -1,6 +1,6 @@
-"""The port stands alone: ``hetu_tpu_torch`` and ``chip_smoke.py`` import
-neither jax nor ``hetu_tpu``, and no entry point falls back to the CPU
-by itself."""
+"""The port stands alone: ``hetu_tpu_torch``, ``chip_smoke.py`` and
+``port_probe.py`` import neither jax nor ``hetu_tpu``, and no entry point
+falls back to the CPU by itself."""
 
 import ast
 import os
@@ -50,7 +50,7 @@ def test_import_leaves_jax_unloaded():
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py", "port_probe.py"]))
 def test_no_jax_or_hetu_tpu_imports(path):
     tree = ast.parse((ROOT / path).read_text())
     names = []
