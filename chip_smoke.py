@@ -13,14 +13,22 @@ Phases, each printing one JSON line:
 1. device  -- the card's name and power limit (``nvidia-smi``); compute
    capability 9.0 (Hopper) is required.
 2. build   -- ``nvcc`` builds every kernel from ``hetu_tpu_torch/csrc``,
-   one process per source, all at once.
+   one process per source, all at once; ``ptxas`` and ``ptxas_paged``
+   report registers and spills of the tensor-core flash instances and of
+   every instance of the paged kernel's lanes.
 3. kernel  -- each kernel against its plain version on the card, at the
    serving path's shapes (fp32 and bf16) and at edge shapes (GQA, segment
    pads, offsets that leave rows with no key, dropout 0.1, a ragged
    200-token sequence, a 64-token chunk over a 320-token history). bf16
    at head_dim 64/128 runs the tensor-core lanes of the flash forward, dQ
    and dK/dV, the rest their CUDA-core lanes; a bf16 head_dim-96 case must
-   take the CUDA-core lanes (``lane`` lines, read from a profile). Max
+   take the CUDA-core lanes (``lane`` lines, read from a profile). The
+   paged kernel (#1) runs decode and the pack's history in its per-row
+   form through its split-KV lane (each rerun bit-equal) and the history
+   through ``row_slot`` and GQA 2 / R = 3 through its run-shared tile
+   lane; ``lane`` lines put each timed call's device time under the
+   lane's symbols, and ``profile_device_ms`` beside its time is the
+   profiler's device time a call. Max
    abs error
    against its bound (1e-4 fp32: summation order; 2e-2 bf16: output
    rounding), and times: kernel, plain version, one PyTorch library call
@@ -83,14 +91,17 @@ Phases, each printing one JSON line:
 11. llama kernels -- kernel #1's int8 lane against its plain version at
    the Llama engine's shapes (decode q (16, 1, 32, 128) at 1024 live
    positions per slot and at ragged depths, prefill history q (256, 1,
-   32, 128), the (2049, 16, 32, 128) int8 arena) and at edge shapes (GQA
-   4, R = 3, offsets of -1, zero-scale rows, a poisoned null block), q
-   fp32 and bf16. Bounds: fp32 out and lse 1e-5; bf16 out 1 bf16 ulp of
-   the reference + 1e-5, lse 1e-5. Then d = 128 cases of #1's fp32/bf16
-   lanes and of #2 at the Llama pack (1, 32, 256, 128), with the usual
-   bounds, and times of the int8 lane (decode, prefill history), the
-   bf16 lane (decode) and #2 (pack), bf16 q; the int8 lane's library
-   yardstick gathers, dequantizes to q's dtype and runs SDPA.
+   32, 128) per row and through ``row_slot``, the (2049, 16, 32, 128)
+   int8 arena), at edge shapes (GQA 4, R = 3, offsets of -1, zero-scale
+   rows, a poisoned null block) and at GPT-2's d = 64, q fp32 and bf16;
+   split-KV reruns bit-equal. Bounds: fp32 out and lse 1e-5; bf16 out 1
+   bf16 ulp of the reference + 1e-5, lse 1e-5. Then d = 128 cases of
+   #1's fp32/bf16 lanes (decode, the history through ``row_slot``, GQA
+   4 / R = 3) and of #2 at the Llama pack (1, 32, 256, 128), with the
+   usual bounds, and times of the int8 lane (decode, the history through
+   ``row_slot``), the bf16 lane (decode) and #2 (pack), bf16 q; the int8
+   lane's library yardstick gathers, dequantizes to q's dtype and runs
+   SDPA.
 12. llama_engine -- ``LlamaConfig.llama_7b`` (32 layers, hidden 4096,
    bf16 params and compute under ``autocast(BF16_FULL)``, random weights
    from a seed) served by ``ServingEngine(slots=16, max_len=2048,
@@ -107,8 +118,11 @@ Phases, each printing one JSON line:
    best at every step; printed beside how far bf16 itself moves the
    logits (bf16 against fp32 compute). Then 16 fresh prompts are served
    once per fault planted in the int8 lane's inputs (``FAULTS``), and
-   the same bounds must fail each. Then a steady-decode profile and the
-   LM head's per-call fp32 cast against a held fp32 copy.
+   the same bounds must fail each. Then two profiles, a window of
+   prefill and decode mixed (#1 under both lanes) and steady decode (#1
+   all under the split-KV lane), and the LM head's per-call fp32 cast
+   against a held fp32 copy. The GPT-2 engine is profiled the same two
+   ways.
 13. llama_engine_oracle_fp32 -- the same engine and workload at fp32,
    full width and 2 layers, all 64 requests against the same oracle:
    from an fp32 arena under the 1e-4 rule, then from the int8 arena
@@ -282,8 +296,10 @@ def ptxas_entries(log: str) -> dict:
 
 def check_ptxas(built) -> dict:
     """Registers and spills of the tensor-core flash instances; the d 64
-    ones (the training path's) must not spill."""
-    syms = [lanes["tensor_core"] for lanes in LANE_SYMBOLS.values()]
+    ones (the training path's) must not spill. Then those of every
+    instance of the paged kernel's lanes (``ptxas_paged``), each of which
+    must be in the report."""
+    syms = [LANE_SYMBOLS[k]["tensor_core"] for k in FLASH]
     found = {}
     for src in ("flash_fwd", "flash_bwd"):
         for name, e in ptxas_entries(built[src]["ptxas"]).items():
@@ -298,6 +314,15 @@ def check_ptxas(built) -> dict:
         if key.endswith("<64>"):
             check(e.get("spill_stores") == 0 and e.get("spill_loads") == 0,
                   f"{key} spills: {e}")
+    paged = {name: e for name, e in
+             ptxas_entries(built["paged_attention"]["ptxas"]).items()
+             if "paged_" in name}
+    emit(phase="ptxas_paged", kernels=paged)
+    # a mangled template name holds <length><name>I
+    seen = {sym: sum(f"{len(sym)}{sym}I" in name for name in paged)
+            for sym in PAGED_INSTANCES}
+    check(seen == PAGED_INSTANCES, f"ptxas report of the paged lanes: "
+                                   f"{seen}, expected {PAGED_INSTANCES}")
     return found
 
 def paged_case(gens, device, dtype, *, R, hq, hkv, d, bs, W, n_blocks,
@@ -328,6 +353,54 @@ def paged_case(gens, device, dtype, *, R, hq, hkv, d, bs, W, n_blocks,
                           dtype=torch.int32)
     off = torch.as_tensor(offsets, dtype=torch.int32)
     return q, k, v, tables.to(device), off.to(device)
+
+
+def run_shared(tbl, owners):
+    """The run-shared form of per-row tables ``tbl`` whose row i is the
+    table of ``owners[i]``: one table row per owner, in order of first
+    use, and each q slot's index into them (``row_slot``)."""
+    first = {}
+    for i, o in enumerate(owners):
+        first.setdefault(o, i)
+    index = {o: n for n, o in enumerate(first)}
+    rows = torch.tensor(list(first.values()), device=tbl.device)
+    return (tbl.index_select(0, rows).contiguous(),
+            torch.tensor([index[o] for o in owners], dtype=torch.int32,
+                         device=tbl.device))
+
+
+def paged_call(ops, q, k, v, tbl, off, shared, **kw):
+    """The paged kernel on per-row tables ``tbl``, or, with ``shared``
+    (the rows' owners), on their run-shared form: ``row_slot`` into one
+    table row per owner. Its plain version computes the same function
+    from ``tbl`` either way."""
+    if shared is None:
+        return ops.paged_attention(q, k, v, tbl, off, **kw)
+    tables, row_slot = run_shared(tbl, shared)
+    return ops.paged_attention(q, k, v, tables, off, row_slot=row_slot, **kw)
+
+
+def paged_profile(timer, name, fn, lane) -> float:
+    """Check from a profile of ``fn`` (one paged call) that #1's device
+    time lies under ``lane``'s symbols (a ``lane`` line), and return its
+    device ms per call: the time of every #1 kernel over the launches of
+    the lane's main kernel the profiler recorded (the split-KV combine
+    rides with its split). Beside the CUDA events' time, which also
+    counts the wrapper's host time where that is longer."""
+    counts: dict[str, int] = {}
+    by_name = timer.profile(fn, counts=counts)
+    ms = check_lane(name, by_name, lane, kernels=("paged_attention",))
+    calls = sum(c for n, c in counts.items()
+                if "paged_" in n and "combine" not in n)
+    check(calls > 0, f"{name}: the profiler recorded no paged launch")
+    return sum(ms["paged_attention"].values()) / calls
+
+
+def check_rerun(name, got, again):
+    """A second call on the same inputs must give the same bits."""
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    check(same, f"paged {name}: a rerun differs")
+    return same
 
 
 def paged_work(q, k, tables, off, int8=False):
@@ -434,24 +507,44 @@ def check_bwd(name, case, dtype, shape, got, want, errs, dead_rows=0):
 
 
 #: the device symbols of the lanes of #2, #3 and #4 (``ops.flash_lane``)
+#: and of #1 (``ops.paged_lane``: split-KV decode; the run-shared tiles,
+#: ``paged_tile_tc_kernel`` on the tensor cores, ``paged_tile_kernel`` on
+#: the CUDA cores)
 LANE_SYMBOLS = {"flash_fwd": {"tensor_core": "flash_fwd_tc_kernel",
                               "cuda_core": "flash_fwd_kernel"},
                 "flash_bwd_dq": {"tensor_core": "flash_bwd_dq_tc_kernel",
                                  "cuda_core": "flash_bwd_dq_kernel"},
                 "flash_bwd_dkv": {"tensor_core": "flash_bwd_dkv_tc_kernel",
-                                  "cuda_core": "flash_bwd_dkv_kernel"}}
+                                  "cuda_core": "flash_bwd_dkv_kernel"},
+                "paged_attention": {"split_kv": "paged_split_kv",
+                                    "tile": "paged_tile"}}
+#: instances of #1's lanes that ``ptxas`` must report: split-KV for 4
+#: (q, arena) type pairs x d 64/128, its combine for 2 q types x d
+#: 64/128, the tensor-core tile for bf16 q with a bf16 or int8 arena x d
+#: 64/128, the CUDA-core tile for the 4 type pairs
+PAGED_INSTANCES = {"paged_split_kv_kernel": 8,
+                   "paged_split_kv_combine_kernel": 4,
+                   "paged_tile_tc_kernel": 4, "paged_tile_kernel": 4}
+PAGED_LANES = ("split_kv (decode: no row_slot, R*g <= 4, d 64/128); "
+               "tile (run-shared: tensor cores for bf16 q at d 64/128, "
+               "else CUDA cores)")
 
 
-def check_lane(phase, by_name, lane, kernels=tuple(LANE_SYMBOLS)) -> dict:
+def check_lane(phase, by_name, lane, kernels=FLASH) -> dict:
     """The device time of each of ``kernels`` in a profile's ``by_name``
-    must lie under its ``lane``'s symbol and not under the other lane's.
-    Returns the ms per kernel and lane."""
+    must lie under the symbol of its ``lane`` (or of every lane of a
+    tuple, each with some time) and under no other lane's. Returns the
+    ms per kernel and lane."""
+    lanes = (lane,) if isinstance(lane, str) else tuple(lane)
     ms = {k: {ln: sum(t for n, t in by_name.items() if sym in n)
               for ln, sym in LANE_SYMBOLS[k].items()} for k in kernels}
-    ok = all(v[lane] > 0 and sum(v.values()) == v[lane] for v in ms.values())
+    ok = all(all(v[ln] > 0 for ln in lanes)
+             and sum(v.values()) == sum(v[ln] for ln in lanes)
+             for v in ms.values())
     emit(phase="lane", of=phase, expected=lane, device_ms=ms,
          kernel_names_seen=len(by_name), ok=ok)
-    check(ok, f"{phase}: flash device time not all in the {lane} lane: {ms}")
+    check(ok, f"{phase}: device time of {kernels} not all in the {lane} "
+              f"lane: {ms}")
     return ms
 
 
@@ -493,54 +586,73 @@ def phase_kernels(device, timer, ops):
     gens = Generators(device, SEED)
     results = {}
 
-    # ---- paged attention ----
+    # ---- paged attention: split-KV decode (the decode case, and the
+    # history in its per-row form) and the run-shared tiles (the history
+    # through row_slot, GQA 2 with R = 3) ----
     rng = np.random.default_rng(SEED)
     decode_off = rng.integers(3, 511, 16).tolist()   # 16 slots mid-decode
     hist_off, hist_slot = hist_rows(PACK, C)
     main = dict(R=1, hq=12, hkv=12, d=64, bs=16, W=32, n_blocks=513)
+    # (name, case, want lse, run-shared owners or None, lane)
     cases = [
-        ("decode", dict(main, offsets=decode_off), False),
+        ("decode", dict(main, offsets=decode_off), False, None, "split_kv"),
         ("prefill_history", dict(main, offsets=hist_off,
-                                 row_slot=hist_slot), True),
+                                 row_slot=hist_slot), True, None,
+         "split_kv"),
+        ("prefill_history_shared", dict(main, offsets=hist_off,
+                                        row_slot=hist_slot), True,
+         hist_slot, "tile"),
         ("gqa2_R3_empty_rows", dict(R=3, hq=12, hkv=6, d=64, bs=16,
                                     W=8, n_blocks=41,
-                                    offsets=[-1, 0, 17, 60, 124]), True),
+                                    offsets=[-1, 0, 17, 60, 124]), True,
+         None, "tile"),
     ]
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    timed = None
-    for name, kw, want_lse in cases:
+    timed = {}
+    for name, kw, want_lse, shared, lane in cases:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, tbl, off = paged_case(gens, device, dtype, **kw)
-            out, lse = ops.paged_attention(q, k, v, tbl, off,
-                                           return_lse=True)
-            ref_o, ref_l = ops.paged_attention_reference(
-                q, k, v, tbl, off, return_lse=True)
+            got = paged_call(ops, q, k, v, tbl, off, shared, return_lse=True)
+            ref_o, ref_l = ops.paged_attention_reference(q, k, v, tbl, off,
+                                                         return_lse=True)
             torch.cuda.synchronize()
+            out, lse = got
             err = max(max_err(out, ref_o), max_err(lse, ref_l))
             dead = (off < 0)
             if bool(dead.any()):          # rows at position -1: exact
                 check(bool((out[dead][:, 0] == 0).all())
                       and bool((lse[dead][:, :, 0] == ops.NEG_INF).all()),
                       f"paged {name}: empty-history rows not 0/-1e30")
+            rerun = None
+            if lane == "split_kv":
+                rerun = check_rerun(name, got, paged_call(
+                    ops, q, k, v, tbl, off, shared, return_lse=True))
             emit(phase="kernel", kernel="paged_attention", case=name,
-                 dtype=str(dtype).split(".")[1], shape=list(q.shape),
-                 max_abs_err=err, bound=TOL[dtype], ok=err <= TOL[dtype])
+                 lane=lane, dtype=str(dtype).split(".")[1],
+                 shape=list(q.shape), max_abs_err=err, bound=TOL[dtype],
+                 rerun_identical=rerun, ok=err <= TOL[dtype])
             check(err <= TOL[dtype], f"paged {name} {dtype}: max abs err "
                                      f"{err} > {TOL[dtype]}")
             errs[dtype] = max(errs[dtype], err)
-            if name in ("decode", "prefill_history") \
+            if name in ("decode", "prefill_history_shared") \
                     and dtype == torch.float32:
-                t = time_paged(timer, ops, q, k, v, tbl, off, want_lse)
+                dev = paged_profile(timer, name, lambda: paged_call(
+                    ops, q, k, v, tbl, off, shared), lane)
+                t = time_paged(timer, ops, q, k, v, tbl, off, want_lse,
+                               shared=shared)
+                t["profile_device_ms"] = dev
                 emit(phase="kernel_time", kernel="paged_attention",
-                     case=name, dtype="float32", **t)
-                if name == "decode":
-                    timed = t
+                     case=name, lane=lane, dtype="float32", **t)
+                timed[name] = t
     results["paged_attention"] = dict(
-        name="paged_attention", route="cuda", lane="cuda_core",
+        name="paged_attention", route="cuda", lane=PAGED_LANES,
         source="hetu_tpu_torch/csrc/paged_attention.cu",
         replaces="hetu_tpu/ops/paged_pallas.py:86",
         max_abs_err=errs[torch.float32],
-        max_abs_err_bf16=errs[torch.bfloat16], shape="decode", **timed)
+        max_abs_err_bf16=errs[torch.bfloat16], shape="decode",
+        **timed["decode"],
+        **{f"prefill_history_{k}": v
+           for k, v in timed["prefill_history_shared"].items()})
 
     # ---- flash forward ----
     pack_seg = pack_segments(PACK, C)
@@ -642,16 +754,25 @@ def phase_kernels(device, timer, ops):
     return results
 
 
-def time_paged(timer, ops, q, k, v, tbl, off, want_lse, **scales):
-    """Kernel, plain version, library yardstick (``gather_block_rows`` --
-    and for the int8 lane a dequantize to q's dtype -- then SDPA; never
-    called by the port) and bound."""
+def time_paged(timer, ops, q, k, v, tbl, off, want_lse, shared=None,
+               **scales):
+    """Kernel (on per-row tables ``tbl``, or their run-shared form when
+    ``shared`` gives the rows' owners), plain version, library yardstick
+    (``gather_block_rows`` of the per-row tables -- and for the int8 lane
+    a dequantize to q's dtype -- then SDPA; never called by the port) and
+    bound (every distinct live row read once)."""
     import torch.nn.functional as F
     S, R, hq, d = q.shape
     bs, hkv = k.shape[1], k.shape[2]
     W = tbl.shape[1]
-    ms = timer(lambda: ops.paged_attention(q, k, v, tbl, off,
-                                           return_lse=want_lse, **scales))
+    if shared is None:
+        ms = timer(lambda: ops.paged_attention(q, k, v, tbl, off,
+                                               return_lse=want_lse, **scales))
+    else:
+        tables, row_slot = run_shared(tbl, shared)
+        ms = timer(lambda: ops.paged_attention(
+            q, k, v, tables, off, row_slot=row_slot, return_lse=want_lse,
+            **scales))
     plain_ms = timer(lambda: ops.paged_attention_reference(
         q, k, v, tbl, off, return_lse=want_lse, **scales))
     kpos = torch.arange(W * bs, device=q.device)
@@ -846,6 +967,11 @@ def phase_engine(device, card):
          identical=len(reqs) + len(reqs2) - len(near_ties),
          near_ties=near_ties, seconds=time.perf_counter() - t0)
     phase_profile(eng, burst[:16], sp)
+    # 96 tokens each, so few requests end inside the window; prompts
+    # that leave them room in max_len
+    phase_profile(eng, [p for p in burst if len(p) <= 512 - 96][:16],
+                  SamplingParams(max_tokens=96),
+                  phase="engine_decode_profile", steady_decode=True)
     return counts
 
 
@@ -869,7 +995,8 @@ def device_kernel_ms(prof, counts=None) -> tuple[dict, int]:
     return by_name, n_kernels
 
 
-KERNEL_CLASSES = (("paged_attention", "paged_attention"),
+KERNEL_CLASSES = (("paged_split_kv", "paged_attention"),
+                  ("paged_tile", "paged_attention"),
                   ("flash_fwd", "flash_fwd"),
                   ("gemm", "matmul"), ("xmma", "matmul"),
                   ("cutlass", "matmul"))
@@ -885,7 +1012,10 @@ def phase_profile(eng, prompts, sp, n_steps: int = 20,
     of kernel durations (one stream: kernels do not overlap); the rest of
     the wall time the card waits on the host. The profiler's own host
     cost inflates the wall time, so ``ms_per_step`` here is an upper
-    bound."""
+    bound. Kernel #1's device time must lie under the split-KV symbol
+    where decode-lane iterations ran and under the run-shared tile
+    symbols where prefill-lane iterations ran (``lane``), and nowhere
+    else."""
     from torch.profiler import ProfilerActivity, profile
 
     reqs = [eng.submit(p, sp) for p in prompts]
@@ -918,7 +1048,15 @@ def phase_profile(eng, prompts, sp, n_steps: int = 20,
     if steady_decode:
         check(lanes["prefill"] == 0 and lanes["decode"] == n_steps,
               f"{phase}: the window was not steady decode: {lanes}")
+    else:
+        check(lanes["prefill"] > 0 and lanes["decode"] > 0,
+              f"{phase}: the window did not mix the lanes: {lanes}")
+    paged = check_lane(phase, by_name, tuple(
+        ln for ln, it in (("split_kv", lanes["decode"]),
+                          ("tile", lanes["prefill"])) if it),
+        kernels=("paged_attention",))["paged_attention"]
     emit(phase=phase, steps=n_steps, lane_iterations=lanes,
+         paged_lane_ms_per_step={ln: ms / n_steps for ln, ms in paged.items()},
          ms_per_step=wall_ms / n_steps,
          device_kernels_per_step=n_kernels / n_steps,
          device_busy_ms_per_step=busy_ms / n_steps if busy_ms else None,
@@ -1589,7 +1727,7 @@ def int8_arena(k, v, ops, zero_rows: int = 0, poison: bool = False):
     return kq, ks, vq, vs
 
 
-def check_int8(name, q, out, lse, ref_o, ref_l):
+def check_int8(name, q, out, lse, ref_o, ref_l, lane=None):
     """Hold the int8 lane to its plain version: fp32 q within INT8_TOL,
     bf16 q within 1 ulp + INT8_BF16_ABS (out) and INT8_TOL (lse)."""
     torch.cuda.synchronize()
@@ -1605,8 +1743,8 @@ def check_int8(name, q, out, lse, ref_o, ref_l):
                     lse_err / INT8_TOL)
         bound_txt = "1 bf16 ulp + 1e-5 (out), 1e-5 (lse)"
     tag = str(q.dtype).split(".")[1]
-    emit(phase="kernel", kernel="paged_attention_int8", case=name, dtype=tag,
-         shape=list(q.shape), max_abs_err=err, lse_err=lse_err,
+    emit(phase="kernel", kernel="paged_attention_int8", case=name, lane=lane,
+         dtype=tag, shape=list(q.shape), max_abs_err=err, lse_err=lse_err,
          bound=bound_txt, worst_share_of_bound=ratio, ok=ratio <= 1.0)
     check(ratio <= 1.0, f"paged int8 {name} {tag}: {ratio} of its bound "
                         f"(max abs err {err}, lse {lse_err})")
@@ -1631,46 +1769,69 @@ def phase_llama_kernels(device, timer, ops, results):
     main = dict(R=1, hq=32, hkv=32, d=128, bs=LLAMA_BLOCK, W=W,
                 n_blocks=n_blocks)
     hist_off, hist_slot = hist_rows(LLAMA_PACK, LLAMA_CHUNK)
+    gpt2 = dict(R=1, hq=12, hkv=12, d=64, bs=16, W=32, n_blocks=513)
+    g_off, g_slot = hist_rows(PACK, C)
+    history = dict(main, offsets=hist_off, row_slot=hist_slot)
+    # (name, case, want lse, arena faults, run-shared owners or None,
+    # lane); the last two: the int8 lane at GPT-2's d = 64
     cases = [
         ("decode_1024", dict(main, offsets=[1023] * LLAMA_SLOTS), False,
-         dict()),
+         dict(), None, "split_kv"),
         ("decode_ragged", dict(main, offsets=rng.integers(
             3, LLAMA_MAX_LEN - 1, LLAMA_SLOTS).tolist()), False,
-         dict(zero_rows=97, poison=True)),
-        ("prefill_history", dict(main, offsets=hist_off,
-                                 row_slot=hist_slot), True, dict()),
+         dict(zero_rows=97, poison=True), None, "split_kv"),
+        ("prefill_history", history, True, dict(), None, "split_kv"),
+        ("prefill_history_shared", history, True, dict(), hist_slot,
+         "tile"),
         ("gqa4_R3_empty_rows", dict(R=3, hq=32, hkv=8, d=128, bs=16, W=8,
                                     n_blocks=41,
                                     offsets=[-1, 0, 17, 60, 124]), True,
-         dict(zero_rows=5, poison=True)),
+         dict(zero_rows=5, poison=True), None, "tile"),
+        ("d64_decode", dict(gpt2, offsets=rng.integers(
+            3, 511, 16).tolist()), False, dict(zero_rows=97, poison=True),
+         None, "split_kv"),
+        ("d64_prefill_history_shared", dict(gpt2, offsets=g_off,
+                                            row_slot=g_slot), True, dict(),
+         g_slot, "tile"),
     ]
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
     timed = {}
-    for name, kw, want_lse, arena_kw in cases:
+    for name, kw, want_lse, arena_kw, shared, lane in cases:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, tbl, off = paged_case(gens, device, torch.float32, **kw)
             q = q.to(dtype)
             kq, ks, vq, vs = int8_arena(k, v, ops, **arena_kw)
             del k, v
             sc = dict(k_scale=ks, v_scale=vs)
-            out, lse = ops.paged_attention(q, kq, vq, tbl, off,
-                                           return_lse=True, **sc)
+            got = paged_call(ops, q, kq, vq, tbl, off, shared,
+                             return_lse=True, **sc)
             ref_o, ref_l = ops.paged_attention_reference(
                 q, kq, vq, tbl, off, return_lse=True, **sc)
-            errs[dtype] = max(errs[dtype],
-                              check_int8(name, q, out, lse, ref_o, ref_l))
+            out, lse = got
+            errs[dtype] = max(errs[dtype], check_int8(
+                name, q, out, lse, ref_o, ref_l, lane=lane))
             dead = off < 0
             if bool(dead.any()):
                 check(bool((out[dead][:, 0] == 0).all())
                       and bool((lse[dead][:, :, 0] == ops.NEG_INF).all()),
                       f"paged int8 {name}: empty-history rows not 0/-1e30")
-            del out, lse, ref_o, ref_l
+            if lane == "split_kv":
+                emit(phase="kernel_rerun", kernel="paged_attention_int8",
+                     case=name, dtype=str(dtype).split(".")[1],
+                     identical=check_rerun(name, got, paged_call(
+                         ops, q, kq, vq, tbl, off, shared, return_lse=True,
+                         **sc)))
+            del got, out, lse, ref_o, ref_l
             if dtype == torch.bfloat16 and name in ("decode_1024",
-                                                     "prefill_history"):
+                                                     "prefill_history_shared"):
+                dev = paged_profile(timer, name, lambda: paged_call(
+                    ops, q, kq, vq, tbl, off, shared, **sc), lane)
                 t = time_paged(timer, ops, q, kq, vq, tbl, off, want_lse,
-                               k_scale=ks, v_scale=vs)
+                               shared=shared, k_scale=ks, v_scale=vs)
+                t["profile_device_ms"] = dev
                 emit(phase="kernel_time", kernel="paged_attention_int8",
-                     case=name, dtype="bfloat16", shape=list(q.shape), **t)
+                     case=name, lane=lane, dtype="bfloat16",
+                     shape=list(q.shape), **t)
                 timed[name] = t
             del q, kq, vq, ks, vs
             gc.collect()
@@ -1679,38 +1840,49 @@ def phase_llama_kernels(device, timer, ops, results):
         name="paged_attention_int8", route="cuda",
         source="hetu_tpu_torch/csrc/paged_attention.cu",
         replaces="hetu_tpu/ops/paged_pallas.py:86",
-        lane="int8 (:123-127), cuda_core",
+        lane="int8 (:123-127); " + PAGED_LANES,
         max_abs_err=errs[torch.float32],
         max_abs_err_bf16=errs[torch.bfloat16], shape="decode_1024 bf16",
         **timed["decode_1024"],
         **{f"prefill_history_{k}": v
-           for k, v in timed["prefill_history"].items()})
+           for k, v in timed["prefill_history_shared"].items()})
 
     # ---- the fp/bf16 lanes of #1 at d = 128 ----
     for dtype in (torch.float32, torch.bfloat16):
-        for name, kw in (("decode_1024_d128",
-                          dict(main, offsets=[1023] * LLAMA_SLOTS)),
-                         ("gqa4_R3_d128", cases[3][1])):
+        for name, kw, shared, lane in (
+                ("decode_1024_d128", dict(main, offsets=[1023] * LLAMA_SLOTS),
+                 None, "split_kv"),
+                ("prefill_history_shared_d128", history, hist_slot, "tile"),
+                ("gqa4_R3_d128", cases[4][1], None, "tile")):
             q, k, v, tbl, off = paged_case(gens, device, dtype, **kw)
-            out, lse = ops.paged_attention(q, k, v, tbl, off,
-                                           return_lse=True)
-            ref_o, ref_l = ops.paged_attention_reference(
-                q, k, v, tbl, off, return_lse=True)
+            got = paged_call(ops, q, k, v, tbl, off, shared, return_lse=True)
+            ref_o, ref_l = ops.paged_attention_reference(q, k, v, tbl, off,
+                                                         return_lse=True)
             torch.cuda.synchronize()
+            out, lse = got
             err = max(max_err(out, ref_o), max_err(lse, ref_l))
+            rerun = None
+            if lane == "split_kv":
+                rerun = check_rerun(name, got, paged_call(
+                    ops, q, k, v, tbl, off, shared, return_lse=True))
             tag = str(dtype).split(".")[1]
             emit(phase="kernel", kernel="paged_attention", case=name,
-                 dtype=tag, shape=list(q.shape), max_abs_err=err,
-                 bound=TOL[dtype], ok=err <= TOL[dtype])
+                 lane=lane, dtype=tag, shape=list(q.shape), max_abs_err=err,
+                 bound=TOL[dtype], rerun_identical=rerun,
+                 ok=err <= TOL[dtype])
             check(err <= TOL[dtype], f"paged {name} {tag}: max abs err "
                                      f"{err} > {TOL[dtype]}")
             if dtype == torch.bfloat16 and name == "decode_1024_d128":
+                dev = paged_profile(timer, name, lambda: paged_call(
+                    ops, q, k, v, tbl, off, shared), lane)
                 t = time_paged(timer, ops, q, k, v, tbl, off, False)
+                t["profile_device_ms"] = dev
                 emit(phase="kernel_time", kernel="paged_attention",
-                     case=name, dtype="bfloat16", shape=list(q.shape), **t)
+                     case=name, lane=lane, dtype="bfloat16",
+                     shape=list(q.shape), **t)
                 results["paged_attention"].update(
                     {f"d128_decode_bf16_{k}": v for k, v in t.items()})
-            del q, k, v, out, lse, ref_o, ref_l
+            del q, k, v, got, out, lse, ref_o, ref_l
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2025,7 +2197,14 @@ def phase_llama_engine(device, card, timer):
                     f"lane ({fault})")
 
     with autocast(BF16_FULL):
-        # 96 tokens each, so no request ends inside the window
+        # 96 tokens each, so no request ends inside the window; first a
+        # window of prefill and decode mixed (prompts the prefix cache
+        # does not hold), then steady decode
+        fresh, _ = llama_workload(cfg.vocab_size, seed=SEED + 7)
+        phase_profile(eng, fresh[:LLAMA_SLOTS],
+                      SamplingParams(max_tokens=96),
+                      phase="llama_engine_mixed_profile",
+                      classes=LLAMA_CLASSES)
         phase_profile(eng, burst[:LLAMA_SLOTS],
                       SamplingParams(max_tokens=96),
                       phase="llama_engine_profile", classes=LLAMA_CLASSES,

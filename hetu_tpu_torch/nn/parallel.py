@@ -263,28 +263,33 @@ class ParallelAttention(nn.Module):
 
     def _decode_packed(self, x, kv_cache, *, positions, block_tables, pack):
         """Packed-prefill mode: ``x`` is ONE ``(1, C, embed)`` row of C
-        tokens from many requests, with per-token ``block_tables``
-        (C, W), ``positions`` (1, C) and ``pack`` keys ``segment_ids``
-        (1, C) int32 (-1 on pads), ``hist`` (C,) (each token's chunk-start
-        offset) and ``valid`` (C,) bool.
+        tokens from many requests, with the engine's per-slot
+        ``block_tables`` (S, W), ``positions`` (1, C) and ``pack`` keys
+        ``row_slot`` (C,) int32 (each token's slot: its table row),
+        ``segment_ids`` (1, C) int32 (-1 on pads), ``hist`` (C,) (each
+        token's chunk-start offset) and ``valid`` (C,) bool.
 
         Each token's attention splits into two disjoint parts that
         LSE-combine exactly: the intra-pack part (flash forward with
         segment isolation and causal masking — within one request's
         contiguous run, pack order is position order) and the
-        arena-history part (paged attention over the token's own table,
-        positions ``<= hist - 1``: earlier chunks and prefix-cache hits).
-        KV writes are per-token scatters through the tables (pads drop).
-        With the int8 arena the intra-pack part attends the pack's own
-        ROUND-TRIPPED k/v, dequantized to q's dtype, as the per-token
-        lane would read them back (``hetu_tpu/nn/parallel.py:776-779``),
-        and the history part runs the paged kernel's int8 lane."""
+        arena-history part (paged attention over its slot's table,
+        positions ``<= hist - 1``: earlier chunks and prefix-cache hits),
+        which ``hetu_tpu`` computes over per-token copies of the tables
+        (``hetu_tpu/nn/parallel.py:794-806``) and the port through
+        ``row_slot``, so the kernel reads a run's history once for the
+        whole run. KV writes are per-token scatters through the tables
+        (pads drop). With the int8 arena the intra-pack part attends the
+        pack's own ROUND-TRIPPED k/v, dequantized to q's dtype, as the
+        per-token lane would read them back
+        (``hetu_tpu/nn/parallel.py:776-779``), and the history part runs
+        the paged kernel's int8 lane."""
         b, C, _ = x.shape
         q, k, v = self._qkv(x, positions)
         blk, W = kv_cache[0].shape[1], block_tables.shape[1]
         pos = positions[0].long()                            # (C,)
-        blk_ids = torch.gather(block_tables.long(), 1,
-                               (pos // blk).clamp(0, W - 1)[:, None])[:, 0]
+        blk_ids = block_tables.long()[pack["row_slot"].long(),
+                                      (pos // blk).clamp(0, W - 1)]
         rows = blk_ids * blk + pos % blk
         writes = _cache_writes(kv_cache, k, v)
         for buf, new in writes:
@@ -300,6 +305,7 @@ class ParallelAttention(nn.Module):
         hist_off = (pack["hist"] - 1).to(torch.int32)        # kpos <= hist-1
         hist, lse_h = paged_attention(q[0].unsqueeze(1).contiguous(), k_buf,
                                       v_buf, block_tables, hist_off,
+                                      row_slot=pack["row_slot"],
                                       return_lse=True, **scales)
         hist = hist[:, 0][None]                              # (1, C, hq, d)
         lse_h = lse_h[:, :, 0].t()[None]                     # (1, hq, C)

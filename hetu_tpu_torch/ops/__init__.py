@@ -25,6 +25,7 @@ from hetu_tpu_torch.ops.losses import (
 from hetu_tpu_torch.ops.normalization import layer_norm, rms_norm
 from hetu_tpu_torch.ops.paged import (
     combine_attention_lse, paged_attention, paged_attention_reference,
+    paged_lane,
 )
 from hetu_tpu_torch.ops.quantization import dequantize_int8, quantize_int8
 from hetu_tpu_torch.ops.rotary import apply_rotary, rope_frequencies
@@ -40,7 +41,8 @@ __all__ = [
     "fused_ce_dw_reference", "fused_ce_fwd", "fused_lm_ce",
     "fused_lse_tgt", "fused_lse_tgt_reference",
     "gather_block_rows", "gelu", "launch_counts", "layer_norm",
-    "paged_attention", "paged_attention_reference", "quantize_int8",
+    "paged_attention", "paged_attention_reference", "paged_lane",
+    "quantize_int8",
     "reset_launch_counts", "rms_norm", "rope_frequencies",
     "softmax_cross_entropy", "swiglu", "vocab_parallel_lm_loss",
 ]

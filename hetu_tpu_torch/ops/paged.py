@@ -5,9 +5,12 @@ LSE-combine of two attention partials.
 Counterpart of ``hetu_tpu/ops/paged_pallas.py``: ``paged_attention``
 takes the layouts of ``paged_attention_pallas`` (:167, around
 ``_paged_kernel`` :86), the int8 arena lane (``k_scale``/``v_scale``)
-included. On a CUDA tensor it launches the hand-written kernel or
-raises; on a CPU tensor it runs :func:`paged_attention_reference`. There
-is no fallback from one to the other.
+included, plus ``row_slot``: q slot ``s`` reads table row
+``row_slot[s]`` (the packed prefill's run-shared form). On a CUDA
+tensor it launches the hand-written kernel, in the lane
+:func:`paged_lane` picks, or raises; on a CPU tensor it runs
+:func:`paged_attention_reference`. There is no fallback from one to the
+other.
 """
 
 from __future__ import annotations
@@ -25,10 +28,42 @@ from hetu_tpu_torch.ops.quantization import dequantize_int8
 
 NAME = "paged_attention"
 INT8 = "paged_attention_int8"
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float] \
-    + [ctypes.c_int] + [ctypes.c_void_p]
-_INT8_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 \
     + [ctypes.c_float] + [ctypes.c_int] + [ctypes.c_void_p]
+_INT8_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 \
+    + [ctypes.c_float] + [ctypes.c_int] + [ctypes.c_void_p]
+
+#: the kernel's lanes, in the numbering of ``csrc/paged_attention.cu``
+LANES = ("split_kv", "tile_tc", "tile")
+#: head dims of the split_kv lane and of the tile lane's tensor cores
+LANE_HEAD_DIMS = (64, 128)
+#: the most q rows per slot and kv head (R * g) the split_kv lane takes
+SPLIT_MAX_ROWS = 4
+#: keys per split of the split_kv lane
+SPLIT_KEYS = 128
+
+
+def paged_lane(dtype: torch.dtype, head_dim: int, rows_per_slot: int,
+               run_shared: bool) -> str:
+    """The lane a CUDA call of the paged kernel (#1) takes, decided
+    before the launch from q's dtype, head_dim, the rows of one slot per
+    kv head (``R * hq / hkv``) and whether the call passes ``row_slot``:
+
+    - ``"split_kv"`` (decode): no ``row_slot``, at most
+      :data:`SPLIT_MAX_ROWS` rows per slot, head_dim 64 or 128 — one
+      warp per (slot, q row, split of :data:`SPLIT_KEYS` keys), the
+      splits LSE-combined in order;
+    - ``"tile_tc"``: bf16 q at head_dim 64 or 128 otherwise — 64-row
+      tiles on the tensor cores, each run of rows that shares a table
+      row reading its pages once;
+    - ``"tile"``: the rest (fp32 q, other head dims) — the same runs in
+      4-row tiles on the CUDA cores."""
+    if head_dim in LANE_HEAD_DIMS and not run_shared \
+            and rows_per_slot <= SPLIT_MAX_ROWS:
+        return "split_kv"
+    if dtype == torch.bfloat16 and head_dim in LANE_HEAD_DIMS:
+        return "tile_tc"
+    return "tile"
 
 
 def paged_attention_reference(q, k, v, block_tables, q_offset, *,
@@ -96,10 +131,10 @@ def _rounded_p_reference(qs, k, v, q_offset, page, return_lse):
 
 
 def paged_attention(q, k, v, block_tables, q_offset, *,
-                    k_scale=None, v_scale=None,
+                    k_scale=None, v_scale=None, row_slot=None,
                     scale: Optional[float] = None,
                     return_lse: bool = False):
-    """Causal attention through per-slot block tables.
+    """Causal attention through block tables.
 
     - ``q``: ``(S, R, hq, d)`` fp32 or bf16; row ``i`` of slot ``s``
       attends absolute positions ``<= q_offset[s] + i`` (a negative
@@ -107,17 +142,27 @@ def paged_attention(q, k, v, block_tables, q_offset, *,
     - ``k``/``v``: the arena ``(n_blocks, block_size, hkv, d)``, fp32 or
       bf16 like q — or int8 codes when ``k_scale``/``v_scale`` (fp32
       ``(n_blocks, block_size, hkv, 1)``) are given, dequantized per
-      element as the kernel stages them;
-    - ``block_tables``: ``(S, W)`` int32; ``q_offset``: ``(S,)`` int32.
+      element in fp32;
+    - ``block_tables``: ``(S, W)`` int32, one table row per slot; or,
+      with ``row_slot`` (``(S,)`` int32), any ``(n, W)`` whose row
+      ``row_slot[s]`` slot ``s`` reads: the function is that of the
+      per-slot tables ``block_tables[row_slot]``, and the kernel reads a
+      run of slots that name one row once for the whole run (on the
+      card, like the tables' page numbers, ``row_slot`` is not
+      bounds-checked: reading it would wait for the device);
+    - ``q_offset``: ``(S,)`` int32.
 
     Returns ``out`` ``(S, R, hq, d)`` in q's dtype, plus the fp32 lse
-    ``(S, hq, R)`` when ``return_lse``. The int8 lane counts its
-    launches as ``paged_attention_int8``, the fp lanes as
+    ``(S, hq, R)`` when ``return_lse``. On the card the lane is
+    :func:`paged_lane`'s; every lane counts one launch per call, the
+    int8 arena's as ``paged_attention_int8``, the fp arenas' as
     ``paged_attention``."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("paged_attention: pass both k_scale and v_scale "
                          "(the int8 lane) or neither")
     if q.device.type == "cpu":
+        if row_slot is not None:
+            block_tables = block_tables.index_select(0, row_slot)
         return paged_attention_reference(q, k, v, block_tables, q_offset,
                                          k_scale=k_scale, v_scale=v_scale,
                                          scale=scale, return_lse=return_lse)
@@ -134,6 +179,8 @@ def paged_attention(q, k, v, block_tables, q_offset, *,
     if d % 32 or d > 256:
         raise ValueError(f"head_dim {d}: the kernel takes multiples of 32 "
                          f"up to 256")
+    if S > 65535:
+        raise ValueError(f"paged_attention: {S} slots, at most 65535")
     quant = k_scale is not None
     arena_dtype = torch.int8 if quant else q.dtype
     if q.dtype not in (torch.float32, torch.bfloat16) \
@@ -151,36 +198,58 @@ def paged_attention(q, k, v, block_tables, q_offset, *,
                                  f"{tuple(k.shape[:3]) + (1,)}, got "
                                  f"{t.dtype} {tuple(t.shape)}")
             tensors.append((name, t))
-    if block_tables.dim() != 2 or block_tables.shape[0] != S \
-            or block_tables.dtype != torch.int32:
-        raise ValueError(f"block_tables must be int32 ({S}, W), got "
-                         f"{block_tables.dtype} {tuple(block_tables.shape)}")
-    if q_offset.shape != (S,) or q_offset.dtype != torch.int32:
-        raise ValueError(f"q_offset must be int32 ({S},), got "
-                         f"{q_offset.dtype} {tuple(q_offset.shape)}")
+    if block_tables.dim() != 2 or block_tables.dtype != torch.int32 \
+            or (row_slot is None and block_tables.shape[0] != S):
+        raise ValueError(f"block_tables must be int32 ({S}, W) (or (n, W) "
+                         f"with row_slot), got {block_tables.dtype} "
+                         f"{tuple(block_tables.shape)}")
+    for name, t in (("q_offset", q_offset), ("row_slot", row_slot)):
+        if t is not None and (t.shape != (S,) or t.dtype != torch.int32):
+            raise ValueError(f"{name} must be int32 ({S},), got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if row_slot is not None:
+        tensors.append(("row_slot", row_slot))
     for name, t in tensors:
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"paged_attention: {name} must be a "
                              f"contiguous tensor on {q.device}")
+    lane = paged_lane(q.dtype, d, R * (hq // hkv), row_slot is not None)
+    if lane != "tile":
+        # the split_kv and tile_tc lanes copy rows 16 bytes at a time
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"paged_attention: {name} is not 16-byte "
+                                 f"aligned")
     W = block_tables.shape[1]
     out = torch.empty_like(q)
     lse = torch.empty((S, hq, R), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return (out, lse) if return_lse else out
+    n_split = -(-W * bs // SPLIT_KEYS)
+    o_part = lse_part = None
+    if lane == "split_kv" and n_split > 1:
+        # each split's normalised out and lse, combined by the same call
+        o_part = torch.empty((S * R * hq, n_split, d), dtype=torch.float32,
+                             device=q.device)
+        lse_part = torch.empty((S * R * hq, n_split), dtype=torch.float32,
+                               device=q.device)
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
-    dims = (S, R, hq, hkv, d, bs, W, float(scale),
+
+    def ptr(t):
+        return None if t is None else _build.ptr(t)
+
+    rest = (ptr(block_tables), ptr(row_slot), ptr(q_offset), ptr(out),
+            ptr(lse), ptr(o_part), ptr(lse_part), S, R, hq, hkv, d, bs, W,
+            SPLIT_KEYS, n_split, LANES.index(lane), float(scale),
             int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
-    rest = (_build.ptr(block_tables), _build.ptr(q_offset), _build.ptr(out),
-            _build.ptr(lse))
     if quant:
         lib, fn = _build.kernel(NAME, "hetu_paged_attention_int8",
                                 _INT8_ARGTYPES)
-        err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v),
-                 _build.ptr(k_scale), _build.ptr(v_scale), *rest, *dims)
+        err = fn(ptr(q), ptr(k), ptr(v), ptr(k_scale), ptr(v_scale), *rest)
     else:
         lib, fn = _build.kernel(NAME, "hetu_paged_attention", _ARGTYPES)
-        err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), *rest, *dims)
-    _build.check(lib, err, "paged_attention launch")
+        err = fn(ptr(q), ptr(k), ptr(v), *rest)
+    _build.check(lib, err, f"paged_attention launch ({lane} lane)")
     _build.count_launch(INT8 if quant else NAME)
     return (out, lse) if return_lse else out
 
@@ -203,5 +272,5 @@ def combine_attention_lse(o1, lse1, o2, lse2):
     return out.to(o1.dtype)
 
 
-__all__ = ["NEG_INF", "combine_attention_lse", "paged_attention",
-           "paged_attention_reference"]
+__all__ = ["LANES", "NEG_INF", "SPLIT_KEYS", "combine_attention_lse",
+           "paged_attention", "paged_attention_reference", "paged_lane"]

@@ -171,13 +171,15 @@ class ServingEngine:
     def _build_pack(self) -> dict:
         """Fill the C-token prefill budget FCFS over in-flight prefills
         (the oldest request first, the rest share what remains). Per-token
-        operands: slot, position, segment id (= the slot: one contiguous
-        run per request, so pack order is position order within it; -1 on
-        pads) and ``hist`` (the run's start offset: arena rows below it —
-        earlier chunks, prefix hits — are the history part)."""
+        operands: slot (the token's row of the engine's block tables; pads
+        name slot 0 and read nothing), position, segment id (= the slot:
+        one contiguous run per request, so pack order is position order
+        within it; -1 on pads) and ``hist`` (the run's start offset: arena
+        rows below it — earlier chunks, prefix hits — are the history
+        part, which the paged kernel reads once per run)."""
         C = self.prefill_chunk
         pf = {"tokens": np.zeros(C, np.int64), "pos": np.zeros(C, np.int64),
-              "slot": np.zeros(C, np.int64), "valid": np.zeros(C, bool),
+              "slot": np.zeros(C, np.int32), "valid": np.zeros(C, bool),
               "seg": np.full(C, -1, np.int32), "hist": np.zeros(C, np.int32),
               "fin_row": [], "fin": [], "fills": [], "used": 0}
         used = 0
@@ -237,9 +239,9 @@ class ServingEngine:
             pos = up(pf["pos"])[None]
             h = model.embed(up(pf["tokens"])[None], positions=pos)
             h = model.blocks.decode(
-                h, caches, positions=pos,
-                block_tables=bt.index_select(0, up(pf["slot"])),
-                pack={"segment_ids": up(pf["seg"])[None],
+                h, caches, positions=pos, block_tables=bt,
+                pack={"row_slot": up(pf["slot"]),
+                      "segment_ids": up(pf["seg"])[None],
                       "hist": up(pf["hist"]), "valid": up(pf["valid"])})
             if pf["fin"]:
                 # first tokens only for the requests whose prompt ends in

@@ -4,6 +4,7 @@ beside ``chip_smoke.py``, whose phase functions they run:
 
     python3 port_probe.py kernels           # build, ptxas, kernel phases
     python3 port_probe.py steps OLD NEW     # step times of two trees
+    python3 port_probe.py serve OLD NEW     # serving bursts of two trees
 
 ``kernels`` builds every kernel, prints the ``ptxas`` report of the
 tensor-core instances and runs ``phase_kernels``, ``phase_train_kernels``
@@ -19,6 +20,16 @@ NEW, NEW, OLD: each turn is a process of its own (both packages are named
 fused-CE combo at batch 48 with that tree's ``train_rung`` (3 warm-up and
 10 timed steps) and profiles 3 steps of each with its
 ``phase_train_profile``. ``steps-of TREE TAG`` is one such turn.
+
+``serve`` compares the serving engines of two checkouts the same way,
+OLD, NEW, NEW, OLD, a process each (serving throughput moves with the
+host between processes): each turn serves ``chip_smoke.py``'s GPT-2
+small workload (``ServingEngine(slots=16, max_len=512,
+prefill_chunk=64)``, fp32) and its Llama-7B workload (bf16, int8 arena,
+``ServingEngine(slots=16, max_len=2048, prefill_chunk=256)``) with that
+tree's ``serve`` after a warm-up engine, and prints throughput, TTFT,
+TPOT and the lane iterations of each burst. ``serve-of TREE TAG`` is one
+such turn.
 
 Each line of output is one JSON object, as ``chip_smoke.py`` prints them.
 Without a CUDA device it exits nonzero at once.
@@ -123,12 +134,77 @@ def steps_of(tree: str, tag: str) -> int:
     return 1 if failed else 0
 
 
-def steps(old: str, new: str) -> int:
+def burst_line(cs, run) -> dict:
+    """Throughput, TTFT and TPOT of one ``serve`` run's burst."""
+    reqs = run["reqs"]
+    timings = [r.timing() for r in reqs]
+    ttft = [t["ttft_ms"] for t in timings]
+    tpot = [t["decode_ms"] / (len(r.tokens) - 1)
+            for t, r in zip(timings, reqs) if len(r.tokens) > 1]
+    gen = sum(len(r.tokens) for r in reqs)
+    return dict(burst_generated_tokens=gen, burst_seconds=run["t_burst"],
+                burst_tokens_per_s=gen / run["t_burst"],
+                burst_lane_iterations=run["it_burst"],
+                ttft_ms_p50=cs.percentile(ttft, 50),
+                ttft_ms_p99=cs.percentile(ttft, 99),
+                tpot_ms_p50=cs.percentile(tpot, 50),
+                shared_seconds=run["t_shared"])
+
+
+def serve_of(tree: str, tag: str) -> int:
+    sys.path.insert(0, os.path.abspath(tree))
+    import chip_smoke as cs
+    from hetu_tpu_torch.core import BF16_FULL, autocast
+    from hetu_tpu_torch.models import (
+        GPTConfig, GPTLMHeadModel, LlamaConfig, LlamaLMHeadModel,
+    )
+    from hetu_tpu_torch.ops import _build
+    from hetu_tpu_torch.serving import SamplingParams, ServingEngine
+
+    device = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    _build.build()
+    cs.emit(phase="serve_build", tree=tag, seconds=time.perf_counter() - t0)
+    card = cs.nvidia_smi()
+    sp = SamplingParams(max_tokens=64)
+    cfg = GPTConfig.small()
+    model = GPTLMHeadModel(cfg, device=device, seed=cs.SEED).eval()
+    burst, shared = cs.workload(cfg.vocab_size)
+    kw = dict(max_len=512, prefill_chunk=64, block_size=16, device=device)
+    ServingEngine(model, slots=2, **kw).generate_many(
+        [burst[0][:70]], SamplingParams(max_tokens=3))
+    run = cs.serve(ServingEngine(model, slots=16, seed=cs.SEED, **kw),
+                   burst, shared, sp)
+    cs.emit(phase="serve", tree=tag, path="gpt2", card=card,
+            **burst_line(cs, run))
+    del model, run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = LlamaConfig.llama_7b()
+    model = LlamaLMHeadModel(cfg, device=device, dtype=torch.bfloat16,
+                             seed=cs.SEED).eval()
+    burst, shared = cs.llama_workload(cfg.vocab_size)
+    kw = dict(max_len=cs.LLAMA_MAX_LEN, prefill_chunk=cs.LLAMA_CHUNK,
+              block_size=cs.LLAMA_BLOCK, cache_dtype=torch.int8,
+              device=device)
+    with autocast(BF16_FULL):
+        ServingEngine(model, slots=2, **kw).generate_many(
+            [burst[0][:300]], SamplingParams(max_tokens=3))
+        run = cs.serve(ServingEngine(model, slots=cs.LLAMA_SLOTS,
+                                     seed=cs.SEED, **kw), burst, shared, sp)
+    cs.emit(phase="serve", tree=tag, path="llama", card=card,
+            **burst_line(cs, run))
+    return 0
+
+
+def in_turns(verb: str, old: str, new: str) -> int:
+    """``verb``-of OLD, NEW, NEW, OLD, each in a process of its own."""
     rc = 0
     for tree, tag in ((old, "old"), (new, "new"), (new, "new2"),
                       (old, "old2")):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "steps-of", tree, tag])
+                               f"{verb}-of", tree, tag])
         rc = rc or proc.returncode
     return rc
 
@@ -139,10 +215,12 @@ def main(argv) -> int:
         return 2
     if argv[:1] == ["kernels"] and len(argv) == 1:
         return kernels()
-    if argv[:1] == ["steps"] and len(argv) == 3:
-        return steps(argv[1], argv[2])
+    if argv[:1] in (["steps"], ["serve"]) and len(argv) == 3:
+        return in_turns(argv[0], argv[1], argv[2])
     if argv[:1] == ["steps-of"] and len(argv) == 3:
         return steps_of(argv[1], argv[2])
+    if argv[:1] == ["serve-of"] and len(argv) == 3:
+        return serve_of(argv[1], argv[2])
     print(__doc__, file=sys.stderr)
     return 2
 
