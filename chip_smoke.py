@@ -13,9 +13,11 @@ Phases, each printing one JSON line:
 1. device  -- the card's name and power limit (``nvidia-smi``); compute
    capability 9.0 (Hopper) is required.
 2. build   -- ``nvcc`` builds every kernel from ``hetu_tpu_torch/csrc``,
-   one process per source, all at once; ``ptxas`` and ``ptxas_paged``
-   report registers and spills of the tensor-core flash instances and of
-   every instance of the paged kernel's lanes.
+   one process per source, all at once; ``ptxas``, ``ptxas_paged`` and
+   ``ptxas_fused`` report registers and spills of the tensor-core flash
+   instances, of every instance of the paged kernel's lanes and of the
+   fused CE kernels (the tensor-core instances of #5 and #6 must not
+   spill).
 3. kernel  -- each kernel against its plain version on the card, at the
    serving path's shapes (fp32 and bf16) and at edge shapes (GQA, segment
    pads, offsets that leave rows with no key, dropout 0.1, a ragged
@@ -70,11 +72,14 @@ Phases, each printing one JSON line:
    time must lie under the tensor-core symbols (``lane``), as in the
    combo's profile (and the forward's at the Llama pack).
 8. fused_ce kernels -- the fused LM-head CE kernels (forward, dH, dW)
-   against their plain versions with h and w each fp32 or bf16, at V =
-   50257 and a ragged V = 1013, N not a multiple of any token tile,
-   labels of -1 and random general (glse, gtgt) cotangents. Bounds: fp32
-   h (and output) lse/tgt 1e-4 and dh/dw 1e-4 of max |reference|; bf16 h
-   or output 2e-2 and 1e-2 of max |reference|.
+   against their plain versions with h and w each fp32 or bf16 (bf16 h:
+   the tensor-core lanes of forward and dH, ``ops.fused_ce_lane``), at V
+   = 50257 and a ragged V = 1013, N not a multiple of any token tile and
+   N = 5, labels of -1 and V - 1 and random general (glse, gtgt)
+   cotangents; every case with a bf16 operand run twice, bit-equal; an
+   fp32 w with bf16 h bit-identical to w cast to bf16 (kernel_w_cast).
+   Bounds: lse/tgt 1e-4; dh/dw element by element 2 ulps of the output's
+   dtype plus 1e-4 (fp32 h) or 2e-4 (bf16 h) of max |reference|.
 9. train_fused -- ``bench.py``'s fused-CE combo (``workloads/
    mfu_sweep.py --one {48,32}:selective:1:auto --param-dtype bf16 --ce
    fused``): ``HETU_LM_LOSS_IMPL=fused`` (set for these phases and
@@ -82,12 +87,16 @@ Phases, each printing one JSON line:
    First the fp32 step oracle of ``train`` with the fused loss (launches
    exactly 1 per fused kernel and 12 per flash kernel), then the batch
    ladder 48/32/16 with 3 warm-up and 10 timed steps: launches exactly
-   10 per fused kernel and 120 per flash kernel; then its profile.
+   10 per fused kernel and 120 per flash kernel; then its profile, whose
+   ``lane`` lines put #5's and #6's device time under their tensor-core
+   symbols and #7's under its own.
 10. fused_ce times -- the three kernels at the combo's training shape (N
    = batch x 1024 tokens, bf16 h and w) against their plain versions,
    then timed; ``library_ms`` is the port's ``chunked_lm_loss`` (cuBLAS
    plus torch ops: no single PyTorch call computes these functions),
-   forward only for the forward kernel, forward and backward for dH/dW.
+   forward only for the forward kernel, forward and backward for dH/dW;
+   ``gemm_ms`` is one cuBLAS call for the logits product in their bodies,
+   ``torch.mm(h, w.t(), out_dtype=torch.float32)``.
 11. llama kernels -- kernel #1's int8 lane against its plain version at
    the Llama engine's shapes (decode q (16, 1, 32, 128) at 1024 live
    positions per slot and at ragged depths, prefill history q (256, 1,
@@ -221,23 +230,39 @@ class Timer:
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
-    def profile(self, fn, iters: int = 10, counts=None) -> dict:
+    def profile(self, fn, iters: int = 10, counts=None, expect=()) -> dict:
         """Device ms by kernel name over ``iters`` calls of ``fn``, each
         after the L2 flush, from ``torch.profiler`` (CPU and CUDA
         activity, as the step profiles, which have read every kernel in
         every run; a CUDA-only window of a few short launches late in the
         script once recorded none); ``counts``, if given, receives the
-        launches recorded by name."""
+        launches recorded by name. Late in the script a window of short
+        launches has also recorded no launch of ``fn``'s kernels at all:
+        a window that recorded no kernel whose name holds one of the
+        ``expect`` substrings is profiled again, up to three windows in
+        all (each retry printed); the caller's checks read the last."""
         from torch.profiler import ProfilerActivity, profile
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                self.flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        return device_kernel_ms(prof, counts)[0]
+        windows = 3
+        for window in range(windows):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    self.flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+            got: dict[str, int] = {}
+            by_name = device_kernel_ms(prof, got)[0]
+            missing = [key for key in expect
+                       if not any(key in n for n in got)]
+            if not missing:
+                break
+            emit(phase="profile_retry", missing=missing, window=window + 1,
+                 of=windows)
+        if counts is not None:
+            counts.update(got)
+        return by_name
 
     def per_kernel(self, fn, keys, iters: int = 10) -> tuple[dict, dict]:
         """Mean device ms per launch of each kernel whose name contains
@@ -246,7 +271,7 @@ class Timer:
         the recorded launches: a profile late in a long process has
         recorded as few as 4 of 10."""
         counts: dict[str, int] = {}
-        by_name = self.profile(fn, iters, counts)
+        by_name = self.profile(fn, iters, counts, expect=keys)
         seen = {key: sum(c for n, c in counts.items() if key in n)
                 for key in keys}
         check(all(seen.values()),
@@ -298,7 +323,9 @@ def check_ptxas(built) -> dict:
     """Registers and spills of the tensor-core flash instances; the d 64
     ones (the training path's) must not spill. Then those of every
     instance of the paged kernel's lanes (``ptxas_paged``), each of which
-    must be in the report."""
+    must be in the report, and of the fused CE kernels (``ptxas_fused``):
+    the tensor-core instances of #5 and #6 must be there and must not
+    spill."""
     syms = [LANE_SYMBOLS[k]["tensor_core"] for k in FLASH]
     found = {}
     for src in ("flash_fwd", "flash_bwd"):
@@ -323,6 +350,17 @@ def check_ptxas(built) -> dict:
             for sym in PAGED_INSTANCES}
     check(seen == PAGED_INSTANCES, f"ptxas report of the paged lanes: "
                                    f"{seen}, expected {PAGED_INSTANCES}")
+    fused = ptxas_entries(built["fused_ce"]["ptxas"])
+    tc = {key: e for name, e in fused.items()
+          for key, piece in FUSED_TC_INSTANCES.items() if piece in name}
+    emit(phase="ptxas_fused", tensor_core=tc,
+         cuda_core={n: e for n, e in fused.items() if "_tc_" not in n})
+    check(sorted(tc) == sorted(FUSED_TC_INSTANCES),
+          f"ptxas report lacks a fused tensor-core instance: {sorted(tc)}")
+    for key, e in tc.items():
+        check(e.get("spill_stores") == 0 and e.get("spill_loads") == 0,
+              f"{key} spills: {e}")
+    found.update(tc)
     return found
 
 def paged_case(gens, device, dtype, *, R, hq, hkv, d, bs, W, n_blocks,
@@ -388,7 +426,7 @@ def paged_profile(timer, name, fn, lane) -> float:
     rides with its split). Beside the CUDA events' time, which also
     counts the wrapper's host time where that is longer."""
     counts: dict[str, int] = {}
-    by_name = timer.profile(fn, counts=counts)
+    by_name = timer.profile(fn, counts=counts, expect=("paged_",))
     ms = check_lane(name, by_name, lane, kernels=("paged_attention",))
     calls = sum(c for n, c in counts.items()
                 if "paged_" in n and "combine" not in n)
@@ -396,10 +434,10 @@ def paged_profile(timer, name, fn, lane) -> float:
     return sum(ms["paged_attention"].values()) / calls
 
 
-def check_rerun(name, got, again):
+def check_rerun(name, got, again, kernel="paged"):
     """A second call on the same inputs must give the same bits."""
     same = all(torch.equal(a, b) for a, b in zip(got, again))
-    check(same, f"paged {name}: a rerun differs")
+    check(same, f"{kernel} {name}: a rerun differs")
     return same
 
 
@@ -506,10 +544,11 @@ def check_bwd(name, case, dtype, shape, got, want, errs, dead_rows=0):
               f"{name} {case}: dq of rows with no key not 0")
 
 
-#: the device symbols of the lanes of #2, #3 and #4 (``ops.flash_lane``)
-#: and of #1 (``ops.paged_lane``: split-KV decode; the run-shared tiles,
+#: the device symbols of the lanes of #2, #3 and #4 (``ops.flash_lane``),
+#: of #1 (``ops.paged_lane``: split-KV decode; the run-shared tiles,
 #: ``paged_tile_tc_kernel`` on the tensor cores, ``paged_tile_kernel`` on
-#: the CUDA cores)
+#: the CUDA cores) and of #5-#7 (``ops.fused_ce_lane``); no symbol of a
+#: kernel is a substring of another lane's
 LANE_SYMBOLS = {"flash_fwd": {"tensor_core": "flash_fwd_tc_kernel",
                               "cuda_core": "flash_fwd_kernel"},
                 "flash_bwd_dq": {"tensor_core": "flash_bwd_dq_tc_kernel",
@@ -517,7 +556,21 @@ LANE_SYMBOLS = {"flash_fwd": {"tensor_core": "flash_fwd_tc_kernel",
                 "flash_bwd_dkv": {"tensor_core": "flash_bwd_dkv_tc_kernel",
                                   "cuda_core": "flash_bwd_dkv_kernel"},
                 "paged_attention": {"split_kv": "paged_split_kv",
-                                    "tile": "paged_tile"}}
+                                    "tile": "paged_tile"},
+                "fused_ce_fwd": {"tensor_core": "fused_ce_fwd_tc_kernel",
+                                 "cuda_core": "fused_ce_fwd_kernel"},
+                "fused_ce_dh": {"tensor_core": "fused_ce_dh_tc_kernel",
+                                "cuda_core": "fused_ce_dh_kernel"},
+                "fused_ce_dw": {"cuda_core": "fused_ce_dw_kernel"}}
+#: the fused CE kernels' lanes (``ops.fused_ce_lane``)
+FUSED_LANES = ("tensor_core (bf16 h: forward and dH; dH on a 2-CTA "
+               "cluster); cuda_core (fp32 h; dW for every dtype)")
+#: the tensor-core instances of #5 and #6 that ``ptxas`` must report, by
+#: a piece of their mangled names (a name in an anonymous namespace ends
+#: in E, a template's arguments are I...E)
+FUSED_TC_INSTANCES = {"fused_ce_fwd_tc_kernel": "22fused_ce_fwd_tc_kernelE",
+                      "fused_ce_dh_tc_kernel<2>":
+                          "21fused_ce_dh_tc_kernelILi2EE"}
 #: instances of #1's lanes that ``ptxas`` must report: split-KV for 4
 #: (q, arena) type pairs x d 64/128, its combine for 2 q types x d
 #: 64/128, the tensor-core tile for bf16 q with a bf16 or int8 arena x d
@@ -743,7 +796,8 @@ def phase_kernels(device, timer, ops):
                 check_lane(name, timer.profile(lambda: (
                     ops.flash_attention_fwd(q, k, v, seg, seg, **args),
                     ops.flash_attention_bwd(q, k, v, seg, seg, out, lse, do,
-                                            **args))), "cuda_core")
+                                            **args)), expect=("flash_",)),
+                    "cuda_core")
     for kernel, line in (("flash_bwd_dq", 355), ("flash_bwd_dkv", 418)):
         results[kernel] = dict(
             name=kernel, route="cuda", lane=FLASH_LANES,
@@ -1279,6 +1333,13 @@ def phase_train_profile(run, n_steps: int = 3, phase: str = "train_profile"):
         by_class[cls] = by_class.get(cls, 0.0) + ms / n_steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     lanes = check_lane(phase, by_name, "tensor_core")
+    fused = {}
+    if os.environ.get("HETU_LM_LOSS_IMPL") == "fused":
+        # bf16 h: #5 and #6 on the tensor cores, #7 on its one kernel
+        fused = check_lane(phase, by_name, "tensor_core",
+                           kernels=("fused_ce_fwd", "fused_ce_dh"))
+        fused.update(check_lane(phase, by_name, "cuda_core",
+                                kernels=("fused_ce_dw",)))
     emit(phase=phase, steps=n_steps, batch=run["batch_size"],
          ms_per_step=wall_ms / n_steps,
          device_kernels_per_step=n_kernels / n_steps,
@@ -1287,6 +1348,8 @@ def phase_train_profile(run, n_steps: int = 3, phase: str = "train_profile"):
          device_ms_per_step_by_class=by_class,
          flash_lane_ms_per_step={k: {ln: ms / n_steps for ln, ms in v.items()}
                                  for k, v in lanes.items()},
+         fused_lane_ms_per_step={k: {ln: ms / n_steps for ln, ms in v.items()}
+                                 for k, v in fused.items()},
          top_kernels_ms_per_step=[[n[:80], ms / n_steps] for n, ms in top])
 
 
@@ -1505,15 +1568,25 @@ def run_fused(ops, h, w, lab, glse, gtgt):
 def phase_fused_kernels(device, ops):
     """Kernels #5-#7 against their plain versions: one draw of h and w,
     each taken in fp32 and in bf16; the GPT-2 vocab and a ragged one;
-    token counts that are not a multiple of any token tile; then the w
-    cast of the bf16-h lane (:func:`check_w_cast`). Returns the summary
-    entries (without times and launches)."""
+    token counts that are not a multiple of any token tile, and 5
+    tokens, fewer than one; E = 768 (GPT-2's), 64 (one 64-wide chunk:
+    the dH cluster's rank 1 owns none and pushes zero partials) and 192
+    (three chunks, split 2 / 1); a label of V - 1 (the last, ragged
+    tile's last column); every case with a bf16 operand run again,
+    bit-equal (no atomics: the cluster's CTAs sum their partial logits
+    in rank order); then the w cast of the bf16-h lane
+    (:func:`check_w_cast`). Returns the summary entries (without times
+    and launches)."""
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     errs = {k: {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0} for k in FUSED}
-    for case, n, vocab in (("vocab_50257", 333, 50257),
-                           ("ragged_vocab_1013", 1000, 1013)):
+    for case, n, vocab, e in (("vocab_50257", 333, 50257, 768),
+                              ("ragged_vocab_1013", 1000, 1013, 768),
+                              ("tokens_5", 5, 50257, 768),
+                              ("width_64", 333, 1013, 64),
+                              ("width_192", 1000, 50257, 192)):
         h32, w32, lab, glse, gtgt = fused_inputs(
-            gen, device, n, vocab, torch.float32, torch.float32)
+            gen, device, n, vocab, torch.float32, torch.float32, e)
+        lab[min(3, n - 1)] = vocab - 1
         for h_dtype in (torch.float32, torch.bfloat16):
             h = h32.to(h_dtype)
             for w_dtype in (torch.float32, torch.bfloat16):
@@ -1522,12 +1595,21 @@ def phase_fused_kernels(device, ops):
                 check_fused(case, h, w, got, want, errs)
                 check(bool((got[1][lab == -1] == 0).all()),
                       f"fused_ce_fwd {case}: tgt of label -1 not 0")
+                if torch.bfloat16 in (h_dtype, w_dtype):
+                    again = (*ops.fused_ce_fwd(h, w, lab),
+                             ops.fused_ce_dh(h, w, lab, want[0], glse, gtgt),
+                             ops.fused_ce_dw(h, w, lab, want[0], glse, gtgt))
+                    torch.cuda.synchronize()
+                    same = check_rerun(case, got, again, kernel="fused_ce")
+                    emit(phase="kernel_rerun", kernel="fused_ce", case=case,
+                         h_dtype=str(h_dtype).split(".")[1],
+                         w_dtype=str(w_dtype).split(".")[1], identical=same)
         check_w_cast(ops, case, h, w32, lab, glse, gtgt)
     results = {}
     for kernel, line in zip(FUSED, (53, 112, 134)):
         results[kernel] = dict(
             name=kernel, route="cuda",
-            lane="tensor_core (bf16 h); cuda_core (fp32 h)",
+            lane=FUSED_LANES if kernel != "fused_ce_dw" else "cuda_core",
             source="hetu_tpu_torch/csrc/fused_ce.cu",
             replaces=f"hetu_tpu/ops/fused_ce_pallas.py:{line}",
             **errs[kernel])
@@ -1603,8 +1685,8 @@ def phase_train_fused(device, card):
 def phase_fused_kernel_times(device, timer, ops, b, results):
     """Kernels #5-#7 at the combo's training shape (N = b x 1024 tokens,
     V = 50257, E = 768, bf16 h and w): held against their plain versions,
-    then timed with the plain versions and the port's chunked loss
-    beside them."""
+    then timed with the plain versions, the port's chunked loss and one
+    cuBLAS call for their logits product (``gemm_ms``) beside them."""
     from hetu_tpu_torch.ops import chunked_lm_loss
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
     n, vocab, e = b * TRAIN_SEQ, 50257, 768
@@ -1636,6 +1718,12 @@ def phase_fused_kernel_times(device, timer, ops, b, results):
     y = lab.long().view(b, TRAIN_SEQ)
     lib_fwd = timer(lambda: chunked_lm_loss(hid, w, y, mm_dt=torch.bfloat16),
                     iters=3, warmup=1)
+    # the 2NVE logits product every fused kernel computes in its body, as
+    # one cuBLAS call (it also writes the (N, V) fp32 logits)
+    gemm_ms = timer(lambda: torch.mm(h, w.t(), out_dtype=torch.float32),
+                    iters=3, warmup=1)
+    gc.collect()
+    torch.cuda.empty_cache()
     hg, wg = hid.detach().requires_grad_(), w.detach().requires_grad_()
     lib_both = timer(lambda: chunked_lm_loss(
         hg, wg, y, mm_dt=torch.bfloat16).backward(), iters=3, warmup=1)
@@ -1654,8 +1742,8 @@ def phase_fused_kernel_times(device, timer, ops, b, results):
         bound_ms, bound_by = bound(nbytes, flops, torch.bfloat16)
         t = dict(ms=ms, plain_ms=plain_ms,
                  library_ms=lib_fwd if kernel == "fused_ce_fwd" else lib_both,
-                 bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                 flops=flops)
+                 gemm_ms=gemm_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 bytes=nbytes, flops=flops)
         emit(phase="kernel_time", kernel=kernel, case="train",
              dtype="bfloat16", shape=[n, vocab, e], **t)
         results[kernel].update(t, shape=f"train_bf16_N{n}")
@@ -1663,7 +1751,10 @@ def phase_fused_kernel_times(device, timer, ops, b, results):
          "the port's chunked_lm_loss (cuBLAS bf16 head matmuls plus torch "
          "ops): its forward for fused_ce_fwd, forward and backward for "
          "fused_ce_dh and fused_ce_dw (no single PyTorch call computes "
-         "these functions)")
+         "these functions); gemm_ms is one cuBLAS call, torch.mm(h, w.t(), "
+         "out_dtype=float32), for the 2NVE logits product in each kernel's "
+         "body, writing the (N, V) fp32 logits that the kernels never "
+         "write")
 
 
 # -- Llama-7B served from the int8 KV arena ----------------------------------
@@ -1912,7 +2003,8 @@ def phase_llama_kernels(device, timer, ops, results):
             if dtype == torch.bfloat16 and name == "llama_packed_prefill":
                 check_lane(name, timer.profile(
                     lambda: ops.flash_attention_fwd(
-                        q, k, v, seg, seg, causal=True, scale=scale)),
+                        q, k, v, seg, seg, causal=True, scale=scale),
+                    expect=("flash_fwd",)),
                     "tensor_core", kernels=("flash_fwd",))
                 t = time_flash(timer, ops, q, k, v, seg, scale)
                 emit(phase="kernel_time", kernel="flash_fwd", case=name,
@@ -2355,6 +2447,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_kernels(device, timer, ops, batch, kernels)
     kernels.update(phase_fused_kernels(device, ops))
+    for name, key in (("fused_ce_fwd", "fused_ce_fwd_tc_kernel"),
+                      ("fused_ce_dh", "fused_ce_dh_tc_kernel<2>")):
+        kernels[name]["ptxas"] = {key: ptxas[key]}
     run = phase_train_fused(device, smi)
     paths["train_fused"] = run["counts"]
     batch = run["batch_size"]

@@ -1,4 +1,5 @@
-// Fused LM-head cross-entropy, for sm_90a (H100): three kernels.
+// Fused LM-head cross-entropy, for sm_90a (H100): three kernels, two
+// lanes for the first two.
 //
 // Replaces hetu_tpu/ops/fused_ce_pallas.py:53 _fwd_kernel, :112
 // _dh_kernel and :134 _dw_kernel (host wrappers _fused_fwd_impl :170 and
@@ -20,9 +21,18 @@
 // What bounds them on an H100: operations. At the training shape (n = b *
 // 1024 tokens, V = 50257, E = 768, bf16) fwd does 2nVE flops and dh/dw 4nVE
 // each (the logits tile is recomputed), against about (n + V) E * 2 bytes:
-// hundreds of flops per byte, far above the card's 295.
+// hundreds of flops per byte, far above the card's 295. At n = 49152 the
+// bounds are 3.836 ms (fwd) and 7.673 ms (dh, dw) on 989 TFLOP/s.
 //
-// Design in response, simple and right first:
+// Lanes, picked from h's dtype before the launch (ops/fused_ce.py
+// fused_ce_lane; the entry points below branch on the same rule): bf16 h
+// runs fwd and dh on the tensor-core lane (fused_ce_fwd_tc_kernel,
+// fused_ce_dh_tc_kernel, below), which reads bf16 w only (the wrapper
+// casts an fp32 w once: the values of the per-tile astype); fp32 h runs
+// the CUDA-core lane. dw has the CUDA-core kernel only.
+//
+// The CUDA-core lane (fused_ce_fwd_kernel, fused_ce_bwd_body), simple
+// and right first:
 //   - bf16 operands go through the tensor cores with mma.sync m16n8k16
 //     (fp32 accumulators), fragments loaded from shared memory by hand
 //     and each kept in registers across the products that share it;
@@ -39,9 +49,28 @@
 //     each owning every 8th group of 8 columns (E / 64 groups, 96 floats a
 //     thread at E = 768). E is therefore a multiple of 64 and at most 768,
 //     which also keeps both operand tiles inside the 227 KB of shared
-//     memory. Splitting E across blocks would lift that limit at the cost
-//     of recomputing s once per E chunk; it is not needed for GPT-2 small.
-// No copy pipeline, TMA or wgmma yet: later work.
+//     memory.
+// No copy pipeline: every streamed tile is staged through registers
+// between two barriers, and fwd keeps fp32 logits in shared memory.
+//
+// The tensor-core lane answers the CUDA-core lane's five costs:
+//   1. unpipelined staging: both kernels stream w (and fwd h) through
+//      cp.async rings (mma_bf16.cuh cp_async16) into XOR-swizzled rows
+//      (swz), so a copy in flight overlaps the products before it;
+//   2. one block per SM with nothing hiding the copies: fwd's ring is 4
+//      k-chunks deep and its copies are spread over the products; dh's
+//      next vocab tile is copied in the shadow of its cluster barrier;
+//   3. fp32 logits through shared memory: fwd keeps s in the mma.sync
+//      accumulators and takes the row max, the rescaled sum and the
+//      target logit from registers with quad shuffles;
+//   4. hand-indexed fragment loads: every fragment comes by ldmatrix
+//      (ldsm_a, ldsm_bt, ldsm_b) into warp tiles of 32 tokens, 160-256
+//      bytes of ldmatrix a product;
+//   5. dh's 32-token tile re-streamed all of w for every 32 tokens: a
+//      two-CTA cluster now owns 64 tokens, each CTA half of E (below).
+// The details and the L2 reckoning are at each kernel.
+
+#include <cooperative_groups.h>
 
 #include <type_traits>
 
@@ -90,12 +119,13 @@ constexpr int kThreads = 256;  // 8 warps
 constexpr int kBwdRows = 32;   // dh: tokens, dw: vocab rows per block
 constexpr int kMaxE = 768;
 
-// per element type: streamed rows per tile, fwd tokens per block, and a
-// row pad of 16 bytes, which puts consecutive rows 4 banks apart (the
-// fragment loads below are then free of bank conflicts)
+// per element type: streamed rows per tile, fwd tokens per block (fp32 h
+// only: bf16 h takes the tensor-core forward), and a row pad of 16
+// bytes, which puts consecutive rows 4 banks apart (the fragment loads
+// below are then free of bank conflicts)
 template <typename T> struct Cfg;
 template <> struct Cfg<bf16> {
-  static constexpr int kT = 64, kFwdRows = 64, kPad = 8;
+  static constexpr int kT = 64, kPad = 8;
 };
 template <> struct Cfg<float> {
   static constexpr int kT = 32, kFwdRows = 32, kPad = 4;
@@ -419,7 +449,7 @@ int launch_bwd(const void* h, const void* w, const void* labels,
               *b = static_cast<const float*>(glse),
               *c = static_cast<const float*>(gtgt);
   cudaError_t err;
-  if (kDW) {
+  if constexpr (kDW) {
     err = allow_smem(fused_ce_dw_kernel<T, TW>, smem);
     if (err != cudaSuccess) return (int)err;
     fused_ce_dw_kernel<T, TW><<<blocks, kThreads, smem, stream>>>(
@@ -433,6 +463,562 @@ int launch_bwd(const void* h, const void* w, const void* labels,
   return (int)cudaGetLastError();
 }
 
+// ---- the tensor-core lane (bf16 h and w, E a multiple of 64) ---------------
+
+namespace cgrp = cooperative_groups;
+
+constexpr int kTcThreads = 256;  // 8 warps
+constexpr int kChunk = 64;       // E columns per streamed k-chunk (128 bytes)
+
+// fwd (#5): fused_ce_fwd_tc_kernel. One block of 8 warps per 128 tokens,
+// walking the vocab in 256-column tiles, in order.
+//   - Warp (wr, wc) owns tokens 32 wr..32 wr + 31 and columns 128 wc.. of
+//     every tile: its s is 2 x 16 m16n8 accumulators (128 fp32 registers
+//     a thread), and one k16 step loads 2 A and 8 B fragment pairs by
+//     ldmatrix (ldsm_a, ldsm_bt) for 32 products, 160 bytes a product.
+//   - s never leaves the accumulators: a row's max, rescaled sum and
+//     target logit over the warp's columns come from registers with quad
+//     shuffles (__shfl_xor_sync 1, 2), each thread keeping a partial l
+//     over its own columns, rescaled by the quad's common max. The two
+//     column halves of a row keep separate online states and meet once,
+//     at the end, through shared memory (the only fp32 there).
+//   - Both operands stream as 64-wide k-chunks of E, the 128 token rows
+//     and the 256 vocab rows of a chunk in one stage of a 4-stage cp.async
+//     ring (48 KB a stage, 192 KB), rows XOR-swizzled: the copies of chunk
+//     c + 3 are issued three per k16 step of chunk c, so they overlap its
+//     products and never stall the warps in a burst, and the ring runs on
+//     across the end of a vocab tile, under the softmax update. Shared
+//     memory no longer bounds E.
+//   - L2 reckoning: each call reads n V E 2 (1 / 128 + 1 / 256) bytes, 44.5
+//     GB at n = 49152 (59 GB with 128 x 128 tiles), and every block walks w
+//     in the same order, so the blocks resident together share each w tile
+//     in the 50 MB L2; the h tiles they re-read hold 132 x 192 KB = 26 MB.
+//     A 128 x 256 tile is the largest whose accumulators fit 8 warps'
+//     registers beside the fragments (255 a thread at one block an SM).
+constexpr int kFwdTokens = 128;
+constexpr int kFwdVocab = 256;
+constexpr int kFwdStages = 4;
+constexpr int kFwdNT = kFwdVocab / 2 / 8;  // n8 tiles a warp
+
+__host__ __device__ constexpr size_t fwd_tc_smem() {
+  return (size_t)kFwdStages * (kFwdTokens + kFwdVocab) * kChunk * sizeof(bf16);
+}
+
+__global__ void __launch_bounds__(kTcThreads, 1)
+fused_ce_fwd_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
+                       const int* __restrict__ labels,
+                       float* __restrict__ lse, float* __restrict__ tgt,
+                       int n, int vocab, int E) {
+  constexpr int kStage = (kFwdTokens + kFwdVocab) * kChunk;  // elements
+  constexpr int kCopies = (kFwdTokens + kFwdVocab) * 8 / kTcThreads;  // 12
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp >> 1, wc = warp & 1;
+  const int r0 = blockIdx.x * kFwdTokens;
+  const int kc = E / kChunk;  // k-chunks per vocab tile
+  const int n_tiles = (vocab + kFwdVocab - 1) / kFwdVocab;
+  const int total = n_tiles * kc;
+
+  // copy k (< kCopies) of chunk c (vocab tile c / kc, E columns (c % kc) *
+  // 64..): 16 bytes (tid & 7) of token row tid / 8 + 32 k (k < 4), else of
+  // the tile's vocab row tid / 8 + 32 (k - 4); rows past n or V zero-filled
+  auto copy = [&](int c, int k) {
+    const int e0 = (c % kc) * kChunk + (tid & 7) * 8;
+    bf16* hs = ring + (c % kFwdStages) * kStage;
+    const int r = (tid >> 3) + 32 * (k & 3);
+    if (k < 4) {
+      const bool in = r0 + r < n;
+      cp_async16(hs + swz<kChunk>(r, (tid & 7) * 8),
+                 h + (size_t)(in ? r0 + r : 0) * E + e0, in);
+    } else {
+      const int rv = r + 128 * ((k - 4) >> 2);
+      const int v = (c / kc) * kFwdVocab + rv;
+      const bool in = v < vocab;
+      cp_async16(hs + kFwdTokens * kChunk + swz<kChunk>(rv, (tid & 7) * 8),
+                 w + (size_t)(in ? v : 0) * E + e0, in);
+    }
+  };
+  for (int c = 0; c < kFwdStages - 1; ++c) {
+    if (c < total)
+      for (int k = 0; k < kCopies; ++k) copy(c, k);
+    cp_async_commit();  // one group per chunk, empty past the end
+  }
+
+  // this thread's rows 32 wr + 16 i + g + 8 r; their state over the
+  // warp's columns
+  int lab[2][2];
+  float m[2][2], l[2][2], tp[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + wr * 32 + i * 16 + g + 8 * r;
+      lab[i][r] = row < n ? labels[row] : -1;
+      m[i][r] = -CUDART_INF_F;
+      l[i][r] = tp[i][r] = 0.f;
+    }
+
+  float s[2][kFwdNT][4];
+  for (int vt = 0; vt < n_tiles; ++vt) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < kFwdNT; ++j)
+        s[i][j][0] = s[i][j][1] = s[i][j][2] = s[i][j][3] = 0.f;
+    for (int kq = 0; kq < kc; ++kq) {
+      const int c = vt * kc + kq;
+      cp_async_wait<kFwdStages - 2>();
+      __syncthreads();  // chunk c landed for all; chunk c - 1's stage free
+      const bool more = c + kFwdStages - 1 < total;
+      const bf16* hs = ring + (c % kFwdStages) * kStage;
+      const bf16* ws = hs + kFwdTokens * kChunk;
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk) {
+        if (more)
+#pragma unroll
+          for (int k = 0; k < kCopies / 4; ++k)
+            copy(c + kFwdStages - 1, kk * (kCopies / 4) + k);
+        const MmaBf16::A a0 = ldsm_a<kChunk>(hs, wr * 32, kk * 16);
+        const MmaBf16::A a1 = ldsm_a<kChunk>(hs, wr * 32 + 16, kk * 16);
+        // the next B pair is loaded while one is multiplied
+        MmaBf16::B b[2][2];
+        ldsm_bt<kChunk>(b[0][0], b[0][1], ws, wc * 128, kk * 16);
+#pragma unroll
+        for (int j = 0; j < kFwdNT; j += 2) {
+          const int cur = (j >> 1) & 1;
+          if (j + 2 < kFwdNT)
+            ldsm_bt<kChunk>(b[cur ^ 1][0], b[cur ^ 1][1], ws,
+                            wc * 128 + (j + 2) * 8, kk * 16);
+          MmaBf16::mma(s[0][j], a0, b[cur][0]);
+          MmaBf16::mma(s[0][j + 1], a0, b[cur][1]);
+          MmaBf16::mma(s[1][j], a1, b[cur][0]);
+          MmaBf16::mma(s[1][j + 1], a1, b[cur][1]);
+        }
+      }
+      cp_async_commit();
+    }
+
+    // the warp's columns v0 + j * 8 + 2t + (e & 1); past V: -1e30
+    const int v0 = vt * kFwdVocab + wc * 128;
+    if (v0 + 128 > vocab) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < kFwdNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (v0 + j * 8 + 2 * t + (e & 1) >= vocab) s[i][j][e] = kNegInf;
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int rel[2] = {lab[i][0] - v0 - 2 * t, lab[i][1] - v0 - 2 * t};
+      float mx[2] = {m[i][0], m[i][1]};
+#pragma unroll
+      for (int j = 0; j < kFwdNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (j * 8 + (e & 1) == rel[e >> 1]) tp[i][e >> 1] += s[i][j][e];
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[i][j][e]);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      }
+      float x[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < kFwdNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[e >> 1] += __expf(s[i][j][e] - mx[e >> 1]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[i][r] = l[i][r] * __expf(m[i][r] - mx[r]) + x[r];
+        m[i][r] = mx[r];
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+  __syncthreads();     // the ring is free: it takes the halves' states
+
+  // (m, l, tgt) of each row from each column half, then one thread a row:
+  // m = max(m0, m1), l = l0 e^(m0 - m) + l1 e^(m1 - m)
+  float* st = reinterpret_cast<float*>(smem_raw);  // 2 x 3 x kFwdTokens
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lt = l[i][r], tt = tp[i][r];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      tt += __shfl_xor_sync(0xffffffffu, tt, 1);
+      tt += __shfl_xor_sync(0xffffffffu, tt, 2);
+      const int row = wr * 32 + i * 16 + g + 8 * r;
+      if (t == 0) {
+        st[(wc * 3 + 0) * kFwdTokens + row] = m[i][r];
+        st[(wc * 3 + 1) * kFwdTokens + row] = lt;
+        st[(wc * 3 + 2) * kFwdTokens + row] = tt;
+      }
+    }
+  __syncthreads();
+  if (tid < kFwdTokens && r0 + tid < n) {
+    const float m0 = st[tid], m1 = st[3 * kFwdTokens + tid];
+    const float mm = fmaxf(m0, m1);
+    const float lt = st[kFwdTokens + tid] * __expf(m0 - mm) +
+                     st[4 * kFwdTokens + tid] * __expf(m1 - mm);
+    lse[r0 + tid] = mm + logf(lt);
+    tgt[r0 + tid] = st[2 * kFwdTokens + tid] + st[5 * kFwdTokens + tid];
+  }
+}
+
+int launch_fwd_tc(const void* h, const void* w, const void* labels,
+                  void* lse, void* tgt, int n, int vocab, int E,
+                  cudaStream_t stream) {
+  constexpr size_t smem = fwd_tc_smem();
+  cudaError_t err = allow_smem(fused_ce_fwd_tc_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (n + kFwdTokens - 1) / kFwdTokens;
+  fused_ce_fwd_tc_kernel<<<blocks, kTcThreads, smem, stream>>>(
+      static_cast<const bf16*>(h), static_cast<const bf16*>(w),
+      static_cast<const int*>(labels), static_cast<float*>(lse),
+      static_cast<float*>(tgt), n, vocab, E);
+  return (int)cudaGetLastError();
+}
+
+// dh (#6): fused_ce_dh_tc_kernel<C>. A cluster of C = 2 CTAs (a
+// thread-block cluster: neighbouring SMs that write each other's shared
+// memory) owns 64 tokens; CTA r owns E-chunks [r p, (r + 1) p) of the E /
+// 64, p = ceil(E / 128): at E = 768, 384 columns each.
+//   - The CTA's h slice (64 tokens x its chunks) is resident in shared
+//     memory; its slice of each 64-row vocab tile streams through a
+//     2-stage cp.async ring (48 KB a stage).
+//   - Per vocab tile j, the CTA's partial logits s_r over its E-slice:
+//     warps 0-3 take its even chunks and warps 4-7 its odd ones, each
+//     warp a (32 tokens x 32 columns) tile, so one k16 step loads 2 A
+//     and 2 B fragments by ldmatrix for 8 products; each warp hands the
+//     half of its tile that its partner sums to shared memory, in mma
+//     fragment order (one float4 per lane and m16n8 tile: conflict-free
+//     both ways).
+//   - Each warp keeps its summed part of s_r in registers and pushes a
+//     copy into its peer CTA's shared memory (distributed shared memory
+//     stores: the writer does not wait), then one cluster barrier, split:
+//     tile j + 1's copies are issued between arrive and wait, in the
+//     shadow of the pushes and the peer. The peer's slots are
+//     double-buffered, so the next push never overwrites partials the
+//     peer is still reading. Every CTA then sums s_0 + s_1 (two terms:
+//     the same bits in either order), so both hold bit-identical s and P,
+//     and reruns are bit-equal (no atomics), and forms P = glse * exp(s -
+//     lse) + gtgt * onehot, rounded to bf16 (absolute: JAX's rounding),
+//     once per element, into a swizzled bf16 tile. exp is ex2.approx
+//     (__expf, as fwd).
+//   - dh[:, slice] += P w_tile[:, slice] on mma.sync, P by ldsm_a and w
+//     by ldsm_b from the slice the ring already holds: each w byte feeds
+//     both products, and the work stays 4 n V E. Warp (pr, pc) owns
+//     tokens 32 pr.. and the pc-th 16-column pair of every chunk: 2 A and
+//     p B fragments a k16 step for 4 p products.
+//   - Every k16 step's fragments are loaded while the step before is
+//     multiplied (registers double-buffered): with 2 warps a scheduler,
+//     an ldmatrix feeding the next mma at once would stall it.
+//   - The accumulator: 64 tokens x 64 p columns, 96 fp32 registers a
+//     thread, where the CUDA-core lane's 32 tokens held all of E. L2
+//     reckoning: w is read once per cluster, n V E 2 / 64 bytes, 59 GB at
+//     n = 49152 (119 GB with 32 tokens). C = 4 (128 tokens, 30 GB) would
+//     need three pushed partials a tile, 64 KB double-buffered beside the
+//     ring: not built.
+// Why the design is so: its rate does not move with V or n, w in L2 or
+// not (port_probe.py fused), so the time is spent inside the SM.
+// clock64() counters around each phase (in a build made for that) showed
+// these costs beside the two products: pulling the peer's partials after
+// the barrier; a burst of each tile's copies; expf's exact rounding; an
+// ldmatrix feeding the next mma at once; the cluster barrier, whose
+// release waits for the pushes. Hence the push, the copies in the
+// barrier's shadow, __expf and the double-buffered fragments.
+constexpr int kDhVocab = 64;   // vocab rows per tile
+constexpr int kDhStages = 2;   // vocab tiles in the ring
+
+template <int C>
+struct DhTc {
+  static_assert(C == 2, "the partial exchange is laid out for 2 CTAs");
+  static constexpr int kTokens = 32 * C;
+  static constexpr int kMT = C;  // m16 tiles a warp, in both products
+  static constexpr int kChunks = (kMaxE / kChunk + C - 1) / C;  // per CTA
+  static constexpr int kSlot = kTokens / 16 * (kDhVocab / 8) * 32;  // float4s
+  // h slice, ring, where the K halves meet, two slots of the peer's
+  // partials, one P tile
+  static constexpr size_t smem() {
+    return (size_t)(kTokens + kDhStages * kDhVocab) * kChunks * kChunk *
+               sizeof(bf16) +
+           3 * (size_t)kSlot * sizeof(float4) +
+           (size_t)kTokens * kDhVocab * sizeof(bf16);
+  }
+};
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+template <int C>
+__global__ void __launch_bounds__(kTcThreads, 1)
+fused_ce_dh_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
+                      const int* __restrict__ labels,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ glse,
+                      const float* __restrict__ gtgt, bf16* __restrict__ dh,
+                      int n, int vocab, int E) {
+  using K = DhTc<C>;
+  constexpr int kTile = kDhVocab * kChunk;  // elements of one chunk tile
+  constexpr int kMT = K::kMT;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* hs = reinterpret_cast<bf16*>(smem_raw);  // kChunks x kTokens x 64
+  bf16* ws = hs + K::kChunks * K::kTokens * kChunk;  // stages x kChunks x tile
+  float4* half =  // where the two K halves of s_r meet
+      reinterpret_cast<float4*>(ws + kDhStages * K::kChunks * kTile);
+  float4* peer = half + K::kSlot;  // 2 slots: the peer's partials
+  bf16* ps = reinterpret_cast<bf16*>(peer + 2 * K::kSlot);  // P, kTokens x 64
+
+  cgrp::cluster_group cluster = cgrp::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // s product: K half kh, tokens 32 rq.., columns 32 cq..; P w: tokens
+  // 32 pr.., the pc-th pair of each chunk
+  const int kh = warp >> 2, rq = (warp >> 1) & 1, cq = warp & 1;
+  const int pr = warp >> 2, pc = warp & 3;
+  const int r0 = (blockIdx.x / C) * K::kTokens;
+  const int per = (E / kChunk + C - 1) / C;
+  const int ch0 = min(E / kChunk, rank * per);
+  const int nch = min(E / kChunk, ch0 + per) - ch0;  // may be 0 at small E
+  const int n_tiles = (vocab + kDhVocab - 1) / kDhVocab;
+  // the peer's slots for this CTA's partials
+  float4* to_peer = cluster.map_shared_rank(peer, rank ^ 1);
+
+  // the h slice, once
+  for (int i = tid; i < nch * K::kTokens * 8; i += kTcThreads) {
+    const int q = i / (K::kTokens * 8), r = (i >> 3) % K::kTokens;
+    const int col = (i & 7) * 8;
+    const bool in = r0 + r < n;
+    cp_async16(hs + q * K::kTokens * kChunk + swz<kChunk>(r, col),
+               h + (size_t)(in ? r0 + r : 0) * E + (ch0 + q) * kChunk + col,
+               in);
+  }
+  // copy k (< 2 nch) of vocab tile j: chunk k / 2, row tid / 8 + 32 (k &
+  // 1), 16 bytes (tid & 7) of it
+  auto copy = [&](int j, int k) {
+    const int q = k >> 1, r = (tid >> 3) + 32 * (k & 1), col = (tid & 7) * 8;
+    const int v = j * kDhVocab + r;
+    const bool in = v < vocab;
+    cp_async16(ws + ((j % kDhStages) * K::kChunks + q) * kTile +
+                   swz<kChunk>(r, col),
+               w + (size_t)(in ? v : 0) * E + (ch0 + q) * kChunk + col, in);
+  };
+  for (int k = 0; k < 2 * nch; ++k) copy(0, k);
+  cp_async_commit();
+
+  // statistics of the rows this thread forms P for: m16 tile 2 rq + kh,
+  // rows g and g + 8
+  const int pm = rq * kMT + kh;
+  float st_lse[2], st_glse[2], st_gtgt[2];
+  int st_lab[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + pm * 16 + g + 8 * r;
+    const bool in = row < n;
+    st_lse[r] = in ? lse[row] : 0.f;
+    st_glse[r] = in ? glse[row] : 0.f;
+    st_gtgt[r] = in ? gtgt[row] : 0.f;
+    st_lab[r] = in ? labels[row] : -1;
+  }
+  // float4 index of this thread's element of (m16 tile mt, n8 tile nt)
+  auto slot = [&](int mt, int nt) { return (mt * 8 + nt) * 32 + lane; };
+
+  float acc[K::kChunks][kMT][2][4];
+#pragma unroll
+  for (int q = 0; q < K::kChunks; ++q)
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        acc[q][i][e][0] = acc[q][i][e][1] = acc[q][i][e][2] =
+            acc[q][i][e][3] = 0.f;
+
+  for (int jt = 0; jt < n_tiles; ++jt) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile jt landed; tile jt - 1's stage and P free
+    const bf16* wt = ws + (jt % kDhStages) * K::kChunks * kTile;
+
+    // this warp's half of s_r: tokens 32 rq.., columns 32 cq.., over
+    // chunks kh, kh + 2, ..; each k16 step's fragments are loaded while
+    // the step before is multiplied
+    float s[kMT][4][4];
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j][0] = s[i][j][1] = s[i][j][2] =
+          s[i][j][3] = 0.f;
+    MmaBf16::A a[2][kMT];
+    MmaBf16::B b[2][4];
+    auto frags = [&](int q, int kk, MmaBf16::A(&fa)[kMT],
+                     MmaBf16::B(&fb)[4]) {
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+        fa[i] = ldsm_a<kChunk>(hs + q * K::kTokens * kChunk,
+                               (rq * kMT + i) * 16, kk * 16);
+      ldsm_bt<kChunk>(fb[0], fb[1], wt + q * kTile, cq * 32, kk * 16);
+      ldsm_bt<kChunk>(fb[2], fb[3], wt + q * kTile, cq * 32 + 16, kk * 16);
+    };
+    if (kh < nch) frags(kh, 0, a[0], b[0]);
+    for (int q = kh; q < nch; q += 2)
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk) {
+        const int cur = kk & 1;
+        if (kk + 1 < kChunk / 16)
+          frags(q, kk + 1, a[cur ^ 1], b[cur ^ 1]);
+        else if (q + 2 < nch)
+          frags(q + 2, 0, a[cur ^ 1], b[cur ^ 1]);
+#pragma unroll
+        for (int i = 0; i < kMT; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            MmaBf16::mma(s[i][j], a[cur][i], b[cur][j]);
+      }
+
+    // s_r = even half + odd half, m16 tile 2 rq + kh by warp (kh, rq,
+    // cq): each warp leaves its other tile to its partner, then sums its
+    // own and pushes the sum to the peer's slot
+    float mine[4][4];  // s[kh], selected: registers take no runtime index
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      half[slot(rq * kMT + (kh ^ 1), cq * 4 + j)] =
+          kh ? make_float4(s[0][j][0], s[0][j][1], s[0][j][2], s[0][j][3])
+             : make_float4(s[1][j][0], s[1][j][1], s[1][j][2], s[1][j][3]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mine[j][e] = kh ? s[1][j][e] : s[0][j][e];
+    }
+    __syncthreads();
+    float4* dst = to_peer + (jt & 1) * K::kSlot;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int at = slot(pm, cq * 4 + j);
+      const float4 y = half[at];
+      mine[j][0] += y.x;
+      mine[j][1] += y.y;
+      mine[j][2] += y.z;
+      mine[j][3] += y.w;
+      dst[at] = make_float4(mine[j][0], mine[j][1], mine[j][2], mine[j][3]);
+    }
+    cluster_arrive();
+    // tile jt + 1's copies, into the stage tile jt - 1 left, while the
+    // pushes land and the peer arrives
+    if (jt + 1 < n_tiles)
+      for (int k = 0; k < 2 * nch; ++k) copy(jt + 1, k);
+    cp_async_commit();
+    cluster_wait();  // both ranks' partials of tile jt in both CTAs
+
+    // s = s_0 + s_1 (rank order; two terms commute exactly) for m16 tile
+    // pm, n8 tiles 4 cq.., then P
+    const float4* theirs = peer + (jt & 1) * K::kSlot;
+    const int v0 = jt * kDhVocab;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 y = theirs[slot(pm, cq * 4 + j)];
+      const float sv[4] = {mine[j][0] + y.x, mine[j][1] + y.y,
+                           mine[j][2] + y.z, mine[j][3] + y.w};
+      const int c = (cq * 4 + j) * 8 + 2 * t;
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int v = v0 + c + (e & 1), r = e >> 1;
+        p[e] = v < vocab ? st_glse[r] * __expf(sv[e] - st_lse[r]) : 0.f;
+        if (v == st_lab[r]) p[e] += st_gtgt[r];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<uint32_t*>(
+            ps + swz<kDhVocab>(pm * 16 + g + 8 * r, c)) =
+            pack_bf16(p[2 * r], p[2 * r + 1]);
+    }
+    __syncthreads();  // the P tile written
+
+    // dh[:, slice] += P w_tile[:, slice] for the warp's tokens and pairs
+    // (the next chunk's B fragments are loaded while one is multiplied)
+#pragma unroll
+    for (int kk = 0; kk < kDhVocab / 16; ++kk) {
+      MmaBf16::A pa[kMT];
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+        pa[i] = ldsm_a<kDhVocab>(ps, (pr * kMT + i) * 16, kk * 16);
+      MmaBf16::B pb[2][2];
+      if (nch > 0) ldsm_b<kChunk>(pb[0][0], pb[0][1], wt, kk * 16, pc * 16);
+#pragma unroll
+      for (int q = 0; q < K::kChunks; ++q)
+        if (q < nch) {
+          if (q + 1 < nch)
+            ldsm_b<kChunk>(pb[(q + 1) & 1][0], pb[(q + 1) & 1][1],
+                           wt + (q + 1) * kTile, kk * 16, pc * 16);
+#pragma unroll
+          for (int i = 0; i < kMT; ++i) {
+            MmaBf16::mma(acc[q][i][0], pa[i], pb[q & 1][0]);
+            MmaBf16::mma(acc[q][i][1], pa[i], pb[q & 1][1]);
+          }
+        }
+    }
+  }
+  cluster.sync();  // no CTA leaves while its peer may still push to it
+
+#pragma unroll
+  for (int q = 0; q < K::kChunks; ++q)
+    if (q < nch)
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = r0 + (pr * kMT + i) * 16 + g + 8 * r;
+            const int col = (ch0 + q) * kChunk + pc * 16 + e * 8 + 2 * t;
+            if (row < n)
+              *reinterpret_cast<uint32_t*>(dh + (size_t)row * E + col) =
+                  pack_bf16(acc[q][i][e][2 * r], acc[q][i][e][2 * r + 1]);
+          }
+}
+
+// the cluster size of the dh lane
+constexpr int kDhCluster = 2;
+
+int launch_dh_tc(const void* h, const void* w, const void* labels,
+                 const void* lse, const void* glse, const void* gtgt,
+                 void* dh, int n, int vocab, int E, cudaStream_t stream) {
+  constexpr int C = kDhCluster;
+  constexpr size_t smem = DhTc<C>::smem();
+  cudaError_t err = allow_smem(fused_ce_dh_tc_kernel<C>, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = C;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * ((n + DhTc<C>::kTokens - 1) / DhTc<C>::kTokens));
+  cfg.blockDim = dim3(kTcThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, fused_ce_dh_tc_kernel<C>, static_cast<const bf16*>(h),
+      static_cast<const bf16*>(w), static_cast<const int*>(labels),
+      static_cast<const float*>(lse), static_cast<const float*>(glse),
+      static_cast<const float*>(gtgt), static_cast<bf16*>(dh), n, vocab, E);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // h (n, E) and w (V, E), contiguous, each fp32 (flag 0) or bf16 (flag 1);
@@ -440,6 +1026,12 @@ int launch_bwd(const void* h, const void* w, const void* labels,
 // multiple of 64, at most 768 (the wrapper checks). Each launches on
 // `stream` and returns cudaGetLastError() (or the error of raising the
 // kernel's shared-memory limit).
+//
+// fwd and dh pick their lane from h's dtype alone (ops/fused_ce.py
+// fused_ce_lane): bf16 h takes the tensor-core kernel, which refuses
+// (cudaErrorInvalidValue, nothing launched) what it does not take: an
+// fp32 w (the wrapper casts it) or E outside whole 64-column chunks up to
+// kMaxE. fp32 h takes the CUDA-core kernel. dw dispatches on both types.
 #define HETU_FUSED_CE_DISPATCH(CALL)                                  \
   if (h_bf16 && w_bf16) return CALL(bf16, bf16);                     \
   if (h_bf16) return CALL(bf16, float);                              \
@@ -451,9 +1043,14 @@ extern "C" int hetu_fused_ce_fwd(const void* h, const void* w,
                                  int n, int vocab, int E, int h_bf16,
                                  int w_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CALL(T, TW) launch_fwd<T, TW>(h, w, labels, lse, tgt, n, vocab, E, s)
-  HETU_FUSED_CE_DISPATCH(CALL)
-#undef CALL
+  if (h_bf16) {
+    if (!w_bf16 || E % 64 || E < 64 || E > kMaxE)
+      return (int)cudaErrorInvalidValue;
+    return launch_fwd_tc(h, w, labels, lse, tgt, n, vocab, E, s);
+  }
+  if (w_bf16)
+    return launch_fwd<float, bf16>(h, w, labels, lse, tgt, n, vocab, E, s);
+  return launch_fwd<float, float>(h, w, labels, lse, tgt, n, vocab, E, s);
 }
 
 // dh (n, E) in h's dtype.
@@ -463,10 +1060,16 @@ extern "C" int hetu_fused_ce_dh(const void* h, const void* w,
                                 int n, int vocab, int E, int h_bf16,
                                 int w_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CALL(T, TW) \
-  launch_bwd<T, TW, false>(h, w, labels, lse, glse, gtgt, dh, n, vocab, E, s)
-  HETU_FUSED_CE_DISPATCH(CALL)
-#undef CALL
+  if (h_bf16) {
+    if (!w_bf16 || E % 64 || E < 64 || E > kMaxE)
+      return (int)cudaErrorInvalidValue;
+    return launch_dh_tc(h, w, labels, lse, glse, gtgt, dh, n, vocab, E, s);
+  }
+  if (w_bf16)
+    return launch_bwd<float, bf16, false>(h, w, labels, lse, glse, gtgt, dh,
+                                          n, vocab, E, s);
+  return launch_bwd<float, float, false>(h, w, labels, lse, glse, gtgt, dh, n,
+                                         vocab, E, s);
 }
 
 // dw (V, E) in w's dtype.

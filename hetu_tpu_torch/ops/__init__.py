@@ -16,7 +16,8 @@ from hetu_tpu_torch.ops.flash import (
 )
 from hetu_tpu_torch.ops.fused_ce import (
     fused_ce_dh, fused_ce_dh_reference, fused_ce_dw, fused_ce_dw_reference,
-    fused_ce_fwd, fused_lm_ce, fused_lse_tgt, fused_lse_tgt_reference,
+    fused_ce_fwd, fused_ce_lane, fused_lm_ce, fused_lse_tgt,
+    fused_lse_tgt_reference,
 )
 from hetu_tpu_torch.ops.losses import (
     chunked_lm_loss, cross_entropy_mean, softmax_cross_entropy,
@@ -38,7 +39,7 @@ __all__ = [
     "flash_attention_bwd", "flash_attention_bwd_reference",
     "flash_attention_fwd", "flash_attention_fwd_reference", "flash_lane",
     "fused_ce_dh", "fused_ce_dh_reference", "fused_ce_dw",
-    "fused_ce_dw_reference", "fused_ce_fwd", "fused_lm_ce",
+    "fused_ce_dw_reference", "fused_ce_fwd", "fused_ce_lane", "fused_lm_ce",
     "fused_lse_tgt", "fused_lse_tgt_reference",
     "gather_block_rows", "gelu", "launch_counts", "layer_norm",
     "paged_attention", "paged_attention_reference", "paged_lane",

@@ -19,6 +19,14 @@ before both backward products; dh comes back in h's dtype, dw in w's,
 both summed in fp32. Token rows are not padded (the kernels mask the
 ragged edge), so N is free; E must be a multiple of 64, at most 768.
 
+Lanes (:func:`fused_ce_lane`): with bf16 h the forward and dH run the
+tensor-core lane (``fused_ce_fwd_tc_kernel``, ``fused_ce_dh_tc_kernel``
+on a two-CTA cluster), which reads bf16 w, so an fp32 w is cast to bf16
+once before the launch (the values the TPU kernels' per-tile cast
+gives); with fp32 h they run the CUDA-core lane. dW has one kernel for
+every dtype pairing. Both lanes count their launches under the same
+names.
+
 The forward and backward are ``torch.library`` custom ops
 (``hetu_tpu_torch::fused_ce_fwd`` / ``fused_ce_bwd``) with a registered
 autograd formula, as the flash kernels are. The backward takes the
@@ -107,21 +115,43 @@ def fused_ce_dw_reference(h, w, labels, lse, glse, gtgt):
 
 # -- the kernel wrappers ------------------------------------------------------
 
+def fused_ce_lane(h_dtype: torch.dtype, w_dtype: torch.dtype, e: int,
+                  what: str = "fused_ce") -> str:
+    """The lane a CUDA call of the forward (#5) or dH (#6) kernel takes,
+    decided before the launch (``hetu_fused_ce_fwd`` and
+    ``hetu_fused_ce_dh`` branch on the same rule): ``"tensor_core"`` for
+    bf16 h, whatever w's dtype (an fp32 w is cast to bf16 first), and
+    ``"cuda_core"`` for fp32 h. Raises for what neither lane takes: a
+    dtype other than fp32 or bf16, or E not a multiple of 64 in [64,
+    ``MAX_E``]."""
+    for name, dtype in (("h", h_dtype), ("w", w_dtype)):
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{what}: {name} must be fp32 or bf16, got "
+                            f"{dtype}")
+    if e < 64 or e % 64 or e > MAX_E:
+        raise ValueError(f"{what}: E = {e}; the kernels take multiples of "
+                         f"64 up to {MAX_E}")
+    return "tensor_core" if h_dtype == torch.bfloat16 else "cuda_core"
+
+
+def _launch_w(h, w):
+    """w as the forward and dH kernels take it: cast to bf16 once for the
+    tensor-core lane, which reads bf16 w only; as it is otherwise."""
+    if w.dtype == torch.float32 and fused_ce_lane(
+            h.dtype, w.dtype, h.shape[1]) == "tensor_core":
+        return w.to(torch.bfloat16)
+    return w
+
+
 def _check(what, h, w, labels, stats=()):
     """Validate the operands of a launch; returns (n, vocab, E)."""
     if h.dim() != 2 or w.dim() != 2 or h.shape[1] != w.shape[1]:
         raise ValueError(f"{what}: h {tuple(h.shape)} and w "
                          f"{tuple(w.shape)} must be (N, E) and (V, E)")
     n, e = h.shape
-    if e % 64 or e > MAX_E:
-        raise ValueError(f"{what}: E = {e}; the kernels take multiples of "
-                         f"64 up to {MAX_E}")
+    fused_ce_lane(h.dtype, w.dtype, e, what)
     if h.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {h.device}")
-    for name, t in (("h", h), ("w", w)):
-        if t.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"{what}: {name} must be fp32 or bf16, got "
-                            f"{t.dtype}")
     for name, t, dtype, shape in (("h", h, None, None), ("w", w, None, None),
                                   ("labels", labels, torch.int32, (n,)),
                                   *((k, s, torch.float32, (n,))
@@ -143,7 +173,8 @@ def _flags(h, w):
 
 def fused_ce_fwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor):
     """Kernel #5: per-token fp32 ``(lse, tgt)`` of h (N, E) against w
-    (V, E); ``labels`` (N,) int32 in [-1, V)."""
+    (V, E); ``labels`` (N,) int32 in [-1, V). The lane is
+    :func:`fused_ce_lane`'s."""
     if h.device.type == "cpu":
         return fused_lse_tgt_reference(h, w, labels)
     n, vocab, e = _check("fused_ce_fwd", h, w, labels)
@@ -151,6 +182,7 @@ def fused_ce_fwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor):
     tgt = torch.empty(n, dtype=torch.float32, device=h.device)
     if n == 0:
         return lse, tgt
+    w = _launch_w(h, w)
     lib, fn = _build.kernel("fused_ce", "hetu_fused_ce_fwd", _FWD_ARGTYPES)
     err = fn(_build.ptr(h), _build.ptr(w), _build.ptr(labels),
              _build.ptr(lse), _build.ptr(tgt), n, vocab, e, *_flags(h, w),
@@ -166,6 +198,8 @@ def _bwd(which, h, w, labels, lse, glse, gtgt):
     out = torch.empty_like(h if which == "dh" else w)
     if n == 0:
         return out.zero_()
+    if which == "dh":
+        w = _launch_w(h, w)
     lib, fn = _build.kernel("fused_ce", f"hetu_fused_ce_{which}",
                             _BWD_ARGTYPES)
     err = fn(_build.ptr(h), _build.ptr(w), _build.ptr(labels),
@@ -179,7 +213,8 @@ def _bwd(which, h, w, labels, lse, glse, gtgt):
 
 def fused_ce_dh(h, w, labels, lse, glse, gtgt):
     """Kernel #6: dH (N, E) in h's dtype from the forward's lse and the
-    cotangents ``glse``/``gtgt`` (N,) fp32 of ``(lse, tgt)``."""
+    cotangents ``glse``/``gtgt`` (N,) fp32 of ``(lse, tgt)``; the lane
+    is :func:`fused_ce_lane`'s."""
     if h.device.type == "cpu":
         return fused_ce_dh_reference(h, w, labels, lse, glse, gtgt)
     return _bwd("dh", h, w, labels, lse, glse, gtgt)

@@ -3,15 +3,24 @@
 beside ``chip_smoke.py``, whose phase functions they run:
 
     python3 port_probe.py kernels           # build, ptxas, kernel phases
+    python3 port_probe.py fused             # fused CE rate against N, V
     python3 port_probe.py steps OLD NEW     # step times of two trees
     python3 port_probe.py serve OLD NEW     # serving bursts of two trees
 
 ``kernels`` builds every kernel, prints the ``ptxas`` report of the
 tensor-core instances and runs ``phase_kernels``, ``phase_train_kernels``
-(batch 32) and ``phase_llama_kernels``: each kernel against its plain
-version, then timed. A failing phase is printed and the next one still
-runs; the exit code is nonzero if any failed. It is the short first call
-for a kernel that has not run on a card yet.
+(batch 32), ``phase_llama_kernels``, ``phase_fused_kernels`` and
+``phase_fused_kernel_times`` (batch 48, the combo's): each kernel
+against its plain version, then timed. A failing phase is printed and
+the next one still runs; the exit code is nonzero if any failed. It is
+the short first call for a kernel that has not run on a card yet.
+
+``fused`` times the fused CE forward (#5) and dH (#6) kernels, bf16, E
+= 768, at the combo's N = 49,152 tokens against V = 50,257, 16,384 and
+8,192, and at N = 8,448 (one wave of the dH lane's 2-CTA clusters):
+whether a kernel's rate (TFLOP/s, 2NVE and 4NVE flops) moves as w leaves
+the 50 MB L2 or the grid shrinks, which tells a kernel bound inside the
+SM from one bound by the memory system.
 
 ``steps`` compares the training step of two checkouts (directories that
 hold ``chip_smoke.py`` and ``hetu_tpu_torch``) on one card, in turns OLD,
@@ -71,7 +80,10 @@ def kernels() -> int:
             ("train_kernels", cs.phase_train_kernels,
              (device, timer, ops, 32, results)),
             ("llama_kernels", cs.phase_llama_kernels,
-             (device, timer, ops, results))):
+             (device, timer, ops, results)),
+            ("fused_kernels", cs.phase_fused_kernels, (device, ops)),
+            ("fused_kernel_times", cs.phase_fused_kernel_times,
+             (device, timer, ops, 48, results))):
         try:
             out = fn(*args)
         except Exception as e:  # a probe reports every phase
@@ -81,11 +93,39 @@ def kernels() -> int:
             if name == "kernels":    # the later phases extend its results
                 break
             continue
-        if name == "kernels":
+        if name in ("kernels", "fused_kernels"):
             results.update(out)
     cs.emit(phase="probe", failed=failed,
             seconds=time.perf_counter() - t0)
     return 1 if failed else 0
+
+
+def fused() -> int:
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    from hetu_tpu_torch import ops
+
+    device = torch.device("cuda", 0)
+    card = cs.nvidia_smi()
+    timer = cs.Timer(device)
+    gen = torch.Generator(device=device).manual_seed(cs.SEED + 5)
+    for n, vocab in ((49152, 50257), (49152, 16384), (49152, 8192),
+                     (8448, 50257)):
+        h, w, lab, _, _ = cs.fused_inputs(gen, device, n, vocab,
+                                          torch.bfloat16, torch.bfloat16)
+        g = torch.full((n,), 1.0 / n, device=device)
+        lse, _ = ops.fused_ce_fwd(h, w, lab)
+        nve = float(n) * vocab * h.shape[1]
+        fwd_ms = timer(lambda: ops.fused_ce_fwd(h, w, lab), iters=5)
+        dh_ms = timer(lambda: ops.fused_ce_dh(h, w, lab, lse, g, -g),
+                      iters=5)
+        cs.emit(phase="fused_rate", card=card, n=n, vocab=vocab,
+                fwd_ms=fwd_ms, dh_ms=dh_ms,
+                fwd_tflops=2 * nve / fwd_ms / 1e9,
+                dh_tflops=4 * nve / dh_ms / 1e9)
+        del h, w, lab, g, lse
+        torch.cuda.empty_cache()
+    return 0
 
 
 def steps_of(tree: str, tag: str) -> int:
@@ -215,6 +255,8 @@ def main(argv) -> int:
         return 2
     if argv[:1] == ["kernels"] and len(argv) == 1:
         return kernels()
+    if argv[:1] == ["fused"] and len(argv) == 1:
+        return fused()
     if argv[:1] in (["steps"], ["serve"]) and len(argv) == 3:
         return in_turns(argv[0], argv[1], argv[2])
     if argv[:1] == ["steps-of"] and len(argv) == 3:

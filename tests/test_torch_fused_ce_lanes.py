@@ -1,0 +1,227 @@
+"""The fused LM-head CE lanes of the port (``ops.fused_ce_lane``).
+
+(a) The lane rule: ``fused_ce_lane`` against the branch of the C entry
+    points ``hetu_fused_ce_fwd`` / ``hetu_fused_ce_dh``, read from
+    ``csrc/fused_ce.cu`` (as ``tests/test_torch_flash_tc.py`` pins
+    ``flash_lane``): bf16 h takes the tensor-core kernels whatever w's
+    dtype (the wrapper casts an fp32 w to bf16 once), fp32 h the
+    CUDA-core ones; dW keeps one kernel for every pairing.
+(b) The summation order of the dH tensor-core lane: a cluster of C CTAs
+    splits E into 64-column chunks, CTA r summing its chunks' partial
+    logits, and every CTA forms s as the rank-ordered fp32 sum of those
+    partials before it rounds P to bf16. A plain helper does the same on
+    the CPU for C = 2 and C = 4, and its dh is held to interpret-mode
+    Pallas (``block_n=128, block_v=256``, as ``tests/test_torch_fused_ce.py``
+    runs it) within the bound ``chip_smoke.py`` holds the card to
+    (``fused_grad_bound``: 2 bf16 ulps of |reference| plus 2e-4 of max
+    |reference|), on inputs drawn as ``chip_smoke.py`` draws them (h ~
+    N(0, 1), w ~ N(0, 0.05^2), GPT-2's init scale): the kernel's order is
+    inside the bound before the card sees it. With w ~ N(0, 0.3^2) the
+    logits reach ~4 standard deviations, the softmax is peaky, and a
+    last-bit change of s can round a large P entry the other way: there
+    one draw at E = 192 leaves that bound (1.41 of it, 9 elements of one
+    row) for the C = 2 order and for the port's plain version alike, so
+    the peaky case is held to the bf16 tolerance of
+    ``tests/test_torch_fused_ce.py`` (1e-2 of max |reference|).
+(c) The wrapper's refusals under the lane rule, and its w cast.
+"""
+
+import functools
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from hetu_tpu.ops.fused_ce_pallas import fused_lse_tgt as jax_fused_lse_tgt
+
+from hetu_tpu_torch.ops import fused_ce, fused_ce_dh_reference, fused_ce_lane
+from hetu_tpu_torch.ops.fused_ce import MAX_E
+
+torch.set_num_threads(2)
+
+CSRC = Path(__file__).resolve().parents[1] / "hetu_tpu_torch" / "csrc"
+N, V = 333, 1013        # neither a multiple of any tile
+PAD_N = 384             # JAX's kernels take whole 128-token blocks
+
+
+# -- (a) the lane rule against the C entry points -----------------------------
+
+def _entry(text, name):
+    body = text[text.index(f'extern "C" int {name}('):]
+    return body[:body.index("\n}\n")]
+
+
+@pytest.mark.parametrize("entry,tc_launch", [
+    ("hetu_fused_ce_fwd", "launch_fwd_tc"),
+    ("hetu_fused_ce_dh", "launch_dh_tc"),
+])
+def test_fused_entry_points_branch_on_the_lane_rule(entry, tc_launch):
+    """bf16 h launches the tensor-core kernel, after refusing (nothing
+    launched) an fp32 w or an E outside whole 64-column chunks up to
+    ``kMaxE``; every other call launches a CUDA-core kernel of fp32 h."""
+    text = (CSRC / "fused_ce.cu").read_text()
+    assert int(re.search(r"constexpr int kMaxE = (\d+);", text).group(1)) \
+        == MAX_E
+    body = _entry(text, entry)
+    m = re.search(r"if \(h_bf16\) \{\s*"
+                  r"if \(!w_bf16 \|\| E % 64 \|\| E < 64 \|\| E > kMaxE\)\s*"
+                  r"return \(int\)cudaErrorInvalidValue;\s*"
+                  r"return (\w+)\(", body)
+    assert m and m.group(1) == tc_launch
+    rest = body[m.end():]
+    assert "_tc" not in rest
+    assert sorted(re.findall(r"launch_\w+<(\w+), (\w+)", rest)) \
+        == [("float", "bf16"), ("float", "float")]
+    # the rule as the wrapper reads it
+    for e in range(64, MAX_E + 1, 64):
+        for w_dtype in (torch.float32, torch.bfloat16):
+            assert fused_ce_lane(torch.bfloat16, w_dtype, e) == "tensor_core"
+            assert fused_ce_lane(torch.float32, w_dtype, e) == "cuda_core"
+
+
+def test_dw_keeps_one_kernel_and_dh_runs_on_a_two_cta_cluster():
+    """dW (#7) dispatches on both dtypes to its one kernel; the dH lane is
+    launched with a cluster dimension of ``kDhCluster`` = 2 CTAs."""
+    text = (CSRC / "fused_ce.cu").read_text()
+    body = _entry(text, "hetu_fused_ce_dw")
+    assert "_tc" not in body and "HETU_FUSED_CE_DISPATCH(CALL)" in body
+    assert re.search(r"launch_bwd<T, TW, true>", body)
+    assert re.search(r"constexpr int kDhCluster = 2;", text)
+    launch = text[text.index("int launch_dh_tc("):]
+    launch = launch[:launch.index("\n}\n")]
+    assert "cudaLaunchAttributeClusterDimension" in launch
+    assert re.search(r"clusterDim\.x = C;", launch)
+
+
+# -- (b) the dH lane's summation order ---------------------------------------
+
+def _dh_in_cluster_order(h, w, labels, lse, glse, gtgt, cluster):
+    """dH as ``fused_ce_dh_tc_kernel`` orders its sums: s = s_0 + s_1 +
+    ... in rank order, s_r the fp32 logits over CTA r's E-chunks
+    ``[r p, (r + 1) p)`` of 64 columns (``p = ceil(E / 64 / cluster)``;
+    a slice may be empty); P from s rounded to bf16; dh = P w summed in
+    fp32, rounded to h's dtype."""
+    k = h.shape[1] // 64
+    per = -(-k // cluster)
+    hf, wf = h.float(), w.to(h.dtype).float()
+    s = torch.zeros(h.shape[0], w.shape[0])
+    for r in range(cluster):
+        lo, hi = 64 * min(k, r * per), 64 * min(k, (r + 1) * per)
+        s = s + hf[:, lo:hi] @ wf[:, lo:hi].t()
+    hit = labels.long()[:, None] == torch.arange(w.shape[0])[None, :]
+    p = glse[:, None] * torch.exp(s - lse[:, None]) \
+        + torch.where(hit, gtgt[:, None], 0.0)
+    return (p.to(torch.bfloat16).float() @ wf).to(h.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _case(e, w_scale):
+    """bf16 h ~ N(0, 1) (N, E) and w ~ N(0, w_scale^2) (V, E), labels
+    with -1 and V - 1, general cotangents; JAX's lse and dh
+    (interpret-mode Pallas on the rows padded to whole token blocks, pad
+    rows with label -1 and zero cotangents)."""
+    rng = np.random.default_rng(100 + e)
+    h = rng.normal(size=(PAD_N, e)).astype(np.float32)
+    h[N:] = 0.0
+    w = (rng.normal(size=(V, e)) * w_scale).astype(np.float32)
+    labels = np.full(PAD_N, -1, np.int32)
+    labels[:N] = rng.integers(0, V, N)
+    labels[:N:7] = -1
+    labels[3] = V - 1
+    glse = np.zeros(PAD_N, np.float32)
+    gtgt = np.zeros(PAD_N, np.float32)
+    glse[:N] = rng.normal(size=N)
+    gtgt[:N] = rng.normal(size=N)
+    jh, jw = jnp.asarray(h, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16)
+    (jlse, _), vjp = jax.vjp(
+        lambda a, b: jax_fused_lse_tgt(a, b, jnp.asarray(labels), 128, 256,
+                                       True), jh, jw)
+    jdh, _ = vjp((jnp.asarray(glse), jnp.asarray(gtgt)))
+    as_torch = (lambda a: torch.from_numpy(
+        np.array(a.astype(jnp.float32))).to(torch.bfloat16))
+    return (as_torch(jh)[:N], as_torch(jw), torch.from_numpy(labels[:N]),
+            torch.from_numpy(np.array(jlse)[:N]),
+            torch.from_numpy(glse[:N]), torch.from_numpy(gtgt[:N]),
+            np.array(jdh.astype(jnp.float32))[:N])
+
+
+def _grad_bound(want):
+    """``chip_smoke.py`` ``fused_grad_bound`` for bf16 h and output."""
+    _, ex = np.frexp(np.abs(want))
+    ulp = np.where(want == 0, 0.0, np.ldexp(1.0, ex - 8))
+    return 2 * ulp + 2e-4 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("cluster", [2, 4])
+@pytest.mark.parametrize("e", [128, 192])
+def test_dh_cluster_order_within_the_card_bound_of_pallas(e, cluster):
+    h, w, labels, lse, glse, gtgt, want = _case(e, 0.05)
+    got = _dh_in_cluster_order(h, w, labels, lse, glse, gtgt, cluster)
+    assert got.dtype == torch.bfloat16 and got.shape == (N, e)
+    err = np.abs(got.float().numpy() - want)
+    assert (err <= _grad_bound(want)).all(), \
+        f"max err {err.max()}, {(err / _grad_bound(want)).max()} of the bound"
+    # the port's plain version, which the card's kernel is checked
+    # against, keeps the same bound
+    plain = fused_ce_dh_reference(h, w, labels, lse, glse, gtgt)
+    assert (np.abs(plain.float().numpy() - want) <= _grad_bound(want)).all()
+
+
+@pytest.mark.parametrize("e", [128, 192])
+def test_dh_cluster_order_with_a_peaky_softmax_within_bf16_tolerance(e):
+    h, w, labels, lse, glse, gtgt, want = _case(e, 0.3)
+    lim = 1e-2 * np.abs(want).max()
+    for cluster in (2, 4):
+        got = _dh_in_cluster_order(h, w, labels, lse, glse, gtgt, cluster)
+        assert np.abs(got.float().numpy() - want).max() <= lim, cluster
+    plain = fused_ce_dh_reference(h, w, labels, lse, glse, gtgt)
+    assert np.abs(plain.float().numpy() - want).max() <= lim
+
+
+# -- (c) refusals and the w cast ---------------------------------------------
+
+@pytest.mark.parametrize("e", [0, 32, 96, MAX_E + 64])
+def test_lane_rule_refuses_widths_neither_lane_takes(e):
+    for h_dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="multiples of 64"):
+            fused_ce_lane(h_dtype, torch.bfloat16, e)
+
+
+def test_lane_rule_and_wrapper_refuse_other_dtypes():
+    with pytest.raises(TypeError, match="h must be fp32 or bf16"):
+        fused_ce_lane(torch.float16, torch.bfloat16, 768)
+    with pytest.raises(TypeError, match="w must be fp32 or bf16"):
+        fused_ce_lane(torch.bfloat16, torch.float16, 768)
+    lab = torch.empty(8, dtype=torch.int32, device="meta")
+    with pytest.raises(TypeError, match="h must be fp32 or bf16"):
+        fused_ce._check("fused_ce_dh",
+                        torch.empty(8, 128, dtype=torch.float16,
+                                    device="meta"),
+                        torch.empty(V, 128, device="meta"), lab)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        fused_ce._check("fused_ce_fwd",
+                        torch.empty(8, 96, dtype=torch.bfloat16,
+                                    device="meta"),
+                        torch.empty(V, 96, dtype=torch.bfloat16,
+                                    device="meta"), lab)
+
+
+def test_wrapper_casts_an_fp32_w_once_for_the_tensor_core_lane():
+    """bf16 h with an fp32 w: the forward and dH kernels get w cast to
+    bf16 (the values ``w.to(bfloat16)`` holds, so ``kernel_w_cast`` on
+    the card compares one lane with itself); every other pairing passes
+    w through untouched."""
+    rng = np.random.default_rng(9)
+    w32 = torch.from_numpy(rng.normal(size=(V, 128)).astype(np.float32))
+    w16 = w32.to(torch.bfloat16)
+    h16 = torch.zeros(4, 128, dtype=torch.bfloat16)
+    h32 = torch.zeros(4, 128)
+    cast = fused_ce._launch_w(h16, w32)
+    assert cast.dtype == torch.bfloat16 and torch.equal(cast, w16)
+    for h, w in ((h16, w16), (h32, w32), (h32, w16)):
+        assert fused_ce._launch_w(h, w) is w
