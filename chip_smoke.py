@@ -16,7 +16,7 @@ Phases, each printing one JSON line:
    one process per source, all at once; ``ptxas``, ``ptxas_paged`` and
    ``ptxas_fused`` report registers and spills of the tensor-core flash
    instances, of every instance of the paged kernel's lanes and of the
-   fused CE kernels (the tensor-core instances of #5 and #6 must not
+   fused CE kernels (the tensor-core instances of #5-#7 must not
    spill).
 3. kernel  -- each kernel against its plain version on the card, at the
    serving path's shapes (fp32 and bf16) and at edge shapes (GQA, segment
@@ -73,11 +73,12 @@ Phases, each printing one JSON line:
    combo's profile (and the forward's at the Llama pack).
 8. fused_ce kernels -- the fused LM-head CE kernels (forward, dH, dW)
    against their plain versions with h and w each fp32 or bf16 (bf16 h:
-   the tensor-core lanes of forward and dH, ``ops.fused_ce_lane``), at V
-   = 50257 and a ragged V = 1013, N not a multiple of any token tile and
-   N = 5, labels of -1 and V - 1 and random general (glse, gtgt)
-   cotangents; every case with a bf16 operand run twice, bit-equal; an
-   fp32 w with bf16 h bit-identical to w cast to bf16 (kernel_w_cast).
+   the tensor-core lanes of all three, ``ops.fused_ce_lane``), at V =
+   50257, a ragged V = 1013 and V = 50, N not a multiple of any token
+   tile and N = 5, E = 768, 64 and 192, labels of -1 and V - 1 and
+   random general (glse, gtgt) cotangents; every case with a bf16
+   operand run twice, bit-equal; an fp32 w with bf16 h bit-identical to
+   w cast to bf16 (kernel_w_cast).
    Bounds: lse/tgt 1e-4; dh/dw element by element 2 ulps of the output's
    dtype plus 1e-4 (fp32 h) or 2e-4 (bf16 h) of max |reference|.
 9. train_fused -- ``bench.py``'s fused-CE combo (``workloads/
@@ -88,8 +89,8 @@ Phases, each printing one JSON line:
    exactly 1 per fused kernel and 12 per flash kernel), then the batch
    ladder 48/32/16 with 3 warm-up and 10 timed steps: launches exactly
    10 per fused kernel and 120 per flash kernel; then its profile, whose
-   ``lane`` lines put #5's and #6's device time under their tensor-core
-   symbols and #7's under its own.
+   ``lane`` lines put #5's, #6's and #7's device time under their
+   tensor-core symbols.
 10. fused_ce times -- the three kernels at the combo's training shape (N
    = batch x 1024 tokens, bf16 h and w) against their plain versions,
    then timed; ``library_ms`` is the port's ``chunked_lm_loss`` (cuBLAS
@@ -324,7 +325,7 @@ def check_ptxas(built) -> dict:
     ones (the training path's) must not spill. Then those of every
     instance of the paged kernel's lanes (``ptxas_paged``), each of which
     must be in the report, and of the fused CE kernels (``ptxas_fused``):
-    the tensor-core instances of #5 and #6 must be there and must not
+    the tensor-core instances of #5-#7 must be there and must not
     spill."""
     syms = [LANE_SYMBOLS[k]["tensor_core"] for k in FLASH]
     found = {}
@@ -561,16 +562,21 @@ LANE_SYMBOLS = {"flash_fwd": {"tensor_core": "flash_fwd_tc_kernel",
                                  "cuda_core": "fused_ce_fwd_kernel"},
                 "fused_ce_dh": {"tensor_core": "fused_ce_dh_tc_kernel",
                                 "cuda_core": "fused_ce_dh_kernel"},
-                "fused_ce_dw": {"cuda_core": "fused_ce_dw_kernel"}}
+                "fused_ce_dw": {"tensor_core": "fused_ce_dw_tc_kernel",
+                                "cuda_core": "fused_ce_dw_kernel"}}
 #: the fused CE kernels' lanes (``ops.fused_ce_lane``)
-FUSED_LANES = ("tensor_core (bf16 h: forward and dH; dH on a 2-CTA "
-               "cluster); cuda_core (fp32 h; dW for every dtype)")
-#: the tensor-core instances of #5 and #6 that ``ptxas`` must report, by
-#: a piece of their mangled names (a name in an anonymous namespace ends
-#: in E, a template's arguments are I...E)
+FUSED_LANES = ("tensor_core (bf16 h: forward, dH and dW; dH and dW on a "
+               "2-CTA cluster); cuda_core (fp32 h)")
+#: the tensor-core instances of #5-#7 that ``ptxas`` must report, by a
+#: piece of their mangled names (a name in an anonymous namespace ends in
+#: E, a template's arguments are I...E; dW's second argument is w's type)
 FUSED_TC_INSTANCES = {"fused_ce_fwd_tc_kernel": "22fused_ce_fwd_tc_kernelE",
                       "fused_ce_dh_tc_kernel<2>":
-                          "21fused_ce_dh_tc_kernelILi2EE"}
+                          "21fused_ce_dh_tc_kernelILi2EE",
+                      "fused_ce_dw_tc_kernel<2, bf16>":
+                          "21fused_ce_dw_tc_kernelILi2E13__nv_bfloat16EE",
+                      "fused_ce_dw_tc_kernel<2, float>":
+                          "21fused_ce_dw_tc_kernelILi2EfEE"}
 #: instances of #1's lanes that ``ptxas`` must report: split-KV for 4
 #: (q, arena) type pairs x d 64/128, its combine for 2 q types x d
 #: 64/128, the tensor-core tile for bf16 q with a bf16 or int8 arena x d
@@ -1335,11 +1341,8 @@ def phase_train_profile(run, n_steps: int = 3, phase: str = "train_profile"):
     lanes = check_lane(phase, by_name, "tensor_core")
     fused = {}
     if os.environ.get("HETU_LM_LOSS_IMPL") == "fused":
-        # bf16 h: #5 and #6 on the tensor cores, #7 on its one kernel
-        fused = check_lane(phase, by_name, "tensor_core",
-                           kernels=("fused_ce_fwd", "fused_ce_dh"))
-        fused.update(check_lane(phase, by_name, "cuda_core",
-                                kernels=("fused_ce_dw",)))
+        # bf16 h: #5-#7 on the tensor cores
+        fused = check_lane(phase, by_name, "tensor_core", kernels=FUSED)
     emit(phase=phase, steps=n_steps, batch=run["batch_size"],
          ms_per_step=wall_ms / n_steps,
          device_kernels_per_step=n_kernels / n_steps,
@@ -1567,10 +1570,11 @@ def run_fused(ops, h, w, lab, glse, gtgt):
 
 def phase_fused_kernels(device, ops):
     """Kernels #5-#7 against their plain versions: one draw of h and w,
-    each taken in fp32 and in bf16; the GPT-2 vocab and a ragged one;
-    token counts that are not a multiple of any token tile, and 5
-    tokens, fewer than one; E = 768 (GPT-2's), 64 (one 64-wide chunk:
-    the dH cluster's rank 1 owns none and pushes zero partials) and 192
+    each taken in fp32 and in bf16; the GPT-2 vocab, a ragged one and 50
+    (fewer than one dW cluster's 64 rows, the last 14 past V); token
+    counts that are not a multiple of any token tile, and 5 tokens,
+    fewer than one; E = 768 (GPT-2's), 64 (one 64-wide chunk: the dH and
+    dW clusters' rank 1 owns none and pushes zero partials) and 192
     (three chunks, split 2 / 1); a label of V - 1 (the last, ragged
     tile's last column); every case with a bf16 operand run again,
     bit-equal (no atomics: the cluster's CTAs sum their partial logits
@@ -1583,7 +1587,8 @@ def phase_fused_kernels(device, ops):
                               ("ragged_vocab_1013", 1000, 1013, 768),
                               ("tokens_5", 5, 50257, 768),
                               ("width_64", 333, 1013, 64),
-                              ("width_192", 1000, 50257, 192)):
+                              ("width_192", 1000, 50257, 192),
+                              ("vocab_50", 333, 50, 768)):
         h32, w32, lab, glse, gtgt = fused_inputs(
             gen, device, n, vocab, torch.float32, torch.float32, e)
         lab[min(3, n - 1)] = vocab - 1
@@ -1609,7 +1614,7 @@ def phase_fused_kernels(device, ops):
     for kernel, line in zip(FUSED, (53, 112, 134)):
         results[kernel] = dict(
             name=kernel, route="cuda",
-            lane=FUSED_LANES if kernel != "fused_ce_dw" else "cuda_core",
+            lane=FUSED_LANES,
             source="hetu_tpu_torch/csrc/fused_ce.cu",
             replaces=f"hetu_tpu/ops/fused_ce_pallas.py:{line}",
             **errs[kernel])
@@ -2447,9 +2452,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_kernels(device, timer, ops, batch, kernels)
     kernels.update(phase_fused_kernels(device, ops))
-    for name, key in (("fused_ce_fwd", "fused_ce_fwd_tc_kernel"),
-                      ("fused_ce_dh", "fused_ce_dh_tc_kernel<2>")):
-        kernels[name]["ptxas"] = {key: ptxas[key]}
+    for name, keys in (("fused_ce_fwd", ("fused_ce_fwd_tc_kernel",)),
+                       ("fused_ce_dh", ("fused_ce_dh_tc_kernel<2>",)),
+                       ("fused_ce_dw", ("fused_ce_dw_tc_kernel<2, bf16>",
+                                        "fused_ce_dw_tc_kernel<2, float>"))):
+        kernels[name]["ptxas"] = {key: ptxas[key] for key in keys}
     run = phase_train_fused(device, smi)
     paths["train_fused"] = run["counts"]
     batch = run["batch_size"]

@@ -1,5 +1,5 @@
 // Fused LM-head cross-entropy, for sm_90a (H100): three kernels, two
-// lanes for the first two.
+// lanes each.
 //
 // Replaces hetu_tpu/ops/fused_ce_pallas.py:53 _fwd_kernel, :112
 // _dh_kernel and :134 _dw_kernel (host wrappers _fused_fwd_impl :170 and
@@ -26,18 +26,18 @@
 //
 // Lanes, picked from h's dtype before the launch (ops/fused_ce.py
 // fused_ce_lane; the entry points below branch on the same rule): bf16 h
-// runs fwd and dh on the tensor-core lane (fused_ce_fwd_tc_kernel,
-// fused_ce_dh_tc_kernel, below), which reads bf16 w only (the wrapper
-// casts an fp32 w once: the values of the per-tile astype); fp32 h runs
-// the CUDA-core lane. dw has the CUDA-core kernel only.
+// runs all three on the tensor-core lane (fused_ce_fwd_tc_kernel,
+// fused_ce_dh_tc_kernel, fused_ce_dw_tc_kernel, below). fwd and dh read
+// bf16 w only (the wrapper casts an fp32 w once: the values of the
+// per-tile astype); dw, whose resident operand is w, reads w in its own
+// dtype and rounds an fp32 w to bf16 as it stages it. fp32 h runs the
+// CUDA-core lane.
 //
-// The CUDA-core lane (fused_ce_fwd_kernel, fused_ce_bwd_body), simple
-// and right first:
-//   - bf16 operands go through the tensor cores with mma.sync m16n8k16
-//     (fp32 accumulators), fragments loaded from shared memory by hand
-//     and each kept in registers across the products that share it;
-//     fp32 operands take the same fragment layout on the CUDA cores (no
-//     TF32), so both types share every index computation.
+// The CUDA-core lane (fused_ce_fwd_kernel, fused_ce_bwd_body: fp32 h,
+// fp32 or bf16 w), simple and right first:
+//   - fp32 operands (w cast to fp32 as it is staged) take mma.sync's
+//     m16n8k16 fragment layout on the CUDA cores (Mma<float>, no TF32),
+//     in k order.
 //   - No state crosses a grid axis and nothing is atomic, so every sum is
 //     deterministic. fwd and dh: one block per token tile, looping over
 //     every vocab tile. dw: one block per vocab tile, looping over every
@@ -53,21 +53,24 @@
 // No copy pipeline: every streamed tile is staged through registers
 // between two barriers, and fwd keeps fp32 logits in shared memory.
 //
-// The tensor-core lane answers the CUDA-core lane's five costs:
-//   1. unpipelined staging: both kernels stream w (and fwd h) through
-//      cp.async rings (mma_bf16.cuh cp_async16) into XOR-swizzled rows
-//      (swz), so a copy in flight overlaps the products before it;
+// The tensor-core lane answers five costs of this design at bf16's rate:
+//   1. unpipelined staging: all three kernels stream through cp.async
+//      rings (mma_bf16.cuh cp_async16) into XOR-swizzled rows (swz), so a
+//      copy in flight overlaps the products before it;
 //   2. one block per SM with nothing hiding the copies: fwd's ring is 4
 //      k-chunks deep and its copies are spread over the products; dh's
-//      next vocab tile is copied in the shadow of its cluster barrier;
+//      and dw's next tile is copied in the shadow of their cluster
+//      barrier;
 //   3. fp32 logits through shared memory: fwd keeps s in the mma.sync
 //      accumulators and takes the row max, the rescaled sum and the
-//      target logit from registers with quad shuffles;
+//      target logit from registers with quad shuffles; dh and dw form P
+//      in registers;
 //   4. hand-indexed fragment loads: every fragment comes by ldmatrix
-//      (ldsm_a, ldsm_bt, ldsm_b) into warp tiles of 32 tokens, 160-256
+//      (ldsm_a, ldsm_bt, ldsm_b) into warp tiles of 32 rows, 160-256
 //      bytes of ldmatrix a product;
-//   5. dh's 32-token tile re-streamed all of w for every 32 tokens: a
-//      two-CTA cluster now owns 64 tokens, each CTA half of E (below).
+//   5. a 32-row tile re-streamed all of the other operand for every 32
+//      rows: a two-CTA cluster now owns 64 (dh: tokens, dw: vocab rows),
+//      each CTA half of E (below).
 // The details and the L2 reckoning are at each kernel.
 
 #include <cooperative_groups.h>
@@ -119,22 +122,16 @@ constexpr int kThreads = 256;  // 8 warps
 constexpr int kBwdRows = 32;   // dh: tokens, dw: vocab rows per block
 constexpr int kMaxE = 768;
 
-// per element type: streamed rows per tile, fwd tokens per block (fp32 h
-// only: bf16 h takes the tensor-core forward), and a row pad of 16
+// per element type (fp32 h only: bf16 h takes the tensor-core lane):
+// streamed rows per tile, fwd tokens per block, and a row pad of 16
 // bytes, which puts consecutive rows 4 banks apart (the fragment loads
 // below are then free of bank conflicts)
 template <typename T> struct Cfg;
-template <> struct Cfg<bf16> {
-  static constexpr int kT = 64, kPad = 8;
-};
 template <> struct Cfg<float> {
   static constexpr int kT = 32, kFwdRows = 32, kPad = 4;
 };
 
 __device__ __forceinline__ float cvt(float x, const float*) { return x; }
-__device__ __forceinline__ bf16 cvt(float x, const bf16*) {
-  return __float2bfloat16(x);
-}
 
 // Copy rows [r0, r0 + rows) of a (n, E) matrix into shared memory (row
 // stride ld), cast to T; rows at or past n are zero-filled.
@@ -270,11 +267,12 @@ fused_ce_fwd_kernel(const T* __restrict__ h, const TW* __restrict__ w,
 
 // ---- dh (#6) and dw (#7): one shared body ------------------------------------
 //
-// X (kBwdRows x E) is the block's resident operand, Y (kT x E) the streamed
-// one; per Y tile: s = X Y^T, P (rounded to T) into shared memory, then
-// acc (kBwdRows x E) += P Y. dh: X = h (tokens), Y = w (vocab), the token
-// statistics are per row of P. dw: X = w, Y = h, P is the dlogits tile
-// transposed and the statistics are per column.
+// fp32 h only (bf16 h takes the tensor-core lane below). X (kBwdRows x
+// E) is the block's resident operand, Y (kT x E) the streamed one; per Y
+// tile: s = X Y^T, P into shared memory, then acc (kBwdRows x E) += P Y.
+// dh: X = h (tokens), Y = w (vocab), the token statistics are per row of
+// P. dw: X = w, Y = h, P is the dlogits tile transposed and the
+// statistics are per column.
 
 template <typename T, typename TW, bool kDW>
 __device__ __forceinline__ void fused_ce_bwd_body(
@@ -425,6 +423,8 @@ size_t bwd_smem(int E) {
 template <typename T, typename TW>
 int launch_fwd(const void* h, const void* w, const void* labels, void* lse,
                void* tgt, int n, int vocab, int E, cudaStream_t stream) {
+  static_assert(std::is_same<T, float>::value,
+                "bf16 h takes the tensor-core lane");
   const size_t smem = fwd_smem<T>(E);
   cudaError_t err = allow_smem(fused_ce_fwd_kernel<T, TW>, smem);
   if (err != cudaSuccess) return (int)err;
@@ -440,6 +440,8 @@ template <typename T, typename TW, bool kDW>
 int launch_bwd(const void* h, const void* w, const void* labels,
                const void* lse, const void* glse, const void* gtgt, void* out,
                int n, int vocab, int E, cudaStream_t stream) {
+  static_assert(std::is_same<T, float>::value,
+                "bf16 h takes the tensor-core lane");
   const size_t smem = bwd_smem<T>(E);
   const int blocks = ((kDW ? vocab : n) + kBwdRows - 1) / kBwdRows;
   const T* hp = static_cast<const T*>(h);
@@ -688,20 +690,30 @@ int launch_fwd_tc(const void* h, const void* w, const void* labels,
   return (int)cudaGetLastError();
 }
 
-// dh (#6): fused_ce_dh_tc_kernel<C>. A cluster of C = 2 CTAs (a
-// thread-block cluster: neighbouring SMs that write each other's shared
-// memory) owns 64 tokens; CTA r owns E-chunks [r p, (r + 1) p) of the E /
-// 64, p = ceil(E / 128): at E = 768, 384 columns each.
-//   - The CTA's h slice (64 tokens x its chunks) is resident in shared
-//     memory; its slice of each 64-row vocab tile streams through a
-//     2-stage cp.async ring (48 KB a stage).
-//   - Per vocab tile j, the CTA's partial logits s_r over its E-slice:
-//     warps 0-3 take its even chunks and warps 4-7 its odd ones, each
-//     warp a (32 tokens x 32 columns) tile, so one k16 step loads 2 A
-//     and 2 B fragments by ldmatrix for 8 products; each warp hands the
-//     half of its tile that its partner sums to shared memory, in mma
-//     fragment order (one float4 per lane and m16n8 tile: conflict-free
-//     both ways).
+// dh (#6) and dw (#7): fused_ce_dh_tc_kernel<C> and fused_ce_dw_tc_kernel<C,
+// TW>, two thin kernels over one body, fused_ce_bwd_tc_body<C, kDW, TX>.
+// dW = P^T h is dH = P w transposed: per streamed tile, s = X Y^T, P from
+// s, acc += P Y, with X = h (resident) and Y = w (streamed) for dh, X = w
+// and Y = h for dw, where P is the dlogits tile transposed and the token
+// statistics run along its columns. Below, "rows" are X's (dh: tokens,
+// dw: vocab rows) and "columns" Y's.
+//
+// A cluster of C = 2 CTAs (a thread-block cluster: neighbouring SMs that
+// write each other's shared memory) owns 64 rows; CTA r owns E-chunks
+// [r p, (r + 1) p) of the E / 64, p = ceil(E / 128): at E = 768, 384
+// columns each.
+//   - The CTA's X slice (64 rows x its chunks) is resident in shared
+//     memory (dw: an fp32 w is rounded to bf16 as it is staged, once per
+//     CTA, the values of the TPU kernel's per-tile astype); its slice of
+//     each 64-row Y tile streams through a 2-stage cp.async ring (48 KB a
+//     stage). dw's stage also carries the tile's 64 tokens' lse, glse,
+//     gtgt and labels (1 KB; past n: zeros, so P is 0 there).
+//   - Per Y tile j, the CTA's partial logits s_r over its E-slice: warps
+//     0-3 take its even chunks and warps 4-7 its odd ones, each warp a
+//     (32 rows x 32 columns) tile, so one k16 step loads 2 A and 2 B
+//     fragments by ldmatrix for 8 products; each warp hands the half of
+//     its tile that its partner sums to shared memory, in mma fragment
+//     order (one float4 per lane and m16n8 tile: conflict-free both ways).
 //   - Each warp keeps its summed part of s_r in registers and pushes a
 //     copy into its peer CTA's shared memory (distributed shared memory
 //     stores: the writer does not wait), then one cluster barrier, split:
@@ -711,24 +723,23 @@ int launch_fwd_tc(const void* h, const void* w, const void* labels,
 //     peer is still reading. Every CTA then sums s_0 + s_1 (two terms:
 //     the same bits in either order), so both hold bit-identical s and P,
 //     and reruns are bit-equal (no atomics), and forms P = glse * exp(s -
-//     lse) + gtgt * onehot, rounded to bf16 (absolute: JAX's rounding),
-//     once per element, into a swizzled bf16 tile. exp is ex2.approx
-//     (__expf, as fwd).
-//   - dh[:, slice] += P w_tile[:, slice] on mma.sync, P by ldsm_a and w
-//     by ldsm_b from the slice the ring already holds: each w byte feeds
-//     both products, and the work stays 4 n V E. Warp (pr, pc) owns
-//     tokens 32 pr.. and the pc-th 16-column pair of every chunk: 2 A and
-//     p B fragments a k16 step for 4 p products.
+//     lse) + gtgt * onehot, 0 at a vocab index >= V, rounded to bf16
+//     (absolute: JAX's rounding, fused_ce_pallas.py:126, :150), once per
+//     element, into a swizzled bf16 tile. exp is ex2.approx (__expf, as
+//     fwd).
+//   - out[rows, slice] += P Y_tile[:, slice] on mma.sync, P by ldsm_a and
+//     Y by ldsm_b from the slice the ring already holds: each Y byte feeds
+//     both products, and the work stays 4 n V E. Warp (pr, pc) owns rows
+//     32 pr.. and the pc-th 16-column pair of every chunk: 2 A and p B
+//     fragments a k16 step for 4 p products.
 //   - Every k16 step's fragments are loaded while the step before is
 //     multiplied (registers double-buffered): with 2 warps a scheduler,
 //     an ldmatrix feeding the next mma at once would stall it.
-//   - The accumulator: 64 tokens x 64 p columns, 96 fp32 registers a
-//     thread, where the CUDA-core lane's 32 tokens held all of E. L2
-//     reckoning: w is read once per cluster, n V E 2 / 64 bytes, 59 GB at
-//     n = 49152 (119 GB with 32 tokens). C = 4 (128 tokens, 30 GB) would
-//     need three pushed partials a tile, 64 KB double-buffered beside the
-//     ring: not built.
-// Why the design is so: its rate does not move with V or n, w in L2 or
+//   - The accumulator: 64 rows x 64 p columns, 96 fp32 registers a
+//     thread, where the CUDA-core lane's 32 rows held all of E. C = 4
+//     (128 rows) would need three pushed partials a tile, 64 KB
+//     double-buffered beside the ring: not built.
+// Why the design is so: dH's rate does not move with V or n, w in L2 or
 // not (port_probe.py fused), so the time is spent inside the SM.
 // clock64() counters around each phase (in a build made for that) showed
 // these costs beside the two products: pulling the peer's partials after
@@ -736,23 +747,48 @@ int launch_fwd_tc(const void* h, const void* w, const void* labels,
 // ldmatrix feeding the next mma at once; the cluster barrier, whose
 // release waits for the pushes. Hence the push, the copies in the
 // barrier's shadow, __expf and the double-buffered fragments.
-constexpr int kDhVocab = 64;   // vocab rows per tile
-constexpr int kDhStages = 2;   // vocab tiles in the ring
+//
+// dh (#6) replaces fused_ce_pallas.py:112 _dh_kernel. L2 reckoning: w is
+// read once per cluster, n V E 2 / 64 bytes, 59 GB at n = 49152 (119 GB
+// with 32 tokens).
+//
+// dw (#7) replaces fused_ce_pallas.py:134 _dw_kernel. Bound: operations,
+// 4 n V E (the logits are recomputed), 7.673 ms at n = 49152, V = 50257,
+// E = 768 on 989 TFLOP/s. L2 reckoning: h (75.5 MB) is read once per
+// cluster, n E 2 V / 64 bytes, 59 GB a call, where 32-row blocks (the
+// CUDA-core body) read it V / 32 times (118 GB); 786 clusters (1,572
+// CTAs, one an SM: 202 KB of shared memory each), about 12 waves. The
+// CUDA-core body's five costs with bf16 operands, and what answers each:
+//   1. 32 vocab rows a block: the 2-CTA cluster owns 64 (L2 traffic
+//      halved, no logit recomputed);
+//   2. unpipelined staging through registers between two barriers, one
+//      block an SM: the cp.async ring, the next tile's copies (and its
+//      statistics) in the shadow of the cluster barrier;
+//   3. hand-indexed fragments (P h's B operand from four 16-bit loads
+//      each): ldsm_a, ldsm_bt and ldsm_b;
+//   4. m16n8 tile pairs with A reloaded for every product: 32 x 32 warp
+//      tiles, fragments double-buffered in registers;
+//   5. P through a padded tile with scalar stores and exactly rounded
+//      expf: P formed in registers, packed in pairs into a swizzled tile,
+//      __expf; the statistics read as float2 pairs from the ring.
+constexpr int kTcTile = 64;    // Y rows per streamed tile
+constexpr int kTcStages = 2;   // Y tiles in the ring
 
 template <int C>
-struct DhTc {
+struct BwdTc {
   static_assert(C == 2, "the partial exchange is laid out for 2 CTAs");
-  static constexpr int kTokens = 32 * C;
+  static constexpr int kRows = 32 * C;
   static constexpr int kMT = C;  // m16 tiles a warp, in both products
   static constexpr int kChunks = (kMaxE / kChunk + C - 1) / C;  // per CTA
-  static constexpr int kSlot = kTokens / 16 * (kDhVocab / 8) * 32;  // float4s
-  // h slice, ring, where the K halves meet, two slots of the peer's
-  // partials, one P tile
-  static constexpr size_t smem() {
-    return (size_t)(kTokens + kDhStages * kDhVocab) * kChunks * kChunk *
+  static constexpr int kSlot = kRows / 16 * (kTcTile / 8) * 32;  // float4s
+  // X slice, ring, where the K halves meet, two slots of the peer's
+  // partials, one P tile; dw: the ring's token statistics
+  static constexpr size_t smem(bool dw) {
+    return (size_t)(kRows + kTcStages * kTcTile) * kChunks * kChunk *
                sizeof(bf16) +
            3 * (size_t)kSlot * sizeof(float4) +
-           (size_t)kTokens * kDhVocab * sizeof(bf16);
+           (size_t)kRows * kTcTile * sizeof(bf16) +
+           (dw ? (size_t)kTcStages * 4 * kTcTile * sizeof(float) : 0);
   }
 };
 
@@ -763,76 +799,117 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
-template <int C>
-__global__ void __launch_bounds__(kTcThreads, 1)
-fused_ce_dh_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
-                      const int* __restrict__ labels,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ glse,
-                      const float* __restrict__ gtgt, bf16* __restrict__ dh,
-                      int n, int vocab, int E) {
-  using K = DhTc<C>;
-  constexpr int kTile = kDhVocab * kChunk;  // elements of one chunk tile
+// two adjacent columns of an output row, rounded to its type
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// x (n_x, E) in TX (bf16, or fp32 for an fp32 w), y (n_y, E) bf16; out
+// (n_x, E) in TX. dh: x = h, y = w; dw: x = w, y = h.
+template <int C, bool kDW, typename TX>
+__device__ __forceinline__ void fused_ce_bwd_tc_body(
+    const TX* __restrict__ x, const bf16* __restrict__ y,
+    const int* __restrict__ labels, const float* __restrict__ lse,
+    const float* __restrict__ glse, const float* __restrict__ gtgt,
+    TX* __restrict__ out, int n, int vocab, int E) {
+  using K = BwdTc<C>;
+  constexpr int kTile = kTcTile * kChunk;  // elements of one chunk tile
   constexpr int kMT = K::kMT;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* hs = reinterpret_cast<bf16*>(smem_raw);  // kChunks x kTokens x 64
-  bf16* ws = hs + K::kChunks * K::kTokens * kChunk;  // stages x kChunks x tile
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // kChunks x kRows x 64
+  bf16* ys = xs + K::kChunks * K::kRows * kChunk;  // stages x kChunks x tile
   float4* half =  // where the two K halves of s_r meet
-      reinterpret_cast<float4*>(ws + kDhStages * K::kChunks * kTile);
+      reinterpret_cast<float4*>(ys + kTcStages * K::kChunks * kTile);
   float4* peer = half + K::kSlot;  // 2 slots: the peer's partials
-  bf16* ps = reinterpret_cast<bf16*>(peer + 2 * K::kSlot);  // P, kTokens x 64
+  bf16* ps = reinterpret_cast<bf16*>(peer + 2 * K::kSlot);  // P, kRows x 64
+  // dw: per stage, (lse, glse, gtgt, labels) of the tile's kTcTile tokens
+  float* stats = reinterpret_cast<float*>(ps + K::kRows * kTcTile);
 
   cgrp::cluster_group cluster = cgrp::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  // s product: K half kh, tokens 32 rq.., columns 32 cq..; P w: tokens
-  // 32 pr.., the pc-th pair of each chunk
+  // s product: K half kh, rows 32 rq.., columns 32 cq..; P Y: rows 32
+  // pr.., the pc-th pair of each chunk
   const int kh = warp >> 2, rq = (warp >> 1) & 1, cq = warp & 1;
   const int pr = warp >> 2, pc = warp & 3;
-  const int r0 = (blockIdx.x / C) * K::kTokens;
+  const int n_x = kDW ? vocab : n, n_y = kDW ? n : vocab;
+  const int r0 = (blockIdx.x / C) * K::kRows;
   const int per = (E / kChunk + C - 1) / C;
   const int ch0 = min(E / kChunk, rank * per);
   const int nch = min(E / kChunk, ch0 + per) - ch0;  // may be 0 at small E
-  const int n_tiles = (vocab + kDhVocab - 1) / kDhVocab;
+  const int n_tiles = (n_y + kTcTile - 1) / kTcTile;
   // the peer's slots for this CTA's partials
   float4* to_peer = cluster.map_shared_rank(peer, rank ^ 1);
 
-  // the h slice, once
-  for (int i = tid; i < nch * K::kTokens * 8; i += kTcThreads) {
-    const int q = i / (K::kTokens * 8), r = (i >> 3) % K::kTokens;
+  // the X slice, once
+  for (int i = tid; i < nch * K::kRows * 8; i += kTcThreads) {
+    const int q = i / (K::kRows * 8), r = (i >> 3) % K::kRows;
     const int col = (i & 7) * 8;
-    const bool in = r0 + r < n;
-    cp_async16(hs + q * K::kTokens * kChunk + swz<kChunk>(r, col),
-               h + (size_t)(in ? r0 + r : 0) * E + (ch0 + q) * kChunk + col,
-               in);
+    const bool in = r0 + r < n_x;
+    const TX* src = x + (size_t)(in ? r0 + r : 0) * E + (ch0 + q) * kChunk +
+                    col;
+    bf16* dst = xs + q * K::kRows * kChunk + swz<kChunk>(r, col);
+    if constexpr (std::is_same<TX, bf16>::value) {
+      cp_async16(dst, src, in);
+    } else {
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (in) {
+        const float4 a = reinterpret_cast<const float4*>(src)[0];
+        const float4 b = reinterpret_cast<const float4*>(src)[1];
+        v = make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
+                       pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
+      }
+      *reinterpret_cast<uint4*>(dst) = v;
+    }
   }
-  // copy k (< 2 nch) of vocab tile j: chunk k / 2, row tid / 8 + 32 (k &
-  // 1), 16 bytes (tid & 7) of it
+  // copy k (< 2 nch) of Y tile j: chunk k / 2, row tid / 8 + 32 (k & 1),
+  // 16 bytes (tid & 7) of it; dw: then the tile's statistics, thread tid
+  // one value (array tid / 64, token tid % 64)
   auto copy = [&](int j, int k) {
     const int q = k >> 1, r = (tid >> 3) + 32 * (k & 1), col = (tid & 7) * 8;
-    const int v = j * kDhVocab + r;
-    const bool in = v < vocab;
-    cp_async16(ws + ((j % kDhStages) * K::kChunks + q) * kTile +
+    const int yr = j * kTcTile + r;
+    const bool in = yr < n_y;
+    cp_async16(ys + ((j % kTcStages) * K::kChunks + q) * kTile +
                    swz<kChunk>(r, col),
-               w + (size_t)(in ? v : 0) * E + (ch0 + q) * kChunk + col, in);
+               y + (size_t)(in ? yr : 0) * E + (ch0 + q) * kChunk + col, in);
   };
+  auto copy_stats = [&](int j) {
+    if constexpr (kDW) {
+      const int a = tid / kTcTile, i = j * kTcTile + tid % kTcTile;
+      const float* src = a == 0   ? lse
+                         : a == 1 ? glse
+                         : a == 2 ? gtgt
+                                  : reinterpret_cast<const float*>(labels);
+      const bool in = i < n;
+      cp_async4(stats + ((j % kTcStages) * 4 + a) * kTcTile + tid % kTcTile,
+                src + (in ? i : 0), in);
+    }
+  };
+  static_assert(!kDW || kTcThreads == 4 * kTcTile, "one statistic a thread");
   for (int k = 0; k < 2 * nch; ++k) copy(0, k);
+  copy_stats(0);
   cp_async_commit();
 
-  // statistics of the rows this thread forms P for: m16 tile 2 rq + kh,
-  // rows g and g + 8
+  // the rows this thread forms P for: m16 tile 2 rq + kh, rows g and
+  // g + 8. dh: their token statistics; dw: their vocab index
   const int pm = rq * kMT + kh;
   float st_lse[2], st_glse[2], st_gtgt[2];
-  int st_lab[2];
+  int st_lab[2], vrow[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + pm * 16 + g + 8 * r;
-    const bool in = row < n;
-    st_lse[r] = in ? lse[row] : 0.f;
-    st_glse[r] = in ? glse[row] : 0.f;
-    st_gtgt[r] = in ? gtgt[row] : 0.f;
-    st_lab[r] = in ? labels[row] : -1;
+    vrow[r] = row;
+    if constexpr (!kDW) {
+      const bool in = row < n;
+      st_lse[r] = in ? lse[row] : 0.f;
+      st_glse[r] = in ? glse[row] : 0.f;
+      st_gtgt[r] = in ? gtgt[row] : 0.f;
+      st_lab[r] = in ? labels[row] : -1;
+    }
   }
   // float4 index of this thread's element of (m16 tile mt, n8 tile nt)
   auto slot = [&](int mt, int nt) { return (mt * 8 + nt) * 32 + lane; };
@@ -850,11 +927,11 @@ fused_ce_dh_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
   for (int jt = 0; jt < n_tiles; ++jt) {
     cp_async_wait<0>();
     __syncthreads();  // tile jt landed; tile jt - 1's stage and P free
-    const bf16* wt = ws + (jt % kDhStages) * K::kChunks * kTile;
+    const bf16* yt = ys + (jt % kTcStages) * K::kChunks * kTile;
 
-    // this warp's half of s_r: tokens 32 rq.., columns 32 cq.., over
-    // chunks kh, kh + 2, ..; each k16 step's fragments are loaded while
-    // the step before is multiplied
+    // this warp's half of s_r: rows 32 rq.., columns 32 cq.., over chunks
+    // kh, kh + 2, ..; each k16 step's fragments are loaded while the step
+    // before is multiplied
     float s[kMT][4][4];
 #pragma unroll
     for (int i = 0; i < kMT; ++i)
@@ -867,10 +944,10 @@ fused_ce_dh_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
                      MmaBf16::B(&fb)[4]) {
 #pragma unroll
       for (int i = 0; i < kMT; ++i)
-        fa[i] = ldsm_a<kChunk>(hs + q * K::kTokens * kChunk,
+        fa[i] = ldsm_a<kChunk>(xs + q * K::kRows * kChunk,
                                (rq * kMT + i) * 16, kk * 16);
-      ldsm_bt<kChunk>(fb[0], fb[1], wt + q * kTile, cq * 32, kk * 16);
-      ldsm_bt<kChunk>(fb[2], fb[3], wt + q * kTile, cq * 32 + 16, kk * 16);
+      ldsm_bt<kChunk>(fb[0], fb[1], yt + q * kTile, cq * 32, kk * 16);
+      ldsm_bt<kChunk>(fb[2], fb[3], yt + q * kTile, cq * 32 + 16, kk * 16);
     };
     if (kh < nch) frags(kh, 0, a[0], b[0]);
     for (int q = kh; q < nch; q += 2)
@@ -905,62 +982,84 @@ fused_ce_dh_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int at = slot(pm, cq * 4 + j);
-      const float4 y = half[at];
-      mine[j][0] += y.x;
-      mine[j][1] += y.y;
-      mine[j][2] += y.z;
-      mine[j][3] += y.w;
+      const float4 v = half[at];
+      mine[j][0] += v.x;
+      mine[j][1] += v.y;
+      mine[j][2] += v.z;
+      mine[j][3] += v.w;
       dst[at] = make_float4(mine[j][0], mine[j][1], mine[j][2], mine[j][3]);
     }
     cluster_arrive();
     // tile jt + 1's copies, into the stage tile jt - 1 left, while the
     // pushes land and the peer arrives
-    if (jt + 1 < n_tiles)
+    if (jt + 1 < n_tiles) {
       for (int k = 0; k < 2 * nch; ++k) copy(jt + 1, k);
+      copy_stats(jt + 1);
+    }
     cp_async_commit();
     cluster_wait();  // both ranks' partials of tile jt in both CTAs
 
     // s = s_0 + s_1 (rank order; two terms commute exactly) for m16 tile
     // pm, n8 tiles 4 cq.., then P
     const float4* theirs = peer + (jt & 1) * K::kSlot;
-    const int v0 = jt * kDhVocab;
+    const float* st = stats + (jt % kTcStages) * 4 * kTcTile;
+    const int y0 = jt * kTcTile;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float4 y = theirs[slot(pm, cq * 4 + j)];
-      const float sv[4] = {mine[j][0] + y.x, mine[j][1] + y.y,
-                           mine[j][2] + y.z, mine[j][3] + y.w};
+      const float4 v = theirs[slot(pm, cq * 4 + j)];
+      const float sv[4] = {mine[j][0] + v.x, mine[j][1] + v.y,
+                           mine[j][2] + v.z, mine[j][3] + v.w};
       const int c = (cq * 4 + j) * 8 + 2 * t;
       float p[4];
+      if constexpr (kDW) {
+        // columns c, c + 1 are tokens y0 + c..; rows are vocab rows
+        const float2 sl = *reinterpret_cast<const float2*>(st + c);
+        const float2 sg = *reinterpret_cast<const float2*>(st + kTcTile + c);
+        const float2 stg =
+            *reinterpret_cast<const float2*>(st + 2 * kTcTile + c);
+        const int2 sb = *reinterpret_cast<const int2*>(st + 3 * kTcTile + c);
+        const float cl[2] = {sl.x, sl.y}, cg[2] = {sg.x, sg.y};
+        const float ct[2] = {stg.x, stg.y};
+        const int cb[2] = {sb.x, sb.y};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int v = v0 + c + (e & 1), r = e >> 1;
-        p[e] = v < vocab ? st_glse[r] * __expf(sv[e] - st_lse[r]) : 0.f;
-        if (v == st_lab[r]) p[e] += st_gtgt[r];
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, k = e & 1;
+          p[e] = vrow[r] < vocab ? cg[k] * __expf(sv[e] - cl[k]) : 0.f;
+          if (vrow[r] == cb[k]) p[e] += ct[k];
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int v = y0 + c + (e & 1), r = e >> 1;
+          p[e] = v < vocab ? st_glse[r] * __expf(sv[e] - st_lse[r]) : 0.f;
+          if (v == st_lab[r]) p[e] += st_gtgt[r];
+        }
       }
 #pragma unroll
       for (int r = 0; r < 2; ++r)
         *reinterpret_cast<uint32_t*>(
-            ps + swz<kDhVocab>(pm * 16 + g + 8 * r, c)) =
+            ps + swz<kTcTile>(pm * 16 + g + 8 * r, c)) =
             pack_bf16(p[2 * r], p[2 * r + 1]);
     }
     __syncthreads();  // the P tile written
 
-    // dh[:, slice] += P w_tile[:, slice] for the warp's tokens and pairs
-    // (the next chunk's B fragments are loaded while one is multiplied)
+    // out[rows, slice] += P Y_tile[:, slice] for the warp's rows and
+    // pairs (the next chunk's B fragments are loaded while one is
+    // multiplied)
 #pragma unroll
-    for (int kk = 0; kk < kDhVocab / 16; ++kk) {
+    for (int kk = 0; kk < kTcTile / 16; ++kk) {
       MmaBf16::A pa[kMT];
 #pragma unroll
       for (int i = 0; i < kMT; ++i)
-        pa[i] = ldsm_a<kDhVocab>(ps, (pr * kMT + i) * 16, kk * 16);
+        pa[i] = ldsm_a<kTcTile>(ps, (pr * kMT + i) * 16, kk * 16);
       MmaBf16::B pb[2][2];
-      if (nch > 0) ldsm_b<kChunk>(pb[0][0], pb[0][1], wt, kk * 16, pc * 16);
+      if (nch > 0) ldsm_b<kChunk>(pb[0][0], pb[0][1], yt, kk * 16, pc * 16);
 #pragma unroll
       for (int q = 0; q < K::kChunks; ++q)
         if (q < nch) {
           if (q + 1 < nch)
             ldsm_b<kChunk>(pb[(q + 1) & 1][0], pb[(q + 1) & 1][1],
-                           wt + (q + 1) * kTile, kk * 16, pc * 16);
+                           yt + (q + 1) * kTile, kk * 16, pc * 16);
 #pragma unroll
           for (int i = 0; i < kMT; ++i) {
             MmaBf16::mma(acc[q][i][0], pa[i], pb[q & 1][0]);
@@ -982,21 +1081,46 @@ fused_ce_dh_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
           for (int r = 0; r < 2; ++r) {
             const int row = r0 + (pr * kMT + i) * 16 + g + 8 * r;
             const int col = (ch0 + q) * kChunk + pc * 16 + e * 8 + 2 * t;
-            if (row < n)
-              *reinterpret_cast<uint32_t*>(dh + (size_t)row * E + col) =
-                  pack_bf16(acc[q][i][e][2 * r], acc[q][i][e][2 * r + 1]);
+            if (row < n_x)
+              store2(out + (size_t)row * E + col, acc[q][i][e][2 * r],
+                     acc[q][i][e][2 * r + 1]);
           }
 }
 
-// the cluster size of the dh lane
-constexpr int kDhCluster = 2;
+template <int C>
+__global__ void __launch_bounds__(kTcThreads, 1)
+fused_ce_dh_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
+                      const int* __restrict__ labels,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ glse,
+                      const float* __restrict__ gtgt, bf16* __restrict__ dh,
+                      int n, int vocab, int E) {
+  fused_ce_bwd_tc_body<C, false, bf16>(h, w, labels, lse, glse, gtgt, dh, n,
+                                       vocab, E);
+}
 
-int launch_dh_tc(const void* h, const void* w, const void* labels,
-                 const void* lse, const void* glse, const void* gtgt,
-                 void* dh, int n, int vocab, int E, cudaStream_t stream) {
-  constexpr int C = kDhCluster;
-  constexpr size_t smem = DhTc<C>::smem();
-  cudaError_t err = allow_smem(fused_ce_dh_tc_kernel<C>, smem);
+template <int C, typename TW>
+__global__ void __launch_bounds__(kTcThreads, 1)
+fused_ce_dw_tc_kernel(const bf16* __restrict__ h, const TW* __restrict__ w,
+                      const int* __restrict__ labels,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ glse,
+                      const float* __restrict__ gtgt, TW* __restrict__ dw,
+                      int n, int vocab, int E) {
+  fused_ce_bwd_tc_body<C, true, TW>(w, h, labels, lse, glse, gtgt, dw, n,
+                                    vocab, E);
+}
+
+// the cluster size of both backward kernels
+constexpr int kBwdCluster = 2;
+
+// Launch `kernel` on clusters of kBwdCluster CTAs, one cluster per 64 rows
+// of its resident operand.
+template <typename... P, typename... A>
+int launch_cluster(void (*kernel)(P...), int rows, size_t smem,
+                   cudaStream_t stream, A... args) {
+  constexpr int C = kBwdCluster;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute cluster[1];
   cluster[0].id = cudaLaunchAttributeClusterDimension;
@@ -1004,19 +1128,38 @@ int launch_dh_tc(const void* h, const void* w, const void* labels,
   cluster[0].val.clusterDim.y = 1;
   cluster[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C * ((n + DhTc<C>::kTokens - 1) / DhTc<C>::kTokens));
+  cfg.gridDim = dim3(C * ((rows + BwdTc<C>::kRows - 1) / BwdTc<C>::kRows));
   cfg.blockDim = dim3(kTcThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(
-      &cfg, fused_ce_dh_tc_kernel<C>, static_cast<const bf16*>(h),
-      static_cast<const bf16*>(w), static_cast<const int*>(labels),
-      static_cast<const float*>(lse), static_cast<const float*>(glse),
-      static_cast<const float*>(gtgt), static_cast<bf16*>(dh), n, vocab, E);
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+int launch_dh_tc(const void* h, const void* w, const void* labels,
+                 const void* lse, const void* glse, const void* gtgt,
+                 void* dh, int n, int vocab, int E, cudaStream_t stream) {
+  return launch_cluster(
+      fused_ce_dh_tc_kernel<kBwdCluster>, n, BwdTc<kBwdCluster>::smem(false),
+      stream, static_cast<const bf16*>(h), static_cast<const bf16*>(w),
+      static_cast<const int*>(labels), static_cast<const float*>(lse),
+      static_cast<const float*>(glse), static_cast<const float*>(gtgt),
+      static_cast<bf16*>(dh), n, vocab, E);
+}
+
+template <typename TW>
+int launch_dw_tc(const void* h, const void* w, const void* labels,
+                 const void* lse, const void* glse, const void* gtgt,
+                 void* dw, int n, int vocab, int E, cudaStream_t stream) {
+  return launch_cluster(
+      fused_ce_dw_tc_kernel<kBwdCluster, TW>, vocab,
+      BwdTc<kBwdCluster>::smem(true), stream, static_cast<const bf16*>(h),
+      static_cast<const TW*>(w), static_cast<const int*>(labels),
+      static_cast<const float*>(lse), static_cast<const float*>(glse),
+      static_cast<const float*>(gtgt), static_cast<TW*>(dw), n, vocab, E);
 }
 
 }  // namespace
@@ -1027,17 +1170,12 @@ int launch_dh_tc(const void* h, const void* w, const void* labels,
 // `stream` and returns cudaGetLastError() (or the error of raising the
 // kernel's shared-memory limit).
 //
-// fwd and dh pick their lane from h's dtype alone (ops/fused_ce.py
+// Each picks its lane from h's dtype alone (ops/fused_ce.py
 // fused_ce_lane): bf16 h takes the tensor-core kernel, which refuses
-// (cudaErrorInvalidValue, nothing launched) what it does not take: an
-// fp32 w (the wrapper casts it) or E outside whole 64-column chunks up to
-// kMaxE. fp32 h takes the CUDA-core kernel. dw dispatches on both types.
-#define HETU_FUSED_CE_DISPATCH(CALL)                                  \
-  if (h_bf16 && w_bf16) return CALL(bf16, bf16);                     \
-  if (h_bf16) return CALL(bf16, float);                              \
-  if (w_bf16) return CALL(float, bf16);                              \
-  return CALL(float, float);
-
+// (cudaErrorInvalidValue, nothing launched) what it does not take: E
+// outside whole 64-column chunks up to kMaxE, and for fwd and dh an fp32
+// w (the wrapper casts it; dw reads w in its own dtype). fp32 h takes the
+// CUDA-core kernel.
 extern "C" int hetu_fused_ce_fwd(const void* h, const void* w,
                                  const void* labels, void* lse, void* tgt,
                                  int n, int vocab, int E, int h_bf16,
@@ -1079,8 +1217,17 @@ extern "C" int hetu_fused_ce_dw(const void* h, const void* w,
                                 int n, int vocab, int E, int h_bf16,
                                 int w_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CALL(T, TW) \
-  launch_bwd<T, TW, true>(h, w, labels, lse, glse, gtgt, dw, n, vocab, E, s)
-  HETU_FUSED_CE_DISPATCH(CALL)
-#undef CALL
+  if (h_bf16) {
+    if (E % 64 || E < 64 || E > kMaxE) return (int)cudaErrorInvalidValue;
+    if (w_bf16)
+      return launch_dw_tc<bf16>(h, w, labels, lse, glse, gtgt, dw, n, vocab,
+                                E, s);
+    return launch_dw_tc<float>(h, w, labels, lse, glse, gtgt, dw, n, vocab, E,
+                               s);
+  }
+  if (w_bf16)
+    return launch_bwd<float, bf16, true>(h, w, labels, lse, glse, gtgt, dw, n,
+                                         vocab, E, s);
+  return launch_bwd<float, float, true>(h, w, labels, lse, glse, gtgt, dw, n,
+                                        vocab, E, s);
 }

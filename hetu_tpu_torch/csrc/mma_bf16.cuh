@@ -10,9 +10,6 @@
 
 namespace hetu {
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) |
          ((uint32_t)__bfloat16_as_ushort(hi) << 16);
@@ -20,29 +17,15 @@ __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
 
 // Operand fragments of one m16n8k16 product c (16 x 8, fp32) += A (16 x
 // 16) B (16 x 8). Lane (g, t) = (lane / 4, lane % 4) holds c's rows g and
-// g + 8, columns 2t and 2t + 1. A is row-major at `a` (stride lda); B[k][j]
-// is at b[j * ldb + k] when kBT (k contiguous) or at b[k * ldb + j]. A
-// caller loads a fragment once and reuses it across the products that
-// share it.
+// g + 8, columns 2t and 2t + 1. The fragments come by ldmatrix (below); a
+// caller loads one once and reuses it across the products that share it.
+// (fused_ce.cu's Mma<float> runs the same layout on the CUDA cores.)
 template <typename T> struct Mma;
 
 // bf16: registers in mma.sync's layout, the product on the tensor cores
 template <> struct Mma<__nv_bfloat16> {
   struct A { uint32_t r[4]; };
   struct B { uint32_t r[2]; };
-  __device__ __forceinline__ static A load_a(const __nv_bfloat16* a, int lda) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    return {{ld32(a + g * lda + 2 * t), ld32(a + (g + 8) * lda + 2 * t),
-             ld32(a + g * lda + 2 * t + 8),
-             ld32(a + (g + 8) * lda + 2 * t + 8)}};
-  }
-  template <bool kBT>
-  __device__ __forceinline__ static B load_b(const __nv_bfloat16* b, int ldb) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    if (kBT) return {{ld32(b + g * ldb + 2 * t), ld32(b + g * ldb + 2 * t + 8)}};
-    return {{pack2(b[(2 * t) * ldb + g], b[(2 * t + 1) * ldb + g]),
-             pack2(b[(2 * t + 8) * ldb + g], b[(2 * t + 9) * ldb + g])}};
-  }
   __device__ __forceinline__ static void mma(float (&c)[4], const A& a,
                                              const B& b) {
     asm volatile(

@@ -19,13 +19,15 @@ before both backward products; dh comes back in h's dtype, dw in w's,
 both summed in fp32. Token rows are not padded (the kernels mask the
 ragged edge), so N is free; E must be a multiple of 64, at most 768.
 
-Lanes (:func:`fused_ce_lane`): with bf16 h the forward and dH run the
-tensor-core lane (``fused_ce_fwd_tc_kernel``, ``fused_ce_dh_tc_kernel``
-on a two-CTA cluster), which reads bf16 w, so an fp32 w is cast to bf16
-once before the launch (the values the TPU kernels' per-tile cast
-gives); with fp32 h they run the CUDA-core lane. dW has one kernel for
-every dtype pairing. Both lanes count their launches under the same
-names.
+Lanes (:func:`fused_ce_lane`): with bf16 h all three kernels run the
+tensor-core lane (``fused_ce_fwd_tc_kernel``; ``fused_ce_dh_tc_kernel``
+and ``fused_ce_dw_tc_kernel``, each on a two-CTA cluster); with fp32 h
+they run the CUDA-core lane. The forward and dH tensor-core kernels read
+bf16 w, so an fp32 w is cast to bf16 once before their launch (the
+values the TPU kernels' per-tile cast gives); dW, whose resident operand
+is w, reads w in its own dtype, rounds an fp32 w to bf16 as it stages
+it, and returns dw in w's dtype. Both lanes count their launches under
+the same names.
 
 The forward and backward are ``torch.library`` custom ops
 (``hetu_tpu_torch::fused_ce_fwd`` / ``fused_ce_bwd``) with a registered
@@ -117,13 +119,14 @@ def fused_ce_dw_reference(h, w, labels, lse, glse, gtgt):
 
 def fused_ce_lane(h_dtype: torch.dtype, w_dtype: torch.dtype, e: int,
                   what: str = "fused_ce") -> str:
-    """The lane a CUDA call of the forward (#5) or dH (#6) kernel takes,
-    decided before the launch (``hetu_fused_ce_fwd`` and
-    ``hetu_fused_ce_dh`` branch on the same rule): ``"tensor_core"`` for
-    bf16 h, whatever w's dtype (an fp32 w is cast to bf16 first), and
-    ``"cuda_core"`` for fp32 h. Raises for what neither lane takes: a
-    dtype other than fp32 or bf16, or E not a multiple of 64 in [64,
-    ``MAX_E``]."""
+    """The lane a CUDA call of the forward (#5), dH (#6) or dW (#7)
+    kernel takes, decided before the launch (``hetu_fused_ce_fwd``,
+    ``hetu_fused_ce_dh`` and ``hetu_fused_ce_dw`` branch on the same
+    rule): ``"tensor_core"`` for bf16 h, whatever w's dtype (the forward
+    and dH get an fp32 w cast to bf16 first, dW rounds it as it stages
+    it), and ``"cuda_core"`` for fp32 h. Raises for what neither lane
+    takes: a dtype other than fp32 or bf16, or E not a multiple of 64 in
+    [64, ``MAX_E``]."""
     for name, dtype in (("h", h_dtype), ("w", w_dtype)):
         if dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"{what}: {name} must be fp32 or bf16, got "
@@ -221,7 +224,8 @@ def fused_ce_dh(h, w, labels, lse, glse, gtgt):
 
 
 def fused_ce_dw(h, w, labels, lse, glse, gtgt):
-    """Kernel #7: dW (V, E) in w's dtype, from the same inputs."""
+    """Kernel #7: dW (V, E) in w's dtype, from the same inputs; the lane
+    is :func:`fused_ce_lane`'s (w is passed in its own dtype)."""
     if h.device.type == "cpu":
         return fused_ce_dw_reference(h, w, labels, lse, glse, gtgt)
     return _bwd("dw", h, w, labels, lse, glse, gtgt)

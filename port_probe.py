@@ -15,12 +15,14 @@ against its plain version, then timed. A failing phase is printed and
 the next one still runs; the exit code is nonzero if any failed. It is
 the short first call for a kernel that has not run on a card yet.
 
-``fused`` times the fused CE forward (#5) and dH (#6) kernels, bf16, E
-= 768, at the combo's N = 49,152 tokens against V = 50,257, 16,384 and
-8,192, and at N = 8,448 (one wave of the dH lane's 2-CTA clusters):
-whether a kernel's rate (TFLOP/s, 2NVE and 4NVE flops) moves as w leaves
-the 50 MB L2 or the grid shrinks, which tells a kernel bound inside the
-SM from one bound by the memory system.
+``fused`` times the fused CE forward (#5), dH (#6) and dW (#7) kernels,
+bf16, E = 768, at the combo's N = 49,152 tokens against V = 50,257,
+16,384 and 8,192, and at N = 8,448 (one wave of the dH lane's 2-CTA
+clusters): whether a kernel's rate (TFLOP/s, 2NVE and 4NVE flops) moves
+as w (streamed by #5 and #6) leaves the 50 MB L2 or the grid shrinks,
+and whether dW's, which streams h (75.5 MB at N = 49,152, 13 MB at
+8,448) and runs one cluster per 64 vocab rows, moves with them: that
+tells a kernel bound inside the SM from one bound by the memory system.
 
 ``steps`` compares the training step of two checkouts (directories that
 hold ``chip_smoke.py`` and ``hetu_tpu_torch``) on one card, in turns OLD,
@@ -119,10 +121,13 @@ def fused() -> int:
         fwd_ms = timer(lambda: ops.fused_ce_fwd(h, w, lab), iters=5)
         dh_ms = timer(lambda: ops.fused_ce_dh(h, w, lab, lse, g, -g),
                       iters=5)
+        dw_ms = timer(lambda: ops.fused_ce_dw(h, w, lab, lse, g, -g),
+                      iters=5)
         cs.emit(phase="fused_rate", card=card, n=n, vocab=vocab,
-                fwd_ms=fwd_ms, dh_ms=dh_ms,
+                fwd_ms=fwd_ms, dh_ms=dh_ms, dw_ms=dw_ms,
                 fwd_tflops=2 * nve / fwd_ms / 1e9,
-                dh_tflops=4 * nve / dh_ms / 1e9)
+                dh_tflops=4 * nve / dh_ms / 1e9,
+                dw_tflops=4 * nve / dw_ms / 1e9)
         del h, w, lab, g, lse
         torch.cuda.empty_cache()
     return 0

@@ -1,16 +1,18 @@
 """The fused LM-head CE lanes of the port (``ops.fused_ce_lane``).
 
 (a) The lane rule: ``fused_ce_lane`` against the branch of the C entry
-    points ``hetu_fused_ce_fwd`` / ``hetu_fused_ce_dh``, read from
+    points ``hetu_fused_ce_fwd`` / ``_dh`` / ``_dw``, read from
     ``csrc/fused_ce.cu`` (as ``tests/test_torch_flash_tc.py`` pins
     ``flash_lane``): bf16 h takes the tensor-core kernels whatever w's
-    dtype (the wrapper casts an fp32 w to bf16 once), fp32 h the
-    CUDA-core ones; dW keeps one kernel for every pairing.
-(b) The summation order of the dH tensor-core lane: a cluster of C CTAs
-    splits E into 64-column chunks, CTA r summing its chunks' partial
-    logits, and every CTA forms s as the rank-ordered fp32 sum of those
-    partials before it rounds P to bf16. A plain helper does the same on
-    the CPU for C = 2 and C = 4, and its dh is held to interpret-mode
+    dtype (the wrapper casts an fp32 w to bf16 once for the forward and
+    dH; dW reads w in its own dtype), fp32 h the CUDA-core ones.
+(b) The summation order of the dH and dW tensor-core lanes: a cluster of
+    C CTAs splits E into 64-column chunks, CTA r summing its chunks'
+    partial logits, and every CTA forms s as the rank-ordered fp32 sum of
+    those partials before it rounds P to bf16. A plain helper does the
+    same on the CPU (dH for C = 2 and C = 4, the pin of a later E split;
+    dW, whose kernel shares dH's body, for C = 2), and its dh and dw are
+    held to interpret-mode
     Pallas (``block_n=128, block_v=256``, as ``tests/test_torch_fused_ce.py``
     runs it) within the bound ``chip_smoke.py`` holds the card to
     (``fused_grad_bound``: 2 bf16 ulps of |reference| plus 2e-4 of max
@@ -23,7 +25,8 @@
     row) for the C = 2 order and for the port's plain version alike, so
     the peaky case is held to the bf16 tolerance of
     ``tests/test_torch_fused_ce.py`` (1e-2 of max |reference|).
-(c) The wrapper's refusals under the lane rule, and its w cast.
+(c) The wrapper's refusals under the lane rule, its w cast, and dW's
+    dtype.
 """
 
 import functools
@@ -39,7 +42,9 @@ import torch
 
 from hetu_tpu.ops.fused_ce_pallas import fused_lse_tgt as jax_fused_lse_tgt
 
-from hetu_tpu_torch.ops import fused_ce, fused_ce_dh_reference, fused_ce_lane
+from hetu_tpu_torch.ops import (
+    fused_ce, fused_ce_dh_reference, fused_ce_dw_reference, fused_ce_lane,
+)
 from hetu_tpu_torch.ops.fused_ce import MAX_E
 
 torch.set_num_threads(2)
@@ -85,27 +90,49 @@ def test_fused_entry_points_branch_on_the_lane_rule(entry, tc_launch):
 
 
 def test_dw_keeps_one_kernel_and_dh_runs_on_a_two_cta_cluster():
-    """dW (#7) dispatches on both dtypes to its one kernel; the dH lane is
-    launched with a cluster dimension of ``kDhCluster`` = 2 CTAs."""
+    """dW (#7) branches on the lane rule: bf16 h launches
+    ``launch_dw_tc`` in w's own dtype, after refusing (nothing launched)
+    an E outside whole 64-column chunks up to ``kMaxE``; fp32 h launches
+    only the CUDA-core ``launch_bwd<float, float/bf16, true>``, and no
+    CUDA-core instance of bf16 h is left. Both backward tensor-core
+    lanes, dH and dW, are launched with a cluster dimension of
+    ``kBwdCluster`` = 2 CTAs."""
     text = (CSRC / "fused_ce.cu").read_text()
     body = _entry(text, "hetu_fused_ce_dw")
-    assert "_tc" not in body and "HETU_FUSED_CE_DISPATCH(CALL)" in body
-    assert re.search(r"launch_bwd<T, TW, true>", body)
-    assert re.search(r"constexpr int kDhCluster = 2;", text)
-    launch = text[text.index("int launch_dh_tc("):]
+    m = re.search(r"if \(h_bf16\) \{\s*"
+                  r"if \(E % 64 \|\| E < 64 \|\| E > kMaxE\) "
+                  r"return \(int\)cudaErrorInvalidValue;\s*"
+                  r"if \(w_bf16\)\s*return launch_dw_tc<bf16>\([^;]*;\s*"
+                  r"return launch_dw_tc<float>\([^;]*;\s*\}", body)
+    assert m
+    rest = body[m.end():]
+    assert "_tc" not in rest
+    assert sorted(re.findall(r"launch_(\w+)<(\w+), (\w+), (\w+)>", rest)) \
+        == [("bwd", "float", "bf16", "true"), ("bwd", "float", "float",
+                                               "true")]
+    assert not re.search(r"launch_(bwd|fwd)<bf16", text)
+    assert re.search(r"constexpr int kBwdCluster = 2;", text)
+    launch = text[text.index("int launch_cluster("):]
     launch = launch[:launch.index("\n}\n")]
     assert "cudaLaunchAttributeClusterDimension" in launch
+    assert re.search(r"constexpr int C = kBwdCluster;", launch)
     assert re.search(r"clusterDim\.x = C;", launch)
+    for name, kernel in (("launch_dh_tc", "fused_ce_dh_tc_kernel"),
+                         ("launch_dw_tc", "fused_ce_dw_tc_kernel")):
+        fn = text[text.index(f"int {name}("):]
+        fn = fn[:fn.index("\n}\n")]
+        assert re.search(rf"return launch_cluster\(\s*{kernel}<kBwdCluster",
+                         fn), name
 
 
 # -- (b) the dH lane's summation order ---------------------------------------
 
-def _dh_in_cluster_order(h, w, labels, lse, glse, gtgt, cluster):
-    """dH as ``fused_ce_dh_tc_kernel`` orders its sums: s = s_0 + s_1 +
-    ... in rank order, s_r the fp32 logits over CTA r's E-chunks
-    ``[r p, (r + 1) p)`` of 64 columns (``p = ceil(E / 64 / cluster)``;
-    a slice may be empty); P from s rounded to bf16; dh = P w summed in
-    fp32, rounded to h's dtype."""
+def _p_in_cluster_order(h, w, labels, lse, glse, gtgt, cluster):
+    """The dlogits tile (N, V) as the backward tensor-core kernels form
+    it: s = s_0 + s_1 + ... in rank order, s_r the fp32 logits over CTA
+    r's E-chunks ``[r p, (r + 1) p)`` of 64 columns (``p = ceil(E / 64 /
+    cluster)``; a slice may be empty); P from s rounded to bf16 (dW's
+    P^T holds the same values: each s is a sum of the same two terms)."""
     k = h.shape[1] // 64
     per = -(-k // cluster)
     hf, wf = h.float(), w.to(h.dtype).float()
@@ -116,15 +143,32 @@ def _dh_in_cluster_order(h, w, labels, lse, glse, gtgt, cluster):
     hit = labels.long()[:, None] == torch.arange(w.shape[0])[None, :]
     p = glse[:, None] * torch.exp(s - lse[:, None]) \
         + torch.where(hit, gtgt[:, None], 0.0)
-    return (p.to(torch.bfloat16).float() @ wf).to(h.dtype)
+    return p.to(torch.bfloat16).float()
+
+
+def _dh_in_cluster_order(h, w, labels, lse, glse, gtgt, cluster):
+    """dH as ``fused_ce_dh_tc_kernel`` orders its sums: P from
+    :func:`_p_in_cluster_order`; dh = P w summed in fp32, rounded to h's
+    dtype."""
+    p = _p_in_cluster_order(h, w, labels, lse, glse, gtgt, cluster)
+    return (p @ w.to(h.dtype).float()).to(h.dtype)
+
+
+def _dw_in_cluster_order(h, w, labels, lse, glse, gtgt, cluster=2):
+    """dW as ``fused_ce_dw_tc_kernel`` orders its sums: the cluster owns
+    vocab rows and splits E as dH's does, so P^T holds the values of
+    :func:`_p_in_cluster_order`; dw = P^T h summed in fp32, rounded to
+    w's dtype."""
+    p = _p_in_cluster_order(h, w, labels, lse, glse, gtgt, cluster)
+    return (p.t() @ h.float()).to(w.dtype)
 
 
 @functools.lru_cache(maxsize=None)
 def _case(e, w_scale):
     """bf16 h ~ N(0, 1) (N, E) and w ~ N(0, w_scale^2) (V, E), labels
-    with -1 and V - 1, general cotangents; JAX's lse and dh
+    with -1 and V - 1, general cotangents; JAX's lse, dh and dw
     (interpret-mode Pallas on the rows padded to whole token blocks, pad
-    rows with label -1 and zero cotangents)."""
+    rows with label -1 and zero cotangents, which add nothing to dw)."""
     rng = np.random.default_rng(100 + e)
     h = rng.normal(size=(PAD_N, e)).astype(np.float32)
     h[N:] = 0.0
@@ -141,13 +185,14 @@ def _case(e, w_scale):
     (jlse, _), vjp = jax.vjp(
         lambda a, b: jax_fused_lse_tgt(a, b, jnp.asarray(labels), 128, 256,
                                        True), jh, jw)
-    jdh, _ = vjp((jnp.asarray(glse), jnp.asarray(gtgt)))
+    jdh, jdw = vjp((jnp.asarray(glse), jnp.asarray(gtgt)))
     as_torch = (lambda a: torch.from_numpy(
         np.array(a.astype(jnp.float32))).to(torch.bfloat16))
     return (as_torch(jh)[:N], as_torch(jw), torch.from_numpy(labels[:N]),
             torch.from_numpy(np.array(jlse)[:N]),
             torch.from_numpy(glse[:N]), torch.from_numpy(gtgt[:N]),
-            np.array(jdh.astype(jnp.float32))[:N])
+            np.array(jdh.astype(jnp.float32))[:N],
+            np.array(jdw.astype(jnp.float32)))
 
 
 def _grad_bound(want):
@@ -160,7 +205,7 @@ def _grad_bound(want):
 @pytest.mark.parametrize("cluster", [2, 4])
 @pytest.mark.parametrize("e", [128, 192])
 def test_dh_cluster_order_within_the_card_bound_of_pallas(e, cluster):
-    h, w, labels, lse, glse, gtgt, want = _case(e, 0.05)
+    h, w, labels, lse, glse, gtgt, want, _ = _case(e, 0.05)
     got = _dh_in_cluster_order(h, w, labels, lse, glse, gtgt, cluster)
     assert got.dtype == torch.bfloat16 and got.shape == (N, e)
     err = np.abs(got.float().numpy() - want)
@@ -174,7 +219,7 @@ def test_dh_cluster_order_within_the_card_bound_of_pallas(e, cluster):
 
 @pytest.mark.parametrize("e", [128, 192])
 def test_dh_cluster_order_with_a_peaky_softmax_within_bf16_tolerance(e):
-    h, w, labels, lse, glse, gtgt, want = _case(e, 0.3)
+    h, w, labels, lse, glse, gtgt, want, _ = _case(e, 0.3)
     lim = 1e-2 * np.abs(want).max()
     for cluster in (2, 4):
         got = _dh_in_cluster_order(h, w, labels, lse, glse, gtgt, cluster)
@@ -183,7 +228,29 @@ def test_dh_cluster_order_with_a_peaky_softmax_within_bf16_tolerance(e):
     assert np.abs(plain.float().numpy() - want).max() <= lim
 
 
-# -- (c) refusals and the w cast ---------------------------------------------
+@pytest.mark.parametrize("e", [128, 192])
+def test_dw_cluster_order_within_the_card_bound_of_pallas(e):
+    h, w, labels, lse, glse, gtgt, _, want = _case(e, 0.05)
+    got = _dw_in_cluster_order(h, w, labels, lse, glse, gtgt)
+    assert got.dtype == torch.bfloat16 and got.shape == (V, e)
+    err = np.abs(got.float().numpy() - want)
+    assert (err <= _grad_bound(want)).all(), \
+        f"max err {err.max()}, {(err / _grad_bound(want)).max()} of the bound"
+    plain = fused_ce_dw_reference(h, w, labels, lse, glse, gtgt)
+    assert (np.abs(plain.float().numpy() - want) <= _grad_bound(want)).all()
+
+
+@pytest.mark.parametrize("e", [128, 192])
+def test_dw_cluster_order_with_a_peaky_softmax_within_bf16_tolerance(e):
+    h, w, labels, lse, glse, gtgt, _, want = _case(e, 0.3)
+    lim = 1e-2 * np.abs(want).max()
+    got = _dw_in_cluster_order(h, w, labels, lse, glse, gtgt)
+    assert np.abs(got.float().numpy() - want).max() <= lim
+    plain = fused_ce_dw_reference(h, w, labels, lse, glse, gtgt)
+    assert np.abs(plain.float().numpy() - want).max() <= lim
+
+
+# -- (c) refusals, the w cast and dW's dtype ----------------------------------
 
 @pytest.mark.parametrize("e", [0, 32, 96, MAX_E + 64])
 def test_lane_rule_refuses_widths_neither_lane_takes(e):
@@ -225,3 +292,24 @@ def test_wrapper_casts_an_fp32_w_once_for_the_tensor_core_lane():
     assert cast.dtype == torch.bfloat16 and torch.equal(cast, w16)
     for h, w in ((h16, w16), (h32, w32), (h32, w16)):
         assert fused_ce._launch_w(h, w) is w
+
+
+def test_dw_comes_back_in_w_dtype_with_bf16_h():
+    """bf16 h with an fp32 w: dW (which reads w in its own dtype) returns
+    an fp32 dw, and that dw rounded to bf16 is bit for bit the dw of w
+    cast to bf16 (what ``kernel_w_cast`` holds the card to)."""
+    rng = np.random.default_rng(11)
+    h = torch.from_numpy(rng.normal(size=(40, 128)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    w32 = torch.from_numpy((rng.normal(size=(V, 128)) * 0.05
+                            ).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(-1, V, 40).astype(np.int32))
+    glse = torch.from_numpy(rng.normal(size=40).astype(np.float32))
+    gtgt = torch.from_numpy(rng.normal(size=40).astype(np.float32))
+    lse, _ = fused_ce.fused_ce_fwd(h, w32, labels)
+    dw32 = fused_ce.fused_ce_dw(h, w32, labels, lse, glse, gtgt)
+    dw16 = fused_ce.fused_ce_dw(h, w32.to(torch.bfloat16), labels, lse,
+                                glse, gtgt)
+    assert dw32.dtype == torch.float32 and dw32.shape == (V, 128)
+    assert dw16.dtype == torch.bfloat16
+    assert torch.equal(dw32.to(torch.bfloat16), dw16)
