@@ -47,7 +47,18 @@ Phases, each printing one JSON line:
    iteration of the lanes that run it. Every request's tokens must equal
    the one-shot ``generate`` oracle (dense cache, plain attention: no
    kernel), except at a step where the oracle's top-2 logit gap is below
-   1e-4 (a near-tie, printed).
+   1e-4 (a near-tie, printed). The engine's two lanes (decode, packed
+   prefill) are CUDA graphs captured when it is built: each must be
+   captured exactly once (``captures``: ``engine.trace_counts()`` and
+   the engine's own count) after construction, after the bursts and
+   after the profiles, and the launches are counted through the replays.
+   ``step_graph_replay`` runs each lane eagerly and as a replay from one
+   arena state and one set of operands (three live slots, a pack with a
+   finishing row): logits and arena must be bit-equal. Profiles of a
+   mixed and a steady-decode window (device ms by class: the kernels,
+   matmul, then the eager ops by kind), and ``engine_decode_step_split``:
+   a steady-decode step's host time by part, without the profiler,
+   beside one replay's device time.
 5. train   -- GPT-2 small at ``bench.py main()``'s TPU configuration:
    seq 1024, fp32 params with bf16 compute, ``Strategy(remat=
    "selective", unroll=True)``, AdamW(1e-4, wd 0.01). First a step
@@ -118,7 +129,9 @@ Phases, each printing one JSON line:
    prefill_chunk=256, block_size=16, cache_dtype=int8)``: 48 greedy
    requests with 16-1536-token prompts and ``max_tokens=64``, then 16
    that share a 512-token system prompt (three of them also share part
-   of a block: copy-on-write). Launches exactly 32
+   of a block: copy-on-write); the engines are built under the bf16
+   policy, so their lanes are captured once, as in ``engine``. Launches
+   exactly 32
    ``paged_attention_int8`` per decode-lane iteration and 32
    ``paged_attention_int8`` + 32 ``flash_fwd`` per prefill-lane
    iteration. The oracle (bf16, ``decode`` over a dense int8 cache,
@@ -127,19 +140,21 @@ Phases, each printing one JSON line:
    and the engine's token must lie within ``TIE_BF16`` of the oracle's
    best at every step; printed beside how far bf16 itself moves the
    logits (bf16 against fp32 compute). Then 16 fresh prompts are served
-   once per fault planted in the int8 lane's inputs (``FAULTS``), and
+   once per fault planted in the int8 lane's inputs (``FAULTS``; each
+   engine built inside the fault, so its captured lanes hold it), and
    the same bounds must fail each. Then two profiles, a window of
    prefill and decode mixed (#1 under both lanes) and steady decode (#1
-   all under the split-KV lane), and the LM head's per-call fp32 cast
-   against a held fp32 copy. The GPT-2 engine is profiled the same two
-   ways.
+   all under the split-KV lane), the step split, ``step_graph_replay``
+   (bf16, int8 arena), and the LM head's per-call fp32 cast against a
+   held fp32 copy. The GPT-2 engine is profiled the same two ways.
 13. llama_engine_oracle_fp32 -- the same engine and workload at fp32,
    full width and 2 layers, all 64 requests against the same oracle:
    from an fp32 arena under the 1e-4 rule, then from the int8 arena
    under ``DLOGIT_INT8_FP32``/``TIE_INT8_FP32`` (int8 codes amplify
    last-bit differences), printed beside the oracle's own int8 noise
    (its prompt in 256-token chunks against one pass), and the planted
-   faults, which those bounds must fail.
+   faults, which those bounds must fail; each engine's lanes captured
+   once, and ``step_graph_replay`` on the fp32 arena.
 14. summary -- one ``{"kernels": [...]}`` line (each kernel with its
    lanes), the card's name and power limit, and last ``{"ok": true,
    "device": {...}}``.
@@ -931,7 +946,93 @@ def check_launches(phase, counts, iters, layers, paged="paged_attention"):
               f"{n} ({layers} layers x lane iterations {iters})")
 
 
+#: ``engine.trace_counts()`` key of each lane's captured step body
+TRACE_KEYS = {"decode": "serving_decode", "prefill": "serving_prefill"}
+
+
+def capture_stats(eng) -> dict:
+    """Each lane's capture: seconds, the graph pool's bytes (device memory
+    reserved while capturing) and the kernels one replay launches."""
+    return {lane: dict(captures=g.captures, seconds=g.capture_seconds,
+                       pool_bytes=g.pool_bytes, launches_per_replay=g.launches)
+            for lane, g in eng.lanes.items()}
+
+
+def check_captures(phase, eng, before=None):
+    """Each lane of ``eng`` was captured exactly once: request churn
+    never re-captures (the card's twin of the JAX engine's re-trace
+    audit, ``tests/test_serving.py``). With ``before`` (the counts just
+    before ``eng`` was built, no other engine built since), the process
+    counters must show those two captures and no other."""
+    from hetu_tpu_torch.engine import trace_counts
+    own = {lane: g.captures for lane, g in eng.lanes.items()}
+    line = dict(phase="captures", of=phase, engine=own)
+    ok = own == {"decode": 1, "prefill": 1}
+    if before is not None:
+        now = trace_counts()
+        line["since_built"] = {lane: now.get(k, 0) - before.get(k, 0)
+                               for lane, k in TRACE_KEYS.items()}
+        ok = ok and line["since_built"] == own
+    emit(**line, ok=ok)
+    check(ok, f"{phase}: a lane was re-captured: {line}")
+
+
+def phase_step_graph_replay(eng, config):
+    """One replay of each lane against ``run_eager`` of the same body
+    from one arena state and one set of operands: three slots decoding
+    and a pack whose second chunk finishes its prompt. The kernels, their
+    order and the data are the same, so the logits and the whole arena
+    must be bit-equal; a difference is a stale or mis-wired buffer. Run
+    under the policy the engine was built with (no re-capture)."""
+    from hetu_tpu_torch.serving import SamplingParams
+    C = eng.prefill_chunk
+    sp = SamplingParams(max_tokens=8)
+    # fresh prompts: no prefix-cache hit shortens them
+    rng = np.random.default_rng(SEED + 11)
+    vocab = eng.model.cfg.vocab_size
+    reqs = [eng.submit(rng.integers(0, vocab, C // 4).tolist(), sp)
+            for _ in range(3)]
+    while any(r.first_token_s is None for r in reqs):
+        eng.step()
+    reqs.append(eng.submit(rng.integers(0, vocab, C + C // 2).tolist(), sp))
+    eng.step()                                    # its first chunk
+    caches = eng.pool.caches
+    with eng._lock, torch.no_grad():
+        active, pf = eng._stage_locked()
+        check(active.size == 3 and len(pf["fin"]) == 1,
+              f"step_graph_replay {config}: staged {active.size} live "
+              f"slots and {len(pf['fin'])} finishing rows, not 3 and 1")
+        snap = [c.clone() for c in caches]
+        eager = [eng.lanes[ln].run_eager()[0] for ln in ("decode", "prefill")]
+        arena_eager = [c.clone() for c in caches]
+        for c, x in zip(caches, snap):
+            c.copy_(x)
+        del snap
+        replay = [eng.lanes[ln].replay()[0].clone()
+                  for ln in ("decode", "prefill")]
+        torch.cuda.synchronize()
+        logits_equal = {ln: bool(torch.equal(a, b)) for ln, a, b in
+                        zip(("decode", "prefill"), eager, replay)}
+        arena_equal = all(torch.equal(a, b)
+                          for a, b in zip(arena_eager, caches))
+        diff = {ln: max_err(a, b) for ln, a, b in
+                zip(("decode", "prefill"), eager, replay)}
+        del arena_eager
+    eng.run_until_drained()
+    emit(phase="step_graph_replay", config=config, live_slots=int(active.size),
+         pack_tokens=pf["used"], finishing_rows=len(pf["fin"]),
+         logits_equal=logits_equal, logits_max_abs_diff=diff,
+         arena_equal=arena_equal,
+         arena_bytes=sum(c.numel() * c.element_size() for c in caches))
+    check(all(r.status == "done" for r in reqs),
+          f"step_graph_replay {config}: requests unfinished")
+    check(all(logits_equal.values()) and arena_equal,
+          f"step_graph_replay {config}: replay differs from eager "
+          f"(logits {logits_equal}, arena equal {arena_equal})")
+
+
 def phase_engine(device, card):
+    from hetu_tpu_torch.engine import trace_counts
     from hetu_tpu_torch.models import GPTConfig, GPTLMHeadModel, generate
     from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
     from hetu_tpu_torch.serving import SamplingParams, ServingEngine
@@ -941,14 +1042,6 @@ def phase_engine(device, card):
     cfg = GPTConfig.small()
     t0 = time.perf_counter()
     model = GPTLMHeadModel(cfg, device=device, seed=SEED).eval()
-    eng = ServingEngine(model, slots=16, max_len=512, prefill_chunk=64,
-                        block_size=16, seed=SEED, device=device)
-    emit(phase="engine_setup", config="GPTConfig.small", dtype="float32",
-         layers=cfg.num_layers, hidden=cfg.hidden_size,
-         heads=cfg.num_heads, vocab=cfg.vocab_size, slots=16, max_len=512,
-         prefill_chunk=64, block_size=16, kv_blocks=eng.pool.n_blocks,
-         arena_bytes=eng.pool.nbytes(),
-         seconds=time.perf_counter() - t0)
     burst, shared = workload(cfg.vocab_size)
     sp = SamplingParams(max_tokens=64)
 
@@ -959,6 +1052,18 @@ def phase_engine(device, card):
     warm.generate_many([burst[0][:70]], SamplingParams(max_tokens=3))
     del warm
     torch.cuda.synchronize()
+    before = trace_counts()
+    t1 = time.perf_counter()
+    eng = ServingEngine(model, slots=16, max_len=512, prefill_chunk=64,
+                        block_size=16, seed=SEED, device=device)
+    emit(phase="engine_setup", config="GPTConfig.small", dtype="float32",
+         layers=cfg.num_layers, hidden=cfg.hidden_size,
+         heads=cfg.num_heads, vocab=cfg.vocab_size, slots=16, max_len=512,
+         prefill_chunk=64, block_size=16, kv_blocks=eng.pool.n_blocks,
+         arena_bytes=eng.pool.nbytes(), lanes=capture_stats(eng),
+         engine_seconds=time.perf_counter() - t1,
+         seconds=time.perf_counter() - t0)
+    check_captures("engine_setup", eng, before)
 
     # ---- the main path: counters zeroed just before, read just after --
     reset_launch_counts()
@@ -966,6 +1071,7 @@ def phase_engine(device, card):
     counts = launch_counts()
     iters = dict(eng.lane_iters)
     # ------------------------------------------------------------------
+    check_captures("engine", eng, before)
     check_launches("engine_launches", counts, iters, cfg.num_layers)
     reqs, reqs2 = run["reqs"], run["reqs2"]
     t_burst, steps, t_shared = run["t_burst"], run["steps"], run["t_shared"]
@@ -1029,9 +1135,13 @@ def phase_engine(device, card):
     phase_profile(eng, burst[:16], sp)
     # 96 tokens each, so few requests end inside the window; prompts
     # that leave them room in max_len
-    phase_profile(eng, [p for p in burst if len(p) <= 512 - 96][:16],
-                  SamplingParams(max_tokens=96),
+    decode_prompts = [p for p in burst if len(p) <= 512 - 96][:16]
+    phase_profile(eng, decode_prompts, SamplingParams(max_tokens=96),
                   phase="engine_decode_profile", steady_decode=True)
+    phase_step_split(eng, decode_prompts, SamplingParams(max_tokens=96),
+                     "engine_decode_step_split")
+    phase_step_graph_replay(eng, "GPTConfig.small fp32")
+    check_captures("engine_after_profiles", eng, before)
     return counts
 
 
@@ -1055,11 +1165,43 @@ def device_kernel_ms(prof, counts=None) -> tuple[dict, int]:
     return by_name, n_kernels
 
 
+#: a serving profile's classes: (piece of a kernel's name, class), the
+#: first match wins. Past the kernels and cuBLAS (its split-K reduce and
+#: scaling kernels included), the eager ops by their
+#: ATen kernels: sampling (argmax; ArgMaxOps before amax's MaxOps),
+#: norms (LayerNorm and RMSNorm are plain torch: mean, square, rsqrt),
+#: RoPE's concatenation, GELU/SiLU, the int8 quantize (amax, round,
+#: clamp, abs), index/scatter (embedding, index_copy_ arena writes,
+#: index_select, the tables' gather, RoPE's table lookup), casts and
+#: copies, fills, and the elementwise arithmetic the norms, RoPE, SwiGLU,
+#: the LSE combine and the quantize share
 KERNEL_CLASSES = (("paged_split_kv", "paged_attention"),
                   ("paged_tile", "paged_attention"),
                   ("flash_fwd", "flash_fwd"),
                   ("gemm", "matmul"), ("xmma", "matmul"),
-                  ("cutlass", "matmul"))
+                  ("cutlass", "matmul"), ("cublasLt", "matmul"),
+                  ("scal_kernel", "matmul"),
+                  ("ArgMax", "argmax/sampling"),
+                  ("argmax", "argmax/sampling"),
+                  ("softmax", "argmax/sampling"),
+                  ("MeanOps", "norms"), ("rsqrt", "norms"),
+                  ("pow_tensor_scalar", "norms"),
+                  ("layer_norm", "norms"),
+                  ("CatArrayBatchedCopy", "rope"),
+                  ("gelu", "activations"), ("Gelu", "activations"),
+                  ("silu", "activations"), ("Silu", "activations"),
+                  ("MaxOps", "int8 quantize"), ("round", "int8 quantize"),
+                  ("clamp", "int8 quantize"), ("abs_kernel", "int8 quantize"),
+                  ("index", "index/scatter"), ("gather", "index/scatter"),
+                  ("scatter", "index/scatter"),
+                  ("copy_kernel", "casts/copies"),
+                  ("Memcpy", "casts/copies"),
+                  ("FillFunctor", "fill"), ("Memset", "fill"),
+                  ("Functor", "elementwise arithmetic"),
+                  ("where_kernel", "elementwise arithmetic"),
+                  ("exp_kernel", "elementwise arithmetic"),
+                  ("maximum", "elementwise arithmetic"),
+                  ("minimum", "elementwise arithmetic"))
 
 
 def phase_profile(eng, prompts, sp, n_steps: int = 20,
@@ -1105,6 +1247,9 @@ def phase_profile(eng, prompts, sp, n_steps: int = 20,
         cls = next((c for key, c in classes if key in name), "other")
         by_class[cls] = by_class.get(cls, 0.0) + ms / n_steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    top_other = sorted(((n, ms) for n, ms in by_name.items()
+                        if not any(key in n for key, _ in classes)),
+                       key=lambda kv: -kv[1])[:6]
     if steady_decode:
         check(lanes["prefill"] == 0 and lanes["decode"] == n_steps,
               f"{phase}: the window was not steady decode: {lanes}")
@@ -1122,7 +1267,68 @@ def phase_profile(eng, prompts, sp, n_steps: int = 20,
          device_busy_ms_per_step=busy_ms / n_steps if busy_ms else None,
          device_idle_share=1.0 - busy_ms / wall_ms if busy_ms else None,
          device_ms_per_step_by_class=by_class,
-         top_kernels_ms_per_step=[[n[:80], ms / n_steps] for n, ms in top])
+         top_kernels_ms_per_step=[[n[:80], ms / n_steps] for n, ms in top],
+         top_other_ms_per_step=[[n[:120], ms / n_steps]
+                                for n, ms in top_other])
+
+
+def phase_step_split(eng, prompts, sp, phase: str, n_steps: int = 20):
+    """Where a steady-decode iteration's wall time goes, with no profiler
+    on: the host's staging (admission, copy-on-write, the operand
+    uploads), the decode lane's replay call (the graph launch), sampling
+    (the argmax and the ``.cpu()`` that waits for the replay to finish)
+    and the rest (per-token bookkeeping); beside it, one replay of the
+    decode lane on the device by CUDA events (its kernels and the gaps
+    between them). The bare replays re-run the last staged step, which
+    re-writes the same arena rows with the same values."""
+    import hetu_tpu_torch.serving.engine as engine_mod
+    reqs = [eng.submit(p, sp) for p in prompts]
+    while any(r.first_token_s is None for r in reqs):
+        eng.step()
+    acc = {"stage": 0.0, "replay_call": 0.0, "sample_and_sync": 0.0}
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                acc[key] += time.perf_counter() - t
+        return run
+
+    lane, sample = eng.lanes["decode"], engine_mod.sample_slots
+    eng._stage_locked = timed(eng._stage_locked, "stage")
+    lane.replay = timed(lane.replay, "replay_call")
+    engine_mod.sample_slots = timed(sample, "sample_and_sync")
+    try:
+        torch.cuda.synchronize()
+        before = dict(eng.lane_iters)
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            eng.step()
+        wall = time.perf_counter() - t0
+    finally:
+        del eng._stage_locked, lane.replay
+        engine_mod.sample_slots = sample
+    lanes = {k: eng.lane_iters[k] - before[k] for k in before}
+    check(lanes == {"decode": n_steps, "prefill": 0},
+          f"{phase}: the window was not steady decode: {lanes}")
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(10)]
+    for start, end in events:
+        start.record()
+        lane.replay()
+        end.record()
+    torch.cuda.synchronize()
+    replay_ms = sorted(s.elapsed_time(e) for s, e in events)
+    eng.run_until_drained()
+    check(all(r.status == "done" for r in reqs), f"{phase}: requests did "
+                                                 f"not finish")
+    host = {k: v / n_steps * 1e3 for k, v in acc.items()}
+    host["rest"] = wall / n_steps * 1e3 - sum(host.values())
+    emit(phase=phase, steps=n_steps, ms_per_step=wall / n_steps * 1e3,
+         host_ms_per_step=host, replay_device_ms_median=replay_ms[5],
+         replay_device_ms_min=replay_ms[0])
 
 
 # -- training ----------------------------------------------------------------
@@ -2143,8 +2349,9 @@ def fault_readings(model, engine_kw, bounds, phase, cache_dtype):
     caught = {}
     for fault in FAULTS:
         t0 = time.perf_counter()
-        eng = ServingEngine(model, **engine_kw)
         with planted(fault):
+            # built inside: the fault is in the captured lanes
+            eng = ServingEngine(model, **engine_kw)
             reqs = [eng.submit(p, SamplingParams(max_tokens=new))
                     for p in prompts]
             eng.run_until_drained()
@@ -2190,6 +2397,7 @@ def phase_llama_engine(device, card, timer):
     profile and the LM head's cast."""
     import torch.nn.functional as F
     from hetu_tpu_torch.core import BF16_FULL, autocast
+    from hetu_tpu_torch.engine import trace_counts
     from hetu_tpu_torch.models import LlamaConfig, LlamaLMHeadModel
     from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
     from hetu_tpu_torch.serving import SamplingParams, ServingEngine
@@ -2206,24 +2414,14 @@ def phase_llama_engine(device, card, timer):
                      prefill_chunk=LLAMA_CHUNK, block_size=LLAMA_BLOCK,
                      cache_dtype=torch.int8, seed=SEED, device=device,
                      record_first_logits=True)
-    eng = ServingEngine(model, **engine_kw)
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
-    emit(phase="llama_engine_setup", config="LlamaConfig.llama_7b",
-         dtype="bfloat16", cache_dtype="int8", layers=cfg.num_layers,
-         hidden=cfg.hidden_size, heads=cfg.num_heads,
-         kv_heads=cfg.num_kv_heads or cfg.num_heads,
-         intermediate=cfg.intermediate_size, vocab=cfg.vocab_size,
-         slots=LLAMA_SLOTS, max_len=LLAMA_MAX_LEN,
-         prefill_chunk=LLAMA_CHUNK, block_size=LLAMA_BLOCK,
-         kv_blocks=eng.pool.n_blocks, arena_bytes=eng.pool.nbytes(),
-         weight_bytes=weight_bytes, init_seconds=t_init,
-         seconds=time.perf_counter() - t0)
-    check(eng.pool.quantized, "the Llama engine's arena is not int8")
     burst, shared = llama_workload(cfg.vocab_size)
     new = 64
     sp = SamplingParams(max_tokens=new)
 
+    # the engines are built where they serve: their lanes are captured
+    # under the bf16 policy
     with autocast(BF16_FULL):
         warm = ServingEngine(model, slots=2, max_len=LLAMA_MAX_LEN,
                              prefill_chunk=LLAMA_CHUNK,
@@ -2232,6 +2430,23 @@ def phase_llama_engine(device, card, timer):
         warm.generate_many([burst[0][:300]], SamplingParams(max_tokens=3))
         del warm
         torch.cuda.synchronize()
+        before = trace_counts()
+        t1 = time.perf_counter()
+        eng = ServingEngine(model, **engine_kw)
+        emit(phase="llama_engine_setup", config="LlamaConfig.llama_7b",
+             dtype="bfloat16", cache_dtype="int8", layers=cfg.num_layers,
+             hidden=cfg.hidden_size, heads=cfg.num_heads,
+             kv_heads=cfg.num_kv_heads or cfg.num_heads,
+             intermediate=cfg.intermediate_size, vocab=cfg.vocab_size,
+             slots=LLAMA_SLOTS, max_len=LLAMA_MAX_LEN,
+             prefill_chunk=LLAMA_CHUNK, block_size=LLAMA_BLOCK,
+             kv_blocks=eng.pool.n_blocks, arena_bytes=eng.pool.nbytes(),
+             weight_bytes=weight_bytes, init_seconds=t_init,
+             lanes=capture_stats(eng),
+             engine_seconds=time.perf_counter() - t1,
+             seconds=time.perf_counter() - t0)
+        check(eng.pool.quantized, "the Llama engine's arena is not int8")
+        check_captures("llama_engine_setup", eng, before)
         torch.cuda.reset_peak_memory_stats()
 
         # ---- the main path: counters zeroed just before, read after ----
@@ -2240,6 +2455,7 @@ def phase_llama_engine(device, card, timer):
         counts = launch_counts()
         iters = dict(eng.lane_iters)
         # ---------------------------------------------------------------
+    check_captures("llama_engine", eng, before)
     check_launches("llama_engine_launches", counts, iters, cfg.num_layers,
                    paged="paged_attention_int8")
     reqs, reqs2 = run["reqs"], run["reqs2"]
@@ -2306,6 +2522,11 @@ def phase_llama_engine(device, card, timer):
                       SamplingParams(max_tokens=96),
                       phase="llama_engine_profile", classes=LLAMA_CLASSES,
                       steady_decode=True)
+        phase_step_split(eng, burst[:LLAMA_SLOTS],
+                         SamplingParams(max_tokens=96),
+                         "llama_engine_step_split")
+        phase_step_graph_replay(eng, "LlamaConfig.llama_7b bf16, int8 arena")
+    check_captures("llama_engine_after_profiles", eng)
 
     # ---- the LM head: fp32 logits from a per-call cast of the bf16
     # weight (JAX's numerics, what the model runs) against a held fp32
@@ -2340,6 +2561,7 @@ def phase_llama_oracle_fp32(device):
     engine, is printed beside: the oracle's first-token logits with the
     prompt in 256-token chunks against ``generate``'s one pass."""
     import dataclasses
+    from hetu_tpu_torch.engine import trace_counts
     from hetu_tpu_torch.models import LlamaConfig, LlamaLMHeadModel, generate
     from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
     from hetu_tpu_torch.serving import SamplingParams, ServingEngine
@@ -2356,13 +2578,20 @@ def phase_llama_oracle_fp32(device):
                          prefill_chunk=LLAMA_CHUNK, block_size=LLAMA_BLOCK,
                          cache_dtype=cache_dtype, seed=SEED, device=device,
                          record_first_logits=True)
+        before = trace_counts()
         eng = ServingEngine(model, **engine_kw)
+        emit(phase="llama_fp32_engine_setup", cache_dtype=tag,
+             layers=cfg.num_layers, lanes=capture_stats(eng))
         reset_launch_counts()
         run = serve(eng, burst, shared, SamplingParams(max_tokens=new))
         check_launches(f"llama_fp32_{tag}_launches", launch_counts(),
                        dict(eng.lane_iters), cfg.num_layers,
                        paged="paged_attention_int8" if int8
                        else "paged_attention")
+        check_captures(f"llama_fp32_{tag}", eng, before)
+        if not int8:
+            phase_step_graph_replay(eng, "LlamaConfig.llama_7b width, 2 "
+                                         "layers, fp32, fp32 arena")
         reqs = run["reqs"] + run["reqs2"]
         check(all(r.status == "done" for r in reqs),
               f"fp32 requests unfinished ({tag} arena)")

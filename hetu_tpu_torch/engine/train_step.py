@@ -14,6 +14,7 @@ the JAX step keeps the policy it was traced under.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable
 
 import torch
@@ -40,6 +41,34 @@ class TrainPlan:
     device: torch.device
     remat: str                      # the effective remat policy name
     policy: Policy                  # the precision policy of every step
+
+
+# -- capture accounting ------------------------------------------------------
+# The port's counterpart of JAX's trace counter: a step body that runs as
+# a captured CUDA graph (``serving/step_graph.py``) is captured once and
+# replayed after, so a counter bumped at each capture is an exact
+# re-capture count, as JAX's is a re-trace count.
+_TRACE_COUNTS: dict[str, int] = {}
+_TRACE_LOCK = threading.Lock()
+
+
+def record_trace(what: str) -> None:
+    """Count one capture of the step body ``what`` (``serving_decode``,
+    ``serving_prefill``). A replay never calls it."""
+    with _TRACE_LOCK:
+        _TRACE_COUNTS[what] = _TRACE_COUNTS.get(what, 0) + 1
+
+
+def trace_counts() -> dict[str, int]:
+    """``{step body: capture count}`` since process start (or the last
+    :func:`reset_trace_counts`), across all threads."""
+    with _TRACE_LOCK:
+        return dict(_TRACE_COUNTS)
+
+
+def reset_trace_counts() -> None:
+    with _TRACE_LOCK:
+        _TRACE_COUNTS.clear()
 
 
 def effective_remat(strategy: Strategy) -> str:

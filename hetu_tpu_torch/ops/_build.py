@@ -6,6 +6,11 @@ use into a shared library with a plain C interface, loaded with ctypes:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o <name>-<hash>.so <name>.cu
 
+A launch made while a CUDA graph is being captured runs only when the
+graph is replayed: :func:`counting_into` sends the counts of a capture
+to the graph's own tally, and :func:`add_launches` adds that tally to
+the counters at each replay.
+
 The output lives under ``build/hetu_tpu_torch/`` at the checkout root,
 named by a hash of the source and the flags, so an edited source builds
 anew and an unchanged one loads at once. :func:`build` starts one
@@ -16,6 +21,7 @@ a host without ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -39,13 +45,39 @@ _LAUNCHES: dict[str, int] = {}
 # the autograd engine runs a CUDA backward (and its launches) on a thread
 # of its own
 _COUNT_LOCK = threading.Lock()
+# the tally of the graph this thread is capturing, if any
+_CAPTURE = threading.local()
 
 
 # -- launch counters ---------------------------------------------------------
 def count_launch(name: str) -> None:
-    """Called by a wrapper right after its kernel launched."""
+    """Called by a wrapper right after its kernel launched (or, inside
+    :func:`counting_into`, was captured into a graph)."""
+    tally = getattr(_CAPTURE, "tally", None)
+    if tally is not None:
+        tally[name] = tally.get(name, 0) + 1
+        return
     with _COUNT_LOCK:
         _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def counting_into(tally: dict):
+    """Inside the block, launches counted on this thread go to ``tally``
+    (the graph being captured) instead of the counters."""
+    prev = getattr(_CAPTURE, "tally", None)
+    _CAPTURE.tally = tally
+    try:
+        yield tally
+    finally:
+        _CAPTURE.tally = prev
+
+
+def add_launches(tally: dict) -> None:
+    """One replay of a captured graph: its launches, by name."""
+    with _COUNT_LOCK:
+        for name, n in tally.items():
+            _LAUNCHES[name] = _LAUNCHES.get(name, 0) + n
 
 
 def launch_counts() -> dict:

@@ -12,9 +12,10 @@ version. There is no fallback from one to the other.
 
 The forward and backward are bound as ``torch.library`` custom ops
 (``hetu_tpu_torch::flash_fwd`` / ``flash_bwd``) with a registered
-autograd formula, so a selective-checkpoint policy can name the forward
-and keep its ``out``/``lse`` (``nn/parallel.py`` ``remat_policy``): the
-backward then never runs the forward kernel again. The differentiable
+autograd formula and fakes for tracing, so a selective-checkpoint
+policy can name the forward and keep its ``out``/``lse``
+(``nn/parallel.py`` ``remat_policy``): the backward then never runs the
+forward kernel again. The differentiable
 ``(b, s, h, d)`` entry over them, ``flash_attention`` (the counterpart of
 ``flash_attention_pallas`` :671), lives in ``ops/attention.py`` beside
 the plain attention.
@@ -389,6 +390,19 @@ def flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                causal=causal, scale=scale, q_offset=q_offset,
                                kv_offset=kv_offset, dropout_rate=dropout_rate,
                                seed=seed)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, q_seg, kv_seg, causal, scale, q_offset,
+                    kv_offset, dropout_rate, seed):
+    return torch.empty_like(q), q.new_empty(q.shape[:3],
+                                            dtype=torch.float32)
+
+
+@flash_bwd_op.register_fake
+def _flash_bwd_fake(q, k, v, q_seg, kv_seg, out, lse, do, causal, scale,
+                    q_offset, kv_offset, dropout_rate, seed):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
 def _setup_context(ctx, inputs, output):

@@ -31,10 +31,10 @@ the same names.
 
 The forward and backward are ``torch.library`` custom ops
 (``hetu_tpu_torch::fused_ce_fwd`` / ``fused_ce_bwd``) with a registered
-autograd formula, as the flash kernels are. The backward takes the
-general cotangents ``(glse, gtgt)`` of ``(lse, tgt)``, not only the
-``(g, -g)`` of the dense loss, so a vocab-parallel combine can sit above
-it.
+autograd formula and fakes for tracing, as the flash kernels are. The
+backward takes the general cotangents ``(glse, gtgt)`` of ``(lse,
+tgt)``, not only the ``(g, -g)`` of the dense loss, so a vocab-parallel
+combine can sit above it.
 """
 
 from __future__ import annotations
@@ -250,6 +250,18 @@ def fused_ce_bwd_op(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     op."""
     return (fused_ce_dh(h, w, labels, lse, glse, gtgt),
             fused_ce_dw(h, w, labels, lse, glse, gtgt))
+
+
+@fused_ce_fwd_op.register_fake
+def _fused_ce_fwd_fake(h, w, labels):
+    n = h.shape[0]
+    return (h.new_empty((n,), dtype=torch.float32),
+            h.new_empty((n,), dtype=torch.float32))
+
+
+@fused_ce_bwd_op.register_fake
+def _fused_ce_bwd_fake(h, w, labels, lse, glse, gtgt):
+    return torch.empty_like(h), torch.empty_like(w)
 
 
 def _setup_context(ctx, inputs, output):

@@ -10,7 +10,8 @@ included, plus ``row_slot``: q slot ``s`` reads table row
 tensor it launches the hand-written kernel, in the lane
 :func:`paged_lane` picks, or raises; on a CPU tensor it runs
 :func:`paged_attention_reference`. There is no fallback from one to the
-other.
+other. The kernel is the dispatcher op ``hetu_tpu_torch::paged_attention``
+(int8 lane included), with a fake for tracing (``torch.compile``).
 """
 
 from __future__ import annotations
@@ -83,27 +84,32 @@ def paged_attention_reference(q, k, v, block_tables, q_offset, *,
     fp32 and unrounded. An fp32 call is the dense oracle's formula
     unchanged."""
     if k_scale is None and q.dtype == v.dtype == torch.float32:
-        return attention_reference(q, k, v, causal=True, q_offset=q_offset,
-                                   kv_offset=0, scale=scale,
-                                   block_tables=block_tables,
-                                   return_lse=return_lse)
-    scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
-    if k_scale is None:
-        return _rounded_p_reference(
-            (q.float() * scale).to(q.dtype),
-            gather_block_rows(k, block_tables),
-            gather_block_rows(v, block_tables), q_offset, k.shape[1],
-            return_lse)
-    k = dequantize_int8(gather_block_rows(k, block_tables),
-                        gather_block_rows(k_scale, block_tables))
-    v = dequantize_int8(gather_block_rows(v, block_tables),
-                        gather_block_rows(v_scale, block_tables))
-    return attention_reference((q.float() * scale).to(q.dtype), k, v,
-                               causal=True, q_offset=q_offset, kv_offset=0,
-                               scale=1.0, return_lse=return_lse)
+        out, lse = attention_reference(q, k, v, causal=True,
+                                       q_offset=q_offset, kv_offset=0,
+                                       scale=scale,
+                                       block_tables=block_tables,
+                                       return_lse=True)
+    else:
+        scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+        qs = (q.float() * scale).to(q.dtype)
+        if k_scale is None:
+            out, lse = _rounded_p_reference(
+                qs, gather_block_rows(k, block_tables),
+                gather_block_rows(v, block_tables), q_offset, k.shape[1])
+        else:
+            k = dequantize_int8(gather_block_rows(k, block_tables),
+                                gather_block_rows(k_scale, block_tables))
+            v = dequantize_int8(gather_block_rows(v, block_tables),
+                                gather_block_rows(v_scale, block_tables))
+            out, lse = attention_reference(qs, k, v, causal=True,
+                                           q_offset=q_offset, kv_offset=0,
+                                           scale=1.0, return_lse=True)
+    # contiguous, as the kernel's outputs are
+    out, lse = out.contiguous(), lse.contiguous()
+    return (out, lse) if return_lse else out
 
 
-def _rounded_p_reference(qs, k, v, q_offset, page, return_lse):
+def _rounded_p_reference(qs, k, v, q_offset, page):
     """Causal attention of the pre-scaled ``qs`` (S, R, hq, d) over the
     gathered (S, W * page, hkv, d) ``k``/``v`` (the bf16 arena lane), p
     rounded to v's dtype before p v as the TPU kernel's online softmax
@@ -127,7 +133,7 @@ def _rounded_p_reference(qs, k, v, q_offset, page, return_lse):
     pv = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float() * w,
                       v.float().repeat_interleave(g, dim=2))
     out = (pv / torch.where(l == 0, 1.0, l)).to(qs.dtype)
-    return (out, lse) if return_lse else out
+    return out, lse
 
 
 def paged_attention(q, k, v, block_tables, q_offset, *,
@@ -160,12 +166,39 @@ def paged_attention(q, k, v, block_tables, q_offset, *,
     if (k_scale is None) != (v_scale is None):
         raise ValueError("paged_attention: pass both k_scale and v_scale "
                          "(the int8 lane) or neither")
+    scale = float(scale) if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    out, lse = paged_attention_op(q, k, v, block_tables, q_offset, k_scale,
+                                  v_scale, row_slot, scale)
+    return (out, lse) if return_lse else out
+
+
+@torch.library.custom_op("hetu_tpu_torch::paged_attention", mutates_args=())
+def paged_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       block_tables: torch.Tensor, q_offset: torch.Tensor,
+                       k_scale: Optional[torch.Tensor],
+                       v_scale: Optional[torch.Tensor],
+                       row_slot: Optional[torch.Tensor], scale: float
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`paged_attention` as a dispatcher op: ``(out, lse)``."""
+    return _paged_attention(q, k, v, block_tables, q_offset, k_scale,
+                            v_scale, row_slot, scale)
+
+
+@paged_attention_op.register_fake
+def _paged_attention_fake(q, k, v, block_tables, q_offset, k_scale, v_scale,
+                          row_slot, scale):
+    S, R, hq, _ = q.shape
+    return torch.empty_like(q), q.new_empty((S, hq, R), dtype=torch.float32)
+
+
+def _paged_attention(q, k, v, block_tables, q_offset, k_scale, v_scale,
+                     row_slot, scale):
     if q.device.type == "cpu":
         if row_slot is not None:
             block_tables = block_tables.index_select(0, row_slot)
         return paged_attention_reference(q, k, v, block_tables, q_offset,
                                          k_scale=k_scale, v_scale=v_scale,
-                                         scale=scale, return_lse=return_lse)
+                                         scale=scale, return_lse=True)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     S, R, hq, d = q.shape
@@ -224,7 +257,7 @@ def paged_attention(q, k, v, block_tables, q_offset, *,
     out = torch.empty_like(q)
     lse = torch.empty((S, hq, R), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
-        return (out, lse) if return_lse else out
+        return out, lse
     n_split = -(-W * bs // SPLIT_KEYS)
     o_part = lse_part = None
     if lane == "split_kv" and n_split > 1:
@@ -233,8 +266,6 @@ def paged_attention(q, k, v, block_tables, q_offset, *,
                              device=q.device)
         lse_part = torch.empty((S * R * hq, n_split), dtype=torch.float32,
                                device=q.device)
-    scale = scale if scale is not None else 1.0 / (d ** 0.5)
-
     def ptr(t):
         return None if t is None else _build.ptr(t)
 
@@ -251,7 +282,7 @@ def paged_attention(q, k, v, block_tables, q_offset, *,
         err = fn(ptr(q), ptr(k), ptr(v), *rest)
     _build.check(lib, err, f"paged_attention launch ({lane} lane)")
     _build.count_launch(INT8 if quant else NAME)
-    return (out, lse) if return_lse else out
+    return out, lse
 
 
 def combine_attention_lse(o1, lse1, o2, lse2):
@@ -273,4 +304,5 @@ def combine_attention_lse(o1, lse1, o2, lse2):
 
 
 __all__ = ["LANES", "NEG_INF", "SPLIT_KEYS", "combine_attention_lse",
-           "paged_attention", "paged_attention_reference", "paged_lane"]
+           "paged_attention", "paged_attention_op",
+           "paged_attention_reference", "paged_lane"]

@@ -19,13 +19,27 @@ One engine iteration (:meth:`ServingEngine.step`) is, in order:
 scales per (position, kv head): rows quantize as they are written and
 both lanes read the arena through the paged kernel's int8 lane.
 Precision follows the thread-local policy (``core.autocast``) in force
-where :meth:`step` runs, as ``hetu_tpu``'s engine follows its own.
+where :meth:`step` runs, as ``hetu_tpu``'s engine follows its own: the
+lanes are captured under the policy in force where the engine is built,
+and a step under another policy re-captures them (counted, as a JAX
+re-trace is).
 
-This is the ``spec_depth=0`` case of ``hetu_tpu``'s fused step; its
-``lax.cond``s are Python ``if``s on flags the host already knows, and the
-arena is written in place where JAX donated it. ``lane_iters`` counts the
-iterations that ran each lane (each runs every layer's attention once).
-TTFT and TPOT come from ``Request.timing``.
+This is the ``spec_depth=0`` case of ``hetu_tpu``'s fused step, which
+JAX compiles once (``hetu_tpu/serving/engine.py:527 _build_step``). Here
+each lane is a :class:`~hetu_tpu_torch.serving.step_graph.StepGraph`:
+one body over static device operands (the decode inputs, the block
+tables' device mirror ``_bt_dev``, the pack at the fixed chunk C and
+``_fin_cap`` finishing rows), captured once as a CUDA graph when the
+engine is built and replayed at every iteration that runs the lane, so
+request churn never re-captures (``engine.trace_counts()``:
+``serving_decode``, ``serving_prefill``). Per-slot tables, pack layouts
+and offsets are data, never shapes. JAX's ``lax.cond``s are Python
+``if``s on flags the host already knows: the copy-on-write copies run
+eagerly before the lanes, and a lane with no work is not replayed. The
+arena is written in place where JAX donated it. Sampling stays eager on
+the static logits; its ``.cpu()`` is the step's one sync. ``lane_iters``
+counts the iterations that ran each lane (each runs every layer's
+attention once). TTFT and TPOT come from ``Request.timing``.
 
 Not ported yet, and not accepted as arguments: speculation,
 tenancy/LoRA, the CP long-prompt lane, preemption/spill, replication,
@@ -51,6 +65,7 @@ from hetu_tpu_torch.serving.sampling import sample_slots
 from hetu_tpu_torch.serving.scheduler import (
     Request, SamplingParams, Scheduler,
 )
+from hetu_tpu_torch.serving.step_graph import StepGraph
 
 
 class ServingEngine:
@@ -63,7 +78,14 @@ class ServingEngine:
     ``cache_dtype`` is the arena's (default: the model's dtype).
     ``record_first_logits`` keeps the fp32 logits each request's first
     token was sampled from on ``Request.first_logits``; it exists only
-    for oracle checks that hold the engine against a reference."""
+    for oracle checks that hold the engine against a reference.
+
+    The constructor captures both lanes (:attr:`lanes`) under the
+    precision policy in force, so build the engine where it will serve
+    (``with core.autocast(BF16_FULL): ServingEngine(...)`` for a bf16
+    model). The graphs replay the addresses they captured: the model's
+    parameters must keep their storage while the engine lives (no
+    ``model.to(...)`` after it is built)."""
 
     def __init__(self, model, *, slots: int, max_len: int = 256,
                  prefill_chunk: int = 16, block_size: Optional[int] = None,
@@ -107,6 +129,104 @@ class ServingEngine:
         self._lock = threading.RLock()
         #: engine iterations that ran each lane
         self.lane_iters = {"decode": 0, "prefill": 0}
+        #: max requests that can FINISH prefill in one iteration (each
+        #: needs >= 1 pack token): the prefill lane's head width
+        self._fin_cap = max(1, min(S, self.prefill_chunk))
+        self._init_operands()
+        #: the step's lanes, each captured once (``StepGraph``)
+        self.lanes = self._build_lanes()
+
+    # -- the captured lanes -------------------------------------------------
+    def _init_operands(self) -> None:
+        """The lanes' static operands on the engine's device, written in
+        place every step: the decode inputs, the block tables' device
+        mirror (``_bt_dev``), the pack at the fixed chunk and the
+        finishing rows. On the card each has a pinned host twin, so a
+        step's uploads are asynchronous; an event makes the next fill
+        wait until they have landed."""
+        S, W = self.pool.slots, self.pool.table_width
+        C, R, dev = self.prefill_chunk, self._fin_cap, self.device
+        i32, i64 = torch.int32, torch.int64
+        shapes = {"dec_tok": ((S, 1), i64), "dec_pos": ((S, 1), i64),
+                  "dec_mask": ((S,), torch.bool), "bt": ((S, W), i32),
+                  "pf_tok": ((C,), i64), "pf_pos": ((C,), i64),
+                  "pf_slot": ((C,), i32), "pf_seg": ((C,), i32),
+                  "pf_hist": ((C,), i32), "pf_valid": ((C,), torch.bool),
+                  "fin_row": ((R,), i64)}
+        self._ops = {k: torch.zeros(shape, dtype=dt, device=dev)
+                     for k, (shape, dt) in shapes.items()}
+        self._bt_dev = self._ops["bt"]
+        self._pinned = {}
+        self._h2d = None
+        if dev.type == "cuda":
+            self._pinned = {k: torch.empty(t.shape, dtype=t.dtype,
+                                           pin_memory=True)
+                            for k, t in self._ops.items()}
+            self._h2d = torch.cuda.Event()
+
+    def _upload(self, **arrays) -> None:
+        """Write host arrays into the static operands of the same names."""
+        if self._h2d is not None:
+            self._h2d.synchronize()     # the last step's copies landed
+        for name, arr in arrays.items():
+            dst = self._ops[name]
+            src = torch.from_numpy(np.ascontiguousarray(arr)).view(dst.shape)
+            if self._h2d is None:
+                dst.copy_(src)
+                continue
+            stage = self._pinned[name]
+            stage.copy_(src)
+            dst.copy_(stage, non_blocking=True)
+        if self._h2d is not None:
+            self._h2d.record()
+
+    def _build_lanes(self) -> dict:
+        """The decode lane (``generation.decode`` over every slot) and the
+        prefill lane (embed, ``blocks.decode(pack=...)``, then the head on
+        the ``_fin_cap`` finishing rows), each a :class:`StepGraph`
+        captured now, with every slot masked and every pack row invalid.
+        The bodies close over the operands, the model and the arena, not
+        over the engine, so dropping the engine frees the graphs."""
+        model, caches, ops = self.model, self.pool.caches, self._ops
+
+        def decode_body():
+            logits = generation.decode(
+                model, ops["dec_tok"], ops["dec_pos"], caches,
+                slot_mask=ops["dec_mask"], block_tables=ops["bt"])
+            return (logits[:, -1],)
+
+        def decode_idle():
+            for k in ("dec_tok", "dec_pos", "dec_mask"):
+                ops[k].zero_()
+
+        def prefill_body():
+            pos = ops["pf_pos"][None]
+            h = model.embed(ops["pf_tok"][None], positions=pos)
+            h = model.blocks.decode(
+                h, caches, positions=pos, block_tables=ops["bt"],
+                pack={"row_slot": ops["pf_slot"],
+                      "segment_ids": ops["pf_seg"][None],
+                      "hist": ops["pf_hist"], "valid": ops["pf_valid"]})
+            rows = h[0].index_select(0, ops["fin_row"])
+            return (model.logits(model.hidden_norm(rows)),)
+
+        pf_keys = ("pf_tok", "pf_pos", "pf_slot", "pf_seg", "pf_hist",
+                   "pf_valid", "fin_row")
+
+        def prefill_idle():
+            for k in pf_keys:
+                ops[k].zero_()
+            ops["pf_seg"].fill_(-1)
+
+        return {
+            "decode": StepGraph(
+                "serving_decode", decode_body, idle=decode_idle,
+                operands=[ops[k] for k in ("dec_tok", "dec_pos",
+                                           "dec_mask")],
+                device=self.device),
+            "prefill": StepGraph(
+                "serving_prefill", prefill_body, idle=prefill_idle,
+                operands=[ops[k] for k in pf_keys], device=self.device)}
 
     # -- requests -----------------------------------------------------------
     def submit(self, prompt: Sequence[int],
@@ -176,12 +296,19 @@ class ServingEngine:
         one contiguous run per request, so pack order is position order
         within it; -1 on pads) and ``hist`` (the run's start offset: arena
         rows below it — earlier chunks, prefix hits — are the history
-        part, which the paged kernel reads once per run)."""
-        C = self.prefill_chunk
+        part, which the paged kernel reads once per run). The requests
+        whose prompt ends in this pack fill the first ``len(fin)`` of the
+        ``_fin_cap`` finishing rows (``fin_row``: the pack row of the
+        last prompt token; ``fin_slot``), as in ``hetu_tpu``; the rest
+        point at row 0 and are discarded (the host samples only the
+        first ``len(fin)``, so JAX's ``fin_valid`` is that count)."""
+        C, R = self.prefill_chunk, self._fin_cap
         pf = {"tokens": np.zeros(C, np.int64), "pos": np.zeros(C, np.int64),
               "slot": np.zeros(C, np.int32), "valid": np.zeros(C, bool),
               "seg": np.full(C, -1, np.int32), "hist": np.zeros(C, np.int32),
-              "fin_row": [], "fin": [], "fills": [], "used": 0}
+              "fin_row": np.zeros(R, np.int64),
+              "fin_slot": np.zeros(R, np.int64), "fin": [], "fills": [],
+              "used": 0}
         used = 0
         for ent in self._prefilling:
             if used >= C:
@@ -196,21 +323,26 @@ class ServingEngine:
             pf["seg"][sl] = ent["slot"]
             pf["hist"][sl] = off
             if off + n >= len(req.prompt):
-                pf["fin_row"].append(used + n - 1)
+                i = len(pf["fin"])
+                pf["fin_row"][i] = used + n - 1
+                pf["fin_slot"][i] = ent["slot"]
                 pf["fin"].append(ent)
             pf["fills"].append((ent, n))
             used += n
         pf["used"] = used
         return pf
 
-    def _step_locked(self) -> bool:
-        t0 = time.monotonic()
+    def _stage_locked(self):
+        """The step up to its lanes: admission, the copy-on-write copies
+        and the uploads of the lanes' operands. Returns ``(active slots,
+        pack)``, or None when there is nothing to do. Staging again
+        without running the lanes stages the same work (a decode lane
+        re-writes the same rows, a pack re-packs the same tokens)."""
         cows = self._admit_locked()
         active = np.nonzero(self._active)[0]
         if not self._prefilling and active.size == 0 and not cows:
-            return False
+            return None
         pf = self._build_pack()
-        model, dev = self.model, self.device
         caches = self.pool.caches
 
         # copy-on-write tails of partial prefix hits land before any write
@@ -218,40 +350,42 @@ class ServingEngine:
         for src, dst in cows:
             for c in caches:
                 c[:, dst].copy_(c[:, src])
-        bt = torch.from_numpy(self._bt).to(dev)
+        feed = {"bt": self._bt}
+        if active.size:
+            feed.update(dec_tok=self._last_tok, dec_pos=self._pos,
+                        dec_mask=self._active)
+        if pf["used"]:
+            feed.update(pf_tok=pf["tokens"], pf_pos=pf["pos"],
+                        pf_slot=pf["slot"], pf_seg=pf["seg"],
+                        pf_hist=pf["hist"], pf_valid=pf["valid"],
+                        fin_row=pf["fin_row"])
+        self._upload(**feed)
+        return active, pf
 
+    def _step_locked(self) -> bool:
+        t0 = time.monotonic()
+        staged = self._stage_locked()
+        if staged is None:
+            return False
+        active, pf = staged
         dec_toks = None
         if active.size:
-            logits = generation.decode(
-                model, torch.from_numpy(self._last_tok[:, None]).to(dev),
-                torch.from_numpy(self._pos[:, None]).to(dev), caches,
-                slot_mask=torch.from_numpy(self._active).to(dev),
-                block_tables=bt)
+            logits, = self.lanes["decode"].replay()
             temp = np.where(self._active, self._temp, 0.0)
-            dec_toks = sample_slots(logits[:, -1], temp, self._topk,
-                                    self._topp, self._gen)
+            dec_toks = sample_slots(logits, temp, self._topk, self._topp,
+                                    self._gen)
             self.lane_iters["decode"] += 1
 
-        first_toks = None
+        first_toks = lg = None
         if pf["used"]:
-            def up(a):
-                return torch.from_numpy(a).to(dev)
-            pos = up(pf["pos"])[None]
-            h = model.embed(up(pf["tokens"])[None], positions=pos)
-            h = model.blocks.decode(
-                h, caches, positions=pos, block_tables=bt,
-                pack={"row_slot": up(pf["slot"]),
-                      "segment_ids": up(pf["seg"])[None],
-                      "hist": up(pf["hist"]), "valid": up(pf["valid"])})
+            lg, = self.lanes["prefill"].replay()
             if pf["fin"]:
                 # first tokens only for the requests whose prompt ends in
-                # this pack: the head runs on their last rows alone
-                rows = up(np.asarray(pf["fin_row"], np.int64))
-                lg = model.logits(model.hidden_norm(h[0].index_select(0,
-                                                                      rows)))
-                fs = [ent["slot"] for ent in pf["fin"]]
-                first_toks = sample_slots(lg, self._temp[fs], self._topk[fs],
-                                          self._topp[fs],
+                # this pack: the head ran on the finishing rows alone
+                n = len(pf["fin"])
+                fs = pf["fin_slot"][:n]
+                first_toks = sample_slots(lg[:n], self._temp[fs],
+                                          self._topk[fs], self._topp[fs],
                                           [self._gen[s] for s in fs])
             self.lane_iters["prefill"] += 1
 
@@ -271,7 +405,8 @@ class ServingEngine:
             # the finished prompt's whole blocks enter the radix cache
             self.prefix_cache.insert(req.prompt.tolist(), self._bt[slot])
             if self.record_first_logits:
-                req.first_logits = lg[i]
+                # a copy: the next replay overwrites the lane's output
+                req.first_logits = lg[i].clone()
             self._on_token(slot, int(first_toks[i]), now)
             self._prefilling.remove(ent)
         return True
