@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``hetu_tpu_torch``) on one NVIDIA
 GPU: builds the hand-written kernels, holds each against its plain
 PyTorch version, serves GPT-2 small through ``ServingEngine``, trains
-it with ``build_train_step``, and serves Llama-7B from the int8 KV arena.
+it with ``build_train_step``, serves Llama-7B from the int8 KV arena,
+and trains Llama at 7B width through ``Trainer`` and ``SFTTrainer``.
 
 Run from the repository root, on a machine with one CUDA card::
 
@@ -155,9 +156,41 @@ Phases, each printing one JSON line:
    (its prompt in 256-token chunks against one pass), and the planted
    faults, which those bounds must fail; each engine's lanes captured
    once, and ``step_graph_replay`` on the fp32 arena.
-14. summary -- one ``{"kernels": [...]}`` line (each kernel with its
-   lanes), the card's name and power limit, and last ``{"ok": true,
-   "device": {...}}``.
+14. llama_train_oracle -- one fp32 step of ``LlamaConfig.llama_7b``'s
+   width at 1 layer (vocab 32,000), kernels on the card against the
+   plain path on the CPU, on one packed row of 256 tokens holding three
+   documents (positions restart at each): the bounds of ``train_oracle``
+   and exactly one launch of each flash kernel.
+15. llama_train -- the repo's Llama training benchmark
+   (``workloads/bench_suite.py:139-167``, config 3), its measured half:
+   Llama-7B width at 2 layers, seq 2048, batch 4, ``Strategy(remat=
+   "selective", unroll=True)``, ``adamw(1e-4)``, through
+   ``Trainer.train`` with ``precision="bf16"`` over the first batch of
+   ``build_data_loader(SyntheticLMDataset(32000, seed=0),
+   seq_len=2048, batch_rows=4, pack=True)``, repeated: 3 warm-up and 10
+   timed steps. The loss must fall; launches exactly 2 a step of each
+   flash kernel (counters zeroed just before the timed steps). Step ms,
+   tokens/s, MFU against 989 TFLOP/s, peak memory.
+16. llama_train_profile -- 3 steps under ``torch.profiler``: device ms a
+   step by class (``TRAIN_CLASSES``: the kernels, matmul, AdamW's
+   ``_foreach_*``, casts/copies, norms, the grad norm, other reductions,
+   index/scatter, fill, elementwise), the idle share, and ``lane`` lines
+   that put #2-#4 under their tensor-core symbols.
+17. llama_train kernels -- #2-#4 at the batch that ran ((4, 32, 2048,
+   128) bf16, causal, its packed segment ids), with and without dropout
+   0.1, against their plain versions (2e-2) and rerun bit-equal; then
+   timed as in ``train_kernels``, with the bound from the batch's live
+   (q, k) pairs and SDPA (``is_causal``: forward, backward, both) as the
+   library yardstick.
+18. llama_sft -- ``SFTTrainer.fit`` from ``llama_train``'s weights with
+   ``resid_pdrop=0.1`` and ``chain(clip_by_global_norm(1.0), adamw(5e-4,
+   weight_decay=0.01))`` (``examples/sft.py``), 10 steps over four
+   (prompt, response) pairs of 128-512 / 128-1,536 tokens, repeated, at
+   seq 2048, batch 4, ``shuffle=False``: the response-only loss must
+   fall, launches exactly 2 a step; the grad norms before the clip.
+19. summary -- one ``{"kernels": [...]}`` line (each kernel with its
+   lanes and its launches by path), the card's name and power limit,
+   and last ``{"ok": true, "device": {...}}``.
 
 Any failure exits nonzero before the ``ok`` line. Without a CUDA device,
 or without the ``hetu_tpu_torch`` package beside this file, it exits
@@ -1358,29 +1391,27 @@ def fused_loss():
             os.environ["HETU_LM_LOSS_IMPL"] = prev
 
 
-def train_oracle(cfg, device, fused: bool = False):
-    """One fp32 step, kernels on the card (selective remat) against the
-    plain path on the CPU (no remat), same weights and batch; ``fused``:
-    under ``HETU_LM_LOSS_IMPL=fused`` (the caller sets it), with one
-    launch of each fused CE kernel expected. Bounds:
-    |loss difference| <= 1e-4; each grad's max abs difference <= 1e-3 of
-    its own max |grad| plus 1e-5 of the largest grad of the model (sums
-    run in other orders; a grad that is zero in exact arithmetic, such
-    as the key bias's, is summation noise on both sides)."""
-    from hetu_tpu_torch.models import GPTLMHeadModel
+def hold_step(gpu, cpu, batch, device):
+    """One fp32 loss and backward of ``gpu`` with the kernels on the card
+    (selective remat) against ``cpu`` on the CPU (plain path, no remat),
+    same weights, on ``batch`` (CPU tensors); the launch counters are
+    zeroed just before the card's step and read just after. Returns the
+    reading; bounds: |loss difference| <= 1e-4; each grad's max abs
+    difference <= 1e-3 of its own max |grad| plus 1e-5 of the largest
+    grad of the model (sums run in other orders; a grad that is zero in
+    exact arithmetic, such as the key bias's, is summation noise on both
+    sides)."""
     from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
-    t0 = time.perf_counter()
-    gpu = GPTLMHeadModel(cfg, device=device, seed=SEED + 1)
-    cpu = GPTLMHeadModel(cfg, device="cpu", seed=SEED + 1)
-    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
-    batch = train_batch(cfg.vocab_size, 1, "cpu", seed=SEED + 1)
+    x, y = batch["input_ids"], batch["labels"]
+    rest = {k: v for k, v in batch.items() if k not in ("input_ids",
+                                                        "labels")}
     reset_launch_counts()
-    loss_gpu = gpu.loss(batch["input_ids"].to(device),
-                        batch["labels"].to(device), remat="selective")
+    loss_gpu = gpu.loss(x.to(device), y.to(device), remat="selective",
+                        **{k: v.to(device) for k, v in rest.items()})
     loss_gpu.backward()
     torch.cuda.synchronize()
     counts = launches_of(launch_counts(), FLASH + FUSED)
-    loss_cpu = cpu.loss(batch["input_ids"], batch["labels"])
+    loss_cpu = cpu.loss(x, y, **rest)
     loss_cpu.backward()
     loss_gpu, loss_cpu = float(loss_gpu.detach()), float(loss_cpu.detach())
     want = dict(cpu.named_parameters())
@@ -1392,20 +1423,41 @@ def train_oracle(cfg, device, fused: bool = False):
         bound = 1e-3 * float(ref.abs().max()) + 1e-5 * gmax
         if err / bound > worst:
             worst, worst_name = err / bound, name
-    dloss = abs(loss_gpu - loss_cpu)
-    L = cfg.num_layers
-    emit(phase="train_fused_oracle" if fused else "train_oracle",
-         dtype="float32", batch=1, seq=TRAIN_SEQ,
-         loss_gpu=loss_gpu, loss_cpu=loss_cpu,
-         loss_abs_diff=dloss, worst_grad_err_over_bound=worst,
-         worst_grad=worst_name, largest_grad=gmax, launches=counts,
+    return dict(loss_gpu=loss_gpu, loss_cpu=loss_cpu,
+                loss_abs_diff=abs(loss_gpu - loss_cpu),
+                worst_grad_err_over_bound=worst, worst_grad=worst_name,
+                largest_grad=gmax, launches=counts)
+
+
+def check_step_held(phase, reading, want_launches) -> None:
+    check(reading["loss_abs_diff"] <= 1e-4,
+          f"{phase}: loss differs by {reading['loss_abs_diff']}")
+    check(reading["worst_grad_err_over_bound"] <= 1.0,
+          f"{phase}: grad {reading['worst_grad']} off by "
+          f"{reading['worst_grad_err_over_bound']} x its bound")
+    check(reading["launches"] == want_launches,
+          f"{phase}: launches {reading['launches']}, expected "
+          f"{want_launches}")
+
+
+def train_oracle(cfg, device, fused: bool = False):
+    """One fp32 step, kernels on the card against the plain path on the
+    CPU (``hold_step``), at batch 1; ``fused``: under
+    ``HETU_LM_LOSS_IMPL=fused`` (the caller sets it), with one launch of
+    each fused CE kernel expected."""
+    from hetu_tpu_torch.models import GPTLMHeadModel
+    t0 = time.perf_counter()
+    gpu = GPTLMHeadModel(cfg, device=device, seed=SEED + 1)
+    cpu = GPTLMHeadModel(cfg, device="cpu", seed=SEED + 1)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    batch = train_batch(cfg.vocab_size, 1, "cpu", seed=SEED + 1)
+    reading = hold_step(gpu, cpu, batch, device)
+    phase = "train_fused_oracle" if fused else "train_oracle"
+    emit(phase=phase, dtype="float32", batch=1, seq=TRAIN_SEQ, **reading,
          seconds=time.perf_counter() - t0)
-    check(dloss <= 1e-4, f"train oracle: loss differs by {dloss}")
-    check(worst <= 1.0, f"train oracle: grad {worst_name} off by "
-                        f"{worst} x its bound")
-    want = {**{k: L for k in FLASH}, **{k: int(fused) for k in FUSED}}
-    check(counts == want, f"train oracle: launches {counts}, expected "
-                          f"{want}")
+    L = cfg.num_layers
+    check_step_held(phase, reading, {**{k: L for k in FLASH},
+                                     **{k: int(fused) for k in FUSED}})
 
 
 def train_rung(model, opt, plan, b, device):
@@ -1508,6 +1560,14 @@ def phase_train(device, card):
     return run
 
 
+#: a training profile's classes: (piece of a kernel's name, class), the
+#: first match wins: the kernels, cuBLAS, then the eager ops by their ATen
+#: kernels -- AdamW's multi-tensor ``_foreach_*`` updates, casts and
+#: copies, the norms' statistics (mean, square, rsqrt), the grad norm,
+#: other reductions (sums in the backward, the CE's log-sum-exp),
+#: index/scatter (embedding and its backward, the CE's target gather,
+#: RoPE's table lookup), fills, and the elementwise arithmetic (norms,
+#: RoPE, activations, dropout, residual adds and their backward)
 TRAIN_CLASSES = (("flash_fwd", "flash_fwd"),
                  ("flash_bwd_dq", "flash_bwd_dq"),
                  ("flash_bwd_dkv", "flash_bwd_dkv"),
@@ -1516,7 +1576,20 @@ TRAIN_CLASSES = (("flash_fwd", "flash_fwd"),
                  ("fused_ce_dw", "fused_ce_dw"),
                  ("gemm", "matmul"), ("xmma", "matmul"),
                  ("cutlass", "matmul"), ("nvjet", "matmul"),
-                 ("sm90_", "matmul"))
+                 ("sm90_", "matmul"),
+                 ("multi_tensor_apply", "adamw _foreach"),
+                 ("copy_kernel", "casts/copies"), ("Memcpy", "casts/copies"),
+                 ("CatArrayBatchedCopy", "casts/copies"),
+                 ("MeanOps", "norms"), ("rsqrt", "norms"),
+                 ("pow_tensor_scalar", "norms"),
+                 ("NormTwoOps", "grad norm"),
+                 ("reduce_kernel", "other reductions"),
+                 ("index", "index/scatter"), ("gather", "index/scatter"),
+                 ("scatter", "index/scatter"),
+                 ("embedding", "index/scatter"),
+                 ("adix", "index/scatter"),
+                 ("FillFunctor", "fill"), ("Memset", "fill"),
+                 ("elementwise_kernel", "elementwise"))
 
 
 def phase_train_profile(run, n_steps: int = 3, phase: str = "train_profile"):
@@ -2631,6 +2704,313 @@ def phase_llama_oracle_fp32(device):
     torch.cuda.empty_cache()
 
 
+# -- Llama training ----------------------------------------------------------
+
+#: the repo's Llama training benchmark (``workloads/bench_suite.py:139-167``,
+#: config 3), its measured half: Llama-7B width, 2 layers, seq 2048,
+#: batch 4, selective remat, AdamW(1e-4)
+LLAMA_TRAIN_LAYERS = 2
+LLAMA_TRAIN_SEQ = 2048
+LLAMA_TRAIN_BATCH = 4
+#: the SFT phase's (prompt, response) lengths (``examples/sft.py``'s flow
+#: at Llama's seq): prompts 128-512, responses 128-1536 tokens
+SFT_PAIRS = ((512, 1536), (128, 128), (300, 900), (200, 1400))
+
+
+def llama_train_cfg(**kw):
+    import dataclasses
+    from hetu_tpu_torch.models import LlamaConfig
+    kw = dict(dict(num_layers=LLAMA_TRAIN_LAYERS,
+                   max_positions=LLAMA_TRAIN_SEQ), **kw)
+    return dataclasses.replace(LlamaConfig.llama_7b(), **kw)
+
+
+def llama_train_batch() -> dict:
+    """The first batch of ``build_data_loader(SyntheticLMDataset(32000,
+    seed=0), seq_len=2048, batch_rows=4, pack=True)`` (numpy arrays)."""
+    from hetu_tpu_torch.data import SyntheticLMDataset, build_data_loader
+    return next(build_data_loader(SyntheticLMDataset(32000, seed=0),
+                                  seq_len=LLAMA_TRAIN_SEQ,
+                                  batch_rows=LLAMA_TRAIN_BATCH, pack=True))
+
+
+def phase_llama_train_oracle(device):
+    """One fp32 step of Llama-7B's width (1 layer, vocab 32,000) with the
+    kernels on the card against the plain path on the CPU
+    (``hold_step``): one packed row of 256 tokens holding three
+    documents and a pad tail, positions restarting at each. Launches:
+    exactly one of each flash kernel."""
+    from hetu_tpu_torch.data import pack_sequences, to_tensors
+    from hetu_tpu_torch.models import LlamaLMHeadModel
+    t0 = time.perf_counter()
+    cfg = llama_train_cfg(num_layers=1)
+    gpu = LlamaLMHeadModel(cfg, device=device, seed=SEED + 1)
+    cpu = LlamaLMHeadModel(cfg, device="cpu", seed=SEED + 1)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    rng = np.random.default_rng(SEED + 1)
+    docs = [rng.integers(0, cfg.vocab_size, n) for n in (100, 80, 60)]
+    batch = to_tensors(pack_sequences(docs, 256).as_batch())
+    reading = hold_step(gpu, cpu, batch, device)
+    emit(phase="llama_train_oracle", dtype="float32", layers=1, batch=1,
+         seq=256, documents=len(docs), **reading,
+         seconds=time.perf_counter() - t0)
+    check_step_held("llama_train_oracle", reading,
+                    {**{k: 1 for k in FLASH}, **{k: 0 for k in FUSED}})
+    del gpu, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def timed_fit(trainer, run, steps: int) -> dict:
+    """``steps`` calls' worth of ``run(steps)`` (a ``Trainer.train`` or
+    ``SFTTrainer.fit``), with the launch counters zeroed just before and
+    read just after; the wall time ends at a sync."""
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    records = run(steps)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    return dict(records=records, dt=dt, counts=launches_of(launch_counts()))
+
+
+def phase_llama_train(device, card):
+    """``Trainer.train`` over the first packed batch, repeated: 3 warm-up
+    and 10 timed steps, bf16 compute over fp32 params. The loss must
+    fall; each flash kernel must launch exactly twice a step."""
+    import itertools
+    from hetu_tpu_torch import optim
+    from hetu_tpu_torch.engine import Trainer, TrainerConfig
+    from hetu_tpu_torch.engine.trainer import flops_per_token
+    from hetu_tpu_torch.models import LlamaLMHeadModel
+    from hetu_tpu_torch.parallel import Strategy
+
+    cfg = llama_train_cfg()
+    model = LlamaLMHeadModel(cfg, device=device, seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    # bench.py:133: 6N matmul flops per token + 6 L H s for attention
+    fpt = flops_per_token(model, LLAMA_TRAIN_SEQ)
+    trainer = Trainer(model, optim.adamw(1e-4),
+                      Strategy(remat="selective", unroll=True),
+                      config=TrainerConfig(precision="bf16", log_every=1,
+                                           peak_flops=PEAK_FLOPS[
+                                               torch.bfloat16]),
+                      device=device)
+    batch = llama_train_batch()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm = trainer.train(itertools.repeat(batch), steps=3)
+    warm_s = time.perf_counter() - t0
+    trainer.config.log_every = 10         # one device read, at the end
+    run = timed_fit(trainer, lambda n: trainer.train(itertools.repeat(batch),
+                                                     steps=n), 10)
+    rec = run["records"][-1]
+    L = cfg.num_layers
+    want = {k: 10 * L for k in FLASH}
+    tokens = LLAMA_TRAIN_BATCH * LLAMA_TRAIN_SEQ
+    losses = [r["loss"] for r in warm] + [rec["loss"]]
+    emit(phase="llama_train", card=card,
+         config="LlamaConfig.llama_7b width, 2 layers", params=n_params,
+         seq=LLAMA_TRAIN_SEQ, batch=LLAMA_TRAIN_BATCH,
+         real_tokens=int((batch["labels"] != -100).sum()),
+         documents=int(sum(len(np.unique(r)) - 1
+                           for r in batch["segment_ids"])),
+         policy="BF16_COMPUTE", remat="selective",
+         step_ms=run["dt"] * 1e3, tokens_per_s=tokens / run["dt"],
+         mfu=tokens / run["dt"] * fpt / PEAK_FLOPS[torch.bfloat16],
+         flops_per_token=fpt, trainer_record=rec,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         warmup_seconds=warm_s, losses_steps_1_2_3_13=losses,
+         launches=run["counts"], expected=want)
+    check(all(np.isfinite(losses)), "non-finite Llama training loss")
+    check(losses[-1] < losses[0], f"Llama loss did not fall: {losses}")
+    check(run["counts"] == want, f"llama_train launches {run['counts']}, "
+                                 f"expected {want}")
+    return dict(trainer=trainer, batch=batch, counts=run["counts"])
+
+
+def phase_llama_train_kernels(device, timer, ops, batch, results):
+    """#2-#4 at the batch that ran: q (4, 32, 2048, 128) bf16, causal,
+    its packed segment ids; first against their plain versions (and with
+    dropout 0.1), each rerun bit-equal, then timed as
+    ``phase_train_kernels`` times them. The bound counts this batch's
+    live (q, k) pairs; the library yardstick is SDPA (``is_causal``, no
+    segments)."""
+    import torch.nn.functional as F
+    gens = Generators(device, SEED + 3)
+    seg = torch.from_numpy(batch["segment_ids"]).to(device)
+    shape = dict(b=LLAMA_TRAIN_BATCH, hq=32, hkv=32, s=LLAMA_TRAIN_SEQ,
+                 d=128, seg=None)
+    dtype = torch.bfloat16
+    scale = 128 ** -0.5
+    errs = {n: {dtype: 0.0} for n in ("flash_bwd_dq", "flash_bwd_dkv")}
+    fwd_err = 0.0
+    # the dropout case first: the no-dropout case's tensors stay for the
+    # times
+    for case, rate in (("llama_train_dropout", 0.1), ("llama_train", 0.0)):
+        q, k, v, _ = flash_case(gens, device, dtype, **shape)
+        do, out, lse, args = bwd_inputs(gens, q, True, scale, 0, 0, rate,
+                                        seg, ops, k, v)
+        got = ops.flash_attention_fwd(q, k, v, seg, seg, **args)
+        again = ops.flash_attention_fwd(q, k, v, seg, seg, **args)
+        torch.cuda.synchronize()
+        err = max(max_err(got[0], out), max_err(got[1], lse))
+        emit(phase="kernel", kernel="flash_fwd", case=case,
+             dtype="bfloat16", shape=list(q.shape), max_abs_err=err,
+             bound=TOL[dtype], ok=err <= TOL[dtype],
+             rerun_bit_equal=check_rerun(case, got, again, "flash_fwd"))
+        check(err <= TOL[dtype], f"flash_fwd {case}: {err}")
+        fwd_err = max(fwd_err, err)
+        del got, again
+        got = ops.flash_attention_bwd(q, k, v, seg, seg, out, lse, do,
+                                      **args)
+        again = ops.flash_attention_bwd(q, k, v, seg, seg, out, lse, do,
+                                        **args)
+        check_rerun(case, got, again, "flash backward")
+        del again
+        want = ops.flash_attention_bwd_reference(q, k, v, seg, seg, out,
+                                                 lse, do, **args)
+        check_bwd("flash backward", case, dtype, list(q.shape), got, want,
+                  errs)
+        del got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    results["flash_fwd"]["max_abs_err_bf16"] = max(
+        results["flash_fwd"]["max_abs_err_bf16"], fwd_err)
+    for kernel in errs:
+        results[kernel]["max_abs_err_bf16"] = max(
+            results[kernel]["max_abs_err_bf16"], errs[kernel][dtype])
+
+    # times, on the no-dropout case's q/k/v/dO/out/lse
+    fwd = lambda: ops.flash_attention_fwd(q, k, v, seg, seg,  # noqa: E731
+                                          causal=True, scale=scale)
+    bwd = lambda: ops.flash_attention_bwd(  # noqa: E731
+        q, k, v, seg, seg, out, lse, do, **args)
+    reps, recorded = [], []
+    for _ in range(3):
+        f_ms, f_n = timer.per_kernel(fwd, ["flash_fwd_tc_kernel"])
+        b_ms, b_n = timer.per_kernel(bwd, ["flash_bwd_dq_tc_kernel",
+                                           "flash_bwd_dkv_tc_kernel"])
+        reps.append({**f_ms, **b_ms})
+        recorded.append({**f_n, **b_n})
+    card = nvidia_smi()
+    spread = {key: sorted(r[key] for r in reps) for key in reps[0]}
+    for key, ms in spread.items():
+        emit(phase="kernel_spread", kernel=key, case="llama_train",
+             dtype="bfloat16", card=card, ms_min=ms[0], ms_median=ms[1],
+             ms_max=ms[2], runs=[r[key] for r in reps],
+             launches_recorded=[n[key] for n in recorded], launches=10)
+    delta = (out.float() * do.float()).sum(-1)
+    emit(phase="kernel_events", case="llama_train", dtype="bfloat16",
+         card=card, fwd_ms=timer(fwd), bwd_ms=timer(
+             lambda: ops.flash_attention_bwd(q, k, v, seg, seg, out, lse,
+                                             do, delta=delta, **args)),
+         profile_fwd_ms=spread["flash_fwd_tc_kernel"][1],
+         profile_bwd_ms=spread["flash_bwd_dq_tc_kernel"][1]
+         + spread["flash_bwd_dkv_tc_kernel"][1])
+    del delta
+    plain_fwd = timer(lambda: ops.flash_attention_fwd_reference(
+        q, k, v, seg, seg, causal=True, scale=scale), iters=3)
+    plain_bwd = timer(lambda: ops.flash_attention_bwd_reference(
+        q, k, v, seg, seg, out, lse, do, **args), iters=3)
+    lib_fwd = timer(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=scale))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                             scale=scale)
+    lib_bwd = timer(lambda: torch.autograd.grad(
+        lib_out, (qg, kg, vg), do, retain_graph=True))
+    lib_fwd_bwd = timer(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                       scale=scale), (qg, kg, vg), do))
+    del lib_out
+    nbytes, flops = flash_work(q, k, seg, True)
+    (dq_b, dq_f), (dkv_b, dkv_f) = bwd_work(q, k, seg, True)
+    for kernel, key, plain, lib, nb, fl in (
+            ("flash_fwd", "flash_fwd_tc_kernel", plain_fwd, lib_fwd, nbytes,
+             flops),
+            ("flash_bwd_dq", "flash_bwd_dq_tc_kernel", plain_bwd, lib_bwd,
+             dq_b, dq_f),
+            ("flash_bwd_dkv", "flash_bwd_dkv_tc_kernel", plain_bwd, lib_bwd,
+             dkv_b, dkv_f)):
+        bound_ms, bound_by = bound(nb, fl, q.dtype)
+        t = dict(ms=spread[key][1], ms_spread=spread[key], plain_ms=plain,
+                 library_ms=lib, library_fwd_bwd_ms=lib_fwd_bwd,
+                 bound_ms=bound_ms, bound_by=bound_by, bytes=nb, flops=fl)
+        emit(phase="kernel_time", kernel=kernel, case="llama_train",
+             dtype="bfloat16", shape=list(q.shape), card=card, **t)
+        results[kernel].update({f"llama_train_{k}": v for k, v in t.items()})
+    emit(phase="kernel_note", note="llama_train: the bound counts the "
+         "batch's live (q, k) pairs (causal within each segment, the pad "
+         "tail its own segment); library = SDPA is_causal without "
+         "segments: forward (library_ms of flash_fwd), backward via "
+         "torch.autograd.grad (library_ms of dq, dk/dv), forward and "
+         "backward (library_fwd_bwd_ms)")
+    del q, k, v, do, out, lse, qg, kg, vg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def sft_pairs(vocab: int, seed: int = SEED):
+    """``SFT_PAIRS``' four (prompt, response) pairs, random tokens from
+    ``seed``, repeated to ten batches of four."""
+    rng = np.random.default_rng(seed)
+    pairs = [(rng.integers(1, vocab, p), rng.integers(1, vocab, r))
+             for p, r in SFT_PAIRS]
+    pairs = pairs * 10
+    return [p for p, _ in pairs], [r for _, r in pairs]
+
+
+def phase_llama_sft(device, card, pretrained):
+    """``SFTTrainer.fit`` from the pretrained weights of ``llama_train``
+    with ``resid_pdrop=0.1`` and ``chain(clip_by_global_norm(1.0),
+    adamw(5e-4, weight_decay=0.01))`` (``examples/sft.py``): 10 steps at
+    seq 2048, batch 4, ``shuffle=False``. The response-only loss must
+    fall; each flash kernel must launch exactly twice a step."""
+    from hetu_tpu_torch import optim
+    from hetu_tpu_torch.engine import SFTTrainer, TrainerConfig
+    from hetu_tpu_torch.models import LlamaLMHeadModel
+    from hetu_tpu_torch.parallel import Strategy
+
+    cfg = llama_train_cfg(resid_pdrop=0.1)
+    model = LlamaLMHeadModel(cfg, device=device, seed=SEED)
+    model.load_state_dict(pretrained)
+    opt = optim.chain(optim.clip_by_global_norm(1.0),
+                      optim.adamw(5e-4, weight_decay=0.01))
+    trainer = SFTTrainer(model, opt, Strategy(remat="selective",
+                                              unroll=True),
+                         config=TrainerConfig(precision="bf16", log_every=1,
+                                              peak_flops=PEAK_FLOPS[
+                                                  torch.bfloat16]),
+                         device=device)
+    prompts, responses = sft_pairs(cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    run = timed_fit(trainer, lambda n: trainer.fit(
+        prompts, responses, seq_len=LLAMA_TRAIN_SEQ,
+        batch_size=LLAMA_TRAIN_BATCH, steps=n, shuffle=False), 10)
+    losses = [r["loss"] for r in run["records"]]
+    L = cfg.num_layers
+    want = {k: 10 * L for k in FLASH}
+    emit(phase="llama_sft", card=card,
+         config="LlamaConfig.llama_7b width, 2 layers, resid_pdrop 0.1",
+         seq=LLAMA_TRAIN_SEQ, batch=LLAMA_TRAIN_BATCH,
+         pairs=[list(p) for p in SFT_PAIRS],
+         optimizer="chain(clip_by_global_norm(1.0), adamw(5e-4, wd 0.01))",
+         step_ms=run["dt"] * 1e3, losses=losses,
+         grad_norms_before_clip=[r["grad_norm"] for r in run["records"]],
+         tokens_per_s=[r["tokens_per_sec"] for r in run["records"]][-1],
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         launches=run["counts"], expected=want)
+    check(all(np.isfinite(losses)), "non-finite SFT loss")
+    check(losses[-1] < losses[0], f"SFT loss did not fall: {losses}")
+    check(run["counts"] == want, f"llama_sft launches {run['counts']}, "
+                                 f"expected {want}")
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run["counts"]
+
+
 LLAMA_CLASSES = KERNEL_CLASSES + (("nvjet", "matmul"),)
 
 
@@ -2645,6 +3025,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, here)
     from hetu_tpu_torch import ops
+    from hetu_tpu_torch.data import to_tensors
+    from hetu_tpu_torch.engine import build_train_step
     from hetu_tpu_torch.ops import _build
 
     device = torch.device("cuda", 0)
@@ -2696,6 +3078,22 @@ def main() -> int:
     phase_llama_kernels(device, timer, ops, kernels)
     paths["llama_engine"] = phase_llama_engine(device, smi, timer)
     phase_llama_oracle_fp32(device)
+    phase_llama_train_oracle(device)
+    llama = phase_llama_train(device, smi)
+    paths["llama_train"] = llama["counts"]
+    trainer = llama["trainer"]
+    phase_train_profile(dict(
+        state=trainer.state, batch_size=LLAMA_TRAIN_BATCH,
+        step=build_train_step(trainer.model, trainer.opt, trainer.plan),
+        batch=to_tensors(llama["batch"], device)),
+        phase="llama_train_profile")
+    pretrained = trainer.model.state_dict()
+    del trainer, llama["trainer"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_llama_train_kernels(device, timer, ops, llama["batch"], kernels)
+    paths["llama_sft"] = phase_llama_sft(device, smi, pretrained)
+    del pretrained
     del timer
     for name, entry in kernels.items():
         entry["launches_by_path"] = {p: c.get(name, 0)

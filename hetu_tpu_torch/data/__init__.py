@@ -1,0 +1,15 @@
+"""Data pipeline (counterpart of ``hetu_tpu/data``): datasets, packing,
+batch samplers, the loader and the device prefetcher. Tokenizers, seq-len
+buckets and the Hydraulis dispatcher are not ported yet."""
+
+from hetu_tpu_torch.data.dataset import JsonDataset, SyntheticLMDataset
+from hetu_tpu_torch.data.loader import (
+    build_data_loader, sample_batches, token_batches,
+)
+from hetu_tpu_torch.data.packing import PackedBatch, pack_sequences, \
+    pad_batch
+from hetu_tpu_torch.data.prefetch import DevicePrefetcher, to_tensors
+
+__all__ = ["DevicePrefetcher", "JsonDataset", "PackedBatch",
+           "SyntheticLMDataset", "build_data_loader", "pack_sequences",
+           "pad_batch", "sample_batches", "to_tensors", "token_batches"]

@@ -8,7 +8,8 @@ force (``core.dtypes.autocast``); ``init_state`` builds the optimizer;
 "grad_norm"})``, which runs forward and backward under that precision
 policy (attention through the flash kernels on CUDA), accumulates fp32
 grads over ``num_microbatches`` and applies one optimizer update — as
-the JAX step keeps the policy it was traced under.
+the JAX step keeps the policy it was traced under. ``build_eval_step``
+returns the loss without grads or dropout.
 """
 
 from __future__ import annotations
@@ -130,13 +131,34 @@ def default_loss_fn(model: nn.Module, strategy: Strategy) -> Callable:
     return loss_fn
 
 
+def _on_device(batch: dict, device: torch.device) -> dict:
+    return {k: v.to(device, non_blocking=True)
+            for k, v in batch.items() if v is not None}
+
+
+def build_eval_step(model: nn.Module, plan: TrainPlan) -> Callable:
+    """``eval(batch) -> loss`` (``:900``): :func:`default_loss_fn` under
+    the plan's precision policy, without grads and without dropout; the
+    loss stays on the device."""
+    base_loss = default_loss_fn(model, plan.strategy)
+
+    @torch.no_grad()
+    def step(batch: dict):
+        with autocast(plan.policy):
+            return base_loss(_on_device(batch, plan.device))
+
+    return step
+
+
 def build_train_step(model: nn.Module, opt: OptimizerSpec,
                      plan: TrainPlan) -> Callable:
     """``step(state, batch) -> (state, {"loss", "grad_norm"})`` (``:685``)
     over :func:`default_loss_fn`.
 
     ``batch`` maps names to tensors with the batch on dim 0; they move to
-    the plan's device. The grads come back in the param dtype (zeros for
+    the plan's device. ``opt`` is an optimizer spec or a ``chain`` of
+    gradient transforms and one (clipping runs inside ``opt.step``, after
+    ``grad_norm`` is taken, as JAX takes it before ``opt.update``). The grads come back in the param dtype (zeros for
     a param the loss does not reach, as in JAX) and go to the optimizer
     as they are (``p.grad`` is left unset). With
     ``num_microbatches = n > 1`` the batch splits into n equal
@@ -151,8 +173,7 @@ def build_train_step(model: nn.Module, opt: OptimizerSpec,
     trainable = [p for p in model.parameters() if p.requires_grad]
 
     def step(state: TrainState, batch: dict):
-        batch = {k: v.to(plan.device, non_blocking=True)
-                 for k, v in batch.items() if v is not None}
+        batch = _on_device(batch, plan.device)
         seed = step_dropout_seed(state.step) if thread_dropout else None
         total = torch.zeros((), dtype=torch.float32, device=plan.device)
         grads = None

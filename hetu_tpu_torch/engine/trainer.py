@@ -1,0 +1,200 @@
+"""Trainer: the user-facing training loop (counterpart of
+``hetu_tpu/engine/trainer.py:40 TrainerConfig``, ``:141 Trainer``).
+
+A Trainer owns the model, the optimizer spec, the plan of its strategy
+for one device and the train state. ``train`` runs the step over an
+iterator of host batches (``hetu_tpu_torch.data.build_data_loader``),
+staged through the device prefetcher; it keeps the step counter on the
+host and reads ``loss``/``grad_norm`` from the device only at log
+boundaries, so the host never waits on the card between them.
+
+Not ported: checkpointing, telemetry and goodput, the step cache,
+sequence buckets, the watchdog and SLO engine, hot switching
+(``set_strategy``), ``train_dynamic`` — ``TrainerConfig`` has no field
+for any of them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import time
+from typing import Callable, Iterable, Optional
+
+from torch import nn
+
+from hetu_tpu_torch.core.dtypes import BF16_COMPUTE, FP32, Policy, autocast
+from hetu_tpu_torch.data.prefetch import DevicePrefetcher, to_tensors
+from hetu_tpu_torch.engine.state import TrainState
+from hetu_tpu_torch.engine.train_step import (
+    build_eval_step, build_train_step, init_state, make_plan,
+)
+from hetu_tpu_torch.parallel.strategy import Strategy
+
+log = logging.getLogger("hetu_tpu_torch.trainer")
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    """The fields of ``hetu_tpu``'s ``TrainerConfig`` that the port
+    honours.
+
+    ``seed``: ``None`` keeps the weights the model holds (drawn from its
+    own seed when it was built, or loaded); an int draws them again with
+    ``model.reset_parameters(seed)`` when the state is built, as JAX's
+    ``initialize`` draws params from ``jax.random.key(seed)``.
+    ``precision``: ``"bf16"`` (fp32 params, bf16 compute) or ``"fp32"``.
+    ``prefetch``: device-prefetch depth for ``train`` (0: none).
+    ``eval_every``: validation cadence of ``train`` (0: off).
+    ``peak_flops``: the card's peak; the log records then carry ``mfu``.
+    """
+
+    total_steps: int = 1000
+    log_every: int = 10
+    seed: Optional[int] = None
+    precision: str = "bf16"
+    prefetch: int = 2
+    eval_every: int = 0
+    peak_flops: Optional[float] = None
+
+    def __post_init__(self):
+        if self.precision not in ("bf16", "fp32"):
+            raise ValueError(f"precision must be bf16 or fp32, got "
+                             f"{self.precision!r}")
+
+    def policy(self) -> Policy:
+        return BF16_COMPUTE if self.precision == "bf16" else FP32
+
+
+def flops_per_token(model: nn.Module, seq_len: int) -> Optional[float]:
+    """``bench.py:133``: 6 N for the matmuls plus 6 L H s for causal
+    attention; None for a model without transformer dims."""
+    cfg = getattr(model, "cfg", None)
+    if cfg is None or not hasattr(cfg, "num_layers"):
+        return None
+    n_params = sum(p.numel() for p in model.parameters())
+    return 6.0 * n_params + 6.0 * cfg.num_layers * cfg.hidden_size * seq_len
+
+
+class Trainer:
+    """``Trainer(model, opt, strategy, config=None, device=None)``: the
+    plan is made under ``config.precision``'s policy on ``device``
+    (``None`` means ``cuda`` and raises without a card; the model must
+    live there)."""
+
+    def __init__(self, model: nn.Module, opt, strategy: Strategy,
+                 config: Optional[TrainerConfig] = None, device=None):
+        self.model = model
+        self.opt = opt
+        self.config = config if config is not None else TrainerConfig()
+        with autocast(self.config.policy()):
+            self.plan = make_plan(model, opt, strategy, device=device)
+        self.state: Optional[TrainState] = None
+        self._step_fn = build_train_step(model, opt, self.plan)
+        self._eval_fn = build_eval_step(model, self.plan)
+
+    def initialize(self) -> TrainState:
+        """Step 0: the weights (drawn again from ``config.seed`` if it is
+        set) cast to the policy's param dtype, and a fresh optimizer."""
+        if self.config.seed is not None:
+            self.model.reset_parameters(self.config.seed)
+        self.state = init_state(self.model, self.opt, self.plan)
+        return self.state
+
+    def train_step(self, batch: dict) -> dict:
+        """One step on one batch (numpy arrays or tensors); the metrics
+        stay on the device."""
+        if self.state is None:
+            self.initialize()
+        self.state, metrics = self._step_fn(self.state,
+                                            to_tensors(batch))
+        return metrics
+
+    def _batches(self, batches: Iterable[dict], steps: int):
+        if self.config.prefetch > 0:
+            return DevicePrefetcher(batches, self.plan.device,
+                                    buffer_size=self.config.prefetch,
+                                    max_items=steps)
+        return (to_tensors(b) for b in batches)
+
+    def train(self, batches: Iterable[dict], steps: Optional[int] = None,
+              *, eval_batches: Optional[Callable[[], Iterable[dict]]] = None
+              ) -> list:
+        """Run up to ``steps`` (default ``config.total_steps``) steps, or
+        until ``batches`` ends; returns the log records.
+
+        Every ``log_every`` steps one record: ``step``, ``loss`` and
+        ``grad_norm`` of that step (the norm before any clipping),
+        ``tokens_per_sec`` since the last record (every token of the
+        batch, pads included, as JAX counts), ``tokens_total``, and
+        ``mfu`` with ``config.peak_flops``. ``eval_batches`` is a
+        callable returning an iterable of held-out batches: every
+        ``eval_every`` steps the mean validation loss (dropout off) is
+        logged as ``eval_loss``."""
+        if self.state is None:
+            self.initialize()
+        steps = steps if steps is not None else self.config.total_steps
+        history = []
+        host_step = self.state.step
+        t0 = t_last = time.perf_counter()
+        tokens_since = tokens_total = 0
+        flops_since = 0.0
+        fpt_by_width: dict = {}
+        it = self._batches(batches, steps)
+        try:
+            for _ in range(steps):
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    break
+                self.state, metrics = self._step_fn(self.state, batch)
+                host_step += 1
+                ids = batch["input_ids"]
+                width = int(ids.shape[-1])
+                if width not in fpt_by_width:
+                    fpt_by_width[width] = flops_per_token(self.model, width)
+                ntok = int(ids.numel())
+                tokens_since += ntok
+                tokens_total += ntok
+                flops_since += (fpt_by_width[width] or 0.0) * ntok
+                if self.config.log_every \
+                        and host_step % self.config.log_every == 0:
+                    rec = {"kind": "metrics", "step": host_step,
+                           "loss": float(metrics["loss"]),
+                           "grad_norm": float(metrics["grad_norm"])}
+                    now = time.perf_counter()
+                    rec.update(elapsed_s=now - t0,
+                               tokens_per_sec=tokens_since / (now - t_last),
+                               tokens_total=tokens_total)
+                    if self.config.peak_flops:
+                        rec["mfu"] = flops_since / (now - t_last) \
+                            / self.config.peak_flops
+                    history.append(self._log(rec))
+                    t_last, tokens_since, flops_since = now, 0, 0.0
+                if self.config.eval_every and eval_batches is not None \
+                        and host_step % self.config.eval_every == 0:
+                    history.append(self._log({
+                        "kind": "metrics", "step": host_step,
+                        "eval_loss": self.evaluate(eval_batches())}))
+        finally:
+            if isinstance(it, DevicePrefetcher):
+                it.close()
+        return history
+
+    def evaluate(self, batches: Iterable[dict]) -> float:
+        """Mean loss over ``batches`` under the plan's policy, without
+        dropout."""
+        total, n = 0.0, 0
+        for batch in batches:
+            total += float(self._eval_fn(to_tensors(batch)))
+            n += 1
+        return total / max(n, 1)
+
+    @staticmethod
+    def _log(rec: dict) -> dict:
+        log.info(json.dumps(rec))
+        return rec
+
+
+__all__ = ["Trainer", "TrainerConfig", "flops_per_token"]

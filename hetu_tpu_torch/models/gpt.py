@@ -61,10 +61,14 @@ class GPTBlock(nn.Module):
         self.resid_pdrop = cfg.resid_pdrop
         self.attn_pdrop = cfg.attn_pdrop
 
-    def forward(self, x, *, segment_ids=None, dropout_seed=None):
+    def forward(self, x, *, positions=None, segment_ids=None,
+                dropout_seed=None):
         """Training forward (``hetu_tpu/models/gpt.py:138-164``); the seed
         splits as the JAX key does: three ways with attention dropout,
-        else two ways with residual dropout."""
+        else two ways with residual dropout. ``positions`` is taken for
+        the blocks' common signature: GPT-2's are added in the
+        embedding."""
+        del positions
         sa = s1 = s2 = None
         if dropout_seed is not None and self.attn_pdrop > 0:
             sa, s1, s2 = split_seed(dropout_seed, 3)

@@ -1,8 +1,9 @@
 """Llama family (counterpart of ``hetu_tpu/models/llama.py``): RMSNorm,
-RoPE, GQA, SwiGLU, an untied LM head by default. The inference forward
-and the decode path the serving engine runs; the loss, dropout and the
-backward come with the Llama training slice, and mixture-of-experts
-with expert parallelism."""
+RoPE, GQA, SwiGLU, an untied LM head by default. The training forward
+(``loss``: residual and attention dropout, remat through
+``StackedBlocks``), the inference forward and the decode path the
+serving engine runs; mixture-of-experts comes with expert
+parallelism."""
 
 from __future__ import annotations
 
@@ -19,12 +20,14 @@ from hetu_tpu_torch.nn.parallel import (
     ColumnParallelLinear, ParallelAttention, ParallelMLP, StackedBlocks,
     VocabParallelEmbedding,
 )
+from hetu_tpu_torch.ops.dropout import dropout, generator_for, split_seed
+from hetu_tpu_torch.ops.losses import vocab_parallel_lm_loss
 
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
     """``hetu_tpu/models/llama.py:30-70``; the defaults are Llama-2-7B.
-    Dropout and the MoE settings come with the slices that read them."""
+    The MoE settings come with the slice that reads them."""
 
     vocab_size: int = 32000
     hidden_size: int = 4096
@@ -38,6 +41,11 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     init_std: float = 0.02
     tie_embeddings: bool = False
+    # residual dropout (0: Llama's pretraining; nonzero is the usual SFT
+    # regularizer); applies only when the train step passes a seed
+    resid_pdrop: float = 0.0
+    # on the attention probabilities, inside the flash kernels
+    attn_pdrop: float = 0.0
     # 0 = dense; experts (and their gate settings) wait for the MoE slice
     num_experts: int = 0
 
@@ -77,13 +85,26 @@ class LlamaBlock(nn.Module):
                                       **kw)
         self.mlp = ParallelMLP(cfg.hidden_size, cfg.intermediate_size,
                                bias=False, gated=True, **kw)
+        self.resid_pdrop = cfg.resid_pdrop
+        self.attn_pdrop = cfg.attn_pdrop
 
-    def forward(self, x, *, positions=None, segment_ids=None):
-        """Inference forward (``hetu_tpu/models/llama.py:132-163`` without
-        dropout)."""
-        x = x + self.attn(self.input_norm(x), positions=positions,
-                          segment_ids=segment_ids)
-        return x + self.mlp(self.post_attn_norm(x))
+    def forward(self, x, *, positions=None, segment_ids=None,
+                dropout_seed=None):
+        """Training forward (``hetu_tpu/models/llama.py:130-156``); the
+        seed splits as the JAX key does: three ways with attention
+        dropout, else two ways with residual dropout. Without a seed it
+        is the inference forward."""
+        sa = s1 = s2 = None
+        if dropout_seed is not None and self.attn_pdrop > 0:
+            sa, s1, s2 = split_seed(dropout_seed, 3)
+        elif dropout_seed is not None and self.resid_pdrop > 0:
+            s1, s2 = split_seed(dropout_seed, 2)
+        a = self.attn(self.input_norm(x), positions=positions,
+                      segment_ids=segment_ids, dropout_rate=self.attn_pdrop,
+                      dropout_seed=sa)
+        x = x + dropout(a, self.resid_pdrop, generator_for(s1, x.device))
+        h = self.mlp(self.post_attn_norm(x))
+        return x + dropout(h, self.resid_pdrop, generator_for(s2, x.device))
 
     def decode(self, x, kv_cache, **kwargs):
         x = x + self.attn.decode(self.input_norm(x), kv_cache, **kwargs)
@@ -142,12 +163,34 @@ class LlamaLMHeadModel(nn.Module):
         del positions
         return self.wte(input_ids)
 
-    def backbone(self, input_ids, *, positions=None, segment_ids=None):
-        """embed + blocks, without the final norm."""
+    def backbone(self, input_ids, *, positions=None, segment_ids=None,
+                 remat: str = "none", remat_mask=None, unroll: bool = False,
+                 dropout_seed=None):
+        """embed + blocks under ``remat`` (``StackedBlocks.forward``),
+        without the final norm (``head_loss`` applies it). ``positions``
+        (b, s) rotate q and k (default ``arange(s)``); a packed batch
+        restarts them at each document. ``dropout_seed=None`` (eval)
+        disables dropout whatever the config's rates. A dense model has no
+        auxiliary loss, so this returns the hidden states alone."""
         h = self.embed(input_ids)
-        for blk in self.blocks:
-            h = blk(h, positions=positions, segment_ids=segment_ids)
-        return h
+        return self.blocks(h, remat=remat, remat_mask=remat_mask,
+                           unroll=unroll, positions=positions,
+                           segment_ids=segment_ids,
+                           dropout_seed=dropout_seed)
+
+    def head_loss(self, h, labels, *, ignore_index: int = -100):
+        """Final norm + LM loss (``hetu_tpu/models/llama.py:184``) on
+        pre-norm backbone output: the chunked CE for a vocab of 8192 or
+        more (``ops/losses.py``)."""
+        return vocab_parallel_lm_loss(self.final_norm(h), self.head_weight(),
+                                      labels, ignore_index=ignore_index)
+
+    def loss(self, input_ids, labels, *, ignore_index: int = -100, **kwargs):
+        """Mean LM loss (``:219``); ``kwargs`` go to :meth:`backbone`. JAX
+        adds ``moe_aux_coef`` times the auxiliary loss, which is 0 for a
+        dense model."""
+        return self.head_loss(self.backbone(input_ids, **kwargs), labels,
+                              ignore_index=ignore_index)
 
     def hidden_norm(self, h):
         return self.final_norm(h)
@@ -163,7 +206,7 @@ class LlamaLMHeadModel(nn.Module):
         them (``models/llama.py:212-217``, ``generation.py:110-112``)."""
         return F.linear(h.float(), self.head_weight().float())
 
-    def forward(self, input_ids, *, positions=None, segment_ids=None):
+    def forward(self, input_ids, **kwargs):
         """Full fp32 logits (b, s, V)."""
-        return self.logits(self.hidden_norm(self.backbone(
-            input_ids, positions=positions, segment_ids=segment_ids)))
+        return self.logits(self.hidden_norm(self.backbone(input_ids,
+                                                          **kwargs)))

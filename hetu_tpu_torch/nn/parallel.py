@@ -352,11 +352,12 @@ def remat_policy(name: str) -> Optional[Callable]:
                      f"{name!r}")
 
 
-def _run_block(block, policy: Policy, x, segment_ids, seed):
+def _run_block(block, policy: Policy, x, positions, segment_ids, seed):
     # the policy captured at forward time: a CUDA backward recomputes on
     # the autograd engine's own thread, which has none set
     with autocast(policy):
-        return block(x, segment_ids=segment_ids, dropout_seed=seed)
+        return block(x, positions=positions, segment_ids=segment_ids,
+                     dropout_seed=seed)
 
 
 class StackedBlocks(nn.ModuleList):
@@ -378,13 +379,16 @@ class StackedBlocks(nn.ModuleList):
 
     def forward(self, x, *, remat: str = "none",
                 remat_mask: Optional[Sequence[bool]] = None,
-                unroll: bool = False, segment_ids=None,
+                unroll: bool = False, positions=None, segment_ids=None,
                 dropout_seed: Optional[int] = None):
         """``hetu_tpu/nn/parallel.py:898-990``: every layer in order, each
         under ``remat`` (see :func:`remat_policy`). ``remat_mask`` gives
         per-layer flags; its True layers take ``remat``'s policy, or
         ``"full"`` when ``remat`` is ``"none"``. ``unroll`` is accepted
         for the JAX signature and changes nothing (there is no scan).
+        ``positions`` and ``segment_ids`` (b, s) reach every block, as the
+        JAX scan passes them on (a packed batch restarts positions at each
+        document: RoPE reads them, GPT-2's blocks ignore them);
         ``dropout_seed`` is split into one seed per layer."""
         del unroll
         n = len(self)
@@ -403,11 +407,13 @@ class StackedBlocks(nn.ModuleList):
         policy = current_policy()
         for blk, flag, seed in zip(self, flags, seeds):
             if flag:
-                x = checkpoint(_run_block, blk, policy, x, segment_ids, seed,
-                               use_reentrant=False, preserve_rng_state=False,
+                x = checkpoint(_run_block, blk, policy, x, positions,
+                               segment_ids, seed, use_reentrant=False,
+                               preserve_rng_state=False,
                                context_fn=context_fn)
             else:
-                x = blk(x, segment_ids=segment_ids, dropout_seed=seed)
+                x = blk(x, positions=positions, segment_ids=segment_ids,
+                        dropout_seed=seed)
         return x
 
     def decode(self, x, caches, **kwargs):

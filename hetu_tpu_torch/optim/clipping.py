@@ -1,10 +1,12 @@
 """Gradient clipping by global norm (counterpart of
-``hetu_tpu/optim/clipping.py``), on lists of tensors; nothing leaves the
-device."""
+``hetu_tpu/optim/clipping.py``): the norm of a list of tensors, and the
+clip as a gradient transform for :func:`~hetu_tpu_torch.optim.chain`;
+nothing leaves the device."""
 
 from __future__ import annotations
 
-from typing import Iterable
+import dataclasses
+from typing import Iterable, Sequence
 
 import torch
 
@@ -16,13 +18,22 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
-def clip_by_global_norm(tensors: Iterable[torch.Tensor],
-                        max_norm: float) -> torch.Tensor:
-    """Scale ``tensors`` in place by ``min(1, max_norm / (norm + 1e-6))``;
-    returns the norm before clipping."""
-    tensors = list(tensors)
-    norm = global_norm(tensors)
-    factor = (max_norm / (norm + 1e-6)).clamp(max=1.0)
-    for t in tensors:
-        t.mul_(factor.to(t.dtype))
-    return norm
+@dataclasses.dataclass(frozen=True)
+class ClipByGlobalNorm:
+    """The transform of ``clip_by_global_norm(max_norm)`` (``:17``): every
+    grad times ``min(1, max_norm / (norm + 1e-6))``, in fp32 (JAX's fp32
+    factor promotes a bf16 grad). fp32 grads are scaled in place."""
+
+    max_norm: float
+
+    def __call__(self, grads: Sequence[torch.Tensor]) -> list:
+        factor = (self.max_norm / (global_norm(grads) + 1e-6)).clamp(max=1.0)
+        out = [g.float() for g in grads]
+        torch._foreach_mul_(out, factor)
+        return out
+
+
+def clip_by_global_norm(max_norm: float) -> ClipByGlobalNorm:
+    """A gradient transform for :func:`~hetu_tpu_torch.optim.chain`, as
+    ``chain(clip_by_global_norm(1.0), adamw(...))`` builds it."""
+    return ClipByGlobalNorm(float(max_norm))

@@ -178,6 +178,44 @@ class OptimizerSpec:
         optimizer.step(grads)
 
 
+@dataclasses.dataclass(frozen=True)
+class Chain:
+    """``chain(*transforms, optimizer)``: the gradient transforms run in
+    order on the grads of every update, then the optimizer applies them
+    (``hetu_tpu/optim/base.py:27``, where clipping precedes the update's
+    own transforms). It builds and steps like its optimizer."""
+
+    transforms: tuple
+    optimizer: OptimizerSpec
+
+    def build(self, model: nn.Module) -> torch.optim.Optimizer:
+        return self.optimizer.build(model)
+
+    def step(self, optimizer: torch.optim.Optimizer, count: int,
+             grads: Mapping) -> None:
+        params, gs = list(grads), list(grads.values())
+        for t in self.transforms:
+            gs = t(gs)
+        self.optimizer.step(optimizer, count, dict(zip(params, gs)))
+
+
+def chain(*parts) -> Chain:
+    """Gradient transforms (callables ``list[grad] -> list[grad]``, such
+    as :func:`~hetu_tpu_torch.optim.clip_by_global_norm`), then the
+    optimizer, last: ``chain(clip_by_global_norm(1.0), adamw(5e-4))``.
+    JAX chains any transforms in any order; the port's optimizer is one
+    whole update, so it must come last and only once."""
+    *transforms, last = parts
+    if not isinstance(last, OptimizerSpec):
+        raise TypeError("chain: the last part must be an optimizer "
+                        "(adamw, adam or sgd)")
+    for t in transforms:
+        if isinstance(t, (OptimizerSpec, Chain)) or not callable(t):
+            raise TypeError(f"chain: {t!r} before the optimizer must be a "
+                            f"gradient transform")
+    return Chain(tuple(transforms), last)
+
+
 def adamw(lr: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.999,
           eps: float = 1e-8, weight_decay: float = 0.01) -> OptimizerSpec:
     return OptimizerSpec(Adam, lr, {"betas": (b1, b2), "eps": eps},

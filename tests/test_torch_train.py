@@ -501,7 +501,8 @@ def test_schedules_and_clipping_match_jax():
     want, _ = jax_optim.clip_by_global_norm(1.0).update(
         jax.tree.map(jnp.asarray, tree), ())
     got = [_t(tree["a"]), _t(tree["b"])]
-    norm = optim.clip_by_global_norm(got, 1.0)
+    norm = optim.global_norm(got)
+    got = optim.clip_by_global_norm(1.0)(got)
     np.testing.assert_allclose(
         float(norm), float(jax_optim.global_norm(tree)), rtol=1e-6)
     for g, k in zip(got, ("a", "b")):
