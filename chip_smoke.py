@@ -3,7 +3,8 @@
 GPU: builds the hand-written kernels, holds each against its plain
 PyTorch version, serves GPT-2 small through ``ServingEngine``, trains
 it with ``build_train_step``, serves Llama-7B from the int8 KV arena,
-and trains Llama at 7B width through ``Trainer`` and ``SFTTrainer``.
+trains Llama at 7B width through ``Trainer`` and ``SFTTrainer``, and
+trains (BASELINE config 4) and serves GPT-MoE 8-expert.
 
 Run from the repository root, on a machine with one CUDA card::
 
@@ -188,7 +189,36 @@ Phases, each printing one JSON line:
    (prompt, response) pairs of 128-512 / 128-1,536 tokens, repeated, at
    seq 2048, batch 4, ``shuffle=False``: the response-only loss must
    fall, launches exactly 2 a step; the grad norms before the clip.
-19. summary -- one ``{"kernels": [...]}`` line (each kernel with its
+19. moe_train_oracle -- one fp32 step of ``GPTConfig.moe_8e``'s width
+   (768, 8 GELU experts of 3072, vocab 50257) at 1 layer with each gate
+   (topk, ktop1, sam with 2 groups, balance), kernels on the card
+   against the plain path on the CPU, at batch 1 x 256. The routing is
+   compared first (``RoutingSpy``): tokens routed differently must lie
+   within 1e-4 of a routing tie (``nn.moe.routing_margins``; counts
+   printed) and leave the step's labels; then ``train_oracle``'s bounds
+   and exactly one launch of each flash kernel.
+20. moe_train -- BASELINE config 4 (``workloads/bench_suite.py:170-185``):
+   ``moe_8e`` cut to 6 layers (280 M params), batch 8, seq 1024, fp32
+   params with bf16 compute, ``Strategy(unroll=True)``, ``adamw(1e-4)``,
+   through ``Trainer.train(precision="bf16")`` on one random batch
+   repeated: 3 warm-up and 10 timed steps. The loss must fall; launches
+   exactly 6 a step of each flash kernel. Step ms, tokens/s, MFU on the
+   active params (expert tensors at k/E) against 989 TFLOP/s beside the
+   Trainer's all-params figure, peak memory; then ``moe_train_profile``
+   (as ``train_profile``).
+21. moe_engine -- ``moe_8e`` uncut (12 layers, fp32) served by
+   ``ServingEngine(slots=16, max_len=512, prefill_chunk=64,
+   block_size=16)``: the GPT-2 engine's workload at half its requests
+   (24, then 8 sharing a 128-token prompt), both lanes through
+   ``MoEMLP.decode``. Launches of #1 and #2 as in ``engine``, each lane
+   captured once, greedy tokens equal to ``generate`` (a divergence only
+   at a top-2 gap under 1e-4), the teacher-forced decode logits and the
+   first-token logits within 1e-4 of the plain forward (routing compared
+   first, as in 19), ``step_graph_replay`` bit-equal; tokens/s and TTFT;
+   ``moe_engine_profile`` and ``moe_engine_decode_profile`` (a mixed and
+   a steady-decode window, as ``engine``'s: the gathers show as
+   index/scatter).
+22. summary -- one ``{"kernels": [...]}`` line (each kernel with its
    lanes and its launches by path), the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -1366,9 +1396,10 @@ def phase_step_split(eng, prompts, sp, phase: str, n_steps: int = 20):
 
 # -- training ----------------------------------------------------------------
 
-def train_batch(vocab: int, b: int, device, seed: int = SEED) -> dict:
+def train_batch(vocab: int, b: int, device, seed: int = SEED,
+                seq: int = TRAIN_SEQ) -> dict:
     ids = torch.from_numpy(np.random.default_rng(seed).integers(
-        0, vocab, (b, TRAIN_SEQ + 1)))
+        0, vocab, (b, seq + 1)))
     return {"input_ids": ids[:, :-1].to(device),
             "labels": ids[:, 1:].to(device)}
 
@@ -2320,19 +2351,19 @@ def llama_workload(vocab: int, seed: int = SEED):
 
 
 @torch.no_grad()
-def forced_logits(model, prompt, tokens, cache_dtype):
+def forced_logits(model, prompt, tokens, cache_dtype, chunk=LLAMA_CHUNK):
     """The dense oracle teacher-forced on ``tokens``: ``decode`` over a
     dense cache of ``cache_dtype`` (plain attention, no kernel) with the
-    prompt and every token but the last, ``LLAMA_CHUNK`` tokens at a
-    time. Returns the fp32 logits the oracle chooses each of ``tokens``
-    from, ``(len(tokens), V)``; row 0 follows the prompt alone."""
+    prompt and every token but the last, ``chunk`` tokens at a time.
+    Returns the fp32 logits the oracle chooses each of ``tokens`` from,
+    ``(len(tokens), V)``; row 0 follows the prompt alone."""
     from hetu_tpu_torch.models import decode, init_kv_caches
     seq = list(prompt) + list(tokens[:-1])
     ids = torch.tensor([seq], device=model.device)
     caches = init_kv_caches(model, 1, len(seq), cache_dtype)
     first, rows = len(prompt) - 1, []
-    for lo in range(0, len(seq), LLAMA_CHUNK):
-        hi = min(len(seq), lo + LLAMA_CHUNK)
+    for lo in range(0, len(seq), chunk):
+        hi = min(len(seq), lo + chunk)
         pos = torch.arange(lo, hi, device=model.device)[None]
         logits = decode(model, ids[:, lo:hi], pos, caches)
         if hi > first:
@@ -3011,6 +3042,351 @@ def phase_llama_sft(device, card, pretrained):
     return run["counts"]
 
 
+# -- GPT-MoE (BASELINE config 4) ----------------------------------------------
+#: ``workloads/bench_suite.py:170-185 config4_moe``: moe_8e cut to 6 layers,
+#: batch 8 at seq 1024
+MOE_LAYERS, MOE_BATCH = 6, 8
+MOE_GATES = ("topk", "ktop1", "sam", "balance")
+MOE_ORACLE_SEQ = 256
+#: a routing decision whose score gap is under this may flip on rounding
+NEAR_TIE = 1e-4
+#: the MoE serving oracle's decode chunk: the gathered expert weights of
+#: a chunk of C tokens take C x 2 x 9.4 MB each at moe_8e's fp32 width
+MOE_CHUNK = 64
+
+
+def moe_cfg(**kw):
+    """``GPTConfig.moe_8e`` (GPT-2 small's widths, 8 GELU experts, top-2)
+    with ``kw`` replaced."""
+    import dataclasses
+    from hetu_tpu_torch.models import GPTConfig
+    return dataclasses.replace(GPTConfig.moe_8e(), **kw)
+
+
+def moe_model(cfg, device, seed):
+    """A GPT-MoE model; the balance gate's k-downgrade warning (it is
+    top-1 by construction) is expected here."""
+    import warnings
+    from hetu_tpu_torch.models import GPTLMHeadModel
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return GPTLMHeadModel(cfg, device=device, seed=seed)
+
+
+class RoutingSpy:
+    """Forward hooks on every MoE gate of a model, recording each call's
+    routing (idx, on the host) and, with ``margins``, each row's
+    decision margin (``nn.moe.routing_margins``). Eager use only: the
+    hooks read the device."""
+
+    def __init__(self, model, margins: bool = False):
+        from hetu_tpu_torch.nn.moe import MoEMLP, routing_margins
+        self.calls = []
+
+        def hook(gate, args, out):
+            m = routing_margins(gate, args[0]).cpu() if margins else None
+            self.calls.append((out[0].cpu(), m))
+
+        self.handles = [mod.gate.register_forward_hook(hook)
+                        for mod in model.modules()
+                        if isinstance(mod, MoEMLP)]
+
+    def close(self) -> list:
+        for h in self.handles:
+            h.remove()
+        return self.calls
+
+
+def routing_split(got, want, margins):
+    """Rows routed differently by two runs of one gate call (idx (T, k)
+    each), and the rows within ``NEAR_TIE`` of a routing tie
+    (``margins`` of the reference run): the callers fail a difference
+    off a near-tie."""
+    differ = (got != want).any(-1)
+    near = margins < NEAR_TIE
+    return differ, near
+
+
+def phase_moe_train_oracle(device):
+    """One fp32 step of ``moe_8e``'s width at 1 layer with each gate
+    (topk, ktop1, sam with 2 groups, balance), the kernels on the card
+    against the plain path on the CPU (``hold_step``), at batch 1 x 256.
+    The routing is compared first: the tokens routed differently must
+    all lie within ``NEAR_TIE`` of a tie (their count and the near-ties'
+    are printed), and their labels are masked out of the step, so loss
+    and grads are compared on the tokens routed alike (with one layer a
+    token's experts reach no other token's loss). Bounds of
+    ``train_oracle``; exactly one launch of each flash kernel."""
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on: the gates' fp32 product would round to TF32")
+    for gate in MOE_GATES:
+        t0 = time.perf_counter()
+        cfg = moe_cfg(num_layers=1, moe_gate=gate,
+                      moe_num_groups=2 if gate == "sam" else 0)
+        gpu = moe_model(cfg, device, SEED + 1)
+        cpu = moe_model(cfg, "cpu", SEED + 1)
+        cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+        batch = train_batch(cfg.vocab_size, 1, "cpu", seed=SEED + 1,
+                            seq=MOE_ORACLE_SEQ)
+        routes = {}
+        for name, model, dev in (("gpu", gpu, device), ("cpu", cpu, "cpu")):
+            spy = RoutingSpy(model, margins=name == "cpu")
+            with torch.no_grad():
+                model.loss(batch["input_ids"].to(dev),
+                           batch["labels"].to(dev))
+            routes[name] = spy.close()
+        check(len(routes["gpu"]) == len(routes["cpu"]) == 1,
+              f"moe_train_oracle {gate}: gate calls {len(routes['gpu'])}, "
+              f"{len(routes['cpu'])}")
+        (g_idx, _), (c_idx, margins) = routes["gpu"][0], routes["cpu"][0]
+        differ, near = routing_split(g_idx, c_idx, margins)
+        check(bool((~differ | near).all()),
+              f"moe_train_oracle {gate}: {int((differ & ~near).sum())} "
+              f"tokens routed differently off a near-tie")
+        batch["labels"][0, differ] = -100
+        reading = hold_step(gpu, cpu, batch, device)
+        emit(phase="moe_train_oracle", gate=gate, dtype="float32",
+             layers=1, hidden=cfg.hidden_size, experts=cfg.num_experts,
+             k=gpu.blocks[0].mlp.k, batch=1, seq=MOE_ORACLE_SEQ,
+             near_ties=int(near.sum()), routed_differently=int(differ.sum()),
+             min_margin=float(margins.min()), **reading,
+             seconds=time.perf_counter() - t0)
+        check_step_held(f"moe_train_oracle {gate}", reading,
+                        {**{k: 1 for k in FLASH}, **{k: 0 for k in FUSED}})
+        del gpu, cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_moe_train(device, card):
+    """BASELINE config 4 through ``Trainer.train``: ``moe_8e`` at 6
+    layers, batch 8, seq 1024, fp32 params with bf16 compute,
+    ``Strategy(unroll=True)`` (no remat), ``adamw(1e-4)``, one random
+    batch repeated: 3 warm-up and 10 timed steps. The loss must fall;
+    each flash kernel must launch exactly 6 times a step. MFU on the
+    active params (expert tensors at k/E, ``bench_suite.py:88-103``)
+    against 989 TFLOP/s, beside the Trainer's own all-params figure."""
+    import itertools
+    from hetu_tpu_torch import optim
+    from hetu_tpu_torch.engine import Trainer, TrainerConfig
+    from hetu_tpu_torch.parallel import Strategy
+
+    cfg = moe_cfg(num_layers=MOE_LAYERS)
+    model = moe_model(cfg, device, SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_expert = sum(p.numel() for n, p in model.named_parameters()
+                   if n.rsplit(".", 1)[-1] in ("wi", "wg", "wo"))
+    n_active = n_params - n_expert * (1 - cfg.moe_top_k / cfg.num_experts)
+    L = cfg.num_layers
+    # bench.py:133 on the active params: 6 N + 6 L H s
+    fpt = 6.0 * n_active + 6.0 * L * cfg.hidden_size * TRAIN_SEQ
+    trainer = Trainer(model, optim.adamw(1e-4), Strategy(unroll=True),
+                      config=TrainerConfig(precision="bf16", log_every=1,
+                                           peak_flops=PEAK_FLOPS[
+                                               torch.bfloat16]),
+                      device=device)
+    batch = {k: v.numpy() for k, v in
+             train_batch(cfg.vocab_size, MOE_BATCH, "cpu").items()}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm = trainer.train(itertools.repeat(batch), steps=3)
+    warm_s = time.perf_counter() - t0
+    trainer.config.log_every = 10         # one device read, at the end
+    run = timed_fit(trainer, lambda n: trainer.train(itertools.repeat(batch),
+                                                     steps=n), 10)
+    rec = run["records"][-1]
+    want = {k: 10 * L for k in FLASH}
+    tokens = MOE_BATCH * TRAIN_SEQ
+    losses = [r["loss"] for r in warm] + [rec["loss"]]
+    emit(phase="moe_train", card=card,
+         config="GPTConfig.moe_8e, 6 layers (bench_suite.py config 4)",
+         params=n_params, expert_params=n_expert, active_params=n_active,
+         experts=cfg.num_experts, k=cfg.moe_top_k, seq=TRAIN_SEQ,
+         batch=MOE_BATCH, policy="BF16_COMPUTE", remat="none",
+         step_ms=run["dt"] * 1e3, tokens_per_s=tokens / run["dt"],
+         mfu_active=tokens / run["dt"] * fpt / PEAK_FLOPS[torch.bfloat16],
+         flops_per_token_active=fpt, trainer_mfu_all_params=rec.get("mfu"),
+         trainer_record=rec,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         warmup_seconds=warm_s, losses_steps_1_2_3_13=losses,
+         launches=run["counts"], expected=want)
+    check(all(np.isfinite(losses)), "non-finite MoE training loss")
+    check(losses[-1] < losses[0], f"MoE loss did not fall: {losses}")
+    check(run["counts"] == want, f"moe_train launches {run['counts']}, "
+                                 f"expected {want}")
+    return dict(trainer=trainer, batch=batch, counts=run["counts"])
+
+
+def moe_forward_oracle(model, reqs, vocab):
+    """Each request's teacher-forced decode logits (``forced_logits``
+    over a dense cache, ``MoEMLP.decode``'s gathered experts) and the
+    engine's first-token logits against the plain forward
+    (``model(ids)``: the flash forward and the dense expert combine) on
+    prompt + tokens. Routing first: per layer, the rows the two routed
+    differently must be near-ties of the forward's gate, and logits are
+    compared only before the first such row. Returns the largest
+    differences, the rows compared and the routing counts."""
+    L = model.cfg.num_layers
+    worst = first = 0.0
+    rows = near_ties = differ_rows = 0
+    for r in reqs:
+        prompt, got = r.prompt.tolist(), list(r.tokens)
+        seq = prompt + got[:-1]
+        spy = RoutingSpy(model, margins=True)
+        with torch.no_grad():
+            fwd = model(torch.tensor([seq], device=model.device))[0]
+        f_calls = spy.close()
+        spy = RoutingSpy(model)
+        forced = forced_logits(model, prompt, got, None, chunk=MOE_CHUNK)
+        d_calls = spy.close()
+        check(len(f_calls) == L and len(d_calls) % L == 0,
+              f"request {r.id}: gate calls {len(f_calls)}, {len(d_calls)}")
+        stop = len(seq)
+        for layer in range(L):
+            idx_f, margins = f_calls[layer]
+            idx_d = torch.cat([c[0] for c in d_calls[layer::L]])
+            differ, near = routing_split(idx_d, idx_f, margins)
+            near_ties += int(near.sum())
+            differ_rows += int(differ.sum())
+            check(bool((~differ | near).all()),
+                  f"request {r.id}: layer {layer} routes "
+                  f"{int((differ & ~near).sum())} rows differently off a "
+                  f"near-tie")
+            if differ.any():
+                stop = min(stop, int(differ.nonzero()[0, 0]))
+        n = stop - (len(prompt) - 1)
+        if n <= 0:
+            continue
+        fwd = fwd[len(prompt) - 1:stop]
+        worst = max(worst, max_err(forced[:n], fwd))
+        first = max(first, max_err(r.first_logits, fwd[0]))
+        rows += n
+    return dict(requests=len(reqs), rows_compared=rows,
+                forced_max_abs_dlogit=worst,
+                first_token_max_abs_dlogit=first,
+                routing_near_ties=near_ties,
+                routing_rows_differing=differ_rows)
+
+
+def phase_moe_engine(device, card):
+    """``GPTConfig.moe_8e`` uncut (12 layers, fp32, random weights from a
+    seed) served by ``ServingEngine(slots=16, max_len=512,
+    prefill_chunk=64, block_size=16)``: the GPT-2 engine's workload at
+    half its requests (24 of the burst, then 8 sharing a 128-token
+    system prompt), ``max_tokens=64``. Both lanes run ``MoEMLP.decode``.
+    Launches of #1 and #2 as in ``engine``; each lane captured once.
+    Greedy tokens must equal one-shot ``generate`` (a divergence only at
+    a top-2 gap under 1e-4); the teacher-forced decode logits and each
+    request's first-token logits must match the plain forward within
+    1e-4 (``moe_forward_oracle``); profiles of a mixed and a
+    steady-decode window (as ``engine``'s); ``step_graph_replay``
+    bit-equal."""
+    from hetu_tpu_torch.engine import trace_counts
+    from hetu_tpu_torch.models import generate
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.serving import SamplingParams, ServingEngine
+
+    cfg = moe_cfg()
+    t0 = time.perf_counter()
+    model = moe_model(cfg, device, SEED).eval()
+    burst, shared = workload(cfg.vocab_size)
+    burst, shared = burst[:24], shared[:8]
+    sp = SamplingParams(max_tokens=64)
+    warm = ServingEngine(model, slots=2, max_len=512, prefill_chunk=64,
+                         block_size=16, device=device)
+    warm.generate_many([burst[0][:70]], SamplingParams(max_tokens=3))
+    del warm
+    torch.cuda.synchronize()
+    before = trace_counts()
+    t1 = time.perf_counter()
+    eng = ServingEngine(model, slots=16, max_len=512, prefill_chunk=64,
+                        block_size=16, seed=SEED, device=device,
+                        record_first_logits=True)
+    emit(phase="moe_engine_setup", config="GPTConfig.moe_8e",
+         dtype="float32", layers=cfg.num_layers, experts=cfg.num_experts,
+         k=cfg.moe_top_k, params=sum(p.numel() for p in model.parameters()),
+         slots=16, max_len=512, prefill_chunk=64, block_size=16,
+         kv_blocks=eng.pool.n_blocks, arena_bytes=eng.pool.nbytes(),
+         lanes=capture_stats(eng), engine_seconds=time.perf_counter() - t1,
+         seconds=time.perf_counter() - t0)
+    check_captures("moe_engine_setup", eng, before)
+
+    # ---- the main path: counters zeroed just before, read just after --
+    reset_launch_counts()
+    run = serve(eng, burst, shared, sp)
+    counts = launch_counts()
+    iters = dict(eng.lane_iters)
+    # ------------------------------------------------------------------
+    check_captures("moe_engine", eng, before)
+    check_launches("moe_engine_launches", counts, iters, cfg.num_layers)
+    reqs, reqs2 = run["reqs"], run["reqs2"]
+    bad = [r for r in reqs + reqs2 if r.status != "done"]
+    check(not bad, f"{len(bad)} MoE requests did not finish")
+    gen_tokens = sum(len(r.tokens) for r in reqs)
+    timings = [r.timing() for r in reqs]
+    ttft = [t["ttft_ms"] for t in timings]
+    tpot = [t["decode_ms"] / (len(r.tokens) - 1)
+            for t, r in zip(timings, reqs) if len(r.tokens) > 1]
+    hits = sum(r.cached_tokens for r in reqs2)
+    emit(phase="moe_engine", card=card, burst_requests=len(reqs),
+         burst_prompt_tokens=sum(len(p) for p in burst),
+         burst_generated_tokens=gen_tokens, burst_seconds=run["t_burst"],
+         burst_tokens_per_s=gen_tokens / run["t_burst"],
+         burst_steps=run["steps"],
+         burst_ms_per_step=run["t_burst"] / run["steps"] * 1e3,
+         burst_lane_iterations=run["it_burst"],
+         ttft_ms_p50=percentile(ttft, 50), ttft_ms_p99=percentile(ttft, 99),
+         tpot_ms_p50=percentile(tpot, 50), shared_requests=len(reqs2),
+         shared_prefix_hit_tokens=hits, shared_seconds=run["t_shared"],
+         shared_tokens_per_s=sum(len(r.tokens) for r in reqs2)
+         / run["t_shared"],
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    check(hits >= 7 * 128, f"MoE shared-prompt batch hit only {hits} "
+                           f"cached tokens")
+
+    t0 = time.perf_counter()
+    near_ties = []
+    for r in reqs + reqs2:
+        prompt = r.prompt.tolist()
+        ids, logits = generate(model, [prompt], max_new_tokens=64,
+                               device=device, return_logits=True)
+        check(bool(torch.isfinite(logits).all()),
+              f"MoE request {r.id}: non-finite oracle logits")
+        want_toks, got = ids[0, len(prompt):].tolist(), list(r.tokens)
+        check(len(got) == 64 and all(0 <= t < cfg.vocab_size for t in got),
+              f"MoE request {r.id}: bad token list")
+        if got == want_toks:
+            continue
+        t = next(i for i, (a, b) in enumerate(zip(got, want_toks)) if a != b)
+        top2 = torch.topk(logits[0, t].float(), 2).values
+        gap = float(top2[0] - top2[1])
+        near_ties.append(dict(request=r.id, step=t, gap=gap))
+        check(gap < 1e-4, f"MoE request {r.id} diverges from generate at "
+                          f"step {t} where the oracle's top-2 gap is {gap}")
+    reading = moe_forward_oracle(model, reqs + reqs2, cfg.vocab_size)
+    emit(phase="moe_engine_oracle", identical=len(reqs) + len(reqs2)
+         - len(near_ties), near_ties=near_ties, **reading,
+         seconds=time.perf_counter() - t0)
+    check(reading["rows_compared"] > 0, "MoE forward oracle compared no row")
+    check(reading["forced_max_abs_dlogit"] <= 1e-4
+          and reading["first_token_max_abs_dlogit"] <= 1e-4,
+          f"MoE logits differ from the plain forward: {reading}")
+    # fresh prompts: the burst's are all in the prefix cache by now (24
+    # requests do not fill the arena), so they would not prefill
+    fresh = workload(cfg.vocab_size, seed=SEED + 7)[0]
+    phase_profile(eng, fresh[:16], sp, phase="moe_engine_profile")
+    decode_prompts = [p for p in fresh if len(p) <= 512 - 96][:16]
+    phase_profile(eng, decode_prompts, SamplingParams(max_tokens=96),
+                  phase="moe_engine_decode_profile", steady_decode=True)
+    phase_step_graph_replay(eng, "GPTConfig.moe_8e fp32")
+    check_captures("moe_engine_after_replay", eng, before)
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+
 LLAMA_CLASSES = KERNEL_CLASSES + (("nvjet", "matmul"),)
 
 
@@ -3094,6 +3470,18 @@ def main() -> int:
     phase_llama_train_kernels(device, timer, ops, llama["batch"], kernels)
     paths["llama_sft"] = phase_llama_sft(device, smi, pretrained)
     del pretrained
+    phase_moe_train_oracle(device)
+    moe = phase_moe_train(device, smi)
+    paths["moe_train"] = moe["counts"]
+    trainer = moe["trainer"]
+    phase_train_profile(dict(
+        state=trainer.state, batch_size=MOE_BATCH,
+        step=build_train_step(trainer.model, trainer.opt, trainer.plan),
+        batch=to_tensors(moe["batch"], device)), phase="moe_train_profile")
+    del trainer, moe
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["moe_engine"] = phase_moe_engine(device, smi)
     del timer
     for name, entry in kernels.items():
         entry["launches_by_path"] = {p: c.get(name, 0)

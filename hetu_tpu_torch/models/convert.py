@@ -19,8 +19,11 @@ import numpy as np
 import torch
 
 # the block parameters that are Linear weights (GPT's and Llama's; every
-# other block parameter is a norm scale or bias), and the top-level ones
-# (Llama's untied LM head); embeddings and norms are never transposed
+# other block parameter is a norm scale or bias, or an MoE leaf —
+# ``mlp.gate.weight`` (d, E) as ``x @ W`` reads it, ``mlp.gate.centroids``
+# and the expert stacks ``mlp.wi``/``wg``/``wo``, read as ``hetu_tpu``
+# lays them out), and the top-level ones (Llama's untied LM head);
+# embeddings and norms are never transposed
 _LINEAR_WEIGHTS = ("q_proj.weight", "k_proj.weight", "v_proj.weight",
                    "out_proj.weight", "fc_in.weight", "fc_out.weight",
                    "gate_proj.weight", "up_proj.weight")
@@ -44,10 +47,10 @@ def _tensor(a) -> torch.Tensor:
 
 
 def params_from_jax(tree, cfg) -> dict:
-    """``hetu_tpu`` GPT or Llama params (a nested dict of arrays, or its
-    flattened ``{dotted.key: array}`` form) → the port's ``state_dict``
-    (CPU tensors; ``load_state_dict`` moves them to the model's
-    device)."""
+    """``hetu_tpu`` GPT or Llama params, dense or MoE (a nested dict of
+    arrays, or its flattened ``{dotted.key: array}`` form) → the port's
+    ``state_dict`` (CPU tensors; ``load_state_dict`` moves them to the
+    model's device)."""
     flat = _flatten(tree)
     state = {}
     for key, arr in flat.items():

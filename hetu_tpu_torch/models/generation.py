@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 
 from hetu_tpu_torch import resolve_device
+from hetu_tpu_torch.nn.moe import refuse_batch_coupled
 
 
 class PromptTooLongError(ValueError):
@@ -106,11 +107,13 @@ def generate(model, input_ids, *, max_new_tokens: int,
     V)``. ``device=None`` means ``cuda``; the model must live there.
     ``cache_dtype`` is the KV cache's dtype (default: the model's);
     ``torch.int8`` decodes from the quantized cache, as ``hetu_tpu``'s
-    ``generate(cache_dtype=jnp.int8)`` does."""
+    ``generate(cache_dtype=jnp.int8)`` does. An MoE model whose gate
+    couples the rows of a batch (the balance gate) raises."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"model is on {model.device}, generate was asked "
                          f"for {dev}")
+    refuse_batch_coupled(model)
     ids = torch.as_tensor(input_ids, dtype=torch.long, device=model.device)
     if ids.dim() == 1:
         ids = ids[None]

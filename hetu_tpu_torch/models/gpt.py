@@ -1,6 +1,8 @@
 """GPT-2 family (counterpart of ``hetu_tpu/models/gpt.py``): learned
-position embeddings, pre-LayerNorm blocks, GELU MLP, LM head tied to the
-token embedding. The training forward (``loss``) and the decode path."""
+position embeddings, pre-LayerNorm blocks, GELU MLP (or, with
+``num_experts > 0``, a mixture of GELU experts: GPT-MoE), LM head tied
+to the token embedding. The training forward (``loss``) and the decode
+path."""
 
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from torch import nn
 
 from hetu_tpu_torch import resolve_device
 from hetu_tpu_torch.nn.layers import Embedding, LayerNorm
+from hetu_tpu_torch.nn.moe import add_aux, moe_mlp, with_aux
 from hetu_tpu_torch.nn.parallel import (
     ParallelAttention, ParallelMLP, StackedBlocks, VocabParallelEmbedding,
 )
@@ -35,16 +38,36 @@ class GPTConfig:
     resid_pdrop: float = 0.0
     # on the attention probabilities, inside the flash kernels
     attn_pdrop: float = 0.0
+    # mixture of experts (0 experts: dense; BASELINE config 4). The
+    # capacity factor is read only by ``nn.moe.gate_drop_stats`` on one
+    # device; the gate is "topk" | "ktop1" | "sam" | "balance", and
+    # ``moe_num_groups`` the SAM gate's expert groups (0: its default)
+    num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_coef: float = 0.01
+    moe_gate: str = "topk"
+    moe_num_groups: int = 0
 
     @classmethod
     def small(cls):
         return cls()
 
     @classmethod
+    def moe_8e(cls):
+        """GPT-MoE 8-expert (BASELINE config 4)."""
+        return cls(num_experts=8)
+
+    @classmethod
     def tiny(cls):
         """Test-size config."""
         return cls(vocab_size=256, max_positions=128, hidden_size=64,
                    num_layers=2, num_heads=4)
+
+    @classmethod
+    def tiny_moe(cls, num_experts=4, **kw):
+        return cls(vocab_size=256, max_positions=128, hidden_size=64,
+                   num_layers=2, num_heads=4, num_experts=num_experts, **kw)
 
 
 class GPTBlock(nn.Module):
@@ -55,9 +78,15 @@ class GPTBlock(nn.Module):
         self.attn = ParallelAttention(cfg.hidden_size, cfg.num_heads,
                                       bias=True, **kw)
         self.ln_2 = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps, **kw)
-        self.mlp = ParallelMLP(cfg.hidden_size,
-                               cfg.mlp_ratio * cfg.hidden_size, bias=True,
-                               **kw)
+        #: an MoE block returns ``(x, aux)`` from ``forward``
+        self.returns_aux = cfg.num_experts > 0
+        if self.returns_aux:
+            self.mlp = moe_mlp(cfg, cfg.mlp_ratio * cfg.hidden_size,
+                               gated=False, **kw)
+        else:
+            self.mlp = ParallelMLP(cfg.hidden_size,
+                                   cfg.mlp_ratio * cfg.hidden_size,
+                                   bias=True, **kw)
         self.resid_pdrop = cfg.resid_pdrop
         self.attn_pdrop = cfg.attn_pdrop
 
@@ -67,7 +96,7 @@ class GPTBlock(nn.Module):
         splits as the JAX key does: three ways with attention dropout,
         else two ways with residual dropout. ``positions`` is taken for
         the blocks' common signature: GPT-2's are added in the
-        embedding."""
+        embedding. An MoE block returns ``(x, aux)``."""
         del positions
         sa = s1 = s2 = None
         if dropout_seed is not None and self.attn_pdrop > 0:
@@ -78,11 +107,17 @@ class GPTBlock(nn.Module):
                       dropout_rate=self.attn_pdrop, dropout_seed=sa)
         x = x + dropout(a, self.resid_pdrop, generator_for(s1, x.device))
         h = self.mlp(self.ln_2(x))
-        return x + dropout(h, self.resid_pdrop, generator_for(s2, x.device))
+        if self.returns_aux:
+            h, aux = h
+        x = x + dropout(h, self.resid_pdrop, generator_for(s2, x.device))
+        return (x, aux) if self.returns_aux else x
 
     def decode(self, x, kv_cache, **kwargs):
+        """Decode mode; an MoE FFN runs its per-row top-k lane
+        (``MoEMLP.decode``), as ``hetu_tpu``'s kv-cache branch does."""
         x = x + self.attn.decode(self.ln_1(x), kv_cache, **kwargs)
-        return x + self.mlp(self.ln_2(x))
+        mlp = self.mlp.decode if self.returns_aux else self.mlp
+        return x + mlp(self.ln_2(x))
 
 
 class GPTLMHeadModel(nn.Module):
@@ -140,16 +175,18 @@ class GPTLMHeadModel(nn.Module):
                  dropout_seed=None):
         """embed + blocks, without the final norm (``head_loss`` applies
         it). ``dropout_seed=None`` (eval) disables dropout whatever the
-        config's rates. A dense model has no auxiliary loss, so this
-        returns the hidden states alone."""
+        config's rates. Returns ``(h, aux)`` as ``hetu_tpu`` does
+        (``models/gpt.py:200-220``): aux is the MoE load-balance loss
+        summed over layers, an fp32 zero for a dense model."""
         s_embd = s_blocks = None
         if dropout_seed is not None:
             s_embd, s_blocks = split_seed(dropout_seed, 2)
         h = self.embed(input_ids, positions=positions)
         h = dropout(h, self.cfg.embd_pdrop, generator_for(s_embd, h.device))
-        return self.blocks(h, remat=remat, remat_mask=remat_mask,
-                           unroll=unroll, segment_ids=segment_ids,
-                           dropout_seed=s_blocks)
+        out = self.blocks(h, remat=remat, remat_mask=remat_mask,
+                          unroll=unroll, segment_ids=segment_ids,
+                          dropout_seed=s_blocks)
+        return with_aux(self.blocks, out)
 
     def head_loss(self, h, labels, *, ignore_index: int = -100):
         """Final norm + LM loss (tied head) on pre-norm backbone output."""
@@ -157,14 +194,17 @@ class GPTLMHeadModel(nn.Module):
                                       ignore_index=ignore_index)
 
     def loss(self, input_ids, labels, *, ignore_index: int = -100, **kwargs):
-        """Mean LM loss; ``kwargs`` go to :meth:`backbone`."""
-        return self.head_loss(self.backbone(input_ids, **kwargs), labels,
-                              ignore_index=ignore_index)
+        """Mean LM loss plus ``moe_aux_coef`` times the MoE aux
+        (``:236-242``); ``kwargs`` go to :meth:`backbone`."""
+        h, aux = self.backbone(input_ids, **kwargs)
+        return add_aux(self.cfg, self.head_loss(h, labels,
+                                                ignore_index=ignore_index),
+                       aux)
 
     def forward(self, input_ids, **kwargs):
         """Full fp32 logits (b, s, V)."""
-        return self.logits(self.hidden_norm(self.backbone(input_ids,
-                                                          **kwargs)))
+        h, _ = self.backbone(input_ids, **kwargs)
+        return self.logits(self.hidden_norm(h))
 
     def hidden_norm(self, h):
         return self.ln_f(h)

@@ -2,8 +2,9 @@
 RoPE, GQA, SwiGLU, an untied LM head by default. The training forward
 (``loss``: residual and attention dropout, remat through
 ``StackedBlocks``), the inference forward and the decode path the
-serving engine runs; mixture-of-experts comes with expert
-parallelism."""
+serving engine runs. With ``num_experts > 0`` each block's FFN is a
+mixture of SwiGLU experts (``nn/moe.py``) on one device; expert
+parallelism comes with slice 4."""
 
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from torch import nn
 
 from hetu_tpu_torch import resolve_device
 from hetu_tpu_torch.nn.layers import RMSNorm
+from hetu_tpu_torch.nn.moe import add_aux, moe_mlp, with_aux
 from hetu_tpu_torch.nn.parallel import (
     ColumnParallelLinear, ParallelAttention, ParallelMLP, StackedBlocks,
     VocabParallelEmbedding,
@@ -26,8 +28,7 @@ from hetu_tpu_torch.ops.losses import vocab_parallel_lm_loss
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
-    """``hetu_tpu/models/llama.py:30-70``; the defaults are Llama-2-7B.
-    The MoE settings come with the slice that reads them."""
+    """``hetu_tpu/models/llama.py:30-70``; the defaults are Llama-2-7B."""
 
     vocab_size: int = 32000
     hidden_size: int = 4096
@@ -46,8 +47,14 @@ class LlamaConfig:
     resid_pdrop: float = 0.0
     # on the attention probabilities, inside the flash kernels
     attn_pdrop: float = 0.0
-    # 0 = dense; experts (and their gate settings) wait for the MoE slice
+    # mixture of experts (0 experts: dense; experts are SwiGLU like the
+    # dense MLP): see ``GPTConfig``
     num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_coef: float = 0.01
+    moe_gate: str = "topk"   # "topk" | "ktop1" | "sam" | "balance"
+    moe_num_groups: int = 0  # SAM expert groups (0 = gate default)
 
     @classmethod
     def llama_7b(cls):
@@ -70,10 +77,6 @@ class LlamaBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, *, device=None,
                  dtype=torch.float32):
         super().__init__()
-        if cfg.num_experts > 0:
-            raise NotImplementedError(
-                "Llama with num_experts > 0 needs the MoE layer and "
-                "expert parallelism: slice 4")
         kw = dict(device=device, dtype=dtype)
         self.input_norm = RMSNorm(cfg.hidden_size, eps=cfg.rms_norm_eps, **kw)
         self.attn = ParallelAttention(
@@ -83,8 +86,13 @@ class LlamaBlock(nn.Module):
             rope_theta=cfg.rope_theta, max_positions=cfg.max_positions, **kw)
         self.post_attn_norm = RMSNorm(cfg.hidden_size, eps=cfg.rms_norm_eps,
                                       **kw)
-        self.mlp = ParallelMLP(cfg.hidden_size, cfg.intermediate_size,
-                               bias=False, gated=True, **kw)
+        #: an MoE block returns ``(x, aux)`` from ``forward``
+        self.returns_aux = cfg.num_experts > 0
+        if self.returns_aux:
+            self.mlp = moe_mlp(cfg, cfg.intermediate_size, gated=True, **kw)
+        else:
+            self.mlp = ParallelMLP(cfg.hidden_size, cfg.intermediate_size,
+                                   bias=False, gated=True, **kw)
         self.resid_pdrop = cfg.resid_pdrop
         self.attn_pdrop = cfg.attn_pdrop
 
@@ -93,7 +101,7 @@ class LlamaBlock(nn.Module):
         """Training forward (``hetu_tpu/models/llama.py:130-156``); the
         seed splits as the JAX key does: three ways with attention
         dropout, else two ways with residual dropout. Without a seed it
-        is the inference forward."""
+        is the inference forward. An MoE block returns ``(x, aux)``."""
         sa = s1 = s2 = None
         if dropout_seed is not None and self.attn_pdrop > 0:
             sa, s1, s2 = split_seed(dropout_seed, 3)
@@ -104,11 +112,16 @@ class LlamaBlock(nn.Module):
                       dropout_seed=sa)
         x = x + dropout(a, self.resid_pdrop, generator_for(s1, x.device))
         h = self.mlp(self.post_attn_norm(x))
-        return x + dropout(h, self.resid_pdrop, generator_for(s2, x.device))
+        if self.returns_aux:
+            h, aux = h
+        x = x + dropout(h, self.resid_pdrop, generator_for(s2, x.device))
+        return (x, aux) if self.returns_aux else x
 
     def decode(self, x, kv_cache, **kwargs):
+        """Decode mode; an MoE FFN runs ``MoEMLP.decode``."""
         x = x + self.attn.decode(self.input_norm(x), kv_cache, **kwargs)
-        return x + self.mlp(self.post_attn_norm(x))
+        mlp = self.mlp.decode if self.returns_aux else self.mlp
+        return x + mlp(self.post_attn_norm(x))
 
 
 class LlamaLMHeadModel(nn.Module):
@@ -170,13 +183,15 @@ class LlamaLMHeadModel(nn.Module):
         without the final norm (``head_loss`` applies it). ``positions``
         (b, s) rotate q and k (default ``arange(s)``); a packed batch
         restarts them at each document. ``dropout_seed=None`` (eval)
-        disables dropout whatever the config's rates. A dense model has no
-        auxiliary loss, so this returns the hidden states alone."""
+        disables dropout whatever the config's rates. Returns ``(h,
+        aux)`` (``:191-204``): the MoE aux summed over layers, an fp32
+        zero for a dense model."""
         h = self.embed(input_ids)
-        return self.blocks(h, remat=remat, remat_mask=remat_mask,
-                           unroll=unroll, positions=positions,
-                           segment_ids=segment_ids,
-                           dropout_seed=dropout_seed)
+        out = self.blocks(h, remat=remat, remat_mask=remat_mask,
+                          unroll=unroll, positions=positions,
+                          segment_ids=segment_ids,
+                          dropout_seed=dropout_seed)
+        return with_aux(self.blocks, out)
 
     def head_loss(self, h, labels, *, ignore_index: int = -100):
         """Final norm + LM loss (``hetu_tpu/models/llama.py:184``) on
@@ -186,11 +201,12 @@ class LlamaLMHeadModel(nn.Module):
                                       labels, ignore_index=ignore_index)
 
     def loss(self, input_ids, labels, *, ignore_index: int = -100, **kwargs):
-        """Mean LM loss (``:219``); ``kwargs`` go to :meth:`backbone`. JAX
-        adds ``moe_aux_coef`` times the auxiliary loss, which is 0 for a
-        dense model."""
-        return self.head_loss(self.backbone(input_ids, **kwargs), labels,
-                              ignore_index=ignore_index)
+        """Mean LM loss plus ``moe_aux_coef`` times the MoE aux
+        (``:219-223``); ``kwargs`` go to :meth:`backbone`."""
+        h, aux = self.backbone(input_ids, **kwargs)
+        return add_aux(self.cfg, self.head_loss(h, labels,
+                                                ignore_index=ignore_index),
+                       aux)
 
     def hidden_norm(self, h):
         return self.final_norm(h)
@@ -208,5 +224,5 @@ class LlamaLMHeadModel(nn.Module):
 
     def forward(self, input_ids, **kwargs):
         """Full fp32 logits (b, s, V)."""
-        return self.logits(self.hidden_norm(self.backbone(input_ids,
-                                                          **kwargs)))
+        h, _ = self.backbone(input_ids, **kwargs)
+        return self.logits(self.hidden_norm(h))

@@ -1,0 +1,385 @@
+"""Mixture-of-experts on one device (counterpart of
+``hetu_tpu/nn/moe.py``): the gate zoo, ``MoEMLP``'s capacity-free
+forward with its load-balance auxiliary loss, and its decode lane.
+
+- Gates route in fp32 on fp32 weights (``x @ W``, W stored ``(d, E)`` as
+  ``hetu_tpu`` stores it): top-k softmax (``TopKGate``), k top-1 routers
+  over disjoint expert groups (``KTop1Gate``), group-then-top-k
+  (``SAMGate``) and Sinkhorn-balanced top-1 (``BalanceGate``). The aux
+  loss reads each token's first choice only, over every token (pad rows
+  included), as ``hetu_tpu`` does.
+- Expert params stay stacked on a leading expert axis: ``wi``/``wg``
+  ``(E, d, H)``, ``wo`` ``(E, H, d)`` (``models.convert`` un-stacks the
+  layer axis only).
+- ``MoEMLP.forward`` is ``hetu_tpu``'s single-device branch
+  (``_dense_forward``): every expert runs every token in the compute
+  dtype, and the combine over one-hot times gate weight runs in fp32.
+  It returns ``(out, aux)``.
+- ``MoEMLP.decode`` computes only the k chosen experts of each row
+  through gathered weight slices (``wi[idx]`` is ``(T, k, d, H)``), with
+  static shapes and no host sync, so it runs inside the serving engine's
+  captured lanes. A batch-coupled gate (``BalanceGate``) cannot decode:
+  its routing of one row depends on the rows batched with it.
+
+Expert parallelism (the ep all-to-all, its overlap and the hierarchical
+exchange), the expert-plane telemetry and the W8A8 decode lane are not
+ported.
+"""
+
+from __future__ import annotations
+
+import math
+import warnings
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from hetu_tpu_torch.core.dtypes import current_policy
+from hetu_tpu_torch.ops.activations import gelu, swiglu
+
+
+def _balance_aux(first_idx, probs, n: int):
+    """``n · Σ_e f_e · P_e``: f from the first choices, P the mean
+    probability (over the last axis of ``probs``, means over tokens)."""
+    first = F.one_hot(first_idx.long(), n).to(torch.float32)
+    return n * torch.sum(first.mean(0) * probs.mean(0))
+
+
+class TopKGate(nn.Module):
+    """Softmax router with top-k selection and the Switch/GShard aux loss
+    (``hetu_tpu/nn/moe.py:55``); the weights renormalize when k > 1."""
+
+    batch_coupled = False
+
+    def __init__(self, features: int, num_experts: int, k: int = 2, *,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        self.num_experts = num_experts
+        self.k = k
+        self.weight = nn.Parameter(torch.empty(features, num_experts,
+                                               device=device, dtype=dtype))
+
+    def forward(self, x):
+        """x (T, d) → (idx (T, k) int32, weights (T, k) fp32, aux)."""
+        probs = torch.softmax(x.float() @ self.weight.float(), dim=-1)
+        top_w, top_idx = torch.topk(probs, self.k, dim=-1)
+        if self.k > 1:
+            top_w = top_w / top_w.sum(-1, keepdim=True)
+        aux = _balance_aux(top_idx[:, 0], probs, self.num_experts)
+        return top_idx.to(torch.int32), top_w, aux
+
+
+class KTop1Gate(nn.Module):
+    """k independent top-1 routers over disjoint groups of E/k experts
+    (``:88``): one expert a group, weighted by its raw group softmax
+    probability; aux is the sum of the groups' balance losses."""
+
+    batch_coupled = False
+
+    def __init__(self, features: int, num_experts: int, k: int = 2, *,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        if num_experts % k != 0:
+            raise ValueError(f"num_experts {num_experts} must divide by "
+                             f"k {k} prototype groups")
+        self.num_experts = num_experts
+        self.k = k
+        self.weight = nn.Parameter(torch.empty(features, num_experts,
+                                               device=device, dtype=dtype))
+
+    def forward(self, x):
+        T, Eg = x.shape[0], self.num_experts // self.k
+        logits = x.float() @ self.weight.float()
+        probs = torch.softmax(logits.view(T, self.k, Eg), dim=-1)
+        local = probs.argmax(-1)                             # (T, k)
+        w = torch.gather(probs, -1, local[..., None])[..., 0]
+        offs = torch.arange(self.k, device=x.device) * Eg
+        idx = (local + offs[None, :]).to(torch.int32)
+        aux = _balance_aux(local, probs, Eg)
+        return idx, w, aux
+
+
+class SAMGate(nn.Module):
+    """Locality-aware gate (``:129``): the expert group with the most gate
+    mass wins, then the top-k experts inside it (raw probabilities). Aux:
+    the balance loss plus ``alignment_coef`` times the mean mass outside
+    the chosen group."""
+
+    batch_coupled = False
+
+    def __init__(self, features: int, num_experts: int, k: int = 2, *,
+                 num_groups: int = 2, alignment_coef: float = 1.0,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        if num_experts % num_groups != 0:
+            raise ValueError(f"num_experts {num_experts} must divide by "
+                             f"num_groups {num_groups}")
+        if k > num_experts // num_groups:
+            raise ValueError("k cannot exceed experts per group")
+        self.num_experts = num_experts
+        self.k = k
+        self.num_groups = num_groups
+        self.alignment_coef = alignment_coef
+        self.weight = nn.Parameter(torch.empty(features, num_experts,
+                                               device=device, dtype=dtype))
+
+    def forward(self, x):
+        T = x.shape[0]
+        G, Eg = self.num_groups, self.num_experts // self.num_groups
+        probs = torch.softmax(x.float() @ self.weight.float(), dim=-1)
+        pg = probs.view(T, G, Eg)
+        group_mass = pg.sum(-1)                              # (T, G)
+        g_star = group_mass.argmax(-1)                       # (T,)
+        in_group = torch.gather(
+            pg, 1, g_star[:, None, None].expand(T, 1, Eg))[:, 0]
+        w, local = torch.topk(in_group, self.k, dim=-1)
+        idx = (local + g_star[:, None] * Eg).to(torch.int32)
+        aux = _balance_aux(idx[:, 0], probs, self.num_experts)
+        out_of_group = 1.0 - torch.gather(group_mass, 1,
+                                          g_star[:, None])[:, 0]
+        return idx, w, aux + self.alignment_coef * out_of_group.mean()
+
+
+class BalanceGate(nn.Module):
+    """Balanced assignment by Sinkhorn (``:182``): ``n_iters`` row/column
+    renormalizations of ``x @ centroids^T / temperature`` towards T/E
+    tokens an expert, then each token's argmax; weight ``sigmoid`` of the
+    chosen affinity, k = 1, aux 0."""
+
+    #: the column marginal couples every row of the batch, so a row's
+    #: routing depends on its batch-mates (decode refuses this gate)
+    batch_coupled = True
+
+    def __init__(self, features: int, num_experts: int, *,
+                 n_iters: int = 24, temperature: float = 0.02,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        self.num_experts = num_experts
+        self.k = 1
+        self.n_iters = n_iters
+        self.temperature = temperature
+        self.centroids = nn.Parameter(torch.empty(
+            num_experts, features, device=device, dtype=dtype))
+
+    def forward(self, x):
+        T = x.shape[0]
+        scores = x.float() @ self.centroids.float().t()
+        logp = scores / self.temperature
+        log_col = math.log(T / self.num_experts)
+        for _ in range(self.n_iters):
+            logp = torch.log_softmax(logp, dim=1)
+            logp = logp - torch.logsumexp(logp, dim=0, keepdim=True) \
+                + log_col
+        idx = logp.argmax(-1)[:, None]
+        w = torch.sigmoid(torch.gather(scores, -1, idx))
+        return (idx.to(torch.int32), w,
+                torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+GATE_TYPES = {"topk": TopKGate, "ktop1": KTop1Gate, "sam": SAMGate,
+              "balance": BalanceGate}
+
+
+def make_gate(gate_type: str, features: int, num_experts: int,
+              k: int = 2, **kw) -> nn.Module:
+    """Gate factory for config-driven construction (``:239``); the
+    balance gate is top-1 whatever ``k`` asks, with a warning."""
+    if gate_type not in GATE_TYPES:
+        raise ValueError(f"unknown gate {gate_type!r}; "
+                         f"have {sorted(GATE_TYPES)}")
+    if gate_type == "balance":
+        if k != 1:
+            warnings.warn(
+                f"balance gate is top-1 by construction (BASE layers); "
+                f"requested k={k} is downgraded to 1 (capacity and "
+                f"per-token compute follow)", stacklevel=2)
+        return BalanceGate(features, num_experts, **kw)
+    return GATE_TYPES[gate_type](features, num_experts, k=k, **kw)
+
+
+class HashGate:
+    """Hash routing (``:372``): expert = token id mod E, weight 1, aux 0.
+    It routes token ids, not hidden states, and holds no params."""
+
+    def __init__(self, num_experts: int):
+        self.num_experts = num_experts
+        self.k = 1
+
+    def __call__(self, token_ids):
+        idx = (token_ids.reshape(-1, 1) % self.num_experts).to(torch.int32)
+        return (idx, torch.ones(idx.shape, dtype=torch.float32,
+                                device=idx.device),
+                torch.zeros((), dtype=torch.float32, device=idx.device))
+
+
+def gate_drop_stats(idx, num_experts: int, k: int,
+                    capacity_factor: float) -> dict:
+    """Capacity statistics of a gate decision (``:259``): the share of
+    (token, choice) slots past an expert's capacity ``ceil(factor · T ·
+    k / E)`` in token order, the per-expert load and its max over mean."""
+    T, E = idx.shape[0], num_experts
+    C = max(1, math.ceil(capacity_factor * T * k / E))
+    idx_f = idx.reshape(T * k).long()
+    oh = F.one_hot(idx_f, E)
+    pos = (torch.cumsum(oh, 0) - oh)[torch.arange(T * k,
+                                                  device=idx.device), idx_f]
+    load = oh.sum(0)
+    return {"drop_frac": (pos >= C).to(torch.float32).mean(),
+            "expert_load": load,
+            "load_imbalance": load.max() / load.float().mean().clamp(min=1),
+            "capacity": C}
+
+
+def _ordered_gaps(scores, k: int):
+    """Per-row least gap between consecutive sorted scores down to the
+    (k+1)-th (or the last): a top-k set and its order flip only under
+    it."""
+    s = torch.sort(scores, dim=-1, descending=True).values
+    n = min(k + 1, s.shape[-1])
+    return (s[..., :n - 1] - s[..., 1:n]).min(-1).values
+
+
+@torch.no_grad()
+def routing_margins(gate, x):
+    """Each row's decision margin under ``gate`` on ``x`` (T, d): the
+    least score gap any of its discrete choices rests on (the top-k
+    probabilities and their order; each group's top-1; SAM's group, then
+    its top-k; the balance gate's final Sinkhorn log-plan). Rounding
+    noise of the size of the margin can flip a row's routing, so a
+    comparison of two implementations compares routing first and counts
+    the rows with small margins."""
+    T = x.shape[0]
+    if isinstance(gate, BalanceGate):
+        scores = x.float() @ gate.centroids.float().t()
+        logp = scores / gate.temperature
+        for _ in range(gate.n_iters):
+            logp = torch.log_softmax(logp, dim=1)
+            logp = logp - torch.logsumexp(logp, dim=0, keepdim=True) \
+                + math.log(T / gate.num_experts)
+        return _ordered_gaps(logp, 1)
+    probs = torch.softmax(x.float() @ gate.weight.float(), dim=-1)
+    if isinstance(gate, KTop1Gate):
+        return _ordered_gaps(probs.view(T, gate.k, -1), 1).min(-1).values
+    if isinstance(gate, SAMGate):
+        pg = probs.view(T, gate.num_groups, -1)
+        mass = pg.sum(-1)
+        in_group = pg[torch.arange(T, device=x.device), mass.argmax(-1)]
+        return torch.minimum(_ordered_gaps(mass, 1),
+                             _ordered_gaps(in_group, gate.k))
+    return _ordered_gaps(probs, gate.k)
+
+
+def refuse_batch_coupled(model) -> None:
+    """Raise if ``model`` routes through a batch-coupled gate: a serving
+    step packs rows of unrelated requests, so its tokens would depend on
+    which requests share it and could never match one-shot generation."""
+    for mod in model.modules():
+        if isinstance(mod, MoEMLP) and mod.gate.batch_coupled:
+            raise NotImplementedError(
+                f"MoE decoding needs a per-token gate; "
+                f"{type(mod.gate).__name__} routes over the whole "
+                f"co-batched row set, so decoded tokens would depend on "
+                f"which rows share a step")
+
+
+class MoEMLP(nn.Module):
+    """The FFN of an MoE block (``:388``): a gate and E stacked expert
+    FFNs, GELU (``gated=False``) or SwiGLU (``gated=True``). ``forward``
+    returns ``(out, aux)``; ``decode`` returns the output alone."""
+
+    def __init__(self, features: int, hidden: int, num_experts: int, *,
+                 k: int = 2, capacity_factor: float = 1.25,
+                 gated: bool = False, gate_type: str = "topk",
+                 gate_kwargs: Optional[dict] = None, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.num_experts = num_experts
+        #: read only by :func:`gate_drop_stats` on one device
+        self.capacity_factor = capacity_factor
+        self.gated = gated
+        self.gate = make_gate(gate_type, features, num_experts, k=k,
+                              **(gate_kwargs or {}), **kw)
+        self.k = self.gate.k          # the balance gate forces k = 1
+        self.wi = nn.Parameter(torch.empty(num_experts, features, hidden,
+                                           **kw))
+        if gated:
+            self.wg = nn.Parameter(torch.empty(num_experts, features,
+                                               hidden, **kw))
+        self.wo = nn.Parameter(torch.empty(num_experts, hidden, features,
+                                           **kw))
+
+    def _activate(self, x, w_in, w_gate):
+        """The expert hidden from ``x @ w_in`` (and ``x @ w_gate``), with
+        ``matmul`` broadcasting ``x`` against each weight's batch dims."""
+        h = torch.matmul(x, w_in)
+        if self.gated:
+            return swiglu(torch.matmul(x, w_gate), h)
+        return gelu(h)
+
+    def forward(self, x):
+        """x (b, s, d) → (out (b, s, d) in x's dtype, aux fp32)."""
+        b, s, d = x.shape
+        xf = x.reshape(b * s, d)
+        idx, wgt, aux = self.gate(xf)
+        dt = current_policy().compute_dtype
+        xc = xf.to(dt)
+        h = self._activate(xc, self.wi.to(dt),
+                           self.wg.to(dt) if self.gated else None)
+        ye = torch.matmul(h, self.wo.to(dt))                 # (E, T, d)
+        combine = torch.zeros(xf.shape[0], self.num_experts,
+                              dtype=torch.float32, device=x.device)
+        for j in range(self.k):
+            combine = combine + wgt[:, j, None] * F.one_hot(
+                idx[:, j].long(), self.num_experts).to(torch.float32)
+        out = torch.einsum("te,etd->td", combine, ye.float())
+        return out.reshape(b, s, d).to(x.dtype), aux
+
+    def decode(self, x):
+        """Per-row top-k through the chosen experts' gathered weights
+        (``:533``, its fp lane): x (b, s, d) → (b, s, d) in x's dtype,
+        the k outputs summed in fp32 by gate weight."""
+        refuse_batch_coupled(self)
+        b, s, d = x.shape
+        xf = x.reshape(b * s, d)
+        idx, wgt, _ = self.gate(xf)
+        idx = idx.long()
+        dt = current_policy().compute_dtype
+        xc = xf.to(dt)[:, None, None, :]                     # (T, 1, 1, d)
+        h = self._activate(xc, self.wi[idx].to(dt),          # (T, k, 1, H)
+                           self.wg[idx].to(dt) if self.gated else None)
+        y = torch.matmul(h, self.wo[idx].to(dt))[:, :, 0]    # (T, k, d)
+        out = torch.sum(wgt[..., None] * y.float(), dim=1)
+        return out.reshape(b, s, d).to(x.dtype)
+
+
+def moe_mlp(cfg, hidden: int, *, gated: bool, **kw) -> MoEMLP:
+    """The MoE FFN of a GPT or Llama config's block (SAM's group count
+    passed only when set, as ``hetu_tpu`` does)."""
+    gkw = {"num_groups": cfg.moe_num_groups} \
+        if cfg.moe_gate == "sam" and cfg.moe_num_groups else None
+    return MoEMLP(cfg.hidden_size, hidden, cfg.num_experts,
+                  k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
+                  gated=gated, gate_type=cfg.moe_gate, gate_kwargs=gkw,
+                  **kw)
+
+
+def with_aux(blocks, out):
+    """``(h, aux)`` from ``StackedBlocks.forward``'s result: an fp32 zero
+    aux for dense blocks, which return ``h`` alone."""
+    if blocks.returns_aux:
+        return out
+    return out, torch.zeros((), dtype=torch.float32, device=out.device)
+
+
+def add_aux(cfg, lm, aux):
+    """``lm + moe_aux_coef · aux``; a dense model's loss is ``lm`` itself
+    (its aux is 0), so its value and graph stay as they were."""
+    return lm + cfg.moe_aux_coef * aux if cfg.num_experts > 0 else lm
+
+
+__all__ = ["BalanceGate", "GATE_TYPES", "HashGate", "KTop1Gate", "MoEMLP",
+           "SAMGate", "TopKGate", "add_aux", "gate_drop_stats", "make_gate",
+           "moe_mlp", "refuse_batch_coupled", "routing_margins", "with_aux"]

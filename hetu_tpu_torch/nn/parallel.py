@@ -377,6 +377,11 @@ class StackedBlocks(nn.ModuleList):
     def block(self) -> nn.Module:
         return self[0]
 
+    @property
+    def returns_aux(self) -> bool:
+        """True when each block returns ``(x, aux)`` (an MoE block)."""
+        return bool(getattr(self[0], "returns_aux", False))
+
     def forward(self, x, *, remat: str = "none",
                 remat_mask: Optional[Sequence[bool]] = None,
                 unroll: bool = False, positions=None, segment_ids=None,
@@ -389,7 +394,10 @@ class StackedBlocks(nn.ModuleList):
         ``positions`` and ``segment_ids`` (b, s) reach every block, as the
         JAX scan passes them on (a packed batch restarts positions at each
         document: RoPE reads them, GPT-2's blocks ignore them);
-        ``dropout_seed`` is split into one seed per layer."""
+        ``dropout_seed`` is split into one seed per layer. Blocks that
+        return an auxiliary loss (:attr:`returns_aux`) make this return
+        ``(x, aux)``, aux summed over the layers in fp32 from zero
+        (``hetu_tpu/nn/parallel.py:941-988``), under every remat."""
         del unroll
         n = len(self)
         if remat_mask is not None:
@@ -405,16 +413,23 @@ class StackedBlocks(nn.ModuleList):
         seeds = [None] * n if dropout_seed is None \
             else split_seed(dropout_seed, n)
         policy = current_policy()
+        aux = torch.zeros((), dtype=torch.float32, device=x.device) \
+            if self.returns_aux else None
         for blk, flag, seed in zip(self, flags, seeds):
             if flag:
-                x = checkpoint(_run_block, blk, policy, x, positions,
-                               segment_ids, seed, use_reentrant=False,
-                               preserve_rng_state=False,
-                               context_fn=context_fn)
+                out = checkpoint(_run_block, blk, policy, x, positions,
+                                 segment_ids, seed, use_reentrant=False,
+                                 preserve_rng_state=False,
+                                 context_fn=context_fn)
             else:
-                x = blk(x, positions=positions, segment_ids=segment_ids,
-                        dropout_seed=seed)
-        return x
+                out = blk(x, positions=positions, segment_ids=segment_ids,
+                          dropout_seed=seed)
+            if aux is None:
+                x = out
+            else:
+                x, a = out
+                aux = aux + a
+        return x if aux is None else (x, aux)
 
     def decode(self, x, caches, **kwargs):
         """``caches``: ``(k, v)`` or the int8 ``(k, k scales, v, v

@@ -58,6 +58,7 @@ import torch
 
 from hetu_tpu_torch import resolve_device
 from hetu_tpu_torch.models import generation
+from hetu_tpu_torch.nn.moe import refuse_batch_coupled
 from hetu_tpu_torch.ops import _build
 from hetu_tpu_torch.serving.kv_pool import BlockManager, KVPool
 from hetu_tpu_torch.serving.prefix_cache import PrefixCache
@@ -85,7 +86,9 @@ class ServingEngine:
     (``with core.autocast(BF16_FULL): ServingEngine(...)`` for a bf16
     model). The graphs replay the addresses they captured: the model's
     parameters must keep their storage while the engine lives (no
-    ``model.to(...)`` after it is built)."""
+    ``model.to(...)`` after it is built). An MoE model decodes through
+    ``MoEMLP.decode`` in both lanes; one whose gate couples the rows of a
+    batch (the balance gate) raises before anything is captured."""
 
     def __init__(self, model, *, slots: int, max_len: int = 256,
                  prefill_chunk: int = 16, block_size: Optional[int] = None,
@@ -95,6 +98,7 @@ class ServingEngine:
         if model.device.type != self.device.type:
             raise ValueError(f"model is on {model.device}, the engine was "
                              f"asked for {self.device}")
+        refuse_batch_coupled(model)
         if block_size is None:
             block_size = 16 if max_len % 16 == 0 else max_len
         if self.device.type == "cuda":

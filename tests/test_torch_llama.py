@@ -396,10 +396,18 @@ def test_llama_generate_int8_matches_jax(pair, s, new):
 
 
 def test_llama_refuses_experts_and_has_the_7b_widths():
+    """Experts build on one device (SwiGLU ``MoEMLP``s); what is still
+    refused is expert parallelism (slice 4)."""
     import dataclasses
+    from hetu_tpu_torch.nn.moe import MoEMLP
+    from hetu_tpu_torch.parallel import Strategy
+    model = LlamaLMHeadModel(dataclasses.replace(LlamaConfig.tiny(),
+                                                 num_experts=2),
+                             device="cpu")
+    assert all(isinstance(b.mlp, MoEMLP) and b.mlp.gated
+               for b in model.blocks)
     with pytest.raises(NotImplementedError, match="slice 4"):
-        LlamaLMHeadModel(dataclasses.replace(LlamaConfig.tiny(),
-                                             num_experts=2), device="cpu")
+        Strategy(ep=2)
     for name in ("llama_7b", "llama_13b", "tiny"):
         ours = dataclasses.asdict(getattr(LlamaConfig, name)())
         theirs = dataclasses.asdict(getattr(JaxLlamaConfig, name)())

@@ -320,6 +320,10 @@ def test_llama_train_step_threads_positions_and_segments(tiny):
 
 
 def test_moe_llama_still_refuses():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        LlamaLMHeadModel(dataclasses.replace(LlamaConfig.tiny(),
-                                             num_experts=4), device="cpu")
+    """A Llama-MoE trains on one device (``tests/test_torch_moe.py``
+    holds it to ``hetu_tpu``); expert parallelism still refuses."""
+    model = LlamaLMHeadModel(dataclasses.replace(LlamaConfig.tiny(),
+                                                 num_experts=4), device="cpu")
+    assert model.blocks.returns_aux
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        make_plan(model, optim.adamw(1e-3), Strategy(ep=4), device="cpu")
