@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``hetu_tpu_torch``) on one NVIDIA
 GPU: builds the hand-written kernels, holds each against its plain
 PyTorch version, serves GPT-2 small through ``ServingEngine``, trains
-it with ``build_train_step``, serves Llama-7B from the int8 KV arena,
+it with ``build_train_step``, serves Llama-7B from the int8 KV arena
+(also from an arena sized by an HBM budget, and under preemption),
 trains Llama at 7B width through ``Trainer`` and ``SFTTrainer``, and
 trains (BASELINE config 4) and serves GPT-MoE 8-expert.
 
@@ -149,7 +150,35 @@ Phases, each printing one JSON line:
    all under the split-KV lane), the step split, ``step_graph_replay``
    (bf16, int8 arena), and the LM head's per-call fp32 cast against a
    held fp32 copy. The GPT-2 engine is profiled the same two ways.
-13. llama_engine_oracle_fp32 -- the same engine and workload at fp32,
+13. memory pressure -- the llama_engine's model served three more ways.
+   ``llama_budget_engine``: ``ServingEngine(hbm_budget_bytes=40e9,
+   max_len=2048, prefill_chunk=256, block_size=16, cache_dtype=int8)``
+   sizes its arena by ``engine/memory.py``'s ledger (4 bytes a
+   parameter, 10% headroom): the slot count must be the ledger's and the
+   arena ``n_blocks`` x ``kv_bytes_per_block`` bytes exactly; it serves
+   ``llama_workload``'s burst once (launches as in ``llama_engine``, the
+   first 16 requests against the bf16 oracle) and prints the real
+   footprint beside the ledger's. ``llama_preempt``: ``slots=16,
+   kv_blocks=385`` (8 worst-case batch requests of 512 + 256 tokens), 16
+   batch requests (priority 2) at once and, at steps 24, 104 and 184, a
+   wave of 4 interactive ones (priority 0, 256 + 64): with
+   ``preempt=True`` and a 4e9 B host spill arena (its bytes in the
+   engine's spill store) at least one batch request is preempted,
+   spilled and resumed; every spill must land in the store; every
+   victim's restored blocks must be bit-equal to its host copy and to
+   its blocks before the spill (all four leaves, its ``pos`` rows), its
+   prefill chunks unchanged and its tokens equal to the same schedule's
+   with ``preempt=False``; every request within the bf16 oracle's
+   bounds, the spill arena drained, one capture a lane,
+   ``step_graph_replay`` bit-equal after the resumes. Printed: the
+   interactive TTFT of both runs, each step's host ms (spill steps
+   beside decode-only steps), the never-preempted batch TPOT of both
+   runs, spill and resume ms, and each spill's parts timed apart
+   (gather, fresh pinned allocation, D2H copy, cached allocation).
+   ``llama_evict_resume``: a decoding request evicted from one engine
+   (``evict_request``) resumes on another (``submit(resume=)``) with no
+   prefill and the undisturbed run's tokens; its spill's parts timed.
+14. llama_engine_oracle_fp32 -- the same engine and workload at fp32,
    full width and 2 layers, all 64 requests against the same oracle:
    from an fp32 arena under the 1e-4 rule, then from the int8 arena
    under ``DLOGIT_INT8_FP32``/``TIE_INT8_FP32`` (int8 codes amplify
@@ -157,12 +186,12 @@ Phases, each printing one JSON line:
    (its prompt in 256-token chunks against one pass), and the planted
    faults, which those bounds must fail; each engine's lanes captured
    once, and ``step_graph_replay`` on the fp32 arena.
-14. llama_train_oracle -- one fp32 step of ``LlamaConfig.llama_7b``'s
+15. llama_train_oracle -- one fp32 step of ``LlamaConfig.llama_7b``'s
    width at 1 layer (vocab 32,000), kernels on the card against the
    plain path on the CPU, on one packed row of 256 tokens holding three
    documents (positions restart at each): the bounds of ``train_oracle``
    and exactly one launch of each flash kernel.
-15. llama_train -- the repo's Llama training benchmark
+16. llama_train -- the repo's Llama training benchmark
    (``workloads/bench_suite.py:139-167``, config 3), its measured half:
    Llama-7B width at 2 layers, seq 2048, batch 4, ``Strategy(remat=
    "selective", unroll=True)``, ``adamw(1e-4)``, through
@@ -172,24 +201,24 @@ Phases, each printing one JSON line:
    timed steps. The loss must fall; launches exactly 2 a step of each
    flash kernel (counters zeroed just before the timed steps). Step ms,
    tokens/s, MFU against 989 TFLOP/s, peak memory.
-16. llama_train_profile -- 3 steps under ``torch.profiler``: device ms a
+17. llama_train_profile -- 3 steps under ``torch.profiler``: device ms a
    step by class (``TRAIN_CLASSES``: the kernels, matmul, AdamW's
    ``_foreach_*``, casts/copies, norms, the grad norm, other reductions,
    index/scatter, fill, elementwise), the idle share, and ``lane`` lines
    that put #2-#4 under their tensor-core symbols.
-17. llama_train kernels -- #2-#4 at the batch that ran ((4, 32, 2048,
+18. llama_train kernels -- #2-#4 at the batch that ran ((4, 32, 2048,
    128) bf16, causal, its packed segment ids), with and without dropout
    0.1, against their plain versions (2e-2) and rerun bit-equal; then
    timed as in ``train_kernels``, with the bound from the batch's live
    (q, k) pairs and SDPA (``is_causal``: forward, backward, both) as the
    library yardstick.
-18. llama_sft -- ``SFTTrainer.fit`` from ``llama_train``'s weights with
+19. llama_sft -- ``SFTTrainer.fit`` from ``llama_train``'s weights with
    ``resid_pdrop=0.1`` and ``chain(clip_by_global_norm(1.0), adamw(5e-4,
    weight_decay=0.01))`` (``examples/sft.py``), 10 steps over four
    (prompt, response) pairs of 128-512 / 128-1,536 tokens, repeated, at
    seq 2048, batch 4, ``shuffle=False``: the response-only loss must
    fall, launches exactly 2 a step; the grad norms before the clip.
-19. moe_train_oracle -- one fp32 step of ``GPTConfig.moe_8e``'s width
+20. moe_train_oracle -- one fp32 step of ``GPTConfig.moe_8e``'s width
    (768, 8 GELU experts of 3072, vocab 50257) at 1 layer with each gate
    (topk, ktop1, sam with 2 groups, balance), kernels on the card
    against the plain path on the CPU, at batch 1 x 256. The routing is
@@ -197,7 +226,7 @@ Phases, each printing one JSON line:
    within 1e-4 of a routing tie (``nn.moe.routing_margins``; counts
    printed) and leave the step's labels; then ``train_oracle``'s bounds
    and exactly one launch of each flash kernel.
-20. moe_train -- BASELINE config 4 (``workloads/bench_suite.py:170-185``):
+21. moe_train -- BASELINE config 4 (``workloads/bench_suite.py:170-185``):
    ``moe_8e`` cut to 6 layers (280 M params), batch 8, seq 1024, fp32
    params with bf16 compute, ``Strategy(unroll=True)``, ``adamw(1e-4)``,
    through ``Trainer.train(precision="bf16")`` on one random batch
@@ -206,7 +235,7 @@ Phases, each printing one JSON line:
    active params (expert tensors at k/E) against 989 TFLOP/s beside the
    Trainer's all-params figure, peak memory; then ``moe_train_profile``
    (as ``train_profile``).
-21. moe_engine -- ``moe_8e`` uncut (12 layers, fp32) served by
+22. moe_engine -- ``moe_8e`` uncut (12 layers, fp32) served by
    ``ServingEngine(slots=16, max_len=512, prefill_chunk=64,
    block_size=16)``: the GPT-2 engine's workload at half its requests
    (24, then 8 sharing a 128-token prompt), both lanes through
@@ -218,7 +247,7 @@ Phases, each printing one JSON line:
    ``moe_engine_profile`` and ``moe_engine_decode_profile`` (a mixed and
    a steady-decode window, as ``engine``'s: the gathers show as
    index/scatter).
-22. summary -- one ``{"kernels": [...]}`` line (each kernel with its
+23. summary -- one ``{"kernels": [...]}`` line (each kernel with its
    lanes and its launches by path), the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -2498,7 +2527,8 @@ def phase_llama_engine(device, card, timer):
     """Llama-7B (bf16 params and compute, random weights from a seed)
     served from the int8 KV arena; the launch counters are zeroed just
     before the main path and read just after. Then its oracle, its
-    profile and the LM head's cast."""
+    profile and the LM head's cast. Returns the counts and the model
+    (the memory-pressure phases serve it next)."""
     import torch.nn.functional as F
     from hetu_tpu_torch.core import BF16_FULL, autocast
     from hetu_tpu_torch.engine import trace_counts
@@ -2648,7 +2678,533 @@ def phase_llama_engine(device, card, timer):
          per_call_cast_ms=cast_ms, held_fp32_copy_ms=held_ms,
          held_copy_bytes=w32.numel() * 4, identical=same)
     check(same, "the held fp32 head copy changes the logits")
-    del w32, h, eng, model
+    del w32, h, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, model
+
+
+# ---- serving under memory pressure (Llama-7B, int8 arena) ----------------
+
+#: the sizing cell: the arena sized from an HBM budget by the byte ledger
+#: (``engine/memory.py``: 4 bytes a parameter, 10% headroom)
+BUDGET_BYTES = 40e9
+#: the preemption cell: 16 slots over 385 blocks (the null block and 8
+#: worst-case batch requests of 512 + 256 tokens, 48 blocks each); 16
+#: batch requests (priority 2) at once, then a wave of 4 interactive ones
+#: (priority 0) at each step of ``PREEMPT_WAVES``, finding no free block.
+#: Every wave arrives while only the first 8 batch requests decode (they
+#: prefill in the same packs with and without preemption)
+PREEMPT_KW = dict(slots=16, kv_blocks=385, max_len=LLAMA_MAX_LEN,
+                  prefill_chunk=LLAMA_CHUNK, block_size=LLAMA_BLOCK,
+                  cache_dtype=torch.int8, seed=SEED,
+                  record_first_logits=True)
+PREEMPT_BATCH = (16, 512, 256)           # requests, prompt, max_tokens
+PREEMPT_URGENT = (4, 256, 64)            # a wave
+PREEMPT_WAVES = (24, 104, 184)
+SPILL_HOST_BYTES = 4e9
+#: the evict-and-resume request: prompt, max_tokens, tokens before the
+#: eviction
+EVICT_REQUEST = (700, 48, 16)
+
+
+def llama_memory_footprint(eng, weight_bytes) -> dict:
+    """The card's real footprint beside the ledger's price of it."""
+    from hetu_tpu_torch.engine import memory
+    cfg, pool = eng.model.cfg, eng.pool
+    return dict(
+        weight_bytes=weight_bytes, arena_bytes=pool.nbytes(),
+        graph_pool_bytes={k: g.pool_bytes for k, g in eng.lanes.items()},
+        allocated_bytes=torch.cuda.memory_allocated(),
+        reserved_bytes=torch.cuda.memory_reserved(),
+        ledger_weight_bytes=memory.model_params(cfg) * 4.0,
+        ledger_arena_bytes=pool.n_blocks * memory.kv_bytes_per_block(
+            cfg, block_size=pool.block_size, cache_dtype="int8"))
+
+
+def phase_llama_budget_engine(device, card, model):
+    """``ServingEngine(hbm_budget_bytes=40e9)`` on Llama-7B (bf16, int8
+    arena): the slot count must be ``engine.memory.size_kv_pool``'s and
+    the arena's bytes ``n_blocks`` blocks of ``kv_bytes_per_block`` to
+    the byte; then ``llama_workload``'s burst once, launches counted as
+    in ``llama_engine``, the first 16 requests held to the bf16 oracle,
+    and the real footprint (weights, arena, graph pools, peak over the
+    burst) beside the ledger's."""
+    from hetu_tpu_torch.core import BF16_FULL, autocast
+    from hetu_tpu_torch.engine import memory, trace_counts
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.serving import SamplingParams, ServingEngine
+
+    cfg = model.cfg
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    burst, _ = llama_workload(cfg.vocab_size)
+    new = 64
+    t0 = time.perf_counter()
+    with autocast(BF16_FULL):
+        before = trace_counts()
+        eng = ServingEngine(model, hbm_budget_bytes=BUDGET_BYTES,
+                            max_len=LLAMA_MAX_LEN, prefill_chunk=LLAMA_CHUNK,
+                            block_size=LLAMA_BLOCK, cache_dtype=torch.int8,
+                            seed=SEED, device=device,
+                            record_first_logits=True)
+        check_captures("llama_budget_engine_setup", eng, before)
+        torch.cuda.synchronize()
+        built = llama_memory_footprint(eng, weight_bytes)
+        memory.reset_memory_stats(device)
+
+        # ---- the main path: counters zeroed just before, read after ----
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        reqs = [eng.submit(p, SamplingParams(max_tokens=new))
+                for p in burst]
+        steps = eng.run_until_drained()
+        torch.cuda.synchronize()
+        t_burst = time.perf_counter() - t1
+        counts = launch_counts()
+        iters = dict(eng.lane_iters)
+        # ---------------------------------------------------------------
+        peak = memory.device_peak_bytes(device)
+        reading = oracle(model, reqs[:16], new, cfg.vocab_size)
+    check_captures("llama_budget_engine", eng, before)
+    check_launches("llama_budget_engine_launches", counts, iters,
+                   cfg.num_layers, paged="paged_attention_int8")
+    want_slots = memory.size_kv_pool(cfg, hbm_budget_bytes=BUDGET_BYTES,
+                                     max_len=LLAMA_MAX_LEN,
+                                     cache_dtype="int8")
+    pool = eng.pool
+    per_block = memory.kv_bytes_per_block(cfg, block_size=LLAMA_BLOCK,
+                                          cache_dtype="int8")
+    gen = sum(len(r.tokens) for r in reqs)
+    ttft = [r.timing()["ttft_ms"] for r in reqs]
+    emit(phase="llama_budget_engine", card=card,
+         config="LlamaConfig.llama_7b", hbm_budget_bytes=BUDGET_BYTES,
+         slots=pool.slots, ledger_slots=want_slots, kv_blocks=pool.n_blocks,
+         kv_bytes_per_block=per_block, **built,
+         burst_peak_allocated_bytes=peak,
+         burst_requests=len(reqs), burst_generated_tokens=gen,
+         burst_seconds=t_burst, burst_tokens_per_s=gen / t_burst,
+         burst_steps=steps, ttft_ms_p50=percentile(ttft, 50),
+         ttft_ms_p99=percentile(ttft, 99), lane_iterations=iters,
+         oracle=reading, dlogit_bound=DLOGIT_BF16, tie_bound=TIE_BF16,
+         seconds=time.perf_counter() - t0)
+    check(pool.slots == want_slots,
+          f"budget engine: {pool.slots} slots, the ledger sizes "
+          f"{want_slots}")
+    check(pool.n_blocks == 1 + pool.slots * pool.table_width,
+          f"budget engine: {pool.n_blocks} blocks for {pool.slots} slots")
+    check(pool.nbytes() == pool.n_blocks * per_block,
+          f"budget engine: arena {pool.nbytes()} B, the ledger prices "
+          f"{pool.n_blocks * per_block} B")
+    check(all(r.status == "done" for r in reqs),
+          "budget engine: requests unfinished")
+    check_held("budget engine against the oracle", reading, DLOGIT_BF16,
+               TIE_BF16)
+    del eng, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def spill_parts(caches, ids, nb: int, held: list) -> dict:
+    """A spill's parts timed apart, each to a sync, on the blocks the
+    engine just spilled (the engine's ``_spill_blocks`` runs them as one):
+    the gather; fresh pinned host buffers; the device-to-host copy into
+    them; and pinned buffers again after a free (the allocator's cache).
+    Every buffer it times is kept in ``held``, so no later call is handed
+    one back from the cache."""
+    dev = caches[0].device
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = torch.as_tensor(ids[:nb], dtype=torch.int64).to(dev)
+    gathered = [c.index_select(1, idx) for c in caches]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+
+    def pinned():
+        return [torch.empty(g.shape, dtype=g.dtype, pin_memory=True)
+                for g in gathered]
+
+    host = pinned()
+    t2 = time.perf_counter()
+    for h, g in zip(host, gathered):
+        h.copy_(g, non_blocking=True)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    held.append(host)
+    spare = pinned()
+    del spare
+    t4 = time.perf_counter()
+    held.append(pinned())
+    t5 = time.perf_counter()
+    return dict(blocks=nb, bytes=sum(h.numel() * h.element_size()
+                                     for h in host),
+                gather_ms=(t1 - t0) * 1e3, alloc_fresh_ms=(t2 - t1) * 1e3,
+                d2h_ms=(t3 - t2) * 1e3, alloc_cached_ms=(t5 - t4) * 1e3)
+
+
+class SpillAudit:
+    """Wraps an engine's spill and resume so every victim's blocks can be
+    compared: before the spill (read with advanced indexing, not the
+    engine's ``index_select``, just after the engine's spill and before
+    anything writes the freed blocks), the host copy, and the fresh
+    blocks after the resume (all four leaves, the first ``pos`` rows).
+    Keeps each victim's prefill-chunk count at its spill, whether the
+    host copy landed in the engine's spill store, and the spill's parts
+    timed apart (``spill_parts``). The audit's own host time is summed
+    in ``overhead_s``, for the step times to leave out."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.before, self.chunks, self.resumes = {}, {}, []
+        self.stored, self.parts, self.held = [], [], []
+        self.overhead_s = 0.0
+        spill, exec_spill, resume = (eng._spill_blocks, eng._exec_spill,
+                                     eng._exec_resume)
+
+        def audited_spill(ids, nb, **kw):
+            self._ids = (np.array(ids), nb)
+            return spill(ids, nb, **kw)
+
+        def audited_exec_spill(slot):
+            req = eng._slot_req[slot]
+            exec_spill(slot)
+            t0 = time.perf_counter()
+            ids, nb = self._ids
+            caches = eng.pool.caches
+            idx = torch.as_tensor(ids[:nb], dtype=torch.int64,
+                                  device=caches[0].device)
+            self.before[req.id] = [c[:, idx].clone() for c in caches]
+            self.chunks[req.id] = req.timing()["prefill_chunks"]
+            self.stored.append(eng.spill_store is not None
+                               and eng.spill_store.owns(req.spill.data))
+            self.parts.append(spill_parts(caches, ids, nb, self.held))
+            self.overhead_s += time.perf_counter() - t0
+
+        def audited_resume(job):
+            req, slot = job["req"], job["slot"]
+            entry = req.spill
+            resume(job)
+            t0 = time.perf_counter()
+            nb, rows = entry.n_blocks, entry.pos
+            idx = torch.as_tensor(eng._bt[slot, :nb], dtype=torch.int64,
+                                  device=eng.pool.caches[0].device)
+            host = snap = True
+            for c, src, old in zip(eng.pool.caches, entry.data,
+                                   self.before.pop(req.id)):
+                now = c[:, idx].flatten(1, 2)[:, :rows]
+                host &= bool(torch.equal(now.cpu(),
+                                         src.flatten(1, 2)[:, :rows]))
+                snap &= bool(torch.equal(now, old.flatten(1, 2)[:, :rows]))
+            self.resumes.append(dict(request=req.id, blocks=nb, rows=rows,
+                                     equal_host_copy=host,
+                                     equal_before_spill=snap))
+            self.overhead_s += time.perf_counter() - t0
+
+        eng._spill_blocks = audited_spill
+        eng._exec_spill = audited_exec_spill
+        eng._exec_resume = audited_resume
+
+
+def preempt_prompts(vocab):
+    rng = np.random.default_rng(SEED + 13)
+    n, plen, _ = PREEMPT_BATCH
+    batch = [rng.integers(0, vocab, plen).tolist() for _ in range(n)]
+    n, plen, _ = PREEMPT_URGENT
+    urgent = [rng.integers(0, vocab, plen).tolist()
+              for _ in range(n * len(PREEMPT_WAVES))]
+    return batch, urgent
+
+
+def run_preempt_cell(model, device, preempt: bool):
+    """The preemption cell's schedule on a fresh engine, stepped one
+    iteration at a time: each step's host ms (the audit's time left out)
+    and what it ran (a spill, a resume, a prefill pack). The launch
+    counters are zeroed just before the schedule and read just after."""
+    from hetu_tpu_torch.engine import trace_counts
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.serving import SamplingParams, ServingEngine
+    batch, urgent = preempt_prompts(model.cfg.vocab_size)
+    before = trace_counts()
+    t0 = time.perf_counter()
+    eng = ServingEngine(model, preempt=preempt, device=device,
+                        spill_host_budget_bytes=SPILL_HOST_BYTES,
+                        **PREEMPT_KW)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    audit = SpillAudit(eng) if preempt else None
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    lo = [eng.submit(p, SamplingParams(max_tokens=PREEMPT_BATCH[2],
+                                       priority=2)) for p in batch]
+    hi, steps, waves, per = [], [], list(PREEMPT_WAVES), PREEMPT_URGENT[0]
+    while eng.has_work():
+        check(len(steps) < 10_000, "llama_preempt: the engine never drained")
+        if waves and len(steps) == waves[0]:
+            waves.pop(0)
+            hi += [eng.submit(p, SamplingParams(
+                max_tokens=PREEMPT_URGENT[2], priority=0))
+                for p in urgent[len(hi):len(hi) + per]]
+        mark = (eng.scheduler.preemptions_total, eng.lane_iters["prefill"],
+                len(audit.resumes) if audit else 0,
+                audit.overhead_s if audit else 0.0)
+        t1 = time.perf_counter()
+        eng.step()
+        dt = time.perf_counter() - t1
+        if audit:
+            dt -= audit.overhead_s - mark[3]
+        steps.append(dict(
+            ms=dt * 1e3, spill=eng.scheduler.preemptions_total > mark[0],
+            prefill=eng.lane_iters["prefill"] > mark[1],
+            resume=bool(audit) and len(audit.resumes) > mark[2]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(not waves, "llama_preempt: the engine drained before the last "
+                     "interactive wave")
+    return dict(eng=eng, lo=lo, hi=hi, audit=audit, before=before,
+                counts=launch_counts(), iters=dict(eng.lane_iters),
+                steps=steps, seconds=seconds, build_s=build_s)
+
+
+def step_ms(run, **kind) -> list:
+    """The host ms of the run's steps that ran what ``kind`` says, e.g.
+    ``spill=True``; ``decode_only`` = no spill, resume or prefill pack."""
+    if kind.pop("decode_only", False):
+        kind = dict(spill=False, resume=False, prefill=False)
+    return [s["ms"] for s in run["steps"]
+            if all(s[k] == v for k, v in kind.items())]
+
+
+def spread(xs) -> dict:
+    return dict(n=len(xs), p50=percentile(xs, 50), p99=percentile(xs, 99),
+                min=float(min(xs)), max=float(max(xs))) if xs else dict(n=0)
+
+
+def phase_llama_preempt(device, card, model):
+    """The preemption cell twice, with ``preempt=True`` (spill to a 4e9 B
+    host arena, its bytes in the engine's spill store) and
+    ``preempt=False``: at least one preemption; every request done, the
+    spill arena drained; each victim's resumed blocks bit-equal to its
+    host copy and to its blocks before the spill, its prefill chunks
+    unchanged by the resume, its tokens equal to the ``preempt=False``
+    run's; every request within the bf16 oracle's bounds; one capture a
+    lane and a bit-equal replay after the resumes. Prints the
+    interactive requests' TTFT in both runs (the three waves' twelve
+    requests), the host ms of the steps that spilled beside the
+    decode-only steps' (the stall every other decoding slot sees), the
+    TPOT of the batch requests never preempted, and each spill's parts
+    timed apart."""
+    from hetu_tpu_torch.core import BF16_FULL, autocast
+
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    runs = {}
+    with autocast(BF16_FULL):
+        # the preempt=False engine first: the other's build then differs
+        # from it by the spill store's pinned allocation alone
+        for preempt in (False, True):
+            run = runs[preempt] = run_preempt_cell(model, device, preempt)
+            eng = run["eng"]
+            reqs = run["lo"] + run["hi"]
+            check(all(r.status == "done" for r in reqs),
+                  f"llama_preempt preempt={preempt}: requests unfinished")
+            check(not eng.has_work() and eng.spill_arena.blocks_held == 0
+                  and len(eng.spill_arena) == 0,
+                  f"llama_preempt preempt={preempt}: the spill arena holds "
+                  f"{eng.spill_arena.blocks_held} blocks after the drain")
+            check_captures(f"llama_preempt_{preempt}", eng, run["before"])
+            check_launches(f"llama_preempt_launches_{preempt}",
+                           run["counts"], run["iters"], cfg.num_layers,
+                           paged="paged_attention_int8")
+            if preempt:
+                lo_reading = oracle(model, run["lo"], PREEMPT_BATCH[2],
+                                    cfg.vocab_size)
+                hi_reading = oracle(model, run["hi"], PREEMPT_URGENT[2],
+                                    cfg.vocab_size)
+                phase_step_graph_replay(
+                    eng, "LlamaConfig.llama_7b bf16, int8 arena, after "
+                         "preemptions")
+                check_captures("llama_preempt_after_replay", eng)
+            else:
+                del run["eng"], eng
+                gc.collect()
+                torch.cuda.empty_cache()
+    on, off = runs[True], runs[False]
+    eng, audit = on["eng"], on["audit"]
+    victims = [r for r in on["lo"] if r.preemptions]
+    spills = [dur * 1e3 for r in victims for p, _, dur in r.events
+              if p == "preempted"]
+    resumes = [dur * 1e3 for r in victims for p, _, dur in r.events
+               if p == "resumed"]
+
+    def ttft(run):
+        return [r.timing()["ttft_ms"] for r in run["hi"]]
+
+    def tpot(run):
+        """ms a token of the batch requests the preempt=True run never
+        preempted (the same requests in both runs)."""
+        out = []
+        for r, v in zip(run["lo"], on["lo"]):
+            t = r.timing()
+            if not v.preemptions and len(r.tokens) > 1:
+                out.append(t["decode_ms"] / (len(r.tokens) - 1))
+        return out
+
+    same = {r.id: r.tokens == o.tokens for r, o in zip(on["lo"], off["lo"])}
+    chunks = {r.id: (audit.chunks[r.id], r.timing()["prefill_chunks"],
+                     o.timing()["prefill_chunks"])
+              for r, o in zip(on["lo"], off["lo"]) if r.preemptions}
+    emit(phase="llama_preempt", card=card, config="LlamaConfig.llama_7b",
+         **{k: v for k, v in PREEMPT_KW.items() if k != "cache_dtype"},
+         batch=PREEMPT_BATCH, urgent=PREEMPT_URGENT,
+         urgent_waves_at_steps=PREEMPT_WAVES,
+         spill_host_budget_bytes=SPILL_HOST_BYTES,
+         spill_arena_max_blocks=eng.spill_arena.max_blocks,
+         spill_store_blocks=eng.spill_store.max_blocks,
+         spill_store_bytes=eng.spill_store.nbytes(),
+         build_s_preempt=on["build_s"], build_s_unpreempted=off["build_s"],
+         arena_bytes=eng.pool.nbytes(),
+         preemptions=eng.scheduler.preemptions_total,
+         victims=[r.id for r in victims],
+         preemptions_by_victim={r.id: r.preemptions for r in victims},
+         spilled_blocks=eng.spill_arena.spilled_total,
+         resumed_blocks=eng.spill_arena.resumed_total,
+         spilled_bytes=sum(r.spilled_blocks for r in victims)
+         * eng.pool.nbytes() // eng.pool.n_blocks,
+         spill_ms=spills, spills_in_store=audit.stored,
+         spill_parts=audit.parts, resume_ms=resumes, resumes=audit.resumes,
+         # each victim's prefill chunks: at its last spill, at its end,
+         # and in the preempt=False run
+         victim_prefill_chunks=chunks,
+         victim_tokens_equal_unpreempted={k: same[k] for k in chunks},
+         interactive_ttft_ms=spread(ttft(on)),
+         unpreempted_interactive_ttft_ms=spread(ttft(off)),
+         interactive_ttft_ms_each=ttft(on),
+         unpreempted_interactive_ttft_ms_each=ttft(off),
+         batch_tpot_ms=spread(tpot(on)),
+         unpreempted_batch_tpot_ms=spread(tpot(off)),
+         spill_step_ms=step_ms(on, spill=True),
+         resume_step_ms=step_ms(on, resume=True, spill=False),
+         pack_step_ms=spread(step_ms(on, prefill=True, spill=False,
+                                     resume=False)),
+         decode_step_ms=spread(step_ms(on, decode_only=True)),
+         unpreempted_decode_step_ms=spread(step_ms(off, decode_only=True)),
+         seconds_preempt=on["seconds"], seconds_unpreempted=off["seconds"],
+         steps_preempt=len(on["steps"]), steps_unpreempted=len(off["steps"]),
+         oracle_batch=lo_reading, oracle_interactive=hi_reading,
+         dlogit_bound=DLOGIT_BF16, tie_bound=TIE_BF16,
+         seconds=time.perf_counter() - t0)
+    check(eng.scheduler.preemptions_total >= 1 and victims,
+          "llama_preempt: no request was preempted")
+    check(all(audit.stored),
+          f"llama_preempt: a spill missed the spill store: {audit.stored}")
+    check(all(r.resumed_blocks == r.spilled_blocks >= 1 for r in victims)
+          and eng.spill_arena.resumed_total
+          == eng.spill_arena.spilled_total,
+          "llama_preempt: resumed blocks differ from spilled blocks")
+    check(len(audit.resumes) == eng.scheduler.preemptions_total
+          and all(a["equal_host_copy"] and a["equal_before_spill"]
+                  for a in audit.resumes),
+          f"llama_preempt: restored blocks differ: {audit.resumes}")
+    check(all(a == b == c for a, b, c in chunks.values()),
+          f"llama_preempt: a resume changed prefill chunks: {chunks}")
+    check(all(same[k] for k in chunks),
+          "llama_preempt: a victim's tokens differ from the preempt=False "
+          "run's")
+    check_held("llama_preempt batch requests against the oracle",
+               lo_reading, DLOGIT_BF16, TIE_BF16)
+    check_held("llama_preempt interactive requests against the oracle",
+               hi_reading, DLOGIT_BF16, TIE_BF16)
+    counts = on["counts"]
+    del runs, on, off, eng, audit
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_llama_evict_resume(device, card, model):
+    """A request decoding on engine A is taken out with ``evict_request``
+    and resumed on engine B with ``submit(..., resume=entry)``: no
+    prefill on B, and its tokens equal the same request served
+    undisturbed (on B, afterwards). Both engines are built before the
+    launch counters are zeroed. The eviction's spill (fresh host
+    buffers: the entry leaves the engine) is then timed in its parts."""
+    from hetu_tpu_torch.core import BF16_FULL, autocast
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.serving import SamplingParams, ServingEngine
+
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED + 17)
+    plen, new, before = EVICT_REQUEST
+    prompt = rng.integers(0, cfg.vocab_size, plen).tolist()
+    sp = SamplingParams(max_tokens=new)
+    kw = dict(slots=4, max_len=LLAMA_MAX_LEN, prefill_chunk=LLAMA_CHUNK,
+              block_size=LLAMA_BLOCK, cache_dtype=torch.int8, seed=SEED,
+              device=device)
+    t0 = time.perf_counter()
+    with autocast(BF16_FULL):
+        a = ServingEngine(model, **kw)
+        b = ServingEngine(model, **kw)
+        torch.cuda.synchronize()
+        spilled = []
+        spill = a._spill_blocks
+
+        def recorded_spill(ids, nb, **kw):
+            spilled.append((np.array(ids), nb))
+            return spill(ids, nb, **kw)
+
+        a._spill_blocks = recorded_spill
+
+        # ---- the main path: counters zeroed just before, read after ----
+        reset_launch_counts()
+        req = a.submit(prompt, sp)
+        while len(req.tokens) < before:
+            check(a.step(), f"llama_evict_resume: the request stalled "
+                            f"({req.status}, {req.error})")
+        t1 = time.perf_counter()
+        entry = a.evict_request(req)
+        t_evict = time.perf_counter() - t1
+        moved = b.submit(prompt, sp, resume=entry)
+        b.run_until_drained()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        iters = {k: a.lane_iters[k] + b.lane_iters[k]
+                 for k in a.lane_iters}
+        # ---------------------------------------------------------------
+        held = []
+        parts = [spill_parts(a.pool.caches, ids, nb, held)
+                 for ids, nb in spilled]
+        del held
+        undisturbed = b.submit(prompt, sp)
+        b.run_until_drained()
+    check_captures("llama_evict_resume_a", a)
+    check_captures("llama_evict_resume_b", b)
+    check_launches("llama_evict_resume_launches", counts, iters,
+                   cfg.num_layers, paged="paged_attention_int8")
+    emit(phase="llama_evict_resume", card=card, slots=4, prompt=len(prompt),
+         max_tokens=sp.max_tokens, evicted_after_tokens=len(entry.tokens),
+         entry_blocks=entry.n_blocks, entry_pos=entry.pos,
+         entry_bytes=entry.nbytes(), evict_ms=t_evict * 1e3,
+         evict_spill_parts=parts,
+         resume_ms=[d * 1e3 for p, _, d in moved.events if p == "resumed"],
+         moved_prefill_chunks=moved.timing()["prefill_chunks"],
+         undisturbed_prefill_chunks=undisturbed.timing()["prefill_chunks"],
+         tokens_equal=moved.tokens == undisturbed.tokens,
+         lane_iterations=iters, seconds=time.perf_counter() - t0)
+    check(req.status == "evicted" and entry is not None
+          and entry.n_blocks == -(-entry.pos // LLAMA_BLOCK),
+          "llama_evict_resume: no spill entry for the decoding request")
+    check(len(spilled) == 1 and spilled[0][1] == entry.n_blocks,
+          f"llama_evict_resume: {len(spilled)} spills for one eviction")
+    check(moved.status == "done" and undisturbed.status == "done",
+          "llama_evict_resume: requests unfinished")
+    check(moved.timing()["prefill_chunks"] == 0
+          and moved.resumed_blocks == entry.n_blocks,
+          "llama_evict_resume: the resumed request ran prefill")
+    check(moved.tokens == undisturbed.tokens,
+          "llama_evict_resume: resumed tokens differ from the undisturbed "
+          "run's")
+    del a, b
     gc.collect()
     torch.cuda.empty_cache()
     return counts
@@ -3452,7 +4008,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_fused_kernel_times(device, timer, ops, batch, kernels)
     phase_llama_kernels(device, timer, ops, kernels)
-    paths["llama_engine"] = phase_llama_engine(device, smi, timer)
+    paths["llama_engine"], model = phase_llama_engine(device, smi, timer)
+    paths["llama_budget_engine"] = phase_llama_budget_engine(device, smi,
+                                                             model)
+    paths["llama_preempt"] = phase_llama_preempt(device, smi, model)
+    paths["llama_evict_resume"] = phase_llama_evict_resume(device, smi,
+                                                           model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_llama_oracle_fp32(device)
     phase_llama_train_oracle(device)
     llama = phase_llama_train(device, smi)

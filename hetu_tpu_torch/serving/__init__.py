@@ -1,13 +1,17 @@
 """Serving: the continuous-batching engine over the paged KV arena."""
 
 from hetu_tpu_torch.serving.engine import ServingEngine
-from hetu_tpu_torch.serving.kv_pool import NULL_BLOCK, BlockManager, KVPool
+from hetu_tpu_torch.serving.kv_pool import (
+    NULL_BLOCK, BlockManager, HostSpillArena, KVPool, SpillEntry,
+    SpillStore,
+)
 from hetu_tpu_torch.serving.prefix_cache import PrefixCache
 from hetu_tpu_torch.serving.sampling import adjust_logits, sample_slots
 from hetu_tpu_torch.serving.scheduler import (
     Request, SamplingParams, Scheduler,
 )
 
-__all__ = ["BlockManager", "KVPool", "NULL_BLOCK", "PrefixCache", "Request",
-           "SamplingParams", "Scheduler", "ServingEngine", "adjust_logits",
+__all__ = ["BlockManager", "HostSpillArena", "KVPool", "NULL_BLOCK",
+           "PrefixCache", "Request", "SamplingParams", "Scheduler",
+           "ServingEngine", "SpillEntry", "SpillStore", "adjust_logits",
            "sample_slots"]

@@ -6,6 +6,13 @@ One engine iteration (:meth:`ServingEngine.step`) is, in order:
 1. admission: queued requests take free slots when their worst case fits
    in free blocks net of the radix prefix cache (a cached prefix is
    mapped into the slot's table; a partial tail block is copied — CoW);
+   then at most one preemption — when the head the scheduler would admit
+   next is still blocked and a strictly lower-priority request is
+   decoding, that victim's blocks are copied to the host spill arena,
+   its slot and blocks are freed and it is requeued at the head — and a
+   second admission pass in the same iteration; then at most one resume,
+   which writes a readmitted victim's spilled blocks into its fresh
+   blocks and flips its slot live (no prefill);
 2. the decode lane: one token for every active slot, each at its own
    position, through its block table (``ParallelAttention.decode``'s
    paged mode — the paged-attention kernel on the card);
@@ -41,10 +48,30 @@ the static logits; its ``.cpu()`` is the step's one sync. ``lane_iters``
 counts the iterations that ran each lane (each runs every layer's
 attention once). TTFT and TPOT come from ``Request.timing``.
 
+The arena is sized from ``slots`` (worst-case requests), from
+``slots`` and ``kv_blocks`` (an oversubscribed arena), or from an HBM
+budget alone (``hbm_budget_bytes``: ``KVPool.sized_for``, the byte
+ledger of ``engine/memory.py``). Preemption (``preempt``, on by default
+as in ``hetu_tpu``) spills into a :class:`~hetu_tpu_torch.serving.
+kv_pool.HostSpillArena` bounded by ``spill_host_budget_bytes``; a bounded
+arena's bytes land in a :class:`~hetu_tpu_torch.serving.kv_pool.
+SpillStore` pinned once when the engine is built, not at each spill.
+:meth:`evict_request` and
+``submit(..., resume=entry)`` move a request between engines without
+re-running its prefill. The spill's gather and the resume's scatter are
+plain ``index_select`` / ``index_copy_`` (JAX runs them as ``jnp.take``
+/ ``.at[].set`` outside any kernel), run eagerly once per preemption;
+the resume writes the arena in place, so the captured lanes keep
+reading the tensors they captured.
+
 Not ported yet, and not accepted as arguments: speculation,
-tenancy/LoRA, the CP long-prompt lane, preemption/spill, replication,
-streaming, ``swap_params``, W8A8 (off, as ``hetu_tpu``'s default), the
-SLO engine, the watchdog and the telemetry registry.
+tenancy/LoRA (the tenant admission gate), the CP long-prompt lane,
+the prefill/decode handoff, KV replication, streaming, ``swap_params``,
+W8A8 (off, as ``hetu_tpu``'s default), the SLO engine, the watchdog,
+the telemetry registry (the scheduler's and the spill arena's host
+ledgers stand in for its preemption and spill counters), and what only
+the router and fleet use: the spill arena's peer tier (``spill_peer``),
+``class_weights``, ``load`` and ``cancel_queued``.
 """
 
 from __future__ import annotations
@@ -57,10 +84,14 @@ import numpy as np
 import torch
 
 from hetu_tpu_torch import resolve_device
+from hetu_tpu_torch.engine.memory import size_spill_arena
 from hetu_tpu_torch.models import generation
 from hetu_tpu_torch.nn.moe import refuse_batch_coupled
 from hetu_tpu_torch.ops import _build
-from hetu_tpu_torch.serving.kv_pool import BlockManager, KVPool
+from hetu_tpu_torch.serving.kv_pool import (
+    BlockManager, HostSpillArena, KVPool, SpillEntry, SpillStore,
+    cache_dtype_name,
+)
 from hetu_tpu_torch.serving.prefix_cache import PrefixCache
 from hetu_tpu_torch.serving.sampling import sample_slots
 from hetu_tpu_torch.serving.scheduler import (
@@ -88,12 +119,26 @@ class ServingEngine:
     parameters must keep their storage while the engine lives (no
     ``model.to(...)`` after it is built). An MoE model decodes through
     ``MoEMLP.decode`` in both lanes; one whose gate couples the rows of a
-    batch (the balance gate) raises before anything is captured."""
+    batch (the balance gate) raises before anything is captured.
 
-    def __init__(self, model, *, slots: int, max_len: int = 256,
-                 prefill_chunk: int = 16, block_size: Optional[int] = None,
-                 cache_dtype: Optional[torch.dtype] = None, seed: int = 0,
-                 device=None, record_first_logits: bool = False):
+    Arena sizing: ``slots`` worst-case requests by default;
+    ``kv_blocks`` beside ``slots`` sets the arena's blocks directly;
+    ``slots=None`` with ``hbm_budget_bytes`` takes the most worst-case
+    slots the budget holds next to the weights (``KVPool.sized_for``).
+    ``preempt`` lets a blocked request evict a decoding one of a
+    strictly lower class into the host spill arena
+    (``spill_host_budget_bytes`` bounds it, and sizes the pinned host
+    buffers allocated for it here)."""
+
+    def __init__(self, model, *, slots: Optional[int] = None,
+                 max_len: int = 256, prefill_chunk: int = 16,
+                 block_size: Optional[int] = None,
+                 cache_dtype: Optional[torch.dtype] = None,
+                 hbm_budget_bytes: Optional[float] = None,
+                 kv_blocks: Optional[int] = None, preempt: bool = True,
+                 spill_host_budget_bytes: Optional[float] = None,
+                 seed: int = 0, device=None,
+                 record_first_logits: bool = False):
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"model is on {model.device}, the engine was "
@@ -106,7 +151,24 @@ class ServingEngine:
             # step (where the build would land in the first request's TTFT)
             _build.build()
         self.model = model
-        self.pool = KVPool(model, slots, max_len, block_size, cache_dtype)
+        if slots is None:
+            if hbm_budget_bytes is None:
+                raise ValueError("pass slots= or hbm_budget_bytes=")
+            if kv_blocks is not None:
+                raise ValueError(
+                    "kv_blocks= conflicts with hbm_budget_bytes= "
+                    "sizing (the budget already fixes the arena) — "
+                    "pass slots= alongside kv_blocks=")
+            self.pool = KVPool.sized_for(
+                model, hbm_budget_bytes=hbm_budget_bytes, max_len=max_len,
+                cache_dtype=cache_dtype, block_size=block_size)
+        else:
+            self.pool = KVPool(model, slots, max_len, block_size,
+                               cache_dtype, n_blocks=kv_blocks)
+        #: weight generation of the arena's KV (``hetu_tpu`` bumps it in
+        #: ``swap_params``, not ported): a spill resumes only into an
+        #: engine at the same version
+        self.weight_version = 0
         self.record_first_logits = bool(record_first_logits)
         self.prefill_chunk = int(prefill_chunk)
         self.blocks = BlockManager(self.pool.n_blocks)
@@ -116,6 +178,25 @@ class ServingEngine:
             prefix_cache=self.prefix_cache,
             block_size=self.pool.block_size)
         self.seed = int(seed)
+        # QoS preemption: the host spill arena, priced in the blocks the
+        # device pool allocates (engine/memory ledger)
+        self.preempt = bool(preempt)
+        max_blocks = None
+        if spill_host_budget_bytes is not None:
+            max_blocks = size_spill_arena(
+                model.cfg, host_budget_bytes=spill_host_budget_bytes,
+                block_size=self.pool.block_size,
+                cache_dtype=cache_dtype_name(self.pool.cache_dtype))
+        self.spill_arena = HostSpillArena(max_blocks)
+        #: the parked bytes' host buffers, allocated once, so a spill
+        #: copies into memory already pinned; at most the device arena's
+        #: blocks (an entry it cannot place gets buffers of its own)
+        self.spill_store = None
+        if self.preempt and max_blocks is not None:
+            self.spill_store = SpillStore(
+                self.pool.caches, min(max_blocks, self.pool.n_blocks - 1),
+                pin=self.device.type == "cuda")
+        self._resume_pending: list[dict] = []    # admitted spill-resumes
 
         S, W = self.pool.slots, self.pool.table_width
         self._pos = np.zeros(S, np.int64)        # next KV write index
@@ -234,15 +315,28 @@ class ServingEngine:
 
     # -- requests -----------------------------------------------------------
     def submit(self, prompt: Sequence[int],
-               sampling: Optional[SamplingParams] = None) -> Request:
+               sampling: Optional[SamplingParams] = None, *,
+               resume: Optional[SpillEntry] = None) -> Request:
         """Queue one request; returns the live :class:`Request` (status
-        ``"rejected"`` with ``error`` set when it can never fit a slot)."""
+        ``"rejected"`` with ``error`` set when it can never fit a slot).
+
+        ``resume`` attaches a KV spill taken from another engine
+        (:meth:`evict_request` there): when the entry speaks this pool's
+        layout and weight version, the request admits through the resume
+        path — its emitted tokens preloaded, no prefill. An incompatible
+        entry degrades to a fresh replay, which under greedy decoding
+        regenerates the same tokens."""
         sampling = sampling or SamplingParams()
         with self._lock:
             req = Request(id=self._next_id,
                           prompt=np.asarray(prompt, np.int32).ravel(),
                           sampling=sampling, submit_s=time.monotonic())
             self._next_id += 1
+            if resume is not None and resume.compatible_with(
+                    self.pool, self.weight_version):
+                req.spill = resume
+                req.tokens = list(resume.tokens)
+                req.weight_version = resume.weight_version
             self.scheduler.submit(req)
         return req
 
@@ -256,7 +350,7 @@ class ServingEngine:
     def has_work(self) -> bool:
         with self._lock:
             return bool(self.scheduler.queue) or bool(self._active.any()) \
-                or bool(self._prefilling)
+                or bool(self._prefilling) or bool(self._resume_pending)
 
     # -- one iteration ------------------------------------------------------
     def step(self) -> bool:
@@ -274,6 +368,7 @@ class ServingEngine:
             if adm is None:
                 return cows
             req, slot = adm
+            req.weight_version = self.weight_version
             sp = req.sampling
             self._temp[slot] = sp.temperature
             self._topk[slot] = sp.top_k
@@ -289,8 +384,13 @@ class ServingEngine:
             self._bt[slot, :len(plan["table"])] = plan["table"]
             if plan["cow"] is not None:
                 cows.append(plan["cow"])
-            self._prefilling.append({"req": req, "slot": slot,
-                                     "off": plan["first_uncached"]})
+            if plan.get("resume"):
+                # a preempted request coming back: its KV is written back
+                # from the spill entry, no prefill
+                self._resume_pending.append({"req": req, "slot": slot})
+            else:
+                self._prefilling.append({"req": req, "slot": slot,
+                                         "off": plan["first_uncached"]})
 
     def _build_pack(self) -> dict:
         """Fill the C-token prefill budget FCFS over in-flight prefills
@@ -337,14 +437,30 @@ class ServingEngine:
         return pf
 
     def _stage_locked(self):
-        """The step up to its lanes: admission, the copy-on-write copies
-        and the uploads of the lanes' operands. Returns ``(active slots,
+        """The step up to its lanes: admission, at most one preemption
+        (then admission again), at most one resume, the copy-on-write
+        copies and the uploads of the lanes' operands, in ``hetu_tpu``'s
+        order (``engine.py:2044-2072``). Returns ``(active slots,
         pack)``, or None when there is nothing to do. Staging again
         without running the lanes stages the same work (a decode lane
-        re-writes the same rows, a pack re-packs the same tokens)."""
+        re-writes the same rows, a pack re-packs the same tokens), once
+        no preemption or resume is due."""
         cows = self._admit_locked()
+        aux = False
+        victim = self._plan_preemption_locked()
+        if victim is not None:
+            # the gather is queued after the last replay that wrote the
+            # victim's rows; its blocks go back to the free list after
+            # it, so a later write reaches them only after it read them
+            self._exec_spill(victim)
+            cows += self._admit_locked()
+            aux = True
+        if self._resume_pending:
+            self._exec_resume(self._resume_pending.pop(0))
+            aux = True
         active = np.nonzero(self._active)[0]
-        if not self._prefilling and active.size == 0 and not cows:
+        if not self._prefilling and active.size == 0 and not cows \
+                and not aux:
             return None
         pf = self._build_pack()
         caches = self.pool.caches
@@ -427,6 +543,191 @@ class ServingEngine:
         if (sp.eos_id is not None and tok == sp.eos_id) \
                 or len(req.tokens) >= sp.max_tokens:
             self._finish(slot, now)
+
+    # -- resumable preemption (QoS) -----------------------------------------
+    def _spill_size(self, slot: int) -> int:
+        """Blocks holding ``slot``'s ``pos`` written rows (at least one)."""
+        return max(1, -(-int(self._pos[slot]) // self.pool.block_size))
+
+    def _plan_preemption_locked(self) -> Optional[int]:
+        """The decoding slot this iteration evicts for a blocked
+        more-urgent request, or None. Admission has already run, so a
+        head still queued here genuinely could not admit. Fires only when
+        (a) that head exists, (b) a STRICTLY lower-priority request is
+        decoding, and (c) the host arena can hold its blocks."""
+        if not self.preempt or not self.scheduler.queue:
+            return None
+        cand = self.scheduler.peek_candidate()
+        if cand is None:
+            return None
+        running = [(s, r) for s, r in enumerate(self._slot_req)
+                   if r is not None and self._active[s]]
+        slot = self.scheduler.preemption_victim(cand, running)
+        if slot is None or not self.spill_arena.can_fit(
+                self._spill_size(slot)):
+            return None
+        return slot
+
+    def _spill_blocks(self, ids: np.ndarray, nb: int, *,
+                      keep: bool = False) -> tuple:
+        """Device→host copy of the first ``nb`` blocks of table ``ids``,
+        every arena leaf: a gather along the block axis into a fresh
+        device tensor, copied into (pinned, on the card) host memory —
+        the spill store's when the entry stays in this engine (``keep``)
+        and the store has room, else fresh buffers. The copies are
+        complete when this returns."""
+        dev = self.device
+        idx = torch.as_tensor(ids[:nb], dtype=torch.int64).to(dev)
+        gathered = [c.index_select(1, idx) for c in self.pool.caches]
+        out = self.spill_store.take(nb) \
+            if keep and self.spill_store is not None else None
+        if out is None:
+            out = [torch.empty(g.shape, dtype=g.dtype,
+                               pin_memory=dev.type == "cuda")
+                   for g in gathered]
+        for host, g in zip(out, gathered):
+            host.copy_(g, non_blocking=True)
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+        return tuple(out)
+
+    def _take_out(self, req: Request, slot: int, *,
+                  keep: bool = False) -> SpillEntry:
+        """Copy decoding ``req``'s written blocks to the host and free its
+        slot and blocks; returns the spill entry, which this engine parks
+        (``keep``) or hands to another engine. The slot's table row and
+        mask are cleared here, so the next upload (before any replay)
+        carries them; the gather is queued before the blocks go back to
+        the free list, so a later write reaches them only after it read
+        them."""
+        nb = self._spill_size(slot)
+        gen = self._gen[slot]
+        entry = SpillEntry(
+            req_id=req.id,
+            data=self._spill_blocks(self._bt[slot], nb, keep=keep),
+            n_blocks=nb, block_size=self.pool.block_size,
+            pos=int(self._pos[slot]), last_tok=int(self._last_tok[slot]),
+            tokens=list(req.tokens), weight_version=req.weight_version,
+            gen_state=gen.get_state() if gen is not None else None)
+        req.spilled_blocks += nb
+        self._detach_locked(req, slot)
+        return entry
+
+    def _detach_locked(self, req: Request, slot: int) -> None:
+        """Free ``slot`` and every block ``req`` holds; the request's
+        fate (requeue, resume elsewhere, drop) is the caller's."""
+        self.scheduler.release(slot, table=self._bt[slot])
+        self._bt[slot, :] = 0
+        self._active[slot] = False
+        self._pos[slot] = 0
+        self._slot_req[slot] = None
+        self._gen[slot] = None
+
+    def _drop_spill(self, req: Request, *, resumed: bool = False
+                    ) -> Optional[SpillEntry]:
+        """Take ``req``'s spill out of this engine's arena, if the arena
+        holds it (a cross-engine resume's entry never entered it), and
+        return it; ``resumed`` as in :meth:`HostSpillArena.pop`. Its
+        blocks in the spill store go back to the store: after a resume
+        has read them, or after a copy for an entry leaving the engine."""
+        entry = req.spill
+        if entry is None or self.spill_arena.get(req.id) is not entry:
+            return entry
+        self.spill_arena.pop(req.id, resumed=resumed)
+        store = self.spill_store
+        if store is not None and store.owns(entry.data):
+            data = entry.data
+            if not resumed:
+                entry.data = tuple(d.clone() for d in data)
+            store.release(data)
+        return entry
+
+    def _exec_spill(self, slot: int) -> None:
+        """Evict one decoding request into the host arena and requeue it
+        at the head of the queue — the resumable half of preemption."""
+        req = self._slot_req[slot]
+        t0 = time.monotonic()
+        entry = self._take_out(req, slot, keep=True)
+        self.spill_arena.put(entry)
+        req.spill = entry
+        req.preemptions += 1
+        req.mark("preempted", dur_s=time.monotonic() - t0, ts_s=t0)
+        self.scheduler.requeue_preempted(req)
+        self.scheduler.preemptions_total += 1
+
+    def _exec_resume(self, job: dict) -> None:
+        """Write one spilled request's KV into its freshly allocated
+        blocks, in place (the lanes replay the arena's addresses), and
+        flip its slot live: no prefill."""
+        req, slot = job["req"], job["slot"]
+        entry = req.spill
+        nb = entry.n_blocks
+        t0 = time.monotonic()
+        dev = self.device
+        idx = torch.as_tensor(self._bt[slot, :nb],
+                              dtype=torch.int64).to(dev)
+        for c, src in zip(self.pool.caches, entry.data):
+            c.index_copy_(1, idx, src.to(dev))
+        self._drop_spill(req, resumed=True)
+        req.spill = None
+        req.resumed_blocks += nb
+        self._pos[slot] = entry.pos
+        self._last_tok[slot] = entry.last_tok
+        if entry.gen_state is not None:
+            # the sampled stream resumes where the spill cut it
+            self._gen[slot].set_state(entry.gen_state)
+        self._active[slot] = True
+        req.status = "decode"
+        now = time.monotonic()
+        if req.first_token_s is None:
+            # a cross-engine resume starts a fresh Request: its first
+            # token happened on the engine it was spilled from
+            req.first_token_s = now
+        req.mark("resumed", dur_s=now - t0, ts_s=t0)
+
+    def evict_request(self, req: Request, *,
+                      lock_timeout_s: Optional[float] = None
+                      ) -> Optional[SpillEntry]:
+        """Take ``req`` out of this engine now. Returns its spill entry
+        when it had KV worth moving (a decoding slot, or a spilled
+        request still queued or waiting to resume), else None (queued
+        fresh or prefilling: nothing to move). The caller resumes it
+        elsewhere with ``submit(prompt, sampling, resume=entry)``; the
+        request's ``done`` event is not set. ``lock_timeout_s`` bounds
+        the wait for the engine's lock (None if it ran out)."""
+        got = self._lock.acquire(
+            timeout=-1 if lock_timeout_s is None else lock_timeout_s)
+        if not got:
+            return None
+        try:
+            with torch.no_grad():
+                return self._evict_request_locked(req)
+        finally:
+            self._lock.release()
+
+    def _evict_request_locked(self, req: Request) -> Optional[SpillEntry]:
+        if req.done.is_set():
+            return None
+        admitted = next(((pending, ent) for pending in
+                         (self._resume_pending, self._prefilling)
+                         for ent in pending if ent["req"] is req), None)
+        slot = req.slot
+        if req in self.scheduler.queue:
+            self.scheduler.queue.remove(req)
+            entry = self._drop_spill(req)
+        elif admitted is not None:
+            # a prefilling request carries no spill: nothing to move
+            pending, ent = admitted
+            pending.remove(ent)
+            entry = self._drop_spill(req)
+            self._detach_locked(req, ent["slot"])
+        elif slot is not None and self._slot_req[slot] is req \
+                and self._active[slot]:
+            entry = self._take_out(req, slot)
+        else:
+            return None
+        req.status = "evicted"
+        return entry
 
     def _finish(self, slot: int, now: float) -> None:
         req = self._slot_req[slot]

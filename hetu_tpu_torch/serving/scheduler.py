@@ -10,8 +10,14 @@ answers one question — does this request's worst case
 prefix cache? Everything dynamic (admission, completion, release) is a
 host-side list operation; the device only sees tensors of block ids.
 
-The scheduler is pure logic the engine drives. There is no preemption:
-a request admitted to a slot runs to completion.
+The scheduler is pure logic the engine drives. Under pressure a queued
+request may preempt a running one of a strictly lower class
+(:meth:`Scheduler.preemption_victim`): the engine spills the victim's KV
+to its host arena and requeues it at the head of the queue
+(:meth:`Scheduler.requeue_preempted`); a request carrying a spill
+(``Request.spill``) is admitted through :meth:`Scheduler._resume_plan`
+— fresh blocks, no prefill, no prefix cache. Uniform-priority traffic
+never preempts, so it keeps the run-to-completion guarantee.
 """
 
 from __future__ import annotations
@@ -35,8 +41,11 @@ class SamplingParams:
     interactive, 1 = standard/default, 2+ = batch). Admission is
     deficit-weighted across classes (class ``c`` gets a ``2^-c`` share
     of admissions when everything is backlogged — urgent traffic goes
-    first but batch traffic never starves). A running request is never
-    preempted."""
+    first but batch traffic never starves), and a queued request may
+    PREEMPT a
+    running strictly-lower-priority one when slots or blocks run dry:
+    the victim's KV spills to the host arena and resumes later without
+    re-running prefill."""
 
     temperature: float = 0.0
     top_k: int = 0
@@ -55,7 +64,8 @@ class SamplingParams:
 @dataclasses.dataclass
 class Request:
     """One request's lifecycle: queued → prefill → decode → done (or
-    rejected at submission). Every phase transition appends
+    rejected at submission); a preempted request goes decode →
+    preempted → resuming → decode. Every phase transition appends
     ``(phase, ts_s, dur_s)`` to ``events`` (:meth:`mark`), and
     :meth:`timing` folds them into TTFT and the other phase times."""
 
@@ -71,6 +81,17 @@ class Request:
     error: Optional[str] = None
     cached_tokens: int = 0             # prompt tokens served by the
     #                                    prefix cache (skipped prefill)
+    weight_version: int = 0            # weight generation the request
+    #                                    was admitted (and decoded) under
+    preemptions: int = 0               # times evicted mid-decode
+    spilled_blocks: int = 0            # KV blocks copied to the host
+    #                                    spill arena across preemptions
+    resumed_blocks: int = 0            # KV blocks mapped back on resume
+    spill: Optional[object] = dataclasses.field(
+        default=None, repr=False, compare=False)  # live SpillEntry while
+    #                                    preempted/queued-for-resume: it
+    #                                    routes admission through the
+    #                                    resume path instead of prefill
     first_logits: Optional[object] = dataclasses.field(
         default=None, repr=False, compare=False)  # engine-recorded, opt-in
     admit: Optional[dict] = dataclasses.field(
@@ -92,7 +113,9 @@ class Request:
         """Phase breakdown in milliseconds: queued (submit → admit),
         prefill (admit → first token), TTFT (submit → first token),
         decode (first token → finish), total, plus the prefill-chunk
-        count and the prefix-cache hit."""
+        count, the prefix-cache hit, and what the scheduler did to the
+        request under pressure (preemptions, spilled and resumed
+        blocks, whether it resumed mid-decode)."""
         out = {}
         admit_s = next((t for p, t, _ in self.events if p == "admit"),
                        None)
@@ -113,11 +136,16 @@ class Request:
             1 for p, _, _ in self.events if p == "prefill_chunk")
         out["cached_tokens"] = self.cached_tokens
         out["priority"] = self.sampling.priority
+        out["preemptions"] = self.preemptions
+        out["spilled_blocks"] = self.spilled_blocks
+        out["resumed_blocks"] = self.resumed_blocks
+        out["resumed"] = any(p == "resumed" for p, _, _ in self.events)
         return out
 
     def result(self) -> dict:
         return {"id": self.id, "status": self.status,
                 "tokens": list(self.tokens), "error": self.error,
+                "weight_version": self.weight_version,
                 "timing": self.timing()}
 
 
@@ -135,9 +163,11 @@ class Scheduler:
 
     Across classes (``SamplingParams.priority``) selection is
     deficit-weighted: every selection round each backlogged class earns
-    credits proportional to ``2^-priority``, and the richest class admits
-    its OLDEST request and pays one credit. With a single class this is
-    exact FCFS.
+    credits proportional to its weight ``2^-priority``, and the richest
+    class admits its OLDEST request and pays one credit. With a single class
+    this is exact FCFS. A request carrying a KV spill (``req.spill``) is
+    priced and admitted through the resume path — fresh blocks, no
+    prefill, no prefix-cache interaction.
     """
 
     def __init__(self, slots: int, max_len: int, *, blocks, prefix_cache,
@@ -150,6 +180,8 @@ class Scheduler:
         self.cache = prefix_cache         # PrefixCache
         self.block_size = int(block_size)
         self._credit: dict[int, float] = {}   # deficit counters by class
+        self.evictions_total = 0          # prefix-cache blocks evicted
+        self.preemptions_total = 0        # running requests preempted
 
     # -- admission ----------------------------------------------------------
     def submit(self, req: Request) -> bool:
@@ -172,6 +204,13 @@ class Scheduler:
         self.queue.append(req)
         return True
 
+    def requeue_preempted(self, req: Request) -> None:
+        """Put an evicted request back at the HEAD of the queue (it was
+        already admitted once — it resumes before its class peers; the
+        deficit selection still decides WHEN its class runs again)."""
+        req.status = "preempted"
+        self.queue.appendleft(req)
+
     # -- class selection ----------------------------------------------------
     def _select_class(self) -> tuple[Optional[int], Optional[dict]]:
         """Deficit-weighted pick among classes present in the queue
@@ -189,6 +228,41 @@ class Scheduler:
         win = min(present, key=lambda c: (-eff[c], c))
         return win, eff
 
+    def peek_candidate(self) -> Optional[Request]:
+        """The request :meth:`next_admission` would try next (oldest of
+        the deficit-selected class), committing no credit — the engine's
+        preemption planner asks this whether a blocked urgent request
+        justifies evicting a running batch one."""
+        win, _ = self._select_class()
+        if win is None:
+            return None
+        return next(r for r in self.queue if r.sampling.priority == win)
+
+    def blocks_needed(self, req: Request) -> int:
+        """Worst-case NEW blocks ``req`` needs (gross of prefix sharing
+        — the resume plan's price)."""
+        return -(-(len(req.prompt) + req.sampling.max_tokens)
+                 // self.block_size)
+
+    def preemption_victim(self, candidate: Request,
+                          running) -> Optional[int]:
+        """Pick the slot to evict for ``candidate``: among running
+        requests with STRICTLY lower priority (higher class number), the
+        lowest-priority one, least-progressed first (fewest decoded
+        tokens = fewest spilled bytes = least wasted work if it never
+        resumes). ``running`` is ``[(slot, Request), ...]``; None = no
+        eligible victim (equal-or-higher-priority work never preempts,
+        so uniform-priority traffic keeps the run-to-completion
+        guarantee)."""
+        pc = candidate.sampling.priority
+        victims = [(s, r) for s, r in running
+                   if r.sampling.priority > pc]
+        if not victims:
+            return None
+        slot, _ = max(victims, key=lambda sr: (
+            sr[1].sampling.priority, -len(sr[1].tokens), sr[0]))
+        return slot
+
     def next_admission(self) -> Optional[tuple[Request, int]]:
         """Pop the deficit-selected class's oldest request into a free
         slot, or None (no queue, no slot, or not enough free blocks even
@@ -197,12 +271,16 @@ class Scheduler:
         The admission plan is attached as ``req.admit``:
         ``{"table": [block ids], "first_uncached": int,
         "cow": (src, dst) | None}`` — blocks already allocated/shared,
-        so the engine only maps them into its block tables."""
+        so the engine only maps them into its block tables. A request
+        carrying a KV spill gets ``{"table": ..., "resume": True, ...}``
+        instead: all-fresh blocks the engine refills from the host
+        arena (no prefill)."""
         if not self.queue or not self.free:
             return None
         win, eff = self._select_class()
         req = next(r for r in self.queue if r.sampling.priority == win)
-        plan = self._page_plan(req)
+        plan = self._resume_plan(req) if req.spill is not None \
+            else self._page_plan(req)
         if plan is None:
             return None
         # commit the deficit round only on a real admission (a blocked
@@ -212,10 +290,26 @@ class Scheduler:
         self.queue.remove(req)
         slot = self.free.pop(0)
         req.slot = slot
-        req.status = "prefill"
+        req.status = "resuming" if req.spill is not None else "prefill"
         req.admit = plan
         req.mark("admit")
         return req, slot
+
+    def _resume_plan(self, req: Request) -> Optional[dict]:
+        """Price a spill-resume: the full worst case in FRESH blocks (no
+        prefix sharing — the spilled bytes are this request's own
+        history and flow back from the host arena), evicting cache
+        leaves if the free list is short. None = cannot fit yet."""
+        total = self.blocks_needed(req)
+        if total > self.blocks.free_blocks:
+            self.evictions_total += self.cache.evict(
+                total - self.blocks.free_blocks)
+        if total > self.blocks.free_blocks:
+            return None
+        fresh = [self.blocks.alloc() for _ in range(total)]
+        req.cached_tokens = 0
+        return {"table": fresh, "first_uncached": 0, "cow": None,
+                "resume": True}
 
     def _page_plan(self, req: Request) -> Optional[dict]:
         """Price ``req`` in blocks net of the prefix cache, evicting
@@ -247,7 +341,8 @@ class Scheduler:
         for b in pins:
             self.blocks.share(b)
         if n_new > self.blocks.free_blocks:
-            self.cache.evict(n_new - self.blocks.free_blocks)
+            self.evictions_total += self.cache.evict(
+                n_new - self.blocks.free_blocks)
         if n_new > self.blocks.free_blocks:
             for b in pins:                 # unwind; the trie ref remains
                 self.blocks.release(b)
