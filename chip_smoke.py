@@ -3,9 +3,10 @@
 GPU: builds the hand-written kernels, holds each against its plain
 PyTorch version, serves GPT-2 small through ``ServingEngine``, trains
 it with ``build_train_step``, serves Llama-7B from the int8 KV arena
-(also from an arena sized by an HBM budget, and under preemption),
-trains Llama at 7B width through ``Trainer`` and ``SFTTrainer``, and
-trains (BASELINE config 4) and serves GPT-MoE 8-expert.
+(also from an arena sized by an HBM budget, under preemption, and with
+speculative decoding), trains Llama at 7B width through ``Trainer`` and
+``SFTTrainer``, trains (BASELINE config 4) and serves GPT-MoE 8-expert,
+and serves GPT-2 drafting for itself.
 
 Run from the repository root, on a machine with one CUDA card::
 
@@ -125,7 +126,13 @@ Phases, each printing one JSON line:
    usual bounds, and times of the int8 lane (decode, the history through
    ``row_slot``), the bf16 lane (decode) and #2 (pack), bf16 q; the int8
    lane's library yardstick gathers, dequantizes to q's dtype and runs
-   SDPA.
+   SDPA. Then #1 at the verify lane's shapes (``VERIFY_CASES``): Llama q
+   (16, K+1, 32, 128) bf16 over the int8 arena at 1,024 positions, K = 4
+   (the tensor-core tile lane) and K = 3 (split-KV), GPT-2 q (16, 5, 12,
+   64) fp32 (the CUDA-core tile lane), and each with slots whose last
+   rows lie past their tables; bounds 1e-4 / 2e-2 (out and lse), reruns
+   bit-equal, the first three timed (lane, kernel, plain, library: the
+   gathered rows dequantized, SDPA with each row's causal offset; bound).
 12. llama_engine -- ``LlamaConfig.llama_7b`` (32 layers, hidden 4096,
    bf16 params and compute under ``autocast(BF16_FULL)``, random weights
    from a seed) served by ``ServingEngine(slots=16, max_len=2048,
@@ -178,6 +185,25 @@ Phases, each printing one JSON line:
    ``llama_evict_resume``: a decoding request evicted from one engine
    (``evict_request``) resumes on another (``submit(resume=)``) with no
    prefill and the undisturbed run's tokens; its spill's parts timed.
+   ``llama_spec``: the llama_engine's settings with ``spec_depth=4`` and
+   the n-gram draftsman (n-grams up to 3) against the same engine
+   without speculation, 16 greedy requests of 512 + 128 tokens, half of
+   them a 32-token pattern repeated (``spec_prompts``): each lane
+   captured once, exactly 32 #1 launches per decode (verify) replay,
+   every request of both runs within the bf16 oracle's bounds; tokens a
+   slot-step, acceptance rate, TPOT, tokens/s, decode-step host ms and a
+   replay's device ms against spec-off. Then the acceptance sweep
+   (``ReplayDrafts``: the spec-off run's tokens as drafts, flipped at 1.0,
+   0.55 and 0.0): with clean drafts no draft the oracle prefers to the
+   engine's token by ``SPEC_CLEAN_GAP`` is rejected; and the lane's own
+   tokens replayed clean are all accepted, no token changed (the check
+   that fails a verify rule which rejects too much). Then
+   ``llama_spec_profile``
+   (steady verify decode: #1 under the tile symbols), both engines' step
+   splits, and one preemption with speculation (``llama_spec_preempt``:
+   4 slots, 129 blocks, 3 batch requests, an interactive arrival that
+   finds too few blocks) whose victim's tokens must equal the same
+   schedule's without preemption.
 14. llama_engine_oracle_fp32 -- the same engine and workload at fp32,
    full width and 2 layers, all 64 requests against the same oracle:
    from an fp32 arena under the 1e-4 rule, then from the int8 arena
@@ -247,7 +273,21 @@ Phases, each printing one JSON line:
    ``moe_engine_profile`` and ``moe_engine_decode_profile`` (a mixed and
    a steady-decode window, as ``engine``'s: the gathers show as
    index/scatter).
-23. summary -- one ``{"kernels": [...]}`` line (each kernel with its
+23. gpt2_spec -- GPT-2 small (fp32) drafting for itself
+   (``draft_model=`` the target) at ``engine``'s settings with
+   ``spec_depth=4``, 16 requests of 16-128 + 64 tokens: the draft step
+   (``serving_draft_step``) and each lane captured exactly once; exactly
+   12 #1 launches per decode and prefill replay and 48 per draft step,
+   12 #2 per prefill replay; greedy tokens equal ``generate`` but at a
+   near tie, acceptance above 0.8; at T = 0.7 and 1.0 (per-request
+   seeds) more than one token a slot-step and the swapped arrival order
+   token-identical. Each reading prints the share of slot-steps that
+   drafted (the draft model has no prefill lane: a slot drafts only
+   after a catch-up of about P / (K + 1) steps). Then
+   ``gpt2_spec_engine_prompts``: the same engine, greedy, on the first
+   16 of ``engine``'s own burst prompts (4-448 tokens), equal to
+   ``generate`` but at a near tie, with its drafting share.
+24. summary -- one ``{"kernels": [...]}`` line (each kernel with its
    lanes and its launches by path), the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -1125,7 +1165,7 @@ def phase_step_graph_replay(eng, config):
 
 def phase_engine(device, card):
     from hetu_tpu_torch.engine import trace_counts
-    from hetu_tpu_torch.models import GPTConfig, GPTLMHeadModel, generate
+    from hetu_tpu_torch.models import GPTConfig, GPTLMHeadModel
     from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
     from hetu_tpu_torch.serving import SamplingParams, ServingEngine
 
@@ -1200,30 +1240,7 @@ def phase_engine(device, card):
     check(hits >= 15 * 128, f"shared-prompt batch hit only {hits} cached "
                             f"tokens")
 
-    # ---- the oracle: one-shot generate, dense cache, plain attention --
-    t0 = time.perf_counter()
-    near_ties = []
-    for r in reqs + reqs2:
-        prompt = r.prompt.tolist()
-        ids, logits = generate(model, [prompt], max_new_tokens=64,
-                               device=device, return_logits=True)
-        check(bool(torch.isfinite(logits).all()),
-              f"request {r.id}: non-finite oracle logits")
-        want_toks = ids[0, len(prompt):].tolist()
-        got = list(r.tokens)
-        check(len(got) == 64 and all(0 <= t < cfg.vocab_size for t in got),
-              f"request {r.id}: bad token list")
-        if got == want_toks:
-            continue
-        t = next(i for i, (a, b) in enumerate(zip(got, want_toks)) if a != b)
-        top2 = torch.topk(logits[0, t].float(), 2).values
-        gap = float(top2[0] - top2[1])
-        near_ties.append(dict(request=r.id, step=t, gap=gap))
-        check(gap < 1e-4, f"request {r.id} diverges from generate at step "
-                          f"{t} where the oracle's top-2 gap is {gap}")
-    emit(phase="engine_oracle", requests=len(reqs) + len(reqs2),
-         identical=len(reqs) + len(reqs2) - len(near_ties),
-         near_ties=near_ties, seconds=time.perf_counter() - t0)
+    generate_oracle("engine_oracle", model, reqs + reqs2, 64, device)
     phase_profile(eng, burst[:16], sp)
     # 96 tokens each, so few requests end inside the window; prompts
     # that leave them room in max_len
@@ -1235,6 +1252,39 @@ def phase_engine(device, card):
     phase_step_graph_replay(eng, "GPTConfig.small fp32")
     check_captures("engine_after_profiles", eng, before)
     return counts
+
+
+def generate_oracle(phase, model, reqs, new, device):
+    """Each request's greedy tokens against one-shot ``generate`` (dense
+    cache, plain attention: no kernel): equal, or diverging only at a
+    step where the oracle's top-2 logit gap is below 1e-4 (a near-tie,
+    printed)."""
+    from hetu_tpu_torch.models import generate
+    t0 = time.perf_counter()
+    vocab = model.cfg.vocab_size
+    near_ties = []
+    for r in reqs:
+        prompt = r.prompt.tolist()
+        ids, logits = generate(model, [prompt], max_new_tokens=new,
+                               device=device, return_logits=True)
+        check(bool(torch.isfinite(logits).all()),
+              f"request {r.id}: non-finite oracle logits")
+        want_toks = ids[0, len(prompt):].tolist()
+        got = list(r.tokens)
+        check(len(got) == new and all(0 <= t < vocab for t in got),
+              f"request {r.id}: bad token list")
+        if got == want_toks:
+            continue
+        t = next(i for i, (a, b) in enumerate(zip(got, want_toks)) if a != b)
+        top2 = torch.topk(logits[0, t].float(), 2).values
+        gap = float(top2[0] - top2[1])
+        near_ties.append(dict(request=r.id, step=t, gap=gap))
+        check(gap < 1e-4, f"{phase}: request {r.id} diverges from generate "
+                          f"at step {t} where the oracle's top-2 gap is "
+                          f"{gap}")
+    emit(phase=phase, requests=len(reqs),
+         identical=len(reqs) - len(near_ties),
+         near_ties=near_ties, seconds=time.perf_counter() - t0)
 
 
 def device_kernel_ms(prof, counts=None) -> tuple[dict, int]:
@@ -1298,7 +1348,7 @@ KERNEL_CLASSES = (("paged_split_kv", "paged_attention"),
 
 def phase_profile(eng, prompts, sp, n_steps: int = 20,
                   phase: str = "engine_profile", classes=KERNEL_CLASSES,
-                  steady_decode: bool = False):
+                  steady_decode: bool = False, decode_lane: str = "split_kv"):
     """Where an engine iteration's time goes: ``torch.profiler`` over
     ``n_steps`` steady iterations with 16 requests in flight (decode and
     packed prefill mixed; with ``steady_decode``, after every prompt has
@@ -1306,10 +1356,10 @@ def phase_profile(eng, prompts, sp, n_steps: int = 20,
     of kernel durations (one stream: kernels do not overlap); the rest of
     the wall time the card waits on the host. The profiler's own host
     cost inflates the wall time, so ``ms_per_step`` here is an upper
-    bound. Kernel #1's device time must lie under the split-KV symbol
-    where decode-lane iterations ran and under the run-shared tile
-    symbols where prefill-lane iterations ran (``lane``), and nowhere
-    else."""
+    bound. Kernel #1's device time must lie under ``decode_lane``'s
+    symbol where decode-lane iterations ran (split-KV; the tile lane for
+    a verify lane of R*g > 4 rows) and under the run-shared tile symbols
+    where prefill-lane iterations ran (``lane``), and nowhere else."""
     from torch.profiler import ProfilerActivity, profile
 
     reqs = [eng.submit(p, sp) for p in prompts]
@@ -1349,7 +1399,7 @@ def phase_profile(eng, prompts, sp, n_steps: int = 20,
         check(lanes["prefill"] > 0 and lanes["decode"] > 0,
               f"{phase}: the window did not mix the lanes: {lanes}")
     paged = check_lane(phase, by_name, tuple(
-        ln for ln, it in (("split_kv", lanes["decode"]),
+        ln for ln, it in ((decode_lane, lanes["decode"]),
                           ("tile", lanes["prefill"])) if it),
         kernels=("paged_attention",))["paged_attention"]
     emit(phase=phase, steps=n_steps, lane_iterations=lanes,
@@ -1368,11 +1418,13 @@ def phase_step_split(eng, prompts, sp, phase: str, n_steps: int = 20):
     """Where a steady-decode iteration's wall time goes, with no profiler
     on: the host's staging (admission, copy-on-write, the operand
     uploads), the decode lane's replay call (the graph launch), sampling
-    (the argmax and the ``.cpu()`` that waits for the replay to finish)
-    and the rest (per-token bookkeeping); beside it, one replay of the
-    decode lane on the device by CUDA events (its kernels and the gaps
-    between them). The bare replays re-run the last staged step, which
-    re-writes the same arena rows with the same values."""
+    (the verify rule: the argmax's ``.cpu()`` that waits for the replay
+    to finish, any draws; a model draftsman's step is part of staging)
+    and the rest (per-token
+    bookkeeping); beside it, one replay of the decode lane on the device
+    by CUDA events (its kernels and the gaps between them). The bare
+    replays re-run the last staged step, which re-writes the same arena
+    rows with the same values."""
     import hetu_tpu_torch.serving.engine as engine_mod
     reqs = [eng.submit(p, sp) for p in prompts]
     while any(r.first_token_s is None for r in reqs):
@@ -1388,10 +1440,10 @@ def phase_step_split(eng, prompts, sp, phase: str, n_steps: int = 20):
                 acc[key] += time.perf_counter() - t
         return run
 
-    lane, sample = eng.lanes["decode"], engine_mod.sample_slots
+    lane, verify = eng.lanes["decode"], engine_mod.speculative_verify
     eng._stage_locked = timed(eng._stage_locked, "stage")
     lane.replay = timed(lane.replay, "replay_call")
-    engine_mod.sample_slots = timed(sample, "sample_and_sync")
+    engine_mod.speculative_verify = timed(verify, "sample_and_sync")
     try:
         torch.cuda.synchronize()
         before = dict(eng.lane_iters)
@@ -1401,7 +1453,7 @@ def phase_step_split(eng, prompts, sp, phase: str, n_steps: int = 20):
         wall = time.perf_counter() - t0
     finally:
         del eng._stage_locked, lane.replay
-        engine_mod.sample_slots = sample
+        engine_mod.speculative_verify = verify
     lanes = {k: eng.lane_iters[k] - before[k] for k in before}
     check(lanes == {"decode": n_steps, "prefill": 0},
           f"{phase}: the window was not steady decode: {lanes}")
@@ -2357,6 +2409,101 @@ def phase_llama_kernels(device, timer, ops, results):
                     {f"d128_prefill_bf16_{k}": v for k, v in t.items()})
 
 
+#: kernel #1 at the verify lane's shapes: (name, model, draft depth K,
+#: q dtype, int8 arena, offsets, lane). 16 slots of K + 1 rows at 1,024
+#: live positions; the past-the-table cases put slots where ``q_offset +
+#: K >= W * bs`` (their last rows attend the whole table: the kernel
+#: clamps its key count to ``W * bs``)
+VERIFY_CASES = (
+    ("verify_k4_int8", "llama", 4, torch.bfloat16, True, "1023", "tile_tc"),
+    ("verify_k3_int8", "llama", 3, torch.bfloat16, True, "1023", "split_kv"),
+    ("verify_k4_gpt2_fp32", "gpt2", 4, torch.float32, False, "ragged",
+     "tile"),
+    ("verify_k4_int8_past_table", "llama", 4, torch.bfloat16, True, "edge",
+     "tile_tc"),
+    ("verify_k3_int8_past_table", "llama", 3, torch.bfloat16, True, "edge",
+     "split_kv"),
+    ("verify_k4_gpt2_fp32_past_table", "gpt2", 4, torch.float32, False,
+     "edge", "tile"),
+)
+
+
+def phase_verify_kernels(device, timer, ops, results):
+    """Kernel #1 at the verify lane's shapes (``VERIFY_CASES``): Llama q
+    (16, K+1, 32, 128) bf16 over the (2049, 16, 32, 128) int8 arena at K
+    = 4 (R*g = 5: the tensor-core tile lane) and K = 3 (R*g = 4: split-KV),
+    GPT-2 q (16, 5, 12, 64) fp32 over its fp32 arena (the CUDA-core tile
+    lane), and each with slots past the end of their tables. Each case
+    against its plain version (1e-4 fp32, 2e-2 bf16, out and lse) and
+    rerun bit-equal; the lane is ``ops.paged_lane``'s and, for the three
+    timed cases, the profile's (``lane`` lines). Times: kernel, plain,
+    the library yardstick (``gather_block_rows`` + dequantize + SDPA with
+    each row's causal offset) and the bound; added to #1's entries."""
+    gens = Generators(device, SEED + 21)
+    rng = np.random.default_rng(SEED + 21)
+    shapes = {"llama": dict(hq=32, hkv=32, d=128, bs=LLAMA_BLOCK,
+                            W=LLAMA_MAX_LEN // LLAMA_BLOCK,
+                            n_blocks=1 + LLAMA_SLOTS
+                            * (LLAMA_MAX_LEN // LLAMA_BLOCK)),
+              "gpt2": dict(hq=12, hkv=12, d=64, bs=16, W=32, n_blocks=513)}
+    for name, model, K, dtype, int8, where, lane in VERIFY_CASES:
+        kw = shapes[model]
+        top = kw["W"] * kw["bs"]
+        if where == "1023":
+            offsets = [1023] * 16
+        elif where == "ragged":
+            offsets = rng.integers(3, top - K - 1, 16).tolist()
+        else:
+            # four slots whose last rows lie past the table, the rest
+            # ragged
+            offsets = [top - K, top - 2, top - 1, top - K - 1] \
+                + rng.integers(3, top - K - 1, 12).tolist()
+        R = K + 1
+        check(ops.paged_lane(dtype, kw["d"], R * kw["hq"] // kw["hkv"],
+                             False) == lane,
+              f"{name}: ops.paged_lane does not pick the {lane} lane")
+        q, k, v, tbl, off = paged_case(gens, device, torch.float32, R=R,
+                                       offsets=offsets, **kw)
+        q = q.to(dtype)
+        sc = {}
+        if int8:
+            kq, ks, vq, vs = int8_arena(k, v, ops)
+            k, v, sc = kq, vq, dict(k_scale=ks, v_scale=vs)
+        else:
+            k, v = k.to(dtype), v.to(dtype)
+        got = ops.paged_attention(q, k, v, tbl, off, return_lse=True, **sc)
+        ref_o, ref_l = ops.paged_attention_reference(q, k, v, tbl, off,
+                                                     return_lse=True, **sc)
+        again = ops.paged_attention(q, k, v, tbl, off, return_lse=True, **sc)
+        torch.cuda.synchronize()
+        out, lse = got
+        err = max(max_err(out, ref_o), max_err(lse, ref_l))
+        rerun = check_rerun(name, got, again)
+        kernel = "paged_attention_int8" if int8 else "paged_attention"
+        emit(phase="kernel", kernel=kernel, case=name, lane=lane,
+             dtype=str(dtype).split(".")[1], shape=list(q.shape),
+             offsets_past_table=sum(o + K >= top for o in offsets),
+             max_abs_err=err, lse_err=max_err(lse, ref_l),
+             bound=TOL[dtype], rerun_identical=rerun, ok=err <= TOL[dtype])
+        check(err <= TOL[dtype], f"paged {name}: max abs err {err} > "
+                                 f"{TOL[dtype]}")
+        del got, again, out, lse, ref_o, ref_l
+        if where != "edge":
+            dev = paged_profile(timer, name, lambda: ops.paged_attention(
+                q, k, v, tbl, off, **sc), "split_kv" if lane == "split_kv"
+                else "tile")
+            t = time_paged(timer, ops, q, k, v, tbl, off, False, **sc)
+            t["profile_device_ms"] = dev
+            emit(phase="kernel_time", kernel=kernel, case=name, lane=lane,
+                 dtype=str(dtype).split(".")[1], shape=list(q.shape), **t)
+            results[kernel].update({f"{name}_{key}": val
+                                    for key, val in t.items()})
+        results[kernel][f"{name}_max_abs_err"] = err
+        del q, k, v, sc
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def llama_workload(vocab: int, seed: int = SEED):
     """48 prompts of 16-1536 tokens, then 16 that share a 512-token
     system prompt. Three of the 16 (a follow-up turn) also repeat the
@@ -2400,13 +2547,15 @@ def forced_logits(model, prompt, tokens, cache_dtype, chunk=LLAMA_CHUNK):
     return torch.cat(rows)
 
 
-def oracle(model, reqs, new_tokens, vocab, cache_dtype=torch.int8):
+def oracle(model, reqs, new_tokens, vocab, cache_dtype=torch.int8,
+           keep=None):
     """Each request's greedy tokens against ``forced_logits`` on them.
     Returns the largest first-token |dlogit| (the engine's recorded
     logits against the oracle's row 0), the largest shortfall over every
     step (see TIE_FP32) and where it fell, the share of steps at which
     the engine's token is the oracle's best, and how many requests agree
-    at every step."""
+    at every step. ``keep``, a dict, receives each request's forced
+    logits by request id."""
     dlogit, worst, where, agree, identical = 0.0, 0.0, None, 0, 0
     for r in reqs:
         got = list(r.tokens)
@@ -2418,6 +2567,8 @@ def oracle(model, reqs, new_tokens, vocab, cache_dtype=torch.int8):
         logits = forced_logits(model, r.prompt.tolist(), got, cache_dtype)
         check(bool(torch.isfinite(logits).all()),
               f"request {r.id}: non-finite oracle logits")
+        if keep is not None:
+            keep[r.id] = logits
         dlogit = max(dlogit, max_err(r.first_logits, logits[0]))
         idx = torch.tensor(got, device=logits.device)[:, None]
         short = logits.max(dim=-1).values - logits.gather(1, idx)[:, 0]
@@ -3205,6 +3356,491 @@ def phase_llama_evict_resume(device, card, model):
           "llama_evict_resume: resumed tokens differ from the undisturbed "
           "run's")
     del a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---- speculative decoding (Llama-7B n-gram; GPT-2 self-drafting) --------
+
+#: the verify lane's draft depth (``bench.py``'s ``spec_depth = 4``)
+SPEC_DEPTH = 4
+#: 16 greedy requests of 512 prompt tokens and 128 new ones: the even ones
+#: a 32-token pattern repeated to 512 (``tests/test_spec_qos.py``'s
+#: ``_corpus`` at full scale: the n-gram draftsman's traffic), the odd
+#: ones random
+SPEC_REQUESTS = (16, 512, 128)
+SPEC_PATTERN = 32
+#: the acceptance sweep: drafts replayed from the spec-off run's tokens,
+#: each flipped with these probabilities (``bench.py:340-383``)
+SPEC_CORRUPT = (1.0, 0.55, 0.0)
+#: with clean drafts, no rejected draft may beat the engine's token under
+#: the oracle by this much: about three times the largest such gap read
+#: on an H100 (0.078), so a rule that rejects an agreeing draft the
+#: oracle clearly prefers fails here; a rule that rejects near-ties too
+#: fails the own-token replay
+SPEC_CLEAN_GAP = 0.25
+#: preemption with speculation: 4 slots over 129 blocks (the null block
+#: and one worst-case request: the least an arena may hold), three
+#: repetitive batch requests of 512 + 128 tokens (priority 2, 40 blocks
+#: each) and, at the given step, one interactive request (priority 0, 256
+#: + 64 tokens: 20 blocks) that finds 8 free blocks
+SPEC_PREEMPT_KW = dict(slots=4, kv_blocks=129)
+SPEC_PREEMPT_BATCH = 3
+SPEC_URGENT = (256, 64, 8)
+#: GPT-2 small drafting for itself: 16 requests of 16-128 prompt tokens
+#: (a slot drafts only after a catch-up of about P / (K + 1) steps, so
+#: these let every request draft within its 64 new tokens; the engine's
+#: own prompts run after them, greedy, for the share of slot-steps that
+#: drafted there) and 64 new tokens, greedy, then at each temperature
+#: twice in swapped arrival orders with per-request seeds
+GPT2_SPEC = (16, 16, 128, 64)
+SPEC_TEMPS = (0.7, 1.0)
+
+
+def spec_prompts(vocab):
+    rng = np.random.default_rng(SEED + 19)
+    n, plen, _ = SPEC_REQUESTS
+    out = []
+    for i in range(n):
+        if i % 2 == 0:
+            pat = rng.integers(0, vocab, SPEC_PATTERN).tolist()
+            out.append((pat * -(-plen // SPEC_PATTERN))[:plen])
+        else:
+            out.append(rng.integers(0, vocab, plen).tolist())
+    return out
+
+
+class ReplayDrafts:
+    """A host draftsman that drafts, for each request (known by its
+    prompt), the tokens a reference run emitted next, each flipped with
+    probability ``frac`` as ``bench.py``'s ``_CorruptDrafts`` does (a
+    flipped token is accepted only by coincidence). ``proposed`` records
+    each proposal: (prompt, tokens emitted so far, drafts)."""
+
+    host_only = True
+    surfaces_q = True
+
+    def __init__(self, reference: dict, plen: int, vocab: int,
+                 frac: float):
+        self.ref, self.plen, self.vocab, self.frac = (reference, plen,
+                                                      vocab, frac)
+        self.rng = np.random.default_rng(SEED + 29)
+        self.hist = {}
+        self.proposed = []
+
+    def reset(self, slot, tokens):
+        self.hist[slot] = list(tokens)
+
+    def extend(self, slot, tokens):
+        self.hist[slot] += list(tokens)
+
+    def propose(self, slot, k):
+        h = self.hist[slot]
+        ref = self.ref[tuple(h[:self.plen])]
+        n = len(h) - self.plen
+        out = [1 + (t + 1) % (self.vocab - 1)
+               if self.rng.random() < self.frac else t
+               for t in ref[n:n + k]]
+        self.proposed.append((tuple(h[:self.plen]), n, out))
+        return out
+
+
+def rejected_drafts(draftsman, reqs):
+    """Each draft the verify lane rejected: (request, its token index,
+    the draft, the token the engine committed there), from the
+    draftsman's record and the requests' tokens."""
+    by_prompt = {tuple(r.prompt.tolist()): r for r in reqs}
+    out = []
+    for key, n, drafts in draftsman.proposed:
+        r = by_prompt[key]
+        a = 0
+        while a < len(drafts) and r.tokens[n + a] == drafts[a]:
+            a += 1
+        if a < len(drafts):
+            out.append((r, n + a, drafts[a], r.tokens[n + a]))
+    return out
+
+
+def serve_stepped(eng, prompts, sps):
+    """Submit every prompt and step to drain; returns the requests, each
+    step's host ms (a step ends in the ``.cpu()`` that waits for its
+    lanes) with whether it ran a prefill pack and how many slots drafted
+    in it, and the wall seconds."""
+    if not isinstance(sps, (list, tuple)):
+        sps = [sps] * len(prompts)
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, sp) for p, sp in zip(prompts, sps)]
+    steps = []
+    while eng.has_work():
+        check(len(steps) < 20_000, "the engine never drained")
+        pf, dec = eng.lane_iters["prefill"], eng.lane_iters["decode"]
+        t1 = time.perf_counter()
+        eng.step()
+        ms = (time.perf_counter() - t1) * 1e3
+        drafting = int((eng._spec["len"] > 0).sum()) \
+            if eng.lane_iters["decode"] > dec else 0
+        steps.append(dict(ms=ms, prefill=eng.lane_iters["prefill"] > pf,
+                          drafting=drafting))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(all(r.status == "done" for r in reqs), "requests unfinished")
+    return reqs, steps, wall
+
+
+def replay_device_ms(eng, n: int = 10) -> float:
+    """Median device ms of one decode-lane replay (CUDA events; the
+    replay re-runs the last staged step, re-writing the same rows)."""
+    lane = eng.lanes["decode"]
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    for start, end in pairs:
+        start.record()
+        lane.replay()
+        end.record()
+    torch.cuda.synchronize()
+    return sorted(s.elapsed_time(e) for s, e in pairs)[n // 2]
+
+
+def spec_reading(eng, reqs, steps, wall, stats0) -> dict:
+    """Throughput, TPOT, decode-only step ms, the speculation ledgers (as
+    deltas from ``stats0``) and the share of slot-steps that drafted, of
+    one served batch."""
+    timings = [r.timing() for r in reqs]
+    tpot = [t["decode_ms"] / (len(r.tokens) - 1)
+            for t, r in zip(timings, reqs) if len(r.tokens) > 1]
+    st = {k: eng.spec_stats[k] - stats0[k] for k in stats0}
+    gen = sum(len(r.tokens) for r in reqs)
+    return dict(generated_tokens=gen, seconds=wall, tokens_per_s=gen / wall,
+                tpot_ms=spread(tpot), steps=len(steps),
+                decode_step_ms=spread([s["ms"] for s in steps
+                                       if not s["prefill"]]),
+                pack_step_ms=spread([s["ms"] for s in steps
+                                     if s["prefill"]]),
+                **st, tokens_per_slot_step=1.0 + st["accepted"]
+                / max(st["slot_steps"], 1),
+                drafting_share=sum(s["drafting"] for s in steps)
+                / max(st["slot_steps"], 1),
+                acceptance_rate=st["accepted"] / max(st["drafted"], 1))
+
+
+def run_spec_preempt(model, device, preempt: bool):
+    """Three repetitive batch requests hold all but 8 blocks of a
+    speculating engine; an interactive request needing 20 arrives at
+    step ``SPEC_URGENT[2]``. With ``preempt`` the least-progressed batch
+    request is spilled and resumed."""
+    from hetu_tpu_torch.serving import SamplingParams, ServingEngine
+    prompts = spec_prompts(model.cfg.vocab_size)
+    rng = np.random.default_rng(SEED + 31)
+    plen, new, at = SPEC_URGENT
+    eng = ServingEngine(model, preempt=preempt, device=device,
+                        max_len=LLAMA_MAX_LEN, prefill_chunk=LLAMA_CHUNK,
+                        block_size=LLAMA_BLOCK, cache_dtype=torch.int8,
+                        seed=SEED, spec_depth=SPEC_DEPTH,
+                        **SPEC_PREEMPT_KW)
+    lo = [eng.submit(p, SamplingParams(max_tokens=SPEC_REQUESTS[2],
+                                       priority=2))
+          for p in prompts[0:2 * SPEC_PREEMPT_BATCH:2]]
+    hi, n = None, 0
+    while eng.has_work():
+        check(n < 5_000, "llama_spec_preempt: the engine never drained")
+        if n == at:
+            hi = eng.submit(rng.integers(0, model.cfg.vocab_size,
+                                         plen).tolist(),
+                            SamplingParams(max_tokens=new, priority=0))
+        eng.step()
+        n += 1
+    check(hi is not None and all(r.status == "done" for r in lo + [hi]),
+          "llama_spec_preempt: requests unfinished")
+    return eng, lo, hi
+
+
+def phase_llama_spec(device, card, model):
+    """Speculative decoding at Llama-7B width (bf16, int8 arena): the
+    llama_engine's settings with ``spec_depth=4`` and the n-gram
+    draftsman against the same engine without speculation, on
+    ``spec_prompts`` (16 greedy requests, 512 + 128 tokens). Each engine's
+    lanes captured once, exactly 32 #1 launches per decode (verify)
+    replay and #1 + #2 per prefill replay (counters zeroed just before
+    each run and read just after); every request of both runs within the
+    bf16 oracle's bounds; printed: tokens a slot-step (``1 + accepted /
+    slot_steps``), the acceptance rate, TPOT, tokens/s, the decode-only
+    steps' host ms and one decode replay's device ms, against spec-off.
+    Then the acceptance sweep (drafts replayed from the spec-off run,
+    corrupted at ``SPEC_CORRUPT``): with clean drafts no draft the oracle
+    prefers to the engine's token by ``SPEC_CLEAN_GAP`` is rejected and
+    the run holds the oracle; and the lane's own tokens (the corrupt-1.0
+    run, each from row 0) replayed clean are all accepted, every token
+    unchanged (row i of a verify computes what row 0 would): this is the
+    check that catches a verify rule that rejects too much, since spec-off
+    tokens differ from the lane's own at bf16 near-ties. Then a
+    profile of steady verify decode, both engines' step splits, and one
+    preemption with speculation against the same schedule without
+    preemption (the victim's tokens bit-equal). Returns the speculating
+    run's launch counts."""
+    from hetu_tpu_torch.core import BF16_FULL, autocast
+    from hetu_tpu_torch.engine import trace_counts
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.serving import SamplingParams, ServingEngine
+
+    cfg = model.cfg
+    vocab = cfg.vocab_size
+    t0 = time.perf_counter()
+    prompts = spec_prompts(vocab)
+    n, plen, new = SPEC_REQUESTS
+    sp = SamplingParams(max_tokens=new)
+    kw = dict(slots=LLAMA_SLOTS, max_len=LLAMA_MAX_LEN,
+              prefill_chunk=LLAMA_CHUNK, block_size=LLAMA_BLOCK,
+              cache_dtype=torch.int8, seed=SEED, device=device,
+              record_first_logits=True)
+    runs = {}
+    with autocast(BF16_FULL):
+        for name, extra in (("spec_off", {}),
+                            ("spec", dict(spec_depth=SPEC_DEPTH))):
+            before = trace_counts()
+            eng = ServingEngine(model, **kw, **extra)
+            torch.cuda.synchronize()
+            stats0 = dict(eng.spec_stats)
+            # ---- the main path: counters zeroed just before, read after --
+            reset_launch_counts()
+            reqs, steps, wall = serve_stepped(eng, prompts, sp)
+            counts = launch_counts()
+            iters = dict(eng.lane_iters)
+            # -------------------------------------------------------------
+            check_captures(f"llama_{name}", eng, before)
+            check_launches(f"llama_{name}_launches", counts, iters,
+                           cfg.num_layers, paged="paged_attention_int8")
+            reading = spec_reading(eng, reqs, steps, wall, stats0)
+            reading["replay_device_ms"] = replay_device_ms(eng)
+            reading["oracle"] = oracle(model, reqs, new, vocab)
+            runs[name] = dict(eng=eng, reqs=reqs, counts=counts,
+                              reading=reading)
+        off, on = runs["spec_off"], runs["spec"]
+        ref = {tuple(r.prompt.tolist()): list(r.tokens) for r in off["reqs"]}
+        same = sum(list(r.tokens) == ref[tuple(r.prompt.tolist())]
+                   for r in on["reqs"])
+        emit(phase="llama_spec", card=card, config="LlamaConfig.llama_7b",
+             dtype="bfloat16", cache_dtype="int8", spec_depth=SPEC_DEPTH,
+             draft="ngram (n <= 3)", requests=n, prompt=plen,
+             max_tokens=new, pattern=SPEC_PATTERN,
+             verify_lane=eng.lanes["decode"].launches,
+             spec=on["reading"], spec_off=off["reading"],
+             requests_equal_to_spec_off=same,
+             tpot_p50_speedup=off["reading"]["tpot_ms"]["p50"]
+             / on["reading"]["tpot_ms"]["p50"],
+             tokens_per_s_speedup=on["reading"]["tokens_per_s"]
+             / off["reading"]["tokens_per_s"],
+             dlogit_bound=DLOGIT_BF16, tie_bound=TIE_BF16)
+        for name in ("spec_off", "spec"):
+            check_held(f"llama_{name} against the oracle",
+                       runs[name]["reading"]["oracle"], DLOGIT_BF16,
+                       TIE_BF16)
+
+        # ---- the acceptance sweep: the spec-off run's tokens replayed as
+        # drafts, corrupted; then the lane's own tokens replayed clean ----
+        eng, ngram = on["eng"], on["eng"]._draftsman
+        own = None
+        for source, frac in [("spec_off", f) for f in SPEC_CORRUPT] \
+                + [("own", 0.0)]:
+            table = ref if source == "spec_off" else own
+            eng._draftsman = drafts = ReplayDrafts(table, plen, vocab, frac)
+            stats0 = dict(eng.spec_stats)
+            reqs, steps, wall = serve_stepped(eng, prompts, sp)
+            if frac == 1.0:
+                # (all but coincidences) every token from the lane's row 0
+                own = {tuple(r.prompt.tolist()): list(r.tokens)
+                       for r in reqs}
+            line = dict(phase="llama_spec_sweep", drafts_from=source,
+                        corrupt_frac=frac,
+                        **spec_reading(eng, reqs, steps, wall, stats0),
+                        requests_equal_to_drafts_source=sum(
+                            list(r.tokens) == table[tuple(r.prompt.tolist())]
+                            for r in reqs))
+            if source == "spec_off" and frac == 0.0:
+                logits = {}
+                line["oracle"] = oracle(model, reqs, new, vocab, keep=logits)
+                rej = rejected_drafts(drafts, reqs)
+                gaps = [float(logits[r.id][t, d] - logits[r.id][t, g])
+                        for r, t, d, g in rej]
+                line.update(
+                    rejected=len(rej),
+                    rejected_oracle_best=sum(
+                        int(logits[r.id][t].argmax()) == d
+                        for r, t, d, _ in rej),
+                    rejected_max_oracle_gap=max(gaps, default=0.0))
+                del logits
+            emit(**line)
+            if source == "spec_off" and frac == 0.0:
+                # a draft the oracle clearly prefers to the engine's
+                # token is never rejected
+                check(line["rejected_max_oracle_gap"] < SPEC_CLEAN_GAP,
+                      f"llama_spec_sweep: a clean draft the oracle prefers "
+                      f"by {line['rejected_max_oracle_gap']} was rejected")
+                check_held("llama_spec_sweep clean drafts against the "
+                           "oracle", line["oracle"], DLOGIT_BF16, TIE_BF16)
+            if source == "own":
+                check(line["accepted"] == line["drafted"]
+                      and line["requests_equal_to_drafts_source"] == n,
+                      f"llama_spec_sweep: the lane's own tokens as drafts: "
+                      f"{line['accepted']} of {line['drafted']} accepted, "
+                      f"{line['requests_equal_to_drafts_source']} of {n} "
+                      f"requests unchanged")
+        eng._draftsman = ngram
+        check_captures("llama_spec_after_sweep", eng)
+
+        # ---- where a verify step's time goes, beside spec-off's ----
+        phase_profile(eng, prompts, SamplingParams(max_tokens=96),
+                      phase="llama_spec_profile", classes=LLAMA_CLASSES,
+                      steady_decode=True, decode_lane="tile")
+        for name in ("spec", "spec_off"):
+            phase_step_split(runs[name]["eng"], prompts,
+                             SamplingParams(max_tokens=96),
+                             f"llama_{name}_step_split")
+        check_captures("llama_spec_after_profiles", eng)
+    counts = on["counts"]
+    del runs, on, off, eng, ngram
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- one preemption with speculation ----
+    t1 = time.perf_counter()
+    with autocast(BF16_FULL):
+        pre = {p: run_spec_preempt(model, device, p) for p in (False, True)}
+    eng, lo, hi = pre[True]
+    victims = [i for i, r in enumerate(lo) if r.preemptions]
+    emit(phase="llama_spec_preempt", card=card, **SPEC_PREEMPT_KW,
+         urgent=SPEC_URGENT, preemptions=eng.scheduler.preemptions_total,
+         victims=[lo[i].id for i in victims],
+         victim_prefill_chunks=[lo[i].timing()["prefill_chunks"]
+                                for i in victims],
+         victim_drafted_accepted=[(lo[i].drafted, lo[i].accepted)
+                                  for i in victims],
+         victim_tokens_equal_unpreempted=[
+             lo[i].tokens == pre[False][1][i].tokens for i in victims],
+         urgent_tokens_equal_unpreempted=hi.tokens == pre[False][2].tokens,
+         urgent_ttft_ms=hi.timing()["ttft_ms"],
+         unpreempted_urgent_ttft_ms=pre[False][2].timing()["ttft_ms"],
+         seconds=time.perf_counter() - t1)
+    check(victims and all(lo[i].resumed_blocks == lo[i].spilled_blocks >= 1
+                          for i in victims),
+          "llama_spec_preempt: no request was preempted and resumed")
+    check(all(lo[i].timing()["prefill_chunks"] == plen // LLAMA_CHUNK
+              for i in victims),
+          "llama_spec_preempt: a resume ran prefill")
+    check(all(lo[i].tokens == pre[False][1][i].tokens for i in victims),
+          "llama_spec_preempt: a victim's tokens differ from the "
+          "undisturbed speculating run's")
+    for p, (e, _, _) in pre.items():
+        check_captures(f"llama_spec_preempt_{p}", e)
+    del pre, eng, lo, hi
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase="llama_spec_seconds", seconds=time.perf_counter() - t0)
+    return counts
+
+
+def phase_gpt2_spec(device, card):
+    """GPT-2 small (fp32) drafting for itself (``draft_model=`` the
+    target, as ``bench.py:421-423`` and ``tests/test_spec_qos.py``'s
+    ``test_model_draftsman_greedy_parity``) at ``engine``'s settings with
+    ``spec_depth=4``. The draft step and each lane captured exactly once;
+    launches (counters zeroed just before the greedy run and read just
+    after) exactly 12 #1 per decode (verify) and prefill replay plus 12 x
+    K per draft step (the catch-up and K - 1 single-row decodes), 12 #2
+    per prefill replay. Greedy tokens equal ``generate`` but at a near
+    tie, acceptance above 0.8; at each temperature of ``SPEC_TEMPS``
+    (per-request seeds) more than one token a slot-step, and a run in the
+    swapped arrival order token-identical. Returns the greedy run's
+    launch counts."""
+    from hetu_tpu_torch.engine import trace_counts
+    from hetu_tpu_torch.models import GPTConfig, GPTLMHeadModel
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.serving import SamplingParams, ServingEngine
+
+    t0 = time.perf_counter()
+    cfg = GPTConfig.small()
+    model = GPTLMHeadModel(cfg, device=device, seed=SEED).eval()
+    n, lo_len, hi_len, new = GPT2_SPEC
+    rng = np.random.default_rng(SEED + 23)
+    prompts = [rng.integers(0, cfg.vocab_size, int(k)).tolist()
+               for k in rng.integers(lo_len, hi_len + 1, n)]
+    before = trace_counts()
+    eng = ServingEngine(model, slots=16, max_len=512, prefill_chunk=64,
+                        block_size=16, seed=SEED, device=device,
+                        spec_depth=SPEC_DEPTH, draft_model=model)
+    draft = eng._draftsman
+
+    def captured():
+        now = trace_counts()
+        return {k: now.get(k, 0) - before.get(k, 0)
+                for k in ("serving_decode", "serving_prefill",
+                          "serving_draft_step")}
+
+    once = {"serving_decode": 1, "serving_prefill": 1,
+            "serving_draft_step": 1}
+    check(captured() == once and draft.graph.captures == 1,
+          f"gpt2_spec: captures after the build {captured()}")
+    stats0 = dict(eng.spec_stats)
+    # ---- the main path: counters zeroed just before, read after ----
+    reset_launch_counts()
+    steps0 = draft.steps
+    reqs, steps, wall = serve_stepped(eng, prompts,
+                                      SamplingParams(max_tokens=new))
+    counts = launch_counts()
+    iters = dict(eng.lane_iters)
+    draft_steps = draft.steps - steps0
+    # ---------------------------------------------------------------
+    L = cfg.num_layers
+    want = {"paged_attention": L * (iters["decode"] + iters["prefill"])
+            + L * SPEC_DEPTH * draft_steps,
+            "flash_fwd": L * iters["prefill"], "paged_attention_int8": 0}
+    greedy = spec_reading(eng, reqs, steps, wall, stats0)
+    emit(phase="gpt2_spec_launches", counts=counts, lane_iters=iters,
+         draft_steps=draft_steps, expected=want)
+    check(all(counts.get(k, 0) == v for k, v in want.items()),
+          f"gpt2_spec: launches {counts}, expected {want}")
+    generate_oracle("gpt2_spec_oracle", model, reqs, new, device)
+    sampled = {}
+    for temp in SPEC_TEMPS:
+        sps = [SamplingParams(max_tokens=new, temperature=temp,
+                              seed=1000 + i) for i in range(n)]
+        stats0 = dict(eng.spec_stats)
+        reqs, steps, wall = serve_stepped(eng, prompts, sps)
+        reading = spec_reading(eng, reqs, steps, wall, stats0)
+        swapped, _, _ = serve_stepped(eng, prompts[::-1], sps[::-1])
+        reading["swapped_order_identical"] = [
+            r.tokens for r in reqs] == [r.tokens for r in swapped[::-1]]
+        sampled[temp] = reading
+    emit(phase="gpt2_spec", card=card, config="GPTConfig.small",
+         dtype="float32", spec_depth=SPEC_DEPTH, draft="model (itself)",
+         draft_arena_blocks=draft.caches[0].shape[1],
+         draft_table_width=draft.table_width, requests=n,
+         prompt_tokens=[lo_len, hi_len], max_tokens=new, greedy=greedy,
+         sampled={str(t): r for t, r in sampled.items()},
+         captures=captured(), seconds=time.perf_counter() - t0)
+    check(greedy["acceptance_rate"] > 0.8,
+          f"gpt2_spec: greedy acceptance {greedy['acceptance_rate']}")
+    for temp, r in sampled.items():
+        check(r["tokens_per_slot_step"] > 1.0 and r["sampled_accepted"] > 0,
+              f"gpt2_spec T={temp}: {r['tokens_per_slot_step']} tokens a "
+              f"slot-step")
+        check(r["swapped_order_identical"],
+              f"gpt2_spec T={temp}: swapped arrival order changed tokens")
+
+    # the engine's own prompts: most slots still catch up when they end
+    long_prompts = workload(cfg.vocab_size)[0][:n]
+    stats0 = dict(eng.spec_stats)
+    reqs, steps, wall = serve_stepped(eng, long_prompts,
+                                      SamplingParams(max_tokens=new))
+    reading = spec_reading(eng, reqs, steps, wall, stats0)
+    emit(phase="gpt2_spec_engine_prompts", requests=n,
+         prompt_tokens=[min(map(len, long_prompts)),
+                        max(map(len, long_prompts))],
+         max_tokens=new, greedy=reading)
+    generate_oracle("gpt2_spec_engine_prompts_oracle", model, reqs, new,
+                    device)
+    check(captured() == once, f"gpt2_spec: re-captured: {captured()}")
+    del eng, draft, model
     gc.collect()
     torch.cuda.empty_cache()
     return counts
@@ -4008,12 +4644,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_fused_kernel_times(device, timer, ops, batch, kernels)
     phase_llama_kernels(device, timer, ops, kernels)
+    phase_verify_kernels(device, timer, ops, kernels)
     paths["llama_engine"], model = phase_llama_engine(device, smi, timer)
     paths["llama_budget_engine"] = phase_llama_budget_engine(device, smi,
                                                              model)
     paths["llama_preempt"] = phase_llama_preempt(device, smi, model)
     paths["llama_evict_resume"] = phase_llama_evict_resume(device, smi,
                                                            model)
+    paths["llama_spec"] = phase_llama_spec(device, smi, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -4046,6 +4684,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths["moe_engine"] = phase_moe_engine(device, smi)
+    paths["gpt2_spec"] = phase_gpt2_spec(device, smi)
     del timer
     for name, entry in kernels.items():
         entry["launches_by_path"] = {p: c.get(name, 0)

@@ -64,7 +64,7 @@ def init_kv_caches(model, batch: int, max_len: int,
 
 @torch.no_grad()
 def decode(model, input_ids, positions, caches, *, slot_mask=None,
-           block_tables=None):
+           block_tables=None, row_mask=None):
     """Run a chunk through the model in decode mode; returns fp32 logits
     ``(b, s, V)`` and updates ``caches`` in place.
 
@@ -74,10 +74,13 @@ def decode(model, input_ids, positions, caches, *, slot_mask=None,
     index ``positions[0]``. With ``block_tables`` (b, W) int32
     and ``slot_mask`` (b,) bool the caches are the paged arena
     ``(L, n_blocks, block_size, hkv, d)`` and each row decodes at its own
-    ``positions[r, 0]`` (masked-off rows write nothing)."""
+    ``positions[r, 0]`` (masked-off rows write nothing); ``row_mask``
+    (b, s) bool then lets only its True cells write
+    (``hetu_tpu/models/generation.py:66``)."""
     h = model.embed(input_ids, positions=positions)
     h = model.blocks.decode(h, caches, positions=positions,
-                            slot_mask=slot_mask, block_tables=block_tables)
+                            slot_mask=slot_mask, block_tables=block_tables,
+                            row_mask=row_mask)
     return model.logits(model.hidden_norm(h))
 
 

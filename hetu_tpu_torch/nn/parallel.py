@@ -203,7 +203,7 @@ class ParallelAttention(nn.Module):
         return self.out_proj(out.reshape(b, s, -1))
 
     def decode(self, x, kv_cache, *, positions, slot_mask=None,
-               block_tables=None, pack=None):
+               block_tables=None, pack=None, row_mask=None):
         """Incremental decoding against a KV cache, updated in place.
 
         - dense (``block_tables`` None): ``kv_cache`` is ``(k_buf, v_buf)``
@@ -216,11 +216,22 @@ class ParallelAttention(nn.Module):
           ``r`` writes at its own ``positions[r, 0]`` through its table
           (rows with ``slot_mask`` False write nothing; the caller
           discards their output) and attends through the paged kernel
-          (its int8 lane for the int8 arena);
+          (its int8 lane for the int8 arena); ``row_mask`` (b, s) bool
+          refines ``slot_mask`` within a row's ``s`` positions
+          (``hetu_tpu/nn/parallel.py:547-553, 613-620``): only its True
+          cells write their KV. The verify lane needs it: a slot verifying
+          fewer drafts than the lane's width must not write its trailing
+          rows, whose positions may lie past the blocks its table owns
+          (their block index is clamped to the table's last entry, which
+          may be a live block);
         - packed prefill (``pack``): see :meth:`_decode_packed`.
 
         ``kv_cache`` may be the int8 4-tuple in every mode. Returns the
         attention block's output ``(b, s, embed)``."""
+        if row_mask is not None and (pack is not None
+                                     or block_tables is None):
+            raise ValueError("row_mask requires block_tables (the dense "
+                             "cache writes contiguous rows)")
         if pack is not None:
             return self._decode_packed(x, kv_cache, positions=positions,
                                        block_tables=block_tables, pack=pack)
@@ -252,7 +263,10 @@ class ParallelAttention(nn.Module):
             blk_ids = torch.gather(block_tables.long(), 1,
                                    (pos_rows // blk).clamp(0, W - 1))
             rows = (blk_ids * blk + pos_rows % blk).reshape(-1)
-            keep = slot_mask[:, None].expand(b, s).reshape(-1)
+            if row_mask is None:
+                keep = slot_mask[:, None].expand(b, s).reshape(-1)
+            else:
+                keep = (slot_mask[:, None] & row_mask).reshape(-1)
             for buf, new in writes:
                 _scatter_rows(buf, rows, new.reshape(b * s, *new.shape[2:]),
                               keep)

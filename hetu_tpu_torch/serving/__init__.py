@@ -1,4 +1,5 @@
-"""Serving: the continuous-batching engine over the paged KV arena."""
+"""Serving: the continuous-batching engine over the paged KV arena, and
+the draft plane of its speculative decoding."""
 
 from hetu_tpu_torch.serving.engine import ServingEngine
 from hetu_tpu_torch.serving.kv_pool import (
@@ -10,8 +11,12 @@ from hetu_tpu_torch.serving.sampling import adjust_logits, sample_slots
 from hetu_tpu_torch.serving.scheduler import (
     Request, SamplingParams, Scheduler,
 )
+from hetu_tpu_torch.serving.speculative import (
+    ModelDraftsman, NgramDraftsman, SpeculativeConfigError,
+)
 
-__all__ = ["BlockManager", "HostSpillArena", "KVPool", "NULL_BLOCK",
-           "PrefixCache", "Request", "SamplingParams", "Scheduler",
-           "ServingEngine", "SpillEntry", "SpillStore", "adjust_logits",
-           "sample_slots"]
+__all__ = ["BlockManager", "HostSpillArena", "KVPool", "ModelDraftsman",
+           "NULL_BLOCK", "NgramDraftsman", "PrefixCache", "Request",
+           "SamplingParams", "Scheduler", "ServingEngine",
+           "SpeculativeConfigError", "SpillEntry", "SpillStore",
+           "adjust_logits", "sample_slots"]

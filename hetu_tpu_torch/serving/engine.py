@@ -31,8 +31,33 @@ lanes are captured under the policy in force where the engine is built,
 and a step under another policy re-captures them (counted, as a JAX
 re-trace is).
 
-This is the ``spec_depth=0`` case of ``hetu_tpu``'s fused step, which
-JAX compiles once (``hetu_tpu/serving/engine.py:527 _build_step``). Here
+The decode lane is the VERIFY lane of speculative decoding
+(``spec_depth=K``, ``hetu_tpu/serving/engine.py:559-615``): each active
+slot feeds its last token plus up to K drafted tokens as K+1 rows at
+positions ``pos..pos+K`` (``dec_tok`` (S, K+1), ``dec_pos`` (S, 1));
+``dec_rows`` (S, K+1) lets only a slot's first ``1 + depth`` rows write
+their KV (the rest may lie past the blocks its table owns), and the lane
+returns the (S, K+1, V) fp32 logits with their argmax. A slot's draft
+depth is data: depth churn never re-captures. The drafts come from
+:mod:`~hetu_tpu_torch.serving.speculative` — the n-gram index over the
+request's own tokens (host only), or a draft model
+(``draft_model=``, its own captured ``serving_draft_step``) — and
+:func:`~hetu_tpu_torch.serving.speculative.speculative_verify` commits
+the accepted drafts plus one token after the replay: the greedy leading
+match, or rejection sampling for a sampled slot (so its output keeps the
+target's distribution). Each slot's depth is clamped to ``max_tokens -
+len(tokens) - 1``, and a commit stops at EOS or the budget. The engine's
+``spec_stats`` counts ``drafted``, ``accepted``, ``sampled_accepted``,
+``resampled`` and ``slot_steps`` (JAX's ``serving_draft_tokens_total``,
+``serving_accepted_tokens_total``, ``serving_sampled_accepted_tokens_
+total``, ``serving_resample_tokens_total`` and ``serving_decode_slot_
+steps_total``); each request keeps its own ``drafted``/``accepted``.
+``spec_depth=0`` (the default) is the same lane at one row a slot with
+no ``dec_rows``: no slot drafts, and the verify rule at depth 0 is the
+classic decode step (the argmax, or ``sample_slots``' one draw).
+
+The lanes are ``hetu_tpu``'s fused step, which JAX compiles once
+(``hetu_tpu/serving/engine.py:527 _build_step``). Here
 each lane is a :class:`~hetu_tpu_torch.serving.step_graph.StepGraph`:
 one body over static device operands (the decode inputs, the block
 tables' device mirror ``_bt_dev``, the pack at the fixed chunk C and
@@ -64,12 +89,13 @@ plain ``index_select`` / ``index_copy_`` (JAX runs them as ``jnp.take``
 the resume writes the arena in place, so the captured lanes keep
 reading the tensors they captured.
 
-Not ported yet, and not accepted as arguments: speculation,
-tenancy/LoRA (the tenant admission gate), the CP long-prompt lane,
-the prefill/decode handoff, KV replication, streaming, ``swap_params``,
+Not ported yet, and not accepted as arguments: tenancy/LoRA (the
+tenant admission gate), the CP long-prompt lane, the prefill/decode
+handoff, KV replication, streaming, ``swap_params``,
 W8A8 (off, as ``hetu_tpu``'s default), the SLO engine, the watchdog,
 the telemetry registry (the scheduler's and the spill arena's host
-ledgers stand in for its preemption and spill counters), and what only
+ledgers stand in for its preemption and spill counters, ``spec_stats``
+for its speculation counters), and what only
 the router and fleet use: the spill arena's peer tier (``spill_peer``),
 ``class_weights``, ``load`` and ``cancel_queued``.
 """
@@ -96,6 +122,10 @@ from hetu_tpu_torch.serving.prefix_cache import PrefixCache
 from hetu_tpu_torch.serving.sampling import sample_slots
 from hetu_tpu_torch.serving.scheduler import (
     Request, SamplingParams, Scheduler,
+)
+from hetu_tpu_torch.serving.speculative import (
+    ModelDraftsman, NgramDraftsman, check_draft_depth, check_sampled_draft,
+    speculative_verify,
 )
 from hetu_tpu_torch.serving.step_graph import StepGraph
 
@@ -128,7 +158,14 @@ class ServingEngine:
     ``preempt`` lets a blocked request evict a decoding one of a
     strictly lower class into the host spill arena
     (``spill_host_budget_bytes`` bounds it, and sizes the pinned host
-    buffers allocated for it here)."""
+    buffers allocated for it here).
+
+    ``spec_depth`` (0: off) drafts up to that many tokens a slot and
+    iteration for the verify lane: from the n-gram index over each
+    request's own tokens (n-grams up to 3), or from ``draft_model`` (a
+    model on the same
+    device, with its own weights and KV arena; the target itself drafts
+    at the acceptance ceiling)."""
 
     def __init__(self, model, *, slots: Optional[int] = None,
                  max_len: int = 256, prefill_chunk: int = 16,
@@ -137,6 +174,7 @@ class ServingEngine:
                  hbm_budget_bytes: Optional[float] = None,
                  kv_blocks: Optional[int] = None, preempt: bool = True,
                  spill_host_budget_bytes: Optional[float] = None,
+                 spec_depth: int = 0, draft_model=None,
                  seed: int = 0, device=None,
                  record_first_logits: bool = False):
         self.device = resolve_device(device)
@@ -198,6 +236,30 @@ class ServingEngine:
                 pin=self.device.type == "cuda")
         self._resume_pending: list[dict] = []    # admitted spill-resumes
 
+        # speculation: the draft depth is the verify lane's width less
+        # one, each slot's depth is data
+        self.spec_depth = check_draft_depth(spec_depth, max_len)
+        self._draftsman = None
+        if draft_model is not None:
+            if self.spec_depth == 0:
+                raise ValueError(
+                    "draft_model without spec_depth — pass spec_depth=k "
+                    "to enable the verify lane")
+            self._draftsman = ModelDraftsman(
+                draft_model, slots=self.pool.slots, max_len=max_len,
+                spec_depth=self.spec_depth,
+                block_size=self.pool.block_size,
+                target_vocab=model.cfg.vocab_size)
+        elif self.spec_depth:
+            self._draftsman = NgramDraftsman(self.pool.slots)
+        #: the speculation counters (``hetu_tpu``'s telemetry names them
+        #: ``serving_draft_tokens_total`` and so on); ``1 + accepted /
+        #: slot_steps`` is the mean of tokens committed a slot-step
+        self.spec_stats = {"drafted": 0, "accepted": 0,
+                           "sampled_accepted": 0, "resampled": 0,
+                           "slot_steps": 0}
+        self._spec: Optional[dict] = None        # this step's drafts
+
         S, W = self.pool.slots, self.pool.table_width
         self._pos = np.zeros(S, np.int64)        # next KV write index
         self._last_tok = np.zeros(S, np.int64)   # sampled, not yet fed
@@ -231,13 +293,15 @@ class ServingEngine:
         wait until they have landed."""
         S, W = self.pool.slots, self.pool.table_width
         C, R, dev = self.prefill_chunk, self._fin_cap, self.device
-        i32, i64 = torch.int32, torch.int64
-        shapes = {"dec_tok": ((S, 1), i64), "dec_pos": ((S, 1), i64),
+        i32, i64, K = torch.int32, torch.int64, self.spec_depth
+        shapes = {"dec_tok": ((S, K + 1), i64), "dec_pos": ((S, 1), i64),
                   "dec_mask": ((S,), torch.bool), "bt": ((S, W), i32),
                   "pf_tok": ((C,), i64), "pf_pos": ((C,), i64),
                   "pf_slot": ((C,), i32), "pf_seg": ((C,), i32),
                   "pf_hist": ((C,), i32), "pf_valid": ((C,), torch.bool),
                   "fin_row": ((R,), i64)}
+        if K:
+            shapes["dec_rows"] = ((S, K + 1), torch.bool)
         self._ops = {k: torch.zeros(shape, dtype=dt, device=dev)
                      for k, (shape, dt) in shapes.items()}
         self._bt_dev = self._ops["bt"]
@@ -266,22 +330,32 @@ class ServingEngine:
             self._h2d.record()
 
     def _build_lanes(self) -> dict:
-        """The decode lane (``generation.decode`` over every slot) and the
-        prefill lane (embed, ``blocks.decode(pack=...)``, then the head on
-        the ``_fin_cap`` finishing rows), each a :class:`StepGraph`
+        """The decode lane (``generation.decode`` over K+1 rows of every
+        slot: the verify lane) and the prefill lane (embed,
+        ``blocks.decode(pack=...)``, then the head on the ``_fin_cap``
+        finishing rows), each a :class:`StepGraph`
         captured now, with every slot masked and every pack row invalid.
         The bodies close over the operands, the model and the arena, not
         over the engine, so dropping the engine frees the graphs."""
         model, caches, ops = self.model, self.pool.caches, self._ops
+        K = self.spec_depth
+        # a verify row past a slot's depth may lie past the model's
+        # positions: its position is clamped (it writes nothing, and its
+        # output is discarded); at K = 0 no row is masked
+        lane = torch.arange(K + 1, device=self.device)[None, :]
+        top = model.cfg.max_positions - 1
+        dec_keys = ("dec_tok", "dec_pos", "dec_mask") \
+            + (("dec_rows",) if K else ())
 
         def decode_body():
             logits = generation.decode(
-                model, ops["dec_tok"], ops["dec_pos"], caches,
-                slot_mask=ops["dec_mask"], block_tables=ops["bt"])
-            return (logits[:, -1],)
+                model, ops["dec_tok"], (ops["dec_pos"] + lane).clamp(max=top),
+                caches, slot_mask=ops["dec_mask"], block_tables=ops["bt"],
+                row_mask=ops.get("dec_rows"))
+            return logits, logits.argmax(dim=-1)
 
         def decode_idle():
-            for k in ("dec_tok", "dec_pos", "dec_mask"):
+            for k in dec_keys:
                 ops[k].zero_()
 
         def prefill_body():
@@ -305,9 +379,8 @@ class ServingEngine:
 
         return {
             "decode": StepGraph(
-                "serving_decode", decode_body, idle=decode_idle,
-                operands=[ops[k] for k in ("dec_tok", "dec_pos",
-                                           "dec_mask")],
+                "serving_decode", decode_body,
+                idle=decode_idle, operands=[ops[k] for k in dec_keys],
                 device=self.device),
             "prefill": StepGraph(
                 "serving_prefill", prefill_body, idle=prefill_idle,
@@ -327,6 +400,8 @@ class ServingEngine:
         entry degrades to a fresh replay, which under greedy decoding
         regenerates the same tokens."""
         sampling = sampling or SamplingParams()
+        if sampling.temperature > 0 and self.spec_depth:
+            check_sampled_draft(self._draftsman)
         with self._lock:
             req = Request(id=self._next_id,
                           prompt=np.asarray(prompt, np.int32).ravel(),
@@ -391,6 +466,10 @@ class ServingEngine:
             else:
                 self._prefilling.append({"req": req, "slot": slot,
                                          "off": plan["first_uncached"]})
+            if self._draftsman is not None:
+                # the slot's draft state belongs to its new occupant (a
+                # resume re-seeds it with its whole history at map-back)
+                self._draftsman.reset(slot, req.prompt.tolist())
 
     def _build_pack(self) -> dict:
         """Fill the C-token prefill budget FCFS over in-flight prefills
@@ -471,16 +550,64 @@ class ServingEngine:
             for c in caches:
                 c[:, dst].copy_(c[:, src])
         feed = {"bt": self._bt}
+        self._spec = None
         if active.size:
-            feed.update(dec_tok=self._last_tok, dec_pos=self._pos,
+            self._spec = spec = self._propose_locked(active)
+            dec_tok = np.concatenate([self._last_tok[:, None], spec["tok"]],
+                                     axis=1)
+            feed.update(dec_tok=dec_tok, dec_pos=self._pos,
                         dec_mask=self._active)
+            if self.spec_depth:
+                feed["dec_rows"] = (np.arange(self.spec_depth + 1)[None, :]
+                                    <= spec["len"][:, None]) \
+                    & self._active[:, None]
         if pf["used"]:
             feed.update(pf_tok=pf["tokens"], pf_pos=pf["pos"],
                         pf_slot=pf["slot"], pf_seg=pf["seg"],
                         pf_hist=pf["hist"], pf_valid=pf["valid"],
                         fin_row=pf["fin_row"])
         self._upload(**feed)
+        if self._spec is not None and self._spec["dev_tok"] is not None:
+            # a device draftsman's drafts go to the lane without a sync
+            self._ops["dec_tok"][:, 1:].copy_(self._spec["dev_tok"])
         return active, pf
+
+    def _propose_locked(self, active: np.ndarray) -> dict:
+        """This step's drafts (``hetu_tpu/serving/engine.py:2087-2152``):
+        each active slot's depth clamped to ``max_tokens - len(tokens) -
+        1`` (a commit can never pass the budget or the slot's blocks),
+        then the n-gram proposals, or one draft step of the draft model.
+        Returns the host drafts ``tok`` (S, K) and depths ``len`` (S,),
+        and for a draft model its device drafts ``dev_tok`` and proposal
+        rows ``q``."""
+        S, K = self.pool.slots, self.spec_depth
+        spec = {"tok": np.zeros((S, K), np.int64),
+                "len": np.zeros(S, np.int64), "dev_tok": None, "q": None}
+        budget = np.zeros(S, np.int64)
+        for r in active:
+            req = self._slot_req[r]
+            budget[r] = max(0, min(K, req.sampling.max_tokens
+                                   - len(req.tokens) - 1))
+        ds = self._draftsman
+        if ds is None or not budget.any():
+            return spec
+        if ds.host_only:
+            for r in active:
+                prop = ds.propose(int(r), int(budget[r]))
+                n = min(len(prop), int(budget[r]))
+                spec["tok"][r, :n] = prop[:n]
+                spec["len"][r] = n
+            return spec
+        seqs: list = [None] * S
+        for r in active:
+            req = self._slot_req[r]
+            seqs[r] = req.prompt.tolist() + list(req.tokens)
+        dev_tok, d_len, q = ds.propose_all(
+            seqs, self._pos, self._active, budget, temps=self._temp,
+            topks=self._topk, topps=self._topp,
+            seeds=[0 if g is None else g.initial_seed() for g in self._gen])
+        spec.update(len=np.minimum(d_len, budget), dev_tok=dev_tok, q=q)
+        return spec
 
     def _step_locked(self) -> bool:
         t0 = time.monotonic()
@@ -488,12 +615,16 @@ class ServingEngine:
         if staged is None:
             return False
         active, pf = staged
-        dec_toks = None
-        if active.size:
-            logits, = self.lanes["decode"].replay()
+        spec = self._spec
+        if spec is not None:
+            logits, greedy = self.lanes["decode"].replay()
             temp = np.where(self._active, self._temp, 0.0)
-            dec_toks = sample_slots(logits, temp, self._topk, self._topp,
-                                    self._gen)
+            drafts = spec["tok"] if spec["dev_tok"] is None \
+                else spec["dev_tok"].cpu().numpy()
+            spec["committed"], spec["ncommit"] = speculative_verify(
+                logits, drafts, spec["len"], spec["q"], temp, self._topk,
+                self._topp, self._gen, greedy=greedy)
+            spec["sampled"] = temp > 0
             self.lane_iters["decode"] += 1
 
         first_toks = lg = None
@@ -510,8 +641,9 @@ class ServingEngine:
             self.lane_iters["prefill"] += 1
 
         now = time.monotonic()
-        for r in active:
-            self._on_token(int(r), int(dec_toks[r]), now)
+        if spec is not None:
+            self._commit_locked(active, spec, now)
+            self.spec_stats["slot_steps"] += int(active.size)
         for ent, n in pf["fills"]:
             ent["off"] += n
             ent["req"].mark("prefill_chunk", dur_s=now - t0, ts_s=t0)
@@ -531,6 +663,40 @@ class ServingEngine:
             self._prefilling.remove(ent)
         return True
 
+    def _commit_locked(self, active: np.ndarray, spec: dict,
+                       now: float) -> None:
+        """Commit each slot's verified tokens (``hetu_tpu/serving/
+        engine.py:2264-2316``): ``ncommit`` through :meth:`_on_token`,
+        which can finish the request mid-commit (EOS or budget; the rest
+        is dropped); the ledgers count only what the request kept."""
+        stats = self.spec_stats
+        for r in active:
+            r = int(r)
+            req = self._slot_req[r]
+            n = int(spec["ncommit"][r])
+            taken = 0
+            for j in range(n):
+                self._on_token(r, int(spec["committed"][r, j]), now)
+                taken += 1
+                if self._slot_req[r] is not req:
+                    break                        # finished mid-commit
+            dr = int(spec["len"][r])
+            if not dr:
+                continue
+            # of the taken tokens all but the extra one (column n - 1,
+            # kept only when taken == n) were accepted drafts
+            kept = min(taken, n - 1)
+            req.drafted += dr
+            req.accepted += kept
+            stats["drafted"] += dr
+            stats["accepted"] += kept
+            if spec["sampled"][r]:
+                stats["sampled_accepted"] += kept
+                if n - 1 < dr:
+                    # draft n - 1 was rejected: the token came from the
+                    # residual max(0, p - q)
+                    stats["resampled"] += 1
+
     def _on_token(self, slot: int, tok: int, now: float) -> None:
         """Record one sampled token for ``slot``: append, advance the
         cursor (it moves once the token is FED), finish on EOS/budget."""
@@ -539,6 +705,8 @@ class ServingEngine:
         self._last_tok[slot] = tok
         if req.status == "decode" and len(req.tokens) > 1:
             self._pos[slot] += 1
+        if self._draftsman is not None and self._draftsman.host_only:
+            self._draftsman.extend(slot, (tok,))
         sp = req.sampling
         if (sp.eos_id is not None and tok == sp.eos_id) \
                 or len(req.tokens) >= sp.max_tokens:
@@ -678,6 +846,8 @@ class ServingEngine:
             self._gen[slot].set_state(entry.gen_state)
         self._active[slot] = True
         req.status = "decode"
+        if self._draftsman is not None:
+            self._draftsman.reset(slot, req.prompt.tolist() + req.tokens)
         now = time.monotonic()
         if req.first_token_s is None:
             # a cross-engine resume starts a fresh Request: its first

@@ -83,6 +83,8 @@ class Request:
     #                                    prefix cache (skipped prefill)
     weight_version: int = 0            # weight generation the request
     #                                    was admitted (and decoded) under
+    drafted: int = 0                   # draft tokens this request saw
+    accepted: int = 0                  # drafts the verify lane accepted
     preemptions: int = 0               # times evicted mid-decode
     spilled_blocks: int = 0            # KV blocks copied to the host
     #                                    spill arena across preemptions
@@ -113,9 +115,10 @@ class Request:
         """Phase breakdown in milliseconds: queued (submit → admit),
         prefill (admit → first token), TTFT (submit → first token),
         decode (first token → finish), total, plus the prefill-chunk
-        count, the prefix-cache hit, and what the scheduler did to the
-        request under pressure (preemptions, spilled and resumed
-        blocks, whether it resumed mid-decode)."""
+        count, the prefix-cache hit, its drafted and accepted tokens,
+        and what the scheduler did to the request under pressure
+        (preemptions, spilled and resumed blocks, whether it resumed
+        mid-decode)."""
         out = {}
         admit_s = next((t for p, t, _ in self.events if p == "admit"),
                        None)
@@ -136,6 +139,8 @@ class Request:
             1 for p, _, _ in self.events if p == "prefill_chunk")
         out["cached_tokens"] = self.cached_tokens
         out["priority"] = self.sampling.priority
+        out["drafted"] = self.drafted
+        out["accepted"] = self.accepted
         out["preemptions"] = self.preemptions
         out["spilled_blocks"] = self.spilled_blocks
         out["resumed_blocks"] = self.resumed_blocks

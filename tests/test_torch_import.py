@@ -36,7 +36,8 @@ def test_import_leaves_jax_unloaded():
               "hetu_tpu_torch.data.prefetch", "hetu_tpu_torch.engine.trainer",
               "hetu_tpu_torch.engine.sft_trainer",
               "hetu_tpu_torch.nn.moe", "hetu_tpu_torch.engine.memory",
-              "hetu_tpu_torch.serving.kv_pool"):
+              "hetu_tpu_torch.serving.kv_pool",
+              "hetu_tpu_torch.serving.speculative"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
