@@ -6,7 +6,9 @@ it with ``build_train_step``, serves Llama-7B from the int8 KV arena
 (also from an arena sized by an HBM budget, under preemption, and with
 speculative decoding), trains Llama at 7B width through ``Trainer`` and
 ``SFTTrainer``, trains (BASELINE config 4) and serves GPT-MoE 8-expert,
-and serves GPT-2 drafting for itself.
+serves GPT-2 drafting for itself and from a small draft model,
+fine-tunes Llama-7B at full depth with LoRA, and serves Llama-7B and
+GPT-2 with LoRA adapters of several tenants mixed in one batch.
 
 Run from the repository root, on a machine with one CUDA card::
 
@@ -203,8 +205,51 @@ Phases, each printing one JSON line:
    splits, and one preemption with speculation (``llama_spec_preempt``:
    4 slots, 129 blocks, 3 batch requests, an interactive arrival that
    finds too few blocks) whose victim's tokens must equal the same
-   schedule's without preemption.
-14. llama_engine_oracle_fp32 -- the same engine and workload at fp32,
+   schedule's without preemption. ``llama_spec_sampled``: the n-gram
+   draftsman at T = 0.7 (per-request seeds), twice: residual resamples
+   happen, the replay is bit-equal, every token lies in the vocabulary.
+14. llama_tenancy -- the llama_engine's model and settings with
+   ``tenancy=TenantPlane(max_adapters=4, r=16)`` (a 0.64 GB fp32
+   adapter arena, exactly ``engine.memory.size_adapter_arena``) and two
+   seeded adapters (``acme/fr``, ``beta/de``: every projection, r 16,
+   alpha 32, B ~ N(0, 0.02)). Base-only traffic on it must be bit-equal
+   to a tenancy-off engine's (tokens, first-token logits, the whole KV
+   arena). The main path (counters zeroed just before, read just after;
+   launches as in ``llama_engine``): ``llama_workload``'s 48 requests in
+   base / acme / beta thirds, then its 16 shared-prompt requests (the
+   first of each tenant alone): every request within the bf16 oracle's
+   bounds, the oracle carrying the request's adapter alone as a one-page
+   arena built from its host factors (``lora_arena``); each tenant's
+   shared requests hit its own cached system prompt, whose first block is
+   cached once a tenant; the share of steps where the adapter moves the
+   oracle's choice printed (> 0); the first request of each tenant also
+   within the bounds of the oracle run on the serving model wrapped in
+   ``peft.LoraLinear`` with that tenant's factors (``wrap_lora``: the
+   delta computed with no arena and no ``lora_apply``). Then churn (a hot-swap of acme with A
+   x 1.5 under live traffic, a third adapter that evicts the LRU idle
+   page, ``evict_adapter``: requests before and after the swap within
+   the oracle under their versions, one capture a lane), a tenant capped
+   at 4 slots (never more), two planted faults (an acme request served
+   from another adapter's page, or from the base page) that must fail
+   the bounds, ``llama_tenancy_profile`` (steady decode), the BGMV ops'
+   device ms (``bgmv_ms``), and ``hbm_budget_bytes=40e9`` with tenancy:
+   the ledger's slots after the arena's bytes.
+15. llama_lora -- ``llama_lora_train_oracle``: one fp32 step of a
+   LoRA-injected Llama-7B-width model (1 layer, random nonzero B), base
+   frozen, kernels on the card against the CPU: ``train_oracle``'s
+   bounds on every adapter grad, no base grad. ``llama_lora_sft``:
+   ``llama_7b`` uncut (32 layers, fp32 weights from a seed) with LoRA r
+   16 / alpha 32 on every projection (40 M params) through
+   ``SFTTrainer.fit`` under ``masked(chain(clip_by_global_norm(1.0),
+   adamw(1e-4)), lora_trainable_mask)``, bf16 compute, selective remat,
+   ``SFT_PAIRS`` at seq 2048, the first rung of 4 / 2 / 1 that fits; 3
+   warm-up and 10 timed steps: the loss falls, every base param keeps
+   its bits, the optimizer holds the adapters alone, 32 launches a step
+   of each flash kernel; then ``merge_lora`` loaded into the plain
+   module tree: its fp32 last-position logits within ``TOL[fp32]`` times
+   the largest |logit| of the adapter forward's (the bf16 forwards'
+   distances printed).
+16. llama_engine_oracle_fp32 -- the same engine and workload at fp32,
    full width and 2 layers, all 64 requests against the same oracle:
    from an fp32 arena under the 1e-4 rule, then from the int8 arena
    under ``DLOGIT_INT8_FP32``/``TIE_INT8_FP32`` (int8 codes amplify
@@ -212,12 +257,12 @@ Phases, each printing one JSON line:
    (its prompt in 256-token chunks against one pass), and the planted
    faults, which those bounds must fail; each engine's lanes captured
    once, and ``step_graph_replay`` on the fp32 arena.
-15. llama_train_oracle -- one fp32 step of ``LlamaConfig.llama_7b``'s
+17. llama_train_oracle -- one fp32 step of ``LlamaConfig.llama_7b``'s
    width at 1 layer (vocab 32,000), kernels on the card against the
    plain path on the CPU, on one packed row of 256 tokens holding three
    documents (positions restart at each): the bounds of ``train_oracle``
    and exactly one launch of each flash kernel.
-16. llama_train -- the repo's Llama training benchmark
+18. llama_train -- the repo's Llama training benchmark
    (``workloads/bench_suite.py:139-167``, config 3), its measured half:
    Llama-7B width at 2 layers, seq 2048, batch 4, ``Strategy(remat=
    "selective", unroll=True)``, ``adamw(1e-4)``, through
@@ -227,24 +272,24 @@ Phases, each printing one JSON line:
    timed steps. The loss must fall; launches exactly 2 a step of each
    flash kernel (counters zeroed just before the timed steps). Step ms,
    tokens/s, MFU against 989 TFLOP/s, peak memory.
-17. llama_train_profile -- 3 steps under ``torch.profiler``: device ms a
+19. llama_train_profile -- 3 steps under ``torch.profiler``: device ms a
    step by class (``TRAIN_CLASSES``: the kernels, matmul, AdamW's
    ``_foreach_*``, casts/copies, norms, the grad norm, other reductions,
    index/scatter, fill, elementwise), the idle share, and ``lane`` lines
    that put #2-#4 under their tensor-core symbols.
-18. llama_train kernels -- #2-#4 at the batch that ran ((4, 32, 2048,
+20. llama_train kernels -- #2-#4 at the batch that ran ((4, 32, 2048,
    128) bf16, causal, its packed segment ids), with and without dropout
    0.1, against their plain versions (2e-2) and rerun bit-equal; then
    timed as in ``train_kernels``, with the bound from the batch's live
    (q, k) pairs and SDPA (``is_causal``: forward, backward, both) as the
    library yardstick.
-19. llama_sft -- ``SFTTrainer.fit`` from ``llama_train``'s weights with
+21. llama_sft -- ``SFTTrainer.fit`` from ``llama_train``'s weights with
    ``resid_pdrop=0.1`` and ``chain(clip_by_global_norm(1.0), adamw(5e-4,
    weight_decay=0.01))`` (``examples/sft.py``), 10 steps over four
    (prompt, response) pairs of 128-512 / 128-1,536 tokens, repeated, at
    seq 2048, batch 4, ``shuffle=False``: the response-only loss must
    fall, launches exactly 2 a step; the grad norms before the clip.
-20. moe_train_oracle -- one fp32 step of ``GPTConfig.moe_8e``'s width
+22. moe_train_oracle -- one fp32 step of ``GPTConfig.moe_8e``'s width
    (768, 8 GELU experts of 3072, vocab 50257) at 1 layer with each gate
    (topk, ktop1, sam with 2 groups, balance), kernels on the card
    against the plain path on the CPU, at batch 1 x 256. The routing is
@@ -252,7 +297,7 @@ Phases, each printing one JSON line:
    within 1e-4 of a routing tie (``nn.moe.routing_margins``; counts
    printed) and leave the step's labels; then ``train_oracle``'s bounds
    and exactly one launch of each flash kernel.
-21. moe_train -- BASELINE config 4 (``workloads/bench_suite.py:170-185``):
+23. moe_train -- BASELINE config 4 (``workloads/bench_suite.py:170-185``):
    ``moe_8e`` cut to 6 layers (280 M params), batch 8, seq 1024, fp32
    params with bf16 compute, ``Strategy(unroll=True)``, ``adamw(1e-4)``,
    through ``Trainer.train(precision="bf16")`` on one random batch
@@ -261,7 +306,7 @@ Phases, each printing one JSON line:
    active params (expert tensors at k/E) against 989 TFLOP/s beside the
    Trainer's all-params figure, peak memory; then ``moe_train_profile``
    (as ``train_profile``).
-22. moe_engine -- ``moe_8e`` uncut (12 layers, fp32) served by
+24. moe_engine -- ``moe_8e`` uncut (12 layers, fp32) served by
    ``ServingEngine(slots=16, max_len=512, prefill_chunk=64,
    block_size=16)``: the GPT-2 engine's workload at half its requests
    (24, then 8 sharing a 128-token prompt), both lanes through
@@ -269,11 +314,11 @@ Phases, each printing one JSON line:
    captured once, greedy tokens equal to ``generate`` (a divergence only
    at a top-2 gap under 1e-4), the teacher-forced decode logits and the
    first-token logits within 1e-4 of the plain forward (routing compared
-   first, as in 19), ``step_graph_replay`` bit-equal; tokens/s and TTFT;
+   first, as in 22), ``step_graph_replay`` bit-equal; tokens/s and TTFT;
    ``moe_engine_profile`` and ``moe_engine_decode_profile`` (a mixed and
    a steady-decode window, as ``engine``'s: the gathers show as
    index/scatter).
-23. gpt2_spec -- GPT-2 small (fp32) drafting for itself
+25. gpt2_spec -- GPT-2 small (fp32) drafting for itself
    (``draft_model=`` the target) at ``engine``'s settings with
    ``spec_depth=4``, 16 requests of 16-128 + 64 tokens: the draft step
    (``serving_draft_step``) and each lane captured exactly once; exactly
@@ -287,7 +332,18 @@ Phases, each printing one JSON line:
    ``gpt2_spec_engine_prompts``: the same engine, greedy, on the first
    16 of ``engine``'s own burst prompts (4-448 tokens), equal to
    ``generate`` but at a near tie, with its drafting share.
-24. summary -- one ``{"kernels": [...]}`` line (each kernel with its
+26. gpt2_spec_small_draft -- the same engine with ``draft_model=`` a
+   2-layer GPT at GPT-2 small's width from another seed and a larger
+   vocabulary (50,304): launches of #1 exactly 12 a lane replay plus 8 a
+   draft step; greedy tokens equal ``generate`` but at a near tie; at T
+   = 1.0 residual resamples happen, two seeded runs are bit-equal and
+   every token lies in the target's vocabulary.
+27. gpt2_tenancy -- GPT-2 small at ``engine``'s settings with an
+   attention-only adapter (``q_proj|v_proj``, r 4, alpha 8) made with
+   ``peft``: 16 mixed requests, launches as in ``engine``, one capture a
+   lane; adapter requests equal ``generate`` under the ``merge_lora``
+   weights, base requests under the plain ones (ties < 1e-4).
+28. summary -- one ``{"kernels": [...]}`` line (each kernel with its
    lanes and its launches by path), the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -300,6 +356,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import itertools
 import json
 import os
 import subprocess
@@ -1362,7 +1419,10 @@ def phase_profile(eng, prompts, sp, n_steps: int = 20,
     where prefill-lane iterations ran (``lane``), and nowhere else."""
     from torch.profiler import ProfilerActivity, profile
 
-    reqs = [eng.submit(p, sp) for p in prompts]
+    sps = sp if isinstance(sp, (list, tuple)) else [sp] * len(prompts)
+    reqs = [eng.submit(p, s) for p, s in zip(prompts, sps)]
+    check(not any(r.status == "rejected" for r in reqs),
+          f"{phase}: a profiled request was rejected")
     if steady_decode:
         while any(r.first_token_s is None for r in reqs):
             eng.step()
@@ -1512,7 +1572,9 @@ def hold_step(gpu, cpu, batch, device):
     difference <= 1e-3 of its own max |grad| plus 1e-5 of the largest
     grad of the model (sums run in other orders; a grad that is zero in
     exact arithmetic, such as the key bias's, is summation noise on both
-    sides)."""
+    sides). Only trained params (``requires_grad``) are compared; a
+    frozen param that got a grad anyway is counted
+    (``frozen_with_grad``)."""
     from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
     x, y = batch["input_ids"], batch["labels"]
     rest = {k: v for k, v in batch.items() if k not in ("input_ids",
@@ -1526,10 +1588,14 @@ def hold_step(gpu, cpu, batch, device):
     loss_cpu = cpu.loss(x, y, **rest)
     loss_cpu.backward()
     loss_gpu, loss_cpu = float(loss_gpu.detach()), float(loss_cpu.detach())
-    want = dict(cpu.named_parameters())
+    want = {n: p for n, p in cpu.named_parameters() if p.requires_grad}
     gmax = max(float(p.grad.abs().max()) for p in want.values())
     worst, worst_name = 0.0, None
+    frozen = sum(p.grad is not None for m in (gpu, cpu)
+                 for p in m.parameters() if not p.requires_grad)
     for name, p in gpu.named_parameters():
+        if name not in want:
+            continue
         ref = want[name].grad
         err = float((p.grad.cpu() - ref).abs().max())
         bound = 1e-3 * float(ref.abs().max()) + 1e-5 * gmax
@@ -1538,7 +1604,8 @@ def hold_step(gpu, cpu, batch, device):
     return dict(loss_gpu=loss_gpu, loss_cpu=loss_cpu,
                 loss_abs_diff=abs(loss_gpu - loss_cpu),
                 worst_grad_err_over_bound=worst, worst_grad=worst_name,
-                largest_grad=gmax, launches=counts)
+                largest_grad=gmax, compared_grads=len(want),
+                frozen_with_grad=frozen, launches=counts)
 
 
 def check_step_held(phase, reading, want_launches) -> None:
@@ -1547,6 +1614,8 @@ def check_step_held(phase, reading, want_launches) -> None:
     check(reading["worst_grad_err_over_bound"] <= 1.0,
           f"{phase}: grad {reading['worst_grad']} off by "
           f"{reading['worst_grad_err_over_bound']} x its bound")
+    check(reading["frozen_with_grad"] == 0,
+          f"{phase}: {reading['frozen_with_grad']} frozen params got a grad")
     check(reading["launches"] == want_launches,
           f"{phase}: launches {reading['launches']}, expected "
           f"{want_launches}")
@@ -2527,12 +2596,15 @@ def llama_workload(vocab: int, seed: int = SEED):
 
 
 @torch.no_grad()
-def forced_logits(model, prompt, tokens, cache_dtype, chunk=LLAMA_CHUNK):
+def forced_logits(model, prompt, tokens, cache_dtype, chunk=LLAMA_CHUNK,
+                  lora=None):
     """The dense oracle teacher-forced on ``tokens``: ``decode`` over a
     dense cache of ``cache_dtype`` (plain attention, no kernel) with the
-    prompt and every token but the last, ``chunk`` tokens at a time.
-    Returns the fp32 logits the oracle chooses each of ``tokens`` from,
-    ``(len(tokens), V)``; row 0 follows the prompt alone."""
+    prompt and every token but the last, ``chunk`` tokens at a time;
+    ``lora`` (an adapter arena, ``lora_arena``) decodes every token under
+    its page 1. Returns the fp32 logits the oracle chooses each of
+    ``tokens`` from, ``(len(tokens), V)``; row 0 follows the prompt
+    alone."""
     from hetu_tpu_torch.models import decode, init_kv_caches
     seq = list(prompt) + list(tokens[:-1])
     ids = torch.tensor([seq], device=model.device)
@@ -2541,15 +2613,18 @@ def forced_logits(model, prompt, tokens, cache_dtype, chunk=LLAMA_CHUNK):
     for lo in range(0, len(seq), chunk):
         hi = min(len(seq), lo + chunk)
         pos = torch.arange(lo, hi, device=model.device)[None]
-        logits = decode(model, ids[:, lo:hi], pos, caches)
+        pages = None if lora is None else {
+            "ids": torch.ones_like(pos), "pages": lora}
+        logits = decode(model, ids[:, lo:hi], pos, caches, lora=pages)
         if hi > first:
             rows.append(logits[0, max(first - lo, 0):])
     return torch.cat(rows)
 
 
 def oracle(model, reqs, new_tokens, vocab, cache_dtype=torch.int8,
-           keep=None):
-    """Each request's greedy tokens against ``forced_logits`` on them.
+           keep=None, lora_for=None):
+    """Each request's greedy tokens against ``forced_logits`` on them
+    (under the adapter arena ``lora_for(request)`` gives, None for base).
     Returns the largest first-token |dlogit| (the engine's recorded
     logits against the oracle's row 0), the largest shortfall over every
     step (see TIE_FP32) and where it fell, the share of steps at which
@@ -2564,7 +2639,8 @@ def oracle(model, reqs, new_tokens, vocab, cache_dtype=torch.int8,
         check(r.first_logits is not None
               and bool(torch.isfinite(r.first_logits).all()),
               f"request {r.id}: no finite first-token logits recorded")
-        logits = forced_logits(model, r.prompt.tolist(), got, cache_dtype)
+        logits = forced_logits(model, r.prompt.tolist(), got, cache_dtype,
+                               lora=lora_for(r) if lora_for else None)
         check(bool(torch.isfinite(logits).all()),
               f"request {r.id}: non-finite oracle logits")
         if keep is not None:
@@ -3688,6 +3764,28 @@ def phase_llama_spec(device, card, model):
         eng._draftsman = ngram
         check_captures("llama_spec_after_sweep", eng)
 
+        # ---- sampled speculation with n-gram drafts, replayed ----
+        ssp = [SamplingParams(max_tokens=64, temperature=0.7, seed=2000 + i)
+               for i in range(n)]
+        sampled = []
+        for _ in range(2):
+            stats0 = dict(eng.spec_stats)
+            rs, st, w = serve_stepped(eng, prompts, ssp)
+            sampled.append((rs, spec_reading(eng, rs, st, w, stats0)))
+        (a, reading_s), (b, _) = sampled
+        same_s = [r.tokens for r in a] == [r.tokens for r in b]
+        in_vocab = all(0 <= t < vocab for r in a + b for t in r.tokens)
+        emit(phase="llama_spec_sampled", temperature=0.7,
+             draft="ngram (n <= 3)", max_tokens=64, **reading_s,
+             replay_bit_equal=same_s, tokens_in_vocab=in_vocab)
+        check(same_s, "llama_spec_sampled: the seeded replay differs")
+        check(in_vocab, "llama_spec_sampled: a token past the vocabulary")
+        check(reading_s["drafted"] > 0 and reading_s["resampled"] > 0,
+              f"llama_spec_sampled: drafted {reading_s['drafted']}, "
+              f"resampled {reading_s['resampled']}")
+        del sampled, a, b
+        check_captures("llama_spec_after_sampled", eng)
+
         # ---- where a verify step's time goes, beside spec-off's ----
         phase_profile(eng, prompts, SamplingParams(max_tokens=96),
                       phase="llama_spec_profile", classes=LLAMA_CLASSES,
@@ -4001,7 +4099,6 @@ def phase_llama_train(device, card):
     """``Trainer.train`` over the first packed batch, repeated: 3 warm-up
     and 10 timed steps, bf16 compute over fp32 params. The loss must
     fall; each flash kernel must launch exactly twice a step."""
-    import itertools
     from hetu_tpu_torch import optim
     from hetu_tpu_torch.engine import Trainer, TrainerConfig
     from hetu_tpu_torch.engine.trainer import flops_per_token
@@ -4358,7 +4455,6 @@ def phase_moe_train(device, card):
     each flash kernel must launch exactly 6 times a step. MFU on the
     active params (expert tensors at k/E, ``bench_suite.py:88-103``)
     against 989 TFLOP/s, beside the Trainer's own all-params figure."""
-    import itertools
     from hetu_tpu_torch import optim
     from hetu_tpu_torch.engine import Trainer, TrainerConfig
     from hetu_tpu_torch.parallel import Strategy
@@ -4578,6 +4674,937 @@ def phase_moe_engine(device, card):
     return counts
 
 
+# ---- LoRA fine-tuning and the multi-tenant adapter plane -----------------
+
+#: LoRA on Llama-7B: rank 16, alpha 32 (scaling 2) on every projection
+#: of ``serving.tenancy.DEFAULT_TARGETS`` (``peft.LoraConfig``'s default
+#: patterns): 40 M adapter params at full depth
+LORA_R, LORA_ALPHA = 16, 32.0
+#: the LoRA SFT's batch ladder (the first rung that fits is timed)
+LORA_LADDER = (4, 2, 1)
+#: the tenancy engine's arena: 4 pages (the base page and 3 adapters)
+TENANCY_PAGES = 4
+#: a tenant capped at this many slots (``TenantQoS``)
+TENANCY_CAP = 4
+
+
+def lora_pages(cfg, r: int, seed: int) -> dict:
+    """A seeded adapter in ``tenancy.extract_adapter``'s layout for every
+    projection of ``DEFAULT_TARGETS`` the config has: A ~
+    N(0, 0.02) (``peft.LoraLinear``'s init) and B ~ N(0, 0.02) (nonzero,
+    as ``tests/test_tenancy.py:245-262`` draws it, so it changes tokens),
+    fp32 host arrays (L, in, r) and (L, r, out)."""
+    from hetu_tpu_torch.serving.tenancy import DEFAULT_TARGETS
+    E, L = cfg.hidden_size, cfg.num_layers
+    hd = getattr(cfg, "head_dim", None) or E // cfg.num_heads
+    q = cfg.num_heads * hd
+    kv = (getattr(cfg, "num_kv_heads", None) or cfg.num_heads) * hd
+    hidden = getattr(cfg, "intermediate_size", None) \
+        or cfg.mlp_ratio * E
+    dims = {"q_proj": (E, q), "k_proj": (E, kv), "v_proj": (E, kv),
+            "out_proj": (q, E), "gate_proj": (E, hidden),
+            "up_proj": (E, hidden), "fc_in": (E, hidden),
+            "fc_out": (hidden, E)}
+    gated = hasattr(cfg, "intermediate_size")
+    projs = [p for p in DEFAULT_TARGETS
+             if p not in (("fc_in",) if gated else ("gate_proj", "up_proj"))]
+    gen = torch.Generator().manual_seed(int(seed))
+    out = {}
+    for p in projs:
+        d_in, d_out = dims[p]
+        out[p] = {"A": (0.02 * torch.randn(L, d_in, r, generator=gen))
+                  .numpy(),
+                  "B": (0.02 * torch.randn(L, r, d_out, generator=gen))
+                  .numpy()}
+    return out
+
+
+def lora_arena(weights, scaling: float, device) -> dict:
+    """One adapter as a page-1 arena for ``decode(lora=)`` (page 0 the
+    zero base page), built from its host factors alone (the scaling
+    folded into B), so an oracle under it shares no bookkeeping with the
+    engine's registry."""
+    out = {}
+    for proj, ab in weights.items():
+        a = torch.as_tensor(ab["A"], dtype=torch.float32)
+        b = torch.as_tensor(ab["B"], dtype=torch.float32) * scaling
+        out[proj] = {k: torch.stack([torch.zeros_like(t), t], 1).to(device)
+                     for k, t in (("A", a), ("B", b))}
+    return out
+
+
+def wrap_lora(model, weights, r: int, alpha: float) -> list:
+    """Wrap the projections ``weights`` pages (``lora_pages``' layout) in
+    ``peft.LoraLinear``, in place, each holding that adapter's layer
+    factors as its task 0: the delta computed by ``LoraLinear`` itself,
+    ``alpha / r`` applied there, through no arena and no ``lora_apply``.
+    ``unwrap_lora`` undoes it."""
+    from hetu_tpu_torch.peft import LoraConfig, inject_lora
+    pattern = r"\.(" + "|".join(sorted(weights)) + r")$"
+    wrapped = inject_lora(model, LoraConfig(r=r, alpha=alpha,
+                                            target_patterns=(pattern,)))
+    check(len(wrapped) == model.cfg.num_layers * len(weights),
+          f"wrap_lora wrapped {len(wrapped)} projections")
+    mods = dict(model.named_modules())
+    with torch.no_grad():
+        for path in wrapped:
+            layer = int(path.split(".")[1])          # blocks.{layer}.…
+            ab = weights[path.rsplit(".", 1)[1]]
+            mods[path].lora_A[0].copy_(torch.as_tensor(ab["A"][layer]))
+            mods[path].lora_B[0].copy_(torch.as_tensor(ab["B"][layer]))
+    return wrapped
+
+
+def unwrap_lora(model) -> None:
+    """Put each ``LoraLinear``'s base layer back in its place, in place:
+    the model's module tree as it was before ``inject_lora``, which a
+    ``merge_lora`` state dict loads into."""
+    from hetu_tpu_torch.peft import LoraLinear
+    for _, mod in list(model.named_modules()):
+        for name, child in list(mod.named_children()):
+            if isinstance(child, LoraLinear):
+                setattr(mod, name, child.base)
+
+
+def checksum(t: torch.Tensor) -> tuple:
+    """Two integer sums of ``t``'s 32-bit words (plain and position
+    weighted): equal before and after means the bits did not move."""
+    w = t.detach().reshape(-1).view(torch.int32).to(torch.int64)
+    pos = torch.arange(w.numel(), device=w.device) % 65521 + 1
+    return int(w.sum()), int((w * pos).sum())
+
+
+def phase_llama_lora_train_oracle(device):
+    """One fp32 step of a LoRA-injected Llama-7B-width model (1 layer,
+    r 16 on every projection, random nonzero B), kernels on the card
+    against the plain path on the CPU (``hold_step``), base params
+    frozen: the loss and every adapter grad within ``train_oracle``'s
+    bounds, no grad on a base param, one launch of each flash kernel."""
+    from hetu_tpu_torch.data import pack_sequences, to_tensors
+    from hetu_tpu_torch.models import LlamaLMHeadModel
+    from hetu_tpu_torch.peft import LoraConfig, inject_lora, \
+        lora_trainable_mask
+    t0 = time.perf_counter()
+    cfg = llama_train_cfg(num_layers=1)
+    models = []
+    for dev in (device, "cpu"):
+        m = LlamaLMHeadModel(cfg, device=dev, seed=SEED + 2)
+        inject_lora(m, LoraConfig(r=LORA_R, alpha=LORA_ALPHA), seed=SEED)
+        mask = lora_trainable_mask(m)
+        for name, p in m.named_parameters():
+            p.requires_grad_(mask[name])
+        models.append(m)
+    gpu, cpu = models
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    with torch.no_grad():
+        for name, p in gpu.named_parameters():
+            if name.endswith("lora_B"):
+                p.normal_(0.0, 0.02, generator=gen)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    rng = np.random.default_rng(SEED + 1)
+    docs = [rng.integers(0, cfg.vocab_size, n) for n in (100, 80, 60)]
+    batch = to_tensors(pack_sequences(docs, 256).as_batch())
+    reading = hold_step(gpu, cpu, batch, device)
+    emit(phase="llama_lora_train_oracle", dtype="float32", layers=1,
+         lora_r=LORA_R, lora_alpha=LORA_ALPHA, batch=1, seq=256,
+         adapter_params=sum(p.numel() for p in gpu.parameters()
+                            if p.requires_grad), **reading,
+         seconds=time.perf_counter() - t0)
+    check(reading["compared_grads"] == 14,
+          f"llama_lora_train_oracle: {reading['compared_grads']} grads "
+          f"compared, expected the 14 adapter factors")
+    check_step_held("llama_lora_train_oracle", reading,
+                    {**{k: 1 for k in FLASH}, **{k: 0 for k in FUSED}})
+    del gpu, cpu, models
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_llama_lora_sft(device, card):
+    """LoRA SFT of Llama-7B at full depth (32 layers, 6.74 B params, fp32
+    weights from a seed) through ``SFTTrainer.fit``: r 16 / alpha 32 on
+    every projection (40 M adapter params), ``masked(chain(
+    clip_by_global_norm(1.0), adamw(1e-4)), lora_trainable_mask)``, bf16
+    compute, selective remat, ``SFT_PAIRS`` at seq 2048, the first rung
+    of ``LORA_LADDER`` that fits; 3 warm-up and 10 timed steps. The loss
+    must fall, every base param keep its bits (``checksum``), the
+    optimizer hold state for the adapter factors alone, each flash kernel
+    launch exactly 32 times a step; then ``merge_lora``, loaded into the
+    plain module tree (``unwrap_lora``): its fp32 forward against the
+    adapter's fp32 forward on one batch, each row's last-position logits
+    within ``TOL[fp32]`` of the largest of them, and the bf16 forwards'
+    distances printed. Returns the timed steps' launch counts."""
+    from hetu_tpu_torch import optim
+    from hetu_tpu_torch.core import BF16_COMPUTE, FP32, autocast
+    from hetu_tpu_torch.engine import SFTTrainer, TrainerConfig
+    from hetu_tpu_torch.engine.trainer import flops_per_token
+    from hetu_tpu_torch.models import LlamaConfig, LlamaLMHeadModel
+    from hetu_tpu_torch.parallel import Strategy
+    from hetu_tpu_torch.peft import (
+        LoraConfig, inject_lora, lora_trainable_mask, merge_lora,
+    )
+
+    t0 = time.perf_counter()
+    cfg = LlamaConfig.llama_7b()
+    model = LlamaLMHeadModel(cfg, device=device, seed=SEED)
+    n_base = sum(p.numel() for p in model.parameters())
+    wrapped = inject_lora(model, LoraConfig(r=LORA_R, alpha=LORA_ALPHA),
+                          seed=SEED + 3)
+    mask = lora_trainable_mask(model)
+    n_lora = sum(p.numel() for n, p in model.named_parameters() if mask[n])
+    sums = {n: checksum(p) for n, p in model.named_parameters()
+            if not mask[n]}
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    opt = optim.masked(optim.chain(optim.clip_by_global_norm(1.0),
+                                   optim.adamw(1e-4)), mask)
+    trainer = SFTTrainer(model, opt, Strategy(remat="selective",
+                                              unroll=True),
+                         config=TrainerConfig(precision="bf16", log_every=1,
+                                              peak_flops=PEAK_FLOPS[
+                                                  torch.bfloat16]),
+                         device=device)
+    prompts, responses = sft_pairs(cfg.vocab_size)
+    fit = dict(seq_len=LLAMA_TRAIN_SEQ, shuffle=False)
+    tried, warm, batch = [], None, None
+    for b in LORA_LADDER:
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            warm = trainer.fit(prompts, responses, batch_size=b, steps=3,
+                               **fit)
+            batch = b
+            break
+        except torch.cuda.OutOfMemoryError:
+            tried.append(b)
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(batch is not None, f"llama_lora_sft: no rung of {LORA_LADDER} "
+                             f"fits")
+    trainer.config.log_every = 10         # one device read, at the end
+    # the caching allocator's frees and retries inside the timed window:
+    # a candidate cause of the step time's spread between runs
+    retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    run = timed_fit(trainer, lambda n: trainer.fit(
+        prompts, responses, batch_size=batch, steps=n, **fit), 10)
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) \
+        - retries0
+    peak = torch.cuda.max_memory_allocated()
+    rec = run["records"][-1]
+    losses = [r["loss"] for r in warm] + [rec["loss"]]
+    L = cfg.num_layers
+    want = {k: 10 * L for k in FLASH}
+    moved = [n for n, p in model.named_parameters()
+             if not mask[n] and checksum(p) != sums[n]]
+    optimizer = trainer.state.optimizer
+    held = {id(p) for p in optimizer.state}
+    in_groups = {id(p) for g in optimizer.param_groups for p in g["params"]}
+    lora_ids = {id(p) for n, p in model.named_parameters() if mask[n]}
+    tokens = batch * LLAMA_TRAIN_SEQ
+    fpt = flops_per_token(model, LLAMA_TRAIN_SEQ)
+    reading = dict(
+        card=card, config="LlamaConfig.llama_7b (32 layers, uncut)",
+        base_params=n_base, adapter_params=n_lora,
+        wrapped_layers=len(wrapped), lora_r=LORA_R, lora_alpha=LORA_ALPHA,
+        optimizer="masked(chain(clip_by_global_norm(1.0), adamw(1e-4)))",
+        policy="BF16_COMPUTE (fp32 params)", remat="selective",
+        seq=LLAMA_TRAIN_SEQ, pairs=[list(p) for p in SFT_PAIRS],
+        ladder=list(LORA_LADDER), out_of_memory=tried, batch=batch,
+        step_ms=run["dt"] * 1e3, tokens_per_s=tokens / run["dt"],
+        alloc_retries_timed=retries,
+        reserved_bytes=torch.cuda.memory_reserved(),
+        mfu_6n_all_params=tokens / run["dt"] * fpt
+        / PEAK_FLOPS[torch.bfloat16],
+        peak_memory_bytes=peak, init_seconds=t_init,
+        losses_steps_1_2_3_13=losses,
+        grad_norm_step_13=rec["grad_norm"], launches=run["counts"],
+        expected=want, base_params_moved=len(moved),
+        optimizer_state_params=len(held),
+        optimizer_params_are_adapters=in_groups == lora_ids)
+    check(all(np.isfinite(losses)), "non-finite LoRA SFT loss")
+    check(losses[-1] < losses[0], f"LoRA SFT loss did not fall: {losses}")
+    check(not moved, f"llama_lora_sft: base params moved: {moved[:3]}")
+    check(in_groups == lora_ids and held == lora_ids,
+          "llama_lora_sft: the optimizer holds more than the adapters")
+    check(run["counts"] == want, f"llama_lora_sft launches "
+                                 f"{run['counts']}, expected {want}")
+
+    # ---- merge_lora, then the plain forward against the adapter's ----
+    del trainer, optimizer
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 43)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 512)),
+                          device=device)
+    policies = {"fp32": FP32, "bf16": BF16_COMPUTE}
+    lora_out, plain_out = {}, {}
+    with torch.no_grad():
+        for name, policy in policies.items():
+            with autocast(policy):
+                lora_out[name] = model(ids)[:, -1].float()
+        merged = merge_lora(model)
+        unwrap_lora(model)
+        model.load_state_dict(merged)        # strict: the plain tree
+        del merged
+        for name, policy in policies.items():
+            with autocast(policy):
+                plain_out[name] = model(ids)[:, -1].float()
+    err32 = max_err(plain_out["fp32"], lora_out["fp32"])
+    bound32 = TOL[torch.float32] * float(lora_out["fp32"].abs().max())
+    reading.update(
+        merge_rows=4, merge_seq=512, merge_fp32_max_abs_diff=err32,
+        merge_fp32_bound=bound32,
+        merge_bf16_max_abs_diff=max_err(plain_out["bf16"], lora_out["bf16"]),
+        merge_bf16_vs_fp32_max_abs_diff={
+            "adapter": max_err(lora_out["bf16"], lora_out["fp32"]),
+            "merged": max_err(plain_out["bf16"], lora_out["fp32"])},
+        last_logit_max_abs=float(lora_out["fp32"].abs().max()),
+        merge_seconds=time.perf_counter() - t1,
+        seconds=time.perf_counter() - t0)
+    emit(phase="llama_lora_sft", **reading)
+    check(err32 <= bound32,
+          f"llama_lora_sft: merge_lora's plain forward differs from the "
+          f"adapter forward by {err32} in fp32 (bound {bound32})")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run["counts"]
+
+
+def serve_tenants(eng, prompts, sps, waves=None):
+    """Submit ``prompts`` with their ``sps`` and step to drain; requests
+    whose index is in ``waves`` are first served one at a time until
+    their first token (so their prompts enter the prefix cache first).
+    Returns the requests, each step's host ms with whether it ran a
+    prefill pack, and the wall seconds."""
+    t0 = time.perf_counter()
+    first = [] if waves is None else list(waves)
+    reqs = [None] * len(prompts)
+    for i in first:
+        reqs[i] = eng.submit(prompts[i], sps[i])
+        check(reqs[i].status != "rejected", f"rejected: {reqs[i].error}")
+        while reqs[i].first_token_s is None:
+            eng.step()
+    for i, (p, sp) in enumerate(zip(prompts, sps)):
+        if reqs[i] is None:
+            reqs[i] = eng.submit(p, sp)
+    bad = [r.error for r in reqs if r.status == "rejected"]
+    check(not bad, f"rejected: {bad[:2]}")
+    steps = []
+    while eng.has_work():
+        check(len(steps) < 20_000, "the engine never drained")
+        pf = eng.lane_iters["prefill"]
+        t1 = time.perf_counter()
+        eng.step()
+        steps.append(dict(ms=(time.perf_counter() - t1) * 1e3,
+                          prefill=eng.lane_iters["prefill"] > pf))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(all(r.status == "done" for r in reqs), "requests unfinished")
+    return reqs, steps, wall
+
+
+def tenant_of(sp) -> str:
+    return f"{sp.tenant}/{sp.adapter}" if sp.adapter else "base"
+
+
+def per_tenant(reqs) -> dict:
+    """TTFT and TPOT p50/p99 and the tokens of each tenant's requests."""
+    out = {}
+    for r in reqs:
+        out.setdefault(tenant_of(r.sampling), []).append(r)
+    read = {}
+    for name, rs in sorted(out.items()):
+        t = [r.timing() for r in rs]
+        ttft = [x["ttft_ms"] for x in t]
+        tpot = [x["decode_ms"] / (len(r.tokens) - 1)
+                for x, r in zip(t, rs) if len(r.tokens) > 1]
+        read[name] = dict(requests=len(rs),
+                          tokens=sum(len(r.tokens) for r in rs),
+                          ttft_ms_p50=percentile(ttft, 50),
+                          ttft_ms_p99=percentile(ttft, 99),
+                          tpot_ms_p50=percentile(tpot, 50),
+                          tpot_ms_p99=percentile(tpot, 99))
+    return read
+
+
+@contextlib.contextmanager
+def planted_page(eng, victims, page):
+    """Serve the requests whose ids are in ``victims`` from arena page
+    ``page`` (another adapter's, or the base page 0) in place of their
+    own: the engine's admission stamps the wrong page into the slot's
+    operand; the lanes and the kernels are untouched."""
+    real = eng._bind_adapter_locked
+
+    def faulty(req, slot):
+        ok = real(req, slot)
+        if ok and req.id in victims:
+            eng._adapter_page[slot] = page
+        return ok
+
+    eng._bind_adapter_locked = faulty
+    try:
+        yield
+    finally:
+        eng._bind_adapter_locked = real
+
+
+def bgmv_ms(timer, eng, rows: int) -> float:
+    """Device ms of every ``lora_apply`` of one lane iteration at ``rows``
+    tokens (each layer's paged projections, pages drawn at random over
+    the arena, the page masks made once as ``StackedBlocks.decode`` makes
+    them), through the engine's own arena, captured as a CUDA graph and
+    timed as one replay: the adapter lane's added work, timed apart from
+    the base model's."""
+    from hetu_tpu_torch.nn.parallel import lora_apply, lora_select
+    pages = eng._lora_pages
+    L = eng.model.blocks.num_layers
+    g = torch.Generator(device=eng.device).manual_seed(SEED)
+    ids = torch.randint(0, TENANCY_PAGES, (1, rows), generator=g,
+                        device=eng.device)
+    sel, live = lora_select(ids, TENANCY_PAGES, LORA_R, torch.float32)
+    xs = {n: torch.randn(1, rows, ab["A"].shape[2], device=eng.device,
+                         dtype=torch.bfloat16, generator=g)
+          for n, ab in pages.items()}
+    ys = {n: torch.randn(1, rows, ab["B"].shape[3], device=eng.device,
+                         dtype=torch.bfloat16, generator=g)
+          for n, ab in pages.items()}
+
+    def run():
+        for layer in range(L):
+            one = {"sel": sel, "live": live,
+                   "pages": {n: {"A": ab["A"][layer], "B": ab["B"][layer]}
+                             for n, ab in pages.items()}}
+            for n in pages:
+                lora_apply(one, n, xs[n], ys[n])
+
+    if eng.device.type != "cuda":
+        return timer(run)
+    # captured, as the lanes run it: the host does not pace the replay
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run()
+    return timer(graph.replay)
+
+
+def phase_llama_tenancy(device, card, model, timer):
+    """Multi-tenant serving at Llama-7B width (bf16, int8 arena): the
+    llama_engine's settings with ``tenancy=TenantPlane(max_adapters=4,
+    r=16)``, two seeded adapters (``acme/fr``, ``beta/de``: every
+    projection, nonzero B). First base-only traffic on a fresh tenancy
+    engine against a tenancy-off engine (tokens, first-token logits and
+    the whole KV arena bit-equal); then the main path (counters zeroed
+    just before, read just after): ``llama_workload``'s 48 requests in
+    base / acme / beta thirds, then its 16 shared-prompt requests (the
+    first of each tenant alone, then the rest), every request against the
+    teacher-forced bf16 oracle carrying its adapter alone (a one-page
+    arena, ``lora_arena``) under the llama_engine's bounds; prefix hits
+    only within a tenant. Planted faults (the other adapter's page, the
+    base page) must fail the bounds. Then churn (hot-swap of acme under
+    live traffic, a third adapter evicting the LRU idle page,
+    ``evict_adapter``), the QoS slot cap, the HBM-budget sizing, a
+    profile and the BGMV ops' device ms. Returns the main path's launch
+    counts."""
+    from hetu_tpu_torch.core import BF16_FULL, autocast
+    from hetu_tpu_torch.engine import memory, trace_counts
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.serving import (
+        SamplingParams, ServingEngine, TenantPlane,
+    )
+
+    cfg, vocab = model.cfg, model.cfg.vocab_size
+    t0 = time.perf_counter()
+    scale = LORA_ALPHA / LORA_R
+    adapters = {"acme/fr": lora_pages(cfg, LORA_R, SEED + 51),
+                "beta/de": lora_pages(cfg, LORA_R, SEED + 52)}
+    kw = dict(slots=LLAMA_SLOTS, max_len=LLAMA_MAX_LEN,
+              prefill_chunk=LLAMA_CHUNK, block_size=LLAMA_BLOCK,
+              cache_dtype=torch.int8, seed=SEED, device=device,
+              record_first_logits=True)
+    arena_bytes = memory.size_adapter_arena(cfg, r=LORA_R,
+                                            max_adapters=TENANCY_PAGES)
+
+    def load(eng, name, weights):
+        tenant, adapter = name.split("/")
+        return eng.load_adapter(tenant, adapter, weights, scaling=scale)
+
+    def sp_of(name, new, **extra):
+        if name == "base":
+            return SamplingParams(max_tokens=new, **extra)
+        tenant, adapter = name.split("/")
+        return SamplingParams(max_tokens=new, tenant=tenant,
+                              adapter=adapter, **extra)
+
+    with autocast(BF16_FULL):
+        # ---- base traffic: tenancy on (adapters loaded) vs off ----
+        rng = np.random.default_rng(SEED + 53)
+        base_prompts = [rng.integers(0, vocab, int(n)).tolist()
+                        for n in rng.integers(16, LLAMA_MAX_LEN // 2 + 1,
+                                              16)]
+        before = trace_counts()
+        off = ServingEngine(model, **kw)
+        check_captures("llama_tenancy_off_setup", off, before)
+        before = trace_counts()
+        t1 = time.perf_counter()
+        eng = ServingEngine(model, tenancy=TenantPlane(
+            max_adapters=TENANCY_PAGES, r=LORA_R), **kw)
+        t_build = time.perf_counter() - t1
+        check_captures("llama_tenancy_setup", eng, before)
+        pages_bytes = sum(t.numel() * t.element_size()
+                          for ab in eng._lora_pages.values()
+                          for t in ab.values())
+        for name, w in adapters.items():
+            load(eng, name, w)
+        base_runs = []
+        for e in (off, eng):
+            reqs = [e.submit(p, SamplingParams(max_tokens=32))
+                    for p in base_prompts]
+            e.run_until_drained()
+            base_runs.append(reqs)
+        torch.cuda.synchronize()
+        same_tokens = all(a.tokens == b.tokens for a, b in zip(*base_runs))
+        same_logits = all(torch.equal(a.first_logits, b.first_logits)
+                          for a, b in zip(*base_runs))
+        same_arena = all(torch.equal(a, b) for a, b in
+                         zip(off.pool.caches, eng.pool.caches))
+        # one decode replay of the same staged step on each engine: the
+        # adapter lane's device cost at 16 slots
+        lanes_off = capture_stats(off)
+        base_replay_ms = {"tenancy_off": replay_device_ms(off),
+                          "tenancy_on": replay_device_ms(eng)}
+        del off, base_runs
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit(phase="llama_tenancy_setup", card=card,
+             config="LlamaConfig.llama_7b", dtype="bfloat16",
+             cache_dtype="int8", max_adapters=TENANCY_PAGES, r=LORA_R,
+             adapters=sorted(adapters), scaling=scale,
+             arena_bytes=pages_bytes, ledger_arena_bytes=arena_bytes,
+             engine_seconds=t_build, lanes=capture_stats(eng),
+             lanes_tenancy_off=lanes_off,
+             base_requests=len(base_prompts),
+             base_tokens_equal_tenancy_off=same_tokens,
+             base_first_logits_equal_tenancy_off=same_logits,
+             base_kv_arena_equal_tenancy_off=same_arena,
+             base_last_step_replay_device_ms=base_replay_ms)
+        check(pages_bytes == arena_bytes,
+              f"llama_tenancy: the arena holds {pages_bytes} B, the ledger "
+              f"prices {arena_bytes} B")
+        check(same_tokens and same_logits and same_arena,
+              "llama_tenancy: base traffic on the tenancy engine differs "
+              "from the tenancy-off engine")
+
+        # ---- the main path: counters zeroed just before, read after ----
+        burst, shared = llama_workload(vocab)
+        names = ("base", "acme/fr", "beta/de")
+        new = 64
+        sps = [sp_of(names[i % 3], new) for i in range(len(burst))]
+        sps2 = [sp_of(names[i % 3], new) for i in range(len(shared))]
+        stats0 = eng.tenancy.registry.stats()
+        iters0 = dict(eng.lane_iters)
+        reset_launch_counts()
+        reqs, steps, wall = serve_tenants(eng, burst, sps)
+        reqs2, steps2, wall2 = serve_tenants(eng, shared, sps2,
+                                             waves=range(3))
+        counts = launch_counts()
+        iters = {k: n - iters0[k] for k, n in eng.lane_iters.items()}
+        # ---------------------------------------------------------------
+        decode_ms = [s["ms"] for s in steps + steps2 if not s["prefill"]]
+        replay_ms = replay_device_ms(eng)
+    check_captures("llama_tenancy", eng, before)
+    check_launches("llama_tenancy_launches", counts, iters, cfg.num_layers,
+                   paged="paged_attention_int8")
+    gen = sum(len(r.tokens) for r in reqs)
+    hits = {r.id: r.cached_tokens for r in reqs2[3:]}
+    system = sum(1 for _ in itertools.takewhile(
+        lambda ab: ab[0] == ab[1], zip(shared[0], shared[1])))
+    system -= system % LLAMA_BLOCK
+    root_tags = sorted({c.adapter for c in eng.prefix_cache._root.children
+                        if list(c.tokens) == shared[0][:LLAMA_BLOCK]})
+    uids = {n: eng.tenancy.registry.get(*n.split("/")).uid
+            for n in names[1:]}
+
+    arenas = {n: lora_arena(w, scale, device) for n, w in adapters.items()}
+
+    def lora_for(r):
+        return arenas.get(tenant_of(r.sampling))
+
+    t1 = time.perf_counter()
+    with autocast(BF16_FULL):
+        sound = oracle(model, reqs + reqs2, new, vocab, lora_for=lora_for)
+        # how often the adapter moves the oracle's choice: the base
+        # oracle's argmax on the same tokens, on six adapter requests
+        moved = total = 0
+        for r in [r for r in reqs if r.sampling.adapter][:6]:
+            toks = list(r.tokens)
+            a = forced_logits(model, r.prompt.tolist(), toks, torch.int8,
+                              lora=lora_for(r)).argmax(-1)
+            b = forced_logits(model, r.prompt.tolist(), toks,
+                              torch.int8).argmax(-1)
+            moved += int((a != b).sum())
+            total += len(toks)
+        # the delta a second way, through no arena and no lora_apply: the
+        # first request of each tenant against the serving model wrapped
+        # in peft.LoraLinear with that tenant's factors
+        direct = {}
+        for n in names[1:]:
+            r = next(x for x in reqs if tenant_of(x.sampling) == n)
+            wrap_lora(model, adapters[n], LORA_R, LORA_ALPHA)
+            try:
+                direct[n] = oracle(model, [r], new, vocab)
+            finally:
+                unwrap_lora(model)
+    emit(phase="llama_tenancy", card=card, requests=len(reqs),
+         tenants=list(names), burst_generated_tokens=gen,
+         burst_seconds=wall, burst_tokens_per_s=gen / wall,
+         burst_steps=len(steps), shared_requests=len(reqs2),
+         shared_seconds=wall2,
+         shared_tokens_per_s=sum(len(r.tokens) for r in reqs2) / wall2,
+         per_tenant=per_tenant(reqs), shared_per_tenant=per_tenant(reqs2),
+         decode_step_ms=spread(decode_ms), replay_device_ms=replay_ms,
+         shared_prefix_hits=hits, root_block_adapter_tags=root_tags,
+         adapter_uids=uids, registry=eng.tenancy.registry.stats(),
+         registry_before=stats0, ledgers={k: {str(kk): v for kk, v in
+                                               d.items()}
+                                          for k, d in
+                                          eng.tenancy.ledgers.items()},
+         oracle=sound, dlogit_bound=DLOGIT_BF16, tie_bound=TIE_BF16,
+         adapter_moves_oracle_argmax_share=moved / max(total, 1),
+         adapter_argmax_steps=total, lora_linear_oracle=direct,
+         oracle_seconds=time.perf_counter() - t1,
+         seconds=time.perf_counter() - t0)
+    check_held("llama_tenancy against the adapter oracle", sound,
+               DLOGIT_BF16, TIE_BF16)
+    for n, reading in direct.items():
+        check_held(f"llama_tenancy {n} against the LoraLinear oracle",
+                   reading, DLOGIT_BF16, TIE_BF16)
+    check(moved > 0, "llama_tenancy: the adapters never change the "
+                     "oracle's choice")
+    check(all(h >= system for h in hits.values()),
+          f"llama_tenancy: a shared-prompt request missed its tenant's "
+          f"cached system prompt: {hits}")
+    check(root_tags == sorted([0] + list(uids.values())),
+          f"llama_tenancy: the system prompt's first block is cached "
+          f"under tags {root_tags}, expected one a tenant")
+
+    # ---- churn: hot-swap under live traffic, LRU eviction, evict ----
+    t1 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 55)
+    fresh = [rng.integers(0, vocab, int(n)).tolist()
+             for n in rng.integers(LLAMA_MAX_LEN // 20,
+                                   LLAMA_MAX_LEN * 3 // 10 + 1, 16)]
+    reg = eng.tenancy.registry
+    v2 = {p: {"A": ab["A"] * np.float32(1.5), "B": ab["B"]}
+          for p, ab in adapters["acme/fr"].items()}
+    gamma = lora_pages(cfg, LORA_R, SEED + 56)
+    with autocast(BF16_FULL):
+        old = [eng.submit(p, sp_of("acme/fr", 32)) for p in fresh[:4]]
+        while any(r.adapter_ref is None for r in old):
+            eng.step()
+        uid_v1 = reg.get("acme", "fr").uid
+        ev0 = reg.stats()["evictions"]
+        info_v2 = load(eng, "acme/fr", v2)
+        info_g = load(eng, "gamma/x", gamma)
+        evicted_lru = reg.stats()["evictions"] - ev0
+        beta_resident = reg.resident("beta", "de")
+        later = [(eng.submit(p, sp_of(n, 32)), n) for p, n in zip(
+            fresh[4:], ["acme/fr", "gamma/x", "beta/de", "base"] * 3)]
+        eng.run_until_drained()
+        flushed = eng.evict_adapter("beta", "de")
+    arenas_v = {"acme/fr": lora_arena(v2, scale, device),
+                "gamma/x": lora_arena(gamma, scale, device),
+                "beta/de": arenas["beta/de"]}
+    with autocast(BF16_FULL):
+        old_read = oracle(model, old, 32, vocab, lora_for=lora_for)
+        new_read = oracle(model, [r for r, _ in later], 32, vocab,
+                          lora_for=lambda r: arenas_v.get(
+                              tenant_of(r.sampling)))
+    emit(phase="llama_tenancy_churn", in_flight_at_swap=len(old),
+         uid_v1=uid_v1, swap=info_v2, third_adapter=info_g,
+         lru_evictions_at_third_load=evicted_lru,
+         beta_resident_after_third_load=beta_resident,
+         after_swap_requests=len(later), evict_beta=flushed,
+         registry=reg.stats(), old_version_oracle=old_read,
+         new_version_oracle=new_read, seconds=time.perf_counter() - t1)
+    check(info_v2["version"] == 2 and info_v2["uid"] != uid_v1,
+          "llama_tenancy_churn: the hot-swap kept the old uid")
+    check(evicted_lru == 1 and not beta_resident,
+          "llama_tenancy_churn: the third adapter did not evict the LRU "
+          "idle page (beta/de)")
+    check_held("llama_tenancy_churn requests in flight at the swap",
+               old_read, DLOGIT_BF16, TIE_BF16)
+    check_held("llama_tenancy_churn requests after the swap", new_read,
+               DLOGIT_BF16, TIE_BF16)
+    check(not reg.has("beta", "de"), "evict_adapter left beta/de")
+    check_captures("llama_tenancy_churn", eng, before)
+
+    # ---- QoS: a tenant capped at TENANCY_CAP slots ----
+    t1 = time.perf_counter()
+    eng.tenancy.qos.configure("noisy", max_slots=TENANCY_CAP)
+    rng = np.random.default_rng(SEED + 57)
+    qp = [rng.integers(0, vocab, int(n)).tolist()
+          for n in rng.integers(LLAMA_MAX_LEN // 32,
+                                LLAMA_MAX_LEN // 8 + 1, 32)]
+    qsp = [SamplingParams(max_tokens=32, tenant="noisy")
+           if i % 2 == 0 else sp_of(("base", "acme/fr")[i // 2 % 2], 32)
+           for i in range(len(qp))]
+    with autocast(BF16_FULL):
+        qreqs = [eng.submit(p, sp) for p, sp in zip(qp, qsp)]
+        most = 0
+        while eng.has_work():
+            eng.step()
+            most = max(most, sum(1 for r in eng._slot_req if r is not None
+                                 and r.sampling.tenant == "noisy"))
+    check(all(r.status == "done" for r in qreqs), "QoS requests unfinished")
+    ttft = per_tenant(qreqs)
+    emit(phase="llama_tenancy_qos", cap=TENANCY_CAP,
+         noisy_requests=len(qp) // 2, most_noisy_slots=most,
+         throttled={str(k): v for k, v in
+                    eng.tenancy.ledgers["throttled"].items()},
+         per_tenant=ttft, seconds=time.perf_counter() - t1)
+    check(most <= TENANCY_CAP, f"the capped tenant held {most} slots")
+    check_captures("llama_tenancy_qos", eng, before)
+
+    # ---- planted faults: the wrong page must fail the oracle ----
+    t1 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 59)
+    fp = [rng.integers(0, vocab, int(n)).tolist()
+          for n in rng.integers(LLAMA_CHUNK + 1, LLAMA_MAX_LEN // 2 + 1, 8)]
+    caught = {}
+    bounds = (DLOGIT_BF16, TIE_BF16)
+    other = reg.get("gamma", "x").page
+    check(other is not None, "llama_tenancy: gamma/x left the arena")
+    for fault, page in (("other_adapter_page", other), ("base_page", 0)):
+        with autocast(BF16_FULL):
+            with planted_page(eng, set(range(eng._next_id,
+                                              eng._next_id + 8)), page):
+                freqs = [eng.submit(p, sp_of("acme/fr", 16)) for p in fp]
+                eng.run_until_drained()
+            got = oracle(model, freqs, 16, vocab, lora_for=lambda r:
+                         arenas_v["acme/fr"])
+        caught[fault] = not held(got, *bounds)
+        emit(phase="llama_tenancy_fault", fault=fault, page=page, **got,
+             dlogit_bound=bounds[0], tie_bound=bounds[1],
+             caught=caught[fault])
+        # the faulty run's spans are tagged with acme's uid: drop them
+        eng.prefix_cache.flush_adapter(reg.get("acme", "fr").uid)
+    for fault, seen in caught.items():
+        check(seen, f"the adapter oracle passes a planted fault ({fault})")
+
+    # ---- where the time goes: a profile, the BGMV ops alone ----
+    with autocast(BF16_FULL):
+        prof_p = [rng.integers(0, vocab, LLAMA_MAX_LEN // 4).tolist()
+                  for _ in range(LLAMA_SLOTS)]
+        eng.tenancy.qos.configure("noisy")
+        live = ("base", "acme/fr", "gamma/x")     # beta/de was evicted
+        phase_profile(eng, prof_p, [sp_of(live[i % 3], 96)
+                                    for i in range(LLAMA_SLOTS)],
+                      phase="llama_tenancy_profile", classes=LLAMA_CLASSES,
+                      steady_decode=True)
+        bgmv = {"decode_16_rows": bgmv_ms(timer, eng, LLAMA_SLOTS),
+                "prefill_256_rows": bgmv_ms(timer, eng, LLAMA_CHUNK)}
+    emit(phase="llama_tenancy_bgmv", device_ms=bgmv,
+         projections=sorted(eng._lora_pages), layers=cfg.num_layers,
+         pages=TENANCY_PAGES, r=LORA_R,
+         note="every lora_apply of one lane iteration, captured as a "
+              "CUDA graph; one replay timed with CUDA events")
+    check_captures("llama_tenancy_after_profiles", eng, before)
+    del eng, arenas, arenas_v
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the HBM budget: the arena comes off it first ----
+    with autocast(BF16_FULL):
+        beng = ServingEngine(model, hbm_budget_bytes=BUDGET_BYTES,
+                             max_len=LLAMA_MAX_LEN,
+                             prefill_chunk=LLAMA_CHUNK,
+                             block_size=LLAMA_BLOCK, cache_dtype=torch.int8,
+                             seed=SEED, device=device,
+                             tenancy=TenantPlane(
+                                 max_adapters=TENANCY_PAGES, r=LORA_R))
+    want = memory.size_kv_pool(cfg, hbm_budget_bytes=BUDGET_BYTES
+                               - arena_bytes, max_len=LLAMA_MAX_LEN,
+                               cache_dtype="int8")
+    plain = memory.size_kv_pool(cfg, hbm_budget_bytes=BUDGET_BYTES,
+                                max_len=LLAMA_MAX_LEN, cache_dtype="int8")
+    emit(phase="llama_tenancy_budget", hbm_budget_bytes=BUDGET_BYTES,
+         arena_bytes=arena_bytes, slots=beng.pool.slots,
+         ledger_slots=want, ledger_slots_without_tenancy=plain)
+    check(beng.pool.slots == want, f"budget with tenancy: "
+                                   f"{beng.pool.slots} slots, the ledger "
+                                   f"sizes {want}")
+    del beng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_gpt2_tenancy(device, card):
+    """GPT-2 small (fp32) at ``engine``'s settings with an attention-only
+    adapter (``q_proj|v_proj``, r 4, alpha 8: JAX's fixture) made with
+    ``peft`` (B ~ N(0, 0.1)): 16 mixed requests (16-128 + 64 tokens, every
+    other one under the adapter), launches as in ``engine`` (counters
+    zeroed just before, read just after), each lane captured once; each
+    adapter request's greedy tokens equal ``generate`` under the
+    ``merge_lora`` weights, each base request's under the plain ones (a
+    divergence only at a top-2 gap under 1e-4). Returns the launch
+    counts."""
+    from hetu_tpu_torch.engine import trace_counts
+    from hetu_tpu_torch.models import GPTConfig, GPTLMHeadModel
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.peft import LoraConfig, inject_lora, merge_lora
+    from hetu_tpu_torch.serving import (
+        SamplingParams, ServingEngine, TenantPlane, extract_adapter,
+        lora_scaling,
+    )
+
+    t0 = time.perf_counter()
+    cfg = GPTConfig.small()
+    model = GPTLMHeadModel(cfg, device=device, seed=SEED).eval()
+    lmodel = GPTLMHeadModel(cfg, device=device, seed=SEED)
+    inject_lora(lmodel, LoraConfig(r=4, alpha=8.0, target_patterns=(
+        r"\.(q_proj|v_proj)$",)), seed=SEED + 61)
+    gen = torch.Generator(device=device).manual_seed(SEED + 62)
+    with torch.no_grad():
+        for name, p in lmodel.named_parameters():
+            if name.endswith("lora_B"):
+                p.normal_(0.0, 0.1, generator=gen)
+    weights = extract_adapter(lmodel.state_dict())
+    scale = lora_scaling(lmodel)
+    merged = GPTLMHeadModel(cfg, device=device, seed=SEED).eval()
+    merged.load_state_dict(merge_lora(lmodel))
+    del lmodel
+    n, lo_len, hi_len, new = GPT2_SPEC
+    rng = np.random.default_rng(SEED + 63)
+    prompts = [rng.integers(0, cfg.vocab_size, int(k)).tolist()
+               for k in rng.integers(lo_len, hi_len + 1, n)]
+    sps = [SamplingParams(max_tokens=new, tenant="acme", adapter="fr")
+           if i % 2 == 0 else SamplingParams(max_tokens=new)
+           for i in range(n)]
+    before = trace_counts()
+    eng = ServingEngine(model, slots=16, max_len=512, prefill_chunk=64,
+                        block_size=16, seed=SEED, device=device,
+                        tenancy=TenantPlane(max_adapters=4, r=4))
+    info = eng.load_adapter("acme", "fr", weights, scaling=scale)
+    # ---- the main path: counters zeroed just before, read after ----
+    reset_launch_counts()
+    reqs, steps, wall = serve_tenants(eng, prompts, sps)
+    counts = launch_counts()
+    iters = dict(eng.lane_iters)
+    # ---------------------------------------------------------------
+    check_captures("gpt2_tenancy", eng, before)
+    check_launches("gpt2_tenancy_launches", counts, iters, cfg.num_layers)
+    ad = [r for r in reqs if r.sampling.adapter]
+    base = [r for r in reqs if not r.sampling.adapter]
+    generate_oracle("gpt2_tenancy_adapter_oracle", merged, ad, new, device)
+    generate_oracle("gpt2_tenancy_base_oracle", model, base, new, device)
+    from hetu_tpu_torch.models import generate
+    changed = sum(
+        generate(model, [r.prompt.tolist()], max_new_tokens=new,
+                 device=device)[0, len(r.prompt):].tolist() != r.tokens
+        for r in ad)
+    gen_toks = sum(len(r.tokens) for r in reqs)
+    emit(phase="gpt2_tenancy", card=card, config="GPTConfig.small",
+         dtype="float32", adapter="q_proj|v_proj, r 4, alpha 8",
+         load=info, requests=n, adapter_requests=len(ad),
+         adapter_requests_changed_by_adapter=changed,
+         tokens_per_s=gen_toks / wall, per_tenant=per_tenant(reqs),
+         lanes=capture_stats(eng), seconds=time.perf_counter() - t0)
+    del eng, model, merged
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_gpt2_spec_small_draft(device, card):
+    """GPT-2 small (fp32) at ``engine``'s settings with ``spec_depth=4``
+    and ``draft_model=`` a 2-layer GPT of GPT-2 small's width from
+    another seed, whose vocabulary (50,304) is larger than the target's
+    (50,257: drafts past it are masked, q given over the target's
+    vocabulary). Launches (counters zeroed just before the greedy run,
+    read just after) exactly 12 #1 per verify and prefill replay plus 2
+    x K per draft step, 12 #2 per prefill replay; each lane and the draft
+    step captured once. Greedy: the tokens of spec-off ``generate`` but
+    at a near tie. T = 1.0 (per-request seeds): residual resamples
+    happen, two runs from the same seeds are bit-equal, every token
+    lies in the target's vocabulary. Returns the greedy run's counts."""
+    import dataclasses
+    from hetu_tpu_torch.engine import trace_counts
+    from hetu_tpu_torch.models import GPTConfig, GPTLMHeadModel
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.serving import SamplingParams, ServingEngine
+
+    t0 = time.perf_counter()
+    cfg = GPTConfig.small()
+    dcfg = dataclasses.replace(cfg, num_layers=2, vocab_size=50304)
+    model = GPTLMHeadModel(cfg, device=device, seed=SEED).eval()
+    draft_model = GPTLMHeadModel(dcfg, device=device, seed=SEED + 65).eval()
+    n, lo_len, hi_len, new = GPT2_SPEC
+    rng = np.random.default_rng(SEED + 23)
+    prompts = [rng.integers(0, cfg.vocab_size, int(k)).tolist()
+               for k in rng.integers(lo_len, hi_len + 1, n)]
+    before = trace_counts()
+    eng = ServingEngine(model, slots=16, max_len=512, prefill_chunk=64,
+                        block_size=16, seed=SEED, device=device,
+                        spec_depth=SPEC_DEPTH, draft_model=draft_model)
+    draft = eng._draftsman
+    check(draft.graph.captures == 1, "the draft step was not captured once")
+    stats0 = dict(eng.spec_stats)
+    # ---- the main path: counters zeroed just before, read after ----
+    reset_launch_counts()
+    steps0 = draft.steps
+    reqs, steps, wall = serve_stepped(eng, prompts,
+                                      SamplingParams(max_tokens=new))
+    counts = launch_counts()
+    iters = dict(eng.lane_iters)
+    draft_steps = draft.steps - steps0
+    # ---------------------------------------------------------------
+    L = cfg.num_layers
+    want = {"paged_attention": L * (iters["decode"] + iters["prefill"])
+            + dcfg.num_layers * SPEC_DEPTH * draft_steps,
+            "flash_fwd": L * iters["prefill"], "paged_attention_int8": 0}
+    greedy = spec_reading(eng, reqs, steps, wall, stats0)
+    emit(phase="gpt2_spec_small_draft_launches", counts=counts,
+         lane_iters=iters, draft_steps=draft_steps, expected=want)
+    check(all(counts.get(k, 0) == v for k, v in want.items()),
+          f"gpt2_spec_small_draft: launches {counts}, expected {want}")
+    generate_oracle("gpt2_spec_small_draft_oracle", model, reqs, new,
+                    device)
+    sps = [SamplingParams(max_tokens=new, temperature=1.0, seed=3000 + i)
+           for i in range(n)]
+    runs = []
+    for _ in range(2):
+        stats0 = dict(eng.spec_stats)
+        rs, st, w = serve_stepped(eng, prompts, sps)
+        runs.append((rs, spec_reading(eng, rs, st, w, stats0)))
+    (a, sampled), (b, _) = runs
+    replay_equal = [r.tokens for r in a] == [r.tokens for r in b]
+    in_vocab = all(0 <= t < cfg.vocab_size for r in a + b for t in r.tokens)
+    emit(phase="gpt2_spec_small_draft", card=card, config="GPTConfig.small",
+         draft="GPT-2 small width, 2 layers, vocab 50304, seed "
+               f"{SEED + 65}", dtype="float32", spec_depth=SPEC_DEPTH,
+         requests=n, max_tokens=new, greedy=greedy,
+         sampled_t1=sampled, sampled_replay_bit_equal=replay_equal,
+         sampled_tokens_in_target_vocab=in_vocab,
+         draft_captures=draft.graph.captures,
+         seconds=time.perf_counter() - t0)
+    check(sampled["resampled"] > 0, "gpt2_spec_small_draft: no residual "
+                                    "resample at T = 1.0")
+    check(replay_equal, "gpt2_spec_small_draft: the T = 1.0 replay differs")
+    check(in_vocab, "gpt2_spec_small_draft: a token past the target's "
+                    "vocabulary")
+    check_captures("gpt2_spec_small_draft", eng, before)
+    check(draft.graph.captures == 1, "the draft step re-captured")
+    del eng, draft, model, draft_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
 
 LLAMA_CLASSES = KERNEL_CLASSES + (("nvjet", "matmul"),)
 
@@ -4652,9 +5679,12 @@ def main() -> int:
     paths["llama_evict_resume"] = phase_llama_evict_resume(device, smi,
                                                            model)
     paths["llama_spec"] = phase_llama_spec(device, smi, model)
+    paths["llama_tenancy"] = phase_llama_tenancy(device, smi, model, timer)
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    phase_llama_lora_train_oracle(device)
+    paths["llama_lora_sft"] = phase_llama_lora_sft(device, smi)
     phase_llama_oracle_fp32(device)
     phase_llama_train_oracle(device)
     llama = phase_llama_train(device, smi)
@@ -4685,6 +5715,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["moe_engine"] = phase_moe_engine(device, smi)
     paths["gpt2_spec"] = phase_gpt2_spec(device, smi)
+    paths["gpt2_spec_small_draft"] = phase_gpt2_spec_small_draft(device, smi)
+    paths["gpt2_tenancy"] = phase_gpt2_tenancy(device, smi)
     del timer
     for name, entry in kernels.items():
         entry["launches_by_path"] = {p: c.get(name, 0)

@@ -2,8 +2,8 @@
 
 The JAX package ``hetu_tpu`` stays the reference; this package mirrors its
 layout (``core/``, ``ops/``, ``nn/``, ``models/``, ``optim/``,
-``parallel/``, ``engine/``, ``serving/``) so each module's counterpart is
-easy to find. It imports torch and numpy only — never jax,
+``parallel/``, ``peft/``, ``engine/``, ``serving/``) so each module's
+counterpart is easy to find. It imports torch and numpy only — never jax,
 never ``hetu_tpu``.
 
 Device rule: every entry point takes ``device=None``, which means

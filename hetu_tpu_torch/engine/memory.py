@@ -1,6 +1,7 @@
 """The serving plane's byte ledger: KV-pool and spill-arena sizing, and the
 device's own memory counters (counterpart of ``hetu_tpu/engine/memory.py``
-``:303-575``, the serving part).
+``:303-575``, the serving part: the KV pool, the spill arena and the
+adapter arena).
 
 The serving engine's admission control is a BYTES question — how many
 fixed-shape KV slots fit next to the weights — and this ledger is the
@@ -130,6 +131,34 @@ def size_kv_pool(cfg, *, hbm_budget_bytes: float, max_len: int,
                           block_size=max_len, cache_dtype=cache_dtype,
                           tp=tp, param_bytes_per_el=param_bytes_per_el,
                           headroom=headroom)
+
+
+def size_adapter_arena(cfg, *, r: int, max_adapters: int,
+                       dtype_bytes: float = 4.0) -> int:
+    """Device bytes of the multi-tenant LoRA adapter arena
+    (``serving/tenancy.py``): per layer and per arena page, an
+    ``(in, r)`` A plus an ``(r, out)`` B for every adapter-targetable
+    projection — q/k/v/out always, plus the dense FFN matrices
+    (gated gate/up/down when the config carries ``intermediate_size``,
+    GPT fc_in/fc_out otherwise; MoE expert weights are not adapter
+    targets, so MoE FFNs price zero). The serving engine subtracts it
+    from ``hbm_budget_bytes`` before sizing the KV pool."""
+    L = int(cfg.num_layers)
+    E = int(cfg.hidden_size)
+    heads = int(cfg.num_heads)
+    hd = int(getattr(cfg, "head_dim", None) or E // heads)
+    kvh = int(getattr(cfg, "num_kv_heads", None) or heads)
+    q_out, kv_out = heads * hd, kvh * hd
+    dims = [(E, q_out), (E, kv_out), (E, kv_out), (q_out, E)]
+    if getattr(cfg, "num_experts", 0) <= 0:
+        inter = getattr(cfg, "intermediate_size", None)
+        if inter is not None:
+            dims += [(E, int(inter)), (E, int(inter)), (int(inter), E)]
+        else:
+            hidden = int(getattr(cfg, "mlp_ratio", 4)) * E
+            dims += [(E, hidden), (hidden, E)]
+    per_page = sum((i + o) * int(r) for i, o in dims) * L
+    return int(per_page * int(max_adapters) * float(dtype_bytes))
 
 
 # -- the device's own counters ------------------------------------------------

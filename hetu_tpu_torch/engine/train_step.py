@@ -164,15 +164,21 @@ def build_train_step(model: nn.Module, opt: OptimizerSpec,
     ``num_microbatches = n > 1`` the batch splits into n equal
     microbatches whose grads sum in fp32 and are divided by n
     (``:830-848``); the loss is their mean. The global norm is taken in
-    fp32. Forward and backward run under the plan's precision policy.
+    fp32. A frozen param (``requires_grad`` False: one that
+    ``optim.masked`` leaves out) gets no grad, and ``grad_norm`` is then
+    the trained params' norm, where JAX's also counts the frozen grads it
+    computes and discards. Forward and backward run under the plan's
+    precision policy.
     Dropout seeds are threaded only when the config enables dropout. The
     metrics stay on the device."""
     base_loss = default_loss_fn(model, plan.strategy)
     thread_dropout = model_dropout_active(model)
     nm = plan.strategy.num_microbatches
-    trainable = [p for p in model.parameters() if p.requires_grad]
 
     def step(state: TrainState, batch: dict):
+        # read at each step: ``opt.build`` (``init_state``) freezes the
+        # params a ``masked`` optimizer leaves out
+        trainable = [p for p in model.parameters() if p.requires_grad]
         batch = _on_device(batch, plan.device)
         seed = step_dropout_seed(state.step) if thread_dropout else None
         total = torch.zeros((), dtype=torch.float32, device=plan.device)

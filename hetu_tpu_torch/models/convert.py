@@ -6,6 +6,11 @@ weights as ``(in, out)`` (``hetu_tpu/nn/parallel.py:81``). The port keeps
 one module per layer (``blocks.{i}.…``) and ``F.linear``'s ``(out, in)``.
 Keys are the dotted paths of ``hetu_tpu/utils/checkpoint.py:40
 _key_str``, so a flattened ``hetu_tpu`` checkpoint converts as well.
+A LoRA-wrapped tree (``hetu_tpu/peft/lora.py``) converts as well: a
+wrapped Linear's weight under ``….base.`` is transposed like any Linear
+weight, and its factors ``lora_A`` (layers, tasks, in, r) and ``lora_B``
+(layers, tasks, r, out) are un-stacked along the layers and not
+transposed (the port's ``LoraLinear`` reads them as JAX does).
 Each leaf keeps its dtype; a bfloat16 leaf (numpy's ``ml_dtypes``
 bfloat16, which torch cannot read) crosses through float32, which holds
 every bfloat16 value exactly.
@@ -47,7 +52,8 @@ def _tensor(a) -> torch.Tensor:
 
 
 def params_from_jax(tree, cfg) -> dict:
-    """``hetu_tpu`` GPT or Llama params, dense or MoE (a nested dict of
+    """``hetu_tpu`` GPT or Llama params, dense or MoE, plain or
+    LoRA-wrapped (a nested dict of
     arrays, or its flattened ``{dotted.key: array}`` form) → the port's
     ``state_dict`` (CPU tensors; ``load_state_dict`` moves them to the
     model's device)."""
@@ -62,9 +68,10 @@ def params_from_jax(tree, cfg) -> dict:
         if arr.shape[0] != cfg.num_layers:
             raise ValueError(f"{key}: leading layer axis {arr.shape[0]} != "
                              f"num_layers {cfg.num_layers}")
+        linear = rest.replace(".base.", ".").endswith(_LINEAR_WEIGHTS)
         for i in range(cfg.num_layers):
             a = arr[i]
-            if rest.endswith(_LINEAR_WEIGHTS):
+            if linear:
                 a = a.T
             state[f"blocks.{i}.{rest}"] = _tensor(a)
     return state

@@ -64,7 +64,7 @@ def init_kv_caches(model, batch: int, max_len: int,
 
 @torch.no_grad()
 def decode(model, input_ids, positions, caches, *, slot_mask=None,
-           block_tables=None, row_mask=None):
+           block_tables=None, row_mask=None, lora=None):
     """Run a chunk through the model in decode mode; returns fp32 logits
     ``(b, s, V)`` and updates ``caches`` in place.
 
@@ -76,11 +76,15 @@ def decode(model, input_ids, positions, caches, *, slot_mask=None,
     ``(L, n_blocks, block_size, hkv, d)`` and each row decodes at its own
     ``positions[r, 0]`` (masked-off rows write nothing); ``row_mask``
     (b, s) bool then lets only its True cells write
-    (``hetu_tpu/models/generation.py:66``)."""
+    (``hetu_tpu/models/generation.py:66``). ``lora`` (an adapter arena,
+    ``{"ids": (b, s) pages, "pages": {proj: {"A": (L, P, in, r), "B":
+    (L, P, r, out)}}}``) adds each token's adapter delta
+    (``nn.parallel.lora_apply``); None is the base model, with no op
+    added."""
     h = model.embed(input_ids, positions=positions)
     h = model.blocks.decode(h, caches, positions=positions,
                             slot_mask=slot_mask, block_tables=block_tables,
-                            row_mask=row_mask)
+                            row_mask=row_mask, lora=lora)
     return model.logits(model.hidden_norm(h))
 
 
@@ -99,7 +103,7 @@ def generate(model, input_ids, *, max_new_tokens: int,
              temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
              generator: Optional[torch.Generator] = None, device=None,
              return_logits: bool = False,
-             cache_dtype: Optional[torch.dtype] = None):
+             cache_dtype: Optional[torch.dtype] = None, lora=None):
     """Generate ``max_new_tokens`` continuations for a ``(b, s)`` prompt.
 
     Returns ``(b, s + max_new_tokens)`` token ids (int64). Greedy at
@@ -110,8 +114,10 @@ def generate(model, input_ids, *, max_new_tokens: int,
     V)``. ``device=None`` means ``cuda``; the model must live there.
     ``cache_dtype`` is the KV cache's dtype (default: the model's);
     ``torch.int8`` decodes from the quantized cache, as ``hetu_tpu``'s
-    ``generate(cache_dtype=jnp.int8)`` does. An MoE model whose gate
-    couples the rows of a batch (the balance gate) raises."""
+    ``generate(cache_dtype=jnp.int8)`` does. ``lora`` decodes each row
+    under an adapter: ``{"ids": (b,) page of each row, "pages": an arena
+    as :func:`decode` takes it}``. An MoE model whose gate couples the
+    rows of a batch (the balance gate) raises."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"model is on {model.device}, generate was asked "
@@ -132,13 +138,21 @@ def generate(model, input_ids, *, max_new_tokens: int,
     knobs = dict(temperature=temperature, top_k=top_k, top_p=top_p,
                  generator=generator)
 
+    def rows(n):
+        if lora is None:
+            return None
+        pages = torch.as_tensor(lora["ids"], device=ids.device)
+        return {"ids": pages.view(b, 1).expand(b, n),
+                "pages": lora["pages"]}
+
     pos = torch.arange(s, device=ids.device)[None, :].expand(b, s)
-    last = decode(model, ids, pos, caches)[:, -1]
+    last = decode(model, ids, pos, caches, lora=rows(s))[:, -1]
     seen = [last]
     toks = [_sample(last, **knobs)]
     for i in range(max_new_tokens - 1):
         pos = torch.full((b, 1), s + i, dtype=torch.long, device=ids.device)
-        last = decode(model, toks[-1][:, None], pos, caches)[:, -1]
+        last = decode(model, toks[-1][:, None], pos, caches,
+                      lora=rows(1))[:, -1]
         seen.append(last)
         toks.append(_sample(last, **knobs))
     out = torch.cat([ids, torch.stack(toks, dim=1)], dim=1)

@@ -112,12 +112,15 @@ class GPTBlock(nn.Module):
         x = x + dropout(h, self.resid_pdrop, generator_for(s2, x.device))
         return (x, aux) if self.returns_aux else x
 
-    def decode(self, x, kv_cache, **kwargs):
+    def decode(self, x, kv_cache, *, lora=None, **kwargs):
         """Decode mode; an MoE FFN runs its per-row top-k lane
-        (``MoEMLP.decode``), as ``hetu_tpu``'s kv-cache branch does."""
-        x = x + self.attn.decode(self.ln_1(x), kv_cache, **kwargs)
-        mlp = self.mlp.decode if self.returns_aux else self.mlp
-        return x + mlp(self.ln_2(x))
+        (``MoEMLP.decode``), as ``hetu_tpu``'s kv-cache branch does.
+        ``lora`` (one layer's adapter pages) reaches attention and a dense
+        FFN; expert weights carry no adapter."""
+        x = x + self.attn.decode(self.ln_1(x), kv_cache, lora=lora, **kwargs)
+        if self.returns_aux:
+            return x + self.mlp.decode(self.ln_2(x))
+        return x + self.mlp(self.ln_2(x), lora=lora)
 
 
 class GPTLMHeadModel(nn.Module):
@@ -151,7 +154,7 @@ class GPTLMHeadModel(nn.Module):
             leaf = name.rsplit(".", 1)[-1]
             if leaf == "scale":
                 p.fill_(1.0)
-            elif leaf == "bias":
+            elif leaf in ("bias", "lora_B"):
                 p.zero_()
             else:
                 p.normal_(0.0, self.cfg.init_std, generator=gen)

@@ -117,11 +117,15 @@ class LlamaBlock(nn.Module):
         x = x + dropout(h, self.resid_pdrop, generator_for(s2, x.device))
         return (x, aux) if self.returns_aux else x
 
-    def decode(self, x, kv_cache, **kwargs):
-        """Decode mode; an MoE FFN runs ``MoEMLP.decode``."""
-        x = x + self.attn.decode(self.input_norm(x), kv_cache, **kwargs)
-        mlp = self.mlp.decode if self.returns_aux else self.mlp
-        return x + mlp(self.post_attn_norm(x))
+    def decode(self, x, kv_cache, *, lora=None, **kwargs):
+        """Decode mode; an MoE FFN runs ``MoEMLP.decode``. ``lora`` (one
+        layer's adapter pages) reaches attention and a dense FFN; expert
+        weights carry no adapter."""
+        x = x + self.attn.decode(self.input_norm(x), kv_cache, lora=lora,
+                                 **kwargs)
+        if self.returns_aux:
+            return x + self.mlp.decode(self.post_attn_norm(x))
+        return x + self.mlp(self.post_attn_norm(x), lora=lora)
 
 
 class LlamaLMHeadModel(nn.Module):
@@ -159,6 +163,8 @@ class LlamaLMHeadModel(nn.Module):
         for name, p in self.named_parameters():
             if name.endswith(".scale"):
                 p.fill_(1.0)
+            elif name.endswith(".lora_B"):
+                p.zero_()
             else:
                 p.normal_(0.0, self.cfg.init_std, generator=gen)
 

@@ -87,11 +87,59 @@ class VocabParallelEmbedding(Embedding):
     """``VocabParallelEmbedding`` at tp=1: a plain lookup."""
 
 
+def lora_select(ids: torch.Tensor, n_pages: int, r: int, dtype):
+    """The page masks of :func:`lora_apply`, the same for every projection
+    and layer of one forward: ``sel`` (tokens, P r) is 1 on the r adapter
+    rows of each token's own page and 0 elsewhere; ``live`` (b, s, 1) is
+    True on tokens off the base page."""
+    own = ids.reshape(-1, 1) == torch.arange(n_pages, device=ids.device)
+    sel = own[:, :, None].expand(-1, n_pages, r).reshape(-1, n_pages * r)
+    return sel.to(dtype), (ids != 0)[..., None]
+
+
+def lora_apply(lora, name: str, x: torch.Tensor,
+               y: torch.Tensor) -> torch.Tensor:
+    """The multi-tenant adapter delta of projection ``name`` added to its
+    base output ``y`` (``hetu_tpu/nn/parallel.py:212-238``, batched-gather
+    LoRA, "BGMV").
+
+    ``lora`` is ``{"sel": …, "live": …, "pages": {name: {"A": (P, in,
+    r), "B": (P, r, out)}}}``: :func:`lora_select`'s masks of the tokens'
+    pages, made once a forward, and ONE layer's slice of the engine's
+    adapter arena, the LoRA scaling folded into B
+    (:meth:`StackedBlocks.decode` builds it for each layer). Page 0 is
+    the base model's zero page: its tokens take ``y``
+    back through a masked select (not ``y + 0.0``, which would turn a
+    -0.0 into +0.0), so they stay bitwise base. ``lora`` None, or a
+    projection the arena lacks, returns ``y`` with no op at all.
+
+    ``hetu_tpu`` gathers each token's factors, ``A[ids]`` (tokens, in, r)
+    and ``B[ids]`` (tokens, r, out), and contracts them in fp32. The port
+    computes the same function without per-token copies of the factors,
+    in two products: ``x A`` for all P pages at once, ``(tokens, P r)``
+    (one matrix when A's pages are stored in-major, as the engine's arena
+    stores them), kept only on each token's own page (``sel``), then one
+    product with the pages' B stacked as ``(P r, out)``. Page ids stay
+    data and every shape is static, so the engine's captured lanes never
+    re-capture as adapters load, swap or mix."""
+    if not lora or name not in lora["pages"]:
+        return y
+    ab = lora["pages"][name]
+    a, b = ab["A"], ab["B"]                          # (P, in, r), (P, r, out)
+    n_pages, d_in, r = a.shape
+    sel, live = lora["sel"], lora["live"]
+    xa = torch.mm(x.reshape(-1, d_in).to(a.dtype),
+                  a.transpose(0, 1).reshape(d_in, n_pages * r))
+    d = torch.mm(xa * sel, b.reshape(n_pages * r, -1)).view(y.shape)
+    return torch.where(live, y + d.to(y.dtype), y)
+
+
 class ParallelMLP(nn.Module):
     """GPT-2 MLP ``fc_out(gelu(fc_in(x)))`` (``gated=False``), or the
     Llama SwiGLU form ``fc_out(silu(gate_proj(x)) * up_proj(x))``
-    (``gated=True``, ``hetu_tpu/nn/parallel.py:248-268``). The W8A8
-    lane is not ported."""
+    (``gated=True``, ``hetu_tpu/nn/parallel.py:248-268``), each
+    projection with its :func:`lora_apply` delta when ``lora`` is given
+    (``:318-330``). The W8A8 lane is not ported."""
 
     def __init__(self, features: int, hidden: int, *, bias: bool = True,
                  gated: bool = False, device=None, dtype=torch.float32):
@@ -105,10 +153,13 @@ class ParallelMLP(nn.Module):
             self.fc_in = ColumnParallelLinear(features, hidden, **kw)
         self.fc_out = RowParallelLinear(hidden, features, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, lora=None) -> torch.Tensor:
         if self.gated:
-            return self.fc_out(swiglu(self.gate_proj(x), self.up_proj(x)))
-        return self.fc_out(gelu(self.fc_in(x)))
+            h = swiglu(lora_apply(lora, "gate_proj", x, self.gate_proj(x)),
+                       lora_apply(lora, "up_proj", x, self.up_proj(x)))
+        else:
+            h = gelu(lora_apply(lora, "fc_in", x, self.fc_in(x)))
+        return lora_apply(lora, "fc_out", h, self.fc_out(h))
 
 
 def _scatter_rows(buf: torch.Tensor, rows: torch.Tensor, new: torch.Tensor,
@@ -175,13 +226,17 @@ class ParallelAttention(nn.Module):
         self.rope_theta = float(rope_theta)
         self.max_positions = int(max_positions)
 
-    def _qkv(self, x, positions=None):
-        """q, k, v ``(b, s, heads, d)``; with RoPE, q and k rotated at
-        ``positions`` (b, s) (default ``arange(s)``)."""
+    def _qkv(self, x, positions=None, lora=None):
+        """q, k, v ``(b, s, heads, d)``, each with its :func:`lora_apply`
+        delta when ``lora`` is given; with RoPE, q and k rotated at
+        ``positions`` (b, s) (default ``arange(s)``) after it."""
         b, s, _ = x.shape
-        q = self.q_proj(x).view(b, s, self.num_heads, self.head_dim)
-        k = self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
-        v = self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
+        q = lora_apply(lora, "q_proj", x, self.q_proj(x)).view(
+            b, s, self.num_heads, self.head_dim)
+        k = lora_apply(lora, "k_proj", x, self.k_proj(x)).view(
+            b, s, self.num_kv_heads, self.head_dim)
+        v = lora_apply(lora, "v_proj", x, self.v_proj(x)).view(
+            b, s, self.num_kv_heads, self.head_dim)
         if self.use_rope:
             cos, sin = rope_tables(self.head_dim, self.max_positions,
                                    self.rope_theta, x.device)
@@ -203,7 +258,7 @@ class ParallelAttention(nn.Module):
         return self.out_proj(out.reshape(b, s, -1))
 
     def decode(self, x, kv_cache, *, positions, slot_mask=None,
-               block_tables=None, pack=None, row_mask=None):
+               block_tables=None, pack=None, row_mask=None, lora=None):
         """Incremental decoding against a KV cache, updated in place.
 
         - dense (``block_tables`` None): ``kv_cache`` is ``(k_buf, v_buf)``
@@ -226,17 +281,22 @@ class ParallelAttention(nn.Module):
           may be a live block);
         - packed prefill (``pack``): see :meth:`_decode_packed`.
 
-        ``kv_cache`` may be the int8 4-tuple in every mode. Returns the
-        attention block's output ``(b, s, embed)``."""
+        ``kv_cache`` may be the int8 4-tuple in every mode. ``lora`` (one
+        layer's adapter pages and each token's page, see
+        :func:`lora_apply`) adds the adapter deltas to q, k and v before
+        RoPE and the cache write, and to ``out_proj`` (``hetu_tpu/nn/
+        parallel.py:593-601, 704``). Returns the attention block's output
+        ``(b, s, embed)``."""
         if row_mask is not None and (pack is not None
                                      or block_tables is None):
             raise ValueError("row_mask requires block_tables (the dense "
                              "cache writes contiguous rows)")
         if pack is not None:
             return self._decode_packed(x, kv_cache, positions=positions,
-                                       block_tables=block_tables, pack=pack)
+                                       block_tables=block_tables, pack=pack,
+                                       lora=lora)
         b, s, _ = x.shape
-        q, k, v = self._qkv(x, positions)
+        q, k, v = self._qkv(x, positions, lora)
         writes = _cache_writes(kv_cache, k, v)
         if block_tables is None:
             if slot_mask is not None:
@@ -273,9 +333,11 @@ class ParallelAttention(nn.Module):
             k_buf, v_buf, scales = _arena(kv_cache)
             out = paged_attention(q, k_buf, v_buf, block_tables, index,
                                   **scales)
-        return self.out_proj(out.reshape(b, s, -1))
+        out = out.reshape(b, s, -1)
+        return lora_apply(lora, "out_proj", out, self.out_proj(out))
 
-    def _decode_packed(self, x, kv_cache, *, positions, block_tables, pack):
+    def _decode_packed(self, x, kv_cache, *, positions, block_tables, pack,
+                       lora=None):
         """Packed-prefill mode: ``x`` is ONE ``(1, C, embed)`` row of C
         tokens from many requests, with the engine's per-slot
         ``block_tables`` (S, W), ``positions`` (1, C) and ``pack`` keys
@@ -299,7 +361,7 @@ class ParallelAttention(nn.Module):
         (``hetu_tpu/nn/parallel.py:776-779``), and the history part runs
         the paged kernel's int8 lane."""
         b, C, _ = x.shape
-        q, k, v = self._qkv(x, positions)
+        q, k, v = self._qkv(x, positions, lora)
         blk, W = kv_cache[0].shape[1], block_tables.shape[1]
         pos = positions[0].long()                            # (C,)
         blk_ids = block_tables.long()[pack["row_slot"].long(),
@@ -323,8 +385,9 @@ class ParallelAttention(nn.Module):
                                       return_lse=True, **scales)
         hist = hist[:, 0][None]                              # (1, C, hq, d)
         lse_h = lse_h[:, :, 0].t()[None]                     # (1, hq, C)
-        out = combine_attention_lse(intra, lse_i, hist, lse_h)
-        return self.out_proj(out.reshape(b, C, -1))
+        out = combine_attention_lse(intra, lse_i, hist, lse_h).reshape(
+            b, C, -1)
+        return lora_apply(lora, "out_proj", out, self.out_proj(out))
 
 
 #: ops whose outputs selective remat keeps: the matmuls of the Linear
@@ -445,9 +508,21 @@ class StackedBlocks(nn.ModuleList):
                 aux = aux + a
         return x if aux is None else (x, aux)
 
-    def decode(self, x, caches, **kwargs):
+    def decode(self, x, caches, *, lora=None, **kwargs):
         """``caches``: ``(k, v)`` or the int8 ``(k, k scales, v, v
-        scales)``, each ``(layers, …)``; updated in place."""
+        scales)``, each ``(layers, …)``; updated in place. ``lora`` is the
+        engine's adapter arena, ``{"ids": (b, s) pages, "pages": {proj:
+        {"A": (L, P, in, r), "B": (L, P, r, out)}}}``: layer ``l`` gets
+        its ``(P, …)`` slice of every projection's pages
+        (``hetu_tpu/nn/parallel.py:1105-1142``)."""
+        if lora:
+            a = next(iter(lora["pages"].values()))["A"]
+            sel, live = lora_select(lora["ids"], a.shape[1], a.shape[3],
+                                    a.dtype)
         for layer, blk in enumerate(self):
+            if lora:
+                kwargs["lora"] = {"sel": sel, "live": live, "pages": {
+                    name: {"A": ab["A"][layer], "B": ab["B"][layer]}
+                    for name, ab in lora["pages"].items()}}
             x = blk.decode(x, tuple(c[layer] for c in caches), **kwargs)
         return x

@@ -26,6 +26,9 @@ every block param with the stacked layer axis (``nn/parallel.py:877-892``):
 block biases and LayerNorm scales are decayed, ``ln_f`` is not. The port
 keeps one module per layer, so :func:`jax_decay_mask` reproduces that
 rule by name.
+
+``masked(inner, mask)`` freezes the params whose ``mask`` entry is False
+(PEFT/LoRA: only the adapters train).
 """
 
 from __future__ import annotations
@@ -44,7 +47,10 @@ ScalarOrSchedule = Union[float, Callable[[int], float]]
 
 def jax_decay_mask(name: str, param: torch.Tensor) -> bool:
     """JAX's default decay rule (``ndim >= 2``) as it applies to stacked
-    block params: every ``blocks.*`` param, and 2-D params elsewhere."""
+    block params: every ``blocks.*`` param, and 2-D params elsewhere.
+    A LoRA factor is decayed wherever it sits: ``lora_A``/``lora_B`` of a
+    block are 4-D stacked in JAX, ``(layers, tasks, in, r)``, and 3-D
+    ``(tasks, ·, ·)`` outside the blocks."""
     return name.startswith("blocks.") or param.dim() >= 2
 
 
@@ -155,14 +161,17 @@ class OptimizerSpec:
         return self.lr if callable(self.lr) else constant(self.lr)
 
     def build(self, model: nn.Module) -> torch.optim.Optimizer:
-        """The optimizer over ``model``'s params: one group when nothing
+        """The optimizer over ``model``'s trainable params (a frozen one,
+        ``requires_grad`` False, holds no state): one group when nothing
         is decayed, else a decayed and a non-decayed group split by
         :func:`jax_decay_mask`."""
         lr0 = self.schedule()(0)
+        named = [(n, p) for n, p in model.named_parameters()
+                 if p.requires_grad]
         if not self.weight_decay:
-            return self.cls(model.parameters(), lr=lr0, **self.hyper)
+            return self.cls([p for _, p in named], lr=lr0, **self.hyper)
         decay, keep = [], []
-        for name, p in model.named_parameters():
+        for name, p in named:
             (decay if jax_decay_mask(name, p) else keep).append(p)
         groups = [{"params": decay, "weight_decay": self.weight_decay},
                   {"params": keep, "weight_decay": 0.0}]
@@ -197,6 +206,48 @@ class Chain:
         for t in self.transforms:
             gs = t(gs)
         self.optimizer.step(optimizer, count, dict(zip(params, gs)))
+
+
+@dataclasses.dataclass(frozen=True)
+class Masked:
+    """``masked(inner, mask)`` (``hetu_tpu/optim/base.py:112``): only the
+    params whose ``mask`` entry is True train.
+
+    JAX computes every grad, zeroes the frozen leaves' grads before
+    ``inner`` and their updates after it. The port freezes them instead:
+    :meth:`build` sets ``requires_grad`` False on every param the mask
+    leaves out, so the step computes no grad for it, the optimizer holds
+    no state for it and the ``grads`` that :meth:`step` receives never
+    name it. The two are equal: a zero grad adds nothing to a global
+    norm, so a ``chain(clip_by_global_norm(...), ...)`` inside measures
+    the trained params' norm alone, and a zeroed update (weight decay
+    included) leaves a frozen param as it was."""
+
+    inner: Union[OptimizerSpec, Chain]
+    mask: Mapping[str, bool]
+
+    def build(self, model: nn.Module) -> torch.optim.Optimizer:
+        named = dict(model.named_parameters())
+        missing = sorted(set(named) - set(self.mask))
+        if missing:
+            raise ValueError(f"masked: the mask does not name {missing[:3]}"
+                             f" ({len(missing)} params)")
+        for name, p in named.items():
+            if not self.mask[name]:
+                p.requires_grad_(False)
+        return self.inner.build(model)
+
+    def step(self, optimizer: torch.optim.Optimizer, count: int,
+             grads: Mapping) -> None:
+        self.inner.step(optimizer, count, grads)
+
+
+def masked(inner: Union[OptimizerSpec, Chain],
+           mask: Mapping[str, bool]) -> Masked:
+    """Train only the params whose ``mask`` entry (``{name: bool}`` over
+    every param, as ``peft.lora_trainable_mask`` gives it) is True:
+    ``masked(chain(clip_by_global_norm(1.0), adamw(1e-4)), mask)``."""
+    return Masked(inner, dict(mask))
 
 
 def chain(*parts) -> Chain:

@@ -1,5 +1,6 @@
-"""Serving: the continuous-batching engine over the paged KV arena, and
-the draft plane of its speculative decoding."""
+"""Serving: the continuous-batching engine over the paged KV arena, the
+draft plane of its speculative decoding, and the multi-tenant adapter
+plane."""
 
 from hetu_tpu_torch.serving.engine import ServingEngine
 from hetu_tpu_torch.serving.kv_pool import (
@@ -14,9 +15,15 @@ from hetu_tpu_torch.serving.scheduler import (
 from hetu_tpu_torch.serving.speculative import (
     ModelDraftsman, NgramDraftsman, SpeculativeConfigError,
 )
+from hetu_tpu_torch.serving.tenancy import (
+    AdapterArenaFull, AdapterRegistry, AdapterSpec, TenantPlane,
+    TenantPolicy, TenantQoS, extract_adapter, lora_scaling,
+)
 
-__all__ = ["BlockManager", "HostSpillArena", "KVPool", "ModelDraftsman",
+__all__ = ["AdapterArenaFull", "AdapterRegistry", "AdapterSpec",
+           "BlockManager", "HostSpillArena", "KVPool", "ModelDraftsman",
            "NULL_BLOCK", "NgramDraftsman", "PrefixCache", "Request",
            "SamplingParams", "Scheduler", "ServingEngine",
            "SpeculativeConfigError", "SpillEntry", "SpillStore",
-           "adjust_logits", "sample_slots"]
+           "TenantPlane", "TenantPolicy", "TenantQoS", "adjust_logits",
+           "extract_adapter", "lora_scaling", "sample_slots"]

@@ -69,7 +69,11 @@ and offsets are data, never shapes. JAX's ``lax.cond``s are Python
 ``if``s on flags the host already knows: the copy-on-write copies run
 eagerly before the lanes, and a lane with no work is not replayed. The
 arena is written in place where JAX donated it. Sampling stays eager on
-the static logits; its ``.cpu()`` is the step's one sync. ``lane_iters``
+the static logits: a greedy step syncs once, in the verify rule's
+``.cpu()`` of the argmax; each sampled slot at depth 0 adds one sync of
+its own (its ``torch.multinomial`` draw is read back slot by slot,
+``serving/speculative.py``), and the sampled slots that drafted add two
+for their batch. ``lane_iters``
 counts the iterations that ran each lane (each runs every layer's
 attention once). TTFT and TPOT come from ``Request.timing``.
 
@@ -89,13 +93,35 @@ plain ``index_select`` / ``index_copy_`` (JAX runs them as ``jnp.take``
 the resume writes the arena in place, so the captured lanes keep
 reading the tensors they captured.
 
-Not ported yet, and not accepted as arguments: tenancy/LoRA (the
-tenant admission gate), the CP long-prompt lane, the prefill/decode
+Multi-tenant serving (``tenancy=``, ``hetu_tpu/serving/engine.py:
+360-374, 1717-1972``) mounts a :class:`~hetu_tpu_torch.serving.tenancy.
+TenantPlane`: the adapter registry and per-tenant QoS on the host, and on
+the device the adapter arena ``{proj: {"A": (L, P, in, r), "B": (L, P,
+r, out)}}`` (fp32, P = ``max_adapters`` pages, page 0 the all-zero base
+page), allocated once and written in place by the registry's
+``on_page_write``, so the captured lanes keep reading the tensors they
+captured. Each slot's arena page is a static ``(S,)`` int32 operand
+(``adapter``): the decode lane broadcasts it over a slot's K+1 rows, the
+prefill lane takes it per pack token through ``pf_slot``, and
+``nn.parallel.lora_apply`` adds each token's delta to every paged
+projection (a base token stays bitwise base). Adapter load, hot-swap,
+eviction and mixed-tenant batches are data: no re-capture. A request
+pins its adapter's page at admission and keeps the pin across
+preemption, so its resume runs the same adapter load (the KV tags of the
+prefix cache and the spill entry, ``kv_adapter``, keep two adapters'
+activations apart); the tenant's QoS (token bucket, slot cap) defers a
+request at admission without charging its class. A tenancy-off engine
+builds no arena and its lanes add no op.
+
+Not ported yet, and not accepted as arguments: the CP long-prompt lane
+(and with it the adapter refusal of that lane), the prefill/decode
 handoff, KV replication, streaming, ``swap_params``,
 W8A8 (off, as ``hetu_tpu``'s default), the SLO engine, the watchdog,
 the telemetry registry (the scheduler's and the spill arena's host
 ledgers stand in for its preemption and spill counters, ``spec_stats``
-for its speculation counters), and what only
+for its speculation counters, the tenant plane's ledgers and the
+registry's ``stats()`` for its tenancy counters), ``load_adapter(path=)``
+(the dist-ckpt transport), and what only
 the router and fleet use: the spill arena's peer tier (``spill_peer``),
 ``class_weights``, ``load`` and ``cancel_queued``.
 """
@@ -110,7 +136,8 @@ import numpy as np
 import torch
 
 from hetu_tpu_torch import resolve_device
-from hetu_tpu_torch.engine.memory import size_spill_arena
+from hetu_tpu_torch.engine.memory import size_adapter_arena, \
+    size_spill_arena
 from hetu_tpu_torch.models import generation
 from hetu_tpu_torch.nn.moe import refuse_batch_coupled
 from hetu_tpu_torch.ops import _build
@@ -128,6 +155,9 @@ from hetu_tpu_torch.serving.speculative import (
     speculative_verify,
 )
 from hetu_tpu_torch.serving.step_graph import StepGraph
+from hetu_tpu_torch.serving.tenancy import (
+    DEFAULT_TARGETS, AdapterArenaFull, TenantPlane,
+)
 
 
 class ServingEngine:
@@ -165,7 +195,15 @@ class ServingEngine:
     request's own tokens (n-grams up to 3), or from ``draft_model`` (a
     model on the same
     device, with its own weights and KV arena; the target itself drafts
-    at the acceptance ceiling)."""
+    at the acceptance ceiling).
+
+    ``tenancy`` (None: off; True: a default :class:`~hetu_tpu_torch.
+    serving.tenancy.TenantPlane`; or a plane) serves LoRA adapters from
+    the device arena beside the base model: :meth:`load_adapter`, then
+    ``SamplingParams(tenant=..., adapter=...)``; :meth:`evict_adapter`.
+    With ``hbm_budget_bytes`` the arena's bytes
+    (``engine.memory.size_adapter_arena``) come off the budget before the
+    KV arena is sized."""
 
     def __init__(self, model, *, slots: Optional[int] = None,
                  max_len: int = 256, prefill_chunk: int = 16,
@@ -175,6 +213,7 @@ class ServingEngine:
                  kv_blocks: Optional[int] = None, preempt: bool = True,
                  spill_host_budget_bytes: Optional[float] = None,
                  spec_depth: int = 0, draft_model=None,
+                 tenancy: Union[None, bool, TenantPlane] = None,
                  seed: int = 0, device=None,
                  record_first_logits: bool = False):
         self.device = resolve_device(device)
@@ -189,6 +228,9 @@ class ServingEngine:
             # step (where the build would land in the first request's TTFT)
             _build.build()
         self.model = model
+        if tenancy is True:
+            tenancy = TenantPlane()
+        self.tenancy: Optional[TenantPlane] = tenancy or None
         if slots is None:
             if hbm_budget_bytes is None:
                 raise ValueError("pass slots= or hbm_budget_bytes=")
@@ -197,6 +239,21 @@ class ServingEngine:
                     "kv_blocks= conflicts with hbm_budget_bytes= "
                     "sizing (the budget already fixes the arena) — "
                     "pass slots= alongside kv_blocks=")
+            if self.tenancy is not None:
+                # the adapter arena lives in the same HBM budget the KV
+                # arena is sized from: price it first
+                arena = size_adapter_arena(
+                    model.cfg, r=self.tenancy.r,
+                    max_adapters=self.tenancy.max_adapters)
+                if arena >= 0.5 * hbm_budget_bytes:
+                    raise ValueError(
+                        f"adapter arena ({self.tenancy.max_adapters} "
+                        f"pages x rank {self.tenancy.r}) needs "
+                        f"~{arena / 1e9:.2f}GB — more than half the "
+                        f"{hbm_budget_bytes / 1e9:.2f}GB HBM budget; "
+                        f"shrink max_adapters / the arena rank, or "
+                        f"raise the budget")
+                hbm_budget_bytes = hbm_budget_bytes - arena
             self.pool = KVPool.sized_for(
                 model, hbm_budget_bytes=hbm_budget_bytes, max_len=max_len,
                 cache_dtype=cache_dtype, block_size=block_size)
@@ -269,6 +326,18 @@ class ServingEngine:
         self._topp = np.zeros(S, np.float32)
         self._bt = np.zeros((S, W), np.int32)    # per-slot block tables
         self._slot_req: list[Optional[Request]] = [None] * S
+        # the adapter plane: each slot's arena page (0 = base), the arena,
+        # and the requests in a throttle or arena-wait episode and those
+        # that paid their tenant's QoS admission
+        self._adapter_page = np.zeros(S, np.int32)
+        self._lora_pages: dict = {}
+        self._throttle_logged: set = set()
+        self._wait_logged: set = set()
+        self._qos_admitted: set = set()
+        if self.tenancy is not None:
+            self._lora_pages = self._init_adapter_arena()
+            self.tenancy.registry.on_page_write = self._write_adapter_page
+            self.scheduler.admission_gate = self._admission_gate
         # one generator per sampled request, seeded at admission
         self._gen: list[Optional[torch.Generator]] = [None] * S
         self._prefilling: list[dict] = []        # FCFS in-flight prefills
@@ -302,6 +371,8 @@ class ServingEngine:
                   "fin_row": ((R,), i64)}
         if K:
             shapes["dec_rows"] = ((S, K + 1), torch.bool)
+        if self.tenancy is not None:
+            shapes["adapter"] = ((S,), i32)
         self._ops = {k: torch.zeros(shape, dtype=dt, device=dev)
                      for k, (shape, dt) in shapes.items()}
         self._bt_dev = self._ops["bt"]
@@ -335,6 +406,8 @@ class ServingEngine:
         ``blocks.decode(pack=...)``, then the head on the ``_fin_cap``
         finishing rows), each a :class:`StepGraph`
         captured now, with every slot masked and every pack row invalid.
+        With tenancy both read the adapter arena through each slot's page
+        (``adapter``); without it they carry no adapter op.
         The bodies close over the operands, the model and the arena, not
         over the engine, so dropping the engine frees the graphs."""
         model, caches, ops = self.model, self.pool.caches, self._ops
@@ -344,14 +417,21 @@ class ServingEngine:
         # output is discarded); at K = 0 no row is masked
         lane = torch.arange(K + 1, device=self.device)[None, :]
         top = model.cfg.max_positions - 1
+        pages = self._lora_pages
+        ten = ("adapter",) if pages else ()
         dec_keys = ("dec_tok", "dec_pos", "dec_mask") \
-            + (("dec_rows",) if K else ())
+            + (("dec_rows",) if K else ()) + ten
 
         def decode_body():
+            lora = None
+            if pages:
+                # every verify row of a slot decodes under its page
+                lora = {"ids": ops["adapter"][:, None].expand(-1, K + 1),
+                        "pages": pages}
             logits = generation.decode(
                 model, ops["dec_tok"], (ops["dec_pos"] + lane).clamp(max=top),
                 caches, slot_mask=ops["dec_mask"], block_tables=ops["bt"],
-                row_mask=ops.get("dec_rows"))
+                row_mask=ops.get("dec_rows"), lora=lora)
             return logits, logits.argmax(dim=-1)
 
         def decode_idle():
@@ -361,11 +441,17 @@ class ServingEngine:
         def prefill_body():
             pos = ops["pf_pos"][None]
             h = model.embed(ops["pf_tok"][None], positions=pos)
+            lora = None
+            if pages:
+                # each pack token decodes under its slot's page
+                lora = {"ids": ops["adapter"].index_select(
+                    0, ops["pf_slot"])[None], "pages": pages}
             h = model.blocks.decode(
                 h, caches, positions=pos, block_tables=ops["bt"],
                 pack={"row_slot": ops["pf_slot"],
                       "segment_ids": ops["pf_seg"][None],
-                      "hist": ops["pf_hist"], "valid": ops["pf_valid"]})
+                      "hist": ops["pf_hist"], "valid": ops["pf_valid"]},
+                lora=lora)
             rows = h[0].index_select(0, ops["fin_row"])
             return (model.logits(model.hidden_norm(rows)),)
 
@@ -384,7 +470,8 @@ class ServingEngine:
                 device=self.device),
             "prefill": StepGraph(
                 "serving_prefill", prefill_body, idle=prefill_idle,
-                operands=[ops[k] for k in pf_keys], device=self.device)}
+                operands=[ops[k] for k in pf_keys + ten],
+                device=self.device)}
 
     # -- requests -----------------------------------------------------------
     def submit(self, prompt: Sequence[int],
@@ -398,8 +485,17 @@ class ServingEngine:
         layout and weight version, the request admits through the resume
         path — its emitted tokens preloaded, no prefill. An incompatible
         entry degrades to a fresh replay, which under greedy decoding
-        regenerates the same tokens."""
+        regenerates the same tokens.
+
+        ``sampling.adapter`` needs ``tenancy=`` (else ValueError); an
+        adapter the registry does not hold rejects the request. A spill
+        resumes only under the adapter load it was written under."""
         sampling = sampling or SamplingParams()
+        if sampling.adapter is not None and self.tenancy is None:
+            raise ValueError(
+                "SamplingParams.adapter without tenancy= — construct "
+                "the engine with ServingEngine(..., tenancy=True) and "
+                "load_adapter first")
         if sampling.temperature > 0 and self.spec_depth:
             check_sampled_draft(self._draftsman)
         with self._lock:
@@ -407,8 +503,20 @@ class ServingEngine:
                           prompt=np.asarray(prompt, np.int32).ravel(),
                           sampling=sampling, submit_s=time.monotonic())
             self._next_id += 1
+            if sampling.adapter is not None:
+                registry = self.tenancy.registry
+                if not registry.has(sampling.tenant, sampling.adapter):
+                    req.status = "rejected"
+                    req.error = (f"unknown adapter {sampling.tenant}/"
+                                 f"{sampling.adapter} — load_adapter "
+                                 f"first")
+                    req.done.set()
+                    return req
+                req.kv_adapter = registry.kv_tag(
+                    registry.get(sampling.tenant, sampling.adapter))
             if resume is not None and resume.compatible_with(
-                    self.pool, self.weight_version):
+                    self.pool, self.weight_version,
+                    adapter=req.kv_adapter):
                 req.spill = resume
                 req.tokens = list(resume.tokens)
                 req.weight_version = resume.weight_version
@@ -443,6 +551,9 @@ class ServingEngine:
             if adm is None:
                 return cows
             req, slot = adm
+            if self.tenancy is not None \
+                    and not self._bind_adapter_locked(req, slot):
+                continue
             req.weight_version = self.weight_version
             sp = req.sampling
             self._temp[slot] = sp.temperature
@@ -550,6 +661,8 @@ class ServingEngine:
             for c in caches:
                 c[:, dst].copy_(c[:, src])
         feed = {"bt": self._bt}
+        if self.tenancy is not None:
+            feed["adapter"] = self._adapter_page
         self._spec = None
         if active.size:
             self._spec = spec = self._propose_locked(active)
@@ -655,7 +768,8 @@ class ServingEngine:
             req.first_token_s = now
             req.mark("first_token", ts_s=now)
             # the finished prompt's whole blocks enter the radix cache
-            self.prefix_cache.insert(req.prompt.tolist(), self._bt[slot])
+            self.prefix_cache.insert(req.prompt.tolist(), self._bt[slot],
+                                     adapter=req.kv_adapter)
             if self.record_first_logits:
                 # a copy: the next replay overwrites the lane's output
                 req.first_logits = lg[i].clone()
@@ -776,7 +890,8 @@ class ServingEngine:
             n_blocks=nb, block_size=self.pool.block_size,
             pos=int(self._pos[slot]), last_tok=int(self._last_tok[slot]),
             tokens=list(req.tokens), weight_version=req.weight_version,
-            gen_state=gen.get_state() if gen is not None else None)
+            gen_state=gen.get_state() if gen is not None else None,
+            adapter=req.kv_adapter)
         req.spilled_blocks += nb
         self._detach_locked(req, slot)
         return entry
@@ -790,6 +905,7 @@ class ServingEngine:
         self._pos[slot] = 0
         self._slot_req[slot] = None
         self._gen[slot] = None
+        self._adapter_page[slot] = 0
 
     def _drop_spill(self, req: Request, *, resumed: bool = False
                     ) -> Optional[SpillEntry]:
@@ -864,7 +980,8 @@ class ServingEngine:
         fresh or prefilling: nothing to move). The caller resumes it
         elsewhere with ``submit(prompt, sampling, resume=entry)``; the
         request's ``done`` event is not set. ``lock_timeout_s`` bounds
-        the wait for the engine's lock (None if it ran out)."""
+        the wait for the engine's lock (None if it ran out). The request
+        drops its adapter pin and its tenant's QoS slot here."""
         got = self._lock.acquire(
             timeout=-1 if lock_timeout_s is None else lock_timeout_s)
         if not got:
@@ -897,6 +1014,7 @@ class ServingEngine:
         else:
             return None
         req.status = "evicted"
+        self._release_tenancy(req)
         return entry
 
     def _finish(self, slot: int, now: float) -> None:
@@ -911,11 +1029,210 @@ class ServingEngine:
         self._pos[slot] = 0
         self._slot_req[slot] = None
         self._gen[slot] = None
+        self._adapter_page[slot] = 0
+        self._release_tenancy(req)
         # drop this slot's hold on every block it mapped; blocks the
         # prefix cache adopted stay resident (trie refs), the rest free
         self.scheduler.release(slot, table=self._bt[slot])
         self._bt[slot, :] = 0
         req.done.set()
+
+    # -- the multi-tenant adapter plane (serving/tenancy.py) ---------------
+    def _init_adapter_arena(self) -> dict:
+        """Zero-filled device pages for every adapter-targetable
+        projection of the blocks (``DEFAULT_TARGETS`` among the attention's
+        and a dense FFN's Linear layers): ``{proj: {"A": (L, P, in, r),
+        "B": (L, P, r, out)}}`` fp32, P = ``max_adapters`` (A viewed so
+        from in-major storage). Page 0 stays zero. An MoE FFN has no such
+        layer (expert weights are never paged); attention adapters still
+        apply there."""
+        from hetu_tpu_torch.nn.parallel import ColumnParallelLinear
+        P, r = self.tenancy.max_adapters, self.tenancy.r
+        blk, L = self.model.blocks.block, self.model.blocks.num_layers
+        pages: dict = {}
+        for name in DEFAULT_TARGETS:
+            lin = getattr(blk.attn, name, None) \
+                or getattr(blk.mlp, name, None)
+            if not isinstance(lin, ColumnParallelLinear):
+                continue
+            kw = dict(dtype=torch.float32, device=self.device)
+            # A is stored in-major, (L, in, P, r) underneath: a layer's
+            # pages read as one (in, P r) matrix, so ``lora_apply``'s
+            # x A for every page is one product with no copy
+            pages[name] = {
+                "A": torch.zeros(L, lin.in_features, P, r,
+                                 **kw).permute(0, 2, 1, 3),
+                "B": torch.zeros(L, P, r, lin.out_features, **kw)}
+        if not pages:
+            raise ValueError(
+                "tenancy= on a model with no LoRA-targetable projections "
+                "(expected attn.{q,k,v,out}_proj and/or dense-FFN layers)")
+        return pages
+
+    def _write_adapter_page(self, page: int, spec) -> None:
+        """Registry hook: (re)write one arena page in place; ``spec``
+        None zeroes it (an eviction: a freed page must read exact zeros,
+        not the evicted tenant's weights). The copies queue on the
+        current stream, after every replay already launched; shapes and
+        addresses never change, so the lanes never re-capture."""
+        with torch.no_grad():
+            for name, ab in self._lora_pages.items():
+                src = spec.weights.get(name) if spec is not None else None
+                for k in ("A", "B"):
+                    dst = ab[k][:, page]
+                    if src is None:
+                        dst.zero_()
+                    else:
+                        dst.copy_(torch.tensor(src[k]))
+
+    def load_adapter(self, tenant: Optional[str], name: str, weights, *,
+                     scaling: float = 1.0) -> dict:
+        """Register (or hot-swap) a tenant's LoRA adapter and make it
+        arena-resident when a page can be had.
+
+        ``weights`` is projection → ``{"A": (L, in, ra), "B": (L, ra,
+        out)}`` host arrays (``tenancy.extract_adapter``'s layout; pass
+        ``tenancy.lora_scaling`` of the LoRA model as ``scaling`` for
+        merge parity). A (tenant, name) already loaded gets the next
+        version. Replacing a live version is safe under traffic:
+        the old version's page drains when its last in-flight request
+        releases, its prefix-cache spans flush now, and the new version's
+        fresh uid means no stale KV can ever match."""
+        if self.tenancy is None:
+            raise RuntimeError(
+                "load_adapter on an engine without tenancy= — "
+                "construct with ServingEngine(..., tenancy=True)")
+        unknown = set(weights) - set(self._lora_pages)
+        if unknown:
+            raise ValueError(
+                f"adapter targets projections this model does not "
+                f"page: {sorted(unknown)} (arena pages: "
+                f"{sorted(self._lora_pages)})")
+        for proj, ab in weights.items():
+            pg = self._lora_pages[proj]
+            L, _, d_in, _ = pg["A"].shape
+            d_out = pg["B"].shape[-1]
+            a, b = np.asarray(ab["A"]), np.asarray(ab["B"])
+            if a.shape[0] != L or a.shape[1] != d_in \
+                    or b.shape[-1] != d_out:
+                raise ValueError(
+                    f"{proj}: adapter pages {a.shape}/{b.shape} do not "
+                    f"fit this model's ({L}, {d_in}, ·)/(·, {d_out}) "
+                    f"projection")
+        registry = self.tenancy.registry
+        with self._lock, torch.no_grad():
+            prev_uid = registry.get(tenant, name).uid \
+                if registry.has(tenant, name) else None
+            spec = registry.register(tenant, name, weights,
+                                     scaling=scaling)
+            flushed = 0
+            if prev_uid is not None:
+                # the replaced version's spans are already unmatchable
+                # (fresh uid) but still pin blocks: return them now
+                flushed = self.prefix_cache.flush_adapter(prev_uid)
+            try:
+                registry.ensure_resident(tenant, name)
+            except AdapterArenaFull:
+                pass    # loads at this adapter's first admission
+        return {"tenant": tenant, "name": name, "version": spec.version,
+                "uid": spec.uid, "page": spec.page,
+                "flushed_blocks": flushed}
+
+    def evict_adapter(self, tenant: Optional[str], name: str) -> dict:
+        """Deregister a tenant's adapter: its arena page frees now when
+        idle (else when its last in-flight request releases), and its
+        prefix-cache spans return their blocks now."""
+        if self.tenancy is None:
+            raise RuntimeError(
+                "evict_adapter on an engine without tenancy=")
+        registry = self.tenancy.registry
+        with self._lock, torch.no_grad():
+            uid = registry.get(tenant, name).uid \
+                if registry.has(tenant, name) else None
+            registry.deregister(tenant, name)
+            flushed = 0
+            if uid is not None:
+                flushed = self.prefix_cache.flush_adapter(uid)
+        return {"flushed_blocks": flushed}
+
+    def _admission_gate(self, req: Request) -> bool:
+        """The scheduler's eligibility filter (installed with tenancy;
+        called under the engine lock). False DEFERS the request without
+        burning its class's deficit credits: a tenant token-bucket or
+        slot-cap throttle, or an adapter arena full of pinned pages. It
+        also refreshes ``req.kv_adapter``, so the page plan priced next
+        matches the adapter version that will serve the request (a
+        hot-swap between submit and admission re-tags it here)."""
+        sp = req.sampling
+        if req.adapter_ref is not None:
+            return True      # a preempted resume: already pinned and paid
+        plane = self.tenancy
+        reason = None if req.id in self._qos_admitted \
+            else plane.qos.check(sp.tenant)
+        if reason is not None:
+            if req.id not in self._throttle_logged:
+                self._throttle_logged.add(req.id)
+                plane.count("throttled", (sp.tenant or "base", reason))
+            return False
+        if sp.adapter is not None:
+            registry = plane.registry
+            if registry.has(sp.tenant, sp.adapter):
+                if not registry.resident(sp.tenant, sp.adapter) \
+                        and not registry.can_load():
+                    # every page pinned by in-flight requests: wait
+                    if req.id not in self._wait_logged:
+                        self._wait_logged.add(req.id)
+                        plane.count("adapter_waits", sp.tenant or "base")
+                    return False
+                req.kv_adapter = registry.kv_tag(
+                    registry.get(sp.tenant, sp.adapter))
+        return True
+
+    def _bind_adapter_locked(self, req: Request, slot: int) -> bool:
+        """Pin the request's tenancy state at admission: acquire an
+        adapter-page ref (held across preemption, so a resume is
+        guaranteed the same uid and page), stamp the slot's arena page
+        and the request's KV-compat tag, and pay the tenant's QoS admit
+        once per request. False: the adapter vanished between submit and
+        admission (deregistered); the request is rejected and its slot
+        and blocks unwind."""
+        sp = req.sampling
+        plane = self.tenancy
+        if sp.adapter is not None and req.adapter_ref is None:
+            try:
+                spec = plane.registry.acquire(sp.tenant, sp.adapter)
+            except (KeyError, AdapterArenaFull) as err:
+                req.status, req.error = "rejected", str(err)
+                self.scheduler.release(slot, table=req.admit["table"])
+                req.done.set()
+                return False
+            req.adapter_ref = spec
+            req.kv_adapter = plane.registry.kv_tag(spec)
+        self._adapter_page[slot] = req.adapter_ref.page \
+            if req.adapter_ref is not None else 0
+        if req.id not in self._qos_admitted:
+            self._qos_admitted.add(req.id)
+            plane.qos.on_admit(sp.tenant)
+            plane.count("admitted", sp.tenant or "base")
+        self._throttle_logged.discard(req.id)
+        self._wait_logged.discard(req.id)
+        return True
+
+    def _release_tenancy(self, req: Request) -> None:
+        """Drop a request's tenancy holds as it leaves the engine (finish
+        or eviction): the adapter-page ref and the tenant's QoS slot.
+        Preemption does NOT come here: a preempted request keeps its ref,
+        so its resume is guaranteed the same adapter uid."""
+        if self.tenancy is None:
+            return
+        if req.adapter_ref is not None:
+            self.tenancy.registry.release(req.adapter_ref)
+            req.adapter_ref = None
+        if req.id in self._qos_admitted:
+            self._qos_admitted.discard(req.id)
+            self.tenancy.qos.on_finish(req.sampling.tenant)
+        self._throttle_logged.discard(req.id)
+        self._wait_logged.discard(req.id)
 
     # -- run loops ----------------------------------------------------------
     def run_until_drained(self, max_steps: int = 1_000_000) -> int:

@@ -182,13 +182,22 @@ class SpillEntry:
     #                                  cross-engine resume's Request)
     weight_version: int
     gen_state: Optional[torch.Tensor] = None
+    adapter: int = 0                 # adapter KV-compat uid the forward
+    #                                  ran under (0 = base; see
+    #                                  serving/tenancy.py): resuming a
+    #                                  tenant's KV under another (or a
+    #                                  reloaded) adapter would splice two
+    #                                  adapters' activations
 
     def nbytes(self) -> int:
         return sum(a.numel() * a.element_size() for a in self.data)
 
-    def compatible_with(self, pool: KVPool, weight_version: int) -> bool:
-        """Can this spill resume into ``pool`` at ``weight_version``?"""
+    def compatible_with(self, pool: KVPool, weight_version: int,
+                        adapter: int = 0) -> bool:
+        """Can this spill resume into ``pool`` at ``weight_version`` under
+        adapter KV-compat uid ``adapter``?"""
         if self.weight_version != int(weight_version) \
+                or self.adapter != int(adapter) \
                 or self.block_size != pool.block_size:
             return False
         if len(self.data) != len(pool.caches):

@@ -20,7 +20,10 @@ host-side index that makes that lookup O(prompt):
   outlive the request);
 - when the free list runs dry, :meth:`evict` LRU-reclaims LEAF nodes
   whose block nobody else holds (refcount == 1) — interior nodes wait
-  until their subtree drains, so a cached prefix never dangles.
+  until their subtree drains, so a cached prefix never dangles;
+- every node carries the adapter uid its KV was written under
+  (``serving/tenancy.py``): a match never crosses adapters, and
+  :meth:`flush_adapter` drops a replaced or evicted adapter's spans.
 
 Everything here is pure host bookkeeping: block ids reach the device
 only as entries of the engine's block tables.
@@ -36,17 +39,24 @@ from hetu_tpu_torch.serving.kv_pool import NULL_BLOCK, BlockManager
 
 class _Node:
     """One cached whole block: edge label ``tokens`` (block_size ids),
-    payload ``block`` (arena id), LRU stamp ``last_use``."""
+    payload ``block`` (arena id), LRU stamp ``last_use``, and the
+    ``adapter`` uid the forward that wrote its KV ran under (0 = base: an
+    attention-targeting LoRA adapter writes DIFFERENT K/V for the same
+    tokens, so its spans only ever match requests of the same adapter
+    load; see ``serving/tenancy.py``)."""
 
-    __slots__ = ("tokens", "block", "parent", "children", "last_use")
+    __slots__ = ("tokens", "block", "parent", "children", "last_use",
+                 "adapter")
 
     def __init__(self, tokens: tuple, block: int,
-                 parent: Optional["_Node"], last_use: int):
+                 parent: Optional["_Node"], last_use: int,
+                 adapter: int = 0):
         self.tokens = tokens
         self.block = block
         self.parent = parent
         self.children: list[_Node] = []
         self.last_use = last_use
+        self.adapter = adapter
 
 
 def _common_prefix_len(a: Sequence[int], b: Sequence[int]) -> int:
@@ -68,7 +78,7 @@ class PrefixCache:
         self._clock = 0
 
     # -- lookup -------------------------------------------------------------
-    def match(self, tokens: Sequence[int]) -> tuple[
+    def match(self, tokens: Sequence[int], adapter: int = 0) -> tuple[
             list[int], Optional[tuple[int, int]]]:
         """Longest cached prefix of ``tokens``.
 
@@ -78,8 +88,12 @@ class PrefixCache:
         continues ``n_rows`` tokens into one more cached block (the
         engine copies it — CoW — because the request will write its own
         rows there). Takes NO refs — the caller shares what it actually
-        maps. Touches LRU stamps along the path."""
+        maps. Touches LRU stamps along the path.
+
+        ``adapter`` is the requesting stream's KV-compat uid: only nodes
+        written under the SAME adapter load match (0 = base)."""
         bs = self.block_size
+        adapter = int(adapter)
         self._clock += 1
         shared: list[int] = []
         node = self._root
@@ -89,7 +103,8 @@ class PrefixCache:
             child = None
             if len(key) == bs:
                 child = next(
-                    (c for c in node.children if c.tokens == key), None)
+                    (c for c in node.children if c.tokens == key
+                     and c.adapter == adapter), None)
             if child is not None:
                 child.last_use = self._clock
                 shared.append(child.block)
@@ -97,8 +112,11 @@ class PrefixCache:
                 i += bs
                 continue
             # partial tail: the child sharing the longest token prefix
+            # (a foreign adapter's nodes never match, whole or partial)
             best, best_len = None, 0
             for c in node.children:
+                if c.adapter != adapter:
+                    continue
                 n = _common_prefix_len(c.tokens, key)
                 if n > best_len:
                     best, best_len = c, n
@@ -109,25 +127,29 @@ class PrefixCache:
         return shared, None
 
     # -- insertion ----------------------------------------------------------
-    def insert(self, tokens: Sequence[int], table: Sequence[int]) -> int:
+    def insert(self, tokens: Sequence[int], table: Sequence[int],
+               adapter: int = 0) -> int:
         """Cache ``tokens``' whole blocks, backed by the arena blocks in
         ``table`` (the request's block table, position-ordered). New
         nodes take a ref on their block so it survives the request's
         release; blocks already cached (the shared ones) are left
-        alone. Returns the number of new nodes."""
+        alone. ``adapter`` tags the nodes with the KV-compat uid the
+        forward ran under (0 = base). Returns the number of new nodes."""
         bs = self.block_size
+        adapter = int(adapter)
         self._clock += 1
         node = self._root
         added = 0
         for j in range(len(tokens) // bs):
             key = tuple(tokens[j * bs:(j + 1) * bs])
             child = next(
-                (c for c in node.children if c.tokens == key), None)
+                (c for c in node.children if c.tokens == key
+                 and c.adapter == adapter), None)
             if child is None:
                 blk = int(table[j])
                 if blk == NULL_BLOCK:
                     break
-                child = _Node(key, blk, node, self._clock)
+                child = _Node(key, blk, node, self._clock, adapter)
                 node.children.append(child)
                 self.blocks.share(blk)      # the trie now holds it too
                 added += 1
@@ -166,4 +188,35 @@ class PrefixCache:
             if parent is not self._root and not parent.children:
                 heapq.heappush(heap, (parent.last_use, id(parent),
                                       parent))
+        return freed
+
+    # -- adapter lifecycle --------------------------------------------------
+    def flush_adapter(self, adapter: int) -> int:
+        """Drop every node written under adapter uid ``adapter`` (an
+        evicted or replaced adapter's spans: already unmatchable — a new
+        load gets a fresh uid — but still pinning blocks; this returns
+        them eagerly instead of waiting on LRU pressure). Whole subtrees
+        go together: insert walks same-adapter chains, so a node's
+        descendants share its tag. Never flushes base (0). Returns the
+        number of blocks released."""
+        adapter = int(adapter)
+        if adapter == 0:
+            return 0
+        freed = 0
+        stack = [self._root]
+        while stack:
+            node = stack.pop()
+            keep: list[_Node] = []
+            for c in node.children:
+                if c.adapter != adapter:
+                    keep.append(c)
+                    stack.append(c)
+                    continue
+                sub = [c]
+                while sub:
+                    v = sub.pop()
+                    sub.extend(v.children)
+                    self.blocks.release(v.block)
+                    freed += 1
+            node.children = keep
         return freed

@@ -17,7 +17,9 @@ to its host arena and requeues it at the head of the queue
 (:meth:`Scheduler.requeue_preempted`); a request carrying a spill
 (``Request.spill``) is admitted through :meth:`Scheduler._resume_plan`
 — fresh blocks, no prefill, no prefix cache. Uniform-priority traffic
-never preempts, so it keeps the run-to-completion guarantee.
+never preempts, so it keeps the run-to-completion guarantee. An
+``admission_gate`` (the engine's tenant QoS) takes a deferred request out
+of a round's selection without charging its class.
 """
 
 from __future__ import annotations
@@ -53,6 +55,13 @@ class SamplingParams:
     eos_id: Optional[int] = None
     max_tokens: int = 16
     priority: int = 1
+    #: multi-tenant serving (``serving/tenancy.py``): ``tenant`` names the
+    #: request's QoS identity (token-bucket rate limits and slot caps at
+    #: admission), ``adapter`` the tenant's LoRA adapter to decode under
+    #: (None = the shared base model). Both are host data: the captured
+    #: lanes only ever see the adapter's arena page id.
+    tenant: Optional[str] = None
+    adapter: Optional[str] = None
     #: per-request PRNG seed for sampled decoding (temperature > 0):
     #: the engine seeds the request's ``torch.Generator`` with it, so a
     #: sampled run replays exactly — and matches one-shot ``generate``
@@ -89,6 +98,16 @@ class Request:
     spilled_blocks: int = 0            # KV blocks copied to the host
     #                                    spill arena across preemptions
     resumed_blocks: int = 0            # KV blocks mapped back on resume
+    adapter_ref: Optional[object] = dataclasses.field(
+        default=None, repr=False, compare=False)  # AdapterSpec pinned at
+    #                                    admission (its ref is held until
+    #                                    the request leaves the engine,
+    #                                    across preemption)
+    kv_adapter: int = 0                # adapter KV-compat uid this
+    #                                    request's KV is written under (0 =
+    #                                    base-compatible): tags its prefix
+    #                                    inserts and spills, and filters
+    #                                    its prefix matches
     spill: Optional[object] = dataclasses.field(
         default=None, repr=False, compare=False)  # live SpillEntry while
     #                                    preempted/queued-for-resume: it
@@ -187,6 +206,13 @@ class Scheduler:
         self._credit: dict[int, float] = {}   # deficit counters by class
         self.evictions_total = 0          # prefix-cache blocks evicted
         self.preemptions_total = 0        # running requests preempted
+        #: optional per-request admission gate (the engine's tenant QoS
+        #: hook, ``serving/tenancy.py``): ``callable(req) -> bool``. False
+        #: defers the request this round (rate-limited or slot-capped
+        #: tenant, adapter arena full): the deficit selection skips it,
+        #: so a throttled tenant's backlog never blocks other tenants and
+        #: never burns its class's credits
+        self.admission_gate = None
 
     # -- admission ----------------------------------------------------------
     def submit(self, req: Request) -> bool:
@@ -217,13 +243,20 @@ class Scheduler:
         self.queue.appendleft(req)
 
     # -- class selection ----------------------------------------------------
-    def _select_class(self) -> tuple[Optional[int], Optional[dict]]:
-        """Deficit-weighted pick among classes present in the queue
+    def _eligible(self) -> list:
+        """The queue minus the requests the admission gate defers: the
+        population the deficit selection runs over this round."""
+        if self.admission_gate is None:
+            return list(self.queue)
+        return [r for r in self.queue if self.admission_gate(r)]
+
+    def _select_class(self, queue) -> tuple[Optional[int], Optional[dict]]:
+        """Deficit-weighted pick among classes present in ``queue``
         (pure — commits nothing). Every backlogged class earns its
         weight per round until one can afford an admission (credit
         >= 1); richest wins, urgency breaks ties. Returns
         ``(class, credits-after-accrual)``."""
-        present = {r.sampling.priority for r in self.queue}
+        present = {r.sampling.priority for r in queue}
         if not present:
             return None, None
         eff = {c: self._credit.get(c, 0.0) for c in present}
@@ -237,11 +270,13 @@ class Scheduler:
         """The request :meth:`next_admission` would try next (oldest of
         the deficit-selected class), committing no credit — the engine's
         preemption planner asks this whether a blocked urgent request
-        justifies evicting a running batch one."""
-        win, _ = self._select_class()
+        justifies evicting a running batch one. A request the admission
+        gate defers is never the candidate."""
+        eligible = self._eligible()
+        win, _ = self._select_class(eligible)
         if win is None:
             return None
-        return next(r for r in self.queue if r.sampling.priority == win)
+        return next(r for r in eligible if r.sampling.priority == win)
 
     def blocks_needed(self, req: Request) -> int:
         """Worst-case NEW blocks ``req`` needs (gross of prefix sharing
@@ -282,8 +317,11 @@ class Scheduler:
         arena (no prefill)."""
         if not self.queue or not self.free:
             return None
-        win, eff = self._select_class()
-        req = next(r for r in self.queue if r.sampling.priority == win)
+        eligible = self._eligible()
+        win, eff = self._select_class(eligible)
+        if win is None:
+            return None
+        req = next(r for r in eligible if r.sampling.priority == win)
         plan = self._resume_plan(req) if req.spill is not None \
             else self._page_plan(req)
         if plan is None:
@@ -324,7 +362,8 @@ class Scheduler:
         bs = self.block_size
         P = len(req.prompt)
         total = -(-(P + req.sampling.max_tokens) // bs)   # worst case
-        shared, partial = self.cache.match(req.prompt.tolist())
+        shared, partial = self.cache.match(req.prompt.tolist(),
+                                           adapter=req.kv_adapter)
         shared = shared[:total]
         matched = len(shared) * bs + (partial[1] if partial else 0)
         # a FULL-prompt hit still recomputes the last token (its logits

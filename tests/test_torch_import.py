@@ -37,7 +37,8 @@ def test_import_leaves_jax_unloaded():
               "hetu_tpu_torch.engine.sft_trainer",
               "hetu_tpu_torch.nn.moe", "hetu_tpu_torch.engine.memory",
               "hetu_tpu_torch.serving.kv_pool",
-              "hetu_tpu_torch.serving.speculative"):
+              "hetu_tpu_torch.serving.speculative", "hetu_tpu_torch.peft",
+              "hetu_tpu_torch.peft.lora", "hetu_tpu_torch.serving.tenancy"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
