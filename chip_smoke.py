@@ -5,7 +5,9 @@ PyTorch version, serves GPT-2 small through ``ServingEngine``, trains
 it with ``build_train_step``, serves Llama-7B from the int8 KV arena
 (also from an arena sized by an HBM budget, under preemption, and with
 speculative decoding), trains Llama at 7B width through ``Trainer`` and
-``SFTTrainer``, trains (BASELINE config 4) and serves GPT-MoE 8-expert,
+``SFTTrainer``, with the chunked and with the fused LM head, saves and
+resumes that training, trains (BASELINE config 4) and serves GPT-MoE
+8-expert,
 serves GPT-2 drafting for itself and from a small draft model,
 fine-tunes Llama-7B at full depth with LoRA, and serves Llama-7B and
 GPT-2 with LoRA adapters of several tenants mixed in one batch.
@@ -22,8 +24,8 @@ Phases, each printing one JSON line:
    one process per source, all at once; ``ptxas``, ``ptxas_paged`` and
    ``ptxas_fused`` report registers and spills of the tensor-core flash
    instances, of every instance of the paged kernel's lanes and of the
-   fused CE kernels (the tensor-core instances of #5-#7 must not
-   spill).
+   fused CE kernels (the tensor-core instances of #5-#7, narrow and
+   wide, must not spill).
 3. kernel  -- each kernel against its plain version on the card, at the
    serving path's shapes (fp32 and bf16) and at edge shapes (GQA, segment
    pads, offsets that leave rows with no key, dropout 0.1, a ragged
@@ -95,7 +97,10 @@ Phases, each printing one JSON line:
    tile and N = 5, E = 768, 64 and 192, labels of -1 and V - 1 and
    random general (glse, gtgt) cotangents; every case with a bf16
    operand run twice, bit-equal; an fp32 w with bf16 h bit-identical to
-   w cast to bf16 (kernel_w_cast).
+   w cast to bf16 (kernel_w_cast). Then the wide lanes (E past 768, each
+   case in the four dtype pairings, rerun and w cast alike): E = 832, 4,096
+   and 5,120 at ragged N and V (333 x 1,013, 1,000 x 32,003, 333 x
+   5,003).
    Bounds: lse/tgt 1e-4; dh/dw element by element 2 ulps of the output's
    dtype plus 1e-4 (fp32 h) or 2e-4 (bf16 h) of max |reference|.
 9. train_fused -- ``bench.py``'s fused-CE combo (``workloads/
@@ -289,7 +294,35 @@ Phases, each printing one JSON line:
    (prompt, response) pairs of 128-512 / 128-1,536 tokens, repeated, at
    seq 2048, batch 4, ``shuffle=False``: the response-only loss must
    fall, launches exactly 2 a step; the grad norms before the clip.
-22. moe_train_oracle -- one fp32 step of ``GPTConfig.moe_8e``'s width
+22. llama_train_fused_oracle -- ``llama_train_oracle`` under
+   ``HETU_LM_LOSS_IMPL=fused``: the LM head (fp32 h, E 4,096) on #5-#7's
+   wide CUDA-core lane; the same bounds, exactly one launch of each flash
+   and each fused kernel.
+23. llama_train_fused -- ``llama_train`` under ``HETU_LM_LOSS_IMPL=fused``:
+   the LM head through #5-#7 on the wide tensor-core lane (bf16 h, E
+   4,096, V 32,000; the fp32 head weight cast once for each), 3 warm-up
+   and 10 timed steps: the loss falls, exactly 10 launches of each fused
+   kernel and 10 L of each flash kernel; step ms, tokens/s, MFU and peak
+   memory beside ``llama_train``'s; then ``llama_train_fused_profile``
+   (as ``llama_train_profile``; #5-#7 under their wide tensor-core
+   symbols).
+24. llama fused times -- #5-#7 at the Llama training shape (N 8,192, V
+   32,000, E 4,096, bf16), against their plain versions (rerun
+   bit-equal; the draw's softmax is peaky, where two fp32 orders round P
+   apart, so dH and dW must be no farther than the plain versions from a
+   float64 evaluation, in ``fused_grad_bound`` units), then timed as in
+   10, with ``gemm_ms``, the chunked loss (forward; forward and
+   backward) and the bound (2NVE, 4NVE on 989 TFLOP/s).
+25. llama_ckpt -- ``llama_train_fused``'s configuration: 10 steps without
+   a stop, against 5 steps with ``TrainerConfig(ckpt_dir=<a temporary
+   directory>, ckpt_every=5, async_ckpt=True)`` and 5 more in a new model
+   and Trainer after ``resume``: steps 6-10's losses and the final
+   params, moments and counts bit-equal; launches exactly 20 of each
+   fused kernel and 20 L of each flash kernel; the free disk, bytes
+   written, the save's blocking, write and load seconds (2 layers need
+   about 8 GB; with under 12 GB free it runs at 1 layer and says so); the
+   directory removed.
+26. moe_train_oracle -- one fp32 step of ``GPTConfig.moe_8e``'s width
    (768, 8 GELU experts of 3072, vocab 50257) at 1 layer with each gate
    (topk, ktop1, sam with 2 groups, balance), kernels on the card
    against the plain path on the CPU, at batch 1 x 256. The routing is
@@ -297,7 +330,7 @@ Phases, each printing one JSON line:
    within 1e-4 of a routing tie (``nn.moe.routing_margins``; counts
    printed) and leave the step's labels; then ``train_oracle``'s bounds
    and exactly one launch of each flash kernel.
-23. moe_train -- BASELINE config 4 (``workloads/bench_suite.py:170-185``):
+27. moe_train -- BASELINE config 4 (``workloads/bench_suite.py:170-185``):
    ``moe_8e`` cut to 6 layers (280 M params), batch 8, seq 1024, fp32
    params with bf16 compute, ``Strategy(unroll=True)``, ``adamw(1e-4)``,
    through ``Trainer.train(precision="bf16")`` on one random batch
@@ -306,7 +339,7 @@ Phases, each printing one JSON line:
    active params (expert tensors at k/E) against 989 TFLOP/s beside the
    Trainer's all-params figure, peak memory; then ``moe_train_profile``
    (as ``train_profile``).
-24. moe_engine -- ``moe_8e`` uncut (12 layers, fp32) served by
+28. moe_engine -- ``moe_8e`` uncut (12 layers, fp32) served by
    ``ServingEngine(slots=16, max_len=512, prefill_chunk=64,
    block_size=16)``: the GPT-2 engine's workload at half its requests
    (24, then 8 sharing a 128-token prompt), both lanes through
@@ -314,11 +347,11 @@ Phases, each printing one JSON line:
    captured once, greedy tokens equal to ``generate`` (a divergence only
    at a top-2 gap under 1e-4), the teacher-forced decode logits and the
    first-token logits within 1e-4 of the plain forward (routing compared
-   first, as in 22), ``step_graph_replay`` bit-equal; tokens/s and TTFT;
+   first, as in 26), ``step_graph_replay`` bit-equal; tokens/s and TTFT;
    ``moe_engine_profile`` and ``moe_engine_decode_profile`` (a mixed and
    a steady-decode window, as ``engine``'s: the gathers show as
    index/scatter).
-25. gpt2_spec -- GPT-2 small (fp32) drafting for itself
+29. gpt2_spec -- GPT-2 small (fp32) drafting for itself
    (``draft_model=`` the target) at ``engine``'s settings with
    ``spec_depth=4``, 16 requests of 16-128 + 64 tokens: the draft step
    (``serving_draft_step``) and each lane captured exactly once; exactly
@@ -332,18 +365,18 @@ Phases, each printing one JSON line:
    ``gpt2_spec_engine_prompts``: the same engine, greedy, on the first
    16 of ``engine``'s own burst prompts (4-448 tokens), equal to
    ``generate`` but at a near tie, with its drafting share.
-26. gpt2_spec_small_draft -- the same engine with ``draft_model=`` a
+30. gpt2_spec_small_draft -- the same engine with ``draft_model=`` a
    2-layer GPT at GPT-2 small's width from another seed and a larger
    vocabulary (50,304): launches of #1 exactly 12 a lane replay plus 8 a
    draft step; greedy tokens equal ``generate`` but at a near tie; at T
    = 1.0 residual resamples happen, two seeded runs are bit-equal and
    every token lies in the target's vocabulary.
-27. gpt2_tenancy -- GPT-2 small at ``engine``'s settings with an
+31. gpt2_tenancy -- GPT-2 small at ``engine``'s settings with an
    attention-only adapter (``q_proj|v_proj``, r 4, alpha 8) made with
    ``peft``: 16 mixed requests, launches as in ``engine``, one capture a
    lane; adapter requests equal ``generate`` under the ``merge_lora``
    weights, base requests under the plain ones (ties < 1e-4).
-28. summary -- one ``{"kernels": [...]}`` line (each kernel with its
+32. summary -- one ``{"kernels": [...]}`` line (each kernel with its
    lanes and its launches by path), the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -529,8 +562,8 @@ def check_ptxas(built) -> dict:
     ones (the training path's) must not spill. Then those of every
     instance of the paged kernel's lanes (``ptxas_paged``), each of which
     must be in the report, and of the fused CE kernels (``ptxas_fused``):
-    the tensor-core instances of #5-#7 must be there and must not
-    spill."""
+    the tensor-core instances of #5-#7, narrow and wide, must be there and
+    must not spill; the CUDA-core ones, narrow and wide, are printed."""
     syms = [LANE_SYMBOLS[k]["tensor_core"] for k in FLASH]
     found = {}
     for src in ("flash_fwd", "flash_bwd"):
@@ -556,11 +589,17 @@ def check_ptxas(built) -> dict:
     check(seen == PAGED_INSTANCES, f"ptxas report of the paged lanes: "
                                    f"{seen}, expected {PAGED_INSTANCES}")
     fused = ptxas_entries(built["fused_ce"]["ptxas"])
+    want = {**FUSED_TC_INSTANCES, **FUSED_WIDE_TC_INSTANCES}
     tc = {key: e for name, e in fused.items()
-          for key, piece in FUSED_TC_INSTANCES.items() if piece in name}
-    emit(phase="ptxas_fused", tensor_core=tc,
-         cuda_core={n: e for n, e in fused.items() if "_tc_" not in n})
-    check(sorted(tc) == sorted(FUSED_TC_INSTANCES),
+          for key, piece in want.items() if piece in name}
+    emit(phase="ptxas_fused",
+         tensor_core={k: e for k, e in tc.items() if "_wide" not in k},
+         tensor_core_wide={k: e for k, e in tc.items() if "_wide" in k},
+         cuda_core={n: e for n, e in fused.items()
+                    if "_tc_" not in n and "_wide_" not in n},
+         cuda_core_wide={n: e for n, e in fused.items()
+                         if "_tc_" not in n and "_wide_" in n})
+    check(sorted(tc) == sorted(want),
           f"ptxas report lacks a fused tensor-core instance: {sorted(tc)}")
     for key, e in tc.items():
         check(e.get("spill_stores") == 0 and e.get("spill_loads") == 0,
@@ -762,15 +801,16 @@ LANE_SYMBOLS = {"flash_fwd": {"tensor_core": "flash_fwd_tc_kernel",
                                   "cuda_core": "flash_bwd_dkv_kernel"},
                 "paged_attention": {"split_kv": "paged_split_kv",
                                     "tile": "paged_tile"},
-                "fused_ce_fwd": {"tensor_core": "fused_ce_fwd_tc_kernel",
-                                 "cuda_core": "fused_ce_fwd_kernel"},
-                "fused_ce_dh": {"tensor_core": "fused_ce_dh_tc_kernel",
-                                "cuda_core": "fused_ce_dh_kernel"},
-                "fused_ce_dw": {"tensor_core": "fused_ce_dw_tc_kernel",
-                                "cuda_core": "fused_ce_dw_kernel"}}
+                **{k: {"tensor_core": f"{k}_tc_kernel",
+                       "cuda_core": f"{k}_kernel",
+                       "tensor_core_wide": f"{k}_wide_tc_kernel",
+                       "cuda_core_wide": f"{k}_wide_kernel"}
+                   for k in ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw")}}
 #: the fused CE kernels' lanes (``ops.fused_ce_lane``)
 FUSED_LANES = ("tensor_core (bf16 h: forward, dH and dW; dH and dW on a "
-               "2-CTA cluster); cuda_core (fp32 h)")
+               "2-CTA cluster); cuda_core (fp32 h); past E = 768 each "
+               "_wide (E in 64-column chunks; dH and dW split E into "
+               "512-column blocks on a grid axis)")
 #: the tensor-core instances of #5-#7 that ``ptxas`` must report, by a
 #: piece of their mangled names (a name in an anonymous namespace ends in
 #: E, a template's arguments are I...E; dW's second argument is w's type)
@@ -781,6 +821,13 @@ FUSED_TC_INSTANCES = {"fused_ce_fwd_tc_kernel": "22fused_ce_fwd_tc_kernelE",
                           "21fused_ce_dw_tc_kernelILi2E13__nv_bfloat16EE",
                       "fused_ce_dw_tc_kernel<2, float>":
                           "21fused_ce_dw_tc_kernelILi2EfEE"}
+#: the same of the wide tensor-core lane (dW's argument is dw's type)
+FUSED_WIDE_TC_INSTANCES = {
+    "fused_ce_fwd_wide_tc_kernel": "27fused_ce_fwd_wide_tc_kernelE",
+    "fused_ce_dh_wide_tc_kernel": "26fused_ce_dh_wide_tc_kernelE",
+    "fused_ce_dw_wide_tc_kernel<bf16>":
+        "26fused_ce_dw_wide_tc_kernelI13__nv_bfloat16EE",
+    "fused_ce_dw_wide_tc_kernel<float>": "26fused_ce_dw_wide_tc_kernelIfEE"}
 #: instances of #1's lanes that ``ptxas`` must report: split-KV for 4
 #: (q, arena) type pairs x d 64/128, its combine for 2 q types x d
 #: 64/128, the tensor-core tile for bf16 q with a bf16 or int8 arena x d
@@ -1773,11 +1820,13 @@ TRAIN_CLASSES = (("flash_fwd", "flash_fwd"),
                  ("elementwise_kernel", "elementwise"))
 
 
-def phase_train_profile(run, n_steps: int = 3, phase: str = "train_profile"):
+def phase_train_profile(run, n_steps: int = 3, phase: str = "train_profile",
+                        fused_lane: str = "tensor_core"):
     """Where a training step's time goes: ``torch.profiler`` over
     ``n_steps`` steps at the batch that ran. Device busy is the sum of
     kernel times (one stream); the rest of the wall time the card waits
-    on the host. The profiler's host cost inflates the wall time."""
+    on the host. The profiler's host cost inflates the wall time. Under
+    the fused loss #5-#7 must lie under ``fused_lane``'s symbols."""
     from torch.profiler import ProfilerActivity, profile
 
     state, step, batch = run["state"], run["step"], run["batch"]
@@ -1801,8 +1850,8 @@ def phase_train_profile(run, n_steps: int = 3, phase: str = "train_profile"):
     lanes = check_lane(phase, by_name, "tensor_core")
     fused = {}
     if os.environ.get("HETU_LM_LOSS_IMPL") == "fused":
-        # bf16 h: #5-#7 on the tensor cores
-        fused = check_lane(phase, by_name, "tensor_core", kernels=FUSED)
+        # bf16 h: #5-#7 on the tensor cores (the wide lane past E = 768)
+        fused = check_lane(phase, by_name, fused_lane, kernels=FUSED)
     emit(phase=phase, steps=n_steps, batch=run["batch_size"],
          ms_per_step=wall_ms / n_steps,
          device_kernels_per_step=n_kernels / n_steps,
@@ -1962,10 +2011,15 @@ def fused_inputs(gen, device, n, vocab, h_dtype, w_dtype, e=768):
     return h, w, lab, glse, gtgt
 
 
-def check_fused(case, h, w, got, want, errs) -> None:
+def check_fused(case, h, w, got, want, errs, exact=None) -> None:
     """Hold (lse, tgt, dh, dw) against the plain versions' (lse/tgt within
     ``FUSED_TOL_LSE``, dh/dw element by element within
-    :func:`fused_grad_bound`) and record the kernels' absolute errors."""
+    :func:`fused_grad_bound`) and record the kernels' absolute errors.
+    With ``exact`` (``{"fused_ce_dh": ..., "fused_ce_dw": ...}``, from
+    :func:`exact_fused_grad`), dh and dw are held to that float64
+    evaluation instead: each element's distance from it, in
+    :func:`fused_grad_bound` units, within the larger of 1 and the plain
+    version's own worst distance."""
     torch.cuda.synchronize()
     tags = [str(t.dtype).split(".")[1] for t in (h, w)]
     for kernel, parts in (("fused_ce_fwd", (0, 1)), ("fused_ce_dh", (2,)),
@@ -1982,6 +2036,19 @@ def check_fused(case, h, w, got, want, errs) -> None:
             extra = dict(bound="2 ulp(out) + %g max|ref|" % (
                 2e-4 if h.dtype == torch.bfloat16 else 1e-4),
                 max_abs_ref=float(r.float().abs().max()))
+            if exact is not None:
+                # the bound in ulps of the output's dtype, as against r
+                xb = fused_grad_bound(exact[kernel], h.dtype)
+                x = exact[kernel].float()
+                kx, px = ((a.float() - x).abs() / xb for a in (g, r))
+                extra.update(worst_vs_plain=worst,
+                             over_vs_plain=int(((g.float() - r.float())
+                                                .abs() > bnd).sum()),
+                             worst_vs_float64=float(kx.max()),
+                             over_vs_float64=int((kx > 1).sum()),
+                             plain_worst_vs_float64=float(px.max()),
+                             plain_over_vs_float64=int((px > 1).sum()))
+                worst = float(kx.max()) / max(1.0, float(px.max()))
         ok = worst <= 1.0
         emit(phase="kernel", kernel=kernel, case=case, h_dtype=tags[0],
              w_dtype=tags[1], shape=[h.shape[0], w.shape[0], h.shape[1]],
@@ -1991,6 +2058,34 @@ def check_fused(case, h, w, got, want, errs) -> None:
         key = "max_abs_err" if h.dtype == out_dtype == torch.float32 \
             else "max_abs_err_bf16"
         errs[kernel][key] = max(errs[kernel][key], err)
+
+
+def exact_fused_grad(h, w, lab, lse, glse, gtgt, which: str,
+                     block: int = 4096) -> torch.Tensor:
+    """dh (``which == "dh"``) or dw as the plain versions compute them,
+    but in float64: the logits of h and w cast to h's dtype, P = glse
+    exp(s - lse) + gtgt onehot rounded to h's dtype (from float64 logits),
+    the products summed in float64; out in h's or w's dtype. Under a
+    peaky softmax two fp32 evaluations of the logits round a large P
+    entry apart, which moves a whole row of dh (a column of dw) by more
+    than 2 ulps of its small elements; this is the yardstick both are
+    measured against there."""
+    h64 = h.double()
+    out = torch.zeros(h.shape if which == "dh" else w.shape,
+                      dtype=torch.float64, device=h.device)
+    for v0 in range(0, w.shape[0], block):
+        wb = w[v0:v0 + block].to(h.dtype).double()
+        hit = lab.long()[:, None] == (v0 + torch.arange(
+            wb.shape[0], device=h.device))[None, :]
+        p = glse.double()[:, None] * torch.exp(h64 @ wb.t()
+                                               - lse.double()[:, None]) \
+            + torch.where(hit, gtgt.double()[:, None], 0.0)
+        p = p.to(h.dtype).double()
+        if which == "dh":
+            out += p @ wb
+        else:
+            out[v0:v0 + block] = p.t() @ h64
+    return out.to(h.dtype if which == "dh" else w.dtype)
 
 
 def check_w_cast(ops, case, h, w32, lab, glse, gtgt) -> None:
@@ -2028,6 +2123,12 @@ def run_fused(ops, h, w, lab, glse, gtgt):
     return got, want
 
 
+#: the wide lanes' cases: (case, N, V, E), ragged N and V
+WIDE_CASES = (("wide_832", 333, 1013, 832),
+              ("wide_4096", 1000, 32003, 4096),
+              ("wide_5120", 333, 5003, 5120))
+
+
 def phase_fused_kernels(device, ops):
     """Kernels #5-#7 against their plain versions: one draw of h and w,
     each taken in fp32 and in bf16; the GPT-2 vocab, a ragged one and 50
@@ -2039,8 +2140,10 @@ def phase_fused_kernels(device, ops):
     tile's last column); every case with a bf16 operand run again,
     bit-equal (no atomics: the cluster's CTAs sum their partial logits
     in rank order); then the w cast of the bf16-h lane
-    (:func:`check_w_cast`). Returns the summary entries (without times
-    and launches)."""
+    (:func:`check_w_cast`). Then the wide lanes (``WIDE_CASES``): E =
+    832 (the first width past 768: a second E block of 5 chunks), 4,096
+    (Llama-7B's) and 5,120 (Llama-13B's), ragged N and V. Returns the
+    summary entries (without times and launches)."""
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     errs = {k: {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0} for k in FUSED}
     for case, n, vocab, e in (("vocab_50257", 333, 50257, 768),
@@ -2048,7 +2151,8 @@ def phase_fused_kernels(device, ops):
                               ("tokens_5", 5, 50257, 768),
                               ("width_64", 333, 1013, 64),
                               ("width_192", 1000, 50257, 192),
-                              ("vocab_50", 333, 50, 768)):
+                              ("vocab_50", 333, 50, 768),
+                              *WIDE_CASES):
         h32, w32, lab, glse, gtgt = fused_inputs(
             gen, device, n, vocab, torch.float32, torch.float32, e)
         lab[min(3, n - 1)] = vocab - 1
@@ -4055,14 +4159,18 @@ def llama_train_batch() -> dict:
                                   batch_rows=LLAMA_TRAIN_BATCH, pack=True))
 
 
-def phase_llama_train_oracle(device):
+def phase_llama_train_oracle(device, fused: bool = False):
     """One fp32 step of Llama-7B's width (1 layer, vocab 32,000) with the
     kernels on the card against the plain path on the CPU
     (``hold_step``): one packed row of 256 tokens holding three
     documents and a pad tail, positions restarting at each. Launches:
-    exactly one of each flash kernel."""
+    exactly one of each flash kernel. ``fused``
+    (``llama_train_fused_oracle``): under ``HETU_LM_LOSS_IMPL=fused``,
+    the LM head on the wide CUDA-core lane (fp32 h, E 4,096), and one
+    launch of each fused kernel too."""
     from hetu_tpu_torch.data import pack_sequences, to_tensors
     from hetu_tpu_torch.models import LlamaLMHeadModel
+    phase = "llama_train_fused_oracle" if fused else "llama_train_oracle"
     t0 = time.perf_counter()
     cfg = llama_train_cfg(num_layers=1)
     gpu = LlamaLMHeadModel(cfg, device=device, seed=SEED + 1)
@@ -4071,34 +4179,43 @@ def phase_llama_train_oracle(device):
     rng = np.random.default_rng(SEED + 1)
     docs = [rng.integers(0, cfg.vocab_size, n) for n in (100, 80, 60)]
     batch = to_tensors(pack_sequences(docs, 256).as_batch())
-    reading = hold_step(gpu, cpu, batch, device)
-    emit(phase="llama_train_oracle", dtype="float32", layers=1, batch=1,
-         seq=256, documents=len(docs), **reading,
-         seconds=time.perf_counter() - t0)
-    check_step_held("llama_train_oracle", reading,
-                    {**{k: 1 for k in FLASH}, **{k: 0 for k in FUSED}})
+    with fused_loss() if fused else contextlib.nullcontext():
+        reading = hold_step(gpu, cpu, batch, device)
+    emit(phase=phase, dtype="float32", layers=1, batch=1, seq=256,
+         documents=len(docs), loss="fused" if fused else "chunked",
+         **reading, seconds=time.perf_counter() - t0)
+    check_step_held(phase, reading,
+                    {**{k: 1 for k in FLASH},
+                     **{k: int(fused) for k in FUSED}})
     del gpu, cpu
     gc.collect()
     torch.cuda.empty_cache()
 
 
-def timed_fit(trainer, run, steps: int) -> dict:
+def timed_fit(trainer, run, steps: int, names=FLASH) -> dict:
     """``steps`` calls' worth of ``run(steps)`` (a ``Trainer.train`` or
     ``SFTTrainer.fit``), with the launch counters zeroed just before and
-    read just after; the wall time ends at a sync."""
+    read just after (those of ``names``); the wall time ends at a
+    sync."""
     from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
     reset_launch_counts()
     t0 = time.perf_counter()
     records = run(steps)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / steps
-    return dict(records=records, dt=dt, counts=launches_of(launch_counts()))
+    return dict(records=records, dt=dt,
+                counts=launches_of(launch_counts(), names))
 
 
-def phase_llama_train(device, card):
+def phase_llama_train(device, card, fused: bool = False,
+                      beside: dict | None = None):
     """``Trainer.train`` over the first packed batch, repeated: 3 warm-up
     and 10 timed steps, bf16 compute over fp32 params. The loss must
-    fall; each flash kernel must launch exactly twice a step."""
+    fall; each flash kernel must launch exactly twice a step. ``fused``
+    (``llama_train_fused``): under ``HETU_LM_LOSS_IMPL=fused``, the LM
+    head through #5-#7 on the wide tensor-core lane (E 4,096), each
+    launched exactly once a step, printed ``beside`` the chunked run's
+    figures."""
     from hetu_tpu_torch import optim
     from hetu_tpu_torch.engine import Trainer, TrainerConfig
     from hetu_tpu_torch.engine.trainer import flops_per_token
@@ -4117,36 +4234,43 @@ def phase_llama_train(device, card):
                                                torch.bfloat16]),
                       device=device)
     batch = llama_train_batch()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    warm = trainer.train(itertools.repeat(batch), steps=3)
-    warm_s = time.perf_counter() - t0
-    trainer.config.log_every = 10         # one device read, at the end
-    run = timed_fit(trainer, lambda n: trainer.train(itertools.repeat(batch),
-                                                     steps=n), 10)
+    phase = "llama_train_fused" if fused else "llama_train"
+    names = FLASH + FUSED if fused else FLASH
+    with fused_loss() if fused else contextlib.nullcontext():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        warm = trainer.train(itertools.repeat(batch), steps=3)
+        warm_s = time.perf_counter() - t0
+        trainer.config.log_every = 10         # one device read, at the end
+        run = timed_fit(trainer, lambda n: trainer.train(
+            itertools.repeat(batch), steps=n), 10, names)
     rec = run["records"][-1]
     L = cfg.num_layers
-    want = {k: 10 * L for k in FLASH}
+    want = {**{k: 10 * L for k in FLASH},
+            **({k: 10 for k in FUSED} if fused else {})}
     tokens = LLAMA_TRAIN_BATCH * LLAMA_TRAIN_SEQ
     losses = [r["loss"] for r in warm] + [rec["loss"]]
-    emit(phase="llama_train", card=card,
+    figures = dict(step_ms=run["dt"] * 1e3, tokens_per_s=tokens / run["dt"],
+                   mfu=tokens / run["dt"] * fpt / PEAK_FLOPS[torch.bfloat16],
+                   peak_memory_bytes=torch.cuda.max_memory_allocated())
+    emit(phase=phase, card=card,
          config="LlamaConfig.llama_7b width, 2 layers", params=n_params,
          seq=LLAMA_TRAIN_SEQ, batch=LLAMA_TRAIN_BATCH,
          real_tokens=int((batch["labels"] != -100).sum()),
          documents=int(sum(len(np.unique(r)) - 1
                            for r in batch["segment_ids"])),
          policy="BF16_COMPUTE", remat="selective",
-         step_ms=run["dt"] * 1e3, tokens_per_s=tokens / run["dt"],
-         mfu=tokens / run["dt"] * fpt / PEAK_FLOPS[torch.bfloat16],
+         loss="fused" if fused else "chunked", **figures,
          flops_per_token=fpt, trainer_record=rec,
-         peak_memory_bytes=torch.cuda.max_memory_allocated(),
          warmup_seconds=warm_s, losses_steps_1_2_3_13=losses,
-         launches=run["counts"], expected=want)
+         launches=run["counts"], expected=want,
+         **({"chunked_llama_train": beside} if beside else {}))
     check(all(np.isfinite(losses)), "non-finite Llama training loss")
     check(losses[-1] < losses[0], f"Llama loss did not fall: {losses}")
-    check(run["counts"] == want, f"llama_train launches {run['counts']}, "
+    check(run["counts"] == want, f"{phase} launches {run['counts']}, "
                                  f"expected {want}")
-    return dict(trainer=trainer, batch=batch, counts=run["counts"])
+    return dict(trainer=trainer, batch=batch, counts=run["counts"],
+                figures=figures)
 
 
 def phase_llama_train_kernels(device, timer, ops, batch, results):
@@ -4335,6 +4459,213 @@ def phase_llama_sft(device, card, pretrained):
 #: ``workloads/bench_suite.py:170-185 config4_moe``: moe_8e cut to 6 layers,
 #: batch 8 at seq 1024
 MOE_LAYERS, MOE_BATCH = 6, 8
+#: kernels #5-#7 at the Llama training shape: N = 4 x 2,048 tokens, the
+#: vocab of 32,000, E = 4,096, bf16 h and w (the wide tensor-core lane)
+LLAMA_FUSED_SHAPE = (LLAMA_TRAIN_BATCH * LLAMA_TRAIN_SEQ, 32000, 4096)
+
+
+def phase_llama_fused_kernel_times(device, timer, ops, results, launches):
+    """#5-#7 at ``LLAMA_FUSED_SHAPE``: held against their plain versions
+    (rerun bit-equal; dh and dw through the float64 yardstick of
+    :func:`exact_fused_grad`, since this draw's softmax is peaky: at E
+    4,096, w ~ N(0, 0.05^2), a row's largest p reaches 0.2), then timed as
+    ``phase_fused_kernel_times`` times them: CUDA events over 3 calls, each after the L2-evicting write,
+    beside the plain versions, one cuBLAS call for the logits product
+    (``gemm_ms``), the port's ``chunked_lm_loss`` forward (#5's library
+    figure) and forward and backward (#6's and #7's), and the bound (2NVE
+    for #5, 4NVE for #6 and #7, on 989 TFLOP/s). ``launches`` are the
+    fused training path's. The entries land under ``llama_train_shape``
+    of each kernel's summary."""
+    from hetu_tpu_torch.ops import chunked_lm_loss
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    n, vocab, e = LLAMA_FUSED_SHAPE
+    h, w, lab, _, _ = fused_inputs(gen, device, n, vocab, torch.bfloat16,
+                                   torch.bfloat16, e)
+    lab[::7] = torch.randint(0, vocab, lab[::7].shape, generator=gen,
+                             device=device, dtype=torch.int32)
+    lab[3] = vocab - 1
+    g = torch.full((n,), 1.0 / n, device=device)   # the mean loss's (g, -g)
+    got, want = run_fused(ops, h, w, lab, g, -g)
+    errs = {k: {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0} for k in FUSED}
+    exact = {k: exact_fused_grad(h, w, lab, want[0], g, -g, k[-2:])
+             for k in ("fused_ce_dh", "fused_ce_dw")}
+    check_fused("llama_train", h, w, got, want, errs, exact)
+    del exact
+    lse = want[0]
+    again = (*ops.fused_ce_fwd(h, w, lab),
+             ops.fused_ce_dh(h, w, lab, lse, g, -g),
+             ops.fused_ce_dw(h, w, lab, lse, g, -g))
+    torch.cuda.synchronize()
+    same = check_rerun("llama_train", got, again, kernel="fused_ce")
+    emit(phase="kernel_rerun", kernel="fused_ce", case="llama_train",
+         h_dtype="bfloat16", w_dtype="bfloat16", identical=same)
+    del got, want, again
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    calls = {"fused_ce_fwd": (lambda: ops.fused_ce_fwd(h, w, lab),
+                              lambda: ops.fused_lse_tgt_reference(h, w, lab)),
+             "fused_ce_dh": (lambda: ops.fused_ce_dh(h, w, lab, lse, g, -g),
+                             lambda: ops.fused_ce_dh_reference(
+                                 h, w, lab, lse, g, -g)),
+             "fused_ce_dw": (lambda: ops.fused_ce_dw(h, w, lab, lse, g, -g),
+                             lambda: ops.fused_ce_dw_reference(
+                                 h, w, lab, lse, g, -g))}
+    hid = h.view(LLAMA_TRAIN_BATCH, LLAMA_TRAIN_SEQ, e)
+    y = lab.long().view(LLAMA_TRAIN_BATCH, LLAMA_TRAIN_SEQ)
+    lib_fwd = timer(lambda: chunked_lm_loss(hid, w, y, mm_dt=torch.bfloat16),
+                    iters=3, warmup=1)
+    gemm_ms = timer(lambda: torch.mm(h, w.t(), out_dtype=torch.float32),
+                    iters=3, warmup=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    hg, wg = hid.detach().requires_grad_(), w.detach().requires_grad_()
+    lib_both = timer(lambda: chunked_lm_loss(
+        hg, wg, y, mm_dt=torch.bfloat16).backward(), iters=3, warmup=1)
+    del hg, wg
+    base = (n * e + vocab * e) * 2 + n * 4          # h, w, labels
+    work = {"fused_ce_fwd": (base + 2 * n * 4, 2.0 * n * vocab * e),
+            "fused_ce_dh": (base + 3 * n * 4 + n * e * 2,
+                            4.0 * n * vocab * e),
+            "fused_ce_dw": (base + 3 * n * 4 + vocab * e * 2,
+                            4.0 * n * vocab * e)}
+    for kernel, (fn, plain) in calls.items():
+        ms = timer(fn, iters=3, warmup=1)
+        plain_ms = timer(plain, iters=2, warmup=1)
+        nbytes, flops = work[kernel]
+        bound_ms, bound_by = bound(nbytes, flops, torch.bfloat16)
+        t = dict(ms=ms, plain_ms=plain_ms,
+                 library_ms=lib_fwd if kernel == "fused_ce_fwd" else lib_both,
+                 gemm_ms=gemm_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 bytes=nbytes, flops=flops, lane="tensor_core_wide",
+                 launches=launches.get(kernel, 0),
+                 max_abs_err_bf16=errs[kernel]["max_abs_err_bf16"])
+        emit(phase="kernel_time", kernel=kernel, case="llama_train",
+             dtype="bfloat16", shape=[n, vocab, e], **t)
+        results[kernel]["llama_train_shape"] = dict(t, shape=[n, vocab, e])
+        results[kernel]["max_abs_err_bf16"] = max(
+            results[kernel]["max_abs_err_bf16"],
+            errs[kernel]["max_abs_err_bf16"])
+
+
+def state_copy(trainer) -> tuple:
+    """Host copies of a trainer's params and optimizer state, by name."""
+    names = {p: n for n, p in trainer.model.named_parameters()}
+    params = {n: p.detach().to("cpu", copy=True)
+              for n, p in trainer.model.named_parameters()}
+    opt = {names[p]: {k: v.detach().to("cpu", copy=True)
+                      if torch.is_tensor(v) else v for k, v in st.items()}
+           for p, st in trainer.state.optimizer.state.items()}
+    return params, opt
+
+
+def states_equal(a, b) -> dict:
+    """Which of params, moments and counts of two ``state_copy``s are bit
+    for bit equal, and the names of those that differ."""
+    (pa, oa), (pb, ob) = a, b
+    bad = [n for n in pa if n not in pb or not torch.equal(pa[n], pb[n])]
+    bad_opt = [f"{n}.{k}" for n in oa for k in oa[n]
+               if n not in ob or k not in ob[n]
+               or not (torch.equal(oa[n][k], ob[n][k])
+                       if torch.is_tensor(oa[n][k]) else oa[n][k] == ob[n][k])]
+    return dict(params=not bad and sorted(pa) == sorted(pb),
+                optimizer=not bad_opt and sorted(oa) == sorted(ob),
+                differ=(bad + bad_opt)[:8])
+
+
+def phase_llama_ckpt(device, card):
+    """Checkpoints on ``llama_train_fused``'s configuration (the fused
+    loss, bf16 compute, fp32 params, AdamW): run A trains 10 steps
+    without a stop; run B trains 5 with ``TrainerConfig(ckpt_dir=<a
+    tempfile.mkdtemp() directory>, ckpt_every=5, async_ckpt=True)``,
+    then a new model and Trainer ``resume`` from it and train 5 more.
+    Steps 6-10's losses (each step logged) and the final params, moments
+    and counts must be bit-equal to run A's; so must B's first 5 losses.
+    Launches over the three runs: exactly 20 of each fused kernel and
+    20 L of each flash kernel. Printed: the free disk, the bytes
+    written, the save's blocking seconds (the snapshot), the write's
+    seconds and the load's. 2 layers need about 8.0 GB of disk (667 M
+    params x 12 B); with less than 12 GB free the phase runs at 1
+    layer and says so. The directory is removed at the end."""
+    import shutil
+    import tempfile
+    from hetu_tpu_torch import optim
+    from hetu_tpu_torch.engine import Trainer, TrainerConfig
+    from hetu_tpu_torch.models import LlamaLMHeadModel
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.parallel import Strategy
+
+    root = tempfile.mkdtemp(prefix="hetu_ckpt_")
+    free = shutil.disk_usage(root).free
+    layers = LLAMA_TRAIN_LAYERS if free >= 12e9 else 1
+    emit(phase="llama_ckpt_disk", free_bytes=free, layers=layers,
+         cut_to_one_layer=layers != LLAMA_TRAIN_LAYERS)
+    cfg = llama_train_cfg(num_layers=layers)
+    batch = llama_train_batch()
+
+    def trainer(**kw):
+        model = LlamaLMHeadModel(cfg, device=device, seed=SEED)
+        return Trainer(model, optim.adamw(1e-4),
+                       Strategy(remat="selective", unroll=True),
+                       config=TrainerConfig(precision="bf16", log_every=1,
+                                            **kw), device=device)
+
+    def losses(records):
+        return [r["loss"] for r in records if "loss" in r]
+
+    try:
+        with fused_loss():
+            reset_launch_counts()
+            a = trainer()
+            want = losses(a.train(itertools.repeat(batch), steps=10))
+            final_a = state_copy(a)
+            del a
+            gc.collect()
+            torch.cuda.empty_cache()
+            b = trainer(ckpt_dir=root, ckpt_every=5, async_ckpt=True)
+            got = losses(b.train(itertools.repeat(batch), steps=5))
+            save = b.last_save
+            writer = save["writer"]
+            del b
+            gc.collect()
+            torch.cuda.empty_cache()
+            c = trainer()
+            t0 = time.perf_counter()
+            c.resume(root)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            resumed_at = c.state.step
+            got += losses(c.train(itertools.repeat(batch), steps=5))
+            torch.cuda.synchronize()
+            counts = launches_of(launch_counts(), FLASH + FUSED)
+            same = states_equal(state_copy(c), final_a)
+            steps = c.state.step
+            del c
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    expect = {**{k: 20 * layers for k in FLASH}, **{k: 20 for k in FUSED}}
+    emit(phase="llama_ckpt", card=card, layers=layers,
+         config="LlamaConfig.llama_7b width", loss="fused",
+         policy="BF16_COMPUTE", optimizer="adamw(1e-4)",
+         saved_step=save["step"], resumed_at=resumed_at, final_step=steps,
+         bytes_written=writer.nbytes, save_blocking_s=save["blocked_s"],
+         snapshot_s=writer.snapshot_seconds,
+         write_s=writer.write_seconds, load_s=load_s,
+         losses_uninterrupted=want, losses_saved_then_resumed=got,
+         losses_bit_equal=got == want, state_bit_equal=same,
+         launches=counts, expected=expect)
+    check(resumed_at == 5 and steps == 10,
+          f"llama_ckpt: resumed at {resumed_at}, ended at {steps}")
+    check(got == want, f"llama_ckpt: losses {got} against {want}")
+    check(same["params"] and same["optimizer"],
+          f"llama_ckpt: the resumed state differs: {same}")
+    check(counts == expect, f"llama_ckpt launches {counts}, expected "
+                            f"{expect}")
+    return counts
+
+
 MOE_GATES = ("topk", "ktop1", "sam", "balance")
 MOE_ORACLE_SEQ = 256
 #: a routing decision whose score gap is under this may flip on rounding
@@ -5658,11 +5989,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_kernels(device, timer, ops, batch, kernels)
     kernels.update(phase_fused_kernels(device, ops))
-    for name, keys in (("fused_ce_fwd", ("fused_ce_fwd_tc_kernel",)),
-                       ("fused_ce_dh", ("fused_ce_dh_tc_kernel<2>",)),
-                       ("fused_ce_dw", ("fused_ce_dw_tc_kernel<2, bf16>",
-                                        "fused_ce_dw_tc_kernel<2, float>"))):
-        kernels[name]["ptxas"] = {key: ptxas[key] for key in keys}
+    for name in FUSED:
+        kernels[name]["ptxas"] = {
+            key: ptxas[key] for key in (*FUSED_TC_INSTANCES,
+                                        *FUSED_WIDE_TC_INSTANCES)
+            if key.startswith(name + "_")}
     run = phase_train_fused(device, smi)
     paths["train_fused"] = run["counts"]
     batch = run["batch_size"]
@@ -5689,6 +6020,7 @@ def main() -> int:
     phase_llama_train_oracle(device)
     llama = phase_llama_train(device, smi)
     paths["llama_train"] = llama["counts"]
+    chunked_figures = llama["figures"]
     trainer = llama["trainer"]
     phase_train_profile(dict(
         state=trainer.state, batch_size=LLAMA_TRAIN_BATCH,
@@ -5702,6 +6034,24 @@ def main() -> int:
     phase_llama_train_kernels(device, timer, ops, llama["batch"], kernels)
     paths["llama_sft"] = phase_llama_sft(device, smi, pretrained)
     del pretrained
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_llama_train_oracle(device, fused=True)
+    fused = phase_llama_train(device, smi, fused=True, beside=chunked_figures)
+    paths["llama_train_fused"] = fused["counts"]
+    trainer = fused["trainer"]
+    with fused_loss():
+        phase_train_profile(dict(
+            state=trainer.state, batch_size=LLAMA_TRAIN_BATCH,
+            step=build_train_step(trainer.model, trainer.opt, trainer.plan),
+            batch=to_tensors(fused["batch"], device)),
+            phase="llama_train_fused_profile", fused_lane="tensor_core_wide")
+    del trainer, fused
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_llama_fused_kernel_times(device, timer, ops, kernels,
+                                   paths["llama_train_fused"])
+    paths["llama_ckpt"] = phase_llama_ckpt(device, smi)
     phase_moe_train_oracle(device)
     moe = phase_moe_train(device, smi)
     paths["moe_train"] = moe["counts"]

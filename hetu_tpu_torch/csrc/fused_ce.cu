@@ -47,9 +47,9 @@
 //     once per k step.
 //   - The (32 x E) fp32 dh/dw accumulator lives in registers: 8 warps,
 //     each owning every 8th group of 8 columns (E / 64 groups, 96 floats a
-//     thread at E = 768). E is therefore a multiple of 64 and at most 768,
-//     which also keeps both operand tiles inside the 227 KB of shared
-//     memory.
+//     thread at E = 768). E is therefore a multiple of 64 and at most
+//     kMaxE = 768, which also keeps both operand tiles inside the 227 KB
+//     of shared memory; wider E takes the wide lane (below).
 // No copy pipeline: every streamed tile is staged through registers
 // between two barriers, and fwd keeps fp32 logits in shared memory.
 //
@@ -72,6 +72,14 @@
 //      rows: a two-CTA cluster now owns 64 (dh: tokens, dw: vocab rows),
 //      each CTA half of E (below).
 // The details and the L2 reckoning are at each kernel.
+//
+// The wide lanes (E past kMaxE, any multiple of 64, on both lanes): the
+// forward's tensor-core kernel already streams E and serves them as it
+// is; the CUDA-core forward and all four backward kernels stream E in
+// 64-column k-chunks, and dh / dw split E across a grid axis, each block
+// recomputing the logits over the whole of E for its 512 output columns
+// (fused_ce_fwd_wide_kernel, fused_ce_bwd_wide_body,
+// fused_ce_bwd_wide_tc_body, below).
 
 #include <cooperative_groups.h>
 
@@ -133,28 +141,41 @@ template <> struct Cfg<float> {
 
 __device__ __forceinline__ float cvt(float x, const float*) { return x; }
 
+// Copy columns [c0, c0 + K) of rows [r0, r0 + rows) of a (n, E) matrix into
+// shared memory (row stride ld), cast to T; rows at or past n are
+// zero-filled. The wide lanes stage one k-chunk at a time, stage() whole
+// rows.
+template <typename T, typename S>
+__device__ __forceinline__ void stage_chunk(T* dst, int ld, const S* src,
+                                            int n, int E, int r0, int rows,
+                                            int c0, int K) {
+  if constexpr (std::is_same<T, S>::value) {
+    constexpr int V = 16 / sizeof(T);
+    const int vpr = K / V;
+    for (int i = threadIdx.x; i < rows * vpr; i += blockDim.x) {
+      const int r = i / vpr, c = (i - r * vpr) * V;
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (r0 + r < n)
+        x = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * E + c0 +
+                                            c);
+      *reinterpret_cast<uint4*>(dst + r * ld + c) = x;
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * K; i += blockDim.x) {
+      const int r = i / K, c = i - r * K;
+      const float x =
+          r0 + r < n ? to_float(src[(size_t)(r0 + r) * E + c0 + c]) : 0.f;
+      dst[r * ld + c] = cvt(x, dst);
+    }
+  }
+}
+
 // Copy rows [r0, r0 + rows) of a (n, E) matrix into shared memory (row
 // stride ld), cast to T; rows at or past n are zero-filled.
 template <typename T, typename S>
 __device__ __forceinline__ void stage(T* dst, int ld, const S* src, int n,
                                       int E, int r0, int rows) {
-  if constexpr (std::is_same<T, S>::value) {
-    constexpr int V = 16 / sizeof(T);  // elements per 16-byte vector
-    const int vpr = E / V;
-    for (int i = threadIdx.x; i < rows * vpr; i += blockDim.x) {
-      const int r = i / vpr, c = (i - r * vpr) * V;
-      uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (r0 + r < n)
-        x = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * E + c);
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = x;
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * E; i += blockDim.x) {
-      const int r = i / E, c = i - r * E;
-      const float x = r0 + r < n ? to_float(src[(size_t)(r0 + r) * E + c]) : 0.f;
-      dst[r * ld + c] = cvt(x, dst);
-    }
-  }
+  stage_chunk(dst, ld, src, n, E, r0, rows, 0, E);
 }
 
 // s = X Y^T for X (R x E) and Y (kT x E) in shared memory. The block's
@@ -174,10 +195,19 @@ struct Logits {
   }
   __device__ __forceinline__ void compute(const T* xs, int ldx, const T* ys,
                                           int ldy, int E) {
+    zero();
+    add(xs, ldx, ys, ldy, E);
+  }
+  // the wide lane calls these apart: s = 0, then s += X[:, chunk] Y[:,
+  // chunk]^T for each k-chunk of K columns in turn (k in order, as compute)
+  __device__ __forceinline__ void zero() {
 #pragma unroll
     for (int q = 0; q < kPairs; ++q) s[q][0] = s[q][1] = s[q][2] = s[q][3] = 0.f;
+  }
+  __device__ __forceinline__ void add(const T* xs, int ldx, const T* ys,
+                                      int ldy, int K) {
 #pragma unroll 4
-    for (int k = 0; k < E; k += 16) {
+    for (int k = 0; k < K; k += 16) {
       const auto b = Mma<T>::template load_b<true>(ys + ni() * 8 * ldy + k, ldy);
 #pragma unroll
       for (int q = 0; q < kPairs; ++q)
@@ -465,6 +495,304 @@ int launch_bwd(const void* h, const void* w, const void* labels,
   return (int)cudaGetLastError();
 }
 
+// ---- the wide lanes (E > kMaxE): the CUDA-core kernels ----------------------
+//
+// Past kMaxE neither lane above fits: the CUDA-core kernels keep a (rows x
+// E) operand resident and a (32 x E) accumulator in registers; the
+// tensor-core dh/dw keep 64 rows x E/2 of operand and accumulator a CTA
+// (256 KB and 512 KB at E = 4096, where an SM has 228 KB of shared memory
+// and 256 KB of registers). The wide lane, simple and right first:
+//   - every operand streams through shared memory in k-chunks of
+//     kWideK = 64 columns, so shared memory does not grow with E;
+//   - dh and dw split E across a grid axis (blockIdx.y): a block owns the
+//     kWideSlice = 512 output columns [512 y, 512 y + 512) of its rows and
+//     recomputes the logits tile s = X Y^T over the whole of E for every Y
+//     tile, then adds P Y[:, slice] into its (rows x 512) accumulator. One
+//     launch, no state across blocks, nothing atomic: every sum has one
+//     order, so reruns are bit-equal.
+//   - the Y k-chunks inside the block's slice are staged into the slice
+//     buffer the product reads, so the slice is read once a tile.
+// The cost of the recompute: dh and dw each do (E / 512) 2nVE flops for the
+// logits plus 2nVE for the product, 18 nVE at E = 4096, 4.5x the 4nVE of
+// the bound. Sharing s across the blocks of a cluster is the fast design.
+// The forward needs no split (its accumulator does not hold E): it streams
+// k-chunks of both operands into the same Logits fragments.
+constexpr int kWideK = 64;       // E columns per streamed k-chunk
+constexpr int kWideSlice = 512;  // dh / dw output columns per block
+
+template <typename T, typename TW>
+__global__ void __launch_bounds__(kThreads)
+fused_ce_fwd_wide_kernel(const T* __restrict__ h, const TW* __restrict__ w,
+                         const int* __restrict__ labels,
+                         float* __restrict__ lse, float* __restrict__ tgt,
+                         int n, int vocab, int E) {
+  constexpr int R = Cfg<T>::kFwdRows, kT = Cfg<T>::kT;
+  constexpr int kRowsPerWarp = R / 8, kColsPerLane = kT / 32;
+  constexpr int ld = kWideK + Cfg<T>::kPad, lds = kT + 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* xs = reinterpret_cast<T*>(smem);  // R x ld: a k-chunk of the tokens
+  T* ys = xs + R * ld;                 // kT x ld: a k-chunk of a vocab tile
+  float* ss = reinterpret_cast<float*>(ys + kT * ld);  // R x lds: s
+
+  const int r0 = blockIdx.x * R;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float m[kRowsPerWarp], l[kRowsPerWarp], tp[kRowsPerWarp];
+  int lab[kRowsPerWarp];
+#pragma unroll
+  for (int j = 0; j < kRowsPerWarp; ++j) {
+    const int i = r0 + warp * kRowsPerWarp + j;
+    m[j] = -CUDART_INF_F;
+    l[j] = tp[j] = 0.f;
+    lab[j] = i < n ? labels[i] : -1;
+  }
+
+  Logits<T, R, kT> lg;
+  for (int v0 = 0; v0 < vocab; v0 += kT) {
+    lg.zero();
+    for (int k0 = 0; k0 < E; k0 += kWideK) {
+      __syncthreads();  // the previous chunk (and tile's ss) consumed
+      stage_chunk(xs, ld, h, n, E, r0, R, k0, kWideK);
+      stage_chunk(ys, ld, w, vocab, E, v0, kT, k0, kWideK);
+      __syncthreads();
+      lg.add(xs, ld, ys, ld, kWideK);
+    }
+#pragma unroll
+    for (int q = 0; q < lg.kPairs; ++q)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ss[lg.row(q, i) * lds + lg.col(q, i)] = lg.s[q][i];
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kRowsPerWarp; ++j) {
+      const float* srow = ss + (warp * kRowsPerWarp + j) * lds;
+      float s[kColsPerLane], mx = -CUDART_INF_F;
+#pragma unroll
+      for (int c = 0; c < kColsPerLane; ++c) {
+        const int v = v0 + lane + 32 * c;
+        s[c] = v < vocab ? srow[lane + 32 * c] : kNegInf;
+        if (v == lab[j]) tp[j] += s[c];
+        mx = fmaxf(mx, s[c]);
+      }
+      const float m_next = fmaxf(m[j], warp_max(mx));
+      float e = 0.f;
+#pragma unroll
+      for (int c = 0; c < kColsPerLane; ++c) e += expf(s[c] - m_next);
+      l[j] = expf(m[j] - m_next) * l[j] + warp_sum(e);
+      m[j] = m_next;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kRowsPerWarp; ++j) {
+    const int i = r0 + warp * kRowsPerWarp + j;
+    const float t = warp_sum(tp[j]);
+    if (lane == 0 && i < n) {
+      lse[i] = m[j] + logf(l[j]);
+      tgt[i] = t;
+    }
+  }
+}
+
+// dh / dw of the CUDA-core wide lane: fused_ce_bwd_body with s over
+// streamed k-chunks and the accumulator over this block's E slice.
+template <typename T, typename TW, bool kDW>
+__device__ __forceinline__ void fused_ce_bwd_wide_body(
+    const T* __restrict__ h, const TW* __restrict__ w,
+    const int* __restrict__ labels, const float* __restrict__ lse,
+    const float* __restrict__ glse, const float* __restrict__ gtgt,
+    void* __restrict__ out, int n, int vocab, int E) {
+  constexpr int R = kBwdRows, kT = Cfg<T>::kT, kGroups = kWideSlice / 64;
+  constexpr int kStat = R > kT ? R : kT;
+  constexpr int ld = kWideK + Cfg<T>::kPad, lds = kWideSlice + Cfg<T>::kPad;
+  constexpr int ldp = kT + Cfg<T>::kPad;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* xs = reinterpret_cast<T*>(smem);  // R x ld: X's k-chunk
+  T* yc = xs + R * ld;                 // kT x ld: Y's k-chunk off the slice
+  T* ysl = yc + kT * ld;               // kT x lds: Y's tile on the slice
+  T* ps = ysl + kT * lds;              // R x ldp: P
+  float* st_lse = reinterpret_cast<float*>(ps + R * ldp);
+  float* st_glse = st_lse + kStat;
+  float* st_gtgt = st_glse + kStat;
+  int* st_lab = reinterpret_cast<int*>(st_gtgt + kStat);
+
+  const int r0 = blockIdx.x * R;
+  const int e0 = blockIdx.y * kWideSlice;
+  const int ew = min(kWideSlice, E - e0);  // this block's output columns
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_x = kDW ? vocab : n, n_y = kDW ? n : vocab;
+  const int groups = ew / 64;
+
+  auto stage_stats = [&](int i0, int count) {
+    for (int i = threadIdx.x; i < count; i += blockDim.x) {
+      const bool in = i0 + i < n;
+      st_lse[i] = in ? lse[i0 + i] : 0.f;
+      st_glse[i] = in ? glse[i0 + i] : 0.f;
+      st_gtgt[i] = in ? gtgt[i0 + i] : 0.f;
+      st_lab[i] = in ? labels[i0 + i] : -1;
+    }
+  };
+  if (!kDW) stage_stats(r0, R);
+
+  float acc[kGroups][R / 16][4];
+#pragma unroll
+  for (int c = 0; c < kGroups; ++c)
+#pragma unroll
+    for (int mi = 0; mi < R / 16; ++mi)
+      acc[c][mi][0] = acc[c][mi][1] = acc[c][mi][2] = acc[c][mi][3] = 0.f;
+
+  Logits<T, R, kT> lg;
+  for (int y0 = 0; y0 < n_y; y0 += kT) {
+    lg.zero();
+    for (int k0 = 0; k0 < E; k0 += kWideK) {
+      const bool on_slice = k0 >= e0 && k0 < e0 + ew;
+      T* yk = on_slice ? ysl + (k0 - e0) : yc;
+      const int ldy = on_slice ? lds : ld;
+      // the previous chunk consumed; at k0 = 0 also the previous tile's
+      // P, slice and statistics
+      __syncthreads();
+      if (kDW) {
+        stage_chunk(xs, ld, w, n_x, E, r0, R, k0, kWideK);
+        stage_chunk(yk, ldy, h, n_y, E, y0, kT, k0, kWideK);
+        if (k0 == 0) stage_stats(y0, kT);
+      } else {
+        stage_chunk(xs, ld, h, n_x, E, r0, R, k0, kWideK);
+        stage_chunk(yk, ldy, w, n_y, E, y0, kT, k0, kWideK);
+      }
+      __syncthreads();
+      lg.add(xs, ld, yk, ldy, kWideK);
+    }
+#pragma unroll
+    for (int q = 0; q < lg.kPairs; ++q)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = lg.row(q, i), c = lg.col(q, i);
+        const int tok = kDW ? c : r;
+        const int v = kDW ? r0 + r : y0 + c;
+        float p = v < vocab ? st_glse[tok] * expf(lg.s[q][i] - st_lse[tok])
+                            : 0.f;
+        if (v == st_lab[tok]) p += st_gtgt[tok];
+        ps[r * ldp + c] = cvt(p, ps);
+      }
+    __syncthreads();
+    // acc += P (R x kT) Y[:, slice] (kT x ew); warp owns column group
+    // c * 64 + warp * 8 of the slice
+#pragma unroll
+    for (int k = 0; k < kT; k += 16) {
+      typename Mma<T>::A a[R / 16];
+#pragma unroll
+      for (int mi = 0; mi < R / 16; ++mi)
+        a[mi] = Mma<T>::load_a(ps + mi * 16 * ldp + k, ldp);
+#pragma unroll
+      for (int c = 0; c < kGroups; ++c)
+        if (c < groups) {
+          const auto b = Mma<T>::template load_b<false>(
+              ysl + k * lds + c * 64 + warp * 8, lds);
+#pragma unroll
+          for (int mi = 0; mi < R / 16; ++mi) Mma<T>::mma(acc[c][mi], a[mi], b);
+        }
+    }
+  }
+
+#pragma unroll
+  for (int c = 0; c < kGroups; ++c)
+    if (c < groups)
+#pragma unroll
+      for (int mi = 0; mi < R / 16; ++mi)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = r0 + mi * 16 + g + (i >> 1) * 8;
+          const int col = e0 + c * 64 + warp * 8 + 2 * t + (i & 1);
+          if (r >= n_x) continue;
+          if (kDW)
+            store(static_cast<TW*>(out) + (size_t)r * E + col, acc[c][mi][i]);
+          else
+            store(static_cast<T*>(out) + (size_t)r * E + col, acc[c][mi][i]);
+        }
+}
+
+template <typename T, typename TW>
+__global__ void __launch_bounds__(kThreads)
+fused_ce_dh_wide_kernel(const T* __restrict__ h, const TW* __restrict__ w,
+                        const int* __restrict__ labels,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ glse,
+                        const float* __restrict__ gtgt, T* __restrict__ dh,
+                        int n, int vocab, int E) {
+  fused_ce_bwd_wide_body<T, TW, false>(h, w, labels, lse, glse, gtgt, dh, n,
+                                       vocab, E);
+}
+
+template <typename T, typename TW>
+__global__ void __launch_bounds__(kThreads)
+fused_ce_dw_wide_kernel(const T* __restrict__ h, const TW* __restrict__ w,
+                        const int* __restrict__ labels,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ glse,
+                        const float* __restrict__ gtgt, TW* __restrict__ dw,
+                        int n, int vocab, int E) {
+  fused_ce_bwd_wide_body<T, TW, true>(h, w, labels, lse, glse, gtgt, dw, n,
+                                      vocab, E);
+}
+
+template <typename T>
+constexpr size_t fwd_wide_smem() {
+  constexpr int R = Cfg<T>::kFwdRows, kT = Cfg<T>::kT;
+  return (size_t)(R + kT) * (kWideK + Cfg<T>::kPad) * sizeof(T) +
+         (size_t)R * (kT + 4) * sizeof(float);
+}
+
+template <typename T>
+constexpr size_t bwd_wide_smem() {
+  constexpr int R = kBwdRows, kT = Cfg<T>::kT;
+  constexpr int kStat = R > kT ? R : kT;
+  return ((size_t)(R + kT) * (kWideK + Cfg<T>::kPad) +
+          (size_t)kT * (kWideSlice + Cfg<T>::kPad) +
+          (size_t)R * (kT + Cfg<T>::kPad)) * sizeof(T) +
+         4 * kStat * 4;
+}
+
+template <typename T, typename TW>
+int launch_fwd_wide(const void* h, const void* w, const void* labels,
+                    void* lse, void* tgt, int n, int vocab, int E,
+                    cudaStream_t stream) {
+  constexpr size_t smem = fwd_wide_smem<T>();
+  cudaError_t err = allow_smem(fused_ce_fwd_wide_kernel<T, TW>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (n + Cfg<T>::kFwdRows - 1) / Cfg<T>::kFwdRows;
+  fused_ce_fwd_wide_kernel<T, TW><<<blocks, kThreads, smem, stream>>>(
+      static_cast<const T*>(h), static_cast<const TW*>(w),
+      static_cast<const int*>(labels), static_cast<float*>(lse),
+      static_cast<float*>(tgt), n, vocab, E);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename TW, bool kDW>
+int launch_bwd_wide(const void* h, const void* w, const void* labels,
+                    const void* lse, const void* glse, const void* gtgt,
+                    void* out, int n, int vocab, int E, cudaStream_t stream) {
+  constexpr size_t smem = bwd_wide_smem<T>();
+  const dim3 grid(((kDW ? vocab : n) + kBwdRows - 1) / kBwdRows,
+                  (E + kWideSlice - 1) / kWideSlice);
+  const T* hp = static_cast<const T*>(h);
+  const TW* wp = static_cast<const TW*>(w);
+  const int* lp = static_cast<const int*>(labels);
+  const float *a = static_cast<const float*>(lse),
+              *b = static_cast<const float*>(glse),
+              *c = static_cast<const float*>(gtgt);
+  cudaError_t err;
+  if constexpr (kDW) {
+    err = allow_smem(fused_ce_dw_wide_kernel<T, TW>, smem);
+    if (err != cudaSuccess) return (int)err;
+    fused_ce_dw_wide_kernel<T, TW><<<grid, kThreads, smem, stream>>>(
+        hp, wp, lp, a, b, c, static_cast<TW*>(out), n, vocab, E);
+  } else {
+    err = allow_smem(fused_ce_dh_wide_kernel<T, TW>, smem);
+    if (err != cudaSuccess) return (int)err;
+    fused_ce_dh_wide_kernel<T, TW><<<grid, kThreads, smem, stream>>>(
+        hp, wp, lp, a, b, c, static_cast<T*>(out), n, vocab, E);
+  }
+  return (int)cudaGetLastError();
+}
+
 // ---- the tensor-core lane (bf16 h and w, E a multiple of 64) ---------------
 
 namespace cgrp = cooperative_groups;
@@ -497,22 +825,32 @@ constexpr int kChunk = 64;       // E columns per streamed k-chunk (128 bytes)
 //     in the 50 MB L2; the h tiles they re-read hold 132 x 192 KB = 26 MB.
 //     A 128 x 256 tile is the largest whose accumulators fit 8 warps'
 //     registers beside the fragments (255 a thread at one block an SM).
+//
+// The wide lane's forward, fused_ce_fwd_wide_tc_kernel, is the same body
+// with kVocab = 128 and kPromote: each 64-column k-chunk's products are
+// summed from zero into a second set of accumulators and added into s
+// once a chunk (an fp32 add that rounds to nearest), because the tensor
+// cores' own fp32 sum over E / 16 steps drifts with E (at E = 5120 its
+// logits stood 0.95 of FUSED_TOL_LSE from the plain version's). Two sets
+// of 2 x 8 tiles fit the registers where two of 2 x 16 would not; the
+// price is w read from L2 once a 128-column tile.
 constexpr int kFwdTokens = 128;
 constexpr int kFwdVocab = 256;
 constexpr int kFwdStages = 4;
-constexpr int kFwdNT = kFwdVocab / 2 / 8;  // n8 tiles a warp
 
+template <int kVocab>
 __host__ __device__ constexpr size_t fwd_tc_smem() {
-  return (size_t)kFwdStages * (kFwdTokens + kFwdVocab) * kChunk * sizeof(bf16);
+  return (size_t)kFwdStages * (kFwdTokens + kVocab) * kChunk * sizeof(bf16);
 }
 
-__global__ void __launch_bounds__(kTcThreads, 1)
-fused_ce_fwd_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
-                       const int* __restrict__ labels,
-                       float* __restrict__ lse, float* __restrict__ tgt,
-                       int n, int vocab, int E) {
-  constexpr int kStage = (kFwdTokens + kFwdVocab) * kChunk;  // elements
-  constexpr int kCopies = (kFwdTokens + kFwdVocab) * 8 / kTcThreads;  // 12
+template <int kVocab, bool kPromote>
+__device__ __forceinline__ void fused_ce_fwd_tc_body(
+    const bf16* __restrict__ h, const bf16* __restrict__ w,
+    const int* __restrict__ labels, float* __restrict__ lse,
+    float* __restrict__ tgt, int n, int vocab, int E) {
+  constexpr int kFwdNT = kVocab / 2 / 8;  // n8 tiles a warp
+  constexpr int kStage = (kFwdTokens + kVocab) * kChunk;  // elements
+  constexpr int kCopies = (kFwdTokens + kVocab) * 8 / kTcThreads;  // 12, 8
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* ring = reinterpret_cast<bf16*>(smem_raw);
 
@@ -521,7 +859,7 @@ fused_ce_fwd_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
   const int wr = warp >> 1, wc = warp & 1;
   const int r0 = blockIdx.x * kFwdTokens;
   const int kc = E / kChunk;  // k-chunks per vocab tile
-  const int n_tiles = (vocab + kFwdVocab - 1) / kFwdVocab;
+  const int n_tiles = (vocab + kVocab - 1) / kVocab;
   const int total = n_tiles * kc;
 
   // copy k (< kCopies) of chunk c (vocab tile c / kc, E columns (c % kc) *
@@ -537,7 +875,7 @@ fused_ce_fwd_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
                  h + (size_t)(in ? r0 + r : 0) * E + e0, in);
     } else {
       const int rv = r + 128 * ((k - 4) >> 2);
-      const int v = (c / kc) * kFwdVocab + rv;
+      const int v = (c / kc) * kVocab + rv;
       const bool in = v < vocab;
       cp_async16(hs + kFwdTokens * kChunk + swz<kChunk>(rv, (tid & 7) * 8),
                  w + (size_t)(in ? v : 0) * E + e0, in);
@@ -563,7 +901,9 @@ fused_ce_fwd_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
       l[i][r] = tp[i][r] = 0.f;
     }
 
-  float s[2][kFwdNT][4];
+  // kPromote: the products go to `part`, added into s once a chunk
+  float s[2][kFwdNT][4], part[2][kFwdNT][4];
+  float(&acc)[2][kFwdNT][4] = kPromote ? part : s;
   for (int vt = 0; vt < n_tiles; ++vt) {
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -571,6 +911,14 @@ fused_ce_fwd_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
       for (int j = 0; j < kFwdNT; ++j)
         s[i][j][0] = s[i][j][1] = s[i][j][2] = s[i][j][3] = 0.f;
     for (int kq = 0; kq < kc; ++kq) {
+      if constexpr (kPromote) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < kFwdNT; ++j)
+            part[i][j][0] = part[i][j][1] = part[i][j][2] = part[i][j][3] =
+                0.f;
+      }
       const int c = vt * kc + kq;
       cp_async_wait<kFwdStages - 2>();
       __syncthreads();  // chunk c landed for all; chunk c - 1's stage free
@@ -587,25 +935,33 @@ fused_ce_fwd_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
         const MmaBf16::A a1 = ldsm_a<kChunk>(hs, wr * 32 + 16, kk * 16);
         // the next B pair is loaded while one is multiplied
         MmaBf16::B b[2][2];
-        ldsm_bt<kChunk>(b[0][0], b[0][1], ws, wc * 128, kk * 16);
+        ldsm_bt<kChunk>(b[0][0], b[0][1], ws, wc * (kVocab / 2), kk * 16);
 #pragma unroll
         for (int j = 0; j < kFwdNT; j += 2) {
           const int cur = (j >> 1) & 1;
           if (j + 2 < kFwdNT)
             ldsm_bt<kChunk>(b[cur ^ 1][0], b[cur ^ 1][1], ws,
-                            wc * 128 + (j + 2) * 8, kk * 16);
-          MmaBf16::mma(s[0][j], a0, b[cur][0]);
-          MmaBf16::mma(s[0][j + 1], a0, b[cur][1]);
-          MmaBf16::mma(s[1][j], a1, b[cur][0]);
-          MmaBf16::mma(s[1][j + 1], a1, b[cur][1]);
+                            wc * (kVocab / 2) + (j + 2) * 8, kk * 16);
+          MmaBf16::mma(acc[0][j], a0, b[cur][0]);
+          MmaBf16::mma(acc[0][j + 1], a0, b[cur][1]);
+          MmaBf16::mma(acc[1][j], a1, b[cur][0]);
+          MmaBf16::mma(acc[1][j + 1], a1, b[cur][1]);
         }
       }
       cp_async_commit();
+      if constexpr (kPromote) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < kFwdNT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[i][j][e] += part[i][j][e];
+      }
     }
 
     // the warp's columns v0 + j * 8 + 2t + (e & 1); past V: -1e30
-    const int v0 = vt * kFwdVocab + wc * 128;
-    if (v0 + 128 > vocab) {
+    const int v0 = vt * kVocab + wc * (kVocab / 2);
+    if (v0 + kVocab / 2 > vocab) {
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -676,14 +1032,34 @@ fused_ce_fwd_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
   }
 }
 
+__global__ void __launch_bounds__(kTcThreads, 1)
+fused_ce_fwd_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
+                       const int* __restrict__ labels,
+                       float* __restrict__ lse, float* __restrict__ tgt,
+                       int n, int vocab, int E) {
+  fused_ce_fwd_tc_body<kFwdVocab, false>(h, w, labels, lse, tgt, n, vocab, E);
+}
+
+__global__ void __launch_bounds__(kTcThreads, 1)
+fused_ce_fwd_wide_tc_kernel(const bf16* __restrict__ h,
+                            const bf16* __restrict__ w,
+                            const int* __restrict__ labels,
+                            float* __restrict__ lse, float* __restrict__ tgt,
+                            int n, int vocab, int E) {
+  fused_ce_fwd_tc_body<kFwdVocab / 2, true>(h, w, labels, lse, tgt, n, vocab,
+                                            E);
+}
+
+template <bool kWide>
 int launch_fwd_tc(const void* h, const void* w, const void* labels,
                   void* lse, void* tgt, int n, int vocab, int E,
                   cudaStream_t stream) {
-  constexpr size_t smem = fwd_tc_smem();
-  cudaError_t err = allow_smem(fused_ce_fwd_tc_kernel, smem);
+  constexpr size_t smem = fwd_tc_smem<kWide ? kFwdVocab / 2 : kFwdVocab>();
+  auto kernel = kWide ? fused_ce_fwd_wide_tc_kernel : fused_ce_fwd_tc_kernel;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (n + kFwdTokens - 1) / kFwdTokens;
-  fused_ce_fwd_tc_kernel<<<blocks, kTcThreads, smem, stream>>>(
+  kernel<<<blocks, kTcThreads, smem, stream>>>(
       static_cast<const bf16*>(h), static_cast<const bf16*>(w),
       static_cast<const int*>(labels), static_cast<float*>(lse),
       static_cast<float*>(tgt), n, vocab, E);
@@ -1162,29 +1538,345 @@ int launch_dw_tc(const void* h, const void* w, const void* labels,
       static_cast<const float*>(gtgt), static_cast<TW*>(dw), n, vocab, E);
 }
 
+// ---- the wide lanes (E > kMaxE): dh and dw on the tensor cores --------------
+//
+// fused_ce_dh_wide_tc_kernel and fused_ce_dw_wide_tc_kernel<TO>, one body,
+// fused_ce_bwd_wide_tc_body<kDW, TO>, with X, Y and P as in
+// fused_ce_bwd_tc_body. One CTA (no cluster) owns kWRows = 64 rows of X
+// and the kWideSlice = 512 output columns [512 y, 512 y + 512) of them
+// (blockIdx.y); the grid's y axis splits E, so the call stays one launch.
+//   - Per Y tile of 64 rows, s (64 x 64) is summed over the whole of E:
+//     X's and Y's 64-column k-chunks stream in order through a 4-stage
+//     cp.async ring (16 KB a stage), three chunks ahead of the products,
+//     and warp (sr, sc) accumulates rows 32 sr.., columns 16 sc.. (2 A
+//     and one B pair of ldmatrix fragments a k16 step for 4 products).
+//     The chunks on this CTA's slice land in the slice buffer (8 chunks,
+//     64 KB) instead of the ring, and the product reads them there. The
+//     ring does not run ahead across a tile: every tile starts with a
+//     barrier, so the slice buffer and P are free.
+//   - P = glse exp(s - lse) + gtgt onehot, 0 past V, rounded to bf16 (as
+//     fused_ce_bwd_tc_body forms it; exp is __expf), into a swizzled tile.
+//   - out[rows, slice] += P Y[:, slice] on mma.sync: warp (sr, pc) owns
+//     rows 32 sr.. and slice columns 128 pc.. (2 x 16 m16n8 tiles, 128
+//     fp32 accumulators a thread).
+//   - Each k-chunk's products are summed from zero and added into s once
+//     a chunk (rounded to nearest), as the wide forward does: the tensor
+//     cores' own sum over E / 16 steps drifts with E, and P, rounded to
+//     bf16 from s, turns that drift into flipped P entries (dh and dw at
+//     E = 5120 stood 2.3x fused_grad_bound from the plain versions'
+//     without it).
+//   - X and Y are bf16 (an fp32 w is cast once by the wrapper: it is
+//     re-read for every (tile, slice) here); out is in TO, dw in w's
+//     dtype.
+// Every s is one CTA's sum in one order, and every output element is
+// summed over the Y tiles in order: no atomics, reruns are bit-equal.
+// Cost: (E / 512 + 1) 2nVE flops, 4.5x the 4nVE bound at E = 4096, and X
+// and Y are re-read from L2 for every (tile, slice): at the Llama training
+// shape (n 8192, V 32000, E 4096) about 0.5 TB a call. Sharing s across
+// the CTAs of a cluster (distributed shared memory) removes the recompute.
+constexpr int kWRows = 64;
+constexpr int kWTile = 64;
+constexpr int kWStages = 4;
+constexpr int kWSliceChunks = kWideSlice / kChunk;  // 8
+
+__host__ __device__ constexpr size_t bwd_wide_tc_smem(bool dw) {
+  return (size_t)kWStages * (kWRows + kWTile) * kChunk * sizeof(bf16) +
+         (size_t)kWSliceChunks * kWTile * kChunk * sizeof(bf16) +
+         (size_t)kWRows * kWTile * sizeof(bf16) +
+         (dw ? (size_t)4 * kWTile * sizeof(float)
+             : (size_t)4 * kWRows * sizeof(float));
+}
+
+template <bool kDW, typename TO>
+__device__ __forceinline__ void fused_ce_bwd_wide_tc_body(
+    const bf16* __restrict__ x, const bf16* __restrict__ y,
+    const int* __restrict__ labels, const float* __restrict__ lse,
+    const float* __restrict__ glse, const float* __restrict__ gtgt,
+    TO* __restrict__ out, int n, int vocab, int E) {
+  constexpr int kTile = kWTile * kChunk;     // elements of one Y chunk
+  constexpr int kStage = (kWRows + kWTile) * kChunk;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);     // stages x (X, Y)
+  bf16* ysl = ring + kWStages * kStage;               // slice chunks of Y
+  bf16* ps = ysl + kWSliceChunks * kTile;             // P, 64 x 64
+  // (lse, glse, gtgt, labels) of 64 tokens: dh the CTA's rows, dw the tile's
+  float* stats = reinterpret_cast<float*>(ps + kWRows * kWTile);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int sr = warp & 1, sc = warp >> 1, pc = warp >> 1;
+  const int n_x = kDW ? vocab : n, n_y = kDW ? n : vocab;
+  const int r0 = blockIdx.x * kWRows;
+  const int kc = E / kChunk;
+  const int q0 = blockIdx.y * kWSliceChunks;
+  const int nsl = min(kWSliceChunks, kc - q0);
+  const int n_tiles = (n_y + kWTile - 1) / kWTile;
+
+  // statistics of 64 tokens from i0, thread tid one value (array tid / 64)
+  auto copy_stats = [&](int i0) {
+    const int a = tid / 64, i = i0 + tid % 64;
+    const float* src = a == 0   ? lse
+                       : a == 1 ? glse
+                       : a == 2 ? gtgt
+                                : reinterpret_cast<const float*>(labels);
+    const bool in = i < n;
+    cp_async4(stats + a * 64 + tid % 64, src + (in ? i : 0), in);
+  };
+  static_assert(kTcThreads == 4 * 64, "one statistic a thread");
+  // Y chunk c of tile jt: 2 copies a thread of 16 bytes (row, col)
+  auto copy_y = [&](int jt, int c) {
+    bf16* dst = c >= q0 && c < q0 + nsl
+                    ? ysl + (c - q0) * kTile
+                    : ring + (c % kWStages) * kStage + kWRows * kChunk;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int i = tid + kTcThreads * k, r = i >> 3, col = (i & 7) * 8;
+      const int yr = jt * kWTile + r;
+      const bool in = yr < n_y;
+      cp_async16(dst + swz<kChunk>(r, col),
+                 y + (size_t)(in ? yr : 0) * E + c * kChunk + col, in);
+    }
+  };
+  // X chunk c into its stage of the ring
+  auto copy_x = [&](int c) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int i = tid + kTcThreads * k, r = i >> 3, col = (i & 7) * 8;
+      const bool in = r0 + r < n_x;
+      cp_async16(ring + (c % kWStages) * kStage + swz<kChunk>(r, col),
+                 x + (size_t)(in ? r0 + r : 0) * E + c * kChunk + col, in);
+    }
+  };
+
+  float acc[2][2][8][4];  // [slice chunk of the warp][m16][n8][.]
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        acc[h][i][j][0] = acc[h][i][j][1] = acc[h][i][j][2] =
+            acc[h][i][j][3] = 0.f;
+
+  for (int jt = 0; jt < n_tiles; ++jt) {
+    __syncthreads();  // the previous tile's slice, P and statistics read
+    if (kDW || jt == 0) copy_stats(kDW ? jt * kWTile : r0);
+    for (int c = 0; c < kWStages - 1; ++c) {
+      if (c < kc) {
+        copy_x(c);
+        copy_y(jt, c);
+      }
+      cp_async_commit();  // one group a chunk
+    }
+
+    float s[2][2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) s[i][j][0] = s[i][j][1] = s[i][j][2] =
+          s[i][j][3] = 0.f;
+    for (int c = 0; c < kc; ++c) {
+      cp_async_wait<kWStages - 2>();
+      __syncthreads();  // chunk c landed for all; chunk c - 1's stage free
+      const int cn = c + kWStages - 1;
+      if (cn < kc) {
+        copy_x(cn);
+        copy_y(jt, cn);
+      }
+      cp_async_commit();
+      const bf16* xs = ring + (c % kWStages) * kStage;
+      const bf16* yc = c >= q0 && c < q0 + nsl ? ysl + (c - q0) * kTile
+                                               : xs + kWRows * kChunk;
+      float part[2][2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk) {
+        const MmaBf16::A a0 = ldsm_a<kChunk>(xs, sr * 32, kk * 16);
+        const MmaBf16::A a1 = ldsm_a<kChunk>(xs, sr * 32 + 16, kk * 16);
+        MmaBf16::B b0, b1;
+        ldsm_bt<kChunk>(b0, b1, yc, sc * 16, kk * 16);
+        MmaBf16::mma(part[0][0], a0, b0);
+        MmaBf16::mma(part[0][1], a0, b1);
+        MmaBf16::mma(part[1][0], a1, b0);
+        MmaBf16::mma(part[1][1], a1, b1);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[i][j][e] += part[i][j][e];
+    }
+    cp_async_wait<0>();
+
+    // P for rows 32 sr + 16 i + g + 8 r, columns 16 sc + 8 j + 2t + e
+    const int y0 = jt * kWTile;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = sc * 16 + j * 8 + 2 * t;
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = sr * 32 + i * 16 + g + 8 * (e >> 1);
+          const int col = c + (e & 1);
+          // dh: the statistics of token row, vocab index y0 + col; dw: of
+          // token col, vocab index r0 + row
+          const int tok = kDW ? col : row;
+          const int v = kDW ? r0 + row : y0 + col;
+          const float sl = stats[tok], sg = stats[64 + tok];
+          const float st = stats[128 + tok];
+          const int sb = reinterpret_cast<const int*>(stats)[192 + tok];
+          p[e] = v < vocab ? sg * __expf(s[i][j][e] - sl) : 0.f;
+          if (v == sb) p[e] += st;
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<uint32_t*>(
+              ps + swz<kWTile>(sr * 32 + i * 16 + g + 8 * r, c)) =
+              pack_bf16(p[2 * r], p[2 * r + 1]);
+      }
+    __syncthreads();  // P written (and every chunk landed, for all)
+
+    // acc[rows, slice] += P Y[:, slice]
+#pragma unroll
+    for (int kk = 0; kk < kWTile / 16; ++kk) {
+      MmaBf16::A pa[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        pa[i] = ldsm_a<kWTile>(ps, sr * 32 + i * 16, kk * 16);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (2 * pc + h < nsl) {
+          const bf16* yt = ysl + (2 * pc + h) * kTile;
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            MmaBf16::B b0, b1;
+            ldsm_b<kChunk>(b0, b1, yt, kk * 16, jj * 16);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              MmaBf16::mma(acc[h][i][2 * jj], pa[i], b0);
+              MmaBf16::mma(acc[h][i][2 * jj + 1], pa[i], b1);
+            }
+          }
+        }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (2 * pc + h < nsl)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = r0 + sr * 32 + i * 16 + g + 8 * r;
+            const int col = (q0 + 2 * pc + h) * kChunk + j * 8 + 2 * t;
+            if (row < n_x)
+              store2(out + (size_t)row * E + col, acc[h][i][j][2 * r],
+                     acc[h][i][j][2 * r + 1]);
+          }
+}
+
+__global__ void __launch_bounds__(kTcThreads, 1)
+fused_ce_dh_wide_tc_kernel(const bf16* __restrict__ h,
+                           const bf16* __restrict__ w,
+                           const int* __restrict__ labels,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ glse,
+                           const float* __restrict__ gtgt,
+                           bf16* __restrict__ dh, int n, int vocab, int E) {
+  fused_ce_bwd_wide_tc_body<false, bf16>(h, w, labels, lse, glse, gtgt, dh, n,
+                                         vocab, E);
+}
+
+// dw in TO (w's dtype) from bf16 w
+template <typename TO>
+__global__ void __launch_bounds__(kTcThreads, 1)
+fused_ce_dw_wide_tc_kernel(const bf16* __restrict__ h,
+                           const bf16* __restrict__ w,
+                           const int* __restrict__ labels,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ glse,
+                           const float* __restrict__ gtgt,
+                           TO* __restrict__ dw, int n, int vocab, int E) {
+  fused_ce_bwd_wide_tc_body<true, TO>(w, h, labels, lse, glse, gtgt, dw, n,
+                                      vocab, E);
+}
+
+// one CTA per (64 rows of the resident operand, 512 columns of E)
+template <typename... P, typename... A>
+int launch_wide_tc(void (*kernel)(P...), int rows, int E, size_t smem,
+                   cudaStream_t stream, A... args) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((rows + kWRows - 1) / kWRows,
+                  (E + kWideSlice - 1) / kWideSlice);
+  kernel<<<grid, kTcThreads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+int launch_dh_wide_tc(const void* h, const void* w, const void* labels,
+                      const void* lse, const void* glse, const void* gtgt,
+                      void* dh, int n, int vocab, int E,
+                      cudaStream_t stream) {
+  return launch_wide_tc(
+      fused_ce_dh_wide_tc_kernel, n, E, bwd_wide_tc_smem(false), stream,
+      static_cast<const bf16*>(h), static_cast<const bf16*>(w),
+      static_cast<const int*>(labels), static_cast<const float*>(lse),
+      static_cast<const float*>(glse), static_cast<const float*>(gtgt),
+      static_cast<bf16*>(dh), n, vocab, E);
+}
+
+template <typename TO>
+int launch_dw_wide_tc(const void* h, const void* w, const void* labels,
+                      const void* lse, const void* glse, const void* gtgt,
+                      void* dw, int n, int vocab, int E,
+                      cudaStream_t stream) {
+  return launch_wide_tc(
+      fused_ce_dw_wide_tc_kernel<TO>, vocab, E, bwd_wide_tc_smem(true),
+      stream, static_cast<const bf16*>(h), static_cast<const bf16*>(w),
+      static_cast<const int*>(labels), static_cast<const float*>(lse),
+      static_cast<const float*>(glse), static_cast<const float*>(gtgt),
+      static_cast<TO*>(dw), n, vocab, E);
+}
+
 }  // namespace
 
 // h (n, E) and w (V, E), contiguous, each fp32 (flag 0) or bf16 (flag 1);
-// labels (n,) int32 in [-1, V); lse/tgt/glse/gtgt (n,) fp32. E must be a
-// multiple of 64, at most 768 (the wrapper checks). Each launches on
-// `stream` and returns cudaGetLastError() (or the error of raising the
+// labels (n,) int32 in [-1, V); lse/tgt/glse/gtgt (n,) fp32. Each launches
+// on `stream` and returns cudaGetLastError() (or the error of raising the
 // kernel's shared-memory limit).
 //
-// Each picks its lane from h's dtype alone (ops/fused_ce.py
-// fused_ce_lane): bf16 h takes the tensor-core kernel, which refuses
-// (cudaErrorInvalidValue, nothing launched) what it does not take: E
-// outside whole 64-column chunks up to kMaxE, and for fwd and dh an fp32
-// w (the wrapper casts it; dw reads w in its own dtype). fp32 h takes the
-// CUDA-core kernel.
+// Each picks its lane as ops/fused_ce.py fused_ce_lane does: bf16 h takes
+// the tensor-core kernels, fp32 h the CUDA-core ones; E up to kMaxE the
+// lanes above, E past it the wide lanes. Each refuses
+// (cudaErrorInvalidValue, nothing launched) what no kernel of it takes: E
+// not a whole number of 64-column chunks, on either lane; with bf16 h an
+// fp32 w, except for the narrow dw (the wrapper casts it once); and for dw
+// a dtype (dw_bf16) other than w's, except on the wide tensor-core lane,
+// which reads the cast w and writes dw in the dtype of the w it was cast
+// from.
 extern "C" int hetu_fused_ce_fwd(const void* h, const void* w,
                                  const void* labels, void* lse, void* tgt,
                                  int n, int vocab, int E, int h_bf16,
                                  int w_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (E % 64 || E < 64) return (int)cudaErrorInvalidValue;
   if (h_bf16) {
-    if (!w_bf16 || E % 64 || E < 64 || E > kMaxE)
-      return (int)cudaErrorInvalidValue;
-    return launch_fwd_tc(h, w, labels, lse, tgt, n, vocab, E, s);
+    if (!w_bf16) return (int)cudaErrorInvalidValue;
+    if (E > kMaxE)
+      return launch_fwd_tc<true>(h, w, labels, lse, tgt, n, vocab, E, s);
+    return launch_fwd_tc<false>(h, w, labels, lse, tgt, n, vocab, E, s);
+  }
+  if (E > kMaxE) {
+    if (w_bf16)
+      return launch_fwd_wide<float, bf16>(h, w, labels, lse, tgt, n, vocab,
+                                          E, s);
+    return launch_fwd_wide<float, float>(h, w, labels, lse, tgt, n, vocab, E,
+                                         s);
   }
   if (w_bf16)
     return launch_fwd<float, bf16>(h, w, labels, lse, tgt, n, vocab, E, s);
@@ -1198,10 +1890,20 @@ extern "C" int hetu_fused_ce_dh(const void* h, const void* w,
                                 int n, int vocab, int E, int h_bf16,
                                 int w_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (E % 64 || E < 64) return (int)cudaErrorInvalidValue;
   if (h_bf16) {
-    if (!w_bf16 || E % 64 || E < 64 || E > kMaxE)
-      return (int)cudaErrorInvalidValue;
+    if (!w_bf16) return (int)cudaErrorInvalidValue;
+    if (E > kMaxE)
+      return launch_dh_wide_tc(h, w, labels, lse, glse, gtgt, dh, n, vocab, E,
+                               s);
     return launch_dh_tc(h, w, labels, lse, glse, gtgt, dh, n, vocab, E, s);
+  }
+  if (E > kMaxE) {
+    if (w_bf16)
+      return launch_bwd_wide<float, bf16, false>(h, w, labels, lse, glse,
+                                                 gtgt, dh, n, vocab, E, s);
+    return launch_bwd_wide<float, float, false>(h, w, labels, lse, glse, gtgt,
+                                                dh, n, vocab, E, s);
   }
   if (w_bf16)
     return launch_bwd<float, bf16, false>(h, w, labels, lse, glse, gtgt, dh,
@@ -1210,20 +1912,36 @@ extern "C" int hetu_fused_ce_dh(const void* h, const void* w,
                                          vocab, E, s);
 }
 
-// dw (V, E) in w's dtype.
+// dw (V, E) in dw_bf16's dtype, the dtype of the caller's w.
 extern "C" int hetu_fused_ce_dw(const void* h, const void* w,
                                 const void* labels, const void* lse,
                                 const void* glse, const void* gtgt, void* dw,
                                 int n, int vocab, int E, int h_bf16,
-                                int w_bf16, void* stream) {
+                                int w_bf16, int dw_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (E % 64 || E < 64) return (int)cudaErrorInvalidValue;
+  if (h_bf16 && E > kMaxE) {
+    if (!w_bf16) return (int)cudaErrorInvalidValue;
+    if (dw_bf16)
+      return launch_dw_wide_tc<bf16>(h, w, labels, lse, glse, gtgt, dw, n,
+                                     vocab, E, s);
+    return launch_dw_wide_tc<float>(h, w, labels, lse, glse, gtgt, dw, n,
+                                    vocab, E, s);
+  }
+  if (dw_bf16 != w_bf16) return (int)cudaErrorInvalidValue;
   if (h_bf16) {
-    if (E % 64 || E < 64 || E > kMaxE) return (int)cudaErrorInvalidValue;
     if (w_bf16)
       return launch_dw_tc<bf16>(h, w, labels, lse, glse, gtgt, dw, n, vocab,
                                 E, s);
     return launch_dw_tc<float>(h, w, labels, lse, glse, gtgt, dw, n, vocab, E,
                                s);
+  }
+  if (E > kMaxE) {
+    if (w_bf16)
+      return launch_bwd_wide<float, bf16, true>(h, w, labels, lse, glse, gtgt,
+                                                dw, n, vocab, E, s);
+    return launch_bwd_wide<float, float, true>(h, w, labels, lse, glse, gtgt,
+                                               dw, n, vocab, E, s);
   }
   if (w_bf16)
     return launch_bwd<float, bf16, true>(h, w, labels, lse, glse, gtgt, dw, n,

@@ -8,8 +8,11 @@ staged through the device prefetcher; it keeps the step counter on the
 host and reads ``loss``/``grad_norm`` from the device only at log
 boundaries, so the host never waits on the card between them.
 
-Not ported: checkpointing, telemetry and goodput, the step cache,
-sequence buckets, the watchdog and SLO engine, hot switching
+Checkpoints (``save``, ``resume``, the ``ckpt_every`` cadence and the
+final save of ``train``; ``utils/checkpoint.py``) are in ``hetu_tpu``'s
+format, so a run of either package resumes from the other's. Not
+ported: distributed and delta checkpoints, telemetry and goodput, the
+step cache, sequence buckets, the watchdog and SLO engine, hot switching
 (``set_strategy``), ``train_dynamic`` — ``TrainerConfig`` has no field
 for any of them.
 """
@@ -31,6 +34,9 @@ from hetu_tpu_torch.engine.train_step import (
     build_eval_step, build_train_step, init_state, make_plan,
 )
 from hetu_tpu_torch.parallel.strategy import Strategy
+from hetu_tpu_torch.utils.checkpoint import (
+    CheckpointWriter, load_checkpoint, save_checkpoint,
+)
 
 log = logging.getLogger("hetu_tpu_torch.trainer")
 
@@ -48,6 +54,10 @@ class TrainerConfig:
     ``prefetch``: device-prefetch depth for ``train`` (0: none).
     ``eval_every``: validation cadence of ``train`` (0: off).
     ``peak_flops``: the card's peak; the log records then carry ``mfu``.
+    ``ckpt_dir``: where ``save`` writes by default; with it set, ``train``
+    saves every ``ckpt_every`` steps (0: only at its end) and once more
+    when it ends. ``async_ckpt``: the file write of a save runs on a
+    thread (the host snapshot is taken before ``save`` returns).
     """
 
     total_steps: int = 1000
@@ -57,6 +67,9 @@ class TrainerConfig:
     prefetch: int = 2
     eval_every: int = 0
     peak_flops: Optional[float] = None
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 0
+    async_ckpt: bool = True
 
     def __post_init__(self):
         if self.precision not in ("bf16", "fp32"):
@@ -93,6 +106,11 @@ class Trainer:
         self.state: Optional[TrainState] = None
         self._step_fn = build_train_step(model, opt, self.plan)
         self._eval_fn = build_eval_step(model, self.plan)
+        self._ckpt_writer: Optional[CheckpointWriter] = None
+        self._saved_step: Optional[int] = None
+        #: the last save: ``path``, ``step``, ``blocked_s`` (the time it
+        #: held the caller: the previous write's drain and the snapshot)
+        self.last_save: Optional[dict] = None
 
     def initialize(self) -> TrainState:
         """Step 0: the weights (drawn again from ``config.seed`` if it is
@@ -101,6 +119,47 @@ class Trainer:
             self.model.reset_parameters(self.config.seed)
         self.state = init_state(self.model, self.opt, self.plan)
         return self.state
+
+    def resume(self, path: str) -> TrainState:
+        """The state saved at ``path`` (by this package or by
+        ``hetu_tpu``): the weights into the model, in the plan policy's
+        param dtype and on its device, and a fresh optimizer holding the
+        saved moments and counts. ``train`` then goes on from its step;
+        the caller passes the batches that remain (``:442``)."""
+        self.model.to(self.plan.policy.param_dtype)
+        self.state = load_checkpoint(path, self.model, self.opt)
+        log.info(f"resumed from {path} at step {self.state.step}")
+        return self.state
+
+    def save(self, path: Optional[str] = None, *, wait: bool = False):
+        """Save the state to ``path`` (default ``config.ckpt_dir``;
+        raises if neither is set). One save is in flight at a time: a
+        save first waits for the previous write. The snapshot is taken
+        before this returns; with ``config.async_ckpt`` and not ``wait``
+        the write goes on after it, on a thread (``:462-501``). Returns
+        the path."""
+        path = path or self.config.ckpt_dir
+        if path is None:
+            raise ValueError("no checkpoint path configured")
+        if self.state is None:
+            raise ValueError("no train state to save: initialize, resume "
+                             "or train first")
+        t0 = time.perf_counter()
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.wait()
+        self._ckpt_writer = save_checkpoint(
+            path, self.state, async_save=self.config.async_ckpt and not wait)
+        self._saved_step = self.state.step
+        self.last_save = {"path": path, "step": self.state.step,
+                          "blocked_s": time.perf_counter() - t0,
+                          "writer": self._ckpt_writer}
+        return path
+
+    def close(self) -> None:
+        """Wait for the write in flight, if any (idempotent)."""
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.wait()
+            self._ckpt_writer = None
 
     def train_step(self, batch: dict) -> dict:
         """One step on one batch (numpy arrays or tensors); the metrics
@@ -131,7 +190,11 @@ class Trainer:
         ``mfu`` with ``config.peak_flops``. ``eval_batches`` is a
         callable returning an iterable of held-out batches: every
         ``eval_every`` steps the mean validation loss (dropout off) is
-        logged as ``eval_loss``."""
+        logged as ``eval_loss``. With ``config.ckpt_dir`` set, every
+        ``ckpt_every`` steps a save, and at the end one whose write is
+        waited for (``:690-700``); where the cadence has just saved the
+        last step, its write is waited for instead of a second save of
+        the same state."""
         if self.state is None:
             self.initialize()
         steps = steps if steps is not None else self.config.total_steps
@@ -177,6 +240,14 @@ class Trainer:
                     history.append(self._log({
                         "kind": "metrics", "step": host_step,
                         "eval_loss": self.evaluate(eval_batches())}))
+                if self.config.ckpt_every and self.config.ckpt_dir \
+                        and host_step % self.config.ckpt_every == 0:
+                    self.save()
+            if self.config.ckpt_dir:
+                if self._saved_step == self.state.step:
+                    self.close()
+                else:
+                    self.save(wait=True)
         finally:
             if isinstance(it, DevicePrefetcher):
                 it.close()

@@ -1,4 +1,6 @@
-from hetu_tpu_torch.models.convert import grads_from_jax, params_from_jax
+from hetu_tpu_torch.models.convert import (
+    grads_from_jax, jax_param_layout, params_from_jax,
+)
 from hetu_tpu_torch.models.generation import (
     PromptTooLongError, decode, generate, init_kv_caches,
 )
@@ -10,4 +12,4 @@ from hetu_tpu_torch.models.llama import (
 __all__ = ["GPTBlock", "GPTConfig", "GPTLMHeadModel", "LlamaBlock",
            "LlamaConfig", "LlamaLMHeadModel", "PromptTooLongError",
            "decode", "generate", "grads_from_jax", "init_kv_caches",
-           "params_from_jax"]
+           "jax_param_layout", "params_from_jax"]

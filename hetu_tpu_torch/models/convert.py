@@ -1,4 +1,6 @@
-"""Carry ``hetu_tpu`` parameters (and grads) into the port.
+"""Carry ``hetu_tpu`` parameters (and grads) into the port, and name the
+port's parameters as ``hetu_tpu`` lays them out (:func:`jax_param_layout`,
+the inverse, which checkpoints use).
 
 ``hetu_tpu`` keeps (a) every block parameter stacked on a leading layer
 axis (``StackedBlocks``, ``hetu_tpu/nn/parallel.py:851``) and (b) Linear
@@ -18,7 +20,8 @@ every bfloat16 value exactly.
 
 from __future__ import annotations
 
-from typing import Mapping
+import re
+from typing import Iterable, Mapping
 
 import numpy as np
 import torch
@@ -81,3 +84,29 @@ def params_from_jax(tree, cfg) -> dict:
 #: same change carries it into the port's names, to compare key by key
 #: with ``{name: p.grad}`` of the port's model
 grads_from_jax = params_from_jax
+
+
+def jax_param_layout(names: Iterable[str]) -> dict:
+    """The inverse of :func:`params_from_jax`'s change: ``{hetu_tpu
+    flattened key: [(port param name, transposed), ...]}`` for the port's
+    param ``names``, in the order ``hetu_tpu`` flattens its tree (sorted
+    by path). A ``blocks.`` key lists the layers' params in layer order
+    (``hetu_tpu`` stacks them on a leading axis); any other key lists
+    one. ``transposed`` marks a Linear weight, ``(out, in)`` in the port
+    and ``(in, out)`` in ``hetu_tpu``."""
+    out: dict = {}
+    layers: dict = {}
+    for name in names:
+        m = re.fullmatch(r"blocks\.(\d+)\.(.+)", name)
+        if m is None:
+            out[name] = [(name, name in _TOP_LINEAR_WEIGHTS)]
+            continue
+        layers.setdefault(m.group(2), {})[int(m.group(1))] = name
+    for rest, by_layer in layers.items():
+        if sorted(by_layer) != list(range(len(by_layer))):
+            raise ValueError(f"blocks.*.{rest}: layers {sorted(by_layer)} "
+                             f"are not 0..L-1")
+        linear = rest.replace(".base.", ".").endswith(_LINEAR_WEIGHTS)
+        out[f"blocks.{rest}"] = [(by_layer[i], linear)
+                                 for i in range(len(by_layer))]
+    return dict(sorted(out.items(), key=lambda kv: kv[0].split(".")))

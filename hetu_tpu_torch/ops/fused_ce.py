@@ -17,17 +17,24 @@ is cast to h's dtype tile by tile; the logits, the softmax and the
 dlogits tile are fp32, and the dlogits tile is rounded to h's dtype
 before both backward products; dh comes back in h's dtype, dw in w's,
 both summed in fp32. Token rows are not padded (the kernels mask the
-ragged edge), so N is free; E must be a multiple of 64, at most 768.
+ragged edge), so N is free; E must be a multiple of 64, of any size.
 
 Lanes (:func:`fused_ce_lane`): with bf16 h all three kernels run the
 tensor-core lane (``fused_ce_fwd_tc_kernel``; ``fused_ce_dh_tc_kernel``
 and ``fused_ce_dw_tc_kernel``, each on a two-CTA cluster); with fp32 h
-they run the CUDA-core lane. The forward and dH tensor-core kernels read
+they run the CUDA-core lane. Past ``MAX_E`` = 768 (Llama's 4,096, say)
+each takes its wide form (``"tensor_core_wide"``, ``"cuda_core_wide"``):
+the forward's tensor-core kernel streams E as it is, and every other
+kernel streams E in 64-column chunks, dH and dW splitting E into
+512-column blocks on a grid axis, each block recomputing the logits over
+all of E (still one launch a call). The forward and dH tensor-core kernels read
 bf16 w, so an fp32 w is cast to bf16 once before their launch (the
 values the TPU kernels' per-tile cast gives); dW, whose resident operand
 is w, reads w in its own dtype, rounds an fp32 w to bf16 as it stages
-it, and returns dw in w's dtype. Both lanes count their launches under
-the same names.
+it, and returns dw in w's dtype; on the wide lane, which re-reads w for
+every 512-column block, dW too gets w cast once, and still returns dw in
+the caller's w dtype. Every lane counts its launches under the same
+names.
 
 The forward and backward are ``torch.library`` custom ops
 (``hetu_tpu_torch::fused_ce_fwd`` / ``fused_ce_bwd``) with a registered
@@ -46,12 +53,17 @@ import torch
 from hetu_tpu_torch.ops import _build
 
 FWD, DH, DW = "fused_ce_fwd", "fused_ce_dh", "fused_ce_dw"
+#: the widest E of the narrow lanes (``kMaxE`` in ``csrc/fused_ce.cu``);
+#: wider E takes the wide lanes
 MAX_E = 768
 #: vocab columns per step of the plain versions
 PLAIN_BLOCK_V = 4096
 _FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
     + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
+    + [ctypes.c_void_p]
+#: dW's entry also takes dw's dtype (its wide tensor-core lane reads w cast)
+_DW_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
     + [ctypes.c_void_p]
 
 
@@ -124,24 +136,31 @@ def fused_ce_lane(h_dtype: torch.dtype, w_dtype: torch.dtype, e: int,
     ``hetu_fused_ce_dh`` and ``hetu_fused_ce_dw`` branch on the same
     rule): ``"tensor_core"`` for bf16 h, whatever w's dtype (the forward
     and dH get an fp32 w cast to bf16 first, dW rounds it as it stages
-    it), and ``"cuda_core"`` for fp32 h. Raises for what neither lane
-    takes: a dtype other than fp32 or bf16, or E not a multiple of 64 in
-    [64, ``MAX_E``]."""
+    it), and ``"cuda_core"`` for fp32 h; each with ``"_wide"`` appended
+    for E past ``MAX_E`` (the E-split kernels; on ``"tensor_core_wide"``
+    dW gets w cast too). Raises for what no lane
+    takes: a dtype other than fp32 or bf16, or E not a positive multiple
+    of 64."""
     for name, dtype in (("h", h_dtype), ("w", w_dtype)):
         if dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"{what}: {name} must be fp32 or bf16, got "
                             f"{dtype}")
-    if e < 64 or e % 64 or e > MAX_E:
+    if e < 64 or e % 64:
         raise ValueError(f"{what}: E = {e}; the kernels take multiples of "
-                         f"64 up to {MAX_E}")
-    return "tensor_core" if h_dtype == torch.bfloat16 else "cuda_core"
+                         f"64")
+    lane = "tensor_core" if h_dtype == torch.bfloat16 else "cuda_core"
+    return lane + "_wide" if e > MAX_E else lane
 
 
-def _launch_w(h, w):
-    """w as the forward and dH kernels take it: cast to bf16 once for the
-    tensor-core lane, which reads bf16 w only; as it is otherwise."""
-    if w.dtype == torch.float32 and fused_ce_lane(
-            h.dtype, w.dtype, h.shape[1]) == "tensor_core":
+def _launch_w(h, w, which: str = "fwd"):
+    """w as kernel ``which`` (``fwd``, ``dh``, ``dw``) takes it: cast to
+    bf16 once where its tensor-core kernel reads bf16 w only (the forward
+    and dH on both tensor-core lanes, dW on the wide one, which re-reads
+    w for every block of E); as it is otherwise."""
+    lane = fused_ce_lane(h.dtype, w.dtype, h.shape[1])
+    if w.dtype == torch.float32 and (
+            lane == "tensor_core_wide"
+            or (lane == "tensor_core" and which != "dw")):
         return w.to(torch.bfloat16)
     return w
 
@@ -201,13 +220,15 @@ def _bwd(which, h, w, labels, lse, glse, gtgt):
     out = torch.empty_like(h if which == "dh" else w)
     if n == 0:
         return out.zero_()
-    if which == "dh":
-        w = _launch_w(h, w)
+    w = _launch_w(h, w, which)
+    # dW writes dw in the caller's w dtype, whatever w it reads
+    flags = (*_flags(h, w), int(out.dtype == torch.bfloat16)) \
+        if which == "dw" else _flags(h, w)
     lib, fn = _build.kernel("fused_ce", f"hetu_fused_ce_{which}",
-                            _BWD_ARGTYPES)
+                            _DW_ARGTYPES if which == "dw" else _BWD_ARGTYPES)
     err = fn(_build.ptr(h), _build.ptr(w), _build.ptr(labels),
              _build.ptr(lse), _build.ptr(glse), _build.ptr(gtgt),
-             _build.ptr(out), n, vocab, e, *_flags(h, w),
+             _build.ptr(out), n, vocab, e, *flags,
              _build.stream_ptr(h.device))
     _build.check(lib, err, f"fused_ce_{which} launch")
     _build.count_launch(DH if which == "dh" else DW)

@@ -152,10 +152,16 @@ class SGD(torch.optim.Optimizer):
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerSpec:
+    """``decay_slot``: JAX's ``adamw`` chains ``add_decayed_weights``
+    between the moments and the rate, an empty slot of its state tree,
+    even at ``weight_decay`` 0 (``adam`` does not): its checkpoint names
+    follow that tree (:meth:`jax_state_layout`)."""
+
     cls: type
     lr: ScalarOrSchedule
     hyper: dict
     weight_decay: float = 0.0
+    decay_slot: bool = False
 
     def schedule(self) -> Callable[[int], float]:
         return self.lr if callable(self.lr) else constant(self.lr)
@@ -164,18 +170,35 @@ class OptimizerSpec:
         """The optimizer over ``model``'s trainable params (a frozen one,
         ``requires_grad`` False, holds no state): one group when nothing
         is decayed, else a decayed and a non-decayed group split by
-        :func:`jax_decay_mask`."""
+        :func:`jax_decay_mask`. Its ``state_layout`` is the spec's
+        :meth:`jax_state_layout` (what a checkpoint names its state by)."""
         lr0 = self.schedule()(0)
         named = [(n, p) for n, p in model.named_parameters()
                  if p.requires_grad]
         if not self.weight_decay:
-            return self.cls([p for _, p in named], lr=lr0, **self.hyper)
-        decay, keep = [], []
-        for name, p in named:
-            (decay if jax_decay_mask(name, p) else keep).append(p)
-        groups = [{"params": decay, "weight_decay": self.weight_decay},
-                  {"params": keep, "weight_decay": 0.0}]
-        return self.cls(groups, lr=lr0, **self.hyper)
+            opt = self.cls([p for _, p in named], lr=lr0, **self.hyper)
+        else:
+            decay, keep = [], []
+            for name, p in named:
+                (decay if jax_decay_mask(name, p) else keep).append(p)
+            opt = self.cls([{"params": decay,
+                             "weight_decay": self.weight_decay},
+                            {"params": keep, "weight_decay": 0.0}],
+                           lr=lr0, **self.hyper)
+        opt.state_layout = self.jax_state_layout()
+        return opt
+
+    def jax_state_layout(self) -> dict:
+        """Where the state of this optimizer sits in ``hetu_tpu``'s
+        optimizer-state tree, by flattened path (its checkpoint names are
+        ``opt.<path>``): Adam's ``(count, mu, nu)`` under ``"adam"`` and
+        the rate schedule's update count under ``"count"``; SGD's
+        momentum trace under ``"trace"``."""
+        if self.cls is Adam:
+            return {"adam": "0", "count": "2" if self.decay_slot else "1"}
+        if self.hyper.get("momentum"):
+            return {"trace": "0", "count": "1"}
+        return {"count": "0"}
 
     def step(self, optimizer: torch.optim.Optimizer, count: int,
              grads: Mapping) -> None:
@@ -198,7 +221,16 @@ class Chain:
     optimizer: OptimizerSpec
 
     def build(self, model: nn.Module) -> torch.optim.Optimizer:
-        return self.optimizer.build(model)
+        opt = self.optimizer.build(model)
+        opt.state_layout = self.jax_state_layout()
+        return opt
+
+    def jax_state_layout(self) -> dict:
+        """The optimizer's layout under ``chain``'s tuple: each gradient
+        transform before it holds an empty slot."""
+        n = len(self.transforms)
+        return {k: f"{n}.{v}"
+                for k, v in self.optimizer.jax_state_layout().items()}
 
     def step(self, optimizer: torch.optim.Optimizer, count: int,
              grads: Mapping) -> None:
@@ -237,6 +269,10 @@ class Masked:
                 p.requires_grad_(False)
         return self.inner.build(model)
 
+    def jax_state_layout(self) -> dict:
+        """``masked`` keeps its inner optimizer's state tree."""
+        return self.inner.jax_state_layout()
+
     def step(self, optimizer: torch.optim.Optimizer, count: int,
              grads: Mapping) -> None:
         self.inner.step(optimizer, count, grads)
@@ -270,7 +306,7 @@ def chain(*parts) -> Chain:
 def adamw(lr: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.999,
           eps: float = 1e-8, weight_decay: float = 0.01) -> OptimizerSpec:
     return OptimizerSpec(Adam, lr, {"betas": (b1, b2), "eps": eps},
-                         weight_decay=weight_decay)
+                         weight_decay=weight_decay, decay_slot=True)
 
 
 def adam(lr: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.999,

@@ -61,47 +61,77 @@ def _entry(text, name):
     return body[:body.index("\n}\n")]
 
 
+#: each entry's tensor-core launch past kMaxE, beside the one up to it
+WIDE_TC_LAUNCH = {"launch_fwd_tc": "launch_fwd_tc<true>",
+                  "launch_dh_tc": "launch_dh_wide_tc"}
+WIDTHS = range(64, 6144 + 1, 64)
+
+
 @pytest.mark.parametrize("entry,tc_launch", [
     ("hetu_fused_ce_fwd", "launch_fwd_tc"),
     ("hetu_fused_ce_dh", "launch_dh_tc"),
 ])
 def test_fused_entry_points_branch_on_the_lane_rule(entry, tc_launch):
-    """bf16 h launches the tensor-core kernel, after refusing (nothing
-    launched) an fp32 w or an E outside whole 64-column chunks up to
-    ``kMaxE``; every other call launches a CUDA-core kernel of fp32 h."""
+    """Every call first refuses (nothing launched) an E that is not a
+    whole number of 64-column chunks, on either lane. bf16 h then
+    refuses an fp32 w and launches the tensor-core kernel, the wide one
+    past ``kMaxE``; fp32 h launches a CUDA-core kernel, the wide one past
+    ``kMaxE``, in w's dtype."""
     text = (CSRC / "fused_ce.cu").read_text()
     assert int(re.search(r"constexpr int kMaxE = (\d+);", text).group(1)) \
         == MAX_E
     body = _entry(text, entry)
-    m = re.search(r"if \(h_bf16\) \{\s*"
-                  r"if \(!w_bf16 \|\| E % 64 \|\| E < 64 \|\| E > kMaxE\)\s*"
-                  r"return \(int\)cudaErrorInvalidValue;\s*"
-                  r"return (\w+)\(", body)
-    assert m and m.group(1) == tc_launch
+    wide = WIDE_TC_LAUNCH[tc_launch]
+    narrow = "launch_fwd_tc<false>" if tc_launch == "launch_fwd_tc" \
+        else tc_launch
+    m = re.search(r"if \(E % 64 \|\| E < 64\) return \(int\)"
+                  r"cudaErrorInvalidValue;\s*"
+                  r"if \(h_bf16\) \{\s*"
+                  r"if \(!w_bf16\) return \(int\)cudaErrorInvalidValue;\s*"
+                  r"if \(E > kMaxE\)\s*return ([\w<>]+)\([^;]*;\s*"
+                  r"return ([\w<>]+)\([^;]*;\s*\}", body)
+    assert m and (m.group(1), m.group(2)) == (wide, narrow)
     rest = body[m.end():]
     assert "_tc" not in rest
-    assert sorted(re.findall(r"launch_\w+<(\w+), (\w+)", rest)) \
-        == [("float", "bf16"), ("float", "float")]
+    m = re.search(r"if \(E > kMaxE\) \{(.*?)\}", rest, re.S)
+    assert m
+    kind = "fwd" if entry.endswith("fwd") else "bwd"
+    assert sorted(re.findall(r"launch_(\w+)<(\w+), (\w+)", m.group(1))) \
+        == [(f"{kind}_wide", "float", t) for t in ("bf16", "float")]
+    assert sorted(re.findall(r"launch_(\w+)<(\w+), (\w+)",
+                             rest[m.end():])) \
+        == [(kind, "float", t) for t in ("bf16", "float")]
     # the rule as the wrapper reads it
-    for e in range(64, MAX_E + 1, 64):
+    for e in WIDTHS:
+        suffix = "_wide" if e > MAX_E else ""
         for w_dtype in (torch.float32, torch.bfloat16):
-            assert fused_ce_lane(torch.bfloat16, w_dtype, e) == "tensor_core"
-            assert fused_ce_lane(torch.float32, w_dtype, e) == "cuda_core"
+            assert fused_ce_lane(torch.bfloat16, w_dtype, e) \
+                == "tensor_core" + suffix
+            assert fused_ce_lane(torch.float32, w_dtype, e) \
+                == "cuda_core" + suffix
 
 
 def test_dw_keeps_one_kernel_and_dh_runs_on_a_two_cta_cluster():
-    """dW (#7) branches on the lane rule: bf16 h launches
-    ``launch_dw_tc`` in w's own dtype, after refusing (nothing launched)
-    an E outside whole 64-column chunks up to ``kMaxE``; fp32 h launches
-    only the CUDA-core ``launch_bwd<float, float/bf16, true>``, and no
-    CUDA-core instance of bf16 h is left. Both backward tensor-core
-    lanes, dH and dW, are launched with a cluster dimension of
-    ``kBwdCluster`` = 2 CTAs."""
+    """dW (#7) branches on the lane rule after refusing a partial chunk:
+    bf16 h past ``kMaxE`` takes ``launch_dw_wide_tc`` (bf16 w only, the
+    wrapper's cast; dw in the dtype ``dw_bf16`` names); every other call
+    refuses a dw dtype other than w's, then bf16 h takes ``launch_dw_tc``
+    in w's own dtype and fp32 h the CUDA-core kernels, the wide ones past
+    ``kMaxE``; no CUDA-core instance of bf16 h is left. The narrow
+    tensor-core dH and dW are launched with a cluster dimension of
+    ``kBwdCluster`` = 2 CTAs; the wide ones on a grid of 64 rows by 512
+    columns of E (``kWideSlice``), without clusters."""
     text = (CSRC / "fused_ce.cu").read_text()
     body = _entry(text, "hetu_fused_ce_dw")
-    m = re.search(r"if \(h_bf16\) \{\s*"
-                  r"if \(E % 64 \|\| E < 64 \|\| E > kMaxE\) "
-                  r"return \(int\)cudaErrorInvalidValue;\s*"
+    m = re.search(r"if \(E % 64 \|\| E < 64\) return \(int\)"
+                  r"cudaErrorInvalidValue;\s*"
+                  r"if \(h_bf16 && E > kMaxE\) \{\s*"
+                  r"if \(!w_bf16\) return \(int\)cudaErrorInvalidValue;\s*"
+                  r"if \(dw_bf16\)\s*return launch_dw_wide_tc<bf16>\([^;]*;\s*"
+                  r"return launch_dw_wide_tc<float>\([^;]*;\s*\}\s*"
+                  r"if \(dw_bf16 != w_bf16\) return \(int\)"
+                  r"cudaErrorInvalidValue;\s*"
+                  r"if \(h_bf16\) \{\s*"
                   r"if \(w_bf16\)\s*return launch_dw_tc<bf16>\([^;]*;\s*"
                   r"return launch_dw_tc<float>\([^;]*;\s*\}", body)
     assert m
@@ -109,8 +139,10 @@ def test_dw_keeps_one_kernel_and_dh_runs_on_a_two_cta_cluster():
     assert "_tc" not in rest
     assert sorted(re.findall(r"launch_(\w+)<(\w+), (\w+), (\w+)>", rest)) \
         == [("bwd", "float", "bf16", "true"), ("bwd", "float", "float",
-                                               "true")]
-    assert not re.search(r"launch_(bwd|fwd)<bf16", text)
+                                               "true"),
+            ("bwd_wide", "float", "bf16", "true"),
+            ("bwd_wide", "float", "float", "true")]
+    assert not re.search(r"launch_(bwd|fwd)(_wide)?<bf16", text)
     assert re.search(r"constexpr int kBwdCluster = 2;", text)
     launch = text[text.index("int launch_cluster("):]
     launch = launch[:launch.index("\n}\n")]
@@ -123,6 +155,16 @@ def test_dw_keeps_one_kernel_and_dh_runs_on_a_two_cta_cluster():
         fn = fn[:fn.index("\n}\n")]
         assert re.search(rf"return launch_cluster\(\s*{kernel}<kBwdCluster",
                          fn), name
+    assert re.search(r"constexpr int kWideSlice = 512;", text)
+    wide = text[text.index("int launch_wide_tc("):]
+    wide = wide[:wide.index("\n}\n")]
+    assert "Cluster" not in wide
+    assert re.search(r"\(E \+ kWideSlice - 1\) / kWideSlice", wide)
+    for name, kernel in (("launch_dh_wide_tc", "fused_ce_dh_wide_tc_kernel"),
+                         ("launch_dw_wide_tc", "fused_ce_dw_wide_tc_kernel")):
+        fn = text[text.index(f"int {name}("):]
+        fn = fn[:fn.index("\n}\n")]
+        assert re.search(rf"return launch_wide_tc\(\s*{kernel}", fn), name
 
 
 # -- (b) the dH lane's summation order ---------------------------------------
@@ -252,7 +294,7 @@ def test_dw_cluster_order_with_a_peaky_softmax_within_bf16_tolerance(e):
 
 # -- (c) refusals, the w cast and dW's dtype ----------------------------------
 
-@pytest.mark.parametrize("e", [0, 32, 96, MAX_E + 64])
+@pytest.mark.parametrize("e", [0, 32, 96, 4096 + 32])
 def test_lane_rule_refuses_widths_neither_lane_takes(e):
     for h_dtype in (torch.float32, torch.bfloat16):
         with pytest.raises(ValueError, match="multiples of 64"):

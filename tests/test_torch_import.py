@@ -1,6 +1,8 @@
 """The port stands alone: ``hetu_tpu_torch``, ``chip_smoke.py`` and
-``port_probe.py`` import neither jax nor ``hetu_tpu``, and no entry point
-falls back to the CPU by itself."""
+``port_probe.py`` import neither jax nor ``hetu_tpu`` (nor
+``safetensors``: the checkpoints' format is written and read in
+``utils/checkpoint.py``), and no entry point falls back to the CPU by
+itself."""
 
 import ast
 import os
@@ -38,14 +40,17 @@ def test_import_leaves_jax_unloaded():
               "hetu_tpu_torch.nn.moe", "hetu_tpu_torch.engine.memory",
               "hetu_tpu_torch.serving.kv_pool",
               "hetu_tpu_torch.serving.speculative", "hetu_tpu_torch.peft",
-              "hetu_tpu_torch.peft.lora", "hetu_tpu_torch.serving.tenancy"):
+              "hetu_tpu_torch.peft.lora", "hetu_tpu_torch.serving.tenancy",
+              "hetu_tpu_torch.utils", "hetu_tpu_torch.utils.checkpoint"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith('jax.')\n"
-            "             or m == 'hetu_tpu' or m.startswith('hetu_tpu.'))\n"
+            "             or m == 'hetu_tpu' or m.startswith('hetu_tpu.')\n"
+            "             or m == 'safetensors'\n"
+            "             or m.startswith('safetensors.'))\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -67,7 +72,7 @@ def test_no_jax_or_hetu_tpu_imports(path):
         elif isinstance(node, ast.ImportFrom) and node.module:
             names.append(node.module)
     bad = [n for n in names
-           if n.split(".")[0] in ("jax", "jaxlib", "hetu_tpu")]
+           if n.split(".")[0] in ("jax", "jaxlib", "hetu_tpu", "safetensors")]
     assert not bad, f"{path} imports {bad}"
 
 
