@@ -9,8 +9,11 @@ speculative decoding), trains Llama at 7B width through ``Trainer`` and
 resumes that training, trains (BASELINE config 4) and serves GPT-MoE
 8-expert,
 serves GPT-2 drafting for itself and from a small draft model,
-fine-tunes Llama-7B at full depth with LoRA, and serves Llama-7B and
-GPT-2 with LoRA adapters of several tenants mixed in one batch.
+fine-tunes Llama-7B at full depth with LoRA, serves Llama-7B and
+GPT-2 with LoRA adapters of several tenants mixed in one batch, and
+serves GPT-2 and Llama-7B online: the engine's background loop behind
+``ServingServer``, driven over local sockets by ``CoordinatorClient``
+(with a weight swap on the live Llama server).
 
 Run from the repository root, on a machine with one CUDA card::
 
@@ -67,6 +70,23 @@ Phases, each printing one JSON line:
    matmul, then the eager ops by kind), and ``engine_decode_step_split``:
    a steady-decode step's host time by part, without the profiler,
    beside one replay's device time.
+4b. gpt2_server -- the ``engine`` phase's model at its settings behind
+   ``ServingServer(engine, 0)`` (a free local port), the loop started:
+   ``engine``'s 48 burst prompts in thirds over 6 client threads
+   (GENERATE, SUBMIT + RESULT, ``generate_stream``; each GENERATE and
+   stream thread one request at a time), one stream socket shut after its
+   first token event (the client resubscribes at its offset), then the 16
+   shared-prefix prompts streamed (the first alone). Launch counters
+   zeroed just before and read just after: 12 of #1 and #2 a lane
+   replay, as in ``engine``; one capture a lane with the loop thread
+   stepping; every request's tokens are the engine's own and equal
+   ``generate`` but at a near tie (the ``engine`` phase's oracle reused);
+   every stream's event offsets contiguous from 0 (``FrameTap``), its
+   tokens its RESULT's; the killed stream on a second channel, no poll
+   fallback; ``stop()`` joins the thread. Printed: client-side TTFT and
+   TPOT (p50, p99) beside the engine's ``Request.timing()`` for the same
+   requests, GENERATE's client total beside the engine's, and the wire
+   burst's tokens/s beside ``engine``'s in-process burst.
 5. train   -- GPT-2 small at ``bench.py main()``'s TPU configuration:
    seq 1024, fp32 params with bf16 compute, ``Strategy(remat=
    "selective", unroll=True)``, AdamW(1e-4, wd 0.01). First a step
@@ -239,6 +259,20 @@ Phases, each printing one JSON line:
    the bounds, ``llama_tenancy_profile`` (steady decode), the BGMV ops'
    device ms (``bgmv_ms``), and ``hbm_budget_bytes=40e9`` with tenancy:
    the ledger's slots after the arena's bytes.
+14b. llama_server -- the llama_engine's model behind ``ServingServer``
+   at ``llama_engine``'s settings, the engine built under ``BF16_FULL``
+   and the server started from the main thread (the loop steps under the
+   lanes' policy): the 48 burst prompts in the three client modes, every
+   request within the bf16 oracle (0.5 / 1.0), #1 exactly 32 a lane
+   replay, one capture a lane; latencies as in 4b. Then
+   ``llama_server_swap``: ``swap_params`` to a seed-1 init of the same
+   config (bf16) refused while a request is in flight (every weight's
+   checksum kept); drained, the swap (its ms and flushed prefix blocks,
+   at least 1) and 8 shared-prompt requests of 16 tokens within the bf16
+   oracle on the new weights, each unlike its pre-swap tokens; the swap
+   back (version 2) gives the tokens of those 8, served one at a time
+   before the first swap and after this one, bit for bit. One capture a
+   lane throughout.
 15. llama_lora -- ``llama_lora_train_oracle``: one fp32 step of a
    LoRA-injected Llama-7B-width model (1 layer, random nonzero B), base
    frozen, kernels on the card against the CPU: ``train_oracle``'s
@@ -1344,7 +1378,8 @@ def phase_engine(device, card):
     check(hits >= 15 * 128, f"shared-prompt batch hit only {hits} cached "
                             f"tokens")
 
-    generate_oracle("engine_oracle", model, reqs + reqs2, 64, device)
+    memo: dict = {}
+    generate_oracle("engine_oracle", model, reqs + reqs2, 64, device, memo)
     phase_profile(eng, burst[:16], sp)
     # 96 tokens each, so few requests end inside the window; prompts
     # that leave them room in max_len
@@ -1355,40 +1390,51 @@ def phase_engine(device, card):
                      "engine_decode_step_split")
     phase_step_graph_replay(eng, "GPTConfig.small fp32")
     check_captures("engine_after_profiles", eng, before)
-    return counts
+    # ``gpt2_server`` serves the same model and prompts next
+    return counts, dict(model=model, perf=perf, oracle=memo)
 
 
-def generate_oracle(phase, model, reqs, new, device):
+def generate_oracle(phase, model, reqs, new, device, memo=None):
     """Each request's greedy tokens against one-shot ``generate`` (dense
     cache, plain attention: no kernel): equal, or diverging only at a
     step where the oracle's top-2 logit gap is below 1e-4 (a near-tie,
-    printed)."""
+    printed). ``memo`` (a dict) keeps each prompt's oracle tokens and
+    top-2 gaps, so a later phase on the same model and prompts reads
+    them instead of generating again."""
     from hetu_tpu_torch.models import generate
     t0 = time.perf_counter()
     vocab = model.cfg.vocab_size
-    near_ties = []
+    near_ties, hits = [], 0
     for r in reqs:
         prompt = r.prompt.tolist()
-        ids, logits = generate(model, [prompt], max_new_tokens=new,
-                               device=device, return_logits=True)
-        check(bool(torch.isfinite(logits).all()),
-              f"request {r.id}: non-finite oracle logits")
-        want_toks = ids[0, len(prompt):].tolist()
+        if memo is not None and tuple(prompt) in memo:
+            want_toks, gaps = memo[tuple(prompt)]
+            hits += 1
+        else:
+            ids, logits = generate(model, [prompt], max_new_tokens=new,
+                                   device=device, return_logits=True)
+            check(bool(torch.isfinite(logits).all()),
+                  f"request {r.id}: non-finite oracle logits")
+            want_toks = ids[0, len(prompt):].tolist()
+            top2 = torch.topk(logits[0].float(), 2, dim=-1).values
+            gaps = (top2[:, 0] - top2[:, 1]).cpu()
+            if memo is not None:
+                memo[tuple(prompt)] = (want_toks, gaps)
         got = list(r.tokens)
         check(len(got) == new and all(0 <= t < vocab for t in got),
               f"request {r.id}: bad token list")
         if got == want_toks:
             continue
         t = next(i for i, (a, b) in enumerate(zip(got, want_toks)) if a != b)
-        top2 = torch.topk(logits[0, t].float(), 2).values
-        gap = float(top2[0] - top2[1])
+        gap = float(gaps[t])
         near_ties.append(dict(request=r.id, step=t, gap=gap))
         check(gap < 1e-4, f"{phase}: request {r.id} diverges from generate "
                           f"at step {t} where the oracle's top-2 gap is "
                           f"{gap}")
     emit(phase=phase, requests=len(reqs),
          identical=len(reqs) - len(near_ties),
-         near_ties=near_ties, seconds=time.perf_counter() - t0)
+         near_ties=near_ties, oracle_reused=hits,
+         seconds=time.perf_counter() - t0)
 
 
 def device_kernel_ms(prof, counts=None) -> tuple[dict, int]:
@@ -2932,7 +2978,7 @@ def phase_llama_engine(device, card, timer):
     tpot = [t["decode_ms"] / (len(r.tokens) - 1)
             for t, r in zip(timings, reqs) if len(r.tokens) > 1]
     hits = sum(r.cached_tokens for r in reqs2)
-    emit(phase="llama_engine", card=card,
+    perf = dict(phase="llama_engine", card=card,
          burst_requests=len(reqs),
          burst_prompt_tokens=sum(len(p) for p in burst),
          burst_generated_tokens=gen_tokens,
@@ -2951,6 +2997,7 @@ def phase_llama_engine(device, card, timer):
          shared_tokens_per_s=sum(len(r.tokens) for r in reqs2)
          / run["t_shared"],
          peak_memory_bytes=torch.cuda.max_memory_allocated())
+    emit(**perf)
     check(hits >= 15 * 512, f"shared-prompt batch hit only {hits} cached "
                             f"tokens")
 
@@ -3012,7 +3059,7 @@ def phase_llama_engine(device, card, timer):
     del w32, h, eng
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, model
+    return counts, model, perf
 
 
 # ---- serving under memory pressure (Llama-7B, int8 arena) ----------------
@@ -5937,6 +5984,480 @@ def phase_gpt2_spec_small_draft(device, card):
     return counts
 
 
+# ---- the online front end: the engine's loop behind the line-protocol
+# server, driven by the port's client from threads of this script ------------
+
+#: every client socket read and stream event waits at most this long
+WIRE_TIMEOUT_S = 120.0
+#: the client modes; each takes a third of a burst, over two threads
+WIRE_MODES = ("generate", "submit", "stream")
+WIRE_THREADS_PER_MODE = 2
+#: the swap round: the shared-prompt requests served on each weight set
+SWAP_REQUESTS, SWAP_NEW = 8, 16
+
+
+def record_requests(eng) -> dict:
+    """Keep every Request ``eng`` makes, by id: the server's poll map
+    drops a request once its RESULT is read, and the oracles read the
+    engine's own Request (prompt, tokens, recorded first-token logits).
+    The server calls ``engine.submit``, so this wraps it on the
+    instance."""
+    made = {}
+    real = eng.submit
+
+    def submit(*args, **kw):
+        req = real(*args, **kw)
+        made[req.id] = req
+        return req
+
+    eng.submit = submit
+    return made
+
+
+class FrameTap:
+    """Records the token events every stream client of this process
+    receives (the channel, request id, offset and tokens), by wrapping
+    ``StreamChannel._dispatch`` while the context is open."""
+
+    def __init__(self):
+        self.frames: list = []
+        self._serial = itertools.count()
+
+    def __enter__(self):
+        from hetu_tpu_torch.rpc import stream
+        self._real = real = stream.StreamChannel._dispatch
+        tap = self
+
+        def dispatch(ch, fr):
+            if fr.get("k") == "ev":
+                if not hasattr(ch, "_tap_serial"):
+                    ch._tap_serial = next(tap._serial)
+                tap.frames.append((ch._tap_serial, int(fr["req"]),
+                                   int(fr["off"]),
+                                   [int(t) for t in fr["toks"]]))
+            return real(ch, fr)
+
+        stream.StreamChannel._dispatch = dispatch
+        return self
+
+    def __exit__(self, *exc):
+        from hetu_tpu_torch.rpc import stream
+        stream.StreamChannel._dispatch = self._real
+
+    def check(self, phase, finals: dict) -> dict:
+        """Every streamed request's events run contiguously from offset 0
+        and their tokens make up its final tokens (``finals``: request id
+        -> tokens), across reconnects. Returns each request's number of
+        channels."""
+        by_req: dict = {}
+        for ch, rid, off, toks in self.frames:
+            by_req.setdefault(rid, []).append((ch, off, toks))
+        for rid, frs in by_req.items():
+            got = []
+            for _, off, toks in frs:
+                check(off == len(got), f"{phase}: request {rid}: an event "
+                      f"at offset {off} after {len(got)} tokens")
+                got += toks
+            check(got == finals[rid], f"{phase}: request {rid}: streamed "
+                  f"tokens differ from its final tokens")
+        return {rid: len({f[0] for f in frs}) for rid, frs in by_req.items()}
+
+
+def wire_client(port, mode, prompts, max_tokens, kill_first=False) -> list:
+    """One client thread's requests, all in ``mode``: ``generate`` (the
+    blocking verb, one at a time), ``submit`` (every SUBMIT, then RESULT
+    polls) or ``stream`` (``generate_stream`` one at a time, then RESULT
+    for its tokens). ``kill_first`` shuts the stream socket after the
+    first token event of the first request: the client reconnects and
+    resubscribes at its offset. Returns one record a request: the prompt,
+    the result document and the client's clock."""
+    import socket
+
+    from hetu_tpu_torch.rpc import CoordinatorClient
+    cli = CoordinatorClient(port, timeout=WIRE_TIMEOUT_S)
+    out = []
+    try:
+        if mode == "submit":
+            sent = [(p, time.perf_counter(),
+                     cli.serving_submit(p, max_tokens=max_tokens))
+                    for p in prompts]
+            for p, t0, rid in sent:
+                doc, deadline = None, time.monotonic() + WIRE_TIMEOUT_S
+                while doc is None:
+                    check(time.monotonic() < deadline,
+                          f"request {rid}: no RESULT in {WIRE_TIMEOUT_S} s")
+                    doc = cli.serving_result(rid, timeout_ms=1000)
+                out.append(dict(mode=mode, prompt=p, doc=doc, t0=t0,
+                                t_done=time.perf_counter(), killed=False))
+            return out
+        for i, p in enumerate(prompts):
+            t0 = time.perf_counter()
+            if mode == "generate":
+                doc = cli.serving_generate(p, max_tokens=max_tokens)
+                out.append(dict(mode=mode, prompt=p, doc=doc, t0=t0,
+                                t_done=time.perf_counter(), killed=False))
+                continue
+            toks, t_first, doc, killed = [], None, None, False
+            for ev in cli.generate_stream(p, max_tokens=max_tokens,
+                                          event_timeout_s=WIRE_TIMEOUT_S):
+                if ev["tokens"] and t_first is None:
+                    t_first = time.perf_counter()
+                toks += ev["tokens"]
+                if ev["done"]:
+                    doc = ev["result"]
+                elif kill_first and i == 0 and toks and not killed:
+                    killed = True
+                    cli._stream._sock.shutdown(socket.SHUT_RDWR)
+            t_done = time.perf_counter()
+            polled = cli.serving_result(doc["id"], timeout_ms=0)
+            out.append(dict(mode=mode, prompt=p, doc=doc, streamed=toks,
+                            result_tokens=polled["tokens"], killed=killed,
+                            t0=t0, t_first=t_first, t_done=t_done))
+    finally:
+        cli.close()
+    return out
+
+
+def run_wire(port, jobs) -> tuple:
+    """``jobs``: ``(mode, prompts, max_tokens, kill_first)``, one client
+    thread each, all at once. Returns the records and the wall seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futs = [pool.submit(wire_client, port, *job) for job in jobs]
+        recs = [r for f in futs for r in f.result()]
+    return recs, time.perf_counter() - t0
+
+
+def burst_jobs(burst, new, kill=False) -> list:
+    """A third of ``burst`` (every third prompt) in each client mode, each
+    third over two threads; ``kill``: the first stream thread kills its
+    first request's socket."""
+    jobs = []
+    for k, mode in enumerate(WIRE_MODES):
+        third = burst[k::len(WIRE_MODES)]
+        for j in range(WIRE_THREADS_PER_MODE):
+            jobs.append((mode, third[j::WIRE_THREADS_PER_MODE], new,
+                         kill and mode == "stream" and j == 0))
+    return jobs
+
+
+def check_wire(phase, recs, made) -> dict:
+    """Every request done, its client tokens the engine's own; a streamed
+    request's events and its RESULT read after the stream give those
+    tokens too."""
+    for r in recs:
+        doc = r["doc"]
+        req = made[doc["id"]]
+        check(doc["status"] == "done" and req.status == "done",
+              f"{phase}: request {doc['id']} is {doc['status']}")
+        check(doc["tokens"] == list(req.tokens),
+              f"{phase}: request {doc['id']}: the client's tokens are not "
+              f"the engine's")
+        if r["mode"] == "stream":
+            check(r["streamed"] == doc["tokens"] == r["result_tokens"],
+                  f"{phase}: request {doc['id']}: streamed, final and "
+                  f"RESULT tokens differ")
+    return {r["doc"]["id"]: r["doc"]["tokens"] for r in recs}
+
+
+def wire_latency(recs) -> dict:
+    """Client-side TTFT and TPOT of the streamed requests (killed ones
+    aside) beside the engine's own ``Request.timing()`` for the same
+    requests, and GENERATE's client-side total beside the engine's: the
+    difference is what the wire and the loop add."""
+    st = [r for r in recs if r["mode"] == "stream" and not r["killed"]
+          and len(r["streamed"]) > 1]
+    gen = [r for r in recs if r["mode"] == "generate"]
+    c_ttft = [(r["t_first"] - r["t0"]) * 1e3 for r in st]
+    e_ttft = [r["doc"]["timing"]["ttft_ms"] for r in st]
+    c_tpot = [(r["t_done"] - r["t_first"]) * 1e3 / (len(r["streamed"]) - 1)
+              for r in st]
+    e_tpot = [r["doc"]["timing"]["decode_ms"] / (len(r["streamed"]) - 1)
+              for r in st]
+    c_tot = [(r["t_done"] - r["t0"]) * 1e3 for r in gen]
+    e_tot = [r["doc"]["timing"]["total_ms"] for r in gen]
+    out = dict(stream_requests=len(st), generate_requests=len(gen))
+    for name, xs in (("client_ttft_ms", c_ttft), ("engine_ttft_ms", e_ttft),
+                     ("client_tpot_ms", c_tpot), ("engine_tpot_ms", e_tpot),
+                     ("generate_client_total_ms", c_tot),
+                     ("generate_engine_total_ms", e_tot),
+                     ("stream_ttft_added_ms", np.subtract(c_ttft, e_ttft)),
+                     ("generate_total_added_ms", np.subtract(c_tot, e_tot))):
+        out[name + "_p50"] = percentile(xs, 50)
+        out[name + "_p99"] = percentile(xs, 99)
+    return out
+
+
+def stream_counters(reg) -> dict:
+    return dict(
+        subscribes_new=reg.counter(
+            "serving_stream_subscribes_total").value(mode="new"),
+        subscribes_resume=reg.counter(
+            "serving_stream_subscribes_total").value(mode="resume"),
+        poll_fallbacks=reg.counter(
+            "serving_stream_fallbacks_total").value(reason="client_poll"),
+        subscriber_drops=reg.counter(
+            "serving_stream_subscriber_drops_total").value())
+
+
+def phase_gpt2_server(device, card, gpt2):
+    """GPT-2 small behind ``ServingServer``, its loop running, at
+    ``engine``'s settings: ``engine``'s 48 burst prompts in three client
+    modes over 6 threads (one stream socket killed mid-request), then the
+    16 shared-prefix prompts streamed. Returns the launch counts."""
+    from hetu_tpu_torch import telemetry
+    from hetu_tpu_torch.engine import trace_counts
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.serving import ServingEngine, ServingServer
+
+    model = gpt2["model"]
+    cfg = model.cfg
+    burst, shared = workload(cfg.vocab_size)
+    new = 64
+    before = trace_counts()
+    t0 = time.perf_counter()
+    eng = ServingEngine(model, slots=16, max_len=512, prefill_chunk=64,
+                        block_size=16, seed=SEED, device=device)
+    made = record_requests(eng)
+    srv = ServingServer(eng, 0)
+    srv.start()
+    srv.wait_ready()
+    emit(phase="gpt2_server_setup", config="GPTConfig.small",
+         dtype="float32", slots=16, max_len=512, prefill_chunk=64,
+         block_size=16, port=srv.port, client_threads=len(burst_jobs(
+             burst, new)), lanes=capture_stats(eng),
+         seconds=time.perf_counter() - t0)
+    telemetry.reset()
+    telemetry.enable(True)
+    try:
+        with FrameTap() as tap:
+            # ---- the main path: counters zeroed just before, read after -
+            reset_launch_counts()
+            recs, t_burst = run_wire(srv.port, burst_jobs(burst, new,
+                                                          kill=True))
+            first, _ = run_wire(srv.port, [("stream", shared[:1], new)])
+            rest, t_shared = run_wire(srv.port, [
+                ("stream", shared[1 + j::5], new) for j in range(5)])
+            counts = launch_counts()
+            iters = dict(eng.lane_iters)
+            # ------------------------------------------------------------
+        counters = stream_counters(telemetry.get_registry())
+    finally:
+        telemetry.enable(False)
+        telemetry.reset()
+        srv.stop()
+    check(eng._thread is None, "gpt2_server: stop() left the loop thread")
+    check_captures("gpt2_server", eng, before)
+    check_launches("gpt2_server_launches", counts, iters, cfg.num_layers)
+    finals = check_wire("gpt2_server", recs + first + rest, made)
+    channels = tap.check("gpt2_server", finals)
+    killed = [r["doc"]["id"] for r in recs if r["killed"]]
+    check(len(killed) == 1, f"gpt2_server: {len(killed)} streams killed")
+    check(channels[killed[0]] == 2 and counters["subscribes_resume"] == 1,
+          f"gpt2_server: the killed stream did not resume on a second "
+          f"channel ({channels[killed[0]]} channels, {counters})")
+    check(counters["poll_fallbacks"] == 0
+          and counters["subscriber_drops"] == 0,
+          f"gpt2_server: a stream fell back to polling: {counters}")
+    hits = sum(r["doc"]["timing"]["cached_tokens"] for r in rest)
+    check(hits >= 15 * 128, f"gpt2_server: the shared prompts hit only "
+                            f"{hits} cached tokens")
+    gen_tokens = sum(len(r["doc"]["tokens"]) for r in recs)
+    emit(phase="gpt2_server", card=card, burst_requests=len(recs),
+         burst_generated_tokens=gen_tokens, burst_seconds=t_burst,
+         burst_tokens_per_s=gen_tokens / t_burst,
+         engine_burst_tokens_per_s=gpt2["perf"]["burst_tokens_per_s"],
+         engine_ttft_ms_p50_in_process=gpt2["perf"]["ttft_ms_p50"],
+         engine_tpot_ms_p50_in_process=gpt2["perf"]["tpot_ms_p50"],
+         shared_requests=1 + len(rest), shared_prefix_hit_tokens=hits,
+         shared_seconds=t_shared, killed_request=killed[0],
+         stream_channels=sorted(set(channels.values())),
+         stream_frames=len(tap.frames), **counters, **wire_latency(recs))
+    generate_oracle("gpt2_server_oracle", model,
+                    [made[r["doc"]["id"]] for r in recs + first + rest],
+                    new, device, memo=gpt2["oracle"])
+    return counts
+
+
+def weight_sums(model) -> list:
+    return [checksum(p) for p in model.parameters()]
+
+
+def phase_llama_server(device, card, model, llama_perf):
+    """Llama-7B (bf16, int8 arena) behind ``ServingServer`` at
+    ``llama_engine``'s settings, the engine built under ``BF16_FULL`` and
+    started from this thread under the default policy:
+    ``llama_workload``'s 48 burst prompts in three client modes, within
+    the bf16 oracle, with one capture a lane. Then the weight swap
+    (``llama_server_swap``). Returns the burst's launch counts."""
+    from hetu_tpu_torch import telemetry
+    from hetu_tpu_torch.core import BF16_FULL, autocast
+    from hetu_tpu_torch.engine import trace_counts
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.serving import ServingEngine, ServingServer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = model.cfg
+    burst, shared = llama_workload(cfg.vocab_size)
+    new = 64
+    before = trace_counts()
+    t0 = time.perf_counter()
+    with autocast(BF16_FULL):
+        eng = ServingEngine(model, slots=LLAMA_SLOTS, max_len=LLAMA_MAX_LEN,
+                            prefill_chunk=LLAMA_CHUNK,
+                            block_size=LLAMA_BLOCK, cache_dtype=torch.int8,
+                            seed=SEED, device=device,
+                            record_first_logits=True)
+    made = record_requests(eng)
+    srv = ServingServer(eng, 0)
+    srv.start()              # under the default policy: the loop steps
+    srv.wait_ready()         # under the lanes' own
+    emit(phase="llama_server_setup", config="LlamaConfig.llama_7b",
+         dtype="bfloat16", cache_dtype="int8", slots=LLAMA_SLOTS,
+         max_len=LLAMA_MAX_LEN, prefill_chunk=LLAMA_CHUNK,
+         block_size=LLAMA_BLOCK, port=srv.port,
+         lane_policy=str(eng.lanes["decode"].policy),
+         lanes=capture_stats(eng), seconds=time.perf_counter() - t0)
+    telemetry.reset()
+    telemetry.enable(True)
+    try:
+        with FrameTap() as tap:
+            # ---- the main path: counters zeroed just before, read after -
+            reset_launch_counts()
+            recs, t_burst = run_wire(srv.port, burst_jobs(burst, new))
+            counts = launch_counts()
+            iters = dict(eng.lane_iters)
+            # ------------------------------------------------------------
+        counters = stream_counters(telemetry.get_registry())
+        check_captures("llama_server", eng, before)
+        check_launches("llama_server_launches", counts, iters,
+                       cfg.num_layers, paged="paged_attention_int8")
+        finals = check_wire("llama_server", recs, made)
+        tap.check("llama_server", finals)
+        check(counters["poll_fallbacks"] == 0
+              and counters["subscriber_drops"] == 0,
+              f"llama_server: a stream fell back to polling: {counters}")
+        gen_tokens = sum(len(r["doc"]["tokens"]) for r in recs)
+        emit(phase="llama_server", card=card, burst_requests=len(recs),
+             burst_generated_tokens=gen_tokens, burst_seconds=t_burst,
+             burst_tokens_per_s=gen_tokens / t_burst,
+             engine_burst_tokens_per_s=llama_perf["burst_tokens_per_s"],
+             engine_ttft_ms_p50_in_process=llama_perf["ttft_ms_p50"],
+             engine_tpot_ms_p50_in_process=llama_perf["tpot_ms_p50"],
+             stream_frames=len(tap.frames), **counters,
+             **wire_latency(recs))
+        t1 = time.perf_counter()
+        with autocast(BF16_FULL):
+            sound = oracle(model, [made[r["doc"]["id"]] for r in recs],
+                           new, cfg.vocab_size)
+        emit(phase="llama_server_oracle", dtype="bfloat16", **sound,
+             dlogit_bound=DLOGIT_BF16, tie_bound=TIE_BF16,
+             seconds=time.perf_counter() - t1)
+        check_held("llama_server against the bf16 oracle", sound,
+                   DLOGIT_BF16, TIE_BF16)
+        llama_swap(device, card, eng, srv.port, made, shared, before)
+    finally:
+        telemetry.enable(False)
+        telemetry.reset()
+        srv.stop()
+    check(eng._thread is None, "llama_server: stop() left the loop thread")
+    del eng, made
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def llama_swap(device, card, eng, port, made, shared, before):
+    """``swap_params`` on the live server: refused on a busy engine with
+    every weight's checksum kept; drained, a swap to a seed-1 init of the
+    same config (bf16) flushes the cached prefix and serves
+    ``SWAP_REQUESTS`` shared-prompt requests within the bf16 oracle on
+    the new weights, each unlike its pre-swap tokens; the swap back
+    (version 2) gives the pre-swap tokens bit for bit, each set served one
+    request at a time. One capture a lane throughout."""
+    from hetu_tpu_torch.core import BF16_FULL, autocast
+    from hetu_tpu_torch.models import LlamaLMHeadModel
+    from hetu_tpu_torch.rpc import CoordinatorClient
+    from hetu_tpu_torch.serving import SamplingParams
+
+    model = eng.model
+    cfg = model.cfg
+    prompts = shared[:SWAP_REQUESTS]
+    cli = CoordinatorClient(port, timeout=WIRE_TIMEOUT_S)
+    t0 = time.perf_counter()
+    try:
+        def one_at_a_time():
+            return [cli.serving_generate(p, max_tokens=SWAP_NEW)
+                    for p in prompts]
+
+        first = one_at_a_time()
+        held_w = {n: p.detach().clone() for n, p in model.named_parameters()}
+        other = LlamaLMHeadModel(cfg, device=device, dtype=torch.bfloat16,
+                                 seed=SEED + 1)
+        new_w = {n: p.detach() for n, p in other.named_parameters()}
+        del other
+        sums = weight_sums(model)
+        busy = eng.submit(prompts[0], SamplingParams(max_tokens=64))
+        refused = None
+        try:
+            eng.swap_params(new_w)
+        except RuntimeError as err:
+            refused = str(err)
+        check(refused is not None and "drain" in refused,
+              "llama_server_swap: a swap on a busy engine was not refused")
+        check(weight_sums(model) == sums,
+              "llama_server_swap: the refused swap changed a weight")
+        check(eng.result(busy, timeout=WIRE_TIMEOUT_S) is not None,
+              "llama_server_swap: the busy request did not finish")
+        deadline = time.monotonic() + WIRE_TIMEOUT_S
+        while eng.has_work():
+            check(time.monotonic() < deadline,
+                  "llama_server_swap: the engine did not drain")
+            time.sleep(0.01)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        info = eng.swap_params(new_w)
+        torch.cuda.synchronize()
+        swap_ms = (time.perf_counter() - ts) * 1e3
+        check(info["version"] == 1 and info["flushed_blocks"] >= 1,
+              f"llama_server_swap: swap returned {info}")
+        swapped, _ = run_wire(port, [("submit", prompts, SWAP_NEW)])
+        with autocast(BF16_FULL):
+            reading = oracle(model, [made[r["doc"]["id"]] for r in swapped],
+                             SWAP_NEW, cfg.vocab_size)
+        check_held("llama_server_swap: the swapped weights against the "
+                   "bf16 oracle", reading, DLOGIT_BF16, TIE_BF16)
+        check(all(r["doc"]["weight_version"] == 1 for r in swapped),
+              "llama_server_swap: a request ran under another version")
+        differ = sum(r["doc"]["tokens"] != f["tokens"]
+                     for r, f in zip(swapped, first))
+        check(differ == len(prompts), f"llama_server_swap: only {differ} "
+              f"of {len(prompts)} requests changed with the weights")
+        back = eng.swap_params(held_w)
+        again = one_at_a_time()
+        same = [a["tokens"] == f["tokens"] for a, f in zip(again, first)]
+        check(all(same), f"llama_server_swap: after the swap back the "
+                         f"tokens differ ({same})")
+        check(back["version"] == 2 and all(
+            a["weight_version"] == 2 for a in again),
+              f"llama_server_swap: swap back returned {back}")
+        check_captures("llama_server_after_swaps", eng, before)
+    finally:
+        cli.close()
+    emit(phase="llama_server_swap", card=card, swap_ms=swap_ms,
+         flushed_blocks=info["flushed_blocks"],
+         swap_back_flushed_blocks=back["flushed_blocks"],
+         weight_bytes=sum(t.numel() * t.element_size()
+                          for t in held_w.values()),
+         refused_busy=refused, requests=len(prompts), new_tokens=SWAP_NEW,
+         swapped_oracle=reading, swapped_differ=differ,
+         swap_back_bit_equal=len(same),
+         seconds=time.perf_counter() - t0)
+    del held_w, new_w
+
+
 LLAMA_CLASSES = KERNEL_CLASSES + (("nvjet", "matmul"),)
 
 
@@ -5979,7 +6500,12 @@ def main() -> int:
                       ("flash_bwd_dkv", "flash_bwd_dkv_tc")):
         kernels[name]["ptxas"] = {k: v for k, v in ptxas.items()
                                   if k.startswith(sym)}
-    paths = {"engine": phase_engine(device, smi)}
+    paths = {}
+    paths["engine"], gpt2 = phase_engine(device, smi)
+    paths["gpt2_server"] = phase_gpt2_server(device, smi, gpt2)
+    del gpt2
+    gc.collect()
+    torch.cuda.empty_cache()
     run = phase_train(device, smi)
     paths["train"] = run["counts"]
     phase_train_profile(run)
@@ -6003,7 +6529,8 @@ def main() -> int:
     phase_fused_kernel_times(device, timer, ops, batch, kernels)
     phase_llama_kernels(device, timer, ops, kernels)
     phase_verify_kernels(device, timer, ops, kernels)
-    paths["llama_engine"], model = phase_llama_engine(device, smi, timer)
+    paths["llama_engine"], model, llama_perf = phase_llama_engine(
+        device, smi, timer)
     paths["llama_budget_engine"] = phase_llama_budget_engine(device, smi,
                                                              model)
     paths["llama_preempt"] = phase_llama_preempt(device, smi, model)
@@ -6011,6 +6538,8 @@ def main() -> int:
                                                            model)
     paths["llama_spec"] = phase_llama_spec(device, smi, model)
     paths["llama_tenancy"] = phase_llama_tenancy(device, smi, model, timer)
+    paths["llama_server"] = phase_llama_server(device, smi, model,
+                                               llama_perf)
     del model
     gc.collect()
     torch.cuda.empty_cache()

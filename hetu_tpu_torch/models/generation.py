@@ -100,8 +100,11 @@ def _sample(logits, *, temperature: float, top_k: int, top_p: float,
 
 @torch.no_grad()
 def generate(model, input_ids, *, max_new_tokens: int,
+             max_len: Optional[int] = None,
              temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
-             generator: Optional[torch.Generator] = None, device=None,
+             generator: Optional[torch.Generator] = None,
+             eos_id: Optional[int] = None, pad_id: Optional[int] = None,
+             prompt_lens=None, device=None,
              return_logits: bool = False,
              cache_dtype: Optional[torch.dtype] = None, lora=None):
     """Generate ``max_new_tokens`` continuations for a ``(b, s)`` prompt.
@@ -117,7 +120,18 @@ def generate(model, input_ids, *, max_new_tokens: int,
     ``generate(cache_dtype=jnp.int8)`` does. ``lora`` decodes each row
     under an adapter: ``{"ids": (b,) page of each row, "pages": an arena
     as :func:`decode` takes it}``. An MoE model whose gate couples the
-    rows of a batch (the balance gate) raises."""
+    rows of a batch (the balance gate) raises.
+
+    As ``hetu_tpu/models/generation.py:136-159``: ``max_len`` is the KV
+    cache's length (default ``s + max_new_tokens``; a prompt and budget
+    past it raise :class:`PromptTooLongError`); after a row samples
+    ``eos_id`` its later positions hold ``pad_id`` (or ``eos_id`` when
+    no ``pad_id`` is given). ``prompt_lens`` (b,) makes the prompts
+    RAGGED: row r's prompt is ``input_ids[r, :prompt_lens[r]]``
+    (right-padded to s); its first token is sampled at its last real
+    position, and its decode writes position ``prompt_lens[r] + t`` under
+    its own causal mask, so the pad KV is never attended. The generated
+    tokens still fill the trailing ``max_new_tokens`` columns."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"model is on {model.device}, generate was asked "
@@ -127,7 +141,12 @@ def generate(model, input_ids, *, max_new_tokens: int,
     if ids.dim() == 1:
         ids = ids[None]
     b, s = ids.shape
-    total = s + max_new_tokens
+    total = max_len or (s + max_new_tokens)
+    if s + max_new_tokens > total:
+        raise PromptTooLongError(
+            prompt_len=s, max_tokens=max_new_tokens, limit=total,
+            source="generate KV-cache (max_len)",
+            hint="raise max_len or trim the prompt")
     if total > model.cfg.max_positions:
         raise PromptTooLongError(
             prompt_len=s, max_tokens=max_new_tokens,
@@ -137,6 +156,7 @@ def generate(model, input_ids, *, max_new_tokens: int,
     caches = init_kv_caches(model, b, total, cache_dtype)
     knobs = dict(temperature=temperature, top_k=top_k, top_p=top_p,
                  generator=generator)
+    fill_id = pad_id if pad_id is not None else eos_id
 
     def rows(n):
         if lora is None:
@@ -146,15 +166,32 @@ def generate(model, input_ids, *, max_new_tokens: int,
                 "pages": lora["pages"]}
 
     pos = torch.arange(s, device=ids.device)[None, :].expand(b, s)
-    last = decode(model, ids, pos, caches, lora=rows(s))[:, -1]
+    logits = decode(model, ids, pos, caches, lora=rows(s))
+    if prompt_lens is not None:
+        # each row decodes from its own length: per-row writes and
+        # causal offsets (the dense cache's slot_mask path)
+        plens = torch.as_tensor(prompt_lens, dtype=torch.long,
+                                device=ids.device).view(b)
+        mask = torch.ones(b, dtype=torch.bool, device=ids.device)
+        # sample at each row's last REAL position, not at a pad
+        last = logits[torch.arange(b, device=ids.device), plens - 1]
+    else:
+        plens = torch.full((b,), s, dtype=torch.long, device=ids.device)
+        mask = None
+        last = logits[:, -1]
     seen = [last]
     toks = [_sample(last, **knobs)]
+    done = None if eos_id is None else toks[0] == eos_id
     for i in range(max_new_tokens - 1):
-        pos = torch.full((b, 1), s + i, dtype=torch.long, device=ids.device)
-        last = decode(model, toks[-1][:, None], pos, caches,
-                      lora=rows(1))[:, -1]
+        last = decode(model, toks[-1][:, None], (plens + i)[:, None],
+                      caches, slot_mask=mask, lora=rows(1))[:, -1]
         seen.append(last)
-        toks.append(_sample(last, **knobs))
+        nxt = _sample(last, **knobs)
+        if eos_id is not None:
+            raw = nxt
+            nxt = torch.where(done, torch.full_like(raw, fill_id), raw)
+            done = done | (raw == eos_id)
+        toks.append(nxt)
     out = torch.cat([ids, torch.stack(toks, dim=1)], dim=1)
     if return_logits:
         return out, torch.stack(seen, dim=1)

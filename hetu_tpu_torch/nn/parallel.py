@@ -265,7 +265,10 @@ class ParallelAttention(nn.Module):
           of shape ``(b, max_len, hkv, d)``; every row writes its ``s``
           new entries at ``positions[0]`` (one shared index) and attends
           with the plain oracle (an int8 cache dequantizes to q's dtype
-          first, as ``hetu_tpu`` does);
+          first, as ``hetu_tpu`` does). With ``slot_mask`` (b,) (all
+          True: it only selects this path) each row writes at its own
+          ``positions[r, 0]`` and attends under its own causal offset (``hetu_tpu/nn/parallel.py:589-592, 629-637``: ragged
+          ``generate``);
         - paged (``block_tables`` (b, W) and ``slot_mask`` (b,) bool):
           the caches are arenas ``(n_blocks, block_size, hkv, d)``; row
           ``r`` writes at its own ``positions[r, 0]`` through its table
@@ -299,19 +302,29 @@ class ParallelAttention(nn.Module):
         q, k, v = self._qkv(x, positions, lora)
         writes = _cache_writes(kv_cache, k, v)
         if block_tables is None:
-            if slot_mask is not None:
-                raise ValueError("per-row decode needs block_tables (the "
-                                 "port's dense cache takes one shared "
-                                 "write index)")
-            cols = positions[0]                              # (s,)
-            for buf, new in writes:
-                buf.index_copy_(1, cols, new.to(buf.dtype))
+            if slot_mask is None:
+                cols = positions[0]                          # (s,)
+                for buf, new in writes:
+                    buf.index_copy_(1, cols, new.to(buf.dtype))
+                q_offset = cols[0]
+            else:
+                # per-row writes into the flattened (b * max_len) rows
+                q_offset = positions[:, 0]                   # (b,)
+                max_len = kv_cache[0].shape[1]
+                rows = (torch.arange(b, device=x.device)[:, None] * max_len
+                        + positions[:, :1].long()
+                        + torch.arange(s, device=x.device)[None, :])
+                rows = rows.reshape(-1)
+                for buf, new in writes:
+                    flat = buf.view((-1,) + tuple(buf.shape[2:]))
+                    flat.index_copy_(0, rows, new.reshape(
+                        (b * s,) + tuple(new.shape[2:])).to(buf.dtype))
             k_buf, v_buf, scales = _arena(kv_cache)
             if scales:
                 k_buf = dequantize_int8(k_buf, scales["k_scale"], q.dtype)
                 v_buf = dequantize_int8(v_buf, scales["v_scale"], q.dtype)
             out = attention_reference(q, k_buf, v_buf, causal=True,
-                                      q_offset=cols[0], kv_offset=0)
+                                      q_offset=q_offset, kv_offset=0)
         else:
             if slot_mask is None:
                 raise ValueError("block_tables requires slot_mask "

@@ -113,29 +113,57 @@ activations apart); the tenant's QoS (token bucket, slot cap) defers a
 request at admission without charging its class. A tenancy-off engine
 builds no arena and its lanes add no op.
 
+Online serving (``hetu_tpu/serving/engine.py:1564-1697, 2557-2597``):
+:meth:`start` runs :meth:`step` on a background thread, under the
+precision policy the lanes were captured under and on the engine's
+device, so starting the loop never re-captures (JAX's loop thread reuses
+the step it compiled once). Iterations are serialized by ``_step_lock``;
+host state (the queue, the slots) by ``_lock``, which a step holds while
+it stages and while it commits but not while the lanes run on the device,
+so :meth:`submit` never waits for a replay. :meth:`swap_params`,
+:meth:`evict_request`, :meth:`load_adapter` and :meth:`evict_adapter`
+take the iteration lock first (the replays read the weights, the arena
+and the adapter pages by address) and :meth:`cancel_queued` touches only
+queued requests, so each lands between two iterations, never inside
+one. :meth:`stream_subscribe` attaches a
+bounded :class:`~hetu_tpu_torch.serving.streaming.TokenSubscription` to
+a request; the end of every step that did work pumps each subscribed
+request's new tokens into its queues (host work after the commit, no
+device op), and an eviction or a cancel closes them with an ``end``
+event. A step that raises kills the loop: the thread dies with the
+error, and :meth:`result` and :meth:`stop` raise it. The line-protocol
+server over this surface is :mod:`~hetu_tpu_torch.serving.server`.
+:meth:`swap_params` copies new weights into the model's own tensors in
+place, so the captured lanes read them with no re-capture; it bumps
+``weight_version`` on the engine and the pool and flushes the stale
+prefix-cache nodes.
+
 Not ported yet, and not accepted as arguments: the CP long-prompt lane
 (and with it the adapter refusal of that lane), the prefill/decode
-handoff, KV replication, streaming, ``swap_params``,
-W8A8 (off, as ``hetu_tpu``'s default), the SLO engine, the watchdog,
-the telemetry registry (the scheduler's and the spill arena's host
-ledgers stand in for its preemption and spill counters, ``spec_stats``
-for its speculation counters, the tenant plane's ledgers and the
-registry's ``stats()`` for its tenancy counters), ``load_adapter(path=)``
-(the dist-ckpt transport), and what only
-the router and fleet use: the spill arena's peer tier (``spill_peer``),
-``class_weights``, ``load`` and ``cancel_queued``.
+handoff, KV replication, W8A8 (off, as ``hetu_tpu``'s default), the SLO
+engine, the watchdog, the engine's own telemetry (the scheduler's and
+the spill arena's host ledgers stand in for its preemption and spill
+counters, ``spec_stats`` for its speculation counters, the tenant
+plane's ledgers and the registry's ``stats()`` for its tenancy
+counters; only ``swap_params`` counts into ``hetu_tpu_torch.telemetry``),
+the spans and flight events of its lifecycle, ``load_adapter(path=)``
+(the dist-ckpt transport), and what only the router and fleet use: the
+spill arena's peer tier (``spill_peer``) and ``class_weights``; nor
+``prefix_cache=False``, ``swap_params(version=)`` and
+``start(idle_sleep_s=)``, which no caller sets yet.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Optional, Sequence, Union
+from typing import Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from hetu_tpu_torch import resolve_device
+from hetu_tpu_torch import resolve_device, telemetry
+from hetu_tpu_torch.core.dtypes import autocast
 from hetu_tpu_torch.engine.memory import size_adapter_arena, \
     size_spill_arena
 from hetu_tpu_torch.models import generation
@@ -155,9 +183,19 @@ from hetu_tpu_torch.serving.speculative import (
     speculative_verify,
 )
 from hetu_tpu_torch.serving.step_graph import StepGraph
+from hetu_tpu_torch.serving.streaming import TokenSubscription, push_delta
 from hetu_tpu_torch.serving.tenancy import (
     DEFAULT_TARGETS, AdapterArenaFull, TenantPlane,
 )
+
+#: how often a waiter on a request (``result``) looks for a dead loop
+_LOOP_POLL_S = 0.05
+#: how long ``stop`` waits for the loop thread to finish its iteration
+_STOP_JOIN_S = 30.0
+#: the loop's wait while a swap or an eviction takes the iteration lock
+_BOUNDARY_POLL_S = 1e-4
+#: the loop's sleep after an iteration with nothing to do
+_IDLE_SLEEP_S = 0.002
 
 
 class ServingEngine:
@@ -260,9 +298,8 @@ class ServingEngine:
         else:
             self.pool = KVPool(model, slots, max_len, block_size,
                                cache_dtype, n_blocks=kv_blocks)
-        #: weight generation of the arena's KV (``hetu_tpu`` bumps it in
-        #: ``swap_params``, not ported): a spill resumes only into an
-        #: engine at the same version
+        #: weight generation of the arena's KV (:meth:`swap_params` bumps
+        #: it): a spill resumes only into an engine at the same version
         self.weight_version = 0
         self.record_first_logits = bool(record_first_logits)
         self.prefill_chunk = int(prefill_chunk)
@@ -342,7 +379,25 @@ class ServingEngine:
         self._gen: list[Optional[torch.Generator]] = [None] * S
         self._prefilling: list[dict] = []        # FCFS in-flight prefills
         self._next_id = 0
+        #: host state: the queue, the slots, the tables, the spill arena
         self._lock = threading.RLock()
+        #: whole iterations: one step, swap or eviction at a time
+        self._step_lock = threading.Lock()
+        # callers waiting for an iteration boundary (swap, eviction): the
+        # loop lets them in before its next iteration (a Lock is not fair:
+        # the loop would otherwise take it back at once, for as long as
+        # it has work)
+        self._boundary_waiters = 0
+        self._waiters_lock = threading.Lock()
+        #: the front end's poll map (request id -> Request)
+        self._requests_by_id: dict[int, Request] = {}
+        # push subscriptions: request id -> (request, [subscriptions]),
+        # fed at the end of every step, drained by the server's threads
+        self._stream_subs: dict[int, tuple] = {}
+        self._stream_lock = threading.Lock()
+        self._stop: Optional[threading.Event] = None
+        self._thread: Optional[threading.Thread] = None
+        self._loop_error: Optional[BaseException] = None
         #: engine iterations that ran each lane
         self.lane_iters = {"decode": 0, "prefill": 0}
         #: max requests that can FINISH prefill in one iteration (each
@@ -476,7 +531,8 @@ class ServingEngine:
     # -- requests -----------------------------------------------------------
     def submit(self, prompt: Sequence[int],
                sampling: Optional[SamplingParams] = None, *,
-               resume: Optional[SpillEntry] = None) -> Request:
+               resume: Optional[SpillEntry] = None,
+               traceparent: Optional[str] = None) -> Request:
         """Queue one request; returns the live :class:`Request` (status
         ``"rejected"`` with ``error`` set when it can never fit a slot).
 
@@ -489,7 +545,10 @@ class ServingEngine:
 
         ``sampling.adapter`` needs ``tenancy=`` (else ValueError); an
         adapter the registry does not hold rejects the request. A spill
-        resumes only under the adapter load it was written under."""
+        resumes only under the adapter load it was written under.
+
+        ``traceparent`` (``"<trace_id>-<span_id>"``, from the wire) makes
+        the request adopt that trace id; a malformed token is ignored."""
         sampling = sampling or SamplingParams()
         if sampling.adapter is not None and self.tenancy is None:
             raise ValueError(
@@ -503,6 +562,11 @@ class ServingEngine:
                           prompt=np.asarray(prompt, np.int32).ravel(),
                           sampling=sampling, submit_s=time.monotonic())
             self._next_id += 1
+            if traceparent:
+                tid, _span = telemetry.parse_traceparent(traceparent)
+                if tid:
+                    req.trace_id = tid
+                    req.traceparent = traceparent
             if sampling.adapter is not None:
                 registry = self.tenancy.registry
                 if not registry.has(sampling.tenant, sampling.adapter):
@@ -525,9 +589,20 @@ class ServingEngine:
 
     def result(self, req: Request,
                timeout: Optional[float] = None) -> Optional[dict]:
-        """Wait for ``req`` to finish; None on timeout."""
-        if not req.done.wait(timeout):
-            return None
+        """Wait for ``req`` to finish; None on timeout. Raises when the
+        background loop died before the request finished."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while not req.done.is_set():
+            err = self._loop_error
+            if err is not None:
+                raise RuntimeError(
+                    f"the serving loop died: {err!r}") from err
+            left = None if deadline is None \
+                else deadline - time.monotonic()
+            if left is not None and left <= 0:
+                return None
+            req.done.wait(_LOOP_POLL_S if left is None
+                          else min(_LOOP_POLL_S, left))
         return req.result()
 
     def has_work(self) -> bool:
@@ -535,10 +610,71 @@ class ServingEngine:
             return bool(self.scheduler.queue) or bool(self._active.any()) \
                 or bool(self._prefilling) or bool(self._resume_pending)
 
+    @property
+    def load(self) -> int:
+        """Queued, prefilling, resuming and decoding requests: the number
+        a least-loaded dispatcher reads."""
+        with self._lock:
+            return self.scheduler.depth + len(self._prefilling) \
+                + len(self._resume_pending) + int(self._active.sum())
+
+    # -- push subscriptions ---------------------------------------------------
+    def stream_subscribe(self, req: Request, *, offset: int = 0,
+                         max_queue: int = 256) -> TokenSubscription:
+        """Subscribe to ``req``'s tokens from token ``offset``: the backlog
+        past the offset is queued now (a finished request yields its one
+        terminal event), then the end of every step feeds the newly
+        committed tokens. The subscription is a bounded queue: a consumer
+        that stops draining is dropped, never waited on."""
+        sub = TokenSubscription(req.id, offset=offset, max_queue=max_queue)
+        with self._stream_lock:
+            push_delta(req, sub)
+            if not sub.closed:
+                ent = self._stream_subs.get(req.id)
+                if ent is None:
+                    self._stream_subs[req.id] = (req, [sub])
+                else:
+                    ent[1].append(sub)
+        return sub
+
+    def _pump_stream_subs(self) -> None:
+        """End-of-step push: fold each subscribed request's new tokens
+        (and its finish) into its subscriptions' queues. Enqueue-only host
+        work: a slow subscriber overflows its own queue and is dropped
+        (counted) instead of stalling the loop."""
+        if not self._stream_subs:
+            return
+        with self._stream_lock:
+            for rid in list(self._stream_subs):
+                req, subs = self._stream_subs[rid]
+                for sub in subs:
+                    push_delta(req, sub)
+                live = [x for x in subs if not (x.closed or x.dropped)]
+                if live:
+                    self._stream_subs[rid] = (req, live)
+                else:
+                    del self._stream_subs[rid]
+
+    def _stream_interrupt(self, req: Request) -> None:
+        """Close ``req``'s subscriptions after it left the engine out of
+        band (evicted or cancelled, between two steps): the last delta and
+        an ``end`` marker tell subscribers to fall back to polling."""
+        if not self._stream_subs:
+            return
+        with self._stream_lock:
+            ent = self._stream_subs.pop(req.id, None)
+        if ent is None:
+            return
+        for sub in ent[1]:
+            push_delta(req, sub)
+            sub.close()
+
     # -- one iteration ------------------------------------------------------
     def step(self) -> bool:
-        """One engine iteration; False when there was nothing to do."""
-        with self._lock, torch.no_grad():
+        """One engine iteration; False when there was nothing to do.
+        Safe while the :meth:`start` loop runs (iterations are
+        serialized), though one stepping thread is the intended mode."""
+        with self._step_lock, torch.no_grad():
             return self._step_locked()
 
     def _admit_locked(self) -> list[tuple[int, int]]:
@@ -723,8 +859,13 @@ class ServingEngine:
         return spec
 
     def _step_locked(self) -> bool:
+        """One iteration under the iteration lock: staging and the commit
+        hold the state lock, the lanes' replays and the verify rule's
+        read-back do not (whatever writes what they read, weights, arena,
+        adapter pages or block tables, takes the iteration lock)."""
         t0 = time.monotonic()
-        staged = self._stage_locked()
+        with self._lock:
+            staged = self._stage_locked()
         if staged is None:
             return False
         active, pf = staged
@@ -753,9 +894,19 @@ class ServingEngine:
                                           [self._gen[s] for s in fs])
             self.lane_iters["prefill"] += 1
 
+        with self._lock:
+            self._commit_locked(active, spec, pf, lg, first_toks, t0)
+        self._pump_stream_subs()
+        return True
+
+    def _commit_locked(self, active: np.ndarray, spec: Optional[dict],
+                       pf: dict, lg, first_toks, t0: float) -> None:
+        """The step's host commit: the decode lane's verified tokens,
+        then the pack's progress and the first token of every request
+        whose prompt it finished."""
         now = time.monotonic()
         if spec is not None:
-            self._commit_locked(active, spec, now)
+            self._commit_decode_locked(active, spec, now)
             self.spec_stats["slot_steps"] += int(active.size)
         for ent, n in pf["fills"]:
             ent["off"] += n
@@ -775,10 +926,9 @@ class ServingEngine:
                 req.first_logits = lg[i].clone()
             self._on_token(slot, int(first_toks[i]), now)
             self._prefilling.remove(ent)
-        return True
 
-    def _commit_locked(self, active: np.ndarray, spec: dict,
-                       now: float) -> None:
+    def _commit_decode_locked(self, active: np.ndarray, spec: dict,
+                              now: float) -> None:
         """Commit each slot's verified tokens (``hetu_tpu/serving/
         engine.py:2264-2316``): ``ncommit`` through :meth:`_on_token`,
         which can finish the request mid-commit (EOS or budget; the rest
@@ -982,15 +1132,39 @@ class ServingEngine:
         request's ``done`` event is not set. ``lock_timeout_s`` bounds
         the wait for the engine's lock (None if it ran out). The request
         drops its adapter pin and its tenant's QoS slot here."""
-        got = self._lock.acquire(
-            timeout=-1 if lock_timeout_s is None else lock_timeout_s)
-        if not got:
+        if not self._acquire_both(lock_timeout_s):
             return None
         try:
             with torch.no_grad():
-                return self._evict_request_locked(req)
+                entry = self._evict_request_locked(req)
         finally:
             self._lock.release()
+            self._step_lock.release()
+        if req.status == "evicted":
+            self._stream_interrupt(req)
+        return entry
+
+    def _acquire_both(self, timeout_s: Optional[float]) -> bool:
+        """The iteration lock, at the loop's next iteration boundary, then
+        the state lock, within ``timeout_s`` in all (None: wait); False,
+        holding neither, when it ran out."""
+        deadline = None if timeout_s is None \
+            else time.monotonic() + timeout_s
+        with self._waiters_lock:
+            self._boundary_waiters += 1
+        try:
+            got = self._step_lock.acquire(
+                timeout=-1 if timeout_s is None else timeout_s)
+        finally:
+            with self._waiters_lock:
+                self._boundary_waiters -= 1
+        if not got:
+            return False
+        if self._lock.acquire(timeout=-1 if deadline is None else max(
+                0.0, deadline - time.monotonic())):
+            return True
+        self._step_lock.release()
+        return False
 
     def _evict_request_locked(self, req: Request) -> Optional[SpillEntry]:
         if req.done.is_set():
@@ -1120,20 +1294,25 @@ class ServingEngine:
                     f"fit this model's ({L}, {d_in}, ·)/(·, {d_out}) "
                     f"projection")
         registry = self.tenancy.registry
-        with self._lock, torch.no_grad():
-            prev_uid = registry.get(tenant, name).uid \
-                if registry.has(tenant, name) else None
-            spec = registry.register(tenant, name, weights,
-                                     scaling=scaling)
-            flushed = 0
-            if prev_uid is not None:
-                # the replaced version's spans are already unmatchable
-                # (fresh uid) but still pin blocks: return them now
-                flushed = self.prefix_cache.flush_adapter(prev_uid)
-            try:
-                registry.ensure_resident(tenant, name)
-            except AdapterArenaFull:
-                pass    # loads at this adapter's first admission
+        self._acquire_both(None)    # the page is written in place
+        try:
+            with torch.no_grad():
+                prev_uid = registry.get(tenant, name).uid \
+                    if registry.has(tenant, name) else None
+                spec = registry.register(tenant, name, weights,
+                                         scaling=scaling)
+                flushed = 0
+                if prev_uid is not None:
+                    # the replaced version's spans are already unmatchable
+                    # (fresh uid) but still pin blocks: return them now
+                    flushed = self.prefix_cache.flush_adapter(prev_uid)
+                try:
+                    registry.ensure_resident(tenant, name)
+                except AdapterArenaFull:
+                    pass    # loads at this adapter's first admission
+        finally:
+            self._lock.release()
+            self._step_lock.release()
         return {"tenant": tenant, "name": name, "version": spec.version,
                 "uid": spec.uid, "page": spec.page,
                 "flushed_blocks": flushed}
@@ -1146,13 +1325,17 @@ class ServingEngine:
             raise RuntimeError(
                 "evict_adapter on an engine without tenancy=")
         registry = self.tenancy.registry
-        with self._lock, torch.no_grad():
+        self._acquire_both(None)
+        try:
             uid = registry.get(tenant, name).uid \
                 if registry.has(tenant, name) else None
             registry.deregister(tenant, name)
             flushed = 0
             if uid is not None:
                 flushed = self.prefix_cache.flush_adapter(uid)
+        finally:
+            self._lock.release()
+            self._step_lock.release()
         return {"flushed_blocks": flushed}
 
     def _admission_gate(self, req: Request) -> bool:
@@ -1234,6 +1417,95 @@ class ServingEngine:
         self._throttle_logged.discard(req.id)
         self._wait_logged.discard(req.id)
 
+    # -- lifecycle: drain, weight swap --------------------------------------
+    def cancel_queued(self, ids=None) -> list[Request]:
+        """Take QUEUED (not yet admitted) requests out of the scheduler
+        and return them, status ``"cancelled"``: all of them, or those
+        whose id is in ``ids``. Each releases its tenancy holds, and a
+        preempted one takes its spill out of this engine's arena (kept
+        on ``req.spill``, so another engine can resume it); their
+        subscriptions close. Admitted requests are never touched: their
+        KV is resident, so finishing them here is cheaper than anywhere
+        else."""
+        with self._lock:
+            if ids is None:
+                out = list(self.scheduler.queue)
+                self.scheduler.queue.clear()
+            else:
+                out = [r for r in self.scheduler.queue if r.id in ids]
+                for r in out:
+                    self.scheduler.queue.remove(r)
+            for r in out:
+                self._drop_spill(r)
+                self._release_tenancy(r)
+                r.status = "cancelled"
+        for r in out:
+            self._stream_interrupt(r)
+        return out
+
+    def swap_params(self, params: Mapping[str, torch.Tensor]) -> dict:
+        """Install new weights on a DRAINED engine: the replica-local leg
+        of a weight push (``hetu_tpu/serving/engine.py:1671``).
+
+        ``params`` maps every parameter name of the model
+        (``named_parameters``) to a tensor of its shape and dtype, on any
+        device (``models.params_from_jax`` and ``utils.load_checkpoint``
+        name them so). The whole mapping is checked before the first byte
+        is written; then, between two iterations, the engine must hold no
+        work (in-flight KV was computed under the old weights) and the
+        values are copied in place into the model's own tensors, so the
+        captured lanes keep reading the tensors they captured (no
+        re-capture). A mismatched mapping raises ValueError and a busy
+        engine RuntimeError, each with the weights bit-unchanged. Bumps
+        ``weight_version`` by one on the engine and
+        the pool and flushes the prefix cache's stale nodes. A draft
+        model's weights are not swapped (as in ``hetu_tpu``). Returns
+        ``{"version", "flushed_blocks"}``."""
+        named = dict(self.model.named_parameters())
+        missing = sorted(set(named) - set(params))
+        extra = sorted(set(params) - set(named))
+        if missing or extra:
+            raise ValueError(
+                f"swap_params: the mapping does not match the model's "
+                f"parameters (missing {missing[:4]}, unknown "
+                f"{extra[:4]})")
+        for name, p in named.items():
+            t = params[name]
+            if not isinstance(t, torch.Tensor) \
+                    or tuple(t.shape) != tuple(p.shape) \
+                    or t.dtype != p.dtype:
+                got = (tuple(t.shape), t.dtype) \
+                    if isinstance(t, torch.Tensor) else type(t).__name__
+                raise ValueError(
+                    f"swap_params: {name} is {got}, the model's is "
+                    f"{(tuple(p.shape), p.dtype)}")
+        self._acquire_both(None)
+        try:
+            if self.scheduler.queue or self._prefilling \
+                    or self._resume_pending or self._active.any():
+                raise RuntimeError(
+                    "swap_params on a busy engine — drain first "
+                    "(cancel_queued + wait for has_work() to clear)"
+                    ": in-flight KV was prefilled under the old "
+                    "weights")
+            with torch.no_grad():
+                for name, p in named.items():
+                    p.copy_(params[name])
+            # the W8A8 decode lane that JAX re-quantizes here is not
+            # ported yet (ROADMAP.md, Queue 1 item 3)
+            self.weight_version += 1
+            self.pool.weight_version = self.weight_version
+            flushed = self.prefix_cache.set_version(self.weight_version)
+        finally:
+            self._lock.release()
+            self._step_lock.release()
+        if flushed:
+            telemetry.get_registry().counter(
+                "serving_prefix_flushed_total",
+                "prefix-cache blocks flushed because their KV was "
+                "computed under superseded weights").inc(flushed)
+        return {"version": self.weight_version, "flushed_blocks": flushed}
+
     # -- run loops ----------------------------------------------------------
     def run_until_drained(self, max_steps: int = 1_000_000) -> int:
         """Drive :meth:`step` until queue and slots are empty; returns the
@@ -1269,5 +1541,59 @@ class ServingEngine:
             raise ValueError(
                 f"{len(bad)} request(s) rejected at admission: "
                 + "; ".join(f"#{r.id}: {r.error}" for r in bad[:3]))
-        self.run_until_drained()
+        if self._thread is not None:
+            for r in reqs:          # the loop thread owns the iterations
+                self.result(r)
+        else:
+            self.run_until_drained()
         return [list(r.tokens) for r in reqs]
+
+    # -- the background loop (online front ends) ---------------------------
+    def start(self) -> None:
+        """Run :meth:`step` on a daemon thread until :meth:`stop`,
+        sleeping ``_IDLE_SLEEP_S`` after an iteration with nothing to do.
+        The thread steps under the precision policy the lanes were
+        captured under and with the engine's CUDA device current, so it
+        replays the lanes as built. A step that raises ends the thread
+        with the error (printed by the thread's hook); :meth:`result`
+        and :meth:`stop` raise it."""
+        if self._thread is not None:
+            return
+        self._stop = threading.Event()
+        self._loop_error = None
+        stop, policy = self._stop, self.lanes["decode"].policy
+
+        def loop():
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+            try:
+                with autocast(policy):
+                    while not stop.is_set():
+                        while self._boundary_waiters \
+                                and not stop.is_set():
+                            stop.wait(_BOUNDARY_POLL_S)  # let them in
+                        if not self.step():
+                            stop.wait(_IDLE_SLEEP_S)
+            except BaseException as err:
+                self._loop_error = err
+                raise
+
+        self._thread = threading.Thread(target=loop, daemon=True,
+                                        name="serving-loop")
+        self._thread.start()
+
+    def stop(self) -> None:
+        """Stop the loop after its current iteration and join it. Raises
+        when the loop died of an error, or did not stop within
+        ``_STOP_JOIN_S``."""
+        if self._thread is None:
+            return
+        self._stop.set()
+        self._thread.join(timeout=_STOP_JOIN_S)
+        if self._thread.is_alive():
+            raise RuntimeError(f"the serving loop did not stop within "
+                               f"{_STOP_JOIN_S} s")
+        self._thread = None
+        err = self._loop_error
+        if err is not None:
+            raise RuntimeError(f"the serving loop died: {err!r}") from err

@@ -127,6 +127,9 @@ class KVPool:
                 f"worst-case request ({self.table_width} blocks "
                 f"+ the null block)")
         self.cache_dtype = cache_dtype or model.dtype
+        #: weight generation of the KV the arena holds: the engine's
+        #: ``swap_params`` bumps it with its own
+        self.weight_version = 0
         # the generation layout with (batch, max_len) := (n_blocks,
         # block_size); layer l's arena caches[i][l] is contiguous
         self.caches = init_kv_caches(model, self.n_blocks, self.block_size,

@@ -23,7 +23,11 @@ host-side index that makes that lookup O(prompt):
   until their subtree drains, so a cached prefix never dangles;
 - every node carries the adapter uid its KV was written under
   (``serving/tenancy.py``): a match never crosses adapters, and
-  :meth:`flush_adapter` drops a replaced or evicted adapter's spans.
+  :meth:`flush_adapter` drops a replaced or evicted adapter's spans;
+- every node also carries the weight generation its KV was computed
+  under: a weight swap (``ServingEngine.swap_params``) moves the cache
+  to the new generation with :meth:`set_version`, which flushes the
+  stale nodes, and :meth:`match` never returns a stale one.
 
 Everything here is pure host bookkeeping: block ids reach the device
 only as entries of the engine's block tables.
@@ -39,23 +43,25 @@ from hetu_tpu_torch.serving.kv_pool import NULL_BLOCK, BlockManager
 
 class _Node:
     """One cached whole block: edge label ``tokens`` (block_size ids),
-    payload ``block`` (arena id), LRU stamp ``last_use``, and the
+    payload ``block`` (arena id), LRU stamp ``last_use``, the weight
+    generation ``version`` its KV was computed under, and the
     ``adapter`` uid the forward that wrote its KV ran under (0 = base: an
     attention-targeting LoRA adapter writes DIFFERENT K/V for the same
     tokens, so its spans only ever match requests of the same adapter
     load; see ``serving/tenancy.py``)."""
 
     __slots__ = ("tokens", "block", "parent", "children", "last_use",
-                 "adapter")
+                 "version", "adapter")
 
     def __init__(self, tokens: tuple, block: int,
                  parent: Optional["_Node"], last_use: int,
-                 adapter: int = 0):
+                 version: int = 0, adapter: int = 0):
         self.tokens = tokens
         self.block = block
         self.parent = parent
         self.children: list[_Node] = []
         self.last_use = last_use
+        self.version = version
         self.adapter = adapter
 
 
@@ -76,6 +82,13 @@ class PrefixCache:
         self.blocks = blocks
         self._root = _Node((), NULL_BLOCK, None, 0)
         self._clock = 0
+        #: weight generation the cached KV was computed under. A weight
+        #: swap bumps it via :meth:`set_version`, which flushes every
+        #: stale node, and :meth:`match` ALSO refuses stale nodes (a
+        #: missed flush degrades to a cache miss, never to tokens
+        #: prefilled under old weights)
+        self.weight_version = 0
+        self.flushes = 0
 
     # -- lookup -------------------------------------------------------------
     def match(self, tokens: Sequence[int], adapter: int = 0) -> tuple[
@@ -104,6 +117,7 @@ class PrefixCache:
             if len(key) == bs:
                 child = next(
                     (c for c in node.children if c.tokens == key
+                     and c.version == self.weight_version
                      and c.adapter == adapter), None)
             if child is not None:
                 child.last_use = self._clock
@@ -112,10 +126,13 @@ class PrefixCache:
                 i += bs
                 continue
             # partial tail: the child sharing the longest token prefix
-            # (a foreign adapter's nodes never match, whole or partial)
+            # (stale-version nodes hold KV of old weights and a foreign
+            # adapter's nodes its activations: never matchable, whole or
+            # partial)
             best, best_len = None, 0
             for c in node.children:
-                if c.adapter != adapter:
+                if c.version != self.weight_version \
+                        or c.adapter != adapter:
                     continue
                 n = _common_prefix_len(c.tokens, key)
                 if n > best_len:
@@ -144,12 +161,14 @@ class PrefixCache:
             key = tuple(tokens[j * bs:(j + 1) * bs])
             child = next(
                 (c for c in node.children if c.tokens == key
+                 and c.version == self.weight_version
                  and c.adapter == adapter), None)
             if child is None:
                 blk = int(table[j])
                 if blk == NULL_BLOCK:
                     break
-                child = _Node(key, blk, node, self._clock, adapter)
+                child = _Node(key, blk, node, self._clock,
+                              self.weight_version, adapter)
                 node.children.append(child)
                 self.blocks.share(blk)      # the trie now holds it too
                 added += 1
@@ -190,6 +209,45 @@ class PrefixCache:
                                       parent))
         return freed
 
+    # -- weight-version lifecycle -------------------------------------------
+    def set_version(self, version: int) -> int:
+        """Adopt a new weight generation and flush every node cached
+        under an older one (their KV encodes the old weights' forward).
+        Returns the number of blocks released. No-op at the current
+        version."""
+        version = int(version)
+        if version == self.weight_version:
+            return 0
+        self.weight_version = version
+        return self.flush_stale()
+
+    def flush_stale(self) -> int:
+        """Drop every node whose ``version`` is not the current one,
+        releasing the trie's ref on each block (a block a live slot still
+        maps stays resident for that holder). A stale node takes its
+        whole subtree with it: a child's KV attends into its parent's
+        positions, so a fresh child under a stale parent is unreachable
+        anyway (match walks from the root)."""
+        freed = 0
+        stack = [self._root]
+        while stack:
+            node = stack.pop()
+            keep: list[_Node] = []
+            for c in node.children:
+                if c.version == self.weight_version:
+                    keep.append(c)
+                    stack.append(c)
+                    continue
+                sub = [c]
+                while sub:
+                    v = sub.pop()
+                    sub.extend(v.children)
+                    self.blocks.release(v.block)
+                    freed += 1
+            node.children = keep
+        self.flushes += freed
+        return freed
+
     # -- adapter lifecycle --------------------------------------------------
     def flush_adapter(self, adapter: int) -> int:
         """Drop every node written under adapter uid ``adapter`` (an
@@ -219,4 +277,15 @@ class PrefixCache:
                     self.blocks.release(v.block)
                     freed += 1
             node.children = keep
+        self.flushes += freed
         return freed
+
+    # -- introspection ------------------------------------------------------
+    @property
+    def cached_blocks(self) -> int:
+        n, stack = 0, list(self._root.children)
+        while stack:
+            c = stack.pop()
+            n += 1
+            stack.extend(c.children)
+        return n

@@ -27,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
+import uuid
 from collections import deque
 from typing import Optional
 
@@ -115,6 +116,14 @@ class Request:
     #                                    resume path instead of prefill
     first_logits: Optional[object] = dataclasses.field(
         default=None, repr=False, compare=False)  # engine-recorded, opt-in
+    trace_id: str = dataclasses.field(
+        default_factory=lambda: uuid.uuid4().hex[:12])
+    traceparent: Optional[str] = dataclasses.field(
+        default=None, repr=False, compare=False)  # inbound wire context
+    #                                    ("<trace_id>-<span_id>"): when
+    #                                    set, trace_id above is overridden
+    #                                    to match it, so every process
+    #                                    stamps the originating id
     admit: Optional[dict] = dataclasses.field(
         default=None, repr=False, compare=False)  # paged admission plan
     events: list = dataclasses.field(default_factory=list,
@@ -137,8 +146,8 @@ class Request:
         count, the prefix-cache hit, its drafted and accepted tokens,
         and what the scheduler did to the request under pressure
         (preemptions, spilled and resumed blocks, whether it resumed
-        mid-decode)."""
-        out = {}
+        mid-decode), led by the request's ``trace_id``."""
+        out = {"trace_id": self.trace_id}
         admit_s = next((t for p, t, _ in self.events if p == "admit"),
                        None)
         if admit_s is not None:
@@ -234,6 +243,14 @@ class Scheduler:
         req.mark("queued")
         self.queue.append(req)
         return True
+
+    @property
+    def depth(self) -> int:
+        return len(self.queue)
+
+    @property
+    def occupancy(self) -> float:
+        return 1.0 - len(self.free) / self.slots
 
     def requeue_preempted(self, req: Request) -> None:
         """Put an evicted request back at the HEAD of the queue (it was

@@ -1,0 +1,415 @@
+"""Serving front end over the coordinator line protocol (counterpart of
+``hetu_tpu/serving/server.py``).
+
+The serving plane rides the coordinator's newline-delimited command
+protocol (``rpc/py_server.py``) instead of a second server: SUBMIT /
+RESULT / GENERATE carry URL-quoted compact JSON payloads, one space-free
+token each, and the stream mode of the same listener pushes each
+request's tokens as the engine commits them (``rpc/stream.py``).
+
+``ServingServer`` is the bundle: the engine's background loop plus a
+coordinator with the engine attached. ``rpc/client.py``'s
+``CoordinatorClient`` has the matching ``serving_*`` calls and
+``generate_stream``.
+
+Of ``SERVING_COMMANDS`` this module answers SUBMIT, RESULT, GENERATE
+and the engine verbs ESTATUS, CANCELQ, EVICT and STOPENGINE. The rest
+need modules the port does not have yet, and each answers the one line
+``ERR <VERB> not ported``: FLEET, DRAIN, RESUME and FLEETMETRICS (the
+router), PREFILL (the prefill/decode handoff), KVEXPORT, KVIMPORT,
+KVREPL, KVFETCH and KVBUDDY (the fleet KV plane), SWAPWEIGHTS (the
+distributed checkpoint) and DUMPOBS (spans and the flight recorder).
+"""
+
+from __future__ import annotations
+
+import base64
+import json
+import threading
+import time
+import urllib.parse
+from typing import Optional
+
+import torch
+
+from hetu_tpu_torch import telemetry
+from hetu_tpu_torch.serving.kv_pool import SpillEntry
+from hetu_tpu_torch.serving.scheduler import Request, SamplingParams
+
+
+def encode_payload(obj: dict) -> str:
+    """dict → one URL-quoted, space-free line-protocol token."""
+    return urllib.parse.quote(
+        json.dumps(obj, separators=(",", ":")), safe="")
+
+
+def decode_payload(tok: str) -> dict:
+    return json.loads(urllib.parse.unquote(tok))
+
+
+def sampling_from_payload(p: dict) -> SamplingParams:
+    return SamplingParams(
+        temperature=float(p.get("temperature", 0.0)),
+        top_k=int(p.get("top_k", 0)),
+        top_p=float(p.get("top_p", 0.0)),
+        eos_id=None if p.get("eos_id") is None else int(p["eos_id"]),
+        max_tokens=int(p.get("max_tokens", 16)),
+        priority=int(p.get("priority", 1)),
+        tenant=p.get("tenant"),
+        adapter=p.get("adapter"))
+
+
+def submit_payload(engine, tok: str) -> Request:
+    """SUBMIT handler: decode one request payload and queue it."""
+    p = decode_payload(tok)
+    return engine.submit(p["prompt"], sampling_from_payload(p))
+
+
+# -- the KV spill on the wire --------------------------------------------------
+
+
+def _tensor_to_wire(t: torch.Tensor) -> dict:
+    """One tensor → a JSON-safe dict (dtype + shape + raw bytes, base64).
+    Lossless for every arena dtype, bf16 and the int8 pages and their
+    fp32 scales included."""
+    t = t.detach().contiguous().cpu()
+    raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+    return {"dtype": str(t.dtype).removeprefix("torch."),
+            "shape": list(t.shape),
+            "b64": base64.b64encode(raw).decode("ascii")}
+
+
+def _tensor_from_wire(d: dict) -> torch.Tensor:
+    raw = bytearray(base64.b64decode(d["b64"]))
+    return torch.frombuffer(raw, dtype=torch.uint8).view(
+        getattr(torch, d["dtype"])).reshape(d["shape"])
+
+
+def spill_to_wire(entry: SpillEntry) -> dict:
+    """A :class:`SpillEntry` for the line protocol: the payload that moves
+    an evicted request's KV blocks to another engine."""
+    d = {"req_id": entry.req_id, "n_blocks": entry.n_blocks,
+         "block_size": entry.block_size, "pos": entry.pos,
+         "last_tok": entry.last_tok,
+         "tokens": [int(t) for t in entry.tokens],
+         "weight_version": entry.weight_version, "adapter": entry.adapter,
+         "data": [_tensor_to_wire(a) for a in entry.data]}
+    if entry.gen_state is not None:
+        # a sampled request's generator state travels with its KV: a
+        # resume without it would fork the sample stream
+        d["gen_state"] = _tensor_to_wire(entry.gen_state)
+    return d
+
+
+def spill_from_wire(d: dict) -> SpillEntry:
+    gs = d.get("gen_state")
+    return SpillEntry(
+        req_id=int(d["req_id"]),
+        data=tuple(_tensor_from_wire(a) for a in d["data"]),
+        n_blocks=int(d["n_blocks"]), block_size=int(d["block_size"]),
+        pos=int(d["pos"]), last_tok=int(d["last_tok"]),
+        tokens=[int(t) for t in d["tokens"]],
+        weight_version=int(d["weight_version"]),
+        gen_state=_tensor_from_wire(gs) if gs is not None else None,
+        adapter=int(d.get("adapter", 0)))
+
+
+class ServingServer:
+    """Engine loop + coordinator in one lifecycle.
+
+    The coordinator keeps its full role (RANK/KV/BARRIER for a training
+    fleet); the serving verbs answer because an engine is attached — one
+    process can coordinate training and serve. ``port=0`` binds a free
+    port: :attr:`port` is the bound one after :meth:`start`.
+    """
+
+    def __init__(self, engine, port: int, bind: str = "127.0.0.1",
+                 token: str = ""):
+        from hetu_tpu_torch.rpc.py_server import PyCoordinatorServer
+        self.engine = engine
+        self.coordinator = PyCoordinatorServer(port, bind=bind,
+                                               token=token,
+                                               serving=engine)
+
+    @property
+    def port(self) -> int:
+        return self.coordinator.port
+
+    def start(self) -> None:
+        self.engine.start()
+        self.coordinator.start()
+
+    def wait_ready(self, timeout: float = 10.0) -> None:
+        self.coordinator.wait_ready(timeout)
+
+    def stop(self) -> None:
+        self.coordinator.stop()
+        self.engine.stop()
+
+
+#: SUBMITted-but-never-polled requests must not leak in a long-running
+#: server: beyond this many live entries, FINISHED requests are evicted
+#: oldest-first (in-flight ones are always kept — their slots are real)
+_REQUEST_MAP_CAP = 4096
+
+
+def _prune_request_map(m: dict) -> None:
+    if len(m) <= _REQUEST_MAP_CAP:
+        return
+    for rid in [rid for rid, r in m.items()
+                if r.done.is_set()][:len(m) - _REQUEST_MAP_CAP]:
+        m.pop(rid, None)
+
+
+#: the serving verbs the coordinator forwards here (``hetu_tpu``'s tuple:
+#: SUBMIT/RESULT/GENERATE, the router's FLEET/DRAIN/RESUME, the engine
+#: verbs ESTATUS..STOPENGINE, the observability verbs DUMPOBS and
+#: FLEETMETRICS, and the fleet KV verbs). ``rpc/py_server.py`` mirrors
+#: this tuple.
+SERVING_COMMANDS = ("SUBMIT", "RESULT", "GENERATE",
+                    "FLEET", "DRAIN", "RESUME",
+                    "ESTATUS", "CANCELQ", "EVICT", "PREFILL",
+                    "SWAPWEIGHTS", "STOPENGINE",
+                    "DUMPOBS", "FLEETMETRICS",
+                    "KVEXPORT", "KVIMPORT", "KVREPL", "KVFETCH",
+                    "KVBUDDY")
+
+#: the verbs whose modules the port does not have yet
+NOT_PORTED = ("FLEET", "DRAIN", "RESUME", "FLEETMETRICS", "PREFILL",
+              "KVEXPORT", "KVIMPORT", "KVREPL", "KVFETCH", "KVBUDDY",
+              "SWAPWEIGHTS", "DUMPOBS")
+
+
+_idem_init_lock = threading.Lock()
+
+#: dedup-window TTL: a finished entry older than this can no longer be
+#: a retry-after-timeout join (clients give up in seconds) — evicting
+#: it bounds a long soak's memory instead of growing forever
+_IDEM_TTL_S = 900.0
+
+
+class IdemMap:
+    """Bounded idempotency-key → request map with TTL + LRU eviction.
+
+    SUBMIT/GENERATE/STREAM payloads carry an ``idem`` key; a duplicate
+    delivery — the client retrying after a response timeout, or two
+    front ends racing one logical request — joins the ORIGINAL request
+    instead of queueing a second generation. Every hit refreshes
+    recency, FINISHED entries expire after ``ttl_s`` (the dedup window a
+    retry could still arrive in), and past ``max_entries`` the
+    least-recently-used entry goes — done entries first, in-flight ones
+    only when nothing else is left. Evictions are counted
+    (``serving_idem_evictions_total``). ``lock`` makes check-and-insert
+    atomic across the coordinator's handler threads; callers hold it
+    around get/put."""
+
+    def __init__(self, max_entries: int = _REQUEST_MAP_CAP,
+                 ttl_s: float = _IDEM_TTL_S):
+        self.lock = threading.Lock()
+        self.max_entries = int(max_entries)
+        self.ttl_s = float(ttl_s)
+        self._m: "dict[str, list]" = {}    # key -> [req, deadline]
+
+    def __len__(self) -> int:
+        return len(self._m)
+
+    @staticmethod
+    def _count_evict(reason: str, n: int = 1) -> None:
+        if not n:
+            return
+        telemetry.get_registry().counter(
+            "serving_idem_evictions_total",
+            "idempotency-map entries evicted (ttl: dedup window "
+            "expired; cap: LRU past max_entries)").inc(n, reason=reason)
+
+    def get(self, key: str, now: Optional[float] = None):
+        ent = self._m.get(key)
+        if ent is None:
+            return None
+        now = time.monotonic() if now is None else now
+        ent[1] = now + self.ttl_s
+        # refresh recency: re-insert at the back of the dict's
+        # insertion order (the LRU order the cap eviction walks)
+        self._m[key] = self._m.pop(key)
+        return ent[0]
+
+    def put(self, key: str, req, now: Optional[float] = None) -> None:
+        now = time.monotonic() if now is None else now
+        self._m.pop(key, None)
+        self._m[key] = [req, now + self.ttl_s]
+        self.prune(now)
+
+    def prune(self, now: Optional[float] = None) -> None:
+        now = time.monotonic() if now is None else now
+        stale = [k for k, (r, dl) in self._m.items()
+                 if dl <= now and r.done.is_set()]
+        for k in stale:
+            del self._m[k]
+        self._count_evict("ttl", len(stale))
+        dropped = 0
+        while len(self._m) > self.max_entries:
+            victim = next((k for k, (r, _dl) in self._m.items()
+                           if r.done.is_set()), None)
+            if victim is None:
+                victim = next(iter(self._m))
+            del self._m[victim]
+            dropped += 1
+        self._count_evict("cap", dropped)
+
+
+def _idem_map(engine) -> IdemMap:
+    """Per-server :class:`IdemMap` (attached to the engine the
+    coordinator serves)."""
+    m = getattr(engine, "_idem_requests", None)
+    if m is None:
+        with _idem_init_lock:
+            m = getattr(engine, "_idem_requests", None)
+            if m is None:
+                m = IdemMap()
+                engine._idem_requests = m
+    return m
+
+
+def _count_dedup(verb: str) -> None:
+    telemetry.get_registry().counter(
+        "serving_idem_dedup_total",
+        "duplicate SUBMIT/GENERATE deliveries suppressed by "
+        "idempotency key (client retry-after-timeout joined the "
+        "original request)").inc(verb=verb)
+
+
+def _submit_from_payload(engine, p: dict):
+    """Decode one SUBMIT/GENERATE payload and queue it; a wire-format KV
+    spill (``resume``) rides along for a cross-process resume."""
+    kw = {}
+    if p.get("resume") is not None:
+        kw["resume"] = spill_from_wire(p["resume"])
+    if p.get("traceparent"):
+        kw["traceparent"] = p["traceparent"]
+    return engine.submit(p["prompt"], sampling_from_payload(p), **kw)
+
+
+def _submit_with_idem(engine, p: dict, verb: str):
+    """The one idempotency-keyed submit path SUBMIT / GENERATE / the
+    stream frames all share: an ``idem``-keyed duplicate delivery joins
+    the original request, everything else queues fresh."""
+    key = p.get("idem")
+    if not key:
+        return _submit_from_payload(engine, p)
+    m = _idem_map(engine)
+    with m.lock:                        # atomic check-and-queue
+        req = m.get(key)
+        if req is not None:
+            _count_dedup(verb)
+            return req
+        req = _submit_from_payload(engine, p)
+        if req.status != "rejected":
+            m.put(key, req)
+    return req
+
+
+def handle_stream_submit(serving, payload: str):
+    """The ``stream`` frame's submit half (SUBMIT semantics — same
+    payload format, idempotency key and traceparent included).
+    Returns ``(request, None)`` or ``(None, "ERR ...")``; the caller
+    (``py_server._stream_submit``) acks and subscribes."""
+    try:
+        p = decode_payload(payload)
+        req = _submit_with_idem(serving, p, "STREAM")
+    except Exception as e:                            # noqa: BLE001
+        return None, f"ERR {type(e).__name__}: {e}"
+    if req.status == "rejected":
+        return None, f"ERR rejected: {req.error}"
+    serving._requests_by_id[req.id] = req
+    _prune_request_map(serving._requests_by_id)
+    return req, None
+
+
+def handle_serving_command(engine, cmd: str, args: list) -> Optional[str]:
+    """Dispatch one serving line-protocol command; None = not ours.
+
+    A failure inside a verb answers ``ERR <type>: <message>`` for that
+    request, as ``hetu_tpu`` does; it never takes the server down."""
+    if cmd not in SERVING_COMMANDS:
+        return None
+    if engine is None:
+        return "ERR serving disabled"
+    if cmd in NOT_PORTED:
+        return f"ERR {cmd} not ported"
+    try:
+        if cmd == "SUBMIT":
+            p = decode_payload(args[0])
+            req = _submit_with_idem(engine, p, "SUBMIT")
+            if req.status == "rejected":
+                return f"ERR rejected: {req.error}"
+            engine._requests_by_id[req.id] = req
+            _prune_request_map(engine._requests_by_id)
+            # id + trace_id; the trailing R acknowledges an accepted KV
+            # resume
+            tail = " R" if p.get("resume") is not None \
+                and req.spill is not None else ""
+            return f"ID {req.id} {req.trace_id}{tail}"
+        if cmd == "RESULT":
+            req = engine._requests_by_id.get(int(args[0]))
+            if req is None:
+                return "ERR unknown request id"
+            timeout_ms = int(args[1]) if len(args) > 1 else 0
+            r = engine.result(req, timeout=timeout_ms / 1e3)
+            if r is None:
+                return "PEND"
+            engine._requests_by_id.pop(req.id, None)
+            return f"VAL {encode_payload(r)}"
+        if cmd == "GENERATE":
+            # blocking submit + wait (the engine loop must be running —
+            # ServingServer.start does that)
+            p = decode_payload(args[0])
+            req = _submit_with_idem(engine, p, "GENERATE")
+            r = req.result() if req.status == "rejected" \
+                else engine.result(req, timeout=None)
+            return f"VAL {encode_payload(r)}"
+        return _handle_engine_command(engine, cmd, args)
+    except Exception as e:                        # noqa: BLE001
+        return f"ERR {type(e).__name__}: {e}"
+
+
+def _handle_engine_command(engine, cmd: str, args: list) -> str:
+    """The engine-process verbs: ESTATUS, CANCELQ, EVICT, STOPENGINE."""
+    if cmd == "ESTATUS":
+        sched = engine.scheduler
+        doc = {"load": engine.load,
+               "weight_version": engine.weight_version,
+               "has_work": engine.has_work(),
+               # wall-clock stamp mid-RTT: the caller's offset handshake
+               "ts_unix": round(time.time(), 6),
+               "depth": sched.depth,
+               "occupancy": round(sched.occupancy, 4),
+               "block_size": int(engine.pool.block_size)}
+        return f"VAL {encode_payload(doc)}"
+    if cmd == "STOPENGINE":
+        engine.stop()
+        return "OK"
+    if cmd == "CANCELQ":
+        p = decode_payload(args[0])
+        moved = engine.cancel_queued({int(i) for i in p["ids"]})
+        out = []
+        for r in moved:
+            engine._requests_by_id.pop(r.id, None)
+            out.append({"id": r.id,
+                        "spill": spill_to_wire(r.spill)
+                        if r.spill is not None else None})
+        return f"VAL {encode_payload({'cancelled': out})}"
+    if cmd == "EVICT":
+        p = decode_payload(args[0])
+        req = engine._requests_by_id.get(int(p["id"]))
+        if req is None:
+            return "ERR unknown request id"
+        if p.get("traceparent") and req.traceparent is None:
+            req.traceparent = p["traceparent"]
+        entry = engine.evict_request(
+            req, lock_timeout_s=p.get("lock_timeout_s"))
+        if req.status == "evicted":
+            engine._requests_by_id.pop(req.id, None)
+        doc = {"status": req.status,
+               "spill": spill_to_wire(entry) if entry is not None else None}
+        return f"VAL {encode_payload(doc)}"
+    return "ERR unknown command"

@@ -41,7 +41,13 @@ def test_import_leaves_jax_unloaded():
               "hetu_tpu_torch.serving.kv_pool",
               "hetu_tpu_torch.serving.speculative", "hetu_tpu_torch.peft",
               "hetu_tpu_torch.peft.lora", "hetu_tpu_torch.serving.tenancy",
-              "hetu_tpu_torch.utils", "hetu_tpu_torch.utils.checkpoint"):
+              "hetu_tpu_torch.utils", "hetu_tpu_torch.utils.checkpoint",
+              "hetu_tpu_torch.telemetry", "hetu_tpu_torch.telemetry.metrics",
+              "hetu_tpu_torch.telemetry.tracecontext",
+              "hetu_tpu_torch.serving.streaming",
+              "hetu_tpu_torch.serving.server", "hetu_tpu_torch.rpc",
+              "hetu_tpu_torch.rpc.stream", "hetu_tpu_torch.rpc.py_server",
+              "hetu_tpu_torch.rpc.client"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -14,6 +14,8 @@ base-only traffic on a tenancy engine is bit-equal to a tenancy-off one
 (tokens, first-token logits and the whole KV arena)."""
 
 import dataclasses
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -270,6 +272,95 @@ def test_churn_keeps_one_capture_and_hot_swap_continuity(gpt):
     assert not eng._lora_pages["q_proj"]["A"][:, 3].any()
     assert _deltas(before) == {"serving_decode": 1, "serving_prefill": 1}
     assert plane.ledgers["admitted"] == {"acme": 2, "beta": 1}
+
+
+BETA = dict(tenant="beta", adapter="de")
+WAIT_S = 20.0
+
+
+def test_adapter_plane_under_the_running_loop_matches_jax(gpt):
+    """With the loop stepping mixed traffic: an adapter load, a second
+    tenant's load, a hot-swap while the old version serves a request and
+    an eviction while a base request decodes. Each lane is captured once,
+    and every request gives the tokens of JAX's engine serving it under
+    the same adapter version."""
+    s = gpt
+    base_p, acme_p, beta_p, new_p = _prompts(s["cfg"].vocab_size,
+                                             (9, 6, 7, 5), 11)
+    w0 = {k: {"A": v["A"], "B": np.zeros_like(v["B"])}
+          for k, v in s["weights"].items()}
+    jeng = _jax_engine(s)
+    jeng.load_adapter("beta", "de", s["weights"], scaling=s["scale"])
+    jreqs = [jeng.submit(p, JaxSamplingParams(max_tokens=n, **sp))
+             for p, n, sp in ((base_p, 20, {}), (acme_p, 8, ADAPTER),
+                              (beta_p, 8, BETA))]
+    jeng.run_until_drained()
+    jeng.load_adapter("acme", "fr", w0, scaling=s["scale"])
+    jreqs.append(jeng.submit(new_p, JaxSamplingParams(max_tokens=8,
+                                                      **ADAPTER)))
+    jeng.run_until_drained()
+    want = [list(r.tokens) for r in jreqs]
+
+    before = trace_counts()
+    plane = TenantPlane(max_adapters=4, r=4)
+    eng = _engine(s["model"], tenancy=plane)
+    eng.start()
+    try:
+        eng.load_adapter("acme", "fr", s["weights"], scaling=s["scale"])
+        base = eng.submit(base_p, SamplingParams(max_tokens=20))
+        acme = eng.submit(acme_p, SamplingParams(max_tokens=8, **ADAPTER))
+        eng.load_adapter("beta", "de", s["weights"], scaling=s["scale"])
+        beta = eng.submit(beta_p, SamplingParams(max_tokens=8, **BETA))
+        deadline = time.monotonic() + WAIT_S
+        while acme.status == "queued":      # pin v1 before the hot-swap
+            assert time.monotonic() < deadline, "acme never admitted"
+            time.sleep(1e-3)
+        assert eng.load_adapter("acme", "fr", w0,
+                                scaling=s["scale"])["version"] == 2
+        new = eng.submit(new_p, SamplingParams(max_tokens=8, **ADAPTER))
+        got = {"beta": eng.result(beta, timeout=WAIT_S)["tokens"]}
+        eng.evict_adapter("beta", "de")
+        for name, r in (("base", base), ("acme", acme), ("new", new)):
+            got[name] = eng.result(r, timeout=WAIT_S)["tokens"]
+    finally:
+        eng.stop()
+    assert [got[k] for k in ("base", "acme", "beta", "new")] == want
+    assert plane.registry.stats()["adapters"] == 1
+    assert _deltas(before) == {"serving_decode": 1, "serving_prefill": 1}
+    assert plane.ledgers["admitted"] == {"base": 1, "acme": 2, "beta": 1}
+
+
+@pytest.mark.parametrize("verb", ["load", "evict"])
+def test_adapter_verbs_wait_for_the_iteration_boundary(gpt, verb):
+    """``load_adapter`` and ``evict_adapter`` take the iteration lock: while
+    an iteration holds it, neither writes the arena or the registry; once
+    it is released, each lands."""
+    s = gpt
+    plane = TenantPlane(max_adapters=4, r=4)
+    eng = _engine(s["model"], tenancy=plane)
+    if verb == "evict":
+        eng.load_adapter("acme", "fr", s["weights"], scaling=s["scale"])
+    arena = {k: v["B"].clone() for k, v in eng._lora_pages.items()}
+    call = (lambda: eng.load_adapter("acme", "fr", s["weights"],
+                                     scaling=s["scale"])) \
+        if verb == "load" else (lambda: eng.evict_adapter("acme", "fr"))
+    eng._step_lock.acquire()                # an iteration in flight
+    try:
+        t = threading.Thread(target=call, daemon=True)
+        t.start()
+        t.join(timeout=0.3)
+        assert t.is_alive(), f"{verb}_adapter ran inside an iteration"
+        assert all(torch.equal(v["B"], arena[k])
+                   for k, v in eng._lora_pages.items())
+        assert plane.registry.has("acme", "fr") == (verb == "evict")
+    finally:
+        eng._step_lock.release()
+    t.join(timeout=WAIT_S)
+    assert not t.is_alive()
+    assert plane.registry.has("acme", "fr") == (verb == "load")
+    if verb == "load":
+        assert not all(torch.equal(v["B"], arena[k])
+                       for k, v in eng._lora_pages.items())
 
 
 @pytest.mark.parametrize("family", ["gpt", "llama"])
