@@ -13,7 +13,9 @@ fine-tunes Llama-7B at full depth with LoRA, serves Llama-7B and
 GPT-2 with LoRA adapters of several tenants mixed in one batch, and
 serves GPT-2 and Llama-7B online: the engine's background loop behind
 ``ServingServer``, driven over local sockets by ``CoordinatorClient``
-(with a weight swap on the live Llama server).
+(with a weight swap on the live Llama server), and serves Llama-7B and
+GPT-MoE with W8A8 decode (int8 FFN products in the captured decode
+lane).
 
 Run from the repository root, on a machine with one CUDA card::
 
@@ -160,6 +162,13 @@ Phases, each printing one JSON line:
    rows lie past their tables; bounds 1e-4 / 2e-2 (out and lse), reruns
    bit-equal, the first three timed (lane, kernel, plain, library: the
    gathered rows dequantized, SDPA with each row's causal offset; bound).
+11b. w8a8_gemm -- one FFN product at Llama-7B's shapes (4,096 -> 11,008
+   and 11,008 -> 4,096, at 16 and 80 rows) as bf16 ``F.linear``, W8A16,
+   W8A8 quantizing the weight per call, W8A8 pre-quantized (the decode
+   lane's) and the int32 contraction alone (``int8_mm``): ms each, the
+   int8 weight's bytes at 3.35 TB/s, and each output's largest error
+   over the bf16 product's largest value, under 0.05; the two W8A8
+   products bit-equal.
 12. llama_engine -- ``LlamaConfig.llama_7b`` (32 layers, hidden 4096,
    bf16 params and compute under ``autocast(BF16_FULL)``, random weights
    from a seed) served by ``ServingEngine(slots=16, max_len=2048,
@@ -273,6 +282,26 @@ Phases, each printing one JSON line:
    back (version 2) gives the tokens of those 8, served one at a time
    before the first swap and after this one, bit for bit. One capture a
    lane throughout.
+14c. llama_w8a8 -- the llama_engine's model and settings with
+   ``w8a8="on"``: every layer's decode-lane FFN through its W8A8 lane
+   (``torch._int_mm``) against a tree quantized once (its bytes
+   printed); the prefill lane stays bf16. The 64-request workload with
+   #1 and #2 as in llama_engine, one capture a lane; every request
+   within 0.5 first-token |dlogit| and ``TIE_W8A8`` shortfall of the
+   dense oracle teacher-forced under the same W8A8 decode (its own
+   tree), the shared batch read against the bf16 oracle with no bound,
+   and the oracle's own noise (two chunkings) in bf16 and W8A8; TPOT,
+   tokens/s and one decode replay's device ms beside llama_engine's;
+   a replay's profile must show the int8 GEMM kernels (found by
+   profiling ``torch._int_mm`` alone at the lane's shapes) 32 times
+   their per-layer launches. ``llama_w8a8_swap``: a swap to a seed-1
+   init whose re-quantize is skipped (a stale tree) must fail the W8A8
+   oracle of the new weights; the real swap re-quantizes into the same
+   tensors and holds it, every request changed; the swap back restores
+   the tree and the first tokens bit for bit (each swap's ms).
+   ``llama_w8a8_spec``: the same with ``spec_depth=4`` on
+   ``spec_prompts`` at 64 new tokens (the verify lane's 80 rows), within
+   the W8A8 oracle.
 15. llama_lora -- ``llama_lora_train_oracle``: one fp32 step of a
    LoRA-injected Llama-7B-width model (1 layer, random nonzero B), base
    frozen, kernels on the card against the CPU: ``train_oracle``'s
@@ -385,6 +414,16 @@ Phases, each printing one JSON line:
    ``moe_engine_profile`` and ``moe_engine_decode_profile`` (a mixed and
    a steady-decode window, as ``engine``'s: the gathers show as
    index/scatter).
+28b. moe_w8a8 -- ``moe_8e`` (fp32) at moe_engine's settings from the
+   int8 arena with ``w8a8="on"`` (each expert projection one int32
+   product over all 8 experts): 12 + 4 requests of 32 tokens, #1 and #2
+   as in moe_engine, one capture a lane, the int8 GEMM kernels in a
+   replay's profile; held to the teacher-forced W8A8 decode, routing
+   first (a step whose row the oracle routed within 1e-4 of a tie is
+   not compared): first-token |dlogit| <= 0.05 and at least 0.7 of the
+   steps the oracle's best token; one layer's ``wo`` codes rolled by
+   one expert must fail them; one decode replay's device ms against the
+   same engine with W8A8 off.
 29. gpt2_spec -- GPT-2 small (fp32) drafting for itself
    (``draft_model=`` the target) at ``engine``'s settings with
    ``spec_depth=4``, 16 requests of 16-128 + 64 tokens: the draft step
@@ -1623,9 +1662,12 @@ def phase_step_split(eng, prompts, sp, phase: str, n_steps: int = 20):
                                                  f"not finish")
     host = {k: v / n_steps * 1e3 for k, v in acc.items()}
     host["rest"] = wall / n_steps * 1e3 - sum(host.values())
-    emit(phase=phase, steps=n_steps, ms_per_step=wall / n_steps * 1e3,
-         host_ms_per_step=host, replay_device_ms_median=replay_ms[5],
-         replay_device_ms_min=replay_ms[0])
+    split = dict(phase=phase, steps=n_steps, ms_per_step=wall / n_steps
+                 * 1e3, host_ms_per_step=host,
+                 replay_device_ms_median=replay_ms[5],
+                 replay_device_ms_min=replay_ms[0])
+    emit(**split)
+    return split
 
 
 # -- training ----------------------------------------------------------------
@@ -2747,34 +2789,42 @@ def llama_workload(vocab: int, seed: int = SEED):
 
 @torch.no_grad()
 def forced_logits(model, prompt, tokens, cache_dtype, chunk=LLAMA_CHUNK,
-                  lora=None):
+                  lora=None, w8a8=None):
     """The dense oracle teacher-forced on ``tokens``: ``decode`` over a
     dense cache of ``cache_dtype`` (plain attention, no kernel) with the
     prompt and every token but the last, ``chunk`` tokens at a time;
     ``lora`` (an adapter arena, ``lora_arena``) decodes every token under
-    its page 1. Returns the fp32 logits the oracle chooses each of
-    ``tokens`` from, ``(len(tokens), V)``; row 0 follows the prompt
-    alone."""
+    its page 1; ``w8a8`` (one ``prequantize`` tree a layer, ``w8a8_trees``)
+    runs every layer's FFN on its W8A8 lane for the generated tokens and
+    keeps the prompt's fp, as the engine's decode and prefill lanes do.
+    Returns the fp32 logits the oracle chooses each of ``tokens`` from,
+    ``(len(tokens), V)``; row 0 follows the prompt alone."""
     from hetu_tpu_torch.models import decode, init_kv_caches
     seq = list(prompt) + list(tokens[:-1])
     ids = torch.tensor([seq], device=model.device)
     caches = init_kv_caches(model, 1, len(seq), cache_dtype)
     first, rows = len(prompt) - 1, []
-    for lo in range(0, len(seq), chunk):
-        hi = min(len(seq), lo + chunk)
+    edges = list(range(0, len(seq), chunk)) + [len(seq)]
+    if w8a8 is not None:
+        edges = sorted(set(edges) | {len(prompt)})
+    for lo, hi in zip(edges, edges[1:]):
         pos = torch.arange(lo, hi, device=model.device)[None]
         pages = None if lora is None else {
             "ids": torch.ones_like(pos), "pages": lora}
-        logits = decode(model, ids[:, lo:hi], pos, caches, lora=pages)
+        quant = {} if w8a8 is None or lo < len(prompt) else dict(
+            w8a8_mask=(True,) * len(w8a8), w8a8_wq=w8a8)
+        logits = decode(model, ids[:, lo:hi], pos, caches, lora=pages,
+                        **quant)
         if hi > first:
             rows.append(logits[0, max(first - lo, 0):])
     return torch.cat(rows)
 
 
 def oracle(model, reqs, new_tokens, vocab, cache_dtype=torch.int8,
-           keep=None, lora_for=None):
+           keep=None, lora_for=None, w8a8=None):
     """Each request's greedy tokens against ``forced_logits`` on them
-    (under the adapter arena ``lora_for(request)`` gives, None for base).
+    (under the adapter arena ``lora_for(request)`` gives, None for base;
+    with ``w8a8`` trees, the W8A8 decode).
     Returns the largest first-token |dlogit| (the engine's recorded
     logits against the oracle's row 0), the largest shortfall over every
     step (see TIE_FP32) and where it fell, the share of steps at which
@@ -2790,7 +2840,8 @@ def oracle(model, reqs, new_tokens, vocab, cache_dtype=torch.int8,
               and bool(torch.isfinite(r.first_logits).all()),
               f"request {r.id}: no finite first-token logits recorded")
         logits = forced_logits(model, r.prompt.tolist(), got, cache_dtype,
-                               lora=lora_for(r) if lora_for else None)
+                               lora=lora_for(r) if lora_for else None,
+                               w8a8=w8a8)
         check(bool(torch.isfinite(logits).all()),
               f"request {r.id}: non-finite oracle logits")
         if keep is not None:
@@ -3034,9 +3085,9 @@ def phase_llama_engine(device, card, timer):
                       SamplingParams(max_tokens=96),
                       phase="llama_engine_profile", classes=LLAMA_CLASSES,
                       steady_decode=True)
-        phase_step_split(eng, burst[:LLAMA_SLOTS],
-                         SamplingParams(max_tokens=96),
-                         "llama_engine_step_split")
+        split = phase_step_split(eng, burst[:LLAMA_SLOTS],
+                                 SamplingParams(max_tokens=96),
+                                 "llama_engine_step_split")
         phase_step_graph_replay(eng, "LlamaConfig.llama_7b bf16, int8 arena")
     check_captures("llama_engine_after_profiles", eng)
 
@@ -3059,6 +3110,8 @@ def phase_llama_engine(device, card, timer):
     del w32, h, eng
     gc.collect()
     torch.cuda.empty_cache()
+    # read by llama_w8a8, beside its own (not printed again)
+    perf["replay_device_ms_median"] = split["replay_device_ms_median"]
     return counts, model, perf
 
 
@@ -6458,6 +6511,617 @@ def llama_swap(device, card, eng, port, made, shared, before):
     del held_w, new_w
 
 
+# ---- W8A8 quantized decode (Llama-7B and GPT-MoE, int8 arena) ----------
+
+#: the int8 FFN products timed alone: Llama-7B's (in, out), at the decode
+#: lane's rows (16 slots) and the K = 4 verify lane's (16 x 5)
+W8A8_GEMM_SHAPES = ((4096, 11008), (11008, 4096))
+W8A8_GEMM_ROWS = (16, 80)
+#: each W8A8 product's largest error over the bf16 product's largest
+#: value (``hetu_tpu``'s ``tests/test_kernel_plane.py`` bound)
+W8A8_REL_ERR = 0.05
+#: the W8A8 engine's largest shortfall against the dense oracle under the
+#: same W8A8 decode (bf16, Llama-7B). W8A8's quantize is discontinuous:
+#: an input that two implementations round differently in its last bf16
+#: bit can flip an activation code, and 32 random-weight layers amplify
+#: it, so two implementations of one W8A8 decode lie further apart than
+#: two bf16 ones (``oracle_self_noise`` prints both). The first token
+#: comes from the bf16 prefill lane and keeps DLOGIT_BF16. This script
+#: read, on an NVIDIA H100 80GB HBM3 at 700 W: sound 1.419 (64 requests;
+#: the bf16 engine 0.438 against its bf16 oracle), 0.881 and 0.919
+#: (swap, spec); a stale tree after a swap 8.75
+TIE_W8A8 = 3.0
+#: the MoE W8A8 cell: ``moe_engine``'s settings from the int8 arena, 12
+#: burst requests and 4 sharing the system prompt, 32 new tokens each
+MOE_W8A8 = (12, 4, 32)
+#: fp32 bounds of the MoE W8A8 engine against the teacher-forced W8A8
+#: decode at the steps ``moe_w8a8_oracle`` compares: first-token |dlogit|
+#: (the fp32 prefill lane over the int8 arena) at most, and the share of
+#: steps whose token is the oracle's best at least. Under W8A8 a code
+#: that flips on fp32 noise moves the gate's input far past fp32 noise,
+#: so rows route apart beyond the near-tie margin and the shortfall
+#: (logit gaps of about 1 on random weights) cannot tell a fault from
+#: noise. This script read, on an NVIDIA H100 80GB HBM3 at 700 W: sound
+#: 0.0229 and 0.910 (largest shortfall 0.934); one layer's ``wo`` codes
+#: rolled by one expert 0.188 (shortfall 1.313); one layer's ``wo``
+#: scales rolled by a channel 0.816, which no bound here separates from
+#: noise (the CPU tests hold the lane to ``hetu_tpu``'s bit for bit)
+DLOGIT_MOE_W8A8, AGREE_MOE_W8A8 = 0.05, 0.7
+
+
+def phase_w8a8_gemm(device, timer, card):
+    """One FFN product at Llama-7B's shapes four ways: bf16 ``F.linear``
+    (the fp lane's), W8A16 (``int8_matmul``: the weight dequantized per
+    call), W8A8 with the weight quantized per call (``int8_w8a8_matmul``)
+    and pre-quantized (``int8_w8a8_matmul_prequant``: the W8A8 lane's),
+    and the int32 contraction alone (``int8_mm``, 16 rows padded to 24);
+    each timed by CUDA events after an L2 flush, beside the bound of the
+    int8 weight's bytes at 3.35 TB/s (and the bf16 weight's), with each
+    output's largest error over the bf16 product's largest value
+    (``max_rel_err``, under ``W8A8_REL_ERR``). The two W8A8 functions
+    must agree bit for bit."""
+    import torch.nn.functional as F
+    from hetu_tpu_torch.ops import quantization as qz
+    gen = torch.Generator(device=device).manual_seed(SEED + 19)
+    for k, n in W8A8_GEMM_SHAPES:
+        w = torch.randn(n, k, generator=gen, device=device,
+                        dtype=torch.bfloat16) * 0.02
+        wq, ws = qz.quantize_int8(w, axis=-1)
+        for m in W8A8_GEMM_ROWS:
+            x = torch.randn(m, k, generator=gen, device=device,
+                            dtype=torch.bfloat16)
+            xq = qz.quantize_int8(x)[0]
+            fns = {"bf16": lambda: F.linear(x, w),
+                   "w8a16": lambda: qz.int8_matmul(x, wq.t(), ws.t()),
+                   "w8a8": lambda: qz.int8_w8a8_matmul(x, w.t()),
+                   "w8a8_prequant": lambda: qz.int8_w8a8_matmul_prequant(
+                       x, wq.t(), ws)}
+            outs = {name: fn() for name, fn in fns.items()}
+            ref = outs["bf16"].float()
+            top = float(ref.abs().max())
+            err = {name: float((o.float() - ref).abs().max()) / top
+                   for name, o in outs.items() if name != "bf16"}
+            same = bool(torch.equal(outs["w8a8"], outs["w8a8_prequant"]))
+            ms = {f"{name}_ms": timer(fn) for name, fn in fns.items()}
+            ms["int8_mm_ms"] = timer(lambda: qz.int8_mm(xq, wq.t()))
+            emit(phase="w8a8_gemm", card=card, shape=[m, k, n], **ms,
+                 bound_ms=n * k / HBM_BYTES_PER_S * 1e3,
+                 bound_by="bytes (the int8 weight)",
+                 bf16_bound_ms=2 * n * k / HBM_BYTES_PER_S * 1e3,
+                 max_rel_err=err["w8a8"],
+                 prequant_max_rel_err=err["w8a8_prequant"],
+                 w8a16_max_rel_err=err["w8a16"], w8a8_bit_equal=same)
+            check(all(e < W8A8_REL_ERR for e in err.values()),
+                  f"w8a8_gemm {[m, k, n]}: relative errors {err}")
+            check(same, f"w8a8_gemm {[m, k, n]}: the per-call and the "
+                        f"pre-quantized W8A8 products differ")
+        del w, wq, ws
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def w8a8_trees(model) -> list:
+    """One ``prequantize`` tree a layer of ``model``'s current weights:
+    the oracles' own, never the engine's."""
+    return [blk.mlp.prequantize() for blk in model.blocks]
+
+
+def tree_bytes(trees) -> int:
+    return sum(t.numel() * t.element_size() for tree in trees
+               for leaf in tree.values() for t in leaf.values())
+
+
+def tree_sums(trees) -> list:
+    return [checksum(t) for tree in trees for leaf in tree.values()
+            for t in leaf.values()]
+
+
+def int8_gemm_kernels(device, shapes) -> set:
+    """The names of the kernels ``torch._int_mm`` launches at each (rows,
+    in, out) of ``shapes`` (one layer's products as the lane runs them,
+    rows padded as ``int8_mm`` pads them), from the profiler over a few
+    calls of each: the int8 GEMM's own kernels. Late in a long process a
+    window of short launches has recorded no kernel at all, so an empty
+    window is profiled again, up to three in all."""
+    from torch.profiler import ProfilerActivity, profile
+    ops = [(torch.zeros(m, k, dtype=torch.int8, device=device),
+            torch.zeros(n, k, dtype=torch.int8, device=device).t())
+           for m, k, n in shapes]
+    for a, b in ops:
+        torch._int_mm(a, b)
+    torch.cuda.synchronize()
+    for window in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                for a, b in ops:
+                    torch._int_mm(a, b)
+            torch.cuda.synchronize()
+        counts: dict = {}
+        device_kernel_ms(prof, counts)
+        if counts:
+            return set(counts)
+        emit(phase="profile_retry", of="int8_gemm_kernels",
+             window=window + 1, windows=3)
+    check(False, "the profiler recorded no int8 GEMM kernel")
+    return set()
+
+
+def replay_int8_gemms(phase, eng, names: set, launches: int,
+                      replays: int = 3) -> dict:
+    """Profile ``replays`` replays of ``eng``'s decode lane: kernels named
+    in ``names`` (``int8_gemm_kernels``) must launch ``launches`` times a
+    replay, one a product (a lane whose FFN ran in the compute dtype
+    shows none). Returns those launches and their device ms a replay,
+    and the replay's busy device ms."""
+    from torch.profiler import ProfilerActivity, profile
+    lane = eng.lanes["decode"]
+    lane.replay()
+    torch.cuda.synchronize()
+    for window in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(replays):
+                lane.replay()
+            torch.cuda.synchronize()
+        counts: dict = {}
+        by_name = device_kernel_ms(prof, counts)[0]
+        if any(name in counts for name in names):
+            break
+        emit(phase="profile_retry", of=phase, window=window + 1, windows=3)
+    seen = sum(counts.get(name, 0) for name in names) / replays
+    check(seen == launches, f"{phase}: {seen} int8 GEMM launches a replay, "
+          f"expected {launches}: the W8A8 lane did not run as built")
+    return dict(int8_gemm_launches_per_replay=seen,
+                int8_gemm_expected=launches,
+                int8_gemm_ms_per_replay=sum(by_name.get(n, 0.0)
+                                            for n in names) / replays,
+                int8_gemm_kernels=sorted(n[:90] for n in names),
+                device_busy_ms_per_replay=sum(by_name.values()) / replays)
+
+
+def oracle_self_noise(model, reqs, new, trees) -> dict:
+    """How far two runs of one dense oracle lie apart when only their
+    chunking differs (the prompt in 256- and in 128-token chunks: other
+    GEMM shapes, other last bits), in bf16 and under the W8A8 decode, on
+    ``reqs``' own tokens: the first-token |dlogit| and the shortfall of
+    one run's best token under the other. W8A8's quantize is
+    discontinuous, so a last-bit difference before it can flip a code."""
+    out = {}
+    for name, w8a8 in (("bf16", None), ("w8a8", trees)):
+        dlogit = short = 0.0
+        for r in reqs:
+            prompt, got = r.prompt.tolist(), list(r.tokens)
+            a = forced_logits(model, prompt, got, torch.int8, w8a8=w8a8)
+            b = forced_logits(model, prompt, got, torch.int8, chunk=128,
+                              w8a8=w8a8)
+            dlogit = max(dlogit, max_err(a[0], b[0]))
+            best = a.argmax(-1, keepdim=True)
+            short = max(short, float((b.max(-1).values
+                                      - b.gather(1, best)[:, 0]).max()))
+        out[name] = dict(first_token_max_abs_dlogit=dlogit,
+                         max_shortfall=short)
+    return dict(requests=len(reqs), **out)
+
+
+def phase_llama_w8a8(device, card, model, llama_perf):
+    """Llama-7B (bf16, int8 arena) at ``llama_engine``'s settings with
+    ``w8a8="on"``: every layer's decode-lane FFN contracts int8
+    activations with int8 weights (``_int_mm``), against a tree quantized
+    once at construction; the prefill lane stays bf16. The 64-request
+    workload (counters zeroed just before, read just after: #1 and #2 as
+    in ``llama_engine``), one capture a lane, every request within
+    ``DLOGIT_BF16`` and ``TIE_W8A8`` of the dense oracle teacher-forced
+    on its tokens under the same W8A8 decode (``forced_logits(w8a8=)``,
+    its own tree); the shared batch read against the bf16 oracle too,
+    with no bound (how far W8A8 moves the logits), and the oracle's own
+    noise (``oracle_self_noise``). TPOT, tokens/s and one decode replay's
+    device ms beside ``llama_engine``'s; the int8 GEMM kernels in a
+    replay's profile; the tree's bytes. Then ``llama_w8a8_swap``.
+    Returns the main path's launch counts."""
+    from hetu_tpu_torch.core import BF16_FULL, autocast
+    from hetu_tpu_torch.engine import trace_counts
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.ops.quantization import INT_MM_MIN_ROWS
+    from hetu_tpu_torch.serving import SamplingParams, ServingEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = model.cfg
+    L, vocab = cfg.num_layers, cfg.vocab_size
+    burst, shared = llama_workload(vocab)
+    new = 64
+    sp = SamplingParams(max_tokens=new)
+    t0 = time.perf_counter()
+    with autocast(BF16_FULL):
+        before = trace_counts()
+        base = torch.cuda.memory_allocated()
+        eng = ServingEngine(model, slots=LLAMA_SLOTS, max_len=LLAMA_MAX_LEN,
+                            prefill_chunk=LLAMA_CHUNK,
+                            block_size=LLAMA_BLOCK, cache_dtype=torch.int8,
+                            seed=SEED, device=device,
+                            record_first_logits=True, w8a8="on")
+        tree = tree_bytes(eng._w8a8_wq)
+        emit(phase="llama_w8a8_setup", config="LlamaConfig.llama_7b",
+             dtype="bfloat16", cache_dtype="int8", w8a8="on",
+             w8a8_layers=sum(eng._w8a8_mask), tree_bytes=tree,
+             arena_bytes=eng.pool.nbytes(),
+             engine_allocated_bytes=torch.cuda.memory_allocated() - base,
+             allocated_bytes=torch.cuda.memory_allocated(),
+             lanes=capture_stats(eng), seconds=time.perf_counter() - t0)
+        check(eng._w8a8_mask == (True,) * L,
+              f"llama_w8a8: mask {eng._w8a8_mask}")
+        check_captures("llama_w8a8_setup", eng, before)
+
+        # ---- the main path: counters zeroed just before, read after ----
+        reset_launch_counts()
+        run = serve(eng, burst, shared, sp)
+        counts = launch_counts()
+        iters = dict(eng.lane_iters)
+        # ---------------------------------------------------------------
+    check_captures("llama_w8a8", eng, before)
+    check_launches("llama_w8a8_launches", counts, iters, L,
+                   paged="paged_attention_int8")
+    reqs, reqs2 = run["reqs"], run["reqs2"]
+    bad = [r for r in reqs + reqs2 if r.status != "done"]
+    check(not bad, f"llama_w8a8: {len(bad)} requests did not finish")
+    gen_tokens = sum(len(r.tokens) for r in reqs)
+    timings = [r.timing() for r in reqs]
+    tpot = [t["decode_ms"] / (len(r.tokens) - 1)
+            for t, r in zip(timings, reqs) if len(r.tokens) > 1]
+    perf = dict(burst_tokens_per_s=gen_tokens / run["t_burst"],
+                burst_ms_per_step=run["t_burst"] / run["steps"] * 1e3,
+                ttft_ms_p50=percentile([t["ttft_ms"] for t in timings], 50),
+                tpot_ms_p50=percentile(tpot, 50),
+                tpot_ms_p99=percentile(tpot, 99),
+                shared_tokens_per_s=sum(len(r.tokens) for r in reqs2)
+                / run["t_shared"])
+    emit(phase="llama_w8a8", card=card, burst_requests=len(reqs),
+         burst_generated_tokens=gen_tokens, burst_seconds=run["t_burst"],
+         burst_steps=run["steps"], burst_lane_iterations=run["it_burst"],
+         **perf, bf16={k: llama_perf[k] for k in perf},
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+    t1 = time.perf_counter()
+    trees = w8a8_trees(model)
+    with autocast(BF16_FULL):
+        sound = oracle(model, reqs + reqs2, new, vocab, w8a8=trees)
+        fp = oracle(model, reqs2, new, vocab)
+        noise = oracle_self_noise(model, reqs2[:8], new, trees)
+    del trees
+    emit(phase="llama_w8a8_oracle", dtype="bfloat16", **sound,
+         dlogit_bound=DLOGIT_BF16, tie_bound=TIE_W8A8, against_bf16_oracle=fp,
+         oracle_self_noise=noise, seconds=time.perf_counter() - t1)
+    check_held("llama_w8a8 against the W8A8 oracle", sound, DLOGIT_BF16,
+               TIE_W8A8)
+
+    with autocast(BF16_FULL):
+        phase_profile(eng, burst[:LLAMA_SLOTS], SamplingParams(max_tokens=96),
+                      phase="llama_w8a8_decode_profile",
+                      classes=LLAMA_CLASSES, steady_decode=True)
+        split = phase_step_split(eng, burst[:LLAMA_SLOTS],
+                                 SamplingParams(max_tokens=48),
+                                 "llama_w8a8_step_split")
+        rows = max(LLAMA_SLOTS, INT_MM_MIN_ROWS)
+        names = int8_gemm_kernels(device, (
+            (rows, cfg.hidden_size, cfg.intermediate_size),
+            (rows, cfg.intermediate_size, cfg.hidden_size)))
+        seen = replay_int8_gemms("llama_w8a8_profile", eng, names, 3 * L)
+    emit(phase="llama_w8a8_profile", card=card,
+         replay_device_ms_median=split["replay_device_ms_median"],
+         bf16_replay_device_ms_median=llama_perf["replay_device_ms_median"],
+         **seen)
+    llama_w8a8_swap(card, eng, before)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def llama_w8a8_swap(card, eng, before):
+    """``swap_params`` on the W8A8 engine: 8 fresh shared-prompt requests
+    (16 new tokens) served before; a swap to a seed-1 init with the tree's
+    re-quantize skipped (the stale tree ``hetu_tpu``'s regression test
+    guards against) must fail the W8A8 oracle of the new weights; the swap
+    with the re-quantize (timed) writes the new codes into the same
+    tensors, and serves within that oracle, every request's tokens
+    changed; the swap back (timed) restores the tree bit for bit and the
+    first tokens bit for bit. One capture a lane throughout."""
+    from hetu_tpu_torch.core import BF16_FULL, autocast
+    from hetu_tpu_torch.models import LlamaLMHeadModel
+    from hetu_tpu_torch.nn.parallel import ParallelMLP
+    from hetu_tpu_torch.serving import SamplingParams
+
+    model = eng.model
+    cfg = model.cfg
+    prompts = llama_workload(cfg.vocab_size, seed=SEED + 13)[1][
+        :SWAP_REQUESTS]
+    sp = SamplingParams(max_tokens=SWAP_NEW)
+    t0 = time.perf_counter()
+    ptrs = [(leaf["q"].data_ptr(), leaf["scale"].data_ptr())
+            for tree in eng._w8a8_wq for leaf in tree.values()]
+    sums = tree_sums(eng._w8a8_wq)
+
+    def served():
+        with autocast(BF16_FULL):
+            reqs = [eng.submit(p, sp) for p in prompts]
+            eng.run_until_drained()
+        check(all(r.status == "done" for r in reqs),
+              "llama_w8a8_swap: requests unfinished")
+        return reqs
+
+    def reading(reqs):
+        trees = w8a8_trees(model)
+        with autocast(BF16_FULL):
+            got = oracle(model, reqs, SWAP_NEW, cfg.vocab_size, w8a8=trees)
+        del trees
+        return got
+
+    def swap(params):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        info = eng.swap_params(params)
+        torch.cuda.synchronize()
+        return info, (time.perf_counter() - ts) * 1e3
+
+    first = [list(r.tokens) for r in served()]
+    held_w = {n: p.detach().clone() for n, p in model.named_parameters()}
+    other = LlamaLMHeadModel(cfg, device=model.device, dtype=torch.bfloat16,
+                             seed=SEED + 1)
+    new_w = {n: p.detach() for n, p in other.named_parameters()}
+    del other
+    real = ParallelMLP.prequantize
+    ParallelMLP.prequantize = lambda self, into=None: into   # stale tree
+    try:
+        swap(new_w)
+    finally:
+        ParallelMLP.prequantize = real
+    stale = reading(served())
+    caught = not held(stale, DLOGIT_BF16, TIE_W8A8)
+    emit(phase="llama_w8a8_swap_fault", fault="tree_not_requantized",
+         **stale, dlogit_bound=DLOGIT_BF16, tie_bound=TIE_W8A8,
+         caught=caught)
+    check(caught, "llama_w8a8_swap: the W8A8 oracle passes a stale tree")
+    info, swap_ms = swap(new_w)
+    same_ptrs = ptrs == [(leaf["q"].data_ptr(), leaf["scale"].data_ptr())
+                         for tree in eng._w8a8_wq for leaf in tree.values()]
+    fresh = w8a8_trees(model)
+    requantized = all(torch.equal(a[k][m], b[k][m])
+                      for a, b in zip(eng._w8a8_wq, fresh)
+                      for k in a for m in ("q", "scale"))
+    del fresh
+    check(same_ptrs and requantized, f"llama_w8a8_swap: the tree was not "
+          f"re-quantized in place (same tensors {same_ptrs}, codes of the "
+          f"new weights {requantized})")
+    swapped = served()
+    sound = reading(swapped)
+    check_held("llama_w8a8_swap: the swapped weights against the W8A8 "
+               "oracle", sound, DLOGIT_BF16, TIE_W8A8)
+    differ = sum(list(r.tokens) != f for r, f in zip(swapped, first))
+    check(differ == len(prompts), f"llama_w8a8_swap: only {differ} of "
+          f"{len(prompts)} requests changed with the weights")
+    back, back_ms = swap(held_w)
+    again = [list(r.tokens) for r in served()]
+    tree_back = tree_sums(eng._w8a8_wq) == sums
+    check(tree_back and again == first, f"llama_w8a8_swap: after the swap "
+          f"back the tree (restored {tree_back}) or the tokens differ")
+    check_captures("llama_w8a8_after_swaps", eng, before)
+    emit(phase="llama_w8a8_swap", card=card, swap_ms=swap_ms,
+         swap_back_ms=back_ms, versions=[info["version"], back["version"]],
+         tree_bytes=tree_bytes(eng._w8a8_wq), requests=len(prompts),
+         new_tokens=SWAP_NEW, swapped_oracle=sound, swapped_differ=differ,
+         swap_back_bit_equal=again == first, tree_bit_equal=tree_back,
+         seconds=time.perf_counter() - t0)
+    del held_w, new_w
+
+
+def phase_llama_w8a8_spec(device, card, model):
+    """``llama_w8a8``'s engine with ``spec_depth=4`` (the n-gram
+    draftsman; the verify lane's 80 rows through the int8 products) on
+    ``spec_prompts`` at 64 new tokens: one capture a lane, #1 and #2 as in
+    ``llama_engine`` (counters zeroed just before, read just after), every
+    request within ``llama_w8a8``'s bounds of the W8A8 oracle; tokens a
+    slot-step, TPOT and tokens/s. Returns the launch counts."""
+    from hetu_tpu_torch.core import BF16_FULL, autocast
+    from hetu_tpu_torch.engine import trace_counts
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.serving import SamplingParams, ServingEngine
+
+    cfg = model.cfg
+    new = 64
+    t0 = time.perf_counter()
+    with autocast(BF16_FULL):
+        before = trace_counts()
+        eng = ServingEngine(model, slots=LLAMA_SLOTS, max_len=LLAMA_MAX_LEN,
+                            prefill_chunk=LLAMA_CHUNK,
+                            block_size=LLAMA_BLOCK, cache_dtype=torch.int8,
+                            seed=SEED, device=device,
+                            record_first_logits=True, w8a8="on",
+                            spec_depth=SPEC_DEPTH)
+        stats0 = dict(eng.spec_stats)
+        # ---- the main path: counters zeroed just before, read after ----
+        reset_launch_counts()
+        reqs, steps, wall = serve_stepped(eng, spec_prompts(cfg.vocab_size),
+                                          SamplingParams(max_tokens=new))
+        counts = launch_counts()
+        iters = dict(eng.lane_iters)
+        # ---------------------------------------------------------------
+    check_captures("llama_w8a8_spec", eng, before)
+    check_launches("llama_w8a8_spec_launches", counts, iters,
+                   cfg.num_layers, paged="paged_attention_int8")
+    spec = spec_reading(eng, reqs, steps, wall, stats0)
+    trees = w8a8_trees(model)
+    with autocast(BF16_FULL):
+        sound = oracle(model, reqs, new, cfg.vocab_size, w8a8=trees)
+    del trees
+    emit(phase="llama_w8a8_spec", card=card, spec_depth=SPEC_DEPTH,
+         requests=len(reqs), **spec, oracle=sound,
+         dlogit_bound=DLOGIT_BF16, tie_bound=TIE_W8A8,
+         phase_seconds=time.perf_counter() - t0)
+    check_held("llama_w8a8_spec against the W8A8 oracle", sound,
+               DLOGIT_BF16, TIE_W8A8)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def moe_w8a8_oracle(model, reqs, new, trees):
+    """Each request of the MoE W8A8 engine against the dense int8 oracle
+    teacher-forced on its tokens under the same W8A8 decode, routing
+    first: the oracle's gates record each row's routing margin
+    (``RoutingSpy``), and a step whose row (the position its logits come
+    from) some layer routed within ``NEAR_TIE`` of a tie is not compared
+    (the engine may have routed it the other way), as ``moe_engine``
+    compares no row its two runs routed differently. Returns ``oracle``'s
+    figures over the steps compared (``agree_share``: the share whose
+    token is the oracle's best), the steps left out, and the largest
+    shortfall over every step (``max_shortfall_all``)."""
+    vocab, L = model.cfg.vocab_size, model.cfg.num_layers
+    dlogit = worst = worst_all = 0.0
+    where, agree, skipped = None, 0, 0
+    for r in reqs:
+        prompt, got = r.prompt.tolist(), list(r.tokens)
+        check(len(got) == new and all(0 <= t < vocab for t in got),
+              f"MoE request {r.id}: bad token list")
+        spy = RoutingSpy(model, margins=True)
+        logits = forced_logits(model, prompt, got, torch.int8,
+                               chunk=MOE_CHUNK, w8a8=trees)
+        calls = spy.close()
+        check(bool(torch.isfinite(logits).all()),
+              f"MoE request {r.id}: non-finite oracle logits")
+        # each chunk calls every layer's gate once, in order; step j's
+        # logits come from position len(prompt) - 1 + j
+        margins = torch.stack([torch.cat([m for _, m in calls[layer::L]])
+                               for layer in range(L)]).min(0).values
+        near = margins[len(prompt) - 1:] < NEAR_TIE              # (new,)
+        skipped += int(near.sum())
+        idx = torch.tensor(got, device=logits.device)[:, None]
+        short = (logits.max(dim=-1).values
+                 - logits.gather(1, idx)[:, 0]).cpu()
+        worst_all = max(worst_all, float(short.max()))
+        if not near[0]:
+            dlogit = max(dlogit, max_err(r.first_logits, logits[0]))
+        agree += int(((short == 0) & ~near).sum())
+        short = torch.where(near, torch.zeros_like(short), short)
+        step = int(short.argmax())
+        if float(short[step]) > worst:
+            worst, where = float(short[step]), dict(request=r.id, step=step)
+    return dict(requests=len(reqs),
+                agree_share=agree / max(new * len(reqs) - skipped, 1),
+                first_token_max_abs_dlogit=dlogit, max_shortfall=worst,
+                max_shortfall_at=where, steps_not_compared=skipped,
+                max_shortfall_all=worst_all)
+
+
+def moe_w8a8_held(reading) -> bool:
+    return (reading["first_token_max_abs_dlogit"] <= DLOGIT_MOE_W8A8
+            and reading["agree_share"] >= AGREE_MOE_W8A8)
+
+
+def phase_moe_w8a8(device, card):
+    """``GPTConfig.moe_8e`` (fp32, random weights from a seed) at
+    ``moe_engine``'s settings from the int8 arena with ``w8a8="on"``:
+    each expert projection one int32 product over all 8 experts
+    (``MoEMLP._q_lane``). ``MOE_W8A8``'s requests, one capture a lane,
+    #1 and #2 as in ``moe_engine`` (counters zeroed just before, read
+    just after), held to the teacher-forced W8A8 decode
+    (``moe_w8a8_oracle``, ``moe_w8a8_held``); a planted fault (one layer's
+    ``wo`` codes rolled by one expert) must fail the same bounds.
+    Returns the launch counts."""
+    from hetu_tpu_torch.engine import trace_counts
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.ops.quantization import INT_MM_MIN_ROWS
+    from hetu_tpu_torch.serving import SamplingParams, ServingEngine
+
+    cfg = moe_cfg()
+    t0 = time.perf_counter()
+    model = moe_model(cfg, device, SEED).eval()
+    n_burst, n_shared, new = MOE_W8A8
+    burst, shared = workload(cfg.vocab_size)
+    sp = SamplingParams(max_tokens=new)
+    kw = dict(slots=16, max_len=512, prefill_chunk=64, block_size=16,
+              cache_dtype=torch.int8, seed=SEED, device=device,
+              record_first_logits=True, w8a8="on")
+    before = trace_counts()
+    eng = ServingEngine(model, **kw)
+    emit(phase="moe_w8a8_setup", config="GPTConfig.moe_8e", dtype="float32",
+         cache_dtype="int8", w8a8="on", layers=cfg.num_layers,
+         experts=cfg.num_experts, tree_bytes=tree_bytes(eng._w8a8_wq),
+         lanes=capture_stats(eng), seconds=time.perf_counter() - t0)
+    check_captures("moe_w8a8_setup", eng, before)
+    # ---- the main path: counters zeroed just before, read just after --
+    reset_launch_counts()
+    run = serve(eng, burst[:n_burst], shared[:n_shared], sp)
+    counts = launch_counts()
+    iters = dict(eng.lane_iters)
+    # ------------------------------------------------------------------
+    check_captures("moe_w8a8", eng, before)
+    check_launches("moe_w8a8_launches", counts, iters, cfg.num_layers,
+                   paged="paged_attention_int8")
+    reqs = run["reqs"] + run["reqs2"]
+    check(all(r.status == "done" for r in reqs),
+          "moe_w8a8: requests unfinished")
+    gen_tokens = sum(len(r.tokens) for r in run["reqs"])
+    hidden, T = cfg.mlp_ratio * cfg.hidden_size, kw["slots"]
+    names = int8_gemm_kernels(device, (
+        (max(T, INT_MM_MIN_ROWS), cfg.hidden_size,
+         cfg.num_experts * hidden),
+        (max(T * cfg.moe_top_k, INT_MM_MIN_ROWS), hidden,
+         cfg.num_experts * cfg.hidden_size)))
+    seen = replay_int8_gemms("moe_w8a8_profile", eng, names,
+                             2 * cfg.num_layers)
+    emit(phase="moe_w8a8", card=card, burst_requests=n_burst,
+         burst_generated_tokens=gen_tokens, burst_seconds=run["t_burst"],
+         burst_tokens_per_s=gen_tokens / run["t_burst"],
+         burst_steps=run["steps"], **seen)
+    t1 = time.perf_counter()
+    trees = w8a8_trees(model)
+    sound = moe_w8a8_oracle(model, reqs, new, trees)
+    bounds = dict(dlogit_bound=DLOGIT_MOE_W8A8, agree_bound=AGREE_MOE_W8A8)
+    emit(phase="moe_w8a8_oracle", **sound, **bounds,
+         seconds=time.perf_counter() - t1)
+    check(moe_w8a8_held(sound), f"moe_w8a8 against the W8A8 oracle: "
+          f"{sound} ({bounds})")
+    # the fault: one layer's down-projection codes rolled by one expert
+    # (each row reads the next expert's int8 weights there)
+    t1 = time.perf_counter()
+    codes = eng._w8a8_wq[cfg.num_layers // 2]["wo"]["q"]
+    good = codes.clone()
+    codes.copy_(good.roll(1, 0))
+    try:
+        fresh = workload(cfg.vocab_size, seed=SEED + 7)[0][:8]
+        freqs = [eng.submit(p, sp) for p in fresh]
+        eng.run_until_drained()
+    finally:
+        codes.copy_(good)
+    fault = moe_w8a8_oracle(model, freqs, new, trees)
+    del trees
+    caught = not moe_w8a8_held(fault)
+    emit(phase="moe_w8a8_oracle_fault", fault="wo_experts_rolled", **fault,
+         **bounds, caught=caught, seconds=time.perf_counter() - t1)
+    check(caught, "the MoE W8A8 oracle passes a planted fault")
+    check_captures("moe_w8a8_after_fault", eng, before)
+    # one decode replay on the device against the same engine with W8A8
+    # off, each after the same steady-decode window
+    steady = [p for p in workload(cfg.vocab_size, seed=SEED + 3)[0]
+              if len(p) <= 512 - 48][:16]
+    split = phase_step_split(eng, steady, SamplingParams(max_tokens=48),
+                             "moe_w8a8_step_split")
+    del eng
+    off = ServingEngine(model, **dict(kw, w8a8="off"))
+    split_off = phase_step_split(off, steady, SamplingParams(max_tokens=48),
+                                 "moe_int8_step_split")
+    emit(phase="moe_w8a8_replay", card=card,
+         replay_device_ms_median=split["replay_device_ms_median"],
+         w8a8_off_replay_device_ms_median=split_off[
+             "replay_device_ms_median"])
+    del off, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 LLAMA_CLASSES = KERNEL_CLASSES + (("nvjet", "matmul"),)
 
 
@@ -6529,6 +7193,7 @@ def main() -> int:
     phase_fused_kernel_times(device, timer, ops, batch, kernels)
     phase_llama_kernels(device, timer, ops, kernels)
     phase_verify_kernels(device, timer, ops, kernels)
+    phase_w8a8_gemm(device, timer, smi)
     paths["llama_engine"], model, llama_perf = phase_llama_engine(
         device, smi, timer)
     paths["llama_budget_engine"] = phase_llama_budget_engine(device, smi,
@@ -6540,6 +7205,8 @@ def main() -> int:
     paths["llama_tenancy"] = phase_llama_tenancy(device, smi, model, timer)
     paths["llama_server"] = phase_llama_server(device, smi, model,
                                                llama_perf)
+    paths["llama_w8a8"] = phase_llama_w8a8(device, smi, model, llama_perf)
+    paths["llama_w8a8_spec"] = phase_llama_w8a8_spec(device, smi, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -6593,6 +7260,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths["moe_engine"] = phase_moe_engine(device, smi)
+    paths["moe_w8a8"] = phase_moe_w8a8(device, smi)
     paths["gpt2_spec"] = phase_gpt2_spec(device, smi)
     paths["gpt2_spec_small_draft"] = phase_gpt2_spec_small_draft(device, smi)
     paths["gpt2_tenancy"] = phase_gpt2_tenancy(device, smi)

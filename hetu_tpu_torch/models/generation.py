@@ -64,7 +64,8 @@ def init_kv_caches(model, batch: int, max_len: int,
 
 @torch.no_grad()
 def decode(model, input_ids, positions, caches, *, slot_mask=None,
-           block_tables=None, row_mask=None, lora=None):
+           block_tables=None, row_mask=None, lora=None, w8a8_mask=None,
+           w8a8_wq=None):
     """Run a chunk through the model in decode mode; returns fp32 logits
     ``(b, s, V)`` and updates ``caches`` in place.
 
@@ -80,11 +81,15 @@ def decode(model, input_ids, positions, caches, *, slot_mask=None,
     ``{"ids": (b, s) pages, "pages": {proj: {"A": (L, P, in, r), "B":
     (L, P, r, out)}}}``) adds each token's adapter delta
     (``nn.parallel.lora_apply``); None is the base model, with no op
-    added."""
+    added. ``w8a8_mask`` (one bool a layer) sends each True layer's FFN
+    through its W8A8 lane, against ``w8a8_wq[l]`` (that layer's
+    ``prequantize`` tree) when given (``hetu_tpu/models/generation.py:
+    73-108``; ``StackedBlocks.decode``); None adds no op."""
     h = model.embed(input_ids, positions=positions)
     h = model.blocks.decode(h, caches, positions=positions,
                             slot_mask=slot_mask, block_tables=block_tables,
-                            row_mask=row_mask, lora=lora)
+                            row_mask=row_mask, lora=lora,
+                            w8a8_mask=w8a8_mask, w8a8_wq=w8a8_wq)
     return model.logits(model.hidden_norm(h))
 
 

@@ -112,15 +112,20 @@ class GPTBlock(nn.Module):
         x = x + dropout(h, self.resid_pdrop, generator_for(s2, x.device))
         return (x, aux) if self.returns_aux else x
 
-    def decode(self, x, kv_cache, *, lora=None, **kwargs):
+    def decode(self, x, kv_cache, *, lora=None, w8a8: bool = False,
+               w8a8_wq=None, **kwargs):
         """Decode mode; an MoE FFN runs its per-row top-k lane
         (``MoEMLP.decode``), as ``hetu_tpu``'s kv-cache branch does.
         ``lora`` (one layer's adapter pages) reaches attention and a dense
-        FFN; expert weights carry no adapter."""
+        FFN; expert weights carry no adapter. ``w8a8`` sends the FFN
+        through its W8A8 lane, against ``w8a8_wq`` (this layer's
+        ``prequantize`` tree) when given (``hetu_tpu/models/gpt.py:
+        115-136``); the MoE lane quantizes only with the tree."""
         x = x + self.attn.decode(self.ln_1(x), kv_cache, lora=lora, **kwargs)
         if self.returns_aux:
-            return x + self.mlp.decode(self.ln_2(x))
-        return x + self.mlp(self.ln_2(x), lora=lora)
+            return x + self.mlp.decode(self.ln_2(x), w8a8=w8a8, wq=w8a8_wq)
+        return x + self.mlp(self.ln_2(x), lora=lora, w8a8=w8a8,
+                            w8a8_wq=w8a8_wq)
 
 
 class GPTLMHeadModel(nn.Module):

@@ -117,15 +117,21 @@ class LlamaBlock(nn.Module):
         x = x + dropout(h, self.resid_pdrop, generator_for(s2, x.device))
         return (x, aux) if self.returns_aux else x
 
-    def decode(self, x, kv_cache, *, lora=None, **kwargs):
+    def decode(self, x, kv_cache, *, lora=None, w8a8: bool = False,
+               w8a8_wq=None, **kwargs):
         """Decode mode; an MoE FFN runs ``MoEMLP.decode``. ``lora`` (one
         layer's adapter pages) reaches attention and a dense FFN; expert
-        weights carry no adapter."""
+        weights carry no adapter. ``w8a8`` sends the FFN through its W8A8
+        lane, against ``w8a8_wq`` (this layer's ``prequantize`` tree)
+        when given (``hetu_tpu/models/llama.py:120-128``); the MoE lane
+        quantizes only with the tree."""
         x = x + self.attn.decode(self.input_norm(x), kv_cache, lora=lora,
                                  **kwargs)
         if self.returns_aux:
-            return x + self.mlp.decode(self.post_attn_norm(x))
-        return x + self.mlp(self.post_attn_norm(x), lora=lora)
+            return x + self.mlp.decode(self.post_attn_norm(x), w8a8=w8a8,
+                                       wq=w8a8_wq)
+        return x + self.mlp(self.post_attn_norm(x), lora=lora, w8a8=w8a8,
+                            w8a8_wq=w8a8_wq)
 
 
 class LlamaLMHeadModel(nn.Module):

@@ -20,10 +20,15 @@ forward with its load-balance auxiliary loss, and its decode lane.
   static shapes and no host sync, so it runs inside the serving engine's
   captured lanes. A batch-coupled gate (``BalanceGate``) cannot decode:
   its routing of one row depends on the rows batched with it.
+- Its W8A8 lane (``decode(w8a8=True, wq=MoEMLP.prequantize())``)
+  contracts int8 activations with int8 expert weights in int32, exactly
+  as ``hetu_tpu``'s gathered int8 einsums do, through one
+  ``torch._int_mm`` a projection over every expert at once (PyTorch has
+  no batched int8 product on CUDA): each expert's int8 weights are read
+  once, and each row keeps the columns of its chosen experts.
 
 Expert parallelism (the ep all-to-all, its overlap and the hierarchical
-exchange), the expert-plane telemetry and the W8A8 decode lane are not
-ported.
+exchange) and the expert-plane telemetry are not ported.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from torch import nn
 
 from hetu_tpu_torch.core.dtypes import current_policy
 from hetu_tpu_torch.ops.activations import gelu, swiglu
+from hetu_tpu_torch.ops.quantization import int8_mm, quantize_int8
 
 
 def _balance_aux(first_idx, probs, n: int):
@@ -337,16 +343,82 @@ class MoEMLP(nn.Module):
         out = torch.einsum("te,etd->td", combine, ye.float())
         return out.reshape(b, s, d).to(x.dtype), aux
 
-    def decode(self, x):
+    def _names(self) -> tuple:
+        return ("wi", "wo") + (("wg",) if self.gated else ())
+
+    @torch.no_grad()
+    def prequantize(self, into: Optional[dict] = None) -> dict:
+        """Quantize the expert stacks into the W8A8 lane's ``{name: {"q":
+        int8, "scale": fp32}}`` tree (``hetu_tpu/nn/moe.py:514``): per
+        (expert, output channel) over each product's contraction axis —
+        ``wi``/``wg`` ``(E, d, H)`` over d (scale ``(E, 1, H)``), ``wo``
+        ``(E, H, d)`` over H (scale ``(E, 1, d)``). ``q`` has the
+        weight's shape, and its codes are ``hetu_tpu``'s; it is stored
+        with the contraction axis innermost (a transposed view of an
+        ``(E, out, in)`` tensor), so the lane's ``(in, E out)`` operand is
+        the column-major view that ``torch._int_mm`` runs fastest. ``into``
+        (an earlier tree of this layer) re-quantizes the current weights
+        in place, into the same tensors."""
+        tree = {} if into is None else into
+        for name in self._names():
+            q, scale = quantize_int8(getattr(self, name), axis=1)
+            if into is None:
+                tree[name] = {"q": q.transpose(1, 2).contiguous()
+                              .transpose(1, 2), "scale": scale}
+            else:
+                tree[name]["q"].copy_(q)
+                tree[name]["scale"].copy_(scale)
+        return tree
+
+    def _q_lane(self, xc, idx, wgt, wq):
+        """``hetu_tpu``'s ``q_lane`` (``:579-604``): x quantized per token;
+        each projection one int32 product over every expert's columns,
+        ``(T, d) @ (d, E H)``, of which each row keeps its k experts'; the
+        rescale ``acc * x_scale * w_scale`` in that order. The hidden is
+        activated in fp32 and quantized per (row, choice) before the
+        down-projection, ``(T k, H) @ (H, E d)``."""
+        T = xc.shape[0]
+        rows = torch.arange(T, device=xc.device)[:, None]       # (T, 1)
+        xq, xs = quantize_int8(xc, axis=-1)                     # (T,d),(T,1)
+
+        def experts_mm(a, name):
+            """``a (M, in)`` int8 against every expert: (M, E, out)."""
+            q = wq[name]["q"]                                    # (E,in,out)
+            E, d_in, d_out = q.shape
+            acc = int8_mm(a, q.transpose(1, 2).reshape(E * d_out, d_in).t())
+            return acc.view(a.shape[0], E, d_out)
+
+        def up(name):
+            acc = experts_mm(xq, name)[rows, idx]                # (T,k,H)
+            ws = wq[name]["scale"][idx][:, :, 0, :]
+            return acc.float() * xs[:, :, None] * ws
+
+        h = up("wi")
+        h = swiglu(up("wg"), h) if self.gated else gelu(h)
+        hq, hs = quantize_int8(h, axis=-1)                      # (T,k,H)
+        k = idx.shape[1]
+        acc = experts_mm(hq.reshape(T * k, -1), "wo").view(T, k, -1,
+                                                           xc.shape[1])
+        acc = acc[rows, torch.arange(k, device=xc.device)[None, :], idx]
+        y = acc.float() * hs * wq["wo"]["scale"][idx][:, :, 0, :]
+        return torch.sum(wgt[..., None] * y, dim=1)
+
+    def decode(self, x, *, w8a8: bool = False, wq: Optional[dict] = None):
         """Per-row top-k through the chosen experts' gathered weights
         (``:533``, its fp lane): x (b, s, d) → (b, s, d) in x's dtype,
-        the k outputs summed in fp32 by gate weight."""
+        the k outputs summed in fp32 by gate weight. ``w8a8`` with ``wq``
+        (a :meth:`prequantize` tree) takes the W8A8 lane (:meth:`_q_lane`);
+        without a tree the fp lane runs, as in ``hetu_tpu``. The gate
+        routes in fp on either lane."""
         refuse_batch_coupled(self)
         b, s, d = x.shape
         xf = x.reshape(b * s, d)
         idx, wgt, _ = self.gate(xf)
         idx = idx.long()
         dt = current_policy().compute_dtype
+        if w8a8 and wq is not None:
+            out = self._q_lane(xf.to(dt), idx, wgt, wq)
+            return out.reshape(b, s, d).to(x.dtype)
         xc = xf.to(dt)[:, None, None, :]                     # (T, 1, 1, d)
         h = self._activate(xc, self.wi[idx].to(dt),          # (T, k, 1, H)
                            self.wg[idx].to(dt) if self.gated else None)

@@ -48,7 +48,10 @@ from hetu_tpu_torch.ops.attention import attention_reference, \
     attention_with_lse, flash_attention
 from hetu_tpu_torch.ops.dropout import split_seed
 from hetu_tpu_torch.ops.paged import combine_attention_lse, paged_attention
-from hetu_tpu_torch.ops.quantization import dequantize_int8, quantize_int8
+from hetu_tpu_torch.ops.quantization import (
+    dequantize_int8, int8_w8a8_matmul, int8_w8a8_matmul_prequant,
+    quantize_int8,
+)
 from hetu_tpu_torch.ops.rotary import apply_rotary, rope_tables
 
 
@@ -139,7 +142,11 @@ class ParallelMLP(nn.Module):
     Llama SwiGLU form ``fc_out(silu(gate_proj(x)) * up_proj(x))``
     (``gated=True``, ``hetu_tpu/nn/parallel.py:248-268``), each
     projection with its :func:`lora_apply` delta when ``lora`` is given
-    (``:318-330``). The W8A8 lane is not ported."""
+    (``:318-330``), and the W8A8 decode lane (``w8a8=True``, ``:332-370``):
+    both FFN products contract int8 activations (per token) with int8
+    weights (per output channel) in int32
+    (``ops.quantization.int8_w8a8_matmul_prequant``). Biases, the
+    activation and the adapter deltas stay in the compute dtype."""
 
     def __init__(self, features: int, hidden: int, *, bias: bool = True,
                  gated: bool = False, device=None, dtype=torch.float32):
@@ -153,7 +160,69 @@ class ParallelMLP(nn.Module):
             self.fc_in = ColumnParallelLinear(features, hidden, **kw)
         self.fc_out = RowParallelLinear(hidden, features, **kw)
 
-    def forward(self, x: torch.Tensor, lora=None) -> torch.Tensor:
+    def _names(self) -> tuple:
+        return (("gate_proj", "up_proj") if self.gated else ("fc_in",)) \
+            + ("fc_out",)
+
+    @torch.no_grad()
+    def prequantize(self, into: Optional[dict] = None) -> dict:
+        """Quantize this MLP's weight matrices into the W8A8 lane's
+        ``{name: {"q": int8 (out, in), "scale": fp32 (out, 1)}}`` tree:
+        per output channel over ``in``, the contraction axis, as
+        ``hetu_tpu`` quantizes its ``(in, out)`` weights over axis 0 (the
+        codes are its codes, transposed). ``q.t()`` is the ``(in, out)``
+        operand, column-major as ``torch._int_mm`` runs fastest on the
+        card. ``into`` (an earlier tree of this MLP) re-quantizes the
+        current weights in place, into the same tensors, so a captured
+        lane that reads them by address serves the new weights."""
+        tree = {} if into is None else into
+        for name in self._names():
+            q, scale = quantize_int8(getattr(self, name).weight, axis=-1)
+            if into is None:
+                tree[name] = {"q": q, "scale": scale}
+            else:
+                tree[name]["q"].copy_(q)
+                tree[name]["scale"].copy_(scale)
+        return tree
+
+    def _w8a8_lane(self, x, wq=None, lora=None):
+        """Both FFN products in int8 against ``wq`` (a :meth:`prequantize`
+        tree), or against weights quantized in this call when ``wq`` is
+        None; ``hetu_tpu``'s ``_w8a8_lane`` step for step. The bias
+        follows the int8 product; the in-projections' deltas read ``x``
+        (in the compute dtype), ``fc_out``'s reads the activated ``h``."""
+        dt = current_policy().compute_dtype
+        x = x.to(dt)
+
+        def mm(v, name):
+            if wq is not None:
+                return int8_w8a8_matmul_prequant(
+                    v, wq[name]["q"].t(), wq[name]["scale"], dtype=dt)
+            return int8_w8a8_matmul(v, getattr(self, name).weight.to(dt).t(),
+                                    dtype=dt)
+
+        def lin(name):
+            y = mm(x, name)
+            bias = getattr(self, name).bias
+            if bias is not None:
+                y = y + bias.to(dt)
+            return lora_apply(lora, name, x, y)
+
+        if self.gated:
+            h = swiglu(lin("gate_proj"), lin("up_proj"))
+        else:
+            h = gelu(lin("fc_in"))
+        y = mm(h, "fc_out")
+        if self.fc_out.bias is not None:
+            y = y + self.fc_out.bias.to(dt)
+        return lora_apply(lora, "fc_out", h, y)
+
+    def forward(self, x: torch.Tensor, lora=None, *, w8a8: bool = False,
+                w8a8_wq: Optional[dict] = None) -> torch.Tensor:
+        """The fp lane, or with ``w8a8`` the W8A8 lane (against
+        ``w8a8_wq``, a :meth:`prequantize` tree, when given)."""
+        if w8a8:
+            return self._w8a8_lane(x, wq=w8a8_wq, lora=lora)
         if self.gated:
             h = swiglu(lora_apply(lora, "gate_proj", x, self.gate_proj(x)),
                        lora_apply(lora, "up_proj", x, self.up_proj(x)))
@@ -521,21 +590,40 @@ class StackedBlocks(nn.ModuleList):
                 aux = aux + a
         return x if aux is None else (x, aux)
 
-    def decode(self, x, caches, *, lora=None, **kwargs):
+    def decode(self, x, caches, *, lora=None,
+               w8a8_mask: Optional[Sequence[bool]] = None,
+               w8a8_wq: Optional[Sequence[Optional[dict]]] = None,
+               **kwargs):
         """``caches``: ``(k, v)`` or the int8 ``(k, k scales, v, v
         scales)``, each ``(layers, …)``; updated in place. ``lora`` is the
         engine's adapter arena, ``{"ids": (b, s) pages, "pages": {proj:
         {"A": (L, P, in, r), "B": (L, P, r, out)}}}``: layer ``l`` gets
         its ``(P, …)`` slice of every projection's pages
-        (``hetu_tpu/nn/parallel.py:1105-1142``)."""
+        (``hetu_tpu/nn/parallel.py:1105-1142``).
+
+        ``w8a8_mask`` (one bool a layer) sends layer ``l``'s FFN through
+        its W8A8 lane where it is True, against ``w8a8_wq[l]`` (that
+        layer's ``prequantize`` tree) when ``w8a8_wq`` is given. JAX
+        carries the mask as data through ``lax.cond``; here each flag is
+        a Python bool, so a captured lane holds the chosen branch of each
+        layer and no data-dependent branch. A layer whose flag is False,
+        and every layer when ``w8a8_mask`` is None, gets no argument and
+        no op it did not get before."""
+        if w8a8_mask is not None and len(w8a8_mask) != len(self):
+            raise ValueError(f"w8a8_mask has {len(w8a8_mask)} entries for "
+                             f"{len(self)} layers")
         if lora:
             a = next(iter(lora["pages"].values()))["A"]
             sel, live = lora_select(lora["ids"], a.shape[1], a.shape[3],
                                     a.dtype)
         for layer, blk in enumerate(self):
+            kw = kwargs
             if lora:
-                kwargs["lora"] = {"sel": sel, "live": live, "pages": {
+                kw = dict(kw, lora={"sel": sel, "live": live, "pages": {
                     name: {"A": ab["A"][layer], "B": ab["B"][layer]}
-                    for name, ab in lora["pages"].items()}}
-            x = blk.decode(x, tuple(c[layer] for c in caches), **kwargs)
+                    for name, ab in lora["pages"].items()}})
+            if w8a8_mask is not None and w8a8_mask[layer]:
+                kw = dict(kw, w8a8=True, w8a8_wq=None if w8a8_wq is None
+                          else w8a8_wq[layer])
+            x = blk.decode(x, tuple(c[layer] for c in caches), **kw)
         return x

@@ -28,22 +28,27 @@ from hetu_tpu_torch.ops.paged import (
     combine_attention_lse, paged_attention, paged_attention_reference,
     paged_lane,
 )
-from hetu_tpu_torch.ops.quantization import dequantize_int8, quantize_int8
+from hetu_tpu_torch.ops.quantization import (
+    dequantize_int4, dequantize_int8, int8_matmul, int8_mm, int8_w8a8_matmul,
+    int8_w8a8_matmul_prequant, quantize_int4, quantize_int8,
+)
 from hetu_tpu_torch.ops.rotary import apply_rotary, rope_frequencies
 
 __all__ = [
     "NEG_INF", "apply_rotary", "attention_reference", "attention_with_lse",
     "chunked_lm_loss", "combine_attention_lse", "cross_entropy_mean",
-    "dequantize_int8", "dropout", "dropout_keep", "dropout_keep_bh",
-    "flash_attention",
+    "dequantize_int4", "dequantize_int8", "dropout", "dropout_keep",
+    "dropout_keep_bh", "flash_attention",
     "flash_attention_bwd", "flash_attention_bwd_reference",
     "flash_attention_fwd", "flash_attention_fwd_reference", "flash_lane",
     "fused_ce_dh", "fused_ce_dh_reference", "fused_ce_dw",
     "fused_ce_dw_reference", "fused_ce_fwd", "fused_ce_lane", "fused_lm_ce",
     "fused_lse_tgt", "fused_lse_tgt_reference",
-    "gather_block_rows", "gelu", "launch_counts", "layer_norm",
+    "gather_block_rows", "gelu", "int8_matmul", "int8_mm",
+    "int8_w8a8_matmul", "int8_w8a8_matmul_prequant", "launch_counts",
+    "layer_norm",
     "paged_attention", "paged_attention_reference", "paged_lane",
-    "quantize_int8",
+    "quantize_int4", "quantize_int8",
     "reset_launch_counts", "rms_norm", "rope_frequencies",
     "softmax_cross_entropy", "swiglu", "vocab_parallel_lm_loss",
 ]

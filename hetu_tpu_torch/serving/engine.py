@@ -138,14 +138,24 @@ place, so the captured lanes read them with no re-capture; it bumps
 ``weight_version`` on the engine and the pool and flushes the stale
 prefix-cache nodes.
 
+W8A8 decode (``w8a8=``, ``hetu_tpu/serving/engine.py:453-525``): with
+the int8 arena, the decode lane's FFNs of the chosen layers contract
+int8 activations with int8 weights (``ParallelMLP``'s W8A8 lane, or
+``MoEMLP``'s), against a tree quantized once when the engine is built
+(``_w8a8_wq``, one ``prequantize`` tree a chosen layer). The lane
+captures those tensors by address; the packed prefill lane stays fp, as
+in ``hetu_tpu``. :meth:`swap_params` re-quantizes the new weights into
+the same tensors, so the captured lane never serves stale int8 weights.
+The byte ledger (``engine/memory.py``) does not price the tree, as
+``hetu_tpu``'s does not.
+
 Not ported yet, and not accepted as arguments: the CP long-prompt lane
 (and with it the adapter refusal of that lane), the prefill/decode
-handoff, KV replication, W8A8 (off, as ``hetu_tpu``'s default), the SLO
-engine, the watchdog, the engine's own telemetry (the scheduler's and
-the spill arena's host ledgers stand in for its preemption and spill
-counters, ``spec_stats`` for its speculation counters, the tenant
-plane's ledgers and the registry's ``stats()`` for its tenancy
-counters; only ``swap_params`` counts into ``hetu_tpu_torch.telemetry``),
+handoff, KV replication, the SLO engine, the watchdog, the engine's own
+telemetry (the scheduler's and the spill arena's host ledgers stand in
+for its preemption and spill counters, ``spec_stats`` for its
+speculation counters, the tenant plane's ledgers and the registry's
+``stats()`` for its tenancy counters; only ``swap_params`` counts into ``hetu_tpu_torch.telemetry``),
 the spans and flight events of its lifecycle, ``load_adapter(path=)``
 (the dist-ckpt transport), and what only the router and fleet use: the
 spill arena's peer tier (``spill_peer``) and ``class_weights``; nor
@@ -198,6 +208,30 @@ _BOUNDARY_POLL_S = 1e-4
 _IDLE_SLEEP_S = 0.002
 
 
+def resolve_w8a8(w8a8, num_layers: int, *, quantized: bool,
+                 on_card: bool) -> Optional[tuple]:
+    """The per-layer W8A8 flags of the engine's ``w8a8`` option, or None
+    when it is off (``hetu_tpu/serving/engine.py:453-481``): ``"auto"``
+    is on with the int8 arena on the card, ``"on"``/True every layer, an
+    iterable of indices those layers; the last two raise ValueError
+    without the int8 arena."""
+    if w8a8 in (None, False, "off"):
+        return None
+    if w8a8 == "auto":
+        return (True,) * num_layers if quantized and on_card else None
+    if not quantized:
+        raise ValueError(
+            "w8a8 needs the int8 arena (cache_dtype=torch.int8): the "
+            "quantized-compute lane is gated on pools already accepting "
+            "8-bit error")
+    if w8a8 in (True, "on"):
+        return (True,) * num_layers
+    mask = [False] * num_layers
+    for layer in w8a8:
+        mask[int(layer)] = True
+    return tuple(mask)
+
+
 class ServingEngine:
     """Slot-pooled continuous-batching engine over one model.
 
@@ -241,7 +275,15 @@ class ServingEngine:
     ``SamplingParams(tenant=..., adapter=...)``; :meth:`evict_adapter`.
     With ``hbm_budget_bytes`` the arena's bytes
     (``engine.memory.size_adapter_arena``) come off the budget before the
-    KV arena is sized."""
+    KV arena is sized.
+
+    ``w8a8`` (``hetu_tpu``'s semantics): ``"off"``, None or False (the
+    default) keeps every FFN fp; ``"on"`` or True sends every layer's
+    decode-lane FFN through its W8A8 lane, an iterable of layer indices
+    those layers; either raises ValueError without the int8 arena
+    (``cache_dtype=torch.int8``). ``"auto"`` is on only with the int8
+    arena on the card (JAX's ``auto`` is on only on the TPU). The
+    resolved flags are ``_w8a8_mask`` (one bool a layer, or None)."""
 
     def __init__(self, model, *, slots: Optional[int] = None,
                  max_len: int = 256, prefill_chunk: int = 16,
@@ -252,7 +294,7 @@ class ServingEngine:
                  spill_host_budget_bytes: Optional[float] = None,
                  spec_depth: int = 0, draft_model=None,
                  tenancy: Union[None, bool, TenantPlane] = None,
-                 seed: int = 0, device=None,
+                 w8a8="off", seed: int = 0, device=None,
                  record_first_logits: bool = False):
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
@@ -403,6 +445,17 @@ class ServingEngine:
         #: max requests that can FINISH prefill in one iteration (each
         #: needs >= 1 pack token): the prefill lane's head width
         self._fin_cap = max(1, min(S, self.prefill_chunk))
+        self._w8a8_mask = resolve_w8a8(
+            w8a8, model.blocks.num_layers, quantized=self.pool.quantized,
+            on_card=self.device.type == "cuda")
+        #: the decode lane's pre-quantized W8A8 weights: one tree a layer
+        #: whose flag is set (None elsewhere), quantized once here and in
+        #: place by every swap_params
+        self._w8a8_wq = None
+        if self._w8a8_mask is not None:
+            self._w8a8_wq = [blk.mlp.prequantize() if on else None
+                             for blk, on in zip(model.blocks,
+                                                self._w8a8_mask)]
         self._init_operands()
         #: the step's lanes, each captured once (``StepGraph``)
         self.lanes = self._build_lanes()
@@ -457,7 +510,8 @@ class ServingEngine:
 
     def _build_lanes(self) -> dict:
         """The decode lane (``generation.decode`` over K+1 rows of every
-        slot: the verify lane) and the prefill lane (embed,
+        slot: the verify lane; with ``w8a8``, the chosen layers' FFNs on
+        their W8A8 lane) and the prefill lane (embed,
         ``blocks.decode(pack=...)``, then the head on the ``_fin_cap``
         finishing rows), each a :class:`StepGraph`
         captured now, with every slot masked and every pack row invalid.
@@ -467,6 +521,8 @@ class ServingEngine:
         over the engine, so dropping the engine frees the graphs."""
         model, caches, ops = self.model, self.pool.caches, self._ops
         K = self.spec_depth
+        w8a8 = {} if self._w8a8_mask is None else dict(
+            w8a8_mask=self._w8a8_mask, w8a8_wq=self._w8a8_wq)
         # a verify row past a slot's depth may lie past the model's
         # positions: its position is clamped (it writes nothing, and its
         # output is discarded); at K = 0 no row is masked
@@ -486,7 +542,7 @@ class ServingEngine:
             logits = generation.decode(
                 model, ops["dec_tok"], (ops["dec_pos"] + lane).clamp(max=top),
                 caches, slot_mask=ops["dec_mask"], block_tables=ops["bt"],
-                row_mask=ops.get("dec_rows"), lora=lora)
+                row_mask=ops.get("dec_rows"), lora=lora, **w8a8)
             return logits, logits.argmax(dim=-1)
 
         def decode_idle():
@@ -1456,7 +1512,11 @@ class ServingEngine:
         values are copied in place into the model's own tensors, so the
         captured lanes keep reading the tensors they captured (no
         re-capture). A mismatched mapping raises ValueError and a busy
-        engine RuntimeError, each with the weights bit-unchanged. Bumps
+        engine RuntimeError, each with the weights bit-unchanged. The
+        W8A8 tree (``w8a8=``) is re-quantized from the new weights into
+        its own tensors (``hetu_tpu/serving/engine.py:1693-1696``): the
+        decode lane reads them by address, so a new tree would leave it
+        serving the old weights. Bumps
         ``weight_version`` by one on the engine and
         the pool and flushes the prefix cache's stale nodes. A draft
         model's weights are not swapped (as in ``hetu_tpu``). Returns
@@ -1491,8 +1551,10 @@ class ServingEngine:
             with torch.no_grad():
                 for name, p in named.items():
                     p.copy_(params[name])
-            # the W8A8 decode lane that JAX re-quantizes here is not
-            # ported yet (ROADMAP.md, Queue 1 item 3)
+                for blk, tree in zip(self.model.blocks,
+                                     self._w8a8_wq or ()):
+                    if tree is not None:
+                        blk.mlp.prequantize(into=tree)
             self.weight_version += 1
             self.pool.weight_version = self.weight_version
             flushed = self.prefix_cache.set_version(self.weight_version)

@@ -6,6 +6,7 @@ beside ``chip_smoke.py``, whose phase functions they run:
     python3 port_probe.py fused             # fused CE rate against N, V
     python3 port_probe.py steps OLD NEW     # step times of two trees
     python3 port_probe.py serve OLD NEW     # serving bursts of two trees
+    python3 port_probe.py int8              # torch._int_mm's rows, layouts
 
 ``kernels`` builds every kernel, prints the ``ptxas`` report of the
 tensor-core instances and runs ``phase_kernels``, ``phase_train_kernels``
@@ -41,6 +42,13 @@ prefill_chunk=64)``, fp32) and its Llama-7B workload (bf16, int8 arena,
 tree's ``serve`` after a warm-up engine, and prints throughput, TTFT,
 TPOT and the lane iterations of each burst. ``serve-of TREE TAG`` is one
 such turn.
+
+``int8`` asks ``torch._int_mm`` (the W8A8 lane's int32 product) which
+row counts it takes on this card at Llama-7B's FFN shapes (4,096 ->
+11,008 and back) and GPT-2's, against a float64 product, and times it
+at 16-80 rows with the weight column-major (an ``(out, in)`` tensor's
+``.t()``, as the lane passes it) and row-major, beside bf16
+``F.linear``, each call after an L2-evicting write.
 
 Each line of output is one JSON object, as ``chip_smoke.py`` prints them.
 Without a CUDA device it exits nonzero at once.
@@ -254,6 +262,50 @@ def in_turns(verb: str, old: str, new: str) -> int:
     return rc
 
 
+def int8() -> int:
+    import torch.nn.functional as F
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    dev = torch.device("cuda", 0)
+    cs.emit(phase="device", nvidia_smi=cs.nvidia_smi(),
+            torch=torch.__version__, cuda=torch.version.cuda)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    for k, n in ((4096, 11008), (11008, 4096), (768, 3072), (3072, 768)):
+        wt = codes(n, k)
+        for m in (1, 8, 16, 17, 24, 80):
+            a = codes(m, k)
+            want = (a.double() @ wt.double().t()).long()
+            try:
+                got = torch._int_mm(a, wt.t())
+                cs.emit(phase="int8_rows", shape=[m, k, n],
+                        exact=bool(torch.equal(got.long(), want)))
+            except RuntimeError as err:
+                cs.emit(phase="int8_rows", shape=[m, k, n],
+                        refused=str(err).splitlines()[0])
+    timer = cs.Timer(dev)
+    for k, n in ((4096, 11008), (11008, 4096)):
+        wt = codes(n, k)
+        wrow = wt.t().contiguous()
+        wbf = torch.randn(n, k, generator=gen, device=dev,
+                          dtype=torch.bfloat16)
+        for m in (17, 24, 32, 80):
+            x = torch.randn(m, k, generator=gen, device=dev,
+                            dtype=torch.bfloat16)
+            a = codes(m, k)
+            cs.emit(phase="int8_time", shape=[m, k, n],
+                    bf16_linear_ms=timer(lambda: F.linear(x, wbf)),
+                    int_mm_column_major_ms=timer(
+                        lambda: torch._int_mm(a, wt.t())),
+                    int_mm_row_major_ms=timer(
+                        lambda: torch._int_mm(a, wrow)))
+    return 0
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("port_probe: no CUDA device is available", file=sys.stderr)
@@ -262,6 +314,8 @@ def main(argv) -> int:
         return kernels()
     if argv[:1] == ["fused"] and len(argv) == 1:
         return fused()
+    if argv[:1] == ["int8"] and len(argv) == 1:
+        return int8()
     if argv[:1] in (["steps"], ["serve"]) and len(argv) == 3:
         return in_turns(argv[0], argv[1], argv[2])
     if argv[:1] == ["steps-of"] and len(argv) == 3:
