@@ -2,11 +2,15 @@
 """Smoke run of the PyTorch/CUDA port (``hetu_tpu_torch``) on one NVIDIA
 GPU: builds the hand-written kernels, holds each against its plain
 PyTorch version, serves GPT-2 small through ``ServingEngine``, trains
-it with ``build_train_step``, serves Llama-7B from the int8 KV arena
+it with ``build_train_step``, serves Llama-7B (its width at 16 of its 32
+layers) from the int8 KV arena
 (also from an arena sized by an HBM budget, under preemption, and with
 speculative decoding), trains Llama at 7B width through ``Trainer`` and
 ``SFTTrainer``, with the chunked and with the fused LM head, saves and
-resumes that training, trains (BASELINE config 4) and serves GPT-MoE
+resumes that training, trains it on ragged batches through seq-len
+buckets, with split-phase accumulation and with Adafactor (every
+training step a captured CUDA graph), trains (BASELINE config 4) and
+serves GPT-MoE
 8-expert,
 serves GPT-2 drafting for itself and from a small draft model,
 fine-tunes Llama-7B at full depth with LoRA, serves Llama-7B and
@@ -94,13 +98,24 @@ Phases, each printing one JSON line:
    "selective", unroll=True)``, AdamW(1e-4, wd 0.01). First a step
    oracle: one fp32 step's loss and every grad with the kernels on the
    card against the same weights and batch on the CPU (plain path), at
-   batch 1. Then the batch ladder 32/16/8 (a CUDA out-of-memory error
-   steps down; any other error fails): 3 warm-up and 10 timed steps on
-   one repeated batch; the loss must fall, and the counters (zeroed just
-   before the timed steps) must read exactly 12 launches per step of
-   ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``. One step under
-   full remat must read 24/12/12. Step ms, tokens/s, MFU against the
-   989 TFLOP/s bf16 dense peak, the batch that ran and peak memory.
+   batch 1. Then batch 32 (the ladder's first rung): 3 warm-up and 10
+   timed steps on one repeated batch; the loss must fall, and the
+   counters (zeroed just before the timed steps) must read exactly 12
+   launches per step of ``flash_fwd``, ``flash_bwd_dq`` and
+   ``flash_bwd_dkv``. One step under full remat must read 24/12/12.
+   Step ms, tokens/s, MFU against the 989 TFLOP/s bf16 dense peak, the
+   batch that ran and peak memory. Every training step of the script is
+   captured (``engine/train_step.py``): the first call of a batch shape
+   runs the step and captures it, the others replay; each training phase
+   prints its graphs' captures and pool bytes, and runs its step body
+   once eagerly under ``torch.cuda.set_sync_debug_mode("error")``
+   (``<phase>_sync_free``: no host sync inside a step).
+   train_capture -- the captured step against its eager body: GPT-2
+   small at that batch, with dropout 0 and 0.1 (attention and
+   residual): 10 steps through ``Trainer.train_step`` against 10 of
+   ``TrainStep.body`` on a twin from the same seed, loss, grad norm and
+   every param bit-equal after each step, one capture, 120 launches of
+   each flash kernel; step ms of each and their profiles' idle shares.
 6. train_kernels -- the three flash kernels at the batch that ran (12
    heads, seq 1024, d 64, causal), fp32 and bf16, against their plain
    versions, then timed in bf16 as the main path runs them: the
@@ -130,9 +145,10 @@ Phases, each printing one JSON line:
    fused``): ``HETU_LM_LOSS_IMPL=fused`` (set for these phases and
    restored after), bf16 params and compute, the rest as in ``train``.
    First the fp32 step oracle of ``train`` with the fused loss (launches
-   exactly 1 per fused kernel and 12 per flash kernel), then the batch
-   ladder 48/32/16 with 3 warm-up and 10 timed steps: launches exactly
-   10 per fused kernel and 120 per flash kernel; then its profile, whose
+   exactly 1 per fused kernel and 12 per flash kernel), then batch 48
+   (the ladder's first rung) with 3 warm-up and 10 timed steps: launches
+   exactly 10 per fused kernel and 120 per flash kernel; then its
+   profile, whose
    ``lane`` lines put #5's, #6's and #7's device time under their
    tensor-core symbols.
 10. fused_ce times -- the three kernels at the combo's training shape (N
@@ -169,7 +185,8 @@ Phases, each printing one JSON line:
    int8 weight's bytes at 3.35 TB/s, and each output's largest error
    over the bf16 product's largest value, under 0.05; the two W8A8
    products bit-equal.
-12. llama_engine -- ``LlamaConfig.llama_7b`` (32 layers, hidden 4096,
+12. llama_engine -- ``LlamaConfig.llama_7b`` (hidden 4096, cut to 16 of
+   its 32 layers: ``LLAMA_SERVE_LAYERS``,
    bf16 params and compute under ``autocast(BF16_FULL)``, random weights
    from a seed) served by ``ServingEngine(slots=16, max_len=2048,
    prefill_chunk=256, block_size=16, cache_dtype=int8)``: 48 greedy
@@ -177,10 +194,9 @@ Phases, each printing one JSON line:
    that share a 512-token system prompt (three of them also share part
    of a block: copy-on-write); the engines are built under the bf16
    policy, so their lanes are captured once, as in ``engine``. Launches
-   exactly 32
-   ``paged_attention_int8`` per decode-lane iteration and 32
-   ``paged_attention_int8`` + 32 ``flash_fwd`` per prefill-lane
-   iteration. The oracle (bf16, ``decode`` over a dense int8 cache,
+   exactly one ``paged_attention_int8`` a layer per decode-lane
+   iteration and one ``paged_attention_int8`` + one ``flash_fwd`` a
+   layer per prefill-lane iteration. The oracle (bf16, ``decode`` over a dense int8 cache,
    teacher-forced on the engine's tokens) reads every step of all 64
    requests: the first-token logits must agree within ``DLOGIT_BF16``
    and the engine's token must lie within ``TIE_BF16`` of the oracle's
@@ -225,8 +241,8 @@ Phases, each printing one JSON line:
    the n-gram draftsman (n-grams up to 3) against the same engine
    without speculation, 16 greedy requests of 512 + 128 tokens, half of
    them a 32-token pattern repeated (``spec_prompts``): each lane
-   captured once, exactly 32 #1 launches per decode (verify) replay,
-   every request of both runs within the bf16 oracle's bounds; tokens a
+   captured once, exactly one #1 launch a layer per decode (verify)
+   replay, every request of both runs within the bf16 oracle's bounds; tokens a
    slot-step, acceptance rate, TPOT, tokens/s, decode-step host ms and a
    replay's device ms against spec-off. Then the acceptance sweep
    (``ReplayDrafts``: the spec-off run's tokens as drafts, flipped at 1.0,
@@ -272,8 +288,8 @@ Phases, each printing one JSON line:
    at ``llama_engine``'s settings, the engine built under ``BF16_FULL``
    and the server started from the main thread (the loop steps under the
    lanes' policy): the 48 burst prompts in the three client modes, every
-   request within the bf16 oracle (0.5 / 1.0), #1 exactly 32 a lane
-   replay, one capture a lane; latencies as in 4b. Then
+   request within the bf16 oracle (0.5 / 1.0), #1 exactly once a layer
+   a lane replay, one capture a lane; latencies as in 4b. Then
    ``llama_server_swap``: ``swap_params`` to a seed-1 init of the same
    config (bf16) refused while a request is in flight (every weight's
    checksum kept); drained, the swap (its ms and flushed prefix blocks,
@@ -310,8 +326,8 @@ Phases, each printing one JSON line:
    16 / alpha 32 on every projection (40 M params) through
    ``SFTTrainer.fit`` under ``masked(chain(clip_by_global_norm(1.0),
    adamw(1e-4)), lora_trainable_mask)``, bf16 compute, selective remat,
-   ``SFT_PAIRS`` at seq 2048, the first rung of 4 / 2 / 1 that fits; 3
-   warm-up and 10 timed steps: the loss falls, every base param keeps
+   ``SFT_PAIRS`` at seq 2048, batch 2 (4 does not fit); its eager body
+   once, then 3 warm-up and 10 timed steps: the loss falls, every base param keeps
    its bits, the optimizer holds the adapters alone, 32 launches a step
    of each flash kernel; then ``merge_lora`` loaded into the plain
    module tree: its fp32 last-position logits within ``TOL[fp32]`` times
@@ -385,6 +401,20 @@ Phases, each printing one JSON line:
    written, the save's blocking, write and load seconds (2 layers need
    about 8 GB; with under 12 GB free it runs at 1 layer and says so); the
    directory removed.
+   llama_train_buckets -- ragged pretraining through ``Trainer(
+   seq_buckets=(512, 1024, 2048))`` at Llama-7B width, 2 layers: 12
+   batches of 4 rows, real lengths from a seed over 100-2,048 (every
+   bucket hit), twice: 3 ``train_step`` captures, then none; every step
+   bit-equal to the eager body on a twin; the bucket stats, each
+   bucket's step ms, tokens/s and pool bytes, and the batches padded to
+   2,048 through one entry. llama_grad_accum -- four ``grad_step``s and
+   one ``apply_step`` against ``num_microbatches=4`` on one batch: the
+   params bit-equal (else within 1e-6 of the largest change), and
+   ``init_acc(like=)`` moving no allocated byte. llama_train_adafactor --
+   10 captured steps of ``adafactor(inverse_sqrt(1e-3))``, each bit-equal
+   to the eager body; then an fp16-scaler step with a planted ``inf``
+   under ``set_sync_debug_mode("error")``: the scale halves and no param
+   moves.
 26. moe_train_oracle -- one fp32 step of ``GPTConfig.moe_8e``'s width
    (768, 8 GELU experts of 3072, vocab 50257) at 1 layer with each gate
    (topk, ktop1, sam with 2 groups, balance), kernels on the card
@@ -484,12 +514,18 @@ C = 64                             # the engine's prefill chunk
 #: a second chunk -- then 5 pad tokens (segment -1)
 PACK = ((3, 20, 128), (7, 9, 0), (0, 30, 64))
 TRAIN_SEQ = 1024
-LADDER = (32, 16, 8)               # bench.py main()'s batch ladder
-FUSED_LADDER = (48, 32, 16)        # bench.py's fused-CE combo (bench.py:159)
+# bench.py main()'s batch ladder and its fused-CE combo's (bench.py:159):
+# the first rung fits (every run since the first), and a captured step is
+# never retried, so the phases run it alone
+LADDER = (32, 16, 8)
+FUSED_LADDER = (48, 32, 16)
 DROP_SEED = 1234
 FUSED = ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw")
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 FLASH_LANES = "tensor_core (bf16, d 64/128); cuda_core (fp32; bf16, other d)"
+
+
+START = time.perf_counter()
 
 
 class SmokeFailure(RuntimeError):
@@ -497,6 +533,8 @@ class SmokeFailure(RuntimeError):
 
 
 def emit(**obj) -> None:
+    """Print one phase record, stamped with the seconds since start (``at``)."""
+    obj.setdefault("at", round(time.perf_counter() - START, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -1433,32 +1471,70 @@ def phase_engine(device, card):
     return counts, dict(model=model, perf=perf, oracle=memo)
 
 
+#: prompts whose decode steps the oracle batches
+ORACLE_GROUP = 16
+
+
+@torch.no_grad()
+def oracle_generate(model, prompts, new, device, memo=None, tag="oracle"):
+    """Greedy one-shot generation (``generate``'s loop over a dense cache,
+    plain attention: no kernel) of ``new`` tokens for each prompt. Each
+    prompt prefills alone, into its own row of a shared dense cache (an
+    MoE prefill gathers each token's experts: a batch of them would not
+    fit); then ``ORACLE_GROUP`` rows of similar length decode together,
+    each at its own length under its own causal offset, as ragged
+    ``generate(prompt_lens=)`` does. Returns ``{prompt tuple: (tokens,
+    top-2 gaps)}`` for every prompt; ``memo`` (a dict) supplies and
+    receives them."""
+    from hetu_tpu_torch.models import decode, init_kv_caches
+    from hetu_tpu_torch.nn.moe import refuse_batch_coupled
+    refuse_batch_coupled(model)
+    dev = model.device
+    memo = {} if memo is None else memo
+    todo = sorted({tuple(p) for p in prompts} - memo.keys(), key=len)
+    for i in range(0, len(todo), ORACLE_GROUP):
+        part = todo[i:i + ORACLE_GROUP]
+        caches = init_kv_caches(model, len(part), len(part[-1]) + new)
+        rows = []
+        for r, p in enumerate(part):
+            rows.append(decode(model, torch.tensor([p], device=dev),
+                               torch.arange(len(p), device=dev)[None],
+                               tuple(c[:, r:r + 1] for c in caches))[0, -1])
+        plens = torch.tensor([len(p) for p in part], device=dev)
+        mask = torch.ones(len(part), dtype=torch.bool, device=dev)
+        seen = [torch.stack(rows)]
+        for t in range(new - 1):
+            seen.append(decode(model, seen[-1].argmax(-1)[:, None],
+                               (plens + t)[:, None], caches,
+                               slot_mask=mask)[:, -1])
+        logits = torch.stack(seen, dim=1)
+        check(bool(torch.isfinite(logits).all()),
+              f"{tag}: non-finite oracle logits")
+        top2 = torch.topk(logits, 2, dim=-1).values
+        gaps = (top2[..., 0] - top2[..., 1]).cpu()
+        toks = logits.argmax(-1).tolist()
+        for r, p in enumerate(part):
+            memo[p] = (toks[r], gaps[r])
+        del caches, seen, logits, top2
+    return memo
+
+
 def generate_oracle(phase, model, reqs, new, device, memo=None):
-    """Each request's greedy tokens against one-shot ``generate`` (dense
-    cache, plain attention: no kernel): equal, or diverging only at a
-    step where the oracle's top-2 logit gap is below 1e-4 (a near-tie,
-    printed). ``memo`` (a dict) keeps each prompt's oracle tokens and
-    top-2 gaps, so a later phase on the same model and prompts reads
-    them instead of generating again."""
-    from hetu_tpu_torch.models import generate
+    """Each request's greedy tokens against one-shot ``generate``
+    (``oracle_generate``): equal, or diverging only at a step where the
+    oracle's top-2 logit gap is below 1e-4 (a near-tie, printed).
+    ``memo`` (a dict) keeps each prompt's oracle tokens and top-2 gaps,
+    so a later phase on the same model and prompts reads them instead of
+    generating again."""
     t0 = time.perf_counter()
     vocab = model.cfg.vocab_size
-    near_ties, hits = [], 0
-    for r in reqs:
-        prompt = r.prompt.tolist()
-        if memo is not None and tuple(prompt) in memo:
-            want_toks, gaps = memo[tuple(prompt)]
-            hits += 1
-        else:
-            ids, logits = generate(model, [prompt], max_new_tokens=new,
-                                   device=device, return_logits=True)
-            check(bool(torch.isfinite(logits).all()),
-                  f"request {r.id}: non-finite oracle logits")
-            want_toks = ids[0, len(prompt):].tolist()
-            top2 = torch.topk(logits[0].float(), 2, dim=-1).values
-            gaps = (top2[:, 0] - top2[:, 1]).cpu()
-            if memo is not None:
-                memo[tuple(prompt)] = (want_toks, gaps)
+    memo = {} if memo is None else memo
+    prompts = [tuple(r.prompt.tolist()) for r in reqs]
+    hits = sum(p in memo for p in prompts)
+    oracle_generate(model, prompts, new, device, memo, tag=phase)
+    near_ties = []
+    for r, prompt in zip(reqs, prompts):
+        want_toks, gaps = memo[prompt]
         got = list(r.tokens)
         check(len(got) == new and all(0 <= t < vocab for t in got),
               f"request {r.id}: bad token list")
@@ -1684,6 +1760,43 @@ def launches_of(counts, names=FLASH) -> dict:
     return {k: counts.get(k, 0) for k in names}
 
 
+def release() -> None:
+    """Drop the process-wide step cache's entries (each pins its model,
+    its optimizer and its graphs' pools), collect, and hand the
+    allocator's free blocks back to the card."""
+    from hetu_tpu_torch.engine import get_step_cache
+    get_step_cache().clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def graph_info(step) -> dict:
+    """A captured step's graphs (``build_train_step``'s step, its
+    ``TrainStep``): captures and the bytes of their pools."""
+    return dict(captures=step.entry.captures, graphs=len(step.entry.graphs),
+                pool_bytes=step.entry.pool_bytes)
+
+
+def trainer_graphs(trainer) -> dict:
+    """``{bucket (0: the base entry): {captures, pool_bytes}}`` of a
+    trainer's train-step entries."""
+    return {str(b): dict(captures=c, pool_bytes=pb)
+            for b, (c, pb) in trainer.captures().items()}
+
+
+def sync_free(phase: str, fn):
+    """``fn()``, one eager run of a step body (what its graph captures),
+    under ``torch.cuda.set_sync_debug_mode("error")``: a host sync inside
+    it raises. Emits ``<phase>_sync_free``; returns ``fn()``."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    out = fn()
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    emit(phase=phase + "_sync_free", sync_debug_mode="error", ok=True)
+    return out
+
+
 @contextlib.contextmanager
 def fused_loss():
     """``HETU_LM_LOSS_IMPL=fused`` inside, the caller's value after."""
@@ -1756,6 +1869,13 @@ def check_step_held(phase, reading, want_launches) -> None:
           f"{want_launches}")
 
 
+def cpu_twin(model):
+    """A copy of ``model`` on the CPU, its weights taken from ``model``
+    (no seeded init on the host)."""
+    import copy
+    return copy.deepcopy(model).to("cpu")
+
+
 def train_oracle(cfg, device, fused: bool = False):
     """One fp32 step, kernels on the card against the plain path on the
     CPU (``hold_step``), at batch 1; ``fused``: under
@@ -1764,8 +1884,7 @@ def train_oracle(cfg, device, fused: bool = False):
     from hetu_tpu_torch.models import GPTLMHeadModel
     t0 = time.perf_counter()
     gpu = GPTLMHeadModel(cfg, device=device, seed=SEED + 1)
-    cpu = GPTLMHeadModel(cfg, device="cpu", seed=SEED + 1)
-    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    cpu = cpu_twin(gpu)
     batch = train_batch(cfg.vocab_size, 1, "cpu", seed=SEED + 1)
     reading = hold_step(gpu, cpu, batch, device)
     phase = "train_fused_oracle" if fused else "train_oracle"
@@ -1796,7 +1915,8 @@ def train_rung(model, opt, plan, b, device):
     metrics = []
     for _ in range(10):
         state, m = step(state, batch)
-        metrics.append(m)
+        # the step's static outputs: the next replay overwrites them
+        metrics.append({k: v.clone() for k, v in m.items()})
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / 10
     counts = launch_counts()
@@ -1818,7 +1938,7 @@ def phase_train(device, card):
     cfg = GPTConfig.small()
     train_oracle(cfg, device)
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
 
     model = GPTLMHeadModel(cfg, device=device, seed=SEED)
     n_params = sum(p.numel() for p in model.parameters())
@@ -1828,18 +1948,8 @@ def phase_train(device, card):
                                               unroll=True), device=device)
         plan_full = make_plan(model, opt, Strategy(remat="full"),
                               device=device)
-    run = None
-    for b in LADDER:
-        try:
-            run = train_rung(model, opt, plan, b, device)
-        except torch.cuda.OutOfMemoryError as e:
-            emit(phase="train_oom", batch=b, error=str(e)[:200])
-        if run is not None:
-            break
-        model.zero_grad(set_to_none=True)
-        gc.collect()
-        torch.cuda.empty_cache()
-    check(run is not None, f"no batch of {LADDER} fit")
+    b = LADDER[0]
+    run = train_rung(model, opt, plan, b, device)
     L = cfg.num_layers
     want = {"flash_fwd": 10 * L, "flash_bwd_dq": 10 * L,
             "flash_bwd_dkv": 10 * L}
@@ -1855,12 +1965,16 @@ def phase_train(device, card):
          flops_per_token=flops_per_token,
          peak_memory_bytes=run["peak"], warmup_seconds=run["warm_s"],
          losses=run["losses"], grad_norm_last=run["grad_norm"],
-         launches=got, expected=want)
+         launches=got, expected=want, graphs=graph_info(run["step"]))
     check(all(np.isfinite(run["losses"])), "non-finite training loss")
     check(run["losses"][-1] < run["losses"][0],
           f"loss did not fall: {run['losses']}")
     check(got == want, f"train launches {got}, expected {want} "
                        f"(12 per kernel per step, 10 steps)")
+    check(graph_info(run["step"])["captures"] == 1,
+          f"train: {graph_info(run['step'])} captures, expected 1")
+    run["state"], _ = sync_free("train", lambda: run["step"].body(
+        run["state"], run["batch"]))
 
     # full remat re-runs the flash forward in the backward: 24 per step
     step_full = build_train_step(model, opt, plan_full)
@@ -1985,7 +2099,7 @@ def phase_train_kernels(device, timer, ops, b, results):
                   errs)
         del got, want
         gc.collect()
-        torch.cuda.empty_cache()
+        release()
     for kernel in errs:
         for dtype, key in ((torch.float32, "max_abs_err"),
                            (torch.bfloat16, "max_abs_err_bf16")):
@@ -2275,7 +2389,7 @@ def phase_fused_kernels(device, ops):
 
 def phase_train_fused(device, card):
     """The fused-CE combo: the fused fp32 oracle, then the bf16-param
-    ladder 48/32/16, then its profile; ``HETU_LM_LOSS_IMPL=fused``
+    step at batch 48, then its profile; ``HETU_LM_LOSS_IMPL=fused``
     throughout."""
     from hetu_tpu_torch import optim
     from hetu_tpu_torch.core import Policy, autocast
@@ -2288,24 +2402,15 @@ def phase_train_fused(device, card):
     with fused_loss():
         train_oracle(cfg, device, fused=True)
         gc.collect()
-        torch.cuda.empty_cache()
+        release()
         model = GPTLMHeadModel(cfg, device=device, seed=SEED)
         n_params = sum(p.numel() for p in model.parameters())
         opt = optim.adamw(1e-4, weight_decay=0.01)
         with autocast(policy):
             plan = make_plan(model, opt, Strategy(remat="selective",
                                                   unroll=True), device=device)
-        run = None
-        for b in FUSED_LADDER:
-            try:
-                run = train_rung(model, opt, plan, b, device)
-            except torch.cuda.OutOfMemoryError as e:
-                emit(phase="train_fused_oom", batch=b, error=str(e)[:200])
-            if run is not None:
-                break
-            gc.collect()
-            torch.cuda.empty_cache()
-        check(run is not None, f"no batch of {FUSED_LADDER} fit")
+        b = FUSED_LADDER[0]
+        run = train_rung(model, opt, plan, b, device)
         dtypes = sorted({str(p.dtype) for p in model.parameters()})
         moments = sorted({str(v.dtype)
                           for st in run["state"].optimizer.state.values()
@@ -2325,7 +2430,9 @@ def phase_train_fused(device, card):
              flops_per_token=flops_per_token,
              peak_memory_bytes=run["peak"], warmup_seconds=run["warm_s"],
              losses=run["losses"], grad_norm_last=run["grad_norm"],
-             launches=got, expected=want)
+             launches=got, expected=want, graphs=graph_info(run["step"]))
+        run["state"], _ = sync_free("train_fused", lambda: run["step"].body(
+            run["state"], run["batch"]))
         check(dtypes == ["torch.bfloat16"], f"params are {dtypes}")
         check(moments == ["torch.float32"], f"AdamW moments are {moments}")
         check(all(np.isfinite(run["losses"])), "non-finite training loss")
@@ -2361,7 +2468,7 @@ def phase_fused_kernel_times(device, timer, ops, b, results):
     lse = want[0]
     del got, want
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
 
     calls = {"fused_ce_fwd": (lambda: ops.fused_ce_fwd(h, w, lab),
                               lambda: ops.fused_lse_tgt_reference(h, w, lab)),
@@ -2380,7 +2487,7 @@ def phase_fused_kernel_times(device, timer, ops, b, results):
     gemm_ms = timer(lambda: torch.mm(h, w.t(), out_dtype=torch.float32),
                     iters=3, warmup=1)
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     hg, wg = hid.detach().requires_grad_(), w.detach().requires_grad_()
     lib_both = timer(lambda: chunked_lm_loss(
         hg, wg, y, mm_dt=torch.bfloat16).backward(), iters=3, warmup=1)
@@ -2419,6 +2526,12 @@ def phase_fused_kernel_times(device, timer, ops, b, results):
 #: the Llama engine (ServingEngine(slots=16, max_len=2048,
 #: prefill_chunk=256, block_size=16, cache_dtype=int8))
 LLAMA_SLOTS, LLAMA_MAX_LEN, LLAMA_CHUNK, LLAMA_BLOCK = 16, 2048, 256, 16
+#: the served Llama's depth: 7B width at 16 of its 32 layers. The phases
+#: that serve it (llama_engine through llama_w8a8_spec) and their
+#: oracles cost time in proportion to the depth, most of it on the host
+#: (the b = 1 teacher-forced oracle launches a few hundred ops a layer
+#: and chunk), and the whole script must end within 1,200 s
+LLAMA_SERVE_LAYERS = 16
 #: one packed prefill chunk of the Llama engine: (slot, tokens, chunk start)
 #: per request run -- a sixth chunk of a long prompt, a new prompt, a
 #: second chunk -- then 16 pad tokens
@@ -2446,7 +2559,8 @@ TIE_FP32 = 1e-4
 #: reading of a planted fault (``FAULTS``). This script read, on an
 #: NVIDIA H100 80GB HBM3 at 700 W: fp32 sound |dlogit| 0.0065 and
 #: shortfall 0.0038, faults 2.60 and 2.33 at the least; bf16 sound 0.432
-#: and 0.438, faults 6.07 and 5.95 at the least
+#: and 0.438, faults 6.07 and 5.95 at the least (bf16 at 32 layers; the
+#: served model now has 16, whose rounding noise is smaller)
 DLOGIT_INT8_FP32 = 0.01
 TIE_INT8_FP32 = 0.02
 DLOGIT_BF16 = 0.5
@@ -2583,7 +2697,7 @@ def phase_llama_kernels(device, timer, ops, results):
                 timed[name] = t
             del q, kq, vq, ks, vs
             gc.collect()
-            torch.cuda.empty_cache()
+            release()
     results["paged_attention_int8"] = dict(
         name="paged_attention_int8", route="cuda",
         source="hetu_tpu_torch/csrc/paged_attention.cu",
@@ -2632,7 +2746,7 @@ def phase_llama_kernels(device, timer, ops, results):
                     {f"d128_decode_bf16_{k}": v for k, v in t.items()})
             del q, k, v, got, out, lse, ref_o, ref_l
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
 
     # ---- the flash forward (#2) at the Llama pack, d = 128 ----
     pack_seg = pack_segments(LLAMA_PACK, LLAMA_CHUNK)
@@ -2762,7 +2876,7 @@ def phase_verify_kernels(device, timer, ops, results):
         results[kernel][f"{name}_max_abs_err"] = err
         del q, k, v, sc
         gc.collect()
-        torch.cuda.empty_cache()
+        release()
 
 
 def llama_workload(vocab: int, seed: int = SEED):
@@ -2925,7 +3039,7 @@ def fault_readings(model, engine_kw, bounds, phase, cache_dtype):
              seconds=time.perf_counter() - t0)
         del eng, reqs
         gc.collect()
-        torch.cuda.empty_cache()
+        release()
     return caught
 
 
@@ -2957,6 +3071,8 @@ def phase_llama_engine(device, card, timer):
     before the main path and read just after. Then its oracle, its
     profile and the LM head's cast. Returns the counts and the model
     (the memory-pressure phases serve it next)."""
+    import dataclasses
+
     import torch.nn.functional as F
     from hetu_tpu_torch.core import BF16_FULL, autocast
     from hetu_tpu_torch.engine import trace_counts
@@ -2966,7 +3082,8 @@ def phase_llama_engine(device, card, timer):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = LlamaConfig.llama_7b()
+    cfg = dataclasses.replace(LlamaConfig.llama_7b(),
+                              num_layers=LLAMA_SERVE_LAYERS)
     t0 = time.perf_counter()
     model = LlamaLMHeadModel(cfg, device=device, dtype=torch.bfloat16,
                              seed=SEED).eval()
@@ -3109,7 +3226,7 @@ def phase_llama_engine(device, card, timer):
     check(same, "the held fp32 head copy changes the logits")
     del w32, h, eng
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     # read by llama_w8a8, beside its own (not printed again)
     perf["replay_device_ms_median"] = split["replay_device_ms_median"]
     return counts, model, perf
@@ -3233,7 +3350,7 @@ def phase_llama_budget_engine(device, card, model):
                TIE_BF16)
     del eng, reqs
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     return counts
 
 
@@ -3459,7 +3576,7 @@ def phase_llama_preempt(device, card, model):
             else:
                 del run["eng"], eng
                 gc.collect()
-                torch.cuda.empty_cache()
+                release()
     on, off = runs[True], runs[False]
     eng, audit = on["eng"], on["audit"]
     victims = [r for r in on["lo"] if r.preemptions]
@@ -3549,7 +3666,7 @@ def phase_llama_preempt(device, card, model):
     counts = on["counts"]
     del runs, on, off, eng, audit
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     return counts
 
 
@@ -3637,7 +3754,7 @@ def phase_llama_evict_resume(device, card, model):
           "run's")
     del a, b
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     return counts
 
 
@@ -3840,8 +3957,8 @@ def phase_llama_spec(device, card, model):
     llama_engine's settings with ``spec_depth=4`` and the n-gram
     draftsman against the same engine without speculation, on
     ``spec_prompts`` (16 greedy requests, 512 + 128 tokens). Each engine's
-    lanes captured once, exactly 32 #1 launches per decode (verify)
-    replay and #1 + #2 per prefill replay (counters zeroed just before
+    lanes captured once, exactly one #1 launch a layer per decode
+    (verify) replay and #1 + #2 per prefill replay (counters zeroed just before
     each run and read just after); every request of both runs within the
     bf16 oracle's bounds; printed: tokens a slot-step (``1 + accepted /
     slot_steps``), the acceptance rate, TPOT, tokens/s, the decode-only
@@ -4002,7 +4119,7 @@ def phase_llama_spec(device, card, model):
     counts = on["counts"]
     del runs, on, off, eng, ngram
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
 
     # ---- one preemption with speculation ----
     t1 = time.perf_counter()
@@ -4036,7 +4153,7 @@ def phase_llama_spec(device, card, model):
         check_captures(f"llama_spec_preempt_{p}", e)
     del pre, eng, lo, hi
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     emit(phase="llama_spec_seconds", seconds=time.perf_counter() - t0)
     return counts
 
@@ -4144,7 +4261,7 @@ def phase_gpt2_spec(device, card):
     check(captured() == once, f"gpt2_spec: re-captured: {captured()}")
     del eng, draft, model
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     return counts
 
 
@@ -4223,10 +4340,10 @@ def phase_llama_oracle_fp32(device):
                         f"int8 lane ({fault})")
         del reqs
         gc.collect()
-        torch.cuda.empty_cache()
+        release()
     del model
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
 
 
 # -- Llama training ----------------------------------------------------------
@@ -4274,8 +4391,7 @@ def phase_llama_train_oracle(device, fused: bool = False):
     t0 = time.perf_counter()
     cfg = llama_train_cfg(num_layers=1)
     gpu = LlamaLMHeadModel(cfg, device=device, seed=SEED + 1)
-    cpu = LlamaLMHeadModel(cfg, device="cpu", seed=SEED + 1)
-    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    cpu = cpu_twin(gpu)
     rng = np.random.default_rng(SEED + 1)
     docs = [rng.integers(0, cfg.vocab_size, n) for n in (100, 80, 60)]
     batch = to_tensors(pack_sequences(docs, 256).as_batch())
@@ -4289,7 +4405,7 @@ def phase_llama_train_oracle(device, fused: bool = False):
                      **{k: int(fused) for k in FUSED}})
     del gpu, cpu
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
 
 
 def timed_fit(trainer, run, steps: int, names=FLASH) -> dict:
@@ -4317,6 +4433,7 @@ def phase_llama_train(device, card, fused: bool = False,
     launched exactly once a step, printed ``beside`` the chunked run's
     figures."""
     from hetu_tpu_torch import optim
+    from hetu_tpu_torch.data import to_tensors
     from hetu_tpu_torch.engine import Trainer, TrainerConfig
     from hetu_tpu_torch.engine.trainer import flops_per_token
     from hetu_tpu_torch.models import LlamaLMHeadModel
@@ -4364,7 +4481,11 @@ def phase_llama_train(device, card, fused: bool = False,
          flops_per_token=fpt, trainer_record=rec,
          warmup_seconds=warm_s, losses_steps_1_2_3_13=losses,
          launches=run["counts"], expected=want,
+         graphs=trainer_graphs(trainer),
          **({"chunked_llama_train": beside} if beside else {}))
+    with fused_loss() if fused else contextlib.nullcontext():
+        sync_free(phase, lambda: trainer._step_fn.body(
+            trainer.state, to_tensors(batch)))
     check(all(np.isfinite(losses)), "non-finite Llama training loss")
     check(losses[-1] < losses[0], f"Llama loss did not fall: {losses}")
     check(run["counts"] == want, f"{phase} launches {run['counts']}, "
@@ -4418,7 +4539,7 @@ def phase_llama_train_kernels(device, timer, ops, batch, results):
                   errs)
         del got, want
         gc.collect()
-        torch.cuda.empty_cache()
+        release()
     results["flash_fwd"]["max_abs_err_bf16"] = max(
         results["flash_fwd"]["max_abs_err_bf16"], fwd_err)
     for kernel in errs:
@@ -4492,7 +4613,7 @@ def phase_llama_train_kernels(device, timer, ops, batch, results):
          "backward (library_fwd_bwd_ms)")
     del q, k, v, do, out, lse, qg, kg, vg
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
 
 
 def sft_pairs(vocab: int, seed: int = SEED):
@@ -4512,7 +4633,8 @@ def phase_llama_sft(device, card, pretrained):
     seq 2048, batch 4, ``shuffle=False``. The response-only loss must
     fall; each flash kernel must launch exactly twice a step."""
     from hetu_tpu_torch import optim
-    from hetu_tpu_torch.engine import SFTTrainer, TrainerConfig
+    from hetu_tpu_torch.data import to_tensors
+    from hetu_tpu_torch.engine import SFTTrainer, TrainerConfig, sft_batches
     from hetu_tpu_torch.models import LlamaLMHeadModel
     from hetu_tpu_torch.parallel import Strategy
 
@@ -4544,14 +4666,19 @@ def phase_llama_sft(device, card, pretrained):
          grad_norms_before_clip=[r["grad_norm"] for r in run["records"]],
          tokens_per_s=[r["tokens_per_sec"] for r in run["records"]][-1],
          peak_memory_bytes=torch.cuda.max_memory_allocated(),
-         launches=run["counts"], expected=want)
+         launches=run["counts"], expected=want,
+         graphs=trainer_graphs(trainer))
+    first = next(sft_batches(prompts, responses, seq_len=LLAMA_TRAIN_SEQ,
+                             batch_size=LLAMA_TRAIN_BATCH, shuffle=False))
+    sync_free("llama_sft", lambda: trainer._step_fn.body(
+        trainer.state, to_tensors(first)))
     check(all(np.isfinite(losses)), "non-finite SFT loss")
     check(losses[-1] < losses[0], f"SFT loss did not fall: {losses}")
     check(run["counts"] == want, f"llama_sft launches {run['counts']}, "
                                  f"expected {want}")
     del trainer, model
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     return run["counts"]
 
 
@@ -4601,7 +4728,7 @@ def phase_llama_fused_kernel_times(device, timer, ops, results, launches):
          h_dtype="bfloat16", w_dtype="bfloat16", identical=same)
     del got, want, again
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
 
     calls = {"fused_ce_fwd": (lambda: ops.fused_ce_fwd(h, w, lab),
                               lambda: ops.fused_lse_tgt_reference(h, w, lab)),
@@ -4618,7 +4745,7 @@ def phase_llama_fused_kernel_times(device, timer, ops, results, launches):
     gemm_ms = timer(lambda: torch.mm(h, w.t(), out_dtype=torch.float32),
                     iters=3, warmup=1)
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     hg, wg = hid.detach().requires_grad_(), w.detach().requires_grad_()
     lib_both = timer(lambda: chunked_lm_loss(
         hg, wg, y, mm_dt=torch.bfloat16).backward(), iters=3, warmup=1)
@@ -4721,14 +4848,14 @@ def phase_llama_ckpt(device, card):
             final_a = state_copy(a)
             del a
             gc.collect()
-            torch.cuda.empty_cache()
+            release()
             b = trainer(ckpt_dir=root, ckpt_every=5, async_ckpt=True)
             got = losses(b.train(itertools.repeat(batch), steps=5))
             save = b.last_save
             writer = save["writer"]
             del b
             gc.collect()
-            torch.cuda.empty_cache()
+            release()
             c = trainer()
             t0 = time.perf_counter()
             c.resume(root)
@@ -4744,7 +4871,7 @@ def phase_llama_ckpt(device, card):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     expect = {**{k: 20 * layers for k in FLASH}, **{k: 20 for k in FUSED}}
     emit(phase="llama_ckpt", card=card, layers=layers,
          config="LlamaConfig.llama_7b width", loss="fused",
@@ -4764,6 +4891,459 @@ def phase_llama_ckpt(device, card):
     check(counts == expect, f"llama_ckpt launches {counts}, expected "
                             f"{expect}")
     return counts
+
+
+# -- the captured training step (the step cache, buckets, accumulation) -------
+#: llama_train_buckets' ladder, batches (4 rows each) and real lengths
+LLAMA_BUCKETS = (512, 1024, 2048)
+RAGGED_BATCHES = 12
+RAGGED_MIN = 100
+
+
+def bit_equal_step(got: dict, want: dict, a, b) -> list:
+    """What differs between two steps' metrics (``loss``, ``grad_norm``)
+    and two models' params, bit for bit (names; empty when equal)."""
+    bad = [k for k in ("loss", "grad_norm")
+           if k in want and not torch.equal(got[k], want[k])]
+    for (n, p), q in zip(a.named_parameters(), b.parameters()):
+        if not torch.equal(p, q):
+            bad.append(n)
+    return bad
+
+
+def time_steps(fn, n: int) -> float:
+    """Mean ms of ``n`` calls of ``fn`` between two syncs."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def phase_train_capture(device, card, b):
+    """The captured step against its eager body: GPT-2 small at the
+    ``train`` phase's batch ``b`` (bf16 compute, selective remat, AdamW),
+    once with dropout 0 and once with ``attn_pdrop = resid_pdrop = 0.1``.
+    Ten steps through ``Trainer.train_step`` (captured) and ten of
+    ``TrainStep.body`` (eager) on a twin model from the same seed, on
+    ten batches: ``loss``, ``grad_norm`` and every param bit-equal after
+    every step; exactly one ``train_step`` capture; flash launches 12
+    each a step. Then the step ms of each (5 steps between syncs) and
+    each one's device idle share (``phase_train_profile``). Returns the
+    captured steps' launch counts of each run."""
+    import dataclasses
+    from hetu_tpu_torch import optim
+    from hetu_tpu_torch.core import BF16_COMPUTE, autocast
+    from hetu_tpu_torch.engine import (
+        Trainer, TrainerConfig, build_train_step, init_state, make_plan,
+        trace_counts,
+    )
+    from hetu_tpu_torch.models import GPTConfig, GPTLMHeadModel
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.parallel import Strategy
+
+    paths = {}
+    for drop in (0.0, 0.1):
+        t0 = time.perf_counter()
+        phase = "train_capture" + ("_dropout" if drop else "")
+        cfg = dataclasses.replace(GPTConfig.small(), attn_pdrop=drop,
+                                  resid_pdrop=drop)
+        strategy = Strategy(remat="selective", unroll=True)
+        opt = optim.adamw(1e-4, weight_decay=0.01)
+        model = GPTLMHeadModel(cfg, device=device, seed=SEED)
+        twin = GPTLMHeadModel(cfg, device=device, seed=SEED)
+        tr = Trainer(model, opt, strategy,
+                     config=TrainerConfig(precision="bf16", log_every=0,
+                                          prefetch=0), device=device)
+        tr.initialize()
+        with autocast(BF16_COMPUTE):
+            plan = make_plan(twin, opt, strategy, device=device)
+        tstate = init_state(twin, opt, plan)
+        tstep = build_train_step(twin, opt, plan)
+        before = trace_counts().get("train_step", 0)
+        flash = {k: 0 for k in FLASH}
+        differ, losses = [], []
+        for i in range(10):
+            batch = train_batch(cfg.vocab_size, b, device, seed=SEED + 10 + i)
+            reset_launch_counts()
+            m = tr.train_step(batch)
+            for k, v in launches_of(launch_counts()).items():
+                flash[k] += v
+            if i == 0:
+                tstate, tm = sync_free(phase, lambda: tstep.body(tstate,
+                                                                 batch))
+            else:
+                tstate, tm = tstep.body(tstate, batch)
+            bad = bit_equal_step(m, tm, model, twin)
+            if bad:
+                differ.append([i + 1, bad[:4]])
+            losses.append(float(m["loss"]))
+        captures = trace_counts().get("train_step", 0) - before
+        batch = train_batch(cfg.vocab_size, b, device, seed=SEED + 99)
+        captured_ms = time_steps(lambda: tr._step_fn(tr.state, batch), 5)
+        eager_ms = time_steps(lambda: tstep.body(tstate, batch), 5)
+        emit(phase=phase, card=card, config="GPTConfig.small", batch=b,
+             seq=TRAIN_SEQ, attn_pdrop=drop, resid_pdrop=drop,
+             policy="BF16_COMPUTE", remat="selective", steps=10,
+             bit_equal_steps=10 - len(differ), differ=differ[:3],
+             train_step_captures=captures, graphs=trainer_graphs(tr),
+             launches=flash, losses=losses,
+             step_ms_captured=captured_ms, step_ms_eager=eager_ms,
+             seconds=time.perf_counter() - t0)
+        check(not differ, f"{phase}: the captured steps differ from the "
+                          f"eager body at {differ[:3]}")
+        check(captures == 1, f"{phase}: {captures} train_step captures")
+        check(flash == {k: 10 * cfg.num_layers for k in FLASH},
+              f"{phase}: launches {flash}")
+        check(all(np.isfinite(losses)), f"{phase}: non-finite loss")
+        phase_train_profile(dict(state=tr.state, step=tr._step_fn,
+                                 batch=batch, batch_size=b),
+                            phase=phase + "_profile")
+        phase_train_profile(dict(state=tstate, step=tstep.body,
+                                 batch=batch, batch_size=b),
+                            phase=phase + "_eager_profile")
+        paths[phase] = flash
+        del tr, model, twin, tstate, tstep
+        release()
+    return paths
+
+
+def ragged_llama_batches(vocab: int, n: int, seed: int) -> list:
+    """``n`` batches of ``LLAMA_TRAIN_BATCH`` rows at width
+    ``LLAMA_TRAIN_SEQ`` (pad-to-max), each row's real length drawn from
+    ``seed`` over ``RAGGED_MIN``..2,048: batch j's longest row falls in
+    bucket j mod 3 of ``LLAMA_BUCKETS``, so every bucket is hit. Labels
+    are the next tokens, -100 past the real length."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for j in range(n):
+        cap = LLAMA_BUCKETS[j % len(LLAMA_BUCKETS)]
+        low = ([RAGGED_MIN - 1] + list(LLAMA_BUCKETS))[j % len(LLAMA_BUCKETS)]
+        lens = rng.integers(RAGGED_MIN, cap + 1, LLAMA_TRAIN_BATCH)
+        lens[0] = rng.integers(low + 1, cap + 1)
+        ids = rng.integers(0, vocab, (LLAMA_TRAIN_BATCH,
+                                      LLAMA_TRAIN_SEQ + 1)).astype(np.int32)
+        labels = np.full((LLAMA_TRAIN_BATCH, LLAMA_TRAIN_SEQ), -100, np.int32)
+        for r, n_real in enumerate(lens):
+            labels[r, :n_real] = ids[r, 1:n_real + 1]
+        out.append({"input_ids": ids[:, :-1].copy(), "labels": labels})
+    return out
+
+
+def llama_twin(cfg, opt, strategy, device):
+    """A second model from the same seed, its state and its step: the
+    eager body the captured steps are held to."""
+    from hetu_tpu_torch.core import BF16_COMPUTE, autocast
+    from hetu_tpu_torch.engine import build_train_step, init_state, make_plan
+    from hetu_tpu_torch.models import LlamaLMHeadModel
+    model = LlamaLMHeadModel(cfg, device=device, seed=SEED)
+    with autocast(BF16_COMPUTE):
+        plan = make_plan(model, opt, strategy, device=device)
+    return model, init_state(model, opt, plan), build_train_step(model, opt,
+                                                                 plan)
+
+
+def phase_llama_train_buckets(device, card):
+    """Ragged pretraining through ``Trainer(seq_buckets=(512, 1024,
+    2048))``: Llama-7B width, 2 layers, bf16 compute, selective remat,
+    ``chain(clip_by_global_norm(1.0), adamw(1e-4))``, 12 ragged batches
+    of 4 rows (``ragged_llama_batches``), then a second pass over them.
+    Exactly 3 ``train_step`` captures in the first pass and none in the
+    second; every step bit-equal to the eager body on a twin (its
+    batches fitted by a ``ShapeBucketer`` of the same ladder). Printed:
+    the bucket stats, each bucket's step ms (second pass), tokens/s and
+    pool bytes, and the same batches padded to 2,048 through one entry
+    (the pad-to-max comparison). Returns the captured steps' launch
+    counts."""
+    from hetu_tpu_torch import optim
+    from hetu_tpu_torch.data import SeqLenBuckets, ShapeBucketer, to_tensors
+    from hetu_tpu_torch.engine import Trainer, TrainerConfig, trace_counts
+    from hetu_tpu_torch.models import LlamaLMHeadModel
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.parallel import Strategy
+
+    t0 = time.perf_counter()
+    cfg = llama_train_cfg()
+    strategy = Strategy(remat="selective", unroll=True)
+    opt = optim.chain(optim.clip_by_global_norm(1.0), optim.adamw(1e-4))
+    model = LlamaLMHeadModel(cfg, device=device, seed=SEED)
+    tr = Trainer(model, opt, strategy,
+                 config=TrainerConfig(precision="bf16", log_every=0,
+                                      prefetch=0,
+                                      seq_buckets=LLAMA_BUCKETS),
+                 device=device)
+    tr.initialize()
+    twin, tstate, tstep = llama_twin(cfg, opt, strategy, device)
+    fitter = ShapeBucketer(SeqLenBuckets(sizes=LLAMA_BUCKETS))
+    batches = ragged_llama_batches(cfg.vocab_size, RAGGED_BATCHES, SEED + 7)
+    captures, differ, losses = [], [], []
+    per_bucket: dict = {}
+    flash = {k: 0 for k in FLASH}
+    for pas in (1, 2):
+        before = trace_counts().get("train_step", 0)
+        for j, batch in enumerate(batches):
+            fitted = fitter.fit(batch)
+            width = int(fitted["input_ids"].shape[1])
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t1 = time.perf_counter()
+            m = tr.train_step(batch)
+            torch.cuda.synchronize()
+            for k, v in launches_of(launch_counts()).items():
+                flash[k] += v
+            if pas == 2:
+                rec = per_bucket.setdefault(width, {"ms": [], "tokens": 0})
+                rec["ms"].append((time.perf_counter() - t1) * 1e3)
+                rec["tokens"] += int((batch["labels"] != -100).sum())
+            fitted = to_tensors(fitted, device)
+            step = lambda: tstep.body(tstate, fitted)
+            tstate, tm = sync_free("llama_train_buckets", step) \
+                if pas == 1 and j == 0 else step()
+            bad = bit_equal_step(m, tm, model, twin)
+            if bad:
+                differ.append([pas, j, bad[:4]])
+            losses.append(float(m["loss"]))
+        captures.append(trace_counts().get("train_step", 0) - before)
+    graphs = trainer_graphs(tr)
+    buckets = {str(w): dict(
+        steps=len(r["ms"]), step_ms=sum(r["ms"]) / len(r["ms"]),
+        real_tokens=r["tokens"],
+        real_tokens_per_s=r["tokens"] / (sum(r["ms"]) / 1e3),
+        pool_bytes=graphs[str(w)]["pool_bytes"])
+        for w, r in sorted(per_bucket.items())}
+    bucketed_ms = sum(sum(r["ms"]) for r in per_bucket.values())
+    # the same batches padded to 2,048 through the 2,048 entry
+    full = tr._bucket_entry(LLAMA_TRAIN_SEQ).step_fn
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for batch in batches:
+        tr.state, _ = full(tr.state, to_tensors(batch, device))
+    torch.cuda.synchronize()
+    padded_ms = (time.perf_counter() - t1) * 1e3
+    real = sum(int((b["labels"] != -100).sum()) for b in batches)
+    emit(phase="llama_train_buckets", card=card,
+         config="LlamaConfig.llama_7b width, 2 layers", policy="BF16_COMPUTE",
+         remat="selective", optimizer="chain(clip_by_global_norm(1.0), "
+         "adamw(1e-4))", seq_buckets=list(LLAMA_BUCKETS),
+         batches=RAGGED_BATCHES, rows=LLAMA_TRAIN_BATCH,
+         train_step_captures_by_pass=captures,
+         bit_equal_steps=2 * RAGGED_BATCHES - len(differ),
+         differ=differ[:3], bucket_stats=tr.bucketer.stats.to_record(),
+         by_bucket=buckets, graphs=graphs,
+         pass2_bucketed_ms=bucketed_ms, pad_to_max_ms=padded_ms,
+         pass2_real_tokens_per_s=real / (bucketed_ms / 1e3),
+         pad_to_max_real_tokens_per_s=real / (padded_ms / 1e3),
+         losses=losses, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         launches=flash, seconds=time.perf_counter() - t0)
+    check(flash == {k: 2 * RAGGED_BATCHES * cfg.num_layers for k in FLASH},
+          f"llama_train_buckets: launches {flash}")
+    check(captures == [3, 0], f"llama_train_buckets: captures by pass "
+                              f"{captures}, expected [3, 0]")
+    check(sorted(per_bucket) == list(LLAMA_BUCKETS),
+          f"llama_train_buckets: buckets hit {sorted(per_bucket)}")
+    check(not differ, f"llama_train_buckets: the captured steps differ "
+                      f"from the eager body at {differ[:3]}")
+    check(all(np.isfinite(losses)), "llama_train_buckets: non-finite loss")
+    del tr, model, twin, tstate, tstep, full
+    release()
+    return flash
+
+
+def phase_llama_grad_accum(device, card):
+    """Split-phase accumulation (``build_grad_accum_steps``) at Llama-7B
+    width, 2 layers: four ``grad_step``s (one packed row each,
+    ``accum_index`` 0-3) and one ``apply_step`` against one step of
+    ``Strategy(num_microbatches=4)`` on the same 4-row batch, from twin
+    models. The params after the update must be bit-equal (the sums run
+    in one order); else within 1e-6 of the largest |param change|.
+    Then a second update with ``donate_acc=False`` recycling the
+    accumulator (``init_acc(like=acc)``): ``torch.cuda.memory_allocated``
+    must not move across it, and each entry captures once. The
+    microbatched step and one grad step's body run once eagerly under
+    the sync check first."""
+    from hetu_tpu_torch import optim
+    from hetu_tpu_torch.core import BF16_COMPUTE, autocast
+    from hetu_tpu_torch.data import to_tensors
+    from hetu_tpu_torch.engine import (
+        build_grad_accum_steps, init_state, make_plan, trace_counts,
+    )
+    from hetu_tpu_torch.models import LlamaLMHeadModel
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.parallel import Strategy
+
+    t0 = time.perf_counter()
+    cfg = llama_train_cfg()
+    opt = optim.adamw(1e-4)
+    batch = to_tensors(llama_train_batch(), device)
+    nm = LLAMA_TRAIN_BATCH
+    one, state1, step1 = llama_twin(
+        cfg, opt, Strategy(remat="selective", unroll=True,
+                           num_microbatches=nm), device)
+    before = [p.detach().clone() for p in one.parameters()]
+    state1, m1 = sync_free("llama_grad_accum", lambda: step1.body(state1,
+                                                                  batch))
+    model = LlamaLMHeadModel(cfg, device=device, seed=SEED)
+    strategy = Strategy(remat="selective", unroll=True)
+    with autocast(BF16_COMPUTE):
+        plan = make_plan(model, opt, strategy, device=device)
+    state = init_state(model, opt, plan)
+    init_acc, grad_step, apply_step = build_grad_accum_steps(
+        model, opt, plan, donate_acc=False)
+    traces = trace_counts()
+    rows = [{k: v[i:i + 1] for k, v in batch.items()} for i in range(nm)]
+    init_acc()
+    sync_free("llama_grad_accum_grad_step",
+              lambda: grad_step.entry.run_eager(rows[0]))
+    reset_launch_counts()
+    acc = init_acc()
+    mb_losses = []
+    for i, row in enumerate(rows):
+        acc, loss = grad_step(state, acc, row, accum_index=i)
+        mb_losses.append(float(loss))
+    state, m = apply_step(state, acc, nm)
+    worst, largest, bad = 0.0, 0.0, []
+    for (n, p), q, p0 in zip(model.named_parameters(), one.parameters(),
+                             before):
+        largest = max(largest,
+                      float((q.detach().float() - p0.float()).abs().max()))
+        if not torch.equal(p, q):
+            bad.append(n)
+            worst = max(worst, float((p.float() - q.float()).abs().max()))
+    gnorm_equal = torch.equal(m["grad_norm"], m1["grad_norm"])
+    # a second update recycling the accumulator: no allocation
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    acc = init_acc(like=acc)
+    for i, row in enumerate(rows):
+        acc, loss = grad_step(state, acc, row, accum_index=i)
+    state, m = apply_step(state, acc, nm)
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    flash = launches_of(launch_counts())
+    now = trace_counts()
+    caps = {k: now.get(k, 0) - traces.get(k, 0)
+            for k in ("grad_step", "apply_step")}
+    emit(phase="llama_grad_accum", card=card,
+         config="LlamaConfig.llama_7b width, 2 layers",
+         policy="BF16_COMPUTE", remat="selective", optimizer="adamw(1e-4)",
+         microbatches=nm, rows_per_grad_step=1,
+         params_bit_equal=not bad, params_differ=bad[:4],
+         max_abs_param_diff=worst, largest_param_change=largest,
+         bound=1e-6 * largest, grad_norm_bit_equal=gnorm_equal,
+         loss_in_step=float(m1["loss"]),
+         mean_grad_step_loss=sum(mb_losses) / nm,
+         memory_allocated_before=mem0, memory_allocated_after=mem1,
+         captures=caps, grad_step_graphs=graph_info(grad_step),
+         apply_step_graphs=graph_info(apply_step), launches=flash,
+         seconds=time.perf_counter() - t0)
+    check(flash == {k: 2 * nm * cfg.num_layers for k in FLASH},
+          f"llama_grad_accum: launches {flash}")
+    check(worst <= 1e-6 * largest, f"llama_grad_accum: params differ by "
+                                   f"{worst} (bound {1e-6 * largest})")
+    check(mem1 == mem0, f"llama_grad_accum: init_acc(like=) moved "
+                        f"memory_allocated {mem0} -> {mem1}")
+    check(caps == {"grad_step": 1, "apply_step": 1},
+          f"llama_grad_accum: captures {caps}")
+    del model, one, state, state1, step1, acc
+    release()
+    return flash
+
+
+def phase_llama_train_adafactor(device, card):
+    """``adafactor(inverse_sqrt(1e-3, warmup_steps=3))`` at Llama-7B
+    width, 2 layers, bf16 compute, through ``Trainer.train_step``: 10
+    captured steps on the packed batch, each bit-equal to the eager body
+    on a twin; the loss must fall. Then one fp16-scaler step on the
+    trainer's model with an ``inf`` planted in one grad, under
+    ``set_sync_debug_mode("error")``: ``unscale_and_check`` reads not
+    finite, ``update_scaler`` halves the scale, and the update, gated on
+    ``finite`` on the device, leaves every param as it was."""
+    from hetu_tpu_torch import optim
+    from hetu_tpu_torch.core import BF16_COMPUTE, autocast
+    from hetu_tpu_torch.data import to_tensors
+    from hetu_tpu_torch.engine import Trainer, TrainerConfig
+    from hetu_tpu_torch.models import LlamaLMHeadModel
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.parallel import Strategy
+
+    t0 = time.perf_counter()
+    cfg = llama_train_cfg()
+    strategy = Strategy(remat="selective", unroll=True)
+    opt = optim.adafactor(optim.inverse_sqrt(1e-3, warmup_steps=3))
+    model = LlamaLMHeadModel(cfg, device=device, seed=SEED)
+    tr = Trainer(model, opt, strategy,
+                 config=TrainerConfig(precision="bf16", log_every=0,
+                                      prefetch=0), device=device)
+    tr.initialize()
+    twin, tstate, tstep = llama_twin(cfg, opt, strategy, device)
+    batch = to_tensors(llama_train_batch(), device)
+    differ, losses = [], []
+    flash = {k: 0 for k in FLASH}
+    for i in range(10):
+        reset_launch_counts()
+        m = tr.train_step(batch)
+        for k, v in launches_of(launch_counts()).items():
+            flash[k] += v
+        step = lambda: tstep.body(tstate, batch)
+        tstate, tm = sync_free("llama_train_adafactor", step) if i == 0 \
+            else step()
+        bad = bit_equal_step(m, tm, model, twin)
+        if bad:
+            differ.append([i + 1, bad[:4]])
+        losses.append(float(m["loss"]))
+    graphs = trainer_graphs(tr)
+    del twin, tstate, tstep
+    release()
+    # the fp16 scaler: a planted inf skips the update and halves the scale
+    params = [p for p in model.parameters() if p.requires_grad]
+    kept = [p.detach().clone() for p in params]
+    scaler = optim.init_scaler(2.0 ** 16, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    with autocast(BF16_COMPUTE):
+        loss = model.loss(batch["input_ids"], batch["labels"],
+                          positions=batch.get("positions"),
+                          segment_ids=batch.get("segment_ids"),
+                          remat="selective")
+    grads = list(torch.autograd.grad(optim.scale_loss(scaler, loss), params))
+    grads[0] = grads[0].clone()
+    grads[0].view(-1)[:1].fill_(float("inf"))
+    grads, finite = optim.unscale_and_check(scaler, grads)
+    new = optim.update_scaler(scaler, finite)
+    opt.stage(tr.state.optimizer, tr.state.step)
+    opt.update(tr.state.optimizer, dict(zip(params, grads)))
+    with torch.no_grad():
+        for p, k in zip(params, kept):
+            p.copy_(torch.where(finite, p, k))
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    unchanged = all(torch.equal(p, k) for p, k in zip(params, kept))
+    emit(phase="llama_train_adafactor", card=card,
+         config="LlamaConfig.llama_7b width, 2 layers",
+         policy="BF16_COMPUTE", remat="selective",
+         optimizer="adafactor(inverse_sqrt(1e-3, warmup_steps=3))",
+         steps=10, bit_equal_steps=10 - len(differ), differ=differ[:3],
+         losses=losses, graphs=graphs,
+         scaler_finite=bool(finite), scale_before=float(scaler.scale),
+         scale_after=float(new.scale),
+         tracker_after=int(new.growth_tracker),
+         params_unchanged_after_inf=unchanged, launches=flash,
+         seconds=time.perf_counter() - t0)
+    check(flash == {k: 10 * cfg.num_layers for k in FLASH},
+          f"llama_train_adafactor: launches {flash}")
+    check(not differ, f"llama_train_adafactor: the captured steps differ "
+                      f"from the eager body at {differ[:3]}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"llama_train_adafactor: losses {losses}")
+    check(graphs["0"]["captures"] == 1,
+          f"llama_train_adafactor: graphs {graphs}")
+    check(not bool(finite) and float(new.scale) == 2.0 ** 15 and unchanged,
+          "llama_train_adafactor: the planted inf did not skip the update "
+          "and halve the scale")
+    del tr, model, params, kept, grads
+    release()
+    return flash
 
 
 MOE_GATES = ("topk", "ktop1", "sam", "balance")
@@ -4875,7 +5455,7 @@ def phase_moe_train_oracle(device):
                         {**{k: 1 for k in FLASH}, **{k: 0 for k in FUSED}})
         del gpu, cpu
         gc.collect()
-        torch.cuda.empty_cache()
+        release()
 
 
 def phase_moe_train(device, card):
@@ -4887,6 +5467,7 @@ def phase_moe_train(device, card):
     active params (expert tensors at k/E, ``bench_suite.py:88-103``)
     against 989 TFLOP/s, beside the Trainer's own all-params figure."""
     from hetu_tpu_torch import optim
+    from hetu_tpu_torch.data import to_tensors
     from hetu_tpu_torch.engine import Trainer, TrainerConfig
     from hetu_tpu_torch.parallel import Strategy
 
@@ -4928,7 +5509,10 @@ def phase_moe_train(device, card):
          trainer_record=rec,
          peak_memory_bytes=torch.cuda.max_memory_allocated(),
          warmup_seconds=warm_s, losses_steps_1_2_3_13=losses,
-         launches=run["counts"], expected=want)
+         launches=run["counts"], expected=want,
+         graphs=trainer_graphs(trainer))
+    sync_free("moe_train", lambda: trainer._step_fn.body(
+        trainer.state, to_tensors(batch)))
     check(all(np.isfinite(losses)), "non-finite MoE training loss")
     check(losses[-1] < losses[0], f"MoE loss did not fall: {losses}")
     check(run["counts"] == want, f"moe_train launches {run['counts']}, "
@@ -5001,7 +5585,6 @@ def phase_moe_engine(device, card):
     steady-decode window (as ``engine``'s); ``step_graph_replay``
     bit-equal."""
     from hetu_tpu_torch.engine import trace_counts
-    from hetu_tpu_torch.models import generate
     from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
     from hetu_tpu_torch.serving import SamplingParams, ServingEngine
 
@@ -5065,20 +5648,17 @@ def phase_moe_engine(device, card):
 
     t0 = time.perf_counter()
     near_ties = []
+    want = oracle_generate(model, [r.prompt.tolist() for r in reqs + reqs2],
+                           64, device, tag="moe_engine_oracle")
     for r in reqs + reqs2:
-        prompt = r.prompt.tolist()
-        ids, logits = generate(model, [prompt], max_new_tokens=64,
-                               device=device, return_logits=True)
-        check(bool(torch.isfinite(logits).all()),
-              f"MoE request {r.id}: non-finite oracle logits")
-        want_toks, got = ids[0, len(prompt):].tolist(), list(r.tokens)
+        want_toks, gaps = want[tuple(r.prompt.tolist())]
+        got = list(r.tokens)
         check(len(got) == 64 and all(0 <= t < cfg.vocab_size for t in got),
               f"MoE request {r.id}: bad token list")
         if got == want_toks:
             continue
         t = next(i for i, (a, b) in enumerate(zip(got, want_toks)) if a != b)
-        top2 = torch.topk(logits[0, t].float(), 2).values
-        gap = float(top2[0] - top2[1])
+        gap = float(gaps[t])
         near_ties.append(dict(request=r.id, step=t, gap=gap))
         check(gap < 1e-4, f"MoE request {r.id} diverges from generate at "
                           f"step {t} where the oracle's top-2 gap is {gap}")
@@ -5101,7 +5681,7 @@ def phase_moe_engine(device, card):
     check_captures("moe_engine_after_replay", eng, before)
     del eng, model
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     return counts
 
 
@@ -5111,8 +5691,11 @@ def phase_moe_engine(device, card):
 #: of ``serving.tenancy.DEFAULT_TARGETS`` (``peft.LoraConfig``'s default
 #: patterns): 40 M adapter params at full depth
 LORA_R, LORA_ALPHA = 16, 32.0
-#: the LoRA SFT's batch ladder (the first rung that fits is timed)
+#: the LoRA SFT's batch ladder, and its rung that fits on 80 GB (4 does
+#: not: every run of the ladder); a captured step is never retried, so
+#: the phase runs that rung alone
 LORA_LADDER = (4, 2, 1)
+LORA_BATCH = 2
 #: the tenancy engine's arena: 4 pages (the base page and 3 adapters)
 TENANCY_PAGES = 4
 #: a tenant capped at this many slots (``TenantQoS``)
@@ -5248,7 +5831,7 @@ def phase_llama_lora_train_oracle(device):
                     {**{k: 1 for k in FLASH}, **{k: 0 for k in FUSED}})
     del gpu, cpu, models
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
 
 
 def phase_llama_lora_sft(device, card):
@@ -5256,8 +5839,8 @@ def phase_llama_lora_sft(device, card):
     weights from a seed) through ``SFTTrainer.fit``: r 16 / alpha 32 on
     every projection (40 M adapter params), ``masked(chain(
     clip_by_global_norm(1.0), adamw(1e-4)), lora_trainable_mask)``, bf16
-    compute, selective remat, ``SFT_PAIRS`` at seq 2048, the first rung
-    of ``LORA_LADDER`` that fits; 3 warm-up and 10 timed steps. The loss
+    compute, selective remat, ``SFT_PAIRS`` at seq 2048, batch
+    ``LORA_BATCH``; 3 warm-up and 10 timed steps. The loss
     must fall, every base param keep its bits (``checksum``), the
     optimizer hold state for the adapter factors alone, each flash kernel
     launch exactly 32 times a step; then ``merge_lora``, loaded into the
@@ -5267,7 +5850,8 @@ def phase_llama_lora_sft(device, card):
     distances printed. Returns the timed steps' launch counts."""
     from hetu_tpu_torch import optim
     from hetu_tpu_torch.core import BF16_COMPUTE, FP32, autocast
-    from hetu_tpu_torch.engine import SFTTrainer, TrainerConfig
+    from hetu_tpu_torch.data import to_tensors
+    from hetu_tpu_torch.engine import SFTTrainer, TrainerConfig, sft_batches
     from hetu_tpu_torch.engine.trainer import flops_per_token
     from hetu_tpu_torch.models import LlamaConfig, LlamaLMHeadModel
     from hetu_tpu_torch.parallel import Strategy
@@ -5297,20 +5881,16 @@ def phase_llama_lora_sft(device, card):
                          device=device)
     prompts, responses = sft_pairs(cfg.vocab_size)
     fit = dict(seq_len=LLAMA_TRAIN_SEQ, shuffle=False)
-    tried, warm, batch = [], None, None
-    for b in LORA_LADDER:
-        torch.cuda.reset_peak_memory_stats()
-        try:
-            warm = trainer.fit(prompts, responses, batch_size=b, steps=3,
-                               **fit)
-            batch = b
-            break
-        except torch.cuda.OutOfMemoryError:
-            tried.append(b)
-        gc.collect()
-        torch.cuda.empty_cache()
-    check(batch is not None, f"llama_lora_sft: no rung of {LORA_LADDER} "
-                             f"fits")
+    batch = LORA_BATCH
+    # the eager body once before anything is captured (its activations
+    # and a graph's pool would not fit beside each other at full depth)
+    trainer.initialize()
+    first = next(sft_batches(prompts, responses, batch_size=batch, **fit))
+    sync_free("llama_lora_sft", lambda: trainer._step_fn.body(
+        trainer.state, to_tensors(first)))
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    warm = trainer.fit(prompts, responses, batch_size=batch, steps=3, **fit)
     trainer.config.log_every = 10         # one device read, at the end
     # the caching allocator's frees and retries inside the timed window:
     # a candidate cause of the step time's spread between runs
@@ -5339,7 +5919,8 @@ def phase_llama_lora_sft(device, card):
         optimizer="masked(chain(clip_by_global_norm(1.0), adamw(1e-4)))",
         policy="BF16_COMPUTE (fp32 params)", remat="selective",
         seq=LLAMA_TRAIN_SEQ, pairs=[list(p) for p in SFT_PAIRS],
-        ladder=list(LORA_LADDER), out_of_memory=tried, batch=batch,
+        ladder=list(LORA_LADDER), batch=batch,
+        graphs=trainer_graphs(trainer),
         step_ms=run["dt"] * 1e3, tokens_per_s=tokens / run["dt"],
         alloc_retries_timed=retries,
         reserved_bytes=torch.cuda.memory_reserved(),
@@ -5362,7 +5943,7 @@ def phase_llama_lora_sft(device, card):
     # ---- merge_lora, then the plain forward against the adapter's ----
     del trainer, optimizer
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     t1 = time.perf_counter()
     rng = np.random.default_rng(SEED + 43)
     ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 512)),
@@ -5398,7 +5979,7 @@ def phase_llama_lora_sft(device, card):
           f"adapter forward by {err32} in fp32 (bound {bound32})")
     del model
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     return run["counts"]
 
 
@@ -5610,7 +6191,7 @@ def phase_llama_tenancy(device, card, model, timer):
                           "tenancy_on": replay_device_ms(eng)}
         del off, base_runs
         gc.collect()
-        torch.cuda.empty_cache()
+        release()
         emit(phase="llama_tenancy_setup", card=card,
              config="LlamaConfig.llama_7b", dtype="bfloat16",
              cache_dtype="int8", max_adapters=TENANCY_PAGES, r=LORA_R,
@@ -5847,7 +6428,7 @@ def phase_llama_tenancy(device, card, model, timer):
     check_captures("llama_tenancy_after_profiles", eng, before)
     del eng, arenas, arenas_v
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
 
     # ---- the HBM budget: the arena comes off it first ----
     with autocast(BF16_FULL):
@@ -5871,7 +6452,7 @@ def phase_llama_tenancy(device, card, model, timer):
                                    f"sizes {want}")
     del beng
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     return counts
 
 
@@ -5934,11 +6515,10 @@ def phase_gpt2_tenancy(device, card):
     base = [r for r in reqs if not r.sampling.adapter]
     generate_oracle("gpt2_tenancy_adapter_oracle", merged, ad, new, device)
     generate_oracle("gpt2_tenancy_base_oracle", model, base, new, device)
-    from hetu_tpu_torch.models import generate
-    changed = sum(
-        generate(model, [r.prompt.tolist()], max_new_tokens=new,
-                 device=device)[0, len(r.prompt):].tolist() != r.tokens
-        for r in ad)
+    base_want = oracle_generate(model, [r.prompt.tolist() for r in ad],
+                                new, device, tag="gpt2_tenancy")
+    changed = sum(base_want[tuple(r.prompt.tolist())][0] != r.tokens
+                  for r in ad)
     gen_toks = sum(len(r.tokens) for r in reqs)
     emit(phase="gpt2_tenancy", card=card, config="GPTConfig.small",
          dtype="float32", adapter="q_proj|v_proj, r 4, alpha 8",
@@ -5948,7 +6528,7 @@ def phase_gpt2_tenancy(device, card):
          lanes=capture_stats(eng), seconds=time.perf_counter() - t0)
     del eng, model, merged
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     return counts
 
 
@@ -6033,7 +6613,7 @@ def phase_gpt2_spec_small_draft(device, card):
     check(draft.graph.captures == 1, "the draft step re-captured")
     del eng, draft, model, draft_model
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     return counts
 
 
@@ -6351,7 +6931,7 @@ def phase_llama_server(device, card, model, llama_perf):
     from hetu_tpu_torch.serving import ServingEngine, ServingServer
 
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     cfg = model.cfg
     burst, shared = llama_workload(cfg.vocab_size)
     new = 64
@@ -6418,7 +6998,7 @@ def phase_llama_server(device, card, model, llama_perf):
     check(eng._thread is None, "llama_server: stop() left the loop thread")
     del eng, made
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     return counts
 
 
@@ -6597,7 +7177,7 @@ def phase_w8a8_gemm(device, timer, card):
                         f"pre-quantized W8A8 products differ")
         del w, wq, ws
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
 
 
 def w8a8_trees(model) -> list:
@@ -6726,7 +7306,7 @@ def phase_llama_w8a8(device, card, model, llama_perf):
     from hetu_tpu_torch.serving import SamplingParams, ServingEngine
 
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     cfg = model.cfg
     L, vocab = cfg.num_layers, cfg.vocab_size
     burst, shared = llama_workload(vocab)
@@ -6814,7 +7394,7 @@ def phase_llama_w8a8(device, card, model, llama_perf):
     llama_w8a8_swap(card, eng, before)
     del eng
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     return counts
 
 
@@ -6962,7 +7542,7 @@ def phase_llama_w8a8_spec(device, card, model):
                DLOGIT_BF16, TIE_W8A8)
     del eng
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     return counts
 
 
@@ -7118,7 +7698,7 @@ def phase_moe_w8a8(device, card):
              "replay_device_ms_median"])
     del off, model
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     return counts
 
 
@@ -7169,14 +7749,15 @@ def main() -> int:
     paths["gpt2_server"] = phase_gpt2_server(device, smi, gpt2)
     del gpt2
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     run = phase_train(device, smi)
     paths["train"] = run["counts"]
     phase_train_profile(run)
     batch = run["batch_size"]
     del run
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
+    paths.update(phase_train_capture(device, smi, batch))
     phase_train_kernels(device, timer, ops, batch, kernels)
     kernels.update(phase_fused_kernels(device, ops))
     for name in FUSED:
@@ -7189,7 +7770,7 @@ def main() -> int:
     batch = run["batch_size"]
     del run
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     phase_fused_kernel_times(device, timer, ops, batch, kernels)
     phase_llama_kernels(device, timer, ops, kernels)
     phase_verify_kernels(device, timer, ops, kernels)
@@ -7209,7 +7790,7 @@ def main() -> int:
     paths["llama_w8a8_spec"] = phase_llama_w8a8_spec(device, smi, model)
     del model
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     phase_llama_lora_train_oracle(device)
     paths["llama_lora_sft"] = phase_llama_lora_sft(device, smi)
     phase_llama_oracle_fp32(device)
@@ -7226,12 +7807,12 @@ def main() -> int:
     pretrained = trainer.model.state_dict()
     del trainer, llama["trainer"]
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     phase_llama_train_kernels(device, timer, ops, llama["batch"], kernels)
     paths["llama_sft"] = phase_llama_sft(device, smi, pretrained)
     del pretrained
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     phase_llama_train_oracle(device, fused=True)
     fused = phase_llama_train(device, smi, fused=True, beside=chunked_figures)
     paths["llama_train_fused"] = fused["counts"]
@@ -7244,10 +7825,14 @@ def main() -> int:
             phase="llama_train_fused_profile", fused_lane="tensor_core_wide")
     del trainer, fused
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     phase_llama_fused_kernel_times(device, timer, ops, kernels,
                                    paths["llama_train_fused"])
     paths["llama_ckpt"] = phase_llama_ckpt(device, smi)
+    paths["llama_train_buckets"] = phase_llama_train_buckets(device, smi)
+    paths["llama_grad_accum"] = phase_llama_grad_accum(device, smi)
+    paths["llama_train_adafactor"] = phase_llama_train_adafactor(device,
+                                                                 smi)
     phase_moe_train_oracle(device)
     moe = phase_moe_train(device, smi)
     paths["moe_train"] = moe["counts"]
@@ -7258,7 +7843,7 @@ def main() -> int:
         batch=to_tensors(moe["batch"], device)), phase="moe_train_profile")
     del trainer, moe
     gc.collect()
-    torch.cuda.empty_cache()
+    release()
     paths["moe_engine"] = phase_moe_engine(device, smi)
     paths["moe_w8a8"] = phase_moe_w8a8(device, smi)
     paths["gpt2_spec"] = phase_gpt2_spec(device, smi)

@@ -52,15 +52,19 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
 // batch row and the q head, so every kernel regenerates the same mask
 // whatever its tiles. `threshold` is min(2^32 - 1, int(rate * 2^32)),
 // computed on the host; a kept probability is scaled by 1 / (1 - rate).
+// The seed is a word in device memory (null when off), read where a block
+// takes its salt, so a captured graph replays with the seed the host
+// staged for that step.
 struct Dropout {
   int on;
-  uint32_t seed;
+  const uint32_t* seed;
   uint32_t threshold;
   float inv_keep;
 
   // the per-(batch row, q head) salt
   __device__ __forceinline__ uint32_t salt(int ib, int ih) const {
-    return fmix32(seed ^ ((uint32_t)ib * 0x27D4EB2Fu) ^
+    const uint32_t s = on ? __ldg(seed) : 0u;
+    return fmix32(s ^ ((uint32_t)ib * 0x27D4EB2Fu) ^
                   ((uint32_t)ih * 0x165667B1u));
   }
   // the factor a probability at absolute (qpos, kpos) is multiplied by

@@ -915,11 +915,12 @@ extern "C" int hetu_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* kv_seg, void* dq, int b, int hq,
                                  int hkv, int sq, int sk, int d, float scale,
                                  int causal, int q_offset, int kv_offset,
-                                 int bf16, int drop_on, uint32_t seed,
+                                 int bf16, int drop_on, const void* seed,
                                  uint32_t threshold, float inv_keep,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Dropout drop{drop_on, seed, threshold, inv_keep};
+  const Dropout drop{drop_on, static_cast<const uint32_t*>(seed), threshold,
+                     inv_keep};
   // the lane, from dtype and head_dim alone (ops/flash.py flash_lane)
   if (bf16 && d == 64)
     return launch_dq_tc<64>(q, k, v, dout, lse, delta, q_seg, kv_seg, dq, b,
@@ -945,11 +946,12 @@ extern "C" int hetu_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   int b, int hq, int hkv, int sq, int sk,
                                   int d, float scale, int causal,
                                   int q_offset, int kv_offset, int bf16,
-                                  int drop_on, uint32_t seed,
+                                  int drop_on, const void* seed,
                                   uint32_t threshold, float inv_keep,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Dropout drop{drop_on, seed, threshold, inv_keep};
+  const Dropout drop{drop_on, static_cast<const uint32_t*>(seed), threshold,
+                     inv_keep};
   // the lane, from dtype and head_dim alone (ops/flash.py flash_lane)
   if (bf16 && d == 64)
     return launch_dkv_tc<64>(q, k, v, dout, lse, delta, q_seg, kv_seg, dk, dv,

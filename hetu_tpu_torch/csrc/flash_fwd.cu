@@ -423,17 +423,20 @@ int launch_tc(const void* q, const void* k, const void* v, const void* q_seg,
 // bf16 (bf16 == 1; 16-byte aligned at d = 64 and 128); q_seg (b, sq) /
 // kv_seg (b, sk) int32, or both null;
 // out (b, hq, sq, d) in q's dtype; lse (b, hq, sq) fp32; dropout when
-// `drop_on`, with the uint32 seed and threshold and 1 / (1 - rate).
+// `drop_on`, with the address of the uint32 seed word in device memory,
+// the uint32 threshold and 1 / (1 - rate).
 // Launches on `stream` and returns cudaGetLastError().
 extern "C" int hetu_flash_fwd(const void* q, const void* k, const void* v,
                               const void* q_seg, const void* kv_seg,
                               void* out, void* lse, int b, int hq, int hkv,
                               int sq, int sk, int d, float scale, int causal,
                               int q_offset, int kv_offset, int bf16,
-                              int drop_on, uint32_t seed, uint32_t threshold,
-                              float inv_keep, void* stream) {
+                              int drop_on, const void* seed,
+                              uint32_t threshold, float inv_keep,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Dropout drop{drop_on, seed, threshold, inv_keep};
+  const Dropout drop{drop_on, static_cast<const uint32_t*>(seed), threshold,
+                     inv_keep};
   // the lane, from dtype and head_dim alone (ops/flash.py flash_lane)
   if (bf16 && d == 64)
     return launch_tc<64>(q, k, v, q_seg, kv_seg, out, lse, b, hq, hkv, sq, sk,

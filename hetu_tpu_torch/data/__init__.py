@@ -1,7 +1,10 @@
 """Data pipeline (counterpart of ``hetu_tpu/data``): datasets, packing,
-batch samplers, the loader and the device prefetcher. Tokenizers, seq-len
-buckets and the Hydraulis dispatcher are not ported yet."""
+batch samplers, the loader, seq-len buckets and the device prefetcher.
+Tokenizers and the Hydraulis dispatcher are not ported yet."""
 
+from hetu_tpu_torch.data.bucket import (
+    BucketStats, SeqLenBuckets, ShapeBucketer,
+)
 from hetu_tpu_torch.data.dataset import JsonDataset, SyntheticLMDataset
 from hetu_tpu_torch.data.loader import (
     build_data_loader, sample_batches, token_batches,
@@ -10,6 +13,7 @@ from hetu_tpu_torch.data.packing import PackedBatch, pack_sequences, \
     pad_batch
 from hetu_tpu_torch.data.prefetch import DevicePrefetcher, to_tensors
 
-__all__ = ["DevicePrefetcher", "JsonDataset", "PackedBatch",
-           "SyntheticLMDataset", "build_data_loader", "pack_sequences",
+__all__ = ["BucketStats", "DevicePrefetcher", "JsonDataset", "PackedBatch",
+           "SeqLenBuckets", "ShapeBucketer", "SyntheticLMDataset",
+           "build_data_loader", "pack_sequences",
            "pad_batch", "sample_batches", "to_tensors", "token_batches"]

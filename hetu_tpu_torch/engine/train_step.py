@@ -1,4 +1,4 @@
-"""The single-device training step (counterpart of
+"""The single-device training step, captured (counterpart of
 ``hetu_tpu/engine/train_step.py``).
 
 ``make_plan`` validates a :class:`~hetu_tpu_torch.parallel.Strategy` for
@@ -9,14 +9,28 @@ force (``core.dtypes.autocast``); ``init_state`` builds the optimizer;
 policy (attention through the flash kernels on CUDA), accumulates fp32
 grads over ``num_microbatches`` and applies one optimizer update — as
 the JAX step keeps the policy it was traced under. ``build_eval_step``
-returns the loss without grads or dropout.
+returns the loss without grads or dropout; ``build_grad_accum_steps``
+splits a step into gradient calls and one update.
+
+Each step is captured, as JAX's is jitted: on CUDA the first call with a
+batch signature runs the step on a side stream and captures it as a CUDA
+graph (``engine/step_graph.py``); every later call with that signature
+copies the batch into the graph's static buffers, stages the host's
+per-step scalars (the rate, the bias corrections, a scheduled decay, the
+dropout seeds) into device operands, and replays. On the CPU the same
+object runs the body eagerly over the same buffers. :class:`StepCache`
+memoises the entries, one per (model, optimizer, strategy, policy,
+bucket), as JAX's does its compiled ones.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import threading
-from typing import Callable
+import time
+import warnings
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -24,8 +38,9 @@ from torch import nn
 from hetu_tpu_torch import resolve_device
 from hetu_tpu_torch.core.dtypes import Policy, autocast, current_policy
 from hetu_tpu_torch.engine.state import TrainState
+from hetu_tpu_torch.engine.step_graph import StepGraph
 from hetu_tpu_torch.nn.parallel import remat_policy
-from hetu_tpu_torch.ops.dropout import derive_seed
+from hetu_tpu_torch.ops.dropout import SeedTable, derive_seed
 from hetu_tpu_torch.optim.clipping import global_norm
 from hetu_tpu_torch.optim.optimizers import OptimizerSpec
 from hetu_tpu_torch.parallel.strategy import Strategy
@@ -42,34 +57,6 @@ class TrainPlan:
     device: torch.device
     remat: str                      # the effective remat policy name
     policy: Policy                  # the precision policy of every step
-
-
-# -- capture accounting ------------------------------------------------------
-# The port's counterpart of JAX's trace counter: a step body that runs as
-# a captured CUDA graph (``serving/step_graph.py``) is captured once and
-# replayed after, so a counter bumped at each capture is an exact
-# re-capture count, as JAX's is a re-trace count.
-_TRACE_COUNTS: dict[str, int] = {}
-_TRACE_LOCK = threading.Lock()
-
-
-def record_trace(what: str) -> None:
-    """Count one capture of the step body ``what`` (``serving_decode``,
-    ``serving_prefill``). A replay never calls it."""
-    with _TRACE_LOCK:
-        _TRACE_COUNTS[what] = _TRACE_COUNTS.get(what, 0) + 1
-
-
-def trace_counts() -> dict[str, int]:
-    """``{step body: capture count}`` since process start (or the last
-    :func:`reset_trace_counts`), across all threads."""
-    with _TRACE_LOCK:
-        return dict(_TRACE_COUNTS)
-
-
-def reset_trace_counts() -> None:
-    with _TRACE_LOCK:
-        _TRACE_COUNTS.clear()
 
 
 def effective_remat(strategy: Strategy) -> str:
@@ -131,56 +118,135 @@ def default_loss_fn(model: nn.Module, strategy: Strategy) -> Callable:
     return loss_fn
 
 
+def _thread_dropout(model: nn.Module, loss_fn: Optional[Callable],
+                    base_loss: Callable, where: str = "") -> bool:
+    """JAX's dropout contract (``:735-741``, ``:995-1006``): seeds are
+    threaded only when the model's dropout is active and the loss takes
+    ``dropout_seed`` (by name or through ``**kwargs``); a custom loss that
+    cannot take one gets a warning, and dropout stays off."""
+    params = inspect.signature(base_loss).parameters
+    explicit = "dropout_seed" in params
+    var_kw = any(p.kind is inspect.Parameter.VAR_KEYWORD
+                 for p in params.values())
+    active = model_dropout_active(model)
+    if active and loss_fn is not None:
+        if not (explicit or var_kw):
+            warnings.warn(
+                f"model config enables dropout but the custom loss_fn has "
+                f"no dropout_seed parameter — dropout will be OFF{where}; "
+                f"accept a dropout_seed kwarg (and pass it to model.loss) "
+                f"to enable it", stacklevel=3)
+        elif var_kw and not explicit:
+            warnings.warn(
+                "dropout_seed will be passed to the custom loss_fn via "
+                "**kwargs — make sure it forwards the seed to model.loss, "
+                "or dropout silently stays off", stacklevel=3)
+    return active and (explicit or var_kw)
+
+
 def _on_device(batch: dict, device: torch.device) -> dict:
     return {k: v.to(device, non_blocking=True)
             for k, v in batch.items() if v is not None}
 
 
-def build_eval_step(model: nn.Module, plan: TrainPlan) -> Callable:
-    """``eval(batch) -> loss`` (``:900``): :func:`default_loss_fn` under
-    the plan's precision policy, without grads and without dropout; the
-    loss stays on the device."""
-    base_loss = default_loss_fn(model, plan.strategy)
+def _batch_key(batch: dict) -> tuple:
+    """Shape/dtype signature of a batch dict (tensors, numpy arrays —
+    anything with ``.shape``/``.dtype``)."""
+    def sig(v):
+        if not hasattr(v, "shape") or not hasattr(v, "dtype"):
+            import numpy as np
+            v = np.asarray(v)
+        return tuple(v.shape), str(v.dtype)
 
-    @torch.no_grad()
-    def step(batch: dict):
-        with autocast(plan.policy):
-            return base_loss(_on_device(batch, plan.device))
-
-    return step
+    return tuple(sorted((k,) + sig(v) for k, v in batch.items()
+                        if v is not None))
 
 
-def build_train_step(model: nn.Module, opt: OptimizerSpec,
-                     plan: TrainPlan) -> Callable:
-    """``step(state, batch) -> (state, {"loss", "grad_norm"})`` (``:685``)
-    over :func:`default_loss_fn`.
+# -- the captured entry ------------------------------------------------------
 
-    ``batch`` maps names to tensors with the batch on dim 0; they move to
-    the plan's device. ``opt`` is an optimizer spec or a ``chain`` of
-    gradient transforms and one (clipping runs inside ``opt.step``, after
-    ``grad_norm`` is taken, as JAX takes it before ``opt.update``). The grads come back in the param dtype (zeros for
-    a param the loss does not reach, as in JAX) and go to the optimizer
-    as they are (``p.grad`` is left unset). With
-    ``num_microbatches = n > 1`` the batch splits into n equal
-    microbatches whose grads sum in fp32 and are divided by n
-    (``:830-848``); the loss is their mean. The global norm is taken in
-    fp32. A frozen param (``requires_grad`` False: one that
-    ``optim.masked`` leaves out) gets no grad, and ``grad_norm`` is then
-    the trained params' norm, where JAX's also counts the frozen grads it
-    computes and discards. Forward and backward run under the plan's
-    precision policy.
-    Dropout seeds are threaded only when the config enables dropout. The
-    metrics stay on the device."""
-    base_loss = default_loss_fn(model, plan.strategy)
-    thread_dropout = model_dropout_active(model)
-    nm = plan.strategy.num_microbatches
+class CapturedStep:
+    """One step body, captured once per batch signature (``_batch_key``),
+    as a jitted JAX function keeps one executable per shape.
 
-    def step(state: TrainState, batch: dict):
-        # read at each step: ``opt.build`` (``init_state``) freezes the
+    ``run(bufs)`` is the body over a signature's static batch buffers; it
+    returns a tuple of tensors. :meth:`call` copies the batch into the
+    buffers and replays (the first call of a signature runs the body and
+    captures it: ``record_trace(name)``). The host stages the step's
+    scalars before :meth:`call`. ``bind`` names the objects whose storage
+    the graphs read (the params, the optimizer): when one of them is
+    replaced (a fresh optimizer, a reallocated param), every graph is
+    dropped and the next call re-captures, so a stale graph never replays
+    old addresses."""
+
+    def __init__(self, name: str, plan: TrainPlan,
+                 run: Callable[[dict], tuple], *, seeds: bool = True):
+        self.name = name
+        self.plan = plan
+        self._run = run
+        self.seeds = SeedTable(plan.device) if seeds else None
+        self.graphs: dict = {}           # signature -> (StepGraph, bufs)
+        self._bound = None
+
+    def bind(self, *objs) -> None:
+        key = tuple(o.data_ptr() if isinstance(o, torch.Tensor) else id(o)
+                    for o in objs)
+        if key != self._bound:
+            self.graphs.clear()
+            self._bound = key
+
+    def call(self, batch: dict) -> tuple:
+        sig = _batch_key(batch)
+        entry = self.graphs.get(sig)
+        if entry is not None:
+            graph, bufs = entry
+            for k, v in batch.items():
+                bufs[k].copy_(v, non_blocking=True)
+            with autocast(self.plan.policy):
+                return graph.replay()
+        bufs = {k: v.clone() for k, v in batch.items()}
+        with autocast(self.plan.policy):
+            graph = StepGraph(self.name, lambda: self._run(bufs),
+                              device=self.plan.device, seeds=self.seeds)
+        self.graphs[sig] = (graph, bufs)
+        return graph.first
+
+    def run_eager(self, batch: dict) -> tuple:
+        """The body on ``batch`` itself, with no graph: the reference a
+        replay is held to, bit for bit (the host stages the step's
+        scalars first, as for :meth:`call`)."""
+        with torch.no_grad(), autocast(self.plan.policy):
+            return tuple(self._run(batch))
+
+    @property
+    def captures(self) -> int:
+        return sum(g.captures for g, _ in self.graphs.values())
+
+    @property
+    def pool_bytes(self) -> int:
+        return sum(g.pool_bytes for g, _ in self.graphs.values())
+
+
+class TrainStep:
+    """``step(state, batch) -> (state, {"loss", "grad_norm"})``, what
+    :func:`build_train_step` returns: the captured step. The metrics are
+    the graph's static outputs, overwritten by the next replay (a caller
+    that keeps one clones it). :meth:`body` is the same step run
+    eagerly, for checks."""
+
+    def __init__(self, model: nn.Module, opt, plan: TrainPlan,
+                 base_loss: Callable, thread_dropout: bool):
+        self.model, self.opt, self.plan = model, opt, plan
+        self._loss = base_loss
+        self.thread_dropout = thread_dropout
+        self._optimizer = None
+        self.entry = CapturedStep("train_step", plan, self._run)
+
+    def _run(self, batch: dict) -> tuple:
+        plan, nm = self.plan, self.plan.strategy.num_microbatches
+        # read at each capture: ``opt.build`` (``init_state``) freezes the
         # params a ``masked`` optimizer leaves out
-        trainable = [p for p in model.parameters() if p.requires_grad]
-        batch = _on_device(batch, plan.device)
-        seed = step_dropout_seed(state.step) if thread_dropout else None
+        trainable = [p for p in self.model.parameters() if p.requires_grad]
+        seed = self.entry.seeds.seed() if self.thread_dropout else None
         total = torch.zeros((), dtype=torch.float32, device=plan.device)
         grads = None
         for i in range(nm):
@@ -189,8 +255,9 @@ def build_train_step(model: nn.Module, opt: OptimizerSpec,
                 for k, v in batch.items()}
             mb_seed = seed if seed is None or nm == 1 \
                 else derive_seed(seed, i)
-            with autocast(plan.policy):
-                loss = base_loss(mb, dropout_seed=mb_seed)
+            with torch.enable_grad(), autocast(plan.policy):
+                loss = (self._loss(mb, dropout_seed=mb_seed)
+                        if self.thread_dropout else self._loss(mb))
                 mb_grads = torch.autograd.grad(loss, trainable,
                                                materialize_grads=True)
             total = total + loss.detach().float()
@@ -205,8 +272,359 @@ def build_train_step(model: nn.Module, opt: OptimizerSpec,
             for g in grads:
                 g.div_(nm)
         gnorm = global_norm(grads)
-        opt.step(state.optimizer, state.step, dict(zip(trainable, grads)))
-        state.step += 1
-        return state, {"loss": total / nm, "grad_norm": gnorm}
+        self.opt.update(self._optimizer, dict(zip(trainable, grads)))
+        return total / nm, gnorm
 
-    return step
+    def _stage(self, state: TrainState, batch: dict) -> dict:
+        self._optimizer = state.optimizer
+        self.entry.bind(state.optimizer,
+                        *[p for p in self.model.parameters()])
+        self.opt.stage(state.optimizer, state.step)
+        if self.thread_dropout:
+            self.entry.seeds.stage(step_dropout_seed(state.step))
+        return _on_device(batch, self.plan.device)
+
+    def __call__(self, state: TrainState, batch: dict):
+        loss, gnorm = self.entry.call(self._stage(state, batch))
+        state.step += 1
+        return state, {"loss": loss, "grad_norm": gnorm}
+
+    def body(self, state: TrainState, batch: dict):
+        """The step run eagerly (no graph), with the same staging."""
+        loss, gnorm = self.entry.run_eager(self._stage(state, batch))
+        state.step += 1
+        return state, {"loss": loss, "grad_norm": gnorm}
+
+
+class EvalStep:
+    """``eval(batch) -> loss``, what :func:`build_eval_step` returns: the
+    captured forward (``record_trace("eval_step")``); the loss is the
+    graph's static output. :meth:`body` runs it eagerly."""
+
+    def __init__(self, plan: TrainPlan, base_loss: Callable):
+        self.plan = plan
+        self._loss = base_loss
+        self.entry = CapturedStep("eval_step", plan, self._run, seeds=False)
+
+    def _run(self, batch: dict) -> tuple:
+        return (self._loss(batch),)
+
+    def __call__(self, batch: dict):
+        return self.entry.call(_on_device(batch, self.plan.device))[0]
+
+    def body(self, batch: dict):
+        return self.entry.run_eager(_on_device(batch, self.plan.device))[0]
+
+
+def build_eval_step(model: nn.Module, plan: TrainPlan, *,
+                    loss_fn: Optional[Callable] = None) -> EvalStep:
+    """``eval(batch) -> loss`` (``:900``): ``loss_fn(batch)`` (default
+    :func:`default_loss_fn`) under the plan's precision policy, without
+    grads and without dropout, captured; the loss stays on the device."""
+    return EvalStep(plan, loss_fn or default_loss_fn(model, plan.strategy))
+
+
+def build_train_step(model: nn.Module, opt: OptimizerSpec,
+                     plan: TrainPlan, *,
+                     loss_fn: Optional[Callable] = None) -> TrainStep:
+    """``step(state, batch) -> (state, {"loss", "grad_norm"})`` (``:685``)
+    over ``loss_fn(batch[, dropout_seed=])`` (default
+    :func:`default_loss_fn`), captured.
+
+    ``batch`` maps names to tensors with the batch on dim 0; they move to
+    the plan's device. ``opt`` is an optimizer spec or a ``chain`` of
+    gradient transforms and one (clipping runs inside the update, after
+    ``grad_norm`` is taken, as JAX takes it before ``opt.update``). The
+    grads come back in the param dtype (zeros for a param the loss does
+    not reach, as in JAX) and go to the optimizer as they are (``p.grad``
+    is left unset). With ``num_microbatches = n > 1`` the batch splits
+    into n equal microbatches whose grads sum in fp32 and are divided by
+    n (``:830-848``); the loss is their mean. The global norm is taken in
+    fp32. A frozen param (``requires_grad`` False: one that
+    ``optim.masked`` leaves out) gets no grad, and ``grad_norm`` is then
+    the trained params' norm, where JAX's also counts the frozen grads it
+    computes and discards. Forward and backward run under the plan's
+    precision policy. Dropout seeds are threaded when the config enables
+    dropout and the loss takes ``dropout_seed`` (JAX's contract, with its
+    warnings for a custom loss). The metrics stay on the device."""
+    base_loss = loss_fn or default_loss_fn(model, plan.strategy)
+    return TrainStep(model, opt, plan, base_loss,
+                     _thread_dropout(model, loss_fn, base_loss))
+
+
+# -- split-phase accumulation ------------------------------------------------
+
+class GradAccumulator:
+    """The fp32, param-shaped grad accumulator of
+    :func:`build_grad_accum_steps` (what ``init_acc`` returns): views of
+    the entry's own buffers, so the captured steps read fixed addresses.
+    ``consumed`` is set when a donating ``apply_step`` takes it."""
+
+    def __init__(self, grads: list):
+        self.grads = grads
+        self.consumed = False
+
+
+def build_grad_accum_steps(model: nn.Module, opt: OptimizerSpec,
+                           plan: TrainPlan, *,
+                           loss_fn: Optional[Callable] = None,
+                           donate_acc: bool = True,
+                           delay_grad_sync: bool = False):
+    """Split-phase training (``:912``): ``(init_acc, grad_step,
+    apply_step)``.
+
+    - ``acc = init_acc()``: the zeroed fp32 accumulator (the entry's own
+      buffers, zero-filled);
+    - ``acc, loss = grad_step(state, acc, batch, accum_index=i)``: one
+      forward/backward, its grads added into ``acc``. Dropout seeds fold
+      (step, i) as JAX's keys do; ``i`` is a staged operand, so every
+      index replays one graph;
+    - ``state, metrics = apply_step(state, acc, n_accum)``: the mean over
+      ``n_accum`` (a staged operand), its global norm and one optimizer
+      update.
+
+    ``grad_step`` and ``apply_step`` are captured entries
+    (``record_trace("grad_step")``, ``"apply_step"``). With
+    ``donate_acc=True`` ``apply_step`` consumes ``acc`` and a later
+    ``init_acc(like=acc)`` raises, as JAX's deleted buffer does; with
+    ``donate_acc=False`` ``init_acc(like=acc)`` zero-fills it again and
+    allocates nothing. ``delay_grad_sync=True`` changes nothing on one
+    device (JAX's is off with one group) and is refused with ``fsdp``, as
+    JAX's is."""
+    strategy = plan.strategy
+    if strategy.pp > 1:
+        raise NotImplementedError(
+            "split-phase accumulation with pp > 1: use "
+            "num_microbatches inside the pipeline step instead")
+    if delay_grad_sync and strategy.fsdp:
+        raise ValueError(
+            "delay_grad_sync=True is incompatible with fsdp: params are "
+            "dp-sharded, so group-local gradients would require the "
+            "param all-gather the delay is meant to avoid")
+    base_loss = loss_fn or default_loss_fn(model, strategy)
+    thread_dropout = _thread_dropout(
+        model, loss_fn, base_loss, where=" in build_grad_accum_steps")
+    n_accum_t = torch.ones((), dtype=torch.float32, device=plan.device)
+    # the trained params (read at the first init_acc, after ``opt.build``
+    # froze what a ``masked`` optimizer leaves out) and their accumulator
+    cur: dict = {}
+
+    def grad_run(batch):
+        seed = grad_entry.seeds.seed() if thread_dropout else None
+        with torch.enable_grad(), autocast(plan.policy):
+            loss = (base_loss(batch, dropout_seed=seed) if thread_dropout
+                    else base_loss(batch))
+            grads = torch.autograd.grad(loss, cur["params"],
+                                        materialize_grads=True)
+        for a, g in zip(cur["acc"], grads):
+            a.add_(g)
+        return (loss.detach(),)
+
+    def apply_run(_batch):
+        grads = torch._foreach_div(cur["acc"], n_accum_t)
+        gnorm = global_norm(grads)
+        opt.update(cur["optimizer"], dict(zip(cur["params"], grads)))
+        return (gnorm,)
+
+    grad_entry = CapturedStep("grad_step", plan, grad_run)
+    apply_entry = CapturedStep("apply_step", plan, apply_run, seeds=False)
+
+    def init_acc(like: Optional[GradAccumulator] = None) -> GradAccumulator:
+        if like is not None:
+            if like.consumed:
+                raise RuntimeError(
+                    "init_acc(like=acc): the accumulator was donated to "
+                    "apply_step (donate_acc=True) and deleted")
+            torch._foreach_zero_(like.grads)
+            return like
+        if "acc" not in cur:
+            cur["params"] = [p for p in model.parameters()
+                             if p.requires_grad]
+            cur["acc"] = [torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device)
+                          for p in cur["params"]]
+        torch._foreach_zero_(cur["acc"])
+        return GradAccumulator(cur["acc"])
+
+    def _check(acc: GradAccumulator):
+        if acc.consumed:
+            raise RuntimeError("the accumulator was donated to apply_step "
+                               "(donate_acc=True) and deleted")
+
+    def grad_step(state: TrainState, acc: GradAccumulator, batch: dict,
+                  accum_index: int = 0):
+        _check(acc)
+        grad_entry.bind(*cur["params"])
+        if thread_dropout:
+            grad_entry.seeds.stage(derive_seed(step_dropout_seed(state.step),
+                                               accum_index))
+        loss, = grad_entry.call(_on_device(batch, plan.device))
+        return acc, loss
+
+    def apply_step(state: TrainState, acc: GradAccumulator, n_accum: int):
+        _check(acc)
+        cur["optimizer"] = state.optimizer
+        apply_entry.bind(state.optimizer, *cur["params"])
+        opt.stage(state.optimizer, state.step)
+        n_accum_t.copy_(torch.tensor(float(n_accum), dtype=torch.float32),
+                        non_blocking=True)
+        gnorm, = apply_entry.call({})
+        state.step += 1
+        if donate_acc:
+            acc.consumed = True
+        return state, {"grad_norm": gnorm}
+
+    grad_step.entry, apply_step.entry = grad_entry, apply_entry
+    return init_acc, grad_step, apply_step
+
+
+# -- step cache --------------------------------------------------------------
+
+class CachedStep:
+    """One compiled strategy (``:236``): the plan, the captured step and
+    its eval. Calling the entry runs the step. ``compile_seconds`` is
+    the time its build took (the graphs capture at their first call)."""
+
+    __slots__ = ("plan", "step_fn", "eval_fn", "compile_seconds", "_refs")
+
+    def __init__(self, plan, step_fn, eval_fn=None, *,
+                 compile_seconds: float = 0.0, refs: tuple = ()):
+        self.plan = plan
+        self.step_fn = step_fn
+        self.eval_fn = eval_fn
+        self.compile_seconds = compile_seconds
+        # strong refs (model, opt): entries are keyed by object identity,
+        # pinning the objects guarantees an id() is never reused while
+        # its cache entry is alive
+        self._refs = refs
+
+    def __call__(self, state, batch):
+        return self.step_fn(state, batch)
+
+
+class StepCache:
+    """Memo of :class:`CachedStep` entries keyed by (model, optimizer,
+    Strategy, attn_impl, donate, policy, devices, bucket) (``:291``): a
+    bounded LRU, thread-safe, with single-flight builds (two callers
+    racing to one key build it once). :meth:`clear` bumps a generation:
+    a build in flight across a clear is handed to its caller but never
+    re-enters the pool."""
+
+    def __init__(self, capacity: int = 64):
+        self.capacity = capacity
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self._entries: dict = {}          # insertion-ordered => LRU
+        self._building: dict = {}         # key -> threading.Event
+        self._gen = 0
+        self._lock = threading.RLock()
+
+    @staticmethod
+    def key_for(model, opt, strategy, *, attn_impl: str = "auto",
+                donate: bool = True, policy_key: str = "",
+                devices=None, bucket: int = 0) -> tuple:
+        """``bucket``: the seq-len bucket this entry serves (0 = the
+        unbucketed entry)."""
+        dev_key = None if devices is None else \
+            tuple(getattr(d, "id", d) for d in devices)
+        return (id(model), id(opt), strategy, attn_impl, donate,
+                policy_key, dev_key, int(bucket))
+
+    def lookup(self, key) -> Optional[CachedStep]:
+        """Peek without building (does not count a miss)."""
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is not None:                    # refresh LRU order
+                self._entries.pop(key)
+                self._entries[key] = entry
+            return entry
+
+    def get_or_build(self, key, builder: Callable[[], CachedStep]
+                     ) -> CachedStep:
+        """The cached entry for ``key``, built once (even under
+        concurrent callers) by ``builder`` on a miss."""
+        while True:
+            with self._lock:
+                entry = self._entries.get(key)
+                if entry is not None:
+                    self._entries.pop(key)
+                    self._entries[key] = entry
+                    self.hits += 1
+                    return entry
+                ev = self._building.get(key)
+                if ev is None:
+                    ev = self._building[key] = threading.Event()
+                    gen = self._gen
+                    break
+            ev.wait()        # another thread is building this key
+        try:
+            entry = builder()
+        except BaseException:
+            with self._lock:
+                self._building.pop(key, None)
+            ev.set()
+            raise
+        with self._lock:
+            if self._gen == gen:
+                self._entries[key] = entry
+                while len(self._entries) > self.capacity:
+                    self._entries.pop(next(iter(self._entries)))
+                    self.evictions += 1
+            self.misses += 1
+            self._building.pop(key, None)
+        ev.set()
+        return entry
+
+    def stats(self) -> dict:
+        with self._lock:
+            total = self.hits + self.misses
+            return {"entries": len(self._entries), "hits": self.hits,
+                    "misses": self.misses, "evictions": self.evictions,
+                    "hit_rate": self.hits / total if total else 0.0}
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self._gen += 1   # in-flight builds must not re-insert
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def __contains__(self, key) -> bool:
+        return key in self._entries
+
+
+_STEP_CACHE = StepCache()
+
+
+def get_step_cache() -> StepCache:
+    """The process-default :class:`StepCache` (shared by Trainers unless
+    one is injected)."""
+    return _STEP_CACHE
+
+
+def compile_strategy(model: nn.Module, opt: OptimizerSpec,
+                     strategy: Strategy, *, device=None,
+                     loss_fn: Optional[Callable] = None,
+                     build_eval: bool = True) -> CachedStep:
+    """Plan and build the captured step (and eval) for one strategy
+    (``:423``) under the precision policy in force; the graphs capture
+    at their first call. Callers wanting memoisation go through
+    :meth:`StepCache.get_or_build`."""
+    t0 = time.perf_counter()
+    plan = make_plan(model, opt, strategy, device=device)
+    step_fn = build_train_step(model, opt, plan, loss_fn=loss_fn)
+    eval_fn = build_eval_step(model, plan, loss_fn=loss_fn) \
+        if build_eval else None
+    return CachedStep(plan, step_fn, eval_fn,
+                      compile_seconds=time.perf_counter() - t0,
+                      refs=(model, opt))
+
+
+__all__ = ["CachedStep", "CapturedStep", "DROPOUT_BASE_SEED", "EvalStep",
+           "GradAccumulator", "StepCache", "TrainPlan", "TrainStep",
+           "build_eval_step", "build_grad_accum_steps", "build_train_step",
+           "compile_strategy", "default_loss_fn", "effective_remat",
+           "get_step_cache", "init_state", "make_plan",
+           "model_dropout_active", "step_dropout_seed"]

@@ -2,19 +2,29 @@
 ``hetu_tpu/engine/trainer.py:40 TrainerConfig``, ``:141 Trainer``).
 
 A Trainer owns the model, the optimizer spec, the plan of its strategy
-for one device and the train state. ``train`` runs the step over an
+for one device and the train state. Its step and eval come from a
+:class:`~hetu_tpu_torch.engine.train_step.StepCache` (the process-wide
+one unless ``step_cache=`` injects another): one captured entry per
+(model, optimizer, strategy, policy, seq-len bucket), as JAX's trainer
+keeps one compiled entry per key. ``train`` runs the step over an
 iterator of host batches (``hetu_tpu_torch.data.build_data_loader``),
 staged through the device prefetcher; it keeps the step counter on the
 host and reads ``loss``/``grad_norm`` from the device only at log
 boundaries, so the host never waits on the card between them.
 
+With ``TrainerConfig(seq_buckets=...)`` each host batch is snapped, on
+the host and before the prefetcher stages it, to the smallest bucket
+that holds its longest real row (``data.bucket.ShapeBucketer``), and
+runs through that bucket's entry: a ragged epoch captures at most one
+step graph per bucket.
+
 Checkpoints (``save``, ``resume``, the ``ckpt_every`` cadence and the
 final save of ``train``; ``utils/checkpoint.py``) are in ``hetu_tpu``'s
 format, so a run of either package resumes from the other's. Not
-ported: distributed and delta checkpoints, telemetry and goodput, the
-step cache, sequence buckets, the watchdog and SLO engine, hot switching
-(``set_strategy``), ``train_dynamic`` — ``TrainerConfig`` has no field
-for any of them.
+ported: distributed and delta checkpoints, telemetry and goodput, AOT
+precompilation and the persistent compile cache, the watchdog and SLO
+engine, hot switching (``set_strategy``, ``shrink_to``/``grow_to``),
+``train_dynamic`` — ``TrainerConfig`` has no field for any of them.
 """
 
 from __future__ import annotations
@@ -27,15 +37,17 @@ from typing import Callable, Iterable, Optional
 
 from torch import nn
 
+from hetu_tpu_torch import resolve_device
 from hetu_tpu_torch.core.dtypes import BF16_COMPUTE, FP32, Policy, autocast
+from hetu_tpu_torch.data.bucket import SeqLenBuckets, ShapeBucketer
 from hetu_tpu_torch.data.prefetch import DevicePrefetcher, to_tensors
 from hetu_tpu_torch.engine.state import TrainState
 from hetu_tpu_torch.engine.train_step import (
-    build_eval_step, build_train_step, init_state, make_plan,
+    CachedStep, StepCache, compile_strategy, get_step_cache, init_state,
 )
 from hetu_tpu_torch.parallel.strategy import Strategy
 from hetu_tpu_torch.utils.checkpoint import (
-    CheckpointWriter, load_checkpoint, save_checkpoint,
+    CheckpointWriter, copy_optimizer_state, load_checkpoint, save_checkpoint,
 )
 
 log = logging.getLogger("hetu_tpu_torch.trainer")
@@ -70,6 +82,8 @@ class TrainerConfig:
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 0
     async_ckpt: bool = True
+    seq_buckets: Optional[tuple] = None
+    step_cache: bool = True
 
     def __post_init__(self):
         if self.precision not in ("bf16", "fp32"):
@@ -91,26 +105,85 @@ def flops_per_token(model: nn.Module, seq_len: int) -> Optional[float]:
 
 
 class Trainer:
-    """``Trainer(model, opt, strategy, config=None, device=None)``: the
-    plan is made under ``config.precision``'s policy on ``device``
-    (``None`` means ``cuda`` and raises without a card; the model must
-    live there)."""
+    """``Trainer(model, opt, strategy, config=None, device=None,
+    step_cache=None)``: the plan is made under ``config.precision``'s
+    policy on ``device`` (``None`` means ``cuda`` and raises without a
+    card; the model must live there). ``self.cache`` (alias
+    ``_plan_cache``) is the step cache; ``self.bucketer`` the
+    ``ShapeBucketer`` of ``config.seq_buckets`` (None when off)."""
 
     def __init__(self, model: nn.Module, opt, strategy: Strategy,
-                 config: Optional[TrainerConfig] = None, device=None):
+                 config: Optional[TrainerConfig] = None, device=None,
+                 step_cache: Optional[StepCache] = None):
         self.model = model
         self.opt = opt
         self.config = config if config is not None else TrainerConfig()
-        with autocast(self.config.policy()):
-            self.plan = make_plan(model, opt, strategy, device=device)
+        self.strategy = strategy
+        self.device = resolve_device(device)
+        self.cache = step_cache if step_cache is not None \
+            else get_step_cache()
+        # kept as an alias, as JAX's trainer keeps it
+        self._plan_cache = self.cache
+        self.bucketer = None
+        if self.config.seq_buckets:
+            self.bucketer = ShapeBucketer(
+                SeqLenBuckets(sizes=self.config.seq_buckets))
+        self._bucket_entries: dict = {}
         self.state: Optional[TrainState] = None
-        self._step_fn = build_train_step(model, opt, self.plan)
-        self._eval_fn = build_eval_step(model, self.plan)
+        base = self._entry(0)
+        self.plan = base.plan
+        self._step_fn = base.step_fn
+        self._eval_fn = base.eval_fn
         self._ckpt_writer: Optional[CheckpointWriter] = None
         self._saved_step: Optional[int] = None
         #: the last save: ``path``, ``step``, ``blocked_s`` (the time it
         #: held the caller: the previous write's drain and the snapshot)
         self.last_save: Optional[dict] = None
+
+    # -- the step cache and the shape plane ---------------------------------
+    def _cache_key(self, strategy: Strategy, bucket: int = 0) -> tuple:
+        return self.cache.key_for(
+            self.model, self.opt, strategy, donate=True,
+            policy_key=self.config.precision, devices=(str(self.device),),
+            bucket=bucket)
+
+    def _entry(self, bucket: int) -> CachedStep:
+        """The cached entry of (strategy, ``bucket``), built on a miss
+        under the config's policy (``config.step_cache=False``: built
+        anew)."""
+        def build() -> CachedStep:
+            with autocast(self.config.policy()):
+                return compile_strategy(self.model, self.opt, self.strategy,
+                                        device=self.device)
+
+        if not self.config.step_cache:
+            return build()
+        return self.cache.get_or_build(
+            self._cache_key(self.strategy, bucket), build)
+
+    def _bucket_entry(self, bucket: int) -> CachedStep:
+        """The entry of (current strategy, ``bucket``): one per bucket,
+        so each captures exactly one batch shape (``:340``)."""
+        entry = self._bucket_entries.get(bucket)
+        if entry is None:
+            entry = self._bucket_entries[bucket] = self._entry(bucket)
+        return entry
+
+    def _step_entry_for(self, batch: dict):
+        """The step for a fitted batch: its bucket's entry when bucketing
+        is on, else the strategy's base step (``:376``)."""
+        if self.bucketer is None or "input_ids" not in batch:
+            return self._step_fn
+        return self._bucket_entry(int(batch["input_ids"].shape[1]))
+
+    def captures(self) -> dict:
+        """``{bucket (0: the base entry): train-step graphs captured}``
+        of this trainer's entries, with their pools' bytes."""
+        out = {0: (self._step_fn.entry.captures,
+                   self._step_fn.entry.pool_bytes)}
+        for b, e in self._bucket_entries.items():
+            out[b] = (e.step_fn.entry.captures, e.step_fn.entry.pool_bytes)
+        return out
 
     def initialize(self) -> TrainState:
         """Step 0: the weights (drawn again from ``config.seed`` if it is
@@ -125,9 +198,19 @@ class Trainer:
         ``hetu_tpu``): the weights into the model, in the plan policy's
         param dtype and on its device, and a fresh optimizer holding the
         saved moments and counts. ``train`` then goes on from its step;
-        the caller passes the batches that remain (``:442``)."""
+        the caller passes the batches that remain (``:442``). Into a live
+        trainer the params and the optimizer state are copied in place,
+        so its captured steps stay valid."""
         self.model.to(self.plan.policy.param_dtype)
-        self.state = load_checkpoint(path, self.model, self.opt)
+        loaded = load_checkpoint(path, self.model, self.opt)
+        if self.state is None:
+            self.state = loaded
+        else:
+            # into the live state's tensors, which the captured steps
+            # read by address (a param that ``to`` reallocated makes its
+            # entries re-capture)
+            copy_optimizer_state(self.state.optimizer, loaded.optimizer)
+            self.state.step = loaded.step
         log.info(f"resumed from {path} at step {self.state.step}")
         return self.state
 
@@ -162,13 +245,17 @@ class Trainer:
             self._ckpt_writer = None
 
     def train_step(self, batch: dict) -> dict:
-        """One step on one batch (numpy arrays or tensors); the metrics
-        stay on the device."""
+        """One step on one batch (numpy arrays or tensors), fitted to its
+        bucket first when bucketing is on; the metrics stay on the device
+        (copies of the step's static outputs, which the next step
+        overwrites)."""
         if self.state is None:
             self.initialize()
-        self.state, metrics = self._step_fn(self.state,
-                                            to_tensors(batch))
-        return metrics
+        if self.bucketer is not None:
+            batch = self.bucketer.fit(batch)
+        batch = to_tensors(batch)
+        self.state, metrics = self._step_entry_for(batch)(self.state, batch)
+        return {k: v.clone() for k, v in metrics.items()}
 
     def _batches(self, batches: Iterable[dict], steps: int):
         if self.config.prefetch > 0:
@@ -186,7 +273,8 @@ class Trainer:
         Every ``log_every`` steps one record: ``step``, ``loss`` and
         ``grad_norm`` of that step (the norm before any clipping),
         ``tokens_per_sec`` since the last record (every token of the
-        batch, pads included, as JAX counts), ``tokens_total``, and
+        batch as the step ran it, pads included: the fitted width when
+        bucketing is on, as JAX counts), ``tokens_total``, and
         ``mfu`` with ``config.peak_flops``. ``eval_batches`` is a
         callable returning an iterable of held-out batches: every
         ``eval_every`` steps the mean validation loss (dropout off) is
@@ -204,6 +292,10 @@ class Trainer:
         tokens_since = tokens_total = 0
         flops_since = 0.0
         fpt_by_width: dict = {}
+        if self.bucketer is not None:
+            # snap every host batch to its bucket before the prefetcher
+            # stages it: each entry sees exactly one shape
+            batches = (self.bucketer.fit(b) for b in batches)
         it = self._batches(batches, steps)
         try:
             for _ in range(steps):
@@ -211,7 +303,8 @@ class Trainer:
                     batch = next(it)
                 except StopIteration:
                     break
-                self.state, metrics = self._step_fn(self.state, batch)
+                self.state, metrics = self._step_entry_for(batch)(
+                    self.state, batch)
                 host_step += 1
                 ids = batch["input_ids"]
                 width = int(ids.shape[-1])

@@ -494,7 +494,9 @@ def remat_policy(name: str) -> Optional[Callable]:
     forward's ``out``/``lse`` and recompute the rest (norms, GELU,
     bias adds, casts, layout copies), so the backward runs only the flash
     backward kernels. ``"offload"`` (host offload of remat'd activations)
-    is not ported."""
+    is not ported: JAX degrades it to full remat off TPU, and on the card
+    it needs static pinned host buffers inside the captured step, which
+    come with the memory work of hot strategy switching."""
     if name == "none":
         return None
     if name == "full":
@@ -506,7 +508,9 @@ def remat_policy(name: str) -> Optional[Callable]:
     if name == "offload":
         raise NotImplementedError(
             "remat='offload' (host offload of remat'd activations) is not "
-            "ported yet")
+            "ported: it needs static pinned host buffers inside the "
+            "captured step and comes with the memory work of hot strategy "
+            "switching")
     raise ValueError(f"remat must be none|full|selective|offload, got "
                      f"{name!r}")
 

@@ -20,7 +20,8 @@ from hetu_tpu_torch.ops.fused_ce import (
     fused_lse_tgt_reference,
 )
 from hetu_tpu_torch.ops.losses import (
-    chunked_lm_loss, cross_entropy_mean, softmax_cross_entropy,
+    bce_loss, bce_with_logits_loss, chunked_lm_loss, cross_entropy_mean,
+    kl_div_loss, mse_loss, nll_loss, softmax_cross_entropy,
     vocab_parallel_lm_loss,
 )
 from hetu_tpu_torch.ops.normalization import layer_norm, rms_norm
@@ -36,7 +37,7 @@ from hetu_tpu_torch.ops.rotary import apply_rotary, rope_frequencies
 
 __all__ = [
     "NEG_INF", "apply_rotary", "attention_reference", "attention_with_lse",
-    "chunked_lm_loss", "combine_attention_lse", "cross_entropy_mean",
+    "bce_loss", "bce_with_logits_loss", "chunked_lm_loss", "combine_attention_lse", "cross_entropy_mean",
     "dequantize_int4", "dequantize_int8", "dropout", "dropout_keep",
     "dropout_keep_bh", "flash_attention",
     "flash_attention_bwd", "flash_attention_bwd_reference",
@@ -45,8 +46,8 @@ __all__ = [
     "fused_ce_dw_reference", "fused_ce_fwd", "fused_ce_lane", "fused_lm_ce",
     "fused_lse_tgt", "fused_lse_tgt_reference",
     "gather_block_rows", "gelu", "int8_matmul", "int8_mm",
-    "int8_w8a8_matmul", "int8_w8a8_matmul_prequant", "launch_counts",
-    "layer_norm",
+    "int8_w8a8_matmul", "int8_w8a8_matmul_prequant", "kl_div_loss",
+    "launch_counts", "layer_norm", "mse_loss", "nll_loss",
     "paged_attention", "paged_attention_reference", "paged_lane",
     "quantize_int4", "quantize_int8",
     "reset_launch_counts", "rms_norm", "rope_frequencies",

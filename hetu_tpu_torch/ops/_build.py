@@ -45,32 +45,43 @@ _LAUNCHES: dict[str, int] = {}
 # the autograd engine runs a CUDA backward (and its launches) on a thread
 # of its own
 _COUNT_LOCK = threading.Lock()
-# the tally of the graph this thread is capturing, if any
-_CAPTURE = threading.local()
+# the tally of the graph being captured, if any, and the thread capturing
+# it: one capture at a time per process. A launch goes to the tally when
+# that thread makes it, or when the launching thread's stream is capturing
+# (a backward captured with its forward launches from the autograd
+# engine's thread).
+_CAPTURE: tuple = (None, None)
+
+
+def _stream_capturing() -> bool:
+    import torch
+    return torch.cuda.is_current_stream_capturing()
 
 
 # -- launch counters ---------------------------------------------------------
 def count_launch(name: str) -> None:
     """Called by a wrapper right after its kernel launched (or, inside
     :func:`counting_into`, was captured into a graph)."""
-    tally = getattr(_CAPTURE, "tally", None)
-    if tally is not None:
-        tally[name] = tally.get(name, 0) + 1
-        return
+    tally, thread = _CAPTURE
+    captured = tally is not None and (threading.get_ident() == thread
+                                      or _stream_capturing())
     with _COUNT_LOCK:
-        _LAUNCHES[name] = _LAUNCHES.get(name, 0) + 1
+        into = tally if captured else _LAUNCHES
+        into[name] = into.get(name, 0) + 1
 
 
 @contextlib.contextmanager
 def counting_into(tally: dict):
-    """Inside the block, launches counted on this thread go to ``tally``
-    (the graph being captured) instead of the counters."""
-    prev = getattr(_CAPTURE, "tally", None)
-    _CAPTURE.tally = tally
+    """Inside the block, launches counted on this thread, or on any
+    thread's capturing stream, go to ``tally`` (the graph being
+    captured) instead of the counters."""
+    global _CAPTURE
+    prev = _CAPTURE
+    _CAPTURE = (tally, threading.get_ident())
     try:
         yield tally
     finally:
-        _CAPTURE.tally = prev
+        _CAPTURE = prev
 
 
 def add_launches(tally: dict) -> None:

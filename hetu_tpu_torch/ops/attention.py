@@ -13,6 +13,8 @@ from typing import Optional, Union
 
 import torch
 
+from hetu_tpu_torch.ops.dropout import seed_word
+
 NEG_INF = -1e30
 
 
@@ -99,7 +101,7 @@ def flash_attention(q, k, v, *, causal: bool = False,
                     segment_ids: Optional[torch.Tensor] = None,
                     scale: Optional[float] = None,
                     dropout_rate: float = 0.0,
-                    seed: Optional[int] = None) -> torch.Tensor:
+                    seed=None) -> torch.Tensor:
     """Differentiable flash attention, (b, s, h, d) layout, GQA allowed —
     the training attention (``hetu_tpu/ops/attention.py:211``,
     ``flash_pallas.py:671 flash_attention_pallas``).
@@ -107,8 +109,10 @@ def flash_attention(q, k, v, *, causal: bool = False,
     The forward and backward are the ``hetu_tpu_torch::flash_fwd`` /
     ``flash_bwd`` ops of ``ops/flash.py``: the hand-written kernels on a
     CUDA tensor (a head dim they refuse raises), the plain versions on a
-    CPU tensor. ``dropout_rate`` applies only with a ``seed`` (an int; the
-    mask is a hash of it and the positions), as a JAX dropout key does."""
+    CPU tensor. ``dropout_rate`` applies only with a ``seed`` (an int or
+    a staged seed; the mask is a hash of it and the positions), as a JAX
+    dropout key does. The seed reaches the kernels as a device word
+    (``ops.dropout.seed_word``)."""
     from hetu_tpu_torch.ops import flash  # noqa: F401  (registers the ops)
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
@@ -119,7 +123,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
         q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
         v.transpose(1, 2).contiguous(), segment_ids, segment_ids,
         bool(causal), float(scale), 0, 0,
-        float(dropout_rate) if drop else 0.0, int(seed) if drop else 0)
+        float(dropout_rate) if drop else 0.0,
+        seed_word(seed, q.device) if drop else None)
     return out.transpose(1, 2)
 
 

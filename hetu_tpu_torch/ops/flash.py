@@ -24,7 +24,10 @@ Dropout on the attention probabilities reproduces ``_dropout_keep``
 (:108) bit for bit: keep (q, k) iff ``fmix32(qpos*0x9E3779B1 ^
 kpos*0x85EBCA77 ^ salt) >= threshold`` with ``salt = fmix32(seed ^
 b*0x27D4EB2F ^ h*0x165667B1)`` (h the q head) over absolute positions,
-so the three kernels draw one mask whatever their tiles.
+so the three kernels draw one mask whatever their tiles. The seed
+reaches the kernels as a device word (an int32 tensor of one element,
+read once per block), so a captured step replays with the seed its host
+staged for that step; an int seed is put in such a word first.
 """
 
 from __future__ import annotations
@@ -37,10 +40,12 @@ import torch
 from hetu_tpu_torch.core.bits import MASK32, fmix32, mul32
 from hetu_tpu_torch.ops import _build
 from hetu_tpu_torch.ops.attention import NEG_INF
+from hetu_tpu_torch.ops.dropout import seed_word
 
 FWD, DQ, DKV = "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"
-# (seed, threshold) as uint32, then the reciprocal keep probability
-_DROP_ARGTYPES = [ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
+# the seed word's address, the uint32 threshold, then the reciprocal keep
+# probability
+_DROP_ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32,
                   ctypes.c_float]
 _FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
     + [ctypes.c_float] + [ctypes.c_int] * 4 + _DROP_ARGTYPES \
@@ -60,8 +65,15 @@ def dropout_threshold(rate: float) -> int:
     return min(2 ** 32 - 1, int(rate * 2 ** 32))
 
 
+def _seed_bits(seed) -> int:
+    """The 32 bits of an int seed, a staged seed or a seed word."""
+    if not isinstance(seed, int):
+        seed = int(seed_word(seed, None).reshape(-1)[0])
+    return seed & MASK32
+
+
 def _keep(seed, b_idx, h_idx, qpos, kpos, rate):
-    salt = fmix32((int(seed) & MASK32) ^ mul32(b_idx, 0x27D4EB2F)
+    salt = fmix32(_seed_bits(seed) ^ mul32(b_idx, 0x27D4EB2F)
                   ^ mul32(h_idx, 0x165667B1))
     u = fmix32(mul32(qpos & MASK32, 0x9E3779B1)
                ^ mul32(kpos & MASK32, 0x85EBCA77) ^ salt)
@@ -93,14 +105,24 @@ def dropout_keep_bh(seed: int, nb: int, nh: int, sq: int, sk: int, *,
                  (ar(sk) + kv_offset)[None, None, None, :], rate)
 
 
-def _drop_args(dropout_rate: float, seed: Optional[int]) -> list:
+def _drop_args(dropout_rate: float, seed, device=None) -> list:
+    """The kernels' dropout arguments; on ``device`` (a CUDA call) the
+    seed as the address of its int32 device word."""
     if dropout_rate <= 0.0:
-        return [0, 0, 0, 1.0]
+        return [0, ctypes.c_void_p(None), 0, 1.0]
     if not dropout_rate < 1.0:
         raise ValueError(f"dropout rate must be < 1, got {dropout_rate}")
     if seed is None:
         raise ValueError("a dropout rate needs a seed")
-    return [1, int(seed) & MASK32, dropout_threshold(dropout_rate),
+    if device is None:
+        return []
+    word = seed_word(seed, device)
+    if word.dtype != torch.int32 or word.numel() != 1 \
+            or word.device != device:
+        raise ValueError(f"the dropout seed word must be one int32 element "
+                         f"on {device}, got {word.dtype} {tuple(word.shape)}"
+                         f" on {word.device}")
+    return [1, _build.ptr(word), dropout_threshold(dropout_rate),
             1.0 / (1.0 - dropout_rate)]
 
 
@@ -146,7 +168,7 @@ def flash_attention_fwd_reference(q, k, v, q_seg, kv_seg, *, causal: bool,
                                   scale: float, q_offset: int = 0,
                                   kv_offset: int = 0,
                                   dropout_rate: float = 0.0,
-                                  seed: Optional[int] = None):
+                                  seed=None):
     """The plain forward on full matrices in fp32: q (b, hq, sq, d), k/v
     (b, hkv, sk, d), seg ids (b, s) or None. Returns out (b, hq, sq, d)
     in q's dtype and lse (b, hq, sq). Dropout masks only what multiplies
@@ -179,7 +201,7 @@ def flash_attention_bwd_reference(q, k, v, q_seg, kv_seg, out, lse, do, *,
                                   q_offset: int = 0, kv_offset: int = 0,
                                   delta: Optional[torch.Tensor] = None,
                                   dropout_rate: float = 0.0,
-                                  seed: Optional[int] = None):
+                                  seed=None):
     """The plain backward on full matrices in fp32, from the saved ``lse``
     and ``delta = rowsum(dO * O)`` (computed here unless given):
     ``p = exp(s - lse)`` zeroed under the mask, ``dp = dO v^T`` (dropped
@@ -282,11 +304,12 @@ def _seg_ptrs(q_seg, kv_seg):
 def flash_attention_fwd(q, k, v, q_seg: Optional[torch.Tensor],
                         kv_seg: Optional[torch.Tensor], *, causal: bool,
                         scale: float, q_offset: int = 0, kv_offset: int = 0,
-                        dropout_rate: float = 0.0,
-                        seed: Optional[int] = None):
+                        dropout_rate: float = 0.0, seed=None):
     """Flash forward: out (b, hq, sq, d) in q's dtype and fp32 lse
     (b, hq, sq). ``q_offset``/``kv_offset`` are static absolute offsets
-    of the causal mask and of the dropout positions."""
+    of the causal mask and of the dropout positions. ``seed`` is an int,
+    a :class:`~hetu_tpu_torch.ops.dropout.StagedSeed` or a one-element
+    int32 word on q's device; the kernel reads the word."""
     if q.device.type == "cpu":
         return flash_attention_fwd_reference(
             q, k, v, q_seg, kv_seg, causal=causal, scale=scale,
@@ -294,7 +317,7 @@ def flash_attention_fwd(q, k, v, q_seg: Optional[torch.Tensor],
             dropout_rate=dropout_rate, seed=seed)
     b, hq, hkv, sq, sk, d = _check_inputs("flash_attention_fwd", q, k, v,
                                           q_seg, kv_seg)
-    drop = _drop_args(dropout_rate, seed)
+    drop = _drop_args(dropout_rate, seed, q.device)
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
@@ -315,8 +338,7 @@ def flash_attention_bwd(q, k, v, q_seg: Optional[torch.Tensor],
                         causal: bool, scale: float, q_offset: int = 0,
                         kv_offset: int = 0,
                         delta: Optional[torch.Tensor] = None,
-                        dropout_rate: float = 0.0,
-                        seed: Optional[int] = None):
+                        dropout_rate: float = 0.0, seed=None):
     """Flash backward: (dq, dk, dv) in q's/k's dtype from the forward's
     out and lse and the output grad ``do``. ``delta`` (b, hq, sq) fp32
     defaults to ``rowsum(out * do)``; a caller that combines partial
@@ -339,7 +361,7 @@ def flash_attention_bwd(q, k, v, q_seg: Optional[torch.Tensor],
                ("do", do, tuple(q.shape), q.dtype),
                ("lse", lse, stats, torch.float32),
                ("delta", delta, stats, torch.float32)))
-    drop = _drop_args(dropout_rate, seed)
+    drop = _drop_args(dropout_rate, seed, q.device)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -368,9 +390,10 @@ def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  q_seg: Optional[torch.Tensor],
                  kv_seg: Optional[torch.Tensor], causal: bool, scale: float,
                  q_offset: int, kv_offset: int, dropout_rate: float,
-                 seed: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """:func:`flash_attention_fwd` as a dispatcher op (``seed`` is read
-    only when ``dropout_rate > 0``)."""
+                 seed: Optional[torch.Tensor]
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_fwd` as a dispatcher op: ``seed`` is the
+    int32 seed word, read only when ``dropout_rate > 0``."""
     return flash_attention_fwd(q, k, v, q_seg, kv_seg, causal=causal,
                                scale=scale, q_offset=q_offset,
                                kv_offset=kv_offset, dropout_rate=dropout_rate,
@@ -383,7 +406,7 @@ def flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  kv_seg: Optional[torch.Tensor], out: torch.Tensor,
                  lse: torch.Tensor, do: torch.Tensor, causal: bool,
                  scale: float, q_offset: int, kv_offset: int,
-                 dropout_rate: float, seed: int
+                 dropout_rate: float, seed: Optional[torch.Tensor]
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`flash_attention_bwd` as a dispatcher op."""
     return flash_attention_bwd(q, k, v, q_seg, kv_seg, out, lse, do,

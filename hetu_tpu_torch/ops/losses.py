@@ -6,7 +6,9 @@ never holds more than one chunk's (tokens, V) logits: each chunk runs
 under ``torch.utils.checkpoint``, which keeps only the chunk's inputs and
 recomputes its logits in the backward. ``HETU_LM_LOSS_IMPL=fused``
 switches a large vocab to the fused kernels of ``ops/fused_ce.py``,
-which never write logits to device memory.
+which never write logits to device memory. The auxiliary losses
+(``mse_loss``, ``nll_loss``, ``bce_loss``, ``bce_with_logits_loss``,
+``kl_div_loss``, ``:350-395``) compute in fp32 with JAX's reductions.
 """
 
 from __future__ import annotations
@@ -141,3 +143,61 @@ def vocab_parallel_lm_loss(hidden: torch.Tensor, vocab_weight: torch.Tensor,
                                ignore_index=ignore_index)
     return cross_entropy_mean(head_logits(hidden, vocab_weight, mm_dt),
                               labels, ignore_index)
+
+
+# -- auxiliary losses (``hetu_tpu/ops/losses.py:350-395``) ---------------------
+
+def _reduce(x: torch.Tensor, reduction: str) -> torch.Tensor:
+    if reduction == "mean":
+        return x.mean()
+    if reduction == "sum":
+        return x.sum()
+    if reduction == "none":
+        return x
+    raise ValueError(f"unknown reduction {reduction!r}")
+
+
+def mse_loss(pred, target, *, reduction: str = "mean"):
+    d = (pred.float() - target.float()) ** 2
+    return _reduce(d, reduction)
+
+
+def nll_loss(log_probs, labels, *, ignore_index: int = -100,
+             reduction: str = "mean"):
+    """Negative log likelihood over pre-computed log-probs (..., C);
+    ``ignore_index`` labels add nothing and leave the mean."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    ll = torch.gather(log_probs.float(), -1,
+                      safe[..., None].long()).squeeze(-1)
+    loss = -ll * valid
+    if reduction == "mean":
+        return loss.sum() / valid.sum().clamp(min=1)
+    return _reduce(loss, reduction)
+
+
+def bce_loss(probs, target, *, eps: float = 1e-7, reduction: str = "mean"):
+    p = probs.float().clamp(eps, 1.0 - eps)
+    t = target.float()
+    loss = -(t * torch.log(p) + (1.0 - t) * torch.log1p(-p))
+    return _reduce(loss, reduction)
+
+
+def bce_with_logits_loss(logits, target, *, reduction: str = "mean"):
+    """Sigmoid and BCE in the stable log-sum-exp form."""
+    x = logits.float()
+    t = target.float()
+    loss = x.clamp(min=0) - x * t + torch.log1p(torch.exp(-x.abs()))
+    return _reduce(loss, reduction)
+
+
+def kl_div_loss(log_pred, target_probs, *, eps: float = 1e-12,
+                reduction: str = "batchmean"):
+    """KL(target || pred) with ``pred`` given as log-probs; ``batchmean``
+    divides the sum by the leading dim."""
+    t = target_probs.float()
+    lp = log_pred.float()
+    point = t * (torch.log(t.clamp(min=eps)) - lp)
+    if reduction == "batchmean":
+        return point.sum() / point.shape[0]
+    return _reduce(point, reduction)

@@ -26,6 +26,7 @@ class Strategy:
     offload: bool = False         # host offload of remat'd activations
     remat_mask: Optional[tuple] = None   # per-layer recompute flags
     unroll: bool = False          # accepted; the port has no layer scan
+    fsdp: bool = False            # accepted: one device shards nothing
 
     def __post_init__(self):
         degrees = {a: getattr(self, a) for a in ("dp", "tp", "pp", "cp",

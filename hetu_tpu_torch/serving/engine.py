@@ -58,7 +58,7 @@ classic decode step (the argmax, or ``sample_slots``' one draw).
 
 The lanes are ``hetu_tpu``'s fused step, which JAX compiles once
 (``hetu_tpu/serving/engine.py:527 _build_step``). Here
-each lane is a :class:`~hetu_tpu_torch.serving.step_graph.StepGraph`:
+each lane is a :class:`~hetu_tpu_torch.engine.step_graph.StepGraph`:
 one body over static device operands (the decode inputs, the block
 tables' device mirror ``_bt_dev``, the pack at the fixed chunk C and
 ``_fin_cap`` finishing rows), captured once as a CUDA graph when the
@@ -192,7 +192,7 @@ from hetu_tpu_torch.serving.speculative import (
     ModelDraftsman, NgramDraftsman, check_draft_depth, check_sampled_draft,
     speculative_verify,
 )
-from hetu_tpu_torch.serving.step_graph import StepGraph
+from hetu_tpu_torch.engine.step_graph import StepGraph
 from hetu_tpu_torch.serving.streaming import TokenSubscription, push_delta
 from hetu_tpu_torch.serving.tenancy import (
     DEFAULT_TARGETS, AdapterArenaFull, TenantPlane,

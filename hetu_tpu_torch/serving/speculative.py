@@ -299,7 +299,7 @@ class ModelDraftsman:
                  spec_depth: int, block_size: int,
                  target_vocab: Optional[int] = None):
         from hetu_tpu_torch.models.generation import init_kv_caches
-        from hetu_tpu_torch.serving.step_graph import StepGraph
+        from hetu_tpu_torch.engine.step_graph import StepGraph
 
         check_draft_model(model)
         self.model = model

@@ -231,10 +231,26 @@ def _quantized(e: _Entry) -> tuple:
             _Entry(scales, (n, *scales[0].shape)))
 
 
+#: each optimizer-state kind of ``hetu_tpu`` (``jax_state_layout``):
+#: whether it keeps its own update count, and (port state key, field) of
+#: its per-param moments; adafactor's factored moments are laid out by
+#: :func:`_adafactor_entries`
+_KINDS = {"adam": (True, (("mu", "mu"), ("nu", "nu"))),
+          "amsgrad": (True, (("mu", "mu"), ("nu", "nu"),
+                             ("max_nu", "max_nu"))),
+          "trace": (False, (("trace", "velocity"),)),
+          "adagrad": (False, (("accum", "accum"),)),
+          "adafactor": (True, ())}
+
+
+def _kind(slots: dict):
+    return next((k for k in _KINDS if k in slots), None)
+
+
 def _optimizer_state(optimizer, names: dict, transposed: dict) -> tuple:
     """``(count, {state key: {param name: host copy}})`` of a port
-    optimizer: Adam's count (one for all params, as ``hetu_tpu`` keeps
-    it) and its moments, or SGD's trace, in ``hetu_tpu``'s layout."""
+    optimizer: its update count (one for all params, as ``hetu_tpu``
+    keeps it) and its moments, in ``hetu_tpu``'s layout."""
     counts, moments = set(), {}
     for p, st in optimizer.state.items():
         for k, v in st.items():
@@ -244,9 +260,65 @@ def _optimizer_state(optimizer, names: dict, transposed: dict) -> tuple:
                 moments.setdefault(k, {})[names[p]] = _host(
                     v, transposed[names[p]])
     if len(counts) > 1:
-        raise ValueError(f"the params' Adam counts differ ({sorted(counts)})"
-                         f": hetu_tpu keeps one count")
+        raise ValueError(f"the params' update counts differ "
+                         f"({sorted(counts)}): hetu_tpu keeps one count")
     return (counts.pop() if counts else 0), moments
+
+
+def _adafactor_factored(optimizer, shape) -> bool:
+    from hetu_tpu_torch.optim.optimizers import adafactor_factored
+    return adafactor_factored(
+        shape, optimizer.param_groups[0]["min_dim_size_to_factor"])
+
+
+def _moment_shapes(key: str, shape: tuple, factored: bool) -> dict:
+    """``hetu_tpu``'s shapes of adafactor's ``v_row``/``v_col``/``v`` for
+    a leaf of ``shape``: the row and column means of a factored leaf and
+    a (1,) placeholder for ``v``, or the other way round."""
+    one = (1,)
+    if factored:
+        return {"v_row": shape[:-1], "v_col": shape[:-2] + shape[-1:],
+                "v": one}
+    return {"v_row": one, "v_col": one, "v": shape}
+
+
+def _adafactor_entries(optimizer, layout: dict, moments: dict,
+                       params: dict, prefix: str) -> dict:
+    """``opt.<slot>.v_row/v_col/v.<key>`` of every leaf: the trained
+    parts' moments (stacked over a block leaf's layers), zeros for a
+    frozen part and for the placeholders."""
+    out = {}
+    for key, parts in layout.items():
+        shape = tuple(params[parts[0][0]].shape)    # hetu_tpu's layout
+        shape = (len(parts), *shape) if key.startswith("blocks.") else shape
+        factored = _adafactor_factored(optimizer, shape)
+        for field, jshape in _moment_shapes(key, shape, factored).items():
+            name = f"{prefix}.{field}.{key}"
+            if jshape == (1,):
+                out[name] = torch.zeros(1, dtype=torch.float32)
+                continue
+            got = moments.get(field, {})
+            part = jshape[1:] if key.startswith("blocks.") else jshape
+            full = {n: got[n] if n in got else torch.zeros(
+                part, dtype=torch.float32) for n, _ in parts}
+            out[name] = _jax_parts({key: parts}, full)[key]
+    return out
+
+
+def copy_optimizer_state(into, src) -> None:
+    """Copy ``src``'s state into the optimizer ``into`` over the same
+    params, tensor by tensor in place (counts by value), so a captured
+    step that reads ``into``'s tensors by address sees the new state."""
+    for p, st in into.state.items():
+        new = src.state[p]
+        if sorted(new) != sorted(st):
+            raise ValueError(f"optimizer state keys differ: {sorted(new)} "
+                             f"vs {sorted(st)}")
+        for k, v in new.items():
+            if isinstance(v, torch.Tensor):
+                st[k].copy_(v)
+            else:
+                st[k] = v
 
 
 class CheckpointWriter:
@@ -304,19 +376,25 @@ def save_checkpoint(path: str, state: TrainState, *,
                 quantized.append(_MODEL_PREFIX + key)
             else:
                 out[_MODEL_PREFIX + key] = e
-        for kind, fields in (("adam", ("mu", "nu")), ("trace", ("trace",))):
-            if kind not in slots:
-                continue
-            if kind == "adam":
-                out[f"{_OPT_PREFIX}{slots[kind]}.count"] = torch.tensor(
-                    count, dtype=torch.int32)
-            for field in fields:
+        kind = _kind(slots)
+        if kind is not None:
+            has_count, fields = _KINDS[kind]
+            prefix = f"{_OPT_PREFIX}{slots[kind]}"
+            if has_count:
+                out[f"{prefix}.count"] = torch.tensor(count,
+                                                      dtype=torch.int32)
+            for field, tag in fields:
                 got = moments.get(field, {})
                 full = {n: got[n] if n in got else torch.zeros(
                     params[n].shape, dtype=torch.float32) for n in params}
-                tag = "velocity" if kind == "trace" else field
                 for key, e in _jax_parts(layout, full).items():
-                    out[f"{_OPT_PREFIX}{slots[kind]}.{tag}.{key}"] = e
+                    out[f"{prefix}.{tag}.{key}"] = e
+            if kind == "adafactor":
+                out.update(_adafactor_entries(state.optimizer, layout,
+                                              moments, params, prefix))
+        if "wd_count" in slots:
+            out[_OPT_PREFIX + slots["wd_count"]] = torch.tensor(
+                step, dtype=torch.int32)
         out[_OPT_PREFIX + slots["count"]] = torch.tensor(step,
                                                          dtype=torch.int32)
         return out, quantized
@@ -403,30 +481,54 @@ def load_checkpoint(path: str, model: nn.Module, opt) -> TrainState:
     optimizer = opt.build(model)
     slots = optimizer.state_layout
     _take(tensors, _OPT_PREFIX + slots["count"], ())
+    if "wd_count" in slots:
+        _take(tensors, _OPT_PREFIX + slots["wd_count"], ())
     trained = {n for n, p in named.items() if p.requires_grad}
-    fields = (("mu", "mu"), ("nu", "nu")) if "adam" in slots else \
-        (("trace", "velocity"),) if "trace" in slots else ()
-    if fields:
-        kind = "adam" if "adam" in slots else "trace"
+    kind = _kind(slots)
+    if kind is not None:
+        has_count, fields = _KINDS[kind]
+        prefix = f"{_OPT_PREFIX}{slots[kind]}"
         state = {n: {} for n in trained}
-        if kind == "adam":
-            count = int(_take(tensors, f"{_OPT_PREFIX}{slots[kind]}.count",
-                              ()))
+        if has_count:
+            count = int(_take(tensors, f"{prefix}.count", ()))
             for n in trained:
                 state[n]["count"] = count
         for field, tag in fields:
             bufs = {n: torch.empty(named[n].shape, dtype=torch.float32,
                                    device=named[n].device) for n in trained}
             for key, parts in layout.items():
-                t = _take(tensors, f"{_OPT_PREFIX}{slots[kind]}.{tag}.{key}",
+                t = _take(tensors, f"{prefix}.{tag}.{key}",
                           _jax_shape(key, parts, named))
                 _scatter(t, key, parts, bufs)
             for n in trained:
                 state[n][field] = bufs[n]
+        if kind == "adafactor":
+            for key, parts in layout.items():
+                shape = _jax_shape(key, parts, named)
+                factored = _adafactor_factored(optimizer, shape)
+                for field, jshape in _moment_shapes(key, shape,
+                                                    factored).items():
+                    t = _take(tensors, f"{prefix}.{field}.{key}", jshape)
+                    if jshape == (1,):
+                        continue
+                    part = jshape[1:] if key.startswith("blocks.") \
+                        else jshape
+                    if factored:
+                        bufs = {n: torch.empty(part, dtype=torch.float32,
+                                               device=named[n].device)
+                                for n, _ in parts if n in trained}
+                    else:
+                        bufs = {n: torch.empty(named[n].shape,
+                                               dtype=torch.float32,
+                                               device=named[n].device)
+                                for n, _ in parts if n in trained}
+                    _scatter(t, key, parts, bufs)
+                    for n, b in bufs.items():
+                        state[n][field] = b
         for n in trained:
             optimizer.state[named[n]] = state[n]
     return TrainState(int(meta["step"]), model, optimizer)
 
 
-__all__ = ["CheckpointWriter", "load_checkpoint", "load_tensors",
-           "save_checkpoint", "save_tensors"]
+__all__ = ["CheckpointWriter", "copy_optimizer_state", "load_checkpoint",
+           "load_tensors", "save_checkpoint", "save_tensors"]

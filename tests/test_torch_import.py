@@ -47,7 +47,9 @@ def test_import_leaves_jax_unloaded():
               "hetu_tpu_torch.serving.streaming",
               "hetu_tpu_torch.serving.server", "hetu_tpu_torch.rpc",
               "hetu_tpu_torch.rpc.stream", "hetu_tpu_torch.rpc.py_server",
-              "hetu_tpu_torch.rpc.client"):
+              "hetu_tpu_torch.rpc.client", "hetu_tpu_torch.data.bucket",
+              "hetu_tpu_torch.optim.scaler", "hetu_tpu_torch.optim.schedules",
+              "hetu_tpu_torch.engine.step_graph"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -120,6 +120,45 @@ def test_flash_fwd_dropout_lane_matches_pallas_interpret():
                             dropout_rate=0.2, **kw)
 
 
+@pytest.mark.parametrize("seed", [77, 0xDEADBEEF])
+def test_flash_seed_as_a_device_word_draws_the_same_mask(seed):
+    """The kernels read the dropout seed from a device word: an int32
+    word holding the seed's 32 bits (a uint32 above 2**31 wraps to a
+    negative int32), a staged seed of a ``SeedTable`` and the int give
+    the same outputs bit for bit, forward and backward, and the keep
+    mask is ``dropout_keep_bh``'s."""
+    from hetu_tpu_torch.ops.dropout import SeedTable, seed_word
+    from hetu_tpu_torch.ops.flash import (
+        dropout_keep_bh, flash_attention_bwd,
+    )
+    rng = np.random.default_rng(11)
+    b, hq, hkv, s, d = 1, 4, 2, 12, 16
+    q, k, v, do = (_t(rng.normal(size=shape).astype(np.float32))
+                   for shape in ((b, hq, s, d), (b, hkv, s, d),
+                                 (b, hkv, s, d), (b, hq, s, d)))
+    kw = dict(causal=True, scale=0.25, dropout_rate=0.3)
+    word = seed_word(seed, "cpu")
+    assert word.dtype == torch.int32 and word.shape == (1,)
+    assert int(word) & 0xFFFFFFFF == seed
+    table = SeedTable("cpu")
+    staged = table.seed()
+    table.stage(seed)
+    assert int(table.word(staged.path)) & 0xFFFFFFFF == seed
+    outs = [flash_attention_fwd(q, k, v, None, None, seed=x, **kw)
+            for x in (seed, word, staged)]
+    for o, lse in outs[1:]:
+        assert torch.equal(o, outs[0][0]) and torch.equal(lse, outs[0][1])
+    o, lse = outs[0]
+    grads = [flash_attention_bwd(q, k, v, None, None, o, lse, do, seed=x,
+                                 **kw) for x in (seed, word, staged)]
+    for g in grads[1:]:
+        assert all(torch.equal(a, c) for a, c in zip(g, grads[0]))
+    keep = dropout_keep_bh(seed, b, hq, s, s, rate=0.3)
+    assert torch.equal(keep, dropout_keep_bh(word, b, hq, s, s, rate=0.3))
+    want = dropout_keep_bh(seed + 1, b, hq, s, s, rate=0.3)
+    assert not torch.equal(keep, want)
+
+
 # -- paged attention ----------------------------------------------------------
 
 def _arena(rng, *, S=3, R=1, hq=4, hkv=2, d=16, n_blocks=9, bs=4, W=8):

@@ -43,7 +43,7 @@ from hetu_tpu_torch.models import (
 )
 from hetu_tpu_torch.ops import _build
 from hetu_tpu_torch.serving import SamplingParams, ServingEngine
-from hetu_tpu_torch.serving.step_graph import StepGraph
+from hetu_tpu_torch.engine.step_graph import StepGraph
 
 torch.set_num_threads(2)
 
@@ -400,7 +400,7 @@ def _op_cases():
         rnd(b, hkv, s, d, grad=True)
     seg = torch.tensor([[0, 0, 0, 1, 1, 1, 1, -1]], dtype=torch.int32)
     out, lse = flash_fwd_op(fq.detach(), fk.detach(), fv.detach(), seg, seg,
-                            True, d ** -0.5, 0, 0, 0.0, 0)
+                            True, d ** -0.5, 0, 0, 0.0, None)
     n, vocab, e = 6, 50, 32
     h, w = rnd(n, e, grad=True), rnd(vocab, e, grad=True)
     labels = torch.tensor([0, 49, -1, 7, 3, 3], dtype=torch.int32)
@@ -414,10 +414,13 @@ def _op_cases():
          (q, k, v, tables, off, None, None,
           torch.tensor([2, 2, 0], dtype=torch.int32), d ** -0.5)),
         ("flash_fwd", flash_fwd_op,
-         (fq, fk, fv, seg, seg, True, d ** -0.5, 0, 0, 0.0, 0)),
+         (fq, fk, fv, seg, seg, True, d ** -0.5, 0, 0, 0.0, None)),
+        ("flash_fwd_dropout", flash_fwd_op,
+         (fq, fk, fv, seg, seg, True, d ** -0.5, 0, 0, 0.1,
+          torch.tensor([1234], dtype=torch.int32))),
         ("flash_bwd", flash_bwd_op,
          (fq.detach(), fk.detach(), fv.detach(), seg, seg, out, lse,
-          rnd(b, hq, s, d), True, d ** -0.5, 0, 0, 0.0, 0)),
+          rnd(b, hq, s, d), True, d ** -0.5, 0, 0, 0.0, None)),
         ("fused_ce_fwd", fused_ce_fwd_op, (h, w, labels)),
         ("fused_ce_bwd", fused_ce_bwd_op,
          (h.detach(), w.detach(), labels, flse, rnd(n), rnd(n))),
