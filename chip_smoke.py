@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``hetu_tpu_torch``) on one NVIDIA
 GPU: builds the hand-written kernels, holds each against its plain
 PyTorch version, serves GPT-2 small through ``ServingEngine``, trains
-it with ``build_train_step``, serves Llama-7B (its width at 16 of its 32
-layers) from the int8 KV arena
+it with ``build_train_step``, serves Llama-7B (all 32 layers) from the
+int8 KV arena
 (also from an arena sized by an HBM budget, under preemption, and with
 speculative decoding), trains Llama at 7B width through ``Trainer`` and
 ``SFTTrainer``, with the chunked and with the fused LM head, saves and
@@ -76,6 +76,18 @@ Phases, each printing one JSON line:
    matmul, then the eager ops by kind), and ``engine_decode_step_split``:
    a steady-decode step's host time by part, without the profiler,
    beside one replay's device time.
+4a. gpt2_telemetry -- ``engine``'s engine and 48 + 16 prompts served with
+   telemetry off, then on with ``slo=True`` and the watchdog (1 s
+   floor): tokens and first-token logits bit-equal, one capture a lane
+   each, #1/#2 launches as in ``engine``; the engine's series against
+   the run (requests, tokens, TTFT/TPOT counts, the kernel-path counters
+   against the lane replays, prefix hit/miss tokens); ``trace.json``
+   with one request track a request, parsed by the port's
+   ``trace_summary``; behind ``ServingServer``: HEALTHZ ``ok``, METRICS
+   parsed as Prometheus text, DUMPOBS's bundle, then a planted stall
+   (the step lock held 3 s) trips the watchdog once, its dump parses,
+   HEALTHZ reads degraded and a later request finishes. Step ms with
+   telemetry on and off.
 4b. gpt2_server -- the ``engine`` phase's model at its settings behind
    ``ServingServer(engine, 0)`` (a free local port), the loop started:
    ``engine``'s 48 burst prompts in thirds over 6 client threads
@@ -185,8 +197,8 @@ Phases, each printing one JSON line:
    int8 weight's bytes at 3.35 TB/s, and each output's largest error
    over the bf16 product's largest value, under 0.05; the two W8A8
    products bit-equal.
-12. llama_engine -- ``LlamaConfig.llama_7b`` (hidden 4096, cut to 16 of
-   its 32 layers: ``LLAMA_SERVE_LAYERS``,
+12. llama_engine -- ``LlamaConfig.llama_7b`` (hidden 4096, all 32
+   layers: ``LLAMA_SERVE_LAYERS``,
    bf16 params and compute under ``autocast(BF16_FULL)``, random weights
    from a seed) served by ``ServingEngine(slots=16, max_len=2048,
    prefill_chunk=256, block_size=16, cache_dtype=int8)``: 48 greedy
@@ -197,8 +209,8 @@ Phases, each printing one JSON line:
    exactly one ``paged_attention_int8`` a layer per decode-lane
    iteration and one ``paged_attention_int8`` + one ``flash_fwd`` a
    layer per prefill-lane iteration. The oracle (bf16, ``decode`` over a dense int8 cache,
-   teacher-forced on the engine's tokens) reads every step of all 64
-   requests: the first-token logits must agree within ``DLOGIT_BF16``
+   teacher-forced on the engine's tokens, ``ORACLE_ROWS`` requests a
+   right-padded batch) reads every step of all 64 requests: the first-token logits must agree within ``DLOGIT_BF16``
    and the engine's token must lie within ``TIE_BF16`` of the oracle's
    best at every step; printed beside how far bf16 itself moves the
    logits (bf16 against fp32 compute). Then 16 fresh prompts are served
@@ -209,6 +221,15 @@ Phases, each printing one JSON line:
    all under the split-KV lane), the step split, ``step_graph_replay``
    (bf16, int8 arena), and the LM head's per-call fp32 cast against a
    held fp32 copy. The GPT-2 engine is profiled the same two ways.
+12b. llama_telemetry -- the llama_engine's model and settings with
+   telemetry on and ``slo=True``: llama_engine's 64 requests on its
+   schedule, every token and first-token logit bit-equal to its
+   telemetry-off run and within the bf16 oracle's bounds; then, under
+   the default rules afresh, 8 fresh short prompts and 16 held 1.5 s
+   before admission: the TTFT burn-rate alert fires on the delayed wave
+   only, the health document reads degraded. After every step the
+   queue, occupancy, block and spill gauges equal the engine's own
+   counts; launches and captures as in ``llama_engine``.
 13. memory pressure -- the llama_engine's model served three more ways.
    ``llama_budget_engine``: ``ServingEngine(hbm_budget_bytes=40e9,
    max_len=2048, prefill_chunk=256, block_size=16, cache_dtype=int8)``
@@ -406,8 +427,19 @@ Phases, each printing one JSON line:
    batches of 4 rows, real lengths from a seed over 100-2,048 (every
    bucket hit), twice: 3 ``train_step`` captures, then none; every step
    bit-equal to the eager body on a twin; the bucket stats, each
-   bucket's step ms, tokens/s and pool bytes, and the batches padded to
-   2,048 through one entry. llama_grad_accum -- four ``grad_step``s and
+   bucket's step ms, tokens/s and pool bytes (the three buckets' graphs
+   share one pool), the batches padded to 2,048 through one entry, and
+   the reserved bytes before, after training and after
+   ``Trainer.close()`` (which must give back at least 0.9 of the pool).
+   llama_train_telemetry -- the same Trainer with telemetry, the
+   watchdog, SLO rules and ``peak_flops``, over the same batches twice
+   with one save between: losses bit-equal to llama_train_buckets',
+   captures 3 then 0, ``compile`` seconds in the first pass only, one
+   ``data_bucket_compiles_total`` a bucket, the ``data_*`` token series
+   equal to the bucketer's stats, the goodput MFU within 1% of this
+   script's own from the same tokens/s, one checkpoint write observed,
+   the artifacts parsed, and a captured step sync-free with telemetry
+   on. llama_grad_accum -- four ``grad_step``s and
    one ``apply_step`` against ``num_microbatches=4`` on one batch: the
    params bit-equal (else within 1e-6 of the largest change), and
    ``init_acc(like=)`` moving no allocated byte. llama_train_adafactor --
@@ -430,8 +462,16 @@ Phases, each printing one JSON line:
    repeated: 3 warm-up and 10 timed steps. The loss must fall; launches
    exactly 6 a step of each flash kernel. Step ms, tokens/s, MFU on the
    active params (expert tensors at k/E) against 989 TFLOP/s beside the
-   Trainer's all-params figure, peak memory; then ``moe_train_profile``
-   (as ``train_profile``).
+   Trainer's all-params figure, peak memory, one capture; then
+   ``moe_train_profile`` (as ``train_profile``). moe_train_telemetry --
+   the same model and batch in a Trainer of its own with telemetry on
+   (3 warm-up and 10 timed steps; the step ms beside moe_train's, no
+   bound): one capture, 6 launches a step of each flash kernel, a
+   captured step sync-free, ``moe_aux_loss`` and
+   ``moe_overflow_fraction`` one observation a layer and step, and after
+   one more step ``moe_expert_tokens`` equal to a host count of layer
+   0's routing (the last a train step emits: its backward runs the
+   layers in reverse, as ``hetu_tpu``'s does).
 28. moe_engine -- ``moe_8e`` uncut (12 layers, fp32) served by
    ``ServingEngine(slots=16, max_len=512, prefill_chunk=64,
    block_size=16)``: the GPT-2 engine's workload at half its requests
@@ -1761,11 +1801,9 @@ def launches_of(counts, names=FLASH) -> dict:
 
 
 def release() -> None:
-    """Drop the process-wide step cache's entries (each pins its model,
-    its optimizer and its graphs' pools), collect, and hand the
-    allocator's free blocks back to the card."""
-    from hetu_tpu_torch.engine import get_step_cache
-    get_step_cache().clear()
+    """Collect, and hand the allocator's free blocks back to the card.
+    The step cache needs no clearing: a Trainer releases the entries it
+    built (their graphs and pools) when it closes or is collected."""
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2526,12 +2564,11 @@ def phase_fused_kernel_times(device, timer, ops, b, results):
 #: the Llama engine (ServingEngine(slots=16, max_len=2048,
 #: prefill_chunk=256, block_size=16, cache_dtype=int8))
 LLAMA_SLOTS, LLAMA_MAX_LEN, LLAMA_CHUNK, LLAMA_BLOCK = 16, 2048, 256, 16
-#: the served Llama's depth: 7B width at 16 of its 32 layers. The phases
-#: that serve it (llama_engine through llama_w8a8_spec) and their
-#: oracles cost time in proportion to the depth, most of it on the host
-#: (the b = 1 teacher-forced oracle launches a few hundred ops a layer
-#: and chunk), and the whole script must end within 1,200 s
-LLAMA_SERVE_LAYERS = 16
+#: the served Llama's depth: 7B, all 32 layers. The phases that serve it
+#: (llama_engine through llama_w8a8_spec) and their oracles cost time in
+#: proportion to the depth; the teacher-forced oracle batches
+#: ``ORACLE_ROWS`` requests a call to keep the script within its limit
+LLAMA_SERVE_LAYERS = 32
 #: one packed prefill chunk of the Llama engine: (slot, tokens, chunk start)
 #: per request run -- a sixth chunk of a long prompt, a new prompt, a
 #: second chunk -- then 16 pad tokens
@@ -2901,51 +2938,97 @@ def llama_workload(vocab: int, seed: int = SEED):
     return burst, shared
 
 
+#: requests a teacher-forced oracle call batches (one right-padded row
+#: each)
+ORACLE_ROWS = 16
+
+
 @torch.no_grad()
+def forced_logits_rows(model, prompts, tokens, cache_dtype,
+                       chunk=LLAMA_CHUNK, lora=None, w8a8=None):
+    """The dense oracle teacher-forced on each row's ``tokens``, all rows
+    in one right-padded batch: row r holds its prompt and every token of
+    ``tokens[r]`` but the last, then pad tokens; ``decode`` runs ``chunk``
+    positions at a time over a dense cache of ``cache_dtype`` (plain
+    attention, no kernel). Every row starts at position 0, so a chunk
+    writes each row's cache at the same positions, and a row's real
+    positions attend only to positions at or below their own: its padded
+    tail is never read. ``lora`` (an adapter arena, ``lora_arena``)
+    decodes every token under its page 1; ``w8a8`` (one ``prequantize``
+    tree a layer, ``w8a8_trees``) runs every layer's FFN on its W8A8 lane
+    for the generated tokens and keeps the prompt's fp, as the engine's
+    decode and prefill lanes do: the chunks then run fp up to the
+    longest prompt's end (a row past its own end writes cache cells the
+    next pass overwrites before any real position reads them), then
+    W8A8 over each row's generated tokens, every row from its own
+    prompt's end (``decode``'s per-row positions, ``slot_mask``).
+    Returns, a row, the fp32 logits the oracle chooses each of
+    ``tokens[r]`` from, ``(len(tokens[r]), V)``; row 0 of each follows
+    the prompt alone."""
+    from hetu_tpu_torch.models import decode, init_kv_caches
+    dev = model.device
+    seqs = [list(p) + list(t[:-1]) for p, t in zip(prompts, tokens)]
+    ends = [len(p) for p in prompts]
+    gen = [len(s) - e for s, e in zip(seqs, ends)]
+    B, T = len(seqs), max(len(s) for s in seqs)
+    if w8a8 is not None:         # room for every row's window
+        T = max(e + max(gen) for e in ends)
+    ids = torch.zeros((B, T), dtype=torch.long)
+    for r, s in enumerate(seqs):
+        ids[r, :len(s)] = torch.tensor(s)
+    ids = ids.to(dev)
+    caches = init_kv_caches(model, B, T, cache_dtype)
+    pages = (lambda pos: None) if lora is None \
+        else (lambda pos: {"ids": torch.ones_like(pos), "pages": lora})
+    rows: list = [[] for _ in range(B)]
+    # every row from position 0: the whole sequence (the prompts, for
+    # W8A8), in fp
+    fp_end = T if w8a8 is None else max(ends)
+    for lo in range(0, fp_end, chunk):
+        hi = min(lo + chunk, fp_end)
+        pos = torch.arange(lo, hi, device=dev)[None].repeat(B, 1)
+        logits = decode(model, ids[:, lo:hi], pos, caches, lora=pages(pos))
+        for r in range(B):
+            a = max(lo, ends[r] - 1)
+            b = min(hi, len(seqs[r]) if w8a8 is None else ends[r])
+            if a < b:
+                rows[r].append(logits[r, a - lo:b - lo])
+    if w8a8 is not None:
+        start = torch.tensor(ends, device=dev)[:, None]
+        quant = dict(w8a8_mask=(True,) * len(w8a8), w8a8_wq=w8a8)
+        for lo in range(0, max(gen), chunk):
+            hi = min(lo + chunk, max(gen))
+            pos = start + torch.arange(lo, hi, device=dev)[None]
+            logits = decode(model, torch.gather(ids, 1, pos), pos, caches,
+                            slot_mask=torch.ones(B, dtype=torch.bool,
+                                                 device=dev),
+                            lora=pages(pos), **quant)
+            for r in range(B):
+                if lo < gen[r]:
+                    rows[r].append(logits[r, :min(hi, gen[r]) - lo])
+    return [torch.cat(x) for x in rows]
+
+
 def forced_logits(model, prompt, tokens, cache_dtype, chunk=LLAMA_CHUNK,
                   lora=None, w8a8=None):
-    """The dense oracle teacher-forced on ``tokens``: ``decode`` over a
-    dense cache of ``cache_dtype`` (plain attention, no kernel) with the
-    prompt and every token but the last, ``chunk`` tokens at a time;
-    ``lora`` (an adapter arena, ``lora_arena``) decodes every token under
-    its page 1; ``w8a8`` (one ``prequantize`` tree a layer, ``w8a8_trees``)
-    runs every layer's FFN on its W8A8 lane for the generated tokens and
-    keeps the prompt's fp, as the engine's decode and prefill lanes do.
-    Returns the fp32 logits the oracle chooses each of ``tokens`` from,
-    ``(len(tokens), V)``; row 0 follows the prompt alone."""
-    from hetu_tpu_torch.models import decode, init_kv_caches
-    seq = list(prompt) + list(tokens[:-1])
-    ids = torch.tensor([seq], device=model.device)
-    caches = init_kv_caches(model, 1, len(seq), cache_dtype)
-    first, rows = len(prompt) - 1, []
-    edges = list(range(0, len(seq), chunk)) + [len(seq)]
-    if w8a8 is not None:
-        edges = sorted(set(edges) | {len(prompt)})
-    for lo, hi in zip(edges, edges[1:]):
-        pos = torch.arange(lo, hi, device=model.device)[None]
-        pages = None if lora is None else {
-            "ids": torch.ones_like(pos), "pages": lora}
-        quant = {} if w8a8 is None or lo < len(prompt) else dict(
-            w8a8_mask=(True,) * len(w8a8), w8a8_wq=w8a8)
-        logits = decode(model, ids[:, lo:hi], pos, caches, lora=pages,
-                        **quant)
-        if hi > first:
-            rows.append(logits[0, max(first - lo, 0):])
-    return torch.cat(rows)
+    """``forced_logits_rows`` of one request: ``(len(tokens), V)``."""
+    return forced_logits_rows(model, [prompt], [tokens], cache_dtype,
+                              chunk=chunk, lora=lora, w8a8=w8a8)[0]
 
 
 def oracle(model, reqs, new_tokens, vocab, cache_dtype=torch.int8,
            keep=None, lora_for=None, w8a8=None):
-    """Each request's greedy tokens against ``forced_logits`` on them
-    (under the adapter arena ``lora_for(request)`` gives, None for base;
+    """Each request's greedy tokens against ``forced_logits_rows`` on
+    them, ``ORACLE_ROWS`` requests a batch (under the adapter arena
+    ``lora_for(request)`` gives, None for base, each batch one arena;
     with ``w8a8`` trees, the W8A8 decode).
     Returns the largest first-token |dlogit| (the engine's recorded
     logits against the oracle's row 0), the largest shortfall over every
     step (see TIE_FP32) and where it fell, the share of steps at which
-    the engine's token is the oracle's best, and how many requests agree
-    at every step. ``keep``, a dict, receives each request's forced
-    logits by request id."""
-    dlogit, worst, where, agree, identical = 0.0, 0.0, None, 0, 0
+    the engine's token is the oracle's best, how many requests agree
+    at every step, and the oracle's seconds. ``keep``, a dict, receives
+    each request's forced logits by request id."""
+    t0 = time.perf_counter()
     for r in reqs:
         got = list(r.tokens)
         check(len(got) == new_tokens and all(0 <= t < vocab for t in got),
@@ -2953,9 +3036,22 @@ def oracle(model, reqs, new_tokens, vocab, cache_dtype=torch.int8,
         check(r.first_logits is not None
               and bool(torch.isfinite(r.first_logits).all()),
               f"request {r.id}: no finite first-token logits recorded")
-        logits = forced_logits(model, r.prompt.tolist(), got, cache_dtype,
-                               lora=lora_for(r) if lora_for else None,
-                               w8a8=w8a8)
+    groups: dict = {}
+    for r in reqs:
+        arena = lora_for(r) if lora_for else None
+        groups.setdefault(id(arena), (arena, []))[1].append(r)
+    forced = {}
+    for arena, members in groups.values():
+        for i in range(0, len(members), ORACLE_ROWS):
+            batch = members[i:i + ORACLE_ROWS]
+            out = forced_logits_rows(
+                model, [r.prompt.tolist() for r in batch],
+                [list(r.tokens) for r in batch], cache_dtype, lora=arena,
+                w8a8=w8a8)
+            forced.update((r.id, lg) for r, lg in zip(batch, out))
+    dlogit, worst, where, agree, identical = 0.0, 0.0, None, 0, 0
+    for r in reqs:
+        got, logits = list(r.tokens), forced[r.id]
         check(bool(torch.isfinite(logits).all()),
               f"request {r.id}: non-finite oracle logits")
         if keep is not None:
@@ -2971,7 +3067,8 @@ def oracle(model, reqs, new_tokens, vocab, cache_dtype=torch.int8,
     return dict(requests=len(reqs), identical=identical,
                 agree_share=agree / (new_tokens * len(reqs)),
                 first_token_max_abs_dlogit=dlogit, max_shortfall=worst,
-                max_shortfall_at=where)
+                max_shortfall_at=where,
+                oracle_seconds=time.perf_counter() - t0)
 
 
 def held(reading, dlogit_bound, tie_bound) -> bool:
@@ -3229,6 +3326,8 @@ def phase_llama_engine(device, card, timer):
     release()
     # read by llama_w8a8, beside its own (not printed again)
     perf["replay_device_ms_median"] = split["replay_device_ms_median"]
+    # read by llama_telemetry: the telemetry-off run's requests
+    perf["requests"] = reqs + reqs2
     return counts, model, perf
 
 
@@ -5064,6 +5163,8 @@ def phase_llama_train_buckets(device, card):
     from hetu_tpu_torch.parallel import Strategy
 
     t0 = time.perf_counter()
+    release()
+    reserved = {"before": torch.cuda.memory_reserved()}
     cfg = llama_train_cfg()
     strategy = Strategy(remat="selective", unroll=True)
     opt = optim.chain(optim.clip_by_global_norm(1.0), optim.adamw(1e-4))
@@ -5122,6 +5223,16 @@ def phase_llama_train_buckets(device, card):
     torch.cuda.synchronize()
     padded_ms = (time.perf_counter() - t1) * 1e3
     real = sum(int((b["labels"] != -100).sum()) for b in batches)
+    # the three buckets' graphs share one pool: its bytes, then what
+    # closing the Trainer gives back (all else alive)
+    pool_total = sum(g["pool_bytes"] for g in graphs.values())
+    del full, twin, tstate, tstep
+    release()
+    reserved["trained"] = torch.cuda.memory_reserved()
+    tr.close()
+    release()
+    reserved["closed"] = torch.cuda.memory_reserved()
+    freed = reserved["trained"] - reserved["closed"]
     emit(phase="llama_train_buckets", card=card,
          config="LlamaConfig.llama_7b width, 2 layers", policy="BF16_COMPUTE",
          remat="selective", optimizer="chain(clip_by_global_norm(1.0), "
@@ -5135,9 +5246,14 @@ def phase_llama_train_buckets(device, card):
          pass2_real_tokens_per_s=real / (bucketed_ms / 1e3),
          pad_to_max_real_tokens_per_s=real / (padded_ms / 1e3),
          losses=losses, peak_memory_bytes=torch.cuda.max_memory_allocated(),
-         launches=flash, seconds=time.perf_counter() - t0)
+         shared_pool_bytes=pool_total, reserved_bytes=reserved,
+         freed_by_close_bytes=freed, launches=flash,
+         seconds=time.perf_counter() - t0)
     check(flash == {k: 2 * RAGGED_BATCHES * cfg.num_layers for k in FLASH},
           f"llama_train_buckets: launches {flash}")
+    check(freed >= 0.9 * pool_total > 0,
+          f"llama_train_buckets: closing the Trainer gave back {freed} "
+          f"bytes of its {pool_total}-byte pool")
     check(captures == [3, 0], f"llama_train_buckets: captures by pass "
                               f"{captures}, expected [3, 0]")
     check(sorted(per_bucket) == list(LLAMA_BUCKETS),
@@ -5145,9 +5261,9 @@ def phase_llama_train_buckets(device, card):
     check(not differ, f"llama_train_buckets: the captured steps differ "
                       f"from the eager body at {differ[:3]}")
     check(all(np.isfinite(losses)), "llama_train_buckets: non-finite loss")
-    del tr, model, twin, tstate, tstep, full
+    del tr, model
     release()
-    return flash
+    return flash, losses
 
 
 def phase_llama_grad_accum(device, card):
@@ -5480,6 +5596,7 @@ def phase_moe_train(device, card):
     L = cfg.num_layers
     # bench.py:133 on the active params: 6 N + 6 L H s
     fpt = 6.0 * n_active + 6.0 * L * cfg.hidden_size * TRAIN_SEQ
+    from hetu_tpu_torch.engine import trace_counts
     trainer = Trainer(model, optim.adamw(1e-4), Strategy(unroll=True),
                       config=TrainerConfig(precision="bf16", log_every=1,
                                            peak_flops=PEAK_FLOPS[
@@ -5487,6 +5604,7 @@ def phase_moe_train(device, card):
                       device=device)
     batch = {k: v.numpy() for k, v in
              train_batch(cfg.vocab_size, MOE_BATCH, "cpu").items()}
+    captures0 = trace_counts().get("train_step", 0)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     warm = trainer.train(itertools.repeat(batch), steps=3)
@@ -5513,11 +5631,110 @@ def phase_moe_train(device, card):
          graphs=trainer_graphs(trainer))
     sync_free("moe_train", lambda: trainer._step_fn.body(
         trainer.state, to_tensors(batch)))
+    check(trace_counts().get("train_step", 0) - captures0 == 1,
+          "moe_train: the step was captured more than once")
     check(all(np.isfinite(losses)), "non-finite MoE training loss")
     check(losses[-1] < losses[0], f"MoE loss did not fall: {losses}")
     check(run["counts"] == want, f"moe_train launches {run['counts']}, "
                                  f"expected {want}")
-    return dict(trainer=trainer, batch=batch, counts=run["counts"])
+    return dict(trainer=trainer, batch=batch, counts=run["counts"],
+                step_ms=run["dt"] * 1e3)
+
+
+def phase_moe_train_telemetry(device, card, model, batch, off_ms):
+    """``moe_train``'s model and batch in a Trainer of its own with
+    telemetry on (``moe_train``'s closed first): its step captures the
+    expert plane, a ring of 10 steps (the log cadence it is built
+    with). 3 warm-up and 10 timed steps, the launch counters zeroed just
+    before the timed steps and read just after (each flash kernel 6
+    times a step); one captured step under
+    ``set_sync_debug_mode("error")``; then ``moe_expert_plane``. One
+    capture. The step ms is printed beside ``moe_train``'s with
+    telemetry off (``off_ms``; no bound). Returns the launch counts."""
+    from hetu_tpu_torch import optim, telemetry
+    from hetu_tpu_torch.data import to_tensors
+    from hetu_tpu_torch.engine import Trainer, TrainerConfig, trace_counts
+    from hetu_tpu_torch.parallel import Strategy
+
+    L = model.cfg.num_layers
+    telemetry.reset()
+    trainer = Trainer(model, optim.adamw(1e-4), Strategy(unroll=True),
+                      config=TrainerConfig(precision="bf16", log_every=10,
+                                           peak_flops=PEAK_FLOPS[
+                                               torch.bfloat16],
+                                           telemetry=True),
+                      device=device)
+    captures0 = trace_counts().get("train_step", 0)
+    trainer.config.log_every = 1
+    trainer.train(itertools.repeat(batch), steps=3)
+    trainer.config.log_every = 10         # one device read, at the end
+    run = timed_fit(trainer, lambda n: trainer.train(itertools.repeat(batch),
+                                                     steps=n), 10)
+    want = {k: 10 * L for k in FLASH}
+    # the captured step (a replay): the ring slot is a device fill; the
+    # step is drained with moe_expert_plane's
+    dev_batch = to_tensors(batch, device)
+    sync_free("moe_train_telemetry",
+              lambda: trainer._step_fn(trainer.state, dev_batch))
+    emit(phase="moe_train_telemetry", card=card, layers=L,
+         step_ms_telemetry_on=run["dt"] * 1e3, step_ms_telemetry_off=off_ms,
+         trainer_record=run["records"][-1], launches=run["counts"],
+         expected=want, graphs=trainer_graphs(trainer))
+    moe_expert_plane(trainer, batch, L, 13)
+    check(trace_counts().get("train_step", 0) - captures0 == 1,
+          "moe_train_telemetry: the step was captured more than once")
+    check(run["counts"] == want, f"moe_train_telemetry launches "
+                                 f"{run['counts']}, expected {want}")
+    trainer.close()
+    return run["counts"]
+
+
+def moe_expert_plane(trainer, batch, layers: int, steps: int) -> dict:
+    """The expert plane of ``moe_train_telemetry``: ``moe_aux_loss``
+    and ``moe_overflow_fraction`` one observation a layer and step, and
+    one more step whose ``moe_expert_tokens`` must equal a host count of
+    the routing of the layer JAX's emission order puts last in a train
+    step (its backward runs the layers in reverse: layer 0), read by
+    ``RoutingSpy`` from an eager forward of the same params on the same
+    batch. Emits ``moe_expert_plane``; turns telemetry off."""
+    from hetu_tpu_torch import telemetry
+    from hetu_tpu_torch.core import autocast
+    from hetu_tpu_torch.data import to_tensors
+    snap = telemetry.get_registry().snapshot()
+    aux_n = series(snap, "moe_aux_loss")
+    over_n = series(snap, "moe_overflow_fraction")
+    model = trainer.model
+    spy = RoutingSpy(model, margins=True)
+    with torch.no_grad(), autocast(trainer.plan.policy):
+        dev = to_tensors(batch, trainer.plan.device)
+        model.loss(dev["input_ids"], dev["labels"])
+    calls = spy.close()
+    idx0, margins0 = calls[0]
+    E = model.cfg.num_experts
+    host = np.bincount(idx0.reshape(-1).numpy(), minlength=E)
+    trainer.config.log_every = 1
+    trainer.train(itertools.repeat(batch), steps=1)
+    snap = telemetry.get_registry().snapshot()
+    gauge = np.array([series(snap, "moe_expert_tokens", expert=e)
+                      for e in range(E)])
+    near = int((margins0 < NEAR_TIE).sum())
+    out = dict(aux_loss_count=aux_n, overflow_count=over_n,
+               expected_count=layers * steps,
+               expert_tokens=gauge.tolist(), host_count=host.tolist(),
+               near_ties=near, dropped=series(snap,
+                                              "moe_dropped_tokens_total"))
+    emit(phase="moe_expert_plane", **out)
+    telemetry.enable(False)
+    telemetry.reset()
+    check(aux_n == over_n == layers * steps,
+          f"moe_train_telemetry: expert-plane observations {aux_n}/{over_n}, "
+          f"expected {layers * steps}")
+    check(np.array_equal(gauge, host) or (near and np.abs(
+        gauge - host).sum() <= 2 * near),
+          f"moe_train_telemetry: moe_expert_tokens {gauge.tolist()} against the host "
+          f"count {host.tolist()} ({near} rows within {NEAR_TIE} of a "
+          f"tie)")
+    return out
 
 
 def moe_forward_oracle(model, reqs, vocab):
@@ -7262,19 +7479,20 @@ def replay_int8_gemms(phase, eng, names: set, launches: int,
 
 def oracle_self_noise(model, reqs, new, trees) -> dict:
     """How far two runs of one dense oracle lie apart when only their
-    chunking differs (the prompt in 256- and in 128-token chunks: other
-    GEMM shapes, other last bits), in bf16 and under the W8A8 decode, on
-    ``reqs``' own tokens: the first-token |dlogit| and the shortfall of
-    one run's best token under the other. W8A8's quantize is
+    chunking differs (``reqs`` in one batch, the prompt in 256- and in
+    128-token chunks), in bf16 and under the W8A8 decode, on ``reqs``'
+    own tokens: the first-token |dlogit| and the shortfall of one run's
+    best token under the other. W8A8's quantize is
     discontinuous, so a last-bit difference before it can flip a code."""
     out = {}
+    prompts = [r.prompt.tolist() for r in reqs]
+    tokens = [list(r.tokens) for r in reqs]
     for name, w8a8 in (("bf16", None), ("w8a8", trees)):
         dlogit = short = 0.0
-        for r in reqs:
-            prompt, got = r.prompt.tolist(), list(r.tokens)
-            a = forced_logits(model, prompt, got, torch.int8, w8a8=w8a8)
-            b = forced_logits(model, prompt, got, torch.int8, chunk=128,
-                              w8a8=w8a8)
+        runs = [forced_logits_rows(model, prompts, tokens, torch.int8,
+                                   chunk=chunk, w8a8=w8a8)
+                for chunk in (LLAMA_CHUNK, 128)]
+        for a, b in zip(*runs):
             dlogit = max(dlogit, max_err(a[0], b[0]))
             best = a.argmax(-1, keepdim=True)
             short = max(short, float((b.max(-1).values
@@ -7702,6 +7920,498 @@ def phase_moe_w8a8(device, card):
     return counts
 
 
+# -- telemetry and observability on the served and trained paths -------------
+
+#: gpt2_telemetry's watchdog floor (``watchdog_min_timeout_s``) and the
+#: planted stall that holds the engine's iteration lock past it
+WATCHDOG_FLOOR_S = 1.0
+STALL_S = 3.0
+#: llama_telemetry: a healthy wave, then a wave held this long before its
+#: admission (past the default rules' 1 s TTFT objective)
+TTFT_WAVES = (8, 16)
+TTFT_DELAY_S = 1.5
+
+
+def series(snap: dict, metric: str, **labels) -> float:
+    """One series of a registry snapshot (0 when absent; a histogram
+    gives its count)."""
+    key = metric
+    if labels:
+        key += "{" + ",".join(f'{k}="{v}"' for k, v in
+                              sorted(labels.items())) + "}"
+    v = snap.get(key, 0.0)
+    return v["count"] if isinstance(v, dict) else v
+
+
+def telemetry_off() -> None:
+    """Telemetry off and its records dropped (the next phase starts
+    clean)."""
+    from hetu_tpu_torch import telemetry
+    telemetry.enable(False)
+    telemetry.reset()
+
+
+def request_tracks(trace_path: str) -> int:
+    """Request tracks in an exported ``trace.json`` (``req <trace_id>``
+    thread names), after the port's ``trace_summary`` parsed it."""
+    from hetu_tpu_torch.tools import trace_summary
+    check(bool(trace_summary.load_records(trace_path)),
+          f"trace_summary read no record from {trace_path}")
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(1 for e in events if e.get("ph") == "M"
+               and e.get("name") == "thread_name"
+               and str(e.get("args", {}).get("name", "")).startswith("req "))
+
+
+def check_serving_series(phase, snap, reqs, iters) -> dict:
+    """The engine's series against what the run did: requests, tokens,
+    TTFT and TPOT counts, the kernel-path counters against the lanes'
+    replays, the prefix hit and miss tokens against the requests' own
+    cached tokens, and the drained gauges."""
+    gen = sum(len(r.tokens) for r in reqs)
+    hit = sum(r.cached_tokens for r in reqs)
+    miss = sum(len(r.prompt) - r.cached_tokens for r in reqs)
+    got = dict(
+        submitted=series(snap, "serving_requests_total",
+                         outcome="submitted"),
+        completed=series(snap, "serving_requests_total",
+                         outcome="completed"),
+        generated_tokens=series(snap, "serving_tokens_total",
+                                kind="generated"),
+        prompt_tokens=series(snap, "serving_tokens_total", kind="prompt"),
+        ttft=series(snap, "serving_ttft_seconds"),
+        tpot=series(snap, "serving_tpot_seconds"),
+        paged=series(snap, "serving_attn_kernel_total", path="paged"),
+        flash=series(snap, "prefill_attn_kernel_total", path="flash"),
+        prefix_hit=series(snap, "serving_prefix_hit_tokens_total"),
+        prefix_miss=series(snap, "serving_prefix_miss_tokens_total"),
+        queue_depth=series(snap, "serving_queue_depth"),
+        occupancy=series(snap, "serving_slot_occupancy"))
+    want = dict(submitted=len(reqs), completed=len(reqs),
+                generated_tokens=gen, prompt_tokens=miss, ttft=len(reqs),
+                tpot=sum(len(r.tokens) > 1 for r in reqs),
+                paged=iters["decode"], flash=iters["prefill"],
+                prefix_hit=hit, prefix_miss=miss, queue_depth=0,
+                occupancy=0.0)
+    bad = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
+    emit(phase=phase + "_series", series=got, expected=want, ok=not bad)
+    check(not bad, f"{phase}: series against the run: {bad}")
+    return got
+
+
+def phase_gpt2_telemetry(device, card, gpt2, engine_counts):
+    """``engine``'s GPT-2 small engine and its 48 + 16 prompts, served
+    with telemetry off, then on with ``slo=True`` and the watchdog
+    (``watchdog_min_timeout_s`` 1 s): every token and every first-token
+    logit bit-equal, one capture a lane each, #1/#2 launches as in
+    ``engine``; the series against the run (``check_serving_series``);
+    ``export_dir``'s ``trace.json`` parsed by the port's
+    ``trace_summary`` with one request track a request. Then behind
+    ``ServingServer``: HEALTHZ ``ok``, METRICS parsed as Prometheus
+    text, DUMPOBS's bundle; a planted stall holds the step lock for
+    ``STALL_S``: the watchdog trips once, its dump parses, HEALTHZ reads
+    degraded and a later request finishes. Returns the launch counts of
+    the telemetry-on run."""
+    import shutil
+    import tempfile
+    from hetu_tpu_torch import telemetry
+    from hetu_tpu_torch.engine import trace_counts
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.rpc import CoordinatorClient
+    from hetu_tpu_torch.serving import (
+        SamplingParams, ServingEngine, ServingServer,
+    )
+    from hetu_tpu_torch.tools import obs_report
+
+    model = gpt2["model"]
+    cfg = model.cfg
+    burst, shared = workload(cfg.vocab_size)
+    sp = SamplingParams(max_tokens=64)
+    runs = {}
+    t0 = time.perf_counter()
+    for on in (False, True):
+        telemetry.reset()
+        telemetry.enable(on)
+        before = trace_counts()
+        eng = ServingEngine(model, slots=16, max_len=512, prefill_chunk=64,
+                            block_size=16, seed=SEED, device=device,
+                            record_first_logits=True,
+                            slo=True if on else None, watchdog=on,
+                            watchdog_min_timeout_s=WATCHDOG_FLOOR_S)
+        # ---- the main path (the telemetry-on run): counters zeroed
+        # just before, read just after
+        reset_launch_counts()
+        run = serve(eng, burst, shared, sp)
+        counts = launch_counts()
+        # ----------------------------------------------------------------
+        tag = "gpt2_telemetry" if on else "gpt2_telemetry_off"
+        check_captures(tag, eng, before)
+        runs[on] = dict(eng=eng, reqs=run["reqs"] + run["reqs2"],
+                        counts=counts, iters=dict(eng.lane_iters),
+                        step_ms=run["t_burst"] / run["steps"] * 1e3,
+                        snap=telemetry.get_registry().snapshot())
+    off, on = runs[False], runs[True]
+    eng = on["eng"]
+    check_launches("gpt2_telemetry_launches", on["counts"], on["iters"],
+                   cfg.num_layers)
+    same_counts = {k: (on["counts"].get(k, 0), off["counts"].get(k, 0),
+                       engine_counts.get(k, 0))
+                   for k in ("paged_attention", "flash_fwd")}
+    check(all(a == b == c for a, b, c in same_counts.values()),
+          f"gpt2_telemetry: launches on / off / engine {same_counts}")
+    tokens_equal = [r.tokens for r in on["reqs"]] \
+        == [r.tokens for r in off["reqs"]]
+    logits_equal = all(torch.equal(a.first_logits, b.first_logits)
+                       for a, b in zip(on["reqs"], off["reqs"]))
+    check(tokens_equal and logits_equal,
+          f"gpt2_telemetry: telemetry changed the output (tokens equal "
+          f"{tokens_equal}, first-token logits equal {logits_equal})")
+    check(off["snap"] == {}, "gpt2_telemetry: the off run recorded series")
+    check_serving_series("gpt2_telemetry", on["snap"], on["reqs"],
+                         on["iters"])
+    tmp = tempfile.mkdtemp(prefix="hetu_obs_")
+    try:
+        paths = telemetry.export_dir(os.path.join(tmp, "export"))
+        tracks = request_tracks(paths["trace"])
+        check(tracks == len(on["reqs"]),
+              f"gpt2_telemetry: {tracks} request tracks for "
+              f"{len(on['reqs'])} requests")
+        # over the wire, the loop running, then the planted stall
+        eng.watchdog.dump_dir = tmp
+        eng.watchdog.poll_s = 0.1
+        srv = ServingServer(eng, 0)
+        srv.start()
+        srv.wait_ready()
+        try:
+            cli = CoordinatorClient(srv.port, timeout=WIRE_TIMEOUT_S)
+            health = cli.healthz()
+            meta, samples = telemetry.parse_prometheus(cli.metrics_text())
+            bundle = cli.dump_obs()
+            t1 = time.perf_counter()
+            with eng._step_lock:
+                time.sleep(STALL_S)
+            stalled_s = time.perf_counter() - t1
+            trips = eng.watchdog.trips
+            degraded = cli.healthz()
+            later = cli.serving_generate(burst[1][:32], max_tokens=8)
+            cli.close()
+        finally:
+            srv.stop()
+        dumps = sorted(f for f in os.listdir(tmp)
+                       if f.startswith("flight_") and f.endswith(".jsonl"))
+        dump = obs_report.load_jsonl(os.path.join(tmp, dumps[0])) \
+            if dumps else []
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    snap = telemetry.get_registry().snapshot()
+    emit(phase="gpt2_telemetry", card=card,
+         step_ms_on=on["step_ms"], step_ms_off=off["step_ms"],
+         tokens_equal=tokens_equal, first_logits_equal=logits_equal,
+         launches=on["counts"], request_tracks=tracks,
+         healthz=health["status"], healthz_serving=health.get("serving"),
+         metrics_families=len(meta), metrics_samples=len(samples),
+         dumpobs_keys=sorted(bundle), dumpobs_flight_events=len(
+             bundle.get("flight", [])),
+         stall_s=stalled_s, watchdog_trips=trips,
+         watchdog_trips_total=series(snap, "watchdog_trips_total",
+                                     name="serving"),
+         healthz_after_stall=degraded["status"],
+         dump_reason=dump[0].get("reason") if dump else None,
+         dump_records=len(dump), later_tokens=len(later["tokens"]),
+         seconds=time.perf_counter() - t0)
+    check(health["status"] == "ok" and health["serving"]["loop_running"],
+          f"gpt2_telemetry: HEALTHZ before the stall {health}")
+    check("serving_tokens_total" in meta
+          and meta["serving_tokens_total"].get("type") == "counter",
+          "gpt2_telemetry: METRICS did not parse as Prometheus text")
+    check({"chrome", "flight", "pid"} <= set(bundle),
+          f"gpt2_telemetry: DUMPOBS bundle keys {sorted(bundle)}")
+    check(trips == 1 and series(snap, "watchdog_trips_total",
+                                name="serving") == 1,
+          f"gpt2_telemetry: the stall tripped the watchdog {trips} times")
+    check(bool(dump) and dump[0].get("kind") == "flight_header"
+          and str(dump[0].get("reason", "")).startswith("watchdog")
+          and any(r.get("kind") == "thread_stacks" for r in dump),
+          "gpt2_telemetry: the watchdog's dump did not parse")
+    check(degraded["status"] == "degraded",
+          f"gpt2_telemetry: HEALTHZ after the stall {degraded['status']}")
+    check(len(later["tokens"]) == 8,
+          "gpt2_telemetry: a request after the stall did not finish")
+    counts = on["counts"]
+    del runs, eng, on, off
+    telemetry_off()
+    gc.collect()
+    return counts
+
+
+def phase_llama_telemetry(device, card, model, engine_reqs):
+    """The llama_engine's model and settings (32 layers, int8 arena,
+    bf16) with telemetry on and ``slo=True``, in two parts. (a)
+    llama_engine's workload on llama_engine's schedule (``serve``'s),
+    the queue, occupancy, block and spill gauges read against the
+    engine's own counts after every step: every token and first-token
+    logit bit-equal to llama_engine's telemetry-off run
+    (``engine_reqs``), which llama_engine's oracle read. (b) The SLO on
+    fresh traffic: the default serving rules afresh (the burst's queued
+    TTFTs, all past the 1 s objective, would fire them),
+    ``TTFT_WAVES[0]`` fresh short prompts, then ``TTFT_WAVES[1]`` held
+    ``TTFT_DELAY_S`` before admission: the TTFT burn-rate alert fires on
+    the delayed wave and not before, and the health document reads
+    degraded; every request of both waves within the bf16 oracle's
+    bounds (``oracle`` under ``BF16_FULL``, the policy the engine serves
+    under). One capture a lane; #1/#2 launches a lane replay. Returns
+    the launch counts."""
+    from hetu_tpu_torch import telemetry
+    from hetu_tpu_torch.core import BF16_FULL, autocast
+    from hetu_tpu_torch.engine import trace_counts
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.serving import SamplingParams, ServingEngine
+    from hetu_tpu_torch.telemetry.slo import (
+        SLOEngine, default_serving_rules, health_status,
+    )
+
+    vocab = model.cfg.vocab_size
+    burst, shared = llama_workload(vocab)
+    rng = np.random.default_rng(SEED + 21)
+    waves = [[rng.integers(0, vocab, int(n)).tolist()
+              for n in rng.integers(16, 257, k)] for k in TTFT_WAVES]
+    sp = SamplingParams(max_tokens=64)
+    t0 = time.perf_counter()
+    telemetry.reset()
+    telemetry.enable(True)
+    mismatches, steps = [], 0
+    with autocast(BF16_FULL):
+        before = trace_counts()
+        eng = ServingEngine(model, slots=LLAMA_SLOTS, max_len=LLAMA_MAX_LEN,
+                            prefill_chunk=LLAMA_CHUNK,
+                            block_size=LLAMA_BLOCK, cache_dtype=torch.int8,
+                            seed=SEED, device=device,
+                            record_first_logits=True, slo=True)
+
+        def step():
+            nonlocal steps
+            eng.step()
+            steps += 1
+            snap = telemetry.get_registry().snapshot()
+            want = {"serving_queue_depth": eng.scheduler.depth,
+                    "serving_slot_occupancy": eng.scheduler.occupancy,
+                    "serving_kv_blocks_in_use": eng.blocks.blocks_in_use,
+                    "serving_kv_spill_arena_blocks":
+                        eng.spill_arena.blocks_held}
+            mismatches.extend((steps, k, snap.get(k), v)
+                              for k, v in want.items() if snap.get(k) != v)
+
+        def drain():
+            while eng.has_work():
+                step()
+
+        def wave(prompts, delay):
+            reqs = [eng.submit(p, SamplingParams(max_tokens=16))
+                    for p in prompts]
+            time.sleep(delay)             # the injected admission delay
+            drain()
+            return reqs
+
+        # ---- the main path: counters zeroed just before, read after ----
+        reset_launch_counts()
+        reqs = [eng.submit(p, sp) for p in burst]
+        drain()
+        reqs2 = [eng.submit(shared[0], sp)]
+        while reqs2[0].first_token_s is None:
+            step()
+        reqs2 += [eng.submit(p, sp) for p in shared[1:]]
+        drain()
+        served = reqs + reqs2
+        eng.slo = default_serving_rules(SLOEngine(telemetry.get_registry()))
+        healthy = wave(waves[0], 0.0)
+        early = [a.to_record() for a in eng.slo.evaluate()]
+        delayed = wave(waves[1], TTFT_DELAY_S)
+        counts = launch_counts()
+        iters = dict(eng.lane_iters)
+        # ------------------------------------------------------------------
+        alerts = [a.to_record() for a in eng.slo.evaluate()]
+        doc = health_status(serving=eng, slo=eng.slo)
+        sound = oracle(model, healthy + delayed, 16, vocab)
+    check_captures("llama_telemetry", eng, before)
+    check_launches("llama_telemetry_launches", counts, iters,
+                   LLAMA_SERVE_LAYERS, paged="paged_attention_int8")
+    every = served + healthy + delayed
+    check(all(r.status == "done" for r in every),
+          "llama_telemetry: requests unfinished")
+    tokens_equal = [r.tokens for r in served] \
+        == [r.tokens for r in engine_reqs]
+    logits_equal = all(torch.equal(a.first_logits, b.first_logits)
+                       for a, b in zip(served, engine_reqs))
+    ttft = {n: [r.timing()["ttft_ms"] for r in w]
+            for n, w in (("healthy", healthy), ("delayed", delayed))}
+    snap = telemetry.get_registry().snapshot()
+    got = check_serving_series("llama_telemetry", snap, every, iters)
+    fired = [a["rule"] for a in alerts]
+    emit(phase="llama_telemetry", card=card, layers=LLAMA_SERVE_LAYERS,
+         requests=len(every), steps=steps, gauge_mismatches=mismatches[:4],
+         tokens_equal_llama_engine=tokens_equal,
+         first_logits_equal_llama_engine=logits_equal,
+         ttft_ms_healthy_max=max(ttft["healthy"]),
+         ttft_ms_delayed_min=min(ttft["delayed"]), alerts_before=early,
+         alerts=alerts, healthz=doc["status"],
+         alerting_rules=doc["slo"]["alerting_rules"], series=got,
+         oracle=sound, dlogit_bound=DLOGIT_BF16, tie_bound=TIE_BF16,
+         seconds=time.perf_counter() - t0)
+    check(tokens_equal and logits_equal,
+          f"llama_telemetry: telemetry changed the output (tokens equal "
+          f"{tokens_equal}, first-token logits equal {logits_equal})")
+    check(not mismatches, f"llama_telemetry: gauges against the engine's "
+                          f"own counts {mismatches[:4]}")
+    check(not early and "ttft_slo" in fired,
+          f"llama_telemetry: alerts before the delay {early}, after "
+          f"{fired}")
+    check(doc["status"] == "degraded"
+          and "ttft_slo" in doc["slo"]["alerting_rules"],
+          f"llama_telemetry: HEALTHZ {doc['status']} "
+          f"{doc['slo']['alerting_rules']}")
+    check_held("llama_telemetry_oracle", sound, DLOGIT_BF16, TIE_BF16)
+    del eng, every, served, reqs, reqs2, healthy, delayed
+    telemetry_off()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_llama_train_telemetry(device, card, off_losses):
+    """``llama_train_buckets``' Trainer with telemetry: ``Trainer(
+    TrainerConfig(telemetry=True, trace_dir=, watchdog=True, slo=True,
+    peak_flops=989e12, seq_buckets=(512, 1024, 2048)))`` over the same
+    12 ragged batches, twice, one save between the passes: every loss
+    bit-equal to ``llama_train_buckets``' (telemetry off); 3 captures,
+    then none; ``compile`` seconds booked in the first pass only;
+    ``data_bucket_compiles_total`` 1 a bucket and the ``data_*`` token
+    counters equal to the bucketer's stats; the goodput report's MFU
+    within 1% of this script's own from the same tokens/s;
+    ``checkpoint_write_seconds`` one write; the artifacts parsed; one
+    captured step under ``set_sync_debug_mode("error")`` with telemetry
+    on. Returns the launch counts."""
+    import shutil
+    import tempfile
+    from hetu_tpu_torch import optim, telemetry
+    from hetu_tpu_torch.data import SeqLenBuckets, ShapeBucketer, to_tensors
+    from hetu_tpu_torch.engine import Trainer, TrainerConfig, trace_counts
+    from hetu_tpu_torch.models import LlamaLMHeadModel
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.parallel import Strategy
+    from hetu_tpu_torch.tools import trace_summary
+
+    t0 = time.perf_counter()
+    cfg = llama_train_cfg()
+    strategy = Strategy(remat="selective", unroll=True)
+    opt = optim.chain(optim.clip_by_global_norm(1.0), optim.adamw(1e-4))
+    model = LlamaLMHeadModel(cfg, device=device, seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    tmp = tempfile.mkdtemp(prefix="hetu_tel_")
+    telemetry.reset()
+    peak = PEAK_FLOPS[torch.bfloat16]
+    tr = Trainer(model, opt, strategy, device=device,
+                 config=TrainerConfig(
+                     precision="bf16", log_every=1, telemetry=True,
+                     trace_dir=os.path.join(tmp, "trace"), watchdog=True,
+                     slo=True, peak_flops=peak, seq_buckets=LLAMA_BUCKETS))
+    try:
+        tr.initialize()
+        batches = ragged_llama_batches(cfg.vocab_size, RAGGED_BATCHES,
+                                       SEED + 7)
+        captures, reports, losses = [], [], []
+        # ---- the main path: counters zeroed just before, read after ----
+        reset_launch_counts()
+        for pas in (1, 2):
+            before = trace_counts().get("train_step", 0)
+            hist = tr.train(iter(batches), steps=RAGGED_BATCHES)
+            losses += [r["loss"] for r in hist if "loss" in r]
+            captures.append(trace_counts().get("train_step", 0) - before)
+            reports.append(tr.goodput.report())
+            if pas == 1:
+                tr.save(os.path.join(tmp, "ckpt"), wait=True)
+        counts = launches_of(launch_counts())
+        # ------------------------------------------------------------------
+        snap = telemetry.get_registry().snapshot()
+        st = tr.bucketer.stats
+        # this script's own fits below count into the registry too
+        fitter = ShapeBucketer(SeqLenBuckets(sizes=LLAMA_BUCKETS))
+        fitted = to_tensors(fitter.fit(batches[0]), device)
+        sync_free("llama_train_telemetry",
+                  lambda: tr._step_entry_for(fitted)(tr.state, fitted))
+        rep = reports[1]
+        # this script's MFU from the same tokens/s: bench.py's flops per
+        # token at each fitted width, weighted by the tokens it ran
+        flops = 0.0
+        for b in batches:
+            w = int(fitter.fit(b)["input_ids"].shape[1])
+            flops += LLAMA_TRAIN_BATCH * w * (
+                6.0 * n_params + 6.0 * cfg.num_layers * cfg.hidden_size * w)
+        own_mfu = rep.tokens_per_sec * (flops / rep.tokens) / peak
+        kinds = sorted({json.loads(x)["kind"] for x in open(os.path.join(
+            tmp, "trace", "telemetry.jsonl"))})
+        goodput = trace_summary.report_from_records(
+            trace_summary.load_records(os.path.join(tmp, "trace",
+                                                    "telemetry.jsonl")))
+        data = {k: series(snap, k) for k in (
+            "data_real_tokens_total", "data_padding_tokens_total",
+            "data_raw_tokens_total")}
+        want_data = {"data_real_tokens_total": st.real_tokens,
+                     "data_padding_tokens_total":
+                         st.bucket_tokens - st.real_tokens,
+                     "data_raw_tokens_total": st.raw_tokens}
+        compiles = {b: series(snap, "data_bucket_compiles_total",
+                              bucket=b) for b in LLAMA_BUCKETS}
+        writes = sum(series(snap, "checkpoint_write_seconds", mode=m)
+                     for m in ("sync", "async"))
+        emit(phase="llama_train_telemetry", card=card,
+             config="LlamaConfig.llama_7b width, 2 layers",
+             seq_buckets=list(LLAMA_BUCKETS), steps=2 * RAGGED_BATCHES,
+             losses_bit_equal=losses == off_losses,
+             train_step_captures_by_pass=captures,
+             goodput=[r.to_record() for r in reports],
+             goodput_mfu=rep.mfu, script_mfu=own_mfu,
+             data_series=data, bucket_stats=st.to_record(),
+             data_bucket_compiles=compiles, checkpoint_writes=writes,
+             watchdog_trips=series(snap, "watchdog_trips_total",
+                                   name="train"),
+             jsonl_kinds=kinds, trace_summary_goodput=goodput.goodput,
+             launches=counts, graphs=trainer_graphs(tr),
+             seconds=time.perf_counter() - t0)
+        check(losses == off_losses,
+              f"llama_train_telemetry: losses differ from the telemetry-off "
+              f"run: {losses[:3]} against {off_losses[:3]}")
+        check(captures == [3, 0], f"llama_train_telemetry: captures by "
+                                  f"pass {captures}")
+        check(reports[0].components.get("compile", 0.0) > 0
+              and "compile" not in reports[1].components,
+              f"llama_train_telemetry: compile seconds by pass "
+              f"{[r.components.get('compile') for r in reports]}")
+        check(all(v == 1 for v in compiles.values()),
+              f"llama_train_telemetry: bucket compiles {compiles}")
+        check(data == want_data, f"llama_train_telemetry: data series "
+                                 f"{data} against {want_data}")
+        check(rep.mfu is not None and abs(rep.mfu - own_mfu)
+              <= 0.01 * own_mfu,
+              f"llama_train_telemetry: goodput MFU {rep.mfu} against "
+              f"{own_mfu}")
+        check(writes == 1, f"llama_train_telemetry: {writes} checkpoint "
+                           f"writes observed")
+        check({"goodput", "metrics", "metrics_snapshot", "span"}
+              <= set(kinds), f"llama_train_telemetry: records {kinds}")
+        check(counts == {k: 2 * RAGGED_BATCHES * cfg.num_layers
+                         for k in FLASH},
+              f"llama_train_telemetry: launches {counts}")
+    finally:
+        tr.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        telemetry_off()
+    del tr, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 LLAMA_CLASSES = KERNEL_CLASSES + (("nvjet", "matmul"),)
 
 
@@ -7746,6 +8456,8 @@ def main() -> int:
                                   if k.startswith(sym)}
     paths = {}
     paths["engine"], gpt2 = phase_engine(device, smi)
+    paths["gpt2_telemetry"] = phase_gpt2_telemetry(device, smi, gpt2,
+                                                   paths["engine"])
     paths["gpt2_server"] = phase_gpt2_server(device, smi, gpt2)
     del gpt2
     gc.collect()
@@ -7777,6 +8489,8 @@ def main() -> int:
     phase_w8a8_gemm(device, timer, smi)
     paths["llama_engine"], model, llama_perf = phase_llama_engine(
         device, smi, timer)
+    paths["llama_telemetry"] = phase_llama_telemetry(
+        device, smi, model, llama_perf.pop("requests"))
     paths["llama_budget_engine"] = phase_llama_budget_engine(device, smi,
                                                              model)
     paths["llama_preempt"] = phase_llama_preempt(device, smi, model)
@@ -7829,7 +8543,10 @@ def main() -> int:
     phase_llama_fused_kernel_times(device, timer, ops, kernels,
                                    paths["llama_train_fused"])
     paths["llama_ckpt"] = phase_llama_ckpt(device, smi)
-    paths["llama_train_buckets"] = phase_llama_train_buckets(device, smi)
+    paths["llama_train_buckets"], bucket_losses = \
+        phase_llama_train_buckets(device, smi)
+    paths["llama_train_telemetry"] = phase_llama_train_telemetry(
+        device, smi, bucket_losses)
     paths["llama_grad_accum"] = phase_llama_grad_accum(device, smi)
     paths["llama_train_adafactor"] = phase_llama_train_adafactor(device,
                                                                  smi)
@@ -7841,6 +8558,9 @@ def main() -> int:
         state=trainer.state, batch_size=MOE_BATCH,
         step=build_train_step(trainer.model, trainer.opt, trainer.plan),
         batch=to_tensors(moe["batch"], device)), phase="moe_train_profile")
+    trainer.close()
+    paths["moe_train_telemetry"] = phase_moe_train_telemetry(
+        device, smi, trainer.model, moe["batch"], moe["step_ms"])
     del trainer, moe
     gc.collect()
     release()
@@ -7850,6 +8570,11 @@ def main() -> int:
     paths["gpt2_spec_small_draft"] = phase_gpt2_spec_small_draft(device, smi)
     paths["gpt2_tenancy"] = phase_gpt2_tenancy(device, smi)
     del timer
+    from hetu_tpu_torch.engine import get_step_cache
+    release()
+    emit(phase="step_cache", entries_left=len(get_step_cache()),
+         stats=get_step_cache().stats(),
+         reserved_bytes=torch.cuda.memory_reserved())
     for name, entry in kernels.items():
         entry["launches_by_path"] = {p: c.get(name, 0)
                                      for p, c in paths.items()}

@@ -6,8 +6,11 @@ batch shape, as a jitted JAX step holds one executable per shape. So a
 ragged loader is snapped onto a small ladder of bucket widths: each batch
 is padded or sliced to the smallest bucket that holds its longest real
 row, and a ragged epoch captures at most ``len(buckets)`` step graphs.
-``hetu_tpu``'s telemetry counters (``data_*_total``) are not ported; the
-same accounting is in :attr:`ShapeBucketer.stats`.
+With telemetry on, every fit also counts into ``hetu_tpu``'s series
+(``data_real_tokens_total``, ``data_padding_tokens_total``,
+``data_raw_tokens_total``, ``data_truncated_tokens_total``,
+``data_bucket_hits_total``); :attr:`ShapeBucketer.stats` keeps the same
+accounting with telemetry off.
 """
 
 from __future__ import annotations
@@ -167,6 +170,12 @@ class ShapeBucketer:
                     f"stats.truncated_tokens keeps counting). Add a "
                     f"larger bucket to train on the full sequences.",
                     stacklevel=2)
+            from hetu_tpu_torch import telemetry
+            if telemetry.enabled():
+                telemetry.get_registry().counter(
+                    "data_truncated_tokens_total",
+                    "real tokens cut because a row exceeded the "
+                    "largest seq-len bucket").inc(cut)
         out = dict(batch)
         if L != w:
             pad_vals = {"input_ids": self.pad_id,
@@ -189,6 +198,25 @@ class ShapeBucketer:
         self.stats.real_tokens += real
         self.stats.raw_tokens += rows * w
         self.stats.bucket_tokens += rows * L
+        from hetu_tpu_torch import telemetry
+        if telemetry.enabled():
+            reg = telemetry.get_registry()
+            reg.counter(
+                "data_real_tokens_total",
+                "real (non-pad) tokens dispatched to train steps").inc(
+                real)
+            reg.counter(
+                "data_padding_tokens_total",
+                "pad tokens dispatched after bucket snapping (the "
+                "residual padding tax)").inc(rows * L - real)
+            reg.counter(
+                "data_raw_tokens_total",
+                "tokens the raw loader batches carried before bucket "
+                "snapping (the pad-to-max baseline)").inc(rows * w)
+            reg.counter(
+                "data_bucket_hits_total",
+                "batches routed to each seq-len bucket").inc(
+                bucket=str(L))
         return out
 
 

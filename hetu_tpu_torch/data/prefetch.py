@@ -15,20 +15,29 @@ thread.
 ``max_items`` caps how many batches are pulled from the host iterator,
 checked before each pull, so a shared iterator loses nothing to an
 eager read past the consumer's step budget. Producer exceptions surface
-at ``__next__``. The JAX prefetcher's telemetry and its hot-switch
-re-placement are not ported.
+at ``__next__``. With telemetry on, every fetch counts into
+``hetu_tpu``'s series (``prefetch_batches_total``, ``prefetch_ready_total``,
+``data_stall_seconds``, ``data_queue_depth``, and a ``stall`` span past
+1 ms of waiting); on the CPU a fetch converts in place, so it is never
+ready ahead and never waits. The JAX prefetcher's hot-switch
+re-placement is not ported.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Any, Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
 
+from hetu_tpu_torch import telemetry
+
 _SENTINEL = object()
+#: a consumer wait longer than this is also recorded as a ``stall`` span
+_STALL_SPAN_THRESHOLD_S = 1e-3
 
 
 def to_tensors(batch: dict, device=None) -> dict:
@@ -139,13 +148,22 @@ class DevicePrefetcher:
                 self._done = True
                 raise
             self._pulled += 1
+            self._count(False, 0.0)
             return to_tensors(batch, self.device)
-        item = self._shared.q.get()
+        q = self._shared.q
+        try:
+            item, ready, wait = q.get_nowait(), True, 0.0
+        except queue.Empty:
+            # the consumer waiting here is the data stall
+            t0 = time.perf_counter()
+            item = q.get()
+            ready, wait = False, time.perf_counter() - t0
         if item is _SENTINEL:
             self._done = True
             if self._shared.errors:
                 raise self._shared.errors.pop()
             raise StopIteration
+        self._count(ready, wait)
         batch, done = item
         stream = torch.cuda.current_stream(self.device)
         stream.wait_event(done)
@@ -154,6 +172,25 @@ class DevicePrefetcher:
             # must not hand the memory back before this stream is done
             t.record_stream(stream)
         return batch
+
+    def _count(self, ready: bool, wait: float) -> None:
+        if not telemetry.enabled():
+            return
+        reg = telemetry.get_registry()
+        reg.counter("prefetch_batches_total",
+                    "batches served by the device prefetcher").inc()
+        if ready:
+            reg.counter("prefetch_ready_total",
+                        "fetches that found the batch already "
+                        "staged (H2D overlapped compute)").inc()
+        reg.counter("data_stall_seconds",
+                    "train loop blocked waiting for batches").inc(wait)
+        reg.gauge("data_queue_depth",
+                  "staged batches after this fetch").set(
+                      self._shared.q.qsize() if self._shared else 0)
+        if wait > _STALL_SPAN_THRESHOLD_S:
+            telemetry.get_tracer().complete("stall", wait,
+                                            where="prefetch")
 
     def close(self) -> None:
         self._done = True

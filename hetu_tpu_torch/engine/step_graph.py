@@ -7,8 +7,9 @@ buffers, the model's parameters and whatever state it updates in place
 (the KV arena, the optimizer's moments), and returns its outputs. On
 ``cuda`` :class:`StepGraph` runs the body on a side stream (kernels load,
 cuBLAS picks its algorithms, the allocator warms up), captures it with
-``torch.cuda.graph`` into a memory pool of its own and counts the capture
-with :func:`record_trace`; from then on :meth:`StepGraph.replay` is the
+``torch.cuda.graph`` into a memory pool (its own, or the ``pool`` its
+owner shares among its graphs) and counts the capture with
+:func:`record_trace`; from then on :meth:`StepGraph.replay` is the
 only call, and one replay launches the whole step. On ``cpu`` (the tests)
 the same object runs the body eagerly on the same static buffers and
 copies the results into its static outputs, so the buffer plumbing a
@@ -46,15 +47,24 @@ WARMUP_ITERS = 2
 # re-trace count.
 _TRACE_COUNTS: dict[str, int] = {}
 _TRACE_LOCK = threading.Lock()
+_TRACE_LOCAL = threading.local()
 
 
 def record_trace(what: str) -> None:
     """Count one capture of the step body ``what``: ``serving_decode``,
     ``serving_prefill``, ``serving_draft_step``, ``train_step``,
     ``eval_step``, ``grad_step``, ``apply_step``. A replay never calls
-    it."""
+    it. With telemetry on it also counts ``step_traces_total{what=}``,
+    as ``hetu_tpu``'s re-trace counter does."""
     with _TRACE_LOCK:
         _TRACE_COUNTS[what] = _TRACE_COUNTS.get(what, 0) + 1
+    _TRACE_LOCAL.total = getattr(_TRACE_LOCAL, "total", 0) + 1
+    from hetu_tpu_torch import telemetry
+    if telemetry.enabled():
+        telemetry.get_registry().counter(
+            "step_traces_total",
+            "jit traces of step bodies (recompile detector)").inc(
+                what=what)
 
 
 def trace_counts() -> dict[str, int]:
@@ -62,6 +72,13 @@ def trace_counts() -> dict[str, int]:
     :func:`reset_trace_counts`), across all threads."""
     with _TRACE_LOCK:
         return dict(_TRACE_COUNTS)
+
+
+def trace_total() -> int:
+    """Captures recorded on the calling thread: the trainer compares it
+    around each step to book a step that captured as ``compile``, so a
+    capture on another thread never counts against its compute."""
+    return getattr(_TRACE_LOCAL, "total", 0)
 
 
 def reset_trace_counts() -> None:
@@ -95,21 +112,31 @@ class StepGraph:
     storage for the life of the object: do not reallocate them (for
     example with ``model.to(...)``) after it is built.
 
+    ``pool`` (a ``torch.cuda.graph_pool_handle()``) captures into a pool
+    shared with other graphs that never replay concurrently: a training
+    entry's signatures then cost about the largest of their pools, not
+    the sum. A later capture into the pool may place its blocks over an
+    earlier graph's scratch, so no tensor that outlives a replay may be
+    allocated inside the capture: the body writes its results into
+    buffers made before it (``CapturedStep`` makes them in the warm-up).
+
     ``launches`` is the capture's kernel tally (``_build.counting_into``);
     each replay adds it to the launch counters. ``capture_seconds`` and
     ``pool_bytes`` (the device memory reserved while capturing: the
-    graph's pool) describe the last capture."""
+    graph's pool, or what it added to a shared one) describe the last
+    capture."""
 
     def __init__(self, name: str, body: Callable[[], Sequence[torch.Tensor]],
                  *, operands: Sequence[torch.Tensor] = (),
                  idle: Optional[Callable[[], None]] = None, device,
-                 seeds=None):
+                 seeds=None, pool=None):
         self.name = name
         self.device = torch.device(device)
         self._body = body
         self._operands = tuple(operands)
         self._idle = idle
         self._seeds = seeds
+        self._pool = pool
         self.graph = None
         self.outputs: tuple = ()
         self.first: tuple = ()
@@ -162,7 +189,8 @@ class StepGraph:
         # memory: only this thread's calls are checked
         mode = "thread_local" if live else "global"
         with _build.counting_into(tally), \
-                torch.cuda.graph(graph, capture_error_mode=mode):
+                torch.cuda.graph(graph, pool=self._pool,
+                                 capture_error_mode=mode):
             outputs = tuple(self._body())
         if self._seeds is not None:
             self._seeds.frozen = False
@@ -195,4 +223,4 @@ class StepGraph:
 
 
 __all__ = ["StepGraph", "WARMUP_ITERS", "record_trace", "reset_trace_counts",
-           "trace_counts"]
+           "trace_counts", "trace_total"]

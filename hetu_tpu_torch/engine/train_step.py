@@ -35,10 +35,11 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
-from hetu_tpu_torch import resolve_device
+from hetu_tpu_torch import resolve_device, telemetry
 from hetu_tpu_torch.core.dtypes import Policy, autocast, current_policy
 from hetu_tpu_torch.engine.state import TrainState
 from hetu_tpu_torch.engine.step_graph import StepGraph
+from hetu_tpu_torch.nn.moe import expert_plane, make_expert_plane
 from hetu_tpu_torch.nn.parallel import remat_policy
 from hetu_tpu_torch.ops.dropout import SeedTable, derive_seed
 from hetu_tpu_torch.optim.clipping import global_norm
@@ -164,6 +165,25 @@ def _batch_key(batch: dict) -> tuple:
 
 # -- the captured entry ------------------------------------------------------
 
+class GraphPool:
+    """One CUDA graph memory pool shared by the captured entries that use
+    it: a Trainer's bucket and eval entries, a split-phase pair. Their
+    graphs never replay concurrently, and none keeps a tensor in the
+    pool past its capture (static outputs are made outside it), so a
+    later capture reuses what an earlier one freed: N graphs cost about
+    the largest, not the sum. The memory goes back to the allocator once
+    no graph holds the pool."""
+
+    def __init__(self):
+        self._handle = None
+
+    def handle(self, device: torch.device):
+        """The pool's handle on ``cuda`` (None on the CPU)."""
+        if self._handle is None and device.type == "cuda":
+            self._handle = torch.cuda.graph_pool_handle()
+        return self._handle
+
+
 class CapturedStep:
     """One step body, captured once per batch signature (``_batch_key``),
     as a jitted JAX function keeps one executable per shape.
@@ -176,23 +196,43 @@ class CapturedStep:
     the graphs read (the params, the optimizer): when one of them is
     replaced (a fresh optimizer, a reallocated param), every graph is
     dropped and the next call re-captures, so a stale graph never replays
-    old addresses."""
+    old addresses.
+
+    Every graph of the entry captures into one :class:`GraphPool` (its
+    own, or ``pool``, one shared with other entries), so N signatures
+    cost about the largest pool, not the sum. That is sound because
+    nothing that outlives a replay lives in the pool: each signature's
+    static outputs are buffers made by its warm-up run, before its
+    capture (the params, the optimizer state and the batch buffers were
+    made before too). :meth:`release` drops the graphs (the pool's memory
+    goes back once no graph holds it); the next call captures again."""
 
     def __init__(self, name: str, plan: TrainPlan,
-                 run: Callable[[dict], tuple], *, seeds: bool = True):
+                 run: Callable[[dict], tuple], *, seeds: bool = True,
+                 pool: Optional[GraphPool] = None):
         self.name = name
         self.plan = plan
         self._run = run
         self.seeds = SeedTable(plan.device) if seeds else None
         self.graphs: dict = {}           # signature -> (StepGraph, bufs)
+        #: signature -> whether its body wrote the expert plane when it
+        #: was captured (a replay writes what its capture wrote)
+        self.armed: dict = {}
         self._bound = None
+        self.pool = pool if pool is not None else GraphPool()
 
     def bind(self, *objs) -> None:
         key = tuple(o.data_ptr() if isinstance(o, torch.Tensor) else id(o)
                     for o in objs)
         if key != self._bound:
-            self.graphs.clear()
+            self.release()
             self._bound = key
+
+    def release(self) -> None:
+        """Drop every graph (the pool's memory goes back to the
+        allocator once no graph holds it)."""
+        self.graphs.clear()
+        self.armed.clear()
 
     def call(self, batch: dict) -> tuple:
         sig = _batch_key(batch)
@@ -204,9 +244,20 @@ class CapturedStep:
             with autocast(self.plan.policy):
                 return graph.replay()
         bufs = {k: v.clone() for k, v in batch.items()}
+        outs: list = []
+
+        def body() -> tuple:
+            res = self._run(bufs)
+            if not outs:                 # the warm-up run: outside the pool
+                outs.extend(torch.empty_like(r) for r in res)
+            for o, r in zip(outs, res):
+                o.copy_(r)
+            return tuple(outs)
+
         with autocast(self.plan.policy):
-            graph = StepGraph(self.name, lambda: self._run(bufs),
-                              device=self.plan.device, seeds=self.seeds)
+            graph = StepGraph(self.name, body, device=self.plan.device,
+                              seeds=self.seeds,
+                              pool=self.pool.handle(self.plan.device))
         self.graphs[sig] = (graph, bufs)
         return graph.first
 
@@ -216,6 +267,20 @@ class CapturedStep:
         scalars first, as for :meth:`call`)."""
         with torch.no_grad(), autocast(self.plan.policy):
             return tuple(self._run(batch))
+
+    def arm(self, plane, batch: dict) -> None:
+        """Stage ``plane`` (an ``nn.moe.ExpertPlane`` or None) for the
+        next :meth:`call`: a call that runs the body (the CPU, or a new
+        signature's capture) arms it when telemetry is on; a replay is
+        armed as its own signature's capture was."""
+        if plane is None:
+            return
+        sig = _batch_key(batch)
+        if self.plan.device.type != "cuda" or sig not in self.graphs:
+            plane.armed = self.armed[sig] = telemetry.enabled()
+        else:
+            plane.armed = self.armed[sig]
+        plane.stage()
 
     @property
     def captures(self) -> int:
@@ -234,14 +299,24 @@ class TrainStep:
     eagerly, for checks."""
 
     def __init__(self, model: nn.Module, opt, plan: TrainPlan,
-                 base_loss: Callable, thread_dropout: bool):
+                 base_loss: Callable, thread_dropout: bool,
+                 expert_steps: int = 1, pool: Optional[GraphPool] = None):
         self.model, self.opt, self.plan = model, opt, plan
         self._loss = base_loss
         self.thread_dropout = thread_dropout
         self._optimizer = None
-        self.entry = CapturedStep("train_step", plan, self._run)
+        self.entry = CapturedStep("train_step", plan, self._run, pool=pool)
+        #: the MoE layers' expert-plane ring (None for a dense model)
+        self.plane = make_expert_plane(model, steps=expert_steps,
+                                       backward=True)
 
     def _run(self, batch: dict) -> tuple:
+        plane = self.plane if self.plane is not None \
+            and self.plane.armed else None
+        with expert_plane(plane):
+            return self._run_body(batch)
+
+    def _run_body(self, batch: dict) -> tuple:
         plan, nm = self.plan, self.plan.strategy.num_microbatches
         # read at each capture: ``opt.build`` (``init_state``) freezes the
         # params a ``masked`` optimizer leaves out
@@ -285,7 +360,9 @@ class TrainStep:
         return _on_device(batch, self.plan.device)
 
     def __call__(self, state: TrainState, batch: dict):
-        loss, gnorm = self.entry.call(self._stage(state, batch))
+        batch = self._stage(state, batch)
+        self.entry.arm(self.plane, batch)
+        loss, gnorm = self.entry.call(batch)
         state.step += 1
         return state, {"loss": loss, "grad_norm": gnorm}
 
@@ -301,32 +378,48 @@ class EvalStep:
     captured forward (``record_trace("eval_step")``); the loss is the
     graph's static output. :meth:`body` runs it eagerly."""
 
-    def __init__(self, plan: TrainPlan, base_loss: Callable):
+    def __init__(self, plan: TrainPlan, base_loss: Callable, model=None,
+                 pool: Optional[GraphPool] = None):
         self.plan = plan
         self._loss = base_loss
-        self.entry = CapturedStep("eval_step", plan, self._run, seeds=False)
+        self.entry = CapturedStep("eval_step", plan, self._run, seeds=False,
+                                  pool=pool)
+        #: the MoE layers' expert-plane ring: one step, drained after
+        #: each read of the loss
+        self.plane = None if model is None \
+            else make_expert_plane(model, steps=1, backward=False)
 
     def _run(self, batch: dict) -> tuple:
-        return (self._loss(batch),)
+        plane = self.plane if self.plane is not None \
+            and self.plane.armed else None
+        with expert_plane(plane):
+            return (self._loss(batch),)
 
     def __call__(self, batch: dict):
-        return self.entry.call(_on_device(batch, self.plan.device))[0]
+        batch = _on_device(batch, self.plan.device)
+        self.entry.arm(self.plane, batch)
+        return self.entry.call(batch)[0]
 
     def body(self, batch: dict):
         return self.entry.run_eager(_on_device(batch, self.plan.device))[0]
 
 
 def build_eval_step(model: nn.Module, plan: TrainPlan, *,
-                    loss_fn: Optional[Callable] = None) -> EvalStep:
+                    loss_fn: Optional[Callable] = None,
+                    pool: Optional[GraphPool] = None) -> EvalStep:
     """``eval(batch) -> loss`` (``:900``): ``loss_fn(batch)`` (default
     :func:`default_loss_fn`) under the plan's precision policy, without
-    grads and without dropout, captured; the loss stays on the device."""
-    return EvalStep(plan, loss_fn or default_loss_fn(model, plan.strategy))
+    grads and without dropout, captured (into ``pool`` when given); the
+    loss stays on the device."""
+    return EvalStep(plan, loss_fn or default_loss_fn(model, plan.strategy),
+                    model, pool=pool)
 
 
 def build_train_step(model: nn.Module, opt: OptimizerSpec,
                      plan: TrainPlan, *,
-                     loss_fn: Optional[Callable] = None) -> TrainStep:
+                     loss_fn: Optional[Callable] = None,
+                     expert_steps: int = 1,
+                     pool: Optional[GraphPool] = None) -> TrainStep:
     """``step(state, batch) -> (state, {"loss", "grad_norm"})`` (``:685``)
     over ``loss_fn(batch[, dropout_seed=])`` (default
     :func:`default_loss_fn`), captured.
@@ -346,10 +439,16 @@ def build_train_step(model: nn.Module, opt: OptimizerSpec,
     computes and discards. Forward and backward run under the plan's
     precision policy. Dropout seeds are threaded when the config enables
     dropout and the loss takes ``dropout_seed`` (JAX's contract, with its
-    warnings for a custom loss). The metrics stay on the device."""
+    warnings for a custom loss). The metrics stay on the device. An MoE
+    model's step captured with telemetry on writes its expert-plane stats
+    into ``step.plane``, a ring of ``expert_steps`` steps that the host
+    drains (``step.plane.drain()``) where it reads the device. ``pool``
+    (a :class:`GraphPool`) shares the step's graph pool with other
+    entries."""
     base_loss = loss_fn or default_loss_fn(model, plan.strategy)
     return TrainStep(model, opt, plan, base_loss,
-                     _thread_dropout(model, loss_fn, base_loss))
+                     _thread_dropout(model, loss_fn, base_loss),
+                     expert_steps=expert_steps, pool=pool)
 
 
 # -- split-phase accumulation ------------------------------------------------
@@ -426,8 +525,10 @@ def build_grad_accum_steps(model: nn.Module, opt: OptimizerSpec,
         opt.update(cur["optimizer"], dict(zip(cur["params"], grads)))
         return (gnorm,)
 
-    grad_entry = CapturedStep("grad_step", plan, grad_run)
-    apply_entry = CapturedStep("apply_step", plan, apply_run, seeds=False)
+    pool = GraphPool()                   # the two phases never overlap
+    grad_entry = CapturedStep("grad_step", plan, grad_run, pool=pool)
+    apply_entry = CapturedStep("apply_step", plan, apply_run, seeds=False,
+                               pool=pool)
 
     def init_acc(like: Optional[GradAccumulator] = None) -> GradAccumulator:
         if like is not None:
@@ -501,6 +602,21 @@ class CachedStep:
     def __call__(self, state, batch):
         return self.step_fn(state, batch)
 
+    def release(self) -> None:
+        """Drop the graphs (and their pools) of the step and the eval."""
+        for fn in (self.step_fn, self.eval_fn):
+            entry = getattr(fn, "entry", None)
+            if entry is not None:
+                entry.release()
+
+
+def _release(entry) -> None:
+    """Release a cache entry's graphs (anything else a caller cached
+    has none)."""
+    release = getattr(entry, "release", None)
+    if release is not None:
+        release()
+
 
 class StepCache:
     """Memo of :class:`CachedStep` entries keyed by (model, optimizer,
@@ -508,7 +624,9 @@ class StepCache:
     bounded LRU, thread-safe, with single-flight builds (two callers
     racing to one key build it once). :meth:`clear` bumps a generation:
     a build in flight across a clear is handed to its caller but never
-    re-enters the pool."""
+    re-enters the pool. An entry that leaves the cache (evicted,
+    :meth:`discard`, :meth:`clear`) releases its graphs and their pools;
+    a caller still holding it captures again at its next call."""
 
     def __init__(self, capacity: int = 64):
         self.capacity = capacity
@@ -531,6 +649,18 @@ class StepCache:
         return (id(model), id(opt), strategy, attn_impl, donate,
                 policy_key, dev_key, int(bucket))
 
+    def _count(self, hit: bool) -> None:
+        if hit:
+            self.hits += 1
+        else:
+            self.misses += 1
+        if telemetry.enabled():
+            telemetry.get_registry().counter(
+                "step_cache_hits_total" if hit
+                else "step_cache_misses_total",
+                "StepCache lookups that found / missed a compiled "
+                "entry").inc()
+
     def lookup(self, key) -> Optional[CachedStep]:
         """Peek without building (does not count a miss)."""
         with self._lock:
@@ -550,7 +680,7 @@ class StepCache:
                 if entry is not None:
                     self._entries.pop(key)
                     self._entries[key] = entry
-                    self.hits += 1
+                    self._count(hit=True)
                     return entry
                 ev = self._building.get(key)
                 if ev is None:
@@ -569,9 +699,9 @@ class StepCache:
             if self._gen == gen:
                 self._entries[key] = entry
                 while len(self._entries) > self.capacity:
-                    self._entries.pop(next(iter(self._entries)))
+                    _release(self._entries.pop(next(iter(self._entries))))
                     self.evictions += 1
-            self.misses += 1
+            self._count(hit=False)
             self._building.pop(key, None)
         ev.set()
         return entry
@@ -585,8 +715,16 @@ class StepCache:
 
     def clear(self) -> None:
         with self._lock:
+            for entry in self._entries.values():
+                _release(entry)
             self._entries.clear()
             self._gen += 1   # in-flight builds must not re-insert
+
+    def discard(self, key) -> None:
+        """Drop ``key``'s entry, if cached, and release its graphs."""
+        with self._lock:
+            entry = self._entries.pop(key, None)
+        _release(entry)
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -607,23 +745,32 @@ def get_step_cache() -> StepCache:
 def compile_strategy(model: nn.Module, opt: OptimizerSpec,
                      strategy: Strategy, *, device=None,
                      loss_fn: Optional[Callable] = None,
-                     build_eval: bool = True) -> CachedStep:
+                     build_eval: bool = True,
+                     expert_steps: int = 1,
+                     pool: Optional[GraphPool] = None) -> CachedStep:
     """Plan and build the captured step (and eval) for one strategy
     (``:423``) under the precision policy in force; the graphs capture
     at their first call. Callers wanting memoisation go through
-    :meth:`StepCache.get_or_build`."""
+    :meth:`StepCache.get_or_build`. ``expert_steps``: the step's
+    expert-plane ring (an MoE model's steps between two drains);
+    ``pool``: the graph pool the step and the eval capture into (one of
+    their own by default)."""
     t0 = time.perf_counter()
-    plan = make_plan(model, opt, strategy, device=device)
-    step_fn = build_train_step(model, opt, plan, loss_fn=loss_fn)
-    eval_fn = build_eval_step(model, plan, loss_fn=loss_fn) \
-        if build_eval else None
+    with telemetry.span("build_plan_and_step",
+                        strategy=strategy.to_json()):
+        plan = make_plan(model, opt, strategy, device=device)
+        pool = pool if pool is not None else GraphPool()
+        step_fn = build_train_step(model, opt, plan, loss_fn=loss_fn,
+                                   expert_steps=expert_steps, pool=pool)
+        eval_fn = build_eval_step(model, plan, loss_fn=loss_fn,
+                                  pool=pool) if build_eval else None
     return CachedStep(plan, step_fn, eval_fn,
                       compile_seconds=time.perf_counter() - t0,
                       refs=(model, opt))
 
 
 __all__ = ["CachedStep", "CapturedStep", "DROPOUT_BASE_SEED", "EvalStep",
-           "GradAccumulator", "StepCache", "TrainPlan", "TrainStep",
+           "GradAccumulator", "GraphPool", "StepCache", "TrainPlan", "TrainStep",
            "build_eval_step", "build_grad_accum_steps", "build_train_step",
            "compile_strategy", "default_loss_fn", "effective_remat",
            "get_step_cache", "init_state", "make_plan",

@@ -27,15 +27,34 @@ forward with its load-balance auxiliary loss, and its decode lane.
   no batched int8 product on CUDA): each expert's int8 weights are read
   once, and each row keeps the columns of its chosen experts.
 
+The expert-plane telemetry (``hetu_tpu/nn/moe.py:281-345``) reaches the
+host without a callback: JAX gates it at trace time, the port at capture
+time. A train or eval step that runs its body with telemetry on opens an
+:class:`ExpertPlane` (:func:`expert_plane`), and each ``MoEMLP.forward``
+then writes, on the device, its per-expert load (pre-capacity), its
+dropped count (0: the capacity-free form) and its aux loss into the
+plane's static ring (``steps × layers``), at the step's ring slot, a
+device operand the host stages before each replay. A remat recompute
+writes the same values into the same cells. The host drains the ring
+where it already reads the device (the trainer's log boundary,
+``evaluate``'s read) and makes JAX's observations in JAX's order: one
+``moe_aux_loss`` and one ``moe_overflow_fraction`` a layer call and
+step, ``moe_expert_tokens`` set at each (a train step emits from its
+backward, last layer first, so the gauge ends on layer 0; an eval step
+from its forward, so it ends on the last layer).
+
 Expert parallelism (the ep all-to-all, its overlap and the hierarchical
-exchange) and the expert-plane telemetry are not ported.
+exchange) is not ported.
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import math
+import threading
 import warnings
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -290,6 +309,140 @@ def refuse_batch_coupled(model) -> None:
                 f"which rows share a step")
 
 
+# -- the expert plane -----------------------------------------------------------
+
+_PLANE = threading.local()
+_STAGED = itertools.count(1)         # process-wide order of staged steps
+
+
+class ExpertPlane:
+    """The expert-plane ring of one step entry: ``aux`` and ``dropped``
+    ``(steps, layers)`` and ``load`` ``(steps, layers, E)``, fp32 on the
+    device, with the ring slot ``slot`` (int64, ``(1,)``) the host stages
+    before each step (:meth:`stage`). ``backward`` orders a step's
+    observations as a differentiated step emits them (last layer
+    first). Layers take their columns in the order they first write."""
+
+    def __init__(self, layers: int, num_experts: int, *, steps: int,
+                 device, backward: bool):
+        kw = dict(dtype=torch.float32, device=device)
+        self.steps, self.backward = max(1, int(steps)), backward
+        self.aux = torch.zeros(self.steps, layers, **kw)
+        self.dropped = torch.zeros(self.steps, layers, **kw)
+        self.load = torch.zeros(self.steps, layers, num_experts, **kw)
+        self.slot = torch.zeros(1, dtype=torch.int64, device=device)
+        self.columns: dict = {}
+        self.armed = False           # the next step writes the ring
+        #: a weak reference (``weakref.WeakMethod``) to what drains a full
+        #: ring: a trainer drains all its planes, oldest first (None, or
+        #: the owner gone: the plane drains itself)
+        self.on_full: Optional[Callable] = None
+        self._staged = 0             # steps staged since the last drain
+        self._next = 0
+        #: process-wide order of this plane's last staged step (planes of
+        #: one trainer drain oldest first, so the gauge ends on the last)
+        self.last_staged = 0
+
+    def stage(self) -> None:
+        """Point the next step at its ring slot (a device fill: no
+        sync). A step staged on a full ring (``steps`` staged since the
+        last drain) drains it first: a device read, the one sync the
+        plane adds, only where the drains come rarer than the ring
+        holds."""
+        if self.armed:
+            if self._staged >= self.steps:
+                owner = self.on_full() if self.on_full is not None \
+                    else None
+                (owner or self.drain)()
+            self.slot.fill_(self._next)
+            self._next = (self._next + 1) % self.steps
+            self._staged += 1
+            self.last_staged = next(_STAGED)
+
+    def record(self, layer, idx, aux) -> None:
+        """One layer call's stats, written on the device (inside the
+        captured body: no host read)."""
+        col = self.columns.setdefault(id(layer), len(self.columns))
+        load = F.one_hot(idx.reshape(-1).long(),
+                         self.load.shape[-1]).sum(0).to(torch.float32)
+        self.load.select(1, col).index_copy_(0, self.slot, load[None])
+        self.aux.select(1, col).index_copy_(
+            0, self.slot, aux.detach().to(torch.float32).reshape(1))
+        self.dropped.select(1, col).index_fill_(0, self.slot, 0.0)
+
+    def drain(self) -> int:
+        """Read the steps staged since the last drain (one device-to-host
+        copy: call it where the host already syncs) and make JAX's
+        observations; returns the steps observed."""
+        n = self._staged
+        if n == 0:
+            return 0
+        from hetu_tpu_torch import telemetry
+        aux, dropped, load = (t.cpu() for t in (self.aux, self.dropped,
+                                                 self.load))
+        self._staged = 0
+        if not telemetry.enabled():
+            return 0
+        cols = range(len(self.columns))
+        order = list(reversed(cols)) if self.backward else list(cols)
+        for k in range(n):
+            slot = (self._next - n + k) % self.steps
+            for col in order:
+                _emit_expert_plane(load[slot, col], dropped[slot, col],
+                                   aux[slot, col])
+        return n
+
+
+def _emit_expert_plane(load, dropped, aux) -> None:
+    """The host side of one layer call's stats (``hetu_tpu/nn/moe.py:281
+    _emit_expert_plane``: the same series, labels and help)."""
+    from hetu_tpu_torch import telemetry
+    reg = telemetry.get_registry()
+    gauge = reg.gauge(
+        "moe_expert_tokens",
+        "tokens routed to each expert on the last observed MoE layer "
+        "call (pre-capacity, global batch)")
+    for e, n in enumerate(load.tolist()):
+        gauge.set(float(n), expert=str(e))
+    d = float(dropped)
+    if d:
+        reg.counter(
+            "moe_dropped_tokens_total",
+            "(token, choice) slots dropped by the EP capacity limit "
+            "— contributions that silently vanish from the combine").inc(d)
+    total = float(load.sum())
+    reg.histogram(
+        "moe_overflow_fraction",
+        "fraction of (token, choice) slots dropped by the capacity "
+        "limit, per MoE layer call").observe(d / max(total, 1.0))
+    reg.histogram(
+        "moe_aux_loss",
+        "MoE load-balance aux loss per layer call").observe(float(aux))
+
+
+@contextlib.contextmanager
+def expert_plane(plane: Optional[ExpertPlane]):
+    """Route this thread's ``MoEMLP.forward`` stats into ``plane`` (None:
+    nowhere) for the body of one step."""
+    prev = getattr(_PLANE, "plane", None)
+    _PLANE.plane = plane
+    try:
+        yield plane
+    finally:
+        _PLANE.plane = prev
+
+
+def make_expert_plane(model, *, steps: int, backward: bool
+                      ) -> Optional[ExpertPlane]:
+    """An :class:`ExpertPlane` for ``model``'s MoE layers, or None for a
+    dense model."""
+    layers = [m for m in model.modules() if isinstance(m, MoEMLP)]
+    if not layers:
+        return None
+    return ExpertPlane(len(layers), layers[0].num_experts, steps=steps,
+                       device=layers[0].wi.device, backward=backward)
+
+
 class MoEMLP(nn.Module):
     """The FFN of an MoE block (``:388``): a gate and E stacked expert
     FFNs, GELU (``gated=False``) or SwiGLU (``gated=True``). ``forward``
@@ -341,6 +494,9 @@ class MoEMLP(nn.Module):
             combine = combine + wgt[:, j, None] * F.one_hot(
                 idx[:, j].long(), self.num_experts).to(torch.float32)
         out = torch.einsum("te,etd->td", combine, ye.float())
+        plane = getattr(_PLANE, "plane", None)
+        if plane is not None:
+            plane.record(self, idx, aux)
         return out.reshape(b, s, d).to(x.dtype), aux
 
     def _names(self) -> tuple:
@@ -452,6 +608,7 @@ def add_aux(cfg, lm, aux):
     return lm + cfg.moe_aux_coef * aux if cfg.num_experts > 0 else lm
 
 
-__all__ = ["BalanceGate", "GATE_TYPES", "HashGate", "KTop1Gate", "MoEMLP",
+__all__ = ["BalanceGate", "ExpertPlane", "GATE_TYPES", "HashGate",
+           "KTop1Gate", "MoEMLP", "expert_plane", "make_expert_plane",
            "SAMGate", "TopKGate", "add_aux", "gate_drop_stats", "make_gate",
            "moe_mlp", "refuse_batch_coupled", "routing_margins", "with_aux"]

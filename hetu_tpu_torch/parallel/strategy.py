@@ -9,6 +9,7 @@ raises: multi-GPU strategies are the port's fourth slice.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Optional
 
 REMATS = ("none", "full", "selective")
@@ -40,3 +41,6 @@ class Strategy:
         if self.num_microbatches < 1:
             raise ValueError(f"num_microbatches must be >= 1, got "
                              f"{self.num_microbatches}")
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self))

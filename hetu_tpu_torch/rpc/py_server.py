@@ -6,9 +6,10 @@ training fleet, the serving verbs when an engine is attached
 decides which protocol its connection speaks.
 
 ``port=0`` binds a free port; :attr:`PyCoordinatorServer.port` holds
-the bound one after :meth:`~PyCoordinatorServer.start`. HEALTHZ needs
-the SLO engine, the watchdog and the flight recorder, which the port has
-not yet, and answers ``ERR HEALTHZ not ported``.
+the bound one after :meth:`~PyCoordinatorServer.start`. HEALTHZ answers
+the health document of ``telemetry.health_status`` (SLO state, watchdog
+trips, the attached engine's queue, occupancy and loop liveness), URL
+quoted onto one ``VAL`` line; METRICS the registry's Prometheus text.
 """
 
 from __future__ import annotations
@@ -152,9 +153,16 @@ class _Handler(socketserver.StreamRequestHandler):
                     getattr(self.server, "serving", None), cmd, args)
                 self._send(resp or "ERR unknown command")
             elif cmd == "HEALTHZ":
-                # the health document reads the SLO engine, the watchdog
-                # and the flight recorder: not ported yet
-                self._send("ERR HEALTHZ not ported")
+                # live health document: SLO state, watchdog trips,
+                # serving queue/occupancy (telemetry/slo.health_status)
+                import urllib.parse
+
+                from hetu_tpu_torch.telemetry.slo import health_status
+                serving = getattr(self.server, "serving", None)
+                doc = health_status(serving=serving,
+                                    slo=getattr(serving, "slo", None))
+                self._send("VAL " + urllib.parse.quote(
+                    json.dumps(doc, separators=(",", ":")), safe=""))
             elif cmd == "METRICS":
                 # Prometheus text exposition of the process-global
                 # registry (URL-quoted onto the one-line protocol)

@@ -149,22 +149,39 @@ the same tensors, so the captured lane never serves stale int8 weights.
 The byte ledger (``engine/memory.py``) does not price the tree, as
 ``hetu_tpu``'s does not.
 
+Telemetry is ``hetu_tpu``'s (``docs/OBSERVABILITY.md``), all of it host
+side, around the replays: nothing enters a captured lane, no call adds a
+device sync (TTFT and TPOT are stamped where the step already read its
+tokens back) and the lanes capture once with telemetry on or off. The
+engine counts ``serving_requests_total``, ``serving_tokens_total``,
+``serving_decode_slot_steps_total``, the kernel-path counters
+``serving_attn_kernel_total{path="paged"}`` (each decode-lane replay) and
+``prefill_attn_kernel_total{path="flash"}`` (each prefill-lane replay),
+the prefix, block-eviction, preemption, spill, speculation and tenancy
+counters; observes the TTFT, TPOT, step and draft-acceptance histograms;
+sets the queue, occupancy, block, spill-tier and adapter-page gauges;
+records the flight events (``serving_submit``, ``serving_admit``,
+``serving_preempt``, ``serving_resume``, ``serving_evict``,
+``weight_swap``, ``serving_finish``, ``serving_reject``,
+``tenant_throttle``, ``adapter_wait``); and, with the tracer on, gives
+each finished request its own Perfetto track (queued, prefill chunks,
+decode). ``watchdog=True`` runs the hang watchdog on the background loop
+and ``slo=True`` (or an ``SLOEngine``) the default serving rules on its
+cadence. ``spec_stats``, the tenant plane's ledgers and the registry's
+``stats()`` keep their host counts with telemetry off.
+
 Not ported yet, and not accepted as arguments: the CP long-prompt lane
 (and with it the adapter refusal of that lane), the prefill/decode
-handoff, KV replication, the SLO engine, the watchdog, the engine's own
-telemetry (the scheduler's and the spill arena's host ledgers stand in
-for its preemption and spill counters, ``spec_stats`` for its
-speculation counters, the tenant plane's ledgers and the registry's
-``stats()`` for its tenancy counters; only ``swap_params`` counts into ``hetu_tpu_torch.telemetry``),
-the spans and flight events of its lifecycle, ``load_adapter(path=)``
-(the dist-ckpt transport), and what only the router and fleet use: the
-spill arena's peer tier (``spill_peer``) and ``class_weights``; nor
+handoff, KV replication, ``load_adapter(path=)`` (the dist-ckpt
+transport), and what only the router and fleet use: the spill arena's
+peer tier (``spill_peer``) and ``class_weights``; nor
 ``prefix_cache=False``, ``swap_params(version=)`` and
 ``start(idle_sleep_s=)``, which no caller sets yet.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from typing import Mapping, Optional, Sequence, Union
@@ -197,6 +214,11 @@ from hetu_tpu_torch.serving.streaming import TokenSubscription, push_delta
 from hetu_tpu_torch.serving.tenancy import (
     DEFAULT_TARGETS, AdapterArenaFull, TenantPlane,
 )
+from hetu_tpu_torch.telemetry.flight import HangWatchdog, flight_record
+from hetu_tpu_torch.telemetry.slo import SLOEngine, default_serving_rules
+from hetu_tpu_torch.telemetry.spans import REQ_TRACK_BASE
+
+log = logging.getLogger("hetu_tpu_torch.serving")
 
 #: how often a waiter on a request (``result``) looks for a dead loop
 _LOOP_POLL_S = 0.05
@@ -283,7 +305,16 @@ class ServingEngine:
     those layers; either raises ValueError without the int8 arena
     (``cache_dtype=torch.int8``). ``"auto"`` is on only with the int8
     arena on the card (JAX's ``auto`` is on only on the TPU). The
-    resolved flags are ``_w8a8_mask`` (one bool a layer, or None)."""
+    resolved flags are ``_w8a8_mask`` (one bool a layer, or None).
+
+    Observability (``hetu_tpu``'s arguments): ``watchdog`` runs a
+    :class:`~hetu_tpu_torch.telemetry.HangWatchdog` (``watchdog_factor``
+    × the median loop turn, at least ``watchdog_min_timeout_s``) on the
+    :meth:`start` loop; ``slo`` (True: the default serving rules, or an
+    ``SLOEngine``) is observed at every TTFT, TPOT and step and evaluated
+    every ``slo_every_s`` by the loop; ``counter_sample_every`` samples
+    the registry into the tracer's counter tracks every that many
+    iterations."""
 
     def __init__(self, model, *, slots: Optional[int] = None,
                  max_len: int = 256, prefill_chunk: int = 16,
@@ -295,7 +326,12 @@ class ServingEngine:
                  spec_depth: int = 0, draft_model=None,
                  tenancy: Union[None, bool, TenantPlane] = None,
                  w8a8="off", seed: int = 0, device=None,
-                 record_first_logits: bool = False):
+                 record_first_logits: bool = False,
+                 counter_sample_every: int = 32,
+                 watchdog: bool = False, watchdog_factor: float = 8.0,
+                 watchdog_min_timeout_s: float = 30.0,
+                 slo: Union[bool, SLOEngine, None] = None,
+                 slo_every_s: float = 1.0):
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
             raise ValueError(f"model is on {model.device}, the engine was "
@@ -442,6 +478,24 @@ class ServingEngine:
         self._loop_error: Optional[BaseException] = None
         #: engine iterations that ran each lane
         self.lane_iters = {"decode": 0, "prefill": 0}
+        #: iterations that did work (the health document's ``iterations``)
+        self._iter = 0
+        self._evictions_synced = 0               # scheduler ledger -> ctr
+        self._counter_sample_every = int(counter_sample_every)
+        # the observability side band: a hang watchdog fed by the
+        # background loop, an SLO engine evaluated on its cadence
+        # (slo=True installs the default TTFT/TPOT/step rules)
+        self.watchdog: Optional[HangWatchdog] = HangWatchdog(
+            name="serving", factor=watchdog_factor,
+            min_timeout_s=watchdog_min_timeout_s,
+            registry=telemetry.get_registry()) if watchdog else None
+        if slo is True:
+            self.slo: Optional[SLOEngine] = default_serving_rules(
+                SLOEngine(telemetry.get_registry()))
+        else:
+            self.slo = slo or None
+        self._slo_every_s = float(slo_every_s)
+        self._slo_last_eval = 0.0
         #: max requests that can FINISH prefill in one iteration (each
         #: needs >= 1 pack token): the prefill lane's head width
         self._fin_cap = max(1, min(S, self.prefill_chunk))
@@ -623,6 +677,7 @@ class ServingEngine:
                 if tid:
                     req.trace_id = tid
                     req.traceparent = traceparent
+            admitted = False
             if sampling.adapter is not None:
                 registry = self.tenancy.registry
                 if not registry.has(sampling.tenant, sampling.adapter):
@@ -631,16 +686,24 @@ class ServingEngine:
                                  f"{sampling.adapter} — load_adapter "
                                  f"first")
                     req.done.set()
-                    return req
-                req.kv_adapter = registry.kv_tag(
-                    registry.get(sampling.tenant, sampling.adapter))
-            if resume is not None and resume.compatible_with(
-                    self.pool, self.weight_version,
-                    adapter=req.kv_adapter):
-                req.spill = resume
-                req.tokens = list(resume.tokens)
-                req.weight_version = resume.weight_version
-            self.scheduler.submit(req)
+                else:
+                    req.kv_adapter = registry.kv_tag(
+                        registry.get(sampling.tenant, sampling.adapter))
+            if req.status != "rejected":
+                if resume is not None and resume.compatible_with(
+                        self.pool, self.weight_version,
+                        adapter=req.kv_adapter):
+                    req.spill = resume
+                    req.tokens = list(resume.tokens)
+                    req.weight_version = resume.weight_version
+                admitted = self.scheduler.submit(req)
+        telemetry.get_registry().counter(
+            "serving_requests_total", "serving requests by outcome").inc(
+            outcome="submitted" if admitted else "rejected")
+        flight_record("serving_submit", req=req.id, trace=req.trace_id,
+                      prompt_len=len(req.prompt),
+                      outcome="queued" if admitted else "rejected")
+        self._record_gauges()
         return req
 
     def result(self, req: Request,
@@ -738,10 +801,12 @@ class ServingEngine:
         plan into the slot's block table and queue its prefill. Returns
         this iteration's CoW (src, dst) block pairs."""
         cows: list[tuple[int, int]] = []
+        reg = telemetry.get_registry()
+        now = time.monotonic()
         while True:
             adm = self.scheduler.next_admission()
             if adm is None:
-                return cows
+                break
             req, slot = adm
             if self.tenancy is not None \
                     and not self._bind_adapter_locked(req, slot):
@@ -773,6 +838,25 @@ class ServingEngine:
                 # the slot's draft state belongs to its new occupant (a
                 # resume re-seeds it with its whole history at map-back)
                 self._draftsman.reset(slot, req.prompt.tolist())
+            hit = req.cached_tokens
+            if hit:
+                reg.counter("serving_prefix_hit_tokens_total",
+                            "prompt tokens served from the prefix "
+                            "cache (prefill skipped)").inc(hit)
+            reg.counter("serving_prefix_miss_tokens_total",
+                        "prompt tokens that had to be prefilled").inc(
+                len(req.prompt) - hit)
+            flight_record("serving_admit", req=req.id,
+                          trace=req.trace_id, slot=slot,
+                          cached_tokens=hit, cp_lane=False,
+                          queued_s=round(now - req.submit_s, 4))
+        ev = self.scheduler.evictions_total
+        if ev > self._evictions_synced:
+            reg.counter("serving_block_evictions_total",
+                        "prefix-cache blocks LRU-evicted to refill the "
+                        "free list").inc(ev - self._evictions_synced)
+            self._evictions_synced = ev
+        return cows
 
     def _build_pack(self) -> dict:
         """Fill the C-token prefill budget FCFS over in-flight prefills
@@ -952,7 +1036,17 @@ class ServingEngine:
 
         with self._lock:
             self._commit_locked(active, spec, pf, lg, first_toks, t0)
+            self._record_gauges()
         self._pump_stream_subs()
+        step_s = time.monotonic() - t0
+        reg = telemetry.get_registry()
+        reg.histogram("serving_step_seconds",
+                      "one fused engine iteration").observe(step_s)
+        if self.slo is not None:
+            self.slo.observe("serving_step_seconds", step_s)
+        if self._counter_sample_every and \
+                self._iter % self._counter_sample_every == 0:
+            telemetry.get_tracer().record_counters(reg.snapshot())
         return True
 
     def _commit_locked(self, active: np.ndarray, spec: Optional[dict],
@@ -961,12 +1055,37 @@ class ServingEngine:
         then the pack's progress and the first token of every request
         whose prompt it finished."""
         now = time.monotonic()
+        reg = telemetry.get_registry()
+        self._iter += 1
+        if spec is not None:
+            reg.counter(
+                "serving_decode_slot_steps_total",
+                "slot×iteration decode opportunities (each active "
+                "slot in each fused step counts once); 1 + "
+                "accepted/this is the mean tokens committed per "
+                "slot-step — the speculation win, 1.0 without "
+                "drafts").inc(int(active.size))
+            reg.counter(
+                "serving_attn_kernel_total",
+                "fused decode/verify steps by attention path "
+                "(paged = Pallas block-table kernel, reference = "
+                "XLA gather)").inc(path="paged")
+        if pf["used"]:
+            reg.counter(
+                "prefill_attn_kernel_total",
+                "prefill-lane executions by attention path (flash "
+                "= packed/CP flash lane, reference = per-token "
+                "gather math)").inc(path="flash")
         if spec is not None:
             self._commit_decode_locked(active, spec, now)
             self.spec_stats["slot_steps"] += int(active.size)
         for ent, n in pf["fills"]:
             ent["off"] += n
             ent["req"].mark("prefill_chunk", dur_s=now - t0, ts_s=t0)
+        if pf["used"]:
+            reg.counter("serving_tokens_total",
+                        "serving tokens by kind").inc(
+                pf["used"], kind="prompt")
         for i, ent in enumerate(pf["fin"]):
             req, slot = ent["req"], ent["slot"]
             self._pos[slot] = len(req.prompt)
@@ -974,6 +1093,11 @@ class ServingEngine:
             req.status = "decode"
             req.first_token_s = now
             req.mark("first_token", ts_s=now)
+            ttft = now - req.submit_s
+            reg.histogram("serving_ttft_seconds",
+                          "time submit -> first token").observe(ttft)
+            if self.slo is not None:
+                self.slo.observe("serving_ttft_seconds", ttft)
             # the finished prompt's whole blocks enter the radix cache
             self.prefix_cache.insert(req.prompt.tolist(), self._bt[slot],
                                      adapter=req.kv_adapter)
@@ -990,6 +1114,7 @@ class ServingEngine:
         which can finish the request mid-commit (EOS or budget; the rest
         is dropped); the ledgers count only what the request kept."""
         stats = self.spec_stats
+        reg = telemetry.get_registry()
         for r in active:
             r = int(r)
             req = self._slot_req[r]
@@ -1010,12 +1135,33 @@ class ServingEngine:
             req.accepted += kept
             stats["drafted"] += dr
             stats["accepted"] += kept
-            if spec["sampled"][r]:
+            reg.counter("serving_draft_tokens_total",
+                        "draft tokens proposed to the verify "
+                        "lane").inc(dr)
+            sampled = bool(spec["sampled"][r])
+            if kept:
+                reg.counter(
+                    "serving_accepted_tokens_total",
+                    "draft tokens the verify lane accepted "
+                    "(committed without their own decode "
+                    "iteration)").inc(kept)
+                if sampled:
+                    reg.counter(
+                        "serving_sampled_accepted_tokens_total",
+                        "draft tokens accepted by the "
+                        "rejection-sampling verify lane "
+                        "(temperature > 0 slots)").inc(kept)
+            if sampled:
                 stats["sampled_accepted"] += kept
                 if n - 1 < dr:
                     # draft n - 1 was rejected: the token came from the
                     # residual max(0, p - q)
                     stats["resampled"] += 1
+                    reg.counter(
+                        "serving_resample_tokens_total",
+                        "tokens drawn from the rejection-"
+                        "sampling residual after a draft was "
+                        "rejected (sampled speculation)").inc(1)
 
     def _on_token(self, slot: int, tok: int, now: float) -> None:
         """Record one sampled token for ``slot``: append, advance the
@@ -1027,6 +1173,9 @@ class ServingEngine:
             self._pos[slot] += 1
         if self._draftsman is not None and self._draftsman.host_only:
             self._draftsman.extend(slot, (tok,))
+        telemetry.get_registry().counter(
+            "serving_tokens_total", "serving tokens by kind").inc(
+            kind="generated")
         sp = req.sampling
         if (sp.eos_id is not None and tok == sp.eos_id) \
                 or len(req.tokens) >= sp.max_tokens:
@@ -1144,6 +1293,19 @@ class ServingEngine:
         req.mark("preempted", dur_s=time.monotonic() - t0, ts_s=t0)
         self.scheduler.requeue_preempted(req)
         self.scheduler.preemptions_total += 1
+        reg = telemetry.get_registry()
+        reg.counter(
+            "serving_kv_spilled_blocks_total",
+            "KV blocks copied device→host when a request was "
+            "preempted (resumable eviction)").inc(entry.n_blocks)
+        reg.counter(
+            "serving_preemptions_total",
+            "running requests evicted for more-urgent arrivals, "
+            "by the VICTIM's priority class").inc(
+            priority=str(req.sampling.priority))
+        flight_record("serving_preempt", req=req.id, trace=req.trace_id,
+                      slot=slot, blocks=entry.n_blocks,
+                      priority=req.sampling.priority)
 
     def _exec_resume(self, job: dict) -> None:
         """Write one spilled request's KV into its freshly allocated
@@ -1176,6 +1338,12 @@ class ServingEngine:
             # token happened on the engine it was spilled from
             req.first_token_s = now
         req.mark("resumed", dur_s=now - t0, ts_s=t0)
+        telemetry.get_registry().counter(
+            "serving_kv_resumed_blocks_total",
+            "spilled KV blocks mapped back into fresh arena blocks "
+            "on resume (prefill skipped entirely)").inc(nb)
+        flight_record("serving_resume", req=req.id, trace=req.trace_id,
+                      slot=slot, blocks=nb, pos=entry.pos)
 
     def evict_request(self, req: Request, *,
                       lock_timeout_s: Optional[float] = None
@@ -1241,6 +1409,12 @@ class ServingEngine:
         elif slot is not None and self._slot_req[slot] is req \
                 and self._active[slot]:
             entry = self._take_out(req, slot)
+            telemetry.get_registry().counter(
+                "serving_kv_spilled_blocks_total",
+                "KV blocks copied device→host when a request was "
+                "preempted (resumable eviction)").inc(entry.n_blocks)
+            flight_record("serving_evict", req=req.id, trace=req.trace_id,
+                          slot=slot, blocks=entry.n_blocks)
         else:
             return None
         req.status = "evicted"
@@ -1265,7 +1439,90 @@ class ServingEngine:
         # prefix cache adopted stay resident (trie refs), the rest free
         self.scheduler.release(slot, table=self._bt[slot])
         self._bt[slot, :] = 0
+        reg = telemetry.get_registry()
+        reg.counter("serving_requests_total",
+                    "serving requests by outcome").inc(outcome="completed")
+        n = len(req.tokens)
+        if n > 1 and req.first_token_s is not None:
+            tpot = (now - req.first_token_s) / (n - 1)
+            reg.histogram("serving_tpot_seconds",
+                          "per-output-token time after the first").observe(
+                tpot)
+            if self.slo is not None:
+                self.slo.observe("serving_tpot_seconds", tpot)
+        if req.drafted:
+            reg.histogram(
+                "serving_draft_acceptance_ratio",
+                "per-request accepted/drafted ratio at finish (the "
+                "speculation win tracks this), split by verify path "
+                "(greedy match vs rejection sampling)").observe(
+                req.accepted / req.drafted,
+                path="sampled" if req.sampling.temperature > 0
+                else "greedy")
+        flight_record("serving_finish", req=req.id, trace=req.trace_id,
+                      slot=slot, tokens=n)
+        self._emit_request_trace(req)
         req.done.set()
+
+    def _emit_request_trace(self, req: Request) -> None:
+        """Render the request's lifecycle as its own Perfetto track
+        (``hetu_tpu/serving/engine.py:2443``): one span per phase (queued,
+        prefill chunks, decode) on a synthetic tid named after its
+        ``trace_id``. Host-side, only when the tracer is on."""
+        tracer = telemetry.get_tracer()
+        if not tracer.enabled:
+            return
+        # request events use time.monotonic, the tracer's epoch
+        # perf_counter: bridge by the current offset
+        off = (time.perf_counter() - tracer.epoch) - time.monotonic()
+        tid = REQ_TRACK_BASE + req.id
+        tracer.name_track(tid, f"req {req.trace_id}")
+
+        def span(name, start, dur, **attrs):
+            tracer.complete(name, max(dur, 0.0), cat="request",
+                            ts_s=max(start + off, 0.0), tid=tid,
+                            trace_id=req.trace_id, req=req.id, **attrs)
+
+        admit = next((t for p, t, _ in req.events if p == "admit"), None)
+        if admit is not None:
+            span("queued", req.submit_s, admit - req.submit_s)
+        for phase, ts, dur in req.events:
+            if phase == "prefill_chunk":
+                span("prefill_chunk", ts, dur)
+        if req.first_token_s is not None and req.finish_s is not None:
+            span("decode", req.first_token_s,
+                 req.finish_s - req.first_token_s,
+                 tokens=len(req.tokens))
+
+    def _record_gauges(self) -> None:
+        reg = telemetry.get_registry()
+        if not reg.enabled:
+            return
+        reg.gauge("serving_queue_depth",
+                  "requests waiting for a slot").set(self.scheduler.depth)
+        reg.gauge("serving_slot_occupancy",
+                  "fraction of KV-pool slots in use").set(
+            self.scheduler.occupancy)
+        reg.gauge("serving_kv_blocks_in_use",
+                  "live KV blocks (slot tables + prefix cache)").set(
+            self.blocks.blocks_in_use)
+        reg.gauge("serving_kv_spill_arena_blocks",
+                  "KV blocks parked in the host spill arena "
+                  "(preempted requests awaiting resume)").set(
+            self.spill_arena.blocks_held)
+        # the port has no peer tier and no buddy replica store: the host
+        # arena holds every parked block
+        g = reg.gauge(
+            "spill_tier_blocks",
+            "KV blocks parked per spill tier (host arena, peer tier, "
+            "buddy replica store)")
+        g.set(self.spill_arena.blocks_held, tier="host")
+        g.set(0, tier="replica")
+        if self.tenancy is not None:
+            reg.gauge(
+                "adapter_pages_in_use",
+                "adapter arena pages holding a resident adapter").set(
+                self.tenancy.registry.pages_in_use)
 
     # -- the multi-tenant adapter plane (serving/tenancy.py) ---------------
     def _init_adapter_arena(self) -> dict:
@@ -1369,6 +1626,11 @@ class ServingEngine:
         finally:
             self._lock.release()
             self._step_lock.release()
+        if flushed:
+            telemetry.get_registry().counter(
+                "serving_prefix_flushed_total",
+                "prefix-cache blocks flushed because their KV "
+                "was computed under superseded weights").inc(flushed)
         return {"tenant": tenant, "name": name, "version": spec.version,
                 "uid": spec.uid, "page": spec.page,
                 "flushed_blocks": flushed}
@@ -1412,6 +1674,8 @@ class ServingEngine:
             if req.id not in self._throttle_logged:
                 self._throttle_logged.add(req.id)
                 plane.count("throttled", (sp.tenant or "base", reason))
+                flight_record("tenant_throttle", req=req.id,
+                              tenant=sp.tenant, reason=reason)
             return False
         if sp.adapter is not None:
             registry = plane.registry
@@ -1422,6 +1686,9 @@ class ServingEngine:
                     if req.id not in self._wait_logged:
                         self._wait_logged.add(req.id)
                         plane.count("adapter_waits", sp.tenant or "base")
+                        flight_record("adapter_wait", req=req.id,
+                                      tenant=sp.tenant,
+                                      adapter=sp.adapter)
                     return False
                 req.kv_adapter = registry.kv_tag(
                     registry.get(sp.tenant, sp.adapter))
@@ -1443,6 +1710,11 @@ class ServingEngine:
             except (KeyError, AdapterArenaFull) as err:
                 req.status, req.error = "rejected", str(err)
                 self.scheduler.release(slot, table=req.admit["table"])
+                telemetry.get_registry().counter(
+                    "serving_requests_total",
+                    "serving requests by outcome").inc(outcome="rejected")
+                flight_record("serving_reject", req=req.id,
+                              trace=req.trace_id, reason=str(err))
                 req.done.set()
                 return False
             req.adapter_ref = spec
@@ -1558,14 +1830,17 @@ class ServingEngine:
             self.weight_version += 1
             self.pool.weight_version = self.weight_version
             flushed = self.prefix_cache.set_version(self.weight_version)
+            if flushed:
+                telemetry.get_registry().counter(
+                    "serving_prefix_flushed_total",
+                    "prefix-cache blocks flushed because their KV was "
+                    "computed under superseded weights").inc(flushed)
+            self._record_gauges()
         finally:
             self._lock.release()
             self._step_lock.release()
-        if flushed:
-            telemetry.get_registry().counter(
-                "serving_prefix_flushed_total",
-                "prefix-cache blocks flushed because their KV was "
-                "computed under superseded weights").inc(flushed)
+        flight_record("weight_swap", version=self.weight_version,
+                      flushed_blocks=flushed)
         return {"version": self.weight_version, "flushed_blocks": flushed}
 
     # -- run loops ----------------------------------------------------------
@@ -1618,12 +1893,18 @@ class ServingEngine:
         captured under and with the engine's CUDA device current, so it
         replays the lanes as built. A step that raises ends the thread
         with the error (printed by the thread's hook); :meth:`result`
-        and :meth:`stop` raise it."""
+        and :meth:`stop` raise it. The watchdog (``watchdog=True``) is
+        fed one beat a loop turn, idle turns included (it watches for a
+        wedged iteration, not an empty queue), and the SLO engine
+        evaluates every ``slo_every_s``, as in ``hetu_tpu``
+        (``engine.py:2557-2597``)."""
         if self._thread is not None:
             return
         self._stop = threading.Event()
         self._loop_error = None
         stop, policy = self._stop, self.lanes["decode"].policy
+        if self.watchdog is not None:
+            self.watchdog.start()
 
         def loop():
             if self.device.type == "cuda":
@@ -1634,7 +1915,12 @@ class ServingEngine:
                         while self._boundary_waiters \
                                 and not stop.is_set():
                             stop.wait(_BOUNDARY_POLL_S)  # let them in
-                        if not self.step():
+                        busy = self.step()
+                        if self.watchdog is not None:
+                            self.watchdog.beat()
+                        if self.slo is not None:
+                            self._evaluate_slo()
+                        if not busy:
                             stop.wait(_IDLE_SLEEP_S)
             except BaseException as err:
                 self._loop_error = err
@@ -1643,6 +1929,16 @@ class ServingEngine:
         self._thread = threading.Thread(target=loop, daemon=True,
                                         name="serving-loop")
         self._thread.start()
+
+    def _evaluate_slo(self) -> None:
+        """Run the SLO detectors when ``slo_every_s`` has passed since
+        the last evaluation; each alert is logged."""
+        now = time.monotonic()
+        if now - self._slo_last_eval < self._slo_every_s:
+            return
+        self._slo_last_eval = now
+        for a in self.slo.evaluate():
+            log.warning(f"SLO alert: {a.message}")
 
     def stop(self) -> None:
         """Stop the loop after its current iteration and join it. Raises
@@ -1656,6 +1952,8 @@ class ServingEngine:
             raise RuntimeError(f"the serving loop did not stop within "
                                f"{_STOP_JOIN_S} s")
         self._thread = None
+        if self.watchdog is not None:
+            self.watchdog.stop()
         err = self._loop_error
         if err is not None:
             raise RuntimeError(f"the serving loop died: {err!r}") from err

@@ -13,18 +13,21 @@ coordinator with the engine attached. ``rpc/client.py``'s
 ``generate_stream``.
 
 Of ``SERVING_COMMANDS`` this module answers SUBMIT, RESULT, GENERATE
-and the engine verbs ESTATUS, CANCELQ, EVICT and STOPENGINE. The rest
-need modules the port does not have yet, and each answers the one line
-``ERR <VERB> not ported``: FLEET, DRAIN, RESUME and FLEETMETRICS (the
-router), PREFILL (the prefill/decode handoff), KVEXPORT, KVIMPORT,
-KVREPL, KVFETCH and KVBUDDY (the fleet KV plane), SWAPWEIGHTS (the
-distributed checkpoint) and DUMPOBS (spans and the flight recorder).
+the engine verbs ESTATUS, CANCELQ, EVICT and STOPENGINE, and DUMPOBS
+(this process's observability bundle: the chrome trace of the global
+tracer, the flight ring and the process identity, ``hetu_tpu``'s
+schema). The rest need modules the port does not have yet, and each
+answers the one line ``ERR <VERB> not ported``: FLEET, DRAIN, RESUME and
+FLEETMETRICS (the router), PREFILL (the prefill/decode handoff),
+KVEXPORT, KVIMPORT, KVREPL, KVFETCH and KVBUDDY (the fleet KV plane) and
+SWAPWEIGHTS (the distributed checkpoint).
 """
 
 from __future__ import annotations
 
 import base64
 import json
+import os
 import threading
 import time
 import urllib.parse
@@ -177,7 +180,7 @@ SERVING_COMMANDS = ("SUBMIT", "RESULT", "GENERATE",
 #: the verbs whose modules the port does not have yet
 NOT_PORTED = ("FLEET", "DRAIN", "RESUME", "FLEETMETRICS", "PREFILL",
               "KVEXPORT", "KVIMPORT", "KVREPL", "KVFETCH", "KVBUDDY",
-              "SWAPWEIGHTS", "DUMPOBS")
+              "SWAPWEIGHTS")
 
 
 _idem_init_lock = threading.Lock()
@@ -384,6 +387,18 @@ def _handle_engine_command(engine, cmd: str, args: list) -> str:
                "depth": sched.depth,
                "occupancy": round(sched.occupancy, 4),
                "block_size": int(engine.pool.block_size)}
+        return f"VAL {encode_payload(doc)}"
+    if cmd == "DUMPOBS":
+        # this process's observability bundle: the local chrome trace,
+        # the flight ring and the process identity
+        rec = telemetry.get_flight_recorder()
+        tracer = telemetry.get_tracer()
+        doc = {"pid": os.getpid(), "ts_unix": round(time.time(), 6),
+               "rank": rec.rank, "replica": rec.replica,
+               "role": rec.role,
+               "epoch_unix": round(tracer.epoch_unix, 6),
+               "chrome": tracer.to_chrome(),
+               "flight": rec.events()}
         return f"VAL {encode_payload(doc)}"
     if cmd == "STOPENGINE":
         engine.stop()

@@ -23,10 +23,14 @@ the host half of that plane:
 Everything here is plain numpy + bookkeeping; the engine owns the
 device arena and rewrites pages via ``registry.on_page_write``.
 
-Host ledgers stand in for ``hetu_tpu``'s telemetry counters and flight
-events: :meth:`AdapterRegistry.stats` counts loads and evictions, and
-:attr:`TenantPlane.ledgers` the engine's throttles, arena waits and
-admissions per tenant. Not ported: ``save_adapter_distributed`` and
+Telemetry is ``hetu_tpu``'s: page loads and evictions count into
+``adapter_loads_total`` / ``adapter_evictions_total`` with their flight
+events (``adapter_load``, ``adapter_evict``), and the engine's throttles
+and admissions into ``tenant_throttled_total`` / ``tenant_requests_total``
+(:meth:`TenantPlane.count`). The host ledgers count the same with
+telemetry off: :meth:`AdapterRegistry.stats` (loads, evictions) and
+:attr:`TenantPlane.ledgers` (throttles, arena waits, admissions per
+tenant). Not ported: ``save_adapter_distributed`` and
 ``load_adapter_distributed`` (they ride the dist-ckpt transport).
 
 Page 0 is the base model: an all-zero page whose delta is exactly
@@ -42,6 +46,9 @@ import time
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
+
+from hetu_tpu_torch import telemetry
+from hetu_tpu_torch.telemetry.flight import flight_record
 
 # Projections whose adapters perturb the written KV (q/k/v write the
 # cache directly; out_proj changes this block's output and therefore
@@ -267,6 +274,11 @@ class AdapterRegistry:
         spec.last_use = self._clock()
         self._resident[page] = spec
         self.loads_total += 1
+        telemetry.get_registry().counter(
+            "adapter_loads_total", "adapter arena page loads").inc()
+        flight_record("adapter_load", tenant=spec.tenant,
+                      name=spec.name, version=spec.version,
+                      uid=spec.uid, page=page)
         if self.on_page_write is not None:
             self.on_page_write(page, spec)
 
@@ -284,6 +296,11 @@ class AdapterRegistry:
         self._free.add(page)
         spec.page = None
         self.evictions_total += 1
+        telemetry.get_registry().counter(
+            "adapter_evictions_total", "adapter arena page evictions").inc()
+        flight_record("adapter_evict", tenant=spec.tenant,
+                      name=spec.name, version=spec.version,
+                      uid=spec.uid, page=page)
         if self.on_page_write is not None:
             self.on_page_write(page, None)
 
@@ -420,11 +437,13 @@ class TenantPlane:
     """The facade a :class:`~hetu_tpu_torch.serving.engine.ServingEngine`
     mounts when tenancy is on: adapter registry + QoS + ledgers.
 
-    ``ledgers`` are the engine's host counts in place of ``hetu_tpu``'s
-    telemetry: ``throttled`` ``{(tenant, reason): throttle episodes}``
+    ``ledgers`` are the engine's host counts, kept with telemetry off
+    too: ``throttled`` ``{(tenant, reason): throttle episodes}``
     (``tenant_throttled_total``), ``adapter_waits`` ``{tenant: arena-
     full episodes}`` and ``admitted`` ``{tenant: admitted requests}``
-    (``tenant_requests_total``); the base tenant is ``"base"``."""
+    (``tenant_requests_total``); the base tenant is ``"base"``.
+    :meth:`count` also counts the first and the last into the
+    registry."""
 
     def __init__(self, registry: Optional[AdapterRegistry] = None,
                  qos: Optional[TenantQoS] = None, *,
@@ -438,6 +457,16 @@ class TenantPlane:
     def count(self, ledger: str, key) -> None:
         book = self.ledgers[ledger]
         book[key] = book.get(key, 0) + 1
+        if ledger == "throttled":
+            telemetry.get_registry().counter(
+                "tenant_throttled_total",
+                "admissions deferred by tenant QoS (token-bucket "
+                "rate or concurrent-slot cap), one per throttle "
+                "episode").inc(tenant=key[0], reason=key[1])
+        elif ledger == "admitted":
+            telemetry.get_registry().counter(
+                "tenant_requests_total",
+                "admitted serving requests per tenant").inc(tenant=key)
 
     @property
     def max_adapters(self) -> int:

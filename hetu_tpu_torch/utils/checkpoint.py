@@ -33,6 +33,10 @@ the host (``to("cpu", copy=True)``: the step updates params and
 moments in place, and a CPU tensor's ``.cpu()`` would be the tensor
 itself). With ``async_save`` the layout change and the file write then
 run on a thread. A load puts each tensor where the model's param lives.
+The snapshot runs in a ``checkpoint_gather`` span and the write in a
+``checkpoint_write`` span (on the writer's thread); with telemetry on the
+write's latency lands in ``checkpoint_write_seconds``, as in
+``hetu_tpu``.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from typing import TYPE_CHECKING, Mapping, NamedTuple, Optional, Sequence
 import torch
 from torch import nn
 
+from hetu_tpu_torch import telemetry
 from hetu_tpu_torch.models.convert import jax_param_layout
 from hetu_tpu_torch.ops.quantization import dequantize_int8, quantize_int8
 
@@ -356,12 +361,14 @@ def save_checkpoint(path: str, state: TrainState, *,
     if quantize not in (None, "int8"):
         raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
     t0 = time.perf_counter()
-    named = dict(state.model.named_parameters())
-    names = {p: n for n, p in named.items()}
-    layout = jax_param_layout(named)
-    transposed = {n: tr for parts in layout.values() for n, tr in parts}
-    params = {n: _host(p, transposed[n]) for n, p in named.items()}
-    count, moments = _optimizer_state(state.optimizer, names, transposed)
+    with telemetry.span("checkpoint_gather", path=path):
+        named = dict(state.model.named_parameters())
+        names = {p: n for n, p in named.items()}
+        layout = jax_param_layout(named)
+        transposed = {n: tr for parts in layout.values() for n, tr in parts}
+        params = {n: _host(p, transposed[n]) for n, p in named.items()}
+        count, moments = _optimizer_state(state.optimizer, names,
+                                          transposed)
     slots = state.optimizer.state_layout
     step = int(state.step)
     writer = CheckpointWriter()
@@ -401,19 +408,26 @@ def save_checkpoint(path: str, state: TrainState, *,
 
     def write():
         t1 = time.perf_counter()
-        entries, quantized = tensors()
-        entries = {k: _entry(v) for k, v in entries.items()}
-        os.makedirs(path, exist_ok=True)
-        if max_shard_bytes is None:
-            save_tensors(os.path.join(path, _WEIGHTS_FILE), entries)
-        else:
-            _save_sharded(path, entries, max_shard_bytes)
-        with open(os.path.join(path, _META_FILE), "w") as f:
-            json.dump({"step": step, "format_version": 1,
-                       "framework": "hetu_tpu_torch",
-                       "quantized": quantized}, f)
+        with telemetry.span("checkpoint_write", background=async_save):
+            entries, quantized = tensors()
+            entries = {k: _entry(v) for k, v in entries.items()}
+            os.makedirs(path, exist_ok=True)
+            if max_shard_bytes is None:
+                save_tensors(os.path.join(path, _WEIGHTS_FILE), entries)
+            else:
+                _save_sharded(path, entries, max_shard_bytes)
+            with open(os.path.join(path, _META_FILE), "w") as f:
+                json.dump({"step": step, "format_version": 1,
+                           "framework": "hetu_tpu_torch",
+                           "quantized": quantized}, f)
         writer.nbytes = sum(e.nbytes for e in entries.values())
         writer.write_seconds = time.perf_counter() - t1
+        if telemetry.enabled():
+            telemetry.get_registry().histogram(
+                "checkpoint_write_seconds",
+                "checkpoint file-write latency").observe(
+                    writer.write_seconds,
+                    mode="async" if async_save else "sync")
 
     if not async_save:
         write()

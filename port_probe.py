@@ -7,6 +7,9 @@ beside ``chip_smoke.py``, whose phase functions they run:
     python3 port_probe.py steps OLD NEW     # step times of two trees
     python3 port_probe.py serve OLD NEW     # serving bursts of two trees
     python3 port_probe.py int8              # torch._int_mm's rows, layouts
+    python3 port_probe.py pools             # a Trainer's shared graph pool
+    python3 port_probe.py oracle            # the teacher-forced oracle's cost
+    python3 port_probe.py noise             # bf16 engine and oracle vs fp32
 
 ``kernels`` builds every kernel, prints the ``ptxas`` report of the
 tensor-core instances and runs ``phase_kernels``, ``phase_train_kernels``
@@ -50,6 +53,33 @@ at 16-80 rows with the weight column-major (an ``(out, in)`` tensor's
 ``.t()``, as the lane passes it) and row-major, beside bf16
 ``F.linear``, each call after an L2-evicting write.
 
+``pools`` builds ``llama_train_buckets``' Trainer (Llama-7B width, 2
+layers, buckets 512 / 1,024 / 2,048) twice and captures the three
+buckets in ascending, then in descending order: each bucket's graph
+bytes in the trainer's one pool, the reserved bytes after training and
+what ``Trainer.close()`` gives back.
+
+``oracle`` serves 16 of ``llama_workload``'s burst prompts (64 new
+tokens each) on the served Llama (all 32 layers, bf16, int8 arena) and
+runs ``chip_smoke.oracle`` over them one request a call
+(``ORACLE_ROWS = 1``, the oracle before it batched) and 16 a call:
+seconds each, and both readings.
+
+``noise`` serves three traffic sets on the served Llama (all 32
+layers, bf16, int8 arena): ``chip_smoke.py``'s ``TTFT_WAVES`` of fresh
+short prompts (16-256 tokens, 16 new tokens, one wave then the next),
+the burst's 24 shortest prompts alone (16 new tokens) and llama_engine's
+traffic (``serve``, 64 new tokens). Each set's recorded first-token
+logits and greedy tokens are read against three teacher-forced oracles
+over the dense int8 cache: the bf16 one 16 requests a call (the
+script's), the bf16 one a request a call, and the same bf16 weights
+computed in fp32 (``FP32`` casts them exactly). It prints, per set, the
+largest first-token |dlogit| of the engine and of each bf16 oracle
+against the fp32 one and against each other, the shortfall of the
+engine's tokens under the fp32 oracle, and the requests where the
+engine is farther from fp32 than the bf16 oracle is: whether the engine
+sits within bf16's own reach of the exact arithmetic.
+
 Each line of output is one JSON object, as ``chip_smoke.py`` prints them.
 Without a CUDA device it exits nonzero at once.
 """
@@ -64,6 +94,7 @@ import sys
 import time
 import traceback
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -306,6 +337,188 @@ def int8() -> int:
     return 0
 
 
+def pools() -> int:
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    from hetu_tpu_torch import optim
+    from hetu_tpu_torch.engine import StepCache, Trainer, TrainerConfig
+    from hetu_tpu_torch.models import LlamaLMHeadModel
+    from hetu_tpu_torch.ops import _build
+    from hetu_tpu_torch.parallel import Strategy
+    _build.build()
+    dev = torch.device("cuda", 0)
+    cs.emit(phase="device", nvidia_smi=cs.nvidia_smi())
+    cfg = cs.llama_train_cfg()
+    batches = cs.ragged_llama_batches(cfg.vocab_size, 3, cs.SEED + 7)
+    for order in ((0, 1, 2), (2, 1, 0)):
+        cs.release()
+        r0 = torch.cuda.memory_reserved()
+        model = LlamaLMHeadModel(cfg, device=dev, seed=cs.SEED)
+        tr = Trainer(model, optim.chain(optim.clip_by_global_norm(1.0),
+                                        optim.adamw(1e-4)),
+                     Strategy(remat="selective", unroll=True), device=dev,
+                     step_cache=StepCache(),
+                     config=TrainerConfig(precision="bf16", log_every=0,
+                                          prefetch=0,
+                                          seq_buckets=cs.LLAMA_BUCKETS))
+        tr.initialize()
+        for j in order:
+            tr.train_step(batches[j])
+        graphs = {b: pb for b, (c, pb) in tr.captures().items() if c}
+        cs.release()
+        r1 = torch.cuda.memory_reserved()
+        tr.close()
+        cs.release()
+        cs.emit(phase="pools", order=[cs.LLAMA_BUCKETS[j] for j in order],
+                graph_bytes={str(b): graphs[b] for b in
+                             (cs.LLAMA_BUCKETS[j] for j in order)},
+                pool_bytes=sum(graphs.values()), reserved_trained=r1 - r0,
+                freed_by_close=r1 - torch.cuda.memory_reserved())
+        del tr, model
+    return 0
+
+
+def oracle() -> int:
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    from hetu_tpu_torch.core import BF16_FULL, autocast
+    from hetu_tpu_torch.models import LlamaConfig, LlamaLMHeadModel
+    from hetu_tpu_torch.ops import _build
+    from hetu_tpu_torch.serving import SamplingParams, ServingEngine
+    _build.build()
+    dev = torch.device("cuda", 0)
+    cs.emit(phase="device", nvidia_smi=cs.nvidia_smi())
+    cfg = LlamaConfig.llama_7b()
+    model = LlamaLMHeadModel(cfg, device=dev, dtype=torch.bfloat16,
+                             seed=cs.SEED)
+    burst, _ = cs.llama_workload(cfg.vocab_size)
+    with autocast(BF16_FULL):
+        eng = ServingEngine(model, slots=cs.LLAMA_SLOTS,
+                            max_len=cs.LLAMA_MAX_LEN,
+                            prefill_chunk=cs.LLAMA_CHUNK,
+                            block_size=cs.LLAMA_BLOCK,
+                            cache_dtype=torch.int8, seed=cs.SEED,
+                            device=dev, record_first_logits=True)
+        reqs = [eng.submit(p, SamplingParams(max_tokens=64))
+                for p in burst[:16]]
+        eng.run_until_drained()
+        for rows in (1, cs.ORACLE_ROWS):
+            cs.ORACLE_ROWS = rows
+            got = cs.oracle(model, reqs, 64, cfg.vocab_size)
+            cs.emit(phase="oracle", rows_a_call=rows, **got)
+    return 0
+
+
+def noise() -> int:
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    from hetu_tpu_torch.core import BF16_FULL, FP32, autocast
+    from hetu_tpu_torch.models import LlamaConfig, LlamaLMHeadModel
+    from hetu_tpu_torch.ops import _build
+    from hetu_tpu_torch.serving import SamplingParams, ServingEngine
+    _build.build()
+    dev = torch.device("cuda", 0)
+    cs.emit(phase="device", nvidia_smi=cs.nvidia_smi())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig.llama_7b()
+    vocab = cfg.vocab_size
+    model = LlamaLMHeadModel(cfg, device=dev, dtype=torch.bfloat16,
+                             seed=cs.SEED).eval()
+    burst, shared = cs.llama_workload(vocab)
+    rng = np.random.default_rng(cs.SEED + 21)
+    waves = [[rng.integers(0, vocab, int(n)).tolist()
+              for n in rng.integers(16, 257, k)] for k in cs.TTFT_WAVES]
+    shortest = sorted(burst, key=len)[:24]
+
+    def engine():
+        return ServingEngine(model, slots=cs.LLAMA_SLOTS,
+                             max_len=cs.LLAMA_MAX_LEN,
+                             prefill_chunk=cs.LLAMA_CHUNK,
+                             block_size=cs.LLAMA_BLOCK,
+                             cache_dtype=torch.int8, seed=cs.SEED,
+                             device=dev, record_first_logits=True)
+
+    def forced(reqs, rows):
+        out = {}
+        for i in range(0, len(reqs), rows):
+            batch = reqs[i:i + rows]
+            got = cs.forced_logits_rows(
+                model, [r.prompt.tolist() for r in batch],
+                [list(r.tokens) for r in batch], torch.int8)
+            out.update((r.id, lg) for r, lg in zip(batch, got))
+        return out
+
+    def shortfall(logits, tokens):
+        idx = torch.tensor(tokens, device=logits.device)[:, None]
+        return float((logits.max(-1).values
+                      - logits.gather(1, idx)[:, 0]).max())
+
+    with autocast(BF16_FULL):
+        eng = engine()
+        eng.generate_many([burst[0][:300]], SamplingParams(max_tokens=3))
+    sets = {}
+    with autocast(BF16_FULL):
+        eng = engine()
+        got = []
+        for w in waves:
+            got += [eng.submit(p, SamplingParams(max_tokens=16)) for p in w]
+            eng.run_until_drained()
+        sets["fresh_waves"] = (got, 16)
+        eng = engine()
+        got = [eng.submit(p, SamplingParams(max_tokens=16))
+               for p in shortest]
+        eng.run_until_drained()
+        sets["burst_24_shortest"] = (got, 16)
+        eng = engine()
+        run = cs.serve(eng, burst, shared, SamplingParams(max_tokens=64))
+        sets["llama_engine"] = (run["reqs"] + run["reqs2"], 64)
+        del eng, run
+    for name, (reqs, new) in sets.items():
+        t0 = time.perf_counter()
+        with autocast(BF16_FULL):
+            reading = cs.oracle(model, reqs, new, vocab)
+            b16 = forced(reqs, cs.ORACLE_ROWS)
+            b1 = forced(reqs, 1)
+        with autocast(FP32):
+            f32 = forced(reqs, cs.ORACLE_ROWS)
+        rows = []
+        for r in reqs:
+            e = r.first_logits.float()
+            rows.append(dict(
+                prompt=len(r.prompt),
+                eng_fp32=cs.max_err(e, f32[r.id][0]),
+                orc16_fp32=cs.max_err(b16[r.id][0], f32[r.id][0]),
+                orc1_fp32=cs.max_err(b1[r.id][0], f32[r.id][0]),
+                eng_orc16=cs.max_err(e, b16[r.id][0]),
+                orc1_orc16=cs.max_err(b1[r.id][0], b16[r.id][0]),
+                eng_short_fp32=shortfall(f32[r.id], list(r.tokens)),
+                orc16_short_fp32=shortfall(
+                    f32[r.id], b16[r.id].argmax(-1).tolist())))
+        worst = {k: max(x[k] for x in rows) for k in rows[0]
+                 if k != "prompt"}
+        farther = [dict(prompt=x["prompt"],
+                        eng_fp32=round(x["eng_fp32"], 4),
+                        orc16_fp32=round(x["orc16_fp32"], 4))
+                   for x in rows
+                   if x["eng_fp32"] > max(x["orc16_fp32"],
+                                          x["orc1_fp32"])]
+        top = sorted(rows, key=lambda x: -x["eng_orc16"])[:6]
+        cs.emit(phase="noise", traffic=name, requests=len(reqs),
+                new_tokens=new, reading=reading, worst=worst,
+                engine_farther_from_fp32_than_both_oracles=len(farther),
+                farther=farther[:8],
+                top_eng_orc16=[{k: (round(v, 4) if isinstance(v, float)
+                                    else v) for k, v in x.items()}
+                               for x in top],
+                fp32_first_logit_std=float(np.mean(
+                    [float(f32[r.id][0].std()) for r in reqs])),
+                seconds=time.perf_counter() - t0)
+        del b16, b1, f32
+        gc.collect()
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("port_probe: no CUDA device is available", file=sys.stderr)
@@ -316,6 +529,12 @@ def main(argv) -> int:
         return fused()
     if argv[:1] == ["int8"] and len(argv) == 1:
         return int8()
+    if argv[:1] == ["pools"] and len(argv) == 1:
+        return pools()
+    if argv[:1] == ["oracle"] and len(argv) == 1:
+        return oracle()
+    if argv[:1] == ["noise"] and len(argv) == 1:
+        return noise()
     if argv[:1] in (["steps"], ["serve"]) and len(argv) == 3:
         return in_turns(argv[0], argv[1], argv[2])
     if argv[:1] == ["steps-of"] and len(argv) == 3:

@@ -37,8 +37,8 @@ from hetu_tpu.parallel.strategy import Strategy as JaxStrategy
 from hetu_tpu_torch import optim
 from hetu_tpu_torch.engine import (
     CachedStep, StepCache, Trainer, TrainerConfig, build_eval_step,
-    build_train_step, compile_strategy, get_step_cache, init_state,
-    make_plan, trace_counts,
+    build_grad_accum_steps, build_train_step, compile_strategy,
+    get_step_cache, init_state, make_plan, trace_counts,
 )
 from hetu_tpu_torch.models import (
     GPTConfig, GPTLMHeadModel, LlamaConfig, LlamaLMHeadModel,
@@ -386,3 +386,117 @@ def test_eval_step_is_captured_once_and_equals_its_body():
         batch = {k: torch.from_numpy(v) for k, v in _batch(i).items()}
         assert torch.equal(ev(batch), ev.body(batch))
     assert trace_counts()["eval_step"] - before == 1
+
+
+# -- the graphs' lifetime: one shared pool an entry, released --------------------
+
+def _live(refs):
+    """How many of the weakly referenced ``StepGraph``s are alive."""
+    import gc
+    gc.collect()
+    return sum(r() is not None for r in refs)
+
+
+def _graph_refs(*entries):
+    import weakref
+    return [weakref.ref(g) for e in entries
+            for fn in (e.step_fn, e.eval_fn) if fn is not None
+            for g, _ in fn.entry.graphs.values()]
+
+
+def _bucketed(cache, **kw):
+    return Trainer(_tiny_gpt(), optim.adamw(1e-3), Strategy(), device="cpu",
+                   step_cache=cache,
+                   config=TrainerConfig(precision="fp32", prefetch=0,
+                                        seq_buckets=(16, 32), **kw))
+
+
+def _widths(*ws):
+    return [_batch(i, s=w) for i, w in enumerate(ws)]
+
+
+@pytest.mark.parametrize("how", ["evict", "clear", "close"])
+def test_released_entries_leave_no_graph_alive(how):
+    """An evicted entry, a cleared cache and a closed Trainer each drop
+    their ``StepGraph``s (and with them the pools); a caller still
+    holding an entry captures again at its next call."""
+    cache = StepCache(capacity=2 if how == "evict" else 8)
+    tr = _bucketed(cache)
+    for b in _widths(12, 30, 9):
+        tr.train_step(b)
+    entries = [tr._bucket_entries[16], tr._bucket_entries[32]]
+    refs = _graph_refs(*entries)
+    assert len(refs) == 2 and _live(refs) == 2
+    if how == "evict":
+        # a third key evicts the oldest: the base entry, then bucket 16
+        _bucketed(cache)
+        cache.get_or_build(("other",), lambda: compile_strategy(
+            _tiny_gpt(), optim.adamw(1e-3), Strategy(), device="cpu"))
+        assert cache.evictions >= 2 and _live(refs[:1]) == 0
+    elif how == "clear":
+        cache.clear()
+        assert _live(refs) == 0
+    else:
+        tr.close()
+        assert _live(refs) == 0 and len(cache) == 0
+        before = trace_counts().get("train_step", 0)
+        tr.train_step(_batch(0, s=12))          # captures again
+        assert trace_counts().get("train_step", 0) == before + 1
+
+
+def test_a_second_trainer_does_not_keep_the_first_ones_graphs():
+    cache = StepCache()
+    first = _bucketed(cache)
+    for b in _widths(12, 30):
+        first.train_step(b)
+    refs = _graph_refs(*first._bucket_entries.values())
+    assert _live(refs) == 2
+    del first                                   # dropped, never closed
+    second = _bucketed(cache)
+    second.train_step(_batch(0, s=12))
+    assert _live(refs) == 0
+    assert len(cache) == 2                      # the second's entries only
+    assert len(_graph_refs(*second._bucket_entries.values())) == 1
+
+
+def test_static_outputs_survive_a_replay_of_another_signature():
+    """Each signature's outputs are its own buffers, made before its
+    capture: a replay of another signature of the same entry (sharing
+    its pool) leaves them as they were."""
+    model = _tiny_gpt()
+    opt = optim.adamw(1e-3)
+    plan = make_plan(model, opt, Strategy(), device="cpu")
+    state = init_state(model, opt, plan)
+    step = build_train_step(model, opt, plan)
+    t = lambda b: {k: torch.from_numpy(v) for k, v in b.items()}
+    state, a = step(state, t(_batch(0, s=16)))
+    state, b = step(state, t(_batch(1, s=32)))
+    la = float(a["loss"])
+    state, b = step(state, t(_batch(2, s=32)))  # a replay of the other
+    assert float(a["loss"]) == la
+    assert a["loss"].data_ptr() != b["loss"].data_ptr()
+    outs = [g.outputs for g, _ in step.entry.graphs.values()]
+    assert len(outs) == 2 and all(len(o) == 2 for o in outs)
+    step.entry.release()
+    assert step.entry.graphs == {}
+
+
+def test_a_trainers_entries_share_one_pool():
+    """Every entry a Trainer builds (each bucket's step and eval)
+    captures into the trainer's one pool; split-phase steps share one
+    too; a step built alone has its own."""
+    tr = _bucketed(StepCache())
+    for b in _widths(12, 30):
+        tr.train_step(b)
+    entries = [tr._bucket_entries[16], tr._bucket_entries[32],
+               tr._entry(0)]
+    pools = {id(fn.entry.pool) for e in entries
+             for fn in (e.step_fn, e.eval_fn)}
+    assert pools == {id(tr._pool)}
+    model = _tiny_gpt()
+    opt = optim.adamw(1e-3)
+    plan = make_plan(model, opt, Strategy(), device="cpu")
+    _init, grad_step, apply_step = build_grad_accum_steps(model, opt, plan)
+    assert grad_step.entry.pool is apply_step.entry.pool
+    alone = build_train_step(model, opt, plan)
+    assert alone.entry.pool is not grad_step.entry.pool
