@@ -960,8 +960,10 @@ LANE_SYMBOLS = {"flash_fwd": {"tensor_core": "flash_fwd_tc_kernel",
 #: the fused CE kernels' lanes (``ops.fused_ce_lane``)
 FUSED_LANES = ("tensor_core (bf16 h: forward, dH and dW; dH and dW on a "
                "2-CTA cluster); cuda_core (fp32 h); past E = 768 each "
-               "_wide (E in 64-column chunks; dH and dW split E into "
-               "512-column blocks on a grid axis)")
+               "_wide (E in 64-column chunks; the tensor-core dH and dW "
+               "split E across a cluster of up to 8 CTAs that share one "
+               "logits tile, E-groups past 4,096 columns; the CUDA-core "
+               "ones split E into 512-column blocks on a grid axis)")
 #: the tensor-core instances of #5-#7 that ``ptxas`` must report, by a
 #: piece of their mangled names (a name in an anonymous namespace ends in
 #: E, a template's arguments are I...E; dW's second argument is w's type)
@@ -2366,7 +2368,8 @@ def run_fused(ops, h, w, lab, glse, gtgt):
 #: the wide lanes' cases: (case, N, V, E), ragged N and V
 WIDE_CASES = (("wide_832", 333, 1013, 832),
               ("wide_4096", 1000, 32003, 4096),
-              ("wide_5120", 333, 5003, 5120))
+              ("wide_5120", 333, 5003, 5120),
+              ("wide_8192", 333, 5003, 8192))
 
 
 def phase_fused_kernels(device, ops):
@@ -2381,9 +2384,13 @@ def phase_fused_kernels(device, ops):
     bit-equal (no atomics: the cluster's CTAs sum their partial logits
     in rank order); then the w cast of the bf16-h lane
     (:func:`check_w_cast`). Then the wide lanes (``WIDE_CASES``): E =
-    832 (the first width past 768: a second E block of 5 chunks), 4,096
-    (Llama-7B's) and 5,120 (Llama-13B's), ragged N and V. Returns the
-    summary entries (without times and launches)."""
+    832 (the first width past 768: a 2-CTA cluster of 7 and 6 chunks),
+    4,096 (Llama-7B's: 8 CTAs of 8 chunks), 5,120 (Llama-13B's) and 8,192
+    (Llama-2-70B's; both past 4,096 columns: two E-groups each computing
+    the same logits), ragged N and V. The wide tensor-core dH and dW
+    summaries record each width's plan as the library reports it
+    (:func:`wide_plans`). Returns the summary entries (without times and
+    launches)."""
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     errs = {k: {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0} for k in FUSED}
     for case, n, vocab, e in (("vocab_50257", 333, 50257, 768),
@@ -2422,7 +2429,31 @@ def phase_fused_kernels(device, ops):
             source="hetu_tpu_torch/csrc/fused_ce.cu",
             replaces=f"hetu_tpu/ops/fused_ce_pallas.py:{line}",
             **errs[kernel])
+    for kernel, plans in wide_plans([e for *_, e in WIDE_CASES]).items():
+        results[kernel]["tensor_core_wide_plan"] = plans
     return results
+
+
+def wide_plans(widths) -> dict:
+    """The wide tensor-core dH and dW plans at each width, as the built
+    library reports them (``ops.fused_ce.wide_info``: cluster size, E
+    chunks of the logits a CTA sums, E-groups, which is how many times
+    the logits are computed, and ``cudaOccupancyMaxActiveClusters``),
+    held to the rule the port states (``ops.fused_ce.wide_plan``)."""
+    from hetu_tpu_torch.ops.fused_ce import wide_info, wide_plan
+    out = {}
+    for kernel in ("fused_ce_dh", "fused_ce_dw"):
+        out[kernel] = {}
+        for e in widths:
+            info = wide_info(e, kernel[-2:])
+            want = dict(zip(("cluster", "slice_chunks", "groups"),
+                            wide_plan(e)))
+            check({k: info[k] for k in want} == want and
+                  info["max_active_clusters"] > 0,
+                  f"{kernel} wide plan at E = {e}: {info}, rule {want}")
+            out[kernel][str(e)] = dict(info, recompute=info["groups"])
+        emit(phase="wide_plan", kernel=kernel, plans=out[kernel])
+    return out
 
 
 def phase_train_fused(device, card):

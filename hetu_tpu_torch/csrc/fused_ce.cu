@@ -75,13 +75,16 @@
 //
 // The wide lanes (E past kMaxE, any multiple of 64, on both lanes): the
 // forward's tensor-core kernel already streams E and serves them as it
-// is; the CUDA-core forward and all four backward kernels stream E in
-// 64-column k-chunks, and dh / dw split E across a grid axis, each block
+// is; the CUDA-core forward and backward kernels stream E in 64-column
+// k-chunks, their dh / dw splitting E across a grid axis, each block
 // recomputing the logits over the whole of E for its 512 output columns
-// (fused_ce_fwd_wide_kernel, fused_ce_bwd_wide_body,
-// fused_ce_bwd_wide_tc_body, below).
+// (fused_ce_fwd_wide_kernel, fused_ce_bwd_wide_body). The tensor-core dh
+// and dw (fused_ce_bwd_wide_tc_body) split E across the CTAs of a cluster
+// of up to 8 instead, which sum the logits once and share them through
+// distributed shared memory, on wgmma.
 
 #include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap (the driver is reached by entry point)
 
 #include <type_traits>
 
@@ -1540,281 +1543,740 @@ int launch_dw_tc(const void* h, const void* w, const void* labels,
 
 // ---- the wide lanes (E > kMaxE): dh and dw on the tensor cores --------------
 //
-// fused_ce_dh_wide_tc_kernel and fused_ce_dw_wide_tc_kernel<TO>, one body,
+// fused_ce_dh_wide_tc_kernel (#6, replaces fused_ce_pallas.py:112
+// _dh_kernel, called at :234) and fused_ce_dw_wide_tc_kernel<TO> (#7,
+// replaces :134 _dw_kernel, called at :252), one body,
 // fused_ce_bwd_wide_tc_body<kDW, TO>, with X, Y and P as in
-// fused_ce_bwd_tc_body. One CTA (no cluster) owns kWRows = 64 rows of X
-// and the kWideSlice = 512 output columns [512 y, 512 y + 512) of them
-// (blockIdx.y); the grid's y axis splits E, so the call stays one launch.
-//   - Per Y tile of 64 rows, s (64 x 64) is summed over the whole of E:
-//     X's and Y's 64-column k-chunks stream in order through a 4-stage
-//     cp.async ring (16 KB a stage), three chunks ahead of the products,
-//     and warp (sr, sc) accumulates rows 32 sr.., columns 16 sc.. (2 A
-//     and one B pair of ldmatrix fragments a k16 step for 4 products).
-//     The chunks on this CTA's slice land in the slice buffer (8 chunks,
-//     64 KB) instead of the ring, and the product reads them there. The
-//     ring does not run ahead across a tile: every tile starts with a
-//     barrier, so the slice buffer and P are free.
-//   - P = glse exp(s - lse) + gtgt onehot, 0 past V, rounded to bf16 (as
-//     fused_ce_bwd_tc_body forms it; exp is __expf), into a swizzled tile.
-//   - out[rows, slice] += P Y[:, slice] on mma.sync: warp (sr, pc) owns
-//     rows 32 sr.. and slice columns 128 pc.. (2 x 16 m16n8 tiles, 128
-//     fp32 accumulators a thread).
-//   - Each k-chunk's products are summed from zero and added into s once
-//     a chunk (rounded to nearest), as the wide forward does: the tensor
-//     cores' own sum over E / 16 steps drifts with E, and P, rounded to
-//     bf16 from s, turns that drift into flipped P entries (dh and dw at
-//     E = 5120 stood 2.3x fused_grad_bound from the plain versions'
-//     without it).
-//   - X and Y are bf16 (an fp32 w is cast once by the wrapper: it is
-//     re-read for every (tile, slice) here); out is in TO, dw in w's
-//     dtype.
-// Every s is one CTA's sum in one order, and every output element is
-// summed over the Y tiles in order: no atomics, reruns are bit-equal.
-// Cost: (E / 512 + 1) 2nVE flops, 4.5x the 4nVE bound at E = 4096, and X
-// and Y are re-read from L2 for every (tile, slice): at the Llama training
-// shape (n 8192, V 32000, E 4096) about 0.5 TB a call. Sharing s across
-// the CTAs of a cluster (distributed shared memory) removes the recompute.
-constexpr int kWRows = 64;
-constexpr int kWTile = 64;
-constexpr int kWStages = 4;
-constexpr int kWSliceChunks = kWideSlice / kChunk;  // 8
+// fused_ce_bwd_tc_body: dh = P w (X = h, Y = w), dw = P^T h (X = w, Y =
+// h), P = glse exp(s - lse) + gtgt onehot from fp32 s, 0 at a vocab index
+// >= V, rounded to bf16 (__expf). X and Y are bf16 (an fp32 w is cast
+// once by the wrapper); out is bf16 for dh and TO (w's dtype) for dw.
+//
+// Bound: operations, 4 n V E (s and P Y once each), 4.343 ms at the Llama
+// training shape (n 8192, V 32000, E 4096) on 989 TFLOP/s.
+//
+// A cluster of C CTAs (thread-block cluster, distributed shared memory)
+// owns 64 rows of X and shares one s. C and the slice are picked at
+// launch from E (wide_plan): C = 2, 4 or 8, the least that gives each CTA
+// at most 8 of the E / 64 chunks; CTA r owns chunks [r p, r p + p), p =
+// ceil(E / 64 / C) (E = 4096: C = 8, 512 columns a CTA; E = 832: C = 2,
+// 7 and 6 chunks).
+//   - X[rows, slice r] (64 KB at most) is loaded once and stays resident;
+//     Y streams in 64-row tiles through two tile buffers (128 KB), CTA r
+//     copying only Y[tile, slice r]: the same bytes feed its partial s_r
+//     = X[:, slice] Y[tile, slice]^T and then its out[:, slice] += P
+//     Y[tile, slice]. A cluster reads each Y tile once: L2 traffic is
+//     (n / 64) V E 2 bytes for dh and (V / 64) n E 2 for dw, 33.5 GB each
+//     at the Llama shape (about 0.5 TB when each 512-column block
+//     recomputed s), and s is computed once per (row block, Y tile).
+//   - Warp specialization: two consumer warpgroups run the products; a
+//     third, the exchange warpgroup, reduces this CTA's band of the
+//     partials, sends its P rows and issues every copy, so the exchange
+//     runs beside the products. setmaxnreg gives the consumers 224
+//     registers each and the exchange warpgroup 48. The role is chosen
+//     on the warpgroup index taken through a shuffle: in a branch ptxas
+//     cannot prove warpgroup-uniform it serializes the wgmma (warning
+//     C7520), which ran slower on the card.
+//   - Copies by TMA (cp.async.bulk.tensor, 64 x 64 boxes in the 128-byte
+//     swizzle, rows past the tensor zero-filled), each chunk on its own
+//     mbarrier, so the s product takes a chunk as soon as it lands; tile
+//     j + 2's copies go out once all 8 consumer warps have arrived on an
+//     mbarrier after tile j's P Y.
+//   - Both products run on wgmma from shared memory, every operand a
+//     64 x 64 bf16 tile (swz<64>, 1024-byte aligned): warpgroup wg sums
+//     s_r[:, 32 wg..] with m64n32k16 (A = X, B = Y, both K-major), each
+//     64-column chunk from zero into its own accumulator, two chunks in
+//     flight at a time, and then added into s in chunk order: the tensor
+//     cores' own fp32 sum over E / 16 steps put dh 2.3x outside
+//     fused_grad_bound at E = 5120. (Issuing chunk q + 2 as soon as chunk
+//     q was added, behind a wgmma.fence, ran slower than pairs on the
+//     card.) Then out[:, 256 wg..] += P Y[tile, slice] with m64n256k16 (B
+//     MN-major): 128 fp32 accumulators a thread over the 2 consumer
+//     warpgroups.
+//   - The exchange, nothing atomic, no cluster-wide barrier in the loop:
+//     (A) each CTA sends band q (64 / C rows) of its partial s_r to CTA q
+//     by st.async (in wgmma fragment order), counted on q's mbarrier;
+//     (B) CTA q's exchange warpgroup sums the C partials of each element
+//     of its band in rank order 0..C-1, forms P, rounds it to bf16 into
+//     its rows of the P tile and sends those rows (one contiguous run) to
+//     every peer by one bulk copy each, counted on the peer's mbarrier;
+//     its own rows count as the arrival of that phase, made only once
+//     the phase before is over. Every CTA then holds the same P, formed
+//     once per element; reruns are bit-equal. Each CTA waits only for the
+//     bytes it needs (16 KB of partials, then the peers' P rows). One
+//     slot of each kind suffices: a CTA sends tile j + 1's partials only
+//     once it holds all of tile j's P, which every owner sends after
+//     reading tile j's partials, and an owner sends tile j + 1's P only
+//     once it holds every peer's tile j + 1 partials, which each peer
+//     sends after its P Y of tile j.
+//   - The next tile's s is split in chunk order (same order, same bits):
+//     its first half runs while tile j's partials travel, its second
+//     after tile j's P Y, while tile j + 2's copies land.
+//   - Past C 512 = 4096 columns (E = 5120, Llama-70B's 8192) the E-group
+//     path: C = 8, each CTA's s slice is p = ceil(E / 512) chunks, and a
+//     grid axis of ceil(p / 8) E-groups each outputs 8 of them; every
+//     group computes the same s (the recompute factor is the number of
+//     groups, ceil(E / 4096)), streaming X and Y chunk by chunk through a
+//     2-stage cp.async ring, the Y chunks of its output slice into the
+//     tile buffer.
+//   - Shared memory: X or the ring 64 KB, two Y tiles 128 KB, the partials
+//     received 16 KB, P 8 KB, token statistics 2 KB, 20 mbarriers: 218 KB,
+//     one CTA of 384 threads an SM. A call is one launch
+//     (cudaLaunchKernelEx with a cluster dimension attribute);
+//     hetu_fused_ce_wide_info reports C, p, the groups and
+//     cudaOccupancyMaxActiveClusters (15 clusters of 8 on an H100 SXM:
+//     120 of its 132 SMs).
+constexpr int kWRows = 64;   // X rows per cluster
+constexpr int kWTile = 64;   // Y rows per streamed tile
+constexpr int kWSlice = kWideSlice / kChunk;  // output chunks a CTA: 8
+constexpr int kWMaxCluster = 8;
+constexpr int kWTileElems = 64 * kChunk;      // one 64 x 64 bf16 tile
+constexpr int kWTileBytes = kWTileElems * 2;  // 8 KB
+// shared memory, bytes from a 1024-byte aligned base
+constexpr int kWOffX = 0;  // X's slice, or the E-group path's ring
+constexpr int kWOffY = kWOffX + kWSlice * kWTileBytes;             // 2 tiles
+constexpr int kWOffRecv = kWOffY + 2 * kWSlice * kWTileBytes;      // fp32 s
+constexpr int kWOffP = kWOffRecv + kWRows * kWTile * 4;            // bf16 P
+constexpr int kWOffStats = kWOffP + kWRows * kWTile * 2;           // 2 x 1 KB
+constexpr int kWOffBar = kWOffStats + 2 * 4 * kWTile * 4;  // mbarriers
+constexpr size_t kWSmem = kWOffBar + (4 + 2 * kWSlice) * 8 + 1024;  // + align
+// threads: two consumer warpgroups and the exchange warpgroup, whose
+// registers setmaxnreg moves to the consumers (224 x 256 + 48 x 128 of
+// the SM's 65,536; 216 and 72 ran no faster); named barriers of each
+// role (0 is __syncthreads)
+constexpr int kWConsumers = 256;
+constexpr int kWThreads = kWConsumers + 128;
+constexpr int kWConsumerRegs = 224;
+constexpr int kWExchangeRegs = 48;
+constexpr int kWConsumerBar = 1;
+constexpr int kWExchangeBar = 2;
 
-__host__ __device__ constexpr size_t bwd_wide_tc_smem(bool dw) {
-  return (size_t)kWStages * (kWRows + kWTile) * kChunk * sizeof(bf16) +
-         (size_t)kWSliceChunks * kWTile * kChunk * sizeof(bf16) +
-         (size_t)kWRows * kWTile * sizeof(bf16) +
-         (dw ? (size_t)4 * kWTile * sizeof(float)
-             : (size_t)4 * kWRows * sizeof(float));
+struct WidePlan {
+  int C;       // cluster size
+  int per;     // E chunks of s a CTA sums
+  int groups;  // E-groups (grid y): each recomputes s
+};
+
+__host__ __device__ inline WidePlan wide_plan(int E) {
+  const int kc = E / kChunk;
+  int C = 2;
+  while (C < kWMaxCluster && C * kWSlice < kc) C *= 2;
+  const int per = (kc + C - 1) / C;
+  return {C, per, (per + kWSlice - 1) / kWSlice};
 }
 
+// ---- wgmma (sm_90a): operands in shared memory by descriptor --------------
+// A descriptor of a 128-byte swizzled operand: start address, leading and
+// stride byte offsets (16-byte units), layout 1 (128-byte swizzle). K-major
+// (rows of 64 bf16 along K): 8-row groups 1024 bytes apart, the next k16
+// step 32 bytes on. MN-major (rows of 64 bf16 along N, one per k): the
+// next 8 k 1024 bytes on, the next 64 columns `lbo` bytes on.
+__device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t lbo,
+                                            uint32_t sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from touching an accumulator across a wgmma wait
+__device__ __forceinline__ void wg_pin(float& x) {
+  asm volatile("" : "+f"(x)::"memory");
+}
+// this thread's generic-proxy writes to its CTA's shared memory (cp.async,
+// st.shared) made visible to the async proxy (wgmma, bulk copies)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- mbarriers and distributed shared memory (sm_90) -----------------------
+// the shared::cluster address of shared::cta address `addr` in CTA `rank`
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+// this thread's arrival on the current phase, which then also waits for
+// `bytes` of data (signalled by st.async or a bulk copy)
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+// until the phase of this parity has completed; what peers of the cluster
+// wrote into it is visible after
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// one arrival on this CTA's mbarrier
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// a barrier of `count` threads (a multiple of 32), named `id` (1..15)
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+// 8 bytes into a CTA of the cluster (`addr`, `bar` from mapa), counted on
+// its mbarrier; the writer does not wait
+__device__ __forceinline__ void st_async2(uint32_t addr, float a, float b,
+                                          uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], "
+      "{%1, %2}, [%3];\n" ::"r"(addr),
+      "f"(a), "f"(b), "r"(bar)
+      : "memory");
+}
+// a 64 x 64 bf16 box of a 2-D tensor map at (column c0, row r0) into
+// shared memory, in the map's 128-byte swizzle (rows past the tensor
+// zero-filled), counted on this CTA's mbarrier `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int r0, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0), "r"(bar)
+      : "memory");
+}
+// `bytes` of this CTA's shared memory from `src` to `dst` in another CTA
+// of the cluster, counted on its mbarrier `bar`
+__device__ __forceinline__ void bulk_to_peer(uint32_t dst, uint32_t src,
+                                             uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::"
+      "bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// d (64 x 32 fp32) = or += A (64 x 16, K-major) B (16 x 32, K-major);
+// scale_d 0 starts from zero. Thread (warp w of the warpgroup, lane g t)
+// holds d[4 j + e] at row 16 w + g + 8 (e >> 1), column 8 j + 2 t + (e & 1).
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t a,
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 256 fp32) = or += A (64 x 16, K-major) B (16 x 256, MN-major),
+// the same fragment layout over 32 column blocks of 8
+__device__ __forceinline__ void wgmma_n256_tb(float (&d)[128], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
+      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// x (n_x, E) and y (n_y, E) bf16; out (n_x, E) in TO. dh: x = h, y = w;
+// dw: x = w, y = h. Warpgroups 0 and 1 run the products (consumers);
+// warpgroup 2 reduces this CTA's band of the partials, sends its P rows
+// and issues the copies (the exchange warpgroup).
 template <bool kDW, typename TO>
 __device__ __forceinline__ void fused_ce_bwd_wide_tc_body(
+    const CUtensorMap* tmx, const CUtensorMap* tmy,
     const bf16* __restrict__ x, const bf16* __restrict__ y,
     const int* __restrict__ labels, const float* __restrict__ lse,
     const float* __restrict__ glse, const float* __restrict__ gtgt,
     TO* __restrict__ out, int n, int vocab, int E) {
-  constexpr int kTile = kWTile * kChunk;     // elements of one Y chunk
-  constexpr int kStage = (kWRows + kWTile) * kChunk;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);     // stages x (X, Y)
-  bf16* ysl = ring + kWStages * kStage;               // slice chunks of Y
-  bf16* ps = ysl + kWSliceChunks * kTile;             // P, 64 x 64
-  // (lse, glse, gtgt, labels) of 64 tokens: dh the CTA's rows, dw the tile's
-  float* stats = reinterpret_cast<float*>(ps + kWRows * kWTile);
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  unsigned char* smem =
+      wide_smem + ((1024 - (smem_addr(wide_smem) & 1023)) & 1023);
+  bf16* xs = reinterpret_cast<bf16*>(smem + kWOffX);  // X, or the ring
+  bf16* yt = reinterpret_cast<bf16*>(smem + kWOffY);  // 2 x kWSlice tiles
+  float2* recv = reinterpret_cast<float2*>(smem + kWOffRecv);
+  bf16* ps = reinterpret_cast<bf16*>(smem + kWOffP);  // P, 64 x 64
+  // (lse, glse, gtgt, labels) of 64 tokens: dh the cluster's rows; dw
+  // each Y tile's, by tile parity
+  float* stats = reinterpret_cast<float*>(smem + kWOffStats);
+  // the partials of this CTA's band have landed / tile j's P is whole
+  const uint32_t bar_s = smem_addr(smem + kWOffBar);
+  const uint32_t bar_p = bar_s + 8;
+  // resident: chunk q of tile buffer b has landed (tile j: buffer j & 1,
+  // phase parity (j >> 1) & 1)
+  auto full = [&](int b, int q) {
+    return bar_s + 16 + (b * kWSlice + q) * 8;
+  };
+  // every consumer warp is done with tile buffer b (and with P)
+  auto empty = [&](int b) { return bar_s + 16 + (2 * kWSlice + b) * 8; };
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int sr = warp & 1, sc = warp >> 1, pc = warp >> 1;
+  cgrp::cluster_group cluster = cgrp::this_cluster();
+  uint32_t nctas;
+  asm("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(nctas));
+  const int C = (int)nctas;
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31;
+  // the warpgroup, through a shuffle so the compiler sees it uniform
+  // (wgmma in a branch it cannot prove uniform is serialized)
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
   const int n_x = kDW ? vocab : n, n_y = kDW ? n : vocab;
-  const int r0 = blockIdx.x * kWRows;
+  const int r0 = (blockIdx.x / C) * kWRows;
   const int kc = E / kChunk;
-  const int q0 = blockIdx.y * kWSliceChunks;
-  const int nsl = min(kWSliceChunks, kc - q0);
+  const int per = (kc + C - 1) / C;
+  // this CTA sums s over chunks [s0, s0 + ns) and outputs [o0, o0 + no)
+  const int s0 = min(kc, rank * per), ns = min(kc, s0 + per) - s0;
+  const int o0 = s0 + blockIdx.y * kWSlice;
+  const int no = max(0, min(s0 + ns, o0 + kWSlice) - o0);
+  const bool resident = gridDim.y == 1;  // else the E-group path
   const int n_tiles = (n_y + kWTile - 1) / kWTile;
-
-  // statistics of 64 tokens from i0, thread tid one value (array tid / 64)
-  auto copy_stats = [&](int i0) {
-    const int a = tid / 64, i = i0 + tid % 64;
-    const float* src = a == 0   ? lse
-                       : a == 1 ? glse
-                       : a == 2 ? gtgt
-                                : reinterpret_cast<const float*>(labels);
-    const bool in = i < n;
-    cp_async4(stats + a * 64 + tid % 64, src + (in ? i : 0), in);
-  };
-  static_assert(kTcThreads == 4 * 64, "one statistic a thread");
-  // Y chunk c of tile jt: 2 copies a thread of 16 bytes (row, col)
-  auto copy_y = [&](int jt, int c) {
-    bf16* dst = c >= q0 && c < q0 + nsl
-                    ? ysl + (c - q0) * kTile
-                    : ring + (c % kWStages) * kStage + kWRows * kChunk;
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const int i = tid + kTcThreads * k, r = i >> 3, col = (i & 7) * 8;
-      const int yr = jt * kWTile + r;
-      const bool in = yr < n_y;
-      cp_async16(dst + swz<kChunk>(r, col),
-                 y + (size_t)(in ? yr : 0) * E + c * kChunk + col, in);
-    }
-  };
-  // X chunk c into its stage of the ring
-  auto copy_x = [&](int c) {
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const int i = tid + kTcThreads * k, r = i >> 3, col = (i & 7) * 8;
-      const bool in = r0 + r < n_x;
-      cp_async16(ring + (c % kWStages) * kStage + swz<kChunk>(r, col),
-                 x + (size_t)(in ? r0 + r : 0) * E + c * kChunk + col, in);
-    }
+  const int band = kWRows / C;  // rows of s a CTA owns: 32, 16 or 8
+  const int slot = band * 32;   // float2s a CTA receives from each peer
+  auto tile_of = [&](int j, int q) {  // output chunk q's slot, tile j
+    return yt + ((j & 1) * kWSlice + q) * kWTileElems;
   };
 
-  float acc[2][2][8][4];  // [slice chunk of the warp][m16][n8][.]
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        acc[h][i][j][0] = acc[h][i][j][1] = acc[h][i][j][2] =
-            acc[h][i][j][3] = 0.f;
+  if (tid == 0) {
+    for (int i = 0; i < 2 + 2 * kWSlice; ++i) mbar_init(bar_s + 8 * i, 1);
+    for (int b = 0; b < 2; ++b) mbar_init(empty(b), kWConsumers / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster.sync();  // every CTA's mbarriers set before any peer signals one
 
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    __syncthreads();  // the previous tile's slice, P and statistics read
-    if (kDW || jt == 0) copy_stats(kDW ? jt * kWTile : r0);
-    for (int c = 0; c < kWStages - 1; ++c) {
-      if (c < kc) {
-        copy_x(c);
-        copy_y(jt, c);
+  if (wg == kWConsumers / 128) {
+    // ---- the exchange warpgroup ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWExchangeRegs));
+    const int et = tid - kWConsumers, ew = et >> 5;
+    // the statistics of 64 tokens from i0, two values a thread
+    auto copy_stats = [&](float* dst, int i0) {
+#pragma unroll
+      for (int v = et; v < 4 * kWTile; v += 128) {
+        const int a = v >> 6, i = i0 + (v & 63);
+        const float* src = a == 0   ? lse
+                           : a == 1 ? glse
+                           : a == 2 ? gtgt
+                                    : reinterpret_cast<const float*>(labels);
+        const bool in = i < n;
+        cp_async4(dst + v, src + (in ? i : 0), in);
       }
-      cp_async_commit();  // one group a chunk
-    }
-
-    float s[2][2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) s[i][j][0] = s[i][j][1] = s[i][j][2] =
-          s[i][j][3] = 0.f;
-    for (int c = 0; c < kc; ++c) {
-      cp_async_wait<kWStages - 2>();
-      __syncthreads();  // chunk c landed for all; chunk c - 1's stage free
-      const int cn = c + kWStages - 1;
-      if (cn < kc) {
-        copy_x(cn);
-        copy_y(jt, cn);
-      }
+    };
+    // tile j: dw's statistics by cp.async; resident, its output chunks
+    // by TMA, each on its own mbarrier (at j = 0 with its X chunk), chunk
+    // q by lane 0 of warp q % 4
+    auto issue_tile = [&](int j) {
+      if (kDW) copy_stats(stats + (j & 1) * 4 * kWTile, j * kWTile);
       cp_async_commit();
-      const bf16* xs = ring + (c % kWStages) * kStage;
-      const bf16* yc = c >= q0 && c < q0 + nsl ? ysl + (c - q0) * kTile
-                                               : xs + kWRows * kChunk;
-      float part[2][2][4] = {};
-#pragma unroll
-      for (int kk = 0; kk < kChunk / 16; ++kk) {
-        const MmaBf16::A a0 = ldsm_a<kChunk>(xs, sr * 32, kk * 16);
-        const MmaBf16::A a1 = ldsm_a<kChunk>(xs, sr * 32 + 16, kk * 16);
-        MmaBf16::B b0, b1;
-        ldsm_bt<kChunk>(b0, b1, yc, sc * 16, kk * 16);
-        MmaBf16::mma(part[0][0], a0, b0);
-        MmaBf16::mma(part[0][1], a0, b1);
-        MmaBf16::mma(part[1][0], a1, b0);
-        MmaBf16::mma(part[1][1], a1, b1);
+      if (!resident || lane != 0) return;
+      for (int q = ew; q < no; q += 4) {
+        const uint32_t bar = full(j & 1, q);
+        mbar_expect(bar, (j == 0 ? 2 : 1) * kWTileBytes);
+        if (j == 0)
+          tma_load(xs + q * kWTileElems, tmx, (o0 + q) * kChunk, r0, bar);
+        tma_load(tile_of(j, q), tmy, (o0 + q) * kChunk, j * kWTile, bar);
       }
+    };
+    if (!kDW) copy_stats(stats, r0);
+    issue_tile(0);
+    if (n_tiles > 1) issue_tile(1);
+    for (int j = 0; j < n_tiles; ++j) {
+      cp_async_wait<0>();  // tile j's statistics (and the next's)
+      named_sync(kWExchangeBar, 128);
+      if (et == 0) mbar_expect(bar_s, kWRows * kWTile * 4);
+      mbar_wait(bar_s, j & 1);  // (A) every partial of this band, tile j
+      // (B) s = the C partials summed in rank order, P rounded to bf16
+      // into this CTA's rows of the P tile, then those rows (one
+      // contiguous, swizzled run) to every peer's P tile
+      const float* st = kDW ? stats + (j & 1) * 4 * kWTile : stats;
+      const int* lab = reinterpret_cast<const int*>(st) + 3 * kWTile;
+      const int y0 = j * kWTile;
+      for (int k = et; k < slot; k += 128) {
+        float2 v = recv[k];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[i][j][e] += part[i][j][e];
-    }
-    cp_async_wait<0>();
-
-    // P for rows 32 sr + 16 i + g + 8 r, columns 16 sc + 8 j + 2t + e
-    const int y0 = jt * kWTile;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = sc * 16 + j * 8 + 2 * t;
-        float p[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = sr * 32 + i * 16 + g + 8 * (e >> 1);
-          const int col = c + (e & 1);
-          // dh: the statistics of token row, vocab index y0 + col; dw: of
-          // token col, vocab index r0 + row
-          const int tok = kDW ? col : row;
-          const int v = kDW ? r0 + row : y0 + col;
-          const float sl = stats[tok], sg = stats[64 + tok];
-          const float st = stats[128 + tok];
-          const int sb = reinterpret_cast<const int*>(stats)[192 + tok];
-          p[e] = v < vocab ? sg * __expf(s[i][j][e] - sl) : 0.f;
-          if (v == sb) p[e] += st;
-        }
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-          *reinterpret_cast<uint32_t*>(
-              ps + swz<kWTile>(sr * 32 + i * 16 + g + 8 * r, c)) =
-              pack_bf16(p[2 * r], p[2 * r + 1]);
-      }
-    __syncthreads();  // P written (and every chunk landed, for all)
-
-    // acc[rows, slice] += P Y[:, slice]
-#pragma unroll
-    for (int kk = 0; kk < kWTile / 16; ++kk) {
-      MmaBf16::A pa[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        pa[i] = ldsm_a<kWTile>(ps, sr * 32 + i * 16, kk * 16);
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        if (2 * pc + h < nsl) {
-          const bf16* yt = ysl + (2 * pc + h) * kTile;
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            MmaBf16::B b0, b1;
-            ldsm_b<kChunk>(b0, b1, yt, kk * 16, jj * 16);
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-              MmaBf16::mma(acc[h][i][2 * jj], pa[i], b0);
-              MmaBf16::mma(acc[h][i][2 * jj + 1], pa[i], b1);
-            }
+        for (int src = 1; src < kWMaxCluster; ++src)
+          if (src < C) {
+            const float2 u = recv[src * slot + k];
+            v.x += u.x;
+            v.y += u.y;
           }
+        const int l = k & 31;
+        const int row = rank * band + (k >> 8) * 8 + (l >> 2);
+        const int col =
+            ((k >> 7) & 1) * 32 + ((k >> 5) & 3) * 8 + 2 * (l & 3);
+        const float sv[2] = {v.x, v.y};
+        float p[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          // dh: token row, vocab index y0 + col; dw: token col, vocab
+          // index r0 + row
+          const int tok = kDW ? col + e : row;
+          const int vi = kDW ? r0 + row : y0 + col + e;
+          p[e] =
+              vi < vocab ? st[kWTile + tok] * __expf(sv[e] - st[tok]) : 0.f;
+          if (vi == lab[tok]) p[e] += st[2 * kWTile + tok];
         }
+        *reinterpret_cast<uint32_t*>(ps + swz<kWTile>(row, col)) =
+            pack_bf16(p[0], p[1]);
+      }
+      fence_proxy_async();  // the rows, for the bulk copies and wgmma
+      named_sync(kWExchangeBar, 128);
+      if (lane == 0)
+        for (int peer = ew; peer < C; peer += 4)
+          if (peer != rank) {
+            const uint32_t rows = smem_addr(ps + rank * band * kWTile);
+            bulk_to_peer(mapa(rows, peer), rows, band * kWTile * 2,
+                         mapa(bar_p, peer));
+          }
+      // this CTA's rows are the arrival of P's phase j, once phase j - 1
+      // is over (its last peer rows landed)
+      if (et == 0) {
+        if (j > 0) mbar_wait(bar_p, (j - 1) & 1);
+        mbar_expect(bar_p, (C - 1) * band * kWTile * 2);
+      }
+      if (j + 2 < n_tiles) {
+        mbar_wait(empty(j & 1), (j >> 1) & 1);  // tile j's P Y done
+        issue_tile(j + 2);
+      }
+    }
+    cluster.sync();  // no CTA leaves while a copy to or from it may run
+  } else {
+    // ---- the two consumer warpgroups ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWConsumerRegs));
+    const int w = (tid >> 5) & 3, g = lane >> 2, t = lane & 3;
+    // 64 rows of src (n_rows, E) from row0, chunk c, into a swizzled
+    // tile by cp.async (the E-group path); rows past n_rows zero-filled
+    auto copy_tile = [&](bf16* dst, const bf16* src, int n_rows, int row0,
+                         int c) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int i = tid + kWConsumers * k, r = i >> 3, col = (i & 7) * 8;
+        const bool in = row0 + r < n_rows;
+        cp_async16(dst + swz<kChunk>(r, col),
+                   src + (size_t)(in ? row0 + r : 0) * E + c * kChunk + col,
+                   in);
+      }
+    };
+    // s_r[:, 32 wg..] of Y tile j, chunk by chunk from zero into p0 / p1,
+    // added into s in chunk order
+    float s[16], p0[16], p1[16];
+    auto chunk_s = [&](float(&d)[16], const bf16* xa, const bf16* yb) {
+      const uint64_t da = wg_desc(xa, 16, 1024);
+      const uint64_t db = wg_desc(yb + wg * 32 * kChunk, 16, 1024);
+#pragma unroll
+      for (int k = 0; k < kChunk / 16; ++k)
+        wgmma_n32(d, da + 2 * k, db + 2 * k, k);
+      wg_commit();
+    };
+    auto add_s = [&](float(&d)[16]) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        wg_pin(d[e]);
+        s[e] += d[e];
+      }
+    };
+    // resident: chunks [qa, qb) of tile j into s (from zero at qa = 0),
+    // two at a time, each pair's products issued together once both
+    // chunks have landed
+    auto s_chunks = [&](int j, int qa, int qb) {
+      if (qa == 0) {
+#pragma unroll
+        for (int e = 0; e < 16; ++e) s[e] = 0.f;
+      }
+      const int par = (j >> 1) & 1;
+      for (int q = qa; q < qb; q += 2) {
+        const bool two = q + 1 < qb;
+        mbar_wait(full(j & 1, q), par);
+        if (two) mbar_wait(full(j & 1, q + 1), par);
+        wg_fence();
+        chunk_s(p0, xs + q * kWTileElems, tile_of(j, q));
+        if (two) {
+          chunk_s(p1, xs + (q + 1) * kWTileElems, tile_of(j, q + 1));
+          wg_wait<1>();
+        } else {
+          wg_wait<0>();
+        }
+        add_s(p0);
+        if (two) {
+          wg_wait<0>();
+          add_s(p1);
+        }
+      }
+    };
+    // E-group path: chunk i = s0 + i of X and Y through a 2-stage ring,
+    // Y's chunks of the output slice into tile j's buffer
+    auto s_streamed = [&](int j) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) s[e] = 0.f;
+      auto ring = [&](int i) { return xs + (i & 1) * 2 * kWTileElems; };
+      auto ysrc = [&](int i) {
+        const int c = s0 + i;
+        return c >= o0 && c < o0 + no ? tile_of(j, c - o0)
+                                      : ring(i) + kWTileElems;
+      };
+      auto issue = [&](int i) {
+        copy_tile(ring(i), x, n_x, r0, s0 + i);
+        copy_tile(ysrc(i), y, n_y, j * kWTile, s0 + i);
+        cp_async_commit();
+      };
+      named_sync(kWConsumerBar, kWConsumers);  // the ring's last chunk read
+      if (ns > 0) issue(0);
+      for (int i = 0; i < ns; ++i) {
+        cp_async_wait<0>();
+        fence_proxy_async();
+        named_sync(kWConsumerBar, kWConsumers);  // chunk i landed
+        if (i + 1 < ns) issue(i + 1);
+        wg_fence();
+        chunk_s(p0, ring(i), ysrc(i));
+        wg_wait<0>();
+        add_s(p0);
+      }
+    };
+
+    // (A) rows 16 w + g + 8 h of s_r to their band's owner, in fragment
+    // order: float2 ((c * 2 + wg) * 4 + i) * 32 + lane of the sender's
+    // slot, c the 8-row block within the band
+    auto push_partials = [&]() {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rb = 2 * w + h;
+        const int owner = rb / (band / 8), c = rb % (band / 8);
+        const uint32_t dst =
+            mapa(smem_addr(recv + rank * slot + (c * 2 + wg) * 128 + lane),
+                 owner);
+        const uint32_t bar = mapa(bar_s, owner);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          st_async2(dst + i * 32 * 8, s[4 * i + 2 * h],
+                    s[4 * i + 2 * h + 1], bar);
+      }
+    };
+
+    // out[:, 256 wg..] of the output slice: 128 accumulators a thread
+    float acc[128];
+#pragma unroll
+    for (int e = 0; e < 128; ++e) acc[e] = 0.f;
+    const bool has_out = 4 * wg < no;
+    auto py = [&](int j) {
+      if (!has_out) return;
+      const uint64_t da = wg_desc(ps, 16, 1024);
+      const uint64_t db = wg_desc(tile_of(j, 4 * wg), kWTileBytes, 1024);
+      wg_fence();
+#pragma unroll
+      for (int k = 0; k < kWTile / 16; ++k)
+        wgmma_n256_tb(acc, da + 2 * k, db + (16 * 128 >> 4) * k, 1);
+      wg_commit();
+      wg_wait<0>();
+#pragma unroll
+      for (int e = 0; e < 128; ++e) wg_pin(acc[e]);
+    };
+
+    // resident: the next tile's s in two halves, chunks [0, half) while
+    // tile j's partials travel, the rest after tile j's P Y, while tile
+    // j + 2's copies land
+    const int half = (ns + 1) / 2;
+    if (resident)
+      s_chunks(0, 0, ns);
+    else
+      s_streamed(0);
+    push_partials();
+    for (int j = 0; j < n_tiles; ++j) {
+      const bool next = j + 1 < n_tiles;
+      if (next) {
+        if (resident)
+          s_chunks(j + 1, 0, half);
+        else
+          s_streamed(j + 1);
+      }
+      mbar_wait(bar_p, j & 1);  // (B) every band of tile j's P
+      py(j);
+      if (lane == 0) mbar_arrive(empty(j & 1));
+      if (next) {
+        if (resident) s_chunks(j + 1, half, ns);  // while tile j + 2 lands
+        push_partials();
+      }
+    }
+    cluster.sync();  // no CTA leaves while a copy to or from it may run
+
+    if (!has_out) return;
+#pragma unroll
+    for (int jb = 0; jb < 32; ++jb) {
+      const int q = 4 * wg + jb / 8;
+      if (q >= no) continue;
+      const int col = (o0 + q) * kChunk + (jb % 8) * 8 + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + 16 * w + g + 8 * h;
+        if (row < n_x)
+          store2(out + (size_t)row * E + col, acc[4 * jb + 2 * h],
+                 acc[4 * jb + 2 * h + 1]);
+      }
     }
   }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-    if (2 * pc + h < nsl)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int row = r0 + sr * 32 + i * 16 + g + 8 * r;
-            const int col = (q0 + 2 * pc + h) * kChunk + j * 8 + 2 * t;
-            if (row < n_x)
-              store2(out + (size_t)row * E + col, acc[h][i][j][2 * r],
-                     acc[h][i][j][2 * r + 1]);
-          }
 }
 
-__global__ void __launch_bounds__(kTcThreads, 1)
-fused_ce_dh_wide_tc_kernel(const bf16* __restrict__ h,
+__global__ void __launch_bounds__(kWThreads, 1)
+fused_ce_dh_wide_tc_kernel(const __grid_constant__ CUtensorMap tmh,
+                           const __grid_constant__ CUtensorMap tmw,
+                           const bf16* __restrict__ h,
                            const bf16* __restrict__ w,
                            const int* __restrict__ labels,
                            const float* __restrict__ lse,
                            const float* __restrict__ glse,
                            const float* __restrict__ gtgt,
                            bf16* __restrict__ dh, int n, int vocab, int E) {
-  fused_ce_bwd_wide_tc_body<false, bf16>(h, w, labels, lse, glse, gtgt, dh, n,
-                                         vocab, E);
+  fused_ce_bwd_wide_tc_body<false, bf16>(&tmh, &tmw, h, w, labels, lse, glse,
+                                         gtgt, dh, n, vocab, E);
 }
 
 // dw in TO (w's dtype) from bf16 w
 template <typename TO>
-__global__ void __launch_bounds__(kTcThreads, 1)
-fused_ce_dw_wide_tc_kernel(const bf16* __restrict__ h,
+__global__ void __launch_bounds__(kWThreads, 1)
+fused_ce_dw_wide_tc_kernel(const __grid_constant__ CUtensorMap tmh,
+                           const __grid_constant__ CUtensorMap tmw,
+                           const bf16* __restrict__ h,
                            const bf16* __restrict__ w,
                            const int* __restrict__ labels,
                            const float* __restrict__ lse,
                            const float* __restrict__ glse,
                            const float* __restrict__ gtgt,
                            TO* __restrict__ dw, int n, int vocab, int E) {
-  fused_ce_bwd_wide_tc_body<true, TO>(w, h, labels, lse, glse, gtgt, dw, n,
-                                      vocab, E);
+  fused_ce_bwd_wide_tc_body<true, TO>(&tmw, &tmh, w, h, labels, lse, glse,
+                                      gtgt, dw, n, vocab, E);
 }
 
-// one CTA per (64 rows of the resident operand, 512 columns of E)
+// the launch configuration of a wide kernel: clusters of C CTAs, one per
+// 64 rows of the resident operand and E-group
+inline cudaLaunchConfig_t wide_config(const WidePlan& pl, int rows,
+                                      cudaStream_t stream,
+                                      cudaLaunchAttribute* attr) {
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = pl.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(pl.C * ((rows + kWRows - 1) / kWRows), pl.groups);
+  cfg.blockDim = dim3(kWThreads);
+  cfg.dynamicSmemBytes = kWSmem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// cuTensorMapEncodeTiled from the driver, by entry point (nothing links
+// against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The (rows, E) bf16 matrix at p as 64 x 64 boxes in the 128-byte swizzle;
+// rows past `rows` read as zeros.
+cudaError_t wide_tensor_map(CUtensorMap* map, const void* p, int rows,
+                            int E) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)E, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)E * sizeof(bf16)};
+  const cuuint32_t box[2] = {kChunk, 64};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// h (n, E) and w (V, E) bf16; `rows` of the resident operand
 template <typename... P, typename... A>
-int launch_wide_tc(void (*kernel)(P...), int rows, int E, size_t smem,
+int launch_wide_tc(void (*kernel)(P...), int rows, const void* h,
+                   const void* w, int n, int vocab, int E,
                    cudaStream_t stream, A... args) {
-  cudaError_t err = allow_smem(kernel, smem);
+  cudaError_t err = allow_smem(kernel, kWSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((rows + kWRows - 1) / kWRows,
-                  (E + kWideSlice - 1) / kWideSlice);
-  kernel<<<grid, kTcThreads, smem, stream>>>(args...);
+  CUtensorMap tmh, tmw;
+  err = wide_tensor_map(&tmh, h, n, E);
+  if (err == cudaSuccess) err = wide_tensor_map(&tmw, w, vocab, E);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = wide_config(wide_plan(E), rows, stream, attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, tmh, tmw, args...);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -1823,7 +2285,7 @@ int launch_dh_wide_tc(const void* h, const void* w, const void* labels,
                       void* dh, int n, int vocab, int E,
                       cudaStream_t stream) {
   return launch_wide_tc(
-      fused_ce_dh_wide_tc_kernel, n, E, bwd_wide_tc_smem(false), stream,
+      fused_ce_dh_wide_tc_kernel, n, h, w, n, vocab, E, stream,
       static_cast<const bf16*>(h), static_cast<const bf16*>(w),
       static_cast<const int*>(labels), static_cast<const float*>(lse),
       static_cast<const float*>(glse), static_cast<const float*>(gtgt),
@@ -1836,14 +2298,36 @@ int launch_dw_wide_tc(const void* h, const void* w, const void* labels,
                       void* dw, int n, int vocab, int E,
                       cudaStream_t stream) {
   return launch_wide_tc(
-      fused_ce_dw_wide_tc_kernel<TO>, vocab, E, bwd_wide_tc_smem(true),
-      stream, static_cast<const bf16*>(h), static_cast<const bf16*>(w),
+      fused_ce_dw_wide_tc_kernel<TO>, vocab, h, w, n, vocab, E, stream,
+      static_cast<const bf16*>(h), static_cast<const bf16*>(w),
       static_cast<const int*>(labels), static_cast<const float*>(lse),
       static_cast<const float*>(glse), static_cast<const float*>(gtgt),
       static_cast<TO*>(dw), n, vocab, E);
 }
 
 }  // namespace
+
+// The wide tensor-core dh / dw plan at width E (a multiple of 64 past
+// kMaxE): info[0] the cluster size, info[1] the E chunks of s a CTA sums,
+// info[2] the E-groups (how many times s is computed), info[3]
+// cudaOccupancyMaxActiveClusters of dW's kernel (dw != 0) or dH's.
+extern "C" int hetu_fused_ce_wide_info(int E, int dw, int* info) {
+  if (E % 64 || E <= kMaxE) return (int)cudaErrorInvalidValue;
+  const WidePlan pl = wide_plan(E);
+  info[0] = pl.C;
+  info[1] = pl.per;
+  info[2] = pl.groups;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = wide_config(pl, kWRows, nullptr, attr);
+  const void* kernel =
+      dw ? reinterpret_cast<const void*>(fused_ce_dw_wide_tc_kernel<bf16>)
+         : reinterpret_cast<const void*>(fused_ce_dh_wide_tc_kernel);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kWSmem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&info[3], kernel, &cfg);
+  return (int)err;
+}
 
 // h (n, E) and w (V, E), contiguous, each fp32 (flag 0) or bf16 (flag 1);
 // labels (n,) int32 in [-1, V); lse/tgt/glse/gtgt (n,) fp32. Each launches

@@ -24,15 +24,16 @@ tensor-core lane (``fused_ce_fwd_tc_kernel``; ``fused_ce_dh_tc_kernel``
 and ``fused_ce_dw_tc_kernel``, each on a two-CTA cluster); with fp32 h
 they run the CUDA-core lane. Past ``MAX_E`` = 768 (Llama's 4,096, say)
 each takes its wide form (``"tensor_core_wide"``, ``"cuda_core_wide"``):
-the forward's tensor-core kernel streams E as it is, and every other
-kernel streams E in 64-column chunks, dH and dW splitting E into
-512-column blocks on a grid axis, each block recomputing the logits over
-all of E (still one launch a call). The forward and dH tensor-core kernels read
-bf16 w, so an fp32 w is cast to bf16 once before their launch (the
+the forward's tensor-core kernel streams E as it is; the tensor-core dH
+and dW split E across a cluster of up to 8 CTAs that compute the logits
+once and share them (:func:`wide_plan`); the CUDA-core ones split E into
+512-column blocks on a grid axis, each recomputing the logits over all
+of E (still one launch a call). The forward and dH tensor-core kernels
+read bf16 w, so an fp32 w is cast to bf16 once before their launch (the
 values the TPU kernels' per-tile cast gives); dW, whose resident operand
 is w, reads w in its own dtype, rounds an fp32 w to bf16 as it stages
-it, and returns dw in w's dtype; on the wide lane, which re-reads w for
-every 512-column block, dW too gets w cast once, and still returns dw in
+it, and returns dw in w's dtype; on the wide lane, whose products read
+bf16 operands only, dW too gets w cast once, and still returns dw in
 the caller's w dtype. Every lane counts its launches under the same
 names.
 
@@ -152,11 +153,42 @@ def fused_ce_lane(h_dtype: torch.dtype, w_dtype: torch.dtype, e: int,
     return lane + "_wide" if e > MAX_E else lane
 
 
+def wide_plan(e: int) -> tuple[int, int, int]:
+    """``(C, p, groups)`` of the wide tensor-core dH and dW at width e
+    (``wide_plan`` in ``csrc/fused_ce.cu``, which the launch follows): a
+    cluster of C CTAs (the least of 2, 4 and 8 that gives each at most 8
+    of the e / 64 chunks) shares one s, CTA r summing it over chunks [r p,
+    r p + p), p = ceil(chunks / C); past 4,096 columns each CTA outputs 8
+    of its p chunks per E-group, and each of the ``groups`` E-groups
+    computes the same s (the recompute factor)."""
+    chunks = e // 64
+    c = 2
+    while c < 8 and c * 8 < chunks:
+        c *= 2
+    p = -(-chunks // c)
+    return c, p, -(-p // 8)
+
+
+def wide_info(e: int, which: str) -> dict:
+    """The wide tensor-core dH (``which="dh"``) or dW launch at width e as
+    the library plans it on the current card (``hetu_fused_ce_wide_info``):
+    ``cluster`` (C), ``slice_chunks`` (p), ``groups`` (the recompute
+    factor) and ``max_active_clusters``
+    (``cudaOccupancyMaxActiveClusters``). Needs the built kernels and a
+    CUDA device."""
+    lib, fn = _build.kernel("fused_ce", "hetu_fused_ce_wide_info",
+                            [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    info = (ctypes.c_int * 4)()
+    _build.check(lib, fn(e, int(which == "dw"), info), "fused_ce wide_info")
+    return dict(cluster=info[0], slice_chunks=info[1], groups=info[2],
+                max_active_clusters=info[3])
+
+
 def _launch_w(h, w, which: str = "fwd"):
     """w as kernel ``which`` (``fwd``, ``dh``, ``dw``) takes it: cast to
     bf16 once where its tensor-core kernel reads bf16 w only (the forward
-    and dH on both tensor-core lanes, dW on the wide one, which re-reads
-    w for every block of E); as it is otherwise."""
+    and dH on both tensor-core lanes, dW on the wide one, whose wgmma
+    operands are bf16); as it is otherwise."""
     lane = fused_ce_lane(h.dtype, w.dtype, h.shape[1])
     if w.dtype == torch.float32 and (
             lane == "tensor_core_wide"

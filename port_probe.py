@@ -4,6 +4,8 @@ beside ``chip_smoke.py``, whose phase functions they run:
 
     python3 port_probe.py kernels           # build, ptxas, kernel phases
     python3 port_probe.py fused             # fused CE rate against N, V
+    python3 port_probe.py fused OLD NEW     # the same, two trees in turns
+    python3 port_probe.py wide-phases       # wide dH / dW cycles by phase
     python3 port_probe.py steps OLD NEW     # step times of two trees
     python3 port_probe.py serve OLD NEW     # serving bursts of two trees
     python3 port_probe.py int8              # torch._int_mm's rows, layouts
@@ -27,6 +29,11 @@ as w (streamed by #5 and #6) leaves the 50 MB L2 or the grid shrinks,
 and whether dW's, which streams h (75.5 MB at N = 49,152, 13 MB at
 8,448) and runs one cluster per 64 vocab rows, moves with them: that
 tells a kernel bound inside the SM from one bound by the memory system.
+Then the Llama training shape (8,192, 32,000, 4,096), where all three
+take their wide tensor-core lanes. ``fused OLD NEW`` runs the same in
+turns OLD, NEW, NEW, OLD, each tree in a process of its own
+(``fused-of TREE TAG`` is one turn), so two trees' kernels are timed on
+one card.
 
 ``steps`` compares the training step of two checkouts (directories that
 hold ``chip_smoke.py`` and ``hetu_tpu_torch``) on one card, in turns OLD,
@@ -45,6 +52,16 @@ prefill_chunk=64)``, fp32) and its Llama-7B workload (bf16, int8 arena,
 tree's ``serve`` after a warm-up engine, and prints throughput, TTFT,
 TPOT and the lane iterations of each burst. ``serve-of TREE TAG`` is one
 such turn.
+
+``wide-phases`` splits a tile of the wide tensor-core dH and dW
+(``fused_ce_bwd_wide_tc_body``) into its phases at the Llama shape: it
+writes a copy of ``csrc/fused_ce.cu`` with ``clock64()`` counters after
+each step of the consumers' tile loop and of the exchange warpgroup's
+(one thread of each role in each CTA; summed over CTAs into a device
+array), builds it beside the real library under
+``build/hetu_tpu_torch/probe/`` and prints, per kernel, its time with
+the counters on and the cycles a tile of each phase. The counters cost a little time themselves; the kernel's own
+time comes from ``fused``.
 
 ``int8`` asks ``torch._int_mm`` (the W8A8 lane's int32 product) which
 row counts it takes on this card at Llama-7B's FFN shapes (4,096 ->
@@ -141,8 +158,15 @@ def kernels() -> int:
     return 1 if failed else 0
 
 
-def fused() -> int:
-    sys.path.insert(0, HERE)
+#: ``fused``'s shapes (N, V, E): the combo's N against three vocabs, one
+#: wave of the narrow dH lane's clusters, and the Llama training shape
+#: (the wide tensor-core lane)
+FUSED_SHAPES = ((49152, 50257, 768), (49152, 16384, 768),
+                (49152, 8192, 768), (8448, 50257, 768), (8192, 32000, 4096))
+
+
+def fused_of(tree: str, tag: str) -> int:
+    sys.path.insert(0, os.path.abspath(tree))
     import chip_smoke as cs
     from hetu_tpu_torch import ops
 
@@ -150,25 +174,171 @@ def fused() -> int:
     card = cs.nvidia_smi()
     timer = cs.Timer(device)
     gen = torch.Generator(device=device).manual_seed(cs.SEED + 5)
-    for n, vocab in ((49152, 50257), (49152, 16384), (49152, 8192),
-                     (8448, 50257)):
+    for n, vocab, e in FUSED_SHAPES:
         h, w, lab, _, _ = cs.fused_inputs(gen, device, n, vocab,
-                                          torch.bfloat16, torch.bfloat16)
+                                          torch.bfloat16, torch.bfloat16, e)
         g = torch.full((n,), 1.0 / n, device=device)
         lse, _ = ops.fused_ce_fwd(h, w, lab)
-        nve = float(n) * vocab * h.shape[1]
-        fwd_ms = timer(lambda: ops.fused_ce_fwd(h, w, lab), iters=5)
+        nve = float(n) * vocab * e
+        iters = 5 if e <= 768 else 3
+        fwd_ms = timer(lambda: ops.fused_ce_fwd(h, w, lab), iters=iters)
         dh_ms = timer(lambda: ops.fused_ce_dh(h, w, lab, lse, g, -g),
-                      iters=5)
+                      iters=iters)
         dw_ms = timer(lambda: ops.fused_ce_dw(h, w, lab, lse, g, -g),
-                      iters=5)
-        cs.emit(phase="fused_rate", card=card, n=n, vocab=vocab,
+                      iters=iters)
+        cs.emit(phase="fused_rate", tree=tag, card=card, n=n, vocab=vocab,
+                e=e, lane=ops.fused_ce_lane(h.dtype, w.dtype, e),
                 fwd_ms=fwd_ms, dh_ms=dh_ms, dw_ms=dw_ms,
                 fwd_tflops=2 * nve / fwd_ms / 1e9,
                 dh_tflops=4 * nve / dh_ms / 1e9,
                 dw_tflops=4 * nve / dw_ms / 1e9)
         del h, w, lab, g, lse
         torch.cuda.empty_cache()
+    return 0
+
+
+#: ``wide-phases``' counters: (a line of the wide body, the counter read
+#: after it, and that phase's name). Thread 0 times the consumers' loop,
+#: thread ``kWConsumers`` the exchange warpgroup's.
+WIDE_PHASES = (
+    ("          s_streamed(j + 1);\n      }\n", "s_first_half"),
+    ("      mbar_wait(bar_p, j & 1);  // (B) every band of tile j's P\n",
+     "wait_p"),
+    ("      py(j);\n", "p_times_y"),
+    ("        if (resident) s_chunks(j + 1, half, ns);  // while tile j + 2 "
+     "lands\n", "s_second_half"),
+    ("        push_partials();\n      }\n", "push_partials"),
+    ("      cp_async_wait<0>();  // tile j's statistics (and the next's)\n"
+     "      named_sync(kWExchangeBar, 128);\n", None),
+    ("      mbar_wait(bar_s, j & 1);  // (A) every partial of this band, "
+     "tile j\n", "x_wait_partials"),
+    ("            pack_bf16(p[0], p[1]);\n      }\n", "x_reduce_loop"),
+    ("      fence_proxy_async();  // the rows, for the bulk copies and wgmma"
+     "\n      named_sync(kWExchangeBar, 128);\n", "x_reduce_sync"),
+    ("                         mapa(bar_p, peer));\n          }\n",
+     "x_bulk_issue"),
+    ("        mbar_expect(bar_p, (C - 1) * band * kWTile * 2);\n      }\n",
+     "x_p_arrival"),
+    ("        mbar_wait(empty(j & 1), (j >> 1) & 1);  // tile j's P Y done\n",
+     "x_wait_empty"),
+    ("        issue_tile(j + 2);\n      }\n", "x_copies"))
+
+
+def wide_phase_source() -> str:
+    """``csrc/fused_ce.cu`` with ``clock64()`` counters in the wide
+    tensor-core body (the consumers' loop on thread 0, the exchange
+    warpgroup's on its first thread), and an entry point to read and
+    reset them."""
+    from hetu_tpu_torch.ops import _build
+    src = (_build.CSRC / "fused_ce.cu").read_text()
+    k = len(WIDE_PHASES)
+    anchor = ("  const int slot = band * 32;   // float2s a CTA receives from "
+              "each peer\n")
+    assert src.count(anchor) == 1, anchor
+    # the counters live in shared memory: registers would crowd the
+    # exchange warpgroup's 48
+    src = src.replace(anchor, anchor + f"""  __shared__ unsigned long long wph[{k}];
+  if (tid < {k}) wph[tid] = 0;
+  __syncthreads();
+  long long wph_last = clock64();
+#define WPHASE(i) if (tid == 0 || tid == kWConsumers) {{ \\
+    const long long now = clock64(); wph[i] += now - wph_last; \\
+    wph_last = now; }}
+""")
+    # the exchange warpgroup's first counter starts its iteration
+    for i, (line, _) in enumerate(WIDE_PHASES):
+        assert src.count(line) == 1, line
+        src = src.replace(line, line + f"    WPHASE({i})\n")
+    # each role's thread adds its own counters (the exchange warpgroup's
+    # are named x_...)
+    xs = [i for i, (_, name) in enumerate(WIDE_PHASES)
+          if not name or name.startswith("x_")]
+    flush = (f"    for (int i = 0; i < {k}; ++i) "
+             f"if ((tid == 0 && i < {xs[0]}) || "
+             f"(tid == kWConsumers && i >= {xs[0]})) "
+             "atomicAdd(&g_wphase[i], wph[i]);\n"
+             f"    if (tid == 0) atomicAdd(&g_wphase[{k}], "
+             "(unsigned long long)n_tiles);\n")
+    sync = "    cluster.sync();  // no CTA leaves while a copy to or from it may"
+    assert src.count(sync) == 2, sync
+    src = src.replace(sync, flush + sync)
+    src = src.replace('#include "mma_bf16.cuh"\n', '#include "mma_bf16.cuh"\n'
+                      f"__device__ unsigned long long g_wphase[{k + 1}];\n")
+    return src + f"""
+extern "C" int hetu_wide_phases(unsigned long long* out, int reset) {{
+  if (reset) {{
+    unsigned long long zero[{k + 1}] = {{}};
+    return (int)cudaMemcpyToSymbol(g_wphase, zero, sizeof(zero));
+  }}
+  return (int)cudaMemcpyFromSymbol(out, g_wphase, sizeof(g_wphase));
+}}
+"""
+
+
+def wide_phases() -> int:
+    import ctypes
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    from hetu_tpu_torch import ops
+    from hetu_tpu_torch.ops import _build
+
+    names = [n or "x_wait_stats" for _, n in WIDE_PHASES]
+    out_dir = _build.BUILD_DIR / "probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu = out_dir / "fused_ce_phases.cu"
+    cu.write_text(wide_phase_source())
+    so = cu.with_suffix(".so")
+    t0 = time.perf_counter()
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                           str(_build.CSRC), "-o", str(so), str(cu)],
+                          capture_output=True, text=True)
+    cs.emit(phase="wide_phases_build", rc=proc.returncode,
+            seconds=time.perf_counter() - t0)
+    if proc.returncode:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        return 1
+    lib = ctypes.CDLL(str(so))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.hetu_fused_ce_dh.argtypes = [vp] * 7 + [ci] * 5 + [vp]
+    lib.hetu_fused_ce_dw.argtypes = [vp] * 7 + [ci] * 6 + [vp]
+    lib.hetu_wide_phases.argtypes = [vp, ci]
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(cs.SEED + 5)
+    n, vocab, e = cs.LLAMA_FUSED_SHAPE
+    h, w, lab, _, _ = cs.fused_inputs(gen, device, n, vocab, torch.bfloat16,
+                                      torch.bfloat16, e)
+    g = torch.full((n,), 1.0 / n, device=device)
+    ng = -g
+    lse, _ = ops.fused_lse_tgt_reference(h, w, lab)
+    stream = vp(torch.cuda.current_stream(device).cuda_stream)
+    for which in ("dh", "dw"):
+        out = torch.empty_like(h if which == "dh" else w)
+        args = [vp(t.data_ptr()) for t in (h, w, lab, lse, g, ng, out)]
+        args += [n, vocab, e, 1, 1] + ([1] if which == "dw" else [])
+        launch = getattr(lib, f"hetu_fused_ce_{which}")
+        assert launch(*args, stream) == 0
+        torch.cuda.synchronize()
+        lib.hetu_wide_phases(None, 1)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        assert launch(*args, stream) == 0
+        stop.record()
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * (len(names) + 1))()
+        assert lib.hetu_wide_phases(buf, 0) == 0
+        tiles = buf[len(names)]
+        per = {k: buf[i] / tiles for i, k in enumerate(names)}
+        cs.emit(phase="wide_phases", kernel=f"fused_ce_{which}",
+                shape=[n, vocab, e], card=cs.nvidia_smi(),
+                ms_with_counters=start.elapsed_time(stop),
+                consumer_cycles_a_tile=sum(v for k, v in per.items()
+                                           if not k.startswith("x_")),
+                exchange_cycles_a_tile=sum(v for k, v in per.items()
+                                           if k.startswith("x_")),
+                phases={k: round(v, 1) for k, v in per.items()},
+                note="x_: the exchange warpgroup's phases, each tile from "
+                     "its statistics' wait to its next tile's copies")
     return 0
 
 
@@ -526,7 +696,9 @@ def main(argv) -> int:
     if argv[:1] == ["kernels"] and len(argv) == 1:
         return kernels()
     if argv[:1] == ["fused"] and len(argv) == 1:
-        return fused()
+        return fused_of(HERE, "this")
+    if argv[:1] == ["wide-phases"] and len(argv) == 1:
+        return wide_phases()
     if argv[:1] == ["int8"] and len(argv) == 1:
         return int8()
     if argv[:1] == ["pools"] and len(argv) == 1:
@@ -535,8 +707,10 @@ def main(argv) -> int:
         return oracle()
     if argv[:1] == ["noise"] and len(argv) == 1:
         return noise()
-    if argv[:1] in (["steps"], ["serve"]) and len(argv) == 3:
+    if argv[:1] in (["steps"], ["serve"], ["fused"]) and len(argv) == 3:
         return in_turns(argv[0], argv[1], argv[2])
+    if argv[:1] == ["fused-of"] and len(argv) == 3:
+        return fused_of(argv[1], argv[2])
     if argv[:1] == ["steps-of"] and len(argv) == 3:
         return steps_of(argv[1], argv[2])
     if argv[:1] == ["serve-of"] and len(argv) == 3:

@@ -119,8 +119,10 @@ def test_dw_keeps_one_kernel_and_dh_runs_on_a_two_cta_cluster():
     in w's own dtype and fp32 h the CUDA-core kernels, the wide ones past
     ``kMaxE``; no CUDA-core instance of bf16 h is left. The narrow
     tensor-core dH and dW are launched with a cluster dimension of
-    ``kBwdCluster`` = 2 CTAs; the wide ones on a grid of 64 rows by 512
-    columns of E (``kWideSlice``), without clusters."""
+    ``kBwdCluster`` = 2 CTAs; the wide ones with the cluster of
+    ``wide_plan(E)`` (2, 4 or 8 CTAs, at most ``kWMaxCluster``, each at
+    most 512 columns of E, ``kWideSlice``) and its E-groups on the grid's
+    y axis, in one ``cudaLaunchKernelEx``."""
     text = (CSRC / "fused_ce.cu").read_text()
     body = _entry(text, "hetu_fused_ce_dw")
     m = re.search(r"if \(E % 64 \|\| E < 64\) return \(int\)"
@@ -156,10 +158,21 @@ def test_dw_keeps_one_kernel_and_dh_runs_on_a_two_cta_cluster():
         assert re.search(rf"return launch_cluster\(\s*{kernel}<kBwdCluster",
                          fn), name
     assert re.search(r"constexpr int kWideSlice = 512;", text)
+    assert re.search(r"constexpr int kWMaxCluster = 8;", text)
+    plan = text[text.index("inline WidePlan wide_plan("):]
+    plan = plan[:plan.index("\n}\n")]
+    assert re.search(r"while \(C < kWMaxCluster && C \* kWSlice < kc\) "
+                     r"C \*= 2;", plan)
+    cfg = text[text.index("inline cudaLaunchConfig_t wide_config("):]
+    cfg = cfg[:cfg.index("\n}\n")]
+    assert "cudaLaunchAttributeClusterDimension" in cfg
+    assert re.search(r"clusterDim\.x = pl\.C;", cfg)
+    assert re.search(r"gridDim = dim3\(pl\.C \* \(\(rows \+ kWRows - 1\) / "
+                     r"kWRows\), pl\.groups\);", cfg)
     wide = text[text.index("int launch_wide_tc("):]
     wide = wide[:wide.index("\n}\n")]
-    assert "Cluster" not in wide
-    assert re.search(r"\(E \+ kWideSlice - 1\) / kWideSlice", wide)
+    assert re.search(r"wide_config\(wide_plan\(E\)", wide)
+    assert wide.count("cudaLaunchKernelEx(") == 1
     for name, kernel in (("launch_dh_wide_tc", "fused_ce_dh_wide_tc_kernel"),
                          ("launch_dw_wide_tc", "fused_ce_dw_wide_tc_kernel")):
         fn = text[text.index(f"int {name}("):]

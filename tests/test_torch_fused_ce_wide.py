@@ -4,7 +4,7 @@ their wide lanes (``ops.fused_ce_lane``: ``"tensor_core_wide"`` and
 mode (``fused_lse_tgt``, ``block_n=128, block_v=256``, any E).
 
 (a) The plain versions (the CPU path and the card's yardstick) at E =
-    832, 1,024 and 4,096, 96 tokens (JAX's rows padded to a token block:
+    832, 1,024, 4,096 and 5,120, 96 tokens (JAX's rows padded to a token block:
     pad rows have label -1 and zero cotangents) and a ragged vocab of 1013
     with a label of V - 1, in the four fp32/bf16 pairings of
     ``tests/test_torch_fused_ce.py``, with general cotangents ``(glse,
@@ -14,14 +14,18 @@ mode (``fused_lse_tgt``, ``block_n=128, block_v=256``, any E).
     more than the lse bound. Tolerances, those of that file: lse/tgt 1e-4
     absolute; dh/dw 1e-5 of max |reference| in fp32 with fp32 h, 2e-3
     with bf16 h, 1e-2 in bf16.
-(b) The summation order of the wide tensor-core lane: each 512-column
-    block of dh or dw recomputes s over the whole of E, 64-column chunks
-    each summed from zero and added in order, rounds P to bf16, and sums
-    P times Y over 64-row tiles in order, in fp32. A plain helper does the
-    same on the CPU, and its dh and dw are held to interpret-mode Pallas
-    within the bound ``chip_smoke.py`` holds the card to
-    (``fused_grad_bound``: 2 bf16 ulps of |reference| plus 2e-4 of max
-    |reference|), bf16 h and w.
+(b) The summation order of the wide tensor-core lane: a cluster of C
+    CTAs shares one s; CTA r sums its partial s_r over its slice of E
+    (chunks [r p, r p + p) of the E / 64, C and p from ``wide_plan``,
+    the rule of ``csrc/fused_ce.cu``'s launch), each 64-column
+    chunk from zero and added in order; the C partials are summed in rank
+    order, P is formed once and rounded to bf16, and P times Y is summed
+    over 64-row tiles in order, in fp32. Past 4,096 columns (5,120 here)
+    E-groups each compute the same s. A plain helper does the same on the
+    CPU, and its dh and dw are held to interpret-mode Pallas within the
+    bound ``chip_smoke.py`` holds the card to (``fused_grad_bound``: 2
+    bf16 ulps of |reference| plus 2e-4 of max |reference|), bf16 h and
+    w, at every width.
 (c) The wrapper: the lane names, dW's w cast on the wide lane, widths.
 (d) Llama with a vocab of 8,269 under ``HETU_LM_LOSS_IMPL=fused``: the
     port's loss and every grad (the fused path: the plain versions of
@@ -58,14 +62,14 @@ from hetu_tpu_torch.models import (
 from hetu_tpu_torch.ops import fused_ce, losses as losses_mod
 from hetu_tpu_torch.ops.fused_ce import (
     MAX_E, fused_ce_dh, fused_ce_dh_reference, fused_ce_dw,
-    fused_ce_dw_reference, fused_ce_fwd, fused_ce_lane,
+    fused_ce_dw_reference, fused_ce_fwd, fused_ce_lane, wide_plan,
 )
 from hetu_tpu_torch.parallel import Strategy
 
 torch.set_num_threads(2)
 
 N, V, PAD_N = 96, 1013, 128
-WIDTHS = (832, 1024, 4096)
+WIDTHS = (832, 1024, 4096, 5120)
 DTYPES = {"fp32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 PAIRS = [(hd, wd) for hd in DTYPES for wd in DTYPES]
@@ -144,12 +148,20 @@ def test_wide_backward_general_cotangents_match_pallas_interpret(e, h_dt,
 
 def _p_in_wide_order(x, y, x_is_h, labels, lse, glse, gtgt):
     """P (rows of x by rows of y) as the wide tensor-core body forms it:
-    s summed over 64-column chunks, each from zero, in order; P rounded to
-    bf16. dh: x = h, y = w; dw: x = w, y = h (P transposed)."""
+    CTA r's partial s_r over chunks [r p, r p + p), each 64-column chunk
+    from zero, added in order; s = s_0 + s_1 + ... in rank order; P
+    rounded to bf16. dh: x = h, y = w; dw: x = w, y = h (P
+    transposed)."""
     xf, yf = x.float(), y.float()
-    s = torch.zeros(x.shape[0], y.shape[0])
-    for c in range(0, x.shape[1], 64):
-        s = s + xf[:, c:c + 64] @ yf[:, c:c + 64].t()
+    chunks = x.shape[1] // 64
+    c, p, _ = wide_plan(x.shape[1])
+    s = None
+    for r in range(c):
+        part = torch.zeros(x.shape[0], y.shape[0])
+        for q in range(r * p, min(chunks, (r + 1) * p)):
+            cols = slice(64 * q, 64 * q + 64)
+            part = part + xf[:, cols] @ yf[:, cols].t()
+        s = part if s is None else s + part
     if not x_is_h:
         s = s.t()                        # (tokens, vocab)
     hit = labels.long()[:, None] == torch.arange(s.shape[1])[None, :]
@@ -160,15 +172,13 @@ def _p_in_wide_order(x, y, x_is_h, labels, lse, glse, gtgt):
 
 
 def _out_in_wide_order(x, y, x_is_h, labels, lse, glse, gtgt, out_dtype):
-    """dh (x = h) or dw (x = w) in the wide lane's order: per 512-column
-    block of E (each recomputing s, the same bits), P y summed over 64-row
-    tiles of y in order, fp32, rounded to ``out_dtype``."""
+    """dh (x = h) or dw (x = w) in the wide lane's order: P once (every
+    E-group computes the same bits), P y summed over 64-row tiles of y in
+    order, fp32, rounded to ``out_dtype``."""
     out = torch.zeros(x.shape, dtype=torch.float32)
-    for e0 in range(0, x.shape[1], 512):
-        p = _p_in_wide_order(x, y, x_is_h, labels, lse, glse, gtgt)
-        blk = slice(e0, e0 + 512)
-        for t0 in range(0, y.shape[0], 64):
-            out[:, blk] += p[:, t0:t0 + 64] @ y[t0:t0 + 64, blk].float()
+    p = _p_in_wide_order(x, y, x_is_h, labels, lse, glse, gtgt)
+    for t0 in range(0, y.shape[0], 64):
+        out += p[:, t0:t0 + 64] @ y[t0:t0 + 64].float()
     return out.to(out_dtype)
 
 
@@ -226,12 +236,28 @@ def test_lane_names_and_wide_widths_the_wrapper_takes():
         fused_ce._check("fused_ce_dw", h[:, :4064], w[:, :4064], lab)
 
 
+@pytest.mark.parametrize("e,plan", [(832, (2, 7, 1)), (1024, (2, 8, 1)),
+                                    (1088, (4, 5, 1)), (2048, (4, 8, 1)),
+                                    (2112, (8, 5, 1)), (4096, (8, 8, 1)),
+                                    (5120, (8, 10, 2)), (8192, (8, 16, 2))])
+def test_wide_plan_cluster_slice_and_groups(e, plan):
+    """The cluster, slice and E-groups of the wide tensor-core dH / dW:
+    every CTA sums s over at most 8 chunks below 4,096 columns (no
+    recompute), the slices cover E once, and past 4,096 columns each of
+    ceil(E / 4,096) E-groups outputs at most 8 chunks a CTA."""
+    c, p, groups = wide_plan(e)
+    assert (c, p, groups) == plan
+    chunks = e // 64
+    assert c * p >= chunks > (c // 2) * 8 or c == 2
+    assert groups == -(-chunks // 64) and p <= 8 * groups
+
+
 @pytest.mark.parametrize("e", [MAX_E, 832])
 def test_dw_gets_w_cast_once_on_the_wide_lane_only(e):
     """bf16 h with an fp32 w: the forward and dH get w cast to bf16 on
     both tensor-core lanes; dW reads w in its own dtype on the narrow
-    lane and gets it cast on the wide one (it re-reads w for every
-    512-column block). fp32 h passes w through."""
+    lane and gets it cast on the wide one (its wgmma operands are bf16).
+    fp32 h passes w through."""
     rng = np.random.default_rng(4)
     w32 = torch.from_numpy(rng.normal(size=(16, e)).astype(np.float32))
     h16 = torch.zeros(4, e, dtype=torch.bfloat16)
