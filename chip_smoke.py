@@ -149,7 +149,11 @@ Phases, each printing one JSON line:
    w cast to bf16 (kernel_w_cast). Then the wide lanes (E past 768, each
    case in the four dtype pairings, rerun and w cast alike): E = 832, 4,096
    and 5,120 at ragged N and V (333 x 1,013, 1,000 x 32,003, 333 x
-   5,003).
+   5,003), and E = 832 at 8,000 x 800, where the tensor-core forward's
+   plan takes a cluster of C > 1 (2 on an H100) with a ragged last token
+   tile and 7 vocab tiles, one CTA's last past V; the forward's cluster
+   plans (library against ``ops.fused_ce.wide_fwd_plan``) beside dH's
+   and dW's (wide_plan).
    Bounds: lse/tgt 1e-4; dh/dw element by element 2 ulps of the output's
    dtype plus 1e-4 (fp32 h) or 2e-4 (bf16 h) of max |reference|.
 9. train_fused -- ``bench.py``'s fused-CE combo (``workloads/
@@ -412,7 +416,8 @@ Phases, each printing one JSON line:
    apart, so dH and dW must be no farther than the plain versions from a
    float64 evaluation, in ``fused_grad_bound`` units), then timed as in
    10, with ``gemm_ms``, the chunked loss (forward; forward and
-   backward) and the bound (2NVE, 4NVE on 989 TFLOP/s).
+   backward) and the bound (2NVE, 4NVE on 989 TFLOP/s); #5's line
+   carries its cluster plan.
 25. llama_ckpt -- ``llama_train_fused``'s configuration: 10 steps without
    a stop, against 5 steps with ``TrainerConfig(ckpt_dir=<a temporary
    directory>, ckpt_every=5, async_ckpt=True)`` and 5 more in a new model
@@ -960,10 +965,13 @@ LANE_SYMBOLS = {"flash_fwd": {"tensor_core": "flash_fwd_tc_kernel",
 #: the fused CE kernels' lanes (``ops.fused_ce_lane``)
 FUSED_LANES = ("tensor_core (bf16 h: forward, dH and dW; dH and dW on a "
                "2-CTA cluster); cuda_core (fp32 h); past E = 768 each "
-               "_wide (E in 64-column chunks; the tensor-core dH and dW "
-               "split E across a cluster of up to 8 CTAs that share one "
-               "logits tile, E-groups past 4,096 columns; the CUDA-core "
-               "ones split E into 512-column blocks on a grid axis)")
+               "_wide (E in 64-column chunks; the tensor-core forward "
+               "splits the vocab across a cluster of 1-8 CTAs that share "
+               "a 128-token tile, wgmma fed by TMA, h multicast; the "
+               "tensor-core dH and dW split E across a cluster of up to 8 "
+               "CTAs that share one logits tile, E-groups past 4,096 "
+               "columns; the CUDA-core ones split E into 512-column "
+               "blocks on a grid axis)")
 #: the tensor-core instances of #5-#7 that ``ptxas`` must report, by a
 #: piece of their mangled names (a name in an anonymous namespace ends in
 #: E, a template's arguments are I...E; dW's second argument is w's type)
@@ -2365,11 +2373,15 @@ def run_fused(ops, h, w, lab, glse, gtgt):
     return got, want
 
 
-#: the wide lanes' cases: (case, N, V, E), ragged N and V
+#: the wide lanes' cases: (case, N, V, E), ragged N and V; the last is
+#: the tensor-core forward's cluster case: 63 token tiles, the last of 64
+#: rows, take a cluster of C > 1, and V = 800 is 7 vocab tiles of 128
+#: (the last ragged), so at C = 2 one CTA's last tile lies past V
 WIDE_CASES = (("wide_832", 333, 1013, 832),
               ("wide_4096", 1000, 32003, 4096),
               ("wide_5120", 333, 5003, 5120),
-              ("wide_8192", 333, 5003, 8192))
+              ("wide_8192", 333, 5003, 8192),
+              ("wide_fwd_cluster", 8000, 800, 832))
 
 
 def phase_fused_kernels(device, ops):
@@ -2387,10 +2399,12 @@ def phase_fused_kernels(device, ops):
     832 (the first width past 768: a 2-CTA cluster of 7 and 6 chunks),
     4,096 (Llama-7B's: 8 CTAs of 8 chunks), 5,120 (Llama-13B's) and 8,192
     (Llama-2-70B's; both past 4,096 columns: two E-groups each computing
-    the same logits), ragged N and V. The wide tensor-core dH and dW
-    summaries record each width's plan as the library reports it
-    (:func:`wide_plans`). Returns the summary entries (without times and
-    launches)."""
+    the same logits), ragged N and V; and ``wide_fwd_cluster``, whose
+    forward runs on a cluster of C > 1 CTAs (one with a tile past V).
+    The wide tensor-core summaries record the plans as the library
+    reports them (:func:`wide_plans`): dH's and dW's at each width, the
+    forward's at each case's (N, V) and at the Llama shape. Returns the
+    summary entries (without times and launches)."""
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     errs = {k: {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0} for k in FUSED}
     for case, n, vocab, e in (("vocab_50257", 333, 50257, 768),
@@ -2429,19 +2443,40 @@ def phase_fused_kernels(device, ops):
             source="hetu_tpu_torch/csrc/fused_ce.cu",
             replaces=f"hetu_tpu/ops/fused_ce_pallas.py:{line}",
             **errs[kernel])
-    for kernel, plans in wide_plans([e for *_, e in WIDE_CASES]).items():
-        results[kernel]["tensor_core_wide_plan"] = plans
+    plans = wide_plans(sorted({e for *_, e in WIDE_CASES}),
+                       [(n, v) for _, n, v, _ in WIDE_CASES]
+                       + [LLAMA_FUSED_SHAPE[:2]])
+    check(plans["fused_ce_fwd"]["8000x800"]["cluster"] > 1,
+          f"wide_fwd_cluster: the forward's plan "
+          f"{plans['fused_ce_fwd']['8000x800']} takes no cluster")
+    for kernel, plan in plans.items():
+        results[kernel]["tensor_core_wide_plan"] = plan
     return results
 
 
-def wide_plans(widths) -> dict:
-    """The wide tensor-core dH and dW plans at each width, as the built
-    library reports them (``ops.fused_ce.wide_info``: cluster size, E
-    chunks of the logits a CTA sums, E-groups, which is how many times
-    the logits are computed, and ``cudaOccupancyMaxActiveClusters``),
-    held to the rule the port states (``ops.fused_ce.wide_plan``)."""
-    from hetu_tpu_torch.ops.fused_ce import wide_info, wide_plan
-    out = {}
+def wide_plans(widths, fwd_shapes) -> dict:
+    """The wide tensor-core plans as the built library reports them,
+    held to the rules the port states. dH and dW at each width
+    (``ops.fused_ce.wide_info``: cluster size, E chunks of the logits a
+    CTA sums, E-groups, which is how many times the logits are computed,
+    and ``cudaOccupancyMaxActiveClusters``; ``ops.fused_ce.wide_plan``);
+    the forward at each (N, V) of ``fwd_shapes``
+    (``ops.fused_ce.wide_fwd_info``: cluster size, the CTAs the card
+    holds at once in clusters of each size, CTAs launched and those of
+    the first wave; ``ops.fused_ce.wide_fwd_plan`` on the card's
+    slots)."""
+    from hetu_tpu_torch.ops.fused_ce import (
+        wide_fwd_info, wide_fwd_plan, wide_info, wide_plan,
+    )
+    out = {"fused_ce_fwd": {}}
+    for n, vocab in fwd_shapes:
+        info = wide_fwd_info(n, vocab)
+        want = wide_fwd_plan(n, vocab, info["slots"])
+        check(info["cluster"] == want and info["cluster"] > 0,
+              f"fused_ce_fwd wide plan at N = {n}, V = {vocab}: {info}, "
+              f"rule {want}")
+        out["fused_ce_fwd"][f"{n}x{vocab}"] = info
+    emit(phase="wide_plan", kernel="fused_ce_fwd", plans=out["fused_ce_fwd"])
     for kernel in ("fused_ce_dh", "fused_ce_dw"):
         out[kernel] = {}
         for e in widths:
@@ -4886,6 +4921,8 @@ def phase_llama_fused_kernel_times(device, timer, ops, results, launches):
                             4.0 * n * vocab * e),
             "fused_ce_dw": (base + 3 * n * 4 + vocab * e * 2,
                             4.0 * n * vocab * e)}
+    from hetu_tpu_torch.ops.fused_ce import wide_fwd_info
+    fwd_plan = wide_fwd_info(n, vocab)
     for kernel, (fn, plain) in calls.items():
         ms = timer(fn, iters=3, warmup=1)
         plain_ms = timer(plain, iters=2, warmup=1)
@@ -4894,9 +4931,11 @@ def phase_llama_fused_kernel_times(device, timer, ops, results, launches):
         t = dict(ms=ms, plain_ms=plain_ms,
                  library_ms=lib_fwd if kernel == "fused_ce_fwd" else lib_both,
                  gemm_ms=gemm_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 bytes=nbytes, flops=flops, lane="tensor_core_wide",
+                 bytes=nbytes, flops=flops,
+                 lane=ops.fused_ce_lane(h.dtype, w.dtype, e),
                  launches=launches.get(kernel, 0),
-                 max_abs_err_bf16=errs[kernel]["max_abs_err_bf16"])
+                 max_abs_err_bf16=errs[kernel]["max_abs_err_bf16"],
+                 **({"plan": fwd_plan} if kernel == "fused_ce_fwd" else {}))
         emit(phase="kernel_time", kernel=kernel, case="llama_train",
              dtype="bfloat16", shape=[n, vocab, e], **t)
         results[kernel]["llama_train_shape"] = dict(t, shape=[n, vocab, e])
@@ -7448,9 +7487,11 @@ def int8_gemm_kernels(device, shapes) -> set:
     """The names of the kernels ``torch._int_mm`` launches at each (rows,
     in, out) of ``shapes`` (one layer's products as the lane runs them,
     rows padded as ``int8_mm`` pads them), from the profiler over a few
-    calls of each: the int8 GEMM's own kernels. Late in a long process a
-    window of short launches has recorded no kernel at all, so an empty
-    window is profiled again, up to three in all."""
+    calls of each: the int8 GEMM's own kernels. A window of a few short
+    launches often records no kernel at all (the first window did in
+    every run of the script; once all three of 5 calls each did), so
+    each window makes 20 calls of each product, and an empty one is
+    profiled again, up to six in all."""
     from torch.profiler import ProfilerActivity, profile
     ops = [(torch.zeros(m, k, dtype=torch.int8, device=device),
             torch.zeros(n, k, dtype=torch.int8, device=device).t())
@@ -7458,10 +7499,11 @@ def int8_gemm_kernels(device, shapes) -> set:
     for a, b in ops:
         torch._int_mm(a, b)
     torch.cuda.synchronize()
-    for window in range(3):
+    windows = 6
+    for window in range(windows):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
+            for _ in range(20):
                 for a, b in ops:
                     torch._int_mm(a, b)
             torch.cuda.synchronize()
@@ -7470,7 +7512,7 @@ def int8_gemm_kernels(device, shapes) -> set:
         if counts:
             return set(counts)
         emit(phase="profile_retry", of="int8_gemm_kernels",
-             window=window + 1, windows=3)
+             window=window + 1, windows=windows)
     check(False, "the profiler recorded no int8 GEMM kernel")
     return set()
 

@@ -74,14 +74,16 @@
 // The details and the L2 reckoning are at each kernel.
 //
 // The wide lanes (E past kMaxE, any multiple of 64, on both lanes): the
-// forward's tensor-core kernel already streams E and serves them as it
-// is; the CUDA-core forward and backward kernels stream E in 64-column
-// k-chunks, their dh / dw splitting E across a grid axis, each block
-// recomputing the logits over the whole of E for its 512 output columns
+// CUDA-core forward and backward kernels stream E in 64-column k-chunks,
+// their dh / dw splitting E across a grid axis, each block recomputing
+// the logits over the whole of E for its 512 output columns
 // (fused_ce_fwd_wide_kernel, fused_ce_bwd_wide_body). The tensor-core dh
 // and dw (fused_ce_bwd_wide_tc_body) split E across the CTAs of a cluster
 // of up to 8 instead, which sum the logits once and share them through
-// distributed shared memory, on wgmma.
+// distributed shared memory, on wgmma. The tensor-core forward
+// (fused_ce_fwd_wide_tc_kernel) splits the vocab across the CTAs of a
+// cluster that share one token tile, on wgmma fed by TMA, and combines
+// their online-softmax states through distributed shared memory.
 
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap (the driver is reached by entry point)
@@ -518,8 +520,8 @@ int launch_bwd(const void* h, const void* w, const void* labels,
 // The cost of the recompute: dh and dw each do (E / 512) 2nVE flops for the
 // logits plus 2nVE for the product, 18 nVE at E = 4096, 4.5x the 4nVE of
 // the bound. Sharing s across the blocks of a cluster is the fast design.
-// The forward needs no split (its accumulator does not hold E): it streams
-// k-chunks of both operands into the same Logits fragments.
+// The CUDA-core forward needs no split (its accumulator does not hold E):
+// it streams k-chunks of both operands into the same Logits fragments.
 constexpr int kWideK = 64;       // E columns per streamed k-chunk
 constexpr int kWideSlice = 512;  // dh / dw output columns per block
 
@@ -828,32 +830,22 @@ constexpr int kChunk = 64;       // E columns per streamed k-chunk (128 bytes)
 //     in the 50 MB L2; the h tiles they re-read hold 132 x 192 KB = 26 MB.
 //     A 128 x 256 tile is the largest whose accumulators fit 8 warps'
 //     registers beside the fragments (255 a thread at one block an SM).
-//
-// The wide lane's forward, fused_ce_fwd_wide_tc_kernel, is the same body
-// with kVocab = 128 and kPromote: each 64-column k-chunk's products are
-// summed from zero into a second set of accumulators and added into s
-// once a chunk (an fp32 add that rounds to nearest), because the tensor
-// cores' own fp32 sum over E / 16 steps drifts with E (at E = 5120 its
-// logits stood 0.95 of FUSED_TOL_LSE from the plain version's). Two sets
-// of 2 x 8 tiles fit the registers where two of 2 x 16 would not; the
-// price is w read from L2 once a 128-column tile.
+// Past kMaxE the forward takes fused_ce_fwd_wide_tc_kernel (below, after
+// the wgmma primitives).
 constexpr int kFwdTokens = 128;
 constexpr int kFwdVocab = 256;
 constexpr int kFwdStages = 4;
+constexpr size_t kFwdTcSmem =
+    (size_t)kFwdStages * (kFwdTokens + kFwdVocab) * kChunk * sizeof(bf16);
 
-template <int kVocab>
-__host__ __device__ constexpr size_t fwd_tc_smem() {
-  return (size_t)kFwdStages * (kFwdTokens + kVocab) * kChunk * sizeof(bf16);
-}
-
-template <int kVocab, bool kPromote>
-__device__ __forceinline__ void fused_ce_fwd_tc_body(
-    const bf16* __restrict__ h, const bf16* __restrict__ w,
-    const int* __restrict__ labels, float* __restrict__ lse,
-    float* __restrict__ tgt, int n, int vocab, int E) {
-  constexpr int kFwdNT = kVocab / 2 / 8;  // n8 tiles a warp
-  constexpr int kStage = (kFwdTokens + kVocab) * kChunk;  // elements
-  constexpr int kCopies = (kFwdTokens + kVocab) * 8 / kTcThreads;  // 12, 8
+__global__ void __launch_bounds__(kTcThreads, 1)
+fused_ce_fwd_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
+                       const int* __restrict__ labels,
+                       float* __restrict__ lse, float* __restrict__ tgt,
+                       int n, int vocab, int E) {
+  constexpr int kFwdNT = kFwdVocab / 2 / 8;  // n8 tiles a warp
+  constexpr int kStage = (kFwdTokens + kFwdVocab) * kChunk;  // elements
+  constexpr int kCopies = (kFwdTokens + kFwdVocab) * 8 / kTcThreads;  // 12
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* ring = reinterpret_cast<bf16*>(smem_raw);
 
@@ -862,7 +854,7 @@ __device__ __forceinline__ void fused_ce_fwd_tc_body(
   const int wr = warp >> 1, wc = warp & 1;
   const int r0 = blockIdx.x * kFwdTokens;
   const int kc = E / kChunk;  // k-chunks per vocab tile
-  const int n_tiles = (vocab + kVocab - 1) / kVocab;
+  const int n_tiles = (vocab + kFwdVocab - 1) / kFwdVocab;
   const int total = n_tiles * kc;
 
   // copy k (< kCopies) of chunk c (vocab tile c / kc, E columns (c % kc) *
@@ -878,7 +870,7 @@ __device__ __forceinline__ void fused_ce_fwd_tc_body(
                  h + (size_t)(in ? r0 + r : 0) * E + e0, in);
     } else {
       const int rv = r + 128 * ((k - 4) >> 2);
-      const int v = (c / kc) * kVocab + rv;
+      const int v = (c / kc) * kFwdVocab + rv;
       const bool in = v < vocab;
       cp_async16(hs + kFwdTokens * kChunk + swz<kChunk>(rv, (tid & 7) * 8),
                  w + (size_t)(in ? v : 0) * E + e0, in);
@@ -904,9 +896,7 @@ __device__ __forceinline__ void fused_ce_fwd_tc_body(
       l[i][r] = tp[i][r] = 0.f;
     }
 
-  // kPromote: the products go to `part`, added into s once a chunk
-  float s[2][kFwdNT][4], part[2][kFwdNT][4];
-  float(&acc)[2][kFwdNT][4] = kPromote ? part : s;
+  float s[2][kFwdNT][4];
   for (int vt = 0; vt < n_tiles; ++vt) {
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -914,14 +904,6 @@ __device__ __forceinline__ void fused_ce_fwd_tc_body(
       for (int j = 0; j < kFwdNT; ++j)
         s[i][j][0] = s[i][j][1] = s[i][j][2] = s[i][j][3] = 0.f;
     for (int kq = 0; kq < kc; ++kq) {
-      if constexpr (kPromote) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < kFwdNT; ++j)
-            part[i][j][0] = part[i][j][1] = part[i][j][2] = part[i][j][3] =
-                0.f;
-      }
       const int c = vt * kc + kq;
       cp_async_wait<kFwdStages - 2>();
       __syncthreads();  // chunk c landed for all; chunk c - 1's stage free
@@ -938,33 +920,25 @@ __device__ __forceinline__ void fused_ce_fwd_tc_body(
         const MmaBf16::A a1 = ldsm_a<kChunk>(hs, wr * 32 + 16, kk * 16);
         // the next B pair is loaded while one is multiplied
         MmaBf16::B b[2][2];
-        ldsm_bt<kChunk>(b[0][0], b[0][1], ws, wc * (kVocab / 2), kk * 16);
+        ldsm_bt<kChunk>(b[0][0], b[0][1], ws, wc * (kFwdVocab / 2), kk * 16);
 #pragma unroll
         for (int j = 0; j < kFwdNT; j += 2) {
           const int cur = (j >> 1) & 1;
           if (j + 2 < kFwdNT)
             ldsm_bt<kChunk>(b[cur ^ 1][0], b[cur ^ 1][1], ws,
-                            wc * (kVocab / 2) + (j + 2) * 8, kk * 16);
-          MmaBf16::mma(acc[0][j], a0, b[cur][0]);
-          MmaBf16::mma(acc[0][j + 1], a0, b[cur][1]);
-          MmaBf16::mma(acc[1][j], a1, b[cur][0]);
-          MmaBf16::mma(acc[1][j + 1], a1, b[cur][1]);
+                            wc * (kFwdVocab / 2) + (j + 2) * 8, kk * 16);
+          MmaBf16::mma(s[0][j], a0, b[cur][0]);
+          MmaBf16::mma(s[0][j + 1], a0, b[cur][1]);
+          MmaBf16::mma(s[1][j], a1, b[cur][0]);
+          MmaBf16::mma(s[1][j + 1], a1, b[cur][1]);
         }
       }
       cp_async_commit();
-      if constexpr (kPromote) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < kFwdNT; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[i][j][e] += part[i][j][e];
-      }
     }
 
     // the warp's columns v0 + j * 8 + 2t + (e & 1); past V: -1e30
-    const int v0 = vt * kVocab + wc * (kVocab / 2);
-    if (v0 + kVocab / 2 > vocab) {
+    const int v0 = vt * kFwdVocab + wc * (kFwdVocab / 2);
+    if (v0 + kFwdVocab / 2 > vocab) {
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -1035,34 +1009,13 @@ __device__ __forceinline__ void fused_ce_fwd_tc_body(
   }
 }
 
-__global__ void __launch_bounds__(kTcThreads, 1)
-fused_ce_fwd_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
-                       const int* __restrict__ labels,
-                       float* __restrict__ lse, float* __restrict__ tgt,
-                       int n, int vocab, int E) {
-  fused_ce_fwd_tc_body<kFwdVocab, false>(h, w, labels, lse, tgt, n, vocab, E);
-}
-
-__global__ void __launch_bounds__(kTcThreads, 1)
-fused_ce_fwd_wide_tc_kernel(const bf16* __restrict__ h,
-                            const bf16* __restrict__ w,
-                            const int* __restrict__ labels,
-                            float* __restrict__ lse, float* __restrict__ tgt,
-                            int n, int vocab, int E) {
-  fused_ce_fwd_tc_body<kFwdVocab / 2, true>(h, w, labels, lse, tgt, n, vocab,
-                                            E);
-}
-
-template <bool kWide>
 int launch_fwd_tc(const void* h, const void* w, const void* labels,
                   void* lse, void* tgt, int n, int vocab, int E,
                   cudaStream_t stream) {
-  constexpr size_t smem = fwd_tc_smem<kWide ? kFwdVocab / 2 : kFwdVocab>();
-  auto kernel = kWide ? fused_ce_fwd_wide_tc_kernel : fused_ce_fwd_tc_kernel;
-  cudaError_t err = allow_smem(kernel, smem);
+  cudaError_t err = allow_smem(fused_ce_fwd_tc_kernel, kFwdTcSmem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (n + kFwdTokens - 1) / kFwdTokens;
-  kernel<<<blocks, kTcThreads, smem, stream>>>(
+  fused_ce_fwd_tc_kernel<<<blocks, kTcThreads, kFwdTcSmem, stream>>>(
       static_cast<const bf16*>(h), static_cast<const bf16*>(w),
       static_cast<const int*>(labels), static_cast<float*>(lse),
       static_cast<float*>(tgt), n, vocab, E);
@@ -2235,10 +2188,10 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-// The (rows, E) bf16 matrix at p as 64 x 64 boxes in the 128-byte swizzle;
-// rows past `rows` read as zeros.
-cudaError_t wide_tensor_map(CUtensorMap* map, const void* p, int rows,
-                            int E) {
+// The (rows, E) bf16 matrix at p as boxes of box_rows x 64 in the
+// 128-byte swizzle; rows past `rows` read as zeros.
+cudaError_t wide_tensor_map(CUtensorMap* map, const void* p, int rows, int E,
+                            int box_rows = 64) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -2252,7 +2205,7 @@ cudaError_t wide_tensor_map(CUtensorMap* map, const void* p, int rows,
   }
   const cuuint64_t dims[2] = {(cuuint64_t)E, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)E * sizeof(bf16)};
-  const cuuint32_t box[2] = {kChunk, 64};
+  const cuuint32_t box[2] = {kChunk, (cuuint32_t)box_rows};
   const cuuint32_t step[2] = {1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims,
@@ -2305,7 +2258,446 @@ int launch_dw_wide_tc(const void* h, const void* w, const void* labels,
       static_cast<TO*>(dw), n, vocab, E);
 }
 
+// ---- the wide lane's forward (#5, E > kMaxE) on the tensor cores ----------
+//
+// fused_ce_fwd_wide_tc_kernel replaces fused_ce_pallas.py:53 _fwd_kernel
+// (called at :187 through _fused_fwd_impl :170) past kMaxE, for bf16 h and
+// w (an fp32 w is cast once by the wrapper): per token, lse = logsumexp
+// over v of s[v], s = h w^T, online over vocab tiles, and tgt = s[label]
+// (0 for label -1); columns at or past V are -1e30.
+//
+// Bound: operations, 2 n V E, 2.171 ms at the Llama training shape (n
+// 8192, V 32000, E 4096) on 989 TFLOP/s.
+//
+// A cluster of C CTAs (1, 2, 4 or 8: fwd_wide_cluster) shares one tile of
+// 128 tokens and splits the vocab: CTA r walks the 128-column vocab tiles
+// r, r + C, r + 2C, ..., so C ceil(n / 128) CTAs run: one CTA a token
+// tile would leave 68 of the 132 SMs idle at n = 8192.
+//   - Warp specialization: one producer thread (warpgroup 2, setmaxnreg
+//     40) issues every copy; two consumer warpgroups (232 registers) own
+//     64 tokens each and run s[64 x 128] on wgmma m64n128k16 from shared
+//     memory, A = h and B = w, both K-major in the 128-byte swizzle
+//     (1024-byte aligned tiles). The role is chosen on the warpgroup
+//     index taken through a shuffle, as in the wide dh / dw body.
+//   - Copies by TMA through a ring of kWfStages stages, each one 64-column
+//     k-chunk of the 128 tokens and of the CTA's vocab tile (16 + 16 KB),
+//     with a full and an empty mbarrier a stage. The C CTAs read the same
+//     h chunk at every step, so CTA r copies rows [r 128 / C, (r + 1) 128
+//     / C) of it and multicasts them to every CTA of the cluster: h's L2
+//     reads fall by C. A stage is free once the 8 consumer warps of every
+//     CTA of the cluster have released it (8 C arrivals on each CTA's
+//     empty mbarrier, each with a CTA-scope release: a cluster-scope one
+//     made every step cost about a microsecond, and the kernel twice as
+//     slow). Rows past n and V read as zeros; nothing is padded in device
+//     memory.
+//   - Each 64-column k-chunk's four products are summed from zero into p
+//     and then added into the fp32 s in chunk order (the tensor cores'
+//     own fp32 sum over E / 16 steps drifts with E: at E = 5120 it stood
+//     0.95 of FUSED_TOL_LSE from the plain version's). s and p take 64 +
+//     64 registers a thread; a 256-column tile would need 256.
+//   - After a tile's last chunk: columns past V to -1e30, the target
+//     logit, the row max by quad shuffles and the rescaled sum (__expf),
+//     each thread keeping a partial l over its own columns. One
+//     warpgroup's update runs beside the other's products.
+//   - The combine, nothing atomic: each CTA writes its rows' (m, l, tgt)
+//     to shared memory; after a cluster barrier CTA r reads rows [r 128 /
+//     C, (r + 1) 128 / C) of every CTA through distributed shared memory
+//     and sums them in rank order: m = max m_r, l = sum l_r e^(m_r - m),
+//     tgt = sum tgt_r, lse = m + log l. Reruns are bit-equal.
+//   - Every CTA of a cluster walks ceil(vocab tiles / C) tiles, so the
+//     multicast stays in step; a CTA whose last tile is past V takes its
+//     h chunks and releases them, and its products (of a w buffer no copy
+//     refilled) are not used.
+//   - L2 reckoning: w is read once a token tile and h once per C vocab
+//     tiles, n V E 2 (1 / 128 + 1 / (128 C)) bytes: 25.2 GB at the Llama
+//     shape with C = 2 (33.6 GB if each CTA read its own h). The copies
+//     bound it: without its products the kernel takes 0.85 of its time
+//     (port_probe.py fwd-variants).
+//   - Shared memory: the ring 192 KB, the states 1.5 KB, 12 mbarriers:
+//     one CTA of 384 threads an SM. One launch a call (cudaLaunchKernelEx
+//     with a cluster dimension); hetu_fused_ce_fwd_wide_info reports the
+//     plan.
+constexpr int kWfTokens = 128;  // tokens a cluster: two 64-row warpgroups
+constexpr int kWfVocab = 128;   // vocab columns a tile
+constexpr int kWfStages = 6;
+constexpr int kWfHBytes = kWfTokens * kChunk * 2;  // an h k-chunk, 16 KB
+constexpr int kWfWBytes = kWfVocab * kChunk * 2;   // a w k-chunk, 16 KB
+constexpr int kWfStageBytes = kWfHBytes + kWfWBytes;
+// shared memory, bytes from a 1024-byte aligned base
+constexpr int kWfOffStats = kWfStages * kWfStageBytes;      // m, l, tgt
+constexpr int kWfOffBar = kWfOffStats + 3 * kWfTokens * 4;  // mbarriers
+constexpr size_t kWfSmem = kWfOffBar + 2 * kWfStages * 8 + 1024;  // + align
+// two consumer warpgroups and the producer's, whose registers setmaxnreg
+// moves to the consumers (232 x 256 + 40 x 128 = the 168 x 384 of the
+// launch)
+constexpr int kWfThreads = 384;
+constexpr int kWfConsumerRegs = 232;
+constexpr int kWfProducerRegs = 40;
+
+// a box of a 2-D tensor map, as tma_load, written at the same offset into
+// the shared memory of every CTA of the cluster in `mask` and counted on
+// each one's mbarrier at `bar`'s offset
+__device__ __forceinline__ void tma_load_multicast(void* dst,
+                                                   const CUtensorMap* map,
+                                                   int c0, int r0,
+                                                   uint32_t bar,
+                                                   uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0), "r"(bar),
+      "h"(mask)
+      : "memory");
+}
+// one arrival on the mbarrier at `bar`'s offset in CTA `rank` of the
+// cluster, with the default (CTA-scope) release: what it releases is
+// shared memory that this warp's wgmma has finished reading. (With
+// .release.cluster each arrival cost about a microsecond, and a step of
+// the ring took that long.)
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar, int rank) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(
+                   mapa(bar, rank))
+               : "memory");
+}
+
+// d (64 x 128 fp32) = or += A (64 x 16, K-major) B (16 x 128, K-major),
+// the fragment layout of wgmma_n32 over 16 column blocks of 8
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__global__ void __launch_bounds__(kWfThreads, 1)
+fused_ce_fwd_wide_tc_kernel(const __grid_constant__ CUtensorMap tmh,
+                            const __grid_constant__ CUtensorMap tmw,
+                            const int* __restrict__ labels,
+                            float* __restrict__ lse, float* __restrict__ tgt,
+                            int n, int vocab, int E) {
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  unsigned char* smem =
+      fwd_smem + ((1024 - (smem_addr(fwd_smem) & 1023)) & 1023);
+  // (m, l, tgt) of the 128 rows over this CTA's columns, for the combine
+  float* stats = reinterpret_cast<float*>(smem + kWfOffStats);
+  const uint32_t bar0 = smem_addr(smem + kWfOffBar);
+  // stage s has landed / is free in every CTA of the cluster
+  auto full = [&](int s) { return bar0 + 8 * s; };
+  auto empty = [&](int s) { return bar0 + 8 * (kWfStages + s); };
+
+  cgrp::cluster_group cluster = cgrp::this_cluster();
+  uint32_t nctas;
+  asm("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(nctas));
+  const int C = (int)nctas;
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x;
+  // the warpgroup, through a shuffle so the compiler sees it uniform
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int r0 = (blockIdx.x / C) * kWfTokens;
+  const int kc = E / kChunk;
+  const int n_tiles = (vocab + kWfVocab - 1) / kWfVocab;
+  const int tiles = (n_tiles + C - 1) / C;  // vocab tiles every CTA walks
+
+  if (tid == 0) {
+    for (int s = 0; s < kWfStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8 * C);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster.sync();  // every CTA's mbarriers set before any peer signals one
+
+  if (wg == 2) {
+    // ---- the producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kWfProducerRegs));
+    if (tid == 2 * 128) {
+      const int hb = kWfTokens / C;  // h rows this CTA copies for all
+      const uint16_t mask = (uint16_t)((1u << C) - 1);
+      int st = 0, ph = 0;
+      for (int i = 0; i < tiles; ++i) {
+        const int vt = rank + C * i;
+        for (int q = 0; q < kc; ++q) {
+          // the stage's previous round released by the whole cluster
+          if (i * kc + q >= kWfStages) mbar_wait(empty(st), ph ^ 1);
+          unsigned char* hs = smem + st * kWfStageBytes;
+          mbar_expect(full(st), kWfHBytes + (vt < n_tiles ? kWfWBytes : 0));
+          if (C == 1)
+            tma_load(hs, &tmh, q * kChunk, r0, full(st));
+          else
+            tma_load_multicast(hs + rank * hb * kChunk * 2, &tmh, q * kChunk,
+                               r0 + rank * hb, full(st), mask);
+          if (vt < n_tiles)
+            tma_load(hs + kWfHBytes, &tmw, q * kChunk, vt * kWfVocab,
+                     full(st));
+          if (++st == kWfStages) {
+            st = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+    cluster.sync();  // the states written
+    cluster.sync();  // and read
+  } else {
+    // ---- the two consumer warpgroups ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kWfConsumerRegs));
+    const int lane = tid & 31, w = (tid >> 5) & 3, g = lane >> 2, t = lane & 3;
+    // rows 64 wg + 16 w + g + 8 h of the token tile: their labels and
+    // online state over this thread's columns (m is the quad's)
+    int lab[2];
+    float m[2], l[2], tp[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 64 * wg + 16 * w + g + 8 * h;
+      lab[h] = row < n ? labels[row] : -1;
+      m[h] = -CUDART_INF_F;
+      l[h] = tp[h] = 0.f;
+    }
+    // s[4 j + e]: row 16 w + g + 8 (e >> 1), column 8 j + 2 t + (e & 1)
+    float s[64], p[64];
+    int st = 0, ph = 0;
+    for (int i = 0; i < tiles; ++i) {
+#pragma unroll
+      for (int e = 0; e < 64; ++e) s[e] = 0.f;
+      for (int q = 0; q < kc; ++q) {
+        mbar_wait(full(st), ph);
+        const unsigned char* hs = smem + st * kWfStageBytes;
+        const uint64_t da = wg_desc(hs + wg * 64 * kChunk * 2, 16, 1024);
+        const uint64_t db = wg_desc(hs + kWfHBytes, 16, 1024);
+        wg_fence();
+#pragma unroll
+        for (int k = 0; k < kChunk / 16; ++k)
+          wgmma_n128(p, da + 2 * k, db + 2 * k, k);
+        wg_commit();
+        wg_wait<0>();
+#pragma unroll
+        for (int e = 0; e < 64; ++e) {
+          wg_pin(p[e]);
+          s[e] += p[e];
+        }
+        // this warp is done with the stage: one arrival in every CTA
+        __syncwarp();
+        if (lane < C) mbar_arrive_remote(empty(st), lane);
+        if (++st == kWfStages) {
+          st = 0;
+          ph ^= 1;
+        }
+      }
+      const int vt = rank + C * i;
+      if (vt < n_tiles) {
+        const int v0 = vt * kWfVocab;
+        if (v0 + kWfVocab > vocab) {
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (v0 + 8 * j + 2 * t + (e & 1) >= vocab)
+                s[4 * j + e] = kNegInf;
+        }
+        const int rel[2] = {lab[0] - v0 - 2 * t, lab[1] - v0 - 2 * t};
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (8 * j + (e & 1) == rel[e >> 1]) tp[e >> 1] += s[4 * j + e];
+            mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+          }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        }
+        float x[2] = {0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            x[e >> 1] += __expf(s[4 * j + e] - mx[e >> 1]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          l[h] = l[h] * __expf(m[h] - mx[h]) + x[h];
+          m[h] = mx[h];
+        }
+      }
+    }
+    // each row's state over this CTA's columns, one thread of the quad
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float lt = l[h], tt = tp[h];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      tt += __shfl_xor_sync(0xffffffffu, tt, 1);
+      tt += __shfl_xor_sync(0xffffffffu, tt, 2);
+      const int row = 64 * wg + 16 * w + g + 8 * h;
+      if (t == 0) {
+        stats[row] = m[h];
+        stats[kWfTokens + row] = lt;
+        stats[2 * kWfTokens + row] = tt;
+      }
+    }
+    cluster.sync();  // every CTA's states written (every copy landed)
+    // rows [rank rows, (rank + 1) rows) from every CTA, in rank order
+    const int rows = kWfTokens / C;
+    if (tid < rows && r0 + rank * rows + tid < n) {
+      const int row = rank * rows + tid;
+      float mm = -CUDART_INF_F;
+      for (int src = 0; src < C; ++src)
+        mm = fmaxf(mm, cluster.map_shared_rank(stats, src)[row]);
+      float lt = 0.f, tt = 0.f;
+      for (int src = 0; src < C; ++src) {
+        const float* ps = cluster.map_shared_rank(stats, src);
+        lt += ps[kWfTokens + row] * __expf(ps[row] - mm);
+        tt += ps[2 * kWfTokens + row];
+      }
+      lse[r0 + row] = mm + logf(lt);
+      tgt[r0 + row] = tt;
+    }
+    cluster.sync();  // no CTA leaves while a peer reads its states
+  }
+}
+
+// the launch configuration of the wide forward: `ctas` CTAs in clusters
+// of C
+inline cudaLaunchConfig_t fwd_wide_config(int C, int ctas,
+                                          cudaStream_t stream,
+                                          cudaLaunchAttribute* attr) {
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(kWfThreads);
+  cfg.dynamicSmemBytes = kWfSmem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// slots[i]: the CTAs of clusters of 1 << i that the current card holds at
+// once (cudaOccupancyMaxActiveClusters x the cluster size), asked once a
+// device
+cudaError_t fwd_wide_slots(int (&slots)[4]) {
+  constexpr int kDevices = 64;
+  static int cache[kDevices][4];
+  static bool known[kDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool cached = dev < kDevices && known[dev];
+  if (!cached) {
+    err = allow_smem(fused_ce_fwd_wide_tc_kernel, kWfSmem);
+    for (int i = 0; i < 4 && err == cudaSuccess; ++i) {
+      cudaLaunchAttribute attr[1];
+      const cudaLaunchConfig_t cfg =
+          fwd_wide_config(1 << i, 1 << i, nullptr, attr);
+      int clusters = 0;
+      err = cudaOccupancyMaxActiveClusters(
+          &clusters, reinterpret_cast<const void*>(fused_ce_fwd_wide_tc_kernel),
+          &cfg);
+      slots[i] = clusters << i;
+    }
+    if (err != cudaSuccess) return err;
+    if (dev < kDevices) {
+      for (int i = 0; i < 4; ++i) cache[dev][i] = slots[i];
+      known[dev] = true;
+    }
+  } else {
+    for (int i = 0; i < 4; ++i) slots[i] = cache[dev][i];
+  }
+  return cudaSuccess;
+}
+
+// The forward's cluster size at (n, vocab): of C = 1, 2, 4 and 8, the one
+// with the fewest tile-steps, ceil(C ceil(n / 128) / slots_C) waves of
+// ceil(vocab tiles / C) tiles each; a tie goes to the smaller C (less h
+// traffic, a shorter combine). 0 if no cluster size fits the card.
+// ops/fused_ce.py wide_fwd_plan is the same rule.
+int fwd_wide_cluster(int n, int vocab, const int (&slots)[4]) {
+  const long long tiles = (n + kWfTokens - 1) / kWfTokens;
+  const long long vtiles = (vocab + kWfVocab - 1) / kWfVocab;
+  int best = 0;
+  long long best_steps = 0;
+  for (int i = 0; i < 4; ++i) {
+    if (slots[i] <= 0) continue;
+    const long long C = 1 << i;
+    const long long steps =
+        (C * tiles + slots[i] - 1) / slots[i] * ((vtiles + C - 1) / C);
+    if (best == 0 || steps < best_steps) {
+      best = (int)C;
+      best_steps = steps;
+    }
+  }
+  return best;
+}
+
+int launch_fwd_wide_tc(const void* h, const void* w, const void* labels,
+                       void* lse, void* tgt, int n, int vocab, int E,
+                       cudaStream_t stream) {
+  int slots[4];
+  cudaError_t err = fwd_wide_slots(slots);
+  if (err != cudaSuccess) return (int)err;
+  const int C = fwd_wide_cluster(n, vocab, slots);
+  if (C == 0) return (int)cudaErrorInvalidConfiguration;
+  CUtensorMap tmh, tmw;
+  err = wide_tensor_map(&tmh, h, n, E, kWfTokens / C);
+  if (err == cudaSuccess)
+    err = wide_tensor_map(&tmw, w, vocab, E, kWfVocab);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = fwd_wide_config(
+      C, C * ((n + kWfTokens - 1) / kWfTokens), stream, attr);
+  err = cudaLaunchKernelEx(&cfg, fused_ce_fwd_wide_tc_kernel, tmh, tmw,
+                           static_cast<const int*>(labels),
+                           static_cast<float*>(lse), static_cast<float*>(tgt),
+                           n, vocab, E);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// The wide tensor-core forward's plan at (n, vocab): info[0] the cluster
+// size C (fwd_wide_cluster), info[1..4] the CTAs of clusters of 1, 2, 4
+// and 8 that the card holds at once, info[5] the CTAs launched, C ceil(n
+// / 128).
+extern "C" int hetu_fused_ce_fwd_wide_info(int n, int vocab, int* info) {
+  if (n <= 0 || vocab <= 0) return (int)cudaErrorInvalidValue;
+  int slots[4];
+  const cudaError_t err = fwd_wide_slots(slots);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = fwd_wide_cluster(n, vocab, slots);
+  for (int i = 0; i < 4; ++i) info[1 + i] = slots[i];
+  info[5] = info[0] * ((n + kWfTokens - 1) / kWfTokens);
+  return 0;
+}
 
 // The wide tensor-core dh / dw plan at width E (a multiple of 64 past
 // kMaxE): info[0] the cluster size, info[1] the E chunks of s a CTA sums,
@@ -2352,8 +2744,8 @@ extern "C" int hetu_fused_ce_fwd(const void* h, const void* w,
   if (h_bf16) {
     if (!w_bf16) return (int)cudaErrorInvalidValue;
     if (E > kMaxE)
-      return launch_fwd_tc<true>(h, w, labels, lse, tgt, n, vocab, E, s);
-    return launch_fwd_tc<false>(h, w, labels, lse, tgt, n, vocab, E, s);
+      return launch_fwd_wide_tc(h, w, labels, lse, tgt, n, vocab, E, s);
+    return launch_fwd_tc(h, w, labels, lse, tgt, n, vocab, E, s);
   }
   if (E > kMaxE) {
     if (w_bf16)

@@ -24,11 +24,13 @@ tensor-core lane (``fused_ce_fwd_tc_kernel``; ``fused_ce_dh_tc_kernel``
 and ``fused_ce_dw_tc_kernel``, each on a two-CTA cluster); with fp32 h
 they run the CUDA-core lane. Past ``MAX_E`` = 768 (Llama's 4,096, say)
 each takes its wide form (``"tensor_core_wide"``, ``"cuda_core_wide"``):
-the forward's tensor-core kernel streams E as it is; the tensor-core dH
-and dW split E across a cluster of up to 8 CTAs that compute the logits
-once and share them (:func:`wide_plan`); the CUDA-core ones split E into
-512-column blocks on a grid axis, each recomputing the logits over all
-of E (still one launch a call). The forward and dH tensor-core kernels
+the tensor-core forward splits the vocab across a cluster of 1-8 CTAs
+that share one 128-token tile and combine their online-softmax states
+(:func:`wide_fwd_plan`); the tensor-core dH and dW split E across a
+cluster of up to 8 CTAs that compute the logits once and share them
+(:func:`wide_plan`); the CUDA-core ones split E into 512-column blocks
+on a grid axis, each recomputing the logits over all of E (still one
+launch a call). The forward and dH tensor-core kernels
 read bf16 w, so an fp32 w is cast to bf16 once before their launch (the
 values the TPU kernels' per-tile cast gives); dW, whose resident operand
 is w, reads w in its own dtype, rounds an fp32 w to bf16 as it stages
@@ -167,6 +169,43 @@ def wide_plan(e: int) -> tuple[int, int, int]:
         c *= 2
     p = -(-chunks // c)
     return c, p, -(-p // 8)
+
+
+def wide_fwd_plan(n: int, vocab: int, slots: dict) -> int:
+    """The cluster size C of the wide tensor-core forward (#5 past
+    ``MAX_E``) at n tokens and ``vocab`` (``fwd_wide_cluster`` in
+    ``csrc/fused_ce.cu``, which the launch follows): C CTAs share one tile
+    of 128 tokens, CTA r walking the 128-column vocab tiles r, r + C, ...
+    Of C = 1, 2, 4 and 8, the one with the fewest tile-steps,
+    ``ceil(C ceil(n / 128) / slots[C])`` waves of ``ceil(vocab tiles /
+    C)`` tiles each; a tie goes to the smaller C. ``slots[C]`` is how many
+    CTAs in clusters of C the card holds at once (:func:`wide_fwd_info`
+    reads it from the card); 0 if no cluster size fits."""
+    tiles, vtiles = -(-n // 128), -(-vocab // 128)
+    best, best_steps = 0, 0
+    for c in (1, 2, 4, 8):
+        if slots.get(c, 0) <= 0:
+            continue
+        steps = -(-c * tiles // slots[c]) * -(-vtiles // c)
+        if best == 0 or steps < best_steps:
+            best, best_steps = c, steps
+    return best
+
+
+def wide_fwd_info(n: int, vocab: int) -> dict:
+    """The wide tensor-core forward's launch at (n, vocab) as the library
+    plans it on the current card (``hetu_fused_ce_fwd_wide_info``):
+    ``cluster`` (C), ``slots`` (CTAs in clusters of 1, 2, 4 and 8 the card
+    holds at once, from ``cudaOccupancyMaxActiveClusters``), ``ctas`` (C
+    ceil(n / 128)) and ``sms_busy`` (the CTAs of the first wave). Needs
+    the built kernels and a CUDA device."""
+    lib, fn = _build.kernel("fused_ce", "hetu_fused_ce_fwd_wide_info",
+                            [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    info = (ctypes.c_int * 6)()
+    _build.check(lib, fn(n, vocab, info), "fused_ce fwd_wide_info")
+    slots = {1 << i: info[1 + i] for i in range(4)}
+    return dict(cluster=info[0], slots=slots, ctas=info[5],
+                sms_busy=min(info[5], slots.get(info[0], 0)))
 
 
 def wide_info(e: int, which: str) -> dict:

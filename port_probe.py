@@ -6,6 +6,7 @@ beside ``chip_smoke.py``, whose phase functions they run:
     python3 port_probe.py fused             # fused CE rate against N, V
     python3 port_probe.py fused OLD NEW     # the same, two trees in turns
     python3 port_probe.py wide-phases       # wide dH / dW cycles by phase
+    python3 port_probe.py fwd-variants      # wide forward's costs, by variant
     python3 port_probe.py steps OLD NEW     # step times of two trees
     python3 port_probe.py serve OLD NEW     # serving bursts of two trees
     python3 port_probe.py int8              # torch._int_mm's rows, layouts
@@ -30,7 +31,11 @@ and whether dW's, which streams h (75.5 MB at N = 49,152, 13 MB at
 8,448) and runs one cluster per 64 vocab rows, moves with them: that
 tells a kernel bound inside the SM from one bound by the memory system.
 Then the Llama training shape (8,192, 32,000, 4,096), where all three
-take their wide tensor-core lanes. ``fused OLD NEW`` runs the same in
+take their wide tensor-core lanes. Each kernel is timed after
+``SETTLE_S`` of idle card, so that no reading depends on the power the
+kernel timed before it drew (dH timed right after a forward that runs
+the card at full power read 7-8% slower than after the parent's lighter
+forward). ``fused OLD NEW`` runs the same in
 turns OLD, NEW, NEW, OLD, each tree in a process of its own
 (``fused-of TREE TAG`` is one turn), so two trees' kernels are timed on
 one card.
@@ -62,6 +67,20 @@ array), builds it beside the real library under
 ``build/hetu_tpu_torch/probe/`` and prints, per kernel, its time with
 the counters on and the cycles a tile of each phase. The counters cost a little time themselves; the kernel's own
 time comes from ``fused``.
+
+``fwd-variants`` builds copies of ``csrc/fused_ce.cu`` in which the
+wide tensor-core forward (``fused_ce_fwd_wide_tc_kernel``) is changed in
+one way each, and times each beside the kernel as built at the Llama
+shape, in turns (each variant twice, the second pass in reverse order):
+``no_products`` (the ring, the waits and the softmax without a wgmma:
+the floor its copies set), ``no_w`` (h's multicast copies only, the
+products on a w buffer never filled), ``one_cta`` (C = 1: one CTA a
+token tile, no vocab split, no multicast), ``release_cluster`` (the
+consumers' remote arrival with a cluster-scope release) and
+``double_p`` (a second accumulator set, chunk q + 1 issued before chunk
+q is added into s). Each variant's result against the plain version is
+printed (the first two compute nothing meaningful) and its ``ptxas``
+registers and spills.
 
 ``int8`` asks ``torch._int_mm`` (the W8A8 lane's int32 product) which
 row counts it takes on this card at Llama-7B's FFN shapes (4,096 ->
@@ -165,6 +184,10 @@ FUSED_SHAPES = ((49152, 50257, 768), (49152, 16384, 768),
                 (49152, 8192, 768), (8448, 50257, 768), (8192, 32000, 4096))
 
 
+#: seconds of idle card before each of ``fused``'s timings
+SETTLE_S = 1.0
+
+
 def fused_of(tree: str, tag: str) -> int:
     sys.path.insert(0, os.path.abspath(tree))
     import chip_smoke as cs
@@ -181,11 +204,15 @@ def fused_of(tree: str, tag: str) -> int:
         lse, _ = ops.fused_ce_fwd(h, w, lab)
         nve = float(n) * vocab * e
         iters = 5 if e <= 768 else 3
-        fwd_ms = timer(lambda: ops.fused_ce_fwd(h, w, lab), iters=iters)
-        dh_ms = timer(lambda: ops.fused_ce_dh(h, w, lab, lse, g, -g),
-                      iters=iters)
-        dw_ms = timer(lambda: ops.fused_ce_dw(h, w, lab, lse, g, -g),
-                      iters=iters)
+
+        def settled(fn):
+            torch.cuda.synchronize()
+            time.sleep(SETTLE_S)
+            return timer(fn, iters=iters)
+
+        fwd_ms = settled(lambda: ops.fused_ce_fwd(h, w, lab))
+        dh_ms = settled(lambda: ops.fused_ce_dh(h, w, lab, lse, g, -g))
+        dw_ms = settled(lambda: ops.fused_ce_dw(h, w, lab, lse, g, -g))
         cs.emit(phase="fused_rate", tree=tag, card=card, n=n, vocab=vocab,
                 e=e, lane=ops.fused_ce_lane(h.dtype, w.dtype, e),
                 fwd_ms=fwd_ms, dh_ms=dh_ms, dw_ms=dw_ms,
@@ -340,6 +367,179 @@ def wide_phases() -> int:
                 note="x_: the exchange warpgroup's phases, each tile from "
                      "its statistics' wait to its next tile's copies")
     return 0
+
+
+#: ``fwd-variants``: (variant, [(a piece of the wide forward's source, its
+#: replacement)]); every piece occurs once
+FWD_LOOP = """        wg_fence();
+#pragma unroll
+        for (int k = 0; k < kChunk / 16; ++k)
+          wgmma_n128(p, da + 2 * k, db + 2 * k, k);
+        wg_commit();
+        wg_wait<0>();
+#pragma unroll
+        for (int e = 0; e < 64; ++e) {
+          wg_pin(p[e]);
+          s[e] += p[e];
+        }
+        // this warp is done with the stage: one arrival in every CTA
+        __syncwarp();
+        if (lane < C) mbar_arrive_remote(empty(st), lane);
+        if (++st == kWfStages) {
+          st = 0;
+          ph ^= 1;
+        }
+      }
+"""
+FWD_VARIANTS = {
+    "no_products": [("          wgmma_n128(p, da + 2 * k, db + 2 * k, k);\n",
+                     "          ;\n")],
+    "no_w": [("          mbar_expect(full(st), kWfHBytes + (vt < n_tiles ? "
+              "kWfWBytes : 0));",
+              "          mbar_expect(full(st), kWfHBytes);"),
+             ("          if (vt < n_tiles)\n            tma_load(hs + "
+              "kWfHBytes", "          if (false)\n            tma_load(hs + "
+              "kWfHBytes")],
+    "one_cta": [("  return best;\n}\n\nint launch_fwd_wide_tc",
+                 "  return slots[0] > 0 ? 1 : 0;\n}\n\n"
+                 "int launch_fwd_wide_tc")],
+    "release_cluster": [('"mbarrier.arrive.shared::cluster.b64 _, [%0];',
+                         '"mbarrier.arrive.release.cluster.shared::cluster.'
+                         'b64 _, [%0];')],
+    "double_p": [("    float s[64], p[64];\n",
+                  "    float s[64], p[64], p2[64];\n"),
+                 ("      for (int q = 0; q < kc; ++q) {\n"
+                  "        mbar_wait(full(st), ph);\n"
+                  "        const unsigned char* hs = smem + st * "
+                  "kWfStageBytes;\n"
+                  "        const uint64_t da = wg_desc(hs + wg * 64 * kChunk "
+                  "* 2, 16, 1024);\n        const uint64_t db = wg_desc(hs "
+                  "+ kWfHBytes, 16, 1024);\n" + FWD_LOOP, """      auto issue = [&](float (&d)[64]) {
+        mbar_wait(full(st), ph);
+        const unsigned char* hs = smem + st * kWfStageBytes;
+        const uint64_t da = wg_desc(hs + wg * 64 * kChunk * 2, 16, 1024);
+        const uint64_t db = wg_desc(hs + kWfHBytes, 16, 1024);
+        wg_fence();
+#pragma unroll
+        for (int k = 0; k < kChunk / 16; ++k)
+          wgmma_n128(d, da + 2 * k, db + 2 * k, k);
+        wg_commit();
+        const int done = st;
+        if (++st == kWfStages) {
+          st = 0;
+          ph ^= 1;
+        }
+        return done;
+      };
+      auto retire = [&](float (&d)[64], int stage) {
+#pragma unroll
+        for (int e = 0; e < 64; ++e) {
+          wg_pin(d[e]);
+          s[e] += d[e];
+        }
+        __syncwarp();
+        if (lane < C) mbar_arrive_remote(empty(stage), lane);
+      };
+      int sa = issue(p);
+      for (int q = 0; q < kc; q += 2) {
+        int sb = 0;
+        if (q + 1 < kc) {
+          sb = issue(p2);
+          wg_wait<1>();
+        } else {
+          wg_wait<0>();
+        }
+        retire(p, sa);
+        if (q + 1 < kc) {
+          if (q + 2 < kc) {
+            sa = issue(p);
+            wg_wait<1>();
+          } else {
+            wg_wait<0>();
+          }
+          retire(p2, sb);
+        }
+      }
+""")],
+}
+
+
+def fwd_variant_source(name: str) -> str:
+    """``csrc/fused_ce.cu`` with the wide forward changed as
+    ``FWD_VARIANTS[name]`` says (the source as it is for ``as_built``)."""
+    from hetu_tpu_torch.ops import _build
+    src = (_build.CSRC / "fused_ce.cu").read_text()
+    for old, new in FWD_VARIANTS.get(name, ()):
+        assert src.count(old) == 1, (name, old)
+        src = src.replace(old, new)
+    return src
+
+
+def fwd_variants() -> int:
+    import ctypes
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    from hetu_tpu_torch import ops
+    from hetu_tpu_torch.ops import _build, fused_ce
+
+    names = ["as_built", *FWD_VARIANTS]
+    out_dir = _build.BUILD_DIR / "probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for name in names:
+        cu = out_dir / f"fused_ce_fwd_{name}.cu"
+        cu.write_text(fwd_variant_source(name))
+        so = cu.with_suffix(".so")
+        procs[name] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+             "-o", str(so), str(cu)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs, rc = {}, 0
+    for name, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        entry = [e for k, e in cs.ptxas_entries(log).items()
+                 if "fused_ce_fwd_wide_tc_kernel" in k]
+        cs.emit(phase="fwd_variant_build", variant=name, rc=proc.returncode,
+                ptxas=entry, seconds=time.perf_counter() - t0)
+        if proc.returncode:
+            print(log[-4000:], file=sys.stderr)
+            rc = 1
+            continue
+        lib = ctypes.CDLL(str(so))
+        lib.hetu_fused_ce_fwd.argtypes = fused_ce._FWD_ARGTYPES
+        libs[name] = lib
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(cs.SEED + 5)
+    n, vocab, e = cs.LLAMA_FUSED_SHAPE
+    h, w, lab, _, _ = cs.fused_inputs(gen, device, n, vocab, torch.bfloat16,
+                                      torch.bfloat16, e)
+    want_lse, want_tgt = ops.fused_lse_tgt_reference(h, w, lab)
+    lse, tgt = torch.empty_like(want_lse), torch.empty_like(want_tgt)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+    def launch(lib):
+        err = lib.hetu_fused_ce_fwd(h.data_ptr(), w.data_ptr(),
+                                    lab.data_ptr(), lse.data_ptr(),
+                                    tgt.data_ptr(), n, vocab, e, 1, 1, stream)
+        assert err == 0, err
+
+    for name, lib in libs.items():
+        launch(lib)
+        torch.cuda.synchronize()
+        cs.emit(phase="fwd_variant_check", variant=name,
+                max_abs_err_lse=cs.max_err(lse, want_lse),
+                max_abs_err_tgt=cs.max_err(tgt, want_tgt))
+    timer = cs.Timer(device)
+    ms = {name: [] for name in libs}
+    for name in [*libs, *reversed(list(libs))]:
+        ms[name].append(timer(lambda: launch(libs[name]), iters=5, warmup=1))
+    cs.emit(phase="fwd_variants", card=cs.nvidia_smi(), shape=[n, vocab, e],
+            plan=fused_ce.wide_fwd_info(n, vocab)["cluster"], ms=ms,
+            note="each variant timed twice, the second pass in reverse "
+                 "order; CUDA events over 5 calls, each after the "
+                 "L2-evicting write")
+    return rc
 
 
 def steps_of(tree: str, tag: str) -> int:
@@ -699,6 +899,8 @@ def main(argv) -> int:
         return fused_of(HERE, "this")
     if argv[:1] == ["wide-phases"] and len(argv) == 1:
         return wide_phases()
+    if argv[:1] == ["fwd-variants"] and len(argv) == 1:
+        return fwd_variants()
     if argv[:1] == ["int8"] and len(argv) == 1:
         return int8()
     if argv[:1] == ["pools"] and len(argv) == 1:

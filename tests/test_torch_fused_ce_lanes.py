@@ -62,7 +62,7 @@ def _entry(text, name):
 
 
 #: each entry's tensor-core launch past kMaxE, beside the one up to it
-WIDE_TC_LAUNCH = {"launch_fwd_tc": "launch_fwd_tc<true>",
+WIDE_TC_LAUNCH = {"launch_fwd_tc": "launch_fwd_wide_tc",
                   "launch_dh_tc": "launch_dh_wide_tc"}
 WIDTHS = range(64, 6144 + 1, 64)
 
@@ -82,8 +82,7 @@ def test_fused_entry_points_branch_on_the_lane_rule(entry, tc_launch):
         == MAX_E
     body = _entry(text, entry)
     wide = WIDE_TC_LAUNCH[tc_launch]
-    narrow = "launch_fwd_tc<false>" if tc_launch == "launch_fwd_tc" \
-        else tc_launch
+    narrow = tc_launch
     m = re.search(r"if \(E % 64 \|\| E < 64\) return \(int\)"
                   r"cudaErrorInvalidValue;\s*"
                   r"if \(h_bf16\) \{\s*"

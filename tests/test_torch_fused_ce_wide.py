@@ -25,7 +25,15 @@ mode (``fused_lse_tgt``, ``block_n=128, block_v=256``, any E).
     CPU, and its dh and dw are held to interpret-mode Pallas within the
     bound ``chip_smoke.py`` holds the card to (``fused_grad_bound``: 2
     bf16 ulps of |reference| plus 2e-4 of max |reference|), bf16 h and
-    w, at every width.
+    w, at every width. The wide tensor-core forward's order: a cluster of
+    C CTAs shares one 128-token tile, CTA r walking the 128-column vocab
+    tiles r, r + C, ...; each tile's logits are its 64-column chunks'
+    products summed from zero and added in order; each CTA keeps an
+    online (m, l, tgt) over its tiles, and the C states are combined in
+    rank order. A plain twin of that order at C = 1, 2 and 4 is held to
+    interpret-mode Pallas's lse and tgt within ``FUSED_TOL_LSE`` (1e-4,
+    as on the card) at every width; the plan rule's mirror
+    (``wide_fwd_plan``) at n = 5 to 49,152.
 (c) The wrapper: the lane names, dW's w cast on the wide lane, widths.
 (d) Llama with a vocab of 8,269 under ``HETU_LM_LOSS_IMPL=fused``: the
     port's loss and every grad (the fused path: the plain versions of
@@ -62,7 +70,8 @@ from hetu_tpu_torch.models import (
 from hetu_tpu_torch.ops import fused_ce, losses as losses_mod
 from hetu_tpu_torch.ops.fused_ce import (
     MAX_E, fused_ce_dh, fused_ce_dh_reference, fused_ce_dw,
-    fused_ce_dw_reference, fused_ce_fwd, fused_ce_lane, wide_plan,
+    fused_ce_dw_reference, fused_ce_fwd, fused_ce_lane, wide_fwd_plan,
+    wide_plan,
 )
 from hetu_tpu_torch.parallel import Strategy
 
@@ -211,6 +220,83 @@ def test_wide_lane_order_within_the_card_bound_of_pallas(e, which):
         f"max err {err.max()}, {(err / bound).max()} of the bound"
     # the plain version the card is checked against keeps the same bound
     assert (np.abs(plain.float().numpy() - want) <= bound).all()
+
+
+def _lse_tgt_in_wide_order(h, w, labels, c):
+    """(lse, tgt) as the wide tensor-core forward forms them: c CTAs
+    share the token tile, CTA r walking the 128-column vocab tiles r, r +
+    c, ...; a tile's s is each 64-column chunk's products summed from
+    zero and added in chunk order, columns past V -1e30; each CTA's
+    online (m, l, tgt) over its tiles; the c states combined in rank
+    order, m = max m_r, l = sum l_r exp(m_r - m), tgt = sum tgt_r."""
+    hf, wf = h.float(), w.float()
+    n, vocab, e = h.shape[0], w.shape[0], h.shape[1]
+    states = []
+    for r in range(c):
+        m = torch.full((n,), float("-inf"))
+        l, t = torch.zeros(n), torch.zeros(n)
+        for v0 in range(128 * r, vocab, 128 * c):
+            wt = torch.zeros(128, e)
+            wt[:min(128, vocab - v0)] = wf[v0:v0 + 128]
+            s = torch.zeros(n, 128)
+            for q in range(e // 64):
+                cols = slice(64 * q, 64 * q + 64)
+                s = s + hf[:, cols] @ wt[:, cols].t()
+            s[:, vocab - v0:] = -1e30
+            hit = labels.long()[:, None] == (v0 + torch.arange(128))[None, :]
+            t = t + torch.where(hit, s, 0.0).sum(1)
+            mx = torch.maximum(m, s.max(1).values)
+            l = l * torch.exp(m - mx) + torch.exp(s - mx[:, None]).sum(1)
+            m = mx
+        states.append((m, l, t))
+    mm = torch.stack([m for m, _, _ in states]).max(0).values
+    l, t = torch.zeros(n), torch.zeros(n)
+    for m_r, l_r, t_r in states:
+        l = l + l_r * torch.exp(m_r - mm)
+        t = t + t_r
+    return mm + torch.log(l), t
+
+
+@pytest.mark.parametrize("c", [1, 2, 4])
+@pytest.mark.parametrize("e", WIDTHS)
+def test_wide_forward_order_within_the_card_bound_of_pallas(e, c):
+    """96 tokens (a ragged token tile), V = 1013 (a ragged last vocab
+    tile; at c = 2 and 4 the 8 tiles split evenly, at c = 1 one CTA walks
+    them all), a label at V - 1 and every 7th -1."""
+    (h, w, labels, _, _), (jlse, jtgt, _, _) = _case(e, "bf16", "bf16")
+    assert int(labels[3]) == V - 1
+    lse, tgt = _lse_tgt_in_wide_order(h, w, labels, c)
+    np.testing.assert_allclose(lse.numpy(), jlse, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(tgt.numpy(), jtgt, atol=1e-4, rtol=0)
+    assert bool((tgt[labels == -1] == 0).all())
+
+
+#: CTAs in clusters of 1, 2, 4 and 8 that an H100 SXM (132 SMs) holds at
+#: once with the wide forward's 195 KB of shared memory a CTA, as
+#: ``wide_fwd_info`` read them on an ``NVIDIA H100 80GB HBM3``
+#: (``cudaOccupancyMaxActiveClusters`` x C)
+H100_SLOTS = {1: 132, 2: 132, 4: 120, 8: 120}
+
+
+@pytest.mark.parametrize("n,c", [(5, 8), (333, 8), (1000, 8), (8192, 2),
+                                 (49152, 1)])
+def test_wide_fwd_plan_fills_the_card(n, c):
+    """At Llama's vocab of 32,000 (250 tiles): a few token tiles take
+    the widest cluster; n = 8,192 (64 tiles) takes C = 2, 128 CTAs in one
+    wave, at least 120 of the 132 SMs at work (C = 4 would take three
+    waves of 63 tiles); n = 49,152 fills three waves with C = 1 (C = 2
+    ties: the smaller wins)."""
+    assert wide_fwd_plan(n, 32000, H100_SLOTS) == c
+    ctas = c * -(-n // 128)
+    assert min(ctas, H100_SLOTS[c]) >= min(120, ctas)
+    if n == 8192:
+        assert ctas >= 120
+
+
+def test_wide_fwd_plan_skips_cluster_sizes_the_card_cannot_hold():
+    assert wide_fwd_plan(8192, 32000, {1: 132, 2: 0, 4: 128, 8: 120}) == 4
+    assert wide_fwd_plan(8192, 32000, {1: 132}) == 1
+    assert wide_fwd_plan(8192, 32000, {}) == 0
 
 
 # -- (c) the wrapper -----------------------------------------------------------
