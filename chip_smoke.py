@@ -32,7 +32,8 @@ Phases, each printing one JSON line:
 2. build   -- ``nvcc`` builds every kernel from ``hetu_tpu_torch/csrc``,
    one process per source, all at once; ``ptxas``, ``ptxas_paged`` and
    ``ptxas_fused`` report registers and spills of the tensor-core flash
-   instances, of every instance of the paged kernel's lanes and of the
+   instances (the fp32 forward's 3xTF32 ones too; d 64 must not spill),
+   of every instance of the paged kernel's lanes and of the
    fused CE kernels (the tensor-core instances of #5-#7, narrow and
    wide, must not spill).
 3. kernel  -- each kernel against its plain version on the card, at the
@@ -40,8 +41,11 @@ Phases, each printing one JSON line:
    pads, offsets that leave rows with no key, dropout 0.1, a ragged
    200-token sequence, a 64-token chunk over a 320-token history). bf16
    at head_dim 64/128 runs the tensor-core lanes of the flash forward, dQ
-   and dK/dV, the rest their CUDA-core lanes; a bf16 head_dim-96 case must
-   take the CUDA-core lanes (``lane`` lines, read from a profile). The
+   and dK/dV, fp32 there the forward's 3xTF32 lane, the rest their
+   CUDA-core lanes; a bf16 head_dim-96 case must take the CUDA-core
+   lanes, and every fp32 forward case the lane ``ops.flash_lane`` names
+   (``lane`` lines, read from a profile of that case; the 3xTF32 lane's
+   reruns bit-equal). The
    paged kernel (#1) runs decode and the pack's history in its per-row
    form through its split-KV lane (each rerun bit-equal) and the history
    through ``row_slot`` and GQA 2 / R = 3 through its run-shared tile
@@ -550,9 +554,21 @@ import torch
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
 PEAK_FLOPS = {torch.float32: 67e12,       # CUDA cores, no tensor cores
               torch.bfloat16: 989e12}     # dense tensor-core bf16
+#: fp32-exact products on the tensor cores: 3xTF32 takes three TF32
+#: products (495 TFLOP/s dense) for each
+TF32X3_FLOPS = 495e12 / 3
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SEED = 0
 L2_FLUSH_BYTES = 256 << 20
+#: calls in the profile window a flash case's lane and device time are
+#: read from
+PROFILE_ITERS = 5
+#: cycles of ``torch.cuda._sleep`` a covered timing puts after the L2
+#: flush (about 0.5 ms): the card is still busy when the host has enqueued
+#: the timed call, so the events hold its device time alone. Uncovered, a
+#: call whose host enqueue outlasts the flush reads the host's time (the
+#: 3xTF32 forward: 0.0453 ms against 0.0059 on the device)
+COVER_CYCLES = 1_000_000
 C = 64                             # the engine's prefill chunk
 #: one packed prefill chunk as the engine builds it: (slot, tokens, chunk
 #: start) per request run -- a third chunk of a long prompt, a new prompt,
@@ -567,7 +583,8 @@ FUSED_LADDER = (48, 32, 16)
 DROP_SEED = 1234
 FUSED = ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw")
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-FLASH_LANES = "tensor_core (bf16, d 64/128); cuda_core (fp32; bf16, other d)"
+FLASH_LANES = ("tensor_core (bf16, d 64/128); tensor_core_f32 (the fp32 "
+               "forward at d 64/128: 3xTF32); cuda_core (the rest)")
 
 
 START = time.perf_counter()
@@ -608,13 +625,18 @@ class Timer:
         self.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
                                  device=device)
 
-    def __call__(self, fn, iters: int = 30, warmup: int = 3) -> float:
+    def __call__(self, fn, iters: int = 30, warmup: int = 3,
+                 cover: bool = False) -> float:
+        """With ``cover``, a spin kernel of ``COVER_CYCLES`` follows each
+        flush, so the host's enqueue of ``fn`` is not timed."""
         for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
         pairs = []
         for _ in range(iters):
             self.flush.zero_()
+            if cover:
+                torch.cuda._sleep(COVER_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -657,6 +679,18 @@ class Timer:
         if counts is not None:
             counts.update(got)
         return by_name
+
+    def device_ms(self, fn, iters: int = PROFILE_ITERS,
+                  expect=()) -> float:
+        """Device ms a call of ``fn``, which launches each of its kernels
+        once: the sum over the kernels of a profile window, but the
+        flush's fill, of each one's mean over its recorded launches (a
+        window has recorded as few as one launch of five, and none:
+        ``expect`` as in ``profile``)."""
+        counts: dict[str, int] = {}
+        by_name = self.profile(fn, iters, counts, expect)
+        return sum(t / counts[n] for n, t in by_name.items()
+                   if "FillFunctor<unsigned char>" not in n)
 
     def per_kernel(self, fn, keys, iters: int = 10) -> tuple[dict, dict]:
         """Mean device ms per launch of each kernel whose name contains
@@ -714,13 +748,15 @@ def ptxas_entries(log: str) -> dict:
 
 
 def check_ptxas(built) -> dict:
-    """Registers and spills of the tensor-core flash instances; the d 64
-    ones (the training path's) must not spill. Then those of every
+    """Registers and spills of the tensor-core flash instances, the fp32
+    forward's 3xTF32 ones included; the d 64 ones (the training path's and
+    GPT-2's serving path's) must not spill. Then those of every
     instance of the paged kernel's lanes (``ptxas_paged``), each of which
     must be in the report, and of the fused CE kernels (``ptxas_fused``):
     the tensor-core instances of #5-#7, narrow and wide, must be there and
     must not spill; the CUDA-core ones, narrow and wide, are printed."""
-    syms = [LANE_SYMBOLS[k]["tensor_core"] for k in FLASH]
+    syms = [LANE_SYMBOLS[k]["tensor_core"] for k in FLASH] \
+        + [LANE_SYMBOLS["flash_fwd"]["tensor_core_f32"]]
     found = {}
     for src in ("flash_fwd", "flash_bwd"):
         for name, e in ptxas_entries(built[src]["ptxas"]).items():
@@ -950,6 +986,7 @@ def check_bwd(name, case, dtype, shape, got, want, errs, dead_rows=0):
 #: the CUDA cores) and of #5-#7 (``ops.fused_ce_lane``); no symbol of a
 #: kernel is a substring of another lane's
 LANE_SYMBOLS = {"flash_fwd": {"tensor_core": "flash_fwd_tc_kernel",
+                              "tensor_core_f32": "flash_fwd_tf32x3_kernel",
                               "cuda_core": "flash_fwd_kernel"},
                 "flash_bwd_dq": {"tensor_core": "flash_bwd_dq_tc_kernel",
                                  "cuda_core": "flash_bwd_dq_kernel"},
@@ -1132,8 +1169,9 @@ def phase_kernels(device, timer, ops):
     skip2 = np.stack([skip_seg, skip_seg])
     seg200 = np.repeat([0, 1, 2, -1], [70, 90, 25, 15])
     # (name, shape, causal, q_offset, kv_offset, dropout rate); bf16 at d
-    # 64 and 128 runs the tensor-core lanes of #2, #3 and #4, everything
-    # else the CUDA-core lanes (ops.flash_lane)
+    # 64 and 128 runs the tensor-core lanes of #2, #3 and #4, fp32 there
+    # #2's 3xTF32 lane, everything else the CUDA-core lanes
+    # (ops.flash_lane)
     cases = [
         ("packed_prefill", dict(b=1, hq=12, hkv=12, s=C, d=64, seg=pack_seg),
          True, 0, 0, 0.0),
@@ -1177,9 +1215,26 @@ def phase_kernels(device, timer, ops):
                 check(bool((out[:, :, dead] == 0).all())
                       and bool((lse[:, :, dead] == ops.NEG_INF).all()),
                       f"flash {name}: fully masked rows not 0/-1e30")
+            lane = ops.flash_lane(dtype, q.shape[-1])
+            rerun = None
+            if dtype == torch.float32:
+                # the fp32 lanes from a profile of this case alone; the
+                # 3xTF32 lane's rerun must give the same bits
+                check_lane(f"{name} fp32", timer.profile(
+                    lambda: ops.flash_attention_fwd(q, k, v, seg, seg,
+                                                    **args),
+                    iters=PROFILE_ITERS,
+                    expect=(LANE_SYMBOLS["flash_fwd"][lane],)),
+                    lane, kernels=("flash_fwd",))
+                if lane == "tensor_core_f32":
+                    rerun = check_rerun(name, (out, lse),
+                                        ops.flash_attention_fwd(
+                                            q, k, v, seg, seg, **args),
+                                        "flash_fwd")
             emit(phase="kernel", kernel="flash_fwd", case=name,
                  dtype=str(dtype).split(".")[1], shape=list(q.shape),
-                 max_abs_err=err, bound=TOL[dtype], ok=err <= TOL[dtype])
+                 lane=lane, max_abs_err=err, bound=TOL[dtype],
+                 rerun_identical=rerun, ok=err <= TOL[dtype])
             check(err <= TOL[dtype], f"flash {name} {dtype}: max abs err "
                                      f"{err} > {TOL[dtype]}")
             errs[dtype] = max(errs[dtype], err)
@@ -1273,20 +1328,40 @@ def time_paged(timer, ops, q, k, v, tbl, off, want_lse, shared=None,
 
 
 def time_flash(timer, ops, q, k, v, seg, scale):
+    """#2 at a pack: kernel, plain version and library yardstick (SDPA
+    with the same bool mask; never called by the port) by covered CUDA
+    events (``Timer`` ``cover``: at these sizes the wrapper's host enqueue
+    can outlast the flush), each beside the bound; the kernel's and the
+    library's device ms a call from profiles."""
     import torch.nn.functional as F
-    ms = timer(lambda: ops.flash_attention_fwd(q, k, v, seg, seg,
-                                               causal=True, scale=scale))
-    plain_ms = timer(lambda: ops.flash_attention_fwd_reference(
-        q, k, v, seg, seg, causal=True, scale=scale))
     mask = flash_mask(seg, q.shape[2], k.shape[2], True, 0, 0, q.device)
-    library_ms = timer(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, scale=scale,
-        enable_gqa=q.shape[1] != k.shape[1]))
+
+    def kernel():
+        return ops.flash_attention_fwd(q, k, v, seg, seg, causal=True,
+                                       scale=scale)
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale,
+            enable_gqa=q.shape[1] != k.shape[1])
+
+    ms = timer(kernel, cover=True)
+    plain_ms = timer(lambda: ops.flash_attention_fwd_reference(
+        q, k, v, seg, seg, causal=True, scale=scale), cover=True)
+    library_ms = timer(library, cover=True)
     nbytes, flops = flash_work(q, k, seg, True)
     bound_ms, bound_by = bound(nbytes, flops, q.dtype)
+    extra = {}
+    if q.dtype == torch.float32:
+        # the same bound with the products at 3xTF32's rate, the least
+        # time in which the card does fp32-exact products
+        extra["bound_3xtf32_ms"] = max(nbytes / HBM_BYTES_PER_S,
+                                       flops / TF32X3_FLOPS) * 1e3
+    dev = timer.device_ms(kernel, expect=("flash_fwd",))
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                flops=flops)
+                bound_ms=bound_ms, bound_by=bound_by, **extra, bytes=nbytes,
+                flops=flops, profile_device_ms=dev,
+                library_device_ms=timer.device_ms(library))
 
 
 # -- the engine --------------------------------------------------------------
@@ -1507,7 +1582,7 @@ def phase_engine(device, card):
 
     memo: dict = {}
     generate_oracle("engine_oracle", model, reqs + reqs2, 64, device, memo)
-    phase_profile(eng, burst[:16], sp)
+    phase_profile(eng, burst[:16], sp, flash_lane="tensor_core_f32")
     # 96 tokens each, so few requests end inside the window; prompts
     # that leave them room in max_len
     decode_prompts = [p for p in burst if len(p) <= 512 - 96][:16]
@@ -1663,7 +1738,8 @@ KERNEL_CLASSES = (("paged_split_kv", "paged_attention"),
 
 def phase_profile(eng, prompts, sp, n_steps: int = 20,
                   phase: str = "engine_profile", classes=KERNEL_CLASSES,
-                  steady_decode: bool = False, decode_lane: str = "split_kv"):
+                  steady_decode: bool = False, decode_lane: str = "split_kv",
+                  flash_lane=None):
     """Where an engine iteration's time goes: ``torch.profiler`` over
     ``n_steps`` steady iterations with 16 requests in flight (decode and
     packed prefill mixed; with ``steady_decode``, after every prompt has
@@ -1674,7 +1750,9 @@ def phase_profile(eng, prompts, sp, n_steps: int = 20,
     bound. Kernel #1's device time must lie under ``decode_lane``'s
     symbol where decode-lane iterations ran (split-KV; the tile lane for
     a verify lane of R*g > 4 rows) and under the run-shared tile symbols
-    where prefill-lane iterations ran (``lane``), and nowhere else."""
+    where prefill-lane iterations ran (``lane``), and nowhere else; with
+    ``flash_lane``, #2's (the packed prefill's) under that lane's
+    symbol."""
     from torch.profiler import ProfilerActivity, profile
 
     sps = sp if isinstance(sp, (list, tuple)) else [sp] * len(prompts)
@@ -1720,8 +1798,13 @@ def phase_profile(eng, prompts, sp, n_steps: int = 20,
         ln for ln, it in ((decode_lane, lanes["decode"]),
                           ("tile", lanes["prefill"])) if it),
         kernels=("paged_attention",))["paged_attention"]
+    flash = {}
+    if flash_lane is not None:
+        flash = check_lane(phase, by_name, flash_lane,
+                           kernels=("flash_fwd",))["flash_fwd"]
     emit(phase=phase, steps=n_steps, lane_iterations=lanes,
          paged_lane_ms_per_step={ln: ms / n_steps for ln, ms in paged.items()},
+         flash_lane_ms_per_step={ln: ms / n_steps for ln, ms in flash.items()},
          ms_per_step=wall_ms / n_steps,
          device_kernels_per_step=n_kernels / n_steps,
          device_busy_ms_per_step=busy_ms / n_steps if busy_ms else None,
@@ -2725,7 +2808,8 @@ def phase_llama_kernels(device, timer, ops, results):
     and of the flash forward #2 at the packed prefill's shape. Times:
     the int8 lane at the decode timing case (16 slots x 1024 live
     positions) and the prefill history, the bf16 lane at the same decode
-    case, the flash forward at the pack in bf16. Adds the int8 entry to
+    case, the flash forward at the pack in bf16 and in fp32 (case
+    ``llama_pack_fp32``, the 3xTF32 lane). Adds the int8 entry to
     ``results`` and the d = 128 times to #1's and #2's."""
     gens = Generators(device, SEED + 4)
     rng = np.random.default_rng(SEED + 4)
@@ -2869,22 +2953,33 @@ def phase_llama_kernels(device, timer, ops, results):
             torch.cuda.synchronize()
             err = max(max_err(out, ref_o), max_err(lse, ref_l))
             tag = str(dtype).split(".")[1]
+            rerun = None
+            if dtype == torch.float32:      # the 3xTF32 lane: same bits
+                rerun = check_rerun(name, (out, lse), ops.flash_attention_fwd(
+                    q, k, v, seg, seg, causal=True, scale=scale), "flash_fwd")
             emit(phase="kernel", kernel="flash_fwd", case=name, dtype=tag,
-                 shape=list(q.shape), max_abs_err=err, bound=TOL[dtype],
+                 shape=list(q.shape), lane=ops.flash_lane(dtype, 128),
+                 max_abs_err=err, bound=TOL[dtype], rerun_identical=rerun,
                  ok=err <= TOL[dtype])
             check(err <= TOL[dtype], f"flash {name} {tag}: max abs err "
                                      f"{err} > {TOL[dtype]}")
-            if dtype == torch.bfloat16 and name == "llama_packed_prefill":
-                check_lane(name, timer.profile(
+            if name == "llama_packed_prefill":
+                # the pack in bf16 and, as llama_pack_fp32, in fp32 (the
+                # fp32 Llama engine's chunk): each lane from a profile,
+                # then timed
+                lane = ops.flash_lane(dtype, 128)
+                case = name if dtype == torch.bfloat16 else "llama_pack_fp32"
+                check_lane(case, timer.profile(
                     lambda: ops.flash_attention_fwd(
                         q, k, v, seg, seg, causal=True, scale=scale),
-                    expect=("flash_fwd",)),
-                    "tensor_core", kernels=("flash_fwd",))
+                    iters=PROFILE_ITERS,
+                    expect=(LANE_SYMBOLS["flash_fwd"][lane],)),
+                    lane, kernels=("flash_fwd",))
                 t = time_flash(timer, ops, q, k, v, seg, scale)
-                emit(phase="kernel_time", kernel="flash_fwd", case=name,
-                     dtype="bfloat16", shape=list(q.shape), **t)
+                emit(phase="kernel_time", kernel="flash_fwd", case=case,
+                     lane=lane, dtype=tag, shape=list(q.shape), **t)
                 results["flash_fwd"].update(
-                    {f"d128_prefill_bf16_{k}": v for k, v in t.items()})
+                    {f"d128_prefill_{tag}_{k}": v for k, v in t.items()})
 
 
 #: kernel #1 at the verify lane's shapes: (name, model, draft depth K,
@@ -3360,7 +3455,7 @@ def phase_llama_engine(device, card, timer):
         phase_profile(eng, fresh[:LLAMA_SLOTS],
                       SamplingParams(max_tokens=96),
                       phase="llama_engine_mixed_profile",
-                      classes=LLAMA_CLASSES)
+                      classes=LLAMA_CLASSES, flash_lane="tensor_core")
         phase_profile(eng, burst[:LLAMA_SLOTS],
                       SamplingParams(max_tokens=96),
                       phase="llama_engine_profile", classes=LLAMA_CLASSES,
@@ -5960,7 +6055,8 @@ def phase_moe_engine(device, card):
     # fresh prompts: the burst's are all in the prefix cache by now (24
     # requests do not fill the arena), so they would not prefill
     fresh = workload(cfg.vocab_size, seed=SEED + 7)[0]
-    phase_profile(eng, fresh[:16], sp, phase="moe_engine_profile")
+    phase_profile(eng, fresh[:16], sp, phase="moe_engine_profile",
+                  flash_lane="tensor_core_f32")
     decode_prompts = [p for p in fresh if len(p) <= 512 - 96][:16]
     phase_profile(eng, decode_prompts, SamplingParams(max_tokens=96),
                   phase="moe_engine_decode_profile", steady_decode=True)

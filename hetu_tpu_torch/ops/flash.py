@@ -235,23 +235,32 @@ def flash_attention_bwd_reference(q, k, v, q_seg, kv_seg, out, lse, do, *,
 
 # -- the kernel wrappers ------------------------------------------------------
 
-#: head dims at which bf16 calls of #2, #3 and #4 take the tensor-core lane
+#: head dims at which bf16 calls of #2, #3 and #4, and fp32 calls of #2,
+#: take a tensor-core lane
 TC_HEAD_DIMS = (64, 128)
 
 
-def flash_lane(dtype: torch.dtype, head_dim: int) -> str:
-    """The lane a CUDA call of the flash forward (#2), dQ (#3) or dK/dV
-    (#4) kernel takes, from dtype and head_dim alone, decided before the
-    launch (``hetu_flash_fwd``, ``hetu_flash_bwd_dq`` and
-    ``hetu_flash_bwd_dkv`` branch on the same rule): ``"tensor_core"``
-    (bf16 ``mma.sync``, a ``cp.async`` pipeline) for bf16 at head_dim 64
-    or 128, else ``"cuda_core"`` (fp32 CUDA cores)."""
-    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
-        return "tensor_core"
+def flash_lane(dtype: torch.dtype, head_dim: int, kernel: str = FWD) -> str:
+    """The lane a CUDA call of ``kernel`` -- the flash forward (#2,
+    ``FWD``), dQ (#3, ``DQ``) or dK/dV (#4, ``DKV``) -- takes, from dtype
+    and head_dim alone, decided before the launch (``hetu_flash_fwd``,
+    ``hetu_flash_bwd_dq`` and ``hetu_flash_bwd_dkv`` branch on the same
+    rule): ``"tensor_core"`` (bf16 ``mma.sync``, a ``cp.async``
+    pipeline) for bf16 at head_dim 64 or 128; for fp32 there, the
+    forward's ``"tensor_core_f32"`` (3xTF32 ``mma.sync``: products to
+    about fp32's precision, a ``cp.async`` ring); else ``"cuda_core"``
+    (fp32 CUDA cores)."""
+    if kernel not in (FWD, DQ, DKV):
+        raise ValueError(f"no flash kernel {kernel!r}: {FWD}, {DQ} or {DKV}")
+    if head_dim in TC_HEAD_DIMS:
+        if dtype == torch.bfloat16:
+            return "tensor_core"
+        if dtype == torch.float32 and kernel == FWD:
+            return "tensor_core_f32"
     return "cuda_core"
 
 
-def _check_inputs(what, q, k, v, q_seg, kv_seg, extra=()):
+def _check_inputs(what, kernel, q, k, v, q_seg, kv_seg, extra=()):
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     b, hq, sq, d = q.shape
@@ -277,7 +286,7 @@ def _check_inputs(what, q, k, v, q_seg, kv_seg, extra=()):
             raise ValueError(f"{what}: {name} must be a contiguous "
                              f"{dtype or q.dtype} {shape or ''} tensor on "
                              f"{q.device}")
-    if flash_lane(q.dtype, d) == "tensor_core":
+    if flash_lane(q.dtype, d, kernel) != "cuda_core":
         # the tensor-core lanes copy rows 16 bytes at a time
         rows = [("q", q), ("k", k), ("v", v)]
         rows += [(name, t) for name, t, *_ in extra if name == "do"]
@@ -315,8 +324,8 @@ def flash_attention_fwd(q, k, v, q_seg: Optional[torch.Tensor],
             q, k, v, q_seg, kv_seg, causal=causal, scale=scale,
             q_offset=q_offset, kv_offset=kv_offset,
             dropout_rate=dropout_rate, seed=seed)
-    b, hq, hkv, sq, sk, d = _check_inputs("flash_attention_fwd", q, k, v,
-                                          q_seg, kv_seg)
+    b, hq, hkv, sq, sk, d = _check_inputs("flash_attention_fwd", FWD, q, k,
+                                          v, q_seg, kv_seg)
     drop = _drop_args(dropout_rate, seed, q.device)
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
@@ -356,7 +365,7 @@ def flash_attention_bwd(q, k, v, q_seg: Optional[torch.Tensor],
         delta = _delta(out, do)
     stats = tuple(q.shape[:3])
     b, hq, hkv, sq, sk, d = _check_inputs(
-        "flash_attention_bwd", q, k, v, q_seg, kv_seg,
+        "flash_attention_bwd", DQ, q, k, v, q_seg, kv_seg,
         extra=(("out", out, tuple(q.shape), q.dtype),
                ("do", do, tuple(q.shape), q.dtype),
                ("lse", lse, stats, torch.float32),

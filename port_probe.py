@@ -7,6 +7,9 @@ beside ``chip_smoke.py``, whose phase functions they run:
     python3 port_probe.py fused OLD NEW     # the same, two trees in turns
     python3 port_probe.py wide-phases       # wide dH / dW cycles by phase
     python3 port_probe.py fwd-variants      # wide forward's costs, by variant
+    python3 port_probe.py flash             # #2 at the fp32 packs, by lane
+    python3 port_probe.py flash OLD NEW     # the same, two trees in turns
+    python3 port_probe.py flash-variants    # #2's fp32 lane, by grid
     python3 port_probe.py steps OLD NEW     # step times of two trees
     python3 port_probe.py serve OLD NEW     # serving bursts of two trees
     python3 port_probe.py int8              # torch._int_mm's rows, layouts
@@ -81,6 +84,35 @@ consumers' remote arrival with a cluster-scope release) and
 q is added into s). Each variant's result against the plain version is
 printed (the first two compute nothing meaningful) and its ``ptxas``
 registers and spills.
+
+``flash`` times the flash forward (#2) at GPT-2's packed prefill (1, 12,
+64, 64) and the Llama pack (1, 32, 256, 128), both with their packs'
+segments, causal, in fp32 (the 3xTF32 lane, ``tensor_core_f32``) and
+bf16 (the tensor-core lane), each beside SDPA with the same bool mask
+(a yardstick the port never calls) and its bounds (bytes; flops at the
+fp32 cores' 67 TFLOP/s, at 3xTF32's 165 and at bf16's 989), each timing
+after ``FLASH_SETTLE_S`` of idle card and checked against the plain
+version first. The CUDA events are covered (a spin kernel after each
+flush, so the host's enqueue is not timed), and beside each the device
+time a call from a profile (``device_ms``, ``library_device_ms``).
+``flash OLD NEW`` runs it in turns OLD, NEW, NEW, OLD, a process each
+(``flash-of TREE TAG`` is one turn): the parent's fp32 calls take the
+CUDA-core lane.
+
+``flash-variants`` builds copies of ``csrc/flash_fwd.cu`` whose fp32
+lane is changed one way each and times each, fp32, at both packs, in
+turns (each variant twice, the second pass in reverse order), after
+checking it against the plain version: ``cuda_core`` (no 3xTF32 branch:
+fp32 takes ``flash_fwd_kernel<float>``, the CUDA-core lane), the grids
+``q16_k1``, ``q16_k2``, ``q16_k4``, ``q32_k1``, ``q32_k2`` and
+``q64_k1`` (``TfGrid``: 16, 32 or 64 query rows a block, each key tile
+split over 1, 2 or 4 warps; tiles of 64 keys at d 64, 32 at d 128),
+``d128_keys64`` (the built grid with 64-key tiles at d 128),
+``d128_q_regs`` (d 128's q~ fragments held in registers), and
+``s_chains1`` / ``s_chains2`` (S's products in one or two accumulator
+chains instead of the built ``kTfSChains``). Each
+variant's ``ptxas`` registers and spills of the 3xTF32 instances are
+printed.
 
 ``int8`` asks ``torch._int_mm`` (the W8A8 lane's int32 product) which
 row counts it takes on this card at Llama-7B's FFN shapes (4,096 ->
@@ -542,6 +574,257 @@ def fwd_variants() -> int:
     return rc
 
 
+#: seconds of idle card before each of ``flash``'s timings
+FLASH_SETTLE_S = 0.5
+
+
+def flash_shapes(cs) -> tuple:
+    """``flash``'s shapes: GPT-2's packed prefill chunk and the Llama
+    pack, each with its pack's segment ids."""
+    return (("gpt2_pack", dict(b=1, hq=12, hkv=12, s=cs.C, d=64,
+                               seg=cs.pack_segments(cs.PACK, cs.C))),
+            ("llama_pack", dict(b=1, hq=32, hkv=32, s=cs.LLAMA_CHUNK, d=128,
+                                seg=cs.pack_segments(cs.LLAMA_PACK,
+                                                     cs.LLAMA_CHUNK))))
+
+
+def flash_bounds(cs, q, k, seg) -> dict:
+    """#2's least times on these inputs: bytes at 3.35 TB/s, flops at the
+    fp32 cores' rate, at 3xTF32's and at bf16's tensor-core rate."""
+    nbytes, flops = cs.flash_work(q, k, seg, True)
+    return dict(bytes_ms=nbytes / cs.HBM_BYTES_PER_S * 1e3,
+                fp32_cores_ms=flops / 67e12 * 1e3,
+                tf32x3_ms=flops / (495e12 / 3) * 1e3,
+                bf16_ms=flops / 989e12 * 1e3, bytes=nbytes, flops=flops)
+
+
+#: cycles of the spin kernel after each flush of a covered timing (about
+#: 0.5 ms), as ``chip_smoke.py``'s ``COVER_CYCLES``
+COVER_CYCLES = 1_000_000
+
+
+def covered_ms(timer, fn, iters: int = 30, warmup: int = 3) -> float:
+    """``timer(fn)`` (CUDA events over ``iters`` calls, each after the
+    L2-evicting write) with a spin kernel after each write, so that the
+    host's enqueue of ``fn`` is not timed; ``timer`` of either tree."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        timer.flush.zero_()
+        torch.cuda._sleep(COVER_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def device_ms(timer, fn, iters: int = 10) -> float:
+    """Device ms a call of ``fn``, which launches each of its kernels
+    once, from a ``torch.profiler`` window of ``timer`` (either tree's):
+    the sum over its kernels, the L2-evicting fill left out, of each
+    one's mean over its recorded launches (a window can drop some)."""
+    counts: dict = {}
+    by_name = timer.profile(fn, iters, counts)
+    return sum(t / counts[n] for n, t in by_name.items()
+               if "FillFunctor<unsigned char>" not in n)
+
+
+def flash_of(tree: str, tag: str) -> int:
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch.nn.functional as F
+    import chip_smoke as cs
+    from hetu_tpu_torch import ops
+    from hetu_tpu_torch.ops import _build
+
+    device = torch.device("cuda", 0)
+    _build.build(["flash_fwd"])
+    card = cs.nvidia_smi()
+    timer = cs.Timer(device)
+    gens = cs.Generators(device, cs.SEED + 6)
+
+    def settled(fn):
+        torch.cuda.synchronize()
+        time.sleep(FLASH_SETTLE_S)
+        return covered_ms(timer, fn)
+
+    first = True
+    for name, kw in flash_shapes(cs):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, seg = cs.flash_case(gens, device, dtype, **kw)
+            scale = q.shape[-1] ** -0.5
+            args = dict(causal=True, scale=scale)
+            got = ops.flash_attention_fwd(q, k, v, seg, seg, **args)
+            if first:   # a first timing in a process reads high: not kept
+                settled(lambda: ops.flash_attention_fwd(q, k, v, seg, seg,
+                                                        **args))
+                first = False
+            want = ops.flash_attention_fwd_reference(q, k, v, seg, seg,
+                                                     **args)
+            err = max(cs.max_err(a, b) for a, b in zip(got, want))
+            mask = cs.flash_mask(seg, q.shape[2], k.shape[2], True, 0, 0,
+                                 device)
+            ms = settled(lambda: ops.flash_attention_fwd(q, k, v, seg, seg,
+                                                         **args))
+            library_ms = settled(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=scale))
+            dev = device_ms(timer, lambda: ops.flash_attention_fwd(
+                q, k, v, seg, seg, **args))
+            lib_dev = device_ms(timer, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=scale))
+            cs.emit(phase="flash_time", tree=tag, card=card, shape=name,
+                    dims=list(q.shape), dtype=str(dtype).split(".")[1],
+                    lane=ops.flash_lane(dtype, q.shape[-1]), ms=ms,
+                    library_ms=library_ms, device_ms=dev,
+                    library_device_ms=lib_dev, max_abs_err=err,
+                    bound=flash_bounds(cs, q, k, seg))
+            del q, k, v, seg, got, want
+    return 0
+
+
+#: ``flash-variants``' grids: (kWarpsQ, kWarpsK, kKeys) at d 64, then at
+#: d 128
+FLASH_GRIDS = {"q16_k1": ((1, 1, 64), (1, 1, 32)),
+               "q16_k2": ((1, 2, 64), (1, 2, 32)),
+               "q16_k4": ((1, 4, 64), (1, 4, 32)),
+               "q32_k1": ((2, 1, 64), (2, 1, 32)),
+               "q32_k2": ((2, 2, 64), (2, 2, 32)),
+               "q64_k1": ((4, 1, 64), (4, 1, 32))}
+TF_GRID_LINE = ("template <> struct TfGrid<{d}> {{ static constexpr int "
+                "kWarpsQ = {0}, kWarpsK = {1}, kKeys = {2}; }};")
+
+
+def flash_variant_source(name: str) -> str:
+    """``csrc/flash_fwd.cu`` with the fp32 lane changed as ``name`` says
+    (the source as it is for ``as_built``)."""
+    import re
+    from hetu_tpu_torch.ops import _build
+    src = (_build.CSRC / "flash_fwd.cu").read_text()
+    pattern = re.compile(r"template <> struct TfGrid<(\d+)> \{[^\n]*\};")
+    built = {int(m.group(1)): tuple(int(x) for x in re.findall(
+        r"= (\d+)", m.group(0))) for m in pattern.finditer(src)}
+    assert sorted(built) == [64, 128], built
+    grids = dict(built)
+    if name in FLASH_GRIDS:
+        grids = dict(zip((64, 128), FLASH_GRIDS[name]))
+    elif name == "d128_keys64":
+        grids[128] = grids[128][:2] + (64,)
+    src = pattern.sub(lambda m: TF_GRID_LINE.format(
+        *grids[int(m.group(1))], d=m.group(1)), src)
+    if name.startswith("s_chains"):
+        src, n = re.subn(r"constexpr int kTfSChains = \d+;",
+                         f"constexpr int kTfSChains = {name[-1]};", src)
+        assert n == 1, name
+    edits = {"cuda_core": [("  if (!bf16 && d == 64)\n", "  if (false)\n"),
+                           ("  if (!bf16 && d == 128)\n", "  if (false)\n")],
+             "d128_q_regs": [("constexpr bool kQRegs = D <= 64;",
+                              "constexpr bool kQRegs = true;")]}
+    for old, new in edits.get(name, ()):
+        assert src.count(old) == 1, (name, old)
+        src = src.replace(old, new)
+    return src
+
+
+def flash_variants() -> int:
+    import ctypes
+    sys.path.insert(0, HERE)
+    import torch.nn.functional as F
+    import chip_smoke as cs
+    from hetu_tpu_torch import ops
+    from hetu_tpu_torch.ops import _build, flash
+
+    names = ["as_built", "cuda_core", *FLASH_GRIDS, "d128_keys64",
+             "d128_q_regs", "s_chains1", "s_chains2"]
+    out_dir = _build.BUILD_DIR / "probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for name in names:
+        cu = out_dir / f"flash_fwd_{name}.cu"
+        cu.write_text(flash_variant_source(name))
+        so = cu.with_suffix(".so")
+        procs[name] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+             "-o", str(so), str(cu)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs, rc = {}, 0
+    for name, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        entry = {k: e for k, e in cs.ptxas_entries(log).items()
+                 if "flash_fwd_tf32x3_kernel" in k}
+        cs.emit(phase="flash_variant_build", variant=name,
+                rc=proc.returncode, ptxas=entry,
+                seconds=time.perf_counter() - t0)
+        if proc.returncode:
+            print(log[-4000:], file=sys.stderr)
+            rc = 1
+            continue
+        lib = ctypes.CDLL(str(so))
+        lib.hetu_flash_fwd.argtypes = flash._FWD_ARGTYPES
+        libs[name] = lib
+    device = torch.device("cuda", 0)
+    gens = cs.Generators(device, cs.SEED + 6)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    timer = cs.Timer(device)
+    cases = []
+    for shape, kw in flash_shapes(cs):
+        q, k, v, seg = cs.flash_case(gens, device, torch.float32, **kw)
+        want = ops.flash_attention_fwd_reference(
+            q, k, v, seg, seg, causal=True, scale=q.shape[-1] ** -0.5)
+        cases.append((shape, q, k, v, seg, want, torch.empty_like(q),
+                       torch.empty_like(want[1])))
+
+    def launch(lib, case):
+        _, q, k, v, seg, _, out, lse = case
+        b, hq, sq, d = q.shape
+        err = lib.hetu_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+            seg.data_ptr(), out.data_ptr(), lse.data_ptr(), b, hq,
+            k.shape[1], sq, k.shape[2], d, d ** -0.5, 1, 0, 0, 0, 0, None,
+            0, 1.0, stream)
+        assert err == 0, err
+
+    for name, lib in libs.items():
+        errs = {}
+        for case in cases:
+            launch(lib, case)
+            torch.cuda.synchronize()
+            errs[case[0]] = max(cs.max_err(case[6], case[5][0]),
+                                cs.max_err(case[7], case[5][1]))
+        cs.emit(phase="flash_variant_check", variant=name, max_abs_err=errs,
+                ok=all(e <= cs.TOL[torch.float32] for e in errs.values()))
+    ms = {name: {case[0]: [] for case in cases} for name in libs}
+    for case in cases:   # a first timing in a process reads high: not kept
+        covered_ms(timer, lambda: launch(next(iter(libs.values())), case))
+    for name in [*libs, *reversed(list(libs))]:
+        for case in cases:
+            torch.cuda.synchronize()
+            time.sleep(FLASH_SETTLE_S)
+            ms[name][case[0]].append(
+                covered_ms(timer, lambda: launch(libs[name], case)))
+    sdpa = {}
+    for shape, q, k, v, seg, *_ in cases:
+        mask = cs.flash_mask(seg, q.shape[2], k.shape[2], True, 0, 0, device)
+        torch.cuda.synchronize()
+        time.sleep(FLASH_SETTLE_S)
+        sdpa[shape] = covered_ms(timer, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=q.shape[-1] ** -0.5))
+    cs.emit(phase="flash_variants", card=cs.nvidia_smi(),
+            shapes={c[0]: list(c[1].shape) for c in cases}, ms=ms,
+            library_ms=sdpa,
+            bounds={c[0]: flash_bounds(cs, c[1], c[2], c[4]) for c in cases},
+            note="fp32, causal, the packs' segments; each variant timed "
+                 "twice, the second pass in reverse order; CUDA events over "
+                 "30 calls, each after the L2-evicting write and a spin "
+                 "kernel that covers the host's enqueue")
+    return rc
+
+
 def steps_of(tree: str, tag: str) -> int:
     sys.path.insert(0, os.path.abspath(tree))
     import chip_smoke as cs
@@ -901,6 +1184,10 @@ def main(argv) -> int:
         return wide_phases()
     if argv[:1] == ["fwd-variants"] and len(argv) == 1:
         return fwd_variants()
+    if argv[:1] == ["flash"] and len(argv) == 1:
+        return flash_of(HERE, "this")
+    if argv[:1] == ["flash-variants"] and len(argv) == 1:
+        return flash_variants()
     if argv[:1] == ["int8"] and len(argv) == 1:
         return int8()
     if argv[:1] == ["pools"] and len(argv) == 1:
@@ -909,10 +1196,13 @@ def main(argv) -> int:
         return oracle()
     if argv[:1] == ["noise"] and len(argv) == 1:
         return noise()
-    if argv[:1] in (["steps"], ["serve"], ["fused"]) and len(argv) == 3:
+    if argv[:1] in (["steps"], ["serve"], ["fused"], ["flash"]) \
+            and len(argv) == 3:
         return in_turns(argv[0], argv[1], argv[2])
     if argv[:1] == ["fused-of"] and len(argv) == 3:
         return fused_of(argv[1], argv[2])
+    if argv[:1] == ["flash-of"] and len(argv) == 3:
+        return flash_of(argv[1], argv[2])
     if argv[:1] == ["steps-of"] and len(argv) == 3:
         return steps_of(argv[1], argv[2])
     if argv[:1] == ["serve-of"] and len(argv) == 3:

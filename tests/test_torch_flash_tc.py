@@ -4,7 +4,9 @@ and the fp32 plain versions held bit for bit to their earlier formulas.
 The bf16 plain versions are what the lanes of ``csrc/flash_fwd.cu`` and
 ``csrc/flash_bwd.cu`` are held to on the card: the tensor-core lanes at
 head_dim 64/128, the CUDA-core lanes at 96. Each C entry point's lane
-rule is read from its source and held to ``flash_lane``.
+rule is read from its source and held to ``flash_lane``, the fp32
+forward's 3xTF32 lane included (its numerics:
+``tests/test_torch_flash_tf32x3.py``).
 They round where the TPU kernels round (p to v's dtype before p v,
 ``flash_pallas.py:235``; p~ to dO's before dV, :466; ds to q's before dK,
 :475, and to k's before dQ, :402) and run here against the Pallas kernels
@@ -35,7 +37,7 @@ from hetu_tpu_torch.ops import (
     flash_attention_bwd_reference, flash_attention_fwd,
     flash_attention_fwd_reference,
 )
-from hetu_tpu_torch.ops.flash import TC_HEAD_DIMS, flash_lane
+from hetu_tpu_torch.ops.flash import DKV, DQ, FWD, TC_HEAD_DIMS, flash_lane
 
 torch.set_num_threads(2)
 
@@ -210,13 +212,27 @@ def test_fp32_plain_versions_bit_identical_to_before(name):
         assert g.dtype == torch.float32 and torch.equal(g, w)
 
 
-@pytest.mark.parametrize("dtype,d,lane", [
-    (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
-    (torch.bfloat16, 96, "cuda_core"), (torch.bfloat16, 32, "cuda_core"),
-    (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core"),
-])
-def test_flash_lane_follows_dtype_and_head_dim(dtype, d, lane):
-    assert flash_lane(dtype, d) == lane
+# (dtype, head_dim, the lanes of the forward, dQ and dK/dV)
+LANES = [
+    (torch.bfloat16, 64, ("tensor_core",) * 3),
+    (torch.bfloat16, 128, ("tensor_core",) * 3),
+    (torch.bfloat16, 96, ("cuda_core",) * 3),
+    (torch.bfloat16, 32, ("cuda_core",) * 3),
+    (torch.float32, 64, ("tensor_core_f32", "cuda_core", "cuda_core")),
+    (torch.float32, 128, ("tensor_core_f32", "cuda_core", "cuda_core")),
+    (torch.float32, 96, ("cuda_core",) * 3),
+]
+
+
+@pytest.mark.parametrize("dtype,d,lanes", LANES)
+def test_flash_lane_follows_dtype_and_head_dim(dtype, d, lanes):
+    """Per kernel: fp32 at 64 and 128 takes the 3xTF32 lane in the
+    forward only; the default kernel is the forward."""
+    assert tuple(flash_lane(dtype, d, kernel) for kernel in (FWD, DQ, DKV)) \
+        == lanes
+    assert flash_lane(dtype, d) == lanes[0]
+    with pytest.raises(ValueError, match="no flash kernel"):
+        flash_lane(dtype, d, "flash_bwd")
 
 
 @pytest.mark.parametrize("source,entry,tc_launch", [
@@ -229,7 +245,8 @@ def test_flash_entry_points_branch_on_the_lane_rule(source, entry,
     """Each C entry point of #2, #3 and #4 picks its lane as
     ``flash_lane`` does, before the launch: bf16 at each of
     ``TC_HEAD_DIMS`` launches the tensor-core kernel of that head_dim,
-    and every other call the CUDA-core one."""
+    fp32 there the forward's 3xTF32 kernel (``hetu_flash_fwd`` only), and
+    every other call the CUDA-core one."""
     text = (CSRC / source).read_text()
     body = text[text.index(f'extern "C" int {entry}('):]
     body = body[:body.index("\n}\n")]
@@ -239,6 +256,18 @@ def test_flash_entry_points_branch_on_the_lane_rule(source, entry,
         == [(d, tc_launch, d) for d in TC_HEAD_DIMS]
     assert all(flash_lane(torch.bfloat16, d) == "tensor_core"
                for d in TC_HEAD_DIMS)
-    rest = body[body.rindex(f"{tc_launch}<"):]
+    # fp32 at each of TC_HEAD_DIMS: the forward's 3xTF32 kernel, before
+    # the CUDA-core fallthrough; the backward's entries have no such branch
+    f32 = re.findall(r"if \(!bf16 && d == (\d+)\)\s*return (\w+)<(\d+)>",
+                     body)
+    kernel = {"hetu_flash_fwd": FWD, "hetu_flash_bwd_dq": DQ,
+              "hetu_flash_bwd_dkv": DKV}[entry]
+    want = [(d, "launch_tf32x3", d) for d in TC_HEAD_DIMS
+            if flash_lane(torch.float32, d, kernel) == "tensor_core_f32"]
+    assert [(int(d), fn, int(t)) for d, fn, t in f32] == want
+    assert bool(want) == (entry == "hetu_flash_fwd")
+    assert all(flash_lane(torch.float32, d, kernel) == "cuda_core"
+               for d in (32, 96, 160, 256))
+    rest = body[body.rindex(f"{want[-1][1] if want else tc_launch}<"):]
     assert re.search(r"if \(bf16\)\s*return launch\w*<__nv_bfloat16>", rest)
     assert re.search(r"return launch\w*<float>", rest)
