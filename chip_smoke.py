@@ -15,6 +15,9 @@ serves GPT-MoE
 serves GPT-2 drafting for itself and from a small draft model,
 fine-tunes Llama-7B at full depth with LoRA, serves Llama-7B and
 GPT-2 with LoRA adapters of several tenants mixed in one batch, and
+serves GPT-2 through an in-process fleet (a router over replicas, a
+replica killed, a rolling weight push, a prefill/decode split, the fleet
+verbs and tools, the train→serve rollout loop),
 serves GPT-2 and Llama-7B online: the engine's background loop behind
 ``ServingServer``, driven over local sockets by ``CoordinatorClient``
 (with a weight swap on the live Llama server), and serves Llama-7B and
@@ -109,6 +112,45 @@ Phases, each printing one JSON line:
    TPOT (p50, p99) beside the engine's ``Request.timing()`` for the same
    requests, GENERATE's client total beside the engine's, and the wire
    burst's tokens/s beside ``engine``'s in-process burst.
+4c. gpt2_fleet -- ``engine``'s model behind a ``Router`` over two replicas
+   at its settings, the second built and registered while the first
+   serves the first half of the burst (a capture between two of its
+   iterations, ``engine.step_graph.DEVICE_GUARD``); then the whole burst
+   on the settled fleet with its prefix caches flushed (tokens/s, TTFT
+   and TPOT p50/p99 beside ``engine``'s); then the 16 shared-prefix
+   prompts one at a time, which land on one replica and read its cache.
+   Every token is the ``engine`` oracle's (reused, near ties as there),
+   both replicas take part of the burst, each captured each lane once,
+   each replica's #1 and #2 tallies are its lane iterations x 12, and the
+   process counters are their sum plus the second replica's warm-up.
+4d. gpt2_fleet_kill -- decode-KV replication on; 16 requests of 64
+   tokens; the replica with the most in flight killed once one of its
+   requests has 8 tokens: every request done exactly once with the
+   oracle's tokens, a salvaged spill resumed by the peer; then a fresh
+   pair whose victim's ``evict_request`` raises: recovery from the
+   buddy's ``KVReplicaStore``. Decode step ms with replication on and off.
+4e. gpt2_fleet_push -- a ``WeightPublisher`` rolling push of a seed-1
+   GPT-2 small into two replicas (each its own copy of the weights) under
+   a trickle of 24 requests of 16 tokens: none rejected or lost, each
+   request's tokens under its own version's weights (the seed-1 oracle
+   for version 1), every replica at version 1 serving the new tokens, no
+   re-capture, never zero live replicas; drain and swap ms a replica and
+   ``weight_push_bytes_total``.
+4f. gpt2_fleet_pd -- a prefill-role and a decode-role replica: the burst
+   with the oracle's tokens, one handoff a request, TTFT and TPOT beside
+   ``gpt2_fleet``'s colocated burst.
+4g. gpt2_fleet_server -- ``launch_serving_fleet(build_engine, 2,
+   port=0)``: GENERATE and SUBMIT + RESULT through ``CoordinatorClient``
+   (oracle tokens), FLEET, DRAIN, RESUME, FLEETMETRICS (each replica's
+   series); KVEXPORT from one ``ServingServer`` and KVIMPORT into another,
+   whose next request reads the 128-token prefix from its cache, and an
+   import after a swap refused; the DUMPOBS bundle merged by
+   ``tools/fleet_trace.py`` (one request's track holds its dispatch and
+   its replica's phases); ``tools/fleet_top.py --once``, a row a replica.
+4h. gpt2_rollout -- ``workloads.run_rollout_loop`` on GPT-2 small: 2
+   rounds, 2 replicas, 6 prompts a round, 2 SFT steps a round (bf16
+   compute: #2-#4's tensor-core lanes), a trickle of 3 under each push:
+   no request lost, versions 1 then 2, finite losses.
 5. train   -- GPT-2 small at ``bench.py main()``'s TPU configuration:
    seq 1024, fp32 params with bf16 compute, ``Strategy(remat=
    "selective", unroll=True)``, AdamW(1e-4, wd 0.01). First a step
@@ -1657,24 +1699,37 @@ def generate_oracle(phase, model, reqs, new, device, memo=None):
     prompts = [tuple(r.prompt.tolist()) for r in reqs]
     hits = sum(p in memo for p in prompts)
     oracle_generate(model, prompts, new, device, memo, tag=phase)
-    near_ties = []
-    for r, prompt in zip(reqs, prompts):
-        want_toks, gaps = memo[prompt]
-        got = list(r.tokens)
-        check(len(got) == new and all(0 <= t < vocab for t in got),
+    for r in reqs:
+        check(all(0 <= t < vocab for t in r.tokens),
               f"request {r.id}: bad token list")
-        if got == want_toks:
-            continue
-        t = next(i for i, (a, b) in enumerate(zip(got, want_toks)) if a != b)
-        gap = float(gaps[t])
-        near_ties.append(dict(request=r.id, step=t, gap=gap))
-        check(gap < 1e-4, f"{phase}: request {r.id} diverges from generate "
-                          f"at step {t} where the oracle's top-2 gap is "
-                          f"{gap}")
+    near_ties = oracle_divergences(
+        phase, [(r.id, p, list(r.tokens), memo)
+                for r, p in zip(reqs, prompts)], new)
     emit(phase=phase, requests=len(reqs),
          identical=len(reqs) - len(near_ties),
          near_ties=near_ties, oracle_reused=hits,
          seconds=time.perf_counter() - t0)
+
+
+def oracle_divergences(phase, rows, new) -> list:
+    """``rows``: (request id, prompt, tokens, oracle memo). Each request's
+    tokens equal the first ``new`` of its prompt's oracle tokens, but at
+    a step where the oracle's top-2 gap is below 1e-4: those near ties
+    are returned."""
+    near = []
+    for rid, prompt, got, memo in rows:
+        want, gaps = memo[tuple(prompt)]
+        check(len(got) == new, f"{phase}: request {rid}: {len(got)} "
+                               f"tokens, expected {new}")
+        if got == want[:new]:
+            continue
+        t = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        gap = float(gaps[t])
+        near.append(dict(request=rid, step=t, gap=gap))
+        check(gap < 1e-4, f"{phase}: request {rid} diverges from generate "
+                          f"at step {t} where the oracle's top-2 gap is "
+                          f"{gap}")
+    return near
 
 
 def device_kernel_ms(prof, counts=None) -> tuple[dict, int]:
@@ -7296,6 +7351,703 @@ def phase_gpt2_server(device, card, gpt2):
     return counts
 
 
+# -- the in-process serving fleet -------------------------------------------
+
+#: every fleet wait gives up after this long
+FLEET_WAIT_S = 300.0
+#: the kill phase: requests, their budget, and the tokens its victim's
+#: busiest request must have before the kill
+KILL_REQUESTS, KILL_NEW, KILL_AFTER = 16, 64, 8
+#: the push phase: trickle requests, their budget, their spacing (s)
+PUSH_TRICKLE, PUSH_NEW, PUSH_GAP_S = 24, 16, 0.02
+#: the front door's GENERATE and SUBMIT requests
+SERVER_REQUESTS = 6
+
+
+def fleet_engine(model, device):
+    """A GPT-2 small replica at ``engine``'s settings."""
+    from hetu_tpu_torch.serving import ServingEngine
+    return ServingEngine(model, slots=16, max_len=512, prefill_chunk=64,
+                         block_size=16, seed=SEED, device=device)
+
+
+def wait_done(phase, rreqs) -> None:
+    for r in rreqs:
+        check(r.done.wait(FLEET_WAIT_S),
+              f"{phase}: request {r.id} not done in {FLEET_WAIT_S} s")
+
+
+def replica_launches(eng) -> dict:
+    """One replica's kernel launches: each lane's launches a replay times
+    the replays (``lane_iters``)."""
+    out: dict = {}
+    for lane, g in eng.lanes.items():
+        for name, n in g.launches.items():
+            out[name] = out.get(name, 0) + n * eng.lane_iters[lane]
+    return out
+
+
+def check_fleet_launches(phase, counts, replicas, layers, built=()) -> dict:
+    """Each replica's #1 and #2 tallies are its own lane iterations times
+    the layers (``check_launches``' formula), and the process counters,
+    zeroed just before the phase's traffic, are their sum plus the
+    warm-up launches of the replicas in ``built`` (built after the
+    zeroing, while a peer served)."""
+    per = {}
+    for name, eng in replicas.items():
+        mine = replica_launches(eng)
+        iters = dict(eng.lane_iters)
+        want = {"paged_attention": layers * (iters["decode"]
+                                             + iters["prefill"]),
+                "flash_fwd": layers * iters["prefill"]}
+        per[name] = dict(launches=mine, lane_iters=iters, expected=want)
+        for k, n in want.items():
+            check(mine.get(k, 0) == n,
+                  f"{phase}: replica {name}: {k} {mine.get(k, 0)} "
+                  f"launches, expected {n}")
+    total: dict = {}
+    tallies = [replica_launches(eng) for eng in replicas.values()] \
+        + [g.warmup_launches for eng in built for g in eng.lanes.values()]
+    for tally in tallies:
+        for k, n in tally.items():
+            total[k] = total.get(k, 0) + n
+    emit(phase=phase, replicas=per, counts=counts,
+         expected_counts=total)
+    for k in ("paged_attention", "flash_fwd"):
+        check(counts.get(k, 0) > 0, f"{phase}: {k} never launched")
+        check(counts.get(k, 0) == total.get(k, 0),
+              f"{phase}: {k}: {counts.get(k, 0)} launches, the replicas "
+              f"account for {total.get(k, 0)}")
+    return per
+
+
+def check_fleet_captures(phase, replicas) -> None:
+    for name, eng in replicas.items():
+        check_captures(f"{phase}_{name}", eng)
+
+
+def check_tokens(phase, rows, new) -> dict:
+    """``oracle_divergences``, printed as one line."""
+    near = oracle_divergences(phase, rows, new)
+    line = dict(phase=phase, requests=len(rows),
+                identical=len(rows) - len(near), near_ties=near)
+    emit(**line)
+    return line
+
+
+def router_latency(rreqs, first=None) -> dict:
+    """Router-level TTFT (submit → the request's first token, wherever it
+    was sampled: ``first`` maps a request id to that time, default its
+    last engine request's) and TPOT (first token → finish over the later
+    tokens), p50 and p99, in ms."""
+    ttft, tpot = [], []
+    for r in rreqs:
+        t1 = r.inner.first_token_s if first is None else first[r.id]
+        ttft.append((t1 - r.submit_s) * 1e3)
+        if len(r.tokens) > 1:
+            tpot.append((r.finish_s - t1) * 1e3 / (len(r.tokens) - 1))
+    return dict(ttft_ms_p50=percentile(ttft, 50),
+                ttft_ms_p99=percentile(ttft, 99),
+                tpot_ms_p50=percentile(tpot, 50),
+                tpot_ms_p99=percentile(tpot, 99))
+
+
+def series_by(reg, name, label) -> dict:
+    return {dict(k).get(label): v
+            for k, v in reg.counter(name)._values.items()}
+
+
+def phase_gpt2_fleet(device, card, gpt2):
+    """Two GPT-2 small replicas behind one Router, the second built and
+    registered while the first serves the first half of ``engine``'s
+    burst; then the whole burst on the settled fleet (its caches flushed,
+    as ``engine``'s burst found its own), for the throughput beside
+    ``engine``'s; then the 16 shared-prefix prompts one at a time."""
+    from hetu_tpu_torch import telemetry
+    from hetu_tpu_torch.engine import trace_counts
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.serving import Router, SamplingParams
+
+    model, memo = gpt2["model"], gpt2["oracle"]
+    cfg = model.cfg
+    burst, shared = workload(cfg.vocab_size)
+    sp = SamplingParams(max_tokens=64)
+    before = trace_counts()
+    telemetry.reset()
+    telemetry.enable(True)
+    router = Router(poll_s=0.001)
+    try:
+        e0 = fleet_engine(model, device)
+        check_captures("gpt2_fleet_setup_r0", e0)
+        # ---- the main path: counters zeroed just before, read after ----
+        reset_launch_counts()
+        router.register("r0", e0)
+        half = len(burst) // 2
+        first = [router.submit(p, sp) for p in burst[:half]]
+        busy = e0.has_work()
+        it0 = dict(e0.lane_iters)
+        t0 = time.perf_counter()
+        e1 = fleet_engine(model, device)        # captures while r0 serves
+        build_s = time.perf_counter() - t0
+        it1 = dict(e0.lane_iters)
+        check_captures("gpt2_fleet_setup_r1", e1)
+        router.register("r1", e1)
+        second = [router.submit(p, sp) for p in burst[half:]]
+        wait_done("gpt2_fleet", first + second)
+        mid = dict(build_seconds=build_s, r0_busy_at_build=busy,
+                   r0_iterations_during_build={
+                       k: it1[k] - it0[k] for k in it0},
+                   served_by_r0=sum(r.replica == "r0"
+                                    for r in first + second))
+        check(busy, "gpt2_fleet: r0 had no work when r1 was built")
+        # the throughput burst on the settled fleet, caches flushed
+        for eng in (e0, e1):
+            with eng._lock:
+                eng.prefix_cache.evict(eng.pool.n_blocks)
+        with router._lock:
+            router._directory.flush_stale(below_version=1 << 30)
+        dispatched0 = {n: h.dispatched for n, h in router._replicas.items()}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tput = [router.submit(p, sp) for p in burst]
+        wait_done("gpt2_fleet", tput)
+        t_burst = time.perf_counter() - t1
+        spread = {n: h.dispatched - dispatched0[n]
+                  for n, h in router._replicas.items()}
+        # the shared prompts one at a time on the idle fleet
+        solo = []
+        for p in shared:
+            solo.append(router.submit(p, sp))
+            wait_done("gpt2_fleet", solo[-1:])
+        counts = launch_counts()
+        # -----------------------------------------------------------------
+        replicas = {"r0": e0, "r1": e1}
+        per = check_fleet_launches("gpt2_fleet_launches", counts, replicas,
+                                   cfg.num_layers, built=(e1,))
+        check_fleet_captures("gpt2_fleet", replicas)
+        since = {lane: trace_counts().get(k, 0) - before.get(k, 0)
+                 for lane, k in TRACE_KEYS.items()}
+        check(since == {"decode": 2, "prefill": 2},
+              f"gpt2_fleet: captures since the replicas were built: "
+              f"{since}, expected 2 a lane")
+        everyone = first + second + tput + solo
+        check(all(r.status == "done" for r in everyone),
+              "gpt2_fleet: a request did not finish")
+        check_tokens("gpt2_fleet_oracle",
+                     [(r.id, r.prompt, list(r.tokens), memo)
+                      for r in everyone], 64)
+        check(all(n > 0 for n in spread.values()),
+              f"gpt2_fleet: a replica took none of the burst: {spread}")
+        homes = {r.replica for r in solo}
+        cached = [r.result()["timing"]["cached_tokens"] for r in solo]
+        check(len(homes) == 1 and all(c >= 128 for c in cached[1:]),
+              f"gpt2_fleet: the shared prefix landed on {homes}, cached "
+              f"{cached}")
+        reg = telemetry.get_registry()
+        gen = sum(len(r.tokens) for r in tput)
+        perf = dict(burst_tokens_per_s=gen / t_burst,
+                    **router_latency(tput))
+        engine = gpt2["perf"]
+        emit(phase="gpt2_fleet", card=card, replicas=2, **mid,
+             burst_requests=len(tput), burst_generated_tokens=gen,
+             burst_seconds=t_burst, **perf,
+             burst_dispatch=spread,
+             engine_burst_tokens_per_s=engine["burst_tokens_per_s"],
+             engine_ttft_ms_p50=engine["ttft_ms_p50"],
+             engine_ttft_ms_p99=engine["ttft_ms_p99"],
+             engine_tpot_ms_p50=engine["tpot_ms_p50"],
+             fleet_over_engine_tokens_per_s=perf["burst_tokens_per_s"]
+             / engine["burst_tokens_per_s"],
+             shared_replica=sorted(homes), shared_cached_tokens=cached,
+             dispatch_reasons=series_by(reg, "router_dispatch_reason_total",
+                                        "reason"),
+             replica_launches={n: p["launches"] for n, p in per.items()})
+    finally:
+        router.stop()
+        telemetry.enable(False)
+        telemetry.reset()
+    return counts, perf
+
+
+def decode_step_ms(model, device, prompts, replicate: bool) -> dict:
+    """Median host ms of a steady decode step (no prefill in it) of one
+    replica serving ``prompts`` at ``KILL_NEW`` tokens, with its decode KV
+    replicated to a store every 20 ms or not."""
+    from hetu_tpu_torch.serving import KVReplicaStore, SamplingParams
+    eng = fleet_engine(model, device)
+    store = KVReplicaStore()
+    if replicate:
+        eng.configure_replication(store.put, origin="probe")
+    try:
+        for p in prompts:
+            eng.submit(p, SamplingParams(max_tokens=KILL_NEW))
+        times = []
+        while eng.has_work():
+            pf = eng.lane_iters["prefill"]
+            t0 = time.perf_counter()
+            eng.step()
+            if eng.lane_iters["prefill"] == pf:
+                times.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        eng.configure_replication(None)
+        eng.stop()
+    return dict(steps=len(times), ms_p50=percentile(times, 50),
+                ms_p99=percentile(times, 99), ms_max=max(times),
+                shipments=store.put_total)
+
+
+def phase_gpt2_fleet_kill(device, card, gpt2):
+    """Two replicas with decode-KV replication on; 16 requests; the
+    replica with the most in flight killed mid-decode (its arena
+    salvaged). Then a fresh pair whose victim's arena cannot be read:
+    recovery from the buddy's replica store. Decode step ms with
+    replication on beside off."""
+    from hetu_tpu_torch import telemetry
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.serving import Router, SamplingParams
+
+    model, memo = gpt2["model"], gpt2["oracle"]
+    cfg = model.cfg
+    burst, _ = workload(cfg.vocab_size)
+    prompts = burst[:KILL_REQUESTS]
+    sp = SamplingParams(max_tokens=KILL_NEW)
+    telemetry.reset()
+    telemetry.enable(True)
+    reg = telemetry.get_registry()
+    readings, counts = {}, {}
+    try:
+        for case in ("salvage", "buddy"):
+            router = Router(poll_s=0.001, replicate_kv=True)
+            try:
+                engines = {n: fleet_engine(model, device)
+                           for n in ("r0", "r1")}
+                for n, eng in engines.items():
+                    router.register(n, eng)
+                deadline = time.monotonic() + FLEET_WAIT_S
+                while len(router._buddy_of) < 2:
+                    check(time.monotonic() < deadline,
+                          f"gpt2_fleet_kill: buddies never wired")
+                    time.sleep(0.001)
+                c0 = {k: reg.counter(k).value() for k in (
+                    "router_resumed_requeues_total",
+                    "fleet_kv_recoveries_total")}
+                done0 = reg.counter("serving_requests_total").value(
+                    outcome="completed")
+                # ---- the main path: counters zeroed just before ----------
+                reset_launch_counts()
+                rreqs = [router.submit(p, sp) for p in prompts]
+
+                def ready():
+                    with router._lock:
+                        h = max(router._replicas.values(),
+                                key=lambda x: len(x.inflight))
+                        live = [r for r in h.inflight.values()
+                                if r.inner is not None
+                                and r.inner.status == "decode"]
+                        if not live or max(len(r.inner.tokens)
+                                           for r in live) < KILL_AFTER:
+                            return None
+                        if case == "buddy":
+                            store = router._replicas[
+                                router._buddy_of[h.name]
+                            ].engine.kv_replica_store
+                            if not any(r.trace_id in store for r in live):
+                                return None
+                        return h
+                deadline = time.monotonic() + FLEET_WAIT_S
+                while (victim := ready()) is None:
+                    check(time.monotonic() < deadline,
+                          f"gpt2_fleet_kill {case}: no request reached "
+                          f"{KILL_AFTER} tokens")
+                    time.sleep(0.0005)
+                if case == "buddy":
+                    def unreachable(*a, **k):
+                        raise RuntimeError("arena unreachable")
+                    victim.engine.evict_request = unreachable
+                inflight = len(victim.inflight)
+                requeued = router.kill_replica(victim.name)
+                wait_done("gpt2_fleet_kill", rreqs)
+                victim.engine._thread.join(timeout=FLEET_WAIT_S)
+                counts_case = launch_counts()
+                # ----------------------------------------------------------
+                for k, n in counts_case.items():
+                    counts[k] = counts.get(k, 0) + n
+                check_fleet_launches(f"gpt2_fleet_kill_{case}_launches",
+                                     counts_case, engines, cfg.num_layers)
+                check_fleet_captures(f"gpt2_fleet_kill_{case}", engines)
+                check(all(r.status == "done" for r in rreqs),
+                      f"gpt2_fleet_kill {case}: a request did not finish")
+                done = reg.counter("serving_requests_total").value(
+                    outcome="completed") - done0
+                check(done == len(rreqs),
+                      f"gpt2_fleet_kill {case}: {done} completions for "
+                      f"{len(rreqs)} requests")
+                check_tokens(f"gpt2_fleet_kill_{case}_oracle",
+                             [(r.id, r.prompt, list(r.tokens), memo)
+                              for r in rreqs], KILL_NEW)
+                delta = {k: reg.counter(k).value() - v
+                         for k, v in c0.items()}
+                resumed = sum(bool(r.result()["timing"].get("resumed"))
+                              for r in rreqs)
+                check(router.requeues_total > 0,
+                      f"gpt2_fleet_kill {case}: nothing requeued")
+                if case == "salvage":
+                    check(delta["router_resumed_requeues_total"] >= 1,
+                          f"gpt2_fleet_kill: no salvaged spill was resumed "
+                          f"by the peer: {delta}")
+                else:
+                    check(delta["fleet_kv_recoveries_total"] >= 1
+                          and resumed >= 1,
+                          f"gpt2_fleet_kill: no recovery from the buddy's "
+                          f"store: {delta}, resumed {resumed}")
+                readings[case] = dict(
+                    victim=victim.name, victim_inflight=inflight,
+                    requeued=requeued, requeues_total=router.requeues_total,
+                    resumed_requests=resumed, **delta,
+                    replicated_blocks=reg.counter(
+                        "fleet_kv_replicated_blocks_total").value())
+            finally:
+                router.stop()
+    finally:
+        telemetry.enable(False)
+        telemetry.reset()
+    decode_prompts = [p for p in burst if len(p) <= 512 - KILL_NEW][:16]
+    steps = {"off": decode_step_ms(model, device, decode_prompts, False),
+             "on": decode_step_ms(model, device, decode_prompts, True)}
+    emit(phase="gpt2_fleet_kill", card=card, requests=KILL_REQUESTS,
+         max_tokens=KILL_NEW, **readings, decode_step_replication=steps,
+         heap_objects=len(gc.get_objects()),
+         decode_step_ms_on_over_off=steps["on"]["ms_p50"]
+         / steps["off"]["ms_p50"])
+    return counts
+
+
+def phase_gpt2_fleet_push(device, card, gpt2):
+    """A rolling push of a seed-1 GPT-2 small into two replicas (each its
+    own copy of ``engine``'s weights) under a trickle of 24 requests."""
+    import copy
+    import threading
+
+    from hetu_tpu_torch import telemetry
+    from hetu_tpu_torch.models import GPTLMHeadModel
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.serving import Router, SamplingParams, \
+        WeightPublisher
+
+    model, memo = gpt2["model"], gpt2["oracle"]
+    cfg = model.cfg
+    burst, _ = workload(cfg.vocab_size)
+    new_model = GPTLMHeadModel(cfg, device=device, seed=SEED + 1).eval()
+    sp = SamplingParams(max_tokens=PUSH_NEW)
+    telemetry.reset()
+    telemetry.enable(True)
+    router = Router(poll_s=0.001)
+    try:
+        engines = {n: fleet_engine(copy.deepcopy(model), device)
+                   for n in ("r0", "r1")}
+        for n, eng in engines.items():
+            router.register(n, eng)
+        publisher = WeightPublisher(router)
+        trickle, floor, stop = [], [], threading.Event()
+
+        def sampler():
+            while not stop.is_set():
+                floor.append(router.fleet_status()["live"])
+                time.sleep(0.001)
+
+        def submitter():
+            for p in burst[:PUSH_TRICKLE]:
+                trickle.append(router.submit(p, sp))
+                time.sleep(PUSH_GAP_S)
+
+        # ---- the main path: counters zeroed just before, read after -----
+        reset_launch_counts()
+        threads = [threading.Thread(target=sampler),
+                   threading.Thread(target=submitter)]
+        for t in threads:
+            t.start()
+        time.sleep(PUSH_GAP_S * 4)             # the trickle is under way
+        report = publisher.publish(new_model)
+        threads[1].join()
+        stop.set()
+        threads[0].join()
+        wait_done("gpt2_fleet_push", trickle)
+        after = router.generate_many(burst[PUSH_TRICKLE:PUSH_TRICKLE + 8],
+                                     sp)
+        counts = launch_counts()
+        # -----------------------------------------------------------------
+        check_fleet_launches("gpt2_fleet_push_launches", counts, engines,
+                             cfg.num_layers)
+        check_fleet_captures("gpt2_fleet_push", engines)
+        check(all(r.status == "done" for r in trickle),
+              f"gpt2_fleet_push: {[r.status for r in trickle]}")
+        check(min(floor) >= 1, "gpt2_fleet_push: no live replica at some "
+                               "point of the push")
+        versions = [r.weight_version for r in trickle]
+        check(set(versions) <= {0, 1}, f"gpt2_fleet_push: versions "
+                                       f"{versions}")
+        new_prompts = [r.prompt for r in trickle if r.weight_version == 1] \
+            + burst[PUSH_TRICKLE:PUSH_TRICKLE + 8]
+        memo1 = oracle_generate(new_model, new_prompts, PUSH_NEW, device,
+                                tag="gpt2_fleet_push_oracle")
+        check_tokens("gpt2_fleet_push_oracle",
+                     [(r.id, r.prompt, list(r.tokens),
+                       memo if r.weight_version == 0 else memo1)
+                      for r in trickle]
+                     + [(-1 - i, p, toks, memo1) for i, (p, toks) in
+                        enumerate(zip(burst[PUSH_TRICKLE:PUSH_TRICKLE + 8],
+                                      after))], PUSH_NEW)
+        st = router.fleet_status()
+        check(st["weight_versions"] == [1] and st["live"] == 2,
+              f"gpt2_fleet_push: fleet after the push: {st}")
+        reg = telemetry.get_registry()
+        emit(phase="gpt2_fleet_push", card=card, trickle=len(trickle),
+             max_tokens=PUSH_NEW, versions={v: versions.count(v)
+                                            for v in (0, 1)},
+             live_min=min(floor), push_ms=report["duration_ms"],
+             replicas=report["replicas"],
+             weight_push_bytes_total=reg.counter(
+                 "weight_push_bytes_total").value(transport="reshard"),
+             requeues_total=router.requeues_total,
+             resumed_requeues=reg.counter(
+                 "router_resumed_requeues_total").value())
+    finally:
+        router.stop()
+        telemetry.enable(False)
+        telemetry.reset()
+    return counts
+
+
+def phase_gpt2_fleet_pd(device, card, gpt2, colocated):
+    """A prefill-role and a decode-role replica: ``engine``'s burst, each
+    request prefilled on one, its KV handed to the other, decoded
+    there."""
+    from hetu_tpu_torch import telemetry
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.serving import Router, SamplingParams
+
+    model, memo = gpt2["model"], gpt2["oracle"]
+    cfg = model.cfg
+    burst, _ = workload(cfg.vocab_size)
+    sp = SamplingParams(max_tokens=64)
+    telemetry.reset()
+    telemetry.enable(True)
+    router = Router(poll_s=0.001)
+    try:
+        engines = {"pre": fleet_engine(model, device),
+                   "dec": fleet_engine(model, device)}
+        made = record_requests(engines["pre"])
+        router.register("pre", engines["pre"], role="prefill")
+        router.register("dec", engines["dec"], role="decode")
+        # ---- the main path: counters zeroed just before, read after -----
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rreqs = [router.submit(p, sp) for p in burst]
+        wait_done("gpt2_fleet_pd", rreqs)
+        t_burst = time.perf_counter() - t0
+        counts = launch_counts()
+        # -----------------------------------------------------------------
+        check_fleet_launches("gpt2_fleet_pd_launches", counts, engines,
+                             cfg.num_layers)
+        check_fleet_captures("gpt2_fleet_pd", engines)
+        check(all(r.status == "done" for r in rreqs),
+              "gpt2_fleet_pd: a request did not finish")
+        check_tokens("gpt2_fleet_pd_oracle",
+                     [(r.id, r.prompt, list(r.tokens), memo)
+                      for r in rreqs], 64)
+        reg = telemetry.get_registry()
+        handoffs = reg.counter("fleet_pd_handoffs_total").value()
+        check(handoffs == len(rreqs), f"gpt2_fleet_pd: {handoffs} handoffs "
+                                      f"for {len(rreqs)} requests")
+        first = {r.trace_id: r.first_token_s for r in made.values()}
+        gen = sum(len(r.tokens) for r in rreqs)
+        emit(phase="gpt2_fleet_pd", card=card, requests=len(rreqs),
+             handoffs=handoffs,
+             fleet_kv_stream_blocks_total=reg.counter(
+                 "fleet_kv_stream_blocks_total").value(),
+             burst_seconds=t_burst, burst_tokens_per_s=gen / t_burst,
+             **router_latency(rreqs, {r.id: first[r.trace_id]
+                                      for r in rreqs}),
+             colocated=colocated,
+             lane_iters={n: dict(e.lane_iters) for n, e in engines.items()})
+    finally:
+        router.stop()
+        telemetry.enable(False)
+        telemetry.reset()
+    return counts
+
+
+def phase_gpt2_fleet_server(device, card, gpt2):
+    """``launch_serving_fleet(build_engine, 2, port=0)``: GENERATE and
+    SUBMIT + RESULT through the port's client, FLEET, DRAIN, RESUME and
+    FLEETMETRICS; KVEXPORT and KVIMPORT between two ``ServingServer``s,
+    the import refused after a swap; DUMPOBS merged by
+    ``tools/fleet_trace.py``; ``tools/fleet_top.py --once``."""
+    import io
+
+    from hetu_tpu_torch import telemetry
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.rpc import CoordinatorClient, launch_serving_fleet
+    from hetu_tpu_torch.serving import ServingServer
+    from hetu_tpu_torch.telemetry import parse_prometheus
+    from hetu_tpu_torch.tools import fleet_top, fleet_trace
+
+    model, memo = gpt2["model"], gpt2["oracle"]
+    cfg = model.cfg
+    burst, shared = workload(cfg.vocab_size)
+    new = 64
+    telemetry.reset()
+    telemetry.enable(True)
+    built = []
+
+    def build(i):
+        built.append(fleet_engine(model, device))
+        return built[-1]
+
+    fleet = launch_serving_fleet(build, 2, port=0)
+    servers = []
+    try:
+        # ---- the main path: counters zeroed just before, read after -----
+        reset_launch_counts()
+        cli = CoordinatorClient(fleet.port, timeout=WIRE_TIMEOUT_S)
+        docs = [cli.serving_generate(p, max_tokens=new)
+                for p in burst[:SERVER_REQUESTS // 2]]
+        ids = [cli.serving_submit(p, max_tokens=new)
+               for p in burst[SERVER_REQUESTS // 2:SERVER_REQUESTS]]
+        for rid in ids:
+            doc, deadline = None, time.monotonic() + WIRE_TIMEOUT_S
+            while doc is None:
+                check(time.monotonic() < deadline,
+                      f"gpt2_fleet_server: no RESULT for {rid}")
+                doc = cli.serving_result(rid, timeout_ms=1000)
+            docs.append(doc)
+        check(all(d["status"] == "done" for d in docs),
+              "gpt2_fleet_server: a wire request did not finish")
+        check_tokens("gpt2_fleet_server_oracle",
+                     [(d["id"], p, d["tokens"], memo)
+                      for d, p in zip(docs, burst[:SERVER_REQUESTS])], new)
+        st = cli.fleet_status()
+        check(st["live"] == 2 and set(st["replicas"]) == {"r0", "r1"},
+              f"gpt2_fleet_server: FLEET {st}")
+        drained = cli.fleet_drain("r1")
+        check(cli.fleet_status()["replicas"]["r1"]["state"] == "draining",
+              "gpt2_fleet_server: DRAIN did not drain")
+        health = cli.healthz()
+        cli.fleet_resume("r1")
+        check(cli.fleet_status()["live"] == 2,
+              "gpt2_fleet_server: RESUME did not resume")
+        fleet.router._tick()
+        text = cli.fleet_metrics_text()
+        series = parse_prometheus(text)
+        per_replica = {n: f'replica="{n}"' in text for n in ("r0", "r1")}
+        check(all(per_replica.values()),
+              f"gpt2_fleet_server: FLEETMETRICS lacks a replica's series: "
+              f"{per_replica}")
+        # the KV verbs between two servers
+        a = ServingServer(fleet_engine(model, device), 0)
+        b = ServingServer(fleet_engine(model, device), 0)
+        servers = [a, b]
+        for srv in servers:
+            srv.start()
+            srv.wait_ready()
+        ca = CoordinatorClient(a.port, timeout=WIRE_TIMEOUT_S)
+        cb = CoordinatorClient(b.port, timeout=WIRE_TIMEOUT_S)
+        ra = ca.serving_generate(shared[0], max_tokens=new)
+        exported = ca.serving_kv_export(shared[0][:128])
+        check(exported["spill"] is not None,
+              "gpt2_fleet_server: KVEXPORT found no cached prefix")
+        imported = cb.serving_kv_import(exported["spill"])
+        rb = cb.serving_generate(shared[1], max_tokens=new)
+        check(imported["ok"] and rb["timing"]["cached_tokens"] >= 128,
+              f"gpt2_fleet_server: KVIMPORT {imported}, cached "
+              f"{rb['timing']['cached_tokens']}")
+        check_tokens("gpt2_fleet_server_kv_oracle",
+                     [(ra["id"], shared[0], ra["tokens"], memo),
+                      (rb["id"], shared[1], rb["tokens"], memo)], new)
+        b.engine.swap_params(dict(model.named_parameters()))
+        stale = cb.serving_kv_import(exported["spill"])
+        check(stale["ok"] is False,
+              "gpt2_fleet_server: an import after a swap was accepted")
+        counts = launch_counts()
+        # -----------------------------------------------------------------
+        engines = {"r0": built[0], "r1": built[1], "kv_a": a.engine,
+                   "kv_b": b.engine}
+        check_fleet_launches("gpt2_fleet_server_launches", counts, engines,
+                             cfg.num_layers, built=(a.engine, b.engine))
+        check_fleet_captures("gpt2_fleet_server", engines)
+        # the tools
+        bundle = cli.dump_obs()
+        merged = fleet_trace.merge_bundles([bundle])
+        tid = docs[0]["timing"]["trace_id"]
+        spans = fleet_trace.span_order(merged, tid)
+        check("dispatch" in spans and "decode" in spans,
+              f"gpt2_fleet_server: request {tid}'s merged track: {spans}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = fleet_top.main(["--port", str(fleet.port), "--once"])
+        frame = out.getvalue()
+        rows = [ln for ln in frame.splitlines()
+                if ln.split()[:1] in (["r0"], ["r1"])]
+        check(rc == 0 and len(rows) == 2,
+              f"gpt2_fleet_server: fleet_top printed {frame!r}")
+        for c in (cli, ca, cb):
+            c.close()
+        emit(phase="gpt2_fleet_server", card=card, port=fleet.port,
+             requests=len(docs), drain=drained,
+             healthz_status=health["status"],
+             healthz_fleet=health.get("fleet"),
+             fleetmetrics_samples=len(series[1]),
+             kv_export_blocks=exported["spill"]["n_blocks"],
+             kv_import=imported, kv_import_after_swap=stale,
+             kv_cached_tokens=rb["timing"]["cached_tokens"],
+             merged_track=spans, fleet_top_rows=rows)
+    finally:
+        for srv in servers:
+            srv.stop()
+        fleet.stop()
+        telemetry.enable(False)
+        telemetry.reset()
+    check(all(e._thread is None for e in built),
+          "gpt2_fleet_server: stop() left a loop thread")
+    return counts
+
+
+def phase_gpt2_rollout(device, card):
+    """The port's ``run_rollout_loop`` on GPT-2 small: 2 rounds of 2
+    replicas, 6 prompts a round, 2 SFT steps a round (bf16 compute), a
+    trickle of 3 under each push."""
+    from hetu_tpu_torch import telemetry
+    from hetu_tpu_torch.ops import launch_counts, reset_launch_counts
+    from hetu_tpu_torch.workloads import run_rollout_loop
+
+    t0 = time.perf_counter()
+    # ---- the main path: counters zeroed just before, read after ---------
+    reset_launch_counts()
+    out = run_rollout_loop(rounds=2, n_replicas=2, prompts_per_round=6,
+                           max_tokens=8, steps_per_round=2, trickle=3,
+                           model_size="small", device=device)
+    counts = launch_counts()
+    # ---------------------------------------------------------------------
+    telemetry.enable(False)
+    telemetry.reset()
+    emit(phase="gpt2_rollout", card=card, counts=counts,
+         seconds=time.perf_counter() - t0, **out)
+    check(out["zero_downtime"], f"gpt2_rollout: {out['continuity']}")
+    check(out["continuity"]["submitted"] == out["continuity"]["completed"]
+          == 6, f"gpt2_rollout: {out['continuity']}")
+    check([r["weight_version"] for r in out["rounds"]] == [1, 2],
+          f"gpt2_rollout: versions {out['rounds']}")
+    check(all(r["fleet_versions"] == [r["weight_version"]]
+              for r in out["rounds"]), "gpt2_rollout: a replica lagged")
+    check(all(np.isfinite(r["loss"]) for r in out["rounds"]),
+          "gpt2_rollout: a non-finite loss")
+    for name in ("paged_attention", "flash_fwd", "flash_bwd_dq",
+                 "flash_bwd_dkv"):
+        check(counts.get(name, 0) > 0, f"gpt2_rollout: {name} never "
+                                       f"launched")
+    return counts
+
+
 def weight_sums(model) -> list:
     return [checksum(p) for p in model.parameters()]
 
@@ -8628,7 +9380,16 @@ def main() -> int:
     paths["gpt2_telemetry"] = phase_gpt2_telemetry(device, smi, gpt2,
                                                    paths["engine"])
     paths["gpt2_server"] = phase_gpt2_server(device, smi, gpt2)
+    paths["gpt2_fleet"], colocated = phase_gpt2_fleet(device, smi, gpt2)
+    paths["gpt2_fleet_kill"] = phase_gpt2_fleet_kill(device, smi, gpt2)
+    paths["gpt2_fleet_push"] = phase_gpt2_fleet_push(device, smi, gpt2)
+    paths["gpt2_fleet_pd"] = phase_gpt2_fleet_pd(device, smi, gpt2,
+                                                 colocated)
+    paths["gpt2_fleet_server"] = phase_gpt2_fleet_server(device, smi, gpt2)
     del gpt2
+    gc.collect()
+    release()
+    paths["gpt2_rollout"] = phase_gpt2_rollout(device, smi)
     gc.collect()
     release()
     run = phase_train(device, smi)

@@ -23,10 +23,21 @@ run's outputs).
 
 There is no fallback: a capture or replay error propagates, and nothing
 turns the graphs off (JAX has no switch that skips ``jit`` either).
+
+Several engines may serve from one process (a fleet's in-process
+replicas, each stepping on a thread of its own). A serving lane captures
+with ``capture_error_mode="global"``: another thread's device sync, pinned
+allocation or blocking copy while it captures would fail the capture or
+the other thread's step. :data:`DEVICE_GUARD` keeps them apart: a capture
+holds it exclusively, and every engine iteration and every other engine
+operation that touches the arena holds it shared, so a replica built
+while its peers serve waits for their current iterations and they wait
+for its capture, and nothing else serializes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import threading
 import time
@@ -86,6 +97,93 @@ def reset_trace_counts() -> None:
         _TRACE_COUNTS.clear()
 
 
+class DeviceGuard:
+    """A shared/exclusive lock between CUDA graph captures (exclusive) and
+    the device work of engines on other threads (shared).
+
+    Both sides are re-entrant on their own thread, and a thread that holds
+    it shared may take it exclusively once it is the only holder (an
+    engine iteration whose replay re-captures a lane under a new policy).
+    A waiting capture blocks new shared holders of other threads, so a
+    steady stream of iterations cannot starve it. Two threads that each
+    hold it shared and both ask for it exclusively would wait on each
+    other: a serving loop re-captures only when its policy changes, which
+    its own loop never does."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._shared: dict[int, int] = {}        # thread id -> holds
+        self._writer: Optional[int] = None
+        self._depth = 0
+        self._waiting = 0                        # captures waiting
+
+    def acquire_shared(self, timeout: Optional[float] = None) -> bool:
+        """Take it shared; False when ``timeout`` (seconds) ran out."""
+        me = threading.get_ident()
+        with self._cond:
+            if self._writer == me or me in self._shared:
+                self._shared[me] = self._shared.get(me, 0) + 1
+                return True
+            if not self._cond.wait_for(
+                    lambda: self._writer is None and not self._waiting,
+                    timeout):
+                return False
+            self._shared[me] = 1
+            return True
+
+    def release_shared(self) -> None:
+        me = threading.get_ident()
+        with self._cond:
+            n = self._shared[me] - 1
+            if n:
+                self._shared[me] = n
+            else:
+                del self._shared[me]
+                self._cond.notify_all()
+
+    def acquire_exclusive(self) -> None:
+        me = threading.get_ident()
+        with self._cond:
+            if self._writer == me:
+                self._depth += 1
+                return
+            self._waiting += 1
+            try:
+                self._cond.wait_for(
+                    lambda: self._writer is None
+                    and all(t == me for t in self._shared))
+            finally:
+                self._waiting -= 1
+            self._writer, self._depth = me, 1
+
+    def release_exclusive(self) -> None:
+        with self._cond:
+            self._depth -= 1
+            if not self._depth:
+                self._writer = None
+                self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def shared(self):
+        self.acquire_shared()
+        try:
+            yield
+        finally:
+            self.release_shared()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        self.acquire_exclusive()
+        try:
+            yield
+        finally:
+            self.release_exclusive()
+
+
+#: the process's guard between captures and engines' device work
+DEVICE_GUARD = DeviceGuard()
+
+
 class StepGraph:
     """One step: ``body()`` over the static ``operands``, captured once.
 
@@ -121,7 +219,11 @@ class StepGraph:
     buffers made before it (``CapturedStep`` makes them in the warm-up).
 
     ``launches`` is the capture's kernel tally (``_build.counting_into``);
-    each replay adds it to the launch counters. ``capture_seconds`` and
+    each replay adds it to the launch counters. A serving lane's warm-up
+    runs are counted as they launch, and their tally is kept as
+    ``warmup_launches``, so a caller that zeroed the counters before a
+    lane was built can tell them from the replays. A capture holds
+    :data:`DEVICE_GUARD` exclusively. ``capture_seconds`` and
     ``pool_bytes`` (the device memory reserved while capturing: the
     graph's pool, or what it added to a shared one) describe the last
     capture."""
@@ -141,12 +243,17 @@ class StepGraph:
         self.outputs: tuple = ()
         self.first: tuple = ()
         self.launches: dict = {}
+        self.warmup_launches: dict = {}
         self.captures = 0
         self.capture_seconds = 0.0
         self.pool_bytes = 0
         self._capture()
 
     def _capture(self) -> None:
+        with DEVICE_GUARD.exclusive():
+            self._capture_guarded()
+
+    def _capture_guarded(self) -> None:
         t0 = time.perf_counter()
         # drop the last capture (its pool) before taking the next one
         self.graph, self.outputs = None, ()
@@ -171,9 +278,13 @@ class StepGraph:
         dev = self.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        warm: dict = {}
+        with torch.cuda.stream(side), (contextlib.nullcontext() if live
+                                       else _build.counting_into(warm)):
             for _ in range(1 if live else WARMUP_ITERS):
                 first = tuple(self._body())
+        _build.add_launches(warm)
+        self.warmup_launches = warm
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
         gc.collect()
@@ -222,5 +333,6 @@ class StepGraph:
             return tuple(self._body())
 
 
-__all__ = ["StepGraph", "WARMUP_ITERS", "record_trace", "reset_trace_counts",
-           "trace_counts", "trace_total"]
+__all__ = ["DEVICE_GUARD", "DeviceGuard", "StepGraph", "WARMUP_ITERS",
+           "record_trace", "reset_trace_counts", "trace_counts",
+           "trace_total"]

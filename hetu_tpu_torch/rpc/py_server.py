@@ -1,15 +1,19 @@
 """The coordinator server, line protocol over TCP (a copy of
 ``hetu_tpu/rpc/py_server.py``): RANK/KV/BARRIER/BEAT/STATUS for a
-training fleet, the serving verbs when an engine is attached
-(``serving/server.py`` answers them), and the length-framed stream mode
+training fleet, the serving verbs when an engine or a fleet
+``serving.router.Router`` is attached (``serving/server.py`` answers
+them), and the length-framed stream mode
 (``rpc/stream.py``) on the same listener: the first line a client sends
 decides which protocol its connection speaks.
 
 ``port=0`` binds a free port; :attr:`PyCoordinatorServer.port` holds
 the bound one after :meth:`~PyCoordinatorServer.start`. HEALTHZ answers
 the health document of ``telemetry.health_status`` (SLO state, watchdog
-trips, the attached engine's queue, occupancy and loop liveness), URL
-quoted onto one ``VAL`` line; METRICS the registry's Prometheus text.
+trips, the attached engine's queue, occupancy and loop liveness, or a
+Router's ``fleet_status()``: no live replica reads degraded) with, for a
+Router, its federated rollup under ``fleet``, URL quoted onto one ``VAL``
+line; METRICS the registry's Prometheus text. With a Router attached,
+BEAT also reaches its replica staleness tracking.
 """
 
 from __future__ import annotations
@@ -119,6 +123,15 @@ class _Handler(socketserver.StreamRequestHandler):
             elif cmd == "BEAT":
                 with st.lock:
                     st.beats[args[0]] = time.monotonic()
+                # a fleet front door forwards replica beats into the
+                # attached Router (names it does not know are training
+                # workers, ignored there)
+                serving = getattr(self.server, "serving", None)
+                if serving is not None and hasattr(serving, "heartbeat"):
+                    try:
+                        serving.heartbeat(args[0])
+                    except Exception:       # noqa: BLE001
+                        pass
                 self._send("OK")
             elif cmd == "STATUS":
                 timeout = int(args[0]) / 1e3
@@ -161,6 +174,13 @@ class _Handler(socketserver.StreamRequestHandler):
                 serving = getattr(self.server, "serving", None)
                 doc = health_status(serving=serving,
                                     slo=getattr(serving, "slo", None))
+                if hasattr(serving, "fleet_healthz"):
+                    # a Router front door: the federated rollup that
+                    # names the degraded replica
+                    try:
+                        doc["fleet"] = serving.fleet_healthz()
+                    except Exception:       # noqa: BLE001
+                        pass
                 self._send("VAL " + urllib.parse.quote(
                     json.dumps(doc, separators=(",", ":")), safe=""))
             elif cmd == "METRICS":
@@ -404,8 +424,8 @@ class PyCoordinatorServer:
         self.bind = bind
         self.port = port
         self.token = token
-        self.serving = serving   # optional ServingEngine (the
-        #                          SUBMIT/RESULT/... verbs)
+        self.serving = serving   # optional ServingEngine or fleet
+        #                          Router (SUBMIT/.../FLEET verbs)
         self._server: Optional[socketserver.ThreadingTCPServer] = None
         self._thread: Optional[threading.Thread] = None
         self._ready = threading.Event()

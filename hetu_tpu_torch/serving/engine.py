@@ -170,13 +170,30 @@ and ``slo=True`` (or an ``SLOEngine``) the default serving rules on its
 cadence. ``spec_stats``, the tenant plane's ledgers and the registry's
 ``stats()`` keep their host counts with telemetry off.
 
+The fleet's side of the engine (``hetu_tpu/serving/engine.py:1168-1503``;
+the router is :mod:`~hetu_tpu_torch.serving.router`):
+``submit(handoff=True)`` / :meth:`prefill_only` is the prefill tier of a
+prefill/decode split: the request parks after its first token (status
+``"prefilled"``, its slot inactive but holding its blocks) until the
+fleet evicts its KV to a decode-tier replica. :meth:`export_prefix` gathers
+a cached whole-block prefix (the spill gather) and :meth:`import_prefix`
+writes a peer's into fresh blocks (the resume's in-place scatter) and
+inserts it into the radix trie, refused at another weight version.
+:meth:`configure_replication` streams each decoding slot's newly
+completed blocks to a buddy's :class:`~hetu_tpu_torch.serving.fleet.
+KVReplicaStore` (``kv_replica_store`` is this engine's own, for its
+peers) from a thread that holds the iteration lock only for the gather.
+:meth:`swap_params` takes the fleet-wide ``version=`` a publisher sets.
+Every operation that touches the arena holds
+``engine.step_graph.DEVICE_GUARD`` shared, so a replica built in the same
+process while this one serves captures its lanes between two of its
+iterations.
+
 Not ported yet, and not accepted as arguments: the CP long-prompt lane
-(and with it the adapter refusal of that lane), the prefill/decode
-handoff, KV replication, ``load_adapter(path=)`` (the dist-ckpt
-transport), and what only the router and fleet use: the spill arena's
-peer tier (``spill_peer``) and ``class_weights``; nor
-``prefix_cache=False``, ``swap_params(version=)`` and
-``start(idle_sleep_s=)``, which no caller sets yet.
+(and with it the adapter refusal of that lane), ``load_adapter(path=)``
+(the dist-ckpt transport), ``prefix_cache=False``,
+``start(idle_sleep_s=)``, the host arena's peer tier (``spill_peer``) and
+the scheduler's ``class_weights``, which no caller sets yet.
 """
 
 from __future__ import annotations
@@ -209,14 +226,14 @@ from hetu_tpu_torch.serving.speculative import (
     ModelDraftsman, NgramDraftsman, check_draft_depth, check_sampled_draft,
     speculative_verify,
 )
-from hetu_tpu_torch.engine.step_graph import StepGraph
+from hetu_tpu_torch.engine.step_graph import DEVICE_GUARD, StepGraph
 from hetu_tpu_torch.serving.streaming import TokenSubscription, push_delta
 from hetu_tpu_torch.serving.tenancy import (
     DEFAULT_TARGETS, AdapterArenaFull, TenantPlane,
 )
 from hetu_tpu_torch.telemetry.flight import HangWatchdog, flight_record
 from hetu_tpu_torch.telemetry.slo import SLOEngine, default_serving_rules
-from hetu_tpu_torch.telemetry.spans import REQ_TRACK_BASE
+from hetu_tpu_torch.telemetry.spans import request_track_tid
 
 log = logging.getLogger("hetu_tpu_torch.serving")
 
@@ -407,6 +424,20 @@ class ServingEngine:
                 self.pool.caches, min(max_blocks, self.pool.n_blocks - 1),
                 pin=self.device.type == "cuda")
         self._resume_pending: list[dict] = []    # admitted spill-resumes
+        # decode-KV replication: a thread streams each decoding slot's
+        # newly completed blocks to a buddy the router picks (the sink);
+        # ``kv_replica_store`` is this engine's store for its peers
+        from hetu_tpu_torch.serving.fleet import KVReplicaStore
+        self.kv_replica_store = KVReplicaStore()
+        self._repl_sink = None          # callable(doc) or None: off
+        self._repl_origin = ""
+        self._repl_cadence_s = 0.02
+        self._repl_sent: dict[int, tuple] = {}   # req id -> (blocks, tid)
+        self._repl_thread: Optional[threading.Thread] = None
+        self._repl_stop: Optional[threading.Event] = None
+        #: the replication stream's pinned staging buffers, one a leaf,
+        #: allocated on its first cadence (:meth:`_repl_to_host`)
+        self._repl_stage: Optional[list] = None
 
         # speculation: the draft depth is the verify lane's width less
         # one, each slot's depth is data
@@ -642,6 +673,7 @@ class ServingEngine:
     def submit(self, prompt: Sequence[int],
                sampling: Optional[SamplingParams] = None, *,
                resume: Optional[SpillEntry] = None,
+               handoff: bool = False,
                traceparent: Optional[str] = None) -> Request:
         """Queue one request; returns the live :class:`Request` (status
         ``"rejected"`` with ``error`` set when it can never fit a slot).
@@ -657,9 +689,21 @@ class ServingEngine:
         adapter the registry does not hold rejects the request. A spill
         resumes only under the adapter load it was written under.
 
+        ``handoff`` is the prefill-tier mode: the request runs admission
+        and prefill here, then parks after its first token (status
+        ``"prefilled"``, its slot inactive but holding its blocks) for the
+        caller (:meth:`prefill_only`, the fleet router) to evict and
+        resume on a decode-tier engine.
+
         ``traceparent`` (``"<trace_id>-<span_id>"``, from the wire) makes
-        the request adopt that trace id; a malformed token is ignored."""
+        the request adopt that trace id (without one, a resume adopts its
+        spill's); a malformed token is ignored."""
         sampling = sampling or SamplingParams()
+        if handoff and resume is not None:
+            raise ValueError(
+                "handoff with resume makes no sense: a resumed request's "
+                "KV already exists — submit it to the decode tier "
+                "directly")
         if sampling.adapter is not None and self.tenancy is None:
             raise ValueError(
                 "SamplingParams.adapter without tenancy= — construct "
@@ -667,16 +711,19 @@ class ServingEngine:
                 "load_adapter first")
         if sampling.temperature > 0 and self.spec_depth:
             check_sampled_draft(self._draftsman)
+        tp = traceparent or (resume.traceparent
+                             if resume is not None else None)
         with self._lock:
             req = Request(id=self._next_id,
                           prompt=np.asarray(prompt, np.int32).ravel(),
-                          sampling=sampling, submit_s=time.monotonic())
+                          sampling=sampling, submit_s=time.monotonic(),
+                          handoff=bool(handoff))
             self._next_id += 1
-            if traceparent:
-                tid, _span = telemetry.parse_traceparent(traceparent)
+            if tp:
+                tid, _span = telemetry.parse_traceparent(tp)
                 if tid:
                     req.trace_id = tid
-                    req.traceparent = traceparent
+                    req.traceparent = tp
             admitted = False
             if sampling.adapter is not None:
                 registry = self.tenancy.registry
@@ -793,7 +840,7 @@ class ServingEngine:
         """One engine iteration; False when there was nothing to do.
         Safe while the :meth:`start` loop runs (iterations are
         serialized), though one stepping thread is the intended mode."""
-        with self._step_lock, torch.no_grad():
+        with self._step_lock, DEVICE_GUARD.shared(), torch.no_grad():
             return self._step_locked()
 
     def _admit_locked(self) -> list[tuple[int, int]]:
@@ -1180,6 +1227,16 @@ class ServingEngine:
         if (sp.eos_id is not None and tok == sp.eos_id) \
                 or len(req.tokens) >= sp.max_tokens:
             self._finish(slot, now)
+        elif req.handoff and req.status == "decode":
+            # prefill-tier park: the first token landed, so the prefill is
+            # done. The slot goes inactive but keeps its request and its
+            # blocks until the fleet evicts the KV to a decode tier
+            self._active[slot] = False
+            req.status = "prefilled"
+            req.mark("prefilled", ts_s=now)
+            flight_record("serving_prefill_handoff", req=req.id,
+                          trace=req.trace_id, slot=slot,
+                          prompt_len=len(req.prompt))
 
     # -- resumable preemption (QoS) -----------------------------------------
     def _spill_size(self, slot: int) -> int:
@@ -1213,9 +1270,21 @@ class ServingEngine:
         the spill store's when the entry stays in this engine (``keep``)
         and the store has room, else fresh buffers. The copies are
         complete when this returns."""
+        return self._to_host(self._gather_blocks(ids, nb), keep=keep)
+
+    def _gather_blocks(self, ids: np.ndarray, nb: int) -> list:
+        """The first ``nb`` blocks of table ``ids``, every arena leaf,
+        gathered into fresh device tensors: queued on the engine's stream
+        after the replays that wrote them, so a later write to those
+        blocks cannot reach the copy."""
+        idx = torch.as_tensor(ids[:nb], dtype=torch.int64).to(self.device)
+        return [c.index_select(1, idx) for c in self.pool.caches]
+
+    def _to_host(self, gathered: list, *, keep: bool = False) -> tuple:
+        """Device→host copy of gathered blocks into (pinned, on the card)
+        host memory, complete when this returns."""
         dev = self.device
-        idx = torch.as_tensor(ids[:nb], dtype=torch.int64).to(dev)
-        gathered = [c.index_select(1, idx) for c in self.pool.caches]
+        nb = gathered[0].shape[1]
         out = self.spill_store.take(nb) \
             if keep and self.spill_store is not None else None
         if out is None:
@@ -1227,6 +1296,15 @@ class ServingEngine:
         if dev.type == "cuda":
             torch.cuda.current_stream(dev).synchronize()
         return tuple(out)
+
+    def _scatter_blocks(self, ids, data) -> None:
+        """Host→device copy of ``data`` (per arena leaf, ``(layers, nb,
+        block_size, ...)``) into arena blocks ``ids``, in place
+        (``index_copy_``): the lanes replay the arena's addresses."""
+        dev = self.device
+        idx = torch.as_tensor(np.asarray(ids), dtype=torch.int64).to(dev)
+        for c, src in zip(self.pool.caches, data):
+            c.index_copy_(1, idx, src.to(dev))
 
     def _take_out(self, req: Request, slot: int, *,
                   keep: bool = False) -> SpillEntry:
@@ -1315,11 +1393,7 @@ class ServingEngine:
         entry = req.spill
         nb = entry.n_blocks
         t0 = time.monotonic()
-        dev = self.device
-        idx = torch.as_tensor(self._bt[slot, :nb],
-                              dtype=torch.int64).to(dev)
-        for c, src in zip(self.pool.caches, entry.data):
-            c.index_copy_(1, idx, src.to(dev))
+        self._scatter_blocks(self._bt[slot, :nb], entry.data)
         self._drop_spill(req, resumed=True)
         req.spill = None
         req.resumed_blocks += nb
@@ -1362,16 +1436,25 @@ class ServingEngine:
             with torch.no_grad():
                 entry = self._evict_request_locked(req)
         finally:
-            self._lock.release()
-            self._step_lock.release()
+            self._release_both()
         if req.status == "evicted":
             self._stream_interrupt(req)
+        if entry is not None and entry.traceparent is None:
+            # the spill carries the request's trace context, so its resume
+            # on another engine joins the same trace
+            entry.traceparent = req.traceparent \
+                or telemetry.make_traceparent(req.trace_id)
+        if entry is not None and req.handoff:
+            # a parked (handoff) request never reaches _finish here: its
+            # queued and prefill spans are emitted now
+            self._emit_request_trace(req)
         return entry
 
     def _acquire_both(self, timeout_s: Optional[float]) -> bool:
-        """The iteration lock, at the loop's next iteration boundary, then
-        the state lock, within ``timeout_s`` in all (None: wait); False,
-        holding neither, when it ran out."""
+        """The iteration lock, at the loop's next iteration boundary, the
+        device guard shared, then the state lock, within ``timeout_s`` in
+        all (None: wait); False, holding none, when it ran out. Released
+        by :meth:`_release_both`."""
         deadline = None if timeout_s is None \
             else time.monotonic() + timeout_s
         with self._waiters_lock:
@@ -1384,11 +1467,22 @@ class ServingEngine:
                 self._boundary_waiters -= 1
         if not got:
             return False
-        if self._lock.acquire(timeout=-1 if deadline is None else max(
-                0.0, deadline - time.monotonic())):
-            return True
+
+        def left():
+            return None if deadline is None \
+                else max(0.0, deadline - time.monotonic())
+        if DEVICE_GUARD.acquire_shared(left()):
+            if self._lock.acquire(timeout=-1 if deadline is None
+                                  else left()):
+                return True
+            DEVICE_GUARD.release_shared()
         self._step_lock.release()
         return False
+
+    def _release_both(self) -> None:
+        self._lock.release()
+        DEVICE_GUARD.release_shared()
+        self._step_lock.release()
 
     def _evict_request_locked(self, req: Request) -> Optional[SpillEntry]:
         if req.done.is_set():
@@ -1407,7 +1501,10 @@ class ServingEngine:
             entry = self._drop_spill(req)
             self._detach_locked(req, ent["slot"])
         elif slot is not None and self._slot_req[slot] is req \
-                and self._active[slot]:
+                and (self._active[slot] or req.status == "prefilled"):
+            # a "prefilled" request is parked (handoff): its slot is
+            # inactive but still holds its blocks, which is what the
+            # prefill tier evicts to the decode tier
             entry = self._take_out(req, slot)
             telemetry.get_registry().counter(
                 "serving_kv_spilled_blocks_total",
@@ -1420,6 +1517,286 @@ class ServingEngine:
         req.status = "evicted"
         self._release_tenancy(req)
         return entry
+
+    # -- the fleet-global KV plane -------------------------------------------
+    def export_prefix(self, tokens: Sequence[int], *,
+                      lock_timeout_s: Optional[float] = 2.0
+                      ) -> Optional[SpillEntry]:
+        """Gather this engine's cached whole-block prefix of ``tokens``
+        into a :class:`SpillEntry` for a peer (the KVEXPORT verb;
+        ``hetu_tpu/serving/engine.py:1168``). Read-only: the prefix cache
+        keeps its refs, and the gather (:meth:`_spill_blocks`) runs under
+        the iteration lock, which freezes all block churn. None on a
+        whole-block miss or when ``lock_timeout_s`` ran out (a pull is
+        best effort: the puller prefills)."""
+        if not self._acquire_both(lock_timeout_s):
+            return None
+        try:
+            toks = [int(t) for t in tokens]
+            shared, _partial = self.prefix_cache.match(toks)
+            nb = min(len(shared), self.pool.table_width)
+            if nb == 0:
+                return None
+            version = self.weight_version
+            with torch.no_grad():
+                data = self._spill_blocks(np.asarray(shared[:nb], np.int32),
+                                          nb)
+        finally:
+            self._release_both()
+        bs = self.pool.block_size
+        entry = SpillEntry(
+            req_id=-1, data=data, n_blocks=nb, block_size=bs,
+            pos=nb * bs, last_tok=0, tokens=toks[:nb * bs],
+            weight_version=version)
+        flight_record("fleet_kv_export", blocks=nb, tokens=nb * bs)
+        return entry
+
+    def import_prefix(self, entry: Optional[SpillEntry], *,
+                      lock_timeout_s: Optional[float] = 2.0) -> bool:
+        """Map a peer's exported prefix into this engine's prefix cache
+        (the KVIMPORT verb; ``hetu_tpu/serving/engine.py:1206``): fresh
+        arena blocks, the resume's in-place scatter
+        (:meth:`_scatter_blocks`), then the token runs into the radix
+        trie; from there on it is an ordinary prefix hit. Refused (False:
+        the caller prefills) for an entry at another weight version or
+        arena layout (:meth:`SpillEntry.compatible_with`: a push between
+        export and import must never serve the old weights' KV), when no
+        blocks can be freed, or when ``lock_timeout_s`` ran out."""
+        if entry is None:
+            return False
+        if not entry.compatible_with(self.pool, self.weight_version):
+            flight_record("fleet_kv_import_refused",
+                          blocks=entry.n_blocks,
+                          entry_version=entry.weight_version,
+                          our_version=self.weight_version)
+            return False
+        toks = [int(t) for t in entry.tokens]
+        nb, bs = entry.n_blocks, self.pool.block_size
+        if nb < 1 or len(toks) < nb * bs or nb > self.pool.table_width:
+            return False
+        if not self._acquire_both(lock_timeout_s):
+            return False
+        try:
+            shared, _partial = self.prefix_cache.match(toks)
+            if len(shared) >= nb:
+                return True                  # already warm here
+            new_ids = []
+            for _ in range(nb):
+                b = self.blocks.alloc()
+                if b is None and self.prefix_cache.evict(nb - len(new_ids)):
+                    b = self.blocks.alloc()
+                if b is None:                # full of pinned work
+                    for x in new_ids:
+                        self.blocks.release(x)
+                    return False
+                new_ids.append(b)
+            with torch.no_grad():
+                self._scatter_blocks(new_ids, entry.data)
+            self.prefix_cache.insert(toks[:nb * bs], new_ids)
+            # insert() took the trie's own ref on each node it adopted:
+            # dropping ours leaves the trie the sole holder (LRU-evictable);
+            # a block whose run was already cached goes back to the free
+            # list
+            for b in new_ids:
+                self.blocks.release(b)
+        finally:
+            self._release_both()
+        flight_record("fleet_kv_import", blocks=nb)
+        return True
+
+    # -- decode-KV replication, origin side ----------------------------------
+    def configure_replication(self, sink, *, origin: str = "",
+                              cadence_s: float = 0.02) -> None:
+        """Point this engine's decode-KV replication stream at ``sink``, a
+        callable taking one shipment doc (in process: the buddy's
+        ``KVReplicaStore.put``; across processes: a KVREPL closure the
+        KVBUDDY verb installs); None stops it
+        (``hetu_tpu/serving/engine.py:1285``). A doc's arrays are host
+        tensors (``hetu_tpu``'s are wire dicts already): a wire sink
+        encodes them with ``serving.fleet.repl_doc_to_wire``."""
+        with self._lock:
+            self._repl_sink = sink
+            self._repl_origin = origin
+            self._repl_cadence_s = float(cadence_s)
+            if sink is None:
+                self._repl_sent.clear()
+        if sink is None:
+            if self._repl_stop is not None:
+                self._repl_stop.set()
+            self._repl_thread = None
+            return
+        if self._repl_thread is None or not self._repl_thread.is_alive():
+            self._repl_stop = threading.Event()
+            self._repl_thread = threading.Thread(
+                target=self._repl_loop, args=(self._repl_stop,),
+                daemon=True, name="serving-kv-repl")
+            self._repl_thread.start()
+
+    def _repl_loop(self, stop: threading.Event) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        while not stop.is_set():
+            try:
+                self._replicate_once()
+            except Exception as e:                    # noqa: BLE001
+                log.debug(f"kv replication cadence: {e}")
+            stop.wait(self._repl_cadence_s)
+
+    def _replicate_once(self) -> None:
+        """One replication cadence (``hetu_tpu/serving/engine.py:1320``):
+        for every decoding slot with a new COMPLETE block since its last
+        shipment, ship the range from the last shipped tail block on
+        (with a pos/tokens/generator snapshot taken in the same breath),
+        then tombstone the requests that left. The iteration lock is
+        held for the snapshot and the device gather only (queued on the
+        engine's stream after the replays that wrote the blocks); the
+        copy to the host and the sink run outside it. It is tried for one
+        cadence, so a busy step skips a beat. A cadence with no completed
+        block touches the device not at all."""
+        if self._repl_sink is None:
+            return
+        bs = self.pool.block_size
+        if not self._acquire_both(self._repl_cadence_s):
+            return
+        jobs, drops = [], []
+        try:
+            sink = self._repl_sink
+            if sink is None:
+                return
+            live = set()
+            for slot, req in enumerate(self._slot_req):
+                if req is None or not self._active[slot] or req.handoff:
+                    continue
+                live.add(req.id)
+                pos = int(self._pos[slot])
+                complete = pos // bs
+                rec = self._repl_sent.get(req.id)
+                sent = rec[0] if rec is not None else -1
+                if sent >= 0 and complete <= sent:
+                    continue              # no new whole block
+                start = max(0, sent)      # re-ship the old tail block
+                cur = max(1, -(-pos // bs))
+                gen = self._gen[slot]
+                jobs.append({
+                    "req": req, "start": start, "cur": cur, "pos": pos,
+                    "complete": complete,
+                    "last_tok": int(self._last_tok[slot]),
+                    "tokens": list(req.tokens),
+                    "gen_state": gen.get_state() if gen is not None
+                    else None,
+                    "ids": self._bt[slot, start:cur].copy()})
+            for rid, rec in list(self._repl_sent.items()):
+                if rid not in live:
+                    drops.append(rec[1])
+                    self._repl_sent.pop(rid, None)
+            # the gather is queued on the engine's stream under the
+            # iteration lock, after the replays that wrote the blocks;
+            # the host copy (and its wait) runs outside it
+            with torch.no_grad():
+                for job in jobs:
+                    job["data"] = self._gather_blocks(
+                        job["ids"], job["cur"] - job["start"])
+        finally:
+            self._release_both()
+        if not jobs and not drops:
+            return
+        with DEVICE_GUARD.shared(), torch.no_grad():
+            for job in jobs:
+                job["data"] = self._repl_to_host(job["data"])
+        reg = telemetry.get_registry()
+        for job in jobs:
+            req = job["req"]
+            # host tensors, not wire dicts: an in-process buddy takes them
+            # as they are, a wire sink encodes them (``repl_doc_to_wire``)
+            doc = {"trace_id": req.trace_id, "origin": self._repl_origin,
+                   "req_id": req.id, "weight_version": req.weight_version,
+                   "block_size": bs, "pos": job["pos"],
+                   "last_tok": job["last_tok"], "tokens": job["tokens"],
+                   "start": job["start"], "gen_state": job["gen_state"],
+                   "traceparent": req.traceparent
+                   or telemetry.make_traceparent(req.trace_id),
+                   "data": list(job["data"])}
+            try:
+                sink(doc)
+            except Exception:                         # noqa: BLE001
+                continue          # buddy unreachable: the range retries
+            with self._lock:
+                self._repl_sent[req.id] = (job["complete"], req.trace_id)
+            reg.counter(
+                "fleet_kv_replicated_blocks_total",
+                "decode-KV blocks streamed to the rendezvous buddy "
+                "replica (block-granular cadence — the recovery set "
+                "SIGKILL resumes from)").inc(job["cur"] - job["start"])
+            flight_record("fleet_kv_replicate", req=req.id,
+                          trace=req.trace_id, start=job["start"],
+                          blocks=job["cur"] - job["start"], pos=job["pos"])
+        for tid in drops:
+            try:
+                sink({"drop": tid})
+            except Exception:                         # noqa: BLE001
+                pass              # the store's cap ages it out instead
+
+    def _repl_to_host(self, gathered: list) -> list:
+        """One shipment's gathered blocks as pageable host tensors, which
+        the buddy keeps: copied device→host into the engine's pinned
+        staging buffers, then host→host. A pinned allocation a shipment
+        goes through CUDA's host allocator while the loop launches
+        and stalls its steps (``port_probe.py repl`` reads both forms),
+        and the buddy would hold the pinned pages until the request
+        ends. Complete when this returns."""
+        if self.device.type != "cuda":
+            return list(gathered)         # index_select made fresh copies
+        if self._repl_stage is None:      # once a replica: a whole table
+            width = self._bt.shape[1]
+            self._repl_stage = [
+                torch.empty(c[:, :width].numel(), dtype=c.dtype,
+                            pin_memory=True) for c in self.pool.caches]
+        views = [st[:g.numel()].view(g.shape)
+                 for st, g in zip(self._repl_stage, gathered)]
+        for v, g in zip(views, gathered):
+            v.copy_(g, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        done.synchronize()
+        return [torch.empty(v.shape, dtype=v.dtype).copy_(v)
+                for v in views]
+
+    def prefill_only(self, prompt: Sequence[int],
+                     sampling: Optional[SamplingParams] = None, *,
+                     timeout_s: Optional[float] = None,
+                     traceparent: Optional[str] = None
+                     ) -> tuple[Request, Optional[SpillEntry]]:
+        """The prefill tier's entry point (``hetu_tpu/serving/engine.py:
+        1415``): admit ``prompt``, run its prefill through the normal
+        iterations, and return ``(req, entry)``: ``entry`` is the evicted
+        :class:`SpillEntry` holding the prompt's KV and the first token,
+        ready for ``submit(resume=entry)`` on a decode-tier engine. It is
+        None when the request finished with its first token (EOS or
+        ``max_tokens=1``: ``req.result()`` is the answer) or was
+        rejected. Steps the engine itself when its loop is not running;
+        otherwise waits."""
+        req = self.submit(prompt, sampling, handoff=True,
+                          traceparent=traceparent)
+        if req.status == "rejected":
+            return req, None
+        deadline = None if timeout_s is None \
+            else time.monotonic() + timeout_s
+        while req.status != "prefilled" and not req.done.is_set():
+            if deadline is not None and time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"prefill_only: request #{req.id} not prefilled "
+                    f"within {timeout_s}s (status {req.status!r})")
+            if self._thread is None:
+                self.step()
+            else:
+                err = self._loop_error
+                if err is not None:
+                    raise RuntimeError(
+                        f"the serving loop died: {err!r}") from err
+                time.sleep(_BOUNDARY_POLL_S * 10)
+        if req.done.is_set():
+            return req, None
+        return req, self.evict_request(req)
 
     def _finish(self, slot: int, now: float) -> None:
         req = self._slot_req[slot]
@@ -1468,14 +1845,17 @@ class ServingEngine:
         """Render the request's lifecycle as its own Perfetto track
         (``hetu_tpu/serving/engine.py:2443``): one span per phase (queued,
         prefill chunks, decode) on a synthetic tid named after its
-        ``trace_id``. Host-side, only when the tracer is on."""
+        ``trace_id`` and derived from it (``telemetry.spans.
+        request_track_tid``: a fleet's router and replicas in one process
+        put one request's fragments on one track). Host-side, only when
+        the tracer is on."""
         tracer = telemetry.get_tracer()
         if not tracer.enabled:
             return
         # request events use time.monotonic, the tracer's epoch
         # perf_counter: bridge by the current offset
         off = (time.perf_counter() - tracer.epoch) - time.monotonic()
-        tid = REQ_TRACK_BASE + req.id
+        tid = request_track_tid(req.trace_id)
         tracer.name_track(tid, f"req {req.trace_id}")
 
         def span(name, start, dur, **attrs):
@@ -1510,14 +1890,14 @@ class ServingEngine:
                   "KV blocks parked in the host spill arena "
                   "(preempted requests awaiting resume)").set(
             self.spill_arena.blocks_held)
-        # the port has no peer tier and no buddy replica store: the host
-        # arena holds every parked block
+        # the port has no peer tier: the host arena and the buddy
+        # replica store hold every parked block
         g = reg.gauge(
             "spill_tier_blocks",
             "KV blocks parked per spill tier (host arena, peer tier, "
             "buddy replica store)")
         g.set(self.spill_arena.blocks_held, tier="host")
-        g.set(0, tier="replica")
+        g.set(self.kv_replica_store.blocks_held, tier="replica")
         if self.tenancy is not None:
             reg.gauge(
                 "adapter_pages_in_use",
@@ -1624,8 +2004,7 @@ class ServingEngine:
                 except AdapterArenaFull:
                     pass    # loads at this adapter's first admission
         finally:
-            self._lock.release()
-            self._step_lock.release()
+            self._release_both()
         if flushed:
             telemetry.get_registry().counter(
                 "serving_prefix_flushed_total",
@@ -1652,8 +2031,7 @@ class ServingEngine:
             if uid is not None:
                 flushed = self.prefix_cache.flush_adapter(uid)
         finally:
-            self._lock.release()
-            self._step_lock.release()
+            self._release_both()
         return {"flushed_blocks": flushed}
 
     def _admission_gate(self, req: Request) -> bool:
@@ -1771,7 +2149,8 @@ class ServingEngine:
             self._stream_interrupt(r)
         return out
 
-    def swap_params(self, params: Mapping[str, torch.Tensor]) -> dict:
+    def swap_params(self, params: Mapping[str, torch.Tensor], *,
+                    version: Optional[int] = None) -> dict:
         """Install new weights on a DRAINED engine: the replica-local leg
         of a weight push (``hetu_tpu/serving/engine.py:1671``).
 
@@ -1788,9 +2167,10 @@ class ServingEngine:
         W8A8 tree (``w8a8=``) is re-quantized from the new weights into
         its own tensors (``hetu_tpu/serving/engine.py:1693-1696``): the
         decode lane reads them by address, so a new tree would leave it
-        serving the old weights. Bumps
-        ``weight_version`` by one on the engine and
-        the pool and flushes the prefix cache's stale nodes. A draft
+        serving the old weights. Sets ``weight_version`` on the engine
+        and the pool to ``version`` (a fleet publisher's generation), or
+        the previous one plus one, and flushes the prefix cache's stale
+        nodes. A draft
         model's weights are not swapped (as in ``hetu_tpu``). Returns
         ``{"version", "flushed_blocks"}``."""
         named = dict(self.model.named_parameters())
@@ -1827,7 +2207,8 @@ class ServingEngine:
                                      self._w8a8_wq or ()):
                     if tree is not None:
                         blk.mlp.prequantize(into=tree)
-            self.weight_version += 1
+            self.weight_version = int(version) if version is not None \
+                else self.weight_version + 1
             self.pool.weight_version = self.weight_version
             flushed = self.prefix_cache.set_version(self.weight_version)
             if flushed:
@@ -1837,8 +2218,7 @@ class ServingEngine:
                     "computed under superseded weights").inc(flushed)
             self._record_gauges()
         finally:
-            self._lock.release()
-            self._step_lock.release()
+            self._release_both()
         flight_record("weight_swap", version=self.weight_version,
                       flushed_blocks=flushed)
         return {"version": self.weight_version, "flushed_blocks": flushed}
@@ -1944,6 +2324,11 @@ class ServingEngine:
         """Stop the loop after its current iteration and join it. Raises
         when the loop died of an error, or did not stop within
         ``_STOP_JOIN_S``."""
+        if self._repl_stop is not None:   # the replication stream
+            self._repl_stop.set()
+            if self._repl_thread is not None:
+                self._repl_thread.join(timeout=_STOP_JOIN_S)
+            self._repl_thread = None
         if self._thread is None:
             return
         self._stop.set()

@@ -184,6 +184,10 @@ class SpillEntry:
     tokens: list                     # emitted so far (replayed on a
     #                                  cross-engine resume's Request)
     weight_version: int
+    traceparent: Optional[str] = None  # originating trace context: a
+    #                                  resume on another engine adopts
+    #                                  it, so both engines' spans share
+    #                                  one trace_id
     gen_state: Optional[torch.Tensor] = None
     adapter: int = 0                 # adapter KV-compat uid the forward
     #                                  ran under (0 = base; see

@@ -93,6 +93,13 @@ class Request:
     #                                    prefix cache (skipped prefill)
     weight_version: int = 0            # weight generation the request
     #                                    was admitted (and decoded) under
+    handoff: bool = False              # prefill-tier mode: the engine
+    #                                    parks the request after its
+    #                                    first token (status
+    #                                    "prefilled", slot inactive but
+    #                                    owned) instead of decoding on;
+    #                                    the fleet evicts its KV to a
+    #                                    decode-tier replica
     drafted: int = 0                   # draft tokens this request saw
     accepted: int = 0                  # drafts the verify lane accepted
     preemptions: int = 0               # times evicted mid-decode
@@ -297,9 +304,11 @@ class Scheduler:
 
     def blocks_needed(self, req: Request) -> int:
         """Worst-case NEW blocks ``req`` needs (gross of prefix sharing
-        — the resume plan's price)."""
-        return -(-(len(req.prompt) + req.sampling.max_tokens)
-                 // self.block_size)
+        — the resume plan's price). A handoff request decodes elsewhere:
+        the prefill tier writes its prompt and first token only, so it is
+        priced P + 1, not P + max_tokens."""
+        tail = 1 if req.handoff else req.sampling.max_tokens
+        return -(-(len(req.prompt) + tail) // self.block_size)
 
     def preemption_victim(self, candidate: Request,
                           running) -> Optional[int]:
@@ -378,7 +387,10 @@ class Scheduler:
         allocated) and charged to this request."""
         bs = self.block_size
         P = len(req.prompt)
-        total = -(-(P + req.sampling.max_tokens) // bs)   # worst case
+        # a handoff request parks after its first token: reserving
+        # max_tokens of decode room would only throttle the prefill tier
+        tail = 1 if req.handoff else req.sampling.max_tokens
+        total = -(-(P + tail) // bs)                      # worst case
         shared, partial = self.cache.match(req.prompt.tolist(),
                                            adapter=req.kv_adapter)
         shared = shared[:total]

@@ -12,20 +12,21 @@ coordinator with the engine attached. ``rpc/client.py``'s
 ``CoordinatorClient`` has the matching ``serving_*`` calls and
 ``generate_stream``.
 
-Of ``SERVING_COMMANDS`` this module answers SUBMIT, RESULT, GENERATE
-the engine verbs ESTATUS, CANCELQ, EVICT and STOPENGINE, and DUMPOBS
+The serving object is one engine or a fleet
+:class:`~hetu_tpu_torch.serving.router.Router`: SUBMIT, RESULT and
+GENERATE take either; FLEET, DRAIN, RESUME and FLEETMETRICS need a
+Router; the engine verbs ESTATUS, CANCELQ, EVICT, PREFILL (the prefill
+tier of a prefill/decode split), STOPENGINE and the fleet KV verbs
+KVEXPORT, KVIMPORT, KVREPL, KVFETCH and KVBUDDY need an engine; DUMPOBS
 (this process's observability bundle: the chrome trace of the global
-tracer, the flight ring and the process identity, ``hetu_tpu``'s
-schema). The rest need modules the port does not have yet, and each
-answers the one line ``ERR <VERB> not ported``: FLEET, DRAIN, RESUME and
-FLEETMETRICS (the router), PREFILL (the prefill/decode handoff),
-KVEXPORT, KVIMPORT, KVREPL, KVFETCH and KVBUDDY (the fleet KV plane) and
-SWAPWEIGHTS (the distributed checkpoint).
+tracer, the flight ring and the process identity, ``hetu_tpu``'s schema)
+takes either. SWAPWEIGHTS needs the distributed checkpoint, which the
+port does not have yet: it answers the one line ``ERR SWAPWEIGHTS not
+ported``.
 """
 
 from __future__ import annotations
 
-import base64
 import json
 import os
 import threading
@@ -33,10 +34,8 @@ import time
 import urllib.parse
 from typing import Optional
 
-import torch
-
 from hetu_tpu_torch import telemetry
-from hetu_tpu_torch.serving.kv_pool import SpillEntry
+from hetu_tpu_torch.serving.fleet import spill_from_wire, spill_to_wire
 from hetu_tpu_torch.serving.scheduler import Request, SamplingParams
 
 
@@ -66,55 +65,6 @@ def submit_payload(engine, tok: str) -> Request:
     """SUBMIT handler: decode one request payload and queue it."""
     p = decode_payload(tok)
     return engine.submit(p["prompt"], sampling_from_payload(p))
-
-
-# -- the KV spill on the wire --------------------------------------------------
-
-
-def _tensor_to_wire(t: torch.Tensor) -> dict:
-    """One tensor → a JSON-safe dict (dtype + shape + raw bytes, base64).
-    Lossless for every arena dtype, bf16 and the int8 pages and their
-    fp32 scales included."""
-    t = t.detach().contiguous().cpu()
-    raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
-    return {"dtype": str(t.dtype).removeprefix("torch."),
-            "shape": list(t.shape),
-            "b64": base64.b64encode(raw).decode("ascii")}
-
-
-def _tensor_from_wire(d: dict) -> torch.Tensor:
-    raw = bytearray(base64.b64decode(d["b64"]))
-    return torch.frombuffer(raw, dtype=torch.uint8).view(
-        getattr(torch, d["dtype"])).reshape(d["shape"])
-
-
-def spill_to_wire(entry: SpillEntry) -> dict:
-    """A :class:`SpillEntry` for the line protocol: the payload that moves
-    an evicted request's KV blocks to another engine."""
-    d = {"req_id": entry.req_id, "n_blocks": entry.n_blocks,
-         "block_size": entry.block_size, "pos": entry.pos,
-         "last_tok": entry.last_tok,
-         "tokens": [int(t) for t in entry.tokens],
-         "weight_version": entry.weight_version, "adapter": entry.adapter,
-         "data": [_tensor_to_wire(a) for a in entry.data]}
-    if entry.gen_state is not None:
-        # a sampled request's generator state travels with its KV: a
-        # resume without it would fork the sample stream
-        d["gen_state"] = _tensor_to_wire(entry.gen_state)
-    return d
-
-
-def spill_from_wire(d: dict) -> SpillEntry:
-    gs = d.get("gen_state")
-    return SpillEntry(
-        req_id=int(d["req_id"]),
-        data=tuple(_tensor_from_wire(a) for a in d["data"]),
-        n_blocks=int(d["n_blocks"]), block_size=int(d["block_size"]),
-        pos=int(d["pos"]), last_tok=int(d["last_tok"]),
-        tokens=[int(t) for t in d["tokens"]],
-        weight_version=int(d["weight_version"]),
-        gen_state=_tensor_from_wire(gs) if gs is not None else None,
-        adapter=int(d.get("adapter", 0)))
 
 
 class ServingServer:
@@ -177,10 +127,9 @@ SERVING_COMMANDS = ("SUBMIT", "RESULT", "GENERATE",
                     "KVEXPORT", "KVIMPORT", "KVREPL", "KVFETCH",
                     "KVBUDDY")
 
-#: the verbs whose modules the port does not have yet
-NOT_PORTED = ("FLEET", "DRAIN", "RESUME", "FLEETMETRICS", "PREFILL",
-              "KVEXPORT", "KVIMPORT", "KVREPL", "KVFETCH", "KVBUDDY",
-              "SWAPWEIGHTS")
+#: the verbs whose modules the port does not have yet (SWAPWEIGHTS: the
+#: distributed checkpoint)
+NOT_PORTED = ("SWAPWEIGHTS",)
 
 
 _idem_init_lock = threading.Lock()
@@ -339,6 +288,24 @@ def handle_serving_command(engine, cmd: str, args: list) -> Optional[str]:
         return "ERR serving disabled"
     if cmd in NOT_PORTED:
         return f"ERR {cmd} not ported"
+    if cmd in ("FLEET", "DRAIN", "RESUME", "FLEETMETRICS"):
+        if not hasattr(engine, "fleet_status"):
+            return "ERR not a fleet (attach a serving.router.Router)"
+        try:
+            if cmd == "FLEET":
+                return f"VAL {encode_payload(engine.fleet_status())}"
+            if cmd == "FLEETMETRICS":
+                # federated Prometheus text (replica-labeled, plus the
+                # _fleet aggregates), URL-quoted like METRICS/HEALTHZ
+                return "VAL " + urllib.parse.quote(
+                    engine.fleet_metrics_text(), safe="")
+            if cmd == "DRAIN":
+                n = engine.drain(args[0])
+                return f"VAL {encode_payload({'requeued': n})}"
+            engine.resume(args[0])
+            return "OK"
+        except Exception as e:                    # noqa: BLE001
+            return f"ERR {type(e).__name__}: {e}"
     try:
         if cmd == "SUBMIT":
             p = decode_payload(args[0])
@@ -376,17 +343,24 @@ def handle_serving_command(engine, cmd: str, args: list) -> Optional[str]:
 
 
 def _handle_engine_command(engine, cmd: str, args: list) -> str:
-    """The engine-process verbs: ESTATUS, CANCELQ, EVICT, STOPENGINE."""
+    """The engine-process verbs (ESTATUS, CANCELQ, EVICT, PREFILL,
+    STOPENGINE, the fleet KV verbs) and DUMPOBS. A Router front door
+    answers ESTATUS with what it has and refuses the engine-only verbs."""
     if cmd == "ESTATUS":
-        sched = engine.scheduler
-        doc = {"load": engine.load,
-               "weight_version": engine.weight_version,
-               "has_work": engine.has_work(),
+        sched = getattr(engine, "scheduler", None)
+        doc = {"load": getattr(engine, "load", 0),
+               "weight_version": getattr(engine, "weight_version", 0),
+               "has_work": engine.has_work()
+               if hasattr(engine, "has_work") else False,
                # wall-clock stamp mid-RTT: the caller's offset handshake
                "ts_unix": round(time.time(), 6),
-               "depth": sched.depth,
-               "occupancy": round(sched.occupancy, 4),
-               "block_size": int(engine.pool.block_size)}
+               "depth": getattr(sched, "depth", 0) if sched else 0,
+               "occupancy": round(getattr(sched, "occupancy", 0.0), 4)
+               if sched else 0.0,
+               # the router's prefix directory hashes whole-block prefixes
+               # at this replica's block size
+               "block_size": int(getattr(getattr(engine, "pool", None),
+                                         "block_size", 0) or 0)}
         return f"VAL {encode_payload(doc)}"
     if cmd == "DUMPOBS":
         # this process's observability bundle: the local chrome trace,
@@ -404,6 +378,8 @@ def _handle_engine_command(engine, cmd: str, args: list) -> str:
         engine.stop()
         return "OK"
     if cmd == "CANCELQ":
+        if not hasattr(engine, "cancel_queued"):
+            return "ERR not an engine"
         p = decode_payload(args[0])
         moved = engine.cancel_queued({int(i) for i in p["ids"]})
         out = []
@@ -427,4 +403,84 @@ def _handle_engine_command(engine, cmd: str, args: list) -> str:
         doc = {"status": req.status,
                "spill": spill_to_wire(entry) if entry is not None else None}
         return f"VAL {encode_payload(doc)}"
+    if cmd == "PREFILL":
+        if not hasattr(engine, "prefill_only"):
+            return "ERR not an engine"
+        p = decode_payload(args[0])
+        req, entry = engine.prefill_only(p["prompt"],
+                                         sampling_from_payload(p),
+                                         traceparent=p.get("traceparent"))
+        if req.status == "rejected":
+            return f"ERR rejected: {req.error}"
+        if entry is None:
+            doc = {"done": True, "id": req.id, "trace_id": req.trace_id,
+                   "result": req.result()}
+        else:
+            doc = {"done": False, "id": req.id, "trace_id": req.trace_id,
+                   "tokens": [int(t) for t in req.tokens],
+                   "weight_version": req.weight_version,
+                   "spill": spill_to_wire(entry)}
+        return f"VAL {encode_payload(doc)}"
+    if cmd == "KVEXPORT":
+        if not hasattr(engine, "export_prefix"):
+            return "ERR not an engine"
+        entry = engine.export_prefix(decode_payload(args[0])["tokens"])
+        doc = {"spill": spill_to_wire(entry) if entry is not None else None}
+        return f"VAL {encode_payload(doc)}"
+    if cmd == "KVIMPORT":
+        if not hasattr(engine, "import_prefix"):
+            return "ERR not an engine"
+        p = decode_payload(args[0])
+        ok = engine.import_prefix(spill_from_wire(p["spill"]))
+        return f"VAL {encode_payload({'ok': bool(ok)})}"
+    if cmd in ("KVREPL", "KVFETCH"):
+        store = getattr(engine, "kv_replica_store", None)
+        if store is None:
+            return "ERR no replica store"
+        p = decode_payload(args[0])
+        if cmd == "KVREPL":
+            store.put(p)
+            return "OK"
+        entry = store.fetch(p["trace_id"])
+        doc = {"spill": spill_to_wire(entry) if entry is not None else None}
+        return f"VAL {encode_payload(doc)}"
+    if cmd == "KVBUDDY":
+        if not hasattr(engine, "configure_replication"):
+            return "ERR not an engine"
+        p = decode_payload(args[0])
+        if not p.get("host"):
+            engine.configure_replication(None)
+            return "OK"
+        engine.configure_replication(
+            _kv_put_sink(p), origin=p.get("origin", ""),
+            cadence_s=float(p.get("cadence_s", 0.02)))
+        return "OK"
     return "ERR unknown command"
+
+
+def _kv_put_sink(p: dict):
+    """The KVBUDDY replication sink: each shipment goes to the buddy's
+    front door as KVREPL, over a connection the replication thread opens
+    on its first shipment and drops on any failure (the next cadence
+    reconnects)."""
+    from hetu_tpu_torch.rpc.client import CoordinatorClient
+    from hetu_tpu_torch.serving.fleet import repl_doc_to_wire
+    box: dict = {}
+
+    def sink(doc):
+        cli = box.get("cli")
+        if cli is None:
+            cli = CoordinatorClient(int(p["port"]), host=p["host"],
+                                    token=p.get("token") or None,
+                                    timeout=5.0, retries=1)
+            box["cli"] = cli
+        try:
+            cli.serving_kv_put(repl_doc_to_wire(doc))
+        except Exception:
+            box.pop("cli", None)
+            try:
+                cli.close()
+            except OSError:
+                pass
+            raise
+    return sink

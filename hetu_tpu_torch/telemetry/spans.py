@@ -122,6 +122,19 @@ class _Span:
 REQ_TRACK_BASE = 1 << 40
 
 
+def request_track_tid(trace_id: str) -> int:
+    """The Perfetto track of one request: ``REQ_TRACK_BASE`` plus its
+    12-hex-digit trace id (a CRC of a foreign id). ``hetu_tpu`` offsets
+    by the request's id instead; keyed by the trace id, the router's
+    fragments and each in-process replica's phases of one request share
+    one track, where several engines' request ids would collide."""
+    try:
+        return REQ_TRACK_BASE + int(trace_id[:12], 16)
+    except ValueError:
+        import zlib
+        return REQ_TRACK_BASE + zlib.crc32(trace_id.encode())
+
+
 class Tracer:
     """Collects nested SpanEvents; exports Chrome trace / JSONL records."""
 

@@ -16,6 +16,8 @@ beside ``chip_smoke.py``, whose phase functions they run:
     python3 port_probe.py pools             # a Trainer's shared graph pool
     python3 port_probe.py oracle            # the teacher-forced oracle's cost
     python3 port_probe.py noise             # bf16 engine and oracle vs fp32
+    python3 port_probe.py fleet [PHASE ...] # the fleet phases alone
+    python3 port_probe.py repl              # decode steps under KV replication
 
 ``kernels`` builds every kernel, prints the ``ptxas`` report of the
 tensor-core instances and runs ``phase_kernels``, ``phase_train_kernels``
@@ -24,6 +26,13 @@ tensor-core instances and runs ``phase_kernels``, ``phase_train_kernels``
 against its plain version, then timed. A failing phase is printed and
 the next one still runs; the exit code is nonzero if any failed. It is
 the short first call for a kernel that has not run on a card yet.
+
+``fleet`` builds the kernels, serves ``chip_smoke.py``'s GPT-2 small
+burst once on one engine (its tokens/s, TTFT and TPOT, and the oracle
+memo of its prompts, as ``phase_engine`` hands them on) and runs the
+fleet phases: ``fleet``, ``kill``, ``push``, ``pd``, ``server`` and
+``rollout`` (all by default, or those named), about 2 minutes of command
+time in all.
 
 ``fused`` times the fused CE forward (#5), dH (#6) and dW (#7) kernels,
 bf16, E = 768, at the combo's N = 49,152 tokens against V = 50,257,
@@ -147,6 +156,22 @@ against the fp32 one and against each other, the shortfall of the
 engine's tokens under the fp32 oracle, and the requests where the
 engine is farther from fp32 than the bf16 oracle is: whether the engine
 sits within bf16's own reach of the exact arithmetic.
+
+``repl`` times the steady decode steps of one GPT-2 small replica
+serving ``gpt2_fleet_kill``'s 16 decode requests (64 new tokens), as
+``chip_smoke.decode_step_ms`` does, with its decode KV replicated to a
+``KVReplicaStore`` every 20 ms or not, in turns of four variants: off;
+``pinned``, each shipment's host copy in fresh pinned buffers (the copy
+the replication stream made before its staging buffers; the allocation
+and the copy timed apart); ``staged``, the engine's own (pinned staging
+allocated once, pageable copies handed on); ``gather``, the snapshot and
+the device gather under the iteration lock, no host copy and no store.
+All four, then again with ``REPL_BALLAST`` more objects on the heap.
+Each run logs a host timeline (a step's lock wait and span; the
+replication thread's lock hold, gather, host copy and store; the
+garbage collector's passes) and prints, per variant, the step times and,
+over the steps slower than 3x the off runs' median, what they
+overlapped.
 
 Each line of output is one JSON object, as ``chip_smoke.py`` prints them.
 Without a CUDA device it exits nonzero at once.
@@ -1172,6 +1197,247 @@ def noise() -> int:
     return 0
 
 
+def fleet(which) -> int:
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    from hetu_tpu_torch.models import GPTConfig, GPTLMHeadModel
+    from hetu_tpu_torch.ops import _build
+    from hetu_tpu_torch.serving import SamplingParams, ServingEngine
+    dev = torch.device("cuda", 0)
+    card = cs.nvidia_smi()
+    cs.emit(phase="device", nvidia_smi=card)
+    _build.build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GPTConfig.small()
+    model = GPTLMHeadModel(cfg, device=dev, seed=cs.SEED).eval()
+    burst, shared = cs.workload(cfg.vocab_size)
+    sp = SamplingParams(max_tokens=64)
+    warm = ServingEngine(model, slots=2, max_len=512, prefill_chunk=64,
+                         block_size=16, device=dev)
+    warm.generate_many([burst[0][:70]], SamplingParams(max_tokens=3))
+    del warm
+    run = cs.serve(cs.fleet_engine(model, dev), burst, shared, sp)
+    reqs = run["reqs"]
+    timings = [r.timing() for r in reqs]
+    ttft = [t["ttft_ms"] for t in timings]
+    tpot = [t["decode_ms"] / (len(r.tokens) - 1)
+            for t, r in zip(timings, reqs)]
+    perf = dict(burst_tokens_per_s=sum(len(r.tokens) for r in reqs)
+                / run["t_burst"], ttft_ms_p50=cs.percentile(ttft, 50),
+                ttft_ms_p99=cs.percentile(ttft, 99),
+                tpot_ms_p50=cs.percentile(tpot, 50))
+    cs.emit(phase="fleet_engine", card=card, **perf)
+    memo: dict = {}
+    cs.generate_oracle("fleet_engine_oracle", model, reqs + run["reqs2"],
+                       64, dev, memo)
+    del run, reqs
+    gc.collect()
+    gpt2 = dict(model=model, perf=perf, oracle=memo)
+    colocated: dict = {}
+    failed = 0
+    for name in which or ("fleet", "kill", "push", "pd", "server",
+                          "rollout"):
+        t0 = time.perf_counter()
+        try:
+            if name == "fleet":
+                _, colocated = cs.phase_gpt2_fleet(dev, card, gpt2)
+            elif name == "pd":
+                cs.phase_gpt2_fleet_pd(dev, card, gpt2, colocated)
+            elif name == "rollout":
+                cs.phase_gpt2_rollout(dev, card)
+            else:
+                getattr(cs, f"phase_gpt2_fleet_{name}")(dev, card, gpt2)
+        except Exception:                           # noqa: BLE001
+            traceback.print_exc()
+            failed += 1
+        cs.emit(phase="fleet_probe", which=name,
+                seconds=time.perf_counter() - t0)
+    return 1 if failed else 0
+
+
+#: Python objects added to the heap for ``repl``'s second pass
+REPL_BALLAST = 4_000_000
+
+
+class _TimedLock:
+    """A lock that logs, per acquisition, its thread, its wait and its
+    hold on a shared timeline."""
+
+    def __init__(self, lock, log):
+        self._lk, self._log = lock, log
+
+    def acquire(self, blocking=True, timeout=-1):
+        t0 = time.perf_counter()
+        got = self._lk.acquire(blocking, timeout)
+        if got:
+            self._t = (t0, time.perf_counter())
+        return got
+
+    def release(self):
+        import threading
+        t0, t1 = self._t
+        t2 = time.perf_counter()
+        self._lk.release()
+        self._log.append((threading.current_thread().name, "lock",
+                          t0, t1, t2))
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self.release()
+
+    def locked(self):
+        return self._lk.locked()
+
+
+def repl_run(model, dev, prompts, variant) -> dict:
+    """One decode run of ``variant`` (see the module docstring) with its
+    host timeline."""
+    import chip_smoke as cs
+    from hetu_tpu_torch.serving import KVReplicaStore, SamplingParams
+    eng = cs.fleet_engine(model, dev)
+    store = KVReplicaStore()
+    log: list = []
+    eng._step_lock = _TimedLock(eng._step_lock, log)
+
+    def timed(kind, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            log.append(("repl", kind, t0, t0, time.perf_counter()))
+            return out
+        return run
+
+    eng._gather_blocks = timed("gather", eng._gather_blocks)
+
+    def pinned(gathered):
+        # ``_to_host``'s copy into fresh buffers, its two parts timed
+        out = timed("pin_alloc", lambda: [
+            torch.empty(g.shape, dtype=g.dtype, pin_memory=True)
+            for g in gathered])()
+
+        def copy():
+            for host, g in zip(out, gathered):
+                host.copy_(g, non_blocking=True)
+            torch.cuda.current_stream(dev).synchronize()
+        timed("copy", copy)()
+        return out
+    if variant == "pinned":
+        eng._repl_to_host = timed("to_host", pinned)
+    elif variant == "gather":
+        eng._repl_to_host = timed("to_host", lambda g: [])
+    else:
+        eng._repl_to_host = timed("to_host", eng._repl_to_host)
+    sink = (lambda doc: None) if variant == "gather" else store.put
+    if variant != "off":
+        eng.configure_replication(timed("sink", sink), origin="probe")
+    steps = []
+    gc_t: dict = {}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_t["t0"] = time.perf_counter()
+        elif "t0" in gc_t:
+            t0 = gc_t.pop("t0")
+            log.append(("gc", f"gc{info['generation']}", t0, t0,
+                        time.perf_counter()))
+    gc.callbacks.append(on_gc)
+    try:
+        for p in prompts:
+            eng.submit(p, SamplingParams(max_tokens=cs.KILL_NEW))
+        while eng.has_work():
+            pf = eng.lane_iters["prefill"]
+            n = len(log)
+            t0 = time.perf_counter()
+            eng.step()
+            t1 = time.perf_counter()
+            if eng.lane_iters["prefill"] == pf:
+                mine = [e for e in log[n:] if e[0] == "MainThread"]
+                wait = mine[0][3] - mine[0][2] if mine else 0.0
+                steps.append((t0, t1, wait))
+    finally:
+        gc.callbacks.remove(on_gc)
+        eng.configure_replication(None)
+        eng.stop()
+    ms = [(t1 - t0) * 1e3 for t0, t1, _ in steps]
+    return dict(variant=variant, steps=steps, log=log, ms=ms,
+                shipments=store.put_total)
+
+
+def repl_summary(run, slow_ms) -> dict:
+    import chip_smoke as cs
+    ms = run["ms"]
+    slow = [(t0, t1, w) for (t0, t1, w), m in zip(run["steps"], ms)
+            if m > slow_ms]
+    repl = [e for e in run["log"] if e[0] != "MainThread"]
+    over = {}
+    for t0, t1, _ in slow:
+        for name, kind, a, b, c in repl:
+            if a < t1 and c > t0:
+                over[kind] = over.get(kind, 0) + 1
+    phase_ms = {}
+    for name, kind, a, b, c in repl:
+        phase_ms.setdefault(kind, []).append((c - a) * 1e3)
+    lock_hold = [(c - b) * 1e3 for name, kind, a, b, c in repl
+                 if kind == "lock"]
+    return dict(
+        variant=run["variant"], ballast=run.get("ballast", 0),
+        heap_objects=run.get("heap_objects"),
+        steps=len(ms),
+        ms_p50=cs.percentile(ms, 50), ms_p99=cs.percentile(ms, 99),
+        ms_max=max(ms), shipments=run["shipments"],
+        slow_over_ms=slow_ms, slow_steps=len(slow),
+        slow_lock_wait_ms_max=max((w * 1e3 for _, _, w in slow),
+                                  default=None),
+        sink_calls=sum(1 for e in repl if e[1] == "sink"),
+        slow_steps_overlapping=over,
+        repl_lock_hold_ms_max=max(lock_hold) if lock_hold else None,
+        repl_phase_ms={k: dict(n=len(v), p50=cs.percentile(v, 50),
+                               max=max(v)) for k, v in phase_ms.items()})
+
+
+def repl() -> int:
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    from hetu_tpu_torch.models import GPTConfig, GPTLMHeadModel
+    from hetu_tpu_torch.ops import _build
+    from hetu_tpu_torch.serving import SamplingParams, ServingEngine
+    dev = torch.device("cuda", 0)
+    card = cs.nvidia_smi()
+    cs.emit(phase="device", nvidia_smi=card)
+    _build.build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GPTConfig.small()
+    model = GPTLMHeadModel(cfg, device=dev, seed=cs.SEED).eval()
+    burst, _ = cs.workload(cfg.vocab_size)
+    prompts = [p for p in burst if len(p) <= 512 - cs.KILL_NEW][:16]
+    warm = ServingEngine(model, slots=2, max_len=512, prefill_chunk=64,
+                         block_size=16, device=dev)
+    warm.generate_many([burst[0][:70]], SamplingParams(max_tokens=3))
+    del warm
+    order = ["off", "pinned", "staged", "gather",
+             "gather", "staged", "pinned", "off"]
+    runs = []
+    ballast: list = []
+    for size in (0, REPL_BALLAST):
+        # a heap of chip_smoke.py's size by the fleet phases: a full
+        # collection then takes as long as it does there
+        ballast.extend([i] for i in range(size - len(ballast)))
+        for variant in order:
+            runs.append(repl_run(model, dev, prompts, variant))
+            runs[-1]["ballast"] = size
+            runs[-1]["heap_objects"] = len(gc.get_objects())
+            gc.collect()
+    base = cs.percentile([m for r in runs if r["variant"] == "off"
+                          for m in r["ms"]], 50)
+    for turn, run in enumerate(runs):
+        cs.emit(phase="repl_probe", card=card, turn=turn,
+                **repl_summary(run, 3 * base))
+    return 0
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("port_probe: no CUDA device is available", file=sys.stderr)
@@ -1196,6 +1462,10 @@ def main(argv) -> int:
         return oracle()
     if argv[:1] == ["noise"] and len(argv) == 1:
         return noise()
+    if argv[:1] == ["fleet"]:
+        return fleet(argv[1:])
+    if argv[:1] == ["repl"] and len(argv) == 1:
+        return repl()
     if argv[:1] in (["steps"], ["serve"], ["fused"], ["flash"]) \
             and len(argv) == 3:
         return in_turns(argv[0], argv[1], argv[2])

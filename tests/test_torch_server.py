@@ -7,14 +7,16 @@ its background loop running. Tokens through every client mode (GENERATE,
 SUBMIT + RESULT, ``generate_stream``) must equal JAX ``generate``
 exactly; the port's client must work against ``hetu_tpu``'s server and
 the other way round, with the same tokens and the same RESULT keys. The
-wire codec, the verb tuples, the verbs not ported yet, the engine verbs
-and the auth gate are checked against ``hetu_tpu``'s. Every wait has a
+wire codec, the verb tuples, the verb not ported yet (SWAPWEIGHTS), the
+verbs the fleet brings, the engine verbs and the auth gate are checked
+against ``hetu_tpu``'s. Every wait has a
 deadline and every server and loop stops in ``finally``.
 """
 
 import dataclasses
 import socket
 import time
+import urllib.parse
 
 import numpy as np
 import pytest
@@ -150,6 +152,160 @@ def test_verb_not_ported_answers_one_line(pair, verb):
         cli.close()
     finally:
         srv.stop()
+
+
+#: the verbs the in-process fleet brings (answered since the router, the
+#: prefill/decode handoff and the fleet KV plane were ported)
+PORTED_FLEET_VERBS = ("FLEET", "DRAIN", "RESUME", "FLEETMETRICS", "PREFILL",
+                      "KVEXPORT", "KVIMPORT", "KVREPL", "KVFETCH",
+                      "KVBUDDY")
+
+
+def _verb_case(pair, verb):
+    """(serving object, argument line, answer check, clean-up) for one
+    ported verb. The check reads the real answer and may run twice (in
+    process, then over the wire)."""
+    from hetu_tpu_torch.serving import (
+        KVReplicaStore, Router, SamplingParams,
+    )
+    from hetu_tpu_torch.serving.fleet import array_to_wire
+    from hetu_tpu_torch.telemetry import parse_prometheus
+    jmodel, params, model = pair
+    enc = server.encode_payload
+    prompt = _prompts(model.cfg.vocab_size, (20,), seed=31)[0]
+
+    def val(ans):
+        assert ans.startswith("VAL "), ans
+        return server.decode_payload(ans[4:])
+
+    if verb in ("FLEET", "DRAIN", "RESUME", "FLEETMETRICS"):
+        router = Router(poll_s=0.001)
+        router.register("r0", _engine(model), start=False)
+        if verb == "FLEET":
+            def check(ans):
+                doc = val(ans)
+                assert set(doc["replicas"]) == {"r0"} and doc["live"] in (
+                    0, 1) and doc["requeues_total"] == 0
+            return router, "", check, router.stop
+        if verb == "DRAIN":
+            def check(ans):
+                assert val(ans) == {"requeued": 0}
+                assert router.fleet_status()["replicas"]["r0"]["state"] \
+                    == "draining"
+            return router, "r0", check, router.stop
+        if verb == "RESUME":
+            router.drain("r0")
+
+            def check(ans):
+                assert ans == "OK"
+                assert router.fleet_status()["live"] == 1
+            return router, "r0", check, router.stop
+
+        def check(ans):
+            text = urllib.parse.unquote(ans[4:])
+            assert ans.startswith("VAL ")
+            assert parse_prometheus(text) is not None
+            assert text.startswith("# fleet federation")
+        return router, "", check, router.stop
+    eng = _engine(model)
+    sp = SamplingParams(max_tokens=NEW)
+    if verb == "PREFILL":
+        def check(ans):
+            doc = val(ans)
+            assert doc["done"] is False and len(doc["tokens"]) == 1
+            other = _engine(model)
+            r = other.submit(prompt, sp,
+                             resume=server.spill_from_wire(doc["spill"]))
+            other.run_until_drained()
+            assert list(r.tokens) == _jax_ref(jmodel, params, prompt)
+        return eng, enc({"prompt": prompt, "max_tokens": NEW}), check, None
+    if verb in ("KVEXPORT", "KVIMPORT"):
+        eng.generate_many([prompt], sp)
+        entry = eng.export_prefix(prompt)
+        if verb == "KVEXPORT":
+            def check(ans):
+                got = server.spill_from_wire(val(ans)["spill"])
+                assert got.n_blocks == len(prompt) // BLOCK
+                assert got.tokens == prompt[:got.n_blocks * BLOCK]
+                for a, b in zip(got.data, entry.data):
+                    assert torch.equal(a, b)
+            return eng, enc({"tokens": prompt}), check, None
+        fresh = _engine(model)
+
+        def check(ans):
+            assert val(ans) == {"ok": True}
+            r = fresh.submit(prompt, sp)
+            fresh.run_until_drained()
+            assert r.cached_tokens >= BLOCK
+            assert list(r.tokens) == _jax_ref(jmodel, params, prompt)
+        return fresh, enc({"spill": server.spill_to_wire(entry)}), check, \
+            None
+    block = torch.arange(2 * 1 * BLOCK * 3, dtype=torch.float32).reshape(
+        2, 1, BLOCK, 3)
+    doc = {"trace_id": "t9", "origin": "x", "req_id": 1,
+           "weight_version": 0, "block_size": BLOCK, "pos": BLOCK - 1,
+           "last_tok": 5, "tokens": [5], "start": 0,
+           "data": [array_to_wire(block)]}
+    if verb == "KVREPL":
+        def check(ans):
+            assert ans == "OK" and "t9" in eng.kv_replica_store
+            assert torch.equal(eng.kv_replica_store.fetch("t9").data[0],
+                               block)
+        return eng, enc(doc), check, None
+    if verb == "KVFETCH":
+        eng.kv_replica_store.put(doc)
+
+        def check(ans):
+            got = server.spill_from_wire(val(ans)["spill"])
+            assert got.pos == BLOCK - 1 and got.tokens == [5]
+            assert torch.equal(got.data[0], block)
+        return eng, enc({"trace_id": "t9"}), check, None
+    buddy = ServingServer(_engine(model), 0)
+    buddy.start()
+    buddy.wait_ready()
+
+    def check(ans):
+        assert ans == "OK" and eng._repl_sink is not None
+        eng._repl_sink(doc)           # the sink ships KVREPL to the buddy
+        assert "t9" in buddy.engine.kv_replica_store
+        assert isinstance(buddy.engine.kv_replica_store, KVReplicaStore)
+
+    def done():
+        eng.configure_replication(None)
+        eng.stop()
+        buddy.stop()
+    return eng, enc({"host": "127.0.0.1", "port": buddy.port,
+                     "origin": "r0", "cadence_s": 3600.0}), check, done
+
+
+@pytest.mark.parametrize("verb", PORTED_FLEET_VERBS)
+def test_fleet_verb_answers(pair, verb):
+    """Each verb the fleet brings gives its real answer, in process and
+    over the wire, and the server keeps serving; on a serving object
+    without the surface it needs, it answers ``hetu_tpu``'s refusal
+    line."""
+    serving, arg, check, done = _verb_case(pair, verb)
+    try:
+        check(server.handle_serving_command(serving, verb, [arg]))
+        srv = py_server.PyCoordinatorServer(0, serving=serving)
+        srv.start()
+        try:
+            cli = CoordinatorClient(srv.port, timeout=WAIT_S)
+            check(cli._cmd(f"{verb} {arg}".strip()))
+            assert cli.ping()
+            assert cli.rank("w0") == 0
+            cli.close()
+        finally:
+            srv.stop()
+    finally:
+        if done is not None:
+            done()
+
+    class _Bare:
+        _requests_by_id: dict = {}
+    bare = _Bare()
+    assert server.handle_serving_command(bare, verb, ["x"]) \
+        == jax_server.handle_serving_command(bare, verb, ["x"])
 
 
 def test_healthz_not_ported_and_metrics(pair):
